@@ -1,0 +1,127 @@
+"""Build, load and launch the hand-written CUDA kernels of `csrc/`.
+
+The sources are compiled at first use with `nvcc` into a plain shared
+library (no PyTorch headers: seconds to build instead of minutes) and
+loaded through ctypes. The library is cached under `_build/` in this
+package (listed in `.gitignore`), keyed by a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+
+Nothing here runs at import: the CPU tests import every module of the
+port, and the CPU has no `nvcc`. A missing `nvcc` or a failed build is
+an error, never a switch to the plain versions.
+
+`launch_counts` counts launches per kernel: a wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from morphik_core_tpu_torch import device as _device  # noqa: F401  (sets the TF32 flags)
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "maxsim.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile `csrc/maxsim.cu` if no library of this source and these
+    flags exists yet; returns the library path."""
+    src = SOURCE.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libmaxsim_{key}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.maxsim_q8_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+            lib.maxsim_q8_launch.restype = ci
+            lib.maxsim_launch.argtypes = [vp, vp, ci, vp, vp, vp] + [ci] * 5 + [vp]
+            lib.maxsim_launch.restype = ci
+            _lib = lib
+    return _lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def launch_maxsim_q8(q8, qs, d8, ds, mask, idx, out) -> None:
+    """K1 on already-checked CUDA tensors (see ops/maxsim.py::maxsim_q8)."""
+    n_rows, np_, dim = d8.shape
+    rc = library().maxsim_q8_launch(
+        _ptr(q8), _ptr(qs), _ptr(d8), _ptr(ds), _ptr(mask), _ptr(idx), _ptr(out),
+        out.shape[0], n_rows, np_, q8.shape[0], dim,
+        ctypes.c_void_p(torch.cuda.current_stream(d8.device).cuda_stream),
+    )
+    _check(rc, "maxsim_q8")
+    launch_counts["maxsim_q8"] += 1
+
+
+def launch_maxsim(q, docs, mask, idx, out) -> None:
+    """K2 on already-checked CUDA tensors (see ops/maxsim.py::maxsim)."""
+    n_rows, np_, dim = docs.shape
+    rc = library().maxsim_launch(
+        _ptr(q), _ptr(docs), int(docs.dtype == torch.bfloat16), _ptr(mask), _ptr(idx),
+        _ptr(out), out.shape[0], n_rows, np_, q.shape[0], dim,
+        ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
+    )
+    _check(rc, "maxsim")
+    launch_counts["maxsim"] += 1
