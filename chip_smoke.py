@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ColPali ingest -> retrieve path once on one
-NVIDIA H100, at the full ColQwen2.5-3B geometry with random weights.
+NVIDIA H100, at the full ColQwen2.5-3B geometry with random weights, in
+the shipped serving config (W8A8 tower with calibrated static activation
+scales, bf16 attention) and, before it, in bf16.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure; none is caught):
   1. the card's name and power limit; build the kernels of
-     morphik_core_tpu_torch/csrc/ with nvcc.
-  2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at ragged edges; times by CUDA events
-     (plain, kernel, kernel, plain).
-  3. ingest: the 3B model in bf16 embeds one batch of 8 pages at grid
-     20 x 28 from seeded uint8 patches, with the fused document FDE.
+     morphik_core_tpu_torch/csrc/ with nvcc (one process per source).
+  2. each kernel (K1, K2 MaxSim; K3 window attention) against its plain
+     PyTorch version on the card, at the main path's shapes and at
+     ragged edges; times by CUDA events (plain, kernel, kernel, plain).
+  3. ingest. (a) the earlier path: the 3B model in bf16 embeds one batch
+     of 8 pages at grid 20 x 28 from seeded uint8 patches and encodes the
+     text queries with the bf16 text tower. (b) the main
+     path: the same weights quantized to int8 in place, the shipped
+     embedder calibrates static scales on the committed pages (2 batches
+     of 8 at grid 24 x 20) and embeds the same 8 pages with the fused
+     document FDE; its embeddings are held against (a)'s.
   4. store: the 8 pages plus seeded synthetic unit multivectors into the
      index, over several device blocks.
   5. query with the shipped retrieval config (int8 ANN, pooled tier
-     factor 32, int8 rerank through the device cache): text queries and
-     one self-query that must come back top-1.
-  6. the same with rerank_dtype="bf16".
-  7. both kernels' launch counts grew during the main path (phases 3-6;
-     the counts are reset after phase 2's comparison launches).
+     factor 32, int8 rerank through the device cache), queries encoded by
+     the int8 text tower (held against (a)'s bf16 encodings): text
+     queries and one self-query that must come back top-1.
+  6. the same with rerank_dtype="bf16", and (a)'s bf16-encoded queries.
+  7. launch counts: the counts are reset just before each path and read
+     just after it; (a) launched K3, the main path (3b-6) launched all
+     three kernels.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -53,6 +62,24 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-4
 # K2: f32 dots over D = 128 accumulate in another order than the plain
 # einsum (~128 * 2^-24 relative each), summed over <= 640 query tokens.
 K2_RTOL, K2_ATOL = 1e-4, 1e-3
+# K3 in f32: the plain einsums and softmax sum in another order.
+K3_F32_ATOL = 1e-5
+# K3 in bf16: the plain einsum rounds the scores to bf16 before the f32
+# softmax, K3 keeps them in f32 as the Pallas kernel does, and both round
+# P and the output to bf16. Measured 1.5625e-2 on one NVIDIA H100 (one
+# bf16 ulp of an output in [2, 4)); the bound allows two.
+K3_BF16_ATOL = 3e-2
+WINDOW = 64  # patches per vision window (4 x 4 merge units of 2 x 2)
+# mean per-token cosine of the int8 + static embeddings against the bf16
+# tower's on the same pages and weights (the measure of the reference's
+# tests/test_quantized_serving.py, whose bound 0.98 is for the tiny
+# model). At 3B depth with random weights it measured 0.9603 on one
+# NVIDIA H100 (min 0.908): 32 + 36 quantized blocks compound the error.
+MIN_MEAN_COSINE = 0.95
+# the same measure for the text queries' embeddings (36 quantized
+# decoder layers, dynamic scales on the text side): it measured 0.9840
+# on one NVIDIA H100 (min 0.976) over the four queries.
+MIN_QUERY_COSINE = 0.97
 
 
 def log(msg: str) -> None:
@@ -64,7 +91,7 @@ def setup():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    if not (ROOT / "morphik_core_tpu_torch" / "csrc" / "maxsim.cu").is_file():
+    if not (ROOT / "morphik_core_tpu_torch" / "csrc" / "window_attention.cu").is_file():
         raise SystemExit("chip_smoke: morphik_core_tpu_torch/ not found beside this script")
     sys.path.insert(0, str(ROOT))
     from morphik_core_tpu_torch.device import kernels_available
@@ -119,7 +146,7 @@ def _compare(torch, name, kernel_fn, plain_fn, rtol, atol, exact=False):
 
 
 def kernel_checks(torch):
-    """Phase 2: K1 and K2 against their plain versions on the card."""
+    """Phase 2: K1, K2 and K3 against their plain versions on the card."""
     import numpy as np
 
     from morphik_core_tpu_torch.ops.maxsim import (
@@ -214,48 +241,166 @@ def kernel_checks(torch):
                        lambda: maxsim_plain(qfr, docs_r, mask_r), K2_RTOL, K2_ATOL))
     if float(maxsim(qfr, docs_r, mask_r)[5]) != 0.0:
         raise AssertionError("K2: a fully masked candidate must score exactly 0")
-    return main_k1, main_k2, k1 + k2
+    k3 = window_attention_checks(torch, gen)
+    return main_k1, main_k2, k3[0], k1 + k2 + k3
 
 
-def ingest(torch):
-    """Phase 3: the 3B model embeds one batch of 8 pages with fused FDE."""
+def window_attention_checks(torch, gen):
+    """K3 against `window_attention_plain`: the windowed vision blocks'
+    shape (8 pages at grid 20 x 28: T = 17,920 rows, 16 heads of 80) in
+    bf16 and f32, and a ragged edge (one window of 32, D = 64)."""
+    from morphik_core_tpu_torch.models.colqwen.config import VisionConfig
+    from morphik_core_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+
+    vc = VisionConfig()
+    t = BATCH * GRID[0] * GRID[1] * vc.merge_unit
+    cases = []
+    for label, (rows, heads, dim, win, dtype, atol) in {
+        f"K3 vision blocks bf16 T={t} H={vc.num_heads} D={vc.head_dim} window={WINDOW}":
+            (t, vc.num_heads, vc.head_dim, WINDOW, torch.bfloat16, K3_BF16_ATOL),
+        f"K3 vision blocks f32 T={t} H={vc.num_heads} D={vc.head_dim} window={WINDOW}":
+            (t, vc.num_heads, vc.head_dim, WINDOW, torch.float32, K3_F32_ATOL),
+        "K3 ragged edge f32 T=32 H=3 D=64 window=32 (one window)": (32, 3, 64, 32, torch.float32, K3_F32_ATOL),
+    }.items():
+        q, k, v = (torch.randn((rows, heads, dim), generator=gen, device="cuda").to(dtype) for _ in range(3))
+        cases.append(_compare(torch, label, lambda: window_attention(q, k, v, window=win),
+                              lambda: window_attention_plain(q, k, v, window=win), 0.0, atol))
+    return cases
+
+
+def _embed_pages(torch, emb, prepped):
+    """Two timed runs of the batch (the first includes library start-up);
+    returns (embeddings, fde rows, wall seconds, peak GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        embs, fdes = emb._embed_prepped(prepped, with_fde=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return embs, fdes, times, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _check_embeddings(model, embs, fdes):
     import numpy as np
 
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+
+    n_seq = len(model.image_sequence_ids(GRID[0] * GRID[1]))
+    for e, f in zip(embs, fdes):
+        if e.shape != (n_seq, model.cfg.embedding_dim) or (f is not None and f.shape != (FDEConfig().fde_dim,)):
+            raise AssertionError(f"ingest shapes {e.shape} {None if f is None else f.shape}")
+        if not (np.isfinite(e).all() and (f is None or np.isfinite(f).all())):
+            raise AssertionError("ingest produced non-finite values")
+        norms = np.linalg.norm(e, axis=1)
+        if np.abs(norms - 1.0).max() > 1e-3:
+            raise AssertionError(f"rows not unit-norm: {norms.min()} .. {norms.max()}")
+    return n_seq
+
+
+def _pages(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    s = GRID[0] * GRID[1] * cfg.vision.merge_unit
+    pages = rng.integers(0, 256, (BATCH, s, cfg.vision.patch_input_dim // 2), dtype=np.uint8)
+    return [(p, GRID) for p in pages]
+
+
+def ingest_bf16(torch, _kernels):
+    """Phase 3a, the earlier path: the 3B model in bf16 embeds the batch."""
     from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
     from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig
     from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
-    from morphik_core_tpu_torch.ops.fde import FDEConfig
 
     t0 = time.perf_counter()
     cfg = ColQwenConfig()
     model = ColQwenModel.init_random(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"phase 3: ColQwen2.5-3B geometry, {n_params} params in bf16, init {time.perf_counter() - t0:.3f} s")
-    emb = ColpaliEmbeddingModel(model, batch_size=BATCH, fde_config=FDEConfig())
-    rng = np.random.default_rng(SEED)
-    s = GRID[0] * GRID[1] * cfg.vision.merge_unit
-    pages = rng.integers(0, 256, (BATCH, s, cfg.vision.patch_input_dim // 2), dtype=np.uint8)
-    prepped = [(p, GRID) for p in pages]
-    times = []
-    for _ in range(2):  # first run includes cuBLAS start-up
-        t0 = time.perf_counter()
-        embs, fdes = emb._embed_prepped(prepped, with_fde=True)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    n_seq = len(model.image_sequence_ids(GRID[0] * GRID[1]))
-    for e, f in zip(embs, fdes):
-        if e.shape != (n_seq, cfg.embedding_dim) or f.shape != (FDEConfig().fde_dim,):
-            raise AssertionError(f"ingest shapes {e.shape} {f.shape}")
-        if not (np.isfinite(e).all() and np.isfinite(f).all()):
-            raise AssertionError("ingest produced non-finite values")
-        norms = np.linalg.norm(e, axis=1)
+    log(f"phase 3a: ColQwen2.5-3B geometry, {n_params} params in bf16, init {time.perf_counter() - t0:.3f} s")
+    emb = ColpaliEmbeddingModel(model, batch_size=BATCH)
+    _kernels.reset_launch_counts()
+    embs, _, times, peak = _embed_pages(torch, emb, _pages(cfg))
+    t0 = time.perf_counter()
+    queries = [emb.embed_for_query(text) for text in QUERIES]
+    query_s = time.perf_counter() - t0
+    counts = dict(_kernels.launch_counts)
+    n_seq = _check_embeddings(model, embs, [None] * len(embs))
+    _check_queries(model, queries, "bf16")
+    log(f"  bf16: {BATCH} pages -> {BATCH} x ({n_seq}, {cfg.embedding_dim}); batch wall s "
+        f"first={times[0]:.4f} second={times[1]:.4f} pages/s(second)={BATCH / times[1]:.3f}; "
+        f"peak mem GB={peak:.2f}; {len(QUERIES)} queries encoded by the bf16 text tower in "
+        f"{query_s:.3f} s; launches {counts}")
+    if counts["window_attention"] <= 0:
+        raise AssertionError(f"the bf16 path never launched K3: {counts}")
+    return model, embs, queries, dict(pages_per_s=BATCH / times[1], peak_gb=peak)
+
+
+def _check_queries(model, queries, label):
+    import numpy as np
+
+    for q in queries:
+        if q.ndim != 2 or q.shape[1] != model.cfg.embedding_dim or not np.isfinite(q).all():
+            raise AssertionError(f"{label} query embedding: shape {q.shape} or non-finite")
+        norms = np.linalg.norm(q, axis=1)
         if np.abs(norms - 1.0).max() > 1e-3:
-            raise AssertionError(f"rows not unit-norm: {norms.min()} .. {norms.max()}")
-    log(f"  8 pages -> {BATCH} x ({n_seq}, {cfg.embedding_dim}) + FDE ({FDEConfig().fde_dim},); "
-        f"batch wall s first={times[0]:.4f} second={times[1]:.4f} "
-        f"pages/s(second)={BATCH / times[1]:.3f}; peak mem GB={torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    return emb, embs, fdes
+            raise AssertionError(f"{label} query rows not unit-norm: {norms.min()} .. {norms.max()}")
+
+
+def compare_queries(emb, bf16_queries):
+    """The int8 text tower's query embeddings against the bf16 tower's on
+    the same weights: mean per-token cosine."""
+    import numpy as np
+
+    int8_queries = [emb.embed_for_query(text) for text in QUERIES]
+    _check_queries(emb.model, int8_queries, "int8")
+    if [q.shape for q in int8_queries] != [q.shape for q in bf16_queries]:
+        raise AssertionError("int8 and bf16 query embeddings differ in shape")
+    cos = np.concatenate([(a * b).sum(-1) for a, b in zip(int8_queries, bf16_queries)])
+    log(f"  int8 vs bf16 query per-token cosine: mean {cos.mean():.6f} min {cos.min():.6f} "
+        f"(bound: mean > {MIN_QUERY_COSINE})")
+    if not cos.mean() > MIN_QUERY_COSINE:
+        raise AssertionError(f"int8 query embeddings drift from bf16: mean cosine {cos.mean()}")
+    return float(cos.mean())
+
+
+def ingest_int8(torch, model, bf16_embs):
+    """Phase 3b, the main path's ingest: quantize the same weights in
+    place, calibrate static scales at embedder start-up, embed the batch
+    with the fused FDE and hold it against the bf16 embeddings."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.embedding.colpali_embedding_model import CALIBRATION_BATCH, ColpaliEmbeddingModel
+    from morphik_core_tpu_torch.models.colqwen.calibrate import load_calibration_pages
+    from morphik_core_tpu_torch.models.colqwen.model import quantize_colqwen_params
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+
+    t0 = time.perf_counter()
+    quantize_colqwen_params(model)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emb = ColpaliEmbeddingModel(model, batch_size=BATCH, fde_config=FDEConfig())  # the shipped defaults
+    torch.cuda.synchronize()
+    cal_s = emb.last_metrics["calibration_s"]
+    if any(blk.q_w.a_scale is None or blk.down_w.a_scale is None for blk in model.visual.blocks):
+        raise AssertionError("calibration left a vision block without static scales")
+    embs, fdes, times, peak = _embed_pages(torch, emb, _pages(model.cfg))
+    n_seq = _check_embeddings(model, embs, fdes)
+    cos = np.concatenate([(a * b).sum(-1) for a, b in zip(embs, bf16_embs)])
+    log(f"phase 3b: W8A8 + static scales: quantize in place {quant_s:.3f} s, calibration {cal_s:.3f} s "
+        f"({len(load_calibration_pages()[0])} committed pages, batches of {CALIBRATION_BATCH}); "
+        f"{BATCH} pages -> {BATCH} x "
+        f"({n_seq}, {model.cfg.embedding_dim}) + FDE ({FDEConfig().fde_dim},); batch wall s "
+        f"first={times[0]:.4f} second={times[1]:.4f} pages/s(second)={BATCH / times[1]:.3f}; "
+        f"peak mem GB={peak:.2f}")
+    log(f"  int8 vs bf16 per-token cosine: mean {cos.mean():.6f} min {cos.min():.6f} "
+        f"p01 {np.quantile(cos, 0.01):.6f} (bound: mean > {MIN_MEAN_COSINE})")
+    if not cos.mean() > MIN_MEAN_COSINE:
+        raise AssertionError(f"int8 embeddings drift from bf16: mean cosine {cos.mean()}")
+    return emb, embs, fdes, dict(pages_per_s=BATCH / times[1], peak_gb=peak, calibration_s=cal_s,
+                                 mean_cosine=float(cos.mean()))
 
 
 def synthetic_rows(n_tok_range, n: int):
@@ -313,6 +458,17 @@ def run_queries(torch, emb, index, rows, label):
     return q, res
 
 
+def run_encoded_queries(index, queries, label):
+    """Query embeddings encoded earlier (the bf16 text tower's) through the index."""
+    import numpy as np
+
+    for text, q in zip(QUERIES, queries):
+        res = index.query(q, k=10)
+        if len(res) != 10 or not all(np.isfinite(s) for _, s in res):
+            raise AssertionError(f"{label}: query {text!r} returned {len(res)} results")
+    log(f"  {label}: {len(queries)} queries, 10 finite results each")
+
+
 def brute_force_top1(torch, rows, q):
     """Exact f32 MaxSim of q against every stored row, chunked, on the card."""
     import numpy as np
@@ -336,13 +492,15 @@ def main() -> None:
     t_all = time.perf_counter()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
-    main_k1, main_k2, all_cases = kernel_checks(torch)
+    main_k1, main_k2, main_k3, all_cases = kernel_checks(torch)
+    model, bf16_embs, bf16_queries, bf16_stats = ingest_bf16(torch, _kernels)
     _kernels.reset_launch_counts()  # the main path starts here
-    emb, page_embs, page_fdes = ingest(torch)
+    emb, page_embs, page_fdes, int8_stats = ingest_int8(torch, model, bf16_embs)
     rows = [e.astype(np.float16) for e in page_embs] + synthetic_rows((600, 661), N_SYNTH)
     index, store_s = make_index(torch, rows, np.stack(page_fdes))
     log(f"phase 4: stored {len(rows)} rows (device FDE + pooling + host copy) in {store_s:.3f} s")
-    log("phase 5: queries, shipped retrieval config (int8 rerank)")
+    log("phase 5: queries, shipped retrieval config (int8 rerank), int8 text tower")
+    int8_stats["query_mean_cosine"] = compare_queries(emb, bf16_queries)
     q_self, _ = run_queries(torch, emb, index, rows, "int8 rerank")
     n_blocks = len(index._dev_blocks)
     if n_blocks < 2:
@@ -353,20 +511,21 @@ def main() -> None:
     fdes = np.stack(index._fde_host)
     index_bf16, _ = make_index(torch, rows, fdes[:BATCH], fdes[BATCH:], rerank_dtype="bf16")
     run_queries(torch, emb, index_bf16, rows, "bf16 rerank")
+    run_encoded_queries(index_bf16, bf16_queries, "bf16 rerank, queries of the bf16 text tower")
     counts = dict(_kernels.launch_counts)
-    log(f"phase 7: launch counts over the main path (phases 3-6): {counts}")
-    if counts["maxsim_q8"] <= 0 or counts["maxsim"] <= 0:
+    log(f"phase 7: launch counts over the main path (phases 3b-6): {counts}")
+    if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the path was never launched: {counts}")
-    src = "morphik_core_tpu_torch/csrc/maxsim.cu"
+    log(f"ingest summary: {json.dumps({'bf16': bf16_stats, 'int8_static': int8_stats})}")
+    csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [
-        {"name": "maxsim_q8", "route": "cuda", "source": src,
-         "replaces": "morphik_core_tpu/ops/maxsim.py:248", "launches": counts["maxsim_q8"],
-         "max_abs_err": main_k1["max_abs_err"], "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
-         "shape": main_k1["case"]},
-        {"name": "maxsim", "route": "cuda", "source": src,
-         "replaces": "morphik_core_tpu/ops/maxsim.py:111", "launches": counts["maxsim"],
-         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"], "plain_ms": main_k2["plain_ms"],
-         "shape": main_k2["case"]},
+        dict(name=name, route="cuda", source=csrc + src, replaces=replaces, launches=counts[name],
+             max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"], shape=case["case"])
+        for name, src, replaces, case in (
+            ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
+            ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
+            ("window_attention", "window_attention.cu", "morphik_core_tpu/ops/window_attention.py:57", main_k3),
+        )
     ]
     log(f"total wall s {time.perf_counter() - t_all:.3f}")
     log(json.dumps({"cases": all_cases}))

@@ -3,10 +3,17 @@ multivectors on the device. PyTorch port of
 `morphik_core_tpu/embedding/colpali_embedding_model.py:141-242, 323-348`.
 
 Explicit keyword settings replace the reference's pydantic `Settings`
-(batch 8 and the pixel bounds of `morphik_tpu.toml`). Pages are grouped
-by grid bucket and embedded in batches; on the ingest path the document
-FDE is computed on the device right after the tower forward, on the
-still-resident multivectors (the fused ingest FDE).
+(batch 8, the pixel bounds and the W8A8 serving mode of
+`morphik_tpu.toml`). Pages are grouped by grid bucket and embedded in
+batches; on the ingest path the document FDE is computed on the device
+right after the tower forward, on the still-resident multivectors (the
+fused ingest FDE).
+
+Handed an int8 model with `static_act_scales=True` (the shipped config),
+construction calibrates the int8 vision tower's static activation
+scales on the committed calibration pages. A calibration
+failure raises: the reference logs it and serves dynamic quantization,
+a different precision than the one configured.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from morphik_core_tpu_torch.models.colqwen.calibrate import calibration_batches, load_calibration_pages
 from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
 from morphik_core_tpu_torch.models.colqwen.preprocess import preprocess_image_u8
 from morphik_core_tpu_torch.ops.fde import FDEConfig, fde_document_batch
@@ -25,6 +33,8 @@ from morphik_core_tpu_torch.ops.fde import FDEConfig, fde_document_batch
 logger = logging.getLogger(__name__)
 
 Prepped = Tuple[np.ndarray, Tuple[int, int]]
+
+CALIBRATION_BATCH = 8  # the reference's calibration batch
 
 
 class ColpaliEmbeddingModel:
@@ -36,15 +46,25 @@ class ColpaliEmbeddingModel:
         min_pixels: int = 3136,
         max_pixels: int = 602112,
         fde_config: Optional[FDEConfig] = None,
+        static_act_scales: bool = True,
     ):
-        """`fde_config` set: the ingest path (`_embed_prepped(...,
-        with_fde=True)`) also returns per-page document FDE rows."""
+        """The model's own precision is served: an int8 model
+        (`quantize_colqwen_params`) is calibrated here unless
+        `static_act_scales` is off. `fde_config` set: the ingest path
+        (`_embed_prepped(..., with_fde=True)`) also returns per-page
+        document FDE rows."""
         self.model = model
         self.batch_size = max(1, int(batch_size))
         self.min_pixels = min_pixels
         self.max_pixels = max_pixels
         self.fde_config = fde_config
         self.last_metrics: Dict[str, float] = {}
+        if static_act_scales and model.matmul_precision == "int8":
+            t0 = time.perf_counter()
+            u8, (hu, wu) = load_calibration_pages()
+            model.calibrate_static_act_scales(calibration_batches(u8, CALIBRATION_BATCH), hu, wu)
+            self.last_metrics["calibration_s"] = time.perf_counter() - t0
+            logger.info("static activation scales calibrated in %.1fs", self.last_metrics["calibration_s"])
 
     @property
     def embedding_dim(self) -> int:

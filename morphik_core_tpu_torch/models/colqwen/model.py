@@ -1,10 +1,18 @@
 """ColQwen2.5 late-interaction embedder, PyTorch port of
-`morphik_core_tpu/models/colqwen/model.py` (bf16/f32 path).
+`morphik_core_tpu/models/colqwen/model.py` (bf16/f32 and W8A8).
 
 Images and queries map to per-token L2-normalized multivectors. The
 parameters keep the JAX param tree's names and (K, N) layout, so a JAX
-tree (numpy leaves, e.g. from `load_params_npz` or `jax.device_get`)
-loads with `load_jax_params` and both packages compute one function.
+tree (numpy leaves, e.g. from `load_params_npz` or `jax.device_get`),
+float or already int8-quantized, loads with `load_jax_params` and both
+packages compute one function.
+
+`matmul_precision="int8"` is the shipped serving mode (`morphik_tpu.toml`):
+the tower matmul weights of `_Q8_TEXT` / `_Q8_VISION` are `QuantizedWeight`
+leaves, and `calibrate_static_act_scales` attaches static activation
+scales to the vision tower's. Unlike the reference, which builds a new
+param tree, `quantize_colqwen_params` converts a model in place, so a 3B
+model never holds its float and int8 weights at once.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from torch import nn
 
 from morphik_core_tpu_torch.device import default_device
 from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig, TextConfig, VisionConfig
+from morphik_core_tpu_torch.models.colqwen.layers import QuantizedWeight, quantize_weight_int8
 from morphik_core_tpu_torch.models.colqwen.preprocess import (
     IMAGE_MEAN,
     IMAGE_STD,
@@ -27,6 +36,11 @@ from morphik_core_tpu_torch.models.colqwen.preprocess import (
 )
 from morphik_core_tpu_torch.models.colqwen.text import TextDecoder, mrope_cos_sin, mrope_position_ids
 from morphik_core_tpu_torch.models.colqwen.vision import VisionTower, _param, vision_rotary_cos_sin
+
+#: weight leaves converted by `quantize_colqwen_params` (the big matmuls;
+#: norms, biases, embeddings, patch embed, merger and projection stay)
+_Q8_TEXT = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+_Q8_VISION = ("q_w", "k_w", "v_w", "proj_w", "gate_w", "up_w", "down_w")
 
 # (u8/255 - mean)/std == u8*scale + bias, constants folded on the host
 # exactly as the reference folds them
@@ -78,27 +92,89 @@ def load_config_npz(path) -> Optional[ColQwenConfig]:
     return ColQwenConfig(vision=VisionConfig(**vis), text=TextConfig(**txt), **d)
 
 
+def _check_precisions(matmul_precision: str, attention_precision: str) -> None:
+    if matmul_precision not in ("bf16", "int8"):
+        raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
+    if attention_precision == "int8":
+        raise ValueError(
+            "attention_precision='int8' (the int8 QK^T of morphik_core_tpu/models/colqwen/"
+            "layers.py:213-231) is not ported; the shipped config serves bf16 attention")
+    if attention_precision != "bf16":
+        raise ValueError(f"unknown attention_precision {attention_precision!r}")
+
+
+def _layers(model: "ColQwenModel"):
+    """(module, quantized leaf names) for every vision block and decoder layer."""
+    return [(blk, _Q8_VISION) for blk in model.visual.blocks] + [
+        (layer, _Q8_TEXT) for layer in model.text.layers]
+
+
+def quantize_colqwen_params(model: "ColQwenModel") -> "ColQwenModel":
+    """W8A8 serving mode, in place: every `_Q8_TEXT` / `_Q8_VISION` weight
+    of a float model becomes a symmetric per-channel int8
+    `QuantizedWeight` (dynamic activation scales until calibrated)."""
+    if model.matmul_precision != "bf16":
+        raise ValueError(f"model is already {model.matmul_precision}")
+    for mod, names in _layers(model):
+        for name in names:
+            q = QuantizedWeight.from_float(getattr(mod, name))
+            delattr(mod, name)  # a module may not take a parameter's name
+            setattr(mod, name, q)
+    model.matmul_precision = "int8"
+    return model
+
+
 def load_jax_params(model: "ColQwenModel", tree: dict) -> None:
     """Fill `model` from a JAX ColQwen param tree with numpy leaves.
     Stacked per-layer leaves (L, ...) are sliced into the per-layer
-    modules. Raises on a missing leaf, an extra leaf or a shape mismatch."""
+    modules. An int8 model takes quantized leaves ({"q8", "s"[, "as"]},
+    as `quantize_colqwen_params` and `attach_vision_act_scales` of the
+    reference make them) or float leaves, which it quantizes; a float
+    model takes float leaves only. The reference's inert `attn_qk_as`
+    leaf (static scales of the unported int8 QK^T) is skipped. Raises on
+    a missing leaf, an extra leaf or a shape mismatch."""
     assigned = set()
 
+    def tensor(arr) -> torch.Tensor:
+        return torch.tensor(np.asarray(arr))  # a copy: JAX hands out read-only buffers
+
     def put(param: nn.Parameter, arr, name: str) -> None:
-        t = torch.tensor(np.asarray(arr))  # a copy: JAX hands out read-only buffers
+        t = tensor(arr)
         if tuple(t.shape) != tuple(param.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(param.shape)}")
         with torch.no_grad():
             param.copy_(t.to(device=param.device, dtype=param.dtype))
         assigned.add(id(param))
 
+    def put_leaf(mod: nn.Module, key: str, leaf, name: str) -> None:
+        target = getattr(mod, key)
+        if not isinstance(target, QuantizedWeight):
+            if isinstance(leaf, dict):
+                raise ValueError(f"{name}: int8 leaf for a {model.matmul_precision} model")
+            return put(target, leaf, name)
+        if isinstance(leaf, dict):
+            if set(leaf) - {"q8", "s", "as"}:
+                raise ValueError(f"{name}: unknown quantized leaf keys {sorted(leaf)}")
+            target.load(tensor(leaf["q8"]), tensor(leaf["s"]),
+                        tensor(leaf["as"]) if "as" in leaf else None)
+        else:
+            t = tensor(leaf)
+            if tuple(t.shape) != (target.k, target.n):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != {(target.k, target.n)}")
+            target.load(*quantize_weight_int8(t.to(target.q8.device)))
+        assigned.add(id(target))
+
     def stacked(modules, leaves: dict, prefix: str) -> None:
         for name, arr in leaves.items():
-            arr = np.asarray(arr)
-            if arr.shape[0] != len(modules):
-                raise ValueError(f"{prefix}/{name}: {arr.shape[0]} layers != {len(modules)}")
+            if name == "attn_qk_as":
+                continue
+            n_layers = len(np.asarray(arr["q8"] if isinstance(arr, dict) else arr))
+            if n_layers != len(modules):
+                raise ValueError(f"{prefix}/{name}: {n_layers} layers != {len(modules)}")
             for li, mod in enumerate(modules):
-                put(getattr(mod, name), arr[li], f"{prefix}/{name}[{li}]")
+                leaf = ({k: np.asarray(v)[li] for k, v in arr.items()} if isinstance(arr, dict)
+                        else np.asarray(arr)[li])
+                put_leaf(mod, name, leaf, f"{prefix}/{name}[{li}]")
 
     vis = tree["visual"]
     put(model.visual.patch_embed_w, vis["patch_embed_w"], "visual/patch_embed_w")
@@ -112,6 +188,7 @@ def load_jax_params(model: "ColQwenModel", tree: dict) -> None:
     put(model.proj_w, tree["proj_w"], "proj_w")
     put(model.proj_b, tree["proj_b"], "proj_b")
     missing = [n for n, p in model.named_parameters() if id(p) not in assigned]
+    missing += [n for n, m in model.named_modules() if isinstance(m, QuantizedWeight) and id(m) not in assigned]
     if missing:
         raise ValueError(f"param tree lacks {missing[:5]} ({len(missing)} leaves)")
 
@@ -131,15 +208,23 @@ class ColQwenModel(nn.Module):
         cfg: ColQwenConfig,
         device=None,
         dtype=torch.bfloat16,
+        matmul_precision: str = "bf16",
+        attention_precision: str = "bf16",
     ):
         """Parameters are allocated uninitialised on `device`; fill them
-        with `init_random`, `from_fixture` or `load_jax_params`."""
+        with `init_random`, `from_fixture` or `load_jax_params`.
+        `matmul_precision`: "bf16" (the model's dtype) or "int8" (W8A8
+        leaves); `attention_precision`: "bf16" only in the port."""
         super().__init__()
+        _check_precisions(matmul_precision, attention_precision)
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype
-        self.visual = VisionTower(cfg.vision, self.device, dtype)
-        self.text = TextDecoder(cfg.text, self.device, dtype)
+        self.matmul_precision = matmul_precision
+        self.attention_precision = attention_precision
+        int8 = matmul_precision == "int8"
+        self.visual = VisionTower(cfg.vision, self.device, dtype, int8)
+        self.text = TextDecoder(cfg.text, self.device, dtype, int8)
         self.proj_w = _param(cfg.text.hidden_size, cfg.embedding_dim, device=self.device, dtype=dtype)
         self.proj_b = _param(cfg.embedding_dim, device=self.device, dtype=dtype)
 
@@ -150,7 +235,7 @@ class ColQwenModel(nn.Module):
                     dtype=torch.float32) -> "ColQwenModel":
         """Random weights by the reference's init law (N(0, 0.02) matrices
         and embeddings, unit norms, zero biases), drawn from a seeded
-        `torch.Generator` on the target device."""
+        `torch.Generator` on the target device in `dtype`."""
         model = cls(cfg or ColQwenConfig.tiny(), device=device, dtype=dtype)
         gen = torch.Generator(device=model.device)
         gen.manual_seed(seed)
@@ -167,13 +252,30 @@ class ColQwenModel(nn.Module):
         return model
 
     @classmethod
-    def from_fixture(cls, path, device=None) -> "ColQwenModel":
-        """The committed tiny trained fixture (npz), in f32."""
+    def from_fixture(cls, path, device=None, matmul_precision: str = "bf16") -> "ColQwenModel":
+        """The committed tiny trained fixture (npz), in f32 (its matmul
+        weights quantized with `matmul_precision="int8"`)."""
         path = Path(path)
         model = cls(load_config_npz(path) or ColQwenConfig.tiny(), device=device,
-                    dtype=torch.float32)
+                    dtype=torch.float32, matmul_precision=matmul_precision)
         load_jax_params(model, load_params_npz(path))
         return model
+
+    @torch.no_grad()
+    def calibrate_static_act_scales(self, u8_batches: Sequence[np.ndarray], h_units: int,
+                                    w_units: int, margin: float = 1.05) -> None:
+        """Calibrate static per-(layer, site) activation scales of the int8
+        vision tower on (B, S, 588) uint8 page batches of one grid and
+        serve with them (models/colqwen/calibrate.py)."""
+        if self.matmul_precision != "int8":
+            raise ValueError("static activation scales require matmul_precision='int8'")
+        from morphik_core_tpu_torch.models.colqwen.calibrate import (
+            attach_vision_act_scales,
+            capture_vision_act_maxes,
+        )
+
+        maxes, _ = capture_vision_act_maxes(self, u8_batches, h_units, w_units)
+        attach_vision_act_scales(self, maxes, margin)
 
     # -- forward ----------------------------------------------------------
 

@@ -4,7 +4,9 @@
 3D (t/h/w) position ids and their cos/sin tables are computed on the
 host in numpy (bit-identical mirrors of the reference), so the decoder
 applies plain split-half rotary. GQA, causal + padding bias built once
-per forward, f32 softmax and norms.
+per forward, f32 softmax and norms. The int8 decoder holds
+`QuantizedWeight` leaves with dynamic activation scales (W8A8, the
+reference's `text.py:147-168`); `linear` dispatches on the leaf.
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ from morphik_core_tpu_torch.models.colqwen.layers import (
     apply_rotary,
     attention,
     linear,
+    linear_multi,
     rms_norm,
     swiglu,
 )
-from morphik_core_tpu_torch.models.colqwen.vision import _param
+from morphik_core_tpu_torch.models.colqwen.vision import _param, _weight
 
 
 def mrope_position_ids(
@@ -89,18 +92,19 @@ def mrope_cos_sin(position_ids: np.ndarray, cfg: TextConfig) -> Tuple[np.ndarray
 class DecoderLayer(nn.Module):
     """One decoder layer; names follow the JAX tree's `text/layers/<name>`."""
 
-    def __init__(self, cfg: TextConfig, device, dtype):
+    def __init__(self, cfg: TextConfig, device, dtype, int8: bool = False):
         super().__init__()
         self.cfg = cfg
         h, ih = cfg.hidden_size, cfg.intermediate_size
         qd, kvd = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
         p = functools.partial(_param, device=device, dtype=dtype)
+        w = functools.partial(_weight, device=device, dtype=dtype, int8=int8)
         self.input_ln, self.post_ln = p(h), p(h)
-        self.q_w, self.q_b = p(h, qd), p(qd)
-        self.k_w, self.k_b = p(h, kvd), p(kvd)
-        self.v_w, self.v_b = p(h, kvd), p(kvd)
-        self.o_w = p(qd, h)
-        self.gate_w, self.up_w, self.down_w = p(h, ih), p(h, ih), p(ih, h)
+        self.q_w, self.q_b = w(h, qd), p(qd)
+        self.k_w, self.k_b = w(h, kvd), p(kvd)
+        self.v_w, self.v_b = w(h, kvd), p(kvd)
+        self.o_w = w(qd, h)
+        self.gate_w, self.up_w, self.down_w = w(h, ih), w(h, ih), w(ih, h)
 
     def forward(self, x, cos, sin, bias):
         cfg = self.cfg
@@ -108,10 +112,10 @@ class DecoderLayer(nn.Module):
         nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         res = x
         y = rms_norm(x, self.input_ln, cfg.rms_norm_eps)
-        q = linear(y, self.q_w, self.q_b).reshape(b, s, nh, hd)
-        k = linear(y, self.k_w, self.k_b).reshape(b, s, nkv, hd)
-        v = linear(y, self.v_w, self.v_b).reshape(b, s, nkv, hd)
-        q, k = apply_rotary(q, k, cos[:, :, None, :], sin[:, :, None, :])
+        q, k, v = linear_multi(y, (self.q_w, self.k_w, self.v_w), (self.q_b, self.k_b, self.v_b))
+        q, k = apply_rotary(q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
+                            cos[:, :, None, :], sin[:, :, None, :])
+        v = v.reshape(b, s, nkv, hd)
         o = attention(q, k, v, bias=bias)
         x = res + linear(o.reshape(b, s, nh * hd), self.o_w)
         y = rms_norm(x, self.post_ln, cfg.rms_norm_eps)
@@ -119,12 +123,12 @@ class DecoderLayer(nn.Module):
 
 
 class TextDecoder(nn.Module):
-    def __init__(self, cfg: TextConfig, device, dtype):
+    def __init__(self, cfg: TextConfig, device, dtype, int8: bool = False):
         super().__init__()
         self.cfg = cfg
         self.embed = _param(cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device, dtype) for _ in range(cfg.num_hidden_layers)
+            DecoderLayer(cfg, device, dtype, int8) for _ in range(cfg.num_hidden_layers)
         )
         self.norm = _param(cfg.hidden_size, device=device, dtype=dtype)
 

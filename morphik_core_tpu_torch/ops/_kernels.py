@@ -1,10 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled at first use with `nvcc` into a plain shared
+Every `csrc/*.cu` is compiled at first use with `nvcc` (one process per
+source, all started together, then one link) into a single plain shared
 library (no PyTorch headers: seconds to build instead of minutes) and
 loaded through ctypes. The library is cached under `_build/` in this
-package (listed in `.gitignore`), keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+package (listed in `.gitignore`), keyed by a hash of all the sources and
+the flags, so an edited source rebuilds and an unchanged set loads at
+once.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and the CPU has no `nvcc`. A missing `nvcc` or a failed build is
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Optional
@@ -31,14 +34,11 @@ import torch
 from morphik_core_tpu_torch import device as _device  # noqa: F401  (sets the TF32 flags)
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "maxsim.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0}
+launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0, "window_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -60,22 +60,34 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile `csrc/maxsim.cu` if no library of this source and these
-    flags exists yet; returns the library path."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmaxsim_{key}.so"
+    """Compile every `csrc/*.cu` if no library of these sources and flags
+    exists yet; returns the library path."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    lib = BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [f"{tmp}/{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        outs = [proc.communicate()[0] for proc in procs]  # every nvcc ends before any raise
+        for src, proc, out in zip(srcs, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+            if verbose:
+                print(f"{src.name}:\n{out}")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}/{lib.name}", *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(f"{tmp}/{lib.name}", lib)
     return lib
 
 
@@ -90,6 +102,8 @@ def library() -> ctypes.CDLL:
             lib.maxsim_q8_launch.restype = ci
             lib.maxsim_launch.argtypes = [vp, vp, ci, vp, vp, vp] + [ci] * 5 + [vp]
             lib.maxsim_launch.restype = ci
+            lib.window_attention_launch.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+            lib.window_attention_launch.restype = ci
             _lib = lib
     return _lib
 
@@ -125,3 +139,14 @@ def launch_maxsim(q, docs, mask, idx, out) -> None:
     )
     _check(rc, "maxsim")
     launch_counts["maxsim"] += 1
+
+
+def launch_window_attention(q, k, v, out, window: int) -> None:
+    """K3 on already-checked CUDA tensors (see ops/window_attention.py)."""
+    t, heads, dim = q.shape
+    rc = library().window_attention_launch(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), int(q.dtype == torch.bfloat16), t, heads, dim, window,
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+    )
+    _check(rc, "window_attention")
+    launch_counts["window_attention"] += 1

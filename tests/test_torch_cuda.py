@@ -1,0 +1,129 @@
+"""The port's kernels and int8 products on the card, each against its
+plain PyTorch version. Every test here needs an NVIDIA sm_90 GPU with
+nvcc and skips elsewhere (CUDA kernels have no CPU mode).
+
+The file imports neither jax nor the JAX package, so it also runs on
+the card's machine, which has neither (`--noconftest` skips the suite's
+jax-importing conftest.py):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances:
+- K1 (int8 MaxSim): per-token products are bit-identical, the f32 sum
+  over query tokens reorders: rtol 1e-5, atol 1e-4;
+- K2 (f32/bf16 MaxSim): f32 dots over D reorder: rtol 1e-4, atol 1e-3;
+- K3 (window attention) in f32: atol 1e-5 (summation order); in bf16
+  the plain einsum rounds the scores to bf16 before the softmax and K3
+  keeps them in f32, as the Pallas kernel does: atol 3e-2 on outputs of
+  size ~1 (chip_smoke.py measures the gap at the path's shape);
+- the int8 products: exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from morphik_core_tpu_torch.models.colqwen.layers import QuantizedWeight, int8_dot
+from morphik_core_tpu_torch.ops import _kernels
+from morphik_core_tpu_torch.ops import maxsim as tmax
+from morphik_core_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+
+D = 32
+
+
+@pytest.fixture
+def sm90():
+    from morphik_core_tpu_torch.device import kernels_available
+
+    if not kernels_available():
+        pytest.skip("needs an NVIDIA sm_90 GPU with nvcc (CUDA kernels have no CPU mode)")
+
+
+def _pool(rng, n_cand=11, max_tok=40, empty=(3,)):
+    """Ragged unit multivectors; candidates in `empty` get no tokens."""
+    mvs = []
+    for i in range(n_cand):
+        n = 0 if i in empty else int(rng.integers(1, max_tok))
+        x = rng.standard_normal((max(n, 1), D)).astype(np.float32)
+        mvs.append((x / np.linalg.norm(x, axis=1, keepdims=True))[:n])
+    return mvs
+
+
+def _query(rng, nq):
+    q = rng.standard_normal((nq, D)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_idx", [False, True])
+def test_kernels_match_plain_on_card(sm90, with_idx):
+    """K1 and K2 against their plain versions on the card (chip_smoke.py
+    runs the same checks at the path's shapes)."""
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    d8, ds, mask = (torch.from_numpy(a).to(dev) for a in tmax.quantize_pool_int8(_pool(rng)))
+    q8, qs = (torch.from_numpy(a).to(dev) for a in tmax.quantize_query_q8(_query(rng, 300)))
+    idx = torch.tensor([3, -1, 0, 10, 5], dtype=torch.int32, device=dev) if with_idx else None
+    torch.testing.assert_close(tmax.maxsim_q8(q8, qs, d8, ds, mask, idx),
+                               tmax.maxsim_q8_plain(q8, qs, d8, ds, mask, idx), rtol=1e-5, atol=1e-4)
+    docs = torch.from_numpy(tmax.pad_multivectors(_pool(rng), token_bucket=40)[0]).to(dev)
+    m2 = (docs.abs().sum(-1) > 0).float()
+    qf = torch.from_numpy(_query(rng, 70)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        dd = docs.to(dt)
+        torch.testing.assert_close(tmax.maxsim(qf, dd, m2, idx), tmax.maxsim_plain(qf, dd, m2, idx),
+                                   rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,d,win,dtype,atol", [
+    (17920, 16, 80, 64, torch.bfloat16, 3e-2),  # the vision tower's windowed blocks, 8 pages
+    (17920, 16, 80, 64, torch.float32, 1e-5),
+    (32, 3, 64, 32, torch.float32, 1e-5),  # ragged edge: one window, D = 64
+    (256, 2, 128, 128, torch.float32, 1e-5),  # the kernel's largest shape
+])
+def test_window_attention_kernel_matches_plain(sm90, t, h, d, win, dtype, atol):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    q, k, v = (torch.randn((t, h, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    n0 = _kernels.launch_counts["window_attention"]
+    got = window_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["window_attention"] == n0 + 1
+    torch.testing.assert_close(got.float(), window_attention_plain(q, k, v, window=win).float(),
+                               atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_window_attention_kernel_rejects_shapes_it_does_not_take(sm90):
+    q = torch.zeros((256, 2, 136), device="cuda")
+    with pytest.raises(ValueError):
+        window_attention(q, q, q, window=64)
+    q = torch.zeros((512, 2, 64), device="cuda")
+    with pytest.raises(ValueError):
+        window_attention(q, q, q, window=256)
+
+
+def _exact_int_product(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """int64 x8 @ w8 from f32 matmuls over 1024-wide K chunks (every
+    partial sum < 1024 * 127^2 < 2^24 is an exact f32 integer; TF32 off)."""
+    out = torch.zeros((x8.shape[0], w8.shape[1]), dtype=torch.int64, device=x8.device)
+    for k0 in range(0, x8.shape[1], 1024):
+        out += (x8[:, k0 : k0 + 1024].float() @ w8[k0 : k0 + 1024].float()).long()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [17920, 2240, 32, 5])  # 8 pages, 1 page, a query bucket, < 17 rows
+@pytest.mark.parametrize("k,n", [(1280, 1280), (1280, 3420), (3420, 1280), (2048, 11008), (2048, 256)])
+def test_int8_product_exact_at_3b_shapes(sm90, m, k, n):
+    """`torch._int_mm` through the padded leaf (3420 -> 3424) and the
+    row padding of small M is the exact integer product."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(m + k + n)
+    w = QuantizedWeight.from_float(torch.randn((k, n), generator=gen, device="cuda") * 0.02)
+    x8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    assert w.q8.t().is_contiguous()  # column-major: the layout cuBLASLt runs fast
+    got = int8_dot(x8, w)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got.long(), _exact_int_product(x8, w.q8[:k, :n]))

@@ -1,5 +1,7 @@
 """The port's main path imports neither jax, PIL nor pydantic (none is
-installed beside the card), nor anything of the JAX package."""
+installed beside the card), nor anything of the JAX package: the shipped
+int8 embedder calibrates its static scales from the committed pages and
+serves ingest and queries, and the bf16 embedder still runs."""
 
 import re
 import subprocess
@@ -25,14 +27,20 @@ _GUARD = textwrap.dedent(
     from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
     from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
     from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig
-    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel, quantize_colqwen_params
     from morphik_core_tpu_torch.ops.fde import FDEConfig
 
     cfg = ColQwenConfig.tiny()
     fde = FDEConfig(dimension=cfg.embedding_dim)
-    emb = ColpaliEmbeddingModel(ColQwenModel.init_random(cfg, seed=0, device="cpu"), fde_config=fde)
     rng = np.random.default_rng(0)
     pages = [(rng.integers(0, 256, (64, 588), dtype=np.uint8), (4, 4)) for _ in range(3)]
+    bf16 = ColpaliEmbeddingModel(ColQwenModel.init_random(cfg, seed=0, device="cpu"))
+    assert bf16._embed_prepped(pages[:1])[0].shape == (len(bf16.model.image_sequence_ids(16)), cfg.embedding_dim)
+    assert "calibration_s" not in bf16.last_metrics
+    model = quantize_colqwen_params(ColQwenModel.init_random(cfg, seed=0, device="cpu"))
+    emb = ColpaliEmbeddingModel(model, fde_config=fde)  # the shipped config: int8 + static scales
+    assert emb.last_metrics["calibration_s"] > 0
+    assert all(blk.q_w.a_scale is not None and blk.down_w.a_scale is not None for blk in model.visual.blocks)
     embs, fdes = emb._embed_prepped(pages, with_fde=True)
     index = MultiVectorIndex(fde, device="cpu", pooled_tier_factor=32, device_cache_slots=64,
                              rerank_dtype="int8", device_block_rows=16)

@@ -169,32 +169,3 @@ def test_wrappers_reject_bad_inputs(bad):
     with pytest.raises((TypeError, ValueError)):
         tmax.maxsim(q8.float() if bad != "dim" else torch.zeros((8, D + 4)),
                     d8.float() if bad != "dtype" else d8.to(torch.float16), mask, idx)
-
-
-@pytest.fixture
-def sm90():
-    from morphik_core_tpu_torch.device import kernels_available
-
-    if not kernels_available():
-        pytest.skip("needs an NVIDIA sm_90 GPU with nvcc (CUDA kernels have no CPU mode)")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("with_idx", [False, True])
-def test_kernels_match_plain_on_card(sm90, with_idx):
-    """K1 and K2 against their plain versions on the card (chip_smoke.py
-    runs the same checks at the path's shapes)."""
-    rng = np.random.default_rng(7)
-    dev = torch.device("cuda")
-    d8, ds, mask = (torch.from_numpy(a).to(dev) for a in tmax.quantize_pool_int8(_pool(rng)))
-    q8, qs = (torch.from_numpy(a).to(dev) for a in tmax.quantize_query_q8(_query(rng, 300)))
-    idx = torch.tensor([3, -1, 0, 10, 5], dtype=torch.int32, device=dev) if with_idx else None
-    torch.testing.assert_close(tmax.maxsim_q8(q8, qs, d8, ds, mask, idx),
-                               tmax.maxsim_q8_plain(q8, qs, d8, ds, mask, idx), rtol=1e-5, atol=1e-4)
-    docs = torch.from_numpy(tmax.pad_multivectors(_pool(rng), token_bucket=40)[0]).to(dev)
-    m2 = (docs.abs().sum(-1) > 0).float()
-    qf = torch.from_numpy(_query(rng, 70)).to(dev)
-    for dt in (torch.float32, torch.bfloat16):
-        dd = docs.to(dt)
-        torch.testing.assert_close(tmax.maxsim(qf, dd, m2, idx), tmax.maxsim_plain(qf, dd, m2, idx),
-                                   rtol=1e-4, atol=1e-3)
