@@ -10,8 +10,13 @@ Phases (each raises on failure; none is caught):
   1. the card's name and power limit; build the kernels of
      morphik_core_tpu_torch/csrc/ with nvcc (one process per source).
   2. each kernel (K1, K2 MaxSim; K3 window attention) against its plain
-     PyTorch version on the card, at the main path's shapes and at
-     ragged edges; times by CUDA events (plain, kernel, kernel, plain).
+     PyTorch version on the card, at the main path's shapes (the text
+     queries' and the self-query's) and at ragged edges. Two times per
+     side, order plain, kernel, kernel, plain: CUDA events around 20
+     Python calls (host cost included), and the device time of one
+     replay of a CUDA graph of 20 calls. Each MaxSim case prints its HBM
+     floor (bytes read / 3.35 TB/s); two calls of K1 and of K2 on the
+     long query must be bit-identical.
   3. ingest. (a) the earlier path: the 3B model in bf16 embeds one batch
      of 8 pages at grid 20 x 28 from seeded uint8 patches and encodes the
      text queries with the bf16 text tower. (b) the main
@@ -59,8 +64,9 @@ QUERIES = ["quarterly revenue growth", "table of contents", "signature page of t
 # K1: per-token products are bit-identical to the plain version; only the
 # f32 sum over <= 640 query tokens is reordered (|err| <= 640 * 2^-24 * sum|terms|).
 K1_RTOL, K1_ATOL = 1e-5, 1e-4
-# K2: f32 dots over D = 128 accumulate in another order than the plain
-# einsum (~128 * 2^-24 relative each), summed over <= 640 query tokens.
+# K2: the f32 query (and f32 docs) enter the tensor cores split into bf16
+# hi + lo (~2^-17 of |d||q| per dot), accumulated in another order than
+# the plain einsum, summed over <= 640 query tokens.
 K2_RTOL, K2_ATOL = 1e-4, 1e-3
 # K3 in f32: the plain einsums and softmax sum in another order.
 K3_F32_ATOL = 1e-5
@@ -126,7 +132,34 @@ def _time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _compare(torch, name, kernel_fn, plain_fn, rtol, atol, exact=False):
+def _graph_ms(torch, fn, iters: int = 20) -> float:
+    """Device time per call: one replay of a CUDA graph of `iters` calls
+    (no host cost between launches). Outputs and scratch come from the
+    graph's own memory pool."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM (NVIDIA's data sheet)
+
+
+def _compare(torch, name, kernel_fn, plain_fn, rtol, atol, exact=False, bytes_read=None):
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got).all():
@@ -136,19 +169,35 @@ def _compare(torch, name, kernel_fn, plain_fn, rtol, atol, exact=False):
         raise AssertionError(f"{name}: expected bit-identical scores, max err {err}")
     if not torch.allclose(got, want, rtol=rtol, atol=atol):
         raise AssertionError(f"{name}: max err {err} beyond rtol={rtol} atol={atol}")
-    p1 = _time_ms(torch, plain_fn)
-    k1 = _time_ms(torch, kernel_fn)
-    k2 = _time_ms(torch, kernel_fn)
-    p2 = _time_ms(torch, plain_fn)
-    res = {"case": name, "max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-    log(f"  {name}: max_abs_err={err:.3e} kernel_ms={res['ms']:.5f} plain_ms={res['plain_ms']:.5f}")
+    p1, pg1 = _time_ms(torch, plain_fn), _graph_ms(torch, plain_fn)
+    k1, kg1 = _time_ms(torch, kernel_fn), _graph_ms(torch, kernel_fn)
+    k2, kg2 = _time_ms(torch, kernel_fn), _graph_ms(torch, kernel_fn)
+    p2, pg2 = _time_ms(torch, plain_fn), _graph_ms(torch, plain_fn)
+    res = {"case": name, "max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           "device_ms": (kg1 + kg2) / 2, "plain_device_ms": (pg1 + pg2) / 2}
+    floor = ""
+    if bytes_read is not None:
+        res["hbm_floor_us"] = bytes_read / HBM_BYTES_PER_S * 1e6
+        floor = f" hbm_floor_us={res['hbm_floor_us']:.3f}"
+    log(f"  {name}: max_abs_err={err:.3e} kernel_ms={res['ms']:.5f} plain_ms={res['plain_ms']:.5f} "
+        f"kernel_device_ms={res['device_ms']:.5f} plain_device_ms={res['plain_device_ms']:.5f}{floor}")
     return res
+
+
+def _deterministic(torch, name, fn):
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    log(f"  {name}: two calls bit-identical")
 
 
 def kernel_checks(torch):
     """Phase 2: K1, K2 and K3 against their plain versions on the card."""
     import numpy as np
 
+    from morphik_core_tpu_torch.index.multivector_index import MultiVectorIndex
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
     from morphik_core_tpu_torch.ops.maxsim import (
         maxsim, maxsim_plain, maxsim_q8, maxsim_q8_plain, quantize_query_q8,
     )
@@ -181,8 +230,22 @@ def kernel_checks(torch):
         q[:nq] = rng.standard_normal((nq, D)).astype(np.float32) / np.sqrt(D)
         return t(q)
 
+    def n_read(c, idx=None):  # candidates whose row is read
+        return c if idx is None else int((idx >= 0).sum())
+
+    def k1_bytes(c, n_pad, q8, idx=None):  # int8 docs + ds + mask, query + scales
+        return n_read(c, idx) * n_pad * (D + 8) + q8.shape[0] * (D + 4)
+
+    def k2_bytes(c, n_pad, q, esize, idx=None):  # docs + mask, f32 query
+        return n_read(c, idx) * n_pad * (D * esize + 4) + q.numel() * 4
+
+    # the main path's self-query: stored row BATCH + 123 (synthetic row 123);
+    # the rerank gets all its tokens, the pooled stage its deduplicated ones
+    q_self = synthetic_rows((600, 661), 124)[123].astype(np.float32)
+    q_sel = MultiVectorIndex(FDEConfig(), device="cuda", **SHIPPED)._dedup_query_tokens(q_self)
+    log(f"phase 2: kernels vs plain on the card (self-query {q_self.shape[0]} tokens, "
+        f"{q_sel.shape[0]} after dedup)")
     k1, k2 = [], []
-    log("phase 2: kernels vs plain on the card")
     # K1 at the pooled stage: tier block (1024 rows, bucket 24), pool 304
     # gathered in-kernel, rows of the other block = -1
     d8, ds, m = pool_q8(BLOCK_ROWS, 24, rng.integers(1, 25, BLOCK_ROWS))
@@ -192,14 +255,26 @@ def kernel_checks(torch):
     idx_t = t(idx)
     k1.append(_compare(torch, "K1 pooled stage C=304 Np=24 NQ=32 (idx)",
                        lambda: maxsim_q8(q8, qs, d8, ds, m, idx_t),
-                       lambda: maxsim_q8_plain(q8, qs, d8, ds, m, idx_t), K1_RTOL, K1_ATOL))
+                       lambda: maxsim_q8_plain(q8, qs, d8, ds, m, idx_t), K1_RTOL, K1_ATOL,
+                       bytes_read=k1_bytes(304, 24, q8, idx)))
+    q8s, qss = (t(x) for x in quantize_query_q8(q_sel))
+    k1.append(_compare(torch, f"K1 pooled stage, self-query C=304 Np=24 NQ={q8s.shape[0]} (idx)",
+                       lambda: maxsim_q8(q8s, qss, d8, ds, m, idx_t),
+                       lambda: maxsim_q8_plain(q8s, qss, d8, ds, m, idx_t), K1_RTOL, K1_ATOL,
+                       bytes_read=k1_bytes(304, 24, q8s, idx)))
     # K1 at the cache rerank: 2048 int8 slots of 1024 tokens, 32 gathered
     d8, ds, m = pool_q8(2048, 1024, rng.integers(500, 1025, 2048))
     idx_t = t(rng.choice(2048, 32, replace=False).astype(np.int32))
     k1.append(_compare(torch, "K1 cache rerank C=32 Np=1024 NQ=32 (idx)",
                        lambda: maxsim_q8(q8, qs, d8, ds, m, idx_t),
-                       lambda: maxsim_q8_plain(q8, qs, d8, ds, m, idx_t), K1_RTOL, K1_ATOL))
+                       lambda: maxsim_q8_plain(q8, qs, d8, ds, m, idx_t), K1_RTOL, K1_ATOL,
+                       bytes_read=k1_bytes(32, 1024, q8)))
     main_k1 = k1[-1]
+    q8s, qss = (t(x) for x in quantize_query_q8(q_self))
+    k1.append(_compare(torch, f"K1 cache rerank, self-query C=32 Np=1024 NQ={q8s.shape[0]} (idx)",
+                       lambda: maxsim_q8(q8s, qss, d8, ds, m, idx_t),
+                       lambda: maxsim_q8_plain(q8s, qss, d8, ds, m, idx_t), K1_RTOL, K1_ATOL,
+                       bytes_read=k1_bytes(32, 1024, q8s)))
     # one real query token (+7 zero rows): score = one max, bit-identical
     q8_1, qs_1 = query_q8(1)
     _compare(torch, "K1 single query token (exact)",
@@ -212,35 +287,52 @@ def kernel_checks(torch):
     q8r, qsr = query_q8(633)  # padded to 640: 7 zero rows
     got = _compare(torch, "K1 ragged C=13 Np=700 NQ=640, masked cand",
                    lambda: maxsim_q8(q8r, qsr, d8r, dsr, mr),
-                   lambda: maxsim_q8_plain(q8r, qsr, d8r, dsr, mr), K1_RTOL, K1_ATOL)
+                   lambda: maxsim_q8_plain(q8r, qsr, d8r, dsr, mr), K1_RTOL, K1_ATOL,
+                   bytes_read=k1_bytes(13, 700, q8r))
     if float(maxsim_q8(q8r, qsr, d8r, dsr, mr)[5]) != 0.0:
         raise AssertionError("K1: a fully masked candidate must score exactly 0")
+    _deterministic(torch, "K1 ragged NQ=640", lambda: maxsim_q8(q8r, qsr, d8r, dsr, mr))
     k1.append(got)
 
-    # K2 at the bf16 cache rerank: 2048 bf16 slots of 1024 tokens
+    # K2 at the bf16 cache rerank: 2048 bf16 slots of 1024 tokens; the
+    # cache passes the query unpadded (29 text tokens, 631 self-query)
     docs = docs_f(2048, 1024).to(torch.bfloat16)
     mask = m  # same ragged slot lengths
     qf = query_f32(29, 32)
     k2.append(_compare(torch, "K2 cache rerank bf16 C=32 Np=1024 NQ=32 (idx)",
                        lambda: maxsim(qf, docs, mask, idx_t),
-                       lambda: maxsim_plain(qf, docs, mask, idx_t), K2_RTOL, K2_ATOL))
+                       lambda: maxsim_plain(qf, docs, mask, idx_t), K2_RTOL, K2_ATOL,
+                       bytes_read=k2_bytes(32, 1024, qf, 2)))
+    qf29 = qf[:29].contiguous()
+    k2.append(_compare(torch, "K2 cache rerank bf16 C=32 Np=1024 NQ=29 (idx)",
+                       lambda: maxsim(qf29, docs, mask, idx_t),
+                       lambda: maxsim_plain(qf29, docs, mask, idx_t), K2_RTOL, K2_ATOL,
+                       bytes_read=k2_bytes(32, 1024, qf29, 2)))
     main_k2 = k2[-1]
+    qfs = t(q_self)
+    k2.append(_compare(torch, f"K2 cache rerank bf16, self-query C=32 Np=1024 NQ={qfs.shape[0]} (idx)",
+                       lambda: maxsim(qfs, docs, mask, idx_t),
+                       lambda: maxsim_plain(qfs, docs, mask, idx_t), K2_RTOL, K2_ATOL,
+                       bytes_read=k2_bytes(32, 1024, qfs, 2)))
     del docs
     # K2 cold rerank layout (no idx), bf16, C = 32, Np = round_up(max_n, 128)
     docs_c = docs_f(32, 768).to(torch.bfloat16)
     mask_c = t((np.arange(768)[None] < rng.integers(600, 700, 32)[:, None]).astype(np.float32))
     k2.append(_compare(torch, "K2 cold rerank bf16 C=32 Np=768 NQ=32",
                        lambda: maxsim(qf, docs_c, mask_c),
-                       lambda: maxsim_plain(qf, docs_c, mask_c), K2_RTOL, K2_ATOL))
+                       lambda: maxsim_plain(qf, docs_c, mask_c), K2_RTOL, K2_ATOL,
+                       bytes_read=k2_bytes(32, 768, qf, 2)))
     # ragged f32: C = 13, fully masked candidate, zero query rows, NQ = 640
     docs_r = docs_f(13, 700)
     mask_r = t((np.arange(700)[None] < lengths[:, None]).astype(np.float32))
     qfr = query_f32(633, 640)
     k2.append(_compare(torch, "K2 ragged f32 C=13 Np=700 NQ=640, masked cand",
                        lambda: maxsim(qfr, docs_r, mask_r),
-                       lambda: maxsim_plain(qfr, docs_r, mask_r), K2_RTOL, K2_ATOL))
+                       lambda: maxsim_plain(qfr, docs_r, mask_r), K2_RTOL, K2_ATOL,
+                       bytes_read=k2_bytes(13, 700, qfr, 4)))
     if float(maxsim(qfr, docs_r, mask_r)[5]) != 0.0:
         raise AssertionError("K2: a fully masked candidate must score exactly 0")
+    _deterministic(torch, "K2 ragged f32 NQ=640", lambda: maxsim(qfr, docs_r, mask_r))
     k3 = window_attention_checks(torch, gen)
     return main_k1, main_k2, k3[0], k1 + k2 + k3
 
@@ -520,7 +612,8 @@ def main() -> None:
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [
         dict(name=name, route="cuda", source=csrc + src, replaces=replaces, launches=counts[name],
-             max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"], shape=case["case"])
+             max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
+             device_ms=case["device_ms"], plain_device_ms=case["plain_device_ms"], shape=case["case"])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),

@@ -98,12 +98,15 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.maxsim_q8_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+            lib.maxsim_init.argtypes = []
+            lib.maxsim_init.restype = ci
+            lib.maxsim_q8_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
             lib.maxsim_q8_launch.restype = ci
-            lib.maxsim_launch.argtypes = [vp, vp, ci, vp, vp, vp] + [ci] * 5 + [vp]
+            lib.maxsim_launch.argtypes = [vp, vp, ci, vp, vp, vp, vp] + [ci] * 8 + [vp]
             lib.maxsim_launch.restype = ci
             lib.window_attention_launch.argtypes = [vp] * 4 + [ci] * 5 + [vp]
             lib.window_attention_launch.restype = ci
+            _check(lib.maxsim_init(), "maxsim_init")  # shared-memory limits, once per load
             _lib = lib
     return _lib
 
@@ -117,25 +120,26 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def launch_maxsim_q8(q8, qs, d8, ds, mask, idx, out) -> None:
-    """K1 on already-checked CUDA tensors (see ops/maxsim.py::maxsim_q8)."""
+def launch_maxsim_q8(q8, qs, d8, ds, mask, idx, part, out, plan) -> None:
+    """K1 on already-checked CUDA tensors (see ops/maxsim.py::maxsim_q8);
+    `part` is the (C, n_splits, NQ) f32 scratch of `plan`."""
     n_rows, np_, dim = d8.shape
     rc = library().maxsim_q8_launch(
-        _ptr(q8), _ptr(qs), _ptr(d8), _ptr(ds), _ptr(mask), _ptr(idx), _ptr(out),
-        out.shape[0], n_rows, np_, q8.shape[0], dim,
+        _ptr(q8), _ptr(qs), _ptr(d8), _ptr(ds), _ptr(mask), _ptr(idx), _ptr(part), _ptr(out),
+        out.shape[0], n_rows, np_, q8.shape[0], dim, plan.q_tile, plan.tok_per_split, plan.n_splits,
         ctypes.c_void_p(torch.cuda.current_stream(d8.device).cuda_stream),
     )
     _check(rc, "maxsim_q8")
     launch_counts["maxsim_q8"] += 1
 
 
-def launch_maxsim(q, docs, mask, idx, out) -> None:
+def launch_maxsim(q, docs, mask, idx, part, out, plan) -> None:
     """K2 on already-checked CUDA tensors (see ops/maxsim.py::maxsim)."""
     n_rows, np_, dim = docs.shape
     rc = library().maxsim_launch(
-        _ptr(q), _ptr(docs), int(docs.dtype == torch.bfloat16), _ptr(mask), _ptr(idx),
-        _ptr(out), out.shape[0], n_rows, np_, q.shape[0], dim,
-        ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
+        _ptr(q), _ptr(docs), int(docs.dtype == torch.bfloat16), _ptr(mask), _ptr(idx), _ptr(part),
+        _ptr(out), out.shape[0], n_rows, np_, q.shape[0], dim, plan.q_tile, plan.tok_per_split,
+        plan.n_splits, ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
     )
     _check(rc, "maxsim")
     launch_counts["maxsim"] += 1

@@ -11,7 +11,9 @@ Each wrapper checks its inputs, then dispatches on the device of the
 tensors: a CPU tensor goes to the plain PyTorch version beside it, a
 CUDA tensor launches the kernel (or raises). Both versions take an
 optional int32 row-index vector, so a gather over a larger buffer
-never materialises (C, Np, D).
+never materialises (C, Np, D). On the card a call runs a grid of
+(candidate, doc-token split, query tile) blocks that `maxsim_plan`
+picks, then a pass that merges the splits in a fixed order.
 
 Kernel semantics (which the plain versions share): masked doc tokens
 score -1e30, per-(candidate, query token) maxima at or below -5e29 are
@@ -21,7 +23,7 @@ query row adds 0.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +35,48 @@ NEG_INF = -1.0e30
 _CLAMP = NEG_INF * 0.5
 
 
+# The kernels' launch plan (csrc/maxsim.cu): a block scores one query
+# tile (<= 64 tokens, resident in shared memory) against one split of a
+# candidate's doc tokens. Splits are multiples of 16 tokens (one warp's
+# rows), and a call aims at two blocks per SM of an H100 (132 SMs).
+TARGET_BLOCKS = 264
+SPLIT_GRANULE = 16
+QUERY_TILE_BYTES = 64 * 1024  # shared memory for the resident query tile
+
+
+class MaxSimPlan(NamedTuple):
+    q_tile: int  # query tokens per block
+    n_qtiles: int
+    tok_per_split: int  # doc tokens per block (the last split may hold fewer)
+    n_splits: int
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _cdiv(x: int, m: int) -> int:
+    return -(-x // m)
+
+
+def maxsim_plan(n_cand: int, np_: int, nq: int, dim: int, q_bytes: int) -> MaxSimPlan:
+    """Grid of the K1/K2 kernels for C candidates of Np doc tokens and NQ
+    query tokens of width D. `q_bytes` is the shared-memory bytes of one
+    query value: 1 for K1 (int8), 4 for K2 (bf16 hi + lo). A small C
+    spreads each candidate's tokens over splits until the grid reaches
+    TARGET_BLOCKS (or one split per SPLIT_GRANULE tokens); a C that fills
+    the card alone keeps one split."""
+    q_tile = 64
+    while q_tile * dim * q_bytes > QUERY_TILE_BYTES and q_tile > 16:
+        q_tile //= 2
+    if q_tile * dim * q_bytes > QUERY_TILE_BYTES:
+        raise ValueError(f"maxsim kernels take D <= {QUERY_TILE_BYTES // (16 * q_bytes)}, got {dim}")
+    n_qtiles = _cdiv(nq, q_tile)
+    want = _cdiv(TARGET_BLOCKS, max(1, n_cand * n_qtiles))
+    if want <= 1 or np_ <= SPLIT_GRANULE:
+        return MaxSimPlan(q_tile, n_qtiles, max(np_, 1), 1)
+    tok = max(SPLIT_GRANULE, _cdiv(np_, want) // SPLIT_GRANULE * SPLIT_GRANULE)
+    return MaxSimPlan(q_tile, n_qtiles, tok, _cdiv(np_, tok))
 
 
 def pad_multivectors(
@@ -164,8 +206,10 @@ def maxsim_q8(q8, qs, d8, ds, mask, idx=None) -> torch.Tensor:
         raise ValueError(f"unsupported device {dev}")
     if d8.shape[2] % 4:
         raise ValueError(f"maxsim_q8 kernel needs D % 4 == 0, got {d8.shape[2]}")
+    plan = maxsim_plan(c, d8.shape[1], q8.shape[0], d8.shape[2], q_bytes=1)
     out = torch.empty(c, dtype=torch.float32, device=dev)
-    _kernels.launch_maxsim_q8(q8, qs, d8, ds, mask, idx, out)
+    part = torch.empty(c * plan.n_splits * q8.shape[0], dtype=torch.float32, device=dev)
+    _kernels.launch_maxsim_q8(q8, qs, d8, ds, mask, idx, part, out, plan)
     return out
 
 
@@ -183,8 +227,10 @@ def maxsim(query, docs, mask, idx=None) -> torch.Tensor:
         return maxsim_plain(query, docs, mask, idx)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    plan = maxsim_plan(c, docs.shape[1], query.shape[0], docs.shape[2], q_bytes=4)
     out = torch.empty(c, dtype=torch.float32, device=dev)
-    _kernels.launch_maxsim(query, docs, mask, idx, out)
+    part = torch.empty(c * plan.n_splits * query.shape[0], dtype=torch.float32, device=dev)
+    _kernels.launch_maxsim(query, docs, mask, idx, part, out, plan)
     return out
 
 

@@ -11,7 +11,9 @@ jax-importing conftest.py):
 Tolerances:
 - K1 (int8 MaxSim): per-token products are bit-identical, the f32 sum
   over query tokens reorders: rtol 1e-5, atol 1e-4;
-- K2 (f32/bf16 MaxSim): f32 dots over D reorder: rtol 1e-4, atol 1e-3;
+- K2 (f32/bf16 MaxSim): the kernel splits the f32 query (and f32 docs)
+  into bf16 hi + lo for the tensor cores (~2^-17 of |d||q| per dot) and
+  sums in another order: rtol 1e-4, atol 1e-3;
 - K3 (window attention) in f32: atol 1e-5 (summation order); in bf16
   the plain einsum rounds the scores to bf16 before the softmax and K3
   keeps them in f32, as the Pallas kernel does: atol 3e-2 on outputs of
@@ -73,6 +75,83 @@ def test_kernels_match_plain_on_card(sm90, with_idx):
         dd = docs.to(dt)
         torch.testing.assert_close(tmax.maxsim(qf, dd, m2, idx), tmax.maxsim_plain(qf, dd, m2, idx),
                                    rtol=1e-4, atol=1e-3)
+
+
+# (D, NQ, C, Np, with_idx): cases from the grid D in {16, 32, 128}, NQ in
+# {1, 29, 300, 640}, C in {1, 13, 32, 304}, Np in {1, 24, 700, 1024}, plus a
+# D whose rows are not 16-byte multiples (no cp.async) and a D streamed in
+# two chunks.
+_MAXSIM_GRID = [
+    (128, 29, 32, 1024, True),  # cache rerank (K2 gets NQ unpadded)
+    (128, 32, 304, 24, True),  # pooled stage: many rows of another block (-1)
+    (128, 640, 13, 700, False),  # a page as the query, ragged candidates
+    (128, 1, 32, 700, False),
+    (16, 1, 1, 1, False),
+    (16, 29, 304, 24, False),
+    (16, 300, 32, 1, True),
+    (32, 300, 13, 700, True),
+    (32, 640, 1, 1024, False),
+    (32, 29, 1, 24, True),
+    (20, 29, 13, 700, True),
+    (200, 70, 3, 40, False),
+]
+
+
+def _maxsim_case(kind, dim, nq, n_cand, np_, with_idx):
+    """Seeded inputs on the card; row 0 is fully masked. With an index:
+    idx[1] = -1 and idx[2] = rows (out of range) where C > 2."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(dim * 1_000_003 + nq * 1009 + n_cand * 31 + np_)
+    dev = "cuda"
+    rows = n_cand + 3 if with_idx else n_cand
+    lengths = torch.randint(1, np_ + 1, (rows,), generator=gen, device=dev)
+    lengths[0] = 0
+    mask = (torch.arange(np_, device=dev)[None, :] < lengths[:, None]).float()
+    if kind == "q8":
+        d8 = torch.randint(-127, 128, (rows, np_, dim), generator=gen, device=dev, dtype=torch.int8)
+        ds = torch.rand((rows, np_), generator=gen, device=dev) * 0.01 + 1e-3
+        q8 = torch.randint(-127, 128, (nq, dim), generator=gen, device=dev, dtype=torch.int8)
+        qs = torch.rand((nq,), generator=gen, device=dev) * 0.01 + 1e-3
+        inputs = (q8, qs, d8, ds, mask)
+    else:
+        docs = torch.randn((rows, np_, dim), generator=gen, device=dev) / dim**0.5
+        q = torch.randn((nq, dim), generator=gen, device=dev) / dim**0.5
+        inputs = (q, docs.to(torch.bfloat16) if kind == "bf16" else docs, mask)
+    idx = None
+    if with_idx:
+        idx = torch.randperm(rows, generator=gen, device=dev)[:n_cand].to(torch.int32)
+        if n_cand > 2:
+            idx[0], idx[1], idx[2] = 0, -1, rows
+    return inputs, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["q8", "bf16", "f32"])
+@pytest.mark.parametrize("dim,nq,n_cand,np_,with_idx", _MAXSIM_GRID)
+def test_maxsim_kernels_match_plain_grid(sm90, kind, dim, nq, n_cand, np_, with_idx):
+    """K1 (q8) and K2 (bf16 / f32 docs) against their plain versions: a
+    -1 index and a fully masked candidate score exactly 0, an index past
+    the rows gives NaN, two calls are bit-identical and count two
+    launches, one K1 query token is bit-exact."""
+    inputs, idx = _maxsim_case(kind, dim, nq, n_cand, np_, with_idx)
+    kernel, plain = (tmax.maxsim_q8, tmax.maxsim_q8_plain) if kind == "q8" else (tmax.maxsim, tmax.maxsim_plain)
+    name = "maxsim_q8" if kind == "q8" else "maxsim"
+    n0 = _kernels.launch_counts[name]
+    got, again = kernel(*inputs, idx=idx), kernel(*inputs, idx=idx)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts[name] == n0 + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    rows = inputs[-1].shape[0]
+    bad = torch.zeros(n_cand, dtype=torch.bool, device="cuda") if idx is None else idx >= rows
+    want = plain(*inputs, idx=None if idx is None else torch.where(bad, -1, idx))
+    assert got.isnan().equal(bad)
+    zero = (idx if idx is not None else torch.arange(n_cand, device="cuda")) <= 0  # -1 or row 0
+    assert (got[zero & ~bad] == 0).all()
+    ok = ~bad
+    if kind == "q8" and nq == 1:
+        assert torch.equal(got[ok], want[ok])
+    rtol, atol = (1e-5, 1e-4) if kind == "q8" else (1e-4, 1e-3)
+    torch.testing.assert_close(got[ok], want[ok], rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda

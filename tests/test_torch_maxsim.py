@@ -9,7 +9,9 @@ come from seeded numpy. Tolerances:
   same order on both sides, so maxima are identical and only the f32 sum
   over query tokens may be reordered: rtol 1e-6, atol 1e-5;
 - K2 (f32/bf16): f32 dots over D accumulate in another order: rtol 1e-5,
-  atol 1e-5 at these sizes (D = 32, Nq <= 13).
+  atol 1e-5 at these sizes (D = 32, Nq <= 13);
+- the emulation of K2's tensor-core numerics on the card (the f32 query
+  split into bf16 hi + lo): K2's stated rtol 1e-4, atol 1e-3.
 """
 
 import numpy as np
@@ -169,3 +171,99 @@ def test_wrappers_reject_bad_inputs(bad):
     with pytest.raises((TypeError, ValueError)):
         tmax.maxsim(q8.float() if bad != "dim" else torch.zeros((8, D + 4)),
                     d8.float() if bad != "dtype" else d8.to(torch.float16), mask, idx)
+
+
+# --- the kernels' launch plan and K2's split-query numerics ---------------
+
+
+def _spans(n, step, count):
+    return [(i * step, min(n, (i + 1) * step)) for i in range(count)]
+
+
+@pytest.mark.parametrize("n_cand,np_,nq,dim,q_bytes", [
+    (32, 1024, 32, 128, 1), (32, 1024, 29, 128, 4), (32, 768, 29, 128, 4), (13, 700, 640, 128, 4),
+    (304, 24, 32, 128, 1), (304, 24, 632, 128, 1), (32, 1024, 632, 128, 1), (1, 1, 1, 16, 4),
+    (1, 1024, 1, 32, 1), (5, 0, 8, 32, 1), (3, 40, 70, 1024, 4), (2, 17, 300, 20, 4),
+])
+def test_plan_covers_every_token_once(n_cand, np_, nq, dim, q_bytes):
+    """Every doc token lies in exactly one non-empty split, every query
+    token in exactly one query tile of at most q_tile tokens."""
+    plan = tmax.maxsim_plan(n_cand, np_, nq, dim, q_bytes)
+    assert plan.q_tile in (16, 32, 64) and plan.q_tile * dim * q_bytes <= tmax.QUERY_TILE_BYTES
+    doc = _spans(np_, plan.tok_per_split, plan.n_splits)
+    assert [i for a, b in doc for i in range(a, b)] == list(range(np_))
+    assert all(b > a for a, b in doc) or np_ == 0
+    qry = _spans(nq, plan.q_tile, plan.n_qtiles)
+    assert [i for a, b in qry for i in range(a, b)] == list(range(nq))
+    assert all(b > a for a, b in qry)
+
+
+@pytest.mark.parametrize("n_cand", [1, 13, 32])
+@pytest.mark.parametrize("np_", [1, 24, 700, 1024])
+@pytest.mark.parametrize("nq", [1, 29, 640])
+def test_plan_fills_the_card_for_small_c(n_cand, np_, nq):
+    """A small C reaches the block target (two per SM of an H100) unless
+    Np has fewer 16-token granules; a C that fills the card keeps one
+    split per candidate."""
+    plan = tmax.maxsim_plan(n_cand, np_, nq, 128, 4)
+    blocks = n_cand * plan.n_qtiles * plan.n_splits
+    most = n_cand * plan.n_qtiles * -(-np_ // tmax.SPLIT_GRANULE)
+    assert blocks >= min(tmax.TARGET_BLOCKS, most)
+    assert tmax.maxsim_plan(304, np_, nq, 128, 1).n_splits == 1
+
+
+def test_plan_rejects_a_query_row_wider_than_its_tile_budget():
+    assert tmax.maxsim_plan(4, 64, 64, 1024, 4).q_tile == 16
+    with pytest.raises(ValueError):
+        tmax.maxsim_plan(4, 64, 64, 1025, 4)
+
+
+def _k2_split_query(q: torch.Tensor, docs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K2's numerics on the card, emulated on the CPU: the f32 query is
+    split into q_hi = bf16(q) and q_lo = bf16(q - q_hi), bf16 docs enter
+    exact, f32 docs split the same way (the d_lo q_lo term dropped); each
+    product is taken in f32."""
+    bf = torch.bfloat16
+    q_hi = q.to(bf).float()
+    q_lo = (q - q_hi).to(bf).float()
+    if docs.dtype == bf:
+        d = docs.float()
+        sim = torch.einsum("qd,cnd->cqn", q_hi, d) + torch.einsum("qd,cnd->cqn", q_lo, d)
+    else:
+        d_hi = docs.to(bf).float()
+        d_lo = (docs - d_hi).to(bf).float()
+        sim = (torch.einsum("qd,cnd->cqn", q_hi, d_hi) + torch.einsum("qd,cnd->cqn", q_lo, d_hi)
+               + torch.einsum("qd,cnd->cqn", q_hi, d_lo))
+    sim = torch.where(mask[:, None, :] > 0, sim, torch.full_like(sim, tmax.NEG_INF))
+    per_q = sim.amax(dim=-1)
+    return torch.where(per_q <= tmax.NEG_INF * 0.5, torch.zeros_like(per_q), per_q).sum(dim=-1)
+
+
+@pytest.mark.parametrize("docs_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("nq,pad_to,dim,n_cand,max_tok", [(29, None, 32, 11, 40), (633, 640, 128, 13, 700)])
+def test_k2_split_query_numerics_match_jax(docs_dtype, nq, pad_to, dim, n_cand, max_tok):
+    """The split-query emulation against JAX `maxsim_scores(interpret=True)`
+    and `maxsim_scores_ref` on the same inputs, at K2's stated tolerance
+    (the long case is a page used as the query: 633 tokens + 7 zero rows)."""
+    rng = np.random.default_rng(8 + nq)
+    mvs = []
+    for i in range(n_cand):
+        n = 0 if i == 3 else int(rng.integers(1, max_tok))
+        x = rng.standard_normal((max(n, 1), dim)).astype(np.float32)
+        mvs.append((x / np.linalg.norm(x, axis=1, keepdims=True))[:n])
+    dense, mask = tmax.pad_multivectors(mvs)
+    q = rng.standard_normal((nq, dim)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    if pad_to:
+        q = np.concatenate([q, np.zeros((pad_to - nq, dim), np.float32)])
+    jd = jnp.asarray(dense)
+    td = torch.from_numpy(dense)
+    if docs_dtype == "bf16":
+        jd, td = jd.astype(jnp.bfloat16), td.to(torch.bfloat16)
+    got = _k2_split_query(torch.from_numpy(q), td, torch.from_numpy(mask)).numpy()
+    want = np.asarray(jmax.maxsim_scores(jnp.asarray(q), jd, jnp.asarray(mask), interpret=True))
+    assert got[3] == 0.0 and want[3] == 0.0
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+    ref = np.asarray(jmax.maxsim_scores_ref(jnp.asarray(q), jd, jnp.asarray(mask)))
+    has = mask.sum(1) > 0
+    np.testing.assert_allclose(got[has], ref[has], rtol=1e-4, atol=1e-3)
