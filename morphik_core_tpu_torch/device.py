@@ -28,5 +28,9 @@ def kernels_available() -> bool:
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU (tests, rehearsals)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card. Without one this raises: the port's entry points never
+    carry on on the CPU unless the caller asks for it with `device="cpu"`
+    (as the CPU tests do)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device found; pass device="cpu" to run on the CPU')
+    return torch.device("cuda")

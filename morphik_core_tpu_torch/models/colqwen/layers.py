@@ -47,7 +47,7 @@ class QuantizedWeight(nn.Module):
     slower than the mma.sync kernel it picks for this layout on an H100
     (PERF.md)."""
 
-    def __init__(self, k: int, n: int, device=None):
+    def __init__(self, k: int, n: int, device):
         super().__init__()
         self.k, self.n = k, n
         kp, np_ = _round_up(k, _INT_MM_ALIGN), _round_up(n, _INT_MM_ALIGN)

@@ -106,7 +106,10 @@ def library() -> ctypes.CDLL:
             lib.maxsim_launch.restype = ci
             lib.window_attention_launch.argtypes = [vp] * 4 + [ci] * 5 + [vp]
             lib.window_attention_launch.restype = ci
+            lib.window_attention_init.argtypes = []
+            lib.window_attention_init.restype = ci
             _check(lib.maxsim_init(), "maxsim_init")  # shared-memory limits, once per load
+            _check(lib.window_attention_init(), "window_attention_init")
             _lib = lib
     return _lib
 

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from morphik_core_tpu_torch.device import default_device
 from morphik_core_tpu_torch.ops import _kernels
 from morphik_core_tpu_torch.parallel.search import quantize_rows_int8, topk_stable
 
@@ -271,9 +272,9 @@ def maxsim_scores_q8(query, docs_q8, doc_scales, doc_mask, device=None) -> torch
     """MaxSim over per-token int8-quantized candidates (K1 on CUDA). The
     float query is row-quantized on the host (`quantize_query_q8`).
     Candidates may be numpy arrays or tensors; they are scored on
-    `device` (default: their own device, or the CPU for numpy)."""
+    `device` (default: their own device, or the card for numpy)."""
     if device is None:
-        device = docs_q8.device if isinstance(docs_q8, torch.Tensor) else torch.device("cpu")
+        device = docs_q8.device if isinstance(docs_q8, torch.Tensor) else default_device()
     q8, qs = quantize_query_q8(query)
 
     def dev(x, dt):

@@ -4,8 +4,9 @@ of `morphik_core_tpu/ops/window_attention.py`.
 q/k/v are (T, H, D) with windows of `window` consecutive rows along T;
 each window attends only to itself. One kernel carries it on the card
 (`csrc/window_attention.cu`, K3, the twin of `_window_attn_kernel`):
-scores and softmax in f32, probabilities rounded to the input dtype, PV
-accumulated in f32. The wrapper dispatches on the tensors' device: a CPU
+scores and softmax in f32, probabilities normalised and then rounded to
+the input dtype, PV accumulated in f32 (bf16: tensor-core tiles; f32: a
+scalar kernel). The wrapper dispatches on the tensors' device: a CPU
 tensor goes to `window_attention_plain`, a CUDA tensor launches K3 (or
 raises). The reference's `block_windows` is a Mosaic tiling knob and has
 no counterpart here.
@@ -13,7 +14,9 @@ no counterpart here.
 Numerics: the plain version mirrors `window_attention_ref`, whose score
 einsum runs in the input dtype, so in bf16 it rounds the scores to bf16
 before the f32 softmax; K3 keeps them in f32 as the Pallas kernel does.
-In f32 the two agree to summation order.
+`window_attention_pallas_numerics` mirrors the Pallas kernel's rounding
+instead, so K3 can be held to it tightly (tests and chip_smoke.py only).
+In f32 the three agree to summation order.
 """
 
 from __future__ import annotations
@@ -36,6 +39,21 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.einsum("wqhd,wkhd->whqk", to_win(q), to_win(k)).float() * d**-0.5
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("whqk,wkhd->wqhd", probs, to_win(v)).reshape(t, h, d)
+
+
+def window_attention_pallas_numerics(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                     window: int) -> torch.Tensor:
+    """The Pallas kernel's numerics in plain PyTorch: inputs upcast to f32,
+    scores and softmax in f32, probabilities rounded to the input dtype,
+    PV in f32, output rounded to the input dtype."""
+    t, h, d = q.shape
+
+    def to_win(x):
+        return x.float().reshape(t // window, window, h, d)
+
+    scores = torch.einsum("wqhd,wkhd->whqk", to_win(q), to_win(k)) * d**-0.5
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("whqk,wkhd->wqhd", probs.float(), to_win(v)).reshape(t, h, d).to(q.dtype)
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int) -> torch.Tensor:
