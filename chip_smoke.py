@@ -42,6 +42,18 @@ Phases (each raises on failure; none is caught):
   7. launch counts: the counts are reset just before each path and read
      just after it; (a) launched K3, the main path (3b-6) launched all
      three kernels.
+  8. the service path: the port's server (`build_services` + `build_app`
+     from `morphik_tpu.toml`, paths in a temporary directory, port 0)
+     serves phase 3b's 3B int8 model, recalibrated at boot, over a real
+     socket on 127.0.0.1 to a stdlib client: 9 PNG pages ingested
+     (8 at 560 x 784 px, one at 600 x 830 px that takes the bicubic
+     resize), the text queries (k=4, 10 timed repeats each), page 3's
+     PNG as an image query (its document must come back first) and one
+     /query. Every retrieve must equal the in-process store's answer to
+     the same query embedding; the counts, reset after boot, must show
+     K3 (ingest) and K1 (retrieve) launched by the HTTP path. Prints a
+     {"service": {...}} line (ingest pages/s, retrieve p50/p99 ms, /query
+     ms, launches, the card's name and power limit).
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -84,6 +96,10 @@ K3_F32_ATOL = 1e-5
 # P and the output to bf16. Measured 1.5625e-2 on one NVIDIA H100 (one
 # bf16 ulp of an output in [2, 4)); the bound allows two.
 K3_BF16_ATOL = 3e-2
+# F.scaled_dot_product_attention in f32, timed beside the f32 K3 (the
+# port never calls it): its fused kernels sum in their own order, so it
+# is held to the plain version at 1e-4.
+SDPA_F32_ATOL = 1e-4
 # K3 in bf16 against window_attention_pallas_numerics, which rounds where
 # the Pallas kernel does: one bf16 ulp of an output (rtol 2^-7) plus 1e-3.
 # A P whose f32 value differs by an ulp (exp, sum order) can round to the
@@ -431,8 +447,11 @@ def window_attention_checks(torch, gen):
             mirror = window_attention_pallas_numerics(q, k, v, window=win)
             case.update(_near_mirror(torch, label, window_attention(q, k, v, window=win), mirror))
             _deterministic(torch, label, lambda: window_attention(q, k, v, window=win))
-            case.update(sdpa_yardstick(torch, q, k, v, win, mirror))
+            case.update(sdpa_yardstick(torch, q, k, v, win, mirror, K3_BF16_ATOL))
             case.update(same_bytes_yardstick(torch, q, k, v))
+        elif rows == t:
+            plain = window_attention_plain(q, k, v, window=win)
+            case.update(sdpa_yardstick(torch, q, k, v, win, plain, SDPA_F32_ATOL))
         cases.append(case)
     return cases
 
@@ -453,11 +472,12 @@ def _near_mirror(torch, name, got, want):
     return res
 
 
-def sdpa_yardstick(torch, q, k, v, window, mirror):
-    """One PyTorch call that computes the bf16 K3's function:
+def sdpa_yardstick(torch, q, k, v, window, want, atol):
+    """One PyTorch call that computes K3's function:
     F.scaled_dot_product_attention on the (windows, H, window, D) view of
-    q/k/v (default scale D^-1/2). Timed like the kernel, held to the
-    plain tolerance against the mirror; the port never calls it."""
+    q/k/v (default scale D^-1/2). Timed like the kernel, held to `want`
+    (bf16: the Pallas-numerics mirror; f32: the plain version) within
+    `atol`; the port never calls it."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
@@ -472,14 +492,14 @@ def sdpa_yardstick(torch, q, k, v, window, mirror):
     def fn():
         return F.scaled_dot_product_attention(qw, kw, vw)
 
-    err = float((fn().transpose(1, 2).reshape(t, h, d).float() - mirror.float()).abs().max())
-    if not err <= K3_BF16_ATOL:
-        raise AssertionError(f"scaled_dot_product_attention is {err} from the mirror: not K3's function")
+    err = float((fn().transpose(1, 2).reshape(t, h, d).float() - want.float()).abs().max())
+    if not err <= atol:
+        raise AssertionError(f"scaled_dot_product_attention is {err} from K3's reference (atol {atol})")
     ms = [_time_ms(torch, fn) for _ in range(2)]
     dev_ms = [_graph_ms(torch, fn) for _ in range(2)]
     res = {"library_call": f"F.scaled_dot_product_attention ({backend})", "library_max_abs_err": err,
            "library_ms": sum(ms) / 2, "library_device_ms": sum(dev_ms) / 2}
-    log(f"  yardstick {res['library_call']}: max_abs_err vs mirror={err:.3e} "
+    log(f"  yardstick {res['library_call']}: max_abs_err vs reference={err:.3e} "
         f"ms={res['library_ms']:.5f} device_ms={res['library_device_ms']:.5f}")
     return res
 
@@ -549,7 +569,7 @@ def ingest_bf16(torch, _kernels):
     _kernels.reset_launch_counts()
     embs, _, times, peak = _embed_pages(torch, emb, _pages(cfg))
     t0 = time.perf_counter()
-    queries = [emb.embed_for_query(text) for text in QUERIES]
+    queries = [emb.embed_query(text) for text in QUERIES]
     query_s = time.perf_counter() - t0
     counts = dict(_kernels.launch_counts)
     n_seq = _check_embeddings(model, embs, [None] * len(embs))
@@ -579,7 +599,7 @@ def compare_queries(emb, bf16_queries):
     the same weights: mean per-token cosine."""
     import numpy as np
 
-    int8_queries = [emb.embed_for_query(text) for text in QUERIES]
+    int8_queries = [emb.embed_query(text) for text in QUERIES]
     _check_queries(emb.model, int8_queries, "int8")
     if [q.shape for q in int8_queries] != [q.shape for q in bf16_queries]:
         raise AssertionError("int8 and bf16 query embeddings differ in shape")
@@ -664,7 +684,7 @@ def run_queries(torch, emb, index, rows, label):
     lat = []
     for text in QUERIES:
         t0 = time.perf_counter()
-        res = index.query(emb.embed_for_query(text), k=10, return_timing=True)
+        res = index.query(emb.embed_query(text), k=10, return_timing=True)
         lat.append((time.perf_counter() - t0) * 1e3)
         if len(res) != 10 or not all(np.isfinite(s) for _, s in res):
             raise AssertionError(f"{label}: query {text!r} returned {len(res)} results")
@@ -709,6 +729,216 @@ def brute_force_top1(torch, rows, q):
     return int(torch.cat(scores).argmax())
 
 
+SERVICE_PAGES = 8  # PNG pages at GRID, plus one that takes the resize path
+RESIZED_PAGE = (600, 830)  # height x width: bicubic to the same 20 x 28 bucket
+RETRIEVE_REPEATS = 10
+SERVICE_POLL_S = 120.0
+SCORE_ATOL = 1e-5  # HTTP scores vs the in-process store's on the same embedding
+
+
+def service_pages():
+    """Seeded page images with structure (blocks and bars on white), so
+    none is blank: 8 at GRID (560 x 784 px) and one at RESIZED_PAGE."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    sizes = [(GRID[0] * 28, GRID[1] * 28)] * SERVICE_PAGES + [RESIZED_PAGE]
+    pages = []
+    for h, w in sizes:
+        page = np.full((h, w, 3), 255, np.uint8)
+        for _ in range(int(rng.integers(6, 14))):
+            y, x = int(rng.integers(0, h - 40)), int(rng.integers(0, w - 40))
+            page[y : y + int(rng.integers(20, h // 3)), x : x + int(rng.integers(20, w // 3))] = rng.integers(0, 220, 3)
+        for y in range(int(rng.integers(10, 40)), h, int(rng.integers(14, 30))):
+            page[y : y + 3, w // 12 : w - int(rng.integers(w // 12, w // 3))] = int(rng.integers(0, 100))
+        pages.append(page)
+    return pages
+
+
+class Client:
+    """A stdlib HTTP client (urllib) for the port's server."""
+
+    def __init__(self, base: str):
+        self.base = base
+
+    def call(self, method: str, path: str, body=None, ctype: str = "application/json"):
+        import urllib.request
+
+        if isinstance(body, (dict, list)):
+            body = json.dumps(body).encode()
+        req = urllib.request.Request(self.base + path, data=body, method=method, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    def upload(self, filename: str, data: bytes):
+        """POST /ingest/file with a multipart body built by hand."""
+        boundary = "chip-smoke-boundary-7f3a"
+        body = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{filename}"\r\n'
+                "Content-Type: image/png\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
+        return self.call("POST", "/ingest/file", body, f"multipart/form-data; boundary={boundary}")
+
+
+class ServerThread:
+    """The port's HTTP server on an event loop in a background thread."""
+
+    def __init__(self, services):
+        import asyncio
+        import threading
+
+        from morphik_core_tpu_torch.api.app import build_app
+        from morphik_core_tpu_torch.api.http import HTTPServer
+
+        self.services = services
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        self.run(services.initialize())
+        self.server = HTTPServer(build_app(services), "127.0.0.1", 0)
+        self.run(self.server.start())
+
+    def run(self, coro):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout=600)
+
+    def stop(self):
+        try:
+            self.run(self.server.stop())
+        finally:
+            self.run(self.services.shutdown())
+            self.run(self.loop.shutdown_default_executor())  # the ingest worker threads
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(timeout=60)
+            self.loop.close()
+
+
+def _wait_completed(client, doc_ids):
+    deadline = time.perf_counter() + SERVICE_POLL_S
+    while True:
+        states = {d: client.call("GET", f"/documents/{d}/status") for d in doc_ids}
+        failed = {d: st["error"] for d, st in states.items() if st["status"] == "failed"}
+        if failed:
+            raise AssertionError(f"ingest failed: {failed}")
+        if all(st["status"] == "completed" for st in states.values()):
+            return time.perf_counter()
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"ingest not completed after {SERVICE_POLL_S} s: {states}")
+        time.sleep(0.02)
+
+
+def service_path(torch, model, _kernels, smi):
+    """Phase 8: the port's server on the card, driven over a socket."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.config import load_settings
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+    from morphik_core_tpu_torch.utils.png import decode_png, encode_png
+
+    settings = load_settings(ROOT / "morphik_tpu.toml")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_service_"))
+    settings.api.port = 0
+    settings.storage.storage_path = str(tmp / "storage")
+    settings.storage.cache_path = str(tmp / "storage" / "cache")
+    settings.database.path = str(tmp / "storage" / "morphik.db")
+    settings.vector_store.index_path = str(tmp / "storage" / "index")
+    settings.telemetry.telemetry_dir = str(tmp / "logs" / "telemetry")
+    t0 = time.perf_counter()
+    services = build_services(settings, colqwen_model=model)  # the card; recalibrates static scales
+    server = ServerThread(services)
+    boot_s = time.perf_counter() - t0
+    client = Client(f"http://127.0.0.1:{server.server.port}")
+    log(f"phase 8: service path, server up in {boot_s:.3f} s (morphik_tpu.toml: max_jobs "
+        f"{settings.worker.max_jobs}, store batch {settings.worker.colpali_store_batch_size}, "
+        f"static scales {settings.model.static_act_scales}); pages as PNG over HTTP")
+    try:
+        pngs = [encode_png(p) for p in service_pages()]
+        _kernels.reset_launch_counts()  # the HTTP path starts here
+        health = client.call("GET", "/health")["components"]["colpali"]
+        if health["backend"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"/health backend {health['backend']!r}, expected the card")
+        t_ingest = time.perf_counter()
+        docs = [client.upload(f"page{i}.png", data)["external_id"] for i, data in enumerate(pngs)]
+        t_done = _wait_completed(client, docs)
+        ingest_s = t_done - t_ingest
+        ingest_launches = dict(_kernels.launch_counts)
+        phases = [client.call("GET", f"/documents/{d}")["system_metadata"]["phase_times"] for d in docs]
+        lat, timings, http_results = [], [], {}
+        for text in QUERIES:
+            for rep in range(RETRIEVE_REPEATS + 1):  # the first is a warm-up, untimed
+                t = time.perf_counter()
+                res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
+                if rep:
+                    lat.append((time.perf_counter() - t) * 1e3)
+                    timings.append(dict(services.colpali_vector_store._indexes["default"].last_timing))
+            if len(res) != 4 or not all(np.isfinite(r["score"]) for r in res):
+                raise AssertionError(f"/retrieve/chunks {text!r}: {res}")
+            http_results[text] = res
+        q_img = bytes_to_data_uri(pngs[3], "image/png")
+        t = time.perf_counter()
+        img_res = client.call("POST", "/retrieve/chunks", {"query_image": q_img, "k": 4})
+        image_ms = (time.perf_counter() - t) * 1e3
+        if img_res[0]["document_id"] != docs[3] or img_res[0]["content"] != q_img:
+            raise AssertionError(f"image self-query top-1 is {img_res[0]['document_id']}, expected {docs[3]}")
+        t = time.perf_counter()
+        answer = client.call("POST", "/query", {"query": QUERIES[0], "k": 4})
+        query_ms = (time.perf_counter() - t) * 1e3
+        if not answer["completion"] or [x["document_id"] for x in answer["sources"]] != [
+                r["document_id"] for r in http_results[QUERIES[0]]]:
+            raise AssertionError(f"/query: {answer['completion']!r}, sources {answer['sources']}")
+        health = client.call("GET", "/health")["components"]["colpali"]
+        launches = dict(_kernels.launch_counts)  # the HTTP path ends here
+        if health["index_rows"] != {"default": len(pngs)}:
+            raise AssertionError(f"/health index_rows {health['index_rows']}")
+        if health["device_cache"]["default"]["hits"] <= 0:
+            raise AssertionError(f"/health device cache shows no hits: {health['device_cache']}")
+        if launches["window_attention"] <= 0 or launches["maxsim_q8"] <= 0:
+            raise AssertionError(f"the HTTP path did not launch K3 and K1: {launches}")
+
+        # the same answers from the in-process store, on the same embeddings
+        emb, store = services.colpali_embedding_model, services.colpali_vector_store
+        t = time.perf_counter()
+        for _ in range(RETRIEVE_REPEATS):
+            query_embs = {text: emb.embed_query(text) for text in QUERIES}
+        encode_ms = (time.perf_counter() - t) * 1e3 / (RETRIEVE_REPEATS * len(QUERIES))
+        query_embs["<page 3>"] = emb.embed_query(decode_png(pngs[3]))
+        http_results["<page 3>"] = img_res
+        for key, q in query_embs.items():
+            lib = server.run(store.query_similar(q, k=4, doc_ids=docs))
+            got = [(r["document_id"], r["chunk_number"]) for r in http_results[key]]
+            if got != [(c.document_id, c.chunk_number) for c in lib]:
+                raise AssertionError(f"{key!r}: HTTP {got} vs in-process store {[c.document_id for c in lib]}")
+            err = max(abs(r["score"] - c.score) for r, c in zip(http_results[key], lib))
+            if err > SCORE_ATOL:
+                raise AssertionError(f"{key!r}: HTTP scores differ from the store's by {err}")
+    finally:
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    p50, p99 = (float(np.percentile(lat, p)) for p in (50, 99))
+    mean_ms = float(np.mean(lat))
+    index_ms = {k: float(np.mean([t[k] for t in timings])) for k in ("encode_ms", "ann_ms", "rerank_ms")}
+    service = {
+        "card": smi, "pages": len(pngs), "ingest_s": ingest_s, "ingest_pages_per_s": len(pngs) / ingest_s,
+        "ingest_job_phase_s": {k: float(np.mean([p[k] for p in phases])) for k in phases[0]},
+        "retrieve_n": len(lat), "retrieve_p50_ms": p50, "retrieve_p99_ms": p99, "retrieve_mean_ms": mean_ms,
+        "image_query_ms": image_ms, "query_ms": query_ms, "text_encode_ms": encode_ms,
+        "text_encode_share": encode_ms / mean_ms,
+        "index_ms": index_ms, "index_share": sum(index_ms.values()) / mean_ms,
+        "pooled_tier": any(t["pooled_tier"] for t in timings), "pool": timings[-1]["pool"],
+        "cache": health["device_cache"]["default"], "boot_s": boot_s,
+        "launches": launches, "ingest_launches": ingest_launches,
+    }
+    log(f"  {len(pngs)} PNG pages ingested over HTTP in {ingest_s:.3f} s ({service['ingest_pages_per_s']:.3f} "
+        f"pages/s; mean job phases s {json.dumps(service['ingest_job_phase_s'])}); retrieve p50 {p50:.3f} ms p99 {p99:.3f} ms over {len(lat)}; image query {image_ms:.3f} ms; "
+        f"/query {query_ms:.3f} ms; text encode {encode_ms:.3f} ms a query; index {json.dumps(index_ms)}; "
+        f"launches {launches}; HTTP results equal the in-process store's")
+    return service
+
+
 def main() -> None:
     torch, smi = setup()
     import numpy as np
@@ -743,9 +973,12 @@ def main() -> None:
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the path was never launched: {counts}")
     log(f"ingest summary: {json.dumps({'bf16': bf16_stats, 'int8_static': int8_stats})}")
+    del index, index_bf16
+    service = service_path(torch, model, _kernels, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
         dict(name=name, route="cuda", source=csrc + src, replaces=replaces, launches=counts[name],
+             service_launches=service["launches"][name],
              max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
              bound_ms=case["bound_us"] / 1e3, bound_by=case["bound_by"], library_ms=case.get("library_ms"),
              device_ms=case["device_ms"], plain_device_ms=case["plain_device_ms"],
@@ -760,6 +993,7 @@ def main() -> None:
     log(f"total wall s {time.perf_counter() - t_all:.3f}")
     log(json.dumps({"cases": all_cases}))
     print(smi)
+    print(json.dumps({"service": service}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -14,10 +14,18 @@ construction calibrates the int8 vision tower's static activation
 scales on the committed calibration pages. A calibration
 failure raises: the reference logs it and serves dynamic quantization,
 a different precision than the one configured.
+
+Service-plane entry points (`embedding/colpali_embedding_model.py:246-327`
+of the reference): `embed_for_ingestion_sync` / `embed_for_ingestion`
+take `Chunk`s, whose metadata may carry the page's `_patches` computed
+at upload (the reference's prep mode), and `embed_for_query` takes a
+text or a decoded (H, W, 3) uint8 page. `from_settings` maps the
+reference's `Settings`.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -26,9 +34,13 @@ import numpy as np
 import torch
 
 from morphik_core_tpu_torch.models.colqwen.calibrate import calibration_batches, load_calibration_pages
-from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
-from morphik_core_tpu_torch.models.colqwen.preprocess import preprocess_image_u8
+from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig
+from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel, quantize_colqwen_params
+from morphik_core_tpu_torch.models.colqwen.preprocess import preprocess_array_u8, preprocess_image_u8
+from morphik_core_tpu_torch.models.schemas import Chunk
 from morphik_core_tpu_torch.ops.fde import FDEConfig, fde_document_batch
+from morphik_core_tpu_torch.utils.fast_ops import data_uri_to_bytes
+from morphik_core_tpu_torch.utils.png import decode_png
 
 logger = logging.getLogger(__name__)
 
@@ -65,6 +77,36 @@ class ColpaliEmbeddingModel:
             model.calibrate_static_act_scales(calibration_batches(u8, CALIBRATION_BATCH), hu, wu)
             self.last_metrics["calibration_s"] = time.perf_counter() - t0
             logger.info("static activation scales calibrated in %.1fs", self.last_metrics["calibration_s"])
+
+    @classmethod
+    def from_settings(cls, settings, model: Optional[ColQwenModel] = None, device=None,
+                      fde_config: Optional[FDEConfig] = None) -> "ColpaliEmbeddingModel":
+        """The embedder `Settings` describe: `tpu.embed_batch_size`,
+        `model.min_pixels` / `max_pixels` and `model.static_act_scales`.
+        A given model must have the configured `model.matmul_precision`.
+        Without one, development mode serves the tiny random model in
+        that precision (`colpali_embedding_model.py:61-82`); any other
+        environment raises rather than serve random embeddings."""
+        precision = settings.model.matmul_precision
+        if model is None:
+            if settings.service.environment != "development":
+                raise RuntimeError(
+                    "no ColQwen model given and service.environment="
+                    f"{settings.service.environment!r}: refusing to serve random-weight embeddings "
+                    "outside development mode"
+                )
+            logger.warning("no model given: serving a tiny random ColQwen (development mode)")
+            model = ColQwenModel.init_random(ColQwenConfig.tiny(), seed=0, device=device)
+            if precision == "int8":
+                quantize_colqwen_params(model)
+        elif model.matmul_precision != precision:
+            raise ValueError(
+                f"the model serves matmul_precision={model.matmul_precision!r}, the settings "
+                f"configure {precision!r}"
+            )
+        return cls(model, batch_size=settings.tpu.embed_batch_size, min_pixels=settings.model.min_pixels,
+                   max_pixels=settings.model.max_pixels, fde_config=fde_config,
+                   static_act_scales=settings.model.static_act_scales)
 
     @property
     def embedding_dim(self) -> int:
@@ -120,11 +162,62 @@ class ColpaliEmbeddingModel:
         self.last_metrics.update(text_model_s=time.perf_counter() - t0, text_count=len(texts))
         return out
 
-    def embed_for_query(self, query: Union[str, "object"]) -> np.ndarray:
-        """Text query or PIL image query -> (n_tokens, dim) f32."""
+    def embed_query(self, query: Union[str, np.ndarray, "object"]) -> np.ndarray:
+        """A text, a decoded (H, W, 3) uint8 page or a PIL image ->
+        (n_tokens, dim) f32."""
         if isinstance(query, str):
             return self.embed_texts([query])[0]
+        if isinstance(query, np.ndarray):
+            prepped = preprocess_array_u8(query, min_pixels=self.min_pixels, max_pixels=self.max_pixels)
+            return self._embed_prepped([prepped])[0]
         return self.embed_images([query])[0]
+
+    async def embed_for_query(self, query: Union[str, np.ndarray]) -> np.ndarray:
+        """`embed_query` for the service plane (the reference's async API),
+        in a worker thread: the event loop keeps serving meanwhile."""
+        return await asyncio.to_thread(self.embed_query, query)
+
+    def embed_for_ingestion_sync(
+        self, chunks: Union[Chunk, List[Chunk]]
+    ) -> Tuple[List[np.ndarray], List[Optional[np.ndarray]]]:
+        """Chunks -> (embeddings, fused FDE rows), chunk-aligned
+        (`colpali_embedding_model.py:259-320`). An image chunk whose
+        metadata carries `_patches` (computed at upload) is embedded from
+        them; another image chunk has its PNG payload decoded here; text
+        chunks go through the text tower (their FDE row is None). The
+        ingestion service runs this in worker threads: results flow
+        through return values only."""
+        if isinstance(chunks, Chunk):
+            chunks = [chunks]
+        if not chunks:
+            return [], []
+        t0 = time.perf_counter()
+        image_items: List[Tuple[int, Prepped]] = []
+        text_items: List[Tuple[int, str]] = []
+        for i, chunk in enumerate(chunks):
+            if not chunk.metadata.get("is_image"):
+                text_items.append((i, chunk.content))
+                continue
+            pp = chunk.metadata.pop("_patches", None)
+            if pp is None:
+                pp = preprocess_array_u8(decode_png(data_uri_to_bytes(chunk.content)),
+                                         min_pixels=self.min_pixels, max_pixels=self.max_pixels)
+            image_items.append((i, (pp[0], tuple(pp[1]))))
+        prep_s = time.perf_counter() - t0
+        results: List[Optional[np.ndarray]] = [None] * len(chunks)
+        fde_out: List[Optional[np.ndarray]] = [None] * len(chunks)
+        if image_items:
+            embs, fdes = self._embed_prepped([pp for _, pp in image_items], with_fde=True, prep_s=prep_s)
+            for (i, _), e, f in zip(image_items, embs, fdes):
+                results[i], fde_out[i] = e, f
+        if text_items:
+            for (i, _), e in zip(text_items, self.embed_texts([t for _, t in text_items])):
+                results[i] = e
+        self.last_metrics["total_s"] = time.perf_counter() - t0
+        return results, fde_out
+
+    async def embed_for_ingestion(self, chunks: Union[Chunk, List[Chunk]]) -> List[np.ndarray]:
+        return self.embed_for_ingestion_sync(chunks)[0]
 
     def warmup(self, grids: Optional[List[Tuple[int, int]]] = None) -> float:
         """Run the query path and the page-grid forwards once. Errors

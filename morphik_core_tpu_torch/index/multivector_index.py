@@ -237,6 +237,14 @@ class MultiVectorIndex:
                 self._doc_alive.pop(document_id, None)
             return n
 
+    def get_chunks_by_id(self, chunk_ids: Sequence[Tuple[str, int]]) -> List[Optional[IndexRecord]]:
+        """Records of live (document_id, chunk_number) rows, None where absent."""
+        out = []
+        for doc_id, chunk_no in chunk_ids:
+            row = self._id_to_row.get(f"{doc_id}-{chunk_no}")
+            out.append(self.records[row] if row is not None and self._alive[row] else None)
+        return out
+
     def _mv_row(self, row: int) -> np.ndarray:
         return self._mv_rows[row]
 

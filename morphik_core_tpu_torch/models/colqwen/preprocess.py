@@ -5,7 +5,9 @@ Images resize to multiples of 112 px (llm grid multiples of the 4-unit
 attention window), so every page lands on a static grid bucket and
 window attention is a pure reshape. PIL is imported only inside the
 functions that take an image: the card's path ships uint8 patches and
-never imports it.
+never imports it. A page decoded to a uint8 array (the service plane's
+PNG ingest) goes through `preprocess_array_u8`, whose bicubic resize,
+luma and blank-page check mirror Pillow bit for bit.
 """
 
 from __future__ import annotations
@@ -94,6 +96,101 @@ def preprocess_image_u8(
     image = image.resize((w, h), Image.Resampling.BICUBIC)
     arr = np.asarray(image, dtype=np.uint8).transpose(2, 0, 1)  # (C, H, W)
     return patchify_u8(arr), (h // (PATCH_SIZE * MERGE_SIZE), w // (PATCH_SIZE * MERGE_SIZE))
+
+
+def preprocess_array_u8(
+    hwc: np.ndarray,
+    min_pixels: int = 1 * WINDOW_FACTOR * WINDOW_FACTOR,
+    max_pixels: int = 60 * WINDOW_FACTOR * WINDOW_FACTOR,
+) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """`preprocess_image_u8` on a decoded (H, W, 3) uint8 page instead of
+    a PIL image: the same (patches, grid), with Pillow's bicubic resize
+    mirrored by `resize_bicubic_u8`."""
+    h, w = smart_resize(hwc.shape[0], hwc.shape[1], min_pixels=min_pixels, max_pixels=max_pixels)
+    arr = resize_bicubic_u8(hwc, (h, w)).transpose(2, 0, 1)  # (C, H, W)
+    return patchify_u8(arr), (h // (PATCH_SIZE * MERGE_SIZE), w // (PATCH_SIZE * MERGE_SIZE))
+
+
+# --- Pillow's 8-bit bicubic resize and luma, in numpy ---------------------
+# Mirrors src/libImaging/Resample.c: coefficients per output pixel over a
+# window of support 2 * max(scale, 1), normalised, then made fixed point
+# with 22 bits rounded away from zero; the horizontal pass runs before the
+# vertical one, each summing from 1 << 21, shifting by 22 and clipping to
+# [0, 255]; a dimension whose size is unchanged gets no pass.
+
+_PRECISION_BITS = 22
+
+
+def _bicubic_filter(x: np.ndarray) -> np.ndarray:
+    """The a = -0.5 cubic, in Resample.c's operation order."""
+    x = np.abs(x)
+    near = (1.5 * x - 2.5) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * -0.5
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _resample_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Resample.c `precompute_coeffs` + `normalize_coeffs_8bpc`: per output
+    pixel its first input index and ksize fixed-point taps (0 past the
+    clamped window)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)  # C (int): toward zero
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = np.arange(ksize)
+    w = _bicubic_filter(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
+    ww = np.zeros(out_size)
+    for j in range(ksize):  # sequential, as the C loop sums
+        ww += w[:, j]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    scaled = w * float(1 << _PRECISION_BITS)
+    fixed = np.where(w < 0, np.trunc(-0.5 + scaled), np.trunc(0.5 + scaled)).astype(np.int64)
+    return xmin, fixed
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    in_size = img.shape[axis]
+    xmin, fixed = _resample_coeffs(in_size, out_size)
+    src = np.moveaxis(img, axis, 0)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    bshape = (out_size,) + (1,) * (src.ndim - 1)
+    for j in range(fixed.shape[1]):
+        rows = src[np.minimum(xmin + j, in_size - 1)].astype(np.int64)
+        acc += rows * fixed[:, j].reshape(bshape)
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(np.moveaxis(out, 0, axis))
+
+
+def resize_bicubic_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Pillow's `Image.resize((w, h), BICUBIC)` of an 8-bit (H, W) or
+    (H, W, C) image, bit-identical; `size` is (h, w)."""
+    h, w = size
+    out = np.asarray(img, dtype=np.uint8)
+    if w != out.shape[1]:
+        out = _resample_axis(out, w, axis=1)
+    if h != out.shape[0]:
+        out = _resample_axis(out, h, axis=0)
+    return out if out is not img else out.copy()
+
+
+def to_luma_u8(hwc: np.ndarray) -> np.ndarray:
+    """Pillow's `convert("L")` of an RGB uint8 image (ITU-R 601-2, 16-bit
+    fixed point)."""
+    rgb = hwc.astype(np.int32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def is_blank_page(hwc: np.ndarray, dark_fraction: float = 2e-4, std_threshold: float = 1.0) -> bool:
+    """`morphik_core_tpu/parser/raster_pool.py:32-41::is_blank_page` on a
+    decoded (H, W, 3) uint8 page: luma, bicubic to 128 x 128, then blank
+    only if it is both low-variance and has (almost) no ink."""
+    arr = resize_bicubic_u8(to_luma_u8(hwc), (128, 128)).astype(np.float32)
+    ink = float((arr < 200).mean())
+    return ink < dark_fraction and float(arr.std()) < std_threshold
 
 
 def patchify_u8(chw: np.ndarray) -> np.ndarray:

@@ -14,7 +14,8 @@ an error, never a switch to the plain versions.
 
 `launch_counts` counts launches per kernel: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.
+path went through the kernels. The server launches from its event loop
+and from ingest worker threads at once, so counting takes a lock.
 """
 
 from __future__ import annotations
@@ -40,13 +41,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0, "window_attention": 0}
 
+_counts_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _counts_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def count_launch(name: str) -> None:
+    with _counts_lock:
+        launch_counts[name] += 1
 
 
 def _nvcc() -> str:
@@ -133,7 +141,7 @@ def launch_maxsim_q8(q8, qs, d8, ds, mask, idx, part, out, plan) -> None:
         ctypes.c_void_p(torch.cuda.current_stream(d8.device).cuda_stream),
     )
     _check(rc, "maxsim_q8")
-    launch_counts["maxsim_q8"] += 1
+    count_launch("maxsim_q8")
 
 
 def launch_maxsim(q, docs, mask, idx, part, out, plan) -> None:
@@ -145,7 +153,7 @@ def launch_maxsim(q, docs, mask, idx, part, out, plan) -> None:
         plan.n_splits, ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
     )
     _check(rc, "maxsim")
-    launch_counts["maxsim"] += 1
+    count_launch("maxsim")
 
 
 def launch_window_attention(q, k, v, out, window: int) -> None:
@@ -156,4 +164,4 @@ def launch_window_attention(q, k, v, out, window: int) -> None:
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     _check(rc, "window_attention")
-    launch_counts["window_attention"] += 1
+    count_launch("window_attention")

@@ -1,0 +1,170 @@
+"""Service container of the port: builds the ColPali serving stack from
+`Settings`. Port of `morphik_core_tpu/services_init.py:62-330` for what
+the port serves: the sqlite database, local storage, the ColPali
+embedder and its multivector store on one device, the stub completion
+model, telemetry and the job queue.
+
+Settings that select a part the port does not have yet raise
+`NotImplementedError` naming the ROADMAP item, rather than serve another
+path. Without a card, `build_services` raises unless the caller passes
+`device="cpu"` (as the CPU tests do).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from morphik_core_tpu_torch.completion.models import BaseCompletionModel, build_completion_model
+from morphik_core_tpu_torch.config import Settings, get_settings
+from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
+from morphik_core_tpu_torch.device import default_device
+from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
+from morphik_core_tpu_torch.models.schemas import AuthContext
+from morphik_core_tpu_torch.ops.fde import FDEConfig
+from morphik_core_tpu_torch.services.document_service import DocumentService
+from morphik_core_tpu_torch.services.ingestion_service import IngestionService
+from morphik_core_tpu_torch.services.telemetry import TelemetryService
+from morphik_core_tpu_torch.storage.local_storage import LocalStorage
+from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
+from morphik_core_tpu_torch.workers.job_queue import JobQueue
+
+logger = logging.getLogger(__name__)
+
+
+def _refuse_unported(settings: Settings) -> None:
+    """Raise on each setting whose path the port does not have yet."""
+    refusals = (
+        (settings.model.checkpoint_path, f"model.checkpoint_path={settings.model.checkpoint_path!r}: loading a "
+         "checkpoint needs convert.py (ROADMAP Queue 1 item 4); pass colqwen_model"),
+        (settings.model.attention_precision == "int8",
+         'model.attention_precision="int8" (ROADMAP Queue 1 item 3)'),
+        (not settings.morphik.enable_colpali or settings.morphik.colpali_mode == "off",
+         "serving without ColPali needs the text index (ROADMAP Queue 1 item 7a)"),
+        (settings.morphik.colpali_mode == "api",
+         'morphik.colpali_mode="api" (remote embedding servers, ROADMAP Queue 1 item 7h)'),
+        (settings.storage.provider == "aws-s3", 'storage.provider="aws-s3" (ROADMAP Queue 1 item 7h)'),
+        (settings.tpu.auto_mesh, "tpu.auto_mesh=true (the multi-GPU paths, ROADMAP Queue 1 item 5)"),
+        (settings.morphik.mode == "cloud", 'morphik.mode="cloud" (tier limits, ROADMAP Queue 1 item 7e)'),
+    )
+    for refused, what in refusals:
+        if refused:
+            raise NotImplementedError(f"not ported: {what}")
+
+
+@dataclass
+class Services:
+    settings: Settings
+    database: SQLiteDatabase
+    storage: LocalStorage
+    colpali_embedding_model: ColpaliEmbeddingModel
+    colpali_vector_store: TorchMultiVectorStore
+    completion_model: BaseCompletionModel
+    document_service: DocumentService
+    ingestion_service: IngestionService
+    telemetry: TelemetryService
+    job_queue: JobQueue
+
+    async def initialize(self) -> None:
+        await self.database.initialize()
+        await self.colpali_vector_store.initialize()
+        self.job_queue.register("process_ingestion_job", self._process_ingestion_job)
+        await self.job_queue.start()
+        if self.settings.tpu.warmup_on_start:
+            await asyncio.to_thread(self.colpali_embedding_model.warmup)
+
+    async def shutdown(self) -> None:
+        await self.job_queue.stop()
+        self.colpali_vector_store.save()
+        self.telemetry.flush()
+
+    async def _process_ingestion_job(self, document_id: str, auth: dict, use_colpali: bool = True):
+        ctx = AuthContext(**auth) if isinstance(auth, dict) else auth
+        await self.ingestion_service.process_ingestion_job(document_id, ctx, use_colpali)
+        self.persist_indexes()
+
+    def persist_indexes(self) -> None:
+        """The reference snapshots its indexes after each ingest job; the
+        port's store writes nothing until persistence is ported (ROADMAP
+        Queue 1 item 2)."""
+        try:
+            self.colpali_vector_store.save()
+        except Exception:  # noqa: BLE001
+            logger.exception("index persistence failed")
+
+
+def build_services(
+    settings: Optional[Settings] = None,
+    *,
+    colqwen_model=None,
+    device=None,
+) -> Services:
+    """The stack `settings` describe, on `device` (the card by default).
+    `colqwen_model` is served as given (its precision must be the
+    configured one); without it, development mode serves the tiny random
+    model."""
+    settings = settings or get_settings()
+    _refuse_unported(settings)
+    device = torch.device(device) if device is not None else default_device()
+    storage_root = Path(settings.storage.storage_path)
+    database = SQLiteDatabase(settings.database.path)
+    storage = LocalStorage(settings.storage.storage_path)
+    completion_model = build_completion_model(settings.completion.model)
+    embedder = ColpaliEmbeddingModel.from_settings(settings, colqwen_model, device=device)
+    vs = settings.vector_store
+    fde_cfg = FDEConfig(
+        dimension=embedder.embedding_dim,
+        num_repetitions=vs.fde_num_repetitions,
+        num_simhash_projections=vs.fde_num_simhash_projections,
+        projection_dimension=vs.fde_projection_dimension,
+        seed=vs.fde_seed,
+    )
+    # fused ingest FDE: the embedder computes each page's document FDE on
+    # the device right after the forward; valid only when stored
+    # multivectors are not pooled (pooling rewrites the rows it describes)
+    if vs.multivector_pooling <= 1:
+        embedder.fde_config = fde_cfg
+    store = TorchMultiVectorStore(
+        storage=storage,
+        fde_config=fde_cfg,
+        index_path=vs.index_path,
+        device=device,
+        prefilter_multiplier=vs.prefilter_multiplier,
+        prefilter_cap=vs.prefilter_cap,
+        pooling_factor=vs.multivector_pooling,
+        ann_dtype=vs.ann_dtype,
+        device_block_rows=vs.device_block_rows,
+        device_cache_slots=vs.device_cache_slots,
+        device_cache_token_bucket=vs.device_cache_token_bucket,
+        rerank_dtype=vs.rerank_dtype,
+        rerank_prefilter_pooling=vs.rerank_prefilter_pooling,
+        pooled_tier_factor=vs.pooled_tier_factor,
+        pooled_tier_budget_mb=vs.pooled_tier_budget_mb,
+        pooled_refine_iters=vs.pooled_refine_iters,
+        query_token_dedup=vs.query_token_dedup,
+    )
+    telemetry = TelemetryService(settings.telemetry.telemetry_dir, settings.telemetry.enabled)
+    ingestion_service = IngestionService(database, storage, embedder, store, settings)
+    document_service = DocumentService(database, storage, embedder, store, completion_model, settings)
+    job_queue = JobQueue(
+        path=storage_root / "jobs.db",
+        max_jobs=settings.worker.max_jobs,
+        job_timeout_s=settings.worker.job_timeout_s,
+    )
+    return Services(
+        settings=settings,
+        database=database,
+        storage=storage,
+        colpali_embedding_model=embedder,
+        colpali_vector_store=store,
+        completion_model=completion_model,
+        document_service=document_service,
+        ingestion_service=ingestion_service,
+        telemetry=telemetry,
+        job_queue=job_queue,
+    )

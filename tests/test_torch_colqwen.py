@@ -143,7 +143,7 @@ def test_embedder_fused_fde_matches_jax(models):
         np.testing.assert_allclose(e, je[0], rtol=5e-4, atol=5e-4)
         jf = np.asarray(j_fde_batch(jnp.asarray(je), jnp.ones(je.shape[:2]), JFDEConfig(dimension=32)))[0]
         np.testing.assert_allclose(f, jf, rtol=1e-3, atol=1e-3)
-    assert emb.embed_for_query("quarterly revenue").shape[1] == tm.cfg.embedding_dim
+    assert emb.embed_query("quarterly revenue").shape[1] == tm.cfg.embedding_dim
     assert emb.embed_images([Image.new("RGB", (448, 336), (255, 255, 255))])[0].shape[1] == 32
 
 

@@ -275,3 +275,119 @@ def test_int8_product_exact_at_3b_shapes(sm90, m, k, n):
     got = int8_dot(x8, w)
     assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
     assert torch.equal(got.long(), _exact_int_product(x8, w.q8[:k, :n]))
+
+
+@pytest.mark.cuda
+def test_service_plane_serves_on_card(sm90, tmp_path):
+    """The tiny random model (int8 + static scales, the shipped
+    precision) served over HTTP on the card: one PNG ingest launches K3
+    in the windowed vision blocks, one retrieve launches K1 in the int8
+    rerank."""
+    import asyncio
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    services = build_services(Settings.from_dict({
+        "storage": {"storage_path": str(tmp_path / "storage")}, "database": {"path": str(tmp_path / "db.sqlite")},
+        "vector_store": {"index_path": str(tmp_path / "index")},
+        "telemetry": {"telemetry_dir": str(tmp_path / "logs" / "telemetry")},
+        "model": {"static_act_scales": True},
+    }))  # no device: the card
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
+
+    on_loop(services.initialize())
+    server = HTTPServer(build_app(services), "127.0.0.1", 0)
+    on_loop(server.start())
+    base = f"http://127.0.0.1:{server.port}"
+
+    def call(path, body=None, ctype="application/json"):
+        req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    try:
+        page = np.full((224, 336, 3), 255, np.uint8)
+        page[30:80, 40:300] = (20, 90, 200)
+        page[120:200:6, 20:320] = 0
+        b = "card-test-boundary"
+        body = (f'--{b}\r\nContent-Disposition: form-data; name="file"; filename="p.png"\r\n'
+                "Content-Type: image/png\r\n\r\n").encode() + encode_png(page) + f"\r\n--{b}--\r\n".encode()
+        _kernels.reset_launch_counts()
+        doc = call("/ingest/file", body, f"multipart/form-data; boundary={b}")
+        deadline = time.time() + 120
+        while (status := call(f"/documents/{doc['external_id']}/status")["status"]) == "processing":
+            assert time.time() < deadline
+            time.sleep(0.05)
+        assert status == "completed"
+        ingest_k3 = _kernels.launch_counts["window_attention"]
+        hits = call("/retrieve/chunks", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
+        assert [h["document_id"] for h in hits] == [doc["external_id"]] and np.isfinite(hits[0]["score"])
+        health = call("/health")["components"]["colpali"]
+        assert health["backend"] == torch.cuda.get_device_name(0) and health["index_rows"] == {"default": 1}
+        assert ingest_k3 > 0 and _kernels.launch_counts["maxsim_q8"] > 0, dict(_kernels.launch_counts)
+    finally:
+        on_loop(server.stop())
+        on_loop(services.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)
+
+
+@pytest.mark.cuda
+def test_server_entry_point_boots_on_card(sm90, tmp_path):
+    """`python -m morphik_core_tpu_torch.api.server <toml>` boots on the
+    card, answers /health over a socket and drains on SIGTERM."""
+    import json
+    import queue
+    import signal
+    import subprocess
+    import sys
+    import threading
+    import time
+    import urllib.request
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    toml = tmp_path / "morphik_tpu.toml"
+    toml.write_text(
+        f'[api]\nhost = "127.0.0.1"\nport = 0\n[model]\nstatic_act_scales = true\n'
+        f'[storage]\nstorage_path = "{tmp_path / "storage"}"\n[database]\npath = "{tmp_path / "db.sqlite"}"\n'
+        f'[vector_store]\nindex_path = "{tmp_path / "index"}"\n'
+        f'[telemetry]\ntelemetry_dir = "{tmp_path / "logs" / "telemetry"}"\n'
+    )
+    proc = subprocess.Popen([sys.executable, "-m", "morphik_core_tpu_torch.api.server", str(toml)], cwd=root,
+                            stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(line) for line in proc.stderr], daemon=True)
+    reader.start()
+    try:
+        deadline, port = time.time() + 300, None
+        while port is None:
+            assert time.time() < deadline and proc.poll() is None, "server did not start"
+            try:
+                line = lines.get(timeout=1)
+            except queue.Empty:
+                continue
+            if "serving on 127.0.0.1:" in line:
+                port = int(line.rsplit(":", 1)[1])
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as resp:
+            health = json.loads(resp.read())
+        assert health["components"]["colpali"]["backend"] == torch.cuda.get_device_name(0)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)

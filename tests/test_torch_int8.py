@@ -334,7 +334,7 @@ def test_slice_int8_static_matches_jax(calibrated):
     ti.store(t_pages, [TRecord(f"doc{i}", 0) for i in range(4)], fde_vectors=np.stack(t_fdes))
     ti.store(rows, [TRecord(f"doc{i}", 0) for i in range(4, 64)])
     texts = ("rotor torque", "SPEC-9174 valve", "quarterly revenue")
-    queries = [(jm.embed_queries([t])[0], emb.embed_for_query(t)) for t in texts]
+    queries = [(jm.embed_queries([t])[0], emb.embed_query(t)) for t in texts]
     queries += [(j_pages[i], t_pages[i]) for i in range(4)] + [(rows[40], rows[40])]
     for jq, tq in queries:
         _same_ranking(ji.query(jq, k=5), ti.query(tq, k=5), rtol=1e-2)

@@ -1,7 +1,9 @@
-"""The port's main path imports neither jax, PIL nor pydantic (none is
-installed beside the card), nor anything of the JAX package: the shipped
-int8 embedder calibrates its static scales from the committed pages and
-serves ingest and queries, and the bf16 embedder still runs."""
+"""The port's main path imports neither jax, PIL, pydantic nor httpx
+(none is installed beside the card), nor anything of the JAX package:
+the shipped int8 embedder calibrates its static scales from the
+committed pages and serves ingest and queries, the bf16 embedder still
+runs, and the port's HTTP server boots on the CPU and answers an
+ingest -> retrieve -> query round trip over a socket."""
 
 import re
 import subprocess
@@ -14,7 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 _GUARD = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "PIL", "pydantic"):
+    for name in ("jax", "jaxlib", "PIL", "pydantic", "httpx"):
         sys.modules[name] = None  # any import of them now raises
     sys.path.insert(0, sys.argv[1])
     import numpy as np, torch
@@ -47,10 +49,57 @@ _GUARD = textwrap.dedent(
     extra = [rng.standard_normal((40, cfg.embedding_dim)).astype(np.float32) for _ in range(20)]
     index.store(embs, [IndexRecord(f"page{i}", 0) for i in range(3)], fde_vectors=np.stack(fdes))
     index.store(extra, [IndexRecord(f"x{i}", 0) for i in range(20)])
-    res = index.query(emb.embed_for_query("quarterly revenue"), k=5, return_timing=True)
+    res = index.query(emb.embed_query("quarterly revenue"), k=5, return_timing=True)
     assert len(res) == 5 and index.last_timing["pooled_tier"], res
     assert index.query(extra[7], k=3)[0][0].document_id == "x7"
-    leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "PIL", "pydantic", "morphik_core_tpu")
+
+    # the HTTP service plane on the CPU: ingest a PNG, retrieve, query
+    import asyncio, json, tempfile, threading, time, urllib.request
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    root = tempfile.mkdtemp()
+    services = build_services(Settings.from_dict({
+        "storage": {"storage_path": root + "/storage"}, "database": {"path": root + "/db.sqlite"},
+        "vector_store": {"index_path": root + "/index"}, "telemetry": {"telemetry_dir": root + "/logs/telemetry"},
+        "model": {"static_act_scales": True},
+    }), device="cpu")
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
+    on_loop(services.initialize())
+    server = HTTPServer(build_app(services), "127.0.0.1", 0)
+    on_loop(server.start())
+    base = f"http://127.0.0.1:{server.port}"
+    def call(path, body=None, ctype="application/json"):
+        req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+    page = np.full((224, 224, 3), 255, np.uint8)
+    page[40:90, 30:180] = (200, 30, 30)
+    b = "jaxfree-boundary"
+    body = (f'--{b}\\r\\nContent-Disposition: form-data; name="file"; filename="p.png"\\r\\n'
+            'Content-Type: image/png\\r\\n\\r\\n').encode() + encode_png(page) + f"\\r\\n--{b}--\\r\\n".encode()
+    doc = call("/ingest/file", body, f"multipart/form-data; boundary={b}")
+    for _ in range(600):
+        status = call(f"/documents/{doc['external_id']}/status")["status"]
+        if status != "processing":
+            break
+        time.sleep(0.05)
+    assert status == "completed", status
+    hits = call("/retrieve/chunks", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
+    assert [h["document_id"] for h in hits] == [doc["external_id"]], hits
+    answer = call("/query", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
+    assert answer["completion"] and answer["sources"][0]["document_id"] == doc["external_id"], answer
+    on_loop(server.stop())
+    on_loop(services.shutdown())
+    loop.call_soon_threadsafe(loop.stop)
+
+    leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "PIL", "pydantic", "httpx", "morphik_core_tpu")
                     and sys.modules[k] is not None)
     assert not leaked, leaked
     print("JAXFREE_OK")
@@ -66,7 +115,8 @@ def test_slice_runs_with_jax_pil_pydantic_blocked():
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import jax|from jax|import morphik_core_tpu\b(?!_)|from morphik_core_tpu\b(?!_))", re.M)
+    pattern = re.compile(r"^\s*(import (jax|pydantic|httpx)|from (jax|pydantic|httpx)"
+                         r"|import morphik_core_tpu\b(?!_)|from morphik_core_tpu\b(?!_))", re.M)
     files = sorted((ROOT / "morphik_core_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]

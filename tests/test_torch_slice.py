@@ -138,7 +138,7 @@ def test_slice_end_to_end_matches_jax(corpus):
     ti.store(rows, [TRecord(f"doc{i}", 0) for i in range(4, 64)])
     for text in QUERIES:
         ra = ji.query(jm.embed_queries([text])[0], k=5)
-        rb = ti.query(emb.embed_for_query(text), k=5)
+        rb = ti.query(emb.embed_query(text), k=5)
         _same_ranking(ra, rb, atol=5e-3)
     ra, rb = ji.query(rows[40], k=5), ti.query(rows[40], k=5)
     assert ra[0][0].document_id == rb[0][0].document_id == "doc44"
