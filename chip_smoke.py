@@ -33,7 +33,9 @@ Phases (each raises on failure; none is caught):
      of 8 at grid 24 x 20) and embeds the same 8 pages with the fused
      document FDE; its embeddings are held against (a)'s.
   4. store: the 8 pages plus seeded synthetic unit multivectors into the
-     index, over several device blocks.
+     index, over several device blocks; the index has a path (a temporary
+     directory) and the shipped compaction trigger, and nothing is saved
+     before phase 9.
   5. query with the shipped retrieval config (int8 ANN, pooled tier
      factor 32, int8 rerank through the device cache), queries encoded by
      the int8 text tower (held against (a)'s bf16 encodings): text
@@ -42,6 +44,20 @@ Phases (each raises on failure; none is caught):
   7. launch counts: the counts are reset just before each path and read
      just after it; (a) launched K3, the main path (3b-6) launched all
      three kernels.
+  9. persistence at full page width (run here, before phase 8; the
+     counts are reset for it): phase 4's index saved (bytes, MB/s), a
+     second index opened on its files with cold device state (open ms,
+     cold and warm query ms; no `pool_multivector` call: the pooled tier
+     comes from pooled.bin) answers phase 5's queries with the same ids
+     and score bits, and a rerank_dtype="bf16" index opened on the same
+     files gives phase 6's ids. 2048 rows of their own documents are
+     appended and saved (4096 rows, the trigger's compact_min_rows); 1100
+     of them are deleted one at a time, so the trigger (dead share > 0.25)
+     fires inside delete_document at the 1025th, exactly once. The files
+     shrink, no `.compact` directory is left, and the compacted index
+     answers exactly as a fresh in-memory index of the survivors (row
+     order, their stored FDE rows), before and after a save and reopen.
+     K1 and K2 must launch. Prints a {"persistence": {...}} line.
   8. the service path: the port's server (`build_services` + `build_app`
      from `morphik_tpu.toml`, paths in a temporary directory, port 0)
      serves phase 3b's 3B int8 model, recalibrated at boot, over a real
@@ -51,9 +67,14 @@ Phases (each raises on failure; none is caught):
      PNG as an image query (its document must come back first) and one
      /query. Every retrieve must equal the in-process store's answer to
      the same query embedding; the counts, reset after boot, must show
-     K3 (ingest) and K1 (retrieve) launched by the HTTP path. Prints a
+     K3 (ingest) and K1 (retrieve) launched by the HTTP path. Then the
+     server stops (its shutdown saves the index) and a second one boots
+     with `build_services` on the same directories and model: the same
+     retrieve ids (scores within SCORE_ATOL), every document `completed`
+     with its chunk, /health showing the 9 rows, K1 launched. Prints a
      {"service": {...}} line (ingest pages/s, retrieve p50/p99 ms, /query
-     ms, launches, the card's name and power limit).
+     ms, launches, restart boot s and p50, the card's name and power
+     limit).
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -63,8 +84,10 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -74,12 +97,14 @@ GRID = (20, 28)  # pages at grid 20 x 28 units (560 x 784 px)
 BATCH = 8
 N_SYNTH = 2040  # synthetic rows stored beside the 8 pages
 BLOCK_ROWS = 1024  # small device blocks: the 2048-row index spans 2
-SHIPPED = dict(  # morphik_tpu.toml [vector_store], no mesh, no persistence
+SHIPPED = dict(  # morphik_tpu.toml [vector_store] (compact_min_rows: the config default), no mesh
     prefilter_multiplier=30, prefilter_cap=300, ann_dtype="int8",
     device_cache_slots=2048, device_cache_token_bucket=1024, rerank_dtype="int8",
     rerank_prefilter_pooling=4, pooled_tier_factor=32, pooled_tier_budget_mb=6144,
-    query_token_dedup=0.98,
+    query_token_dedup=0.98, compact_dead_fraction=0.25, compact_min_rows=4096,
 )
+N_APPEND = 2048  # phase 9: rows appended to the 2048 saved ones, reaching compact_min_rows
+N_DELETE = 1100  # phase 9: the 1025th delete takes the dead share of 4096 rows past 0.25
 QUERIES = ["quarterly revenue growth", "table of contents", "signature page of the contract",
            "figure 3: latency distribution"]
 # K1: per-token products are bit-identical to the plain version; only the
@@ -649,10 +674,10 @@ def ingest_int8(torch, model, bf16_embs):
                                  mean_cosine=float(cos.mean()))
 
 
-def synthetic_rows(n_tok_range, n: int):
+def synthetic_rows(n_tok_range, n: int, seed: int = SEED + 1):
     import numpy as np
 
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         x = rng.standard_normal((int(rng.integers(*n_tok_range)), 128)).astype(np.float32)
@@ -678,18 +703,29 @@ def make_index(torch, rows, page_fdes, synth_fdes=None, **over):
     return index, time.perf_counter() - t0
 
 
+def answer(index, queries, k: int = 10):
+    """[(document_id, score)] best-first for each query."""
+    return [[(r.document_id, s) for r, s in index.query(q, k=k)] for q in queries]
+
+
 def run_queries(torch, emb, index, rows, label):
+    """The text queries (embedded by `emb`, timed with the index) and the
+    self-query of stored row BATCH + 123. Returns the query embeddings and
+    each one's [(document_id, score)]."""
     import numpy as np
 
-    lat = []
+    lat, queries, answers = [], [], []
     for text in QUERIES:
         t0 = time.perf_counter()
-        res = index.query(emb.embed_query(text), k=10, return_timing=True)
+        q = emb.embed_query(text)
+        res = index.query(q, k=10, return_timing=True)
         lat.append((time.perf_counter() - t0) * 1e3)
         if len(res) != 10 or not all(np.isfinite(s) for _, s in res):
             raise AssertionError(f"{label}: query {text!r} returned {len(res)} results")
         if not index.last_timing["pooled_tier"]:
             raise AssertionError(f"{label}: the pooled tier did not serve the query")
+        queries.append(q)
+        answers.append([(r.document_id, s) for r, s in res])
     self_row = BATCH + 123
     q = np.asarray(rows[self_row], np.float32)
     t0 = time.perf_counter()
@@ -698,21 +734,25 @@ def run_queries(torch, emb, index, rows, label):
     top = res[0][0].document_id
     if top != f"synth{self_row - BATCH}":
         raise AssertionError(f"{label}: self-query top-1 is {top}")
+    queries.append(q)
+    answers.append([(r.document_id, s) for r, s in res])
     log(f"  {label}: text query ms {[round(x, 3) for x in lat]} (embed + index); "
         f"self-query top-1 ok, score {res[0][1]:.4f} vs n_tokens {q.shape[0]}, ms {self_ms:.3f}, "
         f"index timing {json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in index.last_timing.items()})}")
-    return q, res
+    return queries, answers
 
 
 def run_encoded_queries(index, queries, label):
-    """Query embeddings encoded earlier (the bf16 text tower's) through the index."""
+    """Query embeddings encoded earlier (the bf16 text tower's) through the
+    index. Returns each one's [(document_id, score)]."""
     import numpy as np
 
-    for text, q in zip(QUERIES, queries):
-        res = index.query(q, k=10)
+    answers = answer(index, queries)
+    for text, res in zip(QUERIES, answers):
         if len(res) != 10 or not all(np.isfinite(s) for _, s in res):
             raise AssertionError(f"{label}: query {text!r} returned {len(res)} results")
     log(f"  {label}: {len(queries)} queries, 10 finite results each")
+    return answers
 
 
 def brute_force_top1(torch, rows, q):
@@ -828,9 +868,6 @@ def _wait_completed(client, doc_ids):
 
 def service_path(torch, model, _kernels, smi):
     """Phase 8: the port's server on the card, driven over a socket."""
-    import shutil
-    import tempfile
-
     import numpy as np
 
     from morphik_core_tpu_torch.config import load_settings
@@ -855,67 +892,70 @@ def service_path(torch, model, _kernels, smi):
         f"{settings.worker.max_jobs}, store batch {settings.worker.colpali_store_batch_size}, "
         f"static scales {settings.model.static_act_scales}); pages as PNG over HTTP")
     try:
-        pngs = [encode_png(p) for p in service_pages()]
-        _kernels.reset_launch_counts()  # the HTTP path starts here
-        health = client.call("GET", "/health")["components"]["colpali"]
-        if health["backend"] != torch.cuda.get_device_name(0):
-            raise AssertionError(f"/health backend {health['backend']!r}, expected the card")
-        t_ingest = time.perf_counter()
-        docs = [client.upload(f"page{i}.png", data)["external_id"] for i, data in enumerate(pngs)]
-        t_done = _wait_completed(client, docs)
-        ingest_s = t_done - t_ingest
-        ingest_launches = dict(_kernels.launch_counts)
-        phases = [client.call("GET", f"/documents/{d}")["system_metadata"]["phase_times"] for d in docs]
-        lat, timings, http_results = [], [], {}
-        for text in QUERIES:
-            for rep in range(RETRIEVE_REPEATS + 1):  # the first is a warm-up, untimed
-                t = time.perf_counter()
-                res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
-                if rep:
-                    lat.append((time.perf_counter() - t) * 1e3)
-                    timings.append(dict(services.colpali_vector_store._indexes["default"].last_timing))
-            if len(res) != 4 or not all(np.isfinite(r["score"]) for r in res):
-                raise AssertionError(f"/retrieve/chunks {text!r}: {res}")
-            http_results[text] = res
-        q_img = bytes_to_data_uri(pngs[3], "image/png")
-        t = time.perf_counter()
-        img_res = client.call("POST", "/retrieve/chunks", {"query_image": q_img, "k": 4})
-        image_ms = (time.perf_counter() - t) * 1e3
-        if img_res[0]["document_id"] != docs[3] or img_res[0]["content"] != q_img:
-            raise AssertionError(f"image self-query top-1 is {img_res[0]['document_id']}, expected {docs[3]}")
-        t = time.perf_counter()
-        answer = client.call("POST", "/query", {"query": QUERIES[0], "k": 4})
-        query_ms = (time.perf_counter() - t) * 1e3
-        if not answer["completion"] or [x["document_id"] for x in answer["sources"]] != [
-                r["document_id"] for r in http_results[QUERIES[0]]]:
-            raise AssertionError(f"/query: {answer['completion']!r}, sources {answer['sources']}")
-        health = client.call("GET", "/health")["components"]["colpali"]
-        launches = dict(_kernels.launch_counts)  # the HTTP path ends here
-        if health["index_rows"] != {"default": len(pngs)}:
-            raise AssertionError(f"/health index_rows {health['index_rows']}")
-        if health["device_cache"]["default"]["hits"] <= 0:
-            raise AssertionError(f"/health device cache shows no hits: {health['device_cache']}")
-        if launches["window_attention"] <= 0 or launches["maxsim_q8"] <= 0:
-            raise AssertionError(f"the HTTP path did not launch K3 and K1: {launches}")
+        try:
+            pngs = [encode_png(p) for p in service_pages()]
+            _kernels.reset_launch_counts()  # the HTTP path starts here
+            health = client.call("GET", "/health")["components"]["colpali"]
+            if health["backend"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"/health backend {health['backend']!r}, expected the card")
+            t_ingest = time.perf_counter()
+            docs = [client.upload(f"page{i}.png", data)["external_id"] for i, data in enumerate(pngs)]
+            t_done = _wait_completed(client, docs)
+            ingest_s = t_done - t_ingest
+            ingest_launches = dict(_kernels.launch_counts)
+            phases = [client.call("GET", f"/documents/{d}")["system_metadata"]["phase_times"] for d in docs]
+            lat, timings, http_results = [], [], {}
+            for text in QUERIES:
+                for rep in range(RETRIEVE_REPEATS + 1):  # the first is a warm-up, untimed
+                    t = time.perf_counter()
+                    res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
+                    if rep:
+                        lat.append((time.perf_counter() - t) * 1e3)
+                        timings.append(dict(services.colpali_vector_store._indexes["default"].last_timing))
+                if len(res) != 4 or not all(np.isfinite(r["score"]) for r in res):
+                    raise AssertionError(f"/retrieve/chunks {text!r}: {res}")
+                http_results[text] = res
+            q_img = bytes_to_data_uri(pngs[3], "image/png")
+            t = time.perf_counter()
+            img_res = client.call("POST", "/retrieve/chunks", {"query_image": q_img, "k": 4})
+            image_ms = (time.perf_counter() - t) * 1e3
+            if img_res[0]["document_id"] != docs[3] or img_res[0]["content"] != q_img:
+                raise AssertionError(f"image self-query top-1 is {img_res[0]['document_id']}, expected {docs[3]}")
+            t = time.perf_counter()
+            answer = client.call("POST", "/query", {"query": QUERIES[0], "k": 4})
+            query_ms = (time.perf_counter() - t) * 1e3
+            if not answer["completion"] or [x["document_id"] for x in answer["sources"]] != [
+                    r["document_id"] for r in http_results[QUERIES[0]]]:
+                raise AssertionError(f"/query: {answer['completion']!r}, sources {answer['sources']}")
+            health = client.call("GET", "/health")["components"]["colpali"]
+            launches = dict(_kernels.launch_counts)  # the HTTP path ends here
+            if health["index_rows"] != {"default": len(pngs)}:
+                raise AssertionError(f"/health index_rows {health['index_rows']}")
+            if health["device_cache"]["default"]["hits"] <= 0:
+                raise AssertionError(f"/health device cache shows no hits: {health['device_cache']}")
+            if launches["window_attention"] <= 0 or launches["maxsim_q8"] <= 0:
+                raise AssertionError(f"the HTTP path did not launch K3 and K1: {launches}")
 
-        # the same answers from the in-process store, on the same embeddings
-        emb, store = services.colpali_embedding_model, services.colpali_vector_store
-        t = time.perf_counter()
-        for _ in range(RETRIEVE_REPEATS):
-            query_embs = {text: emb.embed_query(text) for text in QUERIES}
-        encode_ms = (time.perf_counter() - t) * 1e3 / (RETRIEVE_REPEATS * len(QUERIES))
-        query_embs["<page 3>"] = emb.embed_query(decode_png(pngs[3]))
-        http_results["<page 3>"] = img_res
-        for key, q in query_embs.items():
-            lib = server.run(store.query_similar(q, k=4, doc_ids=docs))
-            got = [(r["document_id"], r["chunk_number"]) for r in http_results[key]]
-            if got != [(c.document_id, c.chunk_number) for c in lib]:
-                raise AssertionError(f"{key!r}: HTTP {got} vs in-process store {[c.document_id for c in lib]}")
-            err = max(abs(r["score"] - c.score) for r, c in zip(http_results[key], lib))
-            if err > SCORE_ATOL:
-                raise AssertionError(f"{key!r}: HTTP scores differ from the store's by {err}")
+            # the same answers from the in-process store, on the same embeddings
+            emb, store = services.colpali_embedding_model, services.colpali_vector_store
+            t = time.perf_counter()
+            for _ in range(RETRIEVE_REPEATS):
+                query_embs = {text: emb.embed_query(text) for text in QUERIES}
+            encode_ms = (time.perf_counter() - t) * 1e3 / (RETRIEVE_REPEATS * len(QUERIES))
+            query_embs["<page 3>"] = emb.embed_query(decode_png(pngs[3]))
+            http_results["<page 3>"] = img_res
+            for key, q in query_embs.items():
+                lib = server.run(store.query_similar(q, k=4, doc_ids=docs))
+                got = [(r["document_id"], r["chunk_number"]) for r in http_results[key]]
+                if got != [(c.document_id, c.chunk_number) for c in lib]:
+                    raise AssertionError(f"{key!r}: HTTP {got} vs in-process store {[c.document_id for c in lib]}")
+                err = max(abs(r["score"] - c.score) for r, c in zip(http_results[key], lib))
+                if err > SCORE_ATOL:
+                    raise AssertionError(f"{key!r}: HTTP scores differ from the store's by {err}")
+        finally:
+            server.stop()  # the shutdown saves the index
+        restart = service_restart(settings, model, _kernels, pngs, docs, http_results)
     finally:
-        server.stop()
         shutil.rmtree(tmp, ignore_errors=True)
 
     p50, p99 = (float(np.percentile(lat, p)) for p in (50, 99))
@@ -930,13 +970,191 @@ def service_path(torch, model, _kernels, smi):
         "index_ms": index_ms, "index_share": sum(index_ms.values()) / mean_ms,
         "pooled_tier": any(t["pooled_tier"] for t in timings), "pool": timings[-1]["pool"],
         "cache": health["device_cache"]["default"], "boot_s": boot_s,
-        "launches": launches, "ingest_launches": ingest_launches,
+        "launches": launches, "ingest_launches": ingest_launches, **restart,
     }
     log(f"  {len(pngs)} PNG pages ingested over HTTP in {ingest_s:.3f} s ({service['ingest_pages_per_s']:.3f} "
         f"pages/s; mean job phases s {json.dumps(service['ingest_job_phase_s'])}); retrieve p50 {p50:.3f} ms p99 {p99:.3f} ms over {len(lat)}; image query {image_ms:.3f} ms; "
         f"/query {query_ms:.3f} ms; text encode {encode_ms:.3f} ms a query; index {json.dumps(index_ms)}; "
         f"launches {launches}; HTTP results equal the in-process store's")
+    log(f"  restart: second server up in {restart['restart_boot_s']:.3f} s on the saved index; retrieve p50 "
+        f"{restart['restart_retrieve_p50_ms']:.3f} ms p99 {restart['restart_retrieve_p99_ms']:.3f} ms; the same ids "
+        f"(max score diff {restart['restart_max_score_diff']:.3e}); launches {restart['restart_launches']}")
     return service
+
+
+def service_restart(settings, model, _kernels, pngs, docs, http_results):
+    """Phase 8, second half: a new server from `build_services` on the
+    directories the first one left (its index files included) answers as
+    the first did."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+
+    wal = (Path(settings.vector_store.index_path) / "default" / "records.jsonl").read_text().splitlines()
+    if len(wal) != len(pngs) or "_patches" in "".join(wal):
+        raise AssertionError(f"the saved WAL has {len(wal)} lines (expected {len(pngs)}) or carries _patches")
+    t0 = time.perf_counter()
+    server = ServerThread(build_services(settings, colqwen_model=model))  # recalibrates static scales
+    boot_s = time.perf_counter() - t0
+    client = Client(f"http://127.0.0.1:{server.server.port}")
+    try:
+        _kernels.reset_launch_counts()  # the restarted path starts here
+        lat, diff = [], 0.0
+        for text in QUERIES:
+            for rep in range(RETRIEVE_REPEATS + 1):  # the first is a warm-up, untimed
+                t = time.perf_counter()
+                res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
+                if rep:
+                    lat.append((time.perf_counter() - t) * 1e3)
+                want = http_results[text]
+                if [r["document_id"] for r in res] != [r["document_id"] for r in want]:
+                    raise AssertionError(f"after the restart {text!r}: {[r['document_id'] for r in res]} vs "
+                                         f"{[r['document_id'] for r in want]}")
+                diff = max(diff, max(abs(r["score"] - w["score"]) for r, w in zip(res, want)))
+        if diff > SCORE_ATOL:
+            raise AssertionError(f"after the restart the scores moved by {diff}")
+        health = client.call("GET", "/health")["components"]["colpali"]
+        if health["index_rows"] != {"default": len(pngs)}:
+            raise AssertionError(f"after the restart /health index_rows {health['index_rows']}")
+        launches = dict(_kernels.launch_counts)  # the restarted path ends here
+        if launches["maxsim_q8"] <= 0:
+            raise AssertionError(f"after the restart the retrieves did not launch K1: {launches}")
+        for d in docs:
+            status = client.call("GET", f"/documents/{d}")["system_metadata"]["status"]
+            if status != "completed":
+                raise AssertionError(f"after the restart document {d} is {status}")
+        chunks = client.call("POST", "/batch/chunks", {
+            "sources": [{"document_id": d, "chunk_number": 0} for d in docs], "use_colpali": True})
+        if [c["document_id"] for c in chunks] != docs or [c["content"] for c in chunks] != [
+                bytes_to_data_uri(p, "image/png") for p in pngs]:
+            raise AssertionError("after the restart /batch/chunks does not return every document's page")
+    finally:
+        server.stop()
+    return {"restart_boot_s": boot_s, "restart_retrieve_n": len(lat),
+            "restart_retrieve_p50_ms": float(np.percentile(lat, 50)),
+            "restart_retrieve_p99_ms": float(np.percentile(lat, 99)),
+            "restart_max_score_diff": diff, "restart_launches": launches}
+
+
+def persistence_phase(torch, index, path: Path, answers5, answers6, smi):
+    """Phase 9: the phase-4 index (2048 rows at full page width, its path
+    `path`) saved, reopened, grown to the shipped compaction trigger,
+    compacted inside delete_document and reopened. `answers5` / `answers6`
+    are phase 5's and phase 6's (query, [(document_id, score)]) pairs."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.index import multivector_index as mvi
+    from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+
+    def open_index(**over):
+        return MultiVectorIndex(FDEConfig(), device="cuda", path=path, device_block_rows=BLOCK_ROWS,
+                                **dict(SHIPPED, **over))
+
+    def dir_bytes():
+        return sum(f.stat().st_size for f in path.iterdir() if f.is_file())
+
+    def timed_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    n_rows = index.count_rows
+    _, save_ms = timed_ms(index.save)
+    saved = dir_bytes()
+    files = {f.name: f.stat().st_size for f in sorted(path.iterdir())}
+    log(f"phase 9: persistence at full page width: saved {n_rows} rows, {saved} bytes in {save_ms / 1e3:.3f} s "
+        f"({saved / save_ms / 1e3:.1f} MB/s); files {json.dumps(files)}")
+    pool_calls = [0]
+    real_pool = mvi.pool_multivector
+
+    def counted_pool(*a, **kw):
+        pool_calls[0] += 1
+        return real_pool(*a, **kw)
+
+    mvi.pool_multivector = counted_pool
+    try:
+        reopened, open_ms = timed_ms(open_index)
+        queries5 = [q for q, _ in answers5]
+        first, cold_ms = timed_ms(lambda: reopened.query(queries5[0], k=10))
+        _, warm_ms = timed_ms(lambda: reopened.query(queries5[0], k=10))
+        if pool_calls[0]:
+            raise AssertionError(f"the reopened index ran pool_multivector {pool_calls[0]} times")
+        if answer(reopened, queries5) != [a for _, a in answers5]:
+            raise AssertionError("the reopened index does not answer phase 5's queries with the same ids and scores")
+        log(f"  reopened with cold device state in {open_ms:.3f} ms; first query {cold_ms:.3f} ms (FDE blocks "
+            f"and pooled tier from the files, pool_multivector calls 0), again {warm_ms:.3f} ms; phase 5's "
+            f"{len(queries5)} queries: same ids and score bits")
+        bf16 = open_index(rerank_dtype="bf16")
+        got6 = answer(bf16, [q for q, _ in answers6])
+        if [[d for d, _ in a] for a in got6] != [[d for d, _ in a] for _, a in answers6]:
+            raise AssertionError("the bf16 index opened on the files does not give phase 6's ids")
+        diff6 = max(abs(s - w) for a, (_, b) in zip(got6, answers6) for (_, s), (_, w) in zip(a, b))
+        del bf16
+        log(f"  rerank_dtype='bf16' opened on the same files: phase 6's {len(got6)} queries, same ids "
+            f"(max score diff {diff6:.3e})")
+
+        extra = synthetic_rows((600, 661), N_APPEND, seed=SEED + 3)
+        t0 = time.perf_counter()
+        reopened.store(extra, [IndexRecord(f"extra{i}", 0) for i in range(N_APPEND)])
+        reopened.save()
+        append_s = time.perf_counter() - t0
+        before = dir_bytes()
+        if reopened.count_rows != SHIPPED["compact_min_rows"]:
+            raise AssertionError(f"{reopened.count_rows} rows after the append")
+        fired, compact_s, after = [], None, None
+        for i in range(N_DELETE):
+            n = reopened.count_rows
+            t0 = time.perf_counter()
+            reopened.delete_document(f"extra{i}")
+            dt = time.perf_counter() - t0
+            if reopened.count_rows < n:
+                fired.append(i + 1)
+                compact_s, after = dt, dir_bytes()
+                if reopened.dead_fraction != 0.0:
+                    raise AssertionError(f"dead fraction {reopened.dead_fraction} right after the compaction")
+        trigger = int(SHIPPED["compact_dead_fraction"] * SHIPPED["compact_min_rows"]) + 1  # 1025
+        kept = SHIPPED["compact_min_rows"] - trigger
+        if fired != [trigger] or reopened.dead_fraction != (N_DELETE - trigger) / kept:
+            raise AssertionError(f"compaction fired at deletes {fired}; dead fraction {reopened.dead_fraction}")
+        if not after < before or path.with_name(path.name + ".compact").exists():
+            raise AssertionError(f"files {before} -> {after} bytes, or a .compact directory is left")
+        log(f"  appended {N_APPEND} rows and saved ({append_s:.3f} s, {before} bytes); {N_DELETE} deletes: the "
+            f"trigger fired once, at delete {fired[0]}, compacting {SHIPPED['compact_min_rows']} -> {kept} rows "
+            f"in {compact_s:.3f} s ({after} bytes); dead fraction after the last delete {reopened.dead_fraction:.6f}")
+
+        survivors = [r for r in range(reopened.count_rows) if reopened._alive[r]]
+        calls = pool_calls[0]
+        fresh = MultiVectorIndex(FDEConfig(), device="cuda", device_block_rows=BLOCK_ROWS, **SHIPPED)
+        fresh.store([reopened._mv_row(r) for r in survivors],
+                    [IndexRecord(reopened.records[r].document_id, 0) for r in survivors],
+                    fde_vectors=reopened._fde_rows(0, reopened.count_rows)[survivors])
+        last = reopened.records[survivors[-1]].document_id
+        queries = queries5 + [reopened._mv_row(survivors[-1]).astype(np.float32)]
+        want = answer(fresh, queries)
+        if want[-1][0][0] != last:
+            raise AssertionError(f"self-query of {last} came back as {want[-1][0][0]}")
+        got = answer(reopened, queries)
+        reopened.save()  # writes the deletes after the compaction
+        again = answer(open_index(), queries)
+        for label, res in (("the compacted index", got), ("its reopen", again)):
+            if [[d for d, _ in a] for a in res] != [[d for d, _ in a] for a in want]:
+                raise AssertionError(f"{label} and a fresh index of the survivors give other ids")
+            if res != want:
+                raise AssertionError(f"{label}: scores differ from the fresh index's")
+        log(f"  {len(survivors)} survivors: the compacted index, and its reopen after a save, answer "
+            f"{len(queries)} queries with the ids and score bits of a fresh in-memory index of the survivors "
+            f"(pool_multivector calls {pool_calls[0] - calls} to build it)")
+    finally:
+        mvi.pool_multivector = real_pool
+    return {"card": smi, "rows": n_rows, "bytes": saved, "files": files, "save_s": save_ms / 1e3,
+            "save_mb_per_s": saved / save_ms / 1e3, "open_ms": open_ms, "cold_query_ms": cold_ms,
+            "warm_query_ms": warm_ms, "append_rows": N_APPEND, "append_save_s": append_s,
+            "compaction_at_delete": fired[0], "compaction_s": compact_s, "rows_after_compaction": kept,
+            "bytes_before_compaction": before, "bytes_after_compaction": after,
+            "bf16_max_score_diff": diff6}
 
 
 def main() -> None:
@@ -953,32 +1171,44 @@ def main() -> None:
     _kernels.reset_launch_counts()  # the main path starts here
     emb, page_embs, page_fdes, int8_stats = ingest_int8(torch, model, bf16_embs)
     rows = [e.astype(np.float16) for e in page_embs] + synthetic_rows((600, 661), N_SYNTH)
-    index, store_s = make_index(torch, rows, np.stack(page_fdes))
-    log(f"phase 4: stored {len(rows)} rows (device FDE + pooling + host copy) in {store_s:.3f} s")
-    log("phase 5: queries, shipped retrieval config (int8 rerank), int8 text tower")
-    int8_stats["query_mean_cosine"] = compare_queries(emb, bf16_queries)
-    q_self, _ = run_queries(torch, emb, index, rows, "int8 rerank")
-    n_blocks = len(index._dev_blocks)
-    if n_blocks < 2:
-        raise AssertionError(f"index spans {n_blocks} device block(s), expected >= 2")
-    if brute_force_top1(torch, rows, q_self) != BATCH + 123:
-        raise AssertionError("exact f32 MaxSim over all rows disagrees on the self-query top-1")
-    log("phase 6: queries, rerank_dtype='bf16'")
-    fdes = np.stack(index._fde_host)
-    index_bf16, _ = make_index(torch, rows, fdes[:BATCH], fdes[BATCH:], rerank_dtype="bf16")
-    run_queries(torch, emb, index_bf16, rows, "bf16 rerank")
-    run_encoded_queries(index_bf16, bf16_queries, "bf16 rerank, queries of the bf16 text tower")
-    counts = dict(_kernels.launch_counts)
-    log(f"phase 7: launch counts over the main path (phases 3b-6): {counts}")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was never launched: {counts}")
-    log(f"ingest summary: {json.dumps({'bf16': bf16_stats, 'int8_static': int8_stats})}")
-    del index, index_bf16
+    index_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_index_"))
+    try:
+        index, store_s = make_index(torch, rows, np.stack(page_fdes), path=index_dir / "default")
+        log(f"phase 4: stored {len(rows)} rows (device FDE + pooling + host copy) in {store_s:.3f} s")
+        log("phase 5: queries, shipped retrieval config (int8 rerank), int8 text tower")
+        int8_stats["query_mean_cosine"] = compare_queries(emb, bf16_queries)
+        queries5, answers5 = run_queries(torch, emb, index, rows, "int8 rerank")
+        n_blocks = len(index._dev_blocks)
+        if n_blocks < 2:
+            raise AssertionError(f"index spans {n_blocks} device block(s), expected >= 2")
+        if brute_force_top1(torch, rows, queries5[-1]) != BATCH + 123:
+            raise AssertionError("exact f32 MaxSim over all rows disagrees on the self-query top-1")
+        log("phase 6: queries, rerank_dtype='bf16'")
+        fdes = index._fde_rows(0, index.count_rows)
+        index_bf16, _ = make_index(torch, rows, fdes[:BATCH], fdes[BATCH:], rerank_dtype="bf16")
+        queries6, answers6 = run_queries(torch, emb, index_bf16, rows, "bf16 rerank")
+        answers6 += run_encoded_queries(index_bf16, bf16_queries, "bf16 rerank, queries of the bf16 text tower")
+        counts = dict(_kernels.launch_counts)
+        log(f"phase 7: launch counts over the main path (phases 3b-6): {counts}")
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"a kernel of the path was never launched: {counts}")
+        log(f"ingest summary: {json.dumps({'bf16': bf16_stats, 'int8_static': int8_stats})}")
+        del index_bf16
+        _kernels.reset_launch_counts()  # the persistence path starts here
+        persistence = persistence_phase(torch, index, index_dir / "default", list(zip(queries5, answers5)),
+                                        list(zip(queries6 + bf16_queries, answers6)), smi)
+        persistence["launches"] = dict(_kernels.launch_counts)  # and ends here
+        if persistence["launches"]["maxsim_q8"] <= 0 or persistence["launches"]["maxsim"] <= 0:
+            raise AssertionError(f"phase 9 did not launch K1 and K2: {persistence['launches']}")
+        log(f"  phase 9 launches: {persistence['launches']}")
+        del index
+    finally:
+        shutil.rmtree(index_dir, ignore_errors=True)
     service = service_path(torch, model, _kernels, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
         dict(name=name, route="cuda", source=csrc + src, replaces=replaces, launches=counts[name],
-             service_launches=service["launches"][name],
+             service_launches=service["launches"][name], persistence_launches=persistence["launches"][name],
              max_abs_err=case["max_abs_err"], ms=case["ms"], plain_ms=case["plain_ms"],
              bound_ms=case["bound_us"] / 1e3, bound_by=case["bound_by"], library_ms=case.get("library_ms"),
              device_ms=case["device_ms"], plain_device_ms=case["plain_device_ms"],
@@ -994,6 +1224,7 @@ def main() -> None:
     log(json.dumps({"cases": all_cases}))
     print(smi)
     print(json.dumps({"service": service}))
+    print(json.dumps({"persistence": persistence}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

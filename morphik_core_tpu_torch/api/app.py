@@ -10,10 +10,10 @@ type than PNG answers 415; an option the port does not serve yet, 501
 (the router maps `NotImplementedError`). `/health` reports the torch
 device in place of the JAX backend.
 
-Not ported yet (ROADMAP Queue 1): `/ingest/text` (item 7a), the
-profiler route (item 7c), the other route groups (item 7d: folders,
+Not ported yet (ROADMAP Queue 1): `/ingest/text` (item 3a), the
+profiler route (item 3c), the other route groups (item 3d: folders,
 models, apps with their token revocation, chats, logs, migrate, v2,
-connectors, ...), user limits (item 7e).
+connectors, ...), user limits (item 3e).
 """
 
 from __future__ import annotations

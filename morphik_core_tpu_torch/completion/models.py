@@ -2,7 +2,7 @@
 `StubCompletionModel`, copies of `morphik_core_tpu/completion/models.py:37-121`.
 
 The reference's network providers (`completion/models.py:124-450`) are
-not ported yet (ROADMAP Queue 1 item 7g):
+not ported yet (ROADMAP Queue 1 item 3g):
 `build_completion_model` serves `completion.model = "stub"` and raises
 for any other key.
 """
@@ -82,10 +82,10 @@ def build_completion_model(model_key: str) -> BaseCompletionModel:
     """The completion model of `completion.model`: the offline stub. Any
     other key raises: the reference routes it to a network provider (or,
     unregistered in development, to the stub with a warning), and the
-    providers are not ported (ROADMAP Queue 1 item 7g)."""
+    providers are not ported (ROADMAP Queue 1 item 3g)."""
     if model_key != "stub":
         raise NotImplementedError(
             f"completion model {model_key!r}: only completion.model='stub' is ported "
-            "(network providers: ROADMAP Queue 1 item 7g)"
+            "(network providers: ROADMAP Queue 1 item 3g)"
         )
     return StubCompletionModel(model_name=model_key)

@@ -107,9 +107,11 @@ class DevicePoolCache:
 
     # ------------------------------------------------------------- query
 
-    def score(self, pool_rows: Sequence[int], q: np.ndarray, fetch_row, n_tokens) -> Optional[np.ndarray]:
+    def score(self, pool_rows: Sequence[int], q: np.ndarray, fetch_row, n_tokens,
+              use_kernel: bool = True) -> Optional[np.ndarray]:
         """Exact MaxSim scores for `pool_rows` (in order), insert-on-miss.
-        Returns None when any row exceeds the slot bucket."""
+        Returns None when any row exceeds the slot bucket. `use_kernel=False`
+        scores with the kernels' plain versions."""
         if any(n_tokens(r) > self.token_bucket for r in pool_rows):
             return None
         misses = [r for r in pool_rows if r not in self._row_to_slot]
@@ -126,9 +128,9 @@ class DevicePoolCache:
             q8, qs = quantize_query_q8(q)  # same recipe as the cold path
             scores = maxsim_q8(
                 torch.from_numpy(q8).to(self.device), torch.from_numpy(qs).to(self.device),
-                self._buf, self._sbuf, self._mbuf, idx,
+                self._buf, self._sbuf, self._mbuf, idx, use_kernel=use_kernel,
             )
         else:
             qf = torch.tensor(np.asarray(q, dtype=np.float32), device=self.device)
-            scores = maxsim(qf, self._buf, self._mbuf, idx)
+            scores = maxsim(qf, self._buf, self._mbuf, idx, use_kernel=use_kernel)
         return scores.cpu().numpy()

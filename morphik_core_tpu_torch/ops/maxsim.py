@@ -9,7 +9,9 @@ Two kernels carry it on the card (`csrc/maxsim.cu`):
 - `maxsim` (K2): f32 query against f32/bf16 doc tokens.
 Each wrapper checks its inputs, then dispatches on the device of the
 tensors: a CPU tensor goes to the plain PyTorch version beside it, a
-CUDA tensor launches the kernel (or raises). Both versions take an
+CUDA tensor launches the kernel (or raises). `use_kernel=False` runs the
+plain version on the card instead: the reference's `use_pallas=False`,
+which the index takes from `tpu.use_pallas`. Both versions take an
 optional int32 row-index vector, so a gather over a larger buffer
 never materialises (C, Np, D). On the card a call runs a grid of
 (candidate, doc-token split, query tile) blocks that `maxsim_plan`
@@ -185,11 +187,11 @@ def _check_common(docs, mask, idx, dev):
     return rows if idx is None else idx.shape[0]
 
 
-def maxsim_q8(q8, qs, d8, ds, mask, idx=None) -> torch.Tensor:
+def maxsim_q8(q8, qs, d8, ds, mask, idx=None, use_kernel: bool = True) -> torch.Tensor:
     """K1 wrapper, the twin of `_maxsim_pallas_q8` over already-padded
     device tensors. q8 (NQ, D) int8, qs (NQ,) or (1, NQ) f32, d8 (R, Np, D)
     int8, ds and mask (R, Np) f32, idx (C,) int32 or None (C = R).
-    Returns (C,) f32."""
+    Returns (C,) f32; `use_kernel=False` takes the plain version."""
     dev = d8.device
     _check("d8", d8, (torch.int8,), 3, dev)
     _check("q8", q8, (torch.int8,), 2, dev)
@@ -201,10 +203,10 @@ def maxsim_q8(q8, qs, d8, ds, mask, idx=None) -> torch.Tensor:
     if tuple(ds.shape) != tuple(d8.shape[:2]):
         raise ValueError(f"ds shape {tuple(ds.shape)} != {tuple(d8.shape[:2])}")
     c = _check_common(d8, mask, idx, dev)
-    if dev.type == "cpu":
-        return maxsim_q8_plain(q8, qs, d8, ds, mask, idx)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cpu" or not use_kernel:
+        return maxsim_q8_plain(q8, qs, d8, ds, mask, idx)
     if d8.shape[2] % 4:
         raise ValueError(f"maxsim_q8 kernel needs D % 4 == 0, got {d8.shape[2]}")
     plan = maxsim_plan(c, d8.shape[1], q8.shape[0], d8.shape[2], q_bytes=1)
@@ -214,20 +216,20 @@ def maxsim_q8(q8, qs, d8, ds, mask, idx=None) -> torch.Tensor:
     return out
 
 
-def maxsim(query, docs, mask, idx=None) -> torch.Tensor:
+def maxsim(query, docs, mask, idx=None, use_kernel: bool = True) -> torch.Tensor:
     """K2 wrapper, the twin of `_maxsim_pallas`. query (NQ, D) f32, docs
     (R, Np, D) f32 or bf16, mask (R, Np) f32, idx (C,) int32 or None.
-    Returns (C,) f32."""
+    Returns (C,) f32; `use_kernel=False` takes the plain version."""
     dev = docs.device
     _check("docs", docs, (torch.float32, torch.bfloat16), 3, dev)
     _check("query", query, (torch.float32,), 2, dev)
     if query.shape[1] != docs.shape[2]:
         raise ValueError(f"query {tuple(query.shape)} vs docs {tuple(docs.shape)}")
     c = _check_common(docs, mask, idx, dev)
-    if dev.type == "cpu":
-        return maxsim_plain(query, docs, mask, idx)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cpu" or not use_kernel:
+        return maxsim_plain(query, docs, mask, idx)
     plan = maxsim_plan(c, docs.shape[1], query.shape[0], docs.shape[2], q_bytes=4)
     out = torch.empty(c, dtype=torch.float32, device=dev)
     part = torch.empty(c * plan.n_splits * query.shape[0], dtype=torch.float32, device=dev)
@@ -235,14 +237,14 @@ def maxsim(query, docs, mask, idx=None) -> torch.Tensor:
     return out
 
 
-def maxsim_scores(query, docs, doc_mask=None) -> torch.Tensor:
+def maxsim_scores(query, docs, doc_mask=None, use_kernel: bool = True) -> torch.Tensor:
     """MaxSim scores of `query` (Nq, D) against `docs` (C, Nd, D) on the
     docs' device (K2 on CUDA). Invalid query rows must be zero."""
     docs = docs.contiguous()
     if doc_mask is None:
         doc_mask = torch.ones(docs.shape[:2], dtype=torch.float32, device=docs.device)
     q = torch.as_tensor(query, dtype=torch.float32, device=docs.device).contiguous()
-    return maxsim(q, docs, doc_mask.float().contiguous())
+    return maxsim(q, docs, doc_mask.float().contiguous(), use_kernel=use_kernel)
 
 
 def quantize_pool_int8(mvs: Sequence[np.ndarray], token_bucket: Optional[int] = None):
@@ -268,7 +270,7 @@ def quantize_query_q8(query, nq_pad: Optional[int] = None):
     return q8, qs
 
 
-def maxsim_scores_q8(query, docs_q8, doc_scales, doc_mask, device=None) -> torch.Tensor:
+def maxsim_scores_q8(query, docs_q8, doc_scales, doc_mask, device=None, use_kernel: bool = True) -> torch.Tensor:
     """MaxSim over per-token int8-quantized candidates (K1 on CUDA). The
     float query is row-quantized on the host (`quantize_query_q8`).
     Candidates may be numpy arrays or tensors; they are scored on
@@ -282,7 +284,7 @@ def maxsim_scores_q8(query, docs_q8, doc_scales, doc_mask, device=None) -> torch
 
     return maxsim_q8(
         dev(q8, torch.int8), dev(qs, torch.float32), dev(docs_q8, torch.int8),
-        dev(doc_scales, torch.float32), dev(doc_mask, torch.float32),
+        dev(doc_scales, torch.float32), dev(doc_mask, torch.float32), use_kernel=use_kernel,
     )
 
 

@@ -94,7 +94,7 @@ def scan_blocks_topk_q(blocks, scales, masks, codes, allowed, qq, q_scale, k: in
 
 
 def _pooled_stage(vm, gi, pblocks, pscales, pmasks, q8p, qsp, m: int, n_valid: int,
-                  guard: int = 0):
+                  guard: int = 0, use_kernel: bool = True):
     """Rescore the ANN pool (vm scores, gi global row ids) by MaxSim over
     the pooled int8 tier and keep the top `m` (packed [scores | ids]).
 
@@ -104,7 +104,8 @@ def _pooled_stage(vm, gi, pblocks, pscales, pmasks, q8p, qsp, m: int, n_valid: i
     (-1 for rows of other blocks, which score exactly 0), so the sum over
     blocks keeps one real score per row. `n_valid` masks the pool's
     padding; `guard` > 0 keeps the first `guard` pool entries (the FDE
-    head) through a +1e6 bonus — the union guard of the reference."""
+    head) through a +1e6 bonus — the union guard of the reference.
+    `use_kernel=False` scores with K1's plain version."""
     from morphik_core_tpu_torch.ops.maxsim import maxsim_q8
 
     B = pblocks[0].shape[0]
@@ -113,7 +114,7 @@ def _pooled_stage(vm, gi, pblocks, pscales, pmasks, q8p, qsp, m: int, n_valid: i
     for b in range(len(pblocks)):
         sel = torch.div(gi, B, rounding_mode="floor") == b
         idx = torch.where(sel, gi - b * B, torch.full_like(gi, -1)).to(torch.int32)
-        total = total + maxsim_q8(q8p, qsp, pblocks[b], pscales[b], pmasks[b], idx)
+        total = total + maxsim_q8(q8p, qsp, pblocks[b], pscales[b], pmasks[b], idx, use_kernel=use_kernel)
     pos = torch.arange(P_, device=gi.device)
     valid = torch.isfinite(vm) & (pos < n_valid)
     if guard > 0:
@@ -126,24 +127,24 @@ def _pooled_stage(vm, gi, pblocks, pscales, pmasks, q8p, qsp, m: int, n_valid: i
 def scan_blocks_topk_q_pooled(
     blocks, scales, masks, codes, allowed, qq, q_scale,
     pblocks, pscales, pmasks, q8p, qsp,
-    k: int, pool: int, m: int, guard: int = 0,
+    k: int, pool: int, m: int, guard: int = 0, use_kernel: bool = True,
 ):
     """int8 ANN scan + pooled-tier rescore. `pool` is the true candidate
     count; the scan pads it to a multiple of 8 and masks the padding."""
     pool8 = -(-pool // 8) * 8
     vm, gi = _scan_body_q(blocks, scales, masks, codes, allowed, qq, q_scale, k, pool8)
-    return _pooled_stage(vm, gi, pblocks, pscales, pmasks, q8p, qsp, m, pool, guard)
+    return _pooled_stage(vm, gi, pblocks, pscales, pmasks, q8p, qsp, m, pool, guard, use_kernel)
 
 
 def scan_blocks_topk_pooled(
     blocks, masks, codes, allowed, q,
     pblocks, pscales, pmasks, q8p, qsp,
-    k: int, pool: int, m: int, guard: int = 0,
+    k: int, pool: int, m: int, guard: int = 0, use_kernel: bool = True,
 ):
     """float/bf16-ANN twin of `scan_blocks_topk_q_pooled`."""
     pool8 = -(-pool // 8) * 8
     vm, gi = _scan_body(blocks, masks, codes, allowed, q, k, pool8)
-    return _pooled_stage(vm, gi, pblocks, pscales, pmasks, q8p, qsp, m, pool, guard)
+    return _pooled_stage(vm, gi, pblocks, pscales, pmasks, q8p, qsp, m, pool, guard, use_kernel)
 
 
 def quantize_vec_int8(qe: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,8 +11,8 @@ data URIs or download URLs. An image query (`query_image`, a data URI
 or base64 PNG) is decoded by `utils/png.py`.
 
 Not ported yet (ROADMAP Queue 1): `use_colpali=False` and the text index
-(item 7a), `output_format="text"` (item 7g: the vision completion that
-transcribes a page), the reranker (item 7f; `use_reranking` is ignored
+(item 3a), `output_format="text"` (item 3g: the vision completion that
+transcribes a page), the reranker (item 3f; `use_reranking` is ignored
 on the ColPali path, as in the reference).
 """
 
@@ -61,11 +61,11 @@ def _page_number(c) -> "int | None":
 def _check_ported(use_colpali: Optional[bool], output_format: str = "base64") -> None:
     if use_colpali is False:
         raise NotImplementedError(
-            "use_colpali=false needs the text index, which is not ported (ROADMAP Queue 1 item 7a)"
+            "use_colpali=false needs the text index, which is not ported (ROADMAP Queue 1 item 3a)"
         )
     if output_format == "text":
         raise NotImplementedError(
-            'output_format="text" needs the vision completion, which is not ported (ROADMAP Queue 1 item 7g)'
+            'output_format="text" needs the vision completion, which is not ported (ROADMAP Queue 1 item 3g)'
         )
 
 
@@ -204,7 +204,7 @@ class DocumentService:
         """The reference reads the text store unless `use_colpali` is true."""
         if not use_colpali:
             raise NotImplementedError(
-                "batch chunks from the text index are not ported (ROADMAP Queue 1 item 7a); "
+                "batch chunks from the text index are not ported (ROADMAP Queue 1 item 3a); "
                 "pass use_colpali=true"
             )
         _check_ported(use_colpali, output_format)

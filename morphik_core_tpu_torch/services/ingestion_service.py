@@ -16,9 +16,9 @@ card's machine has no JPEG encoder), and the tower embeds the uploaded
 pixels, where the reference embeds the decoded JPEG re-encode (the
 reference's prep-mode PDF path embeds the in-hand pixels, as here).
 
-Not ported yet (ROADMAP Queue 1): every other content type (item 7b:
+Not ported yet (ROADMAP Queue 1): every other content type (item 3b:
 PDF, JPEG, Office; refused at upload), text ingest and the text index
-(item 7a; `use_colpali=False` raises), folders (item 7d).
+(item 3a; `use_colpali=False` raises), folders (item 3d).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ class UnsupportedContentType(ValueError):
 def _require_colpali(use_colpali: bool) -> None:
     if not use_colpali:
         raise NotImplementedError(
-            "use_colpali=false needs the text index, which is not ported (ROADMAP Queue 1 item 7a)"
+            "use_colpali=false needs the text index, which is not ported (ROADMAP Queue 1 item 3a)"
         )
 
 
@@ -106,11 +106,11 @@ class IngestionService:
         if ctype not in SUPPORTED_CONTENT_TYPES:
             raise UnsupportedContentType(
                 f"content type {ctype!r} is not ingested by the port yet: only PNG page images "
-                "(ROADMAP Queue 1 item 7b: PDF, JPEG and Office ingest wait for a decoder and a rasterizer)"
+                "(ROADMAP Queue 1 item 3b: PDF, JPEG and Office ingest wait for a decoder and a rasterizer)"
             )
         _require_colpali(use_colpali)
         if folder_name:
-            raise NotImplementedError("folders are not ported (ROADMAP Queue 1 item 7d)")
+            raise NotImplementedError("folders are not ported (ROADMAP Queue 1 item 3d)")
         doc = Document(
             content_type=ctype,
             filename=filename,

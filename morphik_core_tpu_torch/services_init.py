@@ -1,8 +1,9 @@
 """Service container of the port: builds the ColPali serving stack from
 `Settings`. Port of `morphik_core_tpu/services_init.py:62-330` for what
 the port serves: the sqlite database, local storage, the ColPali
-embedder and its multivector store on one device, the stub completion
-model, telemetry and the job queue.
+embedder and its multivector store on one device (persisted under
+`vector_store.index_path`), the stub completion model, telemetry with
+its log uploader, and the job queue.
 
 Settings that select a part the port does not have yet raise
 `NotImplementedError` naming the ROADMAP item, rather than serve another
@@ -29,6 +30,7 @@ from morphik_core_tpu_torch.models.schemas import AuthContext
 from morphik_core_tpu_torch.ops.fde import FDEConfig
 from morphik_core_tpu_torch.services.document_service import DocumentService
 from morphik_core_tpu_torch.services.ingestion_service import IngestionService
+from morphik_core_tpu_torch.services.log_uploader import Heartbeat, LogUploader
 from morphik_core_tpu_torch.services.telemetry import TelemetryService
 from morphik_core_tpu_torch.storage.local_storage import LocalStorage
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
@@ -41,16 +43,16 @@ def _refuse_unported(settings: Settings) -> None:
     """Raise on each setting whose path the port does not have yet."""
     refusals = (
         (settings.model.checkpoint_path, f"model.checkpoint_path={settings.model.checkpoint_path!r}: loading a "
-         "checkpoint needs convert.py (ROADMAP Queue 1 item 4); pass colqwen_model"),
+         "checkpoint needs convert.py (ROADMAP Queue 1 item 5); pass colqwen_model"),
         (settings.model.attention_precision == "int8",
-         'model.attention_precision="int8" (ROADMAP Queue 1 item 3)'),
+         'model.attention_precision="int8" (ROADMAP Queue 1 item 4)'),
         (not settings.morphik.enable_colpali or settings.morphik.colpali_mode == "off",
-         "serving without ColPali needs the text index (ROADMAP Queue 1 item 7a)"),
+         "serving without ColPali needs the text index (ROADMAP Queue 1 item 3a)"),
         (settings.morphik.colpali_mode == "api",
-         'morphik.colpali_mode="api" (remote embedding servers, ROADMAP Queue 1 item 7h)'),
-        (settings.storage.provider == "aws-s3", 'storage.provider="aws-s3" (ROADMAP Queue 1 item 7h)'),
-        (settings.tpu.auto_mesh, "tpu.auto_mesh=true (the multi-GPU paths, ROADMAP Queue 1 item 5)"),
-        (settings.morphik.mode == "cloud", 'morphik.mode="cloud" (tier limits, ROADMAP Queue 1 item 7e)'),
+         'morphik.colpali_mode="api" (remote embedding servers, ROADMAP Queue 1 item 3h)'),
+        (settings.storage.provider == "aws-s3", 'storage.provider="aws-s3" (ROADMAP Queue 1 item 3h)'),
+        (settings.tpu.auto_mesh, "tpu.auto_mesh=true (the multi-GPU paths, ROADMAP Queue 1 item 6)"),
+        (settings.morphik.mode == "cloud", 'morphik.mode="cloud" (tier limits, ROADMAP Queue 1 item 3e)'),
     )
     for refused, what in refusals:
         if refused:
@@ -69,6 +71,8 @@ class Services:
     ingestion_service: IngestionService
     telemetry: TelemetryService
     job_queue: JobQueue
+    log_uploader: Optional[LogUploader] = None
+    heartbeat: Optional[Heartbeat] = None
 
     async def initialize(self) -> None:
         await self.database.initialize()
@@ -77,9 +81,26 @@ class Services:
         await self.job_queue.start()
         if self.settings.tpu.warmup_on_start:
             await asyncio.to_thread(self.colpali_embedding_model.warmup)
+        # background telemetry threads, as the reference starts them: each
+        # uploader pass trims the telemetry directory to its budget; no
+        # network send unless an endpoint is configured
+        tcfg = self.settings.telemetry
+        self.log_uploader = LogUploader(tcfg.telemetry_dir, tcfg.upload_url,
+                                        interval_s=tcfg.upload_interval_s, budget_bytes=tcfg.local_budget_bytes)
+        self.log_uploader.start()
+        if tcfg.heartbeat_url:
+            self.heartbeat = Heartbeat(tcfg.heartbeat_url, self.settings.storage.storage_path,
+                                       self.settings.service.version)
+            self.heartbeat.start()
 
     async def shutdown(self) -> None:
+        """Drain the job queue, stop the telemetry threads, then write
+        every index's pending rows (the restart reloads them)."""
         await self.job_queue.stop()
+        for thread in (self.log_uploader, self.heartbeat):
+            if thread is not None:
+                thread.stop()
+                thread.join(timeout=30)
         self.colpali_vector_store.save()
         self.telemetry.flush()
 
@@ -89,9 +110,9 @@ class Services:
         self.persist_indexes()
 
     def persist_indexes(self) -> None:
-        """The reference snapshots its indexes after each ingest job; the
-        port's store writes nothing until persistence is ported (ROADMAP
-        Queue 1 item 2)."""
+        """Append each index's rows since its last save to its files, as
+        the reference does after each ingest job, so the rows survive an
+        unclean shutdown. A DELETE is written with the next save."""
         try:
             self.colpali_vector_store.save()
         except Exception:  # noqa: BLE001
@@ -137,8 +158,12 @@ def build_services(
         prefilter_multiplier=vs.prefilter_multiplier,
         prefilter_cap=vs.prefilter_cap,
         pooling_factor=vs.multivector_pooling,
+        # None = the kernels; False = their plain versions, as the reference passes it
+        use_pallas=None if settings.tpu.use_pallas else False,
         ann_dtype=vs.ann_dtype,
         device_block_rows=vs.device_block_rows,
+        compact_dead_fraction=vs.compact_dead_fraction,
+        compact_min_rows=vs.compact_min_rows,
         device_cache_slots=vs.device_cache_slots,
         device_cache_token_bucket=vs.device_cache_token_bucket,
         rerank_dtype=vs.rerank_dtype,

@@ -4,6 +4,9 @@ port's `MultiVectorIndex`.
 
   - one index per namespace (app_id), created at first use, on the
     store's device (the card unless the caller passes `device="cpu"`);
+    with `index_path` set, namespace `ns` persists under
+    `{index_path}/{ns}` in the reference's file format and `save()`
+    flushes every such index;
   - chunk payloads: inline for text, offloaded to storage for images
     with the reference's key `{app_id}/{doc_id}/{chunk_number}{ext}` in
     bucket `multivector-chunks`, restored on read;
@@ -11,10 +14,8 @@ port's `MultiVectorIndex`.
     pass through to the index;
   - a store-metrics dict per call.
 
-Not ported yet (ROADMAP Queue 1): persistence (item 2) — the index lives
-in memory and `save()` writes nothing, even with `index_path` set, so
-that no partial file format appears that the JAX package would misread;
-compaction (item 2); the binary index, `provider="binary"` (item 5).
+Not ported yet: the binary index, `provider="binary"` (ROADMAP Queue 1
+item 6).
 """
 
 from __future__ import annotations
@@ -57,10 +58,13 @@ class TorchMultiVectorStore(BaseVectorStore):
         device=None,
         prefilter_multiplier: int = 30,
         prefilter_cap: int = 300,
+        use_pallas: Optional[bool] = None,
         provider: str = "fde",
         pooling_factor: int = 1,
         ann_dtype: str = "int8",
         device_block_rows: int = 65536,
+        compact_dead_fraction: float = 0.25,
+        compact_min_rows: int = 4096,
         device_cache_slots: int = 0,
         device_cache_token_bucket: int = 1024,
         rerank_dtype: str = "bf16",
@@ -72,7 +76,7 @@ class TorchMultiVectorStore(BaseVectorStore):
     ):
         if provider != "fde":
             raise NotImplementedError(
-                f"vector store provider {provider!r} is not ported (ROADMAP Queue 1 item 5: the binary index)"
+                f"vector store provider {provider!r} is not ported (ROADMAP Queue 1 item 6: the binary index)"
             )
         self.storage = storage
         self.fde_config = fde_config or FDEConfig()
@@ -82,8 +86,11 @@ class TorchMultiVectorStore(BaseVectorStore):
         self.index_kwargs = dict(
             prefilter_multiplier=prefilter_multiplier,
             prefilter_cap=prefilter_cap,
+            use_pallas=use_pallas,
             ann_dtype=ann_dtype,
             device_block_rows=device_block_rows,
+            compact_dead_fraction=compact_dead_fraction,
+            compact_min_rows=compact_min_rows,
             device_cache_slots=device_cache_slots,
             device_cache_token_bucket=device_cache_token_bucket,
             rerank_dtype=rerank_dtype,
@@ -95,11 +102,6 @@ class TorchMultiVectorStore(BaseVectorStore):
         )
         self._indexes: Dict[str, MultiVectorIndex] = {}
         self.last_store_metrics: Dict[str, Any] = {}
-        if self.index_path is not None:
-            logger.warning(
-                "index_path=%s is not used: the port's index lives in memory and is lost at "
-                "shutdown (persistence is ROADMAP Queue 1 item 2)", self.index_path,
-            )
 
     async def initialize(self) -> bool:
         return True
@@ -107,7 +109,9 @@ class TorchMultiVectorStore(BaseVectorStore):
     def _ns(self, app_id: Optional[str]) -> MultiVectorIndex:
         ns = app_id or _DEFAULT_NS
         if ns not in self._indexes:
-            self._indexes[ns] = MultiVectorIndex(self.fde_config, device=self.device, **self.index_kwargs)
+            path = (self.index_path / ns) if self.index_path else None
+            self._indexes[ns] = MultiVectorIndex(self.fde_config, device=self.device, path=path,
+                                                 **self.index_kwargs)
         return self._indexes[ns]
 
     # ------------------------------------------------------------------
@@ -214,4 +218,7 @@ class TorchMultiVectorStore(BaseVectorStore):
         return True
 
     def save(self) -> None:
-        """Nothing to write until persistence is ported (Queue 1 item 2)."""
+        """Flush the pending rows and ops of every index that has a path."""
+        for index in self._indexes.values():
+            if index.path:
+                index.save()

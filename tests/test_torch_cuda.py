@@ -1,6 +1,8 @@
 """The port's kernels and int8 products on the card, each against its
-plain PyTorch version. Every test here needs an NVIDIA sm_90 GPU with
-nvcc and skips elsewhere (CUDA kernels have no CPU mode).
+plain PyTorch version, and the index's save / reopen / compaction, its
+`use_pallas=False` path and a server restart there. Every test here
+needs an NVIDIA sm_90 GPU with nvcc and skips elsewhere (CUDA kernels
+have no CPU mode).
 
 The file imports neither jax nor the JAX package, so it also runs on
 the card's machine, which has neither (`--noconftest` skips the suite's
@@ -391,3 +393,183 @@ def test_server_entry_point_boots_on_card(sm90, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
+
+
+def _index_rows(seed, n, tok=(20, 90), dim=128):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        x = rng.standard_normal((int(rng.integers(*tok)), dim)).astype(np.float32)
+        rows.append((x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float16))
+    return rows
+
+
+# morphik_tpu.toml's retrieval config (int8 ANN, pooled tier factor 32, int8
+# rerank through the device cache), with small device blocks
+_SHIPPED_INDEX = dict(prefilter_multiplier=30, prefilter_cap=300, ann_dtype="int8", device_cache_slots=256,
+                      device_cache_token_bucket=128, rerank_dtype="int8", rerank_prefilter_pooling=4,
+                      pooled_tier_factor=32, device_block_rows=128)
+
+
+def _answers(index, queries, k=5):
+    return [[(r.document_id, s) for r, s in index.query(q, k=k)] for q in queries]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rerank_dtype", ["int8", "bf16"])
+def test_index_save_and_reopen_on_card(sm90, tmp_path, rerank_dtype):
+    """An index saved on the card and reopened with cold device state
+    answers with the same ids and the same score bits (K1/K2 over rows
+    read back through the mmaps)."""
+    from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+
+    kw = dict(_SHIPPED_INDEX, rerank_dtype=rerank_dtype)
+    rows = _index_rows(0, 300)
+    index = MultiVectorIndex(FDEConfig(), path=tmp_path / "ix", **kw)
+    index.store(rows, [IndexRecord(f"d{i}", 0) for i in range(len(rows))])
+    index.delete_document("d7")
+    index.save()
+    queries = [rows[i].astype(np.float32) for i in (3, 150, 299)] + [rows[42][:12].astype(np.float32)]
+    want = _answers(index, queries)
+    name = "maxsim_q8" if rerank_dtype == "int8" else "maxsim"
+    n0 = _kernels.launch_counts[name]
+    reopened = MultiVectorIndex(FDEConfig(), path=tmp_path / "ix", **kw)
+    assert len(reopened) == 299 and reopened._persisted == 300
+    assert _answers(reopened, queries) == want
+    assert _kernels.launch_counts[name] > n0
+    assert want[0][0][0] == "d3"
+
+
+@pytest.mark.cuda
+def test_compaction_on_card_equals_fresh_index_of_survivors(sm90, tmp_path):
+    """The reference's trigger fires inside delete_document; the compacted
+    index then answers exactly as a fresh in-memory index built from the
+    survivors in row order with their stored FDE rows, and so does a
+    reopen of its files after a save."""
+    from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+
+    kw = dict(_SHIPPED_INDEX, compact_min_rows=256, compact_dead_fraction=0.25)
+    rows = _index_rows(1, 256)
+    index = MultiVectorIndex(FDEConfig(), path=tmp_path / "ix", **kw)
+    index.store(rows, [IndexRecord(f"d{i}", 0) for i in range(len(rows))])
+    index.save()
+    queries = [rows[i].astype(np.float32) for i in (1, 100, 200)]
+    _answers(index, queries)  # warm device blocks and caches before the renumbering
+    fired = 0
+    for i in range(0, 240, 3):  # 80 deletes: the 65th crosses 0.25
+        before = index.count_rows
+        index.delete_document(f"d{i}")
+        fired += index.count_rows < before
+    assert fired == 1 and index.count_rows == 256 - 65 and len(index) == 256 - 80
+    assert not (tmp_path / "ix.compact").exists()
+    survivors = [r for r in range(index.count_rows) if index._alive[r]]
+    fresh = MultiVectorIndex(FDEConfig(), **dict(_SHIPPED_INDEX))
+    fresh.store([index._mv_row(r) for r in survivors],
+                [IndexRecord(index.records[r].document_id, 0) for r in survivors],
+                fde_vectors=index._fde_rows(0, index.count_rows)[survivors])
+    want = _answers(fresh, queries)
+    assert _answers(index, queries) == want
+    index.save()  # the deletes after the compaction are written with the next save
+    assert _answers(MultiVectorIndex(FDEConfig(), path=tmp_path / "ix", **kw), queries) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rerank_dtype", ["int8", "bf16"])
+def test_use_pallas_false_launches_no_kernel(sm90, rerank_dtype):
+    """`use_pallas=False` (`tpu.use_pallas = false`) runs the plain versions
+    on the card: the same ids as the kernels, no K1/K2 launch."""
+    from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+
+    rows = _index_rows(2, 300)
+    queries = [rows[i].astype(np.float32) for i in (5, 120)] + [rows[9][:16].astype(np.float32)]
+    got = {}
+    for use_pallas in (None, False):
+        index = MultiVectorIndex(FDEConfig(), use_pallas=use_pallas, **dict(_SHIPPED_INDEX, rerank_dtype=rerank_dtype))
+        index.store(rows, [IndexRecord(f"d{i}", 0) for i in range(len(rows))])
+        _kernels.reset_launch_counts()
+        got[use_pallas] = _answers(index, queries)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launch_counts)
+        launched = counts["maxsim_q8"] + counts["maxsim"]
+        assert (launched > 0) == (use_pallas is None), counts
+    for a, b in zip(got[None], got[False]):
+        assert [d for d, _ in a] == [d for d, _ in b]
+        np.testing.assert_allclose([s for _, s in b], [s for _, s in a], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_service_restart_on_card_keeps_rows(sm90, tmp_path):
+    """An HTTP ingest on the card, a shutdown (which saves the index) and a
+    second boot on the same directories: the row comes back with the same
+    score, through K1."""
+    import asyncio
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    raw = {
+        "storage": {"storage_path": str(tmp_path / "storage")}, "database": {"path": str(tmp_path / "db.sqlite")},
+        "vector_store": {"index_path": str(tmp_path / "index")},
+        "telemetry": {"telemetry_dir": str(tmp_path / "logs" / "telemetry")},
+        "model": {"static_act_scales": True},
+    }
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
+
+    def boot():
+        services = build_services(Settings.from_dict(raw))  # no device: the card
+        on_loop(services.initialize())
+        server = HTTPServer(build_app(services), "127.0.0.1", 0)
+        on_loop(server.start())
+        return services, server
+
+    def call(server, path, body=None, ctype="application/json"):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}{path}", data=body, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    query = json.dumps({"query": "quarterly revenue", "k": 1}).encode()
+    services, server = boot()
+    try:
+        page = np.full((224, 336, 3), 255, np.uint8)
+        page[30:80, 40:300] = (20, 90, 200)
+        b = "card-test-boundary"
+        body = (f'--{b}\r\nContent-Disposition: form-data; name="file"; filename="p.png"\r\n'
+                "Content-Type: image/png\r\n\r\n").encode() + encode_png(page) + f"\r\n--{b}--\r\n".encode()
+        doc = call(server, "/ingest/file", body, f"multipart/form-data; boundary={b}")["external_id"]
+        deadline = time.time() + 120
+        while (status := call(server, f"/documents/{doc}/status")["status"]) == "processing":
+            assert time.time() < deadline
+            time.sleep(0.05)
+        assert status == "completed"
+        before = call(server, "/retrieve/chunks", query)
+    finally:
+        on_loop(server.stop())
+        on_loop(services.shutdown())
+    services, server = boot()
+    try:
+        _kernels.reset_launch_counts()
+        after = call(server, "/retrieve/chunks", query)
+        assert [(h["document_id"], h["score"]) for h in after] == [(h["document_id"], h["score"]) for h in before]
+        assert after[0]["document_id"] == doc and _kernels.launch_counts["maxsim_q8"] > 0
+        assert call(server, "/health")["components"]["colpali"]["index_rows"] == {"default": 1}
+        assert call(server, f"/documents/{doc}")["system_metadata"]["status"] == "completed"
+    finally:
+        on_loop(server.stop())
+        on_loop(services.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)

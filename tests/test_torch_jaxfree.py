@@ -62,19 +62,22 @@ _GUARD = textwrap.dedent(
     from morphik_core_tpu_torch.utils.png import encode_png
 
     root = tempfile.mkdtemp()
-    services = build_services(Settings.from_dict({
+    raw = {
         "storage": {"storage_path": root + "/storage"}, "database": {"path": root + "/db.sqlite"},
         "vector_store": {"index_path": root + "/index"}, "telemetry": {"telemetry_dir": root + "/logs/telemetry"},
         "model": {"static_act_scales": True},
-    }), device="cpu")
+    }
     loop = asyncio.new_event_loop()
     threading.Thread(target=loop.run_forever, daemon=True).start()
     def on_loop(coro):
         return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
-    on_loop(services.initialize())
-    server = HTTPServer(build_app(services), "127.0.0.1", 0)
-    on_loop(server.start())
-    base = f"http://127.0.0.1:{server.port}"
+    def boot():
+        services = build_services(Settings.from_dict(raw), device="cpu")
+        on_loop(services.initialize())
+        server = HTTPServer(build_app(services), "127.0.0.1", 0)
+        on_loop(server.start())
+        return services, server, f"http://127.0.0.1:{server.port}"
+    services, server, base = boot()
     def call(path, body=None, ctype="application/json"):
         req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
         with urllib.request.urlopen(req, timeout=120) as resp:
@@ -95,6 +98,13 @@ _GUARD = textwrap.dedent(
     assert [h["document_id"] for h in hits] == [doc["external_id"]], hits
     answer = call("/query", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
     assert answer["completion"] and answer["sources"][0]["document_id"] == doc["external_id"], answer
+    on_loop(server.stop())
+    on_loop(services.shutdown())  # saves the index
+    # a restart on the same directories keeps the row
+    services, server, base = boot()
+    again = call("/retrieve/chunks", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
+    assert [(h["document_id"], h["score"]) for h in again] == [(h["document_id"], h["score"]) for h in hits], again
+    assert call("/health")["components"]["colpali"]["index_rows"] == {"default": 1}
     on_loop(server.stop())
     on_loop(services.shutdown())
     loop.call_soon_threadsafe(loop.stop)

@@ -54,6 +54,7 @@ from morphik_core_tpu_torch.api.app import build_app
 from morphik_core_tpu_torch.api.http import HTTPServer, Request
 from morphik_core_tpu_torch.config import Settings, load_settings
 from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
+from morphik_core_tpu_torch.index.multivector_index import IndexRecord as TRecord, MultiVectorIndex as TIndex
 from morphik_core_tpu_torch.models import schemas as ts
 from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel as TModel
 from morphik_core_tpu_torch.models.colqwen.preprocess import (
@@ -302,7 +303,10 @@ def _store_chunks(pkg, rows, pages):
     return out
 
 
-def test_store_matches_jax(tmp_path):
+def _store_parity(tmp_path, persist: bool):
+    """Both stores take the same chunks, queries, padding fetches and a
+    delete. With `persist`, both get an `index_path` and the same
+    precomputed document FDE rows."""
     rng = np.random.default_rng(5)
     concepts = rng.standard_normal((40, DIM)).astype(np.float32)
     rows = []
@@ -311,15 +315,20 @@ def test_store_matches_jax(tmp_path):
         rows.append((x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32))
     pages = [encode_png(_page(rng, 40, 60)) for _ in range(8)]
     kw = dict(SHIPPED, device_block_rows=32)
-    jstore = TPUMultiVectorStore(storage=JStorage(tmp_path / "j"), fde_config=JFDE(dimension=DIM), **kw)
+    paths = {"j": tmp_path / "j" / "index", "t": tmp_path / "t" / "index"} if persist else {"j": None, "t": None}
+    jstore = TPUMultiVectorStore(storage=JStorage(tmp_path / "j"), fde_config=JFDE(dimension=DIM),
+                                 index_path=paths["j"], **kw)
     tstore = TorchMultiVectorStore(storage=LocalStorage(tmp_path / "t"), fde_config=TFDE(dimension=DIM),
-                                   device="cpu", **kw)
+                                   index_path=paths["t"], device="cpu", **kw)
+    fdes = list(TIndex(TFDE(dimension=DIM), device="cpu").encode_documents(rows)) if persist else None
 
     async def go():
         for store, pkg in ((jstore, js), (tstore, ts)):
             chunks = _store_chunks(pkg, rows, pages)
-            ok1, ids1, _ = await store.store_embeddings(chunks[:20], app_id="app")
-            ok2, ids2, _ = await store.store_embeddings(chunks[20:], app_id="app")
+            ok1, ids1, _ = await store.store_embeddings(chunks[:20], app_id="app",
+                                                        fde_vectors=fdes and fdes[:20])
+            ok2, ids2, _ = await store.store_embeddings(chunks[20:], app_id="app",
+                                                        fde_vectors=fdes and fdes[20:])
             assert ok1 and ok2 and ids1 + ids2 == [f"{c.document_id}-{c.chunk_number}" for c in chunks]
         queries = [rows[3], rows[30], concepts[:3] / np.linalg.norm(concepts[:3], axis=1, keepdims=True)]
         for q in queries:
@@ -356,14 +365,52 @@ def test_store_matches_jax(tmp_path):
         assert [c.document_id for c in a] == [c.document_id for c in b] and "doc1" not in [c.document_id for c in b]
         assert await tstore.get_chunks_by_id([("doc1", 1)], app_id="app") == []
         assert len(tstore._indexes["app"]) == len(jstore._indexes["app"]) == 46
+        return rows, concepts
 
-    _run(go())
+    return jstore, tstore, *_run(go())
+
+
+def test_store_matches_jax(tmp_path):
+    _, tstore, _, _ = _store_parity(tmp_path, persist=False)
     tstore.save()
     assert not (tmp_path / "t" / "index").exists()
 
 
+def test_store_files_match_jax(tmp_path):
+    """With `index_path`, the per-namespace files are byte-identical, and
+    each store reopens the other's files and answers the same ids."""
+    jstore, tstore, rows, concepts = _store_parity(tmp_path, persist=True)
+    jstore.save()
+    tstore.save()
+    jdir, tdir = tmp_path / "j" / "index" / "app", tmp_path / "t" / "index" / "app"
+    names = sorted(p.name for p in tdir.iterdir())
+    assert names == sorted(p.name for p in jdir.iterdir()) == sorted(
+        ["header.json", "records.jsonl", "fde.bin", "mv.bin", "pooled.bin"])
+    for name in names:
+        assert (tdir / name).read_bytes() == (jdir / name).read_bytes(), name
+    assert b"_patches" not in (tdir / "records.jsonl").read_bytes()
+    kw = dict(SHIPPED, device_block_rows=32)
+    t_on_j = TorchMultiVectorStore(storage=LocalStorage(tmp_path / "j"), fde_config=TFDE(dimension=DIM),
+                                   index_path=tmp_path / "j" / "index", device="cpu", **kw)
+    j_on_t = TPUMultiVectorStore(storage=JStorage(tmp_path / "t"), fde_config=JFDE(dimension=DIM),
+                                 index_path=tmp_path / "t" / "index", **kw)
+
+    async def go():
+        queries = [rows[3], rows[30], concepts[:3] / np.linalg.norm(concepts[:3], axis=1, keepdims=True)]
+        for q in queries:
+            for a_store, b_store in ((jstore, t_on_j), (tstore, j_on_t)):
+                a = await a_store.query_similar(q, k=5, app_id="app")
+                b = await b_store.query_similar(q, k=5, app_id="app")
+                assert [(c.document_id, c.chunk_number) for c in a] == [(c.document_id, c.chunk_number) for c in b]
+                np.testing.assert_allclose([c.score for c in b], [c.score for c in a], rtol=1e-5, atol=1e-4)
+                assert [c.content for c in a] == [c.content for c in b]
+        assert "doc1" not in [c.document_id for c in await t_on_j.query_similar(rows[3], k=5, app_id="app")]
+
+    _run(go())
+
+
 def test_store_refuses_binary_and_needs_a_device(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         TorchMultiVectorStore(provider="binary", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -679,7 +726,7 @@ def test_http_refuses_other_content_types(servers, kind):
     else:
         data, name, ctype = b"plain words\r\n", "a.txt", "text/plain"
     status, body = _upload(servers["base"]["torch"], name, data, ctype)
-    assert status == 415 and "ROADMAP Queue 1 item 7b" in body["detail"]
+    assert status == 415 and "ROADMAP Queue 1 item 3b" in body["detail"]
 
 
 def test_http_undecodable_query_image_answers_400(servers):
@@ -693,7 +740,7 @@ def test_http_undecodable_query_image_answers_400(servers):
 ])
 def test_http_unported_options_answer_501(servers, body):
     status, out = _call(servers["base"]["torch"], "POST", "/retrieve/chunks", body)
-    assert status == 501 and "ROADMAP Queue 1 item 7" in out["detail"]
+    assert status == 501 and "ROADMAP Queue 1 item 3" in out["detail"]
 
 
 def test_http_failed_ingest_marks_document_failed(servers):
@@ -717,13 +764,13 @@ def test_multipart_keeps_binary_crlf():
 
 
 @pytest.mark.parametrize("section,key,value,item", [
-    ("model", "checkpoint_path", "/models/x", "item 4"),
-    ("model", "attention_precision", "int8", "item 3"),
-    ("morphik", "colpali_mode", "api", "item 7h"),
-    ("storage", "provider", "aws-s3", "item 7h"),
-    ("tpu", "auto_mesh", True, "item 5"),
-    ("morphik", "mode", "cloud", "item 7e"),
-    ("completion", "model", "openai_gpt4", "item 7g"),
+    ("model", "checkpoint_path", "/models/x", "item 5"),
+    ("model", "attention_precision", "int8", "item 4"),
+    ("morphik", "colpali_mode", "api", "item 3h"),
+    ("storage", "provider", "aws-s3", "item 3h"),
+    ("tpu", "auto_mesh", True, "item 6"),
+    ("morphik", "mode", "cloud", "item 3e"),
+    ("completion", "model", "openai_gpt4", "item 3g"),
 ])
 def test_build_services_refuses_unported_settings(tmp_path, section, key, value, item):
     raw = _raw_settings(tmp_path, "x")
@@ -740,6 +787,182 @@ def test_build_services_without_a_card_raises(tmp_path, monkeypatch):
     raw["service"] = {"environment": "production"}
     with pytest.raises(RuntimeError, match="random-weight"):
         build_services(Settings.from_dict(raw), device="cpu")
+
+
+def _boot(lt, raw):
+    """The port server on `raw` settings with the fixture model, on the CPU."""
+    services = build_services(Settings.from_dict(raw), colqwen_model=TModel.from_fixture(FIXTURE, device="cpu"),
+                              device="cpu")
+    lt.run(services.initialize())
+    srv = HTTPServer(build_app(services), "127.0.0.1", 0)
+    lt.run(srv.start())
+    return services, srv, f"http://127.0.0.1:{srv.port}"
+
+
+def _retrieve_all(base, k=3):
+    out = {}
+    for text in QUERIES:
+        status, res = _call(base, "POST", "/retrieve/chunks", {"query": text, "k": k})
+        assert status == 200 and len(res) == k, res
+        out[text] = ([r["document_id"] for r in res], [r["score"] for r in res])
+    return out
+
+
+def test_restart_keeps_rows_and_the_jax_server_reads_them(tmp_path):
+    """Ingest PNGs over HTTP, shut down (the shutdown saves the index),
+    boot again on the same directories: the same top-k, each document
+    `completed` with its chunk. Then the JAX server boots on the port's
+    directories and answers the same ids (its own query embeddings: atol
+    5e-3; the port's embeddings through its store: the same ids, scores
+    within f32 rounding)."""
+    raw = _raw_settings(tmp_path, "r")
+    rng = np.random.default_rng(21)
+    pages = [_page(rng, h, w, n_blocks=5 + i) for i, (h, w) in enumerate(PAGE_SIZES[:4])]
+    lt = _LoopThread()
+    try:
+        services, srv, base = _boot(lt, raw)
+        docs = [_upload(base, f"p{i}.png", encode_png(p))[1]["external_id"] for i, p in enumerate(pages)]
+        _wait_completed(base, docs)
+        before = _retrieve_all(base)
+        lt.run(srv.stop())
+        lt.run(services.shutdown())
+        wal = (tmp_path / "r" / "index" / "default" / "records.jsonl").read_text().splitlines()
+        assert len(wal) == len(pages) and "_patches" not in "".join(wal)
+
+        services, srv, base = _boot(lt, raw)
+        assert _call(base, "GET", "/health")[1]["components"]["colpali"]["index_rows"] == {}  # opened at first use
+        after = _retrieve_all(base)
+        for text in QUERIES:
+            assert after[text][0] == before[text][0]
+            np.testing.assert_allclose(after[text][1], before[text][1], rtol=0, atol=1e-5)
+        assert _call(base, "GET", "/health")[1]["components"]["colpali"]["index_rows"] == {"default": len(pages)}
+        for d, page in zip(docs, pages):
+            status, doc = _call(base, "GET", f"/documents/{d}")
+            assert status == 200 and doc["system_metadata"]["status"] == "completed"
+            status, chunks = _call(base, "POST", "/batch/chunks",
+                                   {"sources": [{"document_id": d, "chunk_number": 0}], "use_colpali": True})
+            assert status == 200 and [c["document_id"] for c in chunks] == [d]
+            assert chunks[0]["content"] == bytes_to_data_uri(encode_png(page), "image/png")
+        port_queries = {text: services.colpali_embedding_model.embed_query(text) for text in QUERIES}
+        lt.run(srv.stop())
+        lt.run(services.shutdown())
+
+        j_services = j_build_services(JSettings.model_validate(raw), colqwen_model=JModel.from_fixture(FIXTURE))
+        lt.run(j_services.initialize())
+        jsrv = JHTTPServer(j_build_app(j_services), "127.0.0.1", 0)
+        lt.run(jsrv.start())
+        try:
+            got = _retrieve_all(f"http://127.0.0.1:{jsrv.port}")
+            for text in QUERIES:
+                _same_ranking(after[text][0], after[text][1], got[text][0], got[text][1], atol=5e-3)
+                lib = lt.run(j_services.colpali_vector_store.query_similar(port_queries[text], k=3))
+                assert [c.document_id for c in lib] == after[text][0]
+                np.testing.assert_allclose([c.score for c in lib], after[text][1], rtol=1e-5, atol=1e-4)
+        finally:
+            lt.run(jsrv.stop())
+            lt.run(j_services.shutdown())
+    finally:
+        lt.close()
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_use_pallas_reaches_every_maxsim_call(tmp_path, monkeypatch, use_pallas):
+    """`tpu.use_pallas` reaches the index as the reference passes it (None
+    or False), and from there every MaxSim call: the pooled stage, the
+    pooled prefilter, the cache rerank and the cold rerank, int8 and bf16.
+    With false each runs the kernels' plain versions (`use_kernel=False`),
+    on the card as here."""
+    from morphik_core_tpu_torch.index import device_cache
+    from morphik_core_tpu_torch.ops import maxsim as tmax
+
+    raw = _raw_settings(tmp_path, "p")
+    raw["tpu"] = {"use_pallas": use_pallas}
+    store = build_services(Settings.from_dict(raw), colqwen_model=TModel.from_fixture(FIXTURE, device="cpu"),
+                           device="cpu").colpali_vector_store
+    assert store.index_kwargs["use_pallas"] is (None if use_pallas else False)
+    assert store._ns("default")._use_kernel is use_pallas
+    seen = []
+    orig = {name: getattr(tmax, name) for name in ("maxsim", "maxsim_q8")}
+
+    def spy(where, name):
+        def wrapped(*a, use_kernel=True, **kw):
+            seen.append((where, name, use_kernel))
+            return orig[name](*a, use_kernel=use_kernel, **kw)
+        return wrapped
+
+    for mod, where in ((tmax, "ops"), (device_cache, "cache")):
+        for name in orig:
+            monkeypatch.setattr(mod, name, spy(where, name))
+    rng = np.random.default_rng(2)
+    rows = []
+    for _ in range(64):
+        x = rng.standard_normal((int(rng.integers(20, 60)), DIM)).astype(np.float32)
+        rows.append(x / np.linalg.norm(x, axis=1, keepdims=True))
+    fde = TFDE(dimension=DIM, num_repetitions=8, num_simhash_projections=4, projection_dimension=8)
+    paths = {
+        "pooled stage + cache rerank q8": ({}, {("ops", "maxsim_q8"), ("cache", "maxsim_q8")}),
+        "pooled prefilter (cache) + cache rerank q8": ({"pooled_tier_factor": 0}, {("cache", "maxsim_q8")}),
+        "pooled prefilter (upload) + cold rerank q8": ({"pooled_tier_factor": 0, "device_cache_slots": 0},
+                                                       {("ops", "maxsim_q8")}),
+        "cache rerank bf16": ({"rerank_dtype": "bf16"}, {("ops", "maxsim_q8"), ("cache", "maxsim")}),
+        "cold rerank bf16": ({"rerank_dtype": "bf16", "pooled_tier_factor": 0, "rerank_prefilter_pooling": 0,
+                              "device_cache_slots": 0}, {("ops", "maxsim")}),
+    }
+    for label, (over, want) in paths.items():
+        kw = dict(store.index_kwargs, **over)
+        index = TIndex(fde, device="cpu", **kw)
+        index.store(rows, [TRecord(f"d{i}", 0) for i in range(64)])
+        seen.clear()
+        res = index.query(rows[5], k=3)
+        assert res[0][0].document_id == "d5", label
+        assert {(w, n) for w, n, _ in seen} == want, (label, seen)
+        assert all(k is use_pallas for _, _, k in seen), (label, seen)
+
+
+def test_log_uploader_keeps_telemetry_within_budget(tmp_path):
+    """`enforce_local_budget` drops the oldest files first; an uploader
+    with no URL uploads nothing but trims; and `Services.initialize`
+    starts it, so a running server trims `telemetry_dir` to
+    `local_budget_bytes` (`shutdown` stops and joins the thread, which the
+    reference's cannot: its `_stop` event shadows `Thread._stop`)."""
+    import os
+
+    from morphik_core_tpu_torch.services.log_uploader import Heartbeat, LogUploader, enforce_local_budget
+
+    d = tmp_path / "tel"
+    d.mkdir()
+    old, new = d / "spans_old.jsonl", d / "spans_new.jsonl"
+    old.write_text("x" * 600)
+    new.write_text("y" * 600)
+    os.utime(old, (time.time() - 1000, time.time() - 1000))
+    assert enforce_local_budget(d, budget_bytes=1000) == 600
+    assert not old.exists() and new.exists()
+    assert LogUploader(d, upload_url=None, budget_bytes=100).upload_once() is False
+    assert not new.exists()
+    beat = Heartbeat(None, tmp_path / "state", "0.1.0")  # no URL: no ping; the installation id persists
+    assert beat.ping_once() is False and Heartbeat(None, tmp_path / "state", "0.1.0").installation_id == beat.installation_id
+
+    raw = _raw_settings(tmp_path, "u")
+    raw["telemetry"].update(local_budget_bytes=1000, upload_interval_s=0.05)
+    tel = Path(raw["telemetry"]["telemetry_dir"])
+    tel.mkdir(parents=True)
+    for age, name in enumerate(["spans_c.jsonl", "spans_b.jsonl", "spans_a.jsonl"]):
+        (tel / name).write_text("z" * 600)
+        os.utime(tel / name, (time.time() - 100 * age, time.time() - 100 * age))
+    services = build_services(Settings.from_dict(raw), colqwen_model=TModel.from_fixture(FIXTURE, device="cpu"),
+                              device="cpu")
+    lt = _LoopThread()
+    try:
+        lt.run(services.initialize())
+        deadline = time.time() + 30
+        while sorted(p.name for p in tel.glob("*.jsonl")) != ["spans_c.jsonl"]:
+            assert time.time() < deadline, sorted(p.name for p in tel.glob("*.jsonl"))
+            time.sleep(0.02)
+        assert services.log_uploader.is_alive()
+    finally:
+        lt.run(services.shutdown())
+        lt.close()
+    assert not services.log_uploader.is_alive()
 
 
 def test_launch_counts_survive_concurrent_launches():
