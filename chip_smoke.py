@@ -2,7 +2,8 @@
 """Drive the PyTorch port's ColPali ingest -> retrieve path once on one
 NVIDIA H100, at the full ColQwen2.5-3B geometry with random weights, in
 the shipped serving config (W8A8 tower with calibrated static activation
-scales, bf16 attention) and, before it, in bf16.
+scales, bf16 attention) and, before it, in bf16; then its HTTP service
+plane with the text path, and the text index at 200,000 rows.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,9 @@ Phases (each raises on failure; none is caught):
      must be bit-identical. The bf16 K3 is also held to a mirror of the
      Pallas kernel's rounding, and timed beside
      F.scaled_dot_product_attention on the same inputs (a yardstick that
-     the port never calls).
+     the port never calls). K2 also runs at the reranker's shape: the f32
+     query of a text query against 12 f32 chunks of byte tokens, the
+     longest a 6000-character chunk (6017 tokens, padded to 6144).
   3. ingest. (a) the earlier path: the 3B model in bf16 embeds one batch
      of 8 pages at grid 20 x 28 from seeded uint8 patches and encodes the
      text queries with the bf16 text tower. (b) the main
@@ -71,10 +74,34 @@ Phases (each raises on failure; none is caught):
      server stops (its shutdown saves the index) and a second one boots
      with `build_services` on the same directories and model: the same
      retrieve ids (scores within SCORE_ATOL), every document `completed`
-     with its chunk, /health showing the 9 rows, K1 launched. Prints a
-     {"service": {...}} line (ingest pages/s, retrieve p50/p99 ms, /query
-     ms, launches, restart boot s and p50, the card's name and power
-     limit).
+     with its chunk, /health showing the rows, K1 launched. Before the
+     restart, the text half on the same server: three /ingest/text
+     documents of 8-16 KB of seeded prose (two also into the ColPali
+     store, through the text tower), an upload each of markdown, HTML,
+     XML, JSON and a two-page PDF with use_colpali=false, text retrieves
+     (use_colpali=false, k=4, hybrid) equal to the in-process text store,
+     reranked retrieves (use_reranking) whose order equals an in-process
+     ColQwenReranker over the same 12 oversampled chunks (K2 once each),
+     a use_colpali=true retrieve of a text document's chunks (K1),
+     /batch/chunks and /query with use_colpali=false, and a DELETE that
+     leaves both stores; after the restart the text retrieves come back
+     the same and /health shows the text rows. Prints a {"service":
+     {...}} line (ingest pages/s, retrieve p50/p99 ms, /query ms,
+     launches, restart boot s and p50; text ingest s per document, text
+     retrieve p50/p99, reranked retrieve p50, K2 launches, peak memory;
+     the card's name and power limit).
+ 10. the text index at a real size, in process: a TextVectorStore on the
+     card with 200,000 rows of 768 (the toml's embedding dimensions;
+     seeded unit vectors, texts of 20-60 words from a seeded 30,000-word
+     Zipf vocabulary) fed in batches of 10,000; capacity doubling gives
+     262,144 rows, so a scan reads 805 MB. 20 queries with and without a
+     doc_ids filter (10% of the documents), with and without the hybrid,
+     each equal to an f64 numpy oracle of the same contract (ids; ties as
+     sets; scores within 1e-5); the scan's device time (CUDA events
+     around `_masked_topm`) beside its bound; 1,000 rows appended (the
+     tail alone is uploaded), a document deleted (it never returns), a
+     save and a reopen (the same answers). Prints a {"text_index": {...}}
+     line.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -438,8 +465,35 @@ def kernel_checks(torch):
     if float(maxsim(qfr, docs_r, mask_r)[5]) != 0.0:
         raise AssertionError("K2: a fully masked candidate must score exactly 0")
     _deterministic(torch, "K2 ragged f32 NQ=640", lambda: maxsim(qfr, docs_r, mask_r))
+    del docs_r
+    # K2 at the reranker's shape (ColQwenReranker over the oversampled
+    # chunks of a text retrieve, phase 8): the f32 query of one text query,
+    # RERANK_C f32 chunks of byte tokens, the longest a 6000-character chunk
+    nq_t, np_t = rerank_token_counts()
+    n_pad_t = -(-np_t // 128) * 128  # pad_multivectors
+    lengths_t = rng.integers(np_t // 4, np_t + 1, RERANK_C)
+    lengths_t[0] = np_t
+    docs_t = docs_f(RERANK_C, n_pad_t)
+    mask_t = t((np.arange(n_pad_t)[None] < lengths_t[:, None]).astype(np.float32))
+    qft = query_f32(nq_t, nq_t)
+    rerank_k2 = _compare(torch, f"K2 reranker f32 C={RERANK_C} Np={n_pad_t} NQ={nq_t}",
+                         lambda: maxsim(qft, docs_t, mask_t), lambda: maxsim_plain(qft, docs_t, mask_t),
+                         K2_RTOL, K2_ATOL, bound=k2_bound(RERANK_C, n_pad_t, qft, 4))
+    k2.append(rerank_k2)
+    del docs_t
     k3 = window_attention_checks(torch, gen)
-    return main_k1, main_k2, k3[0], k1 + k2 + k3
+    return main_k1, main_k2, k3[0], rerank_k2, k1 + k2 + k3
+
+
+def rerank_token_counts():
+    """(query tokens of TEXT_QUERIES[0], tokens of a chunk_size-character
+    chunk) under the tower's byte tokenizer (`query_token_ids`)."""
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+
+    def n_tokens(text):
+        return len((ColQwenModel.QUERY_PREFIX + text).encode()) + ColQwenModel.QUERY_AUGMENTATION_TOKENS
+
+    return n_tokens(TEXT_QUERIES[0]), n_tokens("x" * CHUNK_SIZE)
 
 
 def window_attention_checks(torch, gen):
@@ -769,6 +823,27 @@ def brute_force_top1(torch, rows, q):
     return int(torch.cat(scores).argmax())
 
 
+# phase 8, the text half: three /ingest/text documents of seeded prose
+# (the first two also into the ColPali store), one upload of each text
+# type with use_colpali=false, then retrieves from the text store
+TEXT_DOC_KB = (8, 12, 16)
+TEXT_COLPALI = (True, True, False)
+CHUNK_SIZE = 6000  # morphik_tpu.toml [parser] chunk_size
+TEXT_QUERIES = ["quarterly revenue growth in the northern region", "supplier invoice renewal clause",
+                "audit committee risk schedule"]
+RERANK_C = 12  # the reranker's oversampling at k=4: max(k, min(3k, 20))
+RERANK_SCORE_ATOL = 1e-3  # HTTP reranker scores vs an in-process ColQwenReranker (K2 within its tolerance)
+_PROSE = (
+    "the a of to in and for with on by from quarterly annual revenue growth margin region northern southern "
+    "supplier invoice renewal clause contract signature page audit committee risk schedule budget forecast "
+    "table figure latency distribution customer account payment terms policy review board meeting minutes "
+    "report summary operations finance legal compliance product launch market share cost savings headcount "
+    "inventory shipment warehouse logistics capital expenditure depreciation tax liability equity debt "
+    "interest rate exchange currency hedging pension plan benefit employee retention training safety "
+    "incident environment emissions energy water waste recycling community investment research "
+    "development patent license software hardware service support contract term termination notice"
+).split()
+
 SERVICE_PAGES = 8  # PNG pages at GRID, plus one that takes the resize path
 RESIZED_PAGE = (600, 830)  # height x width: bicubic to the same 20 x 28 bucket
 RETRIEVE_REPEATS = 10
@@ -810,11 +885,13 @@ class Client:
         with urllib.request.urlopen(req, timeout=300) as resp:
             return json.loads(resp.read())
 
-    def upload(self, filename: str, data: bytes):
+    def upload(self, filename: str, data: bytes, ctype: str = "image/png", fields=None):
         """POST /ingest/file with a multipart body built by hand."""
         boundary = "chip-smoke-boundary-7f3a"
-        body = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{filename}"\r\n'
-                "Content-Type: image/png\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
+        body = b"".join(f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+                        for k, v in (fields or {}).items())
+        body += (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{filename}"\r\n'
+                 f"Content-Type: {ctype}\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
         return self.call("POST", "/ingest/file", body, f"multipart/form-data; boundary={boundary}")
 
 
@@ -952,9 +1029,10 @@ def service_path(torch, model, _kernels, smi):
                 err = max(abs(r["score"] - c.score) for r, c in zip(http_results[key], lib))
                 if err > SCORE_ATOL:
                     raise AssertionError(f"{key!r}: HTTP scores differ from the store's by {err}")
+            text_metrics, expect = service_text_half(torch, services, server, client, _kernels, docs)
         finally:
-            server.stop()  # the shutdown saves the index
-        restart = service_restart(settings, model, _kernels, pngs, docs, http_results)
+            server.stop()  # the shutdown saves the indexes
+        restart = service_restart(settings, model, _kernels, pngs, docs, expect)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -970,19 +1048,198 @@ def service_path(torch, model, _kernels, smi):
         "index_ms": index_ms, "index_share": sum(index_ms.values()) / mean_ms,
         "pooled_tier": any(t["pooled_tier"] for t in timings), "pool": timings[-1]["pool"],
         "cache": health["device_cache"]["default"], "boot_s": boot_s,
-        "launches": launches, "ingest_launches": ingest_launches, **restart,
+        "launches": launches, "ingest_launches": ingest_launches, **text_metrics, **restart,
     }
     log(f"  {len(pngs)} PNG pages ingested over HTTP in {ingest_s:.3f} s ({service['ingest_pages_per_s']:.3f} "
         f"pages/s; mean job phases s {json.dumps(service['ingest_job_phase_s'])}); retrieve p50 {p50:.3f} ms p99 {p99:.3f} ms over {len(lat)}; image query {image_ms:.3f} ms; "
         f"/query {query_ms:.3f} ms; text encode {encode_ms:.3f} ms a query; index {json.dumps(index_ms)}; "
         f"launches {launches}; HTTP results equal the in-process store's")
-    log(f"  restart: second server up in {restart['restart_boot_s']:.3f} s on the saved index; retrieve p50 "
+    log(f"  restart: second server up in {restart['restart_boot_s']:.3f} s on the saved indexes; retrieve p50 "
         f"{restart['restart_retrieve_p50_ms']:.3f} ms p99 {restart['restart_retrieve_p99_ms']:.3f} ms; the same ids "
-        f"(max score diff {restart['restart_max_score_diff']:.3e}); launches {restart['restart_launches']}")
+        f"(max score diff {restart['restart_max_score_diff']:.3e}), the same text retrieves; launches "
+        f"{restart['restart_launches']}")
     return service
 
 
-def service_restart(settings, model, _kernels, pngs, docs, http_results):
+def seeded_prose(rng, n_bytes: int) -> str:
+    """Sentences of words from _PROSE, in paragraphs, about n_bytes long."""
+    out, size = [], 0
+    while size < n_bytes:
+        sentence = " ".join(rng.choice(_PROSE, int(rng.integers(6, 18)))).capitalize() + "."
+        out.append(sentence + ("\n\n" if rng.random() < 0.15 else " "))
+        size += len(out[-1])
+    return "".join(out).strip()
+
+
+def text_pdf(pages) -> bytes:
+    """A born-digital PDF (stdlib only): one FlateDecode content stream of
+    text lines per page."""
+    import zlib
+
+    objs = [b"1 0 obj<</Type/Catalog/Pages 2 0 R>>endobj\n",
+            f"2 0 obj<</Type/Pages/Kids[{' '.join(f'{3 + 2 * i} 0 R' for i in range(len(pages)))}]"
+            f"/Count {len(pages)}>>endobj\n".encode()]
+    for i, lines in enumerate(pages):
+        ops = b"BT /F1 11 Tf 72 720 Td " + b"".join(
+            (b"0 -14 Td " if j else b"") + b"(" + line.encode("latin-1") + b") Tj " for j, line in enumerate(lines))
+        comp = zlib.compress(ops + b"ET")
+        objs.append(f"{3 + 2 * i} 0 obj<</Type/Page/Parent 2 0 R/MediaBox[0 0 612 792]/Contents {4 + 2 * i} 0 R>>"
+                    "endobj\n".encode())
+        objs.append(f"{4 + 2 * i} 0 obj<</Length {len(comp)}/Filter/FlateDecode>>stream\n".encode() + comp
+                    + b"\nendstream endobj\n")
+    return b"%PDF-1.4\n" + b"".join(objs) + b"trailer<</Root 1 0 R>>\n%%EOF"
+
+
+def text_files(rng) -> dict:
+    """One upload of each text type: filename -> (bytes, content type)."""
+    para = [seeded_prose(rng, 300) for _ in range(6)]
+    xml = "<report>" + "".join(f'<section id="s{i}"><title>Part {i}</title><p>{p}</p></section>'
+                               for i, p in enumerate(para[:3])) + "</report>"
+    return {
+        "notes.md": (f"# Notes\n\n{para[0]}\n\n## Detail\n\n{para[1]}".encode(), "text/markdown"),
+        "page.html": (f"<html><head><title>Board minutes</title></head><body><h1>Minutes</h1><p>{para[2]}</p>"
+                      f"<ul><li>{para[3][:80]}</li></ul></body></html>".encode(), "text/html"),
+        "report.xml": (xml.encode(), "application/xml"),
+        "record.json": (json.dumps({"summary": para[4], "items": para[5].split(". ")}).encode(), "application/json"),
+        "statement.pdf": (text_pdf([[w[:90] for w in para[4].split(". ")], [w[:90] for w in para[5].split(". ")]]),
+                          "application/pdf"),
+    }
+
+
+def service_text_half(torch, services, server, client, _kernels, png_docs):
+    """Phase 8, the text half, on the running server: /ingest/text (two
+    documents also into the ColPali store), uploads of each text type with
+    use_colpali=false, text retrieves (held against the in-process text
+    store), reranked retrieves (held against an in-process ColQwenReranker
+    over the same oversampled chunks; K2), a ColPali retrieve of a text
+    document (K1), /batch/chunks, /query and a DELETE from both stores.
+    Returns (metrics, what the restart must give back)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    texts = [seeded_prose(rng, kb * 1024) for kb in TEXT_DOC_KB]
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    tdocs, ingest_s = [], []
+    for i, (text, colpali) in enumerate(zip(texts, TEXT_COLPALI)):
+        t = time.perf_counter()
+        doc = client.call("POST", "/ingest/text", {"content": text, "filename": f"text{i}.txt",
+                                                   "metadata": {"t": i}, "use_colpali": colpali})
+        ingest_s.append(time.perf_counter() - t)
+        if doc["system_metadata"]["status"] != "completed":
+            raise AssertionError(f"/ingest/text {i}: {doc['system_metadata']}")
+        tdocs.append(doc["external_id"])
+    ingest_launches = dict(_kernels.launch_counts)
+    t = time.perf_counter()
+    fdocs = {name: client.upload(name, data, ctype, {"use_colpali": "false", "metadata": json.dumps({"f": name})})[
+        "external_id"] for name, (data, ctype) in text_files(rng).items()}
+    files_s = _wait_completed(client, list(fdocs.values())) - t
+    store, emb = services.vector_store, services.embedding_model
+    all_docs = png_docs + tdocs + list(fdocs.values())
+    for name, d in fdocs.items():
+        got = client.call("GET", f"/documents/{d}")
+        if not got["chunk_ids"] or got["system_metadata"].get("unsearchable"):
+            raise AssertionError(f"{name}: no text chunks ({got['system_metadata']})")
+    # text chunks of each document (its chunk_ids also list its ColPali rows)
+    n_chunks = {d: len(client.call("GET", f"/documents/{d}")["chunk_ids"]) // (2 if c else 1)
+                for d, c in zip(tdocs, TEXT_COLPALI)}
+
+    def lib_answer(text, k):
+        return server.run(store.query_similar(emb._embed(text), k=k, doc_ids=all_docs, query_text=text))
+
+    lat, text_results = [], {}
+    for text in TEXT_QUERIES:
+        for rep in range(RETRIEVE_REPEATS + 1):  # the first is a warm-up, untimed
+            t = time.perf_counter()
+            res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4, "use_colpali": False})
+            if rep:
+                lat.append((time.perf_counter() - t) * 1e3)
+        want = lib_answer(text, 4)
+        if [(r["document_id"], r["chunk_number"], r["score"]) for r in res] != [
+                (c.document_id, c.chunk_number, c.score) for c in want] or len(res) != 4:
+            raise AssertionError(f"text retrieve {text!r}: HTTP {res} vs the in-process text store")
+        text_results[text] = res
+
+    _kernels.reset_launch_counts()
+    rr_lat, reranked = [], {}
+    for text in TEXT_QUERIES:
+        t = time.perf_counter()
+        reranked[text] = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4, "use_colpali": False,
+                                                                  "use_reranking": True})
+        rr_lat.append((time.perf_counter() - t) * 1e3)
+    rerank_launches = dict(_kernels.launch_counts)
+    if rerank_launches["maxsim"] != len(TEXT_QUERIES):
+        raise AssertionError(f"the reranked retrieves did not launch K2 once each: {rerank_launches}")
+    reranker = services.document_service.reranker
+    for text in TEXT_QUERIES:
+        pool = lib_answer(text, RERANK_C)
+        want = server.run(reranker.rerank(text, pool))[:4]
+        got = reranked[text]
+        if [(r["document_id"], r["chunk_number"]) for r in got] != [(c.document_id, c.chunk_number) for c in want]:
+            raise AssertionError(f"reranked {text!r}: HTTP {got} vs the in-process reranker")
+        err = max(abs(r["score"] - c.score) for r, c in zip(got, want))
+        if err > RERANK_SCORE_ATOL:
+            raise AssertionError(f"reranked {text!r}: scores differ from the in-process reranker's by {err}")
+    pool_tokens = [len(c.content.encode()) for c in lib_answer(TEXT_QUERIES[0], RERANK_C)]
+
+    _kernels.reset_launch_counts()
+    colpali_text = client.call("POST", "/retrieve/chunks", {"query": TEXT_QUERIES[0], "k": 2, "filters": {"t": 0}})
+    colpali_launches = dict(_kernels.launch_counts)
+    if [r["document_id"] for r in colpali_text] != [tdocs[0]] * 2 or any(r["metadata"]["is_image"] for r in colpali_text):
+        raise AssertionError(f"ColPali retrieve of text document 0: {colpali_text}")
+    if colpali_launches["maxsim_q8"] <= 0:
+        raise AssertionError(f"the ColPali retrieve of text chunks did not launch K1: {colpali_launches}")
+
+    sources = [{"document_id": d, "chunk_number": 0} for d in tdocs + list(fdocs.values())]
+    chunks = client.call("POST", "/batch/chunks", {"sources": sources, "use_colpali": False})
+    lib = server.run(store.get_chunks_by_id([(x["document_id"], 0) for x in sources]))
+    if [(c["document_id"], c["content"]) for c in chunks] != [(c.document_id, c.content) for c in lib] or len(
+            chunks) != len(sources):
+        raise AssertionError("/batch/chunks (use_colpali=false) differs from the text store's chunks")
+    t = time.perf_counter()
+    answer = client.call("POST", "/query", {"query": TEXT_QUERIES[1], "k": 4, "use_colpali": False})
+    query_ms = (time.perf_counter() - t) * 1e3
+    if not answer["completion"] or [x["document_id"] for x in answer["sources"]] != [
+            r["document_id"] for r in text_results[TEXT_QUERIES[1]]]:
+        raise AssertionError(f"/query use_colpali=false: sources {answer['sources']}")
+
+    gone = tdocs[1]  # ingested into both stores
+    index = services.colpali_vector_store._indexes["default"]
+    client.call("DELETE", f"/documents/{gone}")
+    if server.run(store.get_chunks_by_id([(gone, n) for n in range(n_chunks[gone])])) or any(
+            index.get_chunks_by_id([(gone, n) for n in range(n_chunks[gone])])):
+        raise AssertionError("the deleted text document is still in a store")
+    # what the restart must answer (the delete moved the BM25 statistics)
+    final_text = {text: client.call("POST", "/retrieve/chunks", {"query": text, "k": 4, "use_colpali": False})
+                  for text in TEXT_QUERIES}
+    if any(r["document_id"] == gone for res in final_text.values() for r in res):
+        raise AssertionError("a retrieve after the DELETE returned the deleted document")
+    final_colpali = {text: client.call("POST", "/retrieve/chunks", {"query": text, "k": 4}) for text in QUERIES}
+    health = client.call("GET", "/health")["components"]
+    metrics = {
+        "text_docs": len(tdocs), "text_doc_bytes": [len(x.encode()) for x in texts], "text_chunks": n_chunks,
+        "text_ingest_s": ingest_s, "text_ingest_s_per_doc": float(np.mean(ingest_s)),
+        "text_ingest_launches": ingest_launches, "file_uploads": len(fdocs), "file_ingest_s": files_s,
+        "text_retrieve_n": len(lat), "text_retrieve_p50_ms": float(np.percentile(lat, 50)),
+        "text_retrieve_p99_ms": float(np.percentile(lat, 99)), "reranked_retrieve_ms": rr_lat,
+        "reranked_retrieve_p50_ms": float(np.percentile(rr_lat, 50)), "rerank_pool_tokens": pool_tokens,
+        "rerank_launches": rerank_launches, "colpali_text_launches": colpali_launches, "text_query_ms": query_ms,
+        "text_peak_gb": torch.cuda.max_memory_allocated() / 1e9, "text_index_rows": health["text_index_rows"],
+    }
+    expect = {"text": final_text, "colpali": final_colpali, "colpali_rows": health["colpali"]["index_rows"],
+              "text_rows": health["text_index_rows"], "wal_lines": index.count_rows + 1, "gone": gone}
+    log(f"  text half: {len(tdocs)} /ingest/text documents ({metrics['text_doc_bytes']} bytes, chunks "
+        f"{list(n_chunks.values())}) in {[round(x, 3) for x in ingest_s]} s (launches {ingest_launches}); "
+        f"{len(fdocs)} uploads (md, html, xml, json, 2-page pdf) completed in {files_s:.3f} s; text retrieve p50 "
+        f"{metrics['text_retrieve_p50_ms']:.3f} ms p99 {metrics['text_retrieve_p99_ms']:.3f} ms over {len(lat)}; "
+        f"reranked retrieves ms {[round(x, 1) for x in rr_lat]} (K2 launches {rerank_launches['maxsim']}); "
+        f"ColPali retrieve of a text document: K1 {colpali_launches['maxsim_q8']}; /query {query_ms:.3f} ms; "
+        f"peak mem GB {metrics['text_peak_gb']:.2f}; /health text rows {health['text_index_rows']}; "
+        f"HTTP results equal the in-process text store and reranker")
+    return metrics, expect
+
+
+def service_restart(settings, model, _kernels, pngs, docs, expect):
     """Phase 8, second half: a new server from `build_services` on the
     directories the first one left (its index files included) answers as
     the first did."""
@@ -992,8 +1249,8 @@ def service_restart(settings, model, _kernels, pngs, docs, http_results):
     from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
 
     wal = (Path(settings.vector_store.index_path) / "default" / "records.jsonl").read_text().splitlines()
-    if len(wal) != len(pngs) or "_patches" in "".join(wal):
-        raise AssertionError(f"the saved WAL has {len(wal)} lines (expected {len(pngs)}) or carries _patches")
+    if len(wal) != expect["wal_lines"] or "_patches" in "".join(wal):
+        raise AssertionError(f"the saved WAL has {len(wal)} lines (expected {expect['wal_lines']}) or carries _patches")
     t0 = time.perf_counter()
     server = ServerThread(build_services(settings, colqwen_model=model))  # recalibrates static scales
     boot_s = time.perf_counter() - t0
@@ -1007,16 +1264,21 @@ def service_restart(settings, model, _kernels, pngs, docs, http_results):
                 res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
                 if rep:
                     lat.append((time.perf_counter() - t) * 1e3)
-                want = http_results[text]
+                want = expect["colpali"][text]
                 if [r["document_id"] for r in res] != [r["document_id"] for r in want]:
                     raise AssertionError(f"after the restart {text!r}: {[r['document_id'] for r in res]} vs "
                                          f"{[r['document_id'] for r in want]}")
                 diff = max(diff, max(abs(r["score"] - w["score"]) for r, w in zip(res, want)))
         if diff > SCORE_ATOL:
             raise AssertionError(f"after the restart the scores moved by {diff}")
-        health = client.call("GET", "/health")["components"]["colpali"]
-        if health["index_rows"] != {"default": len(pngs)}:
-            raise AssertionError(f"after the restart /health index_rows {health['index_rows']}")
+        for text, want in expect["text"].items():
+            res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4, "use_colpali": False})
+            if res != want:
+                raise AssertionError(f"after the restart the text retrieve {text!r} moved: {res} vs {want}")
+        health = client.call("GET", "/health")["components"]
+        if health["colpali"]["index_rows"] != expect["colpali_rows"] or health["text_index_rows"] != expect["text_rows"]:
+            raise AssertionError(f"after the restart /health rows {health['colpali']['index_rows']} "
+                                 f"{health['text_index_rows']}")
         launches = dict(_kernels.launch_counts)  # the restarted path ends here
         if launches["maxsim_q8"] <= 0:
             raise AssertionError(f"after the restart the retrieves did not launch K1: {launches}")
@@ -1157,6 +1419,270 @@ def persistence_phase(torch, index, path: Path, answers5, answers6, smi):
             "bf16_max_score_diff": diff6}
 
 
+# phase 10: the text index at a real size, in process
+TEXT_ROWS = 200_000
+TEXT_DIM = 768  # morphik_tpu.toml [embedding] dimensions
+TEXT_VOCAB = 30_000
+TEXT_ROWS_PER_DOC = 10
+TEXT_APPEND = 1_000
+TEXT_N_QUERIES = 20
+TEXT_SCORE_ATOL = 1e-5  # store (f32; device matvec or host) vs the f64 oracle
+TEXT_TIE = 2e-6  # oracle scores closer than this rank as a set
+SCAN_REPEATS = 20
+
+
+class TextOracle:
+    """The text store's contract in f64 numpy, independent of its code:
+    cosine over alive rows (and the doc_ids filter); with a query text,
+    0.5 * cosine + 0.5 * BM25 / its peak on the rows that match a term
+    (k1 1.5, b 0.75, idf and lengths over the alive rows); top-k.
+    Documents are numbered (the store's ids are f"doc{n}")."""
+
+    def __init__(self, vecs, words, offsets, docs):
+        import numpy as np
+
+        self.v = np.zeros((0, vecs.shape[1]))
+        self.words, self.offsets, self.row_of = np.zeros(0, np.int64), np.zeros(1, np.int64), np.zeros(0, np.int64)
+        self.docs, self.alive = np.zeros(0, np.int64), np.zeros(0, bool)
+        self.append(vecs, (words, offsets), docs)
+
+    def append(self, vecs, words, docs):
+        import numpy as np
+
+        v = vecs.astype(np.float64)
+        self.v = np.concatenate([self.v, v / np.linalg.norm(v, axis=1, keepdims=True)])
+        self.row_of = np.concatenate([self.row_of, len(self.docs) + np.repeat(np.arange(len(docs)), np.diff(words[1]))])
+        self.words = np.concatenate([self.words, words[0]])
+        self.offsets = np.concatenate([self.offsets, self.offsets[-1] + words[1][1:]])
+        self.docs = np.concatenate([self.docs, docs])
+        self.alive = np.concatenate([self.alive, np.ones(len(docs), bool)])
+        self._tf = {}  # term -> per-row counts
+
+    def delete(self, doc):
+        self.alive &= self.docs != doc
+
+    def prepare(self, queries):
+        """Cosines of every row against each query (one f64 product)."""
+        import numpy as np
+
+        q = np.stack(queries).astype(np.float64)
+        self.cos = self.v @ (q / np.linalg.norm(q, axis=1, keepdims=True)).T
+
+    def answer(self, qi, k, doc_filter=None, terms=None):
+        import numpy as np
+
+        cos = self.cos[:, qi]
+        mask = self.alive & (np.isin(self.docs, doc_filter) if doc_filter is not None else True)
+        score = np.where(mask, cos, -np.inf)
+        if terms:
+            lens = np.diff(self.offsets).astype(np.float64)
+            n = int(self.alive.sum())
+            avg = max(lens[self.alive].sum() / n, 1.0)
+            bm25 = np.zeros(len(self.docs))
+            for t in set(terms):
+                if t not in self._tf:
+                    self._tf[t] = np.bincount(self.row_of[self.words == t], minlength=len(self.docs)).astype(np.float64)
+                f = self._tf[t]
+                df = int(((f > 0) & self.alive).sum())
+                if df:
+                    idf = np.log(1.0 + (n - df + 0.5) / (df + 0.5))
+                    bm25 += np.where(f > 0, idf * f * 2.5 / (f + 1.5 * (0.25 + 0.75 * lens / avg)), 0.0)
+            lex = mask & (bm25 > 0)
+            if lex.any():
+                score = np.where(lex, 0.5 * cos + 0.5 * bm25 / bm25[lex].max(), 0.5 * score)
+        top = np.argsort(-score, kind="stable")[:k]
+        return [(int(i), float(score[i])) for i in top if np.isfinite(score[i])]
+
+
+def _same_answer(label, got, want):
+    """`got` [(row, score)] against the oracle's: scores within
+    TEXT_SCORE_ATOL; rows equal rank by rank, except among oracle scores
+    closer than TEXT_TIE, which compare as sets."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} results, the oracle {len(want)}")
+    err = max((abs(g[1] - w[1]) for g, w in zip(got, want)), default=0.0)
+    if err > TEXT_SCORE_ATOL:
+        raise AssertionError(f"{label}: scores {err} from the oracle's")
+    ws = np.array([w[1] for w in want])
+    i = 0
+    while i < len(want):
+        j = i + 1
+        while j < len(want) and ws[j - 1] - ws[j] < TEXT_TIE:
+            j += 1
+        if {g[0] for g in got[i:j]} != {w[0] for w in want[i:j]}:
+            raise AssertionError(f"{label}: rows {[g[0] for g in got]} vs the oracle's {[w[0] for w in want]}")
+        i = j
+    return err
+
+
+def text_corpus(rng, n, vocab_p, start):
+    """n rows: seeded unit vectors and texts of 20-60 Zipf-drawn words.
+    Returns (vectors, (word ids, offsets), texts, document numbers)."""
+    import numpy as np
+
+    vecs = rng.standard_normal((n, TEXT_DIM), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    lens = rng.integers(20, 61, n)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    words = rng.choice(TEXT_VOCAB, int(offsets[-1]), p=vocab_p)
+    vocab = np.array([f"w{i}" for i in range(TEXT_VOCAB)], dtype=object)
+    texts = [" ".join(vocab[words[offsets[i] : offsets[i + 1]]]) for i in range(n)]
+    docs = (start + np.arange(n)) // TEXT_ROWS_PER_DOC
+    return vecs, (words, offsets), texts, docs
+
+
+def text_index_phase(torch, smi):
+    """Phase 10: the text store on the card at TEXT_ROWS rows of TEXT_DIM,
+    held against TextOracle: queries with and without a doc_ids filter,
+    with and without the hybrid; the scan's device time beside its bound;
+    an appended tail (uploaded alone); a delete; save and reopen."""
+    import asyncio
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.models.schemas import DocumentChunk
+    from morphik_core_tpu_torch.vector_store import text_vector_store as tvs
+
+    rng = np.random.default_rng(SEED + 10)
+    ranks = np.arange(1, TEXT_VOCAB + 1, dtype=np.float64)
+    vocab_p = 1.0 / ranks ** 1.07
+    vocab_p /= vocab_p.sum()
+    t0 = time.perf_counter()
+    vecs, (words, offsets), texts, docs = text_corpus(rng, TEXT_ROWS, vocab_p, 0)
+    gen_s = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_"))
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    try:
+        store = tvs.TextVectorStore(path=tmp / "text_index")  # no device: the card
+
+        def feed(vecs, texts, docs, start):
+            for s in range(0, len(texts), 10_000):
+                run(store.store_embeddings([
+                    DocumentChunk(document_id=f"doc{docs[i]}", chunk_number=(start + i) % TEXT_ROWS_PER_DOC,
+                                  content=texts[i], embedding=vecs[i]) for i in range(s, min(s + 10_000, len(texts)))]))
+
+        t0 = time.perf_counter()
+        feed(vecs, texts, docs, 0)
+        build_s = time.perf_counter() - t0
+        ns = store._ns_map["default"]
+        cap = ns.vectors.shape[0]
+        oracle = TextOracle(vecs, words, offsets, docs)
+        # queries: half near a stored row, half random; texts: 3 words of ranks 100-3000
+        qrows = rng.choice(TEXT_ROWS, TEXT_N_QUERIES // 2, replace=False)
+        queries = [vecs[r] + 0.05 * rng.standard_normal(TEXT_DIM, dtype=np.float32) for r in qrows]
+        queries += [rng.standard_normal(TEXT_DIM, dtype=np.float32) for _ in range(TEXT_N_QUERIES - len(qrows))]
+        qterms = [rng.integers(100, 3000, 3) for _ in queries]
+        all_docs = np.unique(docs)
+        filt = np.sort(rng.choice(all_docs, len(all_docs) // 10, replace=False))
+        filt_ids = [f"doc{d}" for d in filt]
+
+        def rows(res):
+            return [(ns._id_to_row[f"{c.document_id}-{c.chunk_number}"], c.score) for c in res]
+
+        def check(label, timed=None, gone=None):
+            oracle.prepare(queries)
+            errs, answers = [], []
+            for qi, (q, terms) in enumerate(zip(queries, qterms)):
+                text = " ".join(f"w{t}" for t in terms)
+                for filtered in (False, True):
+                    for hybrid in (False, True):
+                        t = time.perf_counter()
+                        res = run(store.query_similar(q, k=10, doc_ids=filt_ids if filtered else None,
+                                                      query_text=text if hybrid else None))
+                        ms = (time.perf_counter() - t) * 1e3
+                        if timed is not None:
+                            timed.setdefault((filtered, hybrid), []).append(ms)
+                        want = oracle.answer(qi, 10, filt if filtered else None, list(terms) if hybrid else None)
+                        errs.append(_same_answer(f"{label} q{qi} filter={filtered} hybrid={hybrid}", rows(res), want))
+                        answers.append([(c.document_id, c.chunk_number, c.score) for c in res])
+                near = qi < len(qrows) and docs[qrows[qi]] != gone
+                if near and answers[-4][0][0] != f"doc{docs[qrows[qi]]}":
+                    raise AssertionError(f"{label} q{qi}: the row it was drawn near is not first")
+            return max(errs), answers
+
+        timed = {}
+        err0, _ = check("200k", timed)
+        if ns.full_uploads != 1 or ns.dev_buf is None or ns.dev_buf.device.type != "cuda":
+            raise AssertionError(f"the scan did not run on the card from one upload: {ns.full_uploads}")
+
+        # the scan alone: CUDA events around _masked_topm on the resident buffer
+        q_dev = torch.from_numpy(queries[0] / np.linalg.norm(queries[0])).cuda()
+        m = max(4 * 10, 256)
+
+        def device_us(fn):  # p50 of SCAN_REPEATS calls, each between CUDA events (after one untimed)
+            times = []
+            for _ in range(SCAN_REPEATS + 1):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            return float(np.percentile(times[1:], 50)) * 1e3
+
+        scan_us = device_us(lambda: tvs._masked_topm(ns.dev_buf, q_dev, ns.dev_alive, m))
+        matvec_us = device_us(lambda: ns.dev_buf @ q_dev)  # its first step alone
+        scan = _bound(cap * TEXT_DIM * 4 + cap * 4 + TEXT_DIM * 4 + m * 8, 2 * cap * TEXT_DIM, "f32")
+
+        # an appended tail: only it is uploaded
+        vecs2, words2, texts2, docs2 = text_corpus(rng, TEXT_APPEND, vocab_p, TEXT_ROWS)
+        feed(vecs2, texts2, docs2, TEXT_ROWS)
+        oracle.append(vecs2, words2, docs2)
+        queries[-1] = vecs2[7]
+        err1, _ = check("after the append")
+        if ns.full_uploads != 1 or ns.tail_uploads != 1 or ns.dev_rows != TEXT_ROWS + TEXT_APPEND:
+            raise AssertionError(f"uploads after the append: full {ns.full_uploads}, tail {ns.tail_uploads}")
+
+        # a delete: the document never returns
+        gone = docs[qrows[0]]
+        run(store.delete_chunks_by_document_id(f"doc{gone}"))
+        oracle.delete(gone)
+        err2, answers = check("after the delete", gone=gone)
+        if any(d == f"doc{gone}" for a in answers for d, _, _ in a):
+            raise AssertionError(f"the deleted {gone} came back")
+
+        t0 = time.perf_counter()
+        store.save()
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in (tmp / "text_index").iterdir())
+        t0 = time.perf_counter()
+        store = tvs.TextVectorStore(path=tmp / "text_index")
+        open_s = time.perf_counter() - t0
+        ns = store._ns_map["default"]
+        err3, reopened = check("after the reopen", gone=gone)
+        if [[(d, n) for d, n, _ in a] for a in reopened] != [[(d, n) for d, n, _ in a] for a in answers]:
+            raise AssertionError("the reopened store answers with other ids")
+        reopen_diff = max(abs(x[2] - y[2]) for a, b in zip(reopened, answers) for x, y in zip(a, b))
+        if reopen_diff > 1e-6:
+            raise AssertionError(f"the reopened store's scores moved by {reopen_diff}")
+    finally:
+        loop.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    lat = {f"{'filter' if f else 'all'}{'_hybrid' if h else ''}": v for (f, h), v in timed.items()}
+    out = {
+        "card": smi, "rows": TEXT_ROWS, "dim": TEXT_DIM, "cap": cap, "bytes": n_bytes, "corpus_gen_s": gen_s,
+        "build_s": build_s, "scan_device_us_p50": scan_us, "scan_matvec_us_p50": matvec_us,
+        "scan_bound_us": scan["bound_us"],
+        "scan_bound_by": scan["bound_by"], "scan_share_of_bound": scan["bound_us"] / scan_us,
+        **{f"query_{k}_p50_ms": float(np.percentile(v, 50)) for k, v in lat.items()},
+        **{f"query_{k}_p99_ms": float(np.percentile(v, 99)) for k, v in lat.items()},
+        "max_err_vs_oracle": max(err0, err1, err2, err3), "reopen_max_score_diff": reopen_diff,
+        "appended": TEXT_APPEND, "full_uploads": 1, "tail_uploads": 1, "save_s": save_s, "open_s": open_s,
+        "filter_docs": len(filt), "queries": TEXT_N_QUERIES,
+    }
+    log(f"phase 10: text index on the card: {TEXT_ROWS} rows x {TEXT_DIM} (cap {cap}, {cap * TEXT_DIM * 4} bytes "
+        f"scanned) built in {build_s:.3f} s; scan p50 {scan_us:.1f} us (device, CUDA events; the matvec "
+        f"alone {matvec_us:.1f} us) vs bound "
+        f"{scan['bound_us']:.1f} us ({scan['bound_by']}); query_similar p50 ms "
+        f"{ {k: round(float(np.percentile(v, 50)), 3) for k, v in lat.items()} }; every answer equals the f64 "
+        f"oracle (max score err {out['max_err_vs_oracle']:.2e}) before and after a {TEXT_APPEND}-row append "
+        f"(tail upload only), a delete and a save ({n_bytes} bytes, {save_s:.3f} s) + reopen ({open_s:.3f} s)")
+    return out
+
+
 def main() -> None:
     torch, smi = setup()
     import numpy as np
@@ -1166,7 +1692,7 @@ def main() -> None:
     t_all = time.perf_counter()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
-    main_k1, main_k2, main_k3, all_cases = kernel_checks(torch)
+    main_k1, main_k2, main_k3, rerank_k2, all_cases = kernel_checks(torch)
     model, bf16_embs, bf16_queries, bf16_stats = ingest_bf16(torch, _kernels)
     _kernels.reset_launch_counts()  # the main path starts here
     emb, page_embs, page_fdes, int8_stats = ingest_int8(torch, model, bf16_embs)
@@ -1205,6 +1731,7 @@ def main() -> None:
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
     service = service_path(torch, model, _kernels, smi)
+    text_index = text_index_phase(torch, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
         dict(name=name, route="cuda", source=csrc + src, replaces=replaces, launches=counts[name],
@@ -1213,18 +1740,21 @@ def main() -> None:
              bound_ms=case["bound_us"] / 1e3, bound_by=case["bound_by"], library_ms=case.get("library_ms"),
              device_ms=case["device_ms"], plain_device_ms=case["plain_device_ms"],
              library_device_ms=case.get("library_device_ms"), library_call=case.get("library_call"),
-             shape=case["case"])
+             shape=case["case"], text_launches=service["rerank_launches"][name] + service["colpali_text_launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
             ("window_attention", "window_attention.cu", "morphik_core_tpu/ops/window_attention.py:57", main_k3),
         )
     ]
+    kernels[1]["reranker_case"] = {k: rerank_k2[k] for k in (
+        "case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_us", "bound_by")}
     log(f"total wall s {time.perf_counter() - t_all:.3f}")
     log(json.dumps({"cases": all_cases}))
     print(smi)
     print(json.dumps({"service": service}))
     print(json.dumps({"persistence": persistence}))
+    print(json.dumps({"text_index": text_index}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,19 +1,22 @@
-"""HTTP routes of the port's service plane: the ColPali slice of
-`morphik_core_tpu/api/app.py` (`:76-397` and the document routes) with
-the reference's request and response bodies.
+"""HTTP routes of the port's service plane: the ingest, retrieve and
+document routes of `morphik_core_tpu/api/app.py` (`:76-397`) with the
+reference's request and response bodies.
 
-Routes: `/ping`, `/health`, `/ingest/file`, `/ingest/files`,
-`/documents/{id}` (GET, DELETE), `/documents/{id}/status`,
-`/retrieve/chunks`, `/retrieve/chunks/grouped`, `/batch/chunks` and
-`/query` (JSON, or SSE with `stream_response`). An upload of another
-type than PNG answers 415; an option the port does not serve yet, 501
-(the router maps `NotImplementedError`). `/health` reports the torch
-device in place of the JAX backend.
+Routes: `/ping`, `/health`, `/ingest/text`, `/ingest/file`,
+`/ingest/files`, `/documents/{id}` (GET, DELETE),
+`/documents/{id}/status`, `/retrieve/chunks`, `/retrieve/chunks/grouped`,
+`/batch/chunks` and `/query` (JSON, or SSE with `stream_response`).
+`use_colpali=false` takes the text path: text chunks and the hybrid text
+store, with `use_reranking`. An upload the port cannot ingest yet
+answers 415 (`services/ingestion_service.py::check_upload`); an option
+it does not serve yet, 501 (the router maps `NotImplementedError`).
+`/health` reports the torch device in place of the JAX backend, and the
+text store's rows per namespace (`text_index_rows`, a key of the port).
 
-Not ported yet (ROADMAP Queue 1): `/ingest/text` (item 3a), the
-profiler route (item 3c), the other route groups (item 3d: folders,
-models, apps with their token revocation, chats, logs, migrate, v2,
-connectors, ...), user limits (item 3e).
+Not ported yet (ROADMAP Queue 1): the profiler route (item 3c), the
+other route groups (item 3d: folders, models, apps with their token
+revocation, chats, logs, migrate, v2, connectors, ...), user limits
+(item 3e).
 """
 
 from __future__ import annotations
@@ -37,6 +40,27 @@ logger = logging.getLogger(__name__)
 
 def _backend(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def _colpali_health(store) -> Dict[str, Any]:
+    """The ColPali store's `/health` component: device, rows and device-cache tiers."""
+    colpali: Dict[str, Any] = {"enabled": True, "backend": _backend(store.device)}
+    colpali["index_rows"] = {ns: len(ix) for ns, ix in store._indexes.items()}
+
+    def _tier(pc):
+        total = pc.hits + pc.misses
+        return {"hits": pc.hits, "misses": pc.misses, "hit_rate": round(pc.hits / total, 3) if total else 0.0,
+                "resident": len(pc._row_to_slot), "slots": pc.slots}
+
+    cache_stats: Dict[str, Any] = {}
+    for ns, ix in store._indexes.items():
+        if ix._pool_cache is not None:
+            cache_stats[ns] = _tier(ix._pool_cache)
+        if ix._pooled_cache is not None:
+            cache_stats.setdefault(ns, {})["pooled_tier"] = _tier(ix._pooled_cache)
+    if cache_stats:
+        colpali["device_cache"] = cache_stats
+    return colpali
 
 
 def build_app(services: Services) -> Router:
@@ -76,33 +100,42 @@ def build_app(services: Services) -> Router:
         except Exception as e:  # noqa: BLE001
             components["storage"] = f"error: {e}"
         store = services.colpali_vector_store
-        colpali: Dict[str, Any] = {"enabled": True, "backend": _backend(store.device)}
-        colpali["index_rows"] = {ns: len(ix) for ns, ix in store._indexes.items()}
-
-        def _tier(pc):
-            total = pc.hits + pc.misses
-            return {"hits": pc.hits, "misses": pc.misses, "hit_rate": round(pc.hits / total, 3) if total else 0.0,
-                    "resident": len(pc._row_to_slot), "slots": pc.slots}
-
-        cache_stats: Dict[str, Any] = {}
-        for ns, ix in store._indexes.items():
-            if ix._pool_cache is not None:
-                cache_stats[ns] = _tier(ix._pool_cache)
-            if ix._pooled_cache is not None:
-                cache_stats.setdefault(ns, {})["pooled_tier"] = _tier(ix._pooled_cache)
-        if cache_stats:
-            colpali["device_cache"] = cache_stats
-        components["colpali"] = colpali
+        if store is not None:
+            components["colpali"] = _colpali_health(store)
+        else:
+            components["colpali"] = {"enabled": False}
+        components["text_index_rows"] = {ns: n.n_alive() for ns, n in services.vector_store._ns_map.items()}
         ok = all(v == "ok" for v in components.values() if isinstance(v, str))
         return Response.json({
             "status": "healthy" if ok else "degraded",
             "version": __version__,
             "pending_jobs": services.job_queue.pending_count(),
-            "colpali": True,
+            "colpali": store is not None,
             "components": components,
         })
 
     # ------------------------------------------------------------- ingest
+
+    @router.post("/ingest/text")
+    async def ingest_text(req: Request) -> Response:
+        auth = await auth_of(req)
+        _require_write(auth)
+        body = req.json()
+        if "content" not in body:
+            raise HTTPError(422, "content is required")
+        async with telemetry.track_operation("ingest_text", auth.entity_id):
+            doc = await services.ingestion_service.ingest_text(
+                content=body["content"],
+                filename=body.get("filename"),
+                metadata=body.get("metadata") or {},
+                auth=auth,
+                folder_name=body.get("folder_name"),
+                end_user_id=body.get("end_user_id"),
+                use_colpali=body.get("use_colpali", True),
+                metadata_types=body.get("metadata_types"),
+            )
+        services.persist_indexes()
+        return Response.json(doc.model_dump(mode="json"))
 
     async def _ingest_one_file(auth: AuthContext, upload, fields) -> Dict[str, Any]:
         metadata = json.loads(fields.get("metadata", "{}") or "{}")

@@ -64,9 +64,9 @@ def _python_value(v: Any) -> Any:
 class _Model:
     """`model_dump` for the dataclasses below (pydantic's two modes)."""
 
-    def model_dump(self, mode: str = "python") -> Dict[str, Any]:
+    def model_dump(self, mode: str = "python", exclude=()) -> Dict[str, Any]:
         conv = _json_value if mode == "json" else _python_value
-        return {f.name: conv(getattr(self, f.name)) for f in dataclasses.fields(self)}
+        return {f.name: conv(getattr(self, f.name)) for f in dataclasses.fields(self) if f.name not in exclude}
 
 
 @dataclass
@@ -123,8 +123,8 @@ class Document(_Model):
         if isinstance(self.storage_info, dict):  # `schemas.py:87-92`
             self.storage_info = {k: "" if v is None else str(v) for k, v in self.storage_info.items()}
 
-    def model_dump(self, mode: str = "python") -> Dict[str, Any]:
-        out = super().model_dump(mode)  # the reference's field order: external_id first
+    def model_dump(self, mode: str = "python", exclude=()) -> Dict[str, Any]:
+        out = super().model_dump(mode, exclude)  # the reference's field order: external_id first
         return {"external_id": out.pop("external_id"), **out}
 
     def __hash__(self):

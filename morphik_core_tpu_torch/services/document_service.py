@@ -1,19 +1,21 @@
-"""Query side of the service plane: port of the ColPali branch of
+"""Query side of the service plane: port of
 `morphik_core_tpu/services/document_service.py` (`retrieve_chunks`
 `:85-168`, `_apply_padding`, `retrieve_chunks_grouped`,
 `batch_retrieve_chunks`, `query` `:265-330`, `_create_chunk_results`,
 `_create_document_results`, `delete_document`).
 
 The query embedding and the auth + filter document lookup run
-concurrently, the search runs on the multivector store, ColPali padding
-adds neighbour pages (score 0, is_padding), and results carry base64
-data URIs or download URLs. An image query (`query_image`, a data URI
-or base64 PNG) is decoded by `utils/png.py`.
+concurrently. With ColPali (`use_colpali`, default
+`morphik.enable_colpali`) the search runs on the multivector store,
+ColPali padding adds neighbour pages (score 0, is_padding), and results
+carry base64 data URIs or download URLs; an image query (`query_image`,
+a data URI or base64 PNG) is decoded by `utils/png.py`. Without it, the
+hybrid text store answers (`query_text` for BM25), and `use_reranking`
+oversamples max(k, min(3k, 20)) chunks for the reranker, then keeps k.
+As in the reference, the reranker runs only off the ColPali path.
 
-Not ported yet (ROADMAP Queue 1): `use_colpali=False` and the text index
-(item 3a), `output_format="text"` (item 3g: the vision completion that
-transcribes a page), the reranker (item 3f; `use_reranking` is ignored
-on the ColPali path, as in the reference).
+Not ported yet (ROADMAP Queue 1 item 3g): `output_format="text"`, the
+vision completion that transcribes a page.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 from morphik_core_tpu_torch.completion.models import BaseCompletionModel
 from morphik_core_tpu_torch.config import Settings
 from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
+from morphik_core_tpu_torch.embedding.base_embedding_model import BaseEmbeddingModel
 from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
 from morphik_core_tpu_torch.models.schemas import (
     AuthContext,
@@ -37,10 +40,12 @@ from morphik_core_tpu_torch.models.schemas import (
     DocumentResult,
     GroupedChunkResponse,
 )
+from morphik_core_tpu_torch.reranker.rerankers import BaseReranker
 from morphik_core_tpu_torch.services.telemetry import PerformanceTracker
 from morphik_core_tpu_torch.storage.base_storage import BaseStorage
 from morphik_core_tpu_torch.utils.fast_ops import data_uri_to_bytes
 from morphik_core_tpu_torch.utils.png import decode_png
+from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import (
     MULTIVECTOR_CHUNKS_BUCKET,
     TorchMultiVectorStore,
@@ -58,11 +63,7 @@ def _page_number(c) -> "int | None":
     return page + 1 if isinstance(page, int) else c.chunk_number + 1
 
 
-def _check_ported(use_colpali: Optional[bool], output_format: str = "base64") -> None:
-    if use_colpali is False:
-        raise NotImplementedError(
-            "use_colpali=false needs the text index, which is not ported (ROADMAP Queue 1 item 3a)"
-        )
+def _check_ported(output_format: str = "base64") -> None:
     if output_format == "text":
         raise NotImplementedError(
             'output_format="text" needs the vision completion, which is not ported (ROADMAP Queue 1 item 3g)'
@@ -74,10 +75,14 @@ class DocumentService:
         self,
         database: SQLiteDatabase,
         storage: BaseStorage,
-        colpali_embedding_model: ColpaliEmbeddingModel,
-        colpali_vector_store: TorchMultiVectorStore,
+        colpali_embedding_model: Optional[ColpaliEmbeddingModel],
+        colpali_vector_store: Optional[TorchMultiVectorStore],
         completion_model: Optional[BaseCompletionModel],
         settings: Settings,
+        *,
+        embedding_model: Optional[BaseEmbeddingModel] = None,
+        vector_store: Optional[TextVectorStore] = None,
+        reranker: Optional[BaseReranker] = None,
     ):
         self.db = database
         self.storage = storage
@@ -85,6 +90,9 @@ class DocumentService:
         self.colpali_vector_store = colpali_vector_store
         self.completion_model = completion_model
         self.settings = settings
+        self.embedding_model = embedding_model
+        self.vector_store = vector_store
+        self.reranker = reranker
 
     # -------------------------------------------------------------- retrieve
 
@@ -105,8 +113,12 @@ class DocumentService:
         query_image: Optional[str] = None,
         perf: Optional[PerformanceTracker] = None,
     ) -> List[ChunkResult]:
-        _check_ported(use_colpali, output_format)
+        _check_ported(output_format)
         perf = perf or PerformanceTracker("retrieve_chunks")
+        using_colpali = bool(
+            use_colpali if use_colpali is not None else self.settings.morphik.enable_colpali
+        ) and self.colpali_vector_store is not None and self.colpali_embedding_model is not None
+        should_rerank = bool(use_reranking) and self.reranker is not None and not using_colpali
         system_filters: Dict[str, Any] = {}
         if folder_name is not None:
             system_filters["folder_name"] = folder_name
@@ -116,15 +128,16 @@ class DocumentService:
             system_filters["end_user_id"] = end_user_id
 
         perf.start_phase("embed_and_auth")
-        if query_image is not None:
+        embed_model = self.colpali_embedding_model if using_colpali else self.embedding_model
+        if query_image is not None and using_colpali:
             raw = data_uri_to_bytes(query_image)
             # the reference caps image queries at 10 MB
             if len(raw) > 10 * 1024 * 1024:
                 raise ValueError("query_image exceeds the 10 MB limit")
             page = await asyncio.to_thread(decode_png, raw)
-            embed_task = self.colpali_embedding_model.embed_for_query(page)
+            embed_task = embed_model.embed_for_query(page)
         else:
-            embed_task = self.colpali_embedding_model.embed_for_query(query)
+            embed_task = embed_model.embed_for_query(query)
         q_embedding, doc_ids = await asyncio.gather(
             embed_task,
             self.db.find_authorized_and_filtered_documents(auth, filters, system_filters),
@@ -133,12 +146,22 @@ class DocumentService:
             return []
 
         perf.start_phase("vector_search")
-        chunks = await self.colpali_vector_store.query_similar(
-            q_embedding, k=k, doc_ids=doc_ids, app_id=auth.app_id,
-            skip_image_content=(output_format == "url"),
-        )
+        if using_colpali:
+            chunks = await self.colpali_vector_store.query_similar(
+                q_embedding, k=k, doc_ids=doc_ids, app_id=auth.app_id,
+                skip_image_content=(output_format == "url"),
+            )
+        else:
+            # oversample for the reranker, never below k: it reorders, it must not shrink
+            search_k = max(k, min(3 * k, 20)) if should_rerank else k
+            chunks = await self.vector_store.query_similar(
+                q_embedding, k=search_k, doc_ids=doc_ids, app_id=auth.app_id, query_text=query,
+            )
+        if should_rerank and chunks:
+            perf.start_phase("rerank")
+            chunks = (await self.reranker.rerank(query, chunks))[:k]
         chunks = [c for c in chunks if c.score >= min_score]
-        if padding > 0 and chunks:
+        if using_colpali and padding > 0 and chunks:
             perf.start_phase("padding")
             chunks = await self._apply_padding(chunks, padding, auth, skip_image_content=(output_format == "url"))
 
@@ -201,16 +224,12 @@ class DocumentService:
         use_colpali: Optional[bool] = None,
         output_format: str = "base64",
     ) -> List[ChunkResult]:
-        """The reference reads the text store unless `use_colpali` is true."""
-        if not use_colpali:
-            raise NotImplementedError(
-                "batch chunks from the text index are not ported (ROADMAP Queue 1 item 3a); "
-                "pass use_colpali=true"
-            )
-        _check_ported(use_colpali, output_format)
+        """From the text store unless `use_colpali` is true (and ColPali is served)."""
+        _check_ported(output_format)
         allowed = set(await self.db.find_authorized_and_filtered_documents(auth, None, {"status": None}))
         wanted = [(d, n) for d, n in chunk_ids if d in allowed]
-        chunks = await self.colpali_vector_store.get_chunks_by_id(wanted, app_id=auth.app_id)
+        store = self.colpali_vector_store if use_colpali and self.colpali_vector_store is not None else self.vector_store
+        chunks = await store.get_chunks_by_id(wanted, app_id=auth.app_id)
         return await self._create_chunk_results(auth, chunks, output_format)
 
     # ---------------------------------------------------------------- query
@@ -346,7 +365,9 @@ class DocumentService:
         doc = await self.db.get_document(document_id, auth)
         if doc is None:
             return False
-        await self.colpali_vector_store.delete_chunks_by_document_id(document_id, auth.app_id)
+        if self.colpali_vector_store is not None:
+            await self.colpali_vector_store.delete_chunks_by_document_id(document_id, auth.app_id)
+        await self.vector_store.delete_chunks_by_document_id(document_id, auth.app_id)
         key = doc.storage_info.get("key")
         if key:
             try:

@@ -1,9 +1,12 @@
-"""Service container of the port: builds the ColPali serving stack from
+"""Service container of the port: builds the serving stack from
 `Settings`. Port of `morphik_core_tpu/services_init.py:62-330` for what
-the port serves: the sqlite database, local storage, the ColPali
-embedder and its multivector store on one device (persisted under
-`vector_store.index_path`), the stub completion model, telemetry with
-its log uploader, and the job queue.
+the port serves: the sqlite database, local storage, the parser, the
+hashing text embedder and the hybrid text store (`{storage_path}/text_index`),
+with `morphik.enable_colpali` the ColPali embedder and its multivector
+store (persisted under `vector_store.index_path`), the reranker (the
+ColQwen reranker beside the ColPali embedder, else the lexical one), the
+stub completion model, telemetry with its log uploader, and the job
+queue, all on one device.
 
 Settings that select a part the port does not have yet raise
 `NotImplementedError` naming the ROADMAP item, rather than serve another
@@ -26,13 +29,17 @@ from morphik_core_tpu_torch.config import Settings, get_settings
 from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
 from morphik_core_tpu_torch.device import default_device
 from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
-from morphik_core_tpu_torch.models.schemas import AuthContext
+from morphik_core_tpu_torch.embedding.text_embedding import HashingEmbeddingModel
+from morphik_core_tpu_torch.models.schemas import AuthContext, CompletionRequest
 from morphik_core_tpu_torch.ops.fde import FDEConfig
+from morphik_core_tpu_torch.parser.morphik_parser import MorphikParser
+from morphik_core_tpu_torch.reranker.rerankers import ColQwenReranker, build_reranker
 from morphik_core_tpu_torch.services.document_service import DocumentService
 from morphik_core_tpu_torch.services.ingestion_service import IngestionService
 from morphik_core_tpu_torch.services.log_uploader import Heartbeat, LogUploader
 from morphik_core_tpu_torch.services.telemetry import TelemetryService
 from morphik_core_tpu_torch.storage.local_storage import LocalStorage
+from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
 from morphik_core_tpu_torch.workers.job_queue import JobQueue
 
@@ -46,13 +53,17 @@ def _refuse_unported(settings: Settings) -> None:
          "checkpoint needs convert.py (ROADMAP Queue 1 item 5); pass colqwen_model"),
         (settings.model.attention_precision == "int8",
          'model.attention_precision="int8" (ROADMAP Queue 1 item 4)'),
-        (not settings.morphik.enable_colpali or settings.morphik.colpali_mode == "off",
-         "serving without ColPali needs the text index (ROADMAP Queue 1 item 3a)"),
         (settings.morphik.colpali_mode == "api",
          'morphik.colpali_mode="api" (remote embedding servers, ROADMAP Queue 1 item 3h)'),
         (settings.storage.provider == "aws-s3", 'storage.provider="aws-s3" (ROADMAP Queue 1 item 3h)'),
         (settings.tpu.auto_mesh, "tpu.auto_mesh=true (the multi-GPU paths, ROADMAP Queue 1 item 6)"),
         (settings.morphik.mode == "cloud", 'morphik.mode="cloud" (tier limits, ROADMAP Queue 1 item 3e)'),
+        (settings.embedding.model in settings.registered_models,
+         f"embedding.model={settings.embedding.model!r} of registered_models: the embedding endpoints "
+         "(ROADMAP Queue 1 item 3g)"),
+        (settings.parser.ocr_mode != "none",
+         f"parser.ocr_mode={settings.parser.ocr_mode!r}: OCR rasterizes pages (ROADMAP Queue 1 item 3b)"),
+        (settings.parser.parser_mode == "api", 'parser.parser_mode="api" (parse endpoints, ROADMAP Queue 1 item 3h)'),
     )
     for refused, what in refusals:
         if refused:
@@ -64,8 +75,10 @@ class Services:
     settings: Settings
     database: SQLiteDatabase
     storage: LocalStorage
-    colpali_embedding_model: ColpaliEmbeddingModel
-    colpali_vector_store: TorchMultiVectorStore
+    embedding_model: HashingEmbeddingModel
+    vector_store: TextVectorStore
+    colpali_embedding_model: Optional[ColpaliEmbeddingModel]
+    colpali_vector_store: Optional[TorchMultiVectorStore]
     completion_model: BaseCompletionModel
     document_service: DocumentService
     ingestion_service: IngestionService
@@ -76,10 +89,12 @@ class Services:
 
     async def initialize(self) -> None:
         await self.database.initialize()
-        await self.colpali_vector_store.initialize()
+        await self.vector_store.initialize()
+        if self.colpali_vector_store is not None:
+            await self.colpali_vector_store.initialize()
         self.job_queue.register("process_ingestion_job", self._process_ingestion_job)
         await self.job_queue.start()
-        if self.settings.tpu.warmup_on_start:
+        if self.settings.tpu.warmup_on_start and self.colpali_embedding_model is not None:
             await asyncio.to_thread(self.colpali_embedding_model.warmup)
         # background telemetry threads, as the reference starts them: each
         # uploader pass trims the telemetry directory to its budget; no
@@ -95,13 +110,15 @@ class Services:
 
     async def shutdown(self) -> None:
         """Drain the job queue, stop the telemetry threads, then write
-        every index's pending rows (the restart reloads them)."""
+        every index (the restart reloads them)."""
         await self.job_queue.stop()
         for thread in (self.log_uploader, self.heartbeat):
             if thread is not None:
                 thread.stop()
                 thread.join(timeout=30)
-        self.colpali_vector_store.save()
+        if self.colpali_vector_store is not None:
+            self.colpali_vector_store.save()
+        self.vector_store.save()
         self.telemetry.flush()
 
     async def _process_ingestion_job(self, document_id: str, auth: dict, use_colpali: bool = True):
@@ -110,33 +127,22 @@ class Services:
         self.persist_indexes()
 
     def persist_indexes(self) -> None:
-        """Append each index's rows since its last save to its files, as
-        the reference does after each ingest job, so the rows survive an
-        unclean shutdown. A DELETE is written with the next save."""
+        """Write each index, as the reference does after each ingest, so
+        the rows survive an unclean shutdown: the ColPali index appends
+        its rows since the last save (a DELETE is written with the next
+        save); the text store rewrites its files."""
         try:
-            self.colpali_vector_store.save()
+            if self.colpali_vector_store is not None:
+                self.colpali_vector_store.save()
+            self.vector_store.save()
         except Exception:  # noqa: BLE001
             logger.exception("index persistence failed")
 
 
-def build_services(
-    settings: Optional[Settings] = None,
-    *,
-    colqwen_model=None,
-    device=None,
-) -> Services:
-    """The stack `settings` describe, on `device` (the card by default).
-    `colqwen_model` is served as given (its precision must be the
-    configured one); without it, development mode serves the tiny random
-    model."""
-    settings = settings or get_settings()
-    _refuse_unported(settings)
-    device = torch.device(device) if device is not None else default_device()
-    storage_root = Path(settings.storage.storage_path)
-    database = SQLiteDatabase(settings.database.path)
-    storage = LocalStorage(settings.storage.storage_path)
-    completion_model = build_completion_model(settings.completion.model)
-    embedder = ColpaliEmbeddingModel.from_settings(settings, colqwen_model, device=device)
+def _colpali_store(settings: Settings, storage: LocalStorage, embedder: ColpaliEmbeddingModel,
+                   device: torch.device) -> TorchMultiVectorStore:
+    """The multivector store of `vector_store` settings; sets the
+    embedder's fused ingest FDE when stored rows are not pooled."""
     vs = settings.vector_store
     fde_cfg = FDEConfig(
         dimension=embedder.embedding_dim,
@@ -150,7 +156,7 @@ def build_services(
     # multivectors are not pooled (pooling rewrites the rows it describes)
     if vs.multivector_pooling <= 1:
         embedder.fde_config = fde_cfg
-    store = TorchMultiVectorStore(
+    return TorchMultiVectorStore(
         storage=storage,
         fde_config=fde_cfg,
         index_path=vs.index_path,
@@ -173,9 +179,45 @@ def build_services(
         pooled_refine_iters=vs.pooled_refine_iters,
         query_token_dedup=vs.query_token_dedup,
     )
+
+
+def build_services(
+    settings: Optional[Settings] = None,
+    *,
+    colqwen_model=None,
+    device=None,
+) -> Services:
+    """The stack `settings` describe, on `device` (the card by default).
+    `colqwen_model` is served as given (its precision must be the
+    configured one); without it, development mode serves the tiny random
+    model."""
+    settings = settings or get_settings()
+    _refuse_unported(settings)
+    device = torch.device(device) if device is not None else default_device()
+    storage_root = Path(settings.storage.storage_path)
+    database = SQLiteDatabase(settings.database.path)
+    storage = LocalStorage(settings.storage.storage_path)
+    completion_model = build_completion_model(settings.completion.model)
+
+    async def complete_text(prompt: str) -> str:  # contextual chunking
+        return str((await completion_model.complete(CompletionRequest(query=prompt))).completion)
+
+    parser = MorphikParser(settings, complete_fn=complete_text)
+    embedding_model = HashingEmbeddingModel(dim=settings.embedding.dimensions)
+    embedder = store = None
+    if settings.morphik.enable_colpali and settings.morphik.colpali_mode != "off":
+        embedder = ColpaliEmbeddingModel.from_settings(settings, colqwen_model, device=device)
+        store = _colpali_store(settings, storage, embedder, device)
+    vector_store = TextVectorStore(path=storage_root / "text_index", device=device)
+    # the text path's reranker: the ColQwen late-interaction scorer on the
+    # tower already in process, else the lexical one
+    reranker = (ColQwenReranker(embedder, use_kernel=settings.tpu.use_pallas) if embedder is not None
+                else build_reranker(None))
     telemetry = TelemetryService(settings.telemetry.telemetry_dir, settings.telemetry.enabled)
-    ingestion_service = IngestionService(database, storage, embedder, store, settings)
-    document_service = DocumentService(database, storage, embedder, store, completion_model, settings)
+    ingestion_service = IngestionService(database, storage, parser, embedding_model, vector_store, embedder, store,
+                                         settings)
+    document_service = DocumentService(database, storage, embedder, store, completion_model, settings,
+                                       embedding_model=embedding_model, vector_store=vector_store, reranker=reranker)
     job_queue = JobQueue(
         path=storage_root / "jobs.db",
         max_jobs=settings.worker.max_jobs,
@@ -185,6 +227,8 @@ def build_services(
         settings=settings,
         database=database,
         storage=storage,
+        embedding_model=embedding_model,
+        vector_store=vector_store,
         colpali_embedding_model=embedder,
         colpali_vector_store=store,
         completion_model=completion_model,

@@ -1,10 +1,15 @@
-"""Data-URI helpers: port of `morphik_core_tpu/utils/fast_ops.py:56-90`
-on the stdlib codec (the reference's native base64 gives the same
-bytes; its build is not part of the port)."""
+"""Host-side text helpers: port of `morphik_core_tpu/utils/fast_ops.py`
+(`:56-102`) in pure Python.
+
+The data-URI helpers run on the stdlib codec and `clean_control_chars`
+on the reference's regex path (`:92-99`): its native library gives the
+same bytes on both, and the port does not load it.
+"""
 
 from __future__ import annotations
 
 import base64 as _b64
+import re
 
 
 def encode_base64(data: bytes) -> str:
@@ -27,3 +32,11 @@ def data_uri_to_bytes(uri: str) -> bytes:
         _, _, payload = uri.partition(",")
         return decode_base64(payload)
     return decode_base64(uri)
+
+
+_CTRL_RE = re.compile(r"[\x00-\x08\x0b\x0c\x0e-\x1f\x7f]")
+
+
+def clean_control_chars(text: str) -> str:
+    """Drop C0 control characters but tab, newline and carriage return, and DEL."""
+    return _CTRL_RE.sub("", text)

@@ -573,3 +573,153 @@ def test_service_restart_on_card_keeps_rows(sm90, tmp_path):
         on_loop(services.shutdown())
         loop.call_soon_threadsafe(loop.stop)
         thread.join(timeout=30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_text_store_device_scan_on_card_equals_host(sm90, monkeypatch, hybrid):
+    """The text store's device scan (a buffer of `cap` rows on the card,
+    `buf @ q`, `masked_fill`, `torch.topk`) answers as its host path:
+    the same ids, scores within 1e-5, with and without a `doc_ids`
+    filter, after an appended tail (uploaded alone) and a delete."""
+    import asyncio
+
+    from morphik_core_tpu_torch.models.schemas import DocumentChunk
+    from morphik_core_tpu_torch.vector_store import text_vector_store as tvs
+
+    rng = np.random.default_rng(17)
+    words = [f"w{i}" for i in range(300)]
+    store = tvs.TextVectorStore(hybrid_lexical=hybrid)  # no device: the card
+    assert store.device.type == "cuda"
+
+    def add(n, doc):
+        vecs = rng.standard_normal((n, 96)).astype(np.float32)
+        chunks = [DocumentChunk(document_id=f"{doc}{i // 5}", chunk_number=i % 5, embedding=v,
+                                content=" ".join(rng.choice(words, int(rng.integers(5, 30)))))
+                  for i, v in enumerate(vecs)]
+        asyncio.run(store.store_embeddings(chunks))
+        return vecs
+
+    def both(q, **kw):
+        monkeypatch.setattr(tvs, "DEVICE_SCAN_MIN_ROWS", 10**9)
+        host = asyncio.run(store.query_similar(q, **kw))
+        monkeypatch.setattr(tvs, "DEVICE_SCAN_MIN_ROWS", 1)
+        dev = asyncio.run(store.query_similar(q, **kw))
+        assert [(c.document_id, c.chunk_number) for c in dev] == [(c.document_id, c.chunk_number) for c in host]
+        np.testing.assert_allclose([c.score for c in dev], [c.score for c in host], rtol=0, atol=1e-5)
+        return dev
+
+    vecs = add(3000, "d")
+    ns = store._ns_map["default"]
+    for step in range(3):
+        for i in (3, 1200, 2999):
+            text = " ".join(rng.choice(words, 3))
+            for doc_ids in (None, [f"d{j}" for j in range(0, 600, 7)] + ["t3"]):
+                res = both(vecs[i], k=10, doc_ids=doc_ids, query_text=text)
+                assert len(res) == 10
+        if step == 0:
+            add(500, "t")  # a tail inside the same capacity
+        elif step == 1:
+            asyncio.run(store.delete_chunks_by_document_id("d240"))
+            assert all(c.document_id != "d240" for c in both(vecs[1200], k=10))
+    assert ns.full_uploads == 1 and ns.tail_uploads == 1 and ns.dev_buf.device.type == "cuda"
+
+
+def _tiny_card_embedder():
+    from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
+    from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+
+    return ColpaliEmbeddingModel(ColQwenModel.init_random(ColQwenConfig.tiny(), seed=0, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_colqwen_reranker_launches_k2_on_card(sm90):
+    """The reranker scores through K2 on the card; with `use_kernel=False`
+    (`tpu.use_pallas=false`) it launches nothing and gives the same order
+    (scores within K2's tolerance)."""
+    import asyncio
+
+    from morphik_core_tpu_torch.reranker.rerankers import ColQwenReranker
+
+    emb = _tiny_card_embedder()
+    texts = ["quarterly revenue grew in EMEA", "the signature page", "table of contents",
+             "revenue " * 200, "a much longer chunk about margins and supplier invoices. " * 30]
+    scores = {}
+    for use_kernel in (True, False):
+        _kernels.reset_launch_counts()
+        scores[use_kernel] = asyncio.run(ColQwenReranker(emb, use_kernel=use_kernel).compute_score("revenue", texts))
+        launches = dict(_kernels.launch_counts)
+        assert launches["maxsim"] == (1 if use_kernel else 0) and launches["maxsim_q8"] == 0, launches
+    np.testing.assert_allclose(scores[True], scores[False], rtol=1e-4, atol=1e-3)
+    assert np.argsort(-np.asarray(scores[True])).tolist() == np.argsort(-np.asarray(scores[False])).tolist()
+
+
+@pytest.mark.cuda
+def test_http_text_round_trip_on_card(sm90, tmp_path):
+    """The text path over HTTP on the card: `/ingest/text` with both
+    `use_colpali`, a `use_colpali=false` retrieve with the ColQwen
+    reranker (K2), a `use_colpali=true` retrieve of the text chunks in the
+    ColPali store (K1), and a restart that keeps the text rows."""
+    import asyncio
+    import json
+    import threading
+    import urllib.request
+
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.services_init import build_services
+
+    raw = {
+        "storage": {"storage_path": str(tmp_path / "storage")}, "database": {"path": str(tmp_path / "db.sqlite")},
+        "vector_store": {"index_path": str(tmp_path / "index")},
+        "telemetry": {"telemetry_dir": str(tmp_path / "logs" / "telemetry")},
+        "model": {"static_act_scales": True}, "parser": {"chunk_size": 500, "chunk_overlap": 50},
+    }
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
+
+    def boot():
+        services = build_services(Settings.from_dict(raw))  # no device: the card
+        on_loop(services.initialize())
+        server = HTTPServer(build_app(services), "127.0.0.1", 0)
+        on_loop(server.start())
+        return services, server
+
+    def call(server, path, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}{path}", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    rng = np.random.default_rng(3)
+    words = "revenue growth margin contract signature audit supplier invoice renewal clause".split()
+    services, server = boot()
+    try:
+        docs = [call(server, "/ingest/text", {"content": " ".join(rng.choice(words, 300)), "metadata": {"i": i},
+                                              "use_colpali": i == 0})["external_id"] for i in range(2)]
+        plain = {"query": "supplier invoice", "k": 3, "use_colpali": False}
+        before = call(server, "/retrieve/chunks", plain)
+        assert len(before) == 3 and {h["document_id"] for h in before} <= set(docs)
+        _kernels.reset_launch_counts()
+        reranked = call(server, "/retrieve/chunks", dict(plain, use_reranking=True))
+        assert len(reranked) == 3 and _kernels.launch_counts["maxsim"] == 1, dict(_kernels.launch_counts)
+        _kernels.reset_launch_counts()
+        colpali = call(server, "/retrieve/chunks", {"query": "supplier invoice", "k": 2, "filters": {"i": 0}})
+        assert [h["document_id"] for h in colpali] == [docs[0]] * 2 and _kernels.launch_counts["maxsim_q8"] > 0
+    finally:
+        on_loop(server.stop())
+        on_loop(services.shutdown())
+    services, server = boot()
+    try:
+        assert call(server, "/retrieve/chunks", plain) == before
+    finally:
+        on_loop(server.stop())
+        on_loop(services.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)

@@ -98,6 +98,15 @@ _GUARD = textwrap.dedent(
     assert [h["document_id"] for h in hits] == [doc["external_id"]], hits
     answer = call("/query", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
     assert answer["completion"] and answer["sources"][0]["document_id"] == doc["external_id"], answer
+    # the text path: /ingest/text, then use_colpali=false retrieves, plain and reranked by the ColQwen tower
+    tdoc = call("/ingest/text", json.dumps({"content": "supplier invoice renewal clause. " * 40,
+                                            "use_colpali": False}).encode())
+    assert tdoc["system_metadata"]["status"] == "completed", tdoc
+    text_hits = {}
+    for rerank in (False, True):
+        text_hits[rerank] = call("/retrieve/chunks", json.dumps({"query": "supplier invoice", "k": 1, "use_colpali": False,
+                                                                 "use_reranking": rerank}).encode())
+        assert [h["document_id"] for h in text_hits[rerank]] == [tdoc["external_id"]], text_hits
     on_loop(server.stop())
     on_loop(services.shutdown())  # saves the index
     # a restart on the same directories keeps the row
@@ -105,6 +114,9 @@ _GUARD = textwrap.dedent(
     again = call("/retrieve/chunks", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
     assert [(h["document_id"], h["score"]) for h in again] == [(h["document_id"], h["score"]) for h in hits], again
     assert call("/health")["components"]["colpali"]["index_rows"] == {"default": 1}
+    assert call("/health")["components"]["text_index_rows"] == {"default": 1}
+    again = call("/retrieve/chunks", json.dumps({"query": "supplier invoice", "k": 1, "use_colpali": False}).encode())
+    assert again == text_hits[False], again
     on_loop(server.stop())
     on_loop(services.shutdown())
     loop.call_soon_threadsafe(loop.stop)

@@ -16,6 +16,13 @@
   equal wherever the score gap exceeds that, as tests/test_torch_slice.py).
 - Refusals: other upload types answer 415, unported options 501, and
   unported settings and a missing card raise at `build_services`.
+- The text path: the port server and the JAX server given the same
+  `/ingest/text` documents (the same ids) answer `use_colpali=false`
+  retrieves with the same ids and scores (with `use_reranking`: the same
+  order, scores within 5e-3), `/batch/chunks` and `/query` alike, and save
+  byte-identical `text_index` files that each package opens; a CPU round
+  trip with markdown, HTML and PDF uploads, a DELETE from both stores and
+  a restart; a text-only server.
 """
 
 import asyncio
@@ -26,6 +33,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import zipfile
 import zlib
 from datetime import UTC, datetime
 from pathlib import Path
@@ -64,6 +72,8 @@ from morphik_core_tpu_torch.models.colqwen.preprocess import (
     to_luma_u8,
 )
 from morphik_core_tpu_torch.ops.fde import FDEConfig as TFDE
+from morphik_core_tpu_torch.parser.text_splitter import RecursiveCharacterTextSplitter as RecursiveCharacterTextSplitterT
+from morphik_core_tpu_torch.reranker.rerankers import ColQwenReranker, OverlapReranker as OverlapRerankerT
 from morphik_core_tpu_torch.services.document_service import DocumentService
 from morphik_core_tpu_torch.services_init import build_services
 from morphik_core_tpu_torch.storage.local_storage import LocalStorage
@@ -623,6 +633,7 @@ def test_http_matches_jax_server(servers, method, path, body):
         assert tj["components"]["colpali"]["backend"] == "cpu" and jj["components"]["colpali"]["backend"] == "cpu"
         tj["components"]["colpali"].pop("device_cache", None)
         jj["components"]["colpali"].pop("device_cache", None)
+        assert tj["components"].pop("text_index_rows") == {}  # a key of the port: no text ingested here
     assert _keys(tj) == _keys(jj)
 
 
@@ -717,6 +728,10 @@ def test_http_topk_matches_jax_library(servers):
 
 @pytest.mark.parametrize("kind", ["jpeg", "pdf", "text"])
 def test_http_refuses_other_content_types(servers, kind):
+    """JPEG answers 415 with either `use_colpali`; a PDF, and a text-bearing
+    Office file (DOCX), answer 415 with `use_colpali=true`, as their pages
+    need the rasterizer (item 3b); with `use_colpali=false` the port
+    ingests their text (tests of the text path below)."""
     if kind == "jpeg":
         buf = io.BytesIO()
         Image.fromarray(servers["pages"][0]).save(buf, format="JPEG")
@@ -724,9 +739,12 @@ def test_http_refuses_other_content_types(servers, kind):
     elif kind == "pdf":
         data, name, ctype = b"%PDF-1.4\n1 0 obj<<>>endobj\ntrailer<<>>\n%%EOF\n", "p.pdf", "application/pdf"
     else:
-        data, name, ctype = b"plain words\r\n", "a.txt", "text/plain"
+        data, name, ctype = _docx("plain words"), "a.docx", "application/octet-stream"
     status, body = _upload(servers["base"]["torch"], name, data, ctype)
     assert status == 415 and "ROADMAP Queue 1 item 3b" in body["detail"]
+    if kind == "jpeg":
+        status, body = _upload(servers["base"]["torch"], name, data, ctype, fields={"use_colpali": "false"})
+        assert status == 415 and "ROADMAP Queue 1 item 3b" in body["detail"]
 
 
 def test_http_undecodable_query_image_answers_400(servers):
@@ -736,7 +754,7 @@ def test_http_undecodable_query_image_answers_400(servers):
 
 
 @pytest.mark.parametrize("body", [
-    {"query": "x", "use_colpali": False}, {"query": "x", "output_format": "text"},
+    {"query": "x", "use_colpali": False, "output_format": "text"}, {"query": "x", "output_format": "text"},
 ])
 def test_http_unported_options_answer_501(servers, body):
     status, out = _call(servers["base"]["torch"], "POST", "/retrieve/chunks", body)
@@ -771,10 +789,14 @@ def test_multipart_keeps_binary_crlf():
     ("tpu", "auto_mesh", True, "item 6"),
     ("morphik", "mode", "cloud", "item 3e"),
     ("completion", "model", "openai_gpt4", "item 3g"),
+    ("embedding", "model", "openai_gpt4", "item 3g"),
+    ("parser", "ocr_mode", "api", "item 3b"),
+    ("parser", "parser_mode", "api", "item 3h"),
 ])
 def test_build_services_refuses_unported_settings(tmp_path, section, key, value, item):
     raw = _raw_settings(tmp_path, "x")
     raw.setdefault(section, {})[key] = value
+    raw["registered_models"] = {"openai_gpt4": {"model_name": "gpt-4"}}
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         build_services(Settings.from_dict(raw), device="cpu")
 
@@ -1003,3 +1025,288 @@ def test_server_entry_point_refuses_to_start_without_a_card(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "morphik_core_tpu_torch.api.server", str(toml)], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and 'no CUDA device found; pass device="cpu"' in proc.stderr, proc.stderr
+
+
+# ------------------------------------------------------------ text path
+
+
+def _docx(text: str) -> bytes:
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as z:
+        z.writestr("word/document.xml", '<w:document xmlns:w="http://schemas.openxmlformats.org/wordprocessingml/'
+                   f'2006/main"><w:body><w:p><w:r><w:t>{text}</w:t></w:r></w:p></w:body></w:document>')
+    return buf.getvalue()
+
+
+def _text_pdf(pages):
+    """A born-digital PDF, one FlateDecode content stream per page."""
+    objs = [b"1 0 obj<</Type/Catalog/Pages 2 0 R>>endobj\n",
+            f"2 0 obj<</Type/Pages/Kids[{' '.join(f'{3 + 2 * i} 0 R' for i in range(len(pages)))}]"
+            f"/Count {len(pages)}>>endobj\n".encode()]
+    for i, text in enumerate(pages):
+        objs.append(f"{3 + 2 * i} 0 obj<</Type/Page/Parent 2 0 R/Contents {4 + 2 * i} 0 R>>endobj\n".encode())
+        comp = zlib.compress(b"BT /F1 12 Tf 72 720 Td (" + text.encode("latin-1") + b") Tj ET")
+        objs.append(f"{4 + 2 * i} 0 obj<</Length {len(comp)}/Filter/FlateDecode>>stream\n".encode() + comp
+                    + b"\nendstream endobj\n")
+    return b"%PDF-1.4\n" + b"".join(objs) + b"trailer<</Root 1 0 R>>\n%%EOF"
+
+
+_WORDS = ("revenue growth margin contract signature audit region quarterly table figure latency budget risk "
+          "supplier invoice policy renewal clause schedule").split()
+
+
+def _prose(rng, n_words):
+    return " ".join(rng.choice(_WORDS) + ("." if rng.random() < 0.1 else "") for _ in range(n_words))
+
+
+def _text_settings(root: Path, name: str) -> dict:
+    raw = _raw_settings(root, name)
+    raw["parser"] = {"chunk_size": 400, "chunk_overlap": 40}
+    return raw
+
+
+class _SeqIds:
+    """Deterministic `uuid.uuid4`, so that two servers give their documents the same ids."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self):
+        import uuid
+
+        self.n += 1
+        return uuid.UUID(int=self.n)
+
+
+TEXT_DOCS = [(0, False), (1, True), (2, False)]  # (i, use_colpali)
+TEXT_QUERIES = ["quarterly revenue growth", "contract signature clause", "supplier invoice"]
+
+
+@pytest.fixture(scope="module")
+def text_servers(tmp_path_factory):
+    """The port server and the JAX server (fixture model, 400-character
+    chunks), each given the same three `/ingest/text` documents under the
+    same document ids, one of them with `use_colpali=true`."""
+    import uuid
+
+    root = tmp_path_factory.mktemp("text")
+    rng = np.random.default_rng(31)
+    contents = [_prose(rng, 180) for _ in TEXT_DOCS]
+    lt = _LoopThread()
+    t_services = build_services(Settings.from_dict(_text_settings(root, "torch")),
+                                colqwen_model=TModel.from_fixture(FIXTURE, device="cpu"), device="cpu")
+    j_services = j_build_services(JSettings.model_validate(_text_settings(root, "jax")),
+                                  colqwen_model=JModel.from_fixture(FIXTURE))
+    out = {"root": root, "lt": lt, "contents": contents, "base": {}, "docs": {}, "services": {}}
+    srvs = []
+    mp = pytest.MonkeyPatch()
+    try:
+        for name, services, make_app, server_cls in (("torch", t_services, build_app, HTTPServer),
+                                                      ("jax", j_services, j_build_app, JHTTPServer)):
+            lt.run(services.initialize())
+            srv = server_cls(make_app(services), "127.0.0.1", 0)
+            lt.run(srv.start())
+            srvs.append((srv, services))
+            base = out["base"][name] = f"http://127.0.0.1:{srv.port}"
+            out["services"][name] = services
+            mp.setattr(uuid, "uuid4", _SeqIds())
+            out["docs"][name] = []
+            for (i, colpali), text in zip(TEXT_DOCS, contents):
+                status, doc = _call(base, "POST", "/ingest/text", {
+                    "content": text, "filename": f"t{i}.txt", "metadata": {"i": i}, "use_colpali": colpali})
+                assert status == 200 and doc["system_metadata"]["status"] == "completed", doc
+                out["docs"][name].append(doc)
+            mp.undo()
+        yield out
+    finally:
+        mp.undo()
+        for srv, services in srvs:
+            lt.run(srv.stop())
+            lt.run(services.shutdown())
+        lt.close()
+
+
+def _ids_scores(res):
+    return [(r["document_id"], r["chunk_number"]) for r in res], [r["score"] for r in res]
+
+
+def test_http_text_ingest_matches_jax_server(text_servers):
+    tdocs, jdocs = text_servers["docs"]["torch"], text_servers["docs"]["jax"]
+    assert [d["external_id"] for d in tdocs] == [d["external_id"] for d in jdocs]
+    assert [d["chunk_ids"] for d in tdocs] == [d["chunk_ids"] for d in jdocs]
+    assert [_keys(d) for d in tdocs] == [_keys(d) for d in jdocs]
+    n_text = sum(len(RecursiveCharacterTextSplitterT(400, 40).split_text(c)) for c in text_servers["contents"])
+    status, health = _call(text_servers["base"]["torch"], "GET", "/health")
+    assert health["components"]["text_index_rows"] == {"default": n_text}
+    # use_colpali=true also put its text chunks in the ColPali store, through the text tower
+    d1 = tdocs[1]["external_id"]
+    status, chunks = _call(text_servers["base"]["torch"], "POST", "/batch/chunks", {
+        "sources": [{"document_id": d1, "chunk_number": n} for n in range(3)], "use_colpali": True})
+    assert status == 200 and [c["chunk_number"] for c in chunks] == [0, 1, 2]
+    assert all(not c["metadata"]["is_image"] for c in chunks)
+    assert health["components"]["colpali"]["index_rows"] == {"default": len(tdocs[1]["chunk_ids"]) // 2}
+
+
+@pytest.mark.parametrize("rerank", [False, True])
+def test_http_text_retrieve_matches_jax_server(text_servers, rerank):
+    """`use_colpali=false`, hybrid: the same ids and scores (within 1e-6)
+    from both servers; with `use_reranking`, the ColQwen reranker of each
+    package over the same oversampled chunks: the same order, scores
+    within the slice tests' 5e-3 (each package embeds for itself)."""
+    for text in TEXT_QUERIES:
+        for k in (1, 3):
+            body = {"query": text, "k": k, "use_colpali": False, "use_reranking": rerank}
+            (ts_, tres), (js_, jres) = [_call(text_servers["base"][n], "POST", "/retrieve/chunks", body)
+                                        for n in ("torch", "jax")]
+            assert ts_ == js_ == 200 and len(tres) == k
+            (ti, tsc), (ji, jsc) = _ids_scores(tres), _ids_scores(jres)
+            if rerank:
+                _same_ranking(ji, jsc, ti, tsc, atol=5e-3)
+            else:
+                assert ti == ji
+                np.testing.assert_allclose(tsc, jsc, rtol=0, atol=1e-6)
+            assert [r["content"] for r in tres if (r["document_id"], r["chunk_number"]) in ji] == [
+                r["content"] for r in jres if (r["document_id"], r["chunk_number"]) in ti]
+            assert _keys(tres) == _keys(jres) and not any(r["metadata"]["is_image"] for r in tres)
+    # the grouped route and /query on text chunks
+    for path, body in (("/retrieve/chunks/grouped", {"query": TEXT_QUERIES[0], "k": 2, "use_colpali": False}),
+                       ("/query", {"query": TEXT_QUERIES[1], "k": 2, "use_colpali": False, "use_reranking": rerank})):
+        (ts_, tj), (js_, jj) = [_call(text_servers["base"][n], "POST", path, body) for n in ("torch", "jax")]
+        assert ts_ == js_ == 200 and _keys(tj) == _keys(jj)
+        if path == "/query":
+            assert tj["completion"] and [s["document_id"] for s in tj["sources"]] == [
+                s["document_id"] for s in jj["sources"]]
+
+
+def test_http_text_batch_chunks_match_jax_server(text_servers):
+    docs = text_servers["docs"]["torch"]
+    sources = [{"document_id": d["external_id"], "chunk_number": n} for d in docs for n in (0, 2, 99)]
+    (ts_, tj), (js_, jj) = [_call(text_servers["base"][n], "POST", "/batch/chunks",
+                                  {"sources": sources, "use_colpali": False}) for n in ("torch", "jax")]
+    assert ts_ == js_ == 200 and len(tj) == 6
+    assert [(c["document_id"], c["chunk_number"], c["content"]) for c in tj] == [
+        (c["document_id"], c["chunk_number"], c["content"]) for c in jj]
+
+
+def test_http_text_index_files_match_jax_server(text_servers):
+    """Saved by each server's `/ingest/text`: byte-identical `text_index`
+    files, and each package's store opens the other's."""
+    from morphik_core_tpu.vector_store.text_vector_store import TextVectorStore as JTextStore
+    from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore as TTextStore
+
+    root = text_servers["root"]
+    tdir, jdir = root / "torch" / "storage" / "text_index", root / "jax" / "storage" / "text_index"
+    names = sorted(p.name for p in tdir.iterdir())
+    assert names == sorted(p.name for p in jdir.iterdir()) == ["default.rows.json", "default.vectors.npy"]
+    for name in names:
+        assert (tdir / name).read_bytes() == (jdir / name).read_bytes(), name
+    t_on_j, j_on_t = TTextStore(jdir, device="cpu"), JTextStore(tdir)
+    q = text_servers["services"]["torch"].embedding_model._embed(TEXT_QUERIES[0])
+    a = _run(t_on_j.query_similar(q, k=4, query_text=TEXT_QUERIES[0]))
+    b = _run(j_on_t.query_similar(q, k=4, query_text=TEXT_QUERIES[0]))
+    assert [(c.document_id, c.chunk_number, c.score) for c in a] == [(c.document_id, c.chunk_number, c.score)
+                                                                     for c in b]
+
+
+def test_text_round_trip_and_restart(tmp_path):
+    """The port alone on the CPU: `/ingest/text` with both `use_colpali`,
+    a markdown, an HTML and a two-page PDF upload with `use_colpali=false`,
+    retrieves with and without reranking (equal to the in-process store
+    and reranker), `/batch/chunks`, a DELETE that leaves both stores, then
+    a restart that keeps the text rows."""
+    raw = _text_settings(tmp_path, "rt")
+    rng = np.random.default_rng(41)
+    lt = _LoopThread()
+    try:
+        services, srv, base = _boot(lt, raw)
+        docs = {}
+        for i, colpali in ((0, True), (1, False)):
+            status, doc = _call(base, "POST", "/ingest/text", {"content": _prose(rng, 150), "metadata": {"i": i},
+                                                              "use_colpali": colpali})
+            assert status == 200 and doc["system_metadata"]["status"] == "completed"
+            docs[i] = doc["external_id"]
+        uploads = {
+            "notes.md": (("# Notes\n\n" + _prose(rng, 60)).encode(), "text/markdown"),
+            "page.html": (f"<html><title>T</title><body><h2>Head</h2><p>{_prose(rng, 40)}</p></body></html>".encode(),
+                          "text/html"),
+            "report.pdf": (_text_pdf([_prose(rng, 30), "second page about supplier invoice"]), "application/pdf"),
+        }
+        for i, (name, (data, ctype)) in enumerate(uploads.items(), start=2):
+            status, doc = _upload(base, name, data, ctype, fields={"use_colpali": "false", "metadata": json.dumps({"i": i})})
+            assert status == 200, doc
+            docs[i] = doc["external_id"]
+        _wait_completed(base, list(docs.values()))
+        status, pdf_doc = _call(base, "GET", f"/documents/{docs[4]}")
+        assert pdf_doc["additional_metadata"] == {"page_count": 2} and "page_count" in pdf_doc["system_metadata"]
+        store, reranker = services.vector_store, services.document_service.reranker
+        assert isinstance(reranker, ColQwenReranker)
+        for text in TEXT_QUERIES:
+            status, res = _call(base, "POST", "/retrieve/chunks", {"query": text, "k": 3, "use_colpali": False})
+            q = services.embedding_model._embed(text)
+            lib = _run(store.query_similar(q, k=3, doc_ids=list(docs.values()), query_text=text))
+            assert status == 200 and _ids_scores(res) == ([(c.document_id, c.chunk_number) for c in lib],
+                                                          [c.score for c in lib])
+            status, rr = _call(base, "POST", "/retrieve/chunks", {"query": text, "k": 3, "use_colpali": False,
+                                                                  "use_reranking": True})
+            want = _run(reranker.rerank(text, _run(store.query_similar(q, k=9, doc_ids=list(docs.values()),
+                                                                        query_text=text))))[:3]
+            assert status == 200 and [(r["document_id"], r["chunk_number"]) for r in rr] == [
+                (c.document_id, c.chunk_number) for c in want]
+        sources = [{"document_id": docs[4], "chunk_number": 0}, {"document_id": docs[2], "chunk_number": 0}]
+        status, chunks = _call(base, "POST", "/batch/chunks", {"sources": sources, "use_colpali": False})
+        assert status == 200 and "supplier invoice" in chunks[0]["content"] and chunks[1]["content"].startswith("# Notes")
+        # a DELETE leaves both stores
+        n_colpali = len(services.colpali_vector_store._indexes["default"])
+        assert n_colpali > 0
+        status, _ = _call(base, "DELETE", f"/documents/{docs[0]}")
+        assert status == 200 and len(services.colpali_vector_store._indexes["default"]) == 0
+        assert _run(store.get_chunks_by_id([(docs[0], 0)])) == []
+        rows = store._ns_map["default"].n_alive()
+        before = {}  # the delete changed the corpus statistics of the BM25 half
+        for text in TEXT_QUERIES:
+            status, res = _call(base, "POST", "/retrieve/chunks", {"query": text, "k": 3, "use_colpali": False})
+            before[text] = _ids_scores(res)
+            assert status == 200 and docs[0] not in {d for d, _ in before[text][0]}
+        lt.run(srv.stop())
+        lt.run(services.shutdown())
+
+        services, srv, base = _boot(lt, raw)
+        status, health = _call(base, "GET", "/health")
+        assert health["components"]["text_index_rows"] == {"default": rows}
+        for text in TEXT_QUERIES:
+            status, res = _call(base, "POST", "/retrieve/chunks", {"query": text, "k": 3, "use_colpali": False})
+            assert status == 200 and _ids_scores(res) == before[text]
+        lt.run(srv.stop())
+        lt.run(services.shutdown())
+    finally:
+        lt.close()
+
+
+def test_text_only_server_and_png_without_colpali(tmp_path):
+    """`morphik.enable_colpali=false` boots a text-only server (the
+    lexical reranker); a PNG with `use_colpali=false` has no text and
+    completes as unsearchable."""
+    raw = _text_settings(tmp_path, "to")
+    raw["morphik"] = {"enable_colpali": False}
+    lt = _LoopThread()
+    try:
+        services, srv, base = _boot(lt, raw)
+        assert services.colpali_vector_store is None and services.colpali_embedding_model is None
+        assert isinstance(services.document_service.reranker, OverlapRerankerT)
+        status, doc = _call(base, "POST", "/ingest/text", {"content": "supplier invoice renewal clause"})
+        assert status == 200 and doc["chunk_ids"] == [f"{doc['external_id']}-0"]
+        status, res = _call(base, "POST", "/retrieve/chunks", {"query": "invoice", "k": 2, "use_reranking": True})
+        assert status == 200 and [r["document_id"] for r in res] == [doc["external_id"]] and res[0]["score"] > 0
+        status, health = _call(base, "GET", "/health")
+        assert health["colpali"] is False and health["components"]["colpali"] == {"enabled": False}
+        page = np.full((64, 64, 3), 255, np.uint8)
+        page[10:40, 10:50] = 30
+        status, png = _upload(base, "p.png", encode_png(page), fields={"use_colpali": "false"})
+        assert status == 200
+        _wait_completed(base, [png["external_id"]])
+        status, got = _call(base, "GET", f"/documents/{png['external_id']}")
+        assert got["system_metadata"]["unsearchable"] is True and got["chunk_ids"] == []
+        lt.run(srv.stop())
+        lt.run(services.shutdown())
+    finally:
+        lt.close()
