@@ -3,7 +3,8 @@
 NVIDIA H100, at the full ColQwen2.5-3B geometry with random weights, in
 the shipped serving config (W8A8 tower with calibrated static activation
 scales, bf16 attention) and, before it, in bf16; then its HTTP service
-plane with the text path, and the text index at 200,000 rows.
+plane with the text path, documents as page images over HTTP, and the
+text index at 200,000 rows.
 
     python3 chip_smoke.py
 
@@ -66,9 +67,10 @@ Phases (each raises on failure; none is caught):
      serves phase 3b's 3B int8 model, recalibrated at boot, over a real
      socket on 127.0.0.1 to a stdlib client: 9 PNG pages ingested
      (8 at 560 x 784 px, one at 600 x 830 px that takes the bicubic
-     resize), the text queries (k=4, 10 timed repeats each), page 3's
-     PNG as an image query (its document must come back first) and one
-     /query. Every retrieve must equal the in-process store's answer to
+     resize; each stored as the reference's q80 JPEG payload and
+     embedded from its decoded pixels), the text queries (k=4, 10 timed
+     repeats each), page 3's PNG as an image query (its document must
+     come back first, with its JPEG payload) and one /query. Every retrieve must equal the in-process store's answer to
      the same query embedding; the counts, reset after boot, must show
      K3 (ingest) and K1 (retrieve) launched by the HTTP path. Then the
      server stops (its shutdown saves the index) and a second one boots
@@ -90,6 +92,23 @@ Phases (each raises on failure; none is caught):
      launches, restart boot s and p50; text ingest s per document, text
      retrieve p50/p99, reranked retrieve p50, K2 launches, peak memory;
      the card's name and power limit).
+ 11. documents as pages over HTTP (after phase 8), on a new server from
+     the shipped toml serving phase 3b's model: the JPEG decoder on the
+     committed fixtures of the CPU tests (4:2:0, 4:2:2, 4:4:4, gray,
+     restart intervals; Pillow's pixels as hashes), a text page's q70
+     payload against the reference's hash, and decode_own against the
+     decoder on the encoder's bytes; one process's time per stage of a 150 dpi
+     PDF page (render, LANCZOS resize, q70 encode, decode_own, blank
+     check, patches); then a 24-page PDF (page 11 renders blank and is
+     skipped), a 3-slide PPTX, a DOCX of 4 text pages and two JPEGs made
+     by the port's encoder (one takes the resize to 1024 wide), each to
+     `completed`: page counts, the PDF's true page indices, K3 = 28 per
+     tower forward (forwards counted); 4 text queries x 10 retrieves over
+     the PDF and a JPEG image query of a stored PDF page (it comes back
+     first), each through K1 and equal to the in-process store. Prints a
+     {"documents": {...}} line (raster ms per stage, PDF pages/s, host
+     cores, embed batches, retrieve p50/p99, image query ms, peak memory,
+     launches).
  10. the text index at a real size, in process: a TextVectorStore on the
      card with 200,000 rows of 768 (the toml's embedding dimensions;
      seeded unit vectors, texts of 20-60 words from a seeded 30,000-word
@@ -482,7 +501,7 @@ def kernel_checks(torch):
     k2.append(rerank_k2)
     del docs_t
     k3 = window_attention_checks(torch, gen)
-    return main_k1, main_k2, k3[0], rerank_k2, k1 + k2 + k3
+    return main_k1, main_k2, k3[0], k3[1], rerank_k2, k1 + k2 + k3
 
 
 def rerank_token_counts():
@@ -499,8 +518,9 @@ def rerank_token_counts():
 def window_attention_checks(torch, gen):
     """K3 against `window_attention_plain`: the windowed vision blocks'
     shape (8 pages at grid 20 x 28: T = 17,920 rows, 16 heads of 80) in
-    bf16 and f32, and a ragged edge (one window of 32, D = 64). The bf16
-    case is also held to the Pallas kernel's rounding, called twice for
+    bf16 and f32, phase 11's PDF pages (8 at grid 28 x 24: T = 21,504) in
+    bf16, and a ragged edge (one window of 32, D = 64). The bf16 cases are
+    also held to the Pallas kernel's rounding, called twice for
     bit-identity, and timed beside F.scaled_dot_product_attention."""
     from morphik_core_tpu_torch.models.colqwen.config import VisionConfig
     from morphik_core_tpu_torch.ops.window_attention import (
@@ -509,10 +529,13 @@ def window_attention_checks(torch, gen):
 
     vc = VisionConfig()
     t = BATCH * GRID[0] * GRID[1] * vc.merge_unit
+    t_doc = BATCH * DOC_GRID[0] * DOC_GRID[1] * vc.merge_unit  # phase 11's PDF pages
     cases = []
     for label, (rows, heads, dim, win, dtype, atol) in {
         f"K3 vision blocks bf16 T={t} H={vc.num_heads} D={vc.head_dim} window={WINDOW}":
             (t, vc.num_heads, vc.head_dim, WINDOW, torch.bfloat16, K3_BF16_ATOL),
+        f"K3 vision blocks bf16 T={t_doc} H={vc.num_heads} D={vc.head_dim} window={WINDOW} (PDF pages)":
+            (t_doc, vc.num_heads, vc.head_dim, WINDOW, torch.bfloat16, K3_BF16_ATOL),
         f"K3 vision blocks f32 T={t} H={vc.num_heads} D={vc.head_dim} window={WINDOW}":
             (t, vc.num_heads, vc.head_dim, WINDOW, torch.float32, K3_F32_ATOL),
         "K3 ragged edge f32 T=32 H=3 D=64 window=32 (one window)": (32, 3, 64, 32, torch.float32, K3_F32_ATOL),
@@ -850,6 +873,18 @@ RETRIEVE_REPEATS = 10
 SERVICE_POLL_S = 120.0
 SCORE_ATOL = 1e-5  # HTTP scores vs the in-process store's on the same embedding
 
+# phase 11, documents as pages: a PDF of text pages (one of them "." alone,
+# which renders blank and is skipped), a PPTX, a DOCX of four 3200-character
+# pages and two JPEG uploads, at the shipped settings (150 dpi PDF pages
+# -> 1024 x 1325 q70 payloads -> grid 28 x 24)
+DOC_PDF_PAGES = 24
+DOC_BLANK_PAGE = 11
+DOC_SLIDES = 3
+DOC_DOCX_CHARS = 10_000
+DOC_JPEG_SIZES = ((1100, 1300), (784, 560))  # (h, w): the first takes the LANCZOS resize to 1024 wide
+DOC_GRID = (28, 24)  # a 150 dpi page after the resize to 1024 x 1325
+JPEG_FIXTURES = ROOT / "tests" / "fixtures" / "jpeg_decode_cases.npz"
+
 
 def service_pages():
     """Seeded page images with structure (blocks and bars on white), so
@@ -943,23 +978,31 @@ def _wait_completed(client, doc_ids):
         time.sleep(0.02)
 
 
-def service_path(torch, model, _kernels, smi):
-    """Phase 8: the port's server on the card, driven over a socket."""
-    import numpy as np
-
+def service_settings(tmp: Path):
+    """morphik_tpu.toml with every path in `tmp` and port 0."""
     from morphik_core_tpu_torch.config import load_settings
-    from morphik_core_tpu_torch.services_init import build_services
-    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
-    from morphik_core_tpu_torch.utils.png import decode_png, encode_png
 
     settings = load_settings(ROOT / "morphik_tpu.toml")
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_service_"))
     settings.api.port = 0
     settings.storage.storage_path = str(tmp / "storage")
     settings.storage.cache_path = str(tmp / "storage" / "cache")
     settings.database.path = str(tmp / "storage" / "morphik.db")
     settings.vector_store.index_path = str(tmp / "storage" / "index")
     settings.telemetry.telemetry_dir = str(tmp / "logs" / "telemetry")
+    return settings
+
+
+def service_path(torch, model, _kernels, smi):
+    """Phase 8: the port's server on the card, driven over a socket."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+    from morphik_core_tpu_torch.utils.jpeg import encode_jpeg
+    from morphik_core_tpu_torch.utils.png import decode_png, encode_png
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_service_"))
+    settings = service_settings(tmp)
     t0 = time.perf_counter()
     services = build_services(settings, colqwen_model=model)  # the card; recalibrates static scales
     server = ServerThread(services)
@@ -970,7 +1013,10 @@ def service_path(torch, model, _kernels, smi):
         f"static scales {settings.model.static_act_scales}); pages as PNG over HTTP")
     try:
         try:
-            pngs = [encode_png(p) for p in service_pages()]
+            pages = service_pages()
+            pngs = [encode_png(p) for p in pages]
+            # the stored payload of a page (at most 1024 wide): its q80 JPEG, as the reference stores it
+            payloads = [bytes_to_data_uri(encode_jpeg(p, 80)[0], "image/jpeg") for p in pages]
             _kernels.reset_launch_counts()  # the HTTP path starts here
             health = client.call("GET", "/health")["components"]["colpali"]
             if health["backend"] != torch.cuda.get_device_name(0):
@@ -996,8 +1042,9 @@ def service_path(torch, model, _kernels, smi):
             t = time.perf_counter()
             img_res = client.call("POST", "/retrieve/chunks", {"query_image": q_img, "k": 4})
             image_ms = (time.perf_counter() - t) * 1e3
-            if img_res[0]["document_id"] != docs[3] or img_res[0]["content"] != q_img:
-                raise AssertionError(f"image self-query top-1 is {img_res[0]['document_id']}, expected {docs[3]}")
+            if img_res[0]["document_id"] != docs[3] or img_res[0]["content"] != payloads[3]:
+                raise AssertionError(f"image self-query top-1 is {img_res[0]['document_id']}, expected {docs[3]} "
+                                     "with its q80 JPEG payload")
             t = time.perf_counter()
             answer = client.call("POST", "/query", {"query": QUERIES[0], "k": 4})
             query_ms = (time.perf_counter() - t) * 1e3
@@ -1032,7 +1079,7 @@ def service_path(torch, model, _kernels, smi):
             text_metrics, expect = service_text_half(torch, services, server, client, _kernels, docs)
         finally:
             server.stop()  # the shutdown saves the indexes
-        restart = service_restart(settings, model, _kernels, pngs, docs, expect)
+        restart = service_restart(settings, model, _kernels, payloads, docs, expect)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1239,14 +1286,13 @@ def service_text_half(torch, services, server, client, _kernels, png_docs):
     return metrics, expect
 
 
-def service_restart(settings, model, _kernels, pngs, docs, expect):
+def service_restart(settings, model, _kernels, payloads, docs, expect):
     """Phase 8, second half: a new server from `build_services` on the
     directories the first one left (its index files included) answers as
     the first did."""
     import numpy as np
 
     from morphik_core_tpu_torch.services_init import build_services
-    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
 
     wal = (Path(settings.vector_store.index_path) / "default" / "records.jsonl").read_text().splitlines()
     if len(wal) != expect["wal_lines"] or "_patches" in "".join(wal):
@@ -1288,8 +1334,7 @@ def service_restart(settings, model, _kernels, pngs, docs, expect):
                 raise AssertionError(f"after the restart document {d} is {status}")
         chunks = client.call("POST", "/batch/chunks", {
             "sources": [{"document_id": d, "chunk_number": 0} for d in docs], "use_colpali": True})
-        if [c["document_id"] for c in chunks] != docs or [c["content"] for c in chunks] != [
-                bytes_to_data_uri(p, "image/png") for p in pngs]:
+        if [c["document_id"] for c in chunks] != docs or [c["content"] for c in chunks] != payloads:
             raise AssertionError("after the restart /batch/chunks does not return every document's page")
     finally:
         server.stop()
@@ -1297,6 +1342,257 @@ def service_restart(settings, model, _kernels, pngs, docs, expect):
             "restart_retrieve_p50_ms": float(np.percentile(lat, 50)),
             "restart_retrieve_p99_ms": float(np.percentile(lat, 99)),
             "restart_max_score_diff": diff, "restart_launches": launches}
+
+
+def document_files(rng):
+    """Phase 11's uploads: name -> (bytes, content type, metadata)."""
+    import io
+    import zipfile
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.utils.jpeg import encode_jpeg
+
+    pdf_pages = []
+    for i in range(DOC_PDF_PAGES):
+        prose = seeded_prose(rng, 1800).replace("\n\n", " ")
+        pdf_pages.append(["."] if i == DOC_BLANK_PAGE else [f"Page {i + 1}: AV office affluent"] + [
+            line[:95] for line in prose.split(". ")])
+    slides = [[f"Slide {i + 1}: quarterly revenue"] + seeded_prose(rng, 300).split(". ")[:4] for i in range(DOC_SLIDES)]
+    pptx = io.BytesIO()
+    with zipfile.ZipFile(pptx, "w") as z:
+        for i, lines in enumerate(slides, start=1):
+            runs = "".join(f"<a:p><a:r><a:t>{t}</a:t></a:r></a:p>" for t in lines)
+            z.writestr(f"ppt/slides/slide{i}.xml", '<p:sld xmlns:a="http://schemas.openxmlformats.org/drawingml/'
+                       f'2006/main" xmlns:p="p"><a:txBody>{runs}</a:txBody></p:sld>')
+    paras, size = [], 0
+    while size < DOC_DOCX_CHARS:
+        paras.append(seeded_prose(rng, 600).replace("\n\n", " "))
+        size += len(paras[-1]) + 2
+    docx = io.BytesIO()
+    with zipfile.ZipFile(docx, "w") as z:
+        body = "".join(f"<w:p><w:r><w:t>{p}</w:t></w:r></w:p>" for p in paras)
+        z.writestr("word/document.xml", '<w:document xmlns:w="http://schemas.openxmlformats.org/wordprocessingml/'
+                   f'2006/main"><w:body>{body}</w:body></w:document>')
+    files = {
+        "report.pdf": (text_pdf(pdf_pages), "application/pdf", {"kind": "pdf"}),
+        "deck.pptx": (pptx.getvalue(), "application/octet-stream", {"kind": "pptx"}),
+        "memo.docx": (docx.getvalue(), "application/octet-stream", {"kind": "docx"}),
+    }
+    page_rng = np.random.default_rng(SEED + 11)
+    for i, (h, w) in enumerate(DOC_JPEG_SIZES):
+        page = np.full((h, w, 3), 255, np.uint8)
+        for _ in range(10):
+            y, x = int(page_rng.integers(0, h - 60)), int(page_rng.integers(0, w - 60))
+            page[y : y + int(page_rng.integers(30, h // 3)), x : x + int(page_rng.integers(30, w // 3))] = (
+                page_rng.integers(0, 220, 3))
+        files[f"photo{i}.jpg"] = (encode_jpeg(page, 90)[0], "image/jpeg", {"kind": "jpeg"})
+    return files
+
+
+def _forwards(n_pages: int, batch: int, embed_batch: int) -> int:
+    """Tower forwards of one document's pages (one grid bucket): store
+    batches of `batch`, each in forwards of at most `embed_batch`."""
+    return sum(-(-min(batch, n_pages - s) // embed_batch) for s in range(0, n_pages, batch))
+
+
+def raster_stage_ms(texts, settings) -> dict:
+    """Phase 11: one process's time per stage of a PDF page (the raster
+    pool's `_finish_page` in prep mode), median over `texts`."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.models.colqwen.preprocess import is_blank_page, preprocess_array_u8
+    from morphik_core_tpu_torch.parser import raster_pool
+    from morphik_core_tpu_torch.parser.text_render import render_text_page
+    from morphik_core_tpu_torch.utils.jpeg import decode_own, encode_jpeg
+
+    stages = {k: [] for k in ("render", "resize", "encode", "decode_own", "blank", "patches")}
+    dpi = settings.pdf.colpali_pdf_dpi
+    for text in texts:
+        t = [time.perf_counter()]
+        page = render_text_page(text, dpi)
+        t.append(time.perf_counter())
+        small = raster_pool._resize(page, raster_pool._MAX_WIDTH)
+        t.append(time.perf_counter())
+        _, coeffs = encode_jpeg(small, raster_pool._JPEG_QUALITY)
+        t.append(time.perf_counter())
+        stored = decode_own(coeffs)
+        t.append(time.perf_counter())
+        is_blank_page(stored)
+        t.append(time.perf_counter())
+        _, grid = preprocess_array_u8(stored, settings.model.min_pixels, settings.model.max_pixels)
+        t.append(time.perf_counter())
+        if tuple(grid) != DOC_GRID:
+            raise AssertionError(f"a {dpi} dpi page lands on grid {grid}, expected {DOC_GRID}")
+        for k, a, b in zip(stages, t, t[1:]):
+            stages[k].append((b - a) * 1e3)
+    out = {k: float(np.median(v)) for k, v in stages.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def check_jpeg_decoders():
+    """Phase 11, on this machine: the upload decoder on every committed
+    fixture (Pillow's decoded pixels, as hashes); the q70 payload of the
+    fixtures' 150 dpi text page (render, LANCZOS, encode) against the
+    reference's hash; `decode_own` against the decoder on the encoder's
+    own bytes."""
+    import hashlib
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.parser import raster_pool
+    from morphik_core_tpu_torch.parser.text_render import render_text_page
+    from morphik_core_tpu_torch.utils.jpeg import decode_jpeg, decode_own, encode_jpeg
+
+    z = np.load(JPEG_FIXTURES)
+    payload = raster_pool._finish_page(0, render_text_page(str(z["page_text"]), 150), raster_pool._MAX_WIDTH, None)[1]
+    if hashlib.sha256(payload).hexdigest() != str(z["page_q70_sha256"]):
+        raise AssertionError("the q70 payload of the fixture's text page differs from the reference's")
+    names = sorted(k[: -len("_jpeg")] for k in z.files if k.endswith("_jpeg"))
+    for name in names:
+        got = hashlib.sha256(decode_jpeg(z[f"{name}_jpeg"].tobytes()).tobytes()).hexdigest()
+        if got != str(z[f"{name}_sha256"]):
+            raise AssertionError(f"JPEG fixture {name}: decoded pixels differ from Pillow's (sha256 {got})")
+    rng = np.random.default_rng(SEED + 12)
+    for h, w, gray in ((37, 53, False), (64, 71, True), (130, 98, False)):
+        px = rng.integers(0, 256, (h, w) if gray else (h, w, 3), dtype=np.uint8)
+        data, coeffs = encode_jpeg(px, 80)
+        if not np.array_equal(decode_own(coeffs), decode_jpeg(data)):
+            raise AssertionError(f"decode_own differs from the decoder on the encoder's {h}x{w} JPEG")
+    return names
+
+
+def documents_phase(torch, model, _kernels, smi):
+    """Phase 11: documents as pages over HTTP on a new server (the
+    shipped toml, phase 3b's model)."""
+    import os
+    import resource
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.parser.pdf import extract_pages_text
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.image import decode_image
+    from morphik_core_tpu_torch.utils.fast_ops import data_uri_to_bytes
+
+    fixtures = check_jpeg_decoders()
+    files = document_files(np.random.default_rng(SEED + 10))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_documents_"))
+    settings = service_settings(tmp)
+    w = settings.worker
+    stage_ms = raster_stage_ms(extract_pages_text(files["report.pdf"][0])[:3], settings)
+    t0 = time.perf_counter()
+    server = ServerThread(build_services(settings, colqwen_model=model))  # recalibrates static scales
+    boot_s = time.perf_counter() - t0
+    services = server.services
+    client = Client(f"http://127.0.0.1:{server.server.port}")
+    emb, store = services.colpali_embedding_model, services.colpali_vector_store
+    forward_batches = []
+    tower = model.embed_image_batch
+
+    def counted_forward(patches, *args, **kw):
+        forward_batches.append(int(patches.shape[0]))
+        return tower(patches, *args, **kw)
+
+    model.embed_image_batch = counted_forward
+    log(f"phase 11: documents as pages over HTTP, server up in {boot_s:.3f} s ({os.cpu_count()} host cores, raster "
+        f"processes {services.ingestion_service.raster_pool.processes}, store batch {w.colpali_store_batch_size}, "
+        f"prefetch {w.ingest_embed_prefetch}); JPEG fixtures decoded as Pillow decodes them: {fixtures}; "
+        "a text page's q70 payload hashes as the reference's")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()  # the documents path starts here
+        docs, ingest_s = {}, {}
+        for name, (data, ctype, meta) in files.items():
+            t = time.perf_counter()
+            docs[name] = client.upload(name, data, ctype, {"metadata": json.dumps(meta)})["external_id"]
+            ingest_s[name] = _wait_completed(client, [docs[name]]) - t
+        ingest_launches = dict(_kernels.launch_counts)
+        ingest_batches = list(forward_batches)
+        got = {name: client.call("GET", f"/documents/{d}") for name, d in docs.items()}
+        want_pages = {"report.pdf": DOC_PDF_PAGES - 1, "deck.pptx": DOC_SLIDES, "memo.docx": 4,
+                      "photo0.jpg": 1, "photo1.jpg": 1}
+        for name, n in want_pages.items():
+            if got[name]["system_metadata"]["page_count"] != n:
+                raise AssertionError(f"{name}: page_count {got[name]['system_metadata']['page_count']}, expected {n}")
+        pdf = docs["report.pdf"]
+        pdf_chunks = client.call("POST", "/batch/chunks", {
+            "sources": [{"document_id": pdf, "chunk_number": n} for n in range(DOC_PDF_PAGES)], "use_colpali": True})
+        pages_stored = [c["metadata"]["page"] for c in pdf_chunks]
+        if pages_stored != [i for i in range(DOC_PDF_PAGES) if i != DOC_BLANK_PAGE]:
+            raise AssertionError(f"the PDF's stored pages are {pages_stored}: page {DOC_BLANK_PAGE} is the blank one")
+        if not all(c["content"].startswith("data:image/jpeg;base64,") for c in pdf_chunks):
+            raise AssertionError("a PDF page payload is not a JPEG data URI")
+        expected_forwards = sum(_forwards(n, w.colpali_store_batch_size, emb.batch_size) for n in want_pages.values())
+        k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+        if len(ingest_batches) != expected_forwards or ingest_launches["window_attention"] != k3_per_forward * len(
+                ingest_batches):
+            raise AssertionError(f"{len(ingest_batches)} tower forwards (expected {expected_forwards}), K3 launched "
+                                 f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
+
+        # text queries that hit the PDF's pages, each through K1
+        lat, k1, http_results = [], [], {}
+        for text in QUERIES:
+            for rep in range(RETRIEVE_REPEATS + 1):  # the first is a warm-up, untimed
+                _kernels.reset_launch_counts()
+                t = time.perf_counter()
+                res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4, "filters": {"kind": "pdf"}})
+                if rep:
+                    lat.append((time.perf_counter() - t) * 1e3)
+                k1.append(_kernels.launch_counts["maxsim_q8"])
+            if len(res) != 4 or {r["document_id"] for r in res} != {pdf}:
+                raise AssertionError(f"/retrieve/chunks {text!r} over the PDF: {res}")
+            http_results[text] = res
+        # a JPEG image query: a stored PDF page's own q70 payload comes back first
+        self_page = pdf_chunks[5]
+        _kernels.reset_launch_counts()
+        t = time.perf_counter()
+        img_res = client.call("POST", "/retrieve/chunks", {"query_image": self_page["content"], "k": 4})
+        image_ms = (time.perf_counter() - t) * 1e3
+        k1.append(_kernels.launch_counts["maxsim_q8"])
+        if (img_res[0]["document_id"], img_res[0]["chunk_number"]) != (pdf, self_page["chunk_number"]):
+            raise AssertionError(f"image self-query top-1 {img_res[0]['document_id']}#{img_res[0]['chunk_number']}")
+        if min(k1) <= 0:
+            raise AssertionError(f"a retrieve did not launch K1: {k1}")
+        launches = {"ingest": ingest_launches, "retrieve_k1": k1}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # the same answers from the in-process store, on the same embeddings
+        queries = {text: emb.embed_query(text) for text in QUERIES}
+        queries["<pdf page>"] = emb.embed_query(decode_image(data_uri_to_bytes(self_page["content"])))
+        http_results["<pdf page>"] = img_res
+        for key, q in queries.items():
+            lib = server.run(store.query_similar(q, k=4, doc_ids=[pdf] if key in QUERIES else list(docs.values())))
+            res = http_results[key]
+            if [(r["document_id"], r["chunk_number"]) for r in res] != [(c.document_id, c.chunk_number) for c in lib]:
+                raise AssertionError(f"{key!r}: HTTP results differ from the in-process store's")
+            err = max(abs(r["score"] - c.score) for r, c in zip(res, lib))
+            if err > SCORE_ATOL:
+                raise AssertionError(f"{key!r}: HTTP scores differ from the store's by {err}")
+        phases = got["report.pdf"]["system_metadata"]["phase_times"]
+    finally:
+        model.embed_image_batch = tower
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    documents = {
+        "card": smi, "host_cores": os.cpu_count(), "raster_processes": services.ingestion_service.raster_pool.processes,
+        "raster_stage_ms": stage_ms, "pdf_pages": DOC_PDF_PAGES, "pdf_pages_stored": len(pdf_chunks),
+        "pdf_ingest_s": ingest_s["report.pdf"], "pdf_pages_per_s": DOC_PDF_PAGES / ingest_s["report.pdf"],
+        "pdf_job_phase_s": phases, "ingest_s": ingest_s, "embed_batches": ingest_batches,
+        "retrieve_n": len(lat), "retrieve_p50_ms": float(np.percentile(lat, 50)),
+        "retrieve_p99_ms": float(np.percentile(lat, 99)), "image_query_ms": image_ms, "peak_gb": peak_gb,
+        "host_maxrss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024,
+        "boot_s": boot_s, "launches": launches, "jpeg_fixtures": fixtures,
+    }
+    log(f"  PDF of {DOC_PDF_PAGES} pages ({len(pdf_chunks)} stored, page {DOC_BLANK_PAGE} blank) in "
+        f"{ingest_s['report.pdf']:.3f} s ({documents['pdf_pages_per_s']:.3f} pages/s; job phases s "
+        f"{json.dumps(phases)}); one process's page raster ms {json.dumps(stage_ms)}; other uploads s "
+        f"{json.dumps({k: v for k, v in ingest_s.items() if k != 'report.pdf'})}; tower forwards {ingest_batches} "
+        f"(K3 {ingest_launches['window_attention']}); retrieve p50 {documents['retrieve_p50_ms']:.3f} ms p99 "
+        f"{documents['retrieve_p99_ms']:.3f} ms over {len(lat)}; JPEG image query {image_ms:.3f} ms; peak mem GB "
+        f"{peak_gb:.2f}; HTTP results equal the in-process store's")
+    return documents
 
 
 def persistence_phase(torch, index, path: Path, answers5, answers6, smi):
@@ -1692,7 +1988,7 @@ def main() -> None:
     t_all = time.perf_counter()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
-    main_k1, main_k2, main_k3, rerank_k2, all_cases = kernel_checks(torch)
+    main_k1, main_k2, main_k3, doc_k3, rerank_k2, all_cases = kernel_checks(torch)
     model, bf16_embs, bf16_queries, bf16_stats = ingest_bf16(torch, _kernels)
     _kernels.reset_launch_counts()  # the main path starts here
     emb, page_embs, page_fdes, int8_stats = ingest_int8(torch, model, bf16_embs)
@@ -1731,6 +2027,7 @@ def main() -> None:
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
     service = service_path(torch, model, _kernels, smi)
+    documents = documents_phase(torch, model, _kernels, smi)
     text_index = text_index_phase(torch, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
@@ -1740,7 +2037,10 @@ def main() -> None:
              bound_ms=case["bound_us"] / 1e3, bound_by=case["bound_by"], library_ms=case.get("library_ms"),
              device_ms=case["device_ms"], plain_device_ms=case["plain_device_ms"],
              library_device_ms=case.get("library_device_ms"), library_call=case.get("library_call"),
-             shape=case["case"], text_launches=service["rerank_launches"][name] + service["colpali_text_launches"][name])
+             shape=case["case"],
+             text_launches=service["rerank_launches"][name] + service["colpali_text_launches"][name],
+             documents_launches=documents["launches"]["ingest"][name] + (
+                 sum(documents["launches"]["retrieve_k1"]) if name == "maxsim_q8" else 0))
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -1749,11 +2049,15 @@ def main() -> None:
     ]
     kernels[1]["reranker_case"] = {k: rerank_k2[k] for k in (
         "case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_us", "bound_by")}
+    kernels[2]["documents_case"] = {k: doc_k3[k] for k in (
+        "case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_us", "bound_by",
+        "library_call", "library_ms", "library_device_ms")}
     log(f"total wall s {time.perf_counter() - t_all:.3f}")
     log(json.dumps({"cases": all_cases}))
     print(smi)
     print(json.dumps({"service": service}))
     print(json.dumps({"persistence": persistence}))
+    print(json.dumps({"documents": documents}))
     print(json.dumps({"text_index": text_index}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

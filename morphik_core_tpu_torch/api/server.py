@@ -2,7 +2,11 @@
 [config.toml]` boots the services on the card, the job workers and the
 HTTP server (`morphik_core_tpu/api/server.py:19-50` for the port).
 Without a card it exits with the `RuntimeError` of
-`device.default_device()`: the server never runs on the CPU."""
+`device.default_device()`: the server never runs on the CPU.
+
+The service modules are imported inside `main`: the PDF raster pool's
+forkserver children import this module again as their `__main__`, and
+they must load numpy modules only (no torch)."""
 
 from __future__ import annotations
 
@@ -11,15 +15,15 @@ import logging
 import signal
 import sys
 
-from morphik_core_tpu_torch.api.app import build_app
-from morphik_core_tpu_torch.api.http import HTTPServer
-from morphik_core_tpu_torch.config import get_settings
-from morphik_core_tpu_torch.services_init import build_services
-
 logger = logging.getLogger(__name__)
 
 
 async def main(config_path: str | None = None) -> None:
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import get_settings
+    from morphik_core_tpu_torch.services_init import build_services
+
     settings = get_settings(config_path)
     services = build_services(settings)
     await services.initialize()

@@ -40,7 +40,8 @@ from morphik_core_tpu_torch.models.colqwen.preprocess import preprocess_array_u8
 from morphik_core_tpu_torch.models.schemas import Chunk
 from morphik_core_tpu_torch.ops.fde import FDEConfig, fde_document_batch
 from morphik_core_tpu_torch.utils.fast_ops import data_uri_to_bytes
-from morphik_core_tpu_torch.utils.png import decode_png
+from morphik_core_tpu_torch.utils.image import decode_image
+from morphik_core_tpu_torch.utils.jpeg import decode_own
 
 logger = logging.getLogger(__name__)
 
@@ -182,9 +183,11 @@ class ColpaliEmbeddingModel:
     ) -> Tuple[List[np.ndarray], List[Optional[np.ndarray]]]:
         """Chunks -> (embeddings, fused FDE rows), chunk-aligned
         (`colpali_embedding_model.py:259-320`). An image chunk whose
-        metadata carries `_patches` (computed at upload) is embedded from
-        them; another image chunk has its PNG payload decoded here; text
-        chunks go through the text tower (their FDE row is None). The
+        metadata carries `_patches` (computed at raster time) is embedded
+        from them; another image chunk from its decoded payload: the
+        coefficients in `_jpeg` through `jpeg.decode_own` when the port's
+        own encoder wrote it, else its PNG or JPEG bytes; text chunks go
+        through the text tower (their FDE row is None). The
         ingestion service runs this in worker threads: results flow
         through return values only."""
         if isinstance(chunks, Chunk):
@@ -199,9 +202,12 @@ class ColpaliEmbeddingModel:
                 text_items.append((i, chunk.content))
                 continue
             pp = chunk.metadata.pop("_patches", None)
+            coeffs = chunk.metadata.pop("_jpeg", None)
             if pp is None:
-                pp = preprocess_array_u8(decode_png(data_uri_to_bytes(chunk.content)),
-                                         min_pixels=self.min_pixels, max_pixels=self.max_pixels)
+                # the decoded payload, as the reference embeds it: the
+                # coefficients of the port's own JPEG, else the bytes
+                page = decode_own(coeffs) if coeffs is not None else decode_image(data_uri_to_bytes(chunk.content))
+                pp = preprocess_array_u8(page, min_pixels=self.min_pixels, max_pixels=self.max_pixels)
             image_items.append((i, (pp[0], tuple(pp[1]))))
         prep_s = time.perf_counter() - t0
         results: List[Optional[np.ndarray]] = [None] * len(chunks)

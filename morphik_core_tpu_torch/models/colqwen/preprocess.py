@@ -129,19 +129,38 @@ def _bicubic_filter(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _resample_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos_filter(x: np.ndarray) -> np.ndarray:
+    """Resample.c `lanczos_filter`: the support-3 truncated sinc. `math.sin`
+    is the C library's `sin`, as Pillow calls it (numpy's may differ in
+    the last bit, which can move a rounded tap)."""
+    flat = [_sinc(v) * _sinc(v / 3) if -3.0 <= v < 3.0 else 0.0 for v in x.reshape(-1).tolist()]
+    return np.array(flat, np.float64).reshape(x.shape)
+
+
+_FILTERS = {"bicubic": (_bicubic_filter, 2.0), "lanczos": (_lanczos_filter, 3.0)}
+
+
+def _resample_coeffs(in_size: int, out_size: int, kind: str = "bicubic") -> Tuple[np.ndarray, np.ndarray]:
     """Resample.c `precompute_coeffs` + `normalize_coeffs_8bpc`: per output
     pixel its first input index and ksize fixed-point taps (0 past the
     clamped window)."""
+    filt, filter_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)  # C (int): toward zero
     xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
     taps = np.arange(ksize)
-    w = _bicubic_filter(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = filt(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
     ww = np.zeros(out_size)
     for j in range(ksize):  # sequential, as the C loop sums
@@ -152,29 +171,96 @@ def _resample_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarra
     return xmin, fixed
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str = "bicubic") -> np.ndarray:
     in_size = img.shape[axis]
-    xmin, fixed = _resample_coeffs(in_size, out_size)
-    src = np.moveaxis(img, axis, 0)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    xmin, fixed = _resample_coeffs(in_size, out_size, kind)
+    src = np.ascontiguousarray(np.moveaxis(img, axis, 0))
+    # int32 holds the sums: 255 * sum |tap| stays below 1.4 * 2^30 for both filters
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int32)
     bshape = (out_size,) + (1,) * (src.ndim - 1)
+    taps = fixed.astype(np.int32)
     for j in range(fixed.shape[1]):
-        rows = src[np.minimum(xmin + j, in_size - 1)].astype(np.int64)
-        acc += rows * fixed[:, j].reshape(bshape)
+        acc += src[np.minimum(xmin + j, in_size - 1)] * taps[:, j].reshape(bshape)
     out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
     return np.ascontiguousarray(np.moveaxis(out, 0, axis))
+
+
+def _resize_u8(img: np.ndarray, size: Tuple[int, int], kind: str) -> np.ndarray:
+    h, w = size
+    out = np.asarray(img, dtype=np.uint8)
+    if w != out.shape[1]:
+        out = _resample_axis(out, w, axis=1, kind=kind)
+    if h != out.shape[0]:
+        out = _resample_axis(out, h, axis=0, kind=kind)
+    return out if out is not img else out.copy()
 
 
 def resize_bicubic_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """Pillow's `Image.resize((w, h), BICUBIC)` of an 8-bit (H, W) or
     (H, W, C) image, bit-identical; `size` is (h, w)."""
+    return _resize_u8(img, size, "bicubic")
+
+
+def resize_lanczos_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Pillow's `Image.resize((w, h), LANCZOS)` of an 8-bit (H, W) or
+    (H, W, C) image, bit-identical; `size` is (h, w)."""
+    return _resize_u8(img, size, "lanczos")
+
+
+def resize_nearest_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Pillow's `Image.resize((w, h), NEAREST)` (Geometry.c
+    `ImagingScaleAffine`: the source coordinate starts at scale / 2 and
+    adds scale per output pixel in double precision, truncated)."""
+    def taps(n_in: int, n_out: int) -> List[int]:
+        scale = n_in / n_out
+        pos, out = scale * 0.5, []
+        for _ in range(n_out):
+            out.append(int(pos))
+            pos += scale
+        return out
+
     h, w = size
-    out = np.asarray(img, dtype=np.uint8)
-    if w != out.shape[1]:
-        out = _resample_axis(out, w, axis=1)
-    if h != out.shape[0]:
-        out = _resample_axis(out, h, axis=0)
-    return out if out is not img else out.copy()
+    return np.ascontiguousarray(np.asarray(img)[taps(img.shape[0], h)][:, taps(img.shape[1], w)])
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a.astype(np.int64) * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def resize_mode_u8(pixels: np.ndarray, mode: str, size: Tuple[int, int], resample: str = "lanczos") -> np.ndarray:
+    """`Image.resize((w, h), resample)` with Pillow's mode rules
+    (`Image.py` `resize`): modes P (indices) and 1 resize NEAREST; RGBA and LA
+    resize premultiplied (RGBa / La, `Convert.c` `rgbA2rgba`, `la2La`)
+    and convert back (`rgba2rgbA`: 255 * c / alpha, clipped, where alpha
+    is neither 0 nor 255). `pixels` is (H, W) for L and P, (H, W, 2) for
+    LA, (H, W, 3) RGB, (H, W, 4) RGBA."""
+    if mode in ("P", "1"):
+        return resize_nearest_u8(pixels, size)
+    if mode not in ("RGBA", "LA"):
+        return _resize_u8(pixels, size, resample)
+    alpha = pixels[..., -1:].astype(np.int64)
+    pre = np.concatenate([_muldiv255(pixels[..., :-1], alpha), alpha], axis=-1).astype(np.uint8)
+    out = _resize_u8(pre, size, resample)
+    a = out[..., -1:].astype(np.int64)
+    keep = (a == 0) | (a == 255)
+    color = np.where(keep, out[..., :-1], np.minimum(255 * out[..., :-1].astype(np.int64) // np.maximum(a, 1), 255))
+    return np.concatenate([color, a], axis=-1).astype(np.uint8)
+
+
+def to_rgb_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None) -> np.ndarray:
+    """`Image.convert("RGB")` of an image of mode 1 (0 / 255), L, LA, RGB,
+    RGBA or P (alpha dropped, not composited; `palette` (256, 3) for P)."""
+    if mode == "RGB":
+        return pixels
+    if mode == "RGBA":
+        return np.ascontiguousarray(pixels[..., :3])
+    if mode in ("L", "LA", "1"):
+        gray = pixels if mode != "LA" else pixels[..., 0]
+        return np.repeat(gray[..., None], 3, axis=2)
+    if mode == "P":
+        return palette[pixels]
+    raise ValueError(f"no RGB conversion for mode {mode!r}")
 
 
 def to_luma_u8(hwc: np.ndarray) -> np.ndarray:

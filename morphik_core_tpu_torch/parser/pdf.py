@@ -1,5 +1,4 @@
-"""Dependency-free PDF text extraction: port of the text half of
-`morphik_core_tpu/parser/pdf.py` (`:30-197`, `:277-391`).
+"""Dependency-free PDF handling: port of `morphik_core_tpu/parser/pdf.py`.
 
 A brute object scan, FlateDecode streams and the BT/ET text operators,
 good enough for born-digital PDFs. Font CMaps are not decoded: PDFs with
@@ -7,15 +6,25 @@ subsetted or CID fonts give empty text, and the ingestion ladder goes on
 from there. `extract_pages_blocks` also tracks the text cursor, so each
 run of text carries a position for table detection.
 
-Not ported yet: `rasterize_pdf` and its text-render fallback (ROADMAP
-Queue 1 item 3b), which draw pages with PIL.
+`rasterize_pdf` is the reference's backend ladder as it runs without
+PyMuPDF and pdf2image (neither is installed where the reference or the
+port serves, and neither can be ported without its native library:
+ROADMAP Queue 1 item 3b-ii): the text-render rung, each page's extracted
+text drawn by `text_render.render_text_page`.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 import zlib
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from morphik_core_tpu_torch.parser.text_render import render_text_page
+
+logger = logging.getLogger(__name__)
 
 _OBJ_RE = re.compile(rb"(\d+)\s+(\d+)\s+obj\b", re.S)
 _STREAM_RE = re.compile(rb"stream\r?\n", re.S)
@@ -185,6 +194,18 @@ def extract_pages_text_and_blocks(data: bytes):
 
 def page_count(data: bytes) -> int:
     return len(extract_pages_text(data))
+
+
+# -------------------------------------------------------------------- raster
+
+
+def rasterize_pdf(data: bytes, dpi: int = 150) -> Tuple[List[np.ndarray], str]:
+    """-> ((H, W, 3) uint8 page images, backend name): the text-render
+    rung of the reference's ladder (`pdf.py:255-270`), one page drawn
+    even when the PDF has none."""
+    texts = extract_pages_text(data) or [""]
+    logger.warning("No native PDF rasterizer available — using text-render fallback (%d pages)", len(texts))
+    return [render_text_page(t, dpi) for t in texts], "textrender"
 
 
 # ----------------------------------------------------------- positioned text

@@ -9,7 +9,7 @@ concurrently. With ColPali (`use_colpali`, default
 `morphik.enable_colpali`) the search runs on the multivector store,
 ColPali padding adds neighbour pages (score 0, is_padding), and results
 carry base64 data URIs or download URLs; an image query (`query_image`,
-a data URI or base64 PNG) is decoded by `utils/png.py`. Without it, the
+a data URI or base64 PNG or JPEG) is decoded by `utils/image.py`. Without it, the
 hybrid text store answers (`query_text` for BM25), and `use_reranking`
 oversamples max(k, min(3k, 20)) chunks for the reranker, then keeps k.
 As in the reference, the reranker runs only off the ColPali path.
@@ -44,7 +44,7 @@ from morphik_core_tpu_torch.reranker.rerankers import BaseReranker
 from morphik_core_tpu_torch.services.telemetry import PerformanceTracker
 from morphik_core_tpu_torch.storage.base_storage import BaseStorage
 from morphik_core_tpu_torch.utils.fast_ops import data_uri_to_bytes
-from morphik_core_tpu_torch.utils.png import decode_png
+from morphik_core_tpu_torch.utils.image import decode_image
 from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import (
     MULTIVECTOR_CHUNKS_BUCKET,
@@ -134,7 +134,7 @@ class DocumentService:
             # the reference caps image queries at 10 MB
             if len(raw) > 10 * 1024 * 1024:
                 raise ValueError("query_image exceeds the 10 MB limit")
-            page = await asyncio.to_thread(decode_png, raw)
+            page = await asyncio.to_thread(decode_image, raw)
             embed_task = embed_model.embed_for_query(page)
         else:
             embed_task = embed_model.embed_for_query(query)

@@ -62,7 +62,8 @@ def _refuse_unported(settings: Settings) -> None:
          f"embedding.model={settings.embedding.model!r} of registered_models: the embedding endpoints "
          "(ROADMAP Queue 1 item 3g)"),
         (settings.parser.ocr_mode != "none",
-         f"parser.ocr_mode={settings.parser.ocr_mode!r}: OCR rasterizes pages (ROADMAP Queue 1 item 3b)"),
+         f"parser.ocr_mode={settings.parser.ocr_mode!r}: OCR of page images is not ported "
+         "(ROADMAP Queue 1 item 3b-ii)"),
         (settings.parser.parser_mode == "api", 'parser.parser_mode="api" (parse endpoints, ROADMAP Queue 1 item 3h)'),
     )
     for refused, what in refusals:
@@ -109,9 +110,10 @@ class Services:
             self.heartbeat.start()
 
     async def shutdown(self) -> None:
-        """Drain the job queue, stop the telemetry threads, then write
-        every index (the restart reloads them)."""
+        """Drain the job queue, stop the raster processes and the telemetry
+        threads, then write every index (the restart reloads them)."""
         await self.job_queue.stop()
+        self.ingestion_service.raster_pool.shutdown()
         for thread in (self.log_uploader, self.heartbeat):
             if thread is not None:
                 thread.stop()

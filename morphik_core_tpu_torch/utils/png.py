@@ -1,11 +1,15 @@
 """PNG decode and encode in numpy + zlib: the page-image codec of the
 port's service plane (the card's machine has no PIL).
 
-`decode_png` returns what Pillow's `Image.open(...).convert("RGB")`
-gives for 8-bit PNGs of modes L, LA, RGB, RGBA and P: gray replicated to
-three channels, alpha dropped (not composited), palette indices looked
-up. Every row filter (None, Sub, Up, Average, Paeth) is undone exactly.
-Other bit depths and Adam7 interlacing raise a `ValueError` that names
+`read_png` returns the pixels in the mode Pillow's `Image.open` gives
+them (L, LA, RGB, RGBA, or P with its palette for 8-bit PNGs; 1, L or P
+for 1/2/4-bit gray and palette PNGs), so a page can be resized and
+converted under Pillow's mode rules; `decode_png` returns what
+`Image.open(...).convert("RGB")` gives: gray replicated to three
+channels, alpha dropped (not composited), palette indices looked up
+(indices past the palette read as black). Every row filter (None, Sub,
+Up, Average, Paeth) is undone exactly.
+16-bit samples and Adam7 interlacing raise a `ValueError` that names
 the feature. `encode_png` writes filter 0 rows (tests and `chip_smoke.py`
 make their inputs with it).
 """
@@ -14,7 +18,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -83,8 +87,13 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8, as Pillow's `convert("RGB")`."""
+_MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
+
+
+def read_png(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
+    """PNG bytes -> (pixels, mode, palette) as Pillow's `Image.open` holds
+    them: mode L or P (H, W), LA (H, W, 2), RGB (H, W, 3), RGBA (H, W, 4);
+    `palette` is the (256, 3) lookup of a P image, else None."""
     header = None
     palette = b""
     idat: List[bytes] = []
@@ -100,29 +109,53 @@ def decode_png(data: bytes) -> np.ndarray:
     width, height, depth, color, _compression, _filter, interlace = header
     if color not in _CHANNELS:
         raise ValueError(f"unknown PNG color type {color}")
-    if depth != 8:
-        raise ValueError(f"PNG bit depth {depth} is not supported (only 8)")
+    if depth != 8 and not (depth in (1, 2, 4) and color in (0, 3)):
+        raise ValueError(f"PNG bit depth {depth} is not supported (8, or 1/2/4 for gray and palette images)")
     if interlace:
         raise ValueError("Adam7-interlaced PNG is not supported")
     if width * height > MAX_PIXELS:
         raise ValueError(f"PNG of {width} x {height} pixels exceeds the decompression-bomb limit {MAX_PIXELS}")
     ch = _CHANNELS[color]
+    stride = (width * ch * depth + 7) // 8
     # decompress no more than the image needs: a small file cannot expand without bound
-    raw = zlib.decompressobj().decompress(b"".join(idat), height * (width * ch + 1))
-    pix = _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
-    if color == 2:
+    raw = zlib.decompressobj().decompress(b"".join(idat), height * (stride + 1))
+    rows = _unfilter(raw, height, stride, max(1, ch * depth // 8))
+    mode = _MODES[color]
+    if depth < 8:
+        # packed samples, most significant bits first; gray scales up as
+        # Pillow's "L;2" / "L;4" unpackers do, and 1-bit gray is mode "1"
+        bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(height, width, depth)
+        pix = (bits.astype(np.int64) << np.arange(depth - 1, -1, -1)).sum(axis=-1)
+        if color == 0:
+            pix = pix * (255 // ((1 << depth) - 1))
+            mode = "1" if depth == 1 else "L"
+        pix = pix.astype(np.uint8)
+    else:
+        pix = rows.reshape(height, width, ch)
+        if ch == 1:
+            pix = pix[..., 0]
+    lut = None
+    if color == 3:
+        if not palette:
+            raise ValueError("palette PNG has no PLTE chunk")
+        # indices past the PLTE entries read as black, as Pillow gives them
+        lut = np.zeros((256, 3), np.uint8)
+        n = min(len(palette) // 3, 256)
+        lut[:n] = np.frombuffer(palette[: 3 * n], np.uint8).reshape(n, 3)
+    return pix, mode, lut
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8, as Pillow's `convert("RGB")`."""
+    pix, mode, lut = read_png(data)
+    if mode == "RGB":
         return pix
-    if color == 6:
+    if mode == "RGBA":
         return np.ascontiguousarray(pix[..., :3])
-    if color in (0, 4):
-        return np.repeat(pix[..., :1], 3, axis=2)
-    if not palette:
-        raise ValueError("palette PNG has no PLTE chunk")
-    # unset entries keep the default palette's gray ramp (i, i, i)
-    lut = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
-    n = min(len(palette) // 3, 256)
-    lut[:n] = np.frombuffer(palette[: 3 * n], np.uint8).reshape(n, 3)
-    return lut[pix[..., 0]]
+    if mode == "P":
+        return lut[pix]
+    gray = pix if mode in ("L", "1") else pix[..., 0]
+    return np.repeat(gray[..., None], 3, axis=2)
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:

@@ -348,6 +348,55 @@ def test_service_plane_serves_on_card(sm90, tmp_path):
 
 
 @pytest.mark.cuda
+def test_pdf_ingest_on_card(sm90, tmp_path):
+    """A 3-page PDF ingested as page images on the card (tiny random int8
+    model): one forward of the three pages, K3 once in each windowed
+    vision block of it; a retrieve through K1; three pages stored."""
+    import asyncio
+    import zlib
+
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.models.schemas import AuthContext
+    from morphik_core_tpu_torch.services_init import build_services
+
+    services = build_services(Settings.from_dict({
+        "storage": {"storage_path": str(tmp_path / "storage")}, "database": {"path": str(tmp_path / "db.sqlite")},
+        "vector_store": {"index_path": str(tmp_path / "index")},
+        "telemetry": {"telemetry_dir": str(tmp_path / "logs" / "telemetry")},
+    }))  # no device: the card
+    objs = [b"1 0 obj<</Type/Catalog/Pages 2 0 R>>endobj\n",
+            b"2 0 obj<</Type/Pages/Kids[3 0 R 5 0 R 7 0 R]/Count 3>>endobj\n"]
+    for i, text in enumerate([b"quarterly revenue", b"supplier invoice AV office", b"signature page"]):
+        comp = zlib.compress(b"BT /F1 12 Tf 72 720 Td (" + text + b") Tj ET")
+        objs.append(f"{3 + 2 * i} 0 obj<</Type/Page/Parent 2 0 R/Contents {4 + 2 * i} 0 R>>endobj\n".encode())
+        objs.append(f"{4 + 2 * i} 0 obj<</Length {len(comp)}/Filter/FlateDecode>>stream\n".encode() + comp
+                    + b"\nendstream endobj\n")
+    pdf = b"%PDF-1.4\n" + b"".join(objs) + b"trailer<</Root 1 0 R>>\n%%EOF"
+    auth = AuthContext(entity_id="dev", permissions={"read", "write"})
+    cfg = services.colpali_embedding_model.model.cfg.vision
+    windowed = cfg.depth - len(cfg.fullatt_block_indexes)
+
+    async def go():
+        await services.initialize()
+        try:
+            doc = await services.ingestion_service.ingest_file_content(pdf, "r.pdf", {}, auth)
+            _kernels.reset_launch_counts()
+            doc = await services.ingestion_service.process_ingestion_job(doc.external_id, auth)
+            ingest = dict(_kernels.launch_counts)
+            _kernels.reset_launch_counts()
+            hits = await services.document_service.retrieve_chunks("signature page", auth, k=3)
+            return doc, ingest, dict(_kernels.launch_counts), hits
+        finally:
+            await services.shutdown()
+
+    doc, ingest, retrieve, hits = asyncio.new_event_loop().run_until_complete(go())
+    assert doc.system_metadata["page_count"] == 3 and len(doc.chunk_ids) >= 3
+    assert ingest["window_attention"] == windowed, ingest
+    assert retrieve["maxsim_q8"] > 0 and {h.metadata["page"] for h in hits} == {0, 1, 2}, retrieve
+    assert all(h.content.startswith("data:image/jpeg;base64,") for h in hits)
+
+
+@pytest.mark.cuda
 def test_server_entry_point_boots_on_card(sm90, tmp_path):
     """`python -m morphik_core_tpu_torch.api.server <toml>` boots on the
     card, answers /health over a socket and drains on SIGTERM."""

@@ -3,7 +3,8 @@
 the shipped int8 embedder calibrates its static scales from the
 committed pages and serves ingest and queries, the bf16 embedder still
 runs, and the port's HTTP server boots on the CPU and answers an
-ingest -> retrieve -> query round trip over a socket."""
+ingest -> retrieve -> query round trip over a socket, then ingests a
+PDF as page images and answers a JPEG image query."""
 
 import re
 import subprocess
@@ -117,6 +118,31 @@ _GUARD = textwrap.dedent(
     assert call("/health")["components"]["text_index_rows"] == {"default": 1}
     again = call("/retrieve/chunks", json.dumps({"query": "supplier invoice", "k": 1, "use_colpali": False}).encode())
     assert again == text_hits[False], again
+    # documents as pages: a two-page PDF ingest, then a JPEG image query of the PNG page
+    import base64, zlib
+    from morphik_core_tpu_torch.utils.jpeg import encode_jpeg
+    objs = [b"1 0 obj<</Type/Catalog/Pages 2 0 R>>endobj\\n",
+            b"2 0 obj<</Type/Pages/Kids[3 0 R 5 0 R]/Count 2>>endobj\\n"]
+    for i, text in enumerate([b"quarterly revenue AV office", b"supplier invoice"]):
+        comp = zlib.compress(b"BT /F1 12 Tf 72 720 Td (" + text + b") Tj ET")
+        objs.append(f"{3 + 2 * i} 0 obj<</Type/Page/Parent 2 0 R/Contents {4 + 2 * i} 0 R>>endobj\\n".encode())
+        objs.append(f"{4 + 2 * i} 0 obj<</Length {len(comp)}/Filter/FlateDecode>>stream\\n".encode() + comp
+                    + b"\\nendstream endobj\\n")
+    pdf = b"%PDF-1.4\\n" + b"".join(objs) + b"trailer<</Root 1 0 R>>\\n%%EOF"
+    body = (f'--{b}\\r\\nContent-Disposition: form-data; name="file"; filename="r.pdf"\\r\\n'
+            'Content-Type: application/pdf\\r\\n\\r\\n').encode() + pdf + f"\\r\\n--{b}--\\r\\n".encode()
+    pdoc = call("/ingest/file", body, f"multipart/form-data; boundary={b}")
+    for _ in range(1200):
+        pstatus = call(f"/documents/{pdoc['external_id']}/status")["status"]
+        if pstatus != "processing":
+            break
+        time.sleep(0.05)
+    assert pstatus == "completed", pstatus
+    assert call(f"/documents/{pdoc['external_id']}")["system_metadata"]["page_count"] == 2
+    q_img = "data:image/jpeg;base64," + base64.b64encode(encode_jpeg(page, 90)[0]).decode()
+    img_hits = call("/retrieve/chunks", json.dumps({"query_image": q_img, "k": 3}).encode())
+    assert img_hits[0]["document_id"] == doc["external_id"], img_hits
+    assert {h["document_id"] for h in img_hits} == {doc["external_id"], pdoc["external_id"]}, img_hits
     on_loop(server.stop())
     on_loop(services.shutdown())
     loop.call_soon_threadsafe(loop.stop)

@@ -14,8 +14,14 @@
   server's top-k over ingested PNGs equals the JAX library stack fed the
   same pixels (each package embeds for itself: scores atol 5e-3, ids
   equal wherever the score gap exceeds that, as tests/test_torch_slice.py).
-- Refusals: other upload types answer 415, unported options 501, and
-  unported settings and a missing card raise at `build_services`.
+- Refusals: what the page decoders still refuse (a progressive JPEG,
+  GIF, video) answers 415, unported options 501, and unported settings
+  and a missing card raise at `build_services`.
+- Documents as pages: the port server and the JAX server given the same
+  PDF, JPEG (color and gray), PPTX and DOCX uploads under the same ids
+  store byte-identical JPEG page payloads with the same page metadata,
+  and answer text and JPEG image retrieves with the same ids; a PNG's
+  stored payload is the q80 JPEG PIL writes of it.
 - The text path: the port server and the JAX server given the same
   `/ingest/text` documents (the same ids) answer `use_colpali=false`
   retrieves with the same ids and scores (with `use_reranking`: the same
@@ -201,6 +207,12 @@ def _page(rng, h, w, n_blocks=6):
 def _pil_png(img, **kw) -> bytes:
     buf = io.BytesIO()
     img.save(buf, format="PNG", **kw)
+    return buf.getvalue()
+
+
+def _pil_jpeg(img, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, format="JPEG", **kw)
     return buf.getvalue()
 
 
@@ -696,12 +708,14 @@ def _same_ranking(ids_a, sa, ids_b, sb, atol):
 
 
 def test_http_topk_matches_jax_library(servers):
-    """JAX: `_embed_prepped` on `preprocess_image_u8(PIL page)`, then
+    """JAX: `_embed_prepped` on `preprocess_image_u8` of each page's stored
+    payload (the q80 JPEG PIL writes, decoded by PIL), then
     `TPUMultiVectorStore.query_similar`, with the port's FDE geometry."""
     jm, pages, docs = servers["jm"], servers["pages"], servers["docs"]["torch"]
     jsettings = JSettings.model_validate({"model": {"matmul_precision": "bf16"}})
     jemb = JEmbedder(jsettings, model=jm)
-    prepped = [preprocess_image_u8(Image.fromarray(p), min_pixels=3136, max_pixels=602112) for p in pages]
+    payloads = [_pil_jpeg(Image.fromarray(p), quality=80) for p in pages]
+    prepped = [preprocess_image_u8(Image.open(io.BytesIO(j)), min_pixels=3136, max_pixels=602112) for j in payloads]
     embs = jemb._embed_prepped(prepped)
     fde = JFDE(dimension=DIM, num_repetitions=8, num_simhash_projections=4, projection_dimension=8)
     store = TPUMultiVectorStore(fde_config=fde, **SHIPPED)
@@ -716,35 +730,38 @@ def test_http_topk_matches_jax_library(servers):
         assert status == 200
         _same_ranking([c.document_id for c in want], [c.score for c in want],
                       [r["document_id"] for r in got], [r["score"] for r in got], atol=5e-3)
-    # an image query: page 3's own PNG comes back first in both
+    # an image query: page 3's own PNG comes back first in both, with its stored JPEG payload
     q_img = bytes_to_data_uri(encode_png(pages[3]), "image/png")
     status, got = _call(base, "POST", "/retrieve/chunks", {"query_image": q_img, "k": 4, "filters": pages_only})
-    want = _run(store.query_similar(embs[3], k=4))
+    q_emb = jemb._embed_prepped([preprocess_image_u8(Image.fromarray(pages[3]), min_pixels=3136,
+                                                     max_pixels=602112)])[0]
+    want = _run(store.query_similar(q_emb, k=4))
     assert status == 200 and got[0]["document_id"] == want[0].document_id == docs[3]["external_id"]
     _same_ranking([c.document_id for c in want], [c.score for c in want],
                   [r["document_id"] for r in got], [r["score"] for r in got], atol=5e-3)
-    assert got[0]["content"] == q_img and got[0]["metadata"] == {"is_image": True, "page": 0}
+    assert got[0]["content"] == bytes_to_data_uri(payloads[3], "image/jpeg")
+    assert got[0]["metadata"] == {"is_image": True, "page": 0}
 
 
-@pytest.mark.parametrize("kind", ["jpeg", "pdf", "text"])
+@pytest.mark.parametrize("kind", ["progressive_jpeg", "gif", "video"])
 def test_http_refuses_other_content_types(servers, kind):
-    """JPEG answers 415 with either `use_colpali`; a PDF, and a text-bearing
-    Office file (DOCX), answer 415 with `use_colpali=true`, as their pages
-    need the rasterizer (item 3b); with `use_colpali=false` the port
-    ingests their text (tests of the text path below)."""
-    if kind == "jpeg":
+    """What the port still does not ingest answers 415 with either
+    `use_colpali`, naming ROADMAP item 3b-ii: a progressive JPEG (the
+    decoder reads baseline only), GIF (no decoder) and video."""
+    img = Image.fromarray(servers["pages"][0])
+    if kind == "progressive_jpeg":
+        data, name, ctype = _pil_jpeg(img, progressive=True), "p.jpg", "image/jpeg"
+    elif kind == "gif":
         buf = io.BytesIO()
-        Image.fromarray(servers["pages"][0]).save(buf, format="JPEG")
-        data, name, ctype = buf.getvalue(), "p.jpg", "image/jpeg"
-    elif kind == "pdf":
-        data, name, ctype = b"%PDF-1.4\n1 0 obj<<>>endobj\ntrailer<<>>\n%%EOF\n", "p.pdf", "application/pdf"
+        img.save(buf, format="GIF")
+        data, name, ctype = buf.getvalue(), "p.gif", "image/gif"
     else:
-        data, name, ctype = _docx("plain words"), "a.docx", "application/octet-stream"
-    status, body = _upload(servers["base"]["torch"], name, data, ctype)
-    assert status == 415 and "ROADMAP Queue 1 item 3b" in body["detail"]
-    if kind == "jpeg":
-        status, body = _upload(servers["base"]["torch"], name, data, ctype, fields={"use_colpali": "false"})
-        assert status == 415 and "ROADMAP Queue 1 item 3b" in body["detail"]
+        data, name, ctype = b"\x00\x00\x00\x18ftypmp42" + bytes(64), "v.mp4", "video/mp4"
+    for fields in (None, {"use_colpali": "false"}):
+        status, body = _upload(servers["base"]["torch"], name, data, ctype, fields=fields)
+        assert status == 415 and "ROADMAP Queue 1 item 3b-ii" in body["detail"], body
+    if kind == "progressive_jpeg":
+        assert "progressive" in body["detail"]
 
 
 def test_http_undecodable_query_image_answers_400(servers):
@@ -864,7 +881,8 @@ def test_restart_keeps_rows_and_the_jax_server_reads_them(tmp_path):
             status, chunks = _call(base, "POST", "/batch/chunks",
                                    {"sources": [{"document_id": d, "chunk_number": 0}], "use_colpali": True})
             assert status == 200 and [c["document_id"] for c in chunks] == [d]
-            assert chunks[0]["content"] == bytes_to_data_uri(encode_png(page), "image/png")
+            # the reference's page payload: the q80 JPEG PIL writes of the page
+            assert chunks[0]["content"] == bytes_to_data_uri(_pil_jpeg(Image.fromarray(page), quality=80), "image/jpeg")
         port_queries = {text: services.colpali_embedding_model.embed_query(text) for text in QUERIES}
         lt.run(srv.stop())
         lt.run(services.shutdown())
@@ -1310,3 +1328,134 @@ def test_text_only_server_and_png_without_colpali(tmp_path):
         lt.run(services.shutdown())
     finally:
         lt.close()
+
+
+# ------------------------------------------------------- documents as pages
+
+
+def _pptx(slides) -> bytes:
+    buf = io.BytesIO()
+    ns = "http://schemas.openxmlformats.org/drawingml/2006/main"
+    with zipfile.ZipFile(buf, "w") as z:
+        for i, lines in enumerate(slides, start=1):
+            runs = "".join(f"<a:p><a:r><a:t>{t}</a:t></a:r></a:p>" for t in lines)
+            z.writestr(f"ppt/slides/slide{i}.xml",
+                       f'<p:sld xmlns:a="{ns}" xmlns:p="p"><a:txBody>{runs}</a:txBody></p:sld>')
+    return buf.getvalue()
+
+
+def _doc_uploads(rng):
+    """(name, bytes, content type) of each page-image upload kind: a PDF
+    (a blank "." page among text pages, one page without text), a color
+    JPEG wider than 1024 px, a gray JPEG, a PPTX, a DOCX of two pages."""
+    pdf_pages = [_prose(rng, 60) + " office affluent AV WAVE" for _ in range(5)]
+    pdf_pages[2] = "."
+    pdf_pages[4] = ""
+    wide = _page(rng, 300, 1100, n_blocks=8)
+    gray = Image.fromarray(_page(rng, 200, 150)).convert("L")
+    return [
+        ("report.pdf", _text_pdf(pdf_pages), "application/pdf"),
+        ("wide.jpg", _pil_jpeg(Image.fromarray(wide), quality=90), "image/jpeg"),
+        ("gray.jpg", _pil_jpeg(gray, quality=75), "image/jpeg"),
+        ("deck.pptx", _pptx([["Quarterly revenue", "AV office"], ["Supplier invoice", _prose(rng, 20)]]),
+         "application/octet-stream"),
+        ("memo.docx", _docx(_prose(rng, 520)), "application/octet-stream"),
+    ]
+
+
+def _doc_settings(root: Path, name: str) -> dict:
+    raw = _raw_settings(root, name)
+    raw["worker"] = {"max_jobs": 1, "raster_processes": 2, "colpali_store_batch_size": 2, "ingest_embed_prefetch": 1}
+    return raw
+
+
+@pytest.fixture(scope="module")
+def doc_servers(tmp_path_factory):
+    """The port server and the JAX server (fixture model; a 2-process
+    raster pool, store batches of 2), each given the same document
+    uploads under the same document ids."""
+    import uuid
+
+    root = tmp_path_factory.mktemp("docs")
+    uploads = _doc_uploads(np.random.default_rng(51))
+    lt = _LoopThread()
+    out = {"uploads": uploads, "base": {}, "docs": {}, "services": {}}
+    srvs = []
+    mp = pytest.MonkeyPatch()
+    try:
+        for name in ("torch", "jax"):
+            if name == "torch":
+                services = build_services(Settings.from_dict(_doc_settings(root, name)),
+                                          colqwen_model=TModel.from_fixture(FIXTURE, device="cpu"), device="cpu")
+                srv = HTTPServer(build_app(services), "127.0.0.1", 0)
+            else:
+                services = j_build_services(JSettings.model_validate(_doc_settings(root, name)),
+                                            colqwen_model=JModel.from_fixture(FIXTURE))
+                srv = JHTTPServer(j_build_app(services), "127.0.0.1", 0)
+            lt.run(services.initialize())
+            lt.run(srv.start())
+            srvs.append((srv, services))
+            base = out["base"][name] = f"http://127.0.0.1:{srv.port}"
+            out["services"][name] = services
+            mp.setattr(uuid, "uuid4", _SeqIds())
+            docs = []
+            for fname, data, ctype in uploads:
+                status, doc = _upload(base, fname, data, ctype)
+                assert status == 200, doc
+                docs.append(doc["external_id"])
+                _wait_completed(base, docs[-1:], timeout_s=120)
+            mp.undo()
+            out["docs"][name] = docs
+        yield out
+    finally:
+        mp.undo()
+        for srv, services in srvs:
+            lt.run(srv.stop())
+            lt.run(services.shutdown())
+        lt.close()
+
+
+def _page_chunks(base, doc_id, n=12):
+    status, chunks = _call(base, "POST", "/batch/chunks", {
+        "sources": [{"document_id": doc_id, "chunk_number": k} for k in range(n)], "use_colpali": True})
+    assert status == 200
+    return [(c["chunk_number"], c["content"], c["metadata"]) for c in chunks]
+
+
+@pytest.mark.parametrize("kind", ["pdf", "jpeg", "gray_jpeg", "pptx", "docx"])
+def test_http_document_pages_match_jax_server(doc_servers, kind):
+    """The same upload under the same id: byte-identical page payloads
+    (q70 JPEGs of the raster pool for the PDF, q80 `_image_to_data_uri`
+    JPEGs for the rest), the same page metadata and page count."""
+    i = ["pdf", "jpeg", "gray_jpeg", "pptx", "docx"].index(kind)
+    tid, jid = doc_servers["docs"]["torch"][i], doc_servers["docs"]["jax"][i]
+    assert tid == jid
+    got, want = _page_chunks(doc_servers["base"]["torch"], tid), _page_chunks(doc_servers["base"]["jax"], jid)
+    assert [(n, m) for n, _, m in got] == [(n, m) for n, _, m in want]
+    assert all(c.startswith("data:image/jpeg;base64,") for _, c, _ in got)
+    assert [c for _, c, _ in got] == [c for _, c, _ in want]
+    tdoc = _call(doc_servers["base"]["torch"], "GET", f"/documents/{tid}")[1]
+    jdoc = _call(doc_servers["base"]["jax"], "GET", f"/documents/{jid}")[1]
+    assert tdoc["system_metadata"]["page_count"] == jdoc["system_metadata"]["page_count"] == len(got)
+    if kind.endswith("jpeg"):  # the reference also indexes an image's bytes as text (ROADMAP Queue 3)
+        assert tdoc["chunk_ids"] == [f"{tid}-0"]
+    else:
+        assert tdoc["chunk_ids"] == jdoc["chunk_ids"]
+    if kind == "pdf":  # page 2 ("." alone) is blank and skipped; the others keep their true index
+        assert [m["page"] for _, _, m in got] == [0, 1, 3, 4]
+
+
+def test_http_document_retrieve_matches_jax_server(doc_servers):
+    """Text queries and a JPEG image query of a stored PDF page: the same
+    tiny-model ids from both servers (each package embeds its own stored
+    payload's pixels: scores within the slice tests' 5e-3)."""
+    tbase, jbase = doc_servers["base"]["torch"], doc_servers["base"]["jax"]
+    pdf_page = _page_chunks(tbase, doc_servers["docs"]["torch"][0])[1][1]
+    bodies = [{"query": q, "k": 5} for q in QUERIES + ["supplier invoice renewal"]]
+    bodies.append({"query_image": pdf_page, "k": 5})
+    for body in bodies:
+        (ts_, tres), (js_, jres) = [_call(b, "POST", "/retrieve/chunks", body) for b in (tbase, jbase)]
+        assert ts_ == js_ == 200 and len(tres) == len(jres) == 5
+        _same_ranking([(r["document_id"], r["chunk_number"]) for r in jres], [r["score"] for r in jres],
+                      [(r["document_id"], r["chunk_number"]) for r in tres], [r["score"] for r in tres], atol=5e-3)
+    assert (tres[0]["document_id"], tres[0]["chunk_number"]) == (doc_servers["docs"]["torch"][0], 1)
