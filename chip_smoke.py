@@ -109,6 +109,25 @@ Phases (each raises on failure; none is caught):
      {"documents": {...}} line (raster ms per stage, PDF pages/s, host
      cores, embed batches, retrieve p50/p99, image query ms, peak memory,
      launches).
+ 12. the corpus routes on phase 11's server, before it stops (the counts
+     are reset for it): folders /Reports and /Reports/2026, two PNG pages
+     ingested into the second; 40 folder-scoped retrieves (folder_depth
+     -1: every result in the folder) beside 40 unscoped ones, each
+     through K1, and each folder page's image self-query top-1 in its
+     folder; /retrieve/docs equal to the grouping of the same chunks; the
+     rename of /Reports to /Archive keeps the answers; update_file of one
+     page (K3 = 28 per tower forward, its old row tombstoned, its
+     self-query top-1, /documents/{id}/file and /documents/pages give the
+     new bytes and q80 payload); /embeddings of two pages and two texts
+     bit-identical to the in-process embed_for_ingestion (K3 = 28 per
+     image forward); an app token refused (401) after its rotation, the
+     new one taken; v2 ingest of phase 11's PDF, a sentence of page 7
+     finding page 7; /logs/profile/device twice for 2 s while a thread
+     retrieves (the first start in a process initialises CUPTI), each
+     Chrome trace naming maxsim_mma_kernel. Prints a {"corpus": {...}}
+     line (scoped / unscoped p50 / p99, update_file s, /embeddings ms, v2
+     ingest s, each capture's route s, the profiler's start / stop /
+     export s from the route's log, trace bytes, launches).
  10. the text index at a real size, in process: a TextVectorStore on the
      card with 200,000 rows of 768 (the toml's embedding dimensions;
      seeded unit vectors, texts of 20-60 words from a seeded 30,000-word
@@ -129,6 +148,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import logging
 import re
 import shutil
 import subprocess
@@ -912,22 +932,41 @@ class Client:
         self.base = base
 
     def call(self, method: str, path: str, body=None, ctype: str = "application/json"):
+        status, raw = self.request(method, path, body, ctype)
+        if status != 200:
+            raise AssertionError(f"{method} {path}: HTTP {status} {raw[:500]!r}")
+        return json.loads(raw)
+
+    def request(self, method: str, path: str, body=None, ctype: str = "application/json", token=None):
+        """-> (status, raw body), whatever the status."""
+        import urllib.error
         import urllib.request
 
         if isinstance(body, (dict, list)):
             body = json.dumps(body).encode()
-        req = urllib.request.Request(self.base + path, data=body, method=method, headers={"Content-Type": ctype})
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            return json.loads(resp.read())
+        headers = {"Content-Type": ctype}
+        if token is not None:
+            headers["Authorization"] = f"Bearer {token}"
+        req = urllib.request.Request(self.base + path, data=body, method=method, headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
 
-    def upload(self, filename: str, data: bytes, ctype: str = "image/png", fields=None):
-        """POST /ingest/file with a multipart body built by hand."""
+    @staticmethod
+    def multipart(filename: str, data: bytes, ctype: str, fields=None):
+        """-> (body, content type) of a multipart upload built by hand."""
         boundary = "chip-smoke-boundary-7f3a"
         body = b"".join(f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
                         for k, v in (fields or {}).items())
         body += (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{filename}"\r\n'
                  f"Content-Type: {ctype}\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
-        return self.call("POST", "/ingest/file", body, f"multipart/form-data; boundary={boundary}")
+        return body, f"multipart/form-data; boundary={boundary}"
+
+    def upload(self, filename: str, data: bytes, ctype: str = "image/png", fields=None, path: str = "/ingest/file"):
+        """POST a multipart upload (by default to /ingest/file)."""
+        return self.call("POST", path, *self.multipart(filename, data, ctype, fields))
 
 
 class ServerThread:
@@ -1571,6 +1610,8 @@ def documents_phase(torch, model, _kernels, smi):
             if err > SCORE_ATOL:
                 raise AssertionError(f"{key!r}: HTTP scores differ from the store's by {err}")
         phases = got["report.pdf"]["system_metadata"]["phase_times"]
+        corpus = corpus_phase(torch, server, client, _kernels, smi, files["report.pdf"][0], forward_batches,
+                              k3_per_forward)
     finally:
         model.embed_image_batch = tower
         server.stop()
@@ -1583,7 +1624,7 @@ def documents_phase(torch, model, _kernels, smi):
         "retrieve_n": len(lat), "retrieve_p50_ms": float(np.percentile(lat, 50)),
         "retrieve_p99_ms": float(np.percentile(lat, 99)), "image_query_ms": image_ms, "peak_gb": peak_gb,
         "host_maxrss_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024,
-        "boot_s": boot_s, "launches": launches, "jpeg_fixtures": fixtures,
+        "boot_s": boot_s, "launches": launches, "jpeg_fixtures": fixtures, "corpus": corpus,
     }
     log(f"  PDF of {DOC_PDF_PAGES} pages ({len(pdf_chunks)} stored, page {DOC_BLANK_PAGE} blank) in "
         f"{ingest_s['report.pdf']:.3f} s ({documents['pdf_pages_per_s']:.3f} pages/s; job phases s "
@@ -1593,6 +1634,239 @@ def documents_phase(torch, model, _kernels, smi):
         f"{documents['retrieve_p99_ms']:.3f} ms over {len(lat)}; JPEG image query {image_ms:.3f} ms; peak mem GB "
         f"{peak_gb:.2f}; HTTP results equal the in-process store's")
     return documents
+
+
+CORPUS_REPEATS = 10  # folder-scoped and unscoped retrieves of each text query
+PROFILE_S = 2.0  # the device profile's window
+
+
+def _percentiles(lat) -> dict:
+    import numpy as np
+
+    return {"n": len(lat), "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def corpus_phase(torch, server, client, _kernels, smi, pdf: bytes, forward_batches, k3_per_forward):
+    """Phase 12: the corpus routes on phase 11's server (before it stops):
+    folders and folder-scoped retrieves, a folder rename, /retrieve/docs,
+    update_file, /embeddings, app-token rotation, v2 and the device
+    profile. The counts are reset here and read at the end."""
+    import threading
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.models.schemas import Chunk
+    from morphik_core_tpu_torch.parser.pdf import extract_pages_text
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+    from morphik_core_tpu_torch.utils.jpeg import encode_jpeg
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    services = server.services
+    emb, store = services.colpali_embedding_model, services.colpali_vector_store
+    t_phase = time.perf_counter()
+    _kernels.reset_launch_counts()  # the corpus path starts here
+    reports = client.call("POST", "/folders", {"name": "Reports"})
+    year = client.call("POST", "/folders", {"name": "2026", "parent_path": "/Reports"})
+    if year["path"] != "/Reports/2026" or year["parent_id"] != reports["id"]:
+        raise AssertionError(f"folder /Reports/2026: {year}")
+    pages = service_pages()[:2]
+    pngs = [encode_png(p) for p in pages]
+    fdocs = [client.upload(f"folder{i}.png", data, fields={"folder_name": "Reports/2026"})["external_id"]
+             for i, data in enumerate(pngs)]
+    _wait_completed(client, fdocs)
+    for d in fdocs:
+        if client.call("GET", f"/documents/{d}")["folder_path"] != "/Reports/2026":
+            raise AssertionError(f"{d} is not in /Reports/2026")
+
+    def retrieve(body):
+        before = _kernels.launch_counts["maxsim_q8"]
+        t = time.perf_counter()
+        res = client.call("POST", "/retrieve/chunks", body)
+        return res, (time.perf_counter() - t) * 1e3, _kernels.launch_counts["maxsim_q8"] - before
+
+    lat = {"scoped": [], "unscoped": []}
+    k1, scoped = [], {}
+    for text in QUERIES:
+        for rep in range(CORPUS_REPEATS):
+            for kind, extra in (("scoped", {"folder_name": "/Reports", "folder_depth": -1}), ("unscoped", {})):
+                res, ms, n_k1 = retrieve({"query": text, "k": 4, **extra})
+                lat[kind].append(ms)
+                k1.append(n_k1)
+                if kind == "scoped":
+                    if not res or not {r["document_id"] for r in res} <= set(fdocs):
+                        raise AssertionError(f"a scoped retrieve left the folder: {res}")
+                    scoped[text] = [(r["document_id"], r["chunk_number"], r["score"]) for r in res]
+    for d, png in zip(fdocs, pngs):  # each folder page's self-query, scoped
+        res, _, n_k1 = retrieve({"query_image": bytes_to_data_uri(png, "image/png"), "k": 2,
+                                 "folder_name": "/Reports", "folder_depth": -1})
+        k1.append(n_k1)
+        if res[0]["document_id"] != d:
+            raise AssertionError(f"the self-query of {d} is not top-1 in its folder: {res}")
+    if min(k1) <= 0:
+        raise AssertionError(f"a retrieve did not launch K1: {k1}")
+
+    # /retrieve/docs groups the same chunks: each document's best chunk
+    for text in QUERIES:
+        docs = client.call("POST", "/retrieve/docs", {"query": text, "k": 4, "folder_name": "/Reports",
+                                                      "folder_depth": -1})
+        best = {}
+        for d, _, score in scoped[text]:
+            best[d] = max(best.get(d, -1e30), score)
+        got = {x["document_id"]: x["score"] for x in docs}
+        if set(got) != set(best) or max(abs(got[d] - best[d]) for d in got) > SCORE_ATOL:
+            raise AssertionError(f"/retrieve/docs {text!r}: {got} vs the chunks' grouping {best}")
+
+    # rename /Reports to /Archive: the same answers under the new path
+    if client.call("POST", f"/folders/{reports['id']}/rename", {"new_name": "Archive"})["path"] != "/Archive":
+        raise AssertionError("the rename did not take")
+    for text in QUERIES:
+        res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4, "folder_name": "/Archive",
+                                                       "folder_depth": -1})
+        got = [(r["document_id"], r["chunk_number"], r["score"]) for r in res]
+        if [g[:2] for g in got] != [w[:2] for w in scoped[text]] or max(
+                abs(g[2] - w[2]) for g, w in zip(got, scoped[text])) > SCORE_ATOL:
+            raise AssertionError(f"{text!r} under /Archive: {got} vs {scoped[text]}")
+    if client.call("GET", f"/documents/{fdocs[0]}")["folder_path"] != "/Archive/2026":
+        raise AssertionError("the rename did not reach the documents")
+
+    # update_file: a new page replaces folder page 0 (the tower runs again)
+    index = store._indexes["default"]
+
+    def rows_of(doc):
+        rows = [r for r in range(index.count_rows) if index.records[r].document_id == doc]
+        return sum(bool(index._alive[r]) for r in rows), len(rows)
+
+    new_page = np.ascontiguousarray(service_pages()[5][::-1])
+    new_png = encode_png(new_page)
+    k3_before, n_fwd = _kernels.launch_counts["window_attention"], len(forward_batches)
+    alive_before, _ = rows_of(fdocs[0])
+    t = time.perf_counter()
+    updated = client.upload("replaced.png", new_png, path=f"/documents/{fdocs[0]}/update_file")
+    update_s = time.perf_counter() - t
+    k3_update = _kernels.launch_counts["window_attention"] - k3_before
+    update_forwards = len(forward_batches) - n_fwd
+    if updated["system_metadata"]["status"] != "completed" or updated["filename"] != "replaced.png":
+        raise AssertionError(f"update_file: {updated['system_metadata']}")
+    if update_forwards < 1 or k3_update != k3_per_forward * update_forwards:
+        raise AssertionError(f"update_file: K3 {k3_update} over {update_forwards} forwards")
+    alive, total = rows_of(fdocs[0])
+    if alive_before != 1 or alive != 1 or total < 2:
+        raise AssertionError(f"update_file: the document has {alive} live of {total} rows (before: {alive_before})")
+    res, _, _ = retrieve({"query_image": bytes_to_data_uri(new_png, "image/png"), "k": 2})
+    if (res[0]["document_id"], res[0]["chunk_number"]) != (fdocs[0], 0):
+        raise AssertionError(f"the new page's self-query: {res}")
+    status, raw = client.request("GET", f"/documents/{fdocs[0]}/file")
+    if status != 200 or raw != new_png:
+        raise AssertionError("/documents/{id}/file does not return the new bytes")
+    pages_out = client.call("POST", "/documents/pages", {"document_id": fdocs[0], "end_page": 0})["pages"]
+    if [p["image"] for p in pages_out] != [bytes_to_data_uri(encode_jpeg(new_page, 80)[0], "image/jpeg")]:
+        raise AssertionError("/documents/pages does not return the new page's q80 payload")
+
+    # /embeddings: two page images and two texts, equal to the in-process embed
+    images = [bytes_to_data_uri(p, "image/png") for p in pngs]
+    texts = QUERIES[:2]
+    embed_ms, k3_embed, embed_forwards = {}, 0, 0
+    for kind, inputs in (("image", images), ("text", texts)):
+        k3_before, n_fwd = _kernels.launch_counts["window_attention"], len(forward_batches)
+        t = time.perf_counter()
+        status, raw = client.request("POST", "/embeddings", {"input_type": kind, "inputs": inputs})
+        embed_ms[kind] = (time.perf_counter() - t) * 1e3
+        k3_embed += _kernels.launch_counts["window_attention"] - k3_before
+        embed_forwards += len(forward_batches) - n_fwd
+        import io
+
+        npz = np.load(io.BytesIO(raw))
+        want = emb.embed_for_ingestion_sync([Chunk(content=v, metadata={"is_image": kind == "image"})
+                                             for v in inputs])[0]
+        if status != 200 or npz.files != [f"emb_{i}" for i in range(len(inputs))] or not all(
+                np.array_equal(npz[f"emb_{i}"], w) for i, w in enumerate(want)):
+            raise AssertionError(f"/embeddings {kind}: not bit-identical to embed_for_ingestion")
+    if embed_forwards < 1 or k3_embed != k3_per_forward * embed_forwards:
+        raise AssertionError(f"/embeddings: K3 {k3_embed} over {embed_forwards} image forwards")
+
+    # apps: a minted token answers until its app's token is rotated
+    app = client.call("POST", "/cloud/generate_uri", {"name": "smoke-app"})
+    token_a = app["uri"].split(":", 2)[2].rsplit("@", 1)[0]
+    body = {"query": QUERIES[0], "k": 1}
+    if client.request("POST", "/retrieve/chunks", body, token=token_a)[0] != 200:
+        raise AssertionError("the app token is refused before its rotation")
+    rotated = client.call("POST", "/apps/rotate_token", {"app_id": app["app_id"]})
+    token_b = rotated["uri"].split(":", 2)[2].rsplit("@", 1)[0]
+    statuses = (client.request("POST", "/retrieve/chunks", body, token=token_a)[0],
+                client.request("POST", "/retrieve/chunks", body, token=token_b)[0])
+    if statuses != (401, 200):
+        raise AssertionError(f"after the rotation the old and new tokens answer {statuses}, expected (401, 200)")
+
+    # v2: phase 11's PDF, a sentence of page n finds page n
+    t = time.perf_counter()
+    v2doc = client.upload("report.pdf", pdf, "application/pdf", path="/v2/documents")
+    v2_ingest_s = time.perf_counter() - t
+    page_texts = extract_pages_text(pdf)
+    n = 7
+    sentence = max(page_texts[n].split("\n"), key=len)
+    hits = client.call("POST", "/v2/retrieve/chunks", {"query": sentence, "k": 3})
+    if v2doc["system_metadata"]["status"] != "completed" or hits[0]["metadata"]["page"] != n:
+        raise AssertionError(f"v2: a sentence of page {n} found page {hits[0]['metadata']['page']}")
+
+    # the device profile while another thread retrieves; the route logs its
+    # profiler's start / stop / export seconds
+    halt, n_bg = threading.Event(), [0]
+    route_log = logging.getLogger("morphik_core_tpu_torch.api.app")
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    level = route_log.level
+    route_log.setLevel(logging.INFO)
+    route_log.addHandler(handler)
+
+    def background():
+        while not halt.is_set():
+            client.call("POST", "/retrieve/chunks", {"query": QUERIES[1], "k": 4})
+            n_bg[0] += 1
+
+    thread = threading.Thread(target=background)
+    thread.start()
+    captures = []
+    try:
+        # two captures: the first start in a process initialises CUPTI
+        for _ in range(2):
+            t, bg = time.perf_counter(), n_bg[0]
+            prof = client.call("POST", "/logs/profile/device", {"seconds": PROFILE_S})
+            captures.append({"route_s": time.perf_counter() - t, "retrieves_beside": n_bg[0] - bg,
+                             "trace": Path(prof["trace_dir"]) / "trace.json"})
+    finally:
+        halt.set()
+        thread.join(timeout=120)
+        route_log.removeHandler(handler)
+        route_log.setLevel(level)
+    steps = [r.args[1:] for r in records if r.msg.startswith("device profile")]
+    if len(steps) != len(captures):
+        raise AssertionError(f"the profile route logged {len(steps)} of {len(captures)} captures")
+    for cap, step in zip(captures, steps):
+        trace_path = cap.pop("trace")
+        trace = trace_path.read_text()
+        cap.update(zip(("start_s", "stop_s", "export_s"), step))
+        cap["trace_bytes"] = trace_path.stat().st_size
+        cap["names"] = {k: k in trace for k in ("maxsim_mma_kernel", "window_attention_mma_kernel")}
+        if not cap["names"]["maxsim_mma_kernel"] or cap["retrieves_beside"] <= 0:
+            raise AssertionError(f"the device trace does not name the MaxSim kernel: {cap}")
+    launches = dict(_kernels.launch_counts)  # the corpus path ends here
+    out = {
+        "card": smi, "scoped_retrieve": _percentiles(lat["scoped"]), "unscoped_retrieve": _percentiles(lat["unscoped"]),
+        "retrieve_k1": k1, "update_file_s": update_s, "update_forwards": update_forwards, "update_k3": k3_update,
+        "embeddings_ms": embed_ms, "embeddings_image_forwards": embed_forwards, "embeddings_k3": k3_embed,
+        "v2_ingest_s": v2_ingest_s, "v2_pages": v2doc["system_metadata"]["page_count"],
+        "profiles": captures, "launches": launches, "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"phase 12: corpus routes on phase 11's server ({smi}): scoped retrieve p50 "
+        f"{out['scoped_retrieve']['p50_ms']:.3f} ms p99 {out['scoped_retrieve']['p99_ms']:.3f} ms, unscoped p50 "
+        f"{out['unscoped_retrieve']['p50_ms']:.3f} ms p99 {out['unscoped_retrieve']['p99_ms']:.3f} ms over "
+        f"{len(lat['scoped'])} each (K1 {sum(k1)}); the rename keeps the answers; update_file {update_s:.3f} s to "
+        f"completed ({update_forwards} forward, K3 {k3_update}); /embeddings ms {json.dumps(embed_ms)} (K3 "
+        f"{k3_embed}); app token rotation 401 / 200; v2 ingest of {out['v2_pages']} pages {v2_ingest_s:.3f} s; "
+        f"device profiles (route s, the profiler's start / stop / export s, retrieves beside it, trace bytes, kernels "
+        f"named) {json.dumps(captures)}; launches {launches}; phase {out['phase_s']:.3f} s")
+    return out
 
 
 def persistence_phase(torch, index, path: Path, answers5, answers6, smi):
@@ -2040,7 +2314,8 @@ def main() -> None:
              shape=case["case"],
              text_launches=service["rerank_launches"][name] + service["colpali_text_launches"][name],
              documents_launches=documents["launches"]["ingest"][name] + (
-                 sum(documents["launches"]["retrieve_k1"]) if name == "maxsim_q8" else 0))
+                 sum(documents["launches"]["retrieve_k1"]) if name == "maxsim_q8" else 0),
+             corpus_launches=documents["corpus"]["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -2057,7 +2332,9 @@ def main() -> None:
     print(smi)
     print(json.dumps({"service": service}))
     print(json.dumps({"persistence": persistence}))
+    corpus = documents.pop("corpus")
     print(json.dumps({"documents": documents}))
+    print(json.dumps({"corpus": corpus}))
     print(json.dumps({"text_index": text_index}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-"""Metadata database on sqlite (stdlib): port of the parts of
-`morphik_core_tpu/database/sqlite_database.py` that the ColPali serving
-path calls. The DDL is the reference's, verbatim, so a database written
-by either package opens in the other.
+"""Metadata database on sqlite (stdlib): port of
+`morphik_core_tpu/database/sqlite_database.py`: documents, folders (with
+the tenant-scoped subtree rewrites of move and rename), chats, model
+configs and storage-usage accounting. The DDL and the SQL are the
+reference's, verbatim, so a database written by either package opens in
+the other.
 
 Access control follows the reference (cloud mode scopes by app_id,
 self-hosted by owner_id); retrieval only sees status='completed'
@@ -15,6 +17,7 @@ import json
 import logging
 import sqlite3
 import threading
+import uuid
 from datetime import UTC, datetime
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
@@ -216,6 +219,17 @@ class SQLiteDatabase:
             return None
         return self._row_to_document(row)
 
+    async def get_document_by_filename(
+        self, filename: str, auth: AuthContext, system_filters: Optional[Dict[str, Any]] = None
+    ) -> Optional[Document]:
+        clause, params = self._access_clause(auth)
+        sql = f"SELECT * FROM documents WHERE filename = ? AND {clause}"
+        params = [filename] + params
+        sql, params = self._apply_system_filters(sql, params, system_filters)
+        with self._lock:
+            row = self._conn.execute(sql + " ORDER BY updated_at DESC", params).fetchone()
+        return self._row_to_document(row) if row else None
+
     def _apply_system_filters(self, sql: str, params: list, system_filters: Optional[Dict[str, Any]]):
         if not system_filters:
             return sql, params
@@ -387,6 +401,247 @@ class SQLiteDatabase:
             self._conn.commit()
         return True
 
+    async def search_documents_by_name(
+        self, auth: AuthContext, query: str, limit: int = 20, system_filters: Optional[Dict[str, Any]] = None
+    ) -> List[Document]:
+        clause, params = self._access_clause(auth)
+        sql = f"SELECT * FROM documents WHERE {clause} AND filename LIKE ?"
+        params = params + [f"%{query}%"]
+        sql, params = self._apply_system_filters(sql, params, system_filters)
+        with self._lock:
+            rows = self._conn.execute(sql + " ORDER BY updated_at DESC LIMIT ?", params + [limit]).fetchall()
+        return [self._row_to_document(r) for r in rows]
+
+    # ------------------------------------------------------------- folders
+
+    async def create_folder(
+        self,
+        name: str,
+        auth: AuthContext,
+        description: Optional[str] = None,
+        parent_path: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        """The folder at `parent_path/name` (an existing one is returned as
+        it is); missing ancestors are created first, without description."""
+        path = _normalize_path((parent_path.rstrip("/") + "/" + name) if parent_path else name)
+        existing = await self.get_folder_by_path(path, auth)
+        if existing:
+            return existing
+        parts = [p for p in path.strip("/").split("/") if p]
+        parent_id = None
+        for depth in range(1, len(parts) + 1):
+            sub_path = "/" + "/".join(parts[:depth])
+            row = await self.get_folder_by_path(sub_path, auth)
+            if row:
+                parent_id = row["id"]
+                continue
+            fid = str(uuid.uuid4())
+            now = _now_iso()
+            with self._lock:
+                self._conn.execute(
+                    "INSERT INTO folders (id, name, path, parent_id, owner_id, app_id, description, created_at, updated_at)"
+                    " VALUES (?,?,?,?,?,?,?,?,?)",
+                    (fid, parts[depth - 1], sub_path, parent_id,
+                     auth.entity_id, auth.app_id,
+                     description if depth == len(parts) else None, now, now),
+                )
+                self._conn.commit()
+            parent_id = fid
+        out = await self.get_folder_by_path(path, auth)
+        assert out is not None
+        return out
+
+    def _folder_row_to_dict(self, row: sqlite3.Row) -> Dict[str, Any]:
+        return {
+            "id": row["id"],
+            "name": row["name"],
+            "path": row["path"],
+            "full_path": row["path"],
+            "parent_id": row["parent_id"],
+            "description": row["description"],
+            "system_metadata": json.loads(row["system_metadata"] or "{}"),
+            "created_at": row["created_at"],
+            "updated_at": row["updated_at"],
+        }
+
+    async def get_folder_by_path(self, path: str, auth: AuthContext) -> Optional[Dict[str, Any]]:
+        path = _normalize_path(path)
+        clause, params = self._access_clause(auth)
+        with self._lock:
+            row = self._conn.execute(
+                f"SELECT * FROM folders WHERE path = ? AND {clause}", [path] + params
+            ).fetchone()
+        return self._folder_row_to_dict(row) if row else None
+
+    async def get_folder(self, folder_id: str, auth: AuthContext) -> Optional[Dict[str, Any]]:
+        clause, params = self._access_clause(auth)
+        with self._lock:
+            row = self._conn.execute(
+                f"SELECT * FROM folders WHERE id = ? AND {clause}", [folder_id] + params
+            ).fetchone()
+        return self._folder_row_to_dict(row) if row else None
+
+    async def list_folders(self, auth: AuthContext, parent_path: Optional[str] = None) -> List[Dict[str, Any]]:
+        clause, params = self._access_clause(auth)
+        sql = f"SELECT * FROM folders WHERE {clause}"
+        if parent_path is not None:
+            parent = await self.get_folder_by_path(parent_path, auth)
+            if parent is None:
+                return []
+            sql += " AND parent_id = ?"
+            params = params + [parent["id"]]
+        with self._lock:
+            rows = self._conn.execute(sql + " ORDER BY path", params).fetchall()
+        return [self._folder_row_to_dict(r) for r in rows]
+
+    async def delete_folder(self, folder_id: str, auth: AuthContext) -> bool:
+        """The folder and its subtree, in the caller's tenant only (another
+        tenant may own the same path); documents keep their paths."""
+        folder = await self.get_folder(folder_id, auth)
+        if folder is None:
+            return False
+        clause, params = self._access_clause(auth)
+        with self._lock:
+            self._conn.execute(
+                f"DELETE FROM folders WHERE (path = ? OR path LIKE ?) AND {clause}",
+                [folder["path"], folder["path"].rstrip("/") + "/%"] + params,
+            )
+            self._conn.commit()
+        return True
+
+    def _rewrite_subtree_paths(self, old_path: str, new_path: str, clause: str, params: list) -> None:
+        """Re-root every descendant folder path and document folder_path
+        from old_path to new_path, in the caller's tenant only and
+        prefix-safe (a substring REPLACE would corrupt a sibling like
+        '/a/ab'). The caller commits or rolls back."""
+        prefix = old_path.rstrip("/") + "/"
+        rows = self._conn.execute(
+            f"SELECT id, path FROM folders WHERE path LIKE ? AND {clause}",
+            [prefix + "%"] + params,
+        ).fetchall()
+        for r in rows:
+            self._conn.execute(
+                "UPDATE folders SET path = ? WHERE id = ?",
+                (new_path.rstrip("/") + "/" + r["path"][len(prefix):], r["id"]),
+            )
+        self._conn.execute(
+            f"UPDATE documents SET folder_path = ? || substr(folder_path, ?)"
+            f" WHERE (folder_path = ? OR folder_path LIKE ?) AND {clause}",
+            [new_path, len(old_path) + 1, old_path, prefix + "%"] + params,
+        )
+
+    def _move_subtree(self, folder_id: str, set_sql: str, set_params: tuple, old_path: str, new_path: str,
+                      auth: AuthContext) -> None:
+        """One transaction: the folder's own row, then its subtree."""
+        clause, params = self._access_clause(auth)
+        with self._lock:
+            try:
+                self._conn.execute(f"UPDATE folders SET {set_sql} WHERE id = ?", set_params + (folder_id,))
+                self._rewrite_subtree_paths(old_path, new_path, clause, params)
+                self._conn.commit()
+            except Exception:
+                self._conn.rollback()
+                raise
+
+    async def move_folder(self, folder_id: str, new_parent_path: Optional[str], auth: AuthContext) -> bool:
+        """Move under `new_parent_path` (None: the root). Refused (False):
+        a missing folder or parent, a move into its own subtree, a taken
+        destination path."""
+        folder = await self.get_folder(folder_id, auth)
+        if folder is None:
+            return False
+        old_path = folder["path"]
+        new_parent = _normalize_path(new_parent_path) if new_parent_path else ""
+        new_path = (new_parent.rstrip("/") + "/" + folder["name"]) if new_parent else "/" + folder["name"]
+        if new_path == old_path:
+            return True
+        if new_parent == old_path or new_parent.startswith(old_path.rstrip("/") + "/"):
+            return False
+        if await self.get_folder_by_path(new_path, auth) is not None:
+            return False
+        if new_parent:
+            parent = await self.get_folder_by_path(new_parent, auth)
+            if parent is None:
+                return False
+            parent_id = parent["id"]
+        else:
+            parent_id = None
+        self._move_subtree(folder_id, "path = ?, parent_id = ?, updated_at = ?", (new_path, parent_id, _now_iso()),
+                           old_path, new_path, auth)
+        return True
+
+    async def rename_folder(self, folder_id: str, new_name: str, auth: AuthContext) -> bool:
+        """Rename the leaf segment of a folder path; subtree folder paths
+        and document folder_path values follow. Refused (False): a
+        missing folder, an empty name or one with '/', a taken name."""
+        folder = await self.get_folder(folder_id, auth)
+        if folder is None or not new_name or "/" in new_name:
+            return False
+        old_path = folder["path"]
+        parent = old_path.rstrip("/").rsplit("/", 1)[0]
+        new_path = (parent + "/" + new_name) if parent else "/" + new_name
+        if new_path == old_path:
+            return True
+        if await self.get_folder_by_path(new_path, auth) is not None:
+            return False
+        self._move_subtree(folder_id, "name = ?, path = ?, updated_at = ?", (new_name, new_path, _now_iso()),
+                           old_path, new_path, auth)
+        return True
+
+    async def update_folder_metadata(self, folder_id: str, updates: Dict[str, Any], auth: AuthContext) -> bool:
+        """Merge keys into the folder's system_metadata JSON."""
+        folder = await self.get_folder(folder_id, auth)
+        if folder is None:
+            return False
+        merged = {**folder.get("system_metadata", {}), **updates}
+        with self._lock:
+            self._conn.execute(
+                "UPDATE folders SET system_metadata=?, updated_at=? WHERE id=?",
+                (json.dumps(merged), _now_iso(), folder_id),
+            )
+            self._conn.commit()
+        return True
+
+    async def list_folders_summary(self, auth: AuthContext) -> List[Dict[str, Any]]:
+        """Compact folder list with document counts."""
+        clause, params = self._access_clause(auth)
+        with self._lock:
+            rows = self._conn.execute(
+                f"""SELECT f.id, f.name, f.path, f.updated_at,
+                          (SELECT COUNT(*) FROM documents d
+                            WHERE (d.folder_path = f.path OR d.folder_id = f.id)
+                              AND d.owner_id IS f.owner_id
+                              AND d.app_id IS f.app_id) AS doc_count
+                    FROM folders f WHERE {clause} ORDER BY f.path""",
+                params,
+            ).fetchall()
+        return [
+            {"id": r["id"], "name": r["name"], "path": r["path"],
+             "doc_count": r["doc_count"], "updated_at": r["updated_at"]}
+            for r in rows
+        ]
+
+    async def set_document_folder(self, document_id: str, folder: Optional[Dict[str, Any]], auth: AuthContext) -> bool:
+        """Put the document in `folder` (None: take it out of any)."""
+        doc = await self.get_document(document_id, auth)
+        if doc is None:
+            return False
+        with self._lock:
+            if folder is None:
+                self._conn.execute(
+                    "UPDATE documents SET folder_name=NULL, folder_path=NULL, folder_id=NULL WHERE external_id=?",
+                    (document_id,),
+                )
+            else:
+                self._conn.execute(
+                    "UPDATE documents SET folder_name=?, folder_path=?, folder_id=? WHERE external_id=?",
+                    (folder["name"], folder["path"], folder["id"], document_id),
+                )
+            self._conn.commit()
+        return True
+
+    # --------------------------------------------------------------- chats
+
     @staticmethod
     def _chat_owned(row, user_id: Optional[str], app_id: Optional[str]) -> bool:
         """Chat scoping mirrors document scoping: cloud callers match on
@@ -424,6 +679,74 @@ class SQLiteDatabase:
             self._conn.commit()
         return True
 
+    async def list_chats(self, user_id: Optional[str], app_id: Optional[str], limit: int = 100) -> List[Dict[str, Any]]:
+        sql = "SELECT chat_id, user_id, app_id, title, created_at, updated_at FROM chats WHERE 1=1"
+        params: list = []
+        if app_id:
+            sql += " AND app_id = ?"
+            params.append(app_id)
+        elif user_id:
+            sql += " AND user_id = ?"
+            params.append(user_id)
+        with self._lock:
+            rows = self._conn.execute(sql + " ORDER BY updated_at DESC LIMIT ?", params + [limit]).fetchall()
+        return [dict(r) for r in rows]
+
+    async def update_chat_title(self, chat_id: str, title: str, user_id: Optional[str], app_id: Optional[str]) -> bool:
+        with self._lock:
+            row = self._conn.execute("SELECT user_id, app_id FROM chats WHERE chat_id = ?", (chat_id,)).fetchone()
+            if row is None or not self._chat_owned(row, user_id, app_id):
+                return False
+            cur = self._conn.execute(
+                "UPDATE chats SET title = ?, updated_at = ? WHERE chat_id = ?", (title, _now_iso(), chat_id)
+            )
+            self._conn.commit()
+        return cur.rowcount > 0
+
+    # -------------------------------------------------------- model configs
+
+    async def store_model_config(self, user_id: str, app_id: Optional[str], provider: str,
+                                 config_data: Dict[str, Any]) -> str:
+        cid = str(uuid.uuid4())
+        now = _now_iso()
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO model_configs (id, user_id, app_id, provider, config_data, created_at, updated_at) "
+                "VALUES (?,?,?,?,?,?,?)",
+                (cid, user_id, app_id, provider, json.dumps(config_data), now, now),
+            )
+            self._conn.commit()
+        return cid
+
+    async def get_model_configs(self, user_id: str, app_id: Optional[str]) -> List[Dict[str, Any]]:
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT * FROM model_configs WHERE user_id = ? AND (app_id IS ? OR app_id = ?)",
+                (user_id, app_id, app_id),
+            ).fetchall()
+        return [
+            {"id": r["id"], "provider": r["provider"], "config_data": json.loads(r["config_data"]),
+             "created_at": r["created_at"], "updated_at": r["updated_at"]}
+            for r in rows
+        ]
+
+    async def update_model_config(self, config_id: str, user_id: str, config_data: Dict[str, Any]) -> bool:
+        with self._lock:
+            cur = self._conn.execute(
+                "UPDATE model_configs SET config_data = ?, updated_at = ? WHERE id = ? AND user_id = ?",
+                (json.dumps(config_data), _now_iso(), config_id, user_id),
+            )
+            self._conn.commit()
+        return cur.rowcount > 0
+
+    async def delete_model_config(self, config_id: str, user_id: str) -> bool:
+        with self._lock:
+            cur = self._conn.execute("DELETE FROM model_configs WHERE id = ? AND user_id = ?", (config_id, user_id))
+            self._conn.commit()
+        return cur.rowcount > 0
+
+    # ------------------------------------------------------- storage usage
+
     async def add_storage_bytes(self, auth: AuthContext, delta: int) -> int:
         key = (auth.app_id or "", auth.entity_id or "")
         with self._lock:
@@ -433,6 +756,14 @@ class SQLiteDatabase:
                 (key[0], key[1], delta),
             )
             self._conn.commit()
+            row = self._conn.execute(
+                "SELECT bytes FROM storage_usage WHERE app_id = ? AND owner_id = ?", key
+            ).fetchone()
+        return int(row["bytes"]) if row else 0
+
+    async def get_storage_bytes(self, auth: AuthContext) -> int:
+        key = (auth.app_id or "", auth.entity_id or "")
+        with self._lock:
             row = self._conn.execute(
                 "SELECT bytes FROM storage_usage WHERE app_id = ? AND owner_id = ?", key
             ).fetchone()

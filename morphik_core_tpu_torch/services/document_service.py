@@ -1,8 +1,9 @@
 """Query side of the service plane: port of
 `morphik_core_tpu/services/document_service.py` (`retrieve_chunks`
-`:85-168`, `_apply_padding`, `retrieve_chunks_grouped`,
-`batch_retrieve_chunks`, `query` `:265-330`, `_create_chunk_results`,
-`_create_document_results`, `delete_document`).
+`:85-168`, `_apply_padding`, `retrieve_chunks_grouped`, `retrieve_docs`,
+`batch_retrieve_documents`, `batch_retrieve_chunks`, `query` `:265-330`,
+`_create_chunk_results`, `_create_document_results`, `delete_document`,
+the document and folder summaries `:446-515`).
 
 The query embedding and the auth + filter document lookup run
 concurrently. With ColPali (`use_colpali`, default
@@ -13,6 +14,10 @@ a data URI or base64 PNG or JPEG) is decoded by `utils/image.py`. Without it, th
 hybrid text store answers (`query_text` for BM25), and `use_reranking`
 oversamples max(k, min(3k, 20)) chunks for the reranker, then keeps k.
 As in the reference, the reranker runs only off the ColPali path.
+`folder_name` / `folder_depth` scope a retrieve through the document ids
+the database yields. A summary is a UTF-8 blob of at most 256 KB in the
+storage bucket `summaries`, versioned in its document's or folder's
+system metadata.
 
 Not ported yet (ROADMAP Queue 1 item 3g): `output_format="text"`, the
 vision completion that transcribes a page.
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+from datetime import datetime, timezone
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from morphik_core_tpu_torch.completion.models import BaseCompletionModel
@@ -37,6 +43,7 @@ from morphik_core_tpu_torch.models.schemas import (
     CompletionRequest,
     DocumentChunk,
     DocumentContent,
+    Document,
     DocumentResult,
     GroupedChunkResponse,
 )
@@ -217,6 +224,24 @@ class DocumentService:
         return GroupedChunkResponse(chunks=results, groups=list(groups.values()), total_results=len(results),
                                     has_padding=bool(pads))
 
+    async def retrieve_docs(self, query: str, auth: AuthContext, **kwargs) -> List[DocumentResult]:
+        """`retrieve_chunks`, grouped by document: each document's best chunk."""
+        results = await self.retrieve_chunks(query, auth, **kwargs)
+        chunks = [DocumentChunk(document_id=r.document_id, chunk_number=r.chunk_number, content=r.content,
+                                embedding=[], metadata=r.metadata, score=r.score) for r in results]
+        return await self._create_document_results(auth, chunks)
+
+    async def batch_retrieve_documents(
+        self, document_ids: List[str], auth: AuthContext,
+        folder_name: Optional[Union[str, List[str]]] = None, end_user_id: Optional[str] = None,
+    ) -> List[Document]:
+        system_filters: Dict[str, Any] = {}
+        if folder_name is not None:
+            system_filters["folder_name"] = folder_name
+        if end_user_id:
+            system_filters["end_user_id"] = end_user_id
+        return await self.db.get_documents_by_id(document_ids, auth, system_filters)
+
     async def batch_retrieve_chunks(
         self,
         chunk_ids: Sequence[Tuple[str, int]],
@@ -375,3 +400,54 @@ class DocumentService:
             except Exception as e:  # noqa: BLE001
                 logger.warning("storage delete failed: %s", e)
         return await self.db.delete_document(document_id, auth)
+
+    # ------------------------------------------------------------- summaries
+
+    SUMMARY_MAX_BYTES = 256 * 1024
+    SUMMARY_BUCKET = "summaries"
+
+    async def _summary_entity_metadata(self, entity: str, entity_id: str, auth: AuthContext):
+        if entity == "document":
+            doc = await self.db.get_document(entity_id, auth)
+            return None if doc is None else doc.system_metadata
+        folder = await self.db.get_folder(entity_id, auth)
+        return None if folder is None else folder.get("system_metadata", {})
+
+    async def get_summary(self, entity: str, entity_id: str, auth: AuthContext) -> Optional[Dict[str, Any]]:
+        """{content, storage_key, bucket, version, updated_at} of the
+        document's (`entity="document"`) or folder's summary; None when
+        the entity or its summary is missing."""
+        metadata = await self._summary_entity_metadata(entity, entity_id, auth)
+        if metadata is None:
+            return None
+        key = metadata.get("summary_storage_key")
+        if not key:
+            return None
+        try:
+            content = (await self.storage.download_file(self.SUMMARY_BUCKET, key)).decode("utf-8")
+        except FileNotFoundError:
+            return None
+        return {"content": content, "storage_key": key, "bucket": self.SUMMARY_BUCKET,
+                "version": int(metadata.get("summary_version") or 1), "updated_at": metadata.get("summary_updated_at")}
+
+    async def upsert_summary(self, entity: str, entity_id: str, content: str,
+                             auth: AuthContext) -> Optional[Dict[str, Any]]:
+        """Store the next version of the summary. Raises ValueError past
+        256 KB; None when the entity is missing."""
+        data = content.encode("utf-8")
+        if len(data) > self.SUMMARY_MAX_BYTES:
+            raise ValueError(f"summary exceeds {self.SUMMARY_MAX_BYTES // 1024}KB limit")
+        metadata = await self._summary_entity_metadata(entity, entity_id, auth)
+        if metadata is None:
+            return None
+        version = int(metadata.get("summary_version") or 0) + 1
+        key = f"{entity}/{entity_id}/v{version}.txt"
+        await self.storage.upload_file(data, key, "text/plain", bucket=self.SUMMARY_BUCKET)
+        updated_at = datetime.now(timezone.utc).isoformat()
+        updates = {"summary_storage_key": key, "summary_version": version, "summary_updated_at": updated_at}
+        if entity == "document":
+            await self.db.update_document(entity_id, {"system_metadata": updates}, auth)
+        else:
+            await self.db.update_folder_metadata(entity_id, updates, auth)
+        return {"content": content, "storage_key": key, "bucket": self.SUMMARY_BUCKET, "version": version,
+                "updated_at": updated_at}

@@ -26,13 +26,17 @@ Uploads: everything but video, images other than PNG and baseline JPEG,
 and JPEGs the decoder does not read (progressive, arithmetic, lossless,
 12-bit, CMYK): those answer 415 (ROADMAP Queue 1 item 3b-ii).
 
+`folder_name` on either ingest path puts the document in that folder
+(created, with its ancestors, when missing). `update_document` merges
+metadata, or re-ingests new text or a new file under the same id (the
+old chunks deleted from both stores first; a new file's type detected
+again and its job run again, so its pages run the tower again).
+
 Differences from the reference, recorded in ROADMAP Queue 3: an image
 upload's bytes are not decoded as text (the reference indexes them as
 UTF-8 text in the text store); an image, PPTX or DOCX that fails to
 decode or render fails the job, where the reference logs it and goes on
 without page images.
-
-Not ported yet (ROADMAP Queue 1): folders (item 3d).
 """
 
 from __future__ import annotations
@@ -110,11 +114,6 @@ def _image_to_data_uri(pixels: np.ndarray, mode: str, palette: Optional[np.ndarr
     return bytes_to_data_uri(data, "image/jpeg"), coeffs
 
 
-def _refuse_folder(folder_name: Optional[str]) -> None:
-    if folder_name:
-        raise NotImplementedError("folders are not ported (ROADMAP Queue 1 item 3d)")
-
-
 class IngestionService:
     def __init__(
         self,
@@ -164,15 +163,16 @@ class IngestionService:
     ) -> Document:
         """Split and store `content` in the request; the document is
         `completed` (or `failed`, re-raising) when this returns."""
-        _refuse_folder(folder_name)
         doc = Document(
             content_type="text/plain",
             filename=filename,
             metadata=metadata or {},
             metadata_types=metadata_types or {},
+            folder_name=folder_name,
             end_user_id=end_user_id,
             app_id=auth.app_id,
         )
+        await self._resolve_folder(doc, folder_name, auth)
         await self.db.store_document(doc, auth)
         try:
             chunks = await self.parser.split_text(content)
@@ -211,17 +211,18 @@ class IngestionService:
         raises `UnsupportedContentType`."""
         ctype = detect_content_type(file_bytes, filename, content_type)
         check_upload(ctype, file_bytes)
-        _refuse_folder(folder_name)
         doc = Document(
             content_type=ctype,
             filename=filename,
             metadata=metadata or {},
             metadata_types=metadata_types or {},
+            folder_name=folder_name,
             end_user_id=end_user_id,
             app_id=auth.app_id,
         )
         if external_id:
             doc.external_id = external_id
+        await self._resolve_folder(doc, folder_name, auth)
         key = f"ingest/{doc.external_id}/{filename or 'file'}"
         bucket, key = await self.storage.upload_file(file_bytes, key, ctype)
         doc.storage_info = {"bucket": bucket, "key": key}
@@ -501,3 +502,64 @@ class IngestionService:
                     await fut
             raise
         return n
+
+    # -------------------------------------------------------------- update
+
+    async def update_document(
+        self,
+        document_id: str,
+        auth: AuthContext,
+        *,
+        content: Optional[str] = None,
+        file_bytes: Optional[bytes] = None,
+        filename: Optional[str] = None,
+        metadata: Optional[Dict[str, Any]] = None,
+        use_colpali: bool = True,
+    ) -> Optional[Document]:
+        """`ingestion_service.py:514-563`: merge `metadata` into the
+        document's; with `content` or `file_bytes`, delete its chunks from
+        both stores and ingest the new content under the same id (a file:
+        stored, its type detected again, its job run in this call). ->
+        the document as stored, None when not found. A replacement the
+        port does not ingest raises `UnsupportedContentType`."""
+        doc = await self.db.get_document(document_id, auth)
+        if doc is None:
+            return None
+        if file_bytes is not None:
+            new_name = filename or doc.filename
+            ctype = detect_content_type(file_bytes, new_name)
+            check_upload(ctype, file_bytes)
+        if metadata is not None:
+            await self.db.update_document(document_id, {"metadata": {**doc.metadata, **metadata}}, auth)
+        if content is None and file_bytes is None:
+            return await self.db.get_document(document_id, auth)
+        if self.colpali_vector_store is not None:
+            await self.colpali_vector_store.delete_chunks_by_document_id(document_id, auth.app_id)
+        await self.vector_store.delete_chunks_by_document_id(document_id, auth.app_id)
+        if file_bytes is not None:
+            key = f"ingest/{doc.external_id}/{new_name or 'file'}"
+            bucket, key = await self.storage.upload_file(file_bytes, key, ctype)
+            await self.db.update_document(
+                document_id,
+                {"storage_info": {"bucket": bucket, "key": key}, "filename": new_name, "content_type": ctype,
+                 "system_metadata": {"status": "processing"}},
+                auth,
+            )
+            return await self.process_ingestion_job(document_id, auth, use_colpali)
+        text_chunks = await self.parser.split_text(content)
+        doc.chunk_ids = []
+        await self._embed_and_store(doc, text_chunks, [], auth, use_colpali)
+        await self.db.update_document(
+            document_id, {"system_metadata": {"status": "completed"}, "chunk_ids": doc.chunk_ids}, auth
+        )
+        return await self.db.get_document(document_id, auth)
+
+    async def _resolve_folder(self, doc: Document, folder_name: Optional[str], auth: AuthContext) -> None:
+        """Put `doc` in the folder `folder_name` names (a path or a leaf
+        name), creating it and its ancestors when missing."""
+        if not folder_name:
+            return
+        folder = await self.db.create_folder(folder_name.strip("/"), auth)
+        doc.folder_name = folder["name"]
+        doc.folder_path = folder["path"]
+        doc.folder_id = folder["id"]

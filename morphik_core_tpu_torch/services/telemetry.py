@@ -1,6 +1,7 @@
 """Telemetry: JSONL span export + phase timers. Copy of
-`morphik_core_tpu/services/telemetry.py:27-158` (`PerformanceTracker`,
-`TelemetryService`: `track_operation`, `flush`), as the routes use them.
+`morphik_core_tpu/services/telemetry.py` (`PerformanceTracker`,
+`TelemetryService`: `track_operation`, `flush`; `TelemetryEventReader`
+for `GET /logs`), as the routes use them.
 
 Hand-rolled equivalent of the reference's OpenTelemetry +
 PerformanceTracker setup: spans written as JSONL under logs/telemetry/,
@@ -80,6 +81,11 @@ class TelemetryService:
         self._buffer: List[Dict[str, Any]] = []
         self._initialized = True
 
+    @classmethod
+    def reset(cls) -> None:
+        with cls._lock:
+            cls._instance = None
+
     def record_span(self, span: Dict[str, Any]) -> None:
         if not self.enabled:
             return
@@ -127,3 +133,50 @@ class TelemetryService:
         finally:
             span["duration_s"] = time.perf_counter() - t0
             self.record_span(span)
+
+
+class TelemetryEventReader:
+    """Recent spans of the local JSONL files, newest first, filtered by
+    operation type, status, user and start time (`GET /logs`)."""
+
+    def __init__(self, log_dir: str | Path = "./logs/telemetry"):
+        self.log_dir = Path(log_dir)
+
+    def query(
+        self,
+        since: Optional[datetime] = None,
+        operation_type: Optional[str] = None,
+        status: Optional[str] = None,
+        user_id: Optional[str] = None,
+        limit: int = 100,
+    ) -> List[Dict[str, Any]]:
+        if not self.log_dir.exists():
+            return []
+        events: List[Dict[str, Any]] = []
+        for path in sorted(self.log_dir.glob("spans_*.jsonl"), reverse=True):
+            try:
+                lines = path.read_text().splitlines()
+            except OSError:
+                continue
+            for line in reversed(lines):
+                try:
+                    ev = json.loads(line)
+                except json.JSONDecodeError:
+                    continue
+                if operation_type and ev.get("operation") != operation_type:
+                    continue
+                if status and ev.get("status") != status:
+                    continue
+                if user_id and ev.get("user_id") != user_id:
+                    continue
+                if since is not None:
+                    try:
+                        ts = datetime.fromisoformat(ev.get("start", ""))
+                    except ValueError:
+                        continue
+                    if ts < since:
+                        continue
+                events.append(ev)
+                if len(events) >= limit:
+                    return events
+        return events

@@ -5,8 +5,10 @@ hashing text embedder and the hybrid text store (`{storage_path}/text_index`),
 with `morphik.enable_colpali` the ColPali embedder and its multivector
 store (persisted under `vector_store.index_path`), the reranker (the
 ColQwen reranker beside the ColPali embedder, else the lexical one), the
-stub completion model, telemetry with its log uploader, and the job
-queue, all on one device.
+stub completion model, telemetry with its log uploader, the job queue,
+the app registry (`{storage_path}/user_limits.db`, shared with the JAX
+package) and the v2 pipeline with its in-memory chunk store, all on one
+device.
 
 Settings that select a part the port does not have yet raise
 `NotImplementedError` naming the ROADMAP item, rather than serve another
@@ -38,7 +40,10 @@ from morphik_core_tpu_torch.services.document_service import DocumentService
 from morphik_core_tpu_torch.services.ingestion_service import IngestionService
 from morphik_core_tpu_torch.services.log_uploader import Heartbeat, LogUploader
 from morphik_core_tpu_torch.services.telemetry import TelemetryService
+from morphik_core_tpu_torch.services.user_service import UserService
+from morphik_core_tpu_torch.services.v2_document_service import V2DocumentService
 from morphik_core_tpu_torch.storage.local_storage import LocalStorage
+from morphik_core_tpu_torch.vector_store.chunk_v2_store import ChunkV2Store
 from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
 from morphik_core_tpu_torch.workers.job_queue import JobQueue
@@ -85,6 +90,8 @@ class Services:
     ingestion_service: IngestionService
     telemetry: TelemetryService
     job_queue: JobQueue
+    user_service: UserService
+    v2_document_service: V2DocumentService
     log_uploader: Optional[LogUploader] = None
     heartbeat: Optional[Heartbeat] = None
 
@@ -225,6 +232,7 @@ def build_services(
         max_jobs=settings.worker.max_jobs,
         job_timeout_s=settings.worker.job_timeout_s,
     )
+    v2_document_service = V2DocumentService(database, storage, parser, embedding_model, ChunkV2Store())
     return Services(
         settings=settings,
         database=database,
@@ -238,4 +246,6 @@ def build_services(
         ingestion_service=ingestion_service,
         telemetry=telemetry,
         job_queue=job_queue,
+        user_service=UserService(storage_root / "user_limits.db"),
+        v2_document_service=v2_document_service,
     )

@@ -772,3 +772,140 @@ def test_http_text_round_trip_on_card(sm90, tmp_path):
         on_loop(services.shutdown())
         loop.call_soon_threadsafe(loop.stop)
         thread.join(timeout=30)
+
+
+def _card_server(tmp_path):
+    """The port's server on the card (tiny random int8 model, static
+    scales) on a background loop -> (services, call, base, stop)."""
+    import asyncio
+    import json
+    import threading
+    import urllib.request
+
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.services_init import build_services
+
+    services = build_services(Settings.from_dict({
+        "storage": {"storage_path": str(tmp_path / "storage")}, "database": {"path": str(tmp_path / "db.sqlite")},
+        "vector_store": {"index_path": str(tmp_path / "index")},
+        "telemetry": {"telemetry_dir": str(tmp_path / "logs" / "telemetry")},
+        "model": {"static_act_scales": True},
+    }))  # no device: the card
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
+
+    on_loop(services.initialize())
+    server = HTTPServer(build_app(services), "127.0.0.1", 0)
+    on_loop(server.start())
+    base = f"http://127.0.0.1:{server.port}"
+
+    def call(path, body=None, raw=False, ctype="application/json"):
+        data = json.dumps(body).encode() if isinstance(body, dict) else body
+        req = urllib.request.Request(base + path, data=data, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out = resp.read()
+        return out if raw else json.loads(out)
+
+    def stop():
+        on_loop(server.stop())
+        on_loop(services.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)
+
+    return services, call, base, stop
+
+
+def _card_page(seed):
+    rng = np.random.default_rng(seed)
+    page = np.full((224, 336, 3), 255, np.uint8)
+    for _ in range(6):
+        y, x = int(rng.integers(0, 180)), int(rng.integers(0, 290))
+        page[y : y + 40, x : x + 40] = rng.integers(0, 200, 3)
+    return page
+
+
+@pytest.mark.cuda
+def test_embeddings_route_on_card_launches_k3_and_equals_embed_for_ingestion(sm90, tmp_path):
+    """`/embeddings` of two page images on the card: K3 once in each
+    windowed vision block of each tower forward (28 a forward at the 3B
+    geometry; the tiny model's count here), and the npz equals
+    `embed_for_ingestion` of the same chunks in process, bit for bit."""
+    import io
+
+    from morphik_core_tpu_torch.models.schemas import Chunk
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    services, call, _, stop = _card_server(tmp_path)
+    try:
+        model = services.colpali_embedding_model.model
+        windowed = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+        forwards = []
+        tower = model.embed_image_batch
+
+        def counted(patches, *a, **kw):
+            forwards.append(int(patches.shape[0]))
+            return tower(patches, *a, **kw)
+
+        model.embed_image_batch = counted
+        images = [bytes_to_data_uri(encode_png(_card_page(s)), "image/png") for s in (1, 2)]
+        _kernels.reset_launch_counts()
+        npz = np.load(io.BytesIO(call("/embeddings", {"input_type": "image", "inputs": images}, raw=True)))
+        launches = dict(_kernels.launch_counts)
+        assert forwards and launches["window_attention"] == windowed * len(forwards), (launches, forwards)
+        want = services.colpali_embedding_model.embed_for_ingestion_sync(
+            [Chunk(content=u, metadata={"is_image": True}) for u in images])[0]
+        assert npz.files == ["emb_0", "emb_1"]
+        for i, w in enumerate(want):
+            assert np.array_equal(npz[f"emb_{i}"], w)
+        model.embed_image_batch = tower
+    finally:
+        stop()
+
+
+@pytest.mark.cuda
+def test_device_profile_route_on_card_names_the_maxsim_kernel(sm90, tmp_path):
+    """`/logs/profile/device` for 2 s while another thread retrieves: the
+    Chrome trace names `maxsim_mma_kernel` (CUPTI records the kernels of
+    every thread)."""
+    import threading
+    import time
+    from pathlib import Path
+
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    services, call, _, stop = _card_server(tmp_path)
+    try:
+        b = "card-profile-boundary"
+        body = (f'--{b}\r\nContent-Disposition: form-data; name="file"; filename="p.png"\r\n'
+                "Content-Type: image/png\r\n\r\n").encode() + encode_png(_card_page(3)) + f"\r\n--{b}--\r\n".encode()
+        doc = call("/ingest/file", body, ctype=f"multipart/form-data; boundary={b}")
+        deadline = time.time() + 120
+        while call(f"/documents/{doc['external_id']}/status")["status"] == "processing":
+            assert time.time() < deadline
+            time.sleep(0.05)
+        halt = threading.Event()
+        n = [0]
+
+        def retrieves():
+            while not halt.is_set():
+                call("/retrieve/chunks", {"query": "quarterly revenue", "k": 1})
+                n[0] += 1
+
+        t = threading.Thread(target=retrieves)
+        t.start()
+        try:
+            out = call("/logs/profile/device", {"seconds": 2})
+        finally:
+            halt.set()
+            t.join(timeout=60)
+        trace = (Path(out["trace_dir"]) / "trace.json").read_text()
+        assert n[0] > 0 and "maxsim_mma_kernel" in trace, (n[0], len(trace))
+    finally:
+        stop()

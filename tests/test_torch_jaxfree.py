@@ -4,7 +4,9 @@ the shipped int8 embedder calibrates its static scales from the
 committed pages and serves ingest and queries, the bf16 embedder still
 runs, and the port's HTTP server boots on the CPU and answers an
 ingest -> retrieve -> query round trip over a socket, then ingests a
-PDF as page images and answers a JPEG image query."""
+PDF as page images and answers a JPEG image query, then creates a
+folder, ingests a page into it, answers a folder-scoped retrieve and an
+`/embeddings` call."""
 
 import re
 import subprocess
@@ -143,6 +145,26 @@ _GUARD = textwrap.dedent(
     img_hits = call("/retrieve/chunks", json.dumps({"query_image": q_img, "k": 3}).encode())
     assert img_hits[0]["document_id"] == doc["external_id"], img_hits
     assert {h["document_id"] for h in img_hits} == {doc["external_id"], pdoc["external_id"]}, img_hits
+    # the corpus routes: a folder, an ingest into it, a scoped retrieve, /embeddings
+    import io
+    folder = call("/folders", json.dumps({"name": "Scoped"}).encode())
+    body = (f'--{b}\\r\\nContent-Disposition: form-data; name="folder_name"\\r\\n\\r\\nScoped\\r\\n'
+            f'--{b}\\r\\nContent-Disposition: form-data; name="file"; filename="s.png"\\r\\n'
+            'Content-Type: image/png\\r\\n\\r\\n').encode() + encode_png(page[::-1].copy()) + f"\\r\\n--{b}--\\r\\n".encode()
+    sdoc = call("/ingest/file", body, f"multipart/form-data; boundary={b}")
+    assert sdoc["folder_path"] == folder["path"] == "/Scoped", sdoc
+    for _ in range(600):
+        if call(f"/documents/{sdoc['external_id']}/status")["status"] != "processing":
+            break
+        time.sleep(0.05)
+    scoped = call("/retrieve/chunks", json.dumps({"query": "quarterly revenue", "k": 3, "folder_name": "/Scoped",
+                                                  "folder_depth": -1}).encode())
+    assert [h["document_id"] for h in scoped] == [sdoc["external_id"]], scoped
+    req = urllib.request.Request(base + "/embeddings", data=json.dumps({"input_type": "image", "inputs": [q_img]}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        npz = np.load(io.BytesIO(resp.read()))
+    assert npz.files == ["emb_0"] and npz["emb_0"].shape[1] == cfg.embedding_dim, npz["emb_0"].shape
     on_loop(server.stop())
     on_loop(services.shutdown())
     loop.call_soon_threadsafe(loop.stop)
