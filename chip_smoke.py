@@ -128,6 +128,31 @@ Phases (each raises on failure; none is caught):
      line (scoped / unscoped p50 / p99, update_file s, /embeddings ms, v2
      ingest s, each capture's route s, the profiler's start / stop /
      export s from the route's log, trace bytes, launches).
+ 13. a real checkpoint on the card. Right after phase 3a, before phase
+     3b quantizes in place, phase 3a's bf16 weights are written as an HF
+     checkpoint (colpali_engine's names, 2 GiB shards, the index json,
+     config.json, the committed tokenizer.json fixture; ~7.5 GB), synced
+     with the advice to drop it from the page cache. After phase 12: the
+     share of its pages still cached is read; the port's tokenizer
+     gives the committed `tokenizers` ids of the fixture cases; the
+     failure modes (no custom_text_proj rejected, an f32 checkpoint loads
+     as bf16); a server from the shipped toml with model.checkpoint_path
+     set (no model passed in: loaded, quantized and calibrated at boot)
+     holds the same weights and scales as phase 3b's resident model, and
+     its embeddings of the 8 pages and the text queries equal that
+     model's, given the same tokenizer, bit for bit; one batch of 8 timed;
+     9 PNG pages over HTTP (K3 once per windowed block of each forward),
+     4 text queries x 10 retrieves and an image self-query (top-1), each
+     through K1 and equal to the in-process store; then a model from the
+     same checkpoint with attention_precision="int8" embeds the pages and
+     the queries with no K3 launch, within a cosine bound of the bf16
+     attention. Last, the files are dropped from the page cache again and
+     read once in 64 MiB reads: the disk's cold rate beside the load's.
+     The checkpoint is deleted. Prints a {"checkpoint": ...} line (write s
+     and GB, the share of its pages in the page cache before the load,
+     load s and peak host RSS, the cold read s, calibration and boot s,
+     pages/s with bf16 and int8 attention, retrieve p50 / p99, launches,
+     the card).
  10. the text index at a real size, in process: a TextVectorStore on the
      card with 200,000 rows of 768 (the toml's embedding dimensions;
      seeded unit vectors, texts of 20-60 words from a seeded 30,000-word
@@ -2253,6 +2278,295 @@ def text_index_phase(torch, smi):
     return out
 
 
+# phase 13: a real checkpoint on the card
+TOKENIZER_FIXTURE = ROOT / "tests" / "fixtures" / "tokenizer_bpe.json"
+TOKENIZER_CASES = ROOT / "tests" / "fixtures" / "tokenizer_cases.json"
+# where the 7.5 GB checkpoint is written: the temporary directory, which
+# had 80.2 GB free on the card's machine (PERF.md, phase 13's own print)
+CHECKPOINT_PARENT = None
+# int8 attention (the int8 QK^T, static scales) against bf16 attention,
+# both with the int8 + static matmuls, on the same random 3B weights: mean
+# per-token cosine of the 8 pages' embeddings, measured 0.9524 (min 0.889)
+# on one NVIDIA H100, and of the text queries' (dynamic scales), 0.9849
+# (min 0.971). The error compounds over 32 + 36 blocks, as W8A8's does.
+MIN_INT8_ATTENTION_COSINE = 0.94
+MIN_INT8_ATTENTION_QUERY_COSINE = 0.975
+
+
+def _drop_page_cache(files) -> None:
+    """Sync `files` to the disk and ask the kernel to drop their pages
+    (advice: `_page_cache_share` says what it did)."""
+    import os
+
+    for f in files:
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def _page_cache_share(files) -> float:
+    """The share of the pages of `files` held in the page cache: mincore(2)
+    over a shared read-only mapping of each, which reads nothing."""
+    import ctypes
+    import os
+
+    import numpy as np
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_long]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    page = os.sysconf("SC_PAGE_SIZE")
+    resident = total = 0
+    for f in files:
+        size = os.path.getsize(f)
+        if not size:
+            continue
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            addr = libc.mmap(None, size, 1, 1, fd, 0)  # PROT_READ, MAP_SHARED
+            if addr in (None, ctypes.c_void_p(-1).value):
+                raise OSError(ctypes.get_errno(), f"mmap of {f}")
+            try:
+                vec = np.zeros((size + page - 1) // page, np.uint8)
+                if libc.mincore(addr, size, vec.ctypes.data) != 0:
+                    raise OSError(ctypes.get_errno(), f"mincore of {f}")
+            finally:
+                libc.munmap(addr, size)
+        finally:
+            os.close(fd)
+        resident += int((vec & 1).sum())
+        total += len(vec)
+    return resident / max(total, 1)
+
+
+def _cold_read(files) -> tuple:
+    """Drop `files` from the page cache, then read each once in 64 MiB
+    reads: (the share cached before the read, bytes, seconds)."""
+    _drop_page_cache(files)
+    share = _page_cache_share(files)
+    n = 0
+    t0 = time.perf_counter()
+    for f in files:
+        with open(f, "rb", buffering=0) as fh:
+            while chunk := fh.read(64 << 20):
+                n += len(chunk)
+    return share, n, time.perf_counter() - t0
+
+
+def write_checkpoint_phase(torch, model):
+    """Phase 13, first half (right after phase 3a, before phase 3b
+    quantizes the weights in place): phase 3a's bf16 weights as an HF
+    checkpoint (2 GiB shards, the index json, config.json and the
+    committed tokenizer.json). The files are synced to the disk with the
+    advice to drop them from the page cache; the phase reports the share
+    that stays cached."""
+    from morphik_core_tpu_torch.models.colqwen.convert import write_hf_checkpoint
+
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=CHECKPOINT_PARENT))
+    free_gb = shutil.disk_usage(ckpt).free / 1e9
+    t0 = time.perf_counter()
+    stats = write_hf_checkpoint(model, ckpt, tokenizer_file=TOKENIZER_FIXTURE)
+    cached_s = time.perf_counter() - t0
+    _drop_page_cache(sorted(ckpt.iterdir()))
+    write_s = time.perf_counter() - t0
+    gb = stats["bytes"] / 1e9
+    log(f"phase 13 (write): phase 3a's bf16 weights as an HF checkpoint in {ckpt.parent} ({free_gb:.1f} GB free "
+        f"before): {stats['tensors']} tensors in {stats['shards']} shards, {gb:.3f} GB in {write_s:.3f} s "
+        f"({gb / write_s:.3f} GB/s with the fsync; {cached_s:.3f} s to the page cache)")
+    return ckpt, dict(stats, gb=gb, write_s=write_s, write_to_page_cache_s=cached_s, free_gb=free_gb,
+                      dir=str(ckpt.parent))
+
+
+def _differing_leaves(a, b) -> list:
+    """Names of the parameters and buffers (scales included) where two
+    models differ."""
+    la = dict(a.named_parameters()) | dict(a.named_buffers())  # a buffer left None is absent
+    lb = dict(b.named_parameters()) | dict(b.named_buffers())
+    return [n for n in sorted(set(la) | set(lb)) if n not in la or n not in lb or la[n].dtype != lb[n].dtype
+            or la[n].shape != lb[n].shape or not la[n].equal(lb[n])]
+
+
+def checkpoint_phase(torch, model, ckpt: Path, written: dict, _kernels, smi):
+    """Phase 13: the checkpoint of phase 3a served through
+    `model.checkpoint_path` (the shipped toml, no model passed in)."""
+    import gc
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.embedding.colpali_embedding_model import CALIBRATION_BATCH, ColpaliEmbeddingModel
+    from morphik_core_tpu_torch.models.colqwen.calibrate import calibration_batches, load_calibration_pages
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+    from morphik_core_tpu_torch.models.colqwen.tokenizer import QwenTokenizer
+    from morphik_core_tpu_torch.scripts.rehearse_checkpoint import (
+        peak_rss_gb,
+        rehearse_failure_modes,
+        reset_peak_rss,
+        rss_gb,
+    )
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+    from morphik_core_tpu_torch.utils.png import decode_png, encode_png
+
+    t_phase = time.perf_counter()
+    tok = QwenTokenizer.from_file(TOKENIZER_FIXTURE)
+    cases = json.loads(TOKENIZER_CASES.read_text(encoding="utf-8"))
+    bad = [c["text"] for c in cases if tok.encode(c["text"]) != c["ids"]]
+    if bad:
+        raise AssertionError(f"the port's tokenizer differs from the committed tokenizers ids on {bad!r}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_service_"))
+    failure_modes = rehearse_failure_modes(tmp / "failures")
+    if not all(failure_modes.values()):
+        raise AssertionError(f"checkpoint failure modes: {failure_modes}")
+    settings = service_settings(tmp)
+    settings.model.checkpoint_path = str(ckpt)
+    shards = sorted(ckpt.glob("*.safetensors"))
+    cached_share = _page_cache_share(shards)
+    reset_peak_rss()
+    rss_before = rss_gb()
+    t0 = time.perf_counter()
+    services = build_services(settings)  # no model passed: the checkpoint, loaded and calibrated at boot
+    rss_peak = peak_rss_gb()
+    server = ServerThread(services)
+    boot_s = time.perf_counter() - t0
+    emb, store = services.colpali_embedding_model, services.colpali_vector_store
+    cm = emb.model
+    load_s, cal_s = emb.last_metrics["checkpoint_load_s"], emb.last_metrics["calibration_s"]
+    log(f"phase 13: the checkpoint served through model.checkpoint_path (morphik_tpu.toml: {cm.matmul_precision} "
+        f"matmuls, static scales, {cm.attention_precision} attention): {cached_share:.4f} of the shards' pages in "
+        f"the page cache before the load; load {load_s:.3f} s "
+        f"({written['gb'] / load_s:.3f} GB/s read + convert + upload), host RSS {rss_before:.2f} GiB before and "
+        f"{rss_peak:.2f} GiB at its peak, calibration "
+        f"{cal_s:.3f} s, server up in {boot_s:.3f} s; tokenizer ids equal the committed ones on {len(cases)} cases; "
+        f"failure modes {failure_modes}")
+    client = Client(f"http://127.0.0.1:{server.server.port}")
+    try:
+        if cm.tokenizer is None or any(blk.attn_qk_as is None or blk.q_w.a_scale is None for blk in cm.visual.blocks):
+            raise AssertionError("the served checkpoint lacks its tokenizer or its calibrated scales")
+        # phase 3b's resident model was recalibrated at each server boot since phase 8, each time under its
+        # previous static scales (the reference's capture runs the tower as it serves); calibrate it afresh
+        # from dynamic scales, as the checkpoint's boot did
+        for blk in model.visual.blocks:
+            blk.set_qk_scales(None)
+            for name in ("q_w", "k_w", "v_w", "proj_w", "gate_w", "up_w", "down_w"):
+                getattr(blk, name).set_act_scale(None)
+        u8, (hu, wu) = load_calibration_pages()
+        model.calibrate_static_act_scales(calibration_batches(u8, CALIBRATION_BATCH), hu, wu)
+        differ = _differing_leaves(model, cm)
+        if differ:
+            raise AssertionError(f"the checkpoint model's weights or scales differ from phase 3b's: {differ[:8]}")
+        pages = _pages(cm.cfg)
+        stacked = np.stack([p for p, _ in pages])
+        model.tokenizer = cm.tokenizer  # phase 3b's resident model, given the same tokenizer
+        try:
+            want_pages, want_q = model.embed_image_batch(stacked, *GRID), model.embed_queries(QUERIES)
+        finally:
+            model.tokenizer = None
+        got_pages, got_q = cm.embed_image_batch(stacked, *GRID), cm.embed_queries(QUERIES)
+        if not (np.array_equal(got_pages, want_pages) and all(np.array_equal(a, b) for a, b in zip(got_q, want_q))):
+            raise AssertionError(
+                f"the checkpoint's embeddings differ from phase 3b's model: pages max "
+                f"{float(np.abs(got_pages - want_pages).max())}, queries max "
+                f"{max(float(np.abs(a - b).max()) for a, b in zip(got_q, want_q))}")
+        _, _, times_bf16, peak_bf16 = _embed_pages(torch, emb, pages)
+
+        pngs = [encode_png(p) for p in service_pages()]
+        _kernels.reset_launch_counts()  # the HTTP path of the checkpoint starts here
+        t0 = time.perf_counter()
+        docs = [client.upload(f"ckpt_page{i}.png", data)["external_id"] for i, data in enumerate(pngs)]
+        ingest_s = _wait_completed(client, docs) - t0
+        ingest_launches = dict(_kernels.launch_counts)
+        k3_per_forward = cm.cfg.vision.depth - len(cm.cfg.vision.fullatt_block_indexes)  # the windowed blocks: 28
+        if ingest_launches["window_attention"] != k3_per_forward * len(pngs):
+            raise AssertionError(f"ingest of {len(pngs)} pages (one forward each): K3 {ingest_launches}, expected "
+                                 f"{k3_per_forward} a forward")
+        lat, http_results = [], {}
+        for text in QUERIES:
+            for rep in range(RETRIEVE_REPEATS + 1):  # the first is a warm-up, untimed
+                t = time.perf_counter()
+                res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
+                if rep:
+                    lat.append((time.perf_counter() - t) * 1e3)
+            http_results[text] = res
+        img_res = client.call("POST", "/retrieve/chunks", {"query_image": bytes_to_data_uri(pngs[3], "image/png"),
+                                                           "k": 4})
+        if img_res[0]["document_id"] != docs[3]:
+            raise AssertionError(f"image self-query top-1 is {img_res[0]['document_id']}, expected {docs[3]}")
+        launches = dict(_kernels.launch_counts)  # and ends here
+        n_retrieves = len(QUERIES) * (RETRIEVE_REPEATS + 1) + 1
+        if launches["maxsim_q8"] - ingest_launches["maxsim_q8"] < n_retrieves:
+            raise AssertionError(f"{n_retrieves} retrieves did not each launch K1: {launches}")
+        query_embs = {text: emb.embed_query(text) for text in QUERIES}
+        query_embs["<page 3>"] = emb.embed_query(decode_png(pngs[3]))
+        http_results["<page 3>"] = img_res
+        for key, q in query_embs.items():
+            lib = server.run(store.query_similar(q, k=4, doc_ids=docs))
+            got = [(r["document_id"], r["chunk_number"]) for r in http_results[key]]
+            if got != [(c.document_id, c.chunk_number) for c in lib]:
+                raise AssertionError(f"{key!r}: HTTP {got} vs in-process store {[c.document_id for c in lib]}")
+            err = max(abs(r["score"] - c.score) for r, c in zip(http_results[key], lib))
+            if err > SCORE_ATOL:
+                raise AssertionError(f"{key!r}: HTTP scores differ from the store's by {err}")
+    finally:
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del services, emb, store, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # int8 attention from the same checkpoint: the int8 QK^T in every block, static qk scales
+    t0 = time.perf_counter()
+    m8 = ColQwenModel.from_checkpoint(ckpt, matmul_precision="int8", attention_precision="int8")
+    e8 = ColpaliEmbeddingModel(m8, batch_size=BATCH)  # calibrates the act scales and attn_qk_as
+    torch.cuda.synchronize()
+    int8_boot_s = time.perf_counter() - t0
+    _kernels.reset_launch_counts()  # the int8-attention forwards start here
+    embs8, _, times_int8, peak_int8 = _embed_pages(torch, e8, pages)
+    q8 = [e8.embed_query(text) for text in QUERIES]
+    launches8 = dict(_kernels.launch_counts)  # and end here
+    if launches8["window_attention"] != 0:
+        raise AssertionError(f"int8 attention launched K3: {launches8}")
+    cos = np.concatenate([(a * b).sum(-1) for a, b in zip(embs8, got_pages)])
+    qcos = np.concatenate([(a * b).sum(-1) for a, b in zip(q8, got_q)])
+    del m8, e8
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold_share, cold_bytes, cold_s = _cold_read(shards)  # the disk's rate, for the load's beside it
+    pages_s = {"bf16_attention": BATCH / times_bf16[1], "int8_attention": BATCH / times_int8[1]}
+    out = {
+        "card": smi, "write": written, "page_cache_share_before_load": cached_share,
+        "load_s": load_s, "load_gb_per_s": written["gb"] / load_s,
+        "cold_read": {"page_cache_share_before": cold_share, "gb": cold_bytes / 1e9, "s": cold_s,
+                      "gb_per_s": cold_bytes / 1e9 / cold_s},
+        "host_rss_gib_before": rss_before, "peak_host_rss_gib": rss_peak, "calibration_s": cal_s, "boot_s": boot_s, "int8_attention_boot_s": int8_boot_s,
+        "pages_per_s": pages_s, "batch_wall_s": {"bf16_attention": times_bf16, "int8_attention": times_int8},
+        "peak_mem_gb": {"bf16_attention": peak_bf16, "int8_attention": peak_int8},
+        "http_ingest_s": ingest_s, "http_pages": len(pngs), "retrieve": _percentiles(lat),
+        "int8_attention_cosine": {"pages_mean": float(cos.mean()), "pages_min": float(cos.min()),
+                                  "queries_mean": float(qcos.mean()), "queries_min": float(qcos.min())},
+        "tokenizer_cases": len(cases), "bit_identical_to_phase_3b": True,
+        "launches": launches, "ingest_launches": ingest_launches, "int8_attention_launches": launches8,
+        "failure_modes": failure_modes, "phase_s": time.perf_counter() - t_phase + written["write_s"],
+    }
+    log(f"  bit-identical to phase 3b's model given the same tokenizer ({BATCH} pages, {len(QUERIES)} queries); "
+        f"pages/s(second batch) bf16 attention {pages_s['bf16_attention']:.3f}, int8 attention "
+        f"{pages_s['int8_attention']:.3f}; HTTP: {len(pngs)} PNG pages in {ingest_s:.3f} s, retrieve p50 "
+        f"{out['retrieve']['p50_ms']:.3f} ms p99 {out['retrieve']['p99_ms']:.3f} ms, equal to the in-process store, "
+        f"image self-query top-1; launches {launches}; int8 attention: launches {launches8}, per-token cosine vs "
+        f"bf16 attention pages mean {cos.mean():.6f} min {cos.min():.6f}, queries mean {qcos.mean():.6f} "
+        f"(bounds {MIN_INT8_ATTENTION_COSINE}, {MIN_INT8_ATTENTION_QUERY_COSINE}); cold read of the shards "
+        f"({cold_share:.4f} cached before): {cold_bytes / 1e9:.3f} GB in {cold_s:.3f} s "
+        f"({cold_bytes / 1e9 / cold_s:.3f} GB/s); phase 13 took "
+        f"{out['phase_s']:.3f} s with the write")
+    if not (cos.mean() > MIN_INT8_ATTENTION_COSINE and qcos.mean() > MIN_INT8_ATTENTION_QUERY_COSINE):
+        raise AssertionError(f"int8 attention drifts from bf16 attention: {out['int8_attention_cosine']}")
+    return out
+
+
 def main() -> None:
     torch, smi = setup()
     import numpy as np
@@ -2264,44 +2578,49 @@ def main() -> None:
     build_kernels()
     main_k1, main_k2, main_k3, doc_k3, rerank_k2, all_cases = kernel_checks(torch)
     model, bf16_embs, bf16_queries, bf16_stats = ingest_bf16(torch, _kernels)
-    _kernels.reset_launch_counts()  # the main path starts here
-    emb, page_embs, page_fdes, int8_stats = ingest_int8(torch, model, bf16_embs)
-    rows = [e.astype(np.float16) for e in page_embs] + synthetic_rows((600, 661), N_SYNTH)
-    index_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_index_"))
+    ckpt, ckpt_written = write_checkpoint_phase(torch, model)  # before phase 3b quantizes in place
     try:
-        index, store_s = make_index(torch, rows, np.stack(page_fdes), path=index_dir / "default")
-        log(f"phase 4: stored {len(rows)} rows (device FDE + pooling + host copy) in {store_s:.3f} s")
-        log("phase 5: queries, shipped retrieval config (int8 rerank), int8 text tower")
-        int8_stats["query_mean_cosine"] = compare_queries(emb, bf16_queries)
-        queries5, answers5 = run_queries(torch, emb, index, rows, "int8 rerank")
-        n_blocks = len(index._dev_blocks)
-        if n_blocks < 2:
-            raise AssertionError(f"index spans {n_blocks} device block(s), expected >= 2")
-        if brute_force_top1(torch, rows, queries5[-1]) != BATCH + 123:
-            raise AssertionError("exact f32 MaxSim over all rows disagrees on the self-query top-1")
-        log("phase 6: queries, rerank_dtype='bf16'")
-        fdes = index._fde_rows(0, index.count_rows)
-        index_bf16, _ = make_index(torch, rows, fdes[:BATCH], fdes[BATCH:], rerank_dtype="bf16")
-        queries6, answers6 = run_queries(torch, emb, index_bf16, rows, "bf16 rerank")
-        answers6 += run_encoded_queries(index_bf16, bf16_queries, "bf16 rerank, queries of the bf16 text tower")
-        counts = dict(_kernels.launch_counts)
-        log(f"phase 7: launch counts over the main path (phases 3b-6): {counts}")
-        if min(counts.values()) <= 0:
-            raise AssertionError(f"a kernel of the path was never launched: {counts}")
-        log(f"ingest summary: {json.dumps({'bf16': bf16_stats, 'int8_static': int8_stats})}")
-        del index_bf16
-        _kernels.reset_launch_counts()  # the persistence path starts here
-        persistence = persistence_phase(torch, index, index_dir / "default", list(zip(queries5, answers5)),
-                                        list(zip(queries6 + bf16_queries, answers6)), smi)
-        persistence["launches"] = dict(_kernels.launch_counts)  # and ends here
-        if persistence["launches"]["maxsim_q8"] <= 0 or persistence["launches"]["maxsim"] <= 0:
-            raise AssertionError(f"phase 9 did not launch K1 and K2: {persistence['launches']}")
-        log(f"  phase 9 launches: {persistence['launches']}")
-        del index
+        _kernels.reset_launch_counts()  # the main path starts here
+        emb, page_embs, page_fdes, int8_stats = ingest_int8(torch, model, bf16_embs)
+        rows = [e.astype(np.float16) for e in page_embs] + synthetic_rows((600, 661), N_SYNTH)
+        index_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_index_"))
+        try:
+            index, store_s = make_index(torch, rows, np.stack(page_fdes), path=index_dir / "default")
+            log(f"phase 4: stored {len(rows)} rows (device FDE + pooling + host copy) in {store_s:.3f} s")
+            log("phase 5: queries, shipped retrieval config (int8 rerank), int8 text tower")
+            int8_stats["query_mean_cosine"] = compare_queries(emb, bf16_queries)
+            queries5, answers5 = run_queries(torch, emb, index, rows, "int8 rerank")
+            n_blocks = len(index._dev_blocks)
+            if n_blocks < 2:
+                raise AssertionError(f"index spans {n_blocks} device block(s), expected >= 2")
+            if brute_force_top1(torch, rows, queries5[-1]) != BATCH + 123:
+                raise AssertionError("exact f32 MaxSim over all rows disagrees on the self-query top-1")
+            log("phase 6: queries, rerank_dtype='bf16'")
+            fdes = index._fde_rows(0, index.count_rows)
+            index_bf16, _ = make_index(torch, rows, fdes[:BATCH], fdes[BATCH:], rerank_dtype="bf16")
+            queries6, answers6 = run_queries(torch, emb, index_bf16, rows, "bf16 rerank")
+            answers6 += run_encoded_queries(index_bf16, bf16_queries, "bf16 rerank, queries of the bf16 text tower")
+            counts = dict(_kernels.launch_counts)
+            log(f"phase 7: launch counts over the main path (phases 3b-6): {counts}")
+            if min(counts.values()) <= 0:
+                raise AssertionError(f"a kernel of the path was never launched: {counts}")
+            log(f"ingest summary: {json.dumps({'bf16': bf16_stats, 'int8_static': int8_stats})}")
+            del index_bf16
+            _kernels.reset_launch_counts()  # the persistence path starts here
+            persistence = persistence_phase(torch, index, index_dir / "default", list(zip(queries5, answers5)),
+                                            list(zip(queries6 + bf16_queries, answers6)), smi)
+            persistence["launches"] = dict(_kernels.launch_counts)  # and ends here
+            if persistence["launches"]["maxsim_q8"] <= 0 or persistence["launches"]["maxsim"] <= 0:
+                raise AssertionError(f"phase 9 did not launch K1 and K2: {persistence['launches']}")
+            log(f"  phase 9 launches: {persistence['launches']}")
+            del index
+        finally:
+            shutil.rmtree(index_dir, ignore_errors=True)
+        service = service_path(torch, model, _kernels, smi)
+        documents = documents_phase(torch, model, _kernels, smi)
+        checkpoint = checkpoint_phase(torch, model, ckpt, ckpt_written, _kernels, smi)
     finally:
-        shutil.rmtree(index_dir, ignore_errors=True)
-    service = service_path(torch, model, _kernels, smi)
-    documents = documents_phase(torch, model, _kernels, smi)
+        shutil.rmtree(ckpt, ignore_errors=True)
     text_index = text_index_phase(torch, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
@@ -2315,7 +2634,8 @@ def main() -> None:
              text_launches=service["rerank_launches"][name] + service["colpali_text_launches"][name],
              documents_launches=documents["launches"]["ingest"][name] + (
                  sum(documents["launches"]["retrieve_k1"]) if name == "maxsim_q8" else 0),
-             corpus_launches=documents["corpus"]["launches"][name])
+             corpus_launches=documents["corpus"]["launches"][name],
+             checkpoint_launches=checkpoint["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -2336,6 +2656,7 @@ def main() -> None:
     print(json.dumps({"documents": documents}))
     print(json.dumps({"corpus": corpus}))
     print(json.dumps({"text_index": text_index}))
+    print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

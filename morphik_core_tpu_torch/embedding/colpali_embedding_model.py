@@ -84,30 +84,46 @@ class ColpaliEmbeddingModel:
                       fde_config: Optional[FDEConfig] = None) -> "ColpaliEmbeddingModel":
         """The embedder `Settings` describe: `tpu.embed_batch_size`,
         `model.min_pixels` / `max_pixels` and `model.static_act_scales`.
-        A given model must have the configured `model.matmul_precision`.
-        Without one, development mode serves the tiny random model in
-        that precision (`colpali_embedding_model.py:61-82`); any other
+        A given model must have the configured `model.matmul_precision`
+        and `attention_precision`. Without one, `model.checkpoint_path` is
+        loaded on `device` in both precisions
+        (`colpali_embedding_model.py:53-60`); without that, development
+        mode serves the tiny random model in them (`:61-82`) and any other
         environment raises rather than serve random embeddings."""
         precision = settings.model.matmul_precision
-        if model is None:
+        attention = settings.model.attention_precision
+        load_s = None
+        if model is None and settings.model.checkpoint_path:
+            t0 = time.perf_counter()
+            model = ColQwenModel.from_checkpoint(settings.model.checkpoint_path, device=device,
+                                                 matmul_precision=precision, attention_precision=attention)
+            if model.device.type == "cuda":
+                torch.cuda.synchronize(model.device)
+            load_s = time.perf_counter() - t0
+            logger.info("checkpoint %s loaded in %.1fs", settings.model.checkpoint_path, load_s)
+        elif model is None:
             if settings.service.environment != "development":
                 raise RuntimeError(
-                    "no ColQwen model given and service.environment="
+                    "no ColQwen model given, model.checkpoint_path is not set and service.environment="
                     f"{settings.service.environment!r}: refusing to serve random-weight embeddings "
                     "outside development mode"
                 )
             logger.warning("no model given: serving a tiny random ColQwen (development mode)")
-            model = ColQwenModel.init_random(ColQwenConfig.tiny(), seed=0, device=device)
+            model = ColQwenModel.init_random(ColQwenConfig.tiny(), seed=0, device=device,
+                                             attention_precision=attention)
             if precision == "int8":
                 quantize_colqwen_params(model)
-        elif model.matmul_precision != precision:
+        elif (model.matmul_precision, model.attention_precision) != (precision, attention):
             raise ValueError(
-                f"the model serves matmul_precision={model.matmul_precision!r}, the settings "
-                f"configure {precision!r}"
+                f"the model serves matmul_precision={model.matmul_precision!r}, attention_precision="
+                f"{model.attention_precision!r}; the settings configure {precision!r}, {attention!r}"
             )
-        return cls(model, batch_size=settings.tpu.embed_batch_size, min_pixels=settings.model.min_pixels,
-                   max_pixels=settings.model.max_pixels, fde_config=fde_config,
-                   static_act_scales=settings.model.static_act_scales)
+        out = cls(model, batch_size=settings.tpu.embed_batch_size, min_pixels=settings.model.min_pixels,
+                  max_pixels=settings.model.max_pixels, fde_config=fde_config,
+                  static_act_scales=settings.model.static_act_scales)
+        if load_s is not None:
+            out.last_metrics["checkpoint_load_s"] = load_s
+        return out
 
     @property
     def embedding_dim(self) -> int:

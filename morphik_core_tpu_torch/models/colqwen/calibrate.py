@@ -6,7 +6,8 @@ matmul leaf carries a calibrated static scale. Calibration runs page
 batches through the int8 vision tower with dynamic quantization, takes
 the max |activation| at each block's four matmul inputs (qkv, attention
 proj, gate/up, down) and attaches `margin * max / 127` to the leaves of
-that site. Scales transfer across grid buckets (they follow the
+that site, and the same of max |q| and max |k| as the block's static
+scales of the int8 QK^T (`attn_qk_as`). Scales transfer across grid buckets (they follow the
 layernormed features, not the token count), so one bucket serves all.
 
 The pages: 16 deterministic synthetic text pages rendered with PIL and
@@ -59,9 +60,11 @@ def capture_vision_act_maxes(model, u8_batches: Sequence[np.ndarray], h_units: i
     return act, qk
 
 
-def attach_vision_act_scales(model, maxes: np.ndarray, margin: float = 1.05) -> None:
+def attach_vision_act_scales(model, maxes: np.ndarray, margin: float = 1.05, qk_maxes=None) -> None:
     """Attach static scales in place: as[l] = max(margin * max|x|_l / 127,
-    1e-8) to every leaf of each capture column of block l."""
+    1e-8) to every leaf of each capture column of block l, and with
+    `qk_maxes` (depth, 2) the same of max|q|, max|k| as block l's
+    `attn_qk_as` (inert unless the model serves int8 attention)."""
     blocks = model.visual.blocks
     if maxes.shape != (len(blocks), len(_SITE_COLUMNS)):
         raise ValueError(f"maxes shape {maxes.shape} != {(len(blocks), len(_SITE_COLUMNS))}")
@@ -70,6 +73,12 @@ def attach_vision_act_scales(model, maxes: np.ndarray, margin: float = 1.05) -> 
         for li, blk in enumerate(blocks):
             for name in names:
                 getattr(blk, name).set_act_scale(scale[li])
+    if qk_maxes is not None:
+        qk = np.maximum(np.asarray(qk_maxes) * margin / 127.0, 1e-8).astype(np.float32)
+        if qk.shape != (len(blocks), 2):
+            raise ValueError(f"qk_maxes shape {qk.shape} != {(len(blocks), 2)}")
+        for li, blk in enumerate(blocks):
+            blk.set_qk_scales(qk[li])
 
 
 def load_calibration_pages(path=CALIBRATION_PAGES) -> Tuple[np.ndarray, Tuple[int, int]]:

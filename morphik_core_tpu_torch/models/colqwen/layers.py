@@ -1,6 +1,6 @@
 """Shared transformer building blocks, PyTorch port of
-`morphik_core_tpu/models/colqwen/layers.py` (the bf16/f32 path and the
-W8A8 matmuls, `:15-120, 161-173`; the int8 QK^T attention is not ported).
+`morphik_core_tpu/models/colqwen/layers.py`: the bf16/f32 path, the W8A8
+matmuls and the int8 QK^T attention.
 
 Numerics follow the reference: RMSNorm in f32, split-half rotary in the
 input dtype, f32 softmax. Weights keep the JAX (K, N) layout: `x @ w`.
@@ -174,23 +174,64 @@ def swiglu(x, gate_w, up_w, down_w, gate_b=None, up_b=None, down_b=None) -> torc
     return linear(F.silu(g) * u, down_w, down_b)
 
 
+def _quantize_rows_q8(t: torch.Tensor):
+    """Symmetric int8 over the last axis, one scale per leading row (per
+    token and head): (int8 tensor, f32 scale with the last axis kept)."""
+    tf = t.float()
+    a = tf.abs().amax(dim=-1, keepdim=True)
+    s = torch.where(a == 0, torch.ones_like(a), a * _INV_127)
+    return torch.clamp(torch.round(tf / s), -127, 127).to(torch.int8), s
+
+
+def int8_qk_scores(qq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """Exact int8 QK^T: (..., Sq, H, D) x (..., Sk, H, D) int8 -> (..., H,
+    Sq, Sk) f32 integers. `torch._int_mm` is 2-D only, so the product is
+    an f32 batched matmul of the int8 values: every product and partial
+    sum is an integer below D * 127^2 (1,290,320 at the vision's D = 80,
+    2,064,512 at the text's 128) < 2^24, so it is exact in f32 in any
+    summation order (TF32 is off, `device.py`). A bf16 GEMM would hold
+    the values exactly too, but sums exactly only with
+    `allow_bf16_reduced_precision_reduction` off, a process-wide flag
+    that PyTorch leaves on."""
+    return torch.einsum("...qhd,...khd->...hqk", qq.float(), kq.float())
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     scale: Optional[float] = None,
     bias: Optional[torch.Tensor] = None,
+    qk_int8: bool = False,
+    qk_static: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Plain attention with an f32 softmax, as the reference's bf16/f32
-    path. q: (..., S, Hq, hd); k/v: (..., S, Hkv, hd), GQA by head
-    repeat; bias: additive, broadcastable to (..., Hq, Sq, Sk)."""
+    """Plain attention with an f32 softmax, as the reference's. q: (...,
+    S, Hq, hd); k/v: (..., S, Hkv, hd), GQA by head repeat; bias:
+    additive, broadcastable to (..., Hq, Sq, Sk).
+
+    `qk_int8`: the QK^T contraction in int8 (`layers.py:213-231` of the
+    reference; PV stays in the input dtype), with per-token, per-head
+    dynamic scales, or with the calibrated static `qk_static = (q_scale,
+    k_scale)` scalars: round half to even, clip at +-127, the exact int8
+    product, then `* qs * ks * scale` in the reference's order."""
     hq, hkv = q.shape[-2], k.shape[-2]
     if hq != hkv:
         k = k.repeat_interleave(hq // hkv, dim=-2)
         v = v.repeat_interleave(hq // hkv, dim=-2)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("...qhd,...khd->...hqk", q, k).float() * scale
+    if qk_int8 and qk_static is not None:
+        qs, ks = (x.float() for x in qk_static)
+        qq = torch.clamp(torch.round(q.float() / qs), -127, 127).to(torch.int8)
+        kq = torch.clamp(torch.round(k.float() / ks), -127, 127).to(torch.int8)
+        scores = int8_qk_scores(qq, kq) * (qs * ks * scale)
+    elif qk_int8:
+        qq, qs = _quantize_rows_q8(q)
+        kq, ks = _quantize_rows_q8(k)
+        # qs (..., Sq, H, 1) -> (..., H, Sq, 1); ks -> (..., H, 1, Sk)
+        scores = int8_qk_scores(qq, kq) * qs.transpose(-3, -2) * ks.transpose(-3, -2).transpose(-2, -1) * scale
+    else:
+        scores = torch.einsum("...qhd,...khd->...hqk", q, k).float() * scale
     if bias is not None:
         scores = scores + bias
     probs = torch.softmax(scores, dim=-1).to(v.dtype)

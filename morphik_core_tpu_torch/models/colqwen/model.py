@@ -1,5 +1,6 @@
 """ColQwen2.5 late-interaction embedder, PyTorch port of
-`morphik_core_tpu/models/colqwen/model.py` (bf16/f32 and W8A8).
+`morphik_core_tpu/models/colqwen/model.py` (bf16/f32, W8A8 and the int8
+QK^T of `attention_precision="int8"`).
 
 Images and queries map to per-token L2-normalized multivectors. The
 parameters keep the JAX param tree's names and (K, N) layout, so a JAX
@@ -13,13 +14,18 @@ leaves, and `calibrate_static_act_scales` attaches static activation
 scales to the vision tower's. Unlike the reference, which builds a new
 param tree, `quantize_colqwen_params` converts a model in place, so a 3B
 model never holds its float and int8 weights at once.
+
+`from_checkpoint` serves an HF checkpoint directory: the weights through
+`convert.hf_leaves`, the `tokenizer.json` through the port's own Qwen2
+BPE (`tokenizer.py`), neither needing the HF packages.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +33,7 @@ from torch import nn
 
 from morphik_core_tpu_torch.device import default_device
 from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig, TextConfig, VisionConfig
+from morphik_core_tpu_torch.models.colqwen.convert import hf_leaves
 from morphik_core_tpu_torch.models.colqwen.layers import QuantizedWeight, quantize_weight_int8
 from morphik_core_tpu_torch.models.colqwen.preprocess import (
     IMAGE_MEAN,
@@ -34,7 +41,9 @@ from morphik_core_tpu_torch.models.colqwen.preprocess import (
     PATCH_SIZE,
     TEMPORAL_PATCH_SIZE,
 )
+from morphik_core_tpu_torch.models.colqwen.safetensors import CheckpointDir
 from morphik_core_tpu_torch.models.colqwen.text import TextDecoder, mrope_cos_sin, mrope_position_ids
+from morphik_core_tpu_torch.models.colqwen.tokenizer import QwenTokenizer
 from morphik_core_tpu_torch.models.colqwen.vision import VisionTower, _param, vision_rotary_cos_sin
 
 #: weight leaves converted by `quantize_colqwen_params` (the big matmuls;
@@ -95,11 +104,7 @@ def load_config_npz(path) -> Optional[ColQwenConfig]:
 def _check_precisions(matmul_precision: str, attention_precision: str) -> None:
     if matmul_precision not in ("bf16", "int8"):
         raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
-    if attention_precision == "int8":
-        raise ValueError(
-            "attention_precision='int8' (the int8 QK^T of morphik_core_tpu/models/colqwen/"
-            "layers.py:213-231) is not ported; the shipped config serves bf16 attention")
-    if attention_precision != "bf16":
+    if attention_precision not in ("bf16", "int8"):
         raise ValueError(f"unknown attention_precision {attention_precision!r}")
 
 
@@ -124,78 +129,112 @@ def quantize_colqwen_params(model: "ColQwenModel") -> "ColQwenModel":
     return model
 
 
-def load_jax_params(model: "ColQwenModel", tree: dict) -> None:
-    """Fill `model` from a JAX ColQwen param tree with numpy leaves.
-    Stacked per-layer leaves (L, ...) are sliced into the per-layer
-    modules. An int8 model takes quantized leaves ({"q8", "s"[, "as"]},
-    as `quantize_colqwen_params` and `attach_vision_act_scales` of the
-    reference make them) or float leaves, which it quantizes; a float
-    model takes float leaves only. The reference's inert `attn_qk_as`
-    leaf (static scales of the unported int8 QK^T) is skipped. Raises on
-    a missing leaf, an extra leaf or a shape mismatch."""
-    assigned = set()
+def _tensor(arr) -> torch.Tensor:
+    """A torch leaf as it is; a numpy (or JAX) leaf copied: JAX hands out
+    read-only buffers."""
+    return arr if isinstance(arr, torch.Tensor) else torch.tensor(np.asarray(arr))
 
-    def tensor(arr) -> torch.Tensor:
-        return torch.tensor(np.asarray(arr))  # a copy: JAX hands out read-only buffers
 
-    def put(param: nn.Parameter, arr, name: str) -> None:
-        t = tensor(arr)
+class _Filler:
+    """Fills a model leaf by leaf from the JAX tree's paths, checking
+    shapes and, at the end, that every parameter and int8 leaf was
+    filled. An int8 model takes quantized leaves ({"q8", "s"[, "as"]}) or
+    float leaves, which it quantizes; a float model takes float leaves
+    only. The vision blocks' `attn_qk_as` (static scales of the int8
+    QK^T) is optional."""
+
+    def __init__(self, model: "ColQwenModel"):
+        self.model = model
+        self.assigned = set()
+
+    def _put(self, param: nn.Parameter, arr, name: str) -> None:
+        t = _tensor(arr)
         if tuple(t.shape) != tuple(param.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(param.shape)}")
         with torch.no_grad():
             param.copy_(t.to(device=param.device, dtype=param.dtype))
-        assigned.add(id(param))
+        self.assigned.add(id(param))
 
-    def put_leaf(mod: nn.Module, key: str, leaf, name: str) -> None:
+    def _put_weight(self, mod: nn.Module, key: str, leaf, name: str) -> None:
         target = getattr(mod, key)
         if not isinstance(target, QuantizedWeight):
             if isinstance(leaf, dict):
-                raise ValueError(f"{name}: int8 leaf for a {model.matmul_precision} model")
-            return put(target, leaf, name)
+                raise ValueError(f"{name}: int8 leaf for a {self.model.matmul_precision} model")
+            return self._put(target, leaf, name)
         if isinstance(leaf, dict):
             if set(leaf) - {"q8", "s", "as"}:
                 raise ValueError(f"{name}: unknown quantized leaf keys {sorted(leaf)}")
-            target.load(tensor(leaf["q8"]), tensor(leaf["s"]),
-                        tensor(leaf["as"]) if "as" in leaf else None)
+            target.load(_tensor(leaf["q8"]), _tensor(leaf["s"]), _tensor(leaf["as"]) if "as" in leaf else None)
         else:
-            t = tensor(leaf)
+            t = _tensor(leaf)
             if tuple(t.shape) != (target.k, target.n):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {(target.k, target.n)}")
             target.load(*quantize_weight_int8(t.to(target.q8.device)))
-        assigned.add(id(target))
+        self.assigned.add(id(target))
 
-    def stacked(modules, leaves: dict, prefix: str) -> None:
+    def leaf(self, path: Tuple[str, ...], layer: Optional[int], value) -> None:
+        """Fill the leaf at `path` of the JAX tree (`layer`: the slice of a
+        stacked per-layer leaf)."""
+        name = "/".join(path) + ("" if layer is None else f"[{layer}]")
+        model = self.model
+        if path[:2] in (("visual", "blocks"), ("text", "layers")):
+            mods = model.visual.blocks if path[0] == "visual" else model.text.layers
+            if layer is None or not 0 <= layer < len(mods):
+                raise ValueError(f"{name}: no such layer of {len(mods)}")
+            if path[2] == "attn_qk_as" and path[0] == "visual":
+                return mods[layer].set_qk_scales(_tensor(value))
+            if not isinstance(getattr(mods[layer], path[2], None), (nn.Parameter, QuantizedWeight)):
+                raise ValueError(f"{name}: unknown leaf")
+            return self._put_weight(mods[layer], path[2], value, name)
+        owner = {("visual",): model.visual, ("visual", "merger"): model.visual.merger,
+                 ("text",): model.text, (): model}.get(path[:-1])
+        if owner is None or not isinstance(getattr(owner, path[-1], None), nn.Parameter):
+            raise ValueError(f"{name}: unknown leaf")
+        self._put(getattr(owner, path[-1]), value, name)
+
+    def finish(self) -> None:
+        model = self.model
+        missing = [n for n, p in model.named_parameters() if id(p) not in self.assigned]
+        missing += [n for n, m in model.named_modules() if isinstance(m, QuantizedWeight)
+                    and id(m) not in self.assigned]
+        if missing:
+            raise ValueError(f"param tree lacks {missing[:5]} ({len(missing)} leaves)")
+
+
+def load_jax_params(model: "ColQwenModel", tree: dict) -> None:
+    """Fill `model` from a JAX ColQwen param tree with numpy (or torch)
+    leaves. Stacked per-layer leaves (L, ...) are sliced into the
+    per-layer modules (see `_Filler` for the int8 forms). Raises on a
+    missing leaf, an extra leaf or a shape mismatch."""
+    filler = _Filler(model)
+
+    def stacked(path: Tuple[str, str], leaves: dict) -> None:
+        want = len(model.visual.blocks if path[0] == "visual" else model.text.layers)
         for name, arr in leaves.items():
-            if name == "attn_qk_as":
-                continue
-            n_layers = len(np.asarray(arr["q8"] if isinstance(arr, dict) else arr))
-            if n_layers != len(modules):
-                raise ValueError(f"{prefix}/{name}: {n_layers} layers != {len(modules)}")
-            for li, mod in enumerate(modules):
-                leaf = ({k: np.asarray(v)[li] for k, v in arr.items()} if isinstance(arr, dict)
-                        else np.asarray(arr)[li])
-                put_leaf(mod, name, leaf, f"{prefix}/{name}[{li}]")
+            n_layers = len(arr["q8"] if isinstance(arr, dict) else arr)
+            if n_layers != want:
+                raise ValueError(f"{'/'.join(path)}/{name}: {n_layers} layers != {want}")
+            for li in range(n_layers):
+                filler.leaf(path + (name,), li, {k: v[li] for k, v in arr.items()} if isinstance(arr, dict)
+                            else arr[li])
 
-    vis = tree["visual"]
-    put(model.visual.patch_embed_w, vis["patch_embed_w"], "visual/patch_embed_w")
-    stacked(model.visual.blocks, vis["blocks"], "visual/blocks")
+    vis, txt = tree["visual"], tree["text"]
+    filler.leaf(("visual", "patch_embed_w"), None, vis["patch_embed_w"])
+    stacked(("visual", "blocks"), vis["blocks"])
     for name, arr in vis["merger"].items():
-        put(getattr(model.visual.merger, name), arr, f"visual/merger/{name}")
-    txt = tree["text"]
-    put(model.text.embed, txt["embed"], "text/embed")
-    put(model.text.norm, txt["norm"], "text/norm")
-    stacked(model.text.layers, txt["layers"], "text/layers")
-    put(model.proj_w, tree["proj_w"], "proj_w")
-    put(model.proj_b, tree["proj_b"], "proj_b")
-    missing = [n for n, p in model.named_parameters() if id(p) not in assigned]
-    missing += [n for n, m in model.named_modules() if isinstance(m, QuantizedWeight) and id(m) not in assigned]
-    if missing:
-        raise ValueError(f"param tree lacks {missing[:5]} ({len(missing)} leaves)")
+        filler.leaf(("visual", "merger", name), None, arr)
+    filler.leaf(("text", "embed"), None, txt["embed"])
+    filler.leaf(("text", "norm"), None, txt["norm"])
+    stacked(("text", "layers"), txt["layers"])
+    filler.leaf(("proj_w",), None, tree["proj_w"])
+    filler.leaf(("proj_b",), None, tree["proj_b"])
+    filler.finish()
 
 
 class ColQwenModel(nn.Module):
     """Vision tower + text decoder + projection, with the reference's
-    prompt templates, query length buckets and byte-fallback tokenizer."""
+    prompt templates, query length buckets and tokenizer (or its byte
+    fallback)."""
 
     IMAGE_PREFIX = "<|im_start|>user\n<|vision_start|>"
     IMAGE_SUFFIX = "<|vision_end|>Describe the image.<|im_end|>\n"
@@ -210,14 +249,22 @@ class ColQwenModel(nn.Module):
         dtype=torch.bfloat16,
         matmul_precision: str = "bf16",
         attention_precision: str = "bf16",
+        tokenizer: Optional[QwenTokenizer] = None,
     ):
         """Parameters are allocated uninitialised on `device`; fill them
-        with `init_random`, `from_fixture` or `load_jax_params`.
-        `matmul_precision`: "bf16" (the model's dtype) or "int8" (W8A8
-        leaves); `attention_precision`: "bf16" only in the port."""
+        with `init_random`, `from_fixture`, `from_checkpoint` or
+        `load_jax_params`. `matmul_precision`: "bf16" (the model's dtype)
+        or "int8" (W8A8 leaves); `attention_precision`: "bf16" or "int8"
+        (the int8 QK^T in every attention of both towers; the windowed
+        vision blocks then run it in place of K3). Without a `tokenizer`,
+        text goes through the reference's byte fallback."""
         super().__init__()
         _check_precisions(matmul_precision, attention_precision)
+        if attention_precision == "int8":
+            cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, qk_int8=True),
+                                      text=dataclasses.replace(cfg.text, qk_int8=True))
         self.cfg = cfg
+        self.tokenizer = tokenizer
         self.device = torch.device(device) if device is not None else default_device()
         self.dtype = dtype
         self.matmul_precision = matmul_precision
@@ -232,11 +279,11 @@ class ColQwenModel(nn.Module):
 
     @classmethod
     def init_random(cls, cfg: Optional[ColQwenConfig] = None, seed: int = 0, device=None,
-                    dtype=torch.float32) -> "ColQwenModel":
+                    dtype=torch.float32, attention_precision: str = "bf16") -> "ColQwenModel":
         """Random weights by the reference's init law (N(0, 0.02) matrices
         and embeddings, unit norms, zero biases), drawn from a seeded
         `torch.Generator` on the target device in `dtype`."""
-        model = cls(cfg or ColQwenConfig.tiny(), device=device, dtype=dtype)
+        model = cls(cfg or ColQwenConfig.tiny(), device=device, dtype=dtype, attention_precision=attention_precision)
         gen = torch.Generator(device=model.device)
         gen.manual_seed(seed)
         with torch.no_grad():
@@ -261,6 +308,28 @@ class ColQwenModel(nn.Module):
         load_jax_params(model, load_params_npz(path))
         return model
 
+    @classmethod
+    def from_checkpoint(cls, path, dtype=torch.bfloat16, device=None, matmul_precision: str = "bf16",
+                        attention_precision: str = "bf16") -> "ColQwenModel":
+        """An HF-format ColQwen2.5 checkpoint directory (config.json,
+        *.safetensors, an optional tokenizer.json), its weights converted
+        to `dtype` on `device` one tensor at a time and, with
+        `matmul_precision="int8"`, quantized there. A tokenizer.json in
+        another layout, a malformed file or a missing `custom_text_proj`
+        raises."""
+        path = Path(path)
+        cfg = ColQwenConfig.from_hf_config(path / "config.json")
+        tok_file = path / "tokenizer.json"
+        tokenizer = QwenTokenizer.from_file(tok_file) if tok_file.exists() else None
+        state = CheckpointDir(path)
+        model = cls(cfg, device=device, dtype=dtype, matmul_precision=matmul_precision,
+                    attention_precision=attention_precision, tokenizer=tokenizer)
+        filler = _Filler(model)
+        for leaf_path, layer, value in hf_leaves(state, cfg, dtype, model.device):
+            filler.leaf(leaf_path, layer, value)
+        filler.finish()
+        return model
+
     @torch.no_grad()
     def calibrate_static_act_scales(self, u8_batches: Sequence[np.ndarray], h_units: int,
                                     w_units: int, margin: float = 1.05) -> None:
@@ -274,8 +343,8 @@ class ColQwenModel(nn.Module):
             capture_vision_act_maxes,
         )
 
-        maxes, _ = capture_vision_act_maxes(self, u8_batches, h_units, w_units)
-        attach_vision_act_scales(self, maxes, margin)
+        maxes, qk_maxes = capture_vision_act_maxes(self, u8_batches, h_units, w_units)
+        attach_vision_act_scales(self, maxes, margin, qk_maxes)
 
     # -- forward ----------------------------------------------------------
 
@@ -338,9 +407,11 @@ class ColQwenModel(nn.Module):
     # -- query path -------------------------------------------------------
 
     def _encode(self, text: str) -> List[int]:
-        """The reference's deterministic byte-fallback tokenizer (the HF
-        tokenizer arrives with checkpoint loading, not ported yet)."""
-        return [b % (self.cfg.text.vocab_size - 8) for b in text.encode()]
+        """The tokenizer's ids, or without one the reference's
+        deterministic byte fallback."""
+        if self.tokenizer is None:
+            return [b % (self.cfg.text.vocab_size - 8) for b in text.encode()]
+        return self.tokenizer.encode(text)
 
     def query_token_ids(self, query: str) -> List[int]:
         ids = self._encode(self.QUERY_PREFIX + query)

@@ -6,7 +6,8 @@ host in numpy (bit-identical mirrors of the reference), so the decoder
 applies plain split-half rotary. GQA, causal + padding bias built once
 per forward, f32 softmax and norms. The int8 decoder holds
 `QuantizedWeight` leaves with dynamic activation scales (W8A8, the
-reference's `text.py:147-168`); `linear` dispatches on the leaf.
+reference's `text.py:147-168`); `linear` dispatches on the leaf. With
+`qk_int8` the attention's QK^T runs in int8 with dynamic scales.
 """
 
 from __future__ import annotations
@@ -116,7 +117,7 @@ class DecoderLayer(nn.Module):
         q, k = apply_rotary(q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd),
                             cos[:, :, None, :], sin[:, :, None, :])
         v = v.reshape(b, s, nkv, hd)
-        o = attention(q, k, v, bias=bias)
+        o = attention(q, k, v, bias=bias, qk_int8=cfg.qk_int8)  # dynamic scales only, as the reference
         x = res + linear(o.reshape(b, s, nh * hd), self.o_w)
         y = rms_norm(x, self.post_ln, cfg.rms_norm_eps)
         return x + swiglu(y, self.gate_w, self.up_w, self.down_w)

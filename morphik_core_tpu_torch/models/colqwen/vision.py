@@ -7,7 +7,10 @@ multiples of the 4-unit window, so the windowed blocks run
 rows, 64-row windows contiguous in window order, and the window
 permutation is a reshape/transpose. Python picks full or window
 attention per block from `fullatt_block_indexes` (the reference's
-`lax.cond`, or its static branch in the unrolled int8 tower).
+`lax.cond`, or its static branch in the unrolled int8 tower). With
+`qk_int8` (attention_precision="int8") every block runs the int8 QK^T of
+`layers.attention`, the windowed ones over (windows, 64, heads, head_dim)
+as the reference's XLA window path does, so K3 is not launched.
 
 The int8 tower's blocks hold `QuantizedWeight` leaves, each block its
 own static activation scales once calibrated (the reference's unrolled
@@ -119,6 +122,15 @@ class VisionBlock(nn.Module):
         self.q_b, self.k_b, self.v_b, self.proj_b = p(h), p(h), p(h), p(h)
         self.gate_w, self.up_w, self.down_w = w(h, ih), w(h, ih), w(ih, h)
         self.gate_b, self.up_b, self.down_b = p(ih), p(ih), p(h)
+        # calibrated static (q, k) scales of the int8 QK^T: inert unless
+        # cfg.qk_int8 (attention_precision="int8"); dynamic scales without them
+        self.register_buffer("attn_qk_as", None)
+
+    def set_qk_scales(self, qk_as) -> None:
+        """Attach ((2,) f32: q scale, k scale) or drop (None) the static
+        scales of the int8 QK^T."""
+        self.attn_qk_as = None if qk_as is None else torch.as_tensor(
+            qk_as, dtype=torch.float32, device=self.norm1.device).reshape(2)
 
     def forward(self, x, is_full: bool, cos, sin, stats: Optional[List[torch.Tensor]] = None):
         """`stats` given: append max|x| at the four matmul inputs (qkv,
@@ -132,8 +144,12 @@ class VisionBlock(nn.Module):
         q, k = apply_rotary(q.reshape(b, s, nh, hd), k.reshape(b, s, nh, hd),
                             cos[None, :, None, :], sin[None, :, None, :])
         v = v.reshape(b, s, nh, hd)
+        qk_static = None if self.attn_qk_as is None else (self.attn_qk_as[0], self.attn_qk_as[1])
         if is_full:
-            o = attention(q, k, v)
+            o = attention(q, k, v, qk_int8=cfg.qk_int8, qk_static=qk_static)
+        elif cfg.qk_int8:  # the reference's window path in int8: XLA, not its Pallas kernel
+            o = attention(*(t.reshape(b * s // win, win, nh, hd) for t in (q, k, v)), qk_int8=True,
+                          qk_static=qk_static)
         else:
             o = window_attention(q.reshape(b * s, nh, hd), k.reshape(b * s, nh, hd),
                                  v.reshape(b * s, nh, hd), window=win)

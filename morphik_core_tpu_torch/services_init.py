@@ -54,10 +54,6 @@ logger = logging.getLogger(__name__)
 def _refuse_unported(settings: Settings) -> None:
     """Raise on each setting whose path the port does not have yet."""
     refusals = (
-        (settings.model.checkpoint_path, f"model.checkpoint_path={settings.model.checkpoint_path!r}: loading a "
-         "checkpoint needs convert.py (ROADMAP Queue 1 item 5); pass colqwen_model"),
-        (settings.model.attention_precision == "int8",
-         'model.attention_precision="int8" (ROADMAP Queue 1 item 4)'),
         (settings.morphik.colpali_mode == "api",
          'morphik.colpali_mode="api" (remote embedding servers, ROADMAP Queue 1 item 3h)'),
         (settings.storage.provider == "aws-s3", 'storage.provider="aws-s3" (ROADMAP Queue 1 item 3h)'),
@@ -197,9 +193,9 @@ def build_services(
     device=None,
 ) -> Services:
     """The stack `settings` describe, on `device` (the card by default).
-    `colqwen_model` is served as given (its precision must be the
-    configured one); without it, development mode serves the tiny random
-    model."""
+    `colqwen_model` is served as given (its precisions must be the
+    configured ones); without it, the `model.checkpoint_path` directory is
+    loaded, or development mode serves the tiny random model."""
     settings = settings or get_settings()
     _refuse_unported(settings)
     device = torch.device(device) if device is not None else default_device()

@@ -29,6 +29,8 @@ Tolerances:
 - the int8 products: exact.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -909,3 +911,97 @@ def test_device_profile_route_on_card_names_the_maxsim_kernel(sm90, tmp_path):
         assert n[0] > 0 and "maxsim_mma_kernel" in trace, (n[0], len(trace))
     finally:
         stop()
+
+
+# -- real checkpoints on the card ------------------------------------------------------
+
+TOKENIZER_FIXTURE = Path(__file__).resolve().parent / "fixtures" / "tokenizer_bpe.json"
+
+
+def _qwen_tiny_checkpoint(path):
+    """A tiny bf16 checkpoint with Qwen2.5's vocab and the fixture
+    tokenizer, written by the port on the CPU."""
+    import dataclasses
+
+    from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig
+    from morphik_core_tpu_torch.models.colqwen.convert import write_hf_checkpoint
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+
+    cfg = dataclasses.replace(ColQwenConfig.tiny(151936), image_token_id=151655, vision_start_token_id=151652,
+                              vision_end_token_id=151653)
+    model = ColQwenModel.init_random(cfg, seed=4, device="cpu", dtype=torch.bfloat16)
+    write_hf_checkpoint(model, path, shard_bytes=4 << 20, tokenizer_file=TOKENIZER_FIXTURE)
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_precision", ["bf16", "int8"])
+def test_checkpoint_loads_onto_the_card(sm90, tmp_path, matmul_precision):
+    """bf16 storage viewed as torch.bfloat16 on the card, every leaf of
+    the loaded model on the card, and the same values as a CPU load."""
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+    from morphik_core_tpu_torch.models.colqwen.safetensors import CheckpointDir
+
+    _qwen_tiny_checkpoint(tmp_path)
+    state = CheckpointDir(tmp_path)
+    for name in ("model.embed_tokens.weight", "visual.blocks.1.attn.qkv.weight", "custom_text_proj.bias"):
+        on_card = state.tensor(name, "cuda")
+        assert on_card.device.type == "cuda" and on_card.dtype == torch.bfloat16
+        assert torch.equal(on_card.cpu(), state[name])
+    card = ColQwenModel.from_checkpoint(tmp_path, device="cuda", matmul_precision=matmul_precision)
+    host = ColQwenModel.from_checkpoint(tmp_path, device="cpu", matmul_precision=matmul_precision)
+    leaves = dict(card.named_parameters()) | dict(card.named_buffers())
+    host_leaves = dict(host.named_parameters()) | dict(host.named_buffers())
+    assert leaves.keys() == host_leaves.keys() and len(leaves) > 50
+    for name, t in leaves.items():
+        assert t.device.type == "cuda", name
+        assert t.dtype == host_leaves[name].dtype and torch.equal(t.cpu(), host_leaves[name]), name
+    assert card.tokenizer is not None and card.query_token_ids("x")[-1] == 151643
+    q = card.embed_queries(["quarterly revenue growth"])[0]
+    assert q.shape[1] == card.cfg.embedding_dim and np.isfinite(q).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 16, 80), (2, 300, 16, 128)])  # vision windows; a text sequence
+def test_int8_qk_product_exact_on_card(sm90, shape):
+    """The int8 QK^T (an f32 batched matmul of int8 values, TF32 off)
+    equals the int64 product, the largest sums included."""
+    from morphik_core_tpu_torch.models.colqwen.layers import int8_qk_scores
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(sum(shape))
+    qq = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    kq = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    qq[0, 0, 0] = 127
+    kq[0, 0, 0] = 127
+    qq[0, 1, 0] = -127  # D * 127^2 and -D * 127^2
+    got = int8_qk_scores(qq, kq)
+    want = torch.einsum("bqhd,bkhd->bhqk", qq.cpu().long(), kq.cpu().long())
+    assert got.dtype == torch.float32 and int(want[0, 0, 0, 0]) == shape[-1] * 127 * 127
+    assert torch.equal(got.cpu().long(), want)
+
+
+@pytest.mark.cuda
+def test_int8_attention_forward_launches_no_window_kernel(sm90, tmp_path):
+    """A checkpoint served with attention_precision="int8" runs every
+    windowed block through the int8 QK^T (no K3 launch); the same
+    checkpoint with bf16 attention launches K3 in each windowed block."""
+    from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+
+    _qwen_tiny_checkpoint(tmp_path)
+    u8 = np.random.default_rng(0).integers(0, 256, (2, 4 * 8 * 4, 588), dtype=np.uint8)
+    out = {}
+    for attention in ("int8", "bf16"):
+        model = ColQwenModel.from_checkpoint(tmp_path, device="cuda", matmul_precision="int8",
+                                             attention_precision=attention)
+        emb = ColpaliEmbeddingModel(model)  # calibrates static scales, attn_qk_as included
+        assert all(blk.attn_qk_as is not None for blk in model.visual.blocks)
+        _kernels.reset_launch_counts()
+        out[attention] = model.embed_image_batch(u8, 4, 8)
+        torch.cuda.synchronize()
+        windowed = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+        assert _kernels.launch_counts["window_attention"] == (0 if attention == "int8" else windowed), attention
+        assert np.isfinite(out[attention]).all() and emb.embed_query("revenue").shape[1] == model.cfg.embedding_dim
+    cos = (out["int8"] * out["bf16"]).sum(-1)
+    assert float(cos.mean()) > 0.9, float(cos.mean())

@@ -233,7 +233,7 @@ def test_quantize_in_place_and_precision_checks():
     with pytest.raises(ValueError):
         quantize_colqwen_params(tm)
     cfg = load_config_npz(FIXTURE)
-    for kw in (dict(matmul_precision="fp8"), dict(attention_precision="int8"), dict(attention_precision="fp16")):
+    for kw in (dict(matmul_precision="fp8"), dict(attention_precision="int4"), dict(attention_precision="fp16")):
         with pytest.raises(ValueError):
             TModel(cfg, device="cpu", **kw)
     jq = jax.device_get(JModel.from_fixture(FIXTURE, matmul_precision="int8").params)

@@ -6,7 +6,9 @@ runs, and the port's HTTP server boots on the CPU and answers an
 ingest -> retrieve -> query round trip over a socket, then ingests a
 PDF as page images and answers a JPEG image query, then creates a
 folder, ingests a page into it, answers a folder-scoped retrieve and an
-`/embeddings` call."""
+`/embeddings` call; nor safetensors, tokenizers, ml_dtypes, regex or
+transformers: a checkpoint the port writes boots a server through
+`model.checkpoint_path` with its tokenizer and answers a retrieve."""
 
 import re
 import subprocess
@@ -19,7 +21,8 @@ ROOT = Path(__file__).resolve().parent.parent
 _GUARD = textwrap.dedent(
     """
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "PIL", "pydantic", "httpx"):
+    for name in ("jax", "jaxlib", "PIL", "pydantic", "httpx", "safetensors", "tokenizers", "ml_dtypes", "regex",
+                 "transformers"):
         sys.modules[name] = None  # any import of them now raises
     sys.path.insert(0, sys.argv[1])
     import numpy as np, torch
@@ -167,10 +170,39 @@ _GUARD = textwrap.dedent(
     assert npz.files == ["emb_0"] and npz["emb_0"].shape[1] == cfg.embedding_dim, npz["emb_0"].shape
     on_loop(server.stop())
     on_loop(services.shutdown())
+
+    # a checkpoint directory: written by the port, served through model.checkpoint_path
+    import dataclasses, pathlib
+    from morphik_core_tpu_torch.models.colqwen.convert import write_hf_checkpoint
+    qcfg = dataclasses.replace(ColQwenConfig.tiny(151936), image_token_id=151655, vision_start_token_id=151652,
+                               vision_end_token_id=151653)
+    ckpt = pathlib.Path(root) / "ckpt"
+    write_hf_checkpoint(ColQwenModel.init_random(qcfg, seed=1, device="cpu", dtype=torch.bfloat16), ckpt,
+                        shard_bytes=4 << 20, tokenizer_file=pathlib.Path(sys.argv[1]) / "tests/fixtures/tokenizer_bpe.json")
+    loaded = ColQwenModel.from_checkpoint(ckpt, device="cpu")
+    assert loaded.tokenizer is not None and loaded.query_token_ids("x")[-1] == 151643
+    assert loaded.image_sequence_ids(16)[0] == 151644
+    raw = dict(raw, model={"static_act_scales": True, "checkpoint_path": str(ckpt)},
+               storage={"storage_path": root + "/ck_storage"}, database={"path": root + "/ck.sqlite"},
+               vector_store={"index_path": root + "/ck_index"})
+    services, server, base = boot()
+    assert services.colpali_embedding_model.model.tokenizer is not None
+    body = (f'--{b}\\r\\nContent-Disposition: form-data; name="file"; filename="p.png"\\r\\n'
+            'Content-Type: image/png\\r\\n\\r\\n').encode() + encode_png(page) + f"\\r\\n--{b}--\\r\\n".encode()
+    cdoc = call("/ingest/file", body, f"multipart/form-data; boundary={b}")
+    for _ in range(600):
+        if call(f"/documents/{cdoc['external_id']}/status")["status"] != "processing":
+            break
+        time.sleep(0.05)
+    hits = call("/retrieve/chunks", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
+    assert [h["document_id"] for h in hits] == [cdoc["external_id"]], hits
+    on_loop(server.stop())
+    on_loop(services.shutdown())
     loop.call_soon_threadsafe(loop.stop)
 
-    leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "PIL", "pydantic", "httpx", "morphik_core_tpu")
-                    and sys.modules[k] is not None)
+    blocked = ("jax", "PIL", "pydantic", "httpx", "morphik_core_tpu", "safetensors", "tokenizers", "ml_dtypes",
+               "regex", "transformers")
+    leaked = sorted(k for k in sys.modules if k.split(".")[0] in blocked and sys.modules[k] is not None)
     assert not leaked, leaked
     print("JAXFREE_OK")
     """
@@ -185,7 +217,8 @@ def test_slice_runs_with_jax_pil_pydantic_blocked():
 
 
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import (jax|pydantic|httpx)|from (jax|pydantic|httpx)"
+    pattern = re.compile(r"^\s*(import (jax|pydantic|httpx|safetensors|tokenizers|ml_dtypes|regex|transformers)\b"
+                         r"|from (jax|pydantic|httpx|safetensors|tokenizers|ml_dtypes|regex|transformers)\b"
                          r"|import morphik_core_tpu\b(?!_)|from morphik_core_tpu\b(?!_))", re.M)
     files = sorted((ROOT / "morphik_core_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15

@@ -811,9 +811,21 @@ def test_multipart_keeps_binary_crlf():
     ("parser", "parser_mode", "api", "item 3h"),
 ])
 def test_build_services_refuses_unported_settings(tmp_path, section, key, value, item):
+    """Settings of unported items raise, naming the item. Items 4 and 5
+    are ported and no longer refused: int8 attention is served, and a
+    checkpoint path is loaded (one that does not exist raises as a
+    missing file)."""
     raw = _raw_settings(tmp_path, "x")
     raw.setdefault(section, {})[key] = value
     raw["registered_models"] = {"openai_gpt4": {"model_name": "gpt-4"}}
+    if item == "item 4":
+        model = build_services(Settings.from_dict(raw), device="cpu").colpali_embedding_model.model
+        assert model.attention_precision == "int8" and model.cfg.vision.qk_int8
+        return
+    if item == "item 5":
+        with pytest.raises(FileNotFoundError, match="/models/x"):
+            build_services(Settings.from_dict(raw), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         build_services(Settings.from_dict(raw), device="cpu")
 
