@@ -3,8 +3,9 @@
 NVIDIA H100, at the full ColQwen2.5-3B geometry with random weights, in
 the shipped serving config (W8A8 tower with calibrated static activation
 scales, bf16 attention) and, before it, in bf16; then its HTTP service
-plane with the text path, documents as page images over HTTP, and the
-text index at 200,000 rows.
+plane with the text path, documents as page images over HTTP, a real
+checkpoint, /query answered through the LLM wire formats, and the text
+index at 200,000 rows.
 
     python3 chip_smoke.py
 
@@ -153,6 +154,32 @@ Phases (each raises on failure; none is caught):
      load s and peak host RSS, the cold read s, calibration and boot s,
      pages/s with bf16 and int8 attention, retrieve p50 / p99, launches,
      the card).
+ 14. /query through an LLM wire format (after phase 13), on a fourth server
+     from the shipped toml serving phase 3b's model in morphik.mode =
+     "cloud", its completion.model and embedding.model registered keys of
+     a local fake provider (morphik_core_tpu_torch/scripts/fake_providers.py:
+     OpenAI /chat/completions JSON and SSE and /embeddings, Ollama /api/chat
+     JSON and NDJSON, Anthropic /v1/messages JSON and SSE; each request
+     recorded; embeddings are the hashing embedder's vectors). (a) 4 of
+     phase 8's PNG pages (K3 28 a page); (b) 4 text queries x 5 /query
+     (JSON): the provider's request carries, as image_url data URIs, the
+     stored q80 JPEG payloads of the chunks /retrieve/chunks returns for
+     the same query, in its order, and the answer is the provider's;
+     (c) /query with SSE: the deltas join to the provider's text; (d) a
+     retrieve with output_format="text": every image chunk is the
+     provider's transcription; (e) /ingest/document/query of phase 11's
+     24-page PDF with a JSON schema: a structured answer, and
+     ingestion_options.ingest stores the document (text path) with the
+     answer in its metadata; (f) /ingest/text through the routed embedder,
+     a text retrieve finds it top-1; (g) queries_used set to 499 in
+     user_limits.db: one /query answers 200, the next 402, /usage/limits
+     reports 500; K1 on every ColPali retrieve; (h) a CompletionRequest of
+     the retrieved pages through build_completion_model's Ollama and
+     Anthropic keys: the raw-base64 `images` and the base64 `source`
+     blocks, the streams joined. Prints an {"llm": ...} line (/query p50 /
+     p99 and the retrieve's share, data-URI bytes a /query, the SSE first
+     delta, the output_format="text" retrieve ms, the on-the-fly query s,
+     the routed text ingest s, launches, the phase's s, the card).
  10. the text index at a real size, in process: a TextVectorStore on the
      card with 200,000 rows of 768 (the toml's embedding dimensions;
      seeded unit vectors, texts of 20-60 words from a seeded 30,000-word
@@ -2567,6 +2594,235 @@ def checkpoint_phase(torch, model, ckpt: Path, written: dict, _kernels, smi):
     return out
 
 
+# phase 14: /query answered through an LLM wire format (a local fake provider)
+LLM_PAGES = 4  # phase 8's PNG pages ingested on phase 14's server
+LLM_QUERY_REPEATS = 5  # /query (JSON) of each text query
+LLM_PROVIDERS = {  # registered_models of phase 14, beside the fake's base URL
+    "fake_openai": {"model_name": "fake-gpt", "api_key": "sk-chip-smoke"},
+    "fake_ollama": {"model_name": "fake-llava", "provider": "ollama"},
+    "fake_anthropic": {"model_name": "fake-claude", "provider": "anthropic", "api_key": "sk-ant-chip-smoke"},
+    "fake_embed": {"model_name": "fake-embedding", "api_key": "sk-chip-smoke"},
+}
+
+
+def sse_query(base: str, body: dict):
+    """POST /query with stream_response over a socket -> (the deltas, the
+    sources, seconds to the first delta, seconds in all)."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/query", data=json.dumps(dict(body, stream_response=True)).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    deltas, sources, first = [], None, None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line == "data: [DONE]":
+                break
+            if not line.startswith("data: "):
+                continue
+            event = json.loads(line[6:])
+            if event["type"] == "assistant":
+                first = first if first is not None else time.perf_counter() - t0
+                deltas.append(event["content"])
+            elif event["type"] == "sources":
+                sources = event["sources"]
+    return deltas, sources, first, time.perf_counter() - t0
+
+
+def llm_phase(torch, model, _kernels, smi):
+    """Phase 14: /query through an LLM wire format on a fourth server from
+    the shipped toml (phase 3b's model, cloud mode), its completion and
+    text-embedding models registered keys of a local fake provider."""
+    import asyncio
+
+    from morphik_core_tpu_torch.completion.models import build_completion_model
+    from morphik_core_tpu_torch.models.schemas import CompletionRequest
+    from morphik_core_tpu_torch.scripts.fake_providers import ANSWER, FakeProviders
+    from morphik_core_tpu_torch.services_init import build_services
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_llm_"))
+    settings = service_settings(tmp)
+    fake = FakeProviders(embed_dim=settings.embedding.dimensions).start()
+    base_urls = {"fake_openai": fake.url + "/v1", "fake_embed": fake.url + "/v1"}
+    settings.registered_models = {k: dict(v, api_base=base_urls.get(k, fake.url)) for k, v in LLM_PROVIDERS.items()}
+    settings.completion.model = "fake_openai"
+    settings.embedding.model = "fake_embed"
+    settings.morphik.mode = "cloud"
+    try:
+        t0 = time.perf_counter()
+        server = ServerThread(build_services(settings, colqwen_model=model))  # recalibrates static scales
+        boot_s = time.perf_counter() - t0
+        services = server.services
+        client = Client(f"http://127.0.0.1:{server.server.port}")
+        log(f"phase 14: /query through an LLM wire format ({smi}), server up in {boot_s:.3f} s (morphik_tpu.toml, "
+            f"mode {settings.morphik.mode!r}, completion {type(services.completion_model).__name__}, text embedder "
+            f"{type(services.embedding_model).__name__}; the providers a local fake at {fake.url})")
+        try:
+            out = _llm_checks(client, fake, _kernels, services, settings)
+        finally:
+            server.stop()
+        # h: one CompletionRequest of the phase's retrieved pages through the Ollama and Anthropic wire formats
+        pages = out.pop("retrieved_payloads")
+        request = CompletionRequest(query=QUERIES[0], context_chunks=["Context note."] + pages, max_tokens=256)
+        raw_b64 = [u.split(",", 1)[1] for u in pages]
+        native = {}
+        for key in ("fake_ollama", "fake_anthropic"):
+            provider = build_completion_model(settings.registered_models, key, settings.service.environment)
+
+            async def both(provider=provider):
+                return await provider.complete(request), [t async for t in provider.complete_stream(request)]
+
+            n = len(fake.requests)
+            t = time.perf_counter()
+            resp, toks = asyncio.run(both())
+            native[key] = {"provider": type(provider).__name__, "ms": (time.perf_counter() - t) * 1e3,
+                           "stream_deltas": len(toks)}
+            sent = [r["body"] for r in fake.requests[n:]]
+            if resp.completion != ANSWER or "".join(toks) != ANSWER or len(sent) != 2:
+                raise AssertionError(f"{key}: {resp.completion!r}, stream {toks!r}, {len(sent)} requests")
+            for body in sent:
+                user = body["messages"][-1]
+                images = user.get("images") if key == "fake_ollama" else [
+                    b["source"]["data"] for b in user["content"] if b["type"] == "image"]
+                if images != raw_b64:
+                    raise AssertionError(f"{key}: the request does not carry the pages' raw base64")
+                if key == "fake_anthropic" and any(b["source"]["media_type"] != "image/jpeg"
+                                                   for b in user["content"] if b["type"] == "image"):
+                    raise AssertionError("fake_anthropic: an image block is not image/jpeg")
+        out["native_providers"] = native
+    finally:
+        fake.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(card=smi, boot_s=boot_s, phase_s=time.perf_counter() - t_phase)
+    log(f"  /query p50 {out['query']['p50_ms']:.3f} ms p99 {out['query']['p99_ms']:.3f} ms over "
+        f"{out['query']['n']} (retrieve p50 {out['retrieve']['p50_ms']:.3f} ms, share {out['retrieve_share']:.3f}); "
+        f"{out['data_uri_bytes_per_query']} data-URI bytes a /query; SSE first delta {out['sse_first_delta_ms']:.3f} "
+        f"ms of {out['sse_ms']:.3f}; output_format=text retrieve {out['text_format_retrieve_ms']:.3f} ms; "
+        f"on-the-fly query of the {DOC_PDF_PAGES}-page PDF {out['on_the_fly_s']:.3f} s (ingest to completed "
+        f"{out['on_the_fly_ingest_s']:.3f} s); routed text ingest {out['routed_text_ingest_s']:.3f} s; 402 after "
+        f"{out['usage_limits']['usage']['queries_used']} queries; native providers {json.dumps(native)}; launches "
+        f"{out['launches']}; phase {out['phase_s']:.3f} s ({smi})")
+    return out
+
+
+def _llm_checks(client, fake, _kernels, services, settings):
+    """Phase 14, a-g, on the running server."""
+    import sqlite3
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.scripts.fake_providers import ANSWER, TRANSCRIPTION
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+    from morphik_core_tpu_torch.utils.jpeg import encode_jpeg
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    pages = service_pages()[:LLM_PAGES]
+    payloads = [bytes_to_data_uri(encode_jpeg(p, 80)[0], "image/jpeg") for p in pages]
+    model = services.colpali_embedding_model.model
+    k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+    _kernels.reset_launch_counts()  # phase 14's path starts here
+    # a: PNG pages through K3
+    t = time.perf_counter()
+    docs = [client.upload(f"llm_page{i}.png", encode_png(p))["external_id"] for i, p in enumerate(pages)]
+    ingest_s = _wait_completed(client, docs) - t
+    ingest_launches = dict(_kernels.launch_counts)
+    if ingest_launches["window_attention"] != k3_per_forward * LLM_PAGES:
+        raise AssertionError(f"ingest of {LLM_PAGES} pages: K3 {ingest_launches}, expected {k3_per_forward} a page")
+    # b: /query (JSON): the provider gets the retrieved pages' stored payloads, in /retrieve/chunks' order
+    q_lat, r_lat, uri_bytes, n_colpali = [], [], [], 0
+    for text in QUERIES:
+        for _ in range(LLM_QUERY_REPEATS):
+            t = time.perf_counter()
+            chunks = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
+            r_lat.append((time.perf_counter() - t) * 1e3)
+            n = len(fake.requests)
+            t = time.perf_counter()
+            answer = client.call("POST", "/query", {"query": text, "k": 4})
+            q_lat.append((time.perf_counter() - t) * 1e3)
+            n_colpali += 2
+            sent = [r for r in fake.requests[n:] if r["path"] == "/v1/chat/completions"]
+            if len(sent) != 1 or sent[0]["headers"].get("authorization") != "Bearer sk-chip-smoke":
+                raise AssertionError(f"/query {text!r}: {len(sent)} completion requests, or no bearer key")
+            content = sent[0]["body"]["messages"][-1]["content"]
+            urls = [b["image_url"]["url"] for b in content if b["type"] == "image_url"]
+            if urls != [c["content"] for c in chunks] or not set(urls) <= set(payloads) or len(urls) != 4:
+                raise AssertionError(f"/query {text!r}: the provider got other images than /retrieve/chunks' "
+                                     "stored q80 payloads")
+            if answer["completion"] != ANSWER or [s["document_id"] for s in answer["sources"]] != [
+                    c["document_id"] for c in chunks]:
+                raise AssertionError(f"/query {text!r}: {answer['completion']!r}, sources {answer['sources']}")
+            uri_bytes.append(sum(len(u) for u in urls))
+    retrieved_payloads = urls
+    # c: SSE: the deltas join to the provider's text
+    deltas, sources, first_s, sse_s = sse_query(client.base, {"query": QUERIES[0], "k": 4})
+    n_colpali += 1
+    if "".join(deltas) != ANSWER or len(deltas) < 2 or not sources:
+        raise AssertionError(f"SSE /query: deltas {deltas!r}, sources {sources}")
+    # d: output_format="text": every image chunk as the provider's transcription
+    t = time.perf_counter()
+    as_text = client.call("POST", "/retrieve/chunks", {"query": QUERIES[1], "k": 4, "output_format": "text"})
+    text_ms = (time.perf_counter() - t) * 1e3
+    n_colpali += 1
+    if len(as_text) != 4 or any(c["content"] != TRANSCRIPTION or not c["metadata"]["is_image"] for c in as_text):
+        raise AssertionError(f"output_format=text: {[c['content'][:40] for c in as_text]}")
+    # e: the on-the-fly query of phase 11's PDF with a schema, then stored (text path)
+    pdf = document_files(np.random.default_rng(SEED + 10))["report.pdf"][0]
+    schema = {"type": "object", "properties": {"topic": {"type": "string"}, "pages": {"type": "string"}}}
+    body, ctype = Client.multipart("report.pdf", pdf, "application/pdf", {
+        "prompt": "What is this report about?", "schema": json.dumps(schema),
+        "ingestion_options": json.dumps({"ingest": True, "use_colpali": False, "metadata": {"source": "on-the-fly"}})})
+    t = time.perf_counter()
+    otf = client.call("POST", "/ingest/document/query", body, ctype)
+    otf_s = time.perf_counter() - t
+    want = {"topic": "topic from the fake provider", "pages": "pages from the fake provider"}
+    if otf["structured_output"] != want or otf["document"] is None or otf["metadata"]["parsed_chars"] < 10_000:
+        raise AssertionError(f"on-the-fly query: {json.dumps(otf)[:500]}")
+    otf_ingest_s = _wait_completed(client, [otf["document"]["external_id"]]) - t
+    stored = client.call("GET", f"/documents/{otf['document']['external_id']}")
+    if stored["metadata"] != {"source": "on-the-fly", **want}:
+        raise AssertionError(f"the on-the-fly document's metadata: {stored['metadata']}")
+    # f: /ingest/text through the routed embedder (the fake's hashing vectors), then a text retrieve
+    prose = seeded_prose(np.random.default_rng(SEED + 14), 9000)
+    n = len(fake.requests)
+    t = time.perf_counter()
+    tdoc = client.call("POST", "/ingest/text", {"content": prose, "filename": "routed.txt", "use_colpali": False})
+    routed_s = time.perf_counter() - t
+    if tdoc["system_metadata"]["status"] != "completed" or not any(
+            r["path"] == "/v1/embeddings" for r in fake.requests[n:]):
+        raise AssertionError(f"routed /ingest/text: {tdoc['system_metadata']}")
+    sentence = prose.split(". ")[3]
+    hits = client.call("POST", "/retrieve/chunks", {"query": sentence, "k": 3, "use_colpali": False})
+    if not hits or hits[0]["document_id"] != tdoc["external_id"]:
+        raise AssertionError(f"routed text retrieve of {sentence!r}: {[h['document_id'] for h in hits]}")
+    # g: the free tier's 500 queries: the 500th answers, the 501st is refused
+    db = Path(settings.storage.storage_path) / "user_limits.db"
+    with sqlite3.connect(db) as conn:
+        conn.execute("UPDATE user_limits SET queries_used=499 WHERE user_id=?", (settings.auth.dev_user_id,))
+    last = client.request("POST", "/query", {"query": QUERIES[2], "k": 4})
+    refused = client.request("POST", "/query", {"query": QUERIES[2], "k": 4})
+    n_colpali += 1
+    limits = client.call("GET", "/usage/limits")
+    if last[0] != 200 or refused[0] != 402 or limits["usage"]["queries_used"] != 500 or limits["limits"][
+            "queries_per_month"] != 500:
+        raise AssertionError(f"limits: /query {last[0]} then {refused[0]} {refused[1][:200]!r}; {limits}")
+    launches = dict(_kernels.launch_counts)  # phase 14's path ends here
+    if launches["maxsim_q8"] < n_colpali or launches["window_attention"] != ingest_launches["window_attention"]:
+        raise AssertionError(f"phase 14 launches {launches}: K1 below its {n_colpali} ColPali retrieves, or K3 "
+                             "launched after the ingest")
+    return {
+        "pages": LLM_PAGES, "ingest_s": ingest_s, "query": _percentiles(q_lat), "retrieve": _percentiles(r_lat),
+        "retrieve_share": float(np.percentile(r_lat, 50) / np.percentile(q_lat, 50)),
+        "data_uri_bytes_per_query": int(np.mean(uri_bytes)), "sse_first_delta_ms": first_s * 1e3,
+        "sse_ms": sse_s * 1e3, "sse_deltas": len(deltas), "text_format_retrieve_ms": text_ms,
+        "on_the_fly_s": otf_s, "on_the_fly_ingest_s": otf_ingest_s,
+        "on_the_fly_parsed_chars": otf["metadata"]["parsed_chars"], "routed_text_ingest_s": routed_s,
+        "usage_limits": limits, "provider_requests": len(fake.requests), "launches": launches,
+        "ingest_launches": ingest_launches, "colpali_retrieves": n_colpali, "retrieved_payloads": retrieved_payloads,
+    }
+
+
 def main() -> None:
     torch, smi = setup()
     import numpy as np
@@ -2621,6 +2877,7 @@ def main() -> None:
         checkpoint = checkpoint_phase(torch, model, ckpt, ckpt_written, _kernels, smi)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+    llm = llm_phase(torch, model, _kernels, smi)
     text_index = text_index_phase(torch, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
@@ -2635,7 +2892,7 @@ def main() -> None:
              documents_launches=documents["launches"]["ingest"][name] + (
                  sum(documents["launches"]["retrieve_k1"]) if name == "maxsim_q8" else 0),
              corpus_launches=documents["corpus"]["launches"][name],
-             checkpoint_launches=checkpoint["launches"][name])
+             checkpoint_launches=checkpoint["launches"][name], llm_launches=llm["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -2657,6 +2914,7 @@ def main() -> None:
     print(json.dumps({"corpus": corpus}))
     print(json.dumps({"text_index": text_index}))
     print(json.dumps({"checkpoint": checkpoint}))
+    print(json.dumps({"llm": llm}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

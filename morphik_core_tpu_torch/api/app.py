@@ -4,7 +4,8 @@ bodies.
 
 - health: `/ping`, `/health`;
 - ingest: `/ingest/text`, `/ingest/file`, `/ingest/files` (with
-  `folder_name`), `/ingest/requeue`;
+  `folder_name`), `/ingest/requeue`, and the on-the-fly document query
+  `/ingest/document/query` (with its `ingestion_options.ingest`);
 - retrieve: `/retrieve/chunks`, `/retrieve/chunks/grouped`,
   `/retrieve/docs`, `/search/documents`, `/batch/documents`,
   `/batch/chunks`; `/query` (JSON, or SSE with `stream_response`);
@@ -23,15 +24,19 @@ bodies.
   older version of its app than the registry holds answers 401;
 - logs: `GET /logs`, `POST /logs/profile/device` (a `torch.profiler`
   trace of CPU and CUDA activity);
-- `/migrate/document`, `/usage/app-storage`, and the v2 pipeline
-  (`/v2/documents`, `/v2/retrieve/chunks`, `DELETE /v2/documents/{id}`).
+- `/migrate/document`, `/usage/app-storage`, `/usage/limits`, and the v2
+  pipeline (`/v2/documents`, `/v2/retrieve/chunks`,
+  `DELETE /v2/documents/{id}`).
 
-`use_colpali=false` takes the text path. An upload the port cannot ingest
-yet answers 415 (`services/ingestion_service.py::check_upload`); an
-option or route it does not serve yet, 501 naming its ROADMAP item (the
-router maps `NotImplementedError`): `/ingest/document/query` (item 3g),
-`/ee/connectors/*` and `/console` (item 3d-ii), `/usage/limits` (item
-3e). With `service.enable_profiling` every request runs under cProfile
+`use_colpali=false` takes the text path. In `morphik.mode="cloud"` the
+tier limits answer 402 where the reference counts them: pages of
+`/ingest/text`, storage and pages of a file upload, `/query` and the
+on-the-fly query, and the apps of `/cloud/generate_uri`. An upload the
+port cannot ingest yet answers 415
+(`services/ingestion_service.py::check_upload`); a route it does not
+serve yet, 501 naming its ROADMAP item (the router maps
+`NotImplementedError`): `/ee/connectors/*` and `/console` (item 3d-ii).
+With `service.enable_profiling` every request runs under cProfile
 (`api/middleware.py`), its `profile_*.prof` written beside the
 telemetry directory.
 
@@ -64,8 +69,11 @@ from morphik_core_tpu_torch.api.auth import create_token, verify_token
 from morphik_core_tpu_torch.api.http import HTTPError, Request, Response, Router
 from morphik_core_tpu_torch.api.middleware import make_profiling_wrapper
 from morphik_core_tpu_torch.models.schemas import AuthContext, Chunk
+from morphik_core_tpu_torch.models.tiers import estimate_pages_from_chars
 from morphik_core_tpu_torch.services.ingestion_service import UnsupportedContentType
+from morphik_core_tpu_torch.services.on_the_fly import OnTheFlyError
 from morphik_core_tpu_torch.services.telemetry import TelemetryEventReader
+from morphik_core_tpu_torch.services.user_service import LimitExceededError
 from morphik_core_tpu_torch.services_init import Services
 
 logger = logging.getLogger(__name__)
@@ -145,6 +153,16 @@ def build_app(services: Services) -> Router:
         if "write" not in auth.permissions and "admin" not in auth.permissions:
             raise HTTPError(403, "write permission required")
 
+    async def _check_limit(auth: AuthContext, limit_type: str, amount: float = 1.0,
+                           verify_only: bool = False) -> None:
+        """Count against the user's tier (cloud mode); over it -> 402."""
+        try:
+            await services.user_service.check_and_increment_limits(
+                auth.user_id or auth.entity_id, limit_type, amount, verify_only=verify_only
+            )
+        except LimitExceededError as e:
+            raise HTTPError(402, str(e))
+
     # ------------------------------------------------------------- health
 
     @router.get("/ping")
@@ -193,6 +211,7 @@ def build_app(services: Services) -> Router:
         body = req.json()
         if "content" not in body:
             raise HTTPError(422, "content is required")
+        await _check_limit(auth, "pages", estimate_pages_from_chars(len(body["content"])))
         async with telemetry.track_operation("ingest_text", auth.entity_id):
             doc = await services.ingestion_service.ingest_text(
                 content=body["content"],
@@ -208,6 +227,8 @@ def build_app(services: Services) -> Router:
         return Response.json(doc.model_dump(mode="json"))
 
     async def _ingest_one_file(auth: AuthContext, upload, fields) -> Dict[str, Any]:
+        await _check_limit(auth, "storage", len(upload.data))
+        await _check_limit(auth, "pages", estimate_pages_from_chars(len(upload.data) // 4), verify_only=True)
         metadata = json.loads(fields.get("metadata", "{}") or "{}")
         metadata_types = json.loads(fields.get("metadata_types", "{}") or "{}")
         use_colpali = (fields.get("use_colpali", "true") or "true").lower() != "false"
@@ -364,6 +385,7 @@ def build_app(services: Services) -> Router:
     async def query(req: Request) -> Response:
         auth = await auth_of(req)
         body = req.json()
+        await _check_limit(auth, "queries", 1)
         q = body.get("query", "")
         chat_id = body.get("chat_id")
         history: List[Dict[str, str]] = []
@@ -408,7 +430,9 @@ def build_app(services: Services) -> Router:
                     yield f"data: {json.dumps({'type': 'sources', 'sources': sources})}\n\n"
                     yield "data: [DONE]\n\n"
                 finally:
-                    # a client disconnect mid-stream still records the exchange
+                    # a client that leaves mid-stream closes the provider's
+                    # stream, and the exchange is still recorded
+                    await stream.aclose()
                     if collected:
                         await persist_history("".join(collected))
 
@@ -872,7 +896,10 @@ def build_app(services: Services) -> Router:
         app_id = body.get("app_id") or str(uuid.uuid4())
         token = _app_token(user_id, app_id, 1, int(body.get("expiry_days", 5475)))
         uri = f"morphik://{name}:{token}@{settings.api.host}:{settings.api.port}"
-        await services.user_service.register_app(app_id, name, user_id, uri, org_id=body.get("org_id"))
+        try:
+            await services.user_service.register_app(app_id, name, user_id, uri, org_id=body.get("org_id"))
+        except LimitExceededError as e:
+            raise HTTPError(402, str(e))
         return Response.json({"uri": uri, "app_id": app_id})
 
     # ---------------------------------------------------------------- apps
@@ -1060,6 +1087,51 @@ def build_app(services: Services) -> Router:
             raise HTTPError(404, "document not found")
         return Response.json({"status": "deleted"})
 
+    # ------------------------------------------------- on-the-fly doc query
+
+    @router.post("/ingest/document/query")
+    async def ingest_document_query(req: Request) -> Response:
+        """One-shot analysis of an uploaded document by the completion
+        model, then (`ingestion_options.ingest`) its ingestion, with a
+        structured answer merged into its metadata."""
+        auth = await auth_of(req)
+        fields, files = req.form()
+        uploads = files.get("file") or []
+        if not uploads:
+            raise HTTPError(422, "file is required")
+        prompt = fields.get("prompt") or ""
+        if not prompt:
+            raise HTTPError(422, "prompt is required")
+        schema = json.loads(fields.get("schema", "null") or "null")
+        opts = json.loads(fields.get("ingestion_options", "{}") or "{}")
+        await _check_limit(auth, "queries", 1)
+        async with telemetry.track_operation("document_query", auth.entity_id):
+            try:
+                result = await services.on_the_fly.query_document(
+                    uploads[0].data, uploads[0].filename, prompt, schema=schema, content_type=uploads[0].content_type,
+                )
+            except OnTheFlyError as e:
+                raise HTTPError(400, str(e))
+        document = None
+        if opts.get("ingest"):
+            _require_write(auth)
+            metadata = dict(opts.get("metadata") or {})
+            if isinstance(result.get("structured_output"), dict):
+                metadata.update(result["structured_output"])
+            try:
+                document = await _ingest_one_file(auth, uploads[0], {
+                    "metadata": json.dumps(metadata), "use_colpali": str(opts.get("use_colpali", True)).lower(),
+                    "folder_name": opts.get("folder_name"), "end_user_id": opts.get("end_user_id"),
+                })
+            except UnsupportedContentType as e:
+                raise HTTPError(415, str(e))
+        return Response.json({**result, "document": document})
+
+    @router.get("/usage/limits")
+    async def usage_limits(req: Request) -> Response:
+        auth = await auth_of(req)
+        return Response.json(await services.user_service.get_user_limits(auth.user_id or auth.entity_id))
+
     # ------------------------------------------------- routes not served yet
 
     def _refused(what: str, item: str, authenticate: bool = True):
@@ -1069,12 +1141,9 @@ def build_app(services: Services) -> Router:
             raise NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 item {item})")
         return refuse
 
-    router.add("POST", "/ingest/document/query",
-               _refused("the on-the-fly document query (it needs the completion providers)", "3g"))
     for method, path in (("GET", "auth_status"), ("GET", "auth/initiate_url"), ("GET", "oauth2callback"),
                          ("POST", "auth/finalize"), ("GET", "files"), ("POST", "ingest"), ("POST", "disconnect")):
         router.add(method, "/ee/connectors/{connector_type}/" + path, _refused("a connector route", "3d-ii"))
     router.add("GET", "/console", _refused("the admin console", "3d-ii", authenticate=False))
-    router.add("GET", "/usage/limits", _refused("user tier limits", "3e"))
 
     return router

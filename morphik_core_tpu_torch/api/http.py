@@ -121,8 +121,13 @@ class Response:
     @staticmethod
     def sse(events: AsyncIterator[str]) -> "Response":
         async def gen() -> AsyncIterator[bytes]:
-            async for e in events:
-                yield e.encode()
+            try:
+                async for e in events:
+                    yield e.encode()
+            finally:  # a client that leaves closes the events' source too (a provider's stream)
+                aclose = getattr(events, "aclose", None)
+                if aclose is not None:
+                    await aclose()
 
         return Response(
             status=200,
@@ -143,7 +148,7 @@ Handler = Callable[[Request], Awaitable[Response]]
 
 _STATUS_TEXT = {
     200: "OK", 201: "Created", 204: "No Content", 400: "Bad Request",
-    401: "Unauthorized", 403: "Forbidden", 404: "Not Found",
+    401: "Unauthorized", 402: "Payment Required", 403: "Forbidden", 404: "Not Found",
     405: "Method Not Allowed", 413: "Payload Too Large",
     415: "Unsupported Media Type", 422: "Unprocessable Entity",
     500: "Internal Server Error", 501: "Not Implemented",

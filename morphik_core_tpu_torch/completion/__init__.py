@@ -1,1 +1,2 @@
-"""Completion models of the port (the offline stub)."""
+"""Completion models of the port: the OpenAI-compatible, Ollama and
+Anthropic providers over the stdlib transport, and the offline stub."""

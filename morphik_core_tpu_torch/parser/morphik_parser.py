@@ -14,8 +14,10 @@ Routes by detected content type:
 `split_text` runs the recursive splitter, or the ContextualChunker when
 `parser.use_contextual_chunking` is set and a completion function is
 given. Not ported yet: the OCR rung of `parse_file_to_text_deep` (item
-3b: it rasterizes), `parser_mode="api"` (item 3h), video (item 3b).
-`build_services` refuses the settings that would select them.
+3b-ii: it rasterizes), `parser_mode="api"` (item 3h), video (item 3b-ii).
+`build_services` refuses the settings that would select them. The
+on-the-fly document query (`services/on_the_fly.py`) parses its upload
+with `parse_file_to_text`.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@
     MaxSim here (`use_pallas=False`); the scores are the same function,
     within f32 rounding.
 
-Not ported yet (ROADMAP Queue 1 item 3g): `CrossEncoderReranker`, which
-needs sentence-transformers and its weights; `build_reranker` takes no
-model name.
+Not portable: `CrossEncoderReranker`, which needs sentence-transformers
+and its model weights, neither of which the card's machine has;
+`build_reranker` takes no model name.
 """
 
 from __future__ import annotations
@@ -89,7 +89,8 @@ def build_reranker(model_name=None) -> BaseReranker:
     """The lexical reranker (the port has no cross-encoder)."""
     if model_name:
         raise NotImplementedError(
-            f"not ported: the cross-encoder reranker {model_name!r} (ROADMAP Queue 1 item 3g)"
+            f"the cross-encoder reranker {model_name!r} is not portable: it needs sentence-transformers "
+            "and its model weights"
         )
     return OverlapReranker()
 

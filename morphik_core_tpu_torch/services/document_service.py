@@ -17,10 +17,9 @@ As in the reference, the reranker runs only off the ColPali path.
 `folder_name` / `folder_depth` scope a retrieve through the document ids
 the database yields. A summary is a UTF-8 blob of at most 256 KB in the
 storage bucket `summaries`, versioned in its document's or folder's
-system metadata.
-
-Not ported yet (ROADMAP Queue 1 item 3g): `output_format="text"`, the
-vision completion that transcribes a page.
+system metadata. `output_format="text"` gives an image chunk as the
+completion model's transcription of its page (`_convert_image_to_text`),
+or a placeholder when the stub answers or the provider fails.
 """
 
 from __future__ import annotations
@@ -70,13 +69,6 @@ def _page_number(c) -> "int | None":
     return page + 1 if isinstance(page, int) else c.chunk_number + 1
 
 
-def _check_ported(output_format: str = "base64") -> None:
-    if output_format == "text":
-        raise NotImplementedError(
-            'output_format="text" needs the vision completion, which is not ported (ROADMAP Queue 1 item 3g)'
-        )
-
-
 class DocumentService:
     def __init__(
         self,
@@ -120,7 +112,6 @@ class DocumentService:
         query_image: Optional[str] = None,
         perf: Optional[PerformanceTracker] = None,
     ) -> List[ChunkResult]:
-        _check_ported(output_format)
         perf = perf or PerformanceTracker("retrieve_chunks")
         using_colpali = bool(
             use_colpali if use_colpali is not None else self.settings.morphik.enable_colpali
@@ -250,7 +241,6 @@ class DocumentService:
         output_format: str = "base64",
     ) -> List[ChunkResult]:
         """From the text store unless `use_colpali` is true (and ColPali is served)."""
-        _check_ported(output_format)
         allowed = set(await self.db.find_authorized_and_filtered_documents(auth, None, {"status": None}))
         wanted = [(d, n) for d, n in chunk_ids if d in allowed]
         store = self.colpali_vector_store if use_colpali and self.colpali_vector_store is not None else self.vector_store
@@ -341,10 +331,13 @@ class DocumentService:
             doc = docs.get(c.document_id)
             content = c.content
             download_url = None
-            if c.metadata.get("is_image") and output_format == "url" and not content.startswith("data:"):
-                # content is a storage key when skip_image_content was set
-                download_url = await self.storage.get_download_url(MULTIVECTOR_CHUNKS_BUCKET, content)
-                content = download_url
+            if c.metadata.get("is_image"):
+                if output_format == "url" and not content.startswith("data:"):
+                    # content is a storage key when skip_image_content was set
+                    download_url = await self.storage.get_download_url(MULTIVECTOR_CHUNKS_BUCKET, content)
+                    content = download_url
+                elif output_format == "text":
+                    content = await self._convert_image_to_text(c, doc)
             out.append(
                 ChunkResult(
                     content=content,
@@ -359,6 +352,25 @@ class DocumentService:
                 )
             )
         return out
+
+    async def _convert_image_to_text(self, chunk: DocumentChunk, doc) -> str:
+        """An image chunk as markdown, transcribed by the completion model;
+        a placeholder when no model answers (the stub, a failed call)."""
+        placeholder = f"[image page {chunk.chunk_number} of {doc.filename if doc else chunk.document_id}]"
+        if self.completion_model is None or not chunk.content.startswith("data:image"):
+            return placeholder
+        try:
+            resp = await self.completion_model.complete(CompletionRequest(
+                query="Transcribe this page to markdown: all text, tables, and figure captions.",
+                context_chunks=[chunk.content],
+                max_tokens=1500,
+            ))
+            text = str(resp.completion).strip()
+            if text and not text.startswith("[offline-stub]"):
+                return text
+        except Exception as e:  # noqa: BLE001 — a failed transcription keeps the placeholder, as the reference
+            logger.warning("image-to-text conversion failed: %s", e)
+        return placeholder
 
     async def _create_document_results(self, auth: AuthContext, chunks: List[DocumentChunk]) -> List[DocumentResult]:
         if not chunks:

@@ -1,14 +1,17 @@
 """Service container of the port: builds the serving stack from
 `Settings`. Port of `morphik_core_tpu/services_init.py:62-330` for what
 the port serves: the sqlite database, local storage, the parser, the
-hashing text embedder and the hybrid text store (`{storage_path}/text_index`),
+text embedder (a `registered_models` key routed to its endpoint, else the
+hashing embedder) and the hybrid text store (`{storage_path}/text_index`),
 with `morphik.enable_colpali` the ColPali embedder and its multivector
 store (persisted under `vector_store.index_path`), the reranker (the
 ColQwen reranker beside the ColPali embedder, else the lexical one), the
-stub completion model, telemetry with its log uploader, the job queue,
-the app registry (`{storage_path}/user_limits.db`, shared with the JAX
-package) and the v2 pipeline with its in-memory chunk store, all on one
-device.
+completion model of `completion.model` (a provider of `registered_models`
+or the stub), the on-the-fly document query, telemetry with its log
+uploader, the job queue, the user limits and app registry
+(`{storage_path}/user_limits.db`, shared with the JAX package; limits
+enforced in `morphik.mode="cloud"`) and the v2 pipeline with its
+in-memory chunk store, all on one device.
 
 Settings that select a part the port does not have yet raise
 `NotImplementedError` naming the ROADMAP item, rather than serve another
@@ -31,7 +34,8 @@ from morphik_core_tpu_torch.config import Settings, get_settings
 from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
 from morphik_core_tpu_torch.device import default_device
 from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
-from morphik_core_tpu_torch.embedding.text_embedding import HashingEmbeddingModel
+from morphik_core_tpu_torch.embedding.base_embedding_model import BaseEmbeddingModel
+from morphik_core_tpu_torch.embedding.text_embedding import HashingEmbeddingModel, RoutedEmbeddingModel
 from morphik_core_tpu_torch.models.schemas import AuthContext, CompletionRequest
 from morphik_core_tpu_torch.ops.fde import FDEConfig
 from morphik_core_tpu_torch.parser.morphik_parser import MorphikParser
@@ -39,6 +43,7 @@ from morphik_core_tpu_torch.reranker.rerankers import ColQwenReranker, build_rer
 from morphik_core_tpu_torch.services.document_service import DocumentService
 from morphik_core_tpu_torch.services.ingestion_service import IngestionService
 from morphik_core_tpu_torch.services.log_uploader import Heartbeat, LogUploader
+from morphik_core_tpu_torch.services.on_the_fly import OnTheFlyService
 from morphik_core_tpu_torch.services.telemetry import TelemetryService
 from morphik_core_tpu_torch.services.user_service import UserService
 from morphik_core_tpu_torch.services.v2_document_service import V2DocumentService
@@ -58,10 +63,6 @@ def _refuse_unported(settings: Settings) -> None:
          'morphik.colpali_mode="api" (remote embedding servers, ROADMAP Queue 1 item 3h)'),
         (settings.storage.provider == "aws-s3", 'storage.provider="aws-s3" (ROADMAP Queue 1 item 3h)'),
         (settings.tpu.auto_mesh, "tpu.auto_mesh=true (the multi-GPU paths, ROADMAP Queue 1 item 6)"),
-        (settings.morphik.mode == "cloud", 'morphik.mode="cloud" (tier limits, ROADMAP Queue 1 item 3e)'),
-        (settings.embedding.model in settings.registered_models,
-         f"embedding.model={settings.embedding.model!r} of registered_models: the embedding endpoints "
-         "(ROADMAP Queue 1 item 3g)"),
         (settings.parser.ocr_mode != "none",
          f"parser.ocr_mode={settings.parser.ocr_mode!r}: OCR of page images is not ported "
          "(ROADMAP Queue 1 item 3b-ii)"),
@@ -77,7 +78,7 @@ class Services:
     settings: Settings
     database: SQLiteDatabase
     storage: LocalStorage
-    embedding_model: HashingEmbeddingModel
+    embedding_model: BaseEmbeddingModel
     vector_store: TextVectorStore
     colpali_embedding_model: Optional[ColpaliEmbeddingModel]
     colpali_vector_store: Optional[TorchMultiVectorStore]
@@ -88,6 +89,7 @@ class Services:
     job_queue: JobQueue
     user_service: UserService
     v2_document_service: V2DocumentService
+    on_the_fly: OnTheFlyService
     log_uploader: Optional[LogUploader] = None
     heartbeat: Optional[Heartbeat] = None
 
@@ -202,13 +204,19 @@ def build_services(
     storage_root = Path(settings.storage.storage_path)
     database = SQLiteDatabase(settings.database.path)
     storage = LocalStorage(settings.storage.storage_path)
-    completion_model = build_completion_model(settings.completion.model)
+    completion_model = build_completion_model(settings.registered_models, settings.completion.model,
+                                              environment=settings.service.environment)
 
     async def complete_text(prompt: str) -> str:  # contextual chunking
         return str((await completion_model.complete(CompletionRequest(query=prompt))).completion)
 
     parser = MorphikParser(settings, complete_fn=complete_text)
-    embedding_model = HashingEmbeddingModel(dim=settings.embedding.dimensions)
+    # the text path's embedder: a registered_models key routes to its
+    # endpoint; otherwise the offline hashing embedder
+    if settings.embedding.model in settings.registered_models:
+        embedding_model: BaseEmbeddingModel = RoutedEmbeddingModel(settings.embedding.model, settings)
+    else:
+        embedding_model = HashingEmbeddingModel(dim=settings.embedding.dimensions)
     embedder = store = None
     if settings.morphik.enable_colpali and settings.morphik.colpali_mode != "off":
         embedder = ColpaliEmbeddingModel.from_settings(settings, colqwen_model, device=device)
@@ -242,6 +250,7 @@ def build_services(
         ingestion_service=ingestion_service,
         telemetry=telemetry,
         job_queue=job_queue,
-        user_service=UserService(storage_root / "user_limits.db"),
+        user_service=UserService(storage_root / "user_limits.db", enforce=settings.morphik.mode == "cloud"),
         v2_document_service=v2_document_service,
+        on_the_fly=OnTheFlyService(parser, completion_model),
     )

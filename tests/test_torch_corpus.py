@@ -21,8 +21,9 @@
 - The two repairs: a token that the JAX server revoked (rotated) answers
   401 on a port server of the same `storage_path`; `enable_profiling`
   writes a `.prof` for each request.
-- Refusals: the on-the-fly query, the connectors, the console and the
-  tier limits answer 501 naming their ROADMAP item.
+- Refusals: the connectors and the console answer 501 naming their
+  ROADMAP item (the on-the-fly query and `/usage/limits` are served:
+  `tests/test_torch_query.py`, `tests/test_torch_limits.py`).
 """
 
 import io
@@ -777,7 +778,6 @@ def test_enable_profiling_writes_a_profile_per_request(tmp_path):
 
 
 @pytest.mark.parametrize("method,path,item", [
-    ("POST", "/ingest/document/query", "3g"),
     ("GET", "/ee/connectors/google_drive/auth_status", "3d-ii"),
     ("GET", "/ee/connectors/local/auth/initiate_url", "3d-ii"),
     ("GET", "/ee/connectors/local/oauth2callback", "3d-ii"),
@@ -786,7 +786,6 @@ def test_enable_profiling_writes_a_profile_per_request(tmp_path):
     ("POST", "/ee/connectors/local/ingest", "3d-ii"),
     ("POST", "/ee/connectors/local/disconnect", "3d-ii"),
     ("GET", "/console", "3d-ii"),
-    ("GET", "/usage/limits", "3e"),
 ])
 def test_unported_routes_answer_501(corpus, method, path, item):
     status, body = _call(corpus["base"]["torch"], method, path, {} if method == "POST" else None)

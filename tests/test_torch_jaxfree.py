@@ -8,7 +8,10 @@ PDF as page images and answers a JPEG image query, then creates a
 folder, ingests a page into it, answers a folder-scoped retrieve and an
 `/embeddings` call; nor safetensors, tokenizers, ml_dtypes, regex or
 transformers: a checkpoint the port writes boots a server through
-`model.checkpoint_path` with its tokenizer and answers a retrieve."""
+`model.checkpoint_path` with its tokenizer and answers a retrieve. A
+server in cloud mode whose completion and embedding models are a fake
+local OpenAI-compatible provider answers `/query`, the on-the-fly query
+and `/usage/limits` (the stdlib transport, no httpx)."""
 
 import re
 import subprocess
@@ -170,6 +173,33 @@ _GUARD = textwrap.dedent(
     assert npz.files == ["emb_0"] and npz["emb_0"].shape[1] == cfg.embedding_dim, npz["emb_0"].shape
     on_loop(server.stop())
     on_loop(services.shutdown())
+
+    # /query through an LLM: a fake OpenAI-compatible provider and embedder, in cloud mode
+    from morphik_core_tpu_torch.scripts.fake_providers import ANSWER, FakeProviders
+    fake = FakeProviders(embed_dim=64).start()
+    llm_raw = dict(raw, storage={"storage_path": root + "/llm_storage"}, database={"path": root + "/llm.sqlite"},
+                   vector_store={"index_path": root + "/llm_index"}, morphik={"enable_colpali": False, "mode": "cloud"},
+                   registered_models={"llm": {"model_name": "gpt-fake", "api_base": fake.url + "/v1"},
+                                      "emb": {"model_name": "emb-fake", "api_base": fake.url + "/v1"}},
+                   completion={"model": "llm"}, embedding={"model": "emb", "dimensions": 64})
+    saved, raw = raw, llm_raw
+    services, server, base = boot()
+    raw = saved
+    ldoc = call("/ingest/text", json.dumps({"content": "the turbine audit found a cracked blade. " * 20,
+                                            "use_colpali": False}).encode())
+    answer = call("/query", json.dumps({"query": "turbine audit", "k": 1, "use_colpali": False}).encode())
+    assert answer["completion"] == ANSWER and answer["sources"][0]["document_id"] == ldoc["external_id"], answer
+    assert fake.last("/v1/chat/completions")["body"]["messages"][-1]["content"].count("cracked blade") > 0
+    b2 = "otf-boundary"
+    body = (f'--{b2}\\r\\nContent-Disposition: form-data; name="prompt"\\r\\n\\r\\nWhat cracked?\\r\\n'
+            f'--{b2}\\r\\nContent-Disposition: form-data; name="file"; filename="n.txt"\\r\\n'
+            'Content-Type: text/plain\\r\\n\\r\\n').encode() + b"The blade cracked." + f"\\r\\n--{b2}--\\r\\n".encode()
+    otf = call("/ingest/document/query", body, f"multipart/form-data; boundary={b2}")
+    assert otf["completion"] == ANSWER and otf["metadata"]["parsed_chars"] == 18, otf
+    assert call("/usage/limits")["usage"]["queries_used"] == 2
+    on_loop(server.stop())
+    on_loop(services.shutdown())
+    fake.stop()
 
     # a checkpoint directory: written by the port, served through model.checkpoint_path
     import dataclasses, pathlib

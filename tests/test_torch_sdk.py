@@ -2,8 +2,8 @@
 CPU: the folder, document, summary, app, migrate, logs and v2 tests of
 `tests/test_sdk.py` run here unchanged on a port server (imported, so
 they stay one body), and the parts of its two mixed tests that the port
-serves are mirrored; the on-the-fly query and the connectors answer 501
-(ROADMAP Queue 1 items 3g and 3d-ii)."""
+serves are mirrored, the on-the-fly query (`query_document`) included;
+only the connectors answer 501 (ROADMAP Queue 1 item 3d-ii)."""
 
 import asyncio
 import threading
@@ -63,9 +63,11 @@ def server_url(tmp_path_factory):
 
 
 def test_sdk_new_surface_served_by_the_port(server_url):
-    """`test_sdk.py::test_sdk_new_surface` without the on-the-fly query and
-    the connectors, which answer 501 here."""
+    """`test_sdk.py::test_sdk_new_surface` without the connectors, which
+    answer 501 here."""
     db = Morphik(base_url=server_url)
+    out = db.query_document(b"The relay closes at 7 volts.", "What voltage closes the relay?", filename="spec.txt")
+    assert out["completion"]
     doc = db.ingest_text("summary target", filename="st.txt", use_colpali=False)
     s = db.set_document_summary(doc.external_id, "short summary")
     assert s["version"] == 1
@@ -84,17 +86,14 @@ def test_sdk_new_surface_served_by_the_port(server_url):
     logs = db.get_logs()
     assert "events" in logs
 
-    for call in (lambda: db.query_document(b"The relay closes at 7 volts.", "What voltage?", filename="spec.txt"),
-                 lambda: db.connector_auth_status("local")):
-        with pytest.raises(httpx.HTTPStatusError) as e:
-            call()
-        assert e.value.response.status_code == 501
+    with pytest.raises(httpx.HTTPStatusError) as e:
+        db.connector_auth_status("local")
+    assert e.value.response.status_code == 501
     db.close()
 
 
 def test_async_sdk_parity_served_by_the_port(server_url):
-    """`test_sdk.py::test_async_sdk_parity` without the on-the-fly query and
-    the connectors."""
+    """`test_sdk.py::test_async_sdk_parity` without the connectors."""
 
     async def go():
         async with AsyncMorphik(base_url=server_url) as db:
@@ -105,6 +104,8 @@ def test_async_sdk_parity_served_by_the_port(server_url):
             chunks = await db.retrieve_chunks("antimatter ratio", k=1, use_colpali=False)
             assert chunks and "3:1" in chunks[0].content
             assert await db.list_documents(limit=5)
+            out = await db.query_document(b"Core temp is 9 kilokelvin.", "What is the core temp?", filename="c.txt")
+            assert out["completion"]
             s = await db.set_document_summary(doc.external_id, "async summary")
             assert s["version"] == 1
             assert (await db.get_document_summary(doc.external_id))["content"] == "async summary"

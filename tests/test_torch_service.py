@@ -34,6 +34,7 @@
 import asyncio
 import io
 import json
+import re
 import struct
 import threading
 import time
@@ -774,8 +775,21 @@ def test_http_undecodable_query_image_answers_400(servers):
     {"query": "x", "use_colpali": False, "output_format": "text"}, {"query": "x", "output_format": "text"},
 ])
 def test_http_unported_options_answer_501(servers, body):
-    status, out = _call(servers["base"]["torch"], "POST", "/retrieve/chunks", body)
-    assert status == 501 and "ROADMAP Queue 1 item 3" in out["detail"]
+    """`output_format="text"` was refused here until the completion
+    providers were ported; it is served now: under the stub completion
+    model an image chunk comes back as the reference's placeholder, as
+    the JAX server gives it. (With use_colpali=false the port's text store
+    holds no rows of these PNG pages, where the reference's holds their
+    bytes decoded as text: ROADMAP Queue 3.)"""
+    (ts_, tj), (js_, jj) = _both(servers, "POST", "/retrieve/chunks", dict(body, k=2))
+    assert ts_ == js_ == 200, (tj, jj)
+    for res in (tj, jj):
+        assert all(not r["content"].startswith("data:") for r in res)
+    if body.get("use_colpali", True):
+        assert _keys(tj) == _keys(jj) and len(tj) == 2
+        assert all(re.fullmatch(r"\[image page 0 of page\d\.png\]", r["content"]) for r in tj), tj
+    else:
+        assert tj == []
 
 
 def test_http_failed_ingest_marks_document_failed(servers):
@@ -811,13 +825,30 @@ def test_multipart_keeps_binary_crlf():
     ("parser", "parser_mode", "api", "item 3h"),
 ])
 def test_build_services_refuses_unported_settings(tmp_path, section, key, value, item):
-    """Settings of unported items raise, naming the item. Items 4 and 5
-    are ported and no longer refused: int8 attention is served, and a
-    checkpoint path is loaded (one that does not exist raises as a
-    missing file)."""
+    """Settings of unported items raise, naming the item. Items 3e, 3g, 4
+    and 5 are ported and no longer refused: cloud mode enforces the tier
+    limits, a registered completion key without api_base serves the stub
+    in development (as the reference does), a registered embedding key is
+    routed to its endpoint, int8 attention is served, and a checkpoint
+    path is loaded (one that does not exist raises as a missing file)."""
     raw = _raw_settings(tmp_path, "x")
     raw.setdefault(section, {})[key] = value
     raw["registered_models"] = {"openai_gpt4": {"model_name": "gpt-4"}}
+    if item in ("item 3e", "item 3g"):
+        from morphik_core_tpu_torch.completion.models import StubCompletionModel
+        from morphik_core_tpu_torch.embedding.text_embedding import RoutedEmbeddingModel
+
+        services = build_services(Settings.from_dict(raw), device="cpu")
+        if section == "morphik":
+            assert services.user_service.enforce
+        elif section == "completion":
+            assert isinstance(services.completion_model, StubCompletionModel)
+            assert services.completion_model.model_name == "openai_gpt4"
+        else:
+            emb = services.embedding_model
+            assert isinstance(emb, RoutedEmbeddingModel)
+            assert (emb.provider, emb.model_name, emb.api_base) == ("openai", "gpt-4", "https://api.openai.com/v1")
+        return
     if item == "item 4":
         model = build_services(Settings.from_dict(raw), device="cpu").colpali_embedding_model.model
         assert model.attention_precision == "int8" and model.cfg.vision.qk_int8

@@ -581,7 +581,7 @@ def test_overlap_reranker_matches_jax():
     a = _run(JOverlap().rerank("revenue contract", jchunks))
     b = _run(build_reranker(None).rerank("revenue contract", chunks))
     assert [(c.document_id, c.score) for c in a] == [(c.document_id, c.score) for c in b]
-    with pytest.raises(NotImplementedError, match="item 3g"):
+    with pytest.raises(NotImplementedError, match="needs sentence-transformers"):
         build_reranker("BAAI/bge-reranker-v2-m3")
 
 
