@@ -5,7 +5,8 @@ the shipped serving config (W8A8 tower with calibrated static activation
 scales, bf16 attention) and, before it, in bf16; then its HTTP service
 plane with the text path, documents as page images over HTTP, a real
 checkpoint, /query answered through the LLM wire formats, and the text
-index at 200,000 rows.
+index at 200,000 rows; last, an API node that embeds, parses and OCRs
+through remote endpoints.
 
     python3 chip_smoke.py
 
@@ -180,6 +181,29 @@ Phases (each raises on failure; none is caught):
      p99 and the retrieve's share, data-URI bytes a /query, the SSE first
      delta, the output_format="text" retrieve ms, the on-the-fly query s,
      the routed text ingest s, launches, the phase's s, the card).
+ 15. remote endpoints (after phase 14): server E, a local-mode server
+     from the toml serving phase 3b's model with a keyed /embeddings, and
+     server A, an API node (morphik.colpali_mode="api" on [a closed port,
+     E], parser.parser_mode="api" on [a closed port, the fake parse
+     endpoint], parser.ocr_mode="api" on the fake OCR endpoint of
+     scripts/fake_providers.py), which loads no tower (its boot allocates
+     < 64 MiB on the card). (a) 8 PNG pages through A: E embeds each (K3
+     28 a forward, one forward a page), the closed embedding endpoint is
+     tried once and then skipped, each upload's parse reaches the fake
+     after the closed parse endpoint fails, and each row A stores equals
+     E's in-process embed of the stored payload bit for bit, with its FDE
+     row equal to fde_document_batch of it; (b) 4 text queries x 10
+     retrieves on A (E's text tower encodes over HTTP, A reranks through
+     K1), each equal to A's in-process store on E's in-process encoding,
+     and a PNG image self-query top-1; (c) a two-page PDF with
+     use_colpali=false parsed by the fake (the filename sanitised), and a
+     blank scan that the deep rung OCRs through the fake, each the top
+     text retrieve of its text; (d) /embeddings on A, relayed to E, equal
+     to E's own bit for bit; (e) storage.provider="aws-s3" raises the
+     reference's RuntimeError without boto3. Prints a {"remote": ...}
+     line (pages/s, last_metrics, the first embed call beside the later
+     ones' p50, retrieve p50 / p99 and the remote encode, parse and OCR
+     s, launches, peak memory, the card).
  10. the text index at a real size, in process: a TextVectorStore on the
      card with 200,000 rows of 768 (the toml's embedding dimensions;
      seeded unit vectors, texts of 20-60 words from a seeded 30,000-word
@@ -2823,6 +2847,291 @@ def _llm_checks(client, fake, _kernels, services, settings):
     }
 
 
+REMOTE_PAGES = 8  # phase 15: PNG pages at GRID ingested through the API node
+REMOTE_KEY = "chip-smoke-embedding-key"  # morphik.morphik_embedding_api_key of both servers
+REMOTE_PDF_NAME = "Q3\\report.pdf"  # a backslash: the parse request's filename is sanitised to Q3_report.pdf
+REMOTE_SCAN_PAGES = 2
+
+
+def closed_port_url() -> str:
+    """A 127.0.0.1 URL whose port nothing listens on (connections are refused)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return f"http://127.0.0.1:{port}"
+
+
+class _Count(logging.Handler):
+    """Counts the records whose message contains `needle`."""
+
+    def __init__(self, needle: str):
+        super().__init__()
+        self.needle, self.n = needle, 0
+
+    def emit(self, record):
+        if self.needle in record.getMessage():
+            self.n += 1
+
+
+def remote_phase(torch, model, _kernels, smi):
+    """Phase 15: remote endpoints. Server E (a local-mode server from the
+    toml, phase 3b's model, a keyed `/embeddings`) and server A, an API
+    node (`colpali_mode="api"` on [a closed port, E], `parser_mode="api"`
+    on [a closed port, the fake parse endpoint], `ocr_mode="api"` on the
+    fake OCR endpoint), which loads no tower."""
+    import importlib.util
+
+    from morphik_core_tpu_torch.embedding.colpali_api_embedding_model import ColpaliApiEmbeddingModel
+    from morphik_core_tpu_torch.scripts.fake_providers import FakeProviders
+    from morphik_core_tpu_torch.services_init import build_services
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_remote_"))
+    fake = FakeProviders().start()
+    servers = []
+    try:
+        e_settings = service_settings(tmp / "e")
+        e_settings.morphik.morphik_embedding_api_key = REMOTE_KEY
+        t0 = time.perf_counter()
+        e = ServerThread(build_services(e_settings, colqwen_model=model))  # recalibrates static scales
+        servers.append(e)
+        e_boot_s = time.perf_counter() - t0
+        e_base = f"http://127.0.0.1:{e.server.port}"
+        dead_embed, dead_parse = closed_port_url(), closed_port_url()
+        a_settings = service_settings(tmp / "a")
+        a_settings.morphik.colpali_mode = "api"
+        a_settings.morphik.morphik_embedding_api_endpoints = [dead_embed, e_base]
+        a_settings.morphik.morphik_embedding_api_key = REMOTE_KEY
+        a_settings.model.embedding_dim = e.services.colpali_embedding_model.embedding_dim
+        a_settings.parser.parser_mode = "api"
+        a_settings.parser.parse_api_endpoints = [dead_parse, fake.url + "/parse"]
+        a_settings.parser.ocr_mode = "api"
+        a_settings.parser.ocr_api_endpoint = fake.url + "/ocr"
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        a = ServerThread(build_services(a_settings))
+        servers.append(a)
+        a_boot_s = time.perf_counter() - t0
+        a_boot_bytes = torch.cuda.memory_allocated() - mem0
+        emb = a.services.colpali_embedding_model
+        if not isinstance(emb, ColpaliApiEmbeddingModel) or hasattr(emb, "model") or a_boot_bytes > (64 << 20):
+            raise AssertionError(f"the API node's embedder is {type(emb).__name__} and its boot allocated "
+                                 f"{a_boot_bytes} bytes on the card: it must be the remote embedder with no tower")
+        log(f"phase 15: remote endpoints ({smi}): embedding server E up in {e_boot_s:.3f} s; API node A up in "
+            f"{a_boot_s:.3f} s with {a_boot_bytes} bytes on the card (no tower); A embeds on [{dead_embed} (closed), "
+            f"{e_base}], parses on [{dead_parse} (closed), the fake], OCRs on the fake at {fake.url}")
+        out = _remote_checks(torch, _kernels, e, a, fake, dead_embed, dead_parse)
+        # S3: the card's machine has no boto3; the provider raises the reference's RuntimeError
+        s3_settings = service_settings(tmp / "s3")
+        s3_settings.storage.provider = "aws-s3"
+        had_boto3 = importlib.util.find_spec("boto3") is not None
+        saved = sys.modules.get("boto3")
+        sys.modules["boto3"] = None  # absent, whatever the machine has
+        try:
+            build_services(s3_settings, colqwen_model=model)
+            raise AssertionError('storage.provider="aws-s3" built without boto3')
+        except RuntimeError as err:
+            if "boto3" not in str(err):
+                raise
+            s3_error = str(err)
+        finally:
+            if saved is None:
+                sys.modules.pop("boto3", None)
+            else:
+                sys.modules["boto3"] = saved
+    finally:
+        for server in reversed(servers):
+            server.stop()
+        fake.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(card=smi, e_boot_s=e_boot_s, a_boot_s=a_boot_s, a_boot_bytes=a_boot_bytes, s3_error=s3_error,
+               machine_has_boto3=had_boto3, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  A ingested {REMOTE_PAGES} PNG pages at {out['ingest_pages_per_s']:.3f} pages/s; embed calls: first "
+        f"{out['first_call_s'] * 1e3:.3f} ms (met the closed endpoint), later p50 {out['later_call_p50_ms']:.3f} ms; "
+        f"rows and FDE bit-identical to E's in-process embed; retrieve p50 {out['retrieve']['p50_ms']:.3f} ms p99 "
+        f"{out['retrieve']['p99_ms']:.3f} ms (remote encode p50 {out['remote_encode_p50_ms']:.3f} ms) equal to A's "
+        f"in-process store; image self-query top-1; parse {out['parse_s']:.3f} s, OCR ingest {out['ocr_s']:.3f} s; "
+        f"relay bit-identical; S3 without boto3: {s3_error!r}; launches {out['launches']}; peak "
+        f"{out['peak_memory_gb']:.2f} GB; phase {out['phase_s']:.3f} s ({smi})")
+    return out
+
+
+def _remote_checks(torch, _kernels, e, a, fake, dead_embed, dead_parse):
+    """Phase 15, 1-4, on the running servers E and A."""
+    import io
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.models.schemas import Chunk
+    from morphik_core_tpu_torch.ops.fde import fde_document_batch
+    from morphik_core_tpu_torch.ops.maxsim import pad_multivectors
+    from morphik_core_tpu_torch.scripts.fake_providers import ocr_answer, parse_answer
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+    from morphik_core_tpu_torch.utils.jpeg import encode_jpeg
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    client = Client(f"http://127.0.0.1:{a.server.port}")
+    e_base = f"http://127.0.0.1:{e.server.port}"
+    emb = a.services.colpali_embedding_model
+    e_emb = e.services.colpali_embedding_model
+    model = e_emb.model
+    k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+    # what A's embedder sends, and each of its calls' time: recorded around the methods it calls
+    posts, batches = [], []
+    post_sync, embed_batch = emb._post_sync, emb._embed_batch
+
+    def spy_post(endpoint, input_type, inputs):
+        t = time.perf_counter()
+        try:
+            out = post_sync(endpoint, input_type, inputs)
+            posts.append((endpoint, input_type, len(inputs), t, True))
+            return out
+        except Exception:
+            posts.append((endpoint, input_type, len(inputs), t, False))
+            raise
+
+    async def spy_batch(input_type, inputs):
+        t = time.perf_counter()
+        out = await embed_batch(input_type, inputs)
+        batches.append((input_type, len(inputs), time.perf_counter() - t))
+        return out
+
+    emb._post_sync, emb._embed_batch = spy_post, spy_batch
+    parse_failures = _Count(f"parse API {dead_parse} failed")
+    logging.getLogger("morphik_core_tpu_torch.parser.morphik_parser").addHandler(parse_failures)
+    try:
+        pages = service_pages()[:REMOTE_PAGES]
+        pngs = [encode_png(p) for p in pages]
+        payloads = [bytes_to_data_uri(encode_jpeg(p, 80)[0], "image/jpeg") for p in pages]
+        _kernels.reset_launch_counts()  # phase 15's path starts here
+        # 1: page ingest through A: each page's payload embedded by E's tower, one request a page
+        n_parse = len(fake.requests)
+        t = time.perf_counter()
+        docs = [client.upload(f"remote_page{i}.png", data)["external_id"] for i, data in enumerate(pngs)]
+        ingest_s = _wait_completed(client, docs) - t
+        ingest_launches = dict(_kernels.launch_counts)
+        forwards = sum(1 for p in posts if p[4] and p[1] == "image")  # one page a request, one forward each
+        if ingest_launches["window_attention"] != k3_per_forward * forwards or forwards != REMOTE_PAGES:
+            raise AssertionError(f"ingest: K3 {ingest_launches} over {forwards} forwards at E, expected "
+                                 f"{k3_per_forward} a forward and {REMOTE_PAGES} forwards")
+        parse_calls = [r for r in fake.requests[n_parse:] if r["path"] == "/parse"]
+        if len(parse_calls) != REMOTE_PAGES or parse_failures.n != REMOTE_PAGES:
+            raise AssertionError(f"{len(parse_calls)} calls to the fake parse endpoint and {parse_failures.n} "
+                                 f"failures of the closed one, expected {REMOTE_PAGES} each")
+        index = a.services.colpali_vector_store._indexes["default"]
+        for doc, payload in zip(docs, payloads):
+            want = e_emb.embed_for_ingestion_sync([Chunk(content=payload, metadata={"is_image": True})])[0][0]
+            got = index.get_multivector(doc, 0)
+            if not np.array_equal(got, want.astype(index.store_dtype).astype(np.float32)):
+                raise AssertionError(f"{doc}: A's stored row differs from E's in-process embed of its payload")
+            dense, mask = pad_multivectors([want])
+            fde = fde_document_batch(torch.from_numpy(dense).cuda(), torch.from_numpy(mask).cuda(), index.fde_config)
+            row = index._id_to_row[f"{doc}-0"]
+            if not np.array_equal(index._fde_rows(row, row + 1)[0], fde[0].cpu().numpy()):
+                raise AssertionError(f"{doc}: A's stored FDE row differs from fde_document_batch of its row")
+        # 2: retrieves: the query encoded by E's text tower over HTTP, reranked on A through K1
+        lat, encode_ms, results = [], [], {}
+        n_retrieves = 0
+        _kernels.reset_launch_counts()
+        for text in QUERIES:
+            for _ in range(RETRIEVE_REPEATS):
+                n = len(batches)
+                t = time.perf_counter()
+                res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
+                lat.append((time.perf_counter() - t) * 1e3)
+                encode_ms += [b[2] * 1e3 for b in batches[n:]]
+                n_retrieves += 1
+            results[text] = res
+        q_img = bytes_to_data_uri(pngs[3], "image/png")
+        t = time.perf_counter()
+        img_res = client.call("POST", "/retrieve/chunks", {"query_image": q_img, "k": 4})
+        image_ms = (time.perf_counter() - t) * 1e3
+        n_retrieves += 1
+        retrieve_launches = dict(_kernels.launch_counts)
+        if img_res[0]["document_id"] != docs[3] or img_res[0]["content"] != payloads[3]:
+            raise AssertionError(f"image self-query top-1 is {img_res[0]['document_id']}, expected {docs[3]}")
+        if retrieve_launches["maxsim_q8"] < n_retrieves or retrieve_launches["maxsim"] or retrieve_launches[
+                "window_attention"] != k3_per_forward:
+            raise AssertionError(f"retrieves: launches {retrieve_launches}: K1 below its {n_retrieves} retrieves, "
+                                 f"K2 launched, or K3 not {k3_per_forward} (the image query's one forward at E)")
+        max_err = 0.0
+        for text, res in results.items():
+            want = a.run(a.services.colpali_vector_store.query_similar(e_emb.embed_query(text), k=4, doc_ids=docs))
+            if [(r["document_id"], r["chunk_number"]) for r in res] != [(c.document_id, c.chunk_number) for c in want]:
+                raise AssertionError(f"{text!r}: A's answer differs from its in-process store on E's encoding")
+            max_err = max([max_err] + [abs(r["score"] - c.score) for r, c in zip(res, want)])
+        if max_err > SCORE_ATOL:
+            raise AssertionError(f"A's scores differ from its in-process store's by {max_err}")
+        # the closed endpoint: tried once, then skipped until its cooldown passes
+        dead = [p[3] for p in posts if p[0] == dead_embed]
+        if not dead or dead[0] != posts[0][3] or any(t1 - t0 < 60.0 for t0, t1 in zip(dead, dead[1:])):
+            raise AssertionError(f"the closed endpoint was tried at {dead}: expected once, then after each cooldown")
+        if any(p[4] for p in posts if p[0] == dead_embed) or not all(p[4] for p in posts if p[0] == e_base):
+            raise AssertionError("a call to the closed endpoint succeeded, or one to E failed")
+        call_s = [b[2] for b in batches]
+        # 3: parse and OCR: a two-page PDF through the fake parse endpoint, a blank scan through the deep rung
+        pdf = text_pdf([["Remote parse, page one: quarterly revenue."], ["Page two: the signature page."]])
+        n = len(fake.requests)
+        t = time.perf_counter()
+        pdoc = client.upload(REMOTE_PDF_NAME, pdf, "application/pdf", {"use_colpali": "false"})["external_id"]
+        parse_s = _wait_completed(client, [pdoc]) - t
+        parsed = [r for r in fake.requests[n:] if r["path"] == "/parse"]
+        if len(parsed) != 1 or parsed[0]["body"]["filename"] != "Q3_report.pdf":
+            raise AssertionError(f"the PDF's parse requests: {[r['body'].get('filename') for r in parsed]}")
+        hits = client.call("POST", "/retrieve/chunks", {"query": parse_answer("Q3_report.pdf", pdf), "k": 1,
+                                                        "use_colpali": False})
+        if not hits or hits[0]["document_id"] != pdoc:
+            raise AssertionError(f"the parsed PDF is not the top text retrieve of its text: {hits}")
+        scan = text_pdf([[]] * REMOTE_SCAN_PAGES)
+        n = len(fake.requests)
+        t = time.perf_counter()
+        sdoc = client.upload("scan.pdf", scan, "application/pdf", {"use_colpali": "false"})["external_id"]
+        ocr_s = _wait_completed(client, [sdoc]) - t
+        ocr_calls = [r for r in fake.requests[n:] if r["path"].startswith("/ocr")]
+        meta = client.call("GET", f"/documents/{sdoc}")["additional_metadata"]
+        if len(ocr_calls) != REMOTE_SCAN_PAGES or meta.get("ocr_pages") != REMOTE_SCAN_PAGES:
+            raise AssertionError(f"the scan: {len(ocr_calls)} OCR calls, metadata {meta}")
+        shape = ocr_calls[0]["body"]["shape"]
+        page_text = ocr_answer(np.full(shape, 255, np.uint8), True)["text"].split(", digest")[0]
+        hits = client.call("POST", "/retrieve/chunks", {"query": page_text, "k": 1, "use_colpali": False})
+        if not hits or hits[0]["document_id"] != sdoc:
+            raise AssertionError(f"the OCRed scan is not the top text retrieve of {page_text!r}: {hits}")
+        # 4: the relay: A's /embeddings (through E) equals E's, bit for bit
+        relay = {}
+        _kernels.reset_launch_counts()  # the relay: its forwards at E, for A's request and for E's own
+        for body in ({"input_type": "image", "inputs": payloads[:2]}, {"input_type": "text", "inputs": QUERIES[:2]}):
+            got = []
+            for base in (client.base, e_base):
+                status, raw = Client(base).request("POST", "/embeddings", body, token=REMOTE_KEY)
+                if status != 200:
+                    raise AssertionError(f"/embeddings at {base}: HTTP {status} {raw[:200]!r}")
+                npz = np.load(io.BytesIO(raw))
+                got.append([npz[f"emb_{i}"] for i in range(len(body["inputs"]))])
+            if not all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(*got)):
+                raise AssertionError(f"/embeddings {body['input_type']}: A's relay differs from E's answer")
+            relay[body["input_type"]] = [list(x.shape) for x in got[0]]
+        relay_launches = dict(_kernels.launch_counts)
+        if relay_launches["window_attention"] != 2 * k3_per_forward:  # one forward of the 2 pages at E, twice
+            raise AssertionError(f"the relay's launches {relay_launches}: expected K3 {2 * k3_per_forward}")
+    finally:
+        logging.getLogger("morphik_core_tpu_torch.parser.morphik_parser").removeHandler(parse_failures)
+        emb._post_sync, emb._embed_batch = post_sync, embed_batch
+    return {
+        "pages": REMOTE_PAGES, "ingest_s": ingest_s, "ingest_pages_per_s": REMOTE_PAGES / ingest_s,
+        "last_metrics": dict(emb.last_metrics), "first_call_s": call_s[0],
+        "later_call_p50_ms": float(np.percentile(call_s[1:], 50)) * 1e3, "embed_calls": len(call_s),
+        "dead_endpoint_tries": len(dead), "retrieve": _percentiles(lat),
+        "remote_encode_p50_ms": float(np.percentile(encode_ms, 50)), "image_query_ms": image_ms,
+        "max_score_diff": max_err, "parse_s": parse_s, "ocr_s": ocr_s, "relay_shapes": relay,
+        "launches": {"ingest": ingest_launches, "retrieve": retrieve_launches, "relay": relay_launches},
+        "k3_per_forward": k3_per_forward, "forwards_at_e": forwards,
+    }
+
+
 def main() -> None:
     torch, smi = setup()
     import numpy as np
@@ -2878,6 +3187,7 @@ def main() -> None:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     llm = llm_phase(torch, model, _kernels, smi)
+    remote = remote_phase(torch, model, _kernels, smi)
     text_index = text_index_phase(torch, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
@@ -2892,7 +3202,8 @@ def main() -> None:
              documents_launches=documents["launches"]["ingest"][name] + (
                  sum(documents["launches"]["retrieve_k1"]) if name == "maxsim_q8" else 0),
              corpus_launches=documents["corpus"]["launches"][name],
-             checkpoint_launches=checkpoint["launches"][name], llm_launches=llm["launches"][name])
+             checkpoint_launches=checkpoint["launches"][name], llm_launches=llm["launches"][name],
+             remote_launches=sum(remote["launches"][part][name] for part in ("ingest", "retrieve", "relay")))
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -2915,6 +3226,7 @@ def main() -> None:
     print(json.dumps({"text_index": text_index}))
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"llm": llm}))
+    print(json.dumps({"remote": remote}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

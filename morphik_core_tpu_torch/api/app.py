@@ -42,7 +42,8 @@ telemetry directory.
 
 Differences from the reference, recorded in ROADMAP Queue 3: `/health`
 and `/models` report the torch device where the reference reports its
-JAX backend (`/health` also adds `text_index_rows`); the device profile
+JAX backend (`/health` also adds `text_index_rows`, and reports "api" for
+a remote embedder, as the reference does); the device profile
 is a Chrome trace of `torch.profiler`; a replacement file the port does
 not ingest answers 415 before the document changes.
 """
@@ -111,9 +112,12 @@ def _backend(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
 
 
-def _colpali_health(store) -> Dict[str, Any]:
-    """The ColPali store's `/health` component: device, rows and device-cache tiers."""
-    colpali: Dict[str, Any] = {"enabled": True, "backend": _backend(store.device)}
+def _colpali_health(embedder, store) -> Dict[str, Any]:
+    """The ColPali store's `/health` component: the backend (the store's
+    device; "api" when the embedder holds no model, a remote embedder, as
+    the reference reports it), rows and device-cache tiers."""
+    backend = _backend(store.device) if getattr(embedder, "model", None) is not None else "api"
+    colpali: Dict[str, Any] = {"enabled": True, "backend": backend}
     colpali["index_rows"] = {ns: len(ix) for ns, ix in store._indexes.items()}
 
     def _tier(pc):
@@ -189,7 +193,7 @@ def build_app(services: Services) -> Router:
             components["storage"] = f"error: {e}"
         store = services.colpali_vector_store
         if store is not None:
-            components["colpali"] = _colpali_health(store)
+            components["colpali"] = _colpali_health(services.colpali_embedding_model, store)
         else:
             components["colpali"] = {"enabled": False}
         components["text_index_rows"] = {ns: n.n_alive() for ns, n in services.vector_store._ns_map.items()}
@@ -640,9 +644,10 @@ def build_app(services: Services) -> Router:
         """The embedding endpoint's wire contract: JSON `{"input_type":
         "text"|"image", "inputs": [...]}` in (images as data URIs or base64
         PNG / JPEG), an npz of `emb_0..emb_{n-1}` out, from the ColPali
-        embedder's `embed_for_ingestion` (image inputs run the tower).
-        Authenticated by `morphik.morphik_embedding_api_key` when one is
-        configured (a constant-time compare), else by the normal token."""
+        embedder's `embed_for_ingestion` (image inputs run the tower; a
+        remote embedder relays them to its own endpoints). Authenticated
+        by `morphik.morphik_embedding_api_key` when one is configured (a
+        constant-time compare), else by the normal token."""
         key = settings.morphik.morphik_embedding_api_key
         if key is not None:
             hdr = req.headers.get("authorization", "")
@@ -658,10 +663,14 @@ def build_app(services: Services) -> Router:
         if not isinstance(inputs, list):
             raise HTTPError(422, "inputs must be a list")
         chunks = [Chunk(content=v, metadata={"is_image": input_type == "image"}) for v in inputs]
+        embedder = services.colpali_embedding_model
         async with telemetry.track_operation("embeddings", "endpoint"):
-            embs = await asyncio.to_thread(services.colpali_embedding_model.embed_for_ingestion_sync, chunks)
+            if hasattr(embedder, "embed_for_ingestion_sync"):
+                embs = (await asyncio.to_thread(embedder.embed_for_ingestion_sync, chunks))[0]
+            else:
+                embs = await embedder.embed_for_ingestion(chunks)
         buf = io.BytesIO()
-        np.savez(buf, **{f"emb_{i}": e for i, e in enumerate(embs[0])})
+        np.savez(buf, **{f"emb_{i}": e for i, e in enumerate(embs)})
         return Response.binary(buf.getvalue(), "application/octet-stream")
 
     # ------------------------------------------------------------- folders

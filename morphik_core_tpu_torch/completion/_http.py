@@ -1,7 +1,9 @@
 """The stdlib transport of the port's network providers (completion and
 text embedding): the wire calls the reference makes with `httpx`
 (`morphik_core_tpu/completion/models.py`, `embedding/text_embedding.py`),
-made with `urllib.request`, which the card's machine has.
+made with `urllib.request`, which the card's machine has. The remote
+endpoints (ColPali embedding servers, parse and OCR endpoints), which the
+reference calls with urllib, POST their bodies through `post_bytes`.
 
 - `post_json`: one JSON POST -> the decoded JSON answer, as
   `client.post(url, json=..., headers=...)`, `raise_for_status()`,
@@ -72,16 +74,27 @@ class HTTPStatusError(RuntimeError):
         super().__init__(f"HTTP {status} from {url}: {detail}")
 
 
-def _open(url: str, payload: Any, headers: Dict[str, str], timeout: float):
-    """urlopen of a JSON POST; an error status raises HTTPStatusError."""
-    hdrs = {"Content-Type": "application/json", **headers}
-    req = urllib.request.Request(url, data=json.dumps(payload).encode(), headers=hdrs, method="POST")
+def _open_raw(url: str, data: bytes, headers: Dict[str, str], timeout: float):
+    """urlopen of a POST of `data`; an error status raises HTTPStatusError."""
+    req = urllib.request.Request(url, data=data, headers=headers, method="POST")
     try:
         return urllib.request.urlopen(req, timeout=timeout)
     except urllib.error.HTTPError as e:
         with e:
             body = e.read()
         raise HTTPStatusError(e.code, url, body) from None
+
+
+def _open(url: str, payload: Any, headers: Dict[str, str], timeout: float):
+    """urlopen of a JSON POST; an error status raises HTTPStatusError."""
+    return _open_raw(url, json.dumps(payload).encode(), {"Content-Type": "application/json", **headers}, timeout)
+
+
+def post_bytes(url: str, data: bytes, headers: Dict[str, str], timeout: float) -> bytes:
+    """Blocking: POST `data` (its content type in `headers`) -> the
+    answer's bytes. The remote endpoints' clients run it in worker threads."""
+    with _open_raw(url, data, headers, timeout) as resp:
+        return resp.read()
 
 
 def _post_json_blocking(url: str, payload: Any, headers: Dict[str, str], timeout: float) -> Any:

@@ -1,7 +1,8 @@
-"""A local stand-in for the completion and embedding providers, to drive
-`/query`, `output_format="text"`, the on-the-fly query and routed text
-embeddings with no network: one `ThreadingHTTPServer` on 127.0.0.1 that
-speaks
+"""A local stand-in for the completion and embedding providers and the
+remote parse and OCR endpoints, to drive `/query`, `output_format="text"`,
+the on-the-fly query, routed text embeddings, `parser_mode="api"` and
+`ocr_mode="api"` with no network: one `ThreadingHTTPServer` on 127.0.0.1
+that speaks
 
   - OpenAI `/chat/completions` (JSON, or SSE `data:` lines up to `[DONE]`)
     and `/embeddings` (also at an Azure deployment's
@@ -9,10 +10,18 @@ speaks
   - Ollama `/api/chat` (JSON, or NDJSON up to `"done": true`) and
     `/api/embed`;
   - Anthropic `/v1/messages` (JSON, or SSE `event:` / `data:` pairs up to
-    `message_stop`).
+    `message_stop`);
+  - a remote parse endpoint, `/parse` (`parser.parser_mode="api"`): a
+    multipart body in, `{"text": parse_answer(filename, file bytes)}` out
+    ("" for a scanned PDF);
+  - a remote OCR endpoint, `/ocr` (`parser.ocr_mode="api"`): a PNG body
+    in, `ocr_answer(pixels, tables)` out, `tables` true when the URL
+    carries `tables=true`.
 
-Every request is recorded (path, decoded JSON body, headers with
-lower-case names). The answer
+Every request is recorded (path with its query string, body, headers
+with lower-case names): a JSON body decoded; a parse request's body as
+{"raw": the bytes, "filename", "file_bytes", "file_sha256", "fields"};
+an OCR request's as {"shape", "pixels_sha256"}. A chat answer
 is a function of the request: with a JSON schema in the prompt, an
 object with a string for each of its properties; for the page
 transcription prompt of `output_format="text"`, `TRANSCRIPTION`; else
@@ -29,13 +38,19 @@ in `lingered` whether the client closed the connection within the 5 s.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from morphik_core_tpu_torch.embedding.text_embedding import HashingEmbeddingModel
+from morphik_core_tpu_torch.parser.pdf import extract_pages_text
+from morphik_core_tpu_torch.utils.image import decode_image
 
 ANSWER = "The fake provider read the retrieved pages and answers: revenue grew 12% in Q3."
 TRANSCRIPTION = "# Transcribed page\n\n| quarter | revenue |\n|---|---|\n| Q3 | 12% |"
@@ -54,6 +69,43 @@ def _text_of(content: Any) -> str:
     if isinstance(content, str):
         return content
     return "".join(b.get("text", "") for b in content if isinstance(b, dict) and b.get("type") == "text")
+
+
+def parse_answer(filename: str, data: bytes) -> str:
+    """The parse endpoint's text for a file: its name, size and digest; ""
+    for a PDF without a text layer (a scan), as a parser without OCR
+    answers, so the client's deep rung OCRs it."""
+    if data[:5] == b"%PDF-" and not any(t.strip() for t in extract_pages_text(data)):
+        return ""
+    return f"remote parse of {filename}: {len(data)} bytes, sha256 {hashlib.sha256(data).hexdigest()}"
+
+
+def ocr_answer(pixels: np.ndarray, tables: bool) -> Dict[str, Any]:
+    """The OCR endpoint's answer for a decoded page: its size and the
+    digest of its pixels in words; one markdown table with `tables`."""
+    h, w = pixels.shape[:2]
+    digest = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+    out: Dict[str, Any] = {"text": f"scanned page of {w} by {h} pixels, digest {digest[:16]}"}
+    if tables:
+        out["tables"] = [f"| page | digest |\n|---|---|\n| {w}x{h} | {digest[16:24]} |"]
+    return out
+
+
+def _multipart(body: bytes, content_type: str) -> Dict[str, Any]:
+    """A parse request's multipart body -> its file part and fields."""
+    boundary = re.search(r"boundary=([^;]+)", content_type).group(1).encode()
+    out: Dict[str, Any] = {"fields": {}}
+    for part in body.split(b"--" + boundary)[1:-1]:
+        head, _, data = part[2:].partition(b"\r\n\r\n")
+        data = data[:-2]  # the CRLF before the next boundary
+        name = re.search(rb'name="([^"]*)"', head).group(1).decode()
+        file_m = re.search(rb'filename="([^"]*)"', head)
+        if file_m:
+            out.update(filename=file_m.group(1).decode(), file_bytes=len(data),
+                       file_sha256=hashlib.sha256(data).hexdigest(), file=data)
+        else:
+            out["fields"][name] = data.decode()
+    return out
 
 
 def answer_for(body: Dict[str, Any]) -> str:
@@ -93,10 +145,25 @@ class FakeProviders:
             protocol_version = "HTTP/1.0"
 
             def do_POST(self):
-                body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+                raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                path = self.path.split("?", 1)[0]
+                if path == "/parse":
+                    form = _multipart(raw, self.headers.get("Content-Type", ""))
+                    body = {k: v for k, v in form.items() if k != "file"}
+                    body["raw"] = raw
+                    answer = {"text": parse_answer(form["filename"], form["file"])}
+                elif path == "/ocr":
+                    pixels = decode_image(raw)
+                    body = {"shape": list(pixels.shape),
+                            "pixels_sha256": hashlib.sha256(pixels.tobytes()).hexdigest()}
+                    answer = ocr_answer(pixels, "tables=true" in self.path)
+                else:
+                    body, answer = json.loads(raw), None
                 with fake._lock:
                     fake.requests.append({"path": self.path, "body": body,
                                           "headers": {k.lower(): v for k, v in self.headers.items()}})
+                if answer is not None:
+                    return fake._json(self, answer)
                 fake._answer(self, body)
 
             def log_message(self, *args):

@@ -33,6 +33,7 @@ from morphik_core_tpu_torch.completion.models import BaseCompletionModel
 from morphik_core_tpu_torch.config import Settings
 from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
 from morphik_core_tpu_torch.embedding.base_embedding_model import BaseEmbeddingModel
+from morphik_core_tpu_torch.embedding.colpali_api_embedding_model import ColpaliApiEmbeddingModel
 from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
 from morphik_core_tpu_torch.models.schemas import (
     AuthContext,
@@ -74,7 +75,7 @@ class DocumentService:
         self,
         database: SQLiteDatabase,
         storage: BaseStorage,
-        colpali_embedding_model: Optional[ColpaliEmbeddingModel],
+        colpali_embedding_model: Optional[Union[ColpaliEmbeddingModel, ColpaliApiEmbeddingModel]],
         colpali_vector_store: Optional[TorchMultiVectorStore],
         completion_model: Optional[BaseCompletionModel],
         settings: Settings,

@@ -14,8 +14,11 @@ upload, PPTX slides and DOCX text pages as q80 JPEG payloads of at most
 1024 px (`_image_to_data_uri`), blank pages skipped -> the text store
 first (hashing embeddings), then the ColPali store under the embed lock
 (the page images, or the text chunks of a file without any) -> nothing
-searchable: the deep-parse rung, else `unsearchable` -> completed.
-`ingest_text` splits and stores in the request.
+searchable: the deep-parse rung (OCR), else `unsearchable` -> completed.
+`ingest_text` splits and stores in the request. With a remote embedder
+(`morphik.colpali_mode="api"`) each chunk's `content` (a page's q80/q70
+JPEG data URI) goes over the wire, one request in flight; its page
+patches, prepared as for the tower, are dropped unused.
 
 A PDF's pages reach the embed stage through a `PageStream` that holds at
 most `ingest_embed_prefetch + 1` store batches of rastered pages, so a
@@ -56,6 +59,7 @@ import numpy as np
 from morphik_core_tpu_torch.config import Settings
 from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
 from morphik_core_tpu_torch.embedding.base_embedding_model import BaseEmbeddingModel
+from morphik_core_tpu_torch.embedding.colpali_api_embedding_model import ColpaliApiEmbeddingModel
 from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
 from morphik_core_tpu_torch.models.colqwen.preprocess import is_blank_page, resize_mode_u8, to_rgb_u8
 from morphik_core_tpu_torch.models.schemas import AuthContext, Chunk, Document
@@ -122,7 +126,7 @@ class IngestionService:
         parser: MorphikParser,
         embedding_model: BaseEmbeddingModel,
         vector_store: TextVectorStore,
-        colpali_embedding_model: Optional[ColpaliEmbeddingModel],
+        colpali_embedding_model: Optional[Union[ColpaliEmbeddingModel, ColpaliApiEmbeddingModel]],
         colpali_vector_store: Optional[TorchMultiVectorStore],
         settings: Settings,
     ):
@@ -287,10 +291,11 @@ class IngestionService:
 
     async def _parse_text(self, doc: Document, data: bytes, ctype: str, use_colpali: bool):
         """The text rungs of the ladder -> (additional_metadata, text, text
-        chunks). A failed parse of a ColPali-native file goes on
-        image-only; of any other file, it fails the job."""
-        if ctype.startswith("image/"):  # an image's bytes are not text (ROADMAP Queue 3)
-            return {}, "", []
+        chunks). A failed parse (with `parser_mode="api"`: every parse
+        endpoint failed) of a ColPali-native file goes on image-only, with
+        `parse_error` in the metadata; of any other file, it fails the job."""
+        if ctype.startswith("image/") and self.parser.parser_mode != "api":
+            return {}, "", []  # an image's bytes are not text (ROADMAP Queue 3); a parse endpoint reads images
         try:
             if self.parser.is_xml_file(doc.filename, ctype):
                 return {}, "", self.parser.parse_and_chunk_xml(data.decode("utf-8", errors="replace"))
@@ -444,8 +449,14 @@ class IngestionService:
         of page chunks: `release(n)` is told when n of them were embedded
         (their patches dropped). -> the number of chunks stored."""
         batch = self.settings.worker.colpali_store_batch_size
-        embed_sync = self.colpali_embedding_model.embed_for_ingestion_sync
+        embedder = self.colpali_embedding_model
+        embed_sync = getattr(embedder, "embed_for_ingestion_sync", None)
         depth = max(1, int(self.settings.worker.ingest_embed_prefetch))
+        if embed_sync is None:  # a remote embedder: one request in flight, as the reference keeps it
+            depth = 1
+
+        async def embed_remote(sub: List[Chunk]):
+            return await embedder.embed_for_ingestion(sub), []
         inflight: collections.deque = collections.deque()
         n = 0
 
@@ -469,7 +480,8 @@ class IngestionService:
             oldest = inflight.popleft() if len(inflight) == depth else None
             if oldest is not None:
                 await oldest[0]
-            inflight.append((asyncio.ensure_future(asyncio.to_thread(embed_sync, sub)), sub, n))
+            fut = asyncio.to_thread(embed_sync, sub) if embed_sync is not None else embed_remote(sub)
+            inflight.append((asyncio.ensure_future(fut), sub, n))
             n += len(sub)
             if oldest is not None:
                 await store(*oldest)

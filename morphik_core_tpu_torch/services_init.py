@@ -1,11 +1,16 @@
 """Service container of the port: builds the serving stack from
-`Settings`. Port of `morphik_core_tpu/services_init.py:62-330` for what
-the port serves: the sqlite database, local storage, the parser, the
-text embedder (a `registered_models` key routed to its endpoint, else the
-hashing embedder) and the hybrid text store (`{storage_path}/text_index`),
-with `morphik.enable_colpali` the ColPali embedder and its multivector
-store (persisted under `vector_store.index_path`), the reranker (the
-ColQwen reranker beside the ColPali embedder, else the lexical one), the
+`Settings`. Port of `morphik_core_tpu/services_init.py:33-330` for what
+the port serves: the sqlite database, the storage (local, or S3 behind
+the disk cache of `storage.cache_enabled`), the parser (local or remote
+parse endpoints, the OCR engine of `parser.ocr_mode`), the text embedder
+(a `registered_models` key routed to its endpoint, else the hashing
+embedder) and the hybrid text store (`{storage_path}/text_index`), with
+`morphik.enable_colpali` the ColPali embedder (the tower in process, or
+with `colpali_mode="api"` the remote embedding servers of
+`morphik_embedding_api_endpoints`, and no tower) and its multivector
+store (persisted under `vector_store.index_path`, on the device in both
+modes), the reranker (the ColQwen reranker beside an in-process tower,
+else the lexical one), the
 completion model of `completion.model` (a provider of `registered_models`
 or the stub), the on-the-fly document query, telemetry with its log
 uploader, the job queue, the user limits and app registry
@@ -13,9 +18,9 @@ uploader, the job queue, the user limits and app registry
 enforced in `morphik.mode="cloud"`) and the v2 pipeline with its
 in-memory chunk store, all on one device.
 
-Settings that select a part the port does not have yet raise
-`NotImplementedError` naming the ROADMAP item, rather than serve another
-path. Without a card, `build_services` raises unless the caller passes
+`tpu.auto_mesh`, the one setting of a part the port does not have yet,
+raises `NotImplementedError` naming its ROADMAP item, rather than serve
+another path. Without a card, `build_services` raises unless the caller passes
 `device="cpu"` (as the CPU tests do).
 """
 
@@ -23,9 +28,10 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -33,6 +39,7 @@ from morphik_core_tpu_torch.completion.models import BaseCompletionModel, build_
 from morphik_core_tpu_torch.config import Settings, get_settings
 from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
 from morphik_core_tpu_torch.device import default_device
+from morphik_core_tpu_torch.embedding.colpali_api_embedding_model import ColpaliApiEmbeddingModel
 from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
 from morphik_core_tpu_torch.embedding.base_embedding_model import BaseEmbeddingModel
 from morphik_core_tpu_torch.embedding.text_embedding import HashingEmbeddingModel, RoutedEmbeddingModel
@@ -47,7 +54,10 @@ from morphik_core_tpu_torch.services.on_the_fly import OnTheFlyService
 from morphik_core_tpu_torch.services.telemetry import TelemetryService
 from morphik_core_tpu_torch.services.user_service import UserService
 from morphik_core_tpu_torch.services.v2_document_service import V2DocumentService
+from morphik_core_tpu_torch.storage.base_storage import BaseStorage
+from morphik_core_tpu_torch.storage.cache_manager import CachedStorage, FileCacheManager
 from morphik_core_tpu_torch.storage.local_storage import LocalStorage
+from morphik_core_tpu_torch.storage.s3_storage import S3Storage
 from morphik_core_tpu_torch.vector_store.chunk_v2_store import ChunkV2Store
 from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
@@ -57,30 +67,39 @@ logger = logging.getLogger(__name__)
 
 
 def _refuse_unported(settings: Settings) -> None:
-    """Raise on each setting whose path the port does not have yet."""
-    refusals = (
-        (settings.morphik.colpali_mode == "api",
-         'morphik.colpali_mode="api" (remote embedding servers, ROADMAP Queue 1 item 3h)'),
-        (settings.storage.provider == "aws-s3", 'storage.provider="aws-s3" (ROADMAP Queue 1 item 3h)'),
-        (settings.tpu.auto_mesh, "tpu.auto_mesh=true (the multi-GPU paths, ROADMAP Queue 1 item 6)"),
-        (settings.parser.ocr_mode != "none",
-         f"parser.ocr_mode={settings.parser.ocr_mode!r}: OCR of page images is not ported "
-         "(ROADMAP Queue 1 item 3b-ii)"),
-        (settings.parser.parser_mode == "api", 'parser.parser_mode="api" (parse endpoints, ROADMAP Queue 1 item 3h)'),
+    """Raise on a setting whose path the port does not have yet."""
+    if settings.tpu.auto_mesh:
+        raise NotImplementedError("not ported: tpu.auto_mesh=true (the multi-GPU paths, ROADMAP Queue 1 item 6)")
+
+
+def build_storage(settings: Settings) -> BaseStorage:
+    """`storage.provider`: the local filesystem, or S3 (boto3 imported
+    here; without it the reference's RuntimeError), behind the disk LRU
+    cache when `storage.cache_enabled` is set."""
+    st = settings.storage
+    if st.provider != "aws-s3":
+        return LocalStorage(st.storage_path)
+    s3 = S3Storage(
+        default_bucket=st.bucket_name,
+        region_name=st.region,
+        endpoint_url=st.endpoint_url,
+        aws_access_key_id=os.environ.get("AWS_ACCESS_KEY_ID"),
+        aws_secret_access_key=os.environ.get("AWS_SECRET_ACCESS_KEY"),
+        upload_concurrency=st.upload_concurrency,
     )
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(f"not ported: {what}")
+    if st.cache_enabled:
+        return CachedStorage(s3, FileCacheManager(st.cache_path, st.cache_max_bytes))
+    return s3
 
 
 @dataclass
 class Services:
     settings: Settings
     database: SQLiteDatabase
-    storage: LocalStorage
+    storage: BaseStorage
     embedding_model: BaseEmbeddingModel
     vector_store: TextVectorStore
-    colpali_embedding_model: Optional[ColpaliEmbeddingModel]
+    colpali_embedding_model: Optional[Union[ColpaliEmbeddingModel, ColpaliApiEmbeddingModel]]
     colpali_vector_store: Optional[TorchMultiVectorStore]
     completion_model: BaseCompletionModel
     document_service: DocumentService
@@ -100,8 +119,8 @@ class Services:
             await self.colpali_vector_store.initialize()
         self.job_queue.register("process_ingestion_job", self._process_ingestion_job)
         await self.job_queue.start()
-        if self.settings.tpu.warmup_on_start and self.colpali_embedding_model is not None:
-            await asyncio.to_thread(self.colpali_embedding_model.warmup)
+        if self.settings.tpu.warmup_on_start and hasattr(self.colpali_embedding_model, "warmup"):
+            await asyncio.to_thread(self.colpali_embedding_model.warmup)  # a remote embedder has none
         # background telemetry threads, as the reference starts them: each
         # uploader pass trims the telemetry directory to its budget; no
         # network send unless an endpoint is configured
@@ -146,10 +165,12 @@ class Services:
             logger.exception("index persistence failed")
 
 
-def _colpali_store(settings: Settings, storage: LocalStorage, embedder: ColpaliEmbeddingModel,
+def _colpali_store(settings: Settings, storage: BaseStorage,
+                   embedder: Union[ColpaliEmbeddingModel, ColpaliApiEmbeddingModel],
                    device: torch.device) -> TorchMultiVectorStore:
-    """The multivector store of `vector_store` settings; sets the
-    embedder's fused ingest FDE when stored rows are not pooled."""
+    """The multivector store of `vector_store` settings; sets an
+    in-process embedder's fused ingest FDE when stored rows are not
+    pooled (a remote embedder's rows get their FDE when stored)."""
     vs = settings.vector_store
     fde_cfg = FDEConfig(
         dimension=embedder.embedding_dim,
@@ -161,7 +182,7 @@ def _colpali_store(settings: Settings, storage: LocalStorage, embedder: ColpaliE
     # fused ingest FDE: the embedder computes each page's document FDE on
     # the device right after the forward; valid only when stored
     # multivectors are not pooled (pooling rewrites the rows it describes)
-    if vs.multivector_pooling <= 1:
+    if settings.morphik.colpali_mode == "local" and vs.multivector_pooling <= 1:
         embedder.fde_config = fde_cfg
     return TorchMultiVectorStore(
         storage=storage,
@@ -197,13 +218,16 @@ def build_services(
     """The stack `settings` describe, on `device` (the card by default).
     `colqwen_model` is served as given (its precisions must be the
     configured ones); without it, the `model.checkpoint_path` directory is
-    loaded, or development mode serves the tiny random model."""
+    loaded, or development mode serves the tiny random model. With
+    `colpali_mode="api"` no model is loaded: pages and queries are
+    embedded by the endpoints (at least one, else the reference's
+    ValueError), authenticated by `morphik.morphik_embedding_api_key`."""
     settings = settings or get_settings()
     _refuse_unported(settings)
     device = torch.device(device) if device is not None else default_device()
     storage_root = Path(settings.storage.storage_path)
     database = SQLiteDatabase(settings.database.path)
-    storage = LocalStorage(settings.storage.storage_path)
+    storage = build_storage(settings)
     completion_model = build_completion_model(settings.registered_models, settings.completion.model,
                                               environment=settings.service.environment)
 
@@ -219,13 +243,20 @@ def build_services(
         embedding_model = HashingEmbeddingModel(dim=settings.embedding.dimensions)
     embedder = store = None
     if settings.morphik.enable_colpali and settings.morphik.colpali_mode != "off":
-        embedder = ColpaliEmbeddingModel.from_settings(settings, colqwen_model, device=device)
+        if settings.morphik.colpali_mode == "api":
+            # the reference passes no auth_token, so its API node gets 401 from a
+            # keyed endpoint (ROADMAP Queue 3): the port sends the key
+            embedder = ColpaliApiEmbeddingModel(settings.morphik.morphik_embedding_api_endpoints,
+                                                embedding_dim=settings.model.embedding_dim,
+                                                auth_token=settings.morphik.morphik_embedding_api_key)
+        else:
+            embedder = ColpaliEmbeddingModel.from_settings(settings, colqwen_model, device=device)
         store = _colpali_store(settings, storage, embedder, device)
     vector_store = TextVectorStore(path=storage_root / "text_index", device=device)
     # the text path's reranker: the ColQwen late-interaction scorer on the
     # tower already in process, else the lexical one
-    reranker = (ColQwenReranker(embedder, use_kernel=settings.tpu.use_pallas) if embedder is not None
-                else build_reranker(None))
+    reranker = (ColQwenReranker(embedder, use_kernel=settings.tpu.use_pallas)
+                if isinstance(embedder, ColpaliEmbeddingModel) else build_reranker(None))
     telemetry = TelemetryService(settings.telemetry.telemetry_dir, settings.telemetry.enabled)
     ingestion_service = IngestionService(database, storage, parser, embedding_model, vector_store, embedder, store,
                                          settings)

@@ -11,7 +11,11 @@ transformers: a checkpoint the port writes boots a server through
 `model.checkpoint_path` with its tokenizer and answers a retrieve. A
 server in cloud mode whose completion and embedding models are a fake
 local OpenAI-compatible provider answers `/query`, the on-the-fly query
-and `/usage/limits` (the stdlib transport, no httpx)."""
+and `/usage/limits` (the stdlib transport, no httpx). Nor boto3 or
+pytesseract (imported only where S3 storage and the tesseract engine are
+built): an API node (`colpali_mode="api"`) on an embedding server, with
+remote parse and OCR endpoints, ingests, retrieves and relays
+`/embeddings`."""
 
 import re
 import subprocess
@@ -21,11 +25,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-_GUARD = textwrap.dedent(
-    """
+BLOCKED = ("jax", "jaxlib", "PIL", "pydantic", "httpx", "safetensors", "tokenizers", "ml_dtypes", "regex",
+           "transformers", "boto3", "pytesseract")
+
+_PRELUDE = textwrap.dedent(
+    f"""
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "PIL", "pydantic", "httpx", "safetensors", "tokenizers", "ml_dtypes", "regex",
-                 "transformers"):
+    for name in {BLOCKED!r}:
         sys.modules[name] = None  # any import of them now raises
     sys.path.insert(0, sys.argv[1])
     import numpy as np, torch
@@ -34,6 +40,20 @@ _GUARD = textwrap.dedent(
     for m in pkgutil.walk_packages(morphik_core_tpu_torch.__path__, "morphik_core_tpu_torch."):
         importlib.import_module(m.name)
     import chip_smoke  # noqa: F401  (imports only; main() is not run)
+    """
+)
+
+_LEAKS = textwrap.dedent(
+    f"""
+    blocked = {BLOCKED + ("morphik_core_tpu",)!r}
+    leaked = sorted(k for k in sys.modules if k.split(".")[0] in blocked and sys.modules[k] is not None)
+    assert not leaked, leaked
+    print("JAXFREE_OK")
+    """
+)
+
+_GUARD = _PRELUDE + textwrap.dedent(
+    """
 
     from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
     from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
@@ -229,14 +249,93 @@ _GUARD = textwrap.dedent(
     on_loop(server.stop())
     on_loop(services.shutdown())
     loop.call_soon_threadsafe(loop.stop)
-
-    blocked = ("jax", "PIL", "pydantic", "httpx", "morphik_core_tpu", "safetensors", "tokenizers", "ml_dtypes",
-               "regex", "transformers")
-    leaked = sorted(k for k in sys.modules if k.split(".")[0] in blocked and sys.modules[k] is not None)
-    assert not leaked, leaked
-    print("JAXFREE_OK")
     """
-)
+) + _LEAKS
+
+# an API node: server E (local mode, the development tiny model, a keyed
+# /embeddings) and server A (colpali_mode="api" on E, parse and OCR through
+# the fake endpoints), the ingest -> retrieve -> relay round trip
+_API_NODE = _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, base64, io, json, tempfile, threading, time, urllib.request
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.scripts.fake_providers import FakeProviders, parse_answer
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    root = tempfile.mkdtemp()
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
+    def boot(name, **sections):
+        raw = {"storage": {"storage_path": f"{root}/{name}/storage"}, "database": {"path": f"{root}/{name}/db.sqlite"},
+               "vector_store": {"index_path": f"{root}/{name}/index"},
+               "telemetry": {"telemetry_dir": f"{root}/{name}/logs/telemetry"}, **sections}
+        services = build_services(Settings.from_dict(raw), device="cpu")
+        on_loop(services.initialize())
+        server = HTTPServer(build_app(services), "127.0.0.1", 0)
+        on_loop(server.start())
+        return services, server, f"http://127.0.0.1:{server.port}"
+    def call(base, path, body=None, ctype="application/json", key=None):
+        headers = {"Content-Type": ctype, **({"Authorization": f"Bearer {key}"} if key else {})}
+        with urllib.request.urlopen(urllib.request.Request(base + path, data=body, headers=headers), timeout=120) as r:
+            raw = r.read()
+            return json.loads(raw) if "json" in r.headers.get("Content-Type", "") else raw
+    def upload(base, name, data, ctype, **fields):
+        b = "api-node-boundary"
+        body = b"".join(f'--{b}\\r\\nContent-Disposition: form-data; name="{k}"\\r\\n\\r\\n{v}\\r\\n'.encode()
+                        for k, v in fields.items())
+        body += (f'--{b}\\r\\nContent-Disposition: form-data; name="file"; filename="{name}"\\r\\n'
+                 f'Content-Type: {ctype}\\r\\n\\r\\n').encode() + data + f"\\r\\n--{b}--\\r\\n".encode()
+        doc = call(base, "/ingest/file", body, f"multipart/form-data; boundary={b}")
+        for _ in range(600):
+            st = call(base, f"/documents/{doc['external_id']}/status")["status"]
+            if st != "processing":
+                break
+            time.sleep(0.05)
+        assert st == "completed", st
+        return doc["external_id"]
+
+    fake = FakeProviders().start()
+    e_services, e_server, e_base = boot("e", morphik={"morphik_embedding_api_key": "k1"})
+    a_services, a_server, a_base = boot("a", morphik={"colpali_mode": "api", "morphik_embedding_api_key": "k1",
+                                                      "morphik_embedding_api_endpoints": [e_base]},
+                                        model={"embedding_dim": e_services.colpali_embedding_model.embedding_dim},
+                                        parser={"parser_mode": "api", "parse_api_endpoints": [fake.url + "/parse"],
+                                                "ocr_mode": "api", "ocr_api_endpoint": fake.url + "/ocr"})
+    assert not hasattr(a_services.colpali_embedding_model, "model")
+    page = np.full((224, 224, 3), 255, np.uint8)
+    page[40:90, 30:180] = (200, 30, 30)
+    png = encode_png(page)
+    doc = upload(a_base, "p.png", png, "image/png")
+    assert fake.last("/parse")["body"]["filename"] == "p.png"
+    hits = call(a_base, "/retrieve/chunks", json.dumps({"query": "quarterly revenue", "k": 1}).encode())
+    assert [h["document_id"] for h in hits] == [doc], hits
+    uri = "data:image/png;base64," + base64.b64encode(png).decode()
+    img_hits = call(a_base, "/retrieve/chunks", json.dumps({"query_image": uri, "k": 1}).encode())
+    assert img_hits[0]["document_id"] == doc, img_hits
+    text = call(a_base, "/retrieve/chunks", json.dumps({"query": parse_answer("p.png", png), "k": 1,
+                                                        "use_colpali": False}).encode())
+    assert text[0]["document_id"] == doc, text
+    body = json.dumps({"input_type": "image", "inputs": [uri]}).encode()
+    relayed, direct = (np.load(io.BytesIO(call(b, "/embeddings", body, key="k1")))["emb_0"] for b in (a_base, e_base))
+    assert np.array_equal(relayed, direct)
+    scan = (b"%PDF-1.4\\n1 0 obj<</Type/Catalog/Pages 2 0 R>>endobj\\n2 0 obj<</Type/Pages/Kids[3 0 R]/Count 1>>"
+            b"endobj\\n3 0 obj<</Type/Page/Parent 2 0 R/MediaBox[0 0 612 792]>>endobj\\ntrailer<</Root 1 0 R>>\\n%%EOF")
+    sdoc = upload(a_base, "scan.pdf", scan, "application/pdf", use_colpali="false")
+    meta = call(a_base, f"/documents/{sdoc}")["additional_metadata"]
+    assert meta.get("ocr_pages") == 1, meta
+    assert call(a_base, "/health")["components"]["colpali"]["backend"] == "api"
+    for server, services in ((a_server, a_services), (e_server, e_services)):
+        on_loop(server.stop())
+        on_loop(services.shutdown())
+    fake.stop()
+    loop.call_soon_threadsafe(loop.stop)
+    """
+) + _LEAKS
 
 
 def test_slice_runs_with_jax_pil_pydantic_blocked():
@@ -244,6 +343,24 @@ def test_slice_runs_with_jax_pil_pydantic_blocked():
         [sys.executable, "-c", _GUARD, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_api_node_runs_with_jax_pil_pydantic_httpx_boto3_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _API_NODE, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_no_module_level_import_of_optional_packages():
+    """boto3 and pytesseract are imported where S3 storage and the
+    tesseract engine are built, never when a module is imported."""
+    pattern = re.compile(r"^(import|from) (boto3|pytesseract)\b", re.M)
+    files = sorted((ROOT / "morphik_core_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert not [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
+    lazy = re.compile(r"^\s+import (boto3|pytesseract)\b", re.M)
+    assert sorted(str(f.relative_to(ROOT)) for f in files if lazy.search(f.read_text())) == [
+        "morphik_core_tpu_torch/parser/ocr.py", "morphik_core_tpu_torch/storage/s3_storage.py"]
 
 
 def test_no_jax_import_in_port_sources():

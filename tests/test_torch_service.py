@@ -36,6 +36,7 @@ import io
 import json
 import re
 import struct
+import sys
 import threading
 import time
 import urllib.error
@@ -824,13 +825,17 @@ def test_multipart_keeps_binary_crlf():
     ("parser", "ocr_mode", "api", "item 3b"),
     ("parser", "parser_mode", "api", "item 3h"),
 ])
-def test_build_services_refuses_unported_settings(tmp_path, section, key, value, item):
-    """Settings of unported items raise, naming the item. Items 3e, 3g, 4
-    and 5 are ported and no longer refused: cloud mode enforces the tier
-    limits, a registered completion key without api_base serves the stub
-    in development (as the reference does), a registered embedding key is
-    routed to its endpoint, int8 attention is served, and a checkpoint
-    path is loaded (one that does not exist raises as a missing file)."""
+def test_build_services_refuses_unported_settings(tmp_path, section, key, value, item, caplog, monkeypatch):
+    """Settings of unported items raise, naming the item. Items 3b (the
+    OCR seam), 3e, 3g, 3h, 4 and 5 are ported and no longer refused: cloud
+    mode enforces the tier limits, a registered completion key without
+    api_base serves the stub in development (as the reference does), a
+    registered embedding key is routed to its endpoint, int8 attention is
+    served, a checkpoint path is loaded (one that does not exist raises as
+    a missing file), and as in the reference: colpali_mode="api" without
+    endpoints raises its ValueError, aws-s3 without boto3 its
+    RuntimeError, ocr_mode="api" without an endpoint builds with OCR off
+    and a warning, and parser_mode="api" builds."""
     raw = _raw_settings(tmp_path, "x")
     raw.setdefault(section, {})[key] = value
     raw["registered_models"] = {"openai_gpt4": {"model_name": "gpt-4"}}
@@ -856,6 +861,24 @@ def test_build_services_refuses_unported_settings(tmp_path, section, key, value,
     if item == "item 5":
         with pytest.raises(FileNotFoundError, match="/models/x"):
             build_services(Settings.from_dict(raw), device="cpu")
+        return
+    if (section, key) == ("morphik", "colpali_mode"):
+        with pytest.raises(ValueError, match="at least one embedding endpoint is required"):
+            build_services(Settings.from_dict(raw), device="cpu")
+        return
+    if section == "storage":
+        monkeypatch.setitem(sys.modules, "boto3", None)  # neither machine has it
+        with pytest.raises(RuntimeError, match="S3Storage requires boto3"):
+            build_services(Settings.from_dict(raw), device="cpu")
+        return
+    if section == "parser":
+        with caplog.at_level("WARNING", logger="morphik_core_tpu_torch.parser.ocr"):
+            parser = build_services(Settings.from_dict(raw), device="cpu").ingestion_service.parser
+        if key == "ocr_mode":
+            assert parser.ocr_engine is None
+            assert "ocr_mode=api but no ocr_api_endpoint configured" in caplog.text
+        else:
+            assert parser.parser_mode == "api" and parser.parse_api_endpoints == []
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         build_services(Settings.from_dict(raw), device="cpu")
