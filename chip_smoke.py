@@ -5,8 +5,10 @@ the shipped serving config (W8A8 tower with calibrated static activation
 scales, bf16 attention) and, before it, in bf16; then its HTTP service
 plane with the text path, documents as page images over HTTP, a real
 checkpoint, /query answered through the LLM wire formats, and the text
-index at 200,000 rows; last, an API node that embeds, parses and OCRs
-through remote endpoints.
+index at 200,000 rows; an API node that embeds, parses and OCRs through
+remote endpoints; last, the connectors and the admin console, with the
+progressive and multi-scan JPEGs and the Adam7 and 16-bit PNGs that
+connector files bring.
 
     python3 chip_smoke.py
 
@@ -204,6 +206,24 @@ Phases (each raises on failure; none is caught):
      line (pages/s, last_metrics, the first embed call beside the later
      ones' p50, retrieve p50 / p99 and the remote encode, parse and OCR
      s, launches, peak memory, the card).
+ 16. the connectors and the console (after phase 15), on a server from
+     the toml serving phase 3b's model: the committed connector files
+     (tests/fixtures/connector_files.npz: a progressive JPEG page, a
+     multi-scan baseline JPEG, an Adam7 PNG, 16-bit RGB and gray PNGs, a
+     CMYK JPEG) decode to Pillow's pixels (hashes), each timed on the
+     host beside a baseline JPEG of the progressive page; a local
+     connector over a directory outside storage.storage_path (a root over
+     it answers 400) lists and ingests them with a 4-page text PDF and a
+     .txt, each to `completed`, the CMYK file answering 415; each stored
+     image page is the reference's q80 payload byte for byte; GitHub
+     (a file by download_url), Google Drive (the OAuth code flow and its
+     single-use state, a PDF) and Zotero (an item's attachment), each
+     listed over two pages of 100, run end to end against the fake APIs of
+     scripts/fake_providers.py; K3 = 28 a tower forward; 40 retrieves and
+     an image query with the progressive file, each through K1;
+     /console's sha256 equals its file's. Prints a {"connectors": ...}
+     line (each ingest's s to completed, host decode ms a page, retrieve
+     p50 / p99, launches, peak memory, the phase's s, the card).
  10. the text index at a real size, in process: a TextVectorStore on the
      card with 200,000 rows of 768 (the toml's embedding dimensions;
      seeded unit vectors, texts of 20-60 words from a seeded 30,000-word
@@ -3132,6 +3152,240 @@ def _remote_checks(torch, _kernels, e, a, fake, dead_embed, dead_parse):
     }
 
 
+CONNECTOR_FIXTURES = ROOT / "tests" / "fixtures" / "connector_files.npz"
+CONNECTOR_IMAGES = ("progressive.jpg", "multiscan.jpg", "adam7.png", "rgb16.png", "gray16.png")
+CONNECTOR_PDF_PAGES = 4
+CONNECTOR_LISTED = 101  # files in the fake GitHub root, Drive root and Zotero library: two pages of 100
+DECODE_REPEATS = 3
+
+
+def _decode_ms(fn, data: bytes) -> float:
+    """The median host ms of `fn(data)` over DECODE_REPEATS calls."""
+    import numpy as np
+
+    times = []
+    for _ in range(DECODE_REPEATS):
+        t = time.perf_counter()
+        fn(data)
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def check_connector_decoders(z) -> dict:
+    """Phase 16, on this machine: each committed connector file decodes to
+    Pillow's pixels (their hash); the host ms a page of the progressive,
+    the multi-scan and a baseline JPEG of the same page (the port's q80
+    encode of its pixels), and of the Adam7 and 16-bit PNGs."""
+    import hashlib
+
+    from morphik_core_tpu_torch.models.colqwen.preprocess import to_rgb_u8
+    from morphik_core_tpu_torch.utils.image import read_image
+    from morphik_core_tpu_torch.utils.jpeg import UnsupportedJpeg, encode_jpeg, probe_jpeg, read_jpeg
+
+    decode_ms, pages = {}, {}
+    for name in CONNECTOR_IMAGES:
+        key = name.replace(".", "_")
+        data = z[key].tobytes()
+        rgb = to_rgb_u8(*read_image(data))
+        if hashlib.sha256(rgb.tobytes()).hexdigest() != str(z[f"{key}_rgb_sha256"]):
+            raise AssertionError(f"connector fixture {name}: decoded pixels differ from Pillow's")
+        decode_ms[name] = _decode_ms(read_image, data)
+        pages[name] = list(rgb.shape[:2])
+    baseline, _ = encode_jpeg(to_rgb_u8(*read_image(z["progressive_jpg"].tobytes())), 80)
+    decode_ms["baseline.jpg (the progressive page, q80)"] = _decode_ms(read_jpeg, baseline)
+    try:
+        probe_jpeg(z["cmyk_jpg"].tobytes())
+        raise AssertionError("the CMYK fixture was not refused")
+    except UnsupportedJpeg:
+        pass
+    return {"decode_ms": decode_ms, "page_hw": pages,
+            "progressive_over_baseline": decode_ms["progressive.jpg"] / decode_ms[
+                "baseline.jpg (the progressive page, q80)"]}
+
+
+def connectors_phase(torch, model, _kernels, smi):
+    """Phase 16: the connectors and the console on a server from the toml
+    serving phase 3b's model; the remote connectors against the fake
+    GitHub, Google and Zotero APIs of scripts/fake_providers.py."""
+    import base64
+    import hashlib
+
+    import numpy as np
+
+    import morphik_core_tpu_torch.ee.connectors.github as gh
+    import morphik_core_tpu_torch.ee.connectors.google_drive as gd
+    import morphik_core_tpu_torch.ee.connectors.zotero as zt
+    from morphik_core_tpu_torch.scripts.fake_providers import GITHUB_TOKEN, GOOGLE_CODE, ZOTERO_KEY, FakeProviders
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+
+    t_phase = time.perf_counter()
+    z = np.load(CONNECTOR_FIXTURES)
+    decoders = check_connector_decoders(z)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_connectors_"))
+    src = tmp / "src"   # outside storage.storage_path
+    src.mkdir()
+    for name in CONNECTOR_IMAGES + ("cmyk.jpg",):
+        (src / name).write_bytes(z[name.replace(".", "_")].tobytes())
+    rng = np.random.default_rng(SEED + 16)
+    (src / "report.pdf").write_bytes(text_pdf([seeded_prose(rng, 1500) for _ in range(CONNECTOR_PDF_PAGES)]))
+    (src / "notes.txt").write_text(seeded_prose(rng, 4000))
+    fake = FakeProviders().start()
+    for i in range(CONNECTOR_LISTED - 1):
+        fake.add_github_file("acme/docs", f"n{i:03}.md", f"# note {i}\n".encode())
+        fake.add_drive_file(f"d{i:03}", f"note {i:03}.txt", "text/plain", f"drive note {i}".encode())
+        fake.add_zotero_item("4242", f"N{i:03}", {"itemType": "note", "title": f"note {i}"})
+    fake.add_github_file("acme/docs", "photo.jpg", z["progressive_jpg"].tobytes())   # by download_url
+    fake.add_drive_file("d-report", "drive.pdf", "application/pdf", text_pdf([seeded_prose(rng, 800)] * 2))
+    fake.add_zotero_item("4242", "ITEM1", {"itemType": "journalArticle", "title": "On flux capacitors"})
+    fake.add_zotero_item("4242", "ATT1", {"itemType": "attachment", "filename": "figure.png"},
+                         file=z["adam7_png"].tobytes(), parent="ITEM1")
+    saved = (gh.API, gd.TOKEN_URL, gd.API, zt.API)
+    gh.API, gd.TOKEN_URL, gd.API, zt.API = (fake.url + "/github", fake.url + "/google/token",
+                                            fake.url + "/google/drive/v3", fake.url + "/zotero")
+    settings = service_settings(tmp)
+    settings.ee.google_client_id, settings.ee.google_client_secret = "chip-smoke-client", "chip-smoke-secret"
+    forward_batches = []
+    tower = model.embed_image_batch
+
+    def counted_forward(patches, *args, **kw):
+        forward_batches.append(int(patches.shape[0]))
+        return tower(patches, *args, **kw)
+
+    server = None
+    try:
+        t0 = time.perf_counter()
+        server = ServerThread(build_services(settings, colqwen_model=model))  # recalibrates static scales
+        boot_s = time.perf_counter() - t0
+        client = Client(f"http://127.0.0.1:{server.server.port}")
+        model.embed_image_batch = counted_forward
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()  # the connectors path starts here
+        log(f"phase 16: connectors ({smi}): server up in {boot_s:.3f} s; decoders (host ms a page) "
+            f"{json.dumps(decoders['decode_ms'])}")
+        C = "/ee/connectors"
+        if client.call("GET", f"{C}/local/auth_status")["is_authenticated"]:
+            raise AssertionError("the local connector is authenticated before its finalize")
+        status, _ = client.request("POST", f"{C}/local/auth/finalize", {"root": settings.storage.storage_path})
+        if status != 400:
+            raise AssertionError(f"a root over the storage directory answered {status}, expected 400")
+        client.call("POST", f"{C}/local/auth/finalize", {"root": str(src)})
+        listed = [f["name"] for f in client.call("GET", f"{C}/local/files")["files"]]
+        if listed != sorted(p.name for p in src.iterdir()):
+            raise AssertionError(f"the local connector lists {listed}")
+        ingest_s, docs = {}, {}
+
+        def ingest(kind, file_id, **body):
+            t = time.perf_counter()
+            status, raw = client.request("POST", f"{C}/{kind}/ingest", {"file_id": file_id, **body})
+            if status != 202:
+                raise AssertionError(f"{kind} ingest {file_id}: HTTP {status} {raw[:300]!r}")
+            doc = json.loads(raw)["document"]["external_id"]
+            ingest_s[f"{kind}:{file_id}"] = _wait_completed(client, [doc]) - t
+            docs[f"{kind}:{file_id}"] = doc
+            return doc
+
+        for name in CONNECTOR_IMAGES + ("report.pdf", "notes.txt"):
+            ingest("local", name)
+        status, raw = client.request("POST", f"{C}/local/ingest", {"file_id": "cmyk.jpg"})
+        if status != 415 or b"3b-ii" not in raw:
+            raise AssertionError(f"the CMYK JPEG answered {status} {raw[:300]!r}, expected 415")
+        for name in CONNECTOR_IMAGES:   # the stored page is the reference's q80 payload, byte for byte
+            chunk = client.call("POST", "/batch/chunks", {
+                "sources": [{"document_id": docs[f"local:{name}"], "chunk_number": 0}], "use_colpali": True})[0]
+            payload = base64.b64decode(chunk["content"].split(",", 1)[1])
+            if hashlib.sha256(payload).hexdigest() != str(z[name.replace(".", "_") + "_payload_sha256"]):
+                raise AssertionError(f"{name}: the stored q80 payload differs from the reference's")
+        pdf_pages = client.call("GET", f"/documents/{docs['local:report.pdf']}")["system_metadata"]["page_count"]
+        if pdf_pages != CONNECTOR_PDF_PAGES:
+            raise AssertionError(f"the connector PDF stored {pdf_pages} pages")
+
+        def two_pages(kind):
+            p1 = client.call("GET", f"{C}/{kind}/files")
+            p2 = client.call("GET", f"{C}/{kind}/files?page_token={p1['next_page_token']}")
+            if len(p1["files"]) != 100 or len(p2["files"]) != CONNECTOR_LISTED - 100 or p2["next_page_token"]:
+                raise AssertionError(f"{kind}: pages of {len(p1['files'])} and {len(p2['files'])} files")
+            return [f["id"] for f in p1["files"] + p2["files"]]
+
+        # GitHub: a token, two pages of the root, a file by download_url
+        client.call("POST", f"{C}/github/auth/finalize", {"token": GITHUB_TOKEN, "repo": "acme/docs"})
+        two_pages("github")
+        ingest("github", "photo.jpg")
+        # Google Drive: the authorization-code flow with its state, a PDF
+        state = client.call("GET", f"{C}/google_drive/auth/initiate_url")["state"]
+        status, _ = client.request("GET", f"{C}/google_drive/oauth2callback?code={GOOGLE_CODE}&state={state}")
+        if status != 200 or not client.call("GET", f"{C}/google_drive/auth_status")["is_authenticated"]:
+            raise AssertionError(f"the Drive OAuth callback answered {status}")
+        if client.request("GET", f"{C}/google_drive/oauth2callback?code={GOOGLE_CODE}&state={state}")[0] != 400:
+            raise AssertionError("the Drive OAuth state was accepted twice")
+        if "d-report" not in two_pages("google_drive"):
+            raise AssertionError("the Drive listing lacks the report")
+        ingest("google_drive", "d-report")
+        # Zotero: an API key, an item's attachments, one attachment
+        client.call("POST", f"{C}/zotero/auth/finalize", {"api_key": ZOTERO_KEY, "user_library_id": "4242"})
+        if "ITEM1" not in two_pages("zotero"):
+            raise AssertionError("the Zotero library lacks its item")
+        if [f["id"] for f in client.call("GET", f"{C}/zotero/files?path=ITEM1")["files"]] != ["ATT1"]:
+            raise AssertionError("the Zotero attachments differ")
+        ingest("zotero", "ATT1")
+        ingest_launches = dict(_kernels.launch_counts)
+        ingest_forwards = len(forward_batches)
+        k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+        if not ingest_forwards or ingest_launches["window_attention"] != k3_per_forward * ingest_forwards:
+            raise AssertionError(f"{ingest_forwards} tower forwards, K3 launched "
+                                 f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
+
+        # 40 retrieves over the ingested pages, each through K1; an image query of the progressive file
+        lat, k1 = [], []
+        for i in range(40):
+            before = _kernels.launch_counts["maxsim_q8"]
+            t = time.perf_counter()
+            res = client.call("POST", "/retrieve/chunks", {"query": QUERIES[i % len(QUERIES)], "k": 4})
+            lat.append((time.perf_counter() - t) * 1e3)
+            k1.append(_kernels.launch_counts["maxsim_q8"] - before)
+            if len(res) != 4:
+                raise AssertionError(f"a retrieve answered {len(res)} chunks")
+        before = _kernels.launch_counts["maxsim_q8"]
+        t = time.perf_counter()
+        img = client.call("POST", "/retrieve/chunks", {
+            "query_image": bytes_to_data_uri(z["progressive_jpg"].tobytes(), "image/jpeg"), "k": 4})
+        image_ms = (time.perf_counter() - t) * 1e3
+        k1.append(_kernels.launch_counts["maxsim_q8"] - before)
+        if img[0]["document_id"] not in (docs["local:progressive.jpg"], docs["github:photo.jpg"]):
+            raise AssertionError(f"the progressive image query's top-1 is {img[0]['document_id']}")
+        if min(k1) <= 0:
+            raise AssertionError(f"a retrieve did not launch K1: {k1}")
+        console = client.request("GET", "/console")
+        want = (ROOT / "morphik_core_tpu_torch" / "api" / "console.html").read_bytes()
+        if console[0] != 200 or hashlib.sha256(console[1]).hexdigest() != hashlib.sha256(want).hexdigest():
+            raise AssertionError("/console differs from the console's file")
+        for kind in ("local", "github", "google_drive", "zotero"):
+            if client.call("POST", f"{C}/{kind}/disconnect")["status"] != "disconnected":
+                raise AssertionError(f"the {kind} connector was not connected")
+        launches = dict(_kernels.launch_counts)
+        if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the image query's forward too
+            raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
+                                 f"tower forwards")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        model.embed_image_batch = tower
+        gh.API, gd.TOKEN_URL, gd.API, zt.API = saved
+        if server is not None:
+            server.stop()
+        fake.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"card": smi, "boot_s": boot_s, "ingest_s": ingest_s, "ingest_forwards": ingest_forwards,
+           "tower_forwards": len(forward_batches), "embed_batches": forward_batches, "decoders": decoders, "retrieve": _percentiles(lat),
+           "image_query_ms": image_ms, "launches": launches, "ingest_launches": ingest_launches,
+           "peak_memory_gb": peak_gb, "console_sha256": hashlib.sha256(want).hexdigest(),
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  ingests to completed (s) {json.dumps(ingest_s)}; ingest tower forwards {ingest_forwards} (K3 "
+        f"{ingest_launches['window_attention']}); retrieve p50 {out['retrieve']['p50_ms']:.3f} ms p99 "
+        f"{out['retrieve']['p99_ms']:.3f} ms; progressive image query {image_ms:.3f} ms; launches {launches}; "
+        f"peak {peak_gb:.2f} GB; phase {out['phase_s']:.3f} s ({smi})")
+    return out
+
+
 def main() -> None:
     torch, smi = setup()
     import numpy as np
@@ -3188,6 +3442,7 @@ def main() -> None:
         shutil.rmtree(ckpt, ignore_errors=True)
     llm = llm_phase(torch, model, _kernels, smi)
     remote = remote_phase(torch, model, _kernels, smi)
+    connectors = connectors_phase(torch, model, _kernels, smi)
     text_index = text_index_phase(torch, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
@@ -3203,7 +3458,8 @@ def main() -> None:
                  sum(documents["launches"]["retrieve_k1"]) if name == "maxsim_q8" else 0),
              corpus_launches=documents["corpus"]["launches"][name],
              checkpoint_launches=checkpoint["launches"][name], llm_launches=llm["launches"][name],
-             remote_launches=sum(remote["launches"][part][name] for part in ("ingest", "retrieve", "relay")))
+             remote_launches=sum(remote["launches"][part][name] for part in ("ingest", "retrieve", "relay")),
+             connectors_launches=connectors["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -3227,6 +3483,7 @@ def main() -> None:
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"llm": llm}))
     print(json.dumps({"remote": remote}))
+    print(json.dumps({"connectors": connectors}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

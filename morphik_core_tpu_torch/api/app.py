@@ -26,16 +26,21 @@ bodies.
   trace of CPU and CUDA activity);
 - `/migrate/document`, `/usage/app-storage`, `/usage/limits`, and the v2
   pipeline (`/v2/documents`, `/v2/retrieve/chunks`,
-  `DELETE /v2/documents/{id}`).
+  `DELETE /v2/documents/{id}`);
+- connectors (`ee/connectors/`): `/ee/connectors/{type}/auth_status`,
+  `auth/initiate_url`, `oauth2callback`, `auth/finalize`, `files`,
+  `ingest` (202, queued) and `disconnect`, for `local`, `github`,
+  `google_drive` and `zotero`; a remote's HTTP error answers 404, 403 or
+  502, a connector without credentials 401;
+- `/console`, the single-file admin console.
 
 `use_colpali=false` takes the text path. In `morphik.mode="cloud"` the
 tier limits answer 402 where the reference counts them: pages of
 `/ingest/text`, storage and pages of a file upload, `/query` and the
 on-the-fly query, and the apps of `/cloud/generate_uri`. An upload the
 port cannot ingest yet answers 415
-(`services/ingestion_service.py::check_upload`); a route it does not
-serve yet, 501 naming its ROADMAP item (the router maps
-`NotImplementedError`): `/ee/connectors/*` and `/console` (item 3d-ii).
+(`services/ingestion_service.py::check_upload`), from a connector's
+`ingest` too.
 With `service.enable_profiling` every request runs under cProfile
 (`api/middleware.py`), its `profile_*.prof` written beside the
 telemetry directory.
@@ -45,7 +50,9 @@ and `/models` report the torch device where the reference reports its
 JAX backend (`/health` also adds `text_index_rows`, and reports "api" for
 a remote embedder, as the reference does); the device profile
 is a Chrome trace of `torch.profiler`; a replacement file the port does
-not ingest answers 415 before the document changes.
+not ingest answers 415 before the document changes; a connector takes
+Drive's OAuth client from this app's settings, and the local connector
+refuses a root over the storage directory (`ee/connectors/`).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import json
 import logging
 import threading
 import time
+import urllib.error
 import uuid
 from datetime import datetime, timedelta, timezone
 from pathlib import Path
@@ -69,6 +77,7 @@ from morphik_core_tpu_torch import __version__
 from morphik_core_tpu_torch.api.auth import create_token, verify_token
 from morphik_core_tpu_torch.api.http import HTTPError, Request, Response, Router
 from morphik_core_tpu_torch.api.middleware import make_profiling_wrapper
+from morphik_core_tpu_torch.ee.connectors import get_connector
 from morphik_core_tpu_torch.models.schemas import AuthContext, Chunk
 from morphik_core_tpu_torch.models.tiers import estimate_pages_from_chars
 from morphik_core_tpu_torch.services.ingestion_service import UnsupportedContentType
@@ -1141,18 +1150,122 @@ def build_app(services: Services) -> Router:
         auth = await auth_of(req)
         return Response.json(await services.user_service.get_user_limits(auth.user_id or auth.entity_id))
 
-    # ------------------------------------------------- routes not served yet
+    # ------------------------------------------------------- ee: connectors
 
-    def _refused(what: str, item: str, authenticate: bool = True):
-        async def refuse(req: Request) -> Response:
-            if authenticate:
-                await auth_of(req)
-            raise NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 item {item})")
-        return refuse
+    def _connector_http_error(e: urllib.error.HTTPError) -> HTTPError:
+        """A remote connector's HTTP error as ours: 404 stays 404, 401 and
+        403 answer 403, any other status 502 (never a 500)."""
+        if e.code == 404:
+            return HTTPError(404, "file not found or not downloadable")
+        if e.code in (401, 403):
+            return HTTPError(403, f"connector access denied ({e.code})")
+        return HTTPError(502, f"connector upstream error ({e.code})")
 
-    for method, path in (("GET", "auth_status"), ("GET", "auth/initiate_url"), ("GET", "oauth2callback"),
-                         ("POST", "auth/finalize"), ("GET", "files"), ("POST", "ingest"), ("POST", "disconnect")):
-        router.add(method, "/ee/connectors/{connector_type}/" + path, _refused("a connector route", "3d-ii"))
-    router.add("GET", "/console", _refused("the admin console", "3d-ii", authenticate=False))
+    def _connector(req: Request, auth: AuthContext):
+        cred_dir = Path(settings.storage.storage_path) / "connector_credentials"
+        try:
+            return get_connector(req.path_params["connector_type"], auth.user_id or auth.entity_id, cred_dir,
+                                 ee=settings.ee)
+        except KeyError as e:
+            raise HTTPError(404, str(e))
+
+    @router.get("/ee/connectors/{connector_type}/auth_status")
+    async def connector_auth_status(req: Request) -> Response:
+        auth = await auth_of(req)
+        status = await _connector(req, auth).get_auth_status()
+        return Response.json(status.model_dump(mode="json"))
+
+    @router.get("/ee/connectors/{connector_type}/auth/initiate_url")
+    async def connector_initiate_auth(req: Request) -> Response:
+        auth = await auth_of(req)
+        return Response.json(await _connector(req, auth).initiate_auth())
+
+    @router.get("/ee/connectors/{connector_type}/oauth2callback")
+    async def connector_oauth_callback(req: Request) -> Response:
+        """The OAuth redirect target: exchanges the authorization code and
+        closes the popup flow."""
+        auth = await auth_of(req)
+        code = req.query.get("code")
+        if not code:
+            raise HTTPError(400, "missing authorization code")
+        ok = await _connector(req, auth).finalize_auth({"code": code, "state": req.query.get("state")})
+        body = ("<html><body><h3>Connector authenticated — you can close this window.</h3></body></html>"
+                if ok else "<html><body><h3>Authentication failed.</h3></body></html>")
+        return Response(status=200 if ok else 400, headers={"Content-Type": "text/html; charset=utf-8"},
+                         body=body.encode())
+
+    @router.post("/ee/connectors/{connector_type}/auth/finalize")
+    async def connector_finalize_auth(req: Request) -> Response:
+        auth = await auth_of(req)
+        if not await _connector(req, auth).finalize_auth(req.json()):
+            raise HTTPError(400, "authentication could not be finalized")
+        return Response.json({"status": "authenticated"})
+
+    @router.get("/ee/connectors/{connector_type}/files")
+    async def connector_list_files(req: Request) -> Response:
+        auth = await auth_of(req)
+        try:
+            out = await _connector(req, auth).list_files(path=req.query.get("path"),
+                                                         page_token=req.query.get("page_token"))
+        except PermissionError as e:
+            raise HTTPError(401, str(e))
+        except urllib.error.HTTPError as e:
+            raise _connector_http_error(e)
+        return Response.json({"files": [f.model_dump(mode="json") for f in out["files"]],
+                              "next_page_token": out.get("next_page_token")})
+
+    @router.post("/ee/connectors/{connector_type}/ingest")
+    async def connector_ingest(req: Request) -> Response:
+        """Download a connector file and queue it for ingestion (202); a
+        file the port does not ingest answers 415 before any document."""
+        auth = await auth_of(req)
+        _require_write(auth)
+        body = req.json()
+        file_id = body.get("file_id")
+        if not file_id:
+            raise HTTPError(422, "file_id is required")
+        conn = _connector(req, auth)
+        try:
+            meta = await conn.get_file_metadata_by_id(file_id)
+            buf = await conn.download_file_by_id(file_id)
+        except PermissionError as e:
+            raise HTTPError(401, str(e))
+        except urllib.error.HTTPError as e:
+            raise _connector_http_error(e)
+        if buf is None:
+            raise HTTPError(404, "file not found or not downloadable")
+        data = buf.getvalue()
+        await _check_limit(auth, "storage", len(data))
+        use_colpali = bool(body.get("use_colpali", True))
+        try:
+            doc = await services.ingestion_service.ingest_file_content(
+                data,
+                (meta.name if meta else None) or file_id.rsplit("/", 1)[-1],
+                dict(body.get("metadata") or {}, connector={"type": conn.connector_type, "file_id": file_id}),
+                auth,
+                folder_name=body.get("folder_name"),
+                end_user_id=body.get("end_user_id"),
+                use_colpali=use_colpali,
+            )
+        except UnsupportedContentType as e:
+            raise HTTPError(415, str(e))
+        await services.job_queue.enqueue_job("process_ingestion_job", document_id=doc.external_id,
+                                             auth=auth.model_dump(mode="json"), use_colpali=use_colpali)
+        return Response.json({"status": "queued", "document": doc.model_dump(mode="json")}, status=202)
+
+    @router.post("/ee/connectors/{connector_type}/disconnect")
+    async def connector_disconnect(req: Request) -> Response:
+        auth = await auth_of(req)
+        ok = await _connector(req, auth).disconnect()
+        return Response.json({"status": "disconnected" if ok else "not_connected"})
+
+    # ------------------------------------------------------------ console
+
+    @router.get("/console")
+    async def console(req: Request) -> Response:
+        """The single-file admin console (documents, search, chat,
+        folders, health): a static page whose API calls carry the bearer
+        token the user enters, so it needs no auth itself."""
+        return Response.binary((Path(__file__).parent / "console.html").read_bytes(), "text/html; charset=utf-8")
 
     return router

@@ -147,10 +147,9 @@ def _lanczos_filter(x: np.ndarray) -> np.ndarray:
 _FILTERS = {"bicubic": (_bicubic_filter, 2.0), "lanczos": (_lanczos_filter, 3.0)}
 
 
-def _resample_coeffs(in_size: int, out_size: int, kind: str = "bicubic") -> Tuple[np.ndarray, np.ndarray]:
-    """Resample.c `precompute_coeffs` + `normalize_coeffs_8bpc`: per output
-    pixel its first input index and ksize fixed-point taps (0 past the
-    clamped window)."""
+def _resample_weights(in_size: int, out_size: int, kind: str = "bicubic") -> Tuple[np.ndarray, np.ndarray]:
+    """Resample.c `precompute_coeffs`: per output pixel its first input
+    index and ksize normalized double taps (0 past the clamped window)."""
     filt, filter_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
@@ -165,7 +164,13 @@ def _resample_coeffs(in_size: int, out_size: int, kind: str = "bicubic") -> Tupl
     ww = np.zeros(out_size)
     for j in range(ksize):  # sequential, as the C loop sums
         ww += w[:, j]
-    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    return xmin, np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+
+
+def _resample_coeffs(in_size: int, out_size: int, kind: str = "bicubic") -> Tuple[np.ndarray, np.ndarray]:
+    """`_resample_weights` + Resample.c `normalize_coeffs_8bpc`: the taps
+    in fixed point."""
+    xmin, w = _resample_weights(in_size, out_size, kind)
     scaled = w * float(1 << _PRECISION_BITS)
     fixed = np.where(w < 0, np.trunc(-0.5 + scaled), np.trunc(0.5 + scaled)).astype(np.int64)
     return xmin, fixed
@@ -185,14 +190,36 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str = "bicub
     return np.ascontiguousarray(np.moveaxis(out, 0, axis))
 
 
-def _resize_u8(img: np.ndarray, size: Tuple[int, int], kind: str) -> np.ndarray:
+def _resample_axis_16(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
+    """Resample.c `ImagingResampleHorizontal_16bpc` / `Vertical_16bpc` on
+    I;16 samples: double taps, rounded half away from zero, then each byte
+    of the result clipped to 0..255 on its own (the low byte is the C
+    remainder of the sum by 256, the high byte the sum shifted by 8)."""
+    in_size = img.shape[axis]
+    xmin, w = _resample_weights(in_size, out_size, kind)
+    src = np.moveaxis(img, axis, 0).astype(np.float64)
+    bshape = (out_size,) + (1,) * (src.ndim - 1)
+    acc = np.zeros((out_size,) + src.shape[1:])
+    for j in range(w.shape[1]):  # sequential, as the C loop sums
+        acc = acc + src[np.minimum(xmin + j, in_size - 1)] * w[:, j].reshape(bshape)
+    ss = np.trunc(np.where(acc >= 0.0, acc + 0.5, acc - 0.5)).astype(np.int64)
+    out = (np.clip(ss >> 8, 0, 255) << 8 | np.clip(np.fmod(ss, 256), 0, 255)).astype(np.uint16)
+    return np.ascontiguousarray(np.moveaxis(out, 0, axis))
+
+
+def _resize_axes(img: np.ndarray, size: Tuple[int, int], kind: str, resample_axis=_resample_axis) -> np.ndarray:
+    """Width first, then height, as Pillow's `ImagingResample`; a new array."""
     h, w = size
-    out = np.asarray(img, dtype=np.uint8)
+    out = img
     if w != out.shape[1]:
-        out = _resample_axis(out, w, axis=1, kind=kind)
+        out = resample_axis(out, w, 1, kind)
     if h != out.shape[0]:
-        out = _resample_axis(out, h, axis=0, kind=kind)
+        out = resample_axis(out, h, 0, kind)
     return out if out is not img else out.copy()
+
+
+def _resize_u8(img: np.ndarray, size: Tuple[int, int], kind: str) -> np.ndarray:
+    return _resize_axes(np.asarray(img, dtype=np.uint8), size, kind)
 
 
 def resize_bicubic_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -233,10 +260,13 @@ def resize_mode_u8(pixels: np.ndarray, mode: str, size: Tuple[int, int], resampl
     (`Image.py` `resize`): modes P (indices) and 1 resize NEAREST; RGBA and LA
     resize premultiplied (RGBa / La, `Convert.c` `rgbA2rgba`, `la2La`)
     and convert back (`rgba2rgbA`: 255 * c / alpha, clipped, where alpha
-    is neither 0 nor 255). `pixels` is (H, W) for L and P, (H, W, 2) for
-    LA, (H, W, 3) RGB, (H, W, 4) RGBA."""
+    is neither 0 nor 255); I;16 resizes in 16 bits (`_resample_axis_16`).
+    `pixels` is (H, W) for L, P and I;16 (uint16), (H, W, 2) for LA,
+    (H, W, 3) RGB, (H, W, 4) RGBA."""
     if mode in ("P", "1"):
         return resize_nearest_u8(pixels, size)
+    if mode == "I;16":
+        return _resize_axes(pixels, size, resample, _resample_axis_16)
     if mode not in ("RGBA", "LA"):
         return _resize_u8(pixels, size, resample)
     alpha = pixels[..., -1:].astype(np.int64)
@@ -250,9 +280,12 @@ def resize_mode_u8(pixels: np.ndarray, mode: str, size: Tuple[int, int], resampl
 
 def to_rgb_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None) -> np.ndarray:
     """`Image.convert("RGB")` of an image of mode 1 (0 / 255), L, LA, RGB,
-    RGBA or P (alpha dropped, not composited; `palette` (256, 3) for P)."""
+    RGBA, P (alpha dropped, not composited; `palette` (256, 3) for P) or
+    I;16 (`I16_RGB`: a sample above 255 clips to 255)."""
     if mode == "RGB":
         return pixels
+    if mode == "I;16":
+        return np.repeat(np.minimum(pixels, 255).astype(np.uint8)[..., None], 3, axis=2)
     if mode == "RGBA":
         return np.ascontiguousarray(pixels[..., :3])
     if mode in ("L", "LA", "1"):

@@ -1,8 +1,9 @@
-"""A local stand-in for the completion and embedding providers and the
-remote parse and OCR endpoints, to drive `/query`, `output_format="text"`,
-the on-the-fly query, routed text embeddings, `parser_mode="api"` and
-`ocr_mode="api"` with no network: one `ThreadingHTTPServer` on 127.0.0.1
-that speaks
+"""A local stand-in for the completion and embedding providers, the
+remote parse and OCR endpoints and the connectors' remote APIs, to drive
+`/query`, `output_format="text"`, the on-the-fly query, routed text
+embeddings, `parser_mode="api"`, `ocr_mode="api"` and the GitHub, Google
+Drive and Zotero connectors with no network: one `ThreadingHTTPServer` on
+127.0.0.1 that speaks
 
   - OpenAI `/chat/completions` (JSON, or SSE `data:` lines up to `[DONE]`)
     and `/embeddings` (also at an Azure deployment's
@@ -16,7 +17,26 @@ that speaks
     ("" for a scanned PDF);
   - a remote OCR endpoint, `/ocr` (`parser.ocr_mode="api"`): a PNG body
     in, `ocr_answer(pixels, tables)` out, `tables` true when the URL
-    carries `tables=true`.
+    carries `tables=true`;
+  - GitHub under `/github` (`github.API = url + "/github"`): the contents
+    API, `/repos/{owner}/{repo}/contents/{path}` with `?per_page=` and
+    `?page=` (a file as base64 `content`, or by `download_url` past
+    `GITHUB_INLINE_MAX` bytes), and `/repos/{o}/{r}/git/trees/{branch}`;
+    a bearer token other than `GITHUB_TOKEN` answers 401;
+  - Google under `/google` (`google_drive.TOKEN_URL = url +
+    "/google/token"`, `google_drive.API = url + "/google/drive/v3"`): the
+    OAuth token endpoint (an authorization code, or a refresh token; a
+    code starting with `expired` gives a token that has already expired;
+    tokens are a function of the grant)
+    and Drive v3 `files` (list by parent with `pageSize` / `pageToken`,
+    get, `alt=media`, `export`); an unknown bearer token answers 401;
+  - Zotero under `/zotero` (`zotero.API = url + "/zotero"`):
+    `/users/{id}/items/top`, `/items/{key}`, `/items/{key}/children` and
+    `/items/{key}/file`, with `?start=` / `?limit=`; a `Zotero-API-Key`
+    other than `ZOTERO_KEY` answers 403.
+
+  A connector file or item named `status-NNN` answers HTTP NNN; add files
+  with `add_github_file`, `add_drive_file` and `add_zotero_item`.
 
 Every request is recorded (path with its query string, body, headers
 with lower-case names): a JSON body decoded; a parse request's body as
@@ -38,11 +58,13 @@ in `lingered` whether the client closed the connection within the 5 s.
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import json
 import re
 import threading
 import time
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
@@ -57,6 +79,11 @@ TRANSCRIPTION = "# Transcribed page\n\n| quarter | revenue |\n|---|---|\n| Q3 | 
 TRANSCRIBE_PROMPT = "Transcribe this page to markdown"
 STREAM_PIECES = 5
 LINGER_S = 5.0
+GITHUB_TOKEN = "ghp_fake_token"
+GITHUB_INLINE_MAX = 64 * 1024  # larger files come by download_url, as GitHub's past 1 MB
+GOOGLE_CODE = "fake-authorization-code"
+ZOTERO_KEY = "fake-zotero-key"
+DRIVE_FOLDER = "application/vnd.google-apps.folder"
 
 
 def _pieces(text: str, n: int = STREAM_PIECES) -> List[str]:
@@ -133,6 +160,25 @@ class FakeProviders:
         self._lock = threading.Lock()
         self._server: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self.github: Dict[str, Dict[str, bytes]] = {}        # "owner/repo" -> path -> bytes
+        self.drive: Dict[str, Dict[str, Any]] = {}           # file id -> its metadata and "data"
+        self.zotero: Dict[str, List[Dict[str, Any]]] = {}    # library id -> items (with "file", "parent")
+        self.google_tokens: Dict[str, str] = {}              # token -> "access" | "refresh"
+
+    # ------------------------------------------------ connector content
+
+    def add_github_file(self, repo: str, path: str, data: bytes) -> None:
+        self.github.setdefault(repo, {})[path] = data
+
+    def add_drive_file(self, file_id: str, name: str, mime: str, data: bytes = b"", parent: str = "root",
+                       modified: str = "2026-01-02T03:04:05.000Z") -> None:
+        self.drive[file_id] = {"id": file_id, "name": name, "mimeType": mime, "parent": parent,
+                               "modifiedTime": modified, "data": data}
+
+    def add_zotero_item(self, library: str, key: str, data: Dict[str, Any], file: Optional[bytes] = None,
+                        parent: Optional[str] = None) -> None:
+        self.zotero.setdefault(library, []).append({"key": key, "data": dict(data, key=key), "file": file,
+                                                    "parent": parent})
 
     @property
     def url(self) -> str:
@@ -144,9 +190,21 @@ class FakeProviders:
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.0"
 
+            def do_GET(self):
+                with fake._lock:
+                    fake.requests.append({"path": self.path, "body": None,
+                                          "headers": {k.lower(): v for k, v in self.headers.items()}})
+                fake._connector_get(self)
+
             def do_POST(self):
                 raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
                 path = self.path.split("?", 1)[0]
+                if path == "/google/token":
+                    body = dict(urllib.parse.parse_qsl(raw.decode()))
+                    with fake._lock:
+                        fake.requests.append({"path": self.path, "body": body,
+                                              "headers": {k.lower(): v for k, v in self.headers.items()}})
+                    return fake._google_token(self, body)
                 if path == "/parse":
                     form = _multipart(raw, self.headers.get("Content-Type", ""))
                     body = {k: v for k, v in form.items() if k != "file"}
@@ -192,6 +250,140 @@ class FakeProviders:
         """The last recorded request to a path starting with `path_prefix`."""
         with self._lock:
             return [r for r in self.requests if r["path"].startswith(path_prefix)][-1]
+
+    # ------------------------------------------------- connector answers
+
+    def _connector_get(self, h: BaseHTTPRequestHandler) -> None:
+        url = urllib.parse.urlsplit(h.path)
+        query = dict(urllib.parse.parse_qsl(url.query))
+        parts = url.path.split("/")[1:]
+        m = re.search(r"status-(\d{3})", url.path)
+        if m:
+            return self._json(h, {"message": f"fake {m.group(0)}"}, int(m.group(1)))
+        if parts[0] == "github":
+            if h.headers.get("Authorization") != f"Bearer {GITHUB_TOKEN}":
+                return self._json(h, {"message": "Bad credentials"}, 401)
+            return self._github(h, parts[1:], query)
+        if parts[0] == "google":
+            token = (h.headers.get("Authorization") or "").removeprefix("Bearer ")
+            if self.google_tokens.get(token) != "access":
+                return self._json(h, {"error": {"code": 401, "message": "Invalid Credentials"}}, 401)
+            return self._drive(h, parts[3:], query)
+        if parts[0] == "zotero":
+            if h.headers.get("Zotero-API-Key") != ZOTERO_KEY:
+                return self._json(h, {"message": "Forbidden"}, 403)
+            return self._zotero(h, parts[1:], query)
+        return self._json(h, {"error": "not found"}, 404)
+
+    def _github(self, h: BaseHTTPRequestHandler, parts: List[str], query: Dict[str, str]) -> None:
+        if parts[0] == "raw":  # a download_url
+            files = self.github.get("/".join(parts[1:3]), {})
+            path = "/".join(parts[3:])
+            return self._bytes(h, files[path]) if path in files else self._json(h, {"message": "Not Found"}, 404)
+        repo, files = "/".join(parts[1:3]), self.github.get("/".join(parts[1:3]))
+        if files is None:
+            return self._json(h, {"message": "Not Found"}, 404)
+        if parts[3] == "git":  # git/trees/{branch}
+            dirs = sorted({"/".join(p.split("/")[:i]) for p in files for i in range(1, p.count("/") + 1)})
+            tree = [{"path": d, "type": "tree"} for d in dirs]
+            tree += [{"path": p, "type": "blob", "size": len(d)} for p, d in sorted(files.items())]
+            return self._json(h, {"sha": "HEAD", "tree": sorted(tree, key=lambda e: e["path"]), "truncated": False})
+        path = "/".join(parts[4:]).strip("/")
+
+        def entry(p: str, is_dir: bool) -> Dict[str, Any]:
+            e = {"name": p.rsplit("/", 1)[-1], "path": p, "type": "dir" if is_dir else "file",
+                 "size": 0 if is_dir else len(files[p])}
+            if not is_dir:
+                e["download_url"] = f"{self.url}/github/raw/{repo}/{p}"
+            return e
+
+        if path in files:
+            e = entry(path, False)
+            data = files[path]
+            if len(data) <= GITHUB_INLINE_MAX:
+                e.update(encoding="base64", content=base64.encodebytes(data).decode())
+            else:
+                e.update(encoding="none", content="")
+            return self._json(h, e)
+        prefix = path + "/" if path else ""
+        children = {p[len(prefix):].split("/", 1)[0]: "/" in p[len(prefix):] for p in files if p.startswith(prefix)}
+        if not children:
+            return self._json(h, {"message": "Not Found"}, 404)
+        listing = [entry(prefix + n, is_dir) for n, is_dir in sorted(children.items())]
+        per_page, page = int(query.get("per_page", 30)), int(query.get("page", 1))
+        return self._json(h, listing[(page - 1) * per_page : page * per_page])
+
+    def _google_token(self, h: BaseHTTPRequestHandler, form: Dict[str, str]) -> None:
+        grant, code = form.get("grant_type"), form.get("code", "")
+        if grant == "authorization_code" and (code == GOOGLE_CODE or code.startswith("expired")):
+            expires_in = -60 if code.startswith("expired") else 3600
+        elif grant == "refresh_token" and self.google_tokens.get(form.get("refresh_token", "")) == "refresh":
+            expires_in = 3600
+        else:
+            return self._json(h, {"error": "invalid_grant"}, 400)
+        # tokens are a function of the grant, so two clients given the same
+        # grants hold the same tokens
+        seed = hashlib.sha256(json.dumps(form, sort_keys=True).encode()).hexdigest()
+        access, refresh = f"ya29.fake-{seed[:16]}", f"1//fake-refresh-{seed[16:32]}"
+        with self._lock:
+            self.google_tokens[access] = "access"
+            self.google_tokens[refresh] = "refresh"
+        answer = {"access_token": access, "expires_in": expires_in, "token_type": "Bearer"}
+        if grant == "authorization_code":
+            answer["refresh_token"] = refresh
+        return self._json(h, answer)
+
+    def _drive(self, h: BaseHTTPRequestHandler, parts: List[str], query: Dict[str, str]) -> None:
+        def meta(f: Dict[str, Any]) -> Dict[str, Any]:
+            out = {k: f[k] for k in ("id", "name", "mimeType", "modifiedTime")}
+            if f["mimeType"] != DRIVE_FOLDER:
+                out["size"] = str(len(f["data"]))
+            return out
+
+        if len(parts) == 1:  # files?q='parent' in parents ...
+            parent = re.match(r"'([^']*)' in parents", query.get("q", "")).group(1)
+            listing = sorted((f for f in self.drive.values() if f["parent"] == parent), key=lambda f: f["name"])
+            size, start = int(query.get("pageSize", 100)), int(query.get("pageToken", 0))
+            out: Dict[str, Any] = {"files": [meta(f) for f in listing[start : start + size]]}
+            if start + size < len(listing):
+                out["nextPageToken"] = str(start + size)
+            return self._json(h, out)
+        f = self.drive.get(parts[1])
+        if f is None:
+            return self._json(h, {"error": {"code": 404, "message": "File not found"}}, 404)
+        if len(parts) == 3 and parts[2] == "export":
+            return self._bytes(h, f["data"])
+        return self._bytes(h, f["data"]) if query.get("alt") == "media" else self._json(h, meta(f))
+
+    def _zotero(self, h: BaseHTTPRequestHandler, parts: List[str], query: Dict[str, str]) -> None:
+        items = self.zotero.get(parts[1])
+        if items is None:
+            return self._json(h, {"message": "Not Found"}, 404)
+
+        def item(i: Dict[str, Any]) -> Dict[str, Any]:
+            return {"key": i["key"], "version": 1, "data": i["data"]}
+
+        start, limit = int(query.get("start", 0)), int(query.get("limit", 25))
+        if parts[3] == "top":
+            return self._json(h, [item(i) for i in items if i["parent"] is None][start : start + limit])
+        found = [i for i in items if i["key"] == parts[3]]
+        if not found:
+            return self._json(h, {"message": "Not Found"}, 404)
+        if len(parts) == 4:
+            return self._json(h, item(found[0]))
+        if parts[4] == "children":
+            return self._json(h, [item(i) for i in items if i["parent"] == parts[3]][start : start + limit])
+        if found[0]["file"] is None:
+            return self._json(h, {"message": "Not Found"}, 404)
+        return self._bytes(h, found[0]["file"])
+
+    @staticmethod
+    def _bytes(h: BaseHTTPRequestHandler, data: bytes) -> None:
+        h.send_response(200)
+        h.send_header("Content-Type", "application/octet-stream")
+        h.send_header("Content-Length", str(len(data)))
+        h.end_headers()
+        h.wfile.write(data)
 
     # ------------------------------------------------------------ answers
 

@@ -25,9 +25,12 @@ most `ingest_embed_prefetch + 1` store batches of rastered pages, so a
 long PDF never holds every page's patches at once; the stored rows are
 those of the reference's whole-list order.
 
-Uploads: everything but video, images other than PNG and baseline JPEG,
-and JPEGs the decoder does not read (progressive, arithmetic, lossless,
-12-bit, CMYK): those answer 415 (ROADMAP Queue 1 item 3b-ii).
+Uploads: everything but video, images other than PNG and JPEG, and
+JPEGs the decoder does not read (arithmetic-coded, lossless, 12-bit,
+CMYK, and progressive files whose scans leave coefficient bits
+unrefined): those answer 415 (ROADMAP Queue 1 item 3b-ii). Progressive
+and multi-scan JPEGs, Adam7 PNGs and 16-bit PNGs (in Pillow's modes:
+I;16 gray resized in 16 bits and clipped to 8) are ingested.
 
 `folder_name` on either ingest path puts the document in that folder
 (created, with its ancestors, when missing). `update_document` merges
@@ -85,7 +88,8 @@ class UnsupportedContentType(ValueError):
 def check_upload(ctype: str, data: bytes) -> None:
     """Raise `UnsupportedContentType` (the route answers 415) for an
     upload the port does not ingest: video, images other than PNG and
-    JPEG, and a JPEG its decoder does not read (checked on the header)."""
+    JPEG (GIF, WebP, TIFF, BMP), and a JPEG its decoder does not read
+    (checked on the frame and scan headers)."""
     if ctype == "image/jpeg":
         try:
             probe_jpeg(data)
@@ -97,7 +101,7 @@ def check_upload(ctype: str, data: bytes) -> None:
     if ctype.startswith("video/"):
         why = "video is not ingested by the port"
     elif ctype.startswith("image/") and ctype != "image/png":
-        why = "the port decodes PNG and baseline JPEG images only"
+        why = "the port decodes PNG and JPEG images only"
     else:
         return
     raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {why} (ROADMAP Queue 1 item 3b-ii)")
@@ -105,9 +109,10 @@ def check_upload(ctype: str, data: bytes) -> None:
 
 def _image_to_data_uri(pixels: np.ndarray, mode: str, palette: Optional[np.ndarray], max_width: int,
                        quality: int = 80) -> Tuple[str, JpegCoefficients]:
-    """`ingestion_service.py:46-54`: resize (LANCZOS, Pillow's mode rules)
-    to at most `max_width`, convert to RGB unless RGB or L, q`quality`
-    JPEG -> (its data URI, its coefficients for `jpeg.decode_own`)."""
+    """`ingestion_service.py:46-54`: resize (LANCZOS, Pillow's mode rules:
+    I;16 in 16 bits) to at most `max_width`, convert to RGB unless RGB or
+    L (I;16 clipped), q`quality` JPEG -> (its data URI, its coefficients
+    for `jpeg.decode_own`)."""
     h, w = pixels.shape[:2]
     if w > max_width:
         ratio = max_width / w

@@ -1,5 +1,6 @@
 """Page and query images from their bytes, by magic number: PNG
-(`utils/png.py`) and baseline JPEG (`utils/jpeg.py`), the two image
+(`utils/png.py`: every color type and bit depth, Adam7 too) and JPEG
+(`utils/jpeg.py`: sequential and progressive Huffman), the two image
 formats the port decodes; anything else raises a `ValueError`."""
 
 from __future__ import annotations

@@ -18,15 +18,24 @@ Three parts, each bit-identical to Pillow built on libjpeg-turbo:
   upsampling of `jdsample.c`, YCbCr->RGB), so an encode followed by a
   decode of the same page costs no Huffman decode.
 - `read_jpeg(data)` / `decode_jpeg(data)`: a decoder for uploads and
-  query images: SOF0/SOF1 Huffman, 8-bit, 1 or 3 components in one scan,
-  sampling factors up to 2x2, DRI with RST markers; APPn and COM are
-  skipped. Progressive, arithmetic-coded, lossless, 12-bit, CMYK and
-  multi-scan files raise `UnsupportedJpeg`, which names ROADMAP Queue 1
-  item 3b-ii.
+  query images: 8-bit Huffman files of 1 or 3 components with sampling
+  factors up to 2x2, sequential (SOF0/SOF1) in one interleaved scan or in
+  several, or progressive (SOF2: DC first and refinement scans, AC first
+  and refinement scans with their EOB runs, as jdphuff.c decodes them);
+  DHT, DQT and DRI segments between scans, restart markers inside any
+  scan; a scan of one component covers only that component's own blocks.
+  The coefficients land in the `JpegCoefficients` form, so the islow
+  IDCT, fancy upsampling and colour conversion serve every kind of file.
+  Arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files, and
+  progressive files whose scans leave bits of the first ten coefficients
+  unrefined (libjpeg smooths those blocks), raise `UnsupportedJpeg`,
+  which names ROADMAP Queue 1 item 3b-ii; `probe_jpeg` finds all of these
+  from the headers.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 from typing import List, NamedTuple, Tuple
 
@@ -477,38 +486,46 @@ class _Frame(NamedTuple):
     height: int
     width: int
     comps: List[Tuple[int, int, int, int]]   # (id, h, v, quant table id)
+    progressive: bool
 
 
-def _segments(data: bytes):
-    """Marker segments up to the first SOS: (marker, body, offset after)."""
+def _segments(data: bytes, pos: int = 2):
+    """Marker segments from `pos` (after SOI) up to and including the next
+    SOS or EOI: (marker, body, offset after it); EOI has an empty body."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
-    pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) and data[pos + 1] == 0xFF:
             pos += 1   # fill bytes
-        if pos + 4 > len(data) or data[pos] != 0xFF:
+        if pos + 2 > len(data) or data[pos] != 0xFF:
             raise ValueError("truncated or broken JPEG marker structure")
         marker = data[pos + 1]
         if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
             pos += 2
             continue
         if marker == 0xD9:
-            raise ValueError("JPEG ends before its image data")
+            yield marker, b"", pos + 2
+            return
+        if pos + 4 > len(data):
+            raise ValueError("truncated or broken JPEG marker structure")
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
         body = data[pos + 4:pos + 2 + length]
         if len(body) != length - 2:
             raise ValueError("truncated JPEG marker segment")
         pos += 2 + length
         yield marker, body, pos
+        if marker == 0xDA:
+            return
+
+
+_SOF_REFUSED = {0xC3: "lossless", 0xC7: "lossless", 0xCB: "lossless", 0xCF: "lossless",
+                0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
+                0xC5: "hierarchical", 0xC6: "hierarchical", 0xCD: "hierarchical", 0xCE: "hierarchical"}
 
 
 def _check_sof(marker: int, body: bytes) -> _Frame:
-    kinds = {0xC2: "progressive", 0xC6: "progressive", 0xCA: "progressive", 0xCE: "progressive",
-             0xC3: "lossless", 0xC7: "lossless", 0xCB: "lossless", 0xCF: "lossless",
-             0xC9: "arithmetic-coded", 0xCD: "arithmetic-coded", 0xC5: "hierarchical"}
-    if marker in kinds:
-        raise UnsupportedJpeg(kinds[marker])
+    if marker in _SOF_REFUSED:
+        raise UnsupportedJpeg(_SOF_REFUSED[marker])
     precision, height, width, n = struct.unpack(">BHHB", body[:6])
     if precision != 8:
         raise UnsupportedJpeg(f"{precision}-bit")
@@ -523,19 +540,30 @@ def _check_sof(marker: int, body: bytes) -> _Frame:
     for _, h, v, _ in comps:
         if h not in (1, 2) or v not in (1, 2) or hmax // h > 2 or vmax // v > 2 or hmax % h or vmax % v:
             raise UnsupportedJpeg(f"sampling factors {h}x{v} of {hmax}x{vmax}")
-    return _Frame(height, width, comps)
+    return _Frame(height, width, comps, marker == 0xC2)
 
 
 def probe_jpeg(data: bytes) -> Tuple[int, int, int]:
-    """(width, height, components) from the header; raises
-    `UnsupportedJpeg` for a file `read_jpeg` would refuse."""
-    for marker, body, _ in _segments(data):
-        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            f = _check_sof(marker, body)
-            return f.width, f.height, len(f.comps)
-        if marker == 0xDA:
+    """(width, height, components) from the headers of the frame and of
+    every scan, the entropy-coded data skipped; raises `UnsupportedJpeg`
+    for a file `read_jpeg` would refuse."""
+    frame, coef_bits, pos = None, None, 2
+    while True:
+        for marker, body, pos in _segments(data, pos):
+            if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+                frame = _check_sof(marker, body)
+            elif marker == 0xCC:
+                raise UnsupportedJpeg("arithmetic-coded")
+        if marker == 0xD9 or frame is None:
             break
-    raise ValueError("JPEG has no frame header before its scan")
+        coef_bits = coef_bits or [[-1] * 64 for _ in frame.comps]
+        _track_bits(coef_bits, _parse_sos(body, frame), frame.progressive)
+        pos = _entropy_end(data, pos)
+    if frame is None or coef_bits is None:
+        raise ValueError("JPEG has no frame header before its scan")
+    if frame.progressive:
+        _check_refined(coef_bits)
+    return frame.width, frame.height, len(frame.comps)
 
 
 def _huff_lookup(counts, symbols) -> List[int]:
@@ -552,15 +580,21 @@ def _huff_lookup(counts, symbols) -> List[int]:
     return table.tolist()
 
 
-def _decode_interval(data: bytes, units, nblocks: int, coefs: List[Tuple[list, list]], tables) -> None:
-    """Huffman-decode one restart interval (0xFF00 already unstuffed):
-    `units` yields (component, flat offset of the block) in scan order; the
-    (flat index, value) of every nonzero coefficient is appended to the
-    component's lists. DC predictors start at 0."""
-    nbits = len(data) * 8
+def _windows(data: bytes) -> List[int]:
+    """The 32 bits from each byte of an unstuffed interval on; bits past
+    its end read as 1s."""
     b = np.frombuffer(data + b"\xff\xff\xff\xff", np.uint8).astype(np.int64)
-    # the 32 bits from each byte on; bits past the end read as 1s
-    win = ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
+    return ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
+
+
+def _decode_interval(data: bytes, units, nblocks: int, coefs: List[Tuple[list, list]], tables) -> None:
+    """Huffman-decode one restart interval of a sequential scan (0xFF00
+    already unstuffed): `units` yields (component, flat offset of the
+    block) in scan order; the (flat index, value) of every nonzero
+    coefficient is appended to the component's lists. DC predictors start
+    at 0."""
+    nbits = len(data) * 8
+    win = _windows(data)
     zz = ZIGZAG.tolist()
     pos = 0
     pred = {}
@@ -610,6 +644,154 @@ def _decode_interval(data: bytes, units, nblocks: int, coefs: List[Tuple[list, l
             raise ValueError("truncated JPEG image data")
 
 
+def _decode_dc_progressive(data: bytes, units, coef: List[list], tables, ah: int, al: int) -> None:
+    """One restart interval of a progressive DC scan (jdphuff.c
+    `decode_mcu_DC_first` / `decode_mcu_DC_refine`): `units` yields
+    (component, flat offset of the block) in scan order."""
+    nbits = len(data) * 8
+    win = _windows(data)
+    pos = 0
+    if ah:   # refinement: one bit per block, OR-ed in at bit `al`
+        p1 = 1 << al
+        for ci, base in units:
+            if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
+                coef[ci][base] |= p1
+            pos += 1
+    else:
+        pred = {}
+        for ci, base in units:
+            e = tables[ci][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e & 0xFF:
+                raise ValueError("corrupt JPEG data: bad Huffman code")
+            pos += e & 0xFF
+            s = e >> 8
+            v = 0
+            if s:
+                v = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                if v < (1 << (s - 1)):
+                    v -= (1 << s) - 1
+            dc = pred.get(ci, 0) + v
+            pred[ci] = dc
+            coef[ci][base] = dc << al
+    if pos > nbits:
+        raise ValueError("truncated JPEG image data")
+
+
+def _decode_ac_first(data: bytes, bases: list, blk: list, tab: list, ss: int, se: int, al: int) -> None:
+    """One restart interval of a progressive AC first scan of one
+    component (jdphuff.c `decode_mcu_AC_first`), with its EOB runs."""
+    nbits = len(data) * 8
+    win = _windows(data)
+    zz = ZIGZAG.tolist()
+    pos = 0
+    eobrun = 0
+    for base in bases:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            e = tab[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e & 0xFF:
+                raise ValueError("corrupt JPEG data: bad Huffman code")
+            pos += e & 0xFF
+            rs = e >> 8
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                if k > 63:
+                    raise ValueError("corrupt JPEG data: coefficient index past 63")
+                v = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                if v < (1 << (s - 1)):
+                    v -= (1 << s) - 1
+                blk[base + zz[k]] = v << al
+            elif r == 15:
+                k += 15
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                    pos += r
+                eobrun -= 1
+                break
+            k += 1
+    if pos > nbits:
+        raise ValueError("truncated JPEG image data")
+
+
+def _decode_ac_refine(data: bytes, bases: list, blk: list, tab: list, ss: int, se: int, al: int) -> None:
+    """One restart interval of a progressive AC refinement scan of one
+    component (jdphuff.c `decode_mcu_AC_refine`): a correction bit for
+    each coefficient already nonzero that the scan passes, new +-1 << al
+    coefficients placed after `r` zero-history ones, EOB runs that span
+    blocks."""
+    nbits = len(data) * 8
+    win = _windows(data)
+    nat = ZIGZAG.tolist()
+    p1, m1 = 1 << al, -1 << al
+    pos = 0
+    eobrun = 0
+    for base in bases:
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = tab[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                if not e & 0xFF:
+                    raise ValueError("corrupt JPEG data: bad Huffman code")
+                pos += e & 0xFF
+                rs = e >> 8
+                r, s = rs >> 4, rs & 15
+                if s:
+                    if s != 1:
+                        raise ValueError("corrupt JPEG data: refinement coefficient of size > 1")
+                    s = p1 if (win[pos >> 3] >> (31 - (pos & 7))) & 1 else m1
+                    pos += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                        pos += r
+                    break
+                # skip r zero-history coefficients (16 for ZRL), correcting
+                # the nonzero ones passed on the way
+                while k <= se:
+                    i = base + nat[k]
+                    c = blk[i]
+                    if c:
+                        if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                            blk[i] = c + p1 if c >= 0 else c + m1
+                        pos += 1
+                    else:
+                        if r == 0:
+                            break
+                        r -= 1
+                    k += 1
+                if s:
+                    if k > se:
+                        raise ValueError("corrupt JPEG data: coefficient index past the scan")
+                    blk[base + nat[k]] = s
+                k += 1
+        if eobrun:
+            # the rest of the block: correction bits only (none in a block
+            # whose AC coefficients are all still zero)
+            if k == ss and not any(blk[base + 1:base + 64]):
+                eobrun -= 1
+                continue
+            while k <= se:
+                i = base + nat[k]
+                c = blk[i]
+                if c:
+                    if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                        blk[i] = c + p1 if c >= 0 else c + m1
+                    pos += 1
+                k += 1
+            eobrun -= 1
+    if pos > nbits:
+        raise ValueError("truncated JPEG image data")
+
+
 def _read_dht(body: bytes, dc_specs: dict, ac_specs: dict) -> None:
     i = 0
     while i < len(body):
@@ -620,111 +802,200 @@ def _read_dht(body: bytes, dc_specs: dict, ac_specs: dict) -> None:
         i += 17 + n
 
 
-def read_jpeg(data: bytes) -> Tuple[np.ndarray, str]:
-    """JPEG bytes -> (pixels, mode) as Pillow's `Image.open` decodes them:
-    mode "L" gives (H, W), mode "RGB" (H, W, 3) uint8."""
-    qtables = {}
-    dc_specs, ac_specs = {}, {}
-    frame = None
-    restart = 0
-    jfif = adobe = False
-    adobe_transform = None
-    for marker, body, pos in _segments(data):
-        if marker == 0xDB:
-            i = 0
-            while i < len(body):
-                pq, tq = body[i] >> 4, body[i] & 15
-                n = 128 if pq else 64
-                vals = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if pq else np.uint8).astype(np.int64)
-                qt = np.zeros(64, np.int64)
-                qt[ZIGZAG] = vals
-                qtables[tq] = qt
-                i += 1 + n
-        elif marker == 0xC4:
-            _read_dht(body, dc_specs, ac_specs)
-        elif marker == 0xDD:
-            (restart,) = struct.unpack(">H", body[:2])
-        elif marker == 0xE0 and body[:5] == b"JFIF\x00":
-            jfif = True
-        elif marker == 0xEE and body[:5] == b"Adobe":
-            adobe, adobe_transform = True, body[11] if len(body) > 11 else None
-        elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            frame = _check_sof(marker, body)
-        elif marker == 0xCC:
-            raise UnsupportedJpeg("arithmetic-coded")
-        elif marker == 0xDA:
-            break
-    if frame is None:
-        raise ValueError("JPEG has no frame header before its scan")
-    hmax = max(c[1] for c in frame.comps)
-    vmax = max(c[2] for c in frame.comps)
-    mcu_rows, mcu_cols = -(-frame.height // (8 * vmax)), -(-frame.width // (8 * hmax))
-    blocks = [np.zeros((mcu_rows * v, mcu_cols * h, 64), np.int64) for _, h, v, _ in frame.comps]
-    ids = [c[0] for c in frame.comps]
-    coefs = [([], []) for _ in frame.comps]
-    # the one scan (baseline files here code every component in one
-    # interleaved scan, or a gray one alone): `pos` is after its header
-    ns = body[0]
-    if ns != len(frame.comps):
-        raise UnsupportedJpeg("multi-scan baseline")
-    scomps = []
-    for i in range(ns):
-        cid, tsel = body[1 + 2 * i], body[2 + 2 * i]
-        if cid not in ids:
-            raise ValueError(f"JPEG scan names an unknown component {cid}")
-        scomps.append((ids.index(cid), tsel >> 4, tsel & 15))
-    if body[1 + 2 * ns:4 + 2 * ns] != b"\x00\x3f\x00":
-        raise UnsupportedJpeg("progressive (spectral selection)")
-    tables = {}
-    for ci, td, ta in scomps:
-        if td not in dc_specs or ta not in ac_specs:
-            raise ValueError("JPEG scan uses an undefined Huffman table")
-        tables[ci] = (dc_specs[td], ac_specs[ta])
-    # each block's flat offset, in scan order
-    if ns == 1:
-        order = [(0, (r * blocks[0].shape[1] + c) * 64)
-                 for r in range(-(-frame.height // 8)) for c in range(-(-frame.width // 8))]
-    else:
-        order = [(ci, ((my * frame.comps[ci][2] + y) * blocks[ci].shape[1] + mx * frame.comps[ci][1] + x) * 64)
-                 for my in range(mcu_rows) for mx in range(mcu_cols)
-                 for ci, _, _ in scomps for y in range(frame.comps[ci][2]) for x in range(frame.comps[ci][1])]
-    per_unit = 1 if ns == 1 else len(order) // (mcu_rows * mcu_cols)   # blocks per MCU
-    # entropy-coded data up to the first marker that is not RSTn
-    intervals = []
-    start = pos
+def _entropy_end(data: bytes, pos: int) -> int:
+    """The offset of the first marker after `pos` that is not RSTn (a
+    scan's entropy-coded data ends there)."""
     while True:
         nxt = data.find(b"\xff", pos)
         if nxt < 0 or nxt + 1 >= len(data):
             raise ValueError("truncated JPEG image data (no EOI)")
         m = data[nxt + 1]
-        if m == 0x00 or m == 0xFF:
-            pos = nxt + (2 if m == 0x00 else 1)
+        if m == 0x00 or m == 0xFF or 0xD0 <= m <= 0xD7:
+            pos = nxt + (1 if m == 0xFF else 2)
             continue
-        intervals.append(data[start:nxt])
-        pos = nxt + 2
-        if 0xD0 <= m <= 0xD7:
-            start = pos
-            continue
-        break
-    units_total = len(order) // per_unit
-    interval_units = restart if restart else units_total
-    it = iter(order)
-    done = 0
-    for seg in intervals:
-        if done >= units_total:
-            break
-        n_units = min(interval_units, units_total - done)
-        _decode_interval(seg.replace(b"\xff\x00", b"\xff"), it, n_units * per_unit, coefs, tables)
-        done += n_units
-    if done < units_total:
-        raise ValueError("truncated JPEG image data")
-    for blk, (idx, val) in zip(blocks, coefs):
-        blk.reshape(-1)[np.asarray(idx, np.int64)] = np.asarray(val, np.int64)
+        return nxt
+
+
+def _entropy_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
+    """A scan's entropy-coded data from `pos`, split at its RSTn markers
+    and unstuffed -> (the intervals, the offset of the marker after it)."""
+    end = _entropy_end(data, pos)
+    return [seg.replace(b"\xff\x00", b"\xff") for seg in re.split(rb"\xff[\xd0-\xd7]", data[pos:end])], end
+
+
+class _Scan(NamedTuple):
+    comps: List[Tuple[int, int, int]]   # (component index, DC table, AC table)
+    ss: int
+    se: int
+    ah: int
+    al: int
+
+
+def _scan_units(frame: _Frame, blocks: List[np.ndarray], scan: _Scan) -> Tuple[list, list, int]:
+    """The component and flat offset of every block of a scan, in its
+    order, and the blocks per MCU. An interleaved scan walks the MCU grid;
+    a scan of one component walks only the blocks its samples cover
+    (`ceil(downsampled size / 8)`), not the padding blocks of the MCU
+    grid."""
+    hmax = max(c[1] for c in frame.comps)
+    vmax = max(c[2] for c in frame.comps)
+    if len(scan.comps) == 1:
+        ci = scan.comps[0][0]
+        _, h, v, _ = frame.comps[ci]
+        rows = -(-(-(-frame.height * v // vmax)) // 8)
+        cols = -(-(-(-frame.width * h // hmax)) // 8)
+        bases = (np.arange(rows)[:, None] * blocks[ci].shape[1] + np.arange(cols)[None, :]) * 64
+        return [ci] * bases.size, bases.reshape(-1).tolist(), 1
+    mcu_rows, mcu_cols = -(-frame.height // (8 * vmax)), -(-frame.width // (8 * hmax))
+    my, mx = np.arange(mcu_rows)[:, None], np.arange(mcu_cols)[None, :]
+    comp_ids, parts = [], []
+    for ci, _, _ in scan.comps:
+        _, h, v, _ = frame.comps[ci]
+        for y in range(v):
+            for x in range(h):
+                comp_ids.append(ci)
+                parts.append(((my * v + y) * blocks[ci].shape[1] + mx * h + x) * 64)
+    bases = np.stack(parts, axis=-1).reshape(-1)   # MCU order, then the blocks of each MCU
+    return comp_ids * (mcu_rows * mcu_cols), bases.tolist(), len(parts)
+
+
+def _parse_sos(body: bytes, frame: _Frame) -> _Scan:
+    ns = body[0]
+    ids = [c[0] for c in frame.comps]
     comps = []
-    for (cid, h, v, tq), blk in zip(frame.comps, blocks):
-        if tq not in qtables:
-            raise ValueError(f"JPEG uses an undefined quantization table {tq}")
-        comps.append(JpegComponent(blk, qtables[tq], h, v))
+    for i in range(ns):
+        cid, tsel = body[1 + 2 * i], body[2 + 2 * i]
+        if cid not in ids:
+            raise ValueError(f"JPEG scan names an unknown component {cid}")
+        comps.append((ids.index(cid), tsel >> 4, tsel & 15))
+    ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
+    scan = _Scan(comps, ss, se, a >> 4, a & 15)
+    if not frame.progressive:
+        if (ss, se, a) != (0, 63, 0):
+            raise ValueError("JPEG sequential scan with a spectral selection")
+    elif ss > se or se > 63 or (ss == 0) != (se == 0) or (ss and ns != 1) or scan.al > 13:
+        raise ValueError("JPEG progressive scan with bad parameters")
+    return scan
+
+
+def _track_bits(coef_bits: List[List[int]], scan: _Scan, progressive: bool) -> None:
+    """jdinput.c's `coef_bits`: for each component and coefficient, the
+    low bit position still unknown (-1: never coded); a scan out of the
+    order the progression allows raises."""
+    for ci, _, _ in scan.comps:
+        bits = coef_bits[ci]
+        if not progressive and bits[0] >= 0:
+            raise ValueError("JPEG sequential component coded in two scans")
+        for k in range(scan.ss, scan.se + 1):
+            if (scan.ah == 0) != (bits[k] < 0) or (scan.ah and scan.ah != bits[k]):
+                raise ValueError("JPEG progressive scan out of order")
+            bits[k] = scan.al
+
+
+def _check_refined(coef_bits: List[List[int]]) -> None:
+    """libjpeg smooths the low AC coefficients of a progressive file
+    (jdcoefct.c `do_block_smoothing`) when its scans leave any bit of the
+    first 10 coefficients unknown: such a file is refused, not decoded
+    differently from it."""
+    if any(b != 0 for bits in coef_bits for b in bits[:10]):
+        raise UnsupportedJpeg("progressive (scans leave coefficient bits unrefined, block smoothing)")
+
+
+def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
+    """JPEG bytes -> the quantized coefficients of every component after
+    all its scans, with the quantization tables latched at each
+    component's first scan (jdinput.c), and how they map to pixels."""
+    qtables, dc_specs, ac_specs = {}, {}, {}
+    latched = {}
+    frame = None
+    restart = 0
+    jfif = adobe = False
+    adobe_transform = None
+    blocks = coef = None
+    coef_bits = None
+    pos = 2
+    while True:
+        for marker, body, pos in _segments(data, pos):
+            if marker == 0xDB:
+                i = 0
+                while i < len(body):
+                    pq, tq = body[i] >> 4, body[i] & 15
+                    n = 128 if pq else 64
+                    vals = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if pq else np.uint8).astype(np.int64)
+                    qt = np.zeros(64, np.int64)
+                    qt[ZIGZAG] = vals
+                    qtables[tq] = qt
+                    i += 1 + n
+            elif marker == 0xC4:
+                _read_dht(body, dc_specs, ac_specs)
+            elif marker == 0xDD:
+                (restart,) = struct.unpack(">H", body[:2])
+            elif marker == 0xE0 and body[:5] == b"JFIF\x00":
+                jfif = True
+            elif marker == 0xEE and body[:5] == b"Adobe":
+                adobe, adobe_transform = True, body[11] if len(body) > 11 else None
+            elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+                if frame is not None:
+                    raise ValueError("JPEG has a second frame header")
+                frame = _check_sof(marker, body)
+            elif marker == 0xCC:
+                raise UnsupportedJpeg("arithmetic-coded")
+        if marker == 0xD9:
+            break
+        # an SOS: decode its scan
+        if frame is None:
+            raise ValueError("JPEG has no frame header before its scan")
+        if blocks is None:
+            hmax = max(c[1] for c in frame.comps)
+            vmax = max(c[2] for c in frame.comps)
+            mcu_rows, mcu_cols = -(-frame.height // (8 * vmax)), -(-frame.width // (8 * hmax))
+            blocks = [np.zeros((mcu_rows * v, mcu_cols * h, 64), np.int64) for _, h, v, _ in frame.comps]
+            coef = [[0] * b.size for b in blocks] if frame.progressive else [([], []) for _ in blocks]
+            coef_bits = [[-1] * 64 for _ in blocks]
+        scan = _parse_sos(body, frame)
+        for ci, td, ta in scan.comps:
+            if ci not in latched:
+                tq = frame.comps[ci][3]
+                if tq not in qtables:
+                    raise ValueError(f"JPEG uses an undefined quantization table {tq}")
+                latched[ci] = qtables[tq].copy()
+        _track_bits(coef_bits, scan, frame.progressive)
+        intervals, pos = _entropy_segments(data, pos)
+        comp_of, bases, per_mcu = _scan_units(frame, blocks, scan)
+        step = (restart or len(bases) // per_mcu) * per_mcu
+        if len(intervals) < -(-len(bases) // step):
+            raise ValueError("truncated JPEG image data")
+        if not frame.progressive or scan.ss == 0:
+            dc = {ci: dc_specs.get(td) for ci, td, _ in scan.comps}
+            ac = {ci: ac_specs.get(ta) for ci, _, ta in scan.comps}
+            if (not scan.ah and None in dc.values()) or (not frame.progressive and None in ac.values()):
+                raise ValueError("JPEG scan uses an undefined Huffman table")
+        elif ac_specs.get(scan.comps[0][2]) is None:
+            raise ValueError("JPEG scan uses an undefined Huffman table")
+        for i in range(0, len(bases), step):
+            seg, part = intervals[i // step], slice(i, i + step)
+            if not frame.progressive:
+                _decode_interval(seg, zip(comp_of[part], bases[part]), len(bases[part]), coef,
+                                 {ci: (dc[ci], ac[ci]) for ci in dc})
+            elif scan.ss == 0:
+                _decode_dc_progressive(seg, zip(comp_of[part], bases[part]), coef, dc, scan.ah, scan.al)
+            else:
+                ci, _, ta = scan.comps[0]
+                decode = _decode_ac_refine if scan.ah else _decode_ac_first
+                decode(seg, bases[part], coef[ci], ac_specs[ta], scan.ss, scan.se, scan.al)
+    if blocks is None:
+        raise ValueError("JPEG ends before its image data")
+    if len(latched) != len(frame.comps):
+        raise ValueError("JPEG component without a scan")
+    if frame.progressive:
+        _check_refined(coef_bits)
+        for blk, c in zip(blocks, coef):
+            blk.reshape(-1)[:] = c
+    else:
+        for blk, (idx, val) in zip(blocks, coef):
+            blk.reshape(-1)[np.asarray(idx, np.int64)] = np.asarray(val, np.int64)
+    ids = [c[0] for c in frame.comps]
+    comps = tuple(JpegComponent(blk, latched[ci], h, v) for ci, (blk, (_, h, v, _)) in enumerate(zip(blocks, frame.comps)))
     if len(comps) == 1:
         color = "L"
     elif jfif:
@@ -733,8 +1004,14 @@ def read_jpeg(data: bytes) -> Tuple[np.ndarray, str]:
         color = "RGB" if adobe_transform == 0 else "YCbCr"
     else:
         color = "RGB" if ids == [82, 71, 66] else "YCbCr"
-    px = _reconstruct(JpegCoefficients(frame.height, frame.width, tuple(comps), color))
-    return px, ("L" if color == "L" else "RGB")
+    return JpegCoefficients(frame.height, frame.width, comps, color)
+
+
+def read_jpeg(data: bytes) -> Tuple[np.ndarray, str]:
+    """JPEG bytes -> (pixels, mode) as Pillow's `Image.open` decodes them:
+    mode "L" gives (H, W), mode "RGB" (H, W, 3) uint8."""
+    coeffs = read_jpeg_coefficients(data)
+    return _reconstruct(coeffs), ("L" if coeffs.color == "L" else "RGB")
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:

@@ -3,15 +3,18 @@ port's service plane (the card's machine has no PIL).
 
 `read_png` returns the pixels in the mode Pillow's `Image.open` gives
 them (L, LA, RGB, RGBA, or P with its palette for 8-bit PNGs; 1, L or P
-for 1/2/4-bit gray and palette PNGs), so a page can be resized and
+for 1/2/4-bit gray and palette PNGs; for 16-bit PNGs, I;16 (uint16) for
+gray, and the high byte of each sample for the others: RGB, and RGBA for
+both gray + alpha and RGB + alpha), so a page can be resized and
 converted under Pillow's mode rules; `decode_png` returns what
 `Image.open(...).convert("RGB")` gives: gray replicated to three
-channels, alpha dropped (not composited), palette indices looked up
-(indices past the palette read as black). Every row filter (None, Sub,
-Up, Average, Paeth) is undone exactly.
-16-bit samples and Adam7 interlacing raise a `ValueError` that names
-the feature. `encode_png` writes filter 0 rows (tests and `chip_smoke.py`
-make their inputs with it).
+channels (I;16 clipped to 255), alpha dropped (not composited), palette
+indices looked up (indices past the palette read as black). A tRNS chunk
+is ignored, as it stays in Pillow's `info`. Every row filter (None, Sub,
+Up, Average, Paeth) is undone exactly, and Adam7-interlaced images are
+put together from their seven passes (a pass of no pixels has no rows).
+`encode_png` writes filter 0 rows (tests and `chip_smoke.py` make their
+inputs with it).
 """
 
 from __future__ import annotations
@@ -88,12 +91,26 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 
 _MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(rows: np.ndarray, width: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered rows -> (h, w, ch) samples: uint8 for depths up to 8
+    (packed samples most significant bits first), uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, width, ch)
+    if depth == 8:
+        return rows.reshape(h, width, ch)
+    bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(h, width, depth)
+    return (bits.astype(np.int64) << np.arange(depth - 1, -1, -1)).sum(axis=-1).astype(np.uint8)[..., None]
 
 
 def read_png(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     """PNG bytes -> (pixels, mode, palette) as Pillow's `Image.open` holds
-    them: mode L or P (H, W), LA (H, W, 2), RGB (H, W, 3), RGBA (H, W, 4);
-    `palette` is the (256, 3) lookup of a P image, else None."""
+    them: mode L, I;16 or P (H, W), LA (H, W, 2), RGB (H, W, 3), RGBA
+    (H, W, 4); `palette` is the (256, 3) lookup of a P image, else None."""
     header = None
     palette = b""
     idat: List[bytes] = []
@@ -109,31 +126,43 @@ def read_png(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     width, height, depth, color, _compression, _filter, interlace = header
     if color not in _CHANNELS:
         raise ValueError(f"unknown PNG color type {color}")
-    if depth != 8 and not (depth in (1, 2, 4) and color in (0, 3)):
-        raise ValueError(f"PNG bit depth {depth} is not supported (8, or 1/2/4 for gray and palette images)")
-    if interlace:
-        raise ValueError("Adam7-interlaced PNG is not supported")
+    if depth not in (8, 16) and not (depth in (1, 2, 4) and color in (0, 3)) or (depth == 16 and color == 3):
+        raise ValueError(f"PNG bit depth {depth} is not valid for color type {color}")
+    if interlace not in (0, 1):
+        raise ValueError(f"unknown PNG interlace method {interlace}")
     if width * height > MAX_PIXELS:
         raise ValueError(f"PNG of {width} x {height} pixels exceeds the decompression-bomb limit {MAX_PIXELS}")
     ch = _CHANNELS[color]
-    stride = (width * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    # each pass: (x0, y0, dx, dy, its width, its height); an empty pass has no rows
+    sizes = [(x0, y0, dx, dy, -(-(width - x0) // dx), -(-(height - y0) // dy)) for x0, y0, dx, dy in passes]
+    sizes = [t for t in sizes if t[4] > 0 and t[5] > 0]
+    need = sum(ph * ((pw * ch * depth + 7) // 8 + 1) for *_, pw, ph in sizes)
     # decompress no more than the image needs: a small file cannot expand without bound
-    raw = zlib.decompressobj().decompress(b"".join(idat), height * (stride + 1))
-    rows = _unfilter(raw, height, stride, max(1, ch * depth // 8))
+    raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    pix = np.zeros((height, width, ch), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy, pw, ph in sizes:
+        stride = (pw * ch * depth + 7) // 8
+        rows = _unfilter(memoryview(raw)[at:], ph, stride, bpp)
+        at += ph * (stride + 1)
+        pix[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
     mode = _MODES[color]
-    if depth < 8:
-        # packed samples, most significant bits first; gray scales up as
-        # Pillow's "L;2" / "L;4" unpackers do, and 1-bit gray is mode "1"
-        bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(height, width, depth)
-        pix = (bits.astype(np.int64) << np.arange(depth - 1, -1, -1)).sum(axis=-1)
+    if depth == 16:
         if color == 0:
-            pix = pix * (255 // ((1 << depth) - 1))
-            mode = "1" if depth == 1 else "L"
-        pix = pix.astype(np.uint8)
-    else:
-        pix = rows.reshape(height, width, ch)
-        if ch == 1:
-            pix = pix[..., 0]
+            return pix[..., 0], "I;16", None
+        # Pillow keeps the high byte; gray + alpha opens as RGBA
+        pix = (pix >> 8).astype(np.uint8)
+        if color == 4:
+            pix, mode = pix[..., [0, 0, 0, 1]], "RGBA"
+        return np.ascontiguousarray(pix), mode, None
+    if depth < 8 and color == 0:
+        # gray scales up as Pillow's "L;2" / "L;4" unpackers do; 1-bit gray is mode "1"
+        pix = (pix * (255 // ((1 << depth) - 1))).astype(np.uint8)
+        mode = "1" if depth == 1 else "L"
+    if ch == 1:
+        pix = pix[..., 0]
     lut = None
     if color == 3:
         if not palette:
@@ -154,7 +183,9 @@ def decode_png(data: bytes) -> np.ndarray:
         return np.ascontiguousarray(pix[..., :3])
     if mode == "P":
         return lut[pix]
-    gray = pix if mode in ("L", "1") else pix[..., 0]
+    gray = pix[..., 0] if mode == "LA" else pix
+    if mode == "I;16":
+        gray = np.minimum(gray, 255).astype(np.uint8)
     return np.repeat(gray[..., None], 3, axis=2)
 
 

@@ -21,9 +21,8 @@
 - The two repairs: a token that the JAX server revoked (rotated) answers
   401 on a port server of the same `storage_path`; `enable_profiling`
   writes a `.prof` for each request.
-- Refusals: the connectors and the console answer 501 naming their
-  ROADMAP item (the on-the-fly query and `/usage/limits` are served:
-  `tests/test_torch_query.py`, `tests/test_torch_limits.py`).
+- The connectors and the console, once refused here with 501, are held
+  to the JAX server's answers in `tests/test_torch_connectors.py`.
 """
 
 import io
@@ -772,24 +771,6 @@ def test_enable_profiling_writes_a_profile_per_request(tmp_path):
     names = sorted(re.sub(r"_\d+\.prof$", "", p.name) for p in profiles)
     assert names == ["profile_GET_folders", "profile_GET_ping", "profile_POST_folders"], names
     assert pstats.Stats(str(profiles[0])).total_calls > 0
-
-
-# ------------------------------------------------------------ refusals
-
-
-@pytest.mark.parametrize("method,path,item", [
-    ("GET", "/ee/connectors/google_drive/auth_status", "3d-ii"),
-    ("GET", "/ee/connectors/local/auth/initiate_url", "3d-ii"),
-    ("GET", "/ee/connectors/local/oauth2callback", "3d-ii"),
-    ("POST", "/ee/connectors/local/auth/finalize", "3d-ii"),
-    ("GET", "/ee/connectors/local/files", "3d-ii"),
-    ("POST", "/ee/connectors/local/ingest", "3d-ii"),
-    ("POST", "/ee/connectors/local/disconnect", "3d-ii"),
-    ("GET", "/console", "3d-ii"),
-])
-def test_unported_routes_answer_501(corpus, method, path, item):
-    status, body = _call(corpus["base"]["torch"], method, path, {} if method == "POST" else None)
-    assert status == 501 and f"ROADMAP Queue 1 item {item}" in body["detail"], body
 
 
 def test_device_profile_route(corpus):

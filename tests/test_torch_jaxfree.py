@@ -15,12 +15,17 @@ and `/usage/limits` (the stdlib transport, no httpx). Nor boto3 or
 pytesseract (imported only where S3 storage and the tesseract engine are
 built): an API node (`colpali_mode="api"`) on an embedding server, with
 remote parse and OCR endpoints, ingests, retrieves and relays
-`/embeddings`."""
+`/embeddings`. The connectors and the console run with the same
+packages blocked: a local-connector ingest of a progressive JPEG and an
+Adam7 16-bit PNG, a GitHub connector against the fake API, `/console`,
+and both images decoded to Pillow's pixels. The package data lists
+every file the package opens at run time."""
 
 import re
 import subprocess
 import sys
 import textwrap
+import tomllib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -338,6 +343,78 @@ _API_NODE = _PRELUDE + textwrap.dedent(
 ) + _LEAKS
 
 
+# the connectors: a local directory and the fake GitHub API, the console,
+# the progressive and 16-bit Adam7 decodes against Pillow's hashes
+_CONNECTORS = _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, hashlib, json, tempfile, threading, time, urllib.request
+    from pathlib import Path
+    import morphik_core_tpu_torch.ee.connectors.github as gh
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.models.colqwen.preprocess import to_rgb_u8
+    from morphik_core_tpu_torch.scripts.fake_providers import GITHUB_TOKEN, FakeProviders
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.image import read_image
+
+    z = np.load(Path(sys.argv[1]) / "tests" / "fixtures" / "connector_files.npz")
+    for key in ("progressive_jpg", "gray16_png"):
+        rgb = to_rgb_u8(*read_image(z[key].tobytes()))
+        assert hashlib.sha256(rgb.tobytes()).hexdigest() == str(z[key + "_rgb_sha256"]), key
+    root = Path(tempfile.mkdtemp())
+    src = root / "src"
+    src.mkdir()
+    (src / "page.jpg").write_bytes(z["progressive_jpg"].tobytes())
+    (src / "gray16.png").write_bytes(z["gray16_png"].tobytes())
+    fake = FakeProviders().start()
+    fake.add_github_file("acme/docs", "README.md", b"# warp core alignment 7 degrees")
+    gh.API = fake.url + "/github"
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
+    raw = {"storage": {"storage_path": str(root / "storage")}, "database": {"path": str(root / "db.sqlite")},
+           "vector_store": {"index_path": str(root / "index")},
+           "telemetry": {"telemetry_dir": str(root / "logs" / "telemetry")}}
+    services = build_services(Settings.from_dict(raw), device="cpu")
+    on_loop(services.initialize())
+    server = HTTPServer(build_app(services), "127.0.0.1", 0)
+    on_loop(server.start())
+    base = f"http://127.0.0.1:{server.port}"
+    def call(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            raw = r.read()
+            return json.loads(raw) if "json" in r.headers.get("Content-Type", "") else raw
+    def ingest(kind, file_id):
+        doc = call(f"/ee/connectors/{kind}/ingest", {"file_id": file_id})["document"]
+        for _ in range(1200):
+            st = call(f"/documents/{doc['external_id']}/status")["status"]
+            if st != "processing":
+                break
+            time.sleep(0.05)
+        assert st == "completed", st
+        return doc["external_id"]
+    assert call("/ee/connectors/local/auth/finalize", {"root": str(src)}) == {"status": "authenticated"}
+    assert [f["name"] for f in call("/ee/connectors/local/files")["files"]] == ["gray16.png", "page.jpg"]
+    docs = [ingest("local", "page.jpg"), ingest("local", "gray16.png")]
+    hits = call("/retrieve/chunks", {"query": "quarterly revenue", "k": 2})
+    assert sorted(h["document_id"] for h in hits) == sorted(docs), hits
+    assert call("/ee/connectors/github/auth/finalize", {"token": GITHUB_TOKEN, "repo": "acme/docs"})
+    assert [f["name"] for f in call("/ee/connectors/github/files")["files"]] == ["README.md"]
+    ingest("github", "README.md")
+    console = call("/console")
+    assert console == (Path(sys.argv[1]) / "morphik_core_tpu_torch" / "api" / "console.html").read_bytes()
+    on_loop(server.stop())
+    on_loop(services.shutdown())
+    fake.stop()
+    loop.call_soon_threadsafe(loop.stop)
+    """
+) + _LEAKS
+
+
 def test_slice_runs_with_jax_pil_pydantic_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, str(ROOT)], capture_output=True, text=True, timeout=300,
@@ -350,6 +427,31 @@ def test_api_node_runs_with_jax_pil_pydantic_httpx_boto3_blocked():
         [sys.executable, "-c", _API_NODE, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_connectors_and_decoders_run_with_jax_pil_pydantic_httpx_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CONNECTORS, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_package_data_lists_every_file_the_port_opens():
+    """An installed (non-editable) port has every non-Python file of its
+    package: each is matched by `pyproject.toml`'s package-data, and each
+    data file the sources name exists."""
+    patterns = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"][
+        "morphik_core_tpu_torch"]
+    pkg = ROOT / "morphik_core_tpu_torch"
+    listed = {p for pattern in patterns for p in pkg.glob(pattern)}
+    data = {p for p in pkg.rglob("*") if p.is_file() and p.suffix not in (".py", ".pyc")
+            and "__pycache__" not in p.parts and "_build" not in p.relative_to(pkg).parts}
+    assert data and data <= listed, sorted(str(p.relative_to(pkg)) for p in data - listed)
+    # files found beside a module: `Path(__file__).with_name(...)` / `.parent / "..."`
+    beside = re.compile(r"__file__\)\.(?:with_name\(|parent / )\"([\w.-]+\.\w+)\"")
+    named = {n for f in pkg.rglob("*.py") for n in beside.findall(f.read_text())}
+    assert {"glyphs_dejavu_sans.npz", "calib_pages_u8.npz", "console.html"} <= named
+    assert named <= {p.name for p in listed}, named - {p.name for p in listed}
 
 
 def test_no_module_level_import_of_optional_packages():

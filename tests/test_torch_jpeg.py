@@ -10,7 +10,10 @@ pixels).
 - The upload decoder equals Pillow on committed fixtures (4:2:0, 4:2:2,
   4:4:4, gray, restart intervals, odd sizes): their decoded pixels are
   held as hashes, which `chip_smoke.py` checks on the card's machine;
-  it refuses progressive and CMYK files with ROADMAP item 3b-ii.
+  progressive files among them. It refuses CMYK files, and progressive
+  files whose scans stop short, with ROADMAP item 3b-ii
+  (`tests/test_torch_decoders.py` holds the progressive and multi-scan
+  decode scan by scan).
 - LANCZOS with the mode rules equals `Image.resize(..., LANCZOS)` then
   `convert("RGB")` for RGB, L, RGBA with alpha, P and LA wider than 1024.
 """
@@ -83,6 +86,9 @@ _CASES = {
     "restart_gray": dict(size=(50, 41), mode="L", kw=dict(quality=70, restart_marker_rows=1)),
     "optimized": dict(size=(35, 66), mode="RGB", kw=dict(quality=95, optimize=True)),
     "tiny": dict(size=(3, 2), mode="RGB", kw=dict(quality=80)),
+    "progressive": dict(size=(77, 50), mode="RGB", kw=dict(quality=80, progressive=True)),
+    "progressive_restart_gray": dict(size=(45, 62), mode="L", kw=dict(quality=85, progressive=True,
+                                                                       restart_marker_blocks=2)),
 }
 
 
@@ -143,10 +149,17 @@ def test_decoder_matches_pil_on_committed_fixtures(name):
     assert mode == Image.open(io.BytesIO(data)).mode
 
 
-@pytest.mark.parametrize("kind,feature", [("progressive", "progressive"), ("cmyk", "CMYK")])
+@pytest.mark.parametrize("kind,feature", [("progressive", "unrefined"), ("cmyk", "CMYK")])
 def test_decoder_refuses_what_it_does_not_read(kind, feature):
+    """CMYK is refused. A progressive file, refused here until the
+    decoder read it, decodes as Pillow decodes it; the same file cut
+    short of its refinement scans is refused (libjpeg would smooth its
+    blocks). Both refusals name ROADMAP item 3b-ii."""
     img = Image.fromarray(_pixels("smooth", 40, 40, False, 7))
     data = _pil_jpeg(img, progressive=True) if kind == "progressive" else _pil_jpeg(img.convert("CMYK"))
+    if kind == "progressive":
+        assert np.array_equal(decode_jpeg(data), _pil_rgb(data))
+        data = data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"   # the last scan dropped
     with pytest.raises(UnsupportedJpeg, match=f"{feature}.*ROADMAP Queue 1 item 3b-ii"):
         decode_jpeg(data)
 

@@ -1,19 +1,20 @@
 """The repo's Python SDK (`sdks/python`) against the port's server on the
-CPU: the folder, document, summary, app, migrate, logs and v2 tests of
-`tests/test_sdk.py` run here unchanged on a port server (imported, so
-they stay one body), and the parts of its two mixed tests that the port
-serves are mirrored, the on-the-fly query (`query_document`) included;
-only the connectors answer 501 (ROADMAP Queue 1 item 3d-ii)."""
+CPU: the folder, document, summary, app, migrate, logs, v2 and connector
+tests of `tests/test_sdk.py` run here unchanged on a port server
+(imported, so they stay one body); the connector calls are also taken
+further: a connector ingest waited to `completed` and retrieved, its
+files paged, and the disconnect, sync and async."""
 
 import asyncio
 import threading
 
-import httpx
 import pytest
 import torch
 
 from conftest import run_once
 from test_sdk import (  # noqa: F401  (collected here, against this module's server_url)
+    test_sdk_new_surface,   # before test_async_sdk_parity, as in test_sdk.py: it starts unauthenticated
+    test_async_sdk_parity,
     test_async_folder_and_user_scope,
     test_sdk_folder_objects_and_user_scope,
     test_sdk_grouped_and_folder_ops,
@@ -62,57 +63,47 @@ def server_url(tmp_path_factory):
     loop.close()
 
 
-def test_sdk_new_surface_served_by_the_port(server_url):
-    """`test_sdk.py::test_sdk_new_surface` without the connectors, which
-    answer 501 here."""
-    db = Morphik(base_url=server_url)
-    out = db.query_document(b"The relay closes at 7 volts.", "What voltage closes the relay?", filename="spec.txt")
-    assert out["completion"]
-    doc = db.ingest_text("summary target", filename="st.txt", use_colpali=False)
-    s = db.set_document_summary(doc.external_id, "short summary")
-    assert s["version"] == 1
-    assert db.get_document_summary(doc.external_id)["content"] == "short summary"
-    assert isinstance(db.get_folder_summaries(), list)
-
-    uri = db.generate_cloud_uri("sdkapp")
-    assert uri["uri"].startswith("morphik://sdkapp:")
-    apps = db.list_apps()
-    assert any(a["app_id"] == uri["app_id"] for a in apps["apps"])
-    rot = db.rotate_app_token(uri["app_id"])
-    assert rot["token_version"] == 2
-
-    m = db.migrate_document(b"migrated body", "sdk-legacy-1", filename="m.txt", use_colpali=False)
-    assert m["status"] == "created" and m["document"]["external_id"] == "sdk-legacy-1"
-    logs = db.get_logs()
-    assert "events" in logs
-
-    with pytest.raises(httpx.HTTPStatusError) as e:
-        db.connector_auth_status("local")
-    assert e.value.response.status_code == 501
-    db.close()
+def test_sdk_new_surface_served_by_the_port(server_url, tmp_path):
+    """`test_sdk.py::test_sdk_new_surface`'s connector calls taken to
+    the end: the queued ingest completes and is retrieved, carrying its
+    connector in its metadata; the auth status names the root; the
+    disconnect answers as the reference's."""
+    src = tmp_path / "conn_more"
+    src.mkdir()
+    (src / "m.txt").write_text("Connector memo: the relay trips at 11 amperes.")
+    with Morphik(base_url=server_url) as db:
+        db.connector_finalize_auth("local", {"root": str(src)})
+        status = db.connector_auth_status("local")
+        assert status["is_authenticated"] and status["message"] == f"root={src.resolve()}"
+        queued = db.connector_ingest("local", "m.txt", use_colpali=False)
+        assert queued["status"] == "queued"
+        doc = db.wait_for_document_completion(queued["document"]["external_id"], timeout_s=120)
+        assert doc.metadata["connector"] == {"type": "local", "file_id": "m.txt"}
+        hits = db.retrieve_chunks("relay trips amperes", k=1, use_colpali=False)
+        assert hits and "11 amperes" in hits[0].content
+        assert db._post("/ee/connectors/local/disconnect", {})["status"] == "disconnected"
+        assert db._post("/ee/connectors/local/disconnect", {})["status"] == "not_connected"
 
 
-def test_async_sdk_parity_served_by_the_port(server_url):
-    """`test_sdk.py::test_async_sdk_parity` without the connectors."""
+def test_async_sdk_parity_served_by_the_port(server_url, tmp_path):
+    """`test_sdk.py::test_async_sdk_parity`'s connector calls taken
+    further, async: a page of files past the first, an ingest, the
+    disconnect."""
+    src = tmp_path / "async_more"
+    src.mkdir()
+    for i in range(103):
+        (src / f"f{i:03}.txt").write_text(f"async connector file {i}")
 
     async def go():
         async with AsyncMorphik(base_url=server_url) as db:
-            assert (await db.ping())["status"] == "ok"
-            doc = await db.ingest_file(b"Async ingested body: antimatter ratio 3:1.", filename="a.txt",
-                                       use_colpali=False, wait=True)
-            assert doc.system_metadata["status"] == "completed"
-            chunks = await db.retrieve_chunks("antimatter ratio", k=1, use_colpali=False)
-            assert chunks and "3:1" in chunks[0].content
-            assert await db.list_documents(limit=5)
-            out = await db.query_document(b"Core temp is 9 kilokelvin.", "What is the core temp?", filename="c.txt")
-            assert out["completion"]
-            s = await db.set_document_summary(doc.external_id, "async summary")
-            assert s["version"] == 1
-            assert (await db.get_document_summary(doc.external_id))["content"] == "async summary"
-            uri = await db.generate_cloud_uri("asyncapp")
-            assert uri["uri"].startswith("morphik://asyncapp:")
-            toks = [tok async for tok in db.query_stream("antimatter", k=1, use_colpali=False)]
-            assert toks
+            await db.connector_finalize_auth("local", {"root": str(src)})
+            first = await db.connector_list_files("local")
+            assert len(first["files"]) == 100 and first["next_page_token"] == "100"
+            rest = await db._get("/ee/connectors/local/files", page_token=first["next_page_token"])
+            assert [f["name"] for f in rest["files"]] == ["f100.txt", "f101.txt", "f102.txt"]
+            queued = await db.connector_ingest("local", "f007.txt", use_colpali=False)
+            assert queued["status"] == "queued"
+            assert (await db._post("/ee/connectors/local/disconnect", {}))["status"] == "disconnected"
 
     run_once(go())
 

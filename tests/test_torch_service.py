@@ -14,9 +14,11 @@
   server's top-k over ingested PNGs equals the JAX library stack fed the
   same pixels (each package embeds for itself: scores atol 5e-3, ids
   equal wherever the score gap exceeds that, as tests/test_torch_slice.py).
-- Refusals: what the page decoders still refuse (a progressive JPEG,
-  GIF, video) answers 415, unported options 501, and unported settings
-  and a missing card raise at `build_services`.
+- Refusals: what the page decoders still refuse (a progressive JPEG cut
+  short of its refinements, CMYK, GIF, video) answers 415, unported
+  options 501, and unported settings and a missing card raise at
+  `build_services`; a whole progressive JPEG, a 16-bit and an Adam7 PNG
+  decode as Pillow decodes them.
 - Documents as pages: the port server and the JAX server given the same
   PDF, JPEG (color and gray), PPTX and DOCX uploads under the same ids
   store byte-identical JPEG page payloads with the same page metadata,
@@ -242,11 +244,21 @@ def _with_ihdr(data: bytes, depth: int, interlace: int) -> bytes:
     return data[:16] + body + struct.pack(">I", zlib.crc32(b"IHDR" + body)) + data[33:]
 
 
-@pytest.mark.parametrize("depth,interlace,match", [(16, 0, "bit depth 16"), (8, 1, "Adam7")])
-def test_decode_png_refuses_what_it_does_not_decode(depth, interlace, match):
-    data = _with_ihdr(encode_png(np.zeros((4, 5, 3), np.uint8)), depth, interlace)
-    with pytest.raises(ValueError, match=match):
-        decode_png(data)
+@pytest.mark.parametrize("depth,interlace", [pytest.param(16, 0, id="16-0-bit depth 16"),
+                                             pytest.param(8, 1, id="8-1-Adam7")])
+def test_decode_png_refuses_what_it_does_not_decode(depth, interlace):
+    """16-bit and Adam7 PNGs, refused here until the decoder read them,
+    decode as Pillow decodes them (`tests/test_torch_decoders.py` holds
+    every color type and depth); a header that does not match its data
+    and a CRC mismatch are still refused."""
+    from test_torch_decoders import png_bytes
+
+    rgb = _page(np.random.default_rng(depth), 37, 53)
+    samples = rgb.astype(np.int64) * 257 + np.arange(53)[:, None] if depth == 16 else rgb
+    data = png_bytes(samples, depth, 2, interlace=bool(interlace), seed=depth)
+    assert np.array_equal(decode_png(data), np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+    with pytest.raises(ValueError, match="truncated"):   # 8-bit rows under a 16-bit header
+        decode_png(_with_ihdr(encode_png(np.zeros((4, 5, 3), np.uint8)), 16, interlace))
     with pytest.raises(ValueError, match="CRC"):
         decode_png(data[:20] + bytes([data[20] ^ 0xFF]) + data[21:])
 
@@ -745,14 +757,23 @@ def test_http_topk_matches_jax_library(servers):
     assert got[0]["metadata"] == {"is_image": True, "page": 0}
 
 
-@pytest.mark.parametrize("kind", ["progressive_jpeg", "gif", "video"])
+@pytest.mark.parametrize("kind", ["progressive_jpeg", "cmyk_jpeg", "gif", "video"])
 def test_http_refuses_other_content_types(servers, kind):
     """What the port still does not ingest answers 415 with either
-    `use_colpali`, naming ROADMAP item 3b-ii: a progressive JPEG (the
-    decoder reads baseline only), GIF (no decoder) and video."""
+    `use_colpali`, naming ROADMAP item 3b-ii: a progressive JPEG whose
+    scans stop short of its refinements (libjpeg would smooth it; a
+    whole progressive file is ingested, its pages held to the JAX
+    server's in `tests/test_torch_connectors.py`), a CMYK JPEG, GIF (no
+    decoder) and video."""
     img = Image.fromarray(servers["pages"][0])
     if kind == "progressive_jpeg":
-        data, name, ctype = _pil_jpeg(img, progressive=True), "p.jpg", "image/jpeg"
+        whole = _pil_jpeg(img, progressive=True)
+        status, doc = _upload(servers["base"]["torch"], "whole.jpg", whole, "image/jpeg")
+        assert status == 200 and doc["content_type"] == "image/jpeg", doc
+        _wait_completed(servers["base"]["torch"], [doc["external_id"]])
+        data, name, ctype = whole[:whole.rindex(b"\xff\xda")] + b"\xff\xd9", "p.jpg", "image/jpeg"
+    elif kind == "cmyk_jpeg":
+        data, name, ctype = _pil_jpeg(img.convert("CMYK")), "c.jpg", "image/jpeg"
     elif kind == "gif":
         buf = io.BytesIO()
         img.save(buf, format="GIF")
@@ -762,8 +783,8 @@ def test_http_refuses_other_content_types(servers, kind):
     for fields in (None, {"use_colpali": "false"}):
         status, body = _upload(servers["base"]["torch"], name, data, ctype, fields=fields)
         assert status == 415 and "ROADMAP Queue 1 item 3b-ii" in body["detail"], body
-    if kind == "progressive_jpeg":
-        assert "progressive" in body["detail"]
+    if kind.endswith("jpeg"):
+        assert ("unrefined" if kind == "progressive_jpeg" else "CMYK") in body["detail"]
 
 
 def test_http_undecodable_query_image_answers_400(servers):
