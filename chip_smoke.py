@@ -8,7 +8,8 @@ checkpoint, /query answered through the LLM wire formats, and the text
 index at 200,000 rows; an API node that embeds, parses and OCRs through
 remote endpoints; last, the connectors and the admin console, with the
 progressive and multi-scan JPEGs and the Adam7 and 16-bit PNGs that
-connector files bring.
+connector files bring; and last the 3B checkpoint served in f32, through
+K3's 3xTF32 kernel.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,8 @@ Phases (each raises on failure; none is caught):
      morphik_core_tpu_torch/csrc/ with nvcc (one process per source);
      count the tensor-core, ldmatrix and cp.async instructions of each
      kernel in the built library (cuobjdump): the bf16 K3 must have all
-     three.
+     three, the f32 K3 at the path's shape TF32 HMMAs and cp.async
+     (LDGSTS).
   2. each kernel (K1, K2 MaxSim; K3 window attention) against its plain
      PyTorch version on the card, at the main path's shapes (the text
      queries' and the self-query's) and at ragged edges. Two times per
@@ -30,7 +32,9 @@ Phases (each raises on failure; none is caught):
      must be bit-identical. The bf16 K3 is also held to a mirror of the
      Pallas kernel's rounding, and timed beside
      F.scaled_dot_product_attention on the same inputs (a yardstick that
-     the port never calls). K2 also runs at the reranker's shape: the f32
+     the port never calls); so is the f32 K3 (3xTF32 tensor-core products)
+     at the vision blocks' shape, where SDPA names the backend that took
+     f32. Each K3 case prints the kernel's resident blocks per SM. K2 also runs at the reranker's shape: the f32
      query of a text query against 12 f32 chunks of byte tokens, the
      longest a 6000-character chunk (6017 tokens, padded to 6144).
   3. ingest. (a) the earlier path: the 3B model in bf16 embeds one batch
@@ -236,6 +240,18 @@ Phases (each raises on failure; none is caught):
      tail alone is uploaded), a document deleted (it never returns), a
      save and a reopen (the same answers). Prints a {"text_index": {...}}
      line.
+ 17. the f32 path at full width (after phase 13, before its checkpoint is
+     deleted): ColQwenModel.from_checkpoint(ckpt, dtype=torch.float32) on
+     the card (phase 3a's bf16 weights, exact in f32) embeds phase 3a's 8
+     pages at grid 20 x 28 with batch 8 twice through ColpaliEmbeddingModel:
+     K3 launches = 28 x forwards (the f32 kernel), the page embeddings'
+     mean per-token cosine against phase 3a's bf16 ones above
+     MIN_F32_COSINE; then the committed tiny fixture
+     (tests/fixtures/tiny_colqwen.npz, head width 16) embeds 4 pages on the
+     card (K3 in f32) and on the CPU (the plain version), within 5e-4.
+     Prints an {"f32": ...} line (load s, pages/s of the second batch,
+     launches, cosine mean / min, peak memory, the tiny model's error, the
+     phase's s, the card).
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -329,7 +345,10 @@ def setup():
     return torch, smi
 
 
-SASS_OPS = ("HMMA", "IMMA", "LDSM", "LDGSTS", "FFMA", "MUFU.EX2")
+SASS_OPS = {op: r"\b" + re.escape(op) + r"[.\s]" for op in ("HMMA", "IMMA", "LDSM", "LDGSTS", "FFMA", "MUFU.EX2")}
+SASS_OPS["HMMA.TF32"] = r"\bHMMA\.[\w.]*TF32\b"  # tensor-core products with TF32 operands
+K3_BF16_SASS = "window_attention_mma_kernel<64,80>"
+K3_F32_SASS = re.compile(r"window_attention_tf32_kernel<64,80,(1|true)>")  # the path's shape, exact instantiation
 
 
 def build_kernels():
@@ -342,9 +361,13 @@ def build_kernels():
     counts = sass_counts(lib, Path(_kernels._nvcc()).parent)
     for name, ops in counts.items():
         log(f"  SASS {name}: {json.dumps(ops)}")
-    k3 = counts.get("window_attention_mma_kernel<64,80>", {})
+    k3 = counts.get(K3_BF16_SASS, {})
     if not all(k3.get(op) for op in ("HMMA", "LDSM", "LDGSTS")):
         raise AssertionError(f"the bf16 K3 at the path's shape is not a tensor-core kernel: {k3}")
+    k3 = next((ops for name, ops in counts.items() if K3_F32_SASS.fullmatch(name)), {})
+    if not all(k3.get(op) for op in ("HMMA.TF32", "LDGSTS")):
+        raise AssertionError(f"the f32 K3 at the path's shape is not a TF32 tensor-core kernel with cp.async: {k3}")
+    return counts
 
 
 def sass_counts(lib: Path, cuda_bin: Path) -> dict:
@@ -358,13 +381,13 @@ def sass_counts(lib: Path, cuda_bin: Path) -> dict:
         if m:
             cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
         elif cur is not None:
-            for op in SASS_OPS:
-                if re.search(r"\b" + re.escape(op) + r"[.\s]", line):
+            for op, pattern in SASS_OPS.items():
+                if re.search(pattern, line):
                     cur[op] += 1
     names = subprocess.run([str(cuda_bin / "cu++filt"), *counts], capture_output=True, text=True,
                            check=True, timeout=60).stdout.splitlines()
     # "void <unnamed>::window_attention_mma_kernel<(int)64, (int)80>(...)" -> "window_attention_mma_kernel<64,80>"
-    labels = [re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|\(int\)", "", n).replace(", ", ",").split("(")[0]
+    labels = [re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|\(int\)|\(bool\)", "", n).replace(", ", ",").split("(")[0]
               for n in names]
     return dict(zip(labels, counts.values()))
 
@@ -617,7 +640,7 @@ def kernel_checks(torch):
     k2.append(rerank_k2)
     del docs_t
     k3 = window_attention_checks(torch, gen)
-    return main_k1, main_k2, k3[0], k3[1], rerank_k2, k1 + k2 + k3
+    return main_k1, main_k2, k3[0], k3[1], k3[2], rerank_k2, k1 + k2 + k3
 
 
 def rerank_token_counts():
@@ -639,6 +662,7 @@ def window_attention_checks(torch, gen):
     also held to the Pallas kernel's rounding, called twice for
     bit-identity, and timed beside F.scaled_dot_product_attention."""
     from morphik_core_tpu_torch.models.colqwen.config import VisionConfig
+    from morphik_core_tpu_torch.ops import _kernels
     from morphik_core_tpu_torch.ops.window_attention import (
         window_attention, window_attention_pallas_numerics, window_attention_plain,
     )
@@ -661,6 +685,8 @@ def window_attention_checks(torch, gen):
         bound = _bound(4 * q.numel() * q.element_size(), 4 * rows * win * dim * heads, kind)
         case = _compare(torch, label, lambda: window_attention(q, k, v, window=win),
                         lambda: window_attention_plain(q, k, v, window=win), 0.0, atol, bound=bound)
+        case["occupancy"] = _kernels.window_attention_occupancy(dtype, dim, win)
+        log(f"  {label}: resident per SM {json.dumps(case['occupancy'])}")
         if dtype == torch.bfloat16:
             mirror = window_attention_pallas_numerics(q, k, v, window=win)
             case.update(_near_mirror(torch, label, window_attention(q, k, v, window=win), mirror))
@@ -2638,6 +2664,91 @@ def checkpoint_phase(torch, model, ckpt: Path, written: dict, _kernels, smi):
     return out
 
 
+# phase 17: the f32 path at full width
+# mean per-token cosine of the f32 tower's page embeddings against phase
+# 3a's bf16 tower. The checkpoint holds phase 3a's bf16 weights, which load
+# into f32 exactly, so the two towers differ only where bf16 rounds the
+# activations: less than the int8 tower's matmuls differ from bf16 (held
+# to MIN_MEAN_COSINE in phase 3b, measured 0.9603 there), so the same floor.
+MIN_F32_COSINE = MIN_MEAN_COSINE
+TINY_FIXTURE = ROOT / "tests" / "fixtures" / "tiny_colqwen.npz"
+TINY_GRID = (12, 16)  # the tiny tower's pages: 12 x 16 units, T = 3,072 for 4 pages, head width 16
+TINY_PAGES = 4
+TINY_ATOL = 5e-4  # the end-to-end tolerance of tests/test_colqwen_parity.py
+
+
+def f32_phase(torch, ckpt: Path, bf16_embs, _kernels, smi):
+    """Phase 17: phase 13's checkpoint loaded in f32 (the twin of the
+    reference's `from_checkpoint(path, dtype=jnp.float32)`) embeds phase
+    3a's pages through K3's 3xTF32 kernel; the tiny trained fixture on the
+    card against the same model on the CPU."""
+    import gc
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.embedding.colpali_embedding_model import ColpaliEmbeddingModel
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    model = ColQwenModel.from_checkpoint(ckpt, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError("the f32 checkpoint model holds a parameter in another dtype")
+    model.tokenizer = None  # phase 3a's model has none: the same byte-fallback prompt around the pages
+    emb = ColpaliEmbeddingModel(model, batch_size=BATCH)
+    k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+    _kernels.reset_launch_counts()  # the f32 forwards start here
+    embs, _, times, peak = _embed_pages(torch, emb, _pages(model.cfg))
+    launches = dict(_kernels.launch_counts)  # and end here
+    n_forwards = len(times)  # one forward of the batch of 8 a run
+    n_seq = _check_embeddings(model, embs, [None] * len(embs))
+    cos = np.concatenate([(a * b).sum(-1) for a, b in zip(embs, bf16_embs)])
+    del emb, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tiny_gpu = ColQwenModel.from_fixture(TINY_FIXTURE, device="cuda")
+    tiny_cpu = ColQwenModel.from_fixture(TINY_FIXTURE, device="cpu")
+    tc = tiny_gpu.cfg.vision
+    rng = np.random.default_rng(SEED + 17)
+    tiny_pages = rng.integers(0, 256, (TINY_PAGES, TINY_GRID[0] * TINY_GRID[1] * tc.merge_unit,
+                                       tc.patch_input_dim // 2), dtype=np.uint8)
+    _kernels.reset_launch_counts()
+    got = tiny_gpu.embed_image_batch(tiny_pages, *TINY_GRID)
+    tiny_launches = dict(_kernels.launch_counts)
+    want = tiny_cpu.embed_image_batch(tiny_pages, *TINY_GRID)
+    tiny_err = float(np.abs(got - want).max())
+    tiny_k3 = tc.depth - len(tc.fullatt_block_indexes)
+    del tiny_gpu, tiny_cpu
+    out = {
+        "card": smi, "load_s": load_s, "pages": BATCH, "grid": list(GRID), "batch_wall_s": times,
+        "pages_per_s": BATCH / times[1], "forwards": n_forwards, "launches": launches,
+        "k3_per_forward": k3_per_forward, "peak_mem_gb": peak,
+        "cosine_vs_bf16": {"mean": float(cos.mean()), "min": float(cos.min()), "p01": float(np.quantile(cos, 0.01)),
+                           "floor": MIN_F32_COSINE},
+        "tiny": {"grid": list(TINY_GRID), "pages": TINY_PAGES, "head_dim": tc.head_dim,
+                 "max_abs_err_card_vs_cpu": tiny_err, "atol": TINY_ATOL, "launches": tiny_launches},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"phase 17: the checkpoint in f32 ({smi}): loaded in {load_s:.3f} s; {BATCH} pages -> {BATCH} x "
+        f"({n_seq}, {embs[0].shape[1]}); batch wall s first={times[0]:.4f} second={times[1]:.4f} "
+        f"pages/s(second)={out['pages_per_s']:.3f}; peak mem GB={peak:.2f}; launches {launches} over {n_forwards} "
+        f"forwards; per-token cosine vs phase 3a's bf16 pages mean {cos.mean():.6f} min {cos.min():.6f} (floor: mean > "
+        f"{MIN_F32_COSINE}); tiny fixture on the card vs the CPU: max abs err {tiny_err:.3e} (atol {TINY_ATOL}), "
+        f"launches {tiny_launches}; phase {out['phase_s']:.3f} s")
+    if launches["window_attention"] != k3_per_forward * n_forwards:
+        raise AssertionError(f"f32 forwards: K3 {launches}, expected {k3_per_forward} a forward x {n_forwards}")
+    if not cos.mean() > MIN_F32_COSINE:
+        raise AssertionError(f"f32 page embeddings drift from bf16: mean cosine {cos.mean()}")
+    if tiny_launches["window_attention"] != tiny_k3:
+        raise AssertionError(f"the tiny tower's forward: K3 {tiny_launches}, expected {tiny_k3}")
+    if got.shape != want.shape or not np.isfinite(got).all() or not tiny_err <= TINY_ATOL:
+        raise AssertionError(f"the tiny fixture on the card is {tiny_err} from the CPU's (atol {TINY_ATOL})")
+    return out
+
+
 # phase 14: /query answered through an LLM wire format (a local fake provider)
 LLM_PAGES = 4  # phase 8's PNG pages ingested on phase 14's server
 LLM_QUERY_REPEATS = 5  # /query (JSON) of each text query
@@ -3394,8 +3505,8 @@ def main() -> None:
 
     t_all = time.perf_counter()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
-    build_kernels()
-    main_k1, main_k2, main_k3, doc_k3, rerank_k2, all_cases = kernel_checks(torch)
+    sass = build_kernels()
+    main_k1, main_k2, main_k3, doc_k3, f32_k3, rerank_k2, all_cases = kernel_checks(torch)
     model, bf16_embs, bf16_queries, bf16_stats = ingest_bf16(torch, _kernels)
     ckpt, ckpt_written = write_checkpoint_phase(torch, model)  # before phase 3b quantizes in place
     try:
@@ -3438,6 +3549,7 @@ def main() -> None:
         service = service_path(torch, model, _kernels, smi)
         documents = documents_phase(torch, model, _kernels, smi)
         checkpoint = checkpoint_phase(torch, model, ckpt, ckpt_written, _kernels, smi)
+        f32 = f32_phase(torch, ckpt, bf16_embs, _kernels, smi)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     llm = llm_phase(torch, model, _kernels, smi)
@@ -3459,7 +3571,7 @@ def main() -> None:
              corpus_launches=documents["corpus"]["launches"][name],
              checkpoint_launches=checkpoint["launches"][name], llm_launches=llm["launches"][name],
              remote_launches=sum(remote["launches"][part][name] for part in ("ingest", "retrieve", "relay")),
-             connectors_launches=connectors["launches"][name])
+             connectors_launches=connectors["launches"][name], f32_launches=f32["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -3471,6 +3583,11 @@ def main() -> None:
     kernels[2]["documents_case"] = {k: doc_k3[k] for k in (
         "case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_us", "bound_by",
         "library_call", "library_ms", "library_device_ms")}
+    kernels[2]["f32_case"] = dict({k: f32_k3[k] for k in (
+        "case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_us", "bound_by",
+        "library_call", "library_ms", "library_device_ms", "occupancy")},
+        bound_ms=f32_k3["bound_us"] / 1e3, launches=f32["launches"]["window_attention"], sass=next(ops for name, ops in sass.items() if K3_F32_SASS.fullmatch(name)),
+        source=csrc + "window_attention.cu::window_attention_tf32_kernel")
     log(f"total wall s {time.perf_counter() - t_all:.3f}")
     log(json.dumps({"cases": all_cases}))
     print(smi)
@@ -3484,6 +3601,7 @@ def main() -> None:
     print(json.dumps({"llm": llm}))
     print(json.dumps({"remote": remote}))
     print(json.dumps({"connectors": connectors}))
+    print(json.dumps({"f32": f32}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

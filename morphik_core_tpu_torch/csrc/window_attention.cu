@@ -21,8 +21,8 @@
 // = 183.5 MB, 54.8 us of HBM. It does 4 T window D H = 5.87 GFLOP on the
 // tensor cores (5.9 us) and 18.4 M exps. So it is bound by bytes, and what
 // matters is many bytes in flight and whole 16-byte loads and stores. The
-// first port (the scalar kernel, kept below for f32) staged q/k/v as f32
-// by 2-byte loads and fed scalar FMAs from shared memory: 0.77 ms, about
+// first port (a scalar kernel, since replaced in both dtypes) staged q/k/v
+// as f32 by 2-byte loads and fed scalar FMAs from shared memory: 0.77 ms, about
 // 7% of the bound. Measured on one H100 80GB HBM3 (700 W), this design
 // takes about 80 us at that shape (68% of the bound), where one elementwise
 // pass moving the same bytes (torch.addcmul) takes about 61 us: the bytes
@@ -64,13 +64,58 @@
 //  Register arrays are sized at compile time: instantiations for windows up
 //  to 64 / 128 keys and D_pad up to 64 / 80 / 128.
 //
-// The f32 kernel (window_attention_f32_kernel) is the first port's scalar
-// kernel, kept as it was: the card runs the tower in bf16, so f32 is off the
-// main path, and a bf16 hi/lo split of the tensor-core operands would sit at
-// the edge of K3's f32 tolerance (1e-5). It stages rows as f32 with a padded K
-// stride, lane l holds keys l, l + 32, ... of two query rows, the rounded
-// probabilities go through a per-warp shared buffer, and lane l
-// accumulates output features l, l + 32, ....
+// The f32 kernel (window_attention_tf32_kernel) replaces _window_attn_kernel
+// for f32 inputs (the dtype of init_random, from_fixture and an f32
+// from_checkpoint): S = Q K^T * D^-1/2, a row softmax in f32 (expf, max
+// subtracted), P normalised, O = P V accumulated in f32. At the tower's
+// shape in f32 it must move 4 x 17,920 x 16 x 80 x 4 B = 367 MB, 109.553 us
+// of HBM, and its 5.87 GFLOP take 11.9 us on the tensor cores in TF32
+// (17.6 GFLOP in three passes, 35.6 us): bound by bytes. Design:
+//  1. Both products on the tensor cores in 3xTF32: every operand x is
+//     split once, as it enters registers, into hi = cvt.rna.tf32(x) and
+//     lo = cvt.rna.tf32(x - hi); each k8 step of mma.sync m16n8k8 tf32
+//     accumulates lo*hi, then hi*lo, then hi*hi, and leaves out lo*lo.
+//     A product is then off by about 2^-21 of |x||y|, the f32 sums'
+//     own order of error (K3's f32 tolerance is 1e-5); no hi or lo tile is
+//     stored.
+//  2. One block of 4 warps per (window, head), heads fastest, as in bf16.
+//     K, then V, come in by 16-byte cp.async as two commit groups into
+//     f32 rows (K at a stride of 16 mod 32 floats, V at 4 mod 8: the
+//     fragment reads below are free of bank conflicts), while each warp
+//     loads its 16 query rows straight from global memory into registers
+//     (16 contiguous bytes a lane). V's load overlaps QK^T and the
+//     softmax. 42 KB of shared memory a block at the tower's shape and 119
+//     registers a thread, so 4 blocks (16 warps) stay resident on an SM
+//     and one block's products overlap the others' loads.
+//  2a. The tower's shape (window 64, D 80) runs an exact instantiation in
+//     which every bound is a compile-time constant: the unrolled loops
+//     carry no branch between tiles, so the compiler interleaves one
+//     tile's loads and splits with another's products. Other shapes run
+//     the guarded instantiation (3 blocks an SM).
+//  3. QK^T: within each pair of k8 steps the features are taken in the
+//     order 4tq, 4tq + 1 | 4tq + 2, 4tq + 3 for Q and K alike (a sum over
+//     features does not care), so each B fragment pair is one 16-byte
+//     shared load. S stays in registers as C fragments; the softmax uses
+//     quad shuffles, as in bf16.
+//  4. PV: a lane's accumulators hold keys 2tq, 2tq + 1 of each 8-key
+//     tile; read as k slots tq, tq + 4 they are PV's A fragment as they
+//     stand, with V's B rows taken at keys 2tq, 2tq + 1. Two n-tiles go
+//     together (n slot g = features 2g, 2g + 1), so V comes in 8-byte
+//     shared loads and each lane ends with 4 adjacent output features of
+//     two rows, stored as 16-byte writes straight from the accumulators.
+//  Ragged shapes as in bf16: D pads with zeros to a multiple of 16, keys
+//  past the window to the next 8 get -inf scores and zero V rows, query
+//  rows past it are computed on zeros and not stored; rows that are not
+//  16-byte aligned (D % 4 != 0, or a buffer off 16-byte alignment) are
+//  copied, loaded and stored element by element. The same six register
+//  shapes as bf16 (keys 64 / 128 x D_pad 64 / 80 / 128), each exact and
+//  guarded.
+//  Measured on one H100 80GB HBM3 (700 W): 189.6 us at the tower's shape,
+//  58% of the bound, where f32 F.scaled_dot_product_attention (its
+//  memory-efficient kernel; flash takes no f32) takes 372.8 us. What is
+//  left is most likely instruction issue rather than bytes: each of a
+//  block's four warps splits every K and V value it reads (a split is
+//  seven instructions), so the splits outnumber the products.
 //
 // Limits of both: D <= 128 and window <= 128; the launcher rejects anything
 // else. The dynamic shared-memory limits are set once, when the library
@@ -345,129 +390,285 @@ window_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
 // ----------------------------------------------------------------- f32 ----
 
-constexpr int kF32Threads = 256;
-constexpr int kF32Warps = kF32Threads / 32;
-constexpr int kPerLane = 4;  // kMaxWindow / 32 keys, kMaxDim / 32 features
-constexpr int kRows = 2;     // query rows a warp computes together
+// Row strides of the f32 K and V tiles (floats) for a D padded to dp (a
+// multiple of 16). K is read 16 bytes a lane (keys g, features 4tq..4tq+3):
+// a quarter warp touches two rows, whose 64-byte runs miss each other's
+// banks when the stride is 16 mod 32. V is read 8 bytes a lane (keys 2tq,
+// 2tq + 1, features 2g, 2g + 1): a half warp touches four rows of four
+// lanes each, whose 32-byte runs are apart when twice the stride is 8 mod
+// 16, i.e. the stride is 4 mod 8. Both are multiples of 4, so every row
+// starts 16-byte aligned for cp.async.
+__host__ __device__ constexpr int tf32_ldk(int dp) { return dp % 32 == 16 ? dp : dp + 16; }
+__host__ __device__ constexpr int tf32_ldv(int dp) { return dp + 4; }
 
-__host__ __device__ constexpr int f32_smem_bytes(int window, int dim) {
-  return (int)sizeof(float) * (window * (3 * dim + 1) + kF32Warps * kRows * window);
+// Shared memory of one f32 block: K and V of round8(window) key rows.
+__host__ __device__ constexpr int tf32_smem_bytes(int window, int dim) {
+  return (int)sizeof(float) * ((window + 7) / 8 * 8) * (tf32_ldk(round16(dim)) + tf32_ldv(round16(dim)));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// x = hi + lo + O(2^-22 |x|): hi is x in TF32, lo the remainder in TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-__global__ void __launch_bounds__(kF32Threads)
-window_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ out, int heads,
-                            int dim, int window, float scale) {
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k8 step of an f32 product in three TF32 passes: the small terms
+// (lo * hi, hi * lo) first, the large one (hi * hi) last; lo * lo is left out.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// The A fragment of one k8 step from four f32 values (rows g, g + 8 at
+// k slots tq, tq + 4: a0 = (g, tq), a1 = (g + 8, tq), a2 = (g, tq + 4),
+// a3 = (g + 8, tq + 4)), split once into hi and lo.
+__device__ __forceinline__ void split_a(float a0, float a1, float a2, float a3, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
+}
+
+// kKeys: padded window the registers hold (64 or 128); kDim: padded D they
+// hold (64, 80 or 128). The runtime shape may be smaller in either.
+template <int kKeys, int kDim, bool kExact>
+__global__ void __launch_bounds__(kThreads, kKeys * kDim > 64 * 80 ? 2 : kExact ? 4 : 3)
+window_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ out, int heads, int dim_arg,
+                             int window_arg, int vec, float scale) {
+  // kExact: the shape is the instantiation's own (window == kKeys, D ==
+  // kDim, as on the tower's path), so every bound below is a compile-time
+  // constant and the unrolled loops carry no branches between tiles.
+  const int dim = kExact ? kDim : dim_arg, window = kExact ? kKeys : window_arg;
+  constexpr int kKeyTiles = kKeys / 8;  // n-tiles of S, k-steps of PV
+  constexpr int kPairs = kDim / 16;     // pairs of k-steps of QK^T, pairs of n-tiles of O
+  const int dp = round16(dim), ldk = tf32_ldk(dp), ldv = tf32_ldv(dp);
+  const int rows_kv = (window + 7) / 8 * 8, key_tiles = rows_kv / 8, pairs = dp / 16;
+
   extern __shared__ __align__(16) float smem_f[];
-  const int ldk = dim + 1;               // padded: lanes read different key rows
-  float* q_s = smem_f;                   // [window][dim]
-  float* k_s = q_s + window * dim;       // [window][ldk]
-  float* v_s = k_s + window * ldk;       // [window][dim]
-  float* p_s = v_s + window * dim;       // [kF32Warps][kRows][window]
+  float* k_s = smem_f;               // [rows_kv][ldk]
+  float* v_s = k_s + rows_kv * ldk;  // [rows_kv][ldv]
 
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int head = blockIdx.x % heads, win = blockIdx.x / heads;
   const size_t row_stride = (size_t)heads * dim;
-  const size_t base = (size_t)blockIdx.x * window * row_stride + (size_t)blockIdx.y * dim;
-  for (int i = threadIdx.x; i < window * dim; i += kF32Threads) {
-    const int r = i / dim;
-    const int c = i - r * dim;
-    const size_t g = base + (size_t)r * row_stride + c;
-    q_s[i] = __ldg(q + g);
-    k_s[r * ldk + c] = __ldg(k + g);
-    v_s[i] = __ldg(v + g);
-  }
-  __syncthreads();
+  const size_t base = (size_t)win * window * row_stride + (size_t)head * dim;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* p_w = p_s + warp * kRows * window;
-  for (int r0 = warp * kRows; r0 < window; r0 += kF32Warps * kRows) {
-    const int nr = min(kRows, window - r0);
-    float s[kRows][kPerLane];
+  // Zero the padding (features past D, keys past the window) that the
+  // copies below do not write: Q's padding is zero, so K's must be finite,
+  // and P is zero there, so V's must be.
+  if (dp != dim || rows_kv != window) {
+    for (int i = tid; i < rows_kv * dp; i += kThreads) {
+      const int r = i / dp, c = i - r * dp;
+      if (r >= window || c >= dim) k_s[r * ldk + c] = v_s[r * ldv + c] = 0.f;
+    }
+  }
+  if (vec) {  // D % 4 == 0 and 16-byte aligned tensors: 16-byte chunks, K then V
+    const int upr = dim / 4;
+    for (int i = tid; i < window * upr; i += kThreads) {
+      const int r = i / upr, c = 4 * (i - r * upr);
+      cp_async16(k_s + r * ldk + c, k + base + r * row_stride + c);
+    }
+    cp_async_commit();
+    for (int i = tid; i < window * upr; i += kThreads) {
+      const int r = i / upr, c = 4 * (i - r * upr);
+      cp_async16(v_s + r * ldv + c, v + base + r * row_stride + c);
+    }
+    cp_async_commit();
+  } else {
+    for (int i = tid; i < window * dim; i += kThreads) {
+      const int r = i / dim, c = i - r * dim;
+      const size_t g = base + r * row_stride + c;
+      k_s[r * ldk + c] = k[g];
+      v_s[r * ldv + c] = v[g];
+    }
+  }
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int n_strips = (window + 15) / 16;
+  // The same trip count in every warp, so the block can wait for K and V once.
+  for (int it = 0; it * kWarps < n_strips; ++it) {
+    const int strip = it * kWarps + warp;
+    const bool active = strip < n_strips;
+    const int r0 = strip * 16;
+
+    // Q straight from global memory into registers while K and V land:
+    // qa[p][h] = Q[r0 + g + 8h][16p + 4tq .. 16p + 4tq + 3], zero past
+    // the window and past D. Within a pair of k-steps the features are
+    // taken in the order 4tq, 4tq + 1 (step 2p), 4tq + 2, 4tq + 3 (step
+    // 2p + 1) for Q and K alike, so each lane reads 16 contiguous bytes.
+    float qa[kPairs][2][4];
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr)
+    for (int p = 0; p < kPairs; ++p) {
 #pragma unroll
-      for (int jj = 0; jj < kPerLane; ++jj) s[rr][jj] = 0.f;
-    for (int c = 0; c < dim; ++c) {
-      float qv[kRows];
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + g + 8 * h, c = 16 * p + 4 * tq;
+        const float* src = q + base + (size_t)r * row_stride + c;
+        if (vec) {
+          const float4 x = active && p < pairs && r < window && c < dim
+                               ? __ldg(reinterpret_cast<const float4*>(src))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+          qa[p][h][0] = x.x, qa[p][h][1] = x.y, qa[p][h][2] = x.z, qa[p][h][3] = x.w;
+        } else {
 #pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) qv[rr] = rr < nr ? q_s[(r0 + rr) * dim + c] : 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kPerLane; ++jj) {
-        const int j = lane + 32 * jj;
-        if (j < window) {
-          const float kv = k_s[j * ldk + c];
-#pragma unroll
-          for (int rr = 0; rr < kRows; ++rr) s[rr][jj] = fmaf(qv[rr], kv, s[rr][jj]);
+          for (int e = 0; e < 4; ++e)
+            qa[p][h][e] = active && p < pairs && r < window && c + e < dim ? __ldg(src + e) : 0.f;
         }
       }
     }
+    if (it == 0) {
+      cp_async_wait<1>();  // K has landed (this thread's copies)
+      __syncthreads();     // ... and every thread's
+    }
+
+    float s[kKeyTiles][4];
+    if (active) {
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      float m = -INFINITY;
+      for (int j = 0; j < kKeyTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      // S = Q K^T in 3xTF32 over D, two k8 steps per 16 features
 #pragma unroll
-      for (int jj = 0; jj < kPerLane; ++jj) {
-        if (lane + 32 * jj < window) {
-          s[rr][jj] *= scale;
-          m = fmaxf(m, s[rr][jj]);
+      for (int p = 0; p < kPairs; ++p) {
+        if (p < pairs) {
+          uint32_t ah0[4], al0[4], ah1[4], al1[4];
+          split_a(qa[p][0][0], qa[p][1][0], qa[p][0][1], qa[p][1][1], ah0, al0);
+          split_a(qa[p][0][2], qa[p][1][2], qa[p][0][3], qa[p][1][3], ah1, al1);
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j) {
+            if (j < key_tiles) {
+              const float4 kb = *reinterpret_cast<const float4*>(k_s + (8 * j + g) * ldk + 16 * p + 4 * tq);
+              mma_3xtf32(s[j], ah0, al0, kb.x, kb.y);
+              mma_3xtf32(s[j], ah1, al1, kb.z, kb.w);
+            }
+          }
         }
       }
-      m = warp_max(m);
-      float sum = 0.f;
+      // softmax of rows g (s[.][0..1]) and g + 8 (s[.][2..3]), f32
+      float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-      for (int jj = 0; jj < kPerLane; ++jj) {
-        if (lane + 32 * jj < window) {
-          s[rr][jj] = expf(s[rr][jj] - m);
-          sum += s[rr][jj];
+      for (int j = 0; j < kKeyTiles; ++j) {
+        if (j < key_tiles) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool key_ok = 8 * j + 2 * tq + e < window;
+            s[j][e] = key_ok ? s[j][e] * scale : -INFINITY;
+            s[j][2 + e] = key_ok ? s[j][2 + e] * scale : -INFINITY;
+            m0 = fmaxf(m0, s[j][e]);
+            m1 = fmaxf(m1, s[j][2 + e]);
+          }
         }
       }
-      sum = warp_sum(sum);
 #pragma unroll
-      for (int jj = 0; jj < kPerLane; ++jj) {
-        const int j = lane + 32 * jj;
-        if (j < window) p_w[rr * window + j] = s[rr][jj] / sum;
+      for (int o = 1; o < 4; o <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+      }
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+        if (j < key_tiles) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[j][e] = expf(s[j][e] - m0);
+            s[j][2 + e] = expf(s[j][2 + e] - m1);
+            l0 += s[j][e];
+            l1 += s[j][2 + e];
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+      }
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+        if (j < key_tiles) {
+          s[j][0] /= l0;
+          s[j][1] /= l0;
+          s[j][2] /= l1;
+          s[j][3] /= l1;
+        }
       }
     }
-    __syncwarp();
-    float o[kRows][kPerLane];
+    if (it == 0) {
+      cp_async_wait<0>();  // V has landed
+      __syncthreads();
+    }
+    if (!active) continue;
+
+    // O = P V in 3xTF32, one k8 step per key tile. A lane's P accumulators
+    // hold keys 2tq, 2tq + 1 of the tile: taken as k slots tq, tq + 4 they
+    // are the A fragment as they stand, so V's B fragment reads keys 2tq
+    // and 2tq + 1. Two n-tiles go together: n slot g is feature 16p + 2g
+    // in the first and 16p + 2g + 1 in the second, so each lane reads V in
+    // 8-byte pairs and ends holding features 16p + 4tq .. 16p + 4tq + 3.
+    float o[kPairs][2][4];
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr)
+    for (int p = 0; p < kPairs; ++p)
 #pragma unroll
-      for (int dd = 0; dd < kPerLane; ++dd) o[rr][dd] = 0.f;
-    for (int j = 0; j < window; ++j) {
-      float p[kRows];
+      for (int h = 0; h < 2; ++h) o[p][h][0] = o[p][h][1] = o[p][h][2] = o[p][h][3] = 0.f;
 #pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) p[rr] = p_w[rr * window + j];
+    for (int j = 0; j < kKeyTiles; ++j) {
+      if (j < key_tiles) {
+        uint32_t ph[4], pl[4];
+        split_a(s[j][0], s[j][2], s[j][1], s[j][3], ph, pl);
+        const float* v0 = v_s + (8 * j + 2 * tq) * ldv + 2 * g;  // key 8j + 2tq; key + 1 one row on
 #pragma unroll
-      for (int dd = 0; dd < kPerLane; ++dd) {
-        const int c = lane + 32 * dd;
-        if (c < dim) {
-          const float vv = v_s[j * dim + c];
-#pragma unroll
-          for (int rr = 0; rr < kRows; ++rr) o[rr][dd] = fmaf(p[rr], vv, o[rr][dd]);
+        for (int p = 0; p < kPairs; ++p) {
+          if (p < pairs) {
+            const float2 x = *reinterpret_cast<const float2*>(v0 + 16 * p);
+            const float2 y = *reinterpret_cast<const float2*>(v0 + ldv + 16 * p);
+            mma_3xtf32(o[p][0], ph, pl, x.x, y.x);
+            mma_3xtf32(o[p][1], ph, pl, x.y, y.y);
+          }
         }
       }
     }
+
+    // Epilogue straight from the accumulators: rows g and g + 8, features
+    // 16p + 4tq + (0, 1, 2, 3) = (o[p][0][c], o[p][1][c], o[p][0][c + 1],
+    // o[p][1][c + 1]) with c = 0 for row g and 2 for row g + 8.
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      if (rr < nr) {
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      if (r >= window) continue;
+      float* dst = out + base + (size_t)r * row_stride;
 #pragma unroll
-        for (int dd = 0; dd < kPerLane; ++dd) {
-          const int c = lane + 32 * dd;
-          if (c < dim) out[base + (size_t)(r0 + rr) * row_stride + c] = o[rr][dd];
+      for (int p = 0; p < kPairs; ++p) {
+        const int c = 16 * p + 4 * tq;
+        if (p < pairs && c < dim) {
+          const float4 x = make_float4(o[p][0][2 * h], o[p][1][2 * h], o[p][0][2 * h + 1], o[p][1][2 * h + 1]);
+          if (vec) {
+            *reinterpret_cast<float4*>(dst + c) = x;
+          } else {
+            dst[c] = x.x;
+            if (c + 1 < dim) dst[c + 1] = x.y;
+            if (c + 2 < dim) dst[c + 2] = x.z;
+            if (c + 3 < dim) dst[c + 3] = x.w;
+          }
         }
       }
     }
-    __syncwarp();  // p_w is rewritten by the next rows
   }
 }
 
@@ -497,11 +698,73 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   return launch_mma<kKeys, 128>(q, k, v, out, t, heads, dim, window, stream);
 }
 
+template <int kKeys, int kDim, bool kExact>
+cudaError_t launch_tf32_as(const void* q, const void* k, const void* v, void* out, int t, int heads,
+                           int dim, int window, cudaStream_t stream) {
+  const int vec = dim % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
+  const long long blocks = (long long)(t / window) * heads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  window_attention_tf32_kernel<kKeys, kDim, kExact>
+      <<<(unsigned)blocks, kThreads, tf32_smem_bytes(window, dim), stream>>>(
+          (const float*)q, (const float*)k, (const float*)v, (float*)out, heads, dim, window, vec, scale_of(dim));
+  return cudaGetLastError();
+}
+
+template <int kKeys, int kDim>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out, int t, int heads,
+                        int dim, int window, cudaStream_t stream) {
+  return window == kKeys && dim == kDim
+             ? launch_tf32_as<kKeys, kDim, true>(q, k, v, out, t, heads, dim, window, stream)
+             : launch_tf32_as<kKeys, kDim, false>(q, k, v, out, t, heads, dim, window, stream);
+}
+
+template <int kKeys>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int t, int heads,
+                       int dim, int window, cudaStream_t stream) {
+  const int dp = round16(dim);
+  if (dp <= 64) return launch_tf32<kKeys, 64>(q, k, v, out, t, heads, dim, window, stream);
+  if (dp <= 80) return launch_tf32<kKeys, 80>(q, k, v, out, t, heads, dim, window, stream);
+  return launch_tf32<kKeys, 128>(q, k, v, out, t, heads, dim, window, stream);
+}
+
+template <int kKeys, int kDim, bool kExact>
+cudaError_t set_tf32_limit() {
+  return cudaFuncSetAttribute(window_attention_tf32_kernel<kKeys, kDim, kExact>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, tf32_smem_bytes(kKeys, kDim));
+}
+
 template <int kKeys, int kDim>
 cudaError_t set_smem_limit() {
-  return cudaFuncSetAttribute(window_attention_mma_kernel<kKeys, kDim>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              mma_smem_bytes(kKeys, kDim));
+  cudaError_t e = cudaFuncSetAttribute(window_attention_mma_kernel<kKeys, kDim>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem_bytes(kKeys, kDim));
+  if (e != cudaSuccess) return e;
+  e = set_tf32_limit<kKeys, kDim, true>();
+  return e != cudaSuccess ? e : set_tf32_limit<kKeys, kDim, false>();
+}
+
+// Blocks of `kernel` resident on one SM at this shape, and its registers a thread.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int smem, int* blocks_per_sm, int* regs) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  *regs = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
+}
+
+template <int kKeys, int kDim>
+cudaError_t occupancy_of(int is_bf16, int dim, int window, int* blocks_per_sm, int* regs) {
+  return is_bf16 ? occupancy(window_attention_mma_kernel<kKeys, kDim>, mma_smem_bytes(window, dim), blocks_per_sm, regs)
+         : window == kKeys && dim == kDim
+             ? occupancy(window_attention_tf32_kernel<kKeys, kDim, true>, tf32_smem_bytes(window, dim), blocks_per_sm,
+                         regs)
+             : occupancy(window_attention_tf32_kernel<kKeys, kDim, false>, tf32_smem_bytes(window, dim),
+                         blocks_per_sm, regs);
+}
+
+bool shape_ok(int t, int heads, int dim, int window) {
+  return t >= 0 && heads > 0 && heads <= 65535 && dim > 0 && dim <= kMaxDim && window > 0 &&
+         window <= kMaxWindow && t % window == 0;
 }
 
 }  // namespace
@@ -509,11 +772,9 @@ cudaError_t set_smem_limit() {
 // Raise the dynamic shared-memory limit of every kernel once, when the
 // library is loaded (a launch then needs no attribute call).
 extern "C" int window_attention_init() {
-  const cudaError_t errs[7] = {
+  const cudaError_t errs[6] = {
       set_smem_limit<64, 64>(),  set_smem_limit<64, 80>(),  set_smem_limit<64, 128>(),
       set_smem_limit<128, 64>(), set_smem_limit<128, 80>(), set_smem_limit<128, 128>(),
-      cudaFuncSetAttribute(window_attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           f32_smem_bytes(kMaxWindow, kMaxDim)),
   };
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return (int)e;
@@ -523,17 +784,27 @@ extern "C" int window_attention_init() {
 extern "C" int window_attention_launch(const void* q, const void* k, const void* v, void* out,
                                        int is_bf16, int t, int heads, int dim, int window,
                                        void* stream) {
-  if (t < 0 || heads <= 0 || heads > 65535 || dim <= 0 || dim > kMaxDim || window <= 0 ||
-      window > kMaxWindow || t % window != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(t, heads, dim, window)) return (int)cudaErrorInvalidValue;
   if (t == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     return (int)(window <= 64 ? launch_bf16<64>(q, k, v, out, t, heads, dim, window, s)
                               : launch_bf16<128>(q, k, v, out, t, heads, dim, window, s));
   }
-  window_attention_f32_kernel<<<dim3(t / window, heads), kF32Threads, f32_smem_bytes(window, dim), s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, heads, dim, window,
-      scale_of(dim));
-  return (int)cudaGetLastError();
+  return (int)(window <= 64 ? launch_f32<64>(q, k, v, out, t, heads, dim, window, s)
+                            : launch_f32<128>(q, k, v, out, t, heads, dim, window, s));
+}
+
+// The resident blocks per SM and the registers a thread of the kernel that
+// window_attention_launch would run at this shape (for reports).
+extern "C" int window_attention_occupancy(int is_bf16, int dim, int window, int* blocks_per_sm, int* regs) {
+  if (!shape_ok(window, 1, dim, window)) return (int)cudaErrorInvalidValue;
+  const int dp = round16(dim);
+  const bool small = window <= 64;
+  if (dp <= 64) return (int)(small ? occupancy_of<64, 64>(is_bf16, dim, window, blocks_per_sm, regs)
+                                   : occupancy_of<128, 64>(is_bf16, dim, window, blocks_per_sm, regs));
+  if (dp <= 80) return (int)(small ? occupancy_of<64, 80>(is_bf16, dim, window, blocks_per_sm, regs)
+                                   : occupancy_of<128, 80>(is_bf16, dim, window, blocks_per_sm, regs));
+  return (int)(small ? occupancy_of<64, 128>(is_bf16, dim, window, blocks_per_sm, regs)
+                     : occupancy_of<128, 128>(is_bf16, dim, window, blocks_per_sm, regs));
 }

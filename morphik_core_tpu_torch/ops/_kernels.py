@@ -116,6 +116,8 @@ def library() -> ctypes.CDLL:
             lib.window_attention_launch.restype = ci
             lib.window_attention_init.argtypes = []
             lib.window_attention_init.restype = ci
+            lib.window_attention_occupancy.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
+            lib.window_attention_occupancy.restype = ci
             _check(lib.maxsim_init(), "maxsim_init")  # shared-memory limits, once per load
             _check(lib.window_attention_init(), "window_attention_init")
             _lib = lib
@@ -157,7 +159,9 @@ def launch_maxsim(q, docs, mask, idx, part, out, plan) -> None:
 
 
 def launch_window_attention(q, k, v, out, window: int) -> None:
-    """K3 on already-checked CUDA tensors (see ops/window_attention.py)."""
+    """K3 on already-checked CUDA tensors (see ops/window_attention.py):
+    bf16 goes to `window_attention_mma_kernel`, f32 to the 3xTF32
+    `window_attention_tf32_kernel`."""
     t, heads, dim = q.shape
     rc = library().window_attention_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), int(q.dtype == torch.bfloat16), t, heads, dim, window,
@@ -165,3 +169,12 @@ def launch_window_attention(q, k, v, out, window: int) -> None:
     )
     _check(rc, "window_attention")
     count_launch("window_attention")
+
+
+def window_attention_occupancy(dtype: torch.dtype, dim: int, window: int) -> Dict[str, int]:
+    """The blocks of 128 threads that the K3 kernel of this dtype and shape
+    keeps resident on one SM, and its registers a thread (for reports)."""
+    blocks, regs = ctypes.c_int(), ctypes.c_int()
+    _check(library().window_attention_occupancy(int(dtype == torch.bfloat16), dim, window, ctypes.byref(blocks),
+                                                ctypes.byref(regs)), "window_attention_occupancy")
+    return {"blocks_per_sm": blocks.value, "warps_per_sm": 4 * blocks.value, "registers_per_thread": regs.value}

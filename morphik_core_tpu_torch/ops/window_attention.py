@@ -5,18 +5,21 @@ q/k/v are (T, H, D) with windows of `window` consecutive rows along T;
 each window attends only to itself. One kernel carries it on the card
 (`csrc/window_attention.cu`, K3, the twin of `_window_attn_kernel`):
 scores and softmax in f32, probabilities normalised and then rounded to
-the input dtype, PV accumulated in f32 (bf16: tensor-core tiles; f32: a
-scalar kernel). The wrapper dispatches on the tensors' device: a CPU
-tensor goes to `window_attention_plain`, a CUDA tensor launches K3 (or
-raises). The reference's `block_windows` is a Mosaic tiling knob and has
-no counterpart here.
+the input dtype, PV accumulated in f32. bf16 runs both products on the
+tensor cores in bf16; f32 runs them on the tensor cores in three TF32
+passes (each operand split into a TF32 hi and lo, lo*hi + hi*lo + hi*hi),
+which keeps a product within about 2^-21 of its f32 value. The wrapper
+dispatches on the tensors' device: a CPU tensor goes to
+`window_attention_plain`, a CUDA tensor launches K3 (or raises). The
+reference's `block_windows` is a Mosaic tiling knob and has no
+counterpart here.
 
 Numerics: the plain version mirrors `window_attention_ref`, whose score
 einsum runs in the input dtype, so in bf16 it rounds the scores to bf16
 before the f32 softmax; K3 keeps them in f32 as the Pallas kernel does.
 `window_attention_pallas_numerics` mirrors the Pallas kernel's rounding
 instead, so K3 can be held to it tightly (tests and chip_smoke.py only).
-In f32 the three agree to summation order.
+In f32 the three agree to summation order (and K3 to its 3xTF32 split).
 """
 
 from __future__ import annotations

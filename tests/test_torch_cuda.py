@@ -16,7 +16,12 @@ Tolerances:
 - K2 (f32/bf16 MaxSim): the kernel splits the f32 query (and f32 docs)
   into bf16 hi + lo for the tensor cores (~2^-17 of |d||q| per dot) and
   sums in another order: rtol 1e-4, atol 1e-3;
-- K3 (window attention) in f32: atol 1e-5 (summation order); in bf16
+- K3 (window attention) in f32: atol 1e-5. The kernel runs both
+  products on the tensor cores in 3xTF32 (each operand split into a TF32
+  hi and lo, lo*hi + hi*lo + hi*hi summed, lo*lo left out), so a product
+  is off by about 2^-21 of |x||y|: ~1e-6 on these O(1) scores and
+  outputs (the CPU emulation in tests/test_torch_window_attention.py
+  measures it), the size of the sums' own reordering; in bf16
   the plain einsum rounds the scores to bf16 before the softmax and K3
   keeps them in f32, as the Pallas kernel does: atol 3e-2 on outputs of
   size ~1 (chip_smoke.py measures the gap at the path's shape). Against
@@ -174,6 +179,14 @@ def test_maxsim_kernels_match_plain_grid(sm90, kind, dim, nq, n_cand, np_, with_
     (17920, 16, 80, 64, torch.float32, 1e-5),
     (32, 3, 64, 32, torch.float32, 1e-5),  # ragged edge: one window, D = 64
     (256, 2, 128, 128, torch.float32, 1e-5),  # the kernel's largest shape
+    (1024, 4, 64, 32, torch.float32, 1e-5),  # window 32, D 64
+    (1024, 2, 128, 128, torch.float32, 1e-5),  # the kernel's largest window and D, many windows
+    (640, 4, 72, 64, torch.float32, 1e-5),  # D not a multiple of 16
+    (480, 4, 80, 48, torch.float32, 1e-5),  # window not a multiple of 16
+    (64, 1, 80, 64, torch.float32, 1e-5),  # one window, one head
+    (256, 3, 20, 32, torch.float32, 1e-5),  # D not a multiple of 8
+    (256, 3, 18, 32, torch.float32, 1e-5),  # D not a multiple of 4: element copies
+    (3072, 4, 16, 64, torch.float32, 1e-5),  # the tiny tower (ColQwenConfig.tiny()), 4 pages of 12 x 16 units
 ])
 def test_window_attention_kernel_matches_plain(sm90, t, h, d, win, dtype, atol):
     gen = torch.Generator(device="cuda")
@@ -185,6 +198,34 @@ def test_window_attention_kernel_matches_plain(sm90, t, h, d, win, dtype, atol):
     assert _kernels.launch_counts["window_attention"] == n0 + 1
     torch.testing.assert_close(got.float(), window_attention_plain(q, k, v, window=win).float(),
                                atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_window_attention_f32_kernel_keeps_blocks_resident(sm90):
+    """At the tower's shape the f32 kernel keeps at least 2 blocks of 4
+    warps resident per SM, so one block's loads overlap another's products."""
+    occ = _kernels.window_attention_occupancy(torch.float32, 80, 64)
+    assert occ["blocks_per_sm"] >= 2 and occ["registers_per_thread"] <= 255, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2])  # 4 and 8 bytes off 16-byte alignment: element copies
+def test_window_attention_f32_kernel_off_alignment_matches_plain(sm90, offset):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    q, k, v = (_offset_copy(torch.randn((256, 2, 80), generator=gen, device="cuda"), offset) for _ in range(3))
+    assert all(x.data_ptr() % 16 for x in (q, k, v))
+    got = window_attention(q, k, v, window=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, window_attention_plain(q, k, v, window=64), atol=1e-5, rtol=0)
+
+
+def _offset_copy(x, offset):
+    """x copied into a buffer at `offset` elements from its start."""
+    buf = torch.empty((x.numel() + offset,), dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def _qkv_bf16(t, h, d, seed, offset=0):
