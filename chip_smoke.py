@@ -6,10 +6,11 @@ scales, bf16 attention) and, before it, in bf16; then its HTTP service
 plane with the text path, documents as page images over HTTP, a real
 checkpoint, /query answered through the LLM wire formats, and the text
 index at 200,000 rows; an API node that embeds, parses and OCRs through
-remote endpoints; last, the connectors and the admin console, with the
+remote endpoints; the connectors and the admin console, with the
 progressive and multi-scan JPEGs and the Adam7 and 16-bit PNGs that
-connector files bring; and last the 3B checkpoint served in f32, through
-K3's 3xTF32 kernel.
+connector files bring; the 3B checkpoint served in f32, through K3's
+3xTF32 kernel; and last the binary index through K4, the dual store and
+the operator scripts' port twins.
 
     python3 chip_smoke.py
 
@@ -20,8 +21,9 @@ Phases (each raises on failure; none is caught):
      kernel in the built library (cuobjdump): the bf16 K3 must have all
      three, the f32 K3 at the path's shape TF32 HMMAs and cp.async
      (LDGSTS).
-  2. each kernel (K1, K2 MaxSim; K3 window attention) against its plain
-     PyTorch version on the card, at the main path's shapes (the text
+  2. each kernel (K1, K2 MaxSim; K3 window attention; K4 binary MaxSim)
+     against its plain PyTorch version on the card, at the main path's
+     shapes (the text
      queries' and the self-query's) and at ragged edges. Two times per
      side, order plain, kernel, kernel, plain: CUDA events around 20
      Python calls (host cost included), and the device time of one
@@ -36,7 +38,11 @@ Phases (each raises on failure; none is caught):
      at the vision blocks' shape, where SDPA names the backend that took
      f32. Each K3 case prints the kernel's resident blocks per SM. K2 also runs at the reranker's shape: the f32
      query of a text query against 12 f32 chunks of byte tokens, the
-     longest a 6000-character chunk (6017 tokens, padded to 6144).
+     longest a 6000-character chunk (6017 tokens, padded to 6144). K4
+     runs phase 18's resident scan at 32 and 632 query tokens and a ragged
+     dim-16 case, bit for bit, its bound the larger of the valid tokens'
+     bytes and their popcounts over the card's popcount rate (SMs x 16 a
+     clock, CUDA C++ Programming Guide, x the max SM clock).
   3. ingest. (a) the earlier path: the 3B model in bf16 embeds one batch
      of 8 pages at grid 20 x 28 from seeded uint8 patches and encodes the
      text queries with the bf16 text tower. (b) the main
@@ -252,6 +258,30 @@ Phases (each raises on failure; none is caught):
      Prints an {"f32": ...} line (load s, pages/s of the second batch,
      launches, cosine mean / min, peak memory, the tiny model's error, the
      phase's s, the card).
+ 18. the binary index at a real size (after phase 10): a
+     TorchMultiVectorStore(provider="binary") on the card stores phase 3b's
+     8 pages and 16,384 seeded rows of 64-632 tokens (generated and
+     stored in chunks; 16,392 x 1024 x 16 B = 256 MiB of resident sign
+     bits), answers phase 5's text queries and a self-query of each page
+     (first, at its token count exactly) 10 times each (K4 once a query),
+     the same queries again with the device budget under the resident size
+     (blocks of 4096 rows stream: the same ids and score bits, K4 once a
+     block), a doc_ids filter and a delete; then a DualMultiVectorStore over
+     a new fde store and this one takes the pages again, and its reads equal
+     the primary's. Prints a {"binary": ...} line (rows/s, query p50 / p99,
+     launches, peak memory, the phase's s, the card).
+ 19. the operator scripts' port twins on the card (after phase 18), over a
+     deployment of phase 18's pages (a database, local storage with their
+     PNG payloads, an fde index): check_completeness (consistent; --gc-apply
+     on an empty index root refused with exit 2, nothing deleted),
+     scrub_metadata (dry run, apply), export_chunks_resumable (one run
+     against a run interrupted after a shard and resumed: the same bytes),
+     rebuild_fde under another FDE config (a self-query first after the
+     reopen), migrate_index_format on a legacy snapshot, migrate_store_provider
+     fde -> fde (every row kept; --to binary refused), purge_app; then
+     soak_serving for SOAK_S s with 2 ingesters and 2 queriers on phase 3b's
+     model (no 5xx, drained, no pending task). Prints a {"scripts": ...}
+     line.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -345,10 +375,12 @@ def setup():
     return torch, smi
 
 
-SASS_OPS = {op: r"\b" + re.escape(op) + r"[.\s]" for op in ("HMMA", "IMMA", "LDSM", "LDGSTS", "FFMA", "MUFU.EX2")}
+SASS_OPS = {op: r"\b" + re.escape(op) + r"[.\s]" for op in ("HMMA", "IMMA", "LDSM", "LDGSTS", "FFMA", "MUFU.EX2",
+                                                                "POPC")}
 SASS_OPS["HMMA.TF32"] = r"\bHMMA\.[\w.]*TF32\b"  # tensor-core products with TF32 operands
 K3_BF16_SASS = "window_attention_mma_kernel<64,80>"
 K3_F32_SASS = re.compile(r"window_attention_tf32_kernel<64,80,(1|true)>")  # the path's shape, exact instantiation
+K4_SASS = "binary_maxsim_kernel<4,1>"  # 16 packed bytes, one query token a thread: phase 18's queries
 
 
 def build_kernels():
@@ -367,6 +399,8 @@ def build_kernels():
     k3 = next((ops for name, ops in counts.items() if K3_F32_SASS.fullmatch(name)), {})
     if not all(k3.get(op) for op in ("HMMA.TF32", "LDGSTS")):
         raise AssertionError(f"the f32 K3 at the path's shape is not a TF32 tensor-core kernel with cp.async: {k3}")
+    if not counts.get(K4_SASS, {}).get("POPC"):
+        raise AssertionError(f"K4 at 16 packed bytes has no POPC: {counts.get(K4_SASS)}")
     return counts
 
 
@@ -444,8 +478,17 @@ def _bound(bytes_moved: float, ops: float, kind: str) -> dict:
             "bound_by": "bytes" if bytes_us >= ops_us else "operations"}
 
 
-def _compare(torch, name, kernel_fn, plain_fn, rtol, atol, exact=False, bound=None):
-    got, want = kernel_fn(), plain_fn()
+def _compare(torch, name, kernel_fn, plain_fn, rtol, atol, exact=False, bound=None, plain_iters=20):
+    """The kernel against its plain version, then both timed in turns
+    (plain, kernel, kernel, plain). With `plain_iters=0` (a plain version
+    that takes seconds a call) the plain side is timed only over the
+    comparison's own call, with CUDA events, and its device time is not
+    measured."""
+    got = kernel_fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain_fn()
+    end.record()
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
@@ -454,19 +497,24 @@ def _compare(torch, name, kernel_fn, plain_fn, rtol, atol, exact=False, bound=No
         raise AssertionError(f"{name}: expected bit-identical scores, max err {err}")
     if not torch.allclose(got, want, rtol=rtol, atol=atol):
         raise AssertionError(f"{name}: max err {err} beyond rtol={rtol} atol={atol}")
-    p1, pg1 = _time_ms(torch, plain_fn), _graph_ms(torch, plain_fn)
+    p1 = pg1 = p2 = pg2 = None
+    if plain_iters:
+        p1, pg1 = _time_ms(torch, plain_fn, plain_iters), _graph_ms(torch, plain_fn, plain_iters)
     k1, kg1 = _time_ms(torch, kernel_fn), _graph_ms(torch, kernel_fn)
     k2, kg2 = _time_ms(torch, kernel_fn), _graph_ms(torch, kernel_fn)
-    p2, pg2 = _time_ms(torch, plain_fn), _graph_ms(torch, plain_fn)
-    res = {"case": name, "max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-           "device_ms": (kg1 + kg2) / 2, "plain_device_ms": (pg1 + pg2) / 2}
+    if plain_iters:
+        p2, pg2 = _time_ms(torch, plain_fn, plain_iters), _graph_ms(torch, plain_fn, plain_iters)
+    res = {"case": name, "max_abs_err": err, "ms": (k1 + k2) / 2,
+           "plain_ms": (p1 + p2) / 2 if plain_iters else start.elapsed_time(end), "device_ms": (kg1 + kg2) / 2,
+           "plain_device_ms": (pg1 + pg2) / 2 if plain_iters else None}
     extra = ""
     if bound is not None:
         res.update(bound)
         extra = (f" bytes_us={bound['bytes_us']:.3f} ops_us={bound['ops_us']:.3f} bound_us={bound['bound_us']:.3f}"
                  f" ({bound['bound_by']}, {bound['bound_us'] / (res['device_ms'] * 1e3):.1%} of it)")
+    plain_dev = f"{res['plain_device_ms']:.5f}" if plain_iters else "not measured"
     log(f"  {name}: max_abs_err={err:.3e} kernel_ms={res['ms']:.5f} plain_ms={res['plain_ms']:.5f} "
-        f"kernel_device_ms={res['device_ms']:.5f} plain_device_ms={res['plain_device_ms']:.5f}{extra}")
+        f"kernel_device_ms={res['device_ms']:.5f} plain_device_ms={plain_dev}{extra}")
     return res
 
 
@@ -3497,6 +3545,431 @@ def connectors_phase(torch, model, _kernels, smi):
     return out
 
 
+# K4 (the binary MaxSim of the binary index) and phases 18-19
+BINARY_SYNTH = 16_384  # phase 18: synthetic rows beside the 8 pages (16,392 x 1024 x 16 B = 256 MiB resident)
+BINARY_TOKENS = (64, 633)  # their token counts, drawn uniformly: up to the self-query's 632
+BINARY_BUCKET = 1024  # BinaryMultiVectorIndex's token_bucket
+BINARY_BLOCK = 4096  # its block_rows: a streamed query launches ceil(rows / 4096) times
+BINARY_STORE_CHUNK = 1024  # rows generated and stored per store_embeddings call
+BINARY_REPEATS = 10  # timed resident queries of each text query and page
+POPC_PER_SM_CLOCK = 16  # CUDA C++ Programming Guide, arithmetic instruction throughput,
+#                         "population count", compute capability 9.0: results per clock per SM
+SCRIPTS_BATCH = 3  # phase 19: export shards of 3 rows (8 pages: 3 shards)
+SOAK_S = 10  # phase 19: the soak's traffic window on the 3B model (its backlog drains after it)
+
+
+def binary_row_lengths(n: int = BINARY_SYNTH, seed: int = SEED + 5):
+    """Phase 18's synthetic rows' token counts (phase 2 draws its K4 rows
+    from the same law)."""
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(*BINARY_TOKENS, n)
+
+
+def popcount_rate(torch) -> float:
+    """The card's popcount rate: SMs x POPC_PER_SM_CLOCK x the max SM clock."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * POPC_PER_SM_CLOCK * mhz * 1e6
+
+
+def _k4_bound(ntok, nq: int, nb: int, popc_per_s: float) -> dict:
+    """K4's least time: the valid doc tokens' bytes + the query + ntok and
+    the scores over the HBM rate, against one popcount per u32 word of
+    each (query token, valid doc token) pair over the popcount rate. The
+    kernel reads only each row's valid tokens, so both count those."""
+    rows, tokens = int(len(ntok)), int(ntok.sum())
+    bytes_us = (tokens * nb + nq * nb + 8 * rows) / HBM_BYTES_PER_S * 1e6
+    ops_us = tokens * nq * (-(-nb // 4)) / popc_per_s * 1e6
+    return {"bytes_us": bytes_us, "ops_us": ops_us, "bound_us": max(bytes_us, ops_us),
+            "bound_by": "bytes" if bytes_us >= ops_us else "operations"}
+
+
+def binary_kernel_checks(torch):
+    """Phase 2, K4: the binary MaxSim against its plain version on the
+    card, bit for bit: phase 18's resident scan (16,392 rows of 1024
+    tokens x 16 B, valid prefixes drawn as phase 18's) at 32 query tokens
+    and at the self-query's 632, and a ragged edge at dim 16 (2 bytes
+    padded to one word, rows without tokens)."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.ops import _kernels
+    from morphik_core_tpu_torch.ops.binary import binary_maxsim, binary_maxsim_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    rate = popcount_rate(torch)
+    log(f"phase 2, K4: popcount rate {rate / 1e12:.3f} T/s ({torch.cuda.get_device_properties(0).multi_processor_count}"
+        f" SMs x {POPC_PER_SM_CLOCK} a clock, the CUDA C++ Programming Guide's 'population count' row for compute "
+        "capability 9.0, x the max SM clock)")
+
+    def bits(shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+
+    lengths = binary_row_lengths(n=BATCH + BINARY_SYNTH).astype(np.int32)
+    n_rows = len(lengths)
+    docs = bits((n_rows, BINARY_BUCKET, 16))
+    docs *= (torch.arange(BINARY_BUCKET, device=dev)[None, :] < torch.from_numpy(lengths).to(dev)[:, None])[..., None]
+    ntok = torch.from_numpy(lengths).to(dev)
+    cases = []
+    for nq, plain_iters in ((32, 2), (632, 0)):  # the plain chain: 0.17 s a call at 32 tokens, 3.3 s at 632
+        q = bits((nq, 16))
+        plan = _kernels.binary_maxsim_plan(nq)
+        cases.append(_compare(
+            torch, f"K4 resident scan C={n_rows} Nd={BINARY_BUCKET} B=16 NQ={nq} ({plan['threads_per_block']} threads,"
+                   f" {plan['query_tokens_per_thread']} query tokens a thread)",
+            lambda: binary_maxsim(q, docs, ntok, 128), lambda: binary_maxsim_plain(q, docs, ntok, 128), 0.0, 0.0,
+            exact=True, bound=_k4_bound(lengths, nq, 16, rate), plain_iters=plain_iters))
+    del docs
+    # ragged: dim 16 (2 bytes padded to one u32 word), rows of 0..40 tokens
+    lengths = np.random.default_rng(SEED + 6).integers(0, 41, 1000).astype(np.int32)
+    lengths[:3] = (0, 40, 1)
+    docs_r, q_r, ntok_r = bits((1000, 40, 2)), bits((20, 2)), torch.from_numpy(lengths).to(dev)
+    q_r[0] = 0xFF
+    ragged = _compare(torch, "K4 ragged dim 16 C=1000 Nd=40 B=2 NQ=20", lambda: binary_maxsim(q_r, docs_r, ntok_r, 16),
+                      lambda: binary_maxsim_plain(q_r, docs_r, ntok_r, 16), 0.0, 0.0, exact=True,
+                      bound=_k4_bound(lengths, 20, 2, rate))
+    if float(binary_maxsim(q_r, docs_r, ntok_r, 16)[0]) != 0.0:
+        raise AssertionError("K4: a row without tokens must score exactly 0")
+    _deterministic(torch, "K4 ragged dim 16", lambda: binary_maxsim(q_r, docs_r, ntok_r, 16))
+    return cases[0], cases + [ragged]
+
+
+def _binary_answer(hits):
+    return [(c.document_id, c.score) for c in hits]
+
+
+def binary_phase(torch, page_embs, queries, _kernels, smi):
+    """Phase 18: the binary index on the card at a real size, through the
+    store a user builds (`TorchMultiVectorStore(provider="binary")`): phase
+    3b's 8 pages and BINARY_SYNTH seeded rows (256 MiB of resident bits,
+    far inside the 4 GiB budget), phase 5's text queries and a self-query
+    of each page, the same queries streamed in blocks, a filter and a
+    delete; then a dual store over a new fde store and this one."""
+    import asyncio
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.models.schemas import DocumentChunk
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+    from morphik_core_tpu_torch.vector_store.dual_multivector_store import DualMultiVectorStore
+    from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
+
+    t_phase = time.perf_counter()
+    loop = asyncio.new_event_loop()  # one loop for every store call, as a server has
+    run = loop.run_until_complete
+    torch.cuda.reset_peak_memory_stats()  # the resident 3B model counts in the peak
+    store = TorchMultiVectorStore(fde_config=FDEConfig(), provider="binary", device="cuda")
+
+    def chunk(doc, mv):
+        return DocumentChunk(document_id=doc, chunk_number=0, content=doc, embedding=mv, metadata={})
+
+    pages = [np.asarray(e, np.float32) for e in page_embs]
+    t0 = time.perf_counter()
+    run(store.store_embeddings([chunk(f"page{i}", mv) for i, mv in enumerate(pages)]))
+    rng = np.random.default_rng(SEED + 5)
+    lengths = binary_row_lengths()
+    for s in range(0, BINARY_SYNTH, BINARY_STORE_CHUNK):  # seeded sign patterns, generated and packed in chunks
+        rows = []
+        for i in range(s, min(s + BINARY_STORE_CHUNK, BINARY_SYNTH)):
+            signs = np.unpackbits(rng.integers(0, 256, (int(lengths[i]), 16), dtype=np.uint8), axis=1)
+            rows.append(chunk(f"synth{i}", signs.astype(np.float32) - 0.5))
+        run(store.store_embeddings(rows))
+    store_s = time.perf_counter() - t0
+    index = store._ns(None)
+    n_rows = BATCH + BINARY_SYNTH
+    resident_mb = n_rows * index.token_bucket * (index.dim // 8) / 2**20
+    if len(index) != n_rows:
+        raise AssertionError(f"binary store holds {len(index)} rows, expected {n_rows}")
+
+    def ask(q, **kw):
+        return _binary_answer(run(store.query_similar(q, k=10, **kw)))
+
+    texts = [np.asarray(q, np.float32) for q in queries[: len(QUERIES)]]
+    _kernels.reset_launch_counts()
+    lat, resident = [], []
+    for rep in range(BINARY_REPEATS):
+        for q in texts + pages:
+            t0 = time.perf_counter()
+            got = ask(q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if rep == 0:
+                resident.append(got)
+            elif got != resident[len(lat) - 1 - rep * len(texts + pages)]:
+                raise AssertionError("a repeated binary query changed its answer")
+    launches_resident = _kernels.launch_counts["binary_maxsim"]
+    if launches_resident != BINARY_REPEATS * (len(texts) + len(pages)) or index._device_count != n_rows:
+        raise AssertionError(f"resident queries launched K4 {launches_resident} times "
+                             f"(device rows {index._device_count})")
+    for i, (mv, got) in enumerate(zip(pages, resident[len(texts):])):
+        if got[0] != (f"page{i}", float(len(mv))):
+            raise AssertionError(f"page {i} self-query: {got[:2]} (expected score {len(mv)} first)")
+    # the same queries with the budget under the resident size: blocks of rows stream
+    budget = index.device_budget_bytes
+    index.device_budget_bytes = int(resident_mb * 2**20) // 2
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    streamed = [ask(q) for q in texts + pages]
+    streamed_ms = (time.perf_counter() - t0) * 1e3 / len(streamed)
+    launches_streamed = _kernels.launch_counts["binary_maxsim"]
+    index.device_budget_bytes = budget
+    want_launches = len(streamed) * -(-n_rows // BINARY_BLOCK)
+    if streamed != resident or launches_streamed != want_launches:
+        raise AssertionError(f"streamed answers differ from resident ones, or K4 {launches_streamed} != "
+                             f"{want_launches} launches")
+    # a doc_ids filter and a delete
+    allowed = ["page2", "page5", "synth7", "synth9000"]
+    filtered = ask(pages[5], doc_ids=allowed)
+    if filtered[0][0] != "page5" or {d for d, _ in filtered} - set(allowed):
+        raise AssertionError(f"filtered query: {filtered}")
+    run(store.delete_chunks_by_document_id("page3"))
+    after = ask(pages[3])
+    if "page3" in [d for d, _ in after] or len(index) != n_rows - 1:
+        raise AssertionError(f"page3 survived its delete: {after[:3]}")
+    store.save()  # a no-op for the binary index
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a dual store: a new fde store (primary) and this binary store take the same writes
+    fde_store = TorchMultiVectorStore(fde_config=FDEConfig(), device="cuda")
+    dual = DualMultiVectorStore(fde_store, store)
+    run(dual.store_embeddings([chunk(f"dual{i}", mv) for i, mv in enumerate(pages)]))
+    for i, q in enumerate(pages):
+        a = run(dual.query_similar(q, k=5))
+        b = run(fde_store.query_similar(q, k=5))
+        if [(c.document_id, c.score) for c in a] != [(c.document_id, c.score) for c in b] or a[0].document_id != f"dual{i}":
+            raise AssertionError(f"dual store read of page {i} differs from its primary's")
+        top = ask(q)[:2]  # page{i} and dual{i} hold the same bits and tie (page3 is deleted)
+        if top[0][1] != float(len(q)) or f"dual{i}" not in [d for d, _ in top]:
+            raise AssertionError(f"the binary side of the dual store lacks page {i}: {top}")
+    loop.close()
+    out = {
+        "rows": n_rows, "resident_mib": resident_mb, "store_s": store_s, "store_rows_per_s": n_rows / store_s,
+        "query_ms": _percentiles(lat), "streamed_query_ms": streamed_ms,
+        "launches": {"binary_maxsim": launches_resident + launches_streamed}, "launches_resident": launches_resident,
+        "launches_streamed": launches_streamed, "page_tokens": [len(p) for p in pages],
+        "text_top": [r[0] for r in resident[: len(texts)]], "peak_gb": peak_gb,
+        "phase_s": time.perf_counter() - t_phase, "card": smi,
+    }
+    log(f"phase 18: binary index on the card ({smi}): {n_rows} rows ({resident_mb:.0f} MiB resident) stored in "
+        f"{store_s:.3f} s ({out['store_rows_per_s']:.0f} rows/s); query p50 / p99 {out['query_ms']['p50_ms']:.3f} / "
+        f"{out['query_ms']['p99_ms']:.3f} ms ({len(lat)} resident, K4 {launches_resident}), streamed "
+        f"{streamed_ms:.3f} ms a query (K4 {launches_streamed} = {len(streamed)} x {-(-n_rows // BINARY_BLOCK)}), "
+        f"the same ids and score bits; 8 self-queries first at their token counts; filter, delete, dual store ok; "
+        f"peak {peak_gb:.2f} GB; phase {out['phase_s']:.3f} s")
+    return out
+
+
+def _scripts_config(tmp: Path, index_path: Path, fde=(20, 5, 16)) -> Path:
+    """A deployment's toml: the 3B width, local storage and the database in
+    `tmp`, the index at `index_path` with FDE (repetitions, SimHash
+    projections, projection dimension)."""
+    cfg = tmp / f"cfg_{index_path.name}_{'_'.join(map(str, fde))}.toml"
+    cfg.write_text(f'[model]\nembedding_dim = 128\n[database]\npath = "{tmp / "morphik.db"}"\n'
+                   f'[storage]\nprovider = "local"\nstorage_path = "{tmp / "storage"}"\n'
+                   f'[vector_store]\nindex_path = "{index_path}"\nfde_num_repetitions = {fde[0]}\n'
+                   f'fde_num_simhash_projections = {fde[1]}\nfde_projection_dimension = {fde[2]}\n')
+    return cfg
+
+
+def _script(main, *argv):
+    """-> (exit code, standard output) of a twin's main on the card."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main([*argv, "--device", "cuda"])
+    return rc, buf.getvalue()
+
+
+def _tree(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def scripts_phase(torch, model, page_embs, _kernels, smi):
+    """Phase 19: the operator scripts' port twins on the card, over a small
+    deployment built from phase 18's pages through the port's services (a
+    database, local storage with the page payloads, an fde index), then the
+    soak on the 3B model."""
+    import asyncio
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.config import load_settings
+    from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
+    from morphik_core_tpu_torch.index.multivector_index import MultiVectorIndex
+    from morphik_core_tpu_torch.models.schemas import AuthContext, Document, DocumentChunk
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+    from morphik_core_tpu_torch.scripts import (
+        check_completeness, export_chunks_resumable, migrate_index_format, migrate_store_provider, purge_app,
+        rebuild_fde, scrub_metadata, soak_serving,
+    )
+    from morphik_core_tpu_torch.services_init import build_storage
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+    from morphik_core_tpu_torch.utils.png import encode_png
+    from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_scripts_"))
+    out = {"card": smi}
+    try:
+        index_root = tmp / "storage" / "index"
+        cfg = _scripts_config(tmp, index_root)
+        settings = load_settings(cfg)
+        pages = [np.asarray(e, np.float32) for e in page_embs]
+        pngs = [encode_png(p) for p in service_pages()[: len(pages)]]
+        docs = [f"doc{i}" for i in range(len(pages) // 2)]  # two pages a document
+        # the deployment: payloads, index rows and documents as ingest lays them out. The documents
+        # belong to the developer "migration", the one migrate_store_provider lists (both packages)
+        storage = build_storage(settings)
+        store = TorchMultiVectorStore(storage=storage, fde_config=export_chunks_resumable.fde_config_from(settings),
+                                      index_path=index_root, device="cuda")
+        db = SQLiteDatabase(settings.database.path)
+        auth = AuthContext(entity_id="migration", permissions={"read", "write"})
+
+        async def build():
+            await db.initialize()
+            chunks = [DocumentChunk(document_id=docs[i // 2], chunk_number=i % 2, embedding=mv,
+                                    content=bytes_to_data_uri(pngs[i], "image/png"),
+                                    metadata={"is_image": True, "external_id": docs[i // 2], "secret": f"s{i}"})
+                      for i, mv in enumerate(pages)]
+            await store.store_embeddings(chunks)
+            for j, doc in enumerate(docs):
+                await storage.upload_file(pngs[2 * j], f"ingest/{doc}/page.png")
+                d = Document(content_type="image/png", external_id=doc, filename="page.png",
+                             metadata={"external_id": doc, "secret": f"s{j}", "title": f"Page {j}"},
+                             storage_info={"bucket": "", "key": f"ingest/{doc}/page.png"},
+                             chunk_ids=[f"{doc}-0", f"{doc}-1"])
+                d.system_metadata["status"] = "completed"
+                await db.store_document(d, auth)
+        asyncio.run(build())
+        store.save()
+        db.close()
+        del store
+
+        # check_completeness: consistent; --gc-apply with an empty index root is refused
+        rc_check, text = _script(check_completeness.main, "--config", str(cfg))
+        rep = json.loads(text)
+        if rc_check != 0 or not rep["consistent"] or rep["namespaces"] != {"default": {"index_rows": 8,
+                                                                                     "index_docs": 4}}:
+            raise AssertionError(f"check_completeness: rc {rc_check} {rep}")
+        (tmp / "empty_index").mkdir()
+        payloads = _tree(tmp / "storage" / "multivector-chunks")
+        rc, text = _script(check_completeness.main, "--config", str(_scripts_config(tmp, tmp / "empty_index")),
+                           "--gc-apply")
+        refused = json.loads(text)
+        if rc != 2 or "gc_refused" not in refused or len(refused["gc_plan"]["orphan_payload_objects"]) != 8 \
+                or _tree(tmp / "storage" / "multivector-chunks") != payloads:
+            raise AssertionError(f"--gc-apply on an empty index root was not refused: rc {rc} {refused}")
+        out["check_completeness"] = {"rc": rc_check, "consistent": rep["consistent"], "gc_refused_rc": rc,
+                                     "planned_payloads": len(refused["gc_plan"]["orphan_payload_objects"])}
+        # scrub_metadata: a dry run, then apply
+        keep = ["--keep", "external_id,title", "--batch", "2"]
+        rc, text = _script(scrub_metadata.main, "--config", str(cfg), *keep, "--dry-run-index")
+        dry = json.loads(text)
+        rc2, text = _script(scrub_metadata.main, "--config", str(cfg), *keep, "--apply")
+        applied = json.loads(text)
+        if (rc, rc2) != (0, 0) or dry != {"documents_scrubbed": 4, "index_records_scrubbed": 8, "applied": False} \
+                or applied != dict(dry, applied=True):
+            raise AssertionError(f"scrub_metadata: {dry} then {applied}")
+        out["scrub_metadata"] = applied
+        # export: one run, and a run interrupted after its first shard, then resumed: the same bytes
+        one, two = tmp / "export_one", tmp / "export_two"
+        args = ["--config", str(cfg), "--batch", str(SCRIPTS_BATCH)]
+        t0 = time.perf_counter()
+        rc, text = _script(export_chunks_resumable.main, *args, "--out", str(one))
+        export_s = time.perf_counter() - t0
+        _script(export_chunks_resumable.main, *args, "--out", str(two))
+        (two / "checkpoint.json").write_text(json.dumps({"default": SCRIPTS_BATCH}))
+        for p in [*(two / "default").glob("shard_0000[1-9].*"), two / "default" / "manifest.json"]:
+            p.unlink()
+        rc2, _ = _script(export_chunks_resumable.main, *args, "--out", str(two))
+        if (rc, rc2) != (0, 0) or json.loads(text)["exported"] != 8 or _tree(one) != _tree(two):
+            raise AssertionError(f"export: rc {rc} / {rc2}, {text}; resumed bytes equal: {_tree(one) == _tree(two)}")
+        out["export"] = {"rows": 8, "shards": len(list((one / "default").glob("*.npy"))), "s": export_s,
+                         "resumed_identical": True}
+        # rebuild_fde under another FDE config: the reopened index answers, a self-query first
+        new_fde = (10, 4, 8)
+        t0 = time.perf_counter()
+        rc, _ = _script(rebuild_fde.main, "--index-path", str(index_root), "--dimension", "128",
+                        "--num-repetitions", str(new_fde[0]), "--num-simhash-projections", str(new_fde[1]),
+                        "--projection-dimension", str(new_fde[2]))
+        rebuild_s = time.perf_counter() - t0
+        new_cfg = FDEConfig(dimension=128, num_repetitions=new_fde[0], num_simhash_projections=new_fde[1],
+                            projection_dimension=new_fde[2])
+        idx = MultiVectorIndex(new_cfg, path=index_root / "default", device="cuda")
+        top = idx.query(pages[5], k=3)[0][0]
+        if rc != 0 or len(idx) != 8 or (top.document_id, top.chunk_number) != ("doc2", 1):
+            raise AssertionError(f"rebuild_fde: rc {rc}, {len(idx)} rows, self-query top {top}")
+        del idx
+        cfg = _scripts_config(tmp, index_root, new_fde)  # the deployment's config follows its index
+        out["rebuild_fde"] = {"rc": rc, "s": rebuild_s, "fde": new_fde}
+        # migrate_index_format: a legacy snapshot of the pages
+        legacy = index_root / "legacy"
+        (legacy / "multivectors").mkdir(parents=True)
+        recs = []
+        for i, mv in enumerate(pages):
+            np.save(legacy / "multivectors" / f"{i}.npy", mv.astype(np.float16))
+            recs.append({"document_id": f"legacy{i}", "chunk_number": 0, "metadata": {}, "content_key": None,
+                         "n_tokens": len(mv), "alive": True})
+        np.save(legacy / "fde.npy", MultiVectorIndex(new_cfg, device="cuda").encode_documents(pages))
+        (legacy / "meta.json").write_text(json.dumps({"count": len(pages), "fde": {}, "records": recs}))
+        rc, text = _script(migrate_index_format.main, "--index-path", str(index_root), "--namespace", "legacy",
+                           "--dimension", "128", "--num-repetitions", str(new_fde[0]), "--num-simhash-projections",
+                           str(new_fde[1]), "--projection-dimension", str(new_fde[2]), "--query-smoke")
+        if rc != 0 or "legacy: migrated 8 rows" not in text or (legacy / "meta.json").exists():
+            raise AssertionError(f"migrate_index_format: rc {rc} {text}")
+        out["migrate_index_format"] = {"rc": rc, "rows": 8}
+        # migrate_store_provider fde -> fde keeps every row; --to binary is refused
+        (index_root / "provider_fde").mkdir()
+        (index_root / "default").rename(index_root / "provider_fde" / "default")
+        before = MultiVectorIndex(new_cfg, path=index_root / "provider_fde" / "default", device="cpu")
+        rows_before = {(r.document_id, r.chunk_number): before.get_multivector(r.document_id, r.chunk_number)
+                       for r in before.records}
+        rc, text = _script(migrate_store_provider.main, "--config", str(cfg), "--from", "fde", "--to", "fde",
+                           "--checkpoint", str(tmp / "migration.json"))
+        after = MultiVectorIndex(new_cfg, path=index_root / "provider_fde" / "default", device="cpu")
+        same = len(after) == 8 and all(np.array_equal(after.get_multivector(*key), mv) for key, mv in rows_before.items())
+        rc_b, _ = _script(migrate_store_provider.main, "--config", str(cfg), "--from", "fde", "--to", "binary",
+                          "--checkpoint", str(tmp / "migration_binary.json"))
+        if rc != 0 or "migrated=4 " not in text or not same or rc_b != 2 or (tmp / "migration_binary.json").exists():
+            raise AssertionError(f"migrate_store_provider: rc {rc} {text!r} rows kept {same}; --to binary rc {rc_b}")
+        out["migrate_store_provider"] = {"rc": rc, "documents": 4, "rows_kept": same, "to_binary_rc": rc_b}
+        # purge_app: the default app everywhere
+        rc, text = _script(purge_app.main, "--config", str(cfg), "--app-id", "default", "--yes")
+        purged = _json_docs(text)[-1]["purged"]
+        left = [k for k in _tree(tmp / "storage") if k.startswith(("multivector-chunks/default/", "ingest/"))]
+        if rc != 0 or purged["db_rows"] != 4 or purged["payload_objects"] != 8 or left:
+            raise AssertionError(f"purge_app: rc {rc} {purged}, left {left}")
+        out["purge_app"] = purged
+        # the soak on the 3B model: two ingesters, two queriers
+        _kernels.reset_launch_counts()
+        soak = asyncio.run(soak_serving.run_soak(SOAK_S, str(tmp / "soak"), device="cuda",
+                                                 settings=service_settings(tmp / "soak"), colqwen_model=model))
+        soak["launches"] = dict(_kernels.launch_counts)
+        if not soak_serving.passed(soak) or soak["ingest"] <= 0 or soak["query"] <= 0:
+            raise AssertionError(f"soak failed its rule: {soak}")
+        out["soak"] = dict(soak, seconds=SOAK_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: the operator scripts on the card ({smi}): check_completeness consistent, --gc-apply on an "
+        f"empty index root refused (rc 2, nothing deleted); scrub {out['scrub_metadata']}; export "
+        f"{out['export']['shards']} shards in {out['export']['s']:.3f} s, resumed byte-identical; rebuild_fde "
+        f"{out['rebuild_fde']['s']:.3f} s; legacy migrated; fde -> fde kept 8 rows, --to binary refused; purge "
+        f"{out['purge_app']}; soak {SOAK_S} s: {json.dumps(out['soak'])}; phase {out['phase_s']:.3f} s")
+    return out
+
+
+def _json_docs(text: str) -> list:
+    """The JSON documents printed one after another in `text`."""
+    dec, docs, i = json.JSONDecoder(), [], 0
+    while (i := text.find("{", i)) >= 0:
+        doc, i = dec.raw_decode(text, i)
+        docs.append(doc)
+    return docs
+
+
 def main() -> None:
     torch, smi = setup()
     import numpy as np
@@ -3507,6 +3980,8 @@ def main() -> None:
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
     sass = build_kernels()
     main_k1, main_k2, main_k3, doc_k3, f32_k3, rerank_k2, all_cases = kernel_checks(torch)
+    main_k4, k4_cases = binary_kernel_checks(torch)
+    all_cases += k4_cases
     model, bf16_embs, bf16_queries, bf16_stats = ingest_bf16(torch, _kernels)
     ckpt, ckpt_written = write_checkpoint_phase(torch, model)  # before phase 3b quantizes in place
     try:
@@ -3532,7 +4007,7 @@ def main() -> None:
             answers6 += run_encoded_queries(index_bf16, bf16_queries, "bf16 rerank, queries of the bf16 text tower")
             counts = dict(_kernels.launch_counts)
             log(f"phase 7: launch counts over the main path (phases 3b-6): {counts}")
-            if min(counts.values()) <= 0:
+            if min(counts[k] for k in ("maxsim_q8", "maxsim", "window_attention")) <= 0:  # K4 is phase 18's
                 raise AssertionError(f"a kernel of the path was never launched: {counts}")
             log(f"ingest summary: {json.dumps({'bf16': bf16_stats, 'int8_static': int8_stats})}")
             del index_bf16
@@ -3556,6 +4031,8 @@ def main() -> None:
     remote = remote_phase(torch, model, _kernels, smi)
     connectors = connectors_phase(torch, model, _kernels, smi)
     text_index = text_index_phase(torch, smi)
+    binary = binary_phase(torch, page_embs, queries5, _kernels, smi)
+    scripts = scripts_phase(torch, model, page_embs, _kernels, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
         dict(name=name, route="cuda", source=csrc + src, replaces=replaces, launches=counts[name],
@@ -3588,6 +4065,16 @@ def main() -> None:
         "library_call", "library_ms", "library_device_ms", "occupancy")},
         bound_ms=f32_k3["bound_us"] / 1e3, launches=f32["launches"]["window_attention"], sass=next(ops for name, ops in sass.items() if K3_F32_SASS.fullmatch(name)),
         source=csrc + "window_attention.cu::window_attention_tf32_kernel")
+    kernels.append(dict(  # K4 replaces no Pallas kernel: the reference's binary MaxSim is one XLA program
+        name="binary_maxsim", route="cuda", source=csrc + "binary_maxsim.cu",
+        replaces="morphik_core_tpu/ops/binary.py:65", launches=binary["launches"]["binary_maxsim"],
+        max_abs_err=main_k4["max_abs_err"], ms=main_k4["ms"], plain_ms=main_k4["plain_ms"],
+        bound_ms=main_k4["bound_us"] / 1e3, bound_by=main_k4["bound_by"], library_ms=None,
+        library_call="none (no popcount op)", device_ms=main_k4["device_ms"], plain_device_ms=main_k4["plain_device_ms"],
+        shape=main_k4["case"], launches_resident=binary["launches_resident"],
+        launches_streamed=binary["launches_streamed"],
+        other_cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms",
+                                        "bound_us", "bound_by")} for c in k4_cases[1:]]))
     log(f"total wall s {time.perf_counter() - t_all:.3f}")
     log(json.dumps({"cases": all_cases}))
     print(smi)
@@ -3602,6 +4089,8 @@ def main() -> None:
     print(json.dumps({"remote": remote}))
     print(json.dumps({"connectors": connectors}))
     print(json.dumps({"f32": f32}))
+    print(json.dumps({"binary": binary}))
+    print(json.dumps({"scripts": scripts}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

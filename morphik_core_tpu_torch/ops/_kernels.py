@@ -39,7 +39,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0, "window_attention": 0}
+launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0, "window_attention": 0, "binary_maxsim": 0}
 
 _counts_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -118,6 +118,10 @@ def library() -> ctypes.CDLL:
             lib.window_attention_init.restype = ci
             lib.window_attention_occupancy.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
             lib.window_attention_occupancy.restype = ci
+            lib.binary_maxsim_launch.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+            lib.binary_maxsim_launch.restype = ci
+            lib.binary_maxsim_plan.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+            lib.binary_maxsim_plan.restype = ci
             _check(lib.maxsim_init(), "maxsim_init")  # shared-memory limits, once per load
             _check(lib.window_attention_init(), "window_attention_init")
             _lib = lib
@@ -178,3 +182,22 @@ def window_attention_occupancy(dtype: torch.dtype, dim: int, window: int) -> Dic
     _check(library().window_attention_occupancy(int(dtype == torch.bfloat16), dim, window, ctypes.byref(blocks),
                                                 ctypes.byref(regs)), "window_attention_occupancy")
     return {"blocks_per_sm": blocks.value, "warps_per_sm": 4 * blocks.value, "registers_per_thread": regs.value}
+
+
+def launch_binary_maxsim(q, docs, ntok, out, dim: int) -> None:
+    """K4 on already-checked CUDA tensors (see ops/binary.py::binary_maxsim)."""
+    n_rows, nd, nb = docs.shape
+    rc = library().binary_maxsim_launch(
+        _ptr(q), _ptr(docs), _ptr(ntok), _ptr(out), n_rows, nd, nb, q.shape[0], dim,
+        ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
+    )
+    _check(rc, "binary_maxsim")
+    count_launch("binary_maxsim")
+
+
+def binary_maxsim_plan(nq: int) -> Dict[str, int]:
+    """K4's block shape for nq query tokens (for reports): query tokens
+    a thread holds and threads a block."""
+    qpt, threads = ctypes.c_int(), ctypes.c_int()
+    _check(library().binary_maxsim_plan(nq, ctypes.byref(qpt), ctypes.byref(threads)), "binary_maxsim_plan")
+    return {"query_tokens_per_thread": qpt.value, "threads_per_block": threads.value}

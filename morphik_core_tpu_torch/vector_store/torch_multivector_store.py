@@ -14,8 +14,15 @@ port's `MultiVectorIndex`.
     pass through to the index;
   - a store-metrics dict per call.
 
-Not ported yet: the binary index, `provider="binary"` (ROADMAP Queue 1
-item 6).
+`provider="binary"` keeps each namespace in a `BinaryMultiVectorIndex`
+(sign bits, exact Hamming MaxSim through K4) of width
+`fde_config.dimension`, as `tpu_multivector_store.py:99-102` does. Two
+faults of the reference's binary provider are not copied (ROADMAP,
+divergences): its `store_embeddings` hands the binary index
+`fde_vectors=`, which it does not take (a TypeError on every store), and
+its `save()` reads the binary index's `path`, which it does not have (an
+AttributeError). Here the binary index gets no FDE rows, and `save()`
+skips an index without a path.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from morphik_core_tpu_torch.device import default_device
+from morphik_core_tpu_torch.index.binary_index import BinaryMultiVectorIndex
 from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
 from morphik_core_tpu_torch.models.schemas import DocumentChunk
 from morphik_core_tpu_torch.ops.fde import FDEConfig
@@ -74,11 +82,10 @@ class TorchMultiVectorStore(BaseVectorStore):
         pooled_refine_iters: int = 3,
         query_token_dedup: float = 0.98,
     ):
-        if provider != "fde":
-            raise NotImplementedError(
-                f"vector store provider {provider!r} is not ported (ROADMAP Queue 1 item 6: the binary index)"
-            )
+        if provider not in ("fde", "binary"):
+            raise ValueError(f"unknown vector store provider {provider!r}: 'fde' or 'binary'")
         self.storage = storage
+        self.provider = provider
         self.fde_config = fde_config or FDEConfig()
         self.device = torch.device(device) if device is not None else default_device()
         self.pooling_factor = max(1, int(pooling_factor))
@@ -100,18 +107,21 @@ class TorchMultiVectorStore(BaseVectorStore):
             pooled_refine_iters=pooled_refine_iters,
             query_token_dedup=query_token_dedup,
         )
-        self._indexes: Dict[str, MultiVectorIndex] = {}
+        self._indexes: Dict[str, Union[MultiVectorIndex, BinaryMultiVectorIndex]] = {}
         self.last_store_metrics: Dict[str, Any] = {}
 
     async def initialize(self) -> bool:
         return True
 
-    def _ns(self, app_id: Optional[str]) -> MultiVectorIndex:
+    def _ns(self, app_id: Optional[str]) -> Union[MultiVectorIndex, BinaryMultiVectorIndex]:
         ns = app_id or _DEFAULT_NS
         if ns not in self._indexes:
-            path = (self.index_path / ns) if self.index_path else None
-            self._indexes[ns] = MultiVectorIndex(self.fde_config, device=self.device, path=path,
-                                                 **self.index_kwargs)
+            if self.provider == "binary":
+                self._indexes[ns] = BinaryMultiVectorIndex(dim=self.fde_config.dimension, device=self.device)
+            else:
+                path = (self.index_path / ns) if self.index_path else None
+                self._indexes[ns] = MultiVectorIndex(self.fde_config, device=self.device, path=path,
+                                                     **self.index_kwargs)
         return self._indexes[ns]
 
     # ------------------------------------------------------------------
@@ -174,6 +184,11 @@ class TorchMultiVectorStore(BaseVectorStore):
         metrics["chunk_payload_upload_s"] = time.perf_counter() - t0
 
         t1 = time.perf_counter()
+        if isinstance(index, BinaryMultiVectorIndex):  # sign bits only: no FDE rows
+            ids = index.store(mvs, records)
+            metrics["vector_store_write_s"] = time.perf_counter() - t1
+            self.last_store_metrics = metrics
+            return True, ids, metrics
         fde = None
         if (
             fde_vectors is not None
@@ -218,7 +233,8 @@ class TorchMultiVectorStore(BaseVectorStore):
         return True
 
     def save(self) -> None:
-        """Flush the pending rows and ops of every index that has a path."""
+        """Flush the pending rows and ops of every index that has a path
+        (a binary index has none)."""
         for index in self._indexes.values():
-            if index.path:
+            if getattr(index, "path", None):
                 index.save()

@@ -1046,3 +1046,72 @@ def test_int8_attention_forward_launches_no_window_kernel(sm90, tmp_path):
         assert np.isfinite(out[attention]).all() and emb.embed_query("revenue").shape[1] == model.cfg.embedding_dim
     cos = (out["int8"] * out["bf16"]).sum(-1)
     assert float(cos.mean()) > 0.9, float(cos.mean())
+
+
+# ------------------------------------------------- K4, the binary MaxSim
+
+_BINARY_GRID = [  # dim (8 x packed bytes), query tokens, rows, doc tokens
+    (128, 32, 37, 1024), (128, 632, 5, 1024), (128, 1, 9, 300), (128, 1100, 3, 70),
+    (16, 7, 11, 40), (24, 5, 6, 33), (256, 33, 4, 260), (8, 3, 2, 5), (64, 300, 5, 50), (96, 9, 7, 21),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,nq,rows,nd", _BINARY_GRID)
+def test_binary_maxsim_kernel_matches_plain(sm90, dim, nq, rows, nd):
+    """K4 against its plain version on the same packed bytes: bit for bit
+    at a power-of-two dim (every partial sum exact in f32), within 1e-6
+    relative elsewhere; ragged token counts, a row without tokens scores 0,
+    words with the sign bit set and all ones, two calls bit-identical and
+    counted as two launches."""
+    from morphik_core_tpu_torch.ops import binary as tbin
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(dim * 7 + nq)
+    nb = dim // 8
+    q = torch.randint(0, 256, (nq, nb), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+    docs = torch.randint(0, 256, (rows, nd, nb), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+    q[0] = 0xFF
+    docs[0, 0] = 0x80
+    ntok = torch.randint(1, nd + 1, (rows,), generator=gen, device="cuda", dtype=torch.int32)
+    ntok[0], ntok[-1] = nd, 0
+    n0 = _kernels.launch_counts["binary_maxsim"]
+    got, again = tbin.binary_maxsim(q, docs, ntok, dim), tbin.binary_maxsim(q, docs, ntok, dim)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["binary_maxsim"] == n0 + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = tbin.binary_maxsim_plain(q, docs, ntok, dim)
+    assert float(got[-1]) == 0.0
+    if dim & (dim - 1) == 0:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    cpu = tbin.binary_maxsim(q.cpu(), docs.cpu(), ntok.cpu(), dim)
+    torch.testing.assert_close(cpu, want.cpu(), rtol=1e-6 if dim & (dim - 1) else 0, atol=0)
+
+
+@pytest.mark.cuda
+def test_binary_index_on_card_matches_cpu(sm90):
+    """The binary index on the card against the same index on the CPU:
+    the same ids and score bits, resident (one K4 launch a query) and
+    streamed (one a block of allowed rows)."""
+    from morphik_core_tpu_torch.index.binary_index import BinaryMultiVectorIndex
+    from morphik_core_tpu_torch.index.multivector_index import IndexRecord
+
+    rng = np.random.default_rng(9)
+    mvs = [rng.standard_normal((int(rng.integers(1, 65)), 128)).astype(np.float32) for _ in range(50)]
+    recs = [IndexRecord(document_id=f"d{i // 2}", chunk_number=i % 2) for i in range(50)]
+    out = {}
+    for device, budget in (("cpu", 1 << 30), ("cuda", 1 << 30), ("cuda", 1)):
+        ix = BinaryMultiVectorIndex(dim=128, token_bucket=64, block_rows=16, device_budget_bytes=budget,
+                                    device=device)
+        ix.store(mvs, [IndexRecord(r.document_id, r.chunk_number) for r in recs])
+        ix.delete_document("d3")
+        n0 = _kernels.launch_counts["binary_maxsim"]
+        res = [ix.query(q, k=10) for q in (mvs[8], mvs[20][:3])] + [ix.query(mvs[9], k=5, doc_ids=["d4", "d3", "d8"])]
+        out[device, budget] = [[(r.document_id, r.chunk_number, s) for r, s in hits] for hits in res]
+        if device == "cuda":
+            # resident: one a query; streamed: 48 alive rows in blocks of 16, then the 4 rows of d4 and d8
+            assert _kernels.launch_counts["binary_maxsim"] - n0 == (3 if budget > 1 else 3 + 3 + 1)
+    assert out["cuda", 1 << 30] == out["cpu", 1 << 30] == out["cuda", 1]
+    assert out["cpu", 1 << 30][0][0] == ("d4", 0, float(len(mvs[8])))  # a self-query scores its token count

@@ -415,6 +415,84 @@ _CONNECTORS = _PRELUDE + textwrap.dedent(
 ) + _LEAKS
 
 
+# the binary store, the dual store, and three operator scripts on a seeded
+# deployment (a database, local storage with payloads, an fde index)
+_BINARY_AND_SCRIPTS = _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, contextlib, io, json, sqlite3, tempfile
+    from pathlib import Path
+    from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
+    from morphik_core_tpu_torch.models.schemas import DocumentChunk
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+    from morphik_core_tpu_torch.scripts import check_completeness, export_chunks_resumable, migrate_store_provider
+    from morphik_core_tpu_torch.storage.local_storage import LocalStorage
+    from morphik_core_tpu_torch.vector_store.dual_multivector_store import DualMultiVectorStore
+    from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
+
+    root = Path(tempfile.mkdtemp())
+    rng = np.random.default_rng(0)
+    fde = FDEConfig(dimension=16, num_repetitions=4, num_simhash_projections=3, projection_dimension=8)
+    storage = LocalStorage(root / "store")
+    mvs = [rng.standard_normal((int(rng.integers(3, 9)), 16)).astype(np.float32) for _ in range(6)]
+    chunks = [DocumentChunk(document_id=f"d{i // 2}", chunk_number=i % 2, content=f"text {i}", embedding=mv,
+                            metadata={"i": i}) for i, mv in enumerate(mvs)]
+    fde_store = TorchMultiVectorStore(storage=storage, fde_config=fde, index_path=root / "index", device="cpu")
+    binary = TorchMultiVectorStore(storage=storage, fde_config=fde, device="cpu", provider="binary")
+    dual = DualMultiVectorStore(fde_store, binary)
+    async def go():
+        await dual.initialize()
+        ok, ids, _ = await dual.store_embeddings(chunks)
+        assert ok and ids[0] == "d0-0"
+        top = await binary.query_similar(mvs[3], k=2)
+        assert (top[0].document_id, top[0].chunk_number, top[0].score) == ("d1", 1, float(len(mvs[3])))
+        a = await dual.query_similar(mvs[4], k=3)
+        b = await fde_store.query_similar(mvs[4], k=3)
+        assert [(c.document_id, c.chunk_number) for c in a] == [(c.document_id, c.chunk_number) for c in b]
+        assert await dual.delete_chunks_by_document_id("d2")
+        assert "d2" not in [c.document_id for c in await binary.query_similar(mvs[4], k=6)]
+    asyncio.run(go())
+    fde_store.save()
+    binary.save()
+    db = SQLiteDatabase(root / "db.sqlite")
+    asyncio.run(db.initialize())
+    db.close()
+    conn = sqlite3.connect(root / "db.sqlite")
+    for d in ("d0", "d1"):
+        conn.execute("INSERT INTO documents (external_id, owner_id, status, chunk_ids) VALUES (?,?,?,?)",
+                     (d, "migration", "completed", json.dumps([f"{d}-0", f"{d}-1"])))
+    conn.commit()
+    conn.close()
+    cfg = root / "cfg.toml"
+    cfg.write_text(f'[model]\\nembedding_dim = 16\\n[database]\\npath = "{root / "db.sqlite"}"\\n'
+                   f'[storage]\\nstorage_path = "{root / "store"}"\\n[vector_store]\\nindex_path = "{root / "index"}"\\n'
+                   'fde_num_repetitions = 4\\nfde_num_simhash_projections = 3\\nfde_projection_dimension = 8\\n')
+    def run(main, *argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            rc = main([*argv, "--config", str(cfg), "--device", "cpu"])
+        return rc, buf.getvalue()
+    rc, out = run(check_completeness.main)
+    assert rc == 0 and json.loads(out)["namespaces"] == {"default": {"index_rows": 4, "index_docs": 2}}, out
+    rc, out = run(export_chunks_resumable.main, "--out", str(root / "export"), "--batch", "3")
+    assert rc == 0 and json.loads(out)["exported"] == 4, out
+    (root / "index" / "provider_fde").mkdir()
+    (root / "index" / "default").rename(root / "index" / "provider_fde" / "default")
+    ckpt = str(root / "ckpt.json")
+    rc, out = run(migrate_store_provider.main, "--from", "fde", "--to", "fde", "--checkpoint", ckpt)
+    assert rc == 0 and "migrated=2" in out, out
+    rc, out = run(migrate_store_provider.main, "--from", "fde", "--to", "binary", "--checkpoint", ckpt + ".b")
+    assert rc == 2 and "refusing --to binary" in out and not Path(ckpt + ".b").exists(), out
+    """
+) + _LEAKS
+
+
+def test_binary_store_and_scripts_run_with_jax_pil_pydantic_httpx_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BINARY_AND_SCRIPTS, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
 def test_slice_runs_with_jax_pil_pydantic_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, str(ROOT)], capture_output=True, text=True, timeout=300,
@@ -452,6 +530,8 @@ def test_package_data_lists_every_file_the_port_opens():
     named = {n for f in pkg.rglob("*.py") for n in beside.findall(f.read_text())}
     assert {"glyphs_dejavu_sans.npz", "calib_pages_u8.npz", "console.html"} <= named
     assert named <= {p.name for p in listed}, named - {p.name for p in listed}
+    # the kernel sources the build compiles (`ops/_kernels.py` globs csrc/*.cu)
+    assert {"maxsim.cu", "window_attention.cu", "binary_maxsim.cu"} <= {p.name for p in listed if p.suffix == ".cu"}
 
 
 def test_no_module_level_import_of_optional_packages():

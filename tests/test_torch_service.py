@@ -445,12 +445,62 @@ def test_store_files_match_jax(tmp_path):
     _run(go())
 
 
-def test_store_refuses_binary_and_needs_a_device(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TorchMultiVectorStore(provider="binary", device="cpu")
+def test_binary_store_stores_queries_deletes_and_saves(tmp_path):
+    """`provider="binary"` on the CPU: stores (payloads offloaded as the fde
+    provider does), queries with the JAX binary index's ids and score bits
+    on the same rows, deletes and saves (a no-op: the binary index keeps no
+    files). Beside it, the reference's binary store raises the TypeError
+    (`fde_vectors=` to an index that takes none) and the AttributeError
+    (`save()` reads the index's `path`) that the port does not copy."""
+    from morphik_core_tpu.index.binary_index import BinaryMultiVectorIndex as JBinary
+    from morphik_core_tpu.index.multivector_index import IndexRecord as JRecord
+
+    rng = np.random.default_rng(11)
+    rows = [rng.standard_normal((int(rng.integers(3, 20)), DIM)).astype(np.float32) for _ in range(8)]
+    pages = [encode_png(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)) for _ in range(2)]
+    tstore = TorchMultiVectorStore(storage=LocalStorage(tmp_path / "t"), fde_config=TFDE(dimension=DIM),
+                                   index_path=tmp_path / "t" / "index", device="cpu", provider="binary")
+    jstore = TPUMultiVectorStore(storage=JStorage(tmp_path / "j"), fde_config=JFDE(dimension=DIM),
+                                 index_path=tmp_path / "j" / "index", provider="binary")
+    ref = JBinary(dim=DIM)
+    ref.store(rows, [JRecord(document_id=c.document_id, chunk_number=c.chunk_number)
+                     for c in _store_chunks(js, rows, pages)])
+
+    async def go():
+        ok, ids, metrics = await tstore.store_embeddings(_store_chunks(ts, rows, pages), app_id="app")
+        assert ok and ids[:2] == ["doc0-0", "doc0-1"] and "fde_precomputed" not in metrics
+        with pytest.raises(TypeError, match="fde_vectors"):
+            await jstore.store_embeddings(_store_chunks(js, rows, pages), app_id="app")
+        for q in (rows[3], rows[0][:2], rng.standard_normal((5, DIM)).astype(np.float32)):
+            got = await tstore.query_similar(q, k=6, app_id="app")
+            want = ref.query(q, k=6)
+            assert [(c.document_id, c.chunk_number) for c in got] == [(r.document_id, r.chunk_number)
+                                                                    for r, _ in want]
+            assert [c.score for c in got] == [s for _, s in want]
+        top = (await tstore.query_similar(rows[1], k=1, app_id="app"))[0]
+        assert (top.document_id, top.chunk_number) == ("doc0", 1) and top.content.startswith("data:image/png")
+        assert (tmp_path / "t" / "multivector-chunks" / "app" / "doc0" / "1.png").read_bytes() == pages[1]
+        got = await tstore.get_chunks_by_id([("txt5", 0), ("doc0", 0)], app_id="app")
+        assert [(c.document_id, c.content[:10]) for c in got] == [("txt5", "text 5"), ("doc0", "data:image")]
+        assert await tstore.delete_chunks_by_document_id("doc0", app_id="app")
+        assert "doc0" not in [c.document_id for c in await tstore.query_similar(rows[1], k=8, app_id="app")]
+
+    _run(go())
+    tstore.save()
+    assert not (tmp_path / "t" / "index").exists()
+    jstore._ns("app")
+    with pytest.raises(AttributeError, match="path"):
+        jstore.save()
+    with pytest.raises(ValueError, match="provider"):
+        TorchMultiVectorStore(provider="postgres", device="cpu")
+
+
+def test_store_needs_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchMultiVectorStore()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchMultiVectorStore(provider="binary")
 
 
 # --------------------------------------------------------- shared files
