@@ -10,7 +10,8 @@ remote endpoints; the connectors and the admin console, with the
 progressive and multi-scan JPEGs and the Adam7 and 16-bit PNGs that
 connector files bring; the 3B checkpoint served in f32, through K3's
 3xTF32 kernel; and last the binary index through K4, the dual store and
-the operator scripts' port twins.
+the operator scripts' port twins; then the evaluation harnesses and the
+two measuring scripts at their small sizes.
 
     python3 chip_smoke.py
 
@@ -282,6 +283,18 @@ Phases (each raises on failure; none is caught):
      soak_serving for SOAK_S s with 2 ingesters and 2 queriers on phase 3b's
      model (no 5xx, drained, no pending task). Prints a {"scripts": ...}
      line.
+ 20. the evaluation harnesses and the measuring twins on the card (after
+     phase 19), launch counts reset before and read after: the int8
+     fidelity gate's Part A at the 3B width with the small counts (24
+     pages, 8 queries: a bf16 3B tower from a seed, then quantized in
+     place; K3 in the tower, K1 in the rerank and the score matrix) and
+     Part B at 100,000 clustered rows, its verdict reported, not checked;
+     colpali_eval --small on the trained fixture (identity rung recall@10
+     1.0); the offline RAG eval's builtin corpus (recall@4 1.0);
+     profile_int8's matmul families at the 3B shapes (bf16, q8, q8 with
+     the activations quantized beforehand); bench_ingest --small (12
+     pages through the job queue, each stage alone). Prints an
+     {"evals": ...} line; the kernels line gains `evals_launches`.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -3961,6 +3974,83 @@ def scripts_phase(torch, model, page_embs, _kernels, smi):
     return out
 
 
+EVALS_COLPALI = ["--small"]  # phase 20: 5 docs x 4 pages, 8 probes, the three-rung ladder
+
+
+def evals_phase(torch, _kernels, smi):
+    """Phase 20: the evaluation harnesses and the measuring twins on the
+    card at their small sizes: the fidelity gate's Part A at the 3B width
+    with the small counts (24 pages, 8 queries; K3 in the tower, K1 in the
+    rerank and the score matrix) and Part B at 100,000 rows, colpali_eval
+    `--small` on the trained fixture, the offline RAG eval's builtin
+    corpus, profile_int8's matmul families at the 3B shapes and
+    bench_ingest `--small`. A harness that raises fails the run; the
+    gate's verdict is reported, not checked."""
+    import asyncio
+    import math
+
+    from morphik_core_tpu_torch.evaluations import colpali_eval, fidelity_eval, run_offline_eval
+    from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig
+    from morphik_core_tpu_torch.scripts import bench_ingest, profile_int8
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    _kernels.reset_launch_counts()  # phase 20 starts here
+    t0 = time.perf_counter()
+    part_a = fidelity_eval.part_a_ranking_agreement(False, "cuda", counts=(24, 8))
+    part_a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part_b = fidelity_eval.part_b_fde_recall_at_scale(False, "cuda")
+    part_b_s = time.perf_counter() - t0
+    report = {"part_a_ranking_agreement": part_a, "part_b_fde_recall_at_scale": part_b}
+    metrics = [part_a[k] for k in ("top1_match", "score_pearson", "top10_margin_agreement", "jaccard_at_10")]
+    if part_a["geometry"] != "3b" or part_a["n_pages"] != 24 or part_b["n_docs"] != 100_000 \
+            or not all(math.isfinite(v) and -1.0 <= v <= 1.0 for v in metrics):
+        raise AssertionError(f"fidelity_eval: {report}")
+    out["fidelity"] = dict(report, gate={"thresholds": fidelity_eval.GATE,
+                                         "int8_default_approved": fidelity_eval.gate_verdict(report)},
+                           part_a_s=part_a_s, part_b_s=part_b_s, launches=dict(_kernels.launch_counts))
+    t0 = time.perf_counter()
+    colpali = asyncio.run(colpali_eval.run_eval(colpali_eval.parse_args(EVALS_COLPALI), device="cuda"))
+    if colpali["visual_ladder"]["identity"]["recall_at_10"] != 1.0 or colpali["corpus"]["total_pages"] != 20:
+        raise AssertionError(f"colpali_eval: {colpali}")
+    out["colpali_eval"] = dict(colpali, s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as corpus:
+        for name, text in run_offline_eval.BUILTIN_CORPUS.items():
+            (Path(corpus) / name).write_text(text)
+        offline = asyncio.run(run_offline_eval.run_eval(Path(corpus), run_offline_eval.BUILTIN_QUESTIONS, False,
+                                                        device="cuda"))
+    if offline["recall_at_4"] != 1.0 or offline["n_questions"] != 3:
+        raise AssertionError(f"run_offline_eval: {offline}")
+    out["offline_eval"] = dict(offline, s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cfg = ColQwenConfig()
+    methods = {}
+    fam = profile_int8.matmul_families(torch, torch.device("cuda"), cfg, 8 * 20 * 28 * cfg.vision.merge_unit,
+                                       8 * (20 * 28 + 5), methods)
+    out["profile_families"] = {"families": fam, "timing": sorted(set(methods.values())),
+                               "dyn_quant_cost_ms": sum(f["step_q8_ms"] - f["step_q8_prequant_ms"]
+                                                        for f in fam.values()),
+                               "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ingest = bench_ingest.run_bench(3, 4, True, device="cuda")
+    if ingest["pages"] != 12 or not ingest["value"] > 0:
+        raise AssertionError(f"bench_ingest: {ingest}")
+    out["bench_ingest"] = dict(ingest, s=time.perf_counter() - t0)
+    out["launches"] = dict(_kernels.launch_counts)  # and ends here
+    if out["launches"]["maxsim_q8"] <= 0 or out["launches"]["window_attention"] <= 0:
+        raise AssertionError(f"phase 20 did not launch K1 and K3: {out['launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20: the evals and the measuring twins on the card ({smi}): fidelity gate "
+        f"{out['fidelity']['gate']['int8_default_approved']} (part A {part_a_s:.1f} s: top1 {part_a['top1_match']}, "
+        f"pearson {part_a['score_pearson']:.4f}, margin {part_a['top10_margin_agreement']}; part B {part_b_s:.1f} s: "
+        f"delta {part_b['int8_recall_delta_at_75']}); colpali ladder {json.dumps(colpali['visual_ladder'])}; "
+        f"offline {offline}; dyn quant cost {out['profile_families']['dyn_quant_cost_ms']:.2f} ms; ingest "
+        f"{ingest['value']} pages/s; launches {out['launches']}; phase {out['phase_s']:.3f} s")
+    return out
+
+
 def _json_docs(text: str) -> list:
     """The JSON documents printed one after another in `text`."""
     dec, docs, i = json.JSONDecoder(), [], 0
@@ -4033,6 +4123,7 @@ def main() -> None:
     text_index = text_index_phase(torch, smi)
     binary = binary_phase(torch, page_embs, queries5, _kernels, smi)
     scripts = scripts_phase(torch, model, page_embs, _kernels, smi)
+    evals = evals_phase(torch, _kernels, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
         dict(name=name, route="cuda", source=csrc + src, replaces=replaces, launches=counts[name],
@@ -4048,7 +4139,8 @@ def main() -> None:
              corpus_launches=documents["corpus"]["launches"][name],
              checkpoint_launches=checkpoint["launches"][name], llm_launches=llm["launches"][name],
              remote_launches=sum(remote["launches"][part][name] for part in ("ingest", "retrieve", "relay")),
-             connectors_launches=connectors["launches"][name], f32_launches=f32["launches"][name])
+             connectors_launches=connectors["launches"][name], f32_launches=f32["launches"][name],
+             evals_launches=evals["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -4072,6 +4164,7 @@ def main() -> None:
         bound_ms=main_k4["bound_us"] / 1e3, bound_by=main_k4["bound_by"], library_ms=None,
         library_call="none (no popcount op)", device_ms=main_k4["device_ms"], plain_device_ms=main_k4["plain_device_ms"],
         shape=main_k4["case"], launches_resident=binary["launches_resident"],
+        evals_launches=evals["launches"]["binary_maxsim"],
         launches_streamed=binary["launches_streamed"],
         other_cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms",
                                         "bound_us", "bound_by")} for c in k4_cases[1:]]))
@@ -4091,6 +4184,7 @@ def main() -> None:
     print(json.dumps({"f32": f32}))
     print(json.dumps({"binary": binary}))
     print(json.dumps({"scripts": scripts}))
+    print(json.dumps({"evals": evals}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -130,9 +130,12 @@ class ColpaliEmbeddingModel:
         return self.model.cfg.embedding_dim
 
     def prep_images(self, images: Sequence["object"]) -> List[Prepped]:
-        """PIL images -> (uint8 patches (S, 588), grid) pairs."""
+        """PIL images or decoded (H, W, 3) uint8 pages -> (uint8 patches
+        (S, 588), grid) pairs."""
         return [
-            preprocess_image_u8(im, min_pixels=self.min_pixels, max_pixels=self.max_pixels)
+            preprocess_array_u8(im, min_pixels=self.min_pixels, max_pixels=self.max_pixels)
+            if isinstance(im, np.ndarray)
+            else preprocess_image_u8(im, min_pixels=self.min_pixels, max_pixels=self.max_pixels)
             for im in images
         ]
 

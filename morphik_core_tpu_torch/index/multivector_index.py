@@ -22,10 +22,18 @@ paths).
     fsyncs. Tombstones are compacted once the dead fraction crosses a
     threshold: streamed into a side directory and swapped in two-phase
     (a COMMIT marker makes an interrupted swap resumable).
+  - Live namespaces (beyond the reference): `open_read_only` maps the
+    rows the WAL covers and writes nothing, for tools that read an index
+    a server may be appending to; `NamespaceLock` is an advisory lock on
+    the namespace directory, shared while a store serves it and exclusive
+    while an operator script rewrites it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import errno
+import fcntl
 import json
 import logging
 import os
@@ -97,6 +105,40 @@ def _add_op(rec: "IndexRecord") -> dict:
         "content_key": rec.content_key,
         "n_tokens": rec.n_tokens,
     }
+
+
+class NamespaceBusy(RuntimeError):
+    """Another open holds a conflicting lock on a namespace directory."""
+
+
+class NamespaceLock:
+    """A non-blocking `fcntl.flock` on a namespace directory's own
+    descriptor: shared while a store serves the namespace, exclusive while
+    an operator script rewrites it. It adds no file to the index (a lock
+    file would break the byte identity of the layout) and outlives a
+    compaction's swap, which replaces the files inside the directory.
+    Released by `release()` or when the object is collected."""
+
+    def __init__(self, path: str | Path, exclusive: bool):
+        self.path = Path(path)
+        self._fd: Optional[int] = os.open(self.path, os.O_RDONLY | os.O_DIRECTORY)
+        try:
+            fcntl.flock(self._fd, (fcntl.LOCK_EX if exclusive else fcntl.LOCK_SH) | fcntl.LOCK_NB)
+        except OSError as e:
+            os.close(self._fd)
+            self._fd = None
+            if e.errno in (errno.EWOULDBLOCK, errno.EAGAIN):
+                held = "a server holds it open" if exclusive else "an operator script is rewriting it"
+                raise NamespaceBusy(f"index namespace {self.path} is locked: {held}") from None
+            raise
+
+    def release(self) -> None:
+        if self._fd is not None:
+            os.close(self._fd)
+            self._fd = None
+
+    def __del__(self) -> None:
+        self.release()
 
 
 @dataclass
@@ -212,6 +254,7 @@ class MultiVectorIndex:
         self._pool_cache: Optional[DevicePoolCache] = None
         self._pooled_cache: Optional[DevicePoolCache] = None
         self.last_timing: Dict[str, Any] = {}
+        self._read_only = False
 
         if self.path:
             # finish or discard an interrupted compaction before loading
@@ -793,6 +836,7 @@ class MultiVectorIndex:
         truncates."""
         if not self.path:
             raise ValueError("index created without a path")
+        self._check_writable()
         with self._lock:
             self.path.mkdir(parents=True, exist_ok=True)
             hdr = self.path / "header.json"
@@ -860,11 +904,20 @@ class MultiVectorIndex:
         p = self.path / name
         return p.stat().st_size // (self.store_dtype.itemsize * self._dim) if p.exists() else 0
 
+    def _check_writable(self) -> None:
+        if self._read_only:
+            raise ValueError(f"index at {self.path} was opened read-only")
+
     def _load(self) -> None:
         """Replay the WAL over the data files. Replay stops at a truncated
         line or at a line whose data is missing; orphan data bytes past the
-        last replayed row are truncated, so later appends stay aligned."""
+        last replayed row are truncated, so later appends stay aligned.
+        A read-only open truncates nothing: bytes past the WAL may be a
+        live writer's append whose WAL lines are still to come."""
         if not (self.path / "records.jsonl").exists():
+            if self._read_only:
+                raise ValueError(f"index at {self.path} is a legacy snapshot: migrate it "
+                                 "(scripts/migrate_index_format.py) before a read-only open")
             self._load_legacy()
             return
         with open(self.path / "header.json") as fh:
@@ -905,11 +958,11 @@ class MultiVectorIndex:
                         self._id_to_row.pop(f"{self.records[r].document_id}-{self.records[r].chunk_number}", None)
                     self._doc_alive.pop(op["document_id"], None)
         self._persisted = self._count
-        if fde_rows_on_disk > self._count:
+        if fde_rows_on_disk > self._count and not self._read_only:
             with open(fde_p, "r+b") as fh:
                 fh.truncate(self._count * 4 * self._fde_dim)
         used_tokens = max((self._mv_off[r] + self.records[r].n_tokens for r in range(self._count)), default=0)
-        if mv_tokens_on_disk > used_tokens:
+        if mv_tokens_on_disk > used_tokens and not self._read_only:
             with open(self.path / "mv.bin", "r+b") as fh:
                 fh.truncate(used_tokens * self.store_dtype.itemsize * self._dim)
         self._mv_file_tokens = used_tokens
@@ -968,7 +1021,7 @@ class MultiVectorIndex:
         if on_disk < off:
             self._pooled_store_ok = False
             return
-        if on_disk > off:  # orphan bytes of a crashed append
+        if on_disk > off and not self._read_only:  # orphan bytes of a crashed append
             with open(self.path / "pooled.bin", "r+b") as fh:
                 fh.truncate(off * self.store_dtype.itemsize * self._dim)
         self._pooled_off = offs
@@ -1028,6 +1081,7 @@ class MultiVectorIndex:
         two-phase (this object's state stays untouched until the side
         build succeeds), then reloads from the files; an index without a
         path rebuilds its state in memory. Both reset the device state."""
+        self._check_writable()
         with self._lock:
             if self.path and self.path.exists():
                 kept = self._compact_streaming()
@@ -1243,3 +1297,35 @@ class MultiVectorIndex:
         self._wal_buffer = [_add_op(r) for r in records]
         self._reset_device_state()
         self._invalidate_all_caches()  # compaction renumbers rows
+
+
+def open_read_only(fde_config: Optional[FDEConfig], path: str | Path, **kwargs) -> MultiVectorIndex:
+    """Open the namespace at `path` without writing to it: no compaction
+    recovery, no truncation of bytes past the WAL, and mmaps over only the
+    rows the WAL covers. For tools that read a namespace a server may be
+    appending to: `save()` writes data before the WAL lines that cover it,
+    and an ordinary open between the two would cut the fresh bytes. The
+    result refuses `save()` and `compact()`. `kwargs` are the
+    constructor's."""
+    idx = MultiVectorIndex(fde_config, **kwargs)
+    idx.path = Path(path)
+    idx._read_only = True
+    if (idx.path / "records.jsonl").exists() or (idx.path / "meta.json").exists():
+        idx._load()
+    return idx
+
+
+@contextlib.contextmanager
+def exclusive_namespaces(dirs: Sequence[Path]):
+    """Exclusive locks on namespace directories for a script that rewrites
+    them, held for the block; raises `NamespaceBusy` (holding none) when a
+    server holds one."""
+    locks: List[NamespaceLock] = []
+    try:
+        for d in dirs:
+            if Path(d).is_dir():
+                locks.append(NamespaceLock(d, exclusive=True))
+        yield
+    finally:
+        for lock in locks:
+            lock.release()

@@ -17,6 +17,14 @@ would delete every payload of a deployment whose index is missing or
 misconfigured, so the apply is refused (`gc_refused` in the report,
 exit code 2) and nothing is deleted.
 
+The check opens each namespace read-only (`open_read_only`: a live
+server's fresh rows are never cut). `--gc-apply` first takes each
+namespace's exclusive lock: while a port server holds one, a chunk may
+be in flight (its payload uploaded, its rows not yet saved), so the
+apply is refused (exit code 2, `gc_refused`) and the locks are held
+until the deletes are done. A namespace that appears meanwhile refuses
+the apply too.
+
 Prints one JSON report (the reference's); exit code 1 when any
 inconsistency is found (orphaned-but-harmless GC candidates do not flip
 it), 2 when `--gc-apply` is refused.
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 from pathlib import Path
 
@@ -47,7 +56,7 @@ def namespace_dirs(index_root: Path) -> list:
 async def check(args) -> dict:
     from morphik_core_tpu_torch.config import load_settings
     from morphik_core_tpu_torch.database.sqlite_database import SQLiteDatabase
-    from morphik_core_tpu_torch.index.multivector_index import MultiVectorIndex
+    from morphik_core_tpu_torch.index.multivector_index import NamespaceBusy, exclusive_namespaces, open_read_only
     from morphik_core_tpu_torch.scripts.export_chunks_resumable import fde_config_from
     from morphik_core_tpu_torch.services_init import build_storage
     from morphik_core_tpu_torch.vector_store.torch_multivector_store import _DEFAULT_NS, MULTIVECTOR_CHUNKS_BUCKET
@@ -75,9 +84,15 @@ async def check(args) -> dict:
     }
     alive_payload_keys = set()  # content_keys referenced by ANY alive index row
     ns_dirs = namespace_dirs(index_root)
+    held, busy = contextlib.ExitStack(), None  # the locks, held until the deletes are done
+    if getattr(args, "gc_apply", False):
+        try:
+            held.enter_context(exclusive_namespaces(ns_dirs))
+        except NamespaceBusy as e:
+            busy = str(e)
     for ns_dir in ns_dirs:
         ns = ns_dir.name
-        idx = MultiVectorIndex(fde_cfg, path=ns_dir, device=device)
+        idx = open_read_only(fde_cfg, ns_dir, device=device)
         alive = [r for r in range(idx.count_rows) if idx._alive[r]]
         index_ids = {f"{idx.records[r].document_id}-{idx.records[r].chunk_number}" for r in alive}
         index_docs = {idx.records[r].document_id for r in alive}
@@ -124,8 +139,12 @@ async def check(args) -> dict:
     report["gc_plan"] = gc
 
     if getattr(args, "gc_apply", False):
-        if not ns_dirs and gc["orphan_payload_objects"]:
+        if busy is not None:
+            report["gc_refused"] = f"{busy}: a chunk may be in flight, refusing to delete payloads"
+        elif not ns_dirs and gc["orphan_payload_objects"]:
             report["gc_refused"] = GC_REFUSED_EMPTY_ROOT
+        elif namespace_dirs(index_root) != ns_dirs:
+            report["gc_refused"] = "a namespace appeared while the plan was made: run the check again"
         else:
             deleted = 0
             for obj in gc["orphan_payload_objects"]:
@@ -135,6 +154,7 @@ async def check(args) -> dict:
                 if await storage.delete_file("", obj["key"]):
                     deleted += 1
             report["gc_applied"] = deleted
+    held.close()
     report["consistent"] = not (
         report["missing_index_rows"] or report["orphan_index_rows"] or report["missing_payloads"]
     )

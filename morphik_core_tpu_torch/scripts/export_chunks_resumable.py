@@ -12,7 +12,8 @@ Each namespace under the configured index_path exports as shards:
 A checkpoint file records the next un-exported row per namespace; rerun
 the same command after an interruption and completed shards are
 skipped. Reads ride the index's own mmap path, so host RSS stays
-bounded at any corpus size.
+bounded at any corpus size. Each namespace opens read-only
+(`open_read_only`), so a live server's fresh rows are never cut.
 
     python -m morphik_core_tpu_torch.scripts.export_chunks_resumable --config morphik_tpu.toml
         --out ./export [--namespace NAME] [--batch 1000] [--checkpoint PATH] [--device cpu]
@@ -41,9 +42,9 @@ def fde_config_from(settings):
 
 def export_namespace(ns_dir: Path, out_dir: Path, fde_cfg, batch: int, ckpt_path: Path, device=None) -> dict:
     """Export one namespace from its checkpointed row on."""
-    from morphik_core_tpu_torch.index.multivector_index import MultiVectorIndex
+    from morphik_core_tpu_torch.index.multivector_index import open_read_only
 
-    idx = MultiVectorIndex(fde_cfg, path=ns_dir, device=device)
+    idx = open_read_only(fde_cfg, ns_dir, device=device)
     out_dir.mkdir(parents=True, exist_ok=True)
     ckpt = json.loads(ckpt_path.read_text()) if ckpt_path.exists() else {}
     start_row = int(ckpt.get(ns_dir.name, 0))

@@ -6,6 +6,8 @@ port of `scripts/migrate_index_format.py`.
 The index migrates lazily on load (`MultiVectorIndex._load_legacy`), but
 that puts the one-time O(corpus) cost on the first boot after an
 upgrade; this script does it ahead of time and verifies the result.
+It first takes each namespace's exclusive lock, and exits 2 without
+writing while a port server holds one.
 
     python -m morphik_core_tpu_torch.scripts.migrate_index_format --index-path ./storage/index
         [--namespace NS]... [--query-smoke] [--config morphik_tpu.toml | --dimension D
@@ -93,8 +95,15 @@ def main(argv=None) -> int:
         print(f"no index at {root}", file=sys.stderr)
         return 1
     ns_dirs = [root / n for n in args.namespace] if args.namespace else sorted(p for p in root.iterdir() if p.is_dir())
-    for ns_dir in ns_dirs:
-        print(f"{ns_dir.name}: {migrate_namespace(ns_dir, fde_cfg, args.query_smoke, args.device)}")
+    from morphik_core_tpu_torch.index.multivector_index import NamespaceBusy, exclusive_namespaces
+
+    try:
+        with exclusive_namespaces(ns_dirs):
+            for ns_dir in ns_dirs:
+                print(f"{ns_dir.name}: {migrate_namespace(ns_dir, fde_cfg, args.query_smoke, args.device)}")
+    except NamespaceBusy as e:
+        print(f"refused: {e}", file=sys.stderr)
+        return 2
     return 0
 
 

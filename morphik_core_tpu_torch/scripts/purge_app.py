@@ -17,7 +17,9 @@ What gets removed for `--app-id APP`:
 
 `--app-id default` purges rows whose app_id IS NULL (the self-hosted
 default namespace). Nothing here touches the card; the script runs where
-the port does.
+the port does. Before it deletes anything it takes the namespace's
+exclusive lock, and exits 2 without deleting while a port server holds
+it.
 
     python -m morphik_core_tpu_torch.scripts.purge_app --config morphik_tpu.toml --app-id APP --dry-run
     python -m morphik_core_tpu_torch.scripts.purge_app --config morphik_tpu.toml --app-id APP --yes
@@ -191,7 +193,14 @@ def main(argv=None) -> int:
         if reply.strip() != args.app_id:
             print("aborted")
             return 2
-    done = asyncio.run(purge(args, inv))
+    from morphik_core_tpu_torch.index.multivector_index import NamespaceBusy, exclusive_namespaces
+
+    try:
+        with exclusive_namespaces([Path(d) for d in inv["index_dirs"]]):
+            done = asyncio.run(purge(args, inv))
+    except NamespaceBusy as e:
+        print(f"refused: {e}", file=sys.stderr)
+        return 2
     print(json.dumps({"purged": done}, indent=1))
     return 0
 

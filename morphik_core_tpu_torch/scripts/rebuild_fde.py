@@ -7,7 +7,9 @@ baked into every stored prefilter vector, and the index refuses to load
 one built under another config. This rebuilds the prefilter from the
 stored exact multivectors; rerank fidelity is untouched because the
 multivectors are copied as they are. Per namespace, the rebuild goes
-into <ns>.rebuild and is then swapped in.
+into <ns>.rebuild and is then swapped in. The script first takes each
+namespace's exclusive lock, and exits 2 without writing while a port
+server holds one.
 
     python -m morphik_core_tpu_torch.scripts.rebuild_fde --index-path ./storage/index
         --num-repetitions 20 --num-simhash-projections 5 --projection-dimension 16
@@ -20,6 +22,7 @@ import argparse
 import json
 import os
 import shutil
+import sys
 import time
 from pathlib import Path
 
@@ -91,13 +94,20 @@ def main(argv=None) -> int:
         num_simhash_projections=args.num_simhash_projections,
         projection_dimension=args.projection_dimension,
     )
+    from morphik_core_tpu_torch.index.multivector_index import NamespaceBusy, exclusive_namespaces
+
     root = Path(args.index_path)
     ns_dirs = [root / n for n in args.namespace] if args.namespace else sorted(p for p in root.iterdir() if p.is_dir())
-    for ns_dir in ns_dirs:
-        if not ((ns_dir / "records.jsonl").exists() or (ns_dir / "meta.json").exists()):
-            print(f"{ns_dir.name}: not an index dir (skipped)")
-            continue
-        print(f"{ns_dir.name}: {rebuild_namespace(ns_dir, cfg, args.batch, args.device)}")
+    try:
+        with exclusive_namespaces(ns_dirs):
+            for ns_dir in ns_dirs:
+                if not ((ns_dir / "records.jsonl").exists() or (ns_dir / "meta.json").exists()):
+                    print(f"{ns_dir.name}: not an index dir (skipped)")
+                    continue
+                print(f"{ns_dir.name}: {rebuild_namespace(ns_dir, cfg, args.batch, args.device)}")
+    except NamespaceBusy as e:
+        print(f"refused: {e}", file=sys.stderr)
+        return 2
     return 0
 
 

@@ -135,7 +135,8 @@ class Services:
 
     async def shutdown(self) -> None:
         """Drain the job queue, stop the raster processes and the telemetry
-        threads, then write every index (the restart reloads them)."""
+        threads, then write every index (the restart reloads them) and
+        release the ColPali store's namespace locks."""
         await self.job_queue.stop()
         self.ingestion_service.raster_pool.shutdown()
         for thread in (self.log_uploader, self.heartbeat):
@@ -144,6 +145,8 @@ class Services:
                 thread.join(timeout=30)
         if self.colpali_vector_store is not None:
             self.colpali_vector_store.save()
+            if hasattr(self.colpali_vector_store, "close"):
+                self.colpali_vector_store.close()
         self.vector_store.save()
         self.telemetry.flush()
 

@@ -23,6 +23,12 @@ divergences): its `store_embeddings` hands the binary index
 its `save()` reads the binary index's `path`, which it does not have (an
 AttributeError). Here the binary index gets no FDE rows, and `save()`
 skips an index without a path.
+
+While the store serves a persistent namespace it holds a shared
+`NamespaceLock` on the namespace directory (created at first use), so an
+operator script that rewrites the namespace, or deletes payloads its
+rows are about to reference, refuses to run (beyond the reference, whose
+store takes no lock). `close()` releases the locks.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 
 from morphik_core_tpu_torch.device import default_device
 from morphik_core_tpu_torch.index.binary_index import BinaryMultiVectorIndex
-from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
+from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex, NamespaceLock
 from morphik_core_tpu_torch.models.schemas import DocumentChunk
 from morphik_core_tpu_torch.ops.fde import FDEConfig
 from morphik_core_tpu_torch.ops.pooling import pool_multivector
@@ -108,6 +114,7 @@ class TorchMultiVectorStore(BaseVectorStore):
             query_token_dedup=query_token_dedup,
         )
         self._indexes: Dict[str, Union[MultiVectorIndex, BinaryMultiVectorIndex]] = {}
+        self._locks: Dict[str, NamespaceLock] = {}
         self.last_store_metrics: Dict[str, Any] = {}
 
     async def initialize(self) -> bool:
@@ -120,6 +127,10 @@ class TorchMultiVectorStore(BaseVectorStore):
                 self._indexes[ns] = BinaryMultiVectorIndex(dim=self.fde_config.dimension, device=self.device)
             else:
                 path = (self.index_path / ns) if self.index_path else None
+                if path is not None:
+                    # locked before the open: a chunk's payload is uploaded before its rows are saved
+                    path.mkdir(parents=True, exist_ok=True)
+                    self._locks[ns] = NamespaceLock(path, exclusive=False)
                 self._indexes[ns] = MultiVectorIndex(self.fde_config, device=self.device, path=path,
                                                      **self.index_kwargs)
         return self._indexes[ns]
@@ -238,3 +249,9 @@ class TorchMultiVectorStore(BaseVectorStore):
         for index in self._indexes.values():
             if getattr(index, "path", None):
                 index.save()
+
+    def close(self) -> None:
+        """Release the namespace locks (the indexes stay usable in memory)."""
+        for lock in self._locks.values():
+            lock.release()
+        self._locks.clear()

@@ -1115,3 +1115,70 @@ def test_binary_index_on_card_matches_cpu(sm90):
             assert _kernels.launch_counts["binary_maxsim"] - n0 == (3 if budget > 1 else 3 + 3 + 1)
     assert out["cuda", 1 << 30] == out["cpu", 1 << 30] == out["cuda", 1]
     assert out["cpu", 1 << 30][0][0] == ("d4", 0, float(len(mvs[8])))  # a self-query scores its token count
+
+
+# ------------------------------------------------------------ the evaluation harnesses on the card
+
+
+@pytest.mark.cuda
+def test_fidelity_part_a_tiny_on_card_matches_cpu(sm90):
+    """Part A at the tiny geometry with the same bf16 weights on the card
+    (K3 in the tower, K1 in the rerank and the score matrix) and on the
+    CPU: the same top-1 ids and report counts; the score matrices within
+    what the two bf16 towers' rounding moves (2% of the score, as the CPU
+    test against JAX)."""
+    from morphik_core_tpu_torch.evaluations import fidelity_eval
+    from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel
+
+    cpu = ColQwenModel.init_random(ColQwenConfig.tiny(), seed=0, device="cpu", dtype=torch.bfloat16)
+    card = ColQwenModel(ColQwenConfig.tiny(), device="cuda", dtype=torch.bfloat16)
+    card.load_state_dict(cpu.state_dict())
+    _kernels.reset_launch_counts()
+    got, got_rank, got_mats = fidelity_eval._part_a(True, "cuda", model=card)
+    counts = dict(_kernels.launch_counts)
+    want, want_rank, want_mats = fidelity_eval._part_a(True, "cpu", model=cpu)
+    assert counts["window_attention"] > 0 and counts["maxsim_q8"] > 0, counts
+    for key in ("bf16_self_recall_at_1", "int8_self_recall_at_1", "top1_match", "n_pages", "n_queries"):
+        assert got[key] == want[key], key
+    for mode in ("bf16", "int8"):
+        assert [r[0] for r in got_rank[mode]] == [r[0] for r in want_rank[mode]], mode
+        np.testing.assert_allclose(got_mats[mode], want_mats[mode], rtol=2e-2, atol=0, err_msg=mode)
+
+
+@pytest.mark.cuda
+def test_fidelity_part_b_small_on_card_matches_cpu(sm90):
+    from morphik_core_tpu_torch.evaluations import fidelity_eval
+
+    got, got_exact = fidelity_eval._part_b(True, "cuda")
+    want, want_exact = fidelity_eval._part_b(True, "cpu")
+    drop = ("exact_groundtruth_s", "fde_encode_s")
+    assert {k: v for k, v in got.items() if k not in drop} == {k: v for k, v in want.items() if k not in drop}
+    np.testing.assert_allclose(got_exact, want_exact, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_colpali_and_offline_evals_on_card_match_cpu(sm90, tmp_path):
+    """colpali_eval on the trained fixture (unique pages) and the offline
+    RAG eval's builtin corpus: the card's reports equal the CPU's,
+    durations aside."""
+    import asyncio
+
+    from morphik_core_tpu_torch.evaluations import colpali_eval, run_offline_eval
+
+    args = colpali_eval.parse_args(["--docs", "2", "--pages", "4", "--queries", "3", "--templates", "0"])
+    args.small = True
+    reports = []
+    for device in ("cuda", "cpu"):
+        out = asyncio.run(colpali_eval.run_eval(args, device=device))
+        out["corpus"].pop("ingest_s")
+        out.pop("visual_ladder_s")
+        reports.append(out)
+    assert reports[0] == reports[1]
+    for name, text in run_offline_eval.BUILTIN_CORPUS.items():
+        (tmp_path / name).write_text(text)
+    offline = [asyncio.run(run_offline_eval.run_eval(tmp_path, run_offline_eval.BUILTIN_QUESTIONS, False,
+                                                     device=device)) for device in ("cuda", "cpu")]
+    for out in offline:
+        out.pop("avg_latency_s")
+    assert offline[0] == offline[1] and offline[0]["recall_at_4"] == 1.0

@@ -18,8 +18,11 @@ remote parse and OCR endpoints, ingests, retrieves and relays
 `/embeddings`. The connectors and the console run with the same
 packages blocked: a local-connector ingest of a progressive JPEG and an
 Adam7 16-bit PNG, a GitHub connector against the fake API, `/console`,
-and both images decoded to Pillow's pixels. The package data lists
-every file the package opens at run time."""
+and both images decoded to Pillow's pixels. The evaluation harnesses run
+small with the same packages blocked: the fidelity gate (both parts), the
+ColPali ladder on the trained fixture, the offline RAG run and the int8
+profile. The package data lists every file the package opens at run
+time."""
 
 import re
 import subprocess
@@ -486,6 +489,40 @@ _BINARY_AND_SCRIPTS = _PRELUDE + textwrap.dedent(
 ) + _LEAKS
 
 
+_EVALS = _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, contextlib, io, json
+    from morphik_core_tpu_torch.evaluations import colpali_eval, fidelity_eval, run_offline_eval
+    from morphik_core_tpu_torch.scripts import profile_int8
+
+    def run(main, *argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main([*argv, "--cpu"])
+        return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    rc, rep = run(fidelity_eval.main, "--small")
+    assert rc in (0, 1) and rep["gate"]["int8_default_approved"] == (rc == 0), rep
+    assert rep["part_a_ranking_agreement"]["n_pages"] == 24 and rep["part_b_fde_recall_at_scale"]["n_docs"] == 2000
+    args = colpali_eval.parse_args(["--docs", "2", "--pages", "4", "--queries", "3", "--templates", "0", "--cpu"])
+    args.small = True
+    rep = asyncio.run(colpali_eval.run_eval(args, device="cpu"))
+    assert rep["visual_ladder"]["identity"]["recall_at_1"] == 1.0 and rep["serving_precision"] == "f32", rep
+    rc, rep = run(run_offline_eval.main)
+    assert rc == 0 and rep["recall_at_4"] == 1.0 and rep["n_questions"] == 3, rep
+    rc, rep = run(profile_int8.main, "--small")
+    assert rc == 0 and len(rep["matmul_families"]) == 7, rep
+    """
+) + _LEAKS
+
+
+def test_evals_run_with_jax_pil_pydantic_httpx_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _EVALS, str(ROOT)], capture_output=True, text=True, timeout=400,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
 def test_binary_store_and_scripts_run_with_jax_pil_pydantic_httpx_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _BINARY_AND_SCRIPTS, str(ROOT)], capture_output=True, text=True, timeout=300,
@@ -528,7 +565,7 @@ def test_package_data_lists_every_file_the_port_opens():
     # files found beside a module: `Path(__file__).with_name(...)` / `.parent / "..."`
     beside = re.compile(r"__file__\)\.(?:with_name\(|parent / )\"([\w.-]+\.\w+)\"")
     named = {n for f in pkg.rglob("*.py") for n in beside.findall(f.read_text())}
-    assert {"glyphs_dejavu_sans.npz", "calib_pages_u8.npz", "console.html"} <= named
+    assert {"glyphs_dejavu_sans.npz", "calib_pages_u8.npz", "console.html", "glyphs_pil_default.npz"} <= named
     assert named <= {p.name for p in listed}, named - {p.name for p in listed}
     # the kernel sources the build compiles (`ops/_kernels.py` globs csrc/*.cu)
     assert {"maxsim.cu", "window_attention.cu", "binary_maxsim.cu"} <= {p.name for p in listed if p.suffix == ".cu"}

@@ -566,3 +566,65 @@ def test_pooled_store_orphan_truncation(tmp_path):
     assert idx2._pooled_store_ok and p.stat().st_size == good
     res = idx2.query(concepts[topics[8]], k=3, return_timing=True)
     assert idx2.last_timing["pooled_tier"] is True and res[0][0].document_id == "doc8"
+
+
+# ------------------------------------- a second open inside a live save()
+
+
+def _open_inside_save(monkeypatch, mod, new_index, second_open, path):
+    """Store A holds 10 saved rows and 10 pending ones; a second open runs
+    inside A's `save()`, after the data append and before the WAL write
+    (`records.jsonl` opened for append). -> (rows the second open saw,
+    the error A's save raised or None, rows a reopen holds)."""
+    rng = np.random.default_rng(0)
+    rows = [rng.standard_normal((int(rng.integers(3, 9)), 16)).astype(np.float32) for _ in range(20)]
+    recs = [mod.IndexRecord(document_id=f"d{i}", chunk_number=0) for i in range(20)]
+    a = new_index()
+    a.store(rows[:10], recs[:10])
+    a.save()
+    a.store(rows[10:], recs[10:])
+    seen = []
+
+    def spy(file, mode="r", *args, **kwargs):
+        if str(file).endswith("records.jsonl") and mode == "a" and not seen:
+            seen.append(len(second_open(path)))
+        return open(file, mode, *args, **kwargs)
+
+    monkeypatch.setattr(mod, "open", spy, raising=False)
+    err = None
+    try:
+        a.save()
+    except ValueError as e:
+        err = e
+    monkeypatch.delattr(mod, "open")
+    return seen[0], err, len(new_index())
+
+
+def test_a_read_only_open_inside_a_save_keeps_every_row(tmp_path, monkeypatch, caplog):
+    """The port's read-only open (the reader scripts') inside a live save
+    sees the 10 rows the WAL covers, writes nothing, and all 20 rows
+    survive. The reference's open (the only one it has) cuts the fresh
+    bytes: its save raises, and a reopen holds 10 of the 20 rows; the
+    port's ordinary open does the same."""
+    from morphik_core_tpu.index import multivector_index as jmi
+
+    path = tmp_path / "port"
+    seen, err, n = _open_inside_save(
+        monkeypatch, tmi, lambda: MultiVectorIndex(CFG, path=path, device="cpu"),
+        lambda p: tmi.open_read_only(CFG, p, device="cpu"), path)
+    assert (seen, err, n) == (10, None, 20)
+    ro = tmi.open_read_only(CFG, path, device="cpu")
+    with pytest.raises(ValueError, match="read-only"):
+        ro.save()
+
+    path = tmp_path / "port_rw"
+    seen, err, n = _open_inside_save(
+        monkeypatch, tmi, lambda: MultiVectorIndex(CFG, path=path, device="cpu"),
+        lambda p: MultiVectorIndex(CFG, path=p, device="cpu"), path)
+    assert (seen, n) == (10, 10) and "mmap length is greater than file size" in str(err)
+
+    path = tmp_path / "jax"
+    seen, err, n = _open_inside_save(
+        monkeypatch, jmi, lambda: JIndex(JFDE(**FDE_KW), path=path),
+        lambda p: JIndex(JFDE(**FDE_KW), path=p), path)
+    assert (seen, n) == (10, 10) and "mmap length is greater than file size" in str(err)

@@ -443,3 +443,88 @@ def test_twins_import_nothing_of_the_reference():
     files = sorted((Path(t_check.__file__).parent).glob("*.py"))
     assert len(files) >= 9
     assert not [f.name for f in files if pattern.search(f.read_text())]
+
+
+# ------------------------------------------- live namespaces: locks, read-only opens
+
+
+def _writers(cfg: Path, root: Path) -> dict:
+    """Each writer twin's argv over the tree of `cfg` (index under `root`)."""
+    index = str(root / "index")
+    fde = ["--dimension", str(DIM), "--num-repetitions", "4", "--num-simhash-projections", "3",
+           "--projection-dimension", "8"]
+    return {
+        "scrub_metadata": (t_scrub.main, ["--config", str(cfg), "--keep", "external_id", "--apply", *CPU]),
+        "rebuild_fde": (t_rebuild.main, ["--index-path", index, *fde, *CPU]),
+        "migrate_index_format": (t_migrate_format.main, ["--index-path", index, *fde, *CPU]),
+        "purge_app": (t_purge.main, ["--config", str(cfg), "--app-id", "app1", "--yes", *CPU]),
+        "check_completeness --gc-apply": (t_check.main, ["--config", str(cfg), "--gc-apply", *CPU]),
+    }
+
+
+@pytest.mark.parametrize("writer", sorted(_writers(Path("c"), Path("r"))))
+def test_writer_refuses_a_namespace_a_port_store_holds(trees, capsys, writer):
+    """While a port store serves the namespaces (its shared locks), every
+    writer exits 2 and the tree stays byte for byte; once the store closes
+    the same command runs."""
+    from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
+
+    _, t, _, tcfg = trees
+    store = TorchMultiVectorStore(fde_config=FDEConfig(**FDE_KW), index_path=t / "index", device="cpu")
+    for ns in ("default", "app1"):
+        store._ns(None if ns == "default" else ns)
+    before = _files(t)
+    main, argv = _writers(tcfg, t)[writer]
+    assert main(argv) == 2
+    captured = capsys.readouterr()
+    assert "locked" in captured.err + captured.out
+    assert _files(t) == before
+    store.close()
+    assert main(argv) in (0, 1)  # check_completeness reports the seeded faults with 1
+    capsys.readouterr()
+
+
+def test_a_new_namespace_is_locked_before_its_first_save(trees, capsys):
+    """A store's first use of a namespace creates and locks its directory:
+    a payload uploaded before the rows are saved is in flight, and
+    `--gc-apply` refuses to delete it."""
+    from morphik_core_tpu_torch.models.schemas import DocumentChunk
+    from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
+
+    _, t, _, tcfg = trees
+    store = TorchMultiVectorStore(storage=LocalStorage(t / "store"), fde_config=FDEConfig(**FDE_KW),
+                                  index_path=t / "index", device="cpu")
+    chunk = DocumentChunk(document_id="new", chunk_number=0, embedding=np.ones((3, DIM), np.float32),
+                          content="data:image/png;base64,AAAA", metadata={"is_image": True})
+    _run(store.store_embeddings([chunk], app_id="fresh"))
+    assert (t / "store" / BUCKET / "fresh" / "new" / "0.png").exists()
+    assert t_check.main(["--config", str(tcfg), "--gc-apply", *CPU]) == 2
+    report = _json_out(capsys)
+    assert "fresh" in report["gc_refused"] and "gc_applied" not in report
+    assert (t / "store" / BUCKET / "fresh" / "new" / "0.png").exists()
+    store.save()
+    store.close()
+
+
+def test_readers_leave_a_namespace_mid_save_byte_identical(trees, capsys, tmp_path):
+    """A namespace caught inside a server's `save()` (data appended, WAL
+    lines not yet written): check_completeness and the export open it
+    read-only, report the rows the WAL covers and change no byte, where
+    the original check cuts the fresh bytes."""
+    j, t, jcfg, tcfg = trees
+    for root in (j, t):
+        ns = root / "index" / "default"
+        for name, nbytes in (("fde.bin", 4 * FDEConfig(**FDE_KW).fde_dim), ("mv.bin", 2 * DIM * 5)):
+            with open(ns / name, "ab") as fh:
+                fh.write(b"\x01" * nbytes)
+    before = _files(t)
+    assert t_check.main(["--config", str(tcfg), *CPU]) == 1
+    t_report = _json_out(capsys)
+    assert t_export.main(["--config", str(tcfg), "--out", str(tmp_path / "export"), *CPU]) == 0
+    assert _json_out(capsys)["exported"] == 12  # 8 rows in default, 4 in app1
+    assert _files(t) == before
+    assert j_check.main(["--config", str(jcfg)]) == 1
+    assert _json_out(capsys) == t_report
+    j_files = _files(j)
+    assert len(j_files["index/default/fde.bin"]) < len(before["index/default/fde.bin"])
+    assert len(j_files["index/default/mv.bin"]) < len(before["index/default/mv.bin"])
