@@ -11,7 +11,8 @@ progressive and multi-scan JPEGs and the Adam7 and 16-bit PNGs that
 connector files bring; the 3B checkpoint served in f32, through K3's
 3xTF32 kernel; and last the binary index through K4, the dual store and
 the operator scripts' port twins; then the evaluation harnesses and the
-two measuring scripts at their small sizes.
+two measuring scripts at their small sizes; and last the mesh paths on a
+virtual (data 2, model 2) mesh of this one card.
 
     python3 chip_smoke.py
 
@@ -295,6 +296,35 @@ Phases (each raises on failure; none is caught):
      the activations quantized beforehand); bench_ingest --small (12
      pages through the job queue, each stage alone). Prints an
      {"evals": ...} line; the kernels line gains `evals_launches`.
+ 21. the mesh paths (after phase 20), on phase 3b's int8 + static-scales
+     model: (a) `build_services` from the toml with `tpu.auto_mesh = true`
+     (`mesh_shape = [-1, 1]`) and one visible card serves single-device:
+     no mesh; (b) a virtual (data 2, model 2) mesh whose four entries are
+     this card: phase 3b's model is put on it in place
+     (`shard_colqwen_params`: the decoder tensor-parallel over "model"),
+     phase 3b's 8 pages embedded (two data shards of 4, K3 28 a shard
+     forward) equal the single-device embeddings of the same per-shard
+     batches bit for bit, and stay within mean page cosine 0.9999 of the
+     single-device batch of 8 (its max abs diff printed: other GEMM
+     shapes); the text queries' tokens and embeddings equal the
+     single-device encode's; (c) phase 4's 2,048 rows plus
+     MESH_SYNTH short synthetic rows (16,384 rows, 16 blocks) in a mesh
+     index and a single-device one, the shipped retrieval config: phase
+     5's queries give the same ids, scores within MESH_SCORE_ATOL, with
+     the pooled tier (K1 on each data shard); the mesh-encoded queries the
+     same top-1 as the single-device ones; a doc_ids-filtered query keeps
+     to the gate; `last_mesh_upload_rows` cold = every row, warm = 0, and
+     <= one block after a store of MESH_TAIL rows; (d) the HTTP server on
+     that mesh (`build_services(mesh=...)`), serving phase 8's static
+     scales (restored, `model.static_act_scales` off: a boot recalibrates
+     from the scales in place and serves slightly other ones): phase 8's 9 PNG pages
+     ingested, the text queries' /retrieve/chunks give phase 8's
+     filenames in the same order, scores within 1e-2 relative (the
+     reference's test_mesh_serving.py bound). Each step's seconds, launches
+     and peak memory are printed with the card: a virtual mesh runs its
+     shards one after another on one card, so no figure here is a
+     multi-card speed. Prints a {"mesh": ...} line; the kernels line gains
+     `mesh_launches`.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -363,6 +393,14 @@ MIN_MEAN_COSINE = 0.95
 # decoder layers, dynamic scales on the text side): it measured 0.9840
 # on one NVIDIA H100 (min 0.976) over the four queries.
 MIN_QUERY_COSINE = 0.97
+# phase 21: the virtual mesh, its index and its bounds
+MESH_SHAPE = (2, 2)  # (data, model), every entry this card
+MESH_SYNTH = 14_336  # short synthetic rows beside phase 4's 2,048: 16,384 rows, 16 blocks of BLOCK_ROWS
+MESH_SYNTH_TOKENS = (64, 161)  # short rows keep the ingest pooling (host k-means) cheap; phase 4's rows are long
+MESH_TAIL = 100  # rows stored after the warm query: the refresh re-uploads at most one block
+MESH_SCORE_ATOL = 1e-5  # index scores, mesh vs single device: the same rows through the same K1 rerank
+MESH_MIN_PAGE_COSINE = 0.9999  # the mesh's pages against the single-device batch of 8 (other GEMM shapes)
+MESH_REL_SCORE = 1e-2  # HTTP scores, mesh vs phase 8 (tests/test_mesh_serving.py's bound)
 
 
 def log(msg: str) -> None:
@@ -1229,6 +1267,7 @@ def service_path(torch, model, _kernels, smi):
     services = build_services(settings, colqwen_model=model)  # the card; recalibrates static scales
     server = ServerThread(services)
     boot_s = time.perf_counter() - t0
+    scales = vision_scales(model)  # phase 21's mesh server serves these again
     client = Client(f"http://127.0.0.1:{server.server.port}")
     log(f"phase 8: service path, server up in {boot_s:.3f} s (morphik_tpu.toml: max_jobs "
         f"{settings.worker.max_jobs}, store batch {settings.worker.colpali_store_batch_size}, "
@@ -1298,6 +1337,8 @@ def service_path(torch, model, _kernels, smi):
                 err = max(abs(r["score"] - c.score) for r, c in zip(http_results[key], lib))
                 if err > SCORE_ATOL:
                     raise AssertionError(f"{key!r}: HTTP scores differ from the store's by {err}")
+            answers = {text: [[r["filename"], r["score"]] for r in res] for text, res in http_results.items()
+                       if text in QUERIES}  # phase 21 holds its mesh server to these
             text_metrics, expect = service_text_half(torch, services, server, client, _kernels, docs)
         finally:
             server.stop()  # the shutdown saves the indexes
@@ -1317,7 +1358,8 @@ def service_path(torch, model, _kernels, smi):
         "index_ms": index_ms, "index_share": sum(index_ms.values()) / mean_ms,
         "pooled_tier": any(t["pooled_tier"] for t in timings), "pool": timings[-1]["pool"],
         "cache": health["device_cache"]["default"], "boot_s": boot_s,
-        "launches": launches, "ingest_launches": ingest_launches, **text_metrics, **restart,
+        "launches": launches, "ingest_launches": ingest_launches, "retrieve_answers": answers,
+        **text_metrics, **restart,
     }
     log(f"  {len(pngs)} PNG pages ingested over HTTP in {ingest_s:.3f} s ({service['ingest_pages_per_s']:.3f} "
         f"pages/s; mean job phases s {json.dumps(service['ingest_job_phase_s'])}); retrieve p50 {p50:.3f} ms p99 {p99:.3f} ms over {len(lat)}; image query {image_ms:.3f} ms; "
@@ -1327,7 +1369,25 @@ def service_path(torch, model, _kernels, smi):
         f"{restart['restart_retrieve_p50_ms']:.3f} ms p99 {restart['restart_retrieve_p99_ms']:.3f} ms; the same ids "
         f"(max score diff {restart['restart_max_score_diff']:.3e}), the same text retrieves; launches "
         f"{restart['restart_launches']}")
-    return service
+    return service, scales
+
+
+def vision_scales(model) -> list:
+    """The int8 vision tower's static scales, block by block: each
+    boot's calibration starts from the scales in place, so a later boot
+    serves slightly other ones."""
+    return [({name: getattr(blk, name).a_scale.clone() for name in ("q_w", "k_w", "v_w", "proj_w", "gate_w", "up_w",
+                                                                      "down_w")}, blk.attn_qk_as)
+            for blk in model.visual.blocks]
+
+
+def restore_vision_scales(model, scales) -> None:
+    for blk, (act, qk) in zip(model.visual.blocks, scales):
+        for name, a in act.items():
+            getattr(blk, name).set_act_scale(a)
+        blk.set_qk_scales(qk)
+    if model.mesh is not None:
+        model.place_replicas()
 
 
 def seeded_prose(rng, n_bytes: int) -> str:
@@ -4051,6 +4111,243 @@ def evals_phase(torch, _kernels, smi):
     return out
 
 
+def mesh_rows(torch, n: int, seed: int = SEED + 7):
+    """n unit f16 rows of MESH_SYNTH_TOKENS tokens, drawn on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    lens = torch.randint(*MESH_SYNTH_TOKENS, (n,), generator=gen, device="cuda").tolist()
+    out = []
+    for n_tok in lens:
+        x = torch.randn((n_tok, 128), generator=gen, device="cuda")
+        out.append((x / x.norm(dim=1, keepdim=True)).half().cpu().numpy())
+    return out
+
+
+def _peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def mesh_phase(torch, model, page_embs, rows, page_fdes, queries5, phase8_answers, phase8_scales, _kernels, smi):
+    """Phase 21: the mesh paths on a virtual (data 2, model 2) mesh of this
+    card, on phase 3b's int8 model (put on the mesh in place; the run ends
+    here). Nothing falls back to the single-device path: each step raises."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+    from morphik_core_tpu_torch.parallel.mesh import make_mesh, shard_colqwen_params
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    out = {"card": smi, "mesh_shape": dict(zip(("data", "model"), MESH_SHAPE)),
+           "note": "a virtual mesh of one card runs its shards one after another: no figure is a multi-card speed"}
+
+    # (a) auto_mesh with one visible card: single-device serving
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        settings = service_settings(tmp / "a")
+        settings.tpu.auto_mesh = True
+        t0 = time.perf_counter()
+        services = build_services(settings, colqwen_model=model)
+        out["auto_mesh"] = {"visible_cards": torch.cuda.device_count(), "mesh_shape": settings.tpu.mesh_shape,
+                            "store_mesh": services.colpali_vector_store.mesh is not None,
+                            "model_mesh": model.mesh is not None, "boot_s": time.perf_counter() - t0}
+        if services.colpali_vector_store.mesh is not None or model.mesh is not None:
+            raise AssertionError(f"auto_mesh on one card built a mesh: {out['auto_mesh']}")
+        del services
+        log(f"phase 21a: tpu.auto_mesh = true, mesh_shape {settings.tpu.mesh_shape}, "
+            f"{torch.cuda.device_count()} visible card: serves single-device (no mesh), boot "
+            f"{out['auto_mesh']['boot_s']:.3f} s")
+
+        # (b) the model on the mesh
+        patches = np.stack([p for p, _ in _pages(model.cfg)])
+        half = BATCH // MESH_SHAPE[0]
+        single_b8 = model.embed_image_batch(patches, *GRID)
+        single_shards = np.concatenate([model.embed_image_batch(patches[i : i + half], *GRID)
+                                        for i in range(0, BATCH, half)])
+        single_q = model.embed_queries(QUERIES)
+        single_tokens = [model.query_token_ids(t) for t in QUERIES]
+        mesh = make_mesh(MESH_SHAPE, devices=["cuda:0"] * int(np.prod(MESH_SHAPE)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shard_colqwen_params(model, mesh)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        _kernels.reset_launch_counts()  # the mesh embed starts here
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            mesh_pages = model.embed_image_batch(patches, *GRID)
+            times.append(time.perf_counter() - t0)
+        embed_launches = dict(_kernels.launch_counts)
+        t0 = time.perf_counter()
+        mesh_q = model.embed_queries(QUERIES)
+        query_s = time.perf_counter() - t0
+        k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+        shard_forwards = 2 * MESH_SHAPE[0]
+        cos = (mesh_pages * single_b8).sum(-1)
+        stats = {
+            "shard_s": shard_s, "embed_s": times, "pages_per_s_second": BATCH / times[1], "query_s": query_s,
+            "max_abs_diff_per_shard_batches": float(np.abs(mesh_pages - single_shards).max()),
+            "max_abs_diff_batch8": float(np.abs(mesh_pages - single_b8).max()),
+            "mean_cosine_batch8": float(cos.mean()), "min_cosine_batch8": float(cos.min()),
+            "phase3b_max_abs_diff": float(max(np.abs(a - b).max() for a, b in zip(single_b8, page_embs))),
+            "query_max_abs_diff": float(max(np.abs(a - b).max() for a, b in zip(mesh_q, single_q))),
+            "k3_launches": embed_launches["window_attention"], "k3_per_shard_forward": k3_per_forward,
+            "peak_gb": _peak_gb(torch),
+        }
+        out["model"] = stats
+        _check_embeddings(model, list(mesh_pages), [None] * BATCH)
+        _check_queries(model, mesh_q, "mesh")
+        if stats["max_abs_diff_per_shard_batches"] != 0.0:
+            raise AssertionError(f"the mesh pages differ from the single-device pages of the same batches: {stats}")
+        if not stats["mean_cosine_batch8"] >= MESH_MIN_PAGE_COSINE:
+            raise AssertionError(f"the mesh pages drift from the single-device batch of 8: {stats}")
+        if [q.shape[0] for q in mesh_q] != [len(t) for t in single_tokens] or stats["query_max_abs_diff"] != 0.0:
+            raise AssertionError(f"the mesh queries differ from the single-device encode: {stats}")
+        if embed_launches["window_attention"] != k3_per_forward * shard_forwards:
+            raise AssertionError(f"K3 launched {embed_launches['window_attention']} times for {shard_forwards} "
+                                 f"shard forwards of {k3_per_forward}")
+        log(f"phase 21b: the 3B int8 model on a {out['mesh_shape']} mesh of one card (in place, {shard_s:.3f} s): "
+            f"{BATCH} pages in {times} s (two data shards of {half}); pages equal the single-device ones of the "
+            f"same batches bit for bit; max abs diff to the batch of 8 {stats['max_abs_diff_batch8']:.3e} (mean "
+            f"cosine {stats['mean_cosine_batch8']:.7f}); queries equal (tokens and embeddings) in {query_s:.3f} s; K3 {embed_launches['window_attention']} = "
+            f"{k3_per_forward} x {shard_forwards} shard forwards; peak {stats['peak_gb']:.2f} GB")
+
+        # (c) the mesh index beside a single-device one over the same rows
+        t0 = time.perf_counter()
+        extra = mesh_rows(torch, MESH_SYNTH)
+        all_rows = list(rows) + extra
+        recs = [f"page{i}" if i < BATCH else f"synth{i - BATCH}" for i in range(len(all_rows))]
+        gen_s = time.perf_counter() - t0
+        single = MultiVectorIndex(FDEConfig(), device="cuda", device_block_rows=BLOCK_ROWS, **SHIPPED)
+        meshed = MultiVectorIndex(FDEConfig(), mesh=mesh, device_block_rows=BLOCK_ROWS, **SHIPPED)
+        t0 = time.perf_counter()
+        single.store(all_rows[:BATCH], [IndexRecord(r, 0) for r in recs[:BATCH]], fde_vectors=np.stack(page_fdes))
+        single.store(all_rows[BATCH:], [IndexRecord(r, 0) for r in recs[BATCH:]])
+        fdes = single._fde_rows(0, single.count_rows)
+        store_s = time.perf_counter() - t0
+        n0 = len(all_rows) - MESH_TAIL
+        meshed.store(all_rows[:n0], [IndexRecord(r, 0) for r in recs[:n0]], fde_vectors=fdes[:n0])
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()  # the mesh index path starts here
+        uploads = []
+        for q in queries5[:2]:
+            t0 = time.perf_counter()
+            meshed.query(q, k=10)
+            uploads.append((meshed.last_mesh_upload_rows, time.perf_counter() - t0))
+        meshed.store(all_rows[n0:], [IndexRecord(r, 0) for r in recs[n0:]], fde_vectors=fdes[n0:])
+        lat_m, got = [], []
+        for i, q in enumerate(queries5):
+            t0 = time.perf_counter()
+            got.append(meshed.query(q, k=10, return_timing=True))
+            lat_m.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                uploads.append((meshed.last_mesh_upload_rows, lat_m[-1] / 1e3))
+            if not meshed.last_timing["pooled_tier"]:
+                raise AssertionError("the mesh index did not serve through the pooled tier")
+        allowed = [f"page{i}" for i in range(0, BATCH, 2)] + [f"synth{i}" for i in range(0, MESH_SYNTH, 3)]
+        filtered = meshed.query(queries5[0], k=10, doc_ids=allowed)
+        index_launches = dict(_kernels.launch_counts)  # the mesh index path ends here
+        lat_s, diffs = [], []
+        for i, (q, rm) in enumerate(zip(queries5, got)):
+            t0 = time.perf_counter()
+            rs = single.query(q, k=10)
+            lat_s.append((time.perf_counter() - t0) * 1e3)
+            if [r.document_id for r, _ in rm] != [r.document_id for r, _ in rs] or len(rm) != 10:
+                raise AssertionError(f"query {i}: mesh ids {[r.document_id for r, _ in rm]} vs single "
+                                     f"{[r.document_id for r, _ in rs]}")
+            diffs.append(max(abs(a - b) for (_, a), (_, b) in zip(rm, rs)))
+        if max(diffs) > MESH_SCORE_ATOL:
+            raise AssertionError(f"mesh scores differ from the single-device ones by {max(diffs)}")
+        if got[-1][0][0].document_id != f"synth{123}":
+            raise AssertionError("the mesh self-query top-1 is not its row")
+        if not filtered or any(r.document_id not in set(allowed) for r, _ in filtered) or [
+                r.document_id for r, _ in filtered] != [r.document_id for r, _ in single.query(queries5[0], k=10,
+                                                                                               doc_ids=allowed)]:
+            raise AssertionError(f"the filtered mesh query left the gate: {[r.document_id for r, _ in filtered]}")
+        top1 = [(single.query(a, k=1)[0][0].document_id, single.query(b, k=1)[0][0].document_id)
+                for a, b in zip(mesh_q, single_q)]
+        if any(a != b for a, b in top1):
+            raise AssertionError(f"mesh-encoded queries change the top-1: {top1}")
+        n = len(all_rows)
+        if uploads[0][0] != n0 or uploads[1][0] != 0 or not 0 < uploads[2][0] <= BLOCK_ROWS:
+            raise AssertionError(f"last_mesh_upload_rows cold / warm / after a store: {uploads}")
+        if index_launches["maxsim_q8"] <= 0:
+            raise AssertionError(f"the mesh index never launched K1: {index_launches}")
+        out["index"] = {
+            "rows": n, "blocks": len(meshed._dev_blocks), "rows_per_shard_block": BLOCK_ROWS // MESH_SHAPE[0],
+            "synth_s": gen_s, "single_store_s": store_s, "upload_rows_cold_warm_after_store": [u[0] for u in uploads],
+            "query_s_cold_warm_after_store": [u[1] for u in uploads], "mesh_query_ms": lat_m,
+            "single_query_ms": lat_s, "max_score_diff": max(diffs), "launches": index_launches,
+            "peak_gb": _peak_gb(torch), "top1_mesh_vs_single_queries": top1,
+        }
+        log(f"phase 21c: mesh index of {n} rows ({out['index']['blocks']} blocks of {BLOCK_ROWS}, "
+            f"{BLOCK_ROWS // MESH_SHAPE[0]} rows a data shard): phase 5's queries give the single-device ids, max "
+            f"score diff {max(diffs):.3e}, pooled tier; mesh query ms {[round(x, 3) for x in lat_m]} vs single "
+            f"{[round(x, 3) for x in lat_s]}; uploads cold / warm / after {MESH_TAIL} rows "
+            f"{[u[0] for u in uploads]}; filtered query in the gate; launches {index_launches}")
+        del single, meshed, extra, all_rows
+
+        # (d) the HTTP server on the mesh, serving phase 8's static scales (a boot would recalibrate
+        # from the scales in place and serve slightly other ones)
+        settings = service_settings(tmp / "d")
+        settings.model.static_act_scales = False
+        restore_vision_scales(model, phase8_scales)
+        t0 = time.perf_counter()
+        services = build_services(settings, colqwen_model=model, mesh=mesh)
+        server = ServerThread(services)
+        boot_s = time.perf_counter() - t0
+        client = Client(f"http://127.0.0.1:{server.server.port}")
+        try:
+            if services.colpali_vector_store.mesh is not mesh:
+                raise AssertionError("the server's store is not on the mesh")
+            pngs = [encode_png(p) for p in service_pages()]
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()  # the mesh server's path starts here
+            t0 = time.perf_counter()
+            docs = [client.upload(f"page{i}.png", data)["external_id"] for i, data in enumerate(pngs)]
+            ingest_s = _wait_completed(client, docs) - t0
+            worst, lat = 0.0, []
+            for text in QUERIES:
+                t0 = time.perf_counter()
+                res = client.call("POST", "/retrieve/chunks", {"query": text, "k": 4})
+                lat.append((time.perf_counter() - t0) * 1e3)
+                want = phase8_answers[text]
+                if [r["filename"] for r in res] != [f for f, _ in want]:
+                    raise AssertionError(f"{text!r}: mesh server {[r['filename'] for r in res]} vs phase 8 "
+                                         f"{[f for f, _ in want]}")
+                for r, (_, score) in zip(res, want):
+                    rel = abs(r["score"] - score) / max(1.0, abs(score))
+                    worst = max(worst, rel)
+                    if rel > MESH_REL_SCORE:
+                        raise AssertionError(f"{text!r}: score {r['score']} vs phase 8's {score}")
+            server_launches = dict(_kernels.launch_counts)
+            if server_launches["window_attention"] <= 0 or server_launches["maxsim_q8"] <= 0:
+                raise AssertionError(f"the mesh server did not launch K3 and K1: {server_launches}")
+            blocks = services.colpali_vector_store._indexes["default"]._dev_blocks
+            if not blocks or len(blocks[0][0]) != MESH_SHAPE[0]:
+                raise AssertionError("the mesh server's index holds no sharded blocks")
+        finally:
+            server.stop()
+        out["server"] = {"boot_s": boot_s, "pages": len(pngs), "ingest_s": ingest_s, "retrieve_ms": lat,
+                         "max_rel_score_diff_vs_phase8": worst, "launches": server_launches,
+                         "peak_gb": _peak_gb(torch)}
+        log(f"phase 21d: HTTP server on the mesh, up in {boot_s:.3f} s: {len(pngs)} PNG pages in {ingest_s:.3f} s; "
+            f"/retrieve/chunks gives phase 8's filenames in order, max relative score diff {worst:.3e}; retrieve ms "
+            f"{[round(x, 3) for x in lat]}; launches {server_launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {k: embed_launches[k] + index_launches[k] + server_launches[k] for k in embed_launches}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 21: the mesh paths on one card ({smi}; {out['note']}): launches {out['launches']}, "
+        f"phase {out['phase_s']:.3f} s")
+    return out
+
+
 def _json_docs(text: str) -> list:
     """The JSON documents printed one after another in `text`."""
     dec, docs, i = json.JSONDecoder(), [], 0
@@ -4111,7 +4408,7 @@ def main() -> None:
             del index
         finally:
             shutil.rmtree(index_dir, ignore_errors=True)
-        service = service_path(torch, model, _kernels, smi)
+        service, phase8_scales = service_path(torch, model, _kernels, smi)
         documents = documents_phase(torch, model, _kernels, smi)
         checkpoint = checkpoint_phase(torch, model, ckpt, ckpt_written, _kernels, smi)
         f32 = f32_phase(torch, ckpt, bf16_embs, _kernels, smi)
@@ -4124,6 +4421,8 @@ def main() -> None:
     binary = binary_phase(torch, page_embs, queries5, _kernels, smi)
     scripts = scripts_phase(torch, model, page_embs, _kernels, smi)
     evals = evals_phase(torch, _kernels, smi)
+    mesh = mesh_phase(torch, model, page_embs, rows, page_fdes, queries5, service["retrieve_answers"], phase8_scales,
+                      _kernels, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
     kernels = [  # library_ms: no single PyTorch call computes MaxSim
         dict(name=name, route="cuda", source=csrc + src, replaces=replaces, launches=counts[name],
@@ -4140,7 +4439,7 @@ def main() -> None:
              checkpoint_launches=checkpoint["launches"][name], llm_launches=llm["launches"][name],
              remote_launches=sum(remote["launches"][part][name] for part in ("ingest", "retrieve", "relay")),
              connectors_launches=connectors["launches"][name], f32_launches=f32["launches"][name],
-             evals_launches=evals["launches"][name])
+             evals_launches=evals["launches"][name], mesh_launches=mesh["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -4164,7 +4463,7 @@ def main() -> None:
         bound_ms=main_k4["bound_us"] / 1e3, bound_by=main_k4["bound_by"], library_ms=None,
         library_call="none (no popcount op)", device_ms=main_k4["device_ms"], plain_device_ms=main_k4["plain_device_ms"],
         shape=main_k4["case"], launches_resident=binary["launches_resident"],
-        evals_launches=evals["launches"]["binary_maxsim"],
+        evals_launches=evals["launches"]["binary_maxsim"], mesh_launches=mesh["launches"]["binary_maxsim"],
         launches_streamed=binary["launches_streamed"],
         other_cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms",
                                         "bound_us", "bound_by")} for c in k4_cases[1:]]))
@@ -4185,6 +4484,7 @@ def main() -> None:
     print(json.dumps({"binary": binary}))
     print(json.dumps({"scripts": scripts}))
     print(json.dumps({"evals": evals}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

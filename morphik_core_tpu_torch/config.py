@@ -71,9 +71,11 @@ class ServiceConfig:
 
 @dataclass
 class TPUConfig:
-    """The reference's device knobs. The port reads `embed_batch_size`
-    and refuses `auto_mesh=true` (no mesh paths yet); the rest is kept so
-    that one TOML serves both packages."""
+    """The reference's device knobs. The port reads `embed_batch_size`,
+    `use_pallas` and, with `auto_mesh=true` and more than one card, builds
+    the serving mesh of `mesh_shape` (`mesh_axis_names` must then be the
+    default ["data", "model"]); the rest is kept so that one TOML serves
+    both packages."""
 
     mesh_shape: List[int] = field(default_factory=lambda: [-1, 1])
     mesh_axis_names: List[str] = field(default_factory=lambda: ["data", "model"])

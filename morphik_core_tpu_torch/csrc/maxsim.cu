@@ -527,8 +527,9 @@ int launch(Args a, float* out, int n_cand, cudaStream_t stream) {
 
 }  // namespace
 
-// Raise the dynamic shared-memory limit of every instantiation once, when
-// the library is loaded (a launch then needs no attribute call).
+// Raise the dynamic shared-memory limit of every instantiation on the
+// current device, once a device before its first launch (a launch then
+// needs no attribute call).
 extern "C" int maxsim_init() {
   const cudaError_t errs[3] = {
       cudaFuncSetAttribute(maxsim_mma_kernel<int8_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -769,8 +769,9 @@ bool shape_ok(int t, int heads, int dim, int window) {
 
 }  // namespace
 
-// Raise the dynamic shared-memory limit of every kernel once, when the
-// library is loaded (a launch then needs no attribute call).
+// Raise the dynamic shared-memory limit of every kernel on the current
+// device, once a device before its first launch (a launch then needs no
+// attribute call).
 extern "C" int window_attention_init() {
   const cudaError_t errs[6] = {
       set_smem_limit<64, 64>(),  set_smem_limit<64, 80>(),  set_smem_limit<64, 128>(),

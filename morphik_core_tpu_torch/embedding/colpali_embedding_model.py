@@ -39,6 +39,7 @@ from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel, quantize_c
 from morphik_core_tpu_torch.models.colqwen.preprocess import preprocess_array_u8, preprocess_image_u8
 from morphik_core_tpu_torch.models.schemas import Chunk
 from morphik_core_tpu_torch.ops.fde import FDEConfig, fde_document_batch
+from morphik_core_tpu_torch.parallel.mesh import shard_colqwen_params
 from morphik_core_tpu_torch.utils.fast_ops import data_uri_to_bytes
 from morphik_core_tpu_torch.utils.image import decode_image
 from morphik_core_tpu_torch.utils.jpeg import decode_own
@@ -81,22 +82,25 @@ class ColpaliEmbeddingModel:
 
     @classmethod
     def from_settings(cls, settings, model: Optional[ColQwenModel] = None, device=None,
-                      fde_config: Optional[FDEConfig] = None) -> "ColpaliEmbeddingModel":
+                      fde_config: Optional[FDEConfig] = None, mesh=None) -> "ColpaliEmbeddingModel":
         """The embedder `Settings` describe: `tpu.embed_batch_size`,
         `model.min_pixels` / `max_pixels` and `model.static_act_scales`.
         A given model must have the configured `model.matmul_precision`
-        and `attention_precision`. Without one, `model.checkpoint_path` is
-        loaded on `device` in both precisions
-        (`colpali_embedding_model.py:53-60`); without that, development
-        mode serves the tiny random model in them (`:61-82`) and any other
-        environment raises rather than serve random embeddings."""
+        and `attention_precision`, and with `mesh` be on that mesh. Without
+        one, `model.checkpoint_path` is loaded on `device` (or onto `mesh`)
+        in both precisions (`colpali_embedding_model.py:53-60`); without
+        that, development mode serves the tiny random model in them
+        (`:61-82`) and any other environment raises rather than serve
+        random embeddings. The batch stays `tpu.embed_batch_size` on a
+        mesh too (the model pads it to the data axis)."""
         precision = settings.model.matmul_precision
         attention = settings.model.attention_precision
         load_s = None
         if model is None and settings.model.checkpoint_path:
             t0 = time.perf_counter()
             model = ColQwenModel.from_checkpoint(settings.model.checkpoint_path, device=device,
-                                                 matmul_precision=precision, attention_precision=attention)
+                                                 matmul_precision=precision, attention_precision=attention,
+                                                 mesh=mesh)
             if model.device.type == "cuda":
                 torch.cuda.synchronize(model.device)
             load_s = time.perf_counter() - t0
@@ -109,15 +113,20 @@ class ColpaliEmbeddingModel:
                     "outside development mode"
                 )
             logger.warning("no model given: serving a tiny random ColQwen (development mode)")
-            model = ColQwenModel.init_random(ColQwenConfig.tiny(), seed=0, device=device,
+            model = ColQwenModel.init_random(ColQwenConfig.tiny(), seed=0,
+                                             device=device if mesh is None else mesh.first_device,
                                              attention_precision=attention)
             if precision == "int8":
                 quantize_colqwen_params(model)
+            if mesh is not None:  # shards after quantizing, as the reference
+                shard_colqwen_params(model, mesh)
         elif (model.matmul_precision, model.attention_precision) != (precision, attention):
             raise ValueError(
                 f"the model serves matmul_precision={model.matmul_precision!r}, attention_precision="
                 f"{model.attention_precision!r}; the settings configure {precision!r}, {attention!r}"
             )
+        elif mesh is not None and model.mesh is not mesh:
+            raise ValueError(f"the given model is on mesh {model.mesh}, the services on {mesh}")
         out = cls(model, batch_size=settings.tpu.embed_batch_size, min_pixels=settings.model.min_pixels,
                   max_pixels=settings.model.max_pixels, fde_config=fde_config,
                   static_act_scales=settings.model.static_act_scales)

@@ -1,6 +1,5 @@
-"""Single-device multivector index: PyTorch port of
-`morphik_core_tpu/index/multivector_index.py:94-1826` (all but the mesh
-paths).
+"""Multivector index, on one device or row-sharded over a mesh: PyTorch
+port of `morphik_core_tpu/index/multivector_index.py:94-1826`.
 
   - FDE vectors live in fixed-size device blocks, int8-quantized by
     default (per-row scale). Blocks are immutable once full, so a store
@@ -14,6 +13,14 @@ paths).
     `use_pallas=False` (the reference's argument) runs the plain
     versions of K1/K2 on the same device instead.
   - Filtering = a device gate over per-row document codes.
+  - `mesh=` (a `parallel/mesh.py::Mesh`): each FDE, mask, code and
+    pooled block is a list of row shards over its "data" axis (data shard
+    d on the first device of data row d), in the same lists and under the
+    same watermarks as on one device; the ANN scan and the pooled rescore
+    run on every shard and merge by one gather onto the first device
+    (`parallel/search.py::make_mesh_block_search*`).
+    The exact rerank and the device candidate cache stay on the mesh's
+    first device, as in the reference.
   - Persistence, in the reference's file format (an index written by
     either package opens in the other): rows [0, _persisted) live in
     fde.bin / mv.bin / pooled.bin and are read through mmaps; rows
@@ -58,7 +65,10 @@ from morphik_core_tpu_torch.ops.maxsim import (
     quantize_query_q8,
 )
 from morphik_core_tpu_torch.ops.pooling import pool_multivector, pooled_token_count
+from morphik_core_tpu_torch.parallel.mesh import data_sharding, normalize_device
 from morphik_core_tpu_torch.parallel.search import (
+    make_mesh_block_search,
+    make_mesh_block_search_pooled,
     quantize_rows_int8,
     quantize_vec_int8,
     scan_blocks_topk,
@@ -84,6 +94,13 @@ def _fsync_dir(path: Path) -> None:
             os.close(fd)
     except OSError:  # platforms without directory fsync
         pass
+
+
+def _host_tensor(x: np.ndarray) -> torch.Tensor:
+    x = np.ascontiguousarray(x)
+    if not x.flags.writeable:  # a read-only mmap slice or another framework's buffer
+        x = x.copy()
+    return torch.from_numpy(x)
 
 
 def _round_capacity(n: int, minimum: int = 1024) -> int:
@@ -151,13 +168,14 @@ class IndexRecord:
 
 
 class MultiVectorIndex:
-    """One namespace worth of chunk multivectors on one device."""
+    """One namespace worth of chunk multivectors, on one device or a mesh."""
 
     def __init__(
         self,
         fde_config: Optional[FDEConfig] = None,
         *,
         device=None,
+        mesh=None,
         prefilter_multiplier: int = 30,
         prefilter_cap: int = 300,
         store_dtype=np.float16,
@@ -181,6 +199,11 @@ class MultiVectorIndex:
         if ann_dtype not in ("int8", "bfloat16", "float32"):
             raise ValueError(f"unknown ann_dtype {ann_dtype!r}")
         self.fde_config = fde_config or FDEConfig()
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and normalize_device(device) != mesh.first_device:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh.first_device}")
+            device = mesh.first_device
         self.device = torch.device(device) if device is not None else default_device()
         self.prefilter_multiplier = prefilter_multiplier
         self.prefilter_cap = prefilter_cap
@@ -242,17 +265,16 @@ class MultiVectorIndex:
         self._mask_rows = 0
         self._code_blocks: List[torch.Tensor] = []
         self._code_rows = 0
-        self._pooled_blocks: List[torch.Tensor] = []  # (B, T, D) int8
-        self._pooled_scales: List[torch.Tensor] = []  # (B, T) f32, 0 = padded token
-        self._pooled_masks: List[torch.Tensor] = []  # (B, T) f32, scale > 0
+        self._pooled_blocks: List[Any] = []  # (int8, scales, masks) tuples
         self._pooled_rows = 0
         self._pooled_bucket = 0
         self._allowed_ones: Dict[int, torch.Tensor] = {}
-        self._zeros_codes_cache: Optional[torch.Tensor] = None
+        self._zeros_codes_cache: Optional[Tuple[int, Any]] = None  # (B, zeros block)
         self._cache_slots = int(device_cache_slots)
         self._cache_bucket = int(device_cache_token_bucket)
         self._pool_cache: Optional[DevicePoolCache] = None
         self._pooled_cache: Optional[DevicePoolCache] = None
+        self.last_mesh_upload_rows = 0  # FDE rows the last block refresh uploaded
         self.last_timing: Dict[str, Any] = {}
         self._read_only = False
 
@@ -431,6 +453,8 @@ class MultiVectorIndex:
         return np.asarray(self._pool_row(self._mv_row(row)), np.float32)
 
     # --- device blocks -------------------------------------------------------
+    # On a mesh each block entry is a list of row shards, one a data shard
+    # (`_upload`); the lists, watermarks and tail refresh are the same.
 
     def _sync_block_size(self) -> None:
         B = min(self.block_rows, _round_capacity(max(self._count, 1)))
@@ -439,18 +463,35 @@ class MultiVectorIndex:
             self._dev_blocks, self._dev_rows = [], 0
             self._mask_blocks, self._mask_rows = [], 0
             self._code_blocks, self._code_rows = [], 0
-            self._pooled_blocks, self._pooled_scales, self._pooled_masks = [], [], []
-            self._pooled_rows = 0
+            self._pooled_blocks, self._pooled_rows = [], 0
 
     def _span(self, b: int) -> Tuple[int, int]:
         B = self._active_block
         return b * B, min((b + 1) * B, self._count)
 
     def _to_dev(self, x: np.ndarray) -> torch.Tensor:
-        x = np.ascontiguousarray(x)
-        if not x.flags.writeable:  # a read-only mmap slice or another framework's buffer
-            x = x.copy()
-        return torch.from_numpy(x).to(self.device)
+        return _host_tensor(x).to(self.device)
+
+    def _upload(self, x: np.ndarray, dtype: Optional[torch.dtype] = None):
+        """Host block `x` (in `dtype`) on the device; on a mesh, cut by rows
+        into its data shards, shard d on the first device of data row d."""
+        t = _host_tensor(x)
+        parts = [t.to(self.device)] if self.mesh is None else data_sharding(self.mesh, t)
+        if dtype is not None:
+            parts = [p.to(dtype) for p in parts]
+        return parts[0] if self.mesh is None else parts
+
+    def _n_blocks(self) -> int:
+        return -(-self._count // self._active_block)
+
+    def _refresh(self, blocks: list, rows: int, make) -> int:
+        """Tail refresh of a per-block list whose watermark is `rows`: the
+        blocks below the one holding row `rows` stay resident, the rest are
+        made again by `make(b)`. Returns the rows made."""
+        first_dirty = min(rows // self._active_block, len(blocks))
+        del blocks[first_dirty:]
+        blocks.extend(make(b) for b in range(first_dirty, self._n_blocks()))
+        return self._count - first_dirty * self._active_block
 
     def _block_arrays(self, b: int):
         """Device payload for FDE block b, padded to B rows: (int8 rows,
@@ -463,38 +504,38 @@ class MultiVectorIndex:
             if pad:
                 q = np.concatenate([q, np.zeros((pad, self._fde_dim), np.int8)])
                 s = np.concatenate([s, np.ones(pad, np.float32)])
-            return self._to_dev(q), self._to_dev(s)
+            return self._upload(q), self._upload(s)
         if pad:
             rows = np.concatenate([rows, np.zeros((pad, self._fde_dim), np.float32)])
-        dt = torch.bfloat16 if self.ann_dtype == "bfloat16" else torch.float32
-        return self._to_dev(rows).to(dt)
-
-    def _n_blocks(self) -> int:
-        return -(-self._count // self._active_block)
+        return self._upload(rows, torch.bfloat16 if self.ann_dtype == "bfloat16" else torch.float32)
 
     def _ensure_device_blocks(self) -> None:
+        """`last_mesh_upload_rows` counts the FDE rows this call uploaded."""
         self._sync_block_size()
+        self.last_mesh_upload_rows = 0
         if self._dev_rows == self._count and self._dev_blocks:
             return
-        first_dirty = self._dev_rows // self._active_block
-        del self._dev_blocks[first_dirty:]
-        for b in range(first_dirty, self._n_blocks()):
-            self._dev_blocks.append(self._block_arrays(b))
+        self.last_mesh_upload_rows = self._refresh(self._dev_blocks, self._dev_rows, self._block_arrays)
         self._dev_rows = self._count
+
+    def _mask_block(self, b: int):
+        lo, hi = self._span(b)
+        m = np.zeros(self._active_block, np.float32)
+        m[: hi - lo] = self._alive[lo:hi]
+        return self._upload(m)
 
     def _ensure_mask_blocks(self) -> None:
         self._sync_block_size()
         if self._mask_rows == self._count and self._mask_blocks:
             return
-        B = self._active_block
-        first_dirty = min(self._mask_rows // B, len(self._mask_blocks))
-        del self._mask_blocks[first_dirty:]
-        for b in range(first_dirty, self._n_blocks()):
-            lo, hi = self._span(b)
-            m = np.zeros(B, np.float32)
-            m[: hi - lo] = self._alive[lo:hi]
-            self._mask_blocks.append(self._to_dev(m))
+        self._refresh(self._mask_blocks, self._mask_rows, self._mask_block)
         self._mask_rows = self._count
+
+    def _code_block(self, b: int):
+        lo, hi = self._span(b)
+        c = np.zeros(self._active_block, np.int64)
+        c[: hi - lo] = self._row_code[lo:hi]
+        return self._upload(c)
 
     def _ensure_code_blocks(self) -> None:
         """Per-row document codes on the device, built only for filtered
@@ -502,14 +543,7 @@ class MultiVectorIndex:
         self._sync_block_size()
         if self._code_rows == self._count and self._code_blocks:
             return
-        B = self._active_block
-        first_dirty = min(self._code_rows // B, len(self._code_blocks))
-        del self._code_blocks[first_dirty:]
-        for b in range(first_dirty, self._n_blocks()):
-            lo, hi = self._span(b)
-            c = np.zeros(B, np.int64)
-            c[: hi - lo] = self._row_code[lo:hi]
-            self._code_blocks.append(self._to_dev(c))
+        self._refresh(self._code_blocks, self._code_rows, self._code_block)
         self._code_rows = self._count
 
     def _codes(self, doc_ids) -> tuple:
@@ -517,10 +551,9 @@ class MultiVectorIndex:
             self._ensure_code_blocks()
             return tuple(self._code_blocks)
         B = self._active_block
-        z = self._zeros_codes_cache
-        if z is None or z.shape[0] != B:
-            z = self._zeros_codes_cache = torch.zeros(B, dtype=torch.long, device=self.device)
-        return (z,) * len(self._dev_blocks)
+        if self._zeros_codes_cache is None or self._zeros_codes_cache[0] != B:
+            self._zeros_codes_cache = (B, self._upload(np.zeros(B, np.int64)))
+        return (self._zeros_codes_cache[1],) * len(self._dev_blocks)
 
     # --- device-resident pooled tier ------------------------------------------
 
@@ -539,9 +572,18 @@ class MultiVectorIndex:
         return n_blocks * B * self._tier_bucket() * (self._dim + 4)
 
     def _tier_active(self) -> bool:
+        """The device pooled tier serves when configured and within the
+        byte budget. On a mesh the budget gates each device's share of the
+        row-sharded tier, and the tier needs the int8 ANN (a float mesh
+        index takes the upload prefilter)."""
         if self.pooled_tier_factor <= 1 or self._count == 0:
             return False
-        return self.tier_bytes_estimate() <= self.pooled_tier_budget_mb * (1 << 20)
+        est = self.tier_bytes_estimate()
+        if self.mesh is not None:
+            if self.ann_dtype != "int8":
+                return False
+            est //= self.mesh.n_data
+        return est <= self.pooled_tier_budget_mb * (1 << 20)
 
     def _pooled_block_host(self, b: int, bucket: int):
         """Per-token int8 + scales for pooled block b; scale 0 marks a
@@ -567,23 +609,20 @@ class MultiVectorIndex:
         return q8, sc
 
     def _ensure_pooled_blocks(self) -> None:
+        """Pooled block b on the device as (int8 (B, T, D), scales (B, T)
+        with 0 = padded token, masks (B, T) = scale > 0)."""
         self._sync_block_size()
         bucket = self._tier_bucket()
         if bucket != self._pooled_bucket:
-            self._pooled_blocks, self._pooled_scales, self._pooled_masks = [], [], []
-            self._pooled_rows = 0
-            self._pooled_bucket = bucket
+            self._pooled_blocks, self._pooled_rows, self._pooled_bucket = [], 0, bucket
         if self._pooled_rows == self._count and self._pooled_blocks:
             return
-        first_dirty = self._pooled_rows // self._active_block
-        for lst in (self._pooled_blocks, self._pooled_scales, self._pooled_masks):
-            del lst[first_dirty:]
-        for b in range(first_dirty, self._n_blocks()):
+
+        def make(b):
             q8, sc = self._pooled_block_host(b, bucket)
-            sc_t = self._to_dev(sc)
-            self._pooled_blocks.append(self._to_dev(q8))
-            self._pooled_scales.append(sc_t)
-            self._pooled_masks.append((sc_t > 0).float())
+            return self._upload(q8), self._upload(sc), self._upload((sc > 0).astype(np.float32))
+
+        self._refresh(self._pooled_blocks, self._pooled_rows, make)
         self._pooled_rows = self._count
 
     def _unpack(self, packed: torch.Tensor, limit: int) -> List[int]:
@@ -595,7 +634,9 @@ class MultiVectorIndex:
 
     def _ann_pooled_topm(self, qe, q: np.ndarray, doc_ids, pool_size: int, m: int) -> List[int]:
         """Blocked ANN scan -> top-pool -> pooled MaxSim rescore over the
-        device tier -> top-m survivors (first m//2 = the FDE head)."""
+        device tier -> top-m survivors (first m//2 = the FDE head). On a
+        mesh: the row-sharded int8 scan and rescore, merged on the first
+        device (the same pool, guard and survivors)."""
         self._ensure_device_blocks()
         self._ensure_mask_blocks()
         self._ensure_pooled_blocks()
@@ -605,9 +646,18 @@ class MultiVectorIndex:
         allowed = self._allowed_vec(doc_ids)
         q8p, qsp = quantize_query_q8(q)
         q8p, qsp = self._to_dev(q8p), self._to_dev(qsp)
-        m_pad = min(_round_capacity(m, minimum=16), pool_size)
         guard = m // 2
-        tier = (tuple(self._pooled_blocks), tuple(self._pooled_scales), tuple(self._pooled_masks))
+        tier = tuple(zip(*self._pooled_blocks))
+        if self.mesh is not None:
+            pool_true = min(pool_size, kb)
+            search = make_mesh_block_search_pooled(self.mesh, len(self._dev_blocks), kb, pool_true,
+                                                   min(_round_capacity(m, minimum=16), pool_true), guard,
+                                                   use_kernel=self._use_kernel)
+            qq, qs = qe
+            packed = search(qq, qs, allowed, tuple(b[0] for b in self._dev_blocks),
+                            tuple(b[1] for b in self._dev_blocks), masks, codes, *tier, q8p, qsp)
+            return self._unpack(packed, m)
+        m_pad = min(_round_capacity(m, minimum=16), pool_size)
         if self.ann_dtype == "int8":
             q_dev, qs_dev = qe
             packed = scan_blocks_topk_q_pooled(
@@ -666,14 +716,27 @@ class MultiVectorIndex:
         return fq
 
     def _ann_pool(self, qe, doc_ids, pool_size: int) -> List[int]:
-        """Top-`pool_size` candidate rows by FDE dot product."""
+        """Top-`pool_size` candidate rows by FDE dot product. On a mesh each
+        data shard keeps its local top-k (k bucketed pow-2, at most a
+        shard's rows), merged by one gather."""
         allowed = self._allowed_vec(doc_ids)
         self._ensure_device_blocks()
         self._ensure_mask_blocks()
-        kb = min(_round_capacity(pool_size, minimum=16), self._active_block)
         masks = tuple(self._mask_blocks)
         codes = self._codes(doc_ids)
-        if self.ann_dtype == "int8":
+        int8 = self.ann_dtype == "int8"
+        if self.mesh is not None:
+            k = min(_round_capacity(pool_size, minimum=16), self._active_block // self.mesh.n_data)
+            search = make_mesh_block_search(self.mesh, len(self._dev_blocks), k, int8)
+            if int8:
+                qq, qs = qe
+                packed = search(qq, qs, allowed, tuple(b[0] for b in self._dev_blocks),
+                                tuple(b[1] for b in self._dev_blocks), masks, codes)
+            else:
+                packed = search(qe, allowed, self._dev_blocks, masks, codes)
+            return self._unpack(packed, pool_size)
+        kb = min(_round_capacity(pool_size, minimum=16), self._active_block)
+        if int8:
             q_dev, qs_dev = qe
             packed = scan_blocks_topk_q(
                 tuple(b[0] for b in self._dev_blocks), tuple(b[1] for b in self._dev_blocks),
@@ -1259,8 +1322,6 @@ class MultiVectorIndex:
         self._allowed_ones = {}
         self._zeros_codes_cache = None
         self._pooled_blocks = []
-        self._pooled_scales = []
-        self._pooled_masks = []
         self._pooled_rows = 0
         self._pooled_bucket = 0
 

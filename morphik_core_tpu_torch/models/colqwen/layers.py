@@ -12,6 +12,14 @@ N multiples of 8, so the leaf stores q8 zero-padded to multiples of 8
 (the 3B vision MLP's 3420 becomes 3424) and the product pads x's rows and
 columns with zeros and slices the output: zeros add nothing to an
 integer sum, so every entry is the reference's.
+
+Tensor parallelism (the mesh's model axis): `shard_weight` cuts a weight
+by columns or rows, and `row_parallel_linear` is the product of a
+row-split weight with its column-split input. Its W8A8 form takes each
+token's activation max over the whole K (an all-reduce max across the
+shards) before quantizing, and adds the shards' exact int32 partial
+products (an all-reduce sum) before the f32 epilogue, so it equals the
+single-device `q8_matmul` bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from morphik_core_tpu_torch.parallel.collectives import all_reduce_max, reduce_sum
 
 # The reference quantizes and serves under `jax.jit`, where XLA rewrites
 # `max / 127.0` into `max * f32(1 / 127)`; the port computes that compiled
@@ -95,9 +105,13 @@ def quantize_act_int8(x: torch.Tensor, a_scale: Optional[torch.Tensor] = None):
     if a_scale is not None:
         xs = a_scale.float()
         return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
-    ax = xf.abs().amax(dim=-1, keepdim=True)
-    xs = torch.where(ax == 0, torch.ones_like(ax), ax * _INV_127)
+    xs = _act_scale(xf.abs().amax(dim=-1, keepdim=True))
     return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
+
+
+def _act_scale(ax: torch.Tensor) -> torch.Tensor:
+    """Per-token dynamic scale from each token's max |x|."""
+    return torch.where(ax == 0, torch.ones_like(ax), ax * _INV_127)
 
 
 def int8_dot(xq: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
@@ -144,6 +158,43 @@ def linear_multi(x: torch.Tensor, ws: Sequence, bs: Sequence) -> List[torch.Tens
         xq, xs = quantize_act_int8(x, ws[0].a_scale)
         return [_dequant(int8_dot(xq, w), xs, w, b, x.dtype) for w, b in zip(ws, bs)]
     return [linear(x, w, b) for w, b in zip(ws, bs)]
+
+
+def shard_weight(w, split: str, lo: int, hi: int, device):
+    """Columns (`split="columns"`) or rows (`"rows"`) [lo, hi) of a (K, N)
+    weight, copied onto `device`: a parameter, or a `QuantizedWeight` with
+    its own padding to multiples of 8, whose per-channel scales follow the
+    columns (a row slice keeps them all) and which keeps the static scale."""
+    if split not in ("columns", "rows"):
+        raise ValueError(f"unknown split {split!r}")
+    if isinstance(w, QuantizedWeight):
+        q8 = w.q8[: w.k, lo:hi] if split == "columns" else w.q8[lo:hi, : w.n]
+        out = QuantizedWeight(q8.shape[0], q8.shape[1], device=device)
+        out.load(q8, w.s[lo:hi] if split == "columns" else w.s, w.a_scale)
+        return out
+    part = w.detach()[:, lo:hi] if split == "columns" else w.detach()[lo:hi]
+    return nn.Parameter(part.to(device, copy=True).contiguous(), requires_grad=False)
+
+
+def row_parallel_linear(xs: Sequence[torch.Tensor], ws: Sequence, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`x @ w (+ b)` with x split by columns and w by rows over the model
+    shards: shard j holds `xs[j]` and `ws[j]` on its own device. Returns
+    the result on the first shard's device (with `b` there). W8A8: the
+    per-token max is all-reduced (max) before quantizing, unless a static
+    scale is attached, and the int32 partials are summed exactly before
+    `acc * xs * ws + b`: the single-device `q8_matmul`, bit for bit.
+    bf16 / f32: the partials are summed in f32 and rounded once."""
+    dtype = xs[0].dtype
+    if all(isinstance(w, QuantizedWeight) for w in ws):
+        if ws[0].a_scale is None:
+            scales = [_act_scale(a) for a in all_reduce_max([x.float().abs().amax(dim=-1, keepdim=True) for x in xs])]
+        else:
+            scales = [w.a_scale.float() for w in ws]
+        acc = reduce_sum([int8_dot(torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8), w)
+                          for x, s, w in zip(xs, scales, ws)])
+        return _dequant(acc, scales[0], ws[0], b, dtype)
+    out = reduce_sum([(x @ w).float() for x, w in zip(xs, ws)]).to(dtype)
+    return out if b is None else out + b
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

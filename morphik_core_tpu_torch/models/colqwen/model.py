@@ -18,6 +18,15 @@ model never holds its float and int8 weights at once.
 `from_checkpoint` serves an HF checkpoint directory: the weights through
 `convert.hf_leaves`, the `tokenizer.json` through the port's own Qwen2
 BPE (`tokenizer.py`), neither needing the HF packages.
+
+`mesh=` (a `parallel/mesh.py::Mesh` of ("data", "model")) serves the model
+on a mesh of cards from one process, as the reference's `ColQwenModel(
+mesh=...)`: once its weights are filled (and quantized), the text decoder
+is tensor-parallel over "model" and everything else is replicated on the
+first device of each data row (`shard_colqwen_params`). An image batch is
+padded to a multiple of "data" by repeating its last page, each data
+shard runs its own forward on its row, and the shards are gathered on the
+mesh's first device; queries run on the first data row.
 """
 
 from __future__ import annotations
@@ -45,6 +54,14 @@ from morphik_core_tpu_torch.models.colqwen.safetensors import CheckpointDir
 from morphik_core_tpu_torch.models.colqwen.text import TextDecoder, mrope_cos_sin, mrope_position_ids
 from morphik_core_tpu_torch.models.colqwen.tokenizer import QwenTokenizer
 from morphik_core_tpu_torch.models.colqwen.vision import VisionTower, _param, vision_rotary_cos_sin
+from morphik_core_tpu_torch.parallel.collectives import gather
+from morphik_core_tpu_torch.parallel.mesh import (
+    Mesh,
+    data_sharding,
+    normalize_device,
+    replicated,
+    shard_colqwen_params,
+)
 
 #: weight leaves converted by `quantize_colqwen_params` (the big matmuls;
 #: norms, biases, embeddings, patch embed, merger and projection stay)
@@ -120,6 +137,8 @@ def quantize_colqwen_params(model: "ColQwenModel") -> "ColQwenModel":
     `QuantizedWeight` (dynamic activation scales until calibrated)."""
     if model.matmul_precision != "bf16":
         raise ValueError(f"model is already {model.matmul_precision}")
+    if model.mesh is not None:
+        raise ValueError("quantize before sharding: the model is already on a mesh")
     for mod, names in _layers(model):
         for name in names:
             q = QuantizedWeight.from_float(getattr(mod, name))
@@ -199,6 +218,7 @@ class _Filler:
                     and id(m) not in self.assigned]
         if missing:
             raise ValueError(f"param tree lacks {missing[:5]} ({len(missing)} leaves)")
+        model.shard_pending()
 
 
 def load_jax_params(model: "ColQwenModel", tree: dict) -> None:
@@ -250,6 +270,7 @@ class ColQwenModel(nn.Module):
         matmul_precision: str = "bf16",
         attention_precision: str = "bf16",
         tokenizer: Optional[QwenTokenizer] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """Parameters are allocated uninitialised on `device`; fill them
         with `init_random`, `from_fixture`, `from_checkpoint` or
@@ -257,9 +278,15 @@ class ColQwenModel(nn.Module):
         or "int8" (W8A8 leaves); `attention_precision`: "bf16" or "int8"
         (the int8 QK^T in every attention of both towers; the windowed
         vision blocks then run it in place of K3). Without a `tokenizer`,
-        text goes through the reference's byte fallback."""
+        text goes through the reference's byte fallback. With `mesh`, the
+        parameters are allocated on its first device and the model moves
+        onto the mesh once they are filled."""
         super().__init__()
         _check_precisions(matmul_precision, attention_precision)
+        if mesh is not None:
+            if device is not None and normalize_device(device) != mesh.first_device:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh.first_device}")
+            device = mesh.first_device
         if attention_precision == "int8":
             cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, qk_int8=True),
                                       text=dataclasses.replace(cfg.text, qk_int8=True))
@@ -274,16 +301,42 @@ class ColQwenModel(nn.Module):
         self.text = TextDecoder(cfg.text, self.device, dtype, int8)
         self.proj_w = _param(cfg.text.hidden_size, cfg.embedding_dim, device=self.device, dtype=dtype)
         self.proj_b = _param(cfg.embedding_dim, device=self.device, dtype=dtype)
+        self.mesh: Optional[Mesh] = None  # set by `shard_colqwen_params`
+        self._pending_mesh = mesh
+        self._replicas: Dict[torch.device, tuple] = {}  # lead device -> (visual, embed, proj_w, proj_b)
+
+    def shard_pending(self) -> None:
+        """Move onto the constructor's mesh, once the weights are filled."""
+        if self._pending_mesh is not None:
+            mesh, self._pending_mesh = self._pending_mesh, None
+            shard_colqwen_params(self, mesh)
+
+    def place_replicas(self) -> None:
+        """Copy the replicated leaves (the vision tower, the embedding and
+        the projection) to the first device of each data row; on the
+        model's own device they are the model's own."""
+        parts = [replicated(self.mesh, x) for x in (self.visual, self.text.embed, self.proj_w, self.proj_b)]
+        self._replicas = {d: tuple(p[d] for p in parts) for d in self.mesh.row_leads()}
+
+    def _on(self, device):
+        """(visual, embed, proj_w, proj_b) on `device`, a data row's first
+        device (off a mesh: the model's own)."""
+        if self.mesh is None:
+            return self.visual, self.text.embed, self.proj_w, self.proj_b
+        return self._replicas[device]
 
     # -- construction -----------------------------------------------------
 
     @classmethod
     def init_random(cls, cfg: Optional[ColQwenConfig] = None, seed: int = 0, device=None,
-                    dtype=torch.float32, attention_precision: str = "bf16") -> "ColQwenModel":
+                    dtype=torch.float32, attention_precision: str = "bf16",
+                    mesh: Optional[Mesh] = None) -> "ColQwenModel":
         """Random weights by the reference's init law (N(0, 0.02) matrices
         and embeddings, unit norms, zero biases), drawn from a seeded
-        `torch.Generator` on the target device in `dtype`."""
-        model = cls(cfg or ColQwenConfig.tiny(), device=device, dtype=dtype, attention_precision=attention_precision)
+        `torch.Generator` on the target device in `dtype` (the same weights
+        with or without `mesh`)."""
+        model = cls(cfg or ColQwenConfig.tiny(), device=device, dtype=dtype, attention_precision=attention_precision,
+                    mesh=mesh)
         gen = torch.Generator(device=model.device)
         gen.manual_seed(seed)
         with torch.no_grad():
@@ -296,21 +349,23 @@ class ColQwenModel(nn.Module):
                     p.zero_()
                 else:  # norm weights
                     p.fill_(1.0)
+        model.shard_pending()
         return model
 
     @classmethod
-    def from_fixture(cls, path, device=None, matmul_precision: str = "bf16") -> "ColQwenModel":
+    def from_fixture(cls, path, device=None, matmul_precision: str = "bf16",
+                     mesh: Optional[Mesh] = None) -> "ColQwenModel":
         """The committed tiny trained fixture (npz), in f32 (its matmul
         weights quantized with `matmul_precision="int8"`)."""
         path = Path(path)
         model = cls(load_config_npz(path) or ColQwenConfig.tiny(), device=device,
-                    dtype=torch.float32, matmul_precision=matmul_precision)
+                    dtype=torch.float32, matmul_precision=matmul_precision, mesh=mesh)
         load_jax_params(model, load_params_npz(path))
         return model
 
     @classmethod
     def from_checkpoint(cls, path, dtype=torch.bfloat16, device=None, matmul_precision: str = "bf16",
-                        attention_precision: str = "bf16") -> "ColQwenModel":
+                        attention_precision: str = "bf16", mesh: Optional[Mesh] = None) -> "ColQwenModel":
         """An HF-format ColQwen2.5 checkpoint directory (config.json,
         *.safetensors, an optional tokenizer.json), its weights converted
         to `dtype` on `device` one tensor at a time and, with
@@ -323,7 +378,7 @@ class ColQwenModel(nn.Module):
         tokenizer = QwenTokenizer.from_file(tok_file) if tok_file.exists() else None
         state = CheckpointDir(path)
         model = cls(cfg, device=device, dtype=dtype, matmul_precision=matmul_precision,
-                    attention_precision=attention_precision, tokenizer=tokenizer)
+                    attention_precision=attention_precision, tokenizer=tokenizer, mesh=mesh)
         filler = _Filler(model)
         for leaf_path, layer, value in hf_leaves(state, cfg, dtype, model.device):
             filler.leaf(leaf_path, layer, value)
@@ -345,22 +400,27 @@ class ColQwenModel(nn.Module):
 
         maxes, qk_maxes = capture_vision_act_maxes(self, u8_batches, h_units, w_units)
         attach_vision_act_scales(self, maxes, margin, qk_maxes)
+        if self.mesh is not None:  # the replicated tower, calibrated once, placed again
+            self.place_replicas()
 
     # -- forward ----------------------------------------------------------
 
     def _project(self, hidden, mask) -> torch.Tensor:
-        proj = (hidden @ self.proj_w + self.proj_b).float()
+        _, _, proj_w, proj_b = self._on(hidden.device)
+        proj = (hidden @ proj_w + proj_b).float()
         norm = torch.linalg.vector_norm(proj, dim=-1, keepdim=True)
         return proj / norm.clamp(min=1e-12) * mask[..., None]
 
     def image_forward(self, patches, cos_v, sin_v, input_ids, cos_t, sin_t,
-                      h_units: int, w_units: int) -> torch.Tensor:
+                      h_units: int, w_units: int, row=None) -> torch.Tensor:
         """patches (B, S, 588) uint8 or (B, S, 1176) float -> (B, S_seq,
-        embedding_dim) L2-normalized f32 multivectors."""
+        embedding_dim) L2-normalized f32 multivectors. On a mesh, `row` is
+        the data row's devices and the inputs live on row[0]."""
+        visual, embed, _, _ = self._on(patches.device)
         if patches.dtype == torch.uint8:
             patches = expand_patches_u8(patches, self.dtype)
-        vis = self.visual(patches.to(self.dtype), cos_v, sin_v, h_units, w_units)
-        embeds = self.text.embed[input_ids]
+        vis = visual(patches.to(self.dtype), cos_v, sin_v, h_units, w_units)
+        embeds = embed[input_ids]
         # image-pad positions are one contiguous run, identical across the
         # batch: align the visual stream by a cumsum index and select
         is_img = input_ids == self.cfg.image_token_id
@@ -368,12 +428,12 @@ class ColQwenModel(nn.Module):
         vis_aligned = torch.gather(vis, 1, idx[..., None].long().expand(-1, -1, vis.shape[-1]))
         embeds = torch.where(is_img[..., None], vis_aligned.to(embeds.dtype), embeds)
         mask = torch.ones(input_ids.shape, dtype=torch.float32, device=input_ids.device)
-        hidden = self.text(embeds, cos_t, sin_t, mask)
+        hidden = self.text(embeds, cos_t, sin_t, mask, row=row)
         return self._project(hidden, mask)
 
-    def text_forward(self, input_ids, attention_mask, cos_t, sin_t) -> torch.Tensor:
-        embeds = self.text.embed[input_ids]
-        hidden = self.text(embeds, cos_t, sin_t, attention_mask)
+    def text_forward(self, input_ids, attention_mask, cos_t, sin_t, row=None) -> torch.Tensor:
+        _, embed, _, _ = self._on(input_ids.device)
+        hidden = self.text(embed[input_ids], cos_t, sin_t, attention_mask, row=row)
         return self._project(hidden, attention_mask)
 
     # -- image path -------------------------------------------------------
@@ -391,17 +451,31 @@ class ColQwenModel(nn.Module):
                           as_device: bool = False):
         """patches (B, S, 588) uint8 or (B, S, 1176) float for one grid
         bucket -> (B, S_seq, dim) f32 numpy, or the device tensor with
-        `as_device=True`."""
+        `as_device=True` (on a mesh: on its first device)."""
         b = patches.shape[0]
+        if self.mesh is not None:  # pad to the data axis by repeating the last page
+            pad = (-b) % self.mesh.n_data
+            patches = np.concatenate([patches, np.repeat(patches[-1:], pad, axis=0)]) if pad else patches
+        bp = patches.shape[0]
         cos_v, sin_v = vision_rotary_cos_sin(h_units, w_units, self.cfg.vision)
         ids = self.image_sequence_ids(h_units * w_units)
-        input_ids = np.tile(ids[None], (b, 1))
-        pos = mrope_position_ids(input_ids, self.cfg.image_token_id, [(1, h_units, w_units)] * b)
+        input_ids = np.tile(ids[None], (bp, 1))
+        pos = mrope_position_ids(input_ids, self.cfg.image_token_id, [(1, h_units, w_units)] * bp)
         cos_t, sin_t = mrope_cos_sin(pos, self.cfg.text)
-        out = self.image_forward(
-            self._dev(patches), self._dev(cos_v), self._dev(sin_v), self._dev(input_ids),
-            self._dev(cos_t), self._dev(sin_t), h_units, w_units,
-        )
+        args = dict(patches=patches, cos_v=cos_v, sin_v=sin_v, input_ids=input_ids, cos_t=cos_t, sin_t=sin_t)
+        if self.mesh is None:
+            out = self.image_forward(**{k: self._dev(v) for k, v in args.items()}, h_units=h_units, w_units=w_units)
+            return out if as_device else out.cpu().numpy()
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in args.items()}
+        # the page inputs split over data; the vision rotary tables replicated
+        split = {k: data_sharding(self.mesh, host[k]) for k in ("patches", "input_ids", "cos_t", "sin_t")}
+        rep = {k: replicated(self.mesh, host[k]) for k in ("cos_v", "sin_v")}
+        outs = []
+        for d in range(self.mesh.n_data):
+            row = self.mesh.row(d)
+            shard = {**{k: v[d] for k, v in split.items()}, **{k: v[row[0]] for k, v in rep.items()}}
+            outs.append(self.image_forward(**shard, h_units=h_units, w_units=w_units, row=row))
+        out = gather(outs)[:b]
         return out if as_device else out.cpu().numpy()
 
     # -- query path -------------------------------------------------------
@@ -445,8 +519,9 @@ class ColQwenModel(nn.Module):
                 mask[j, :n] = 1.0
             pos = mrope_position_ids(input_ids, -1, [None] * b, attention_mask=mask)
             cos_t, sin_t = mrope_cos_sin(pos, self.cfg.text)
-            emb = self.text_forward(
-                self._dev(input_ids), self._dev(mask), self._dev(cos_t), self._dev(sin_t)
+            emb = self.text_forward(  # on a mesh: the first data row (queries are replicated over data)
+                self._dev(input_ids), self._dev(mask), self._dev(cos_t), self._dev(sin_t),
+                row=None if self.mesh is None else self.mesh.row(0),
             ).cpu().numpy()
             for j, i in enumerate(idxs):
                 out[i] = emb[j, : min(len(all_ids[i]), bucket)]

@@ -8,6 +8,13 @@ per forward, f32 softmax and norms. The int8 decoder holds
 `QuantizedWeight` leaves with dynamic activation scales (W8A8, the
 reference's `text.py:147-168`); `linear` dispatches on the leaf. With
 `qk_int8` the attention's QK^T runs in int8 with dynamic scales.
+
+On a mesh (`TextDecoder.shard`) each layer is a
+`TensorParallelDecoderLayer`: its model shards split attention by query
+heads (each with the whole KV heads its heads read) and the MLP by the
+intermediate dim (`parallel/mesh.py::text_shard_ranges`); norms, the
+embedding and the residual stream stay on the first device of the data
+row, and every head computes what the single-device layer computes.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from morphik_core_tpu_torch.models.colqwen.config import TextConfig
@@ -26,8 +34,12 @@ from morphik_core_tpu_torch.models.colqwen.layers import (
     linear,
     linear_multi,
     rms_norm,
+    row_parallel_linear,
+    shard_weight,
     swiglu,
 )
+from morphik_core_tpu_torch.parallel.collectives import broadcast, to_device
+from morphik_core_tpu_torch.parallel.mesh import COLQWEN_TEXT_SPECS, replicated, text_shard_ranges
 from morphik_core_tpu_torch.models.colqwen.vision import _param, _weight
 
 
@@ -123,6 +135,77 @@ class DecoderLayer(nn.Module):
         return x + swiglu(y, self.gate_w, self.up_w, self.down_w)
 
 
+class DecoderShard(nn.Module):
+    """Model shard j of m of one decoder layer, on one device: the column
+    slices of q/k/v (and their biases) and gate/up, the row slices of o
+    and down (`text_shard_ranges`)."""
+
+    def __init__(self, layer: DecoderLayer, m: int, j: int, device):
+        super().__init__()
+        cfg = self.cfg = layer.cfg
+        ranges = text_shard_ranges(cfg, m, j)
+        for name, split in COLQWEN_TEXT_SPECS.items():
+            setattr(self, name, shard_weight(getattr(layer, name), split, *ranges[name], device))
+        for name in ("q_b", "k_b", "v_b"):
+            lo, hi = ranges[name[0] + "_w"]
+            setattr(self, name, nn.Parameter(getattr(layer, name).detach()[lo:hi].to(device, copy=True),
+                                             requires_grad=False))
+        hd = cfg.head_dim
+        (q0, q1), (kv0, _) = ranges["q_w"], ranges["k_w"]
+        self.n_heads, self.n_kv = (q1 - q0) // hd, (ranges["k_w"][1] - kv0) // hd
+        group = cfg.num_attention_heads // cfg.num_key_value_heads
+        # the KV head each local query head reads, among the shard's KV heads
+        self.register_buffer("kv_index", torch.arange(q0 // hd, q1 // hd, device=device) // group - kv0 // hd)
+
+    def attention(self, y, cos, sin, bias):
+        """The shard's heads of the layer's attention -> (B, S, heads x hd)."""
+        cfg = self.cfg
+        b, s, _ = y.shape
+        hd = cfg.head_dim
+        q, k, v = linear_multi(y, (self.q_w, self.k_w, self.v_w), (self.q_b, self.k_b, self.v_b))
+        q, k = apply_rotary(q.reshape(b, s, self.n_heads, hd), k.reshape(b, s, self.n_kv, hd),
+                            cos[:, :, None, :], sin[:, :, None, :])
+        k = k.index_select(2, self.kv_index)
+        v = v.reshape(b, s, self.n_kv, hd).index_select(2, self.kv_index)
+        return attention(q, k, v, bias=bias, qk_int8=cfg.qk_int8).reshape(b, s, self.n_heads * hd)
+
+    def mlp_in(self, y):
+        g, u = linear_multi(y, (self.gate_w, self.up_w), (None, None))
+        return F.silu(g) * u
+
+
+class TensorParallelDecoderLayer(nn.Module):
+    """A decoder layer split over a mesh's model axis: one `DecoderShard`
+    for each (model index, distinct device) the mesh pairs, norms on the
+    first device of each data row."""
+
+    def __init__(self, layer: DecoderLayer, mesh):
+        super().__init__()
+        self.cfg = layer.cfg
+        m = mesh.n_model
+        shards = {}
+        for (_, j), dev in np.ndenumerate(mesh.devices):
+            key = f"{j}@{dev}"
+            if key not in shards:
+                shards[key] = DecoderShard(layer, m, j, dev)
+        self.shards = nn.ModuleDict(shards)
+        self.input_ln, self.post_ln = layer.input_ln, layer.post_ln
+        ins, posts = (replicated(mesh, w) for w in (self.input_ln, self.post_ln))
+        self._norms = {d: (ins[d], posts[d]) for d in ins}
+
+    def forward(self, x, ctx, row):
+        """x (B, S, H) on row[0]; ctx: device -> (cos, sin, bias) there;
+        row: the data row's devices in model-axis order."""
+        eps = self.cfg.rms_norm_eps
+        input_ln, post_ln = self._norms[row[0]]
+        shards = [self.shards[f"{j}@{d}"] for j, d in enumerate(row)]
+        ys = broadcast(rms_norm(x, input_ln, eps), row)
+        outs = [sh.attention(y, *ctx[d]) for sh, y, d in zip(shards, ys, row)]
+        x = x + row_parallel_linear(outs, [sh.o_w for sh in shards])
+        ys = broadcast(rms_norm(x, post_ln, eps), row)
+        return x + row_parallel_linear([sh.mlp_in(y) for sh, y in zip(shards, ys)], [sh.down_w for sh in shards])
+
+
 class TextDecoder(nn.Module):
     def __init__(self, cfg: TextConfig, device, dtype, int8: bool = False):
         super().__init__()
@@ -132,16 +215,33 @@ class TextDecoder(nn.Module):
             DecoderLayer(cfg, device, dtype, int8) for _ in range(cfg.num_hidden_layers)
         )
         self.norm = _param(cfg.hidden_size, device=device, dtype=dtype)
+        self._norms = {}  # device -> final norm there, once sharded
 
-    def forward(self, inputs_embeds, cos, sin, attention_mask) -> torch.Tensor:
+    def shard(self, mesh) -> None:
+        """Split every layer over the model axis (in place; the full weights
+        are dropped) and replicate the final norm over the data rows."""
+        layers = list(self.layers)
+        self.layers = nn.ModuleList()
+        for i, layer in enumerate(layers):  # layer by layer: one full layer beside its shards at a time
+            layers[i] = TensorParallelDecoderLayer(layer, mesh)
+        self.layers = nn.ModuleList(layers)
+        self._norms = replicated(mesh, self.norm)
+
+    def forward(self, inputs_embeds, cos, sin, attention_mask, row=None) -> torch.Tensor:
         """inputs_embeds (B, S, H), cos/sin (B, S, hd), attention_mask (B, S)
-        with 1 = valid -> final-norm hidden states (B, S, H)."""
+        with 1 = valid -> final-norm hidden states (B, S, H). On a mesh,
+        `row` is the data row's devices and the inputs live on row[0]."""
         s = inputs_embeds.shape[1]
         causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=inputs_embeds.device))
         mask = causal[None, None] & (attention_mask[:, None, None, :] > 0)
         zero = torch.zeros((), device=mask.device)
         bias = torch.where(mask, zero, torch.full_like(zero, -1e30))  # built once, f32
         x = inputs_embeds
+        if row is None:
+            for layer in self.layers:
+                x = layer(x, cos, sin, bias)
+            return rms_norm(x, self.norm, self.cfg.rms_norm_eps)
+        ctx = {d: tuple(to_device(t, d) for t in (cos, sin, bias)) for d in dict.fromkeys(row)}
         for layer in self.layers:
-            x = layer(x, cos, sin, bias)
-        return rms_norm(x, self.norm, self.cfg.rms_norm_eps)
+            x = layer(x, ctx, row)
+        return rms_norm(x, self._norms[row[0]], self.cfg.rms_norm_eps)

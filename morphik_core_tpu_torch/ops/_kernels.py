@@ -16,10 +16,18 @@ an error, never a switch to the plain versions.
 launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. The server launches from its event loop
 and from ingest worker threads at once, so counting takes a lock.
+
+A ctypes launch goes to the device that is current, which PyTorch's
+device guards do not set for it, and the kernels' shared-memory limits
+(`maxsim_init`, `window_attention_init`) hold only for the device that
+was current when they were raised. So every launch makes its tensors'
+device current (`_on`), and raises the limits there before its first
+launch on that device: a mesh of several cards launches on each.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,7 +36,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Set
 
 import torch
 
@@ -44,6 +52,7 @@ launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0, "window_attention"
 _counts_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+_ready_devices: Set[int] = set()  # card indices whose shared-memory limits are raised
 
 
 def reset_launch_counts() -> None:
@@ -122,10 +131,23 @@ def library() -> ctypes.CDLL:
             lib.binary_maxsim_launch.restype = ci
             lib.binary_maxsim_plan.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
             lib.binary_maxsim_plan.restype = ci
-            _check(lib.maxsim_init(), "maxsim_init")  # shared-memory limits, once per load
-            _check(lib.window_attention_init(), "window_attention_init")
             _lib = lib
     return _lib
+
+
+@contextlib.contextmanager
+def _on(device: torch.device) -> Iterator[ctypes.CDLL]:
+    """The library, with `device` current and the kernels' shared-memory
+    limits raised there (once a card)."""
+    lib = library()
+    with torch.cuda.device(device):
+        if device.index not in _ready_devices:
+            with _lib_lock:
+                if device.index not in _ready_devices:
+                    _check(lib.maxsim_init(), "maxsim_init")
+                    _check(lib.window_attention_init(), "window_attention_init")
+                    _ready_devices.add(device.index)
+        yield lib
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -141,11 +163,12 @@ def launch_maxsim_q8(q8, qs, d8, ds, mask, idx, part, out, plan) -> None:
     """K1 on already-checked CUDA tensors (see ops/maxsim.py::maxsim_q8);
     `part` is the (C, n_splits, NQ) f32 scratch of `plan`."""
     n_rows, np_, dim = d8.shape
-    rc = library().maxsim_q8_launch(
-        _ptr(q8), _ptr(qs), _ptr(d8), _ptr(ds), _ptr(mask), _ptr(idx), _ptr(part), _ptr(out),
-        out.shape[0], n_rows, np_, q8.shape[0], dim, plan.q_tile, plan.tok_per_split, plan.n_splits,
-        ctypes.c_void_p(torch.cuda.current_stream(d8.device).cuda_stream),
-    )
+    with _on(d8.device) as lib:
+        rc = lib.maxsim_q8_launch(
+            _ptr(q8), _ptr(qs), _ptr(d8), _ptr(ds), _ptr(mask), _ptr(idx), _ptr(part), _ptr(out),
+            out.shape[0], n_rows, np_, q8.shape[0], dim, plan.q_tile, plan.tok_per_split, plan.n_splits,
+            ctypes.c_void_p(torch.cuda.current_stream(d8.device).cuda_stream),
+        )
     _check(rc, "maxsim_q8")
     count_launch("maxsim_q8")
 
@@ -153,11 +176,12 @@ def launch_maxsim_q8(q8, qs, d8, ds, mask, idx, part, out, plan) -> None:
 def launch_maxsim(q, docs, mask, idx, part, out, plan) -> None:
     """K2 on already-checked CUDA tensors (see ops/maxsim.py::maxsim)."""
     n_rows, np_, dim = docs.shape
-    rc = library().maxsim_launch(
-        _ptr(q), _ptr(docs), int(docs.dtype == torch.bfloat16), _ptr(mask), _ptr(idx), _ptr(part),
-        _ptr(out), out.shape[0], n_rows, np_, q.shape[0], dim, plan.q_tile, plan.tok_per_split,
-        plan.n_splits, ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
-    )
+    with _on(docs.device) as lib:
+        rc = lib.maxsim_launch(
+            _ptr(q), _ptr(docs), int(docs.dtype == torch.bfloat16), _ptr(mask), _ptr(idx), _ptr(part),
+            _ptr(out), out.shape[0], n_rows, np_, q.shape[0], dim, plan.q_tile, plan.tok_per_split,
+            plan.n_splits, ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
+        )
     _check(rc, "maxsim")
     count_launch("maxsim")
 
@@ -167,10 +191,11 @@ def launch_window_attention(q, k, v, out, window: int) -> None:
     bf16 goes to `window_attention_mma_kernel`, f32 to the 3xTF32
     `window_attention_tf32_kernel`."""
     t, heads, dim = q.shape
-    rc = library().window_attention_launch(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), int(q.dtype == torch.bfloat16), t, heads, dim, window,
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
-    )
+    with _on(q.device) as lib:
+        rc = lib.window_attention_launch(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), int(q.dtype == torch.bfloat16), t, heads, dim, window,
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+        )
     _check(rc, "window_attention")
     count_launch("window_attention")
 
@@ -179,18 +204,21 @@ def window_attention_occupancy(dtype: torch.dtype, dim: int, window: int) -> Dic
     """The blocks of 128 threads that the K3 kernel of this dtype and shape
     keeps resident on one SM, and its registers a thread (for reports)."""
     blocks, regs = ctypes.c_int(), ctypes.c_int()
-    _check(library().window_attention_occupancy(int(dtype == torch.bfloat16), dim, window, ctypes.byref(blocks),
-                                                ctypes.byref(regs)), "window_attention_occupancy")
+    with _on(torch.device("cuda", torch.cuda.current_device())) as lib:
+        rc = lib.window_attention_occupancy(int(dtype == torch.bfloat16), dim, window, ctypes.byref(blocks),
+                                            ctypes.byref(regs))
+    _check(rc, "window_attention_occupancy")
     return {"blocks_per_sm": blocks.value, "warps_per_sm": 4 * blocks.value, "registers_per_thread": regs.value}
 
 
 def launch_binary_maxsim(q, docs, ntok, out, dim: int) -> None:
     """K4 on already-checked CUDA tensors (see ops/binary.py::binary_maxsim)."""
     n_rows, nd, nb = docs.shape
-    rc = library().binary_maxsim_launch(
-        _ptr(q), _ptr(docs), _ptr(ntok), _ptr(out), n_rows, nd, nb, q.shape[0], dim,
-        ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
-    )
+    with _on(docs.device) as lib:
+        rc = lib.binary_maxsim_launch(
+            _ptr(q), _ptr(docs), _ptr(ntok), _ptr(out), n_rows, nd, nb, q.shape[0], dim,
+            ctypes.c_void_p(torch.cuda.current_stream(docs.device).cuda_stream),
+        )
     _check(rc, "binary_maxsim")
     count_launch("binary_maxsim")
 

@@ -1,1 +1,1 @@
-"""Single-device blocked ANN scan + pooled-tier rescore."""
+"""The device mesh, its collectives, and the blocked ANN scans (single device and mesh)."""

@@ -16,12 +16,19 @@ or the stub), the on-the-fly document query, telemetry with its log
 uploader, the job queue, the user limits and app registry
 (`{storage_path}/user_limits.db`, shared with the JAX package; limits
 enforced in `morphik.mode="cloud"`) and the v2 pipeline with its
-in-memory chunk store, all on one device.
+in-memory chunk store, on one device or on a mesh of cards.
 
-`tpu.auto_mesh`, the one setting of a part the port does not have yet,
-raises `NotImplementedError` naming its ROADMAP item, rather than serve
-another path. Without a card, `build_services` raises unless the caller passes
-`device="cpu"` (as the CPU tests do).
+A mesh (`build_services(mesh=...)`, or `tpu.auto_mesh` with more than one
+visible card: `make_mesh(tpu.mesh_shape)`, as the reference's
+`services_init.py:145-164`; axis names other than ["data", "model"]
+raise) serves the ColPali tower
+data-parallel over "data" and tensor-parallel over "model", and its
+index row-sharded over "data", from this one process; everything else
+lives on the mesh's first device. With one card, `auto_mesh` serves
+single-device, as the reference does on one chip. A job of several
+processes (one a host) raises `NotImplementedError` (ROADMAP item 6c).
+Without a card, `build_services` raises unless the caller passes
+`device="cpu"` (as the CPU tests do; `auto_mesh` then builds no mesh).
 """
 
 from __future__ import annotations
@@ -45,6 +52,14 @@ from morphik_core_tpu_torch.embedding.base_embedding_model import BaseEmbeddingM
 from morphik_core_tpu_torch.embedding.text_embedding import HashingEmbeddingModel, RoutedEmbeddingModel
 from morphik_core_tpu_torch.models.schemas import AuthContext, CompletionRequest
 from morphik_core_tpu_torch.ops.fde import FDEConfig
+from morphik_core_tpu_torch.parallel.mesh import (
+    Mesh,
+    best_mesh,
+    check_axis_names,
+    local_device_count,
+    make_mesh,
+    process_count,
+)
 from morphik_core_tpu_torch.parser.morphik_parser import MorphikParser
 from morphik_core_tpu_torch.reranker.rerankers import ColQwenReranker, build_reranker
 from morphik_core_tpu_torch.services.document_service import DocumentService
@@ -66,10 +81,21 @@ from morphik_core_tpu_torch.workers.job_queue import JobQueue
 logger = logging.getLogger(__name__)
 
 
-def _refuse_unported(settings: Settings) -> None:
-    """Raise on a setting whose path the port does not have yet."""
-    if settings.tpu.auto_mesh:
-        raise NotImplementedError("not ported: tpu.auto_mesh=true (the multi-GPU paths, ROADMAP Queue 1 item 6)")
+def auto_mesh(settings: Settings, device: torch.device) -> Optional[Mesh]:
+    """`tpu.auto_mesh`: the mesh of `tpu.mesh_shape` over every visible
+    card when there is more than one (and the services are on a card),
+    else None. `tpu.mesh_axis_names` other than ["data", "model"] raise."""
+    if not settings.tpu.auto_mesh:
+        return None
+    check_axis_names(settings.tpu.mesh_axis_names)
+    if device.type != "cuda" or local_device_count() <= 1:
+        return None
+    shape = list(settings.tpu.mesh_shape)
+    if process_count() > 1:  # raises: a mesh across hosts is item 6c
+        return best_mesh(model_parallel=shape[1] if len(shape) > 1 else 1)
+    mesh = make_mesh(shape)
+    logger.info("auto mesh: %s", mesh.shape)
+    return mesh
 
 
 def build_storage(settings: Settings) -> BaseStorage:
@@ -170,7 +196,7 @@ class Services:
 
 def _colpali_store(settings: Settings, storage: BaseStorage,
                    embedder: Union[ColpaliEmbeddingModel, ColpaliApiEmbeddingModel],
-                   device: torch.device) -> TorchMultiVectorStore:
+                   device: torch.device, mesh: Optional[Mesh] = None) -> TorchMultiVectorStore:
     """The multivector store of `vector_store` settings; sets an
     in-process embedder's fused ingest FDE when stored rows are not
     pooled (a remote embedder's rows get their FDE when stored)."""
@@ -192,6 +218,7 @@ def _colpali_store(settings: Settings, storage: BaseStorage,
         fde_config=fde_cfg,
         index_path=vs.index_path,
         device=device,
+        mesh=mesh,
         prefilter_multiplier=vs.prefilter_multiplier,
         prefilter_cap=vs.prefilter_cap,
         pooling_factor=vs.multivector_pooling,
@@ -215,10 +242,13 @@ def _colpali_store(settings: Settings, storage: BaseStorage,
 def build_services(
     settings: Optional[Settings] = None,
     *,
+    mesh: Optional[Mesh] = None,
     colqwen_model=None,
     device=None,
 ) -> Services:
-    """The stack `settings` describe, on `device` (the card by default).
+    """The stack `settings` describe, on `device` (the card by default),
+    the ColPali tower and index on `mesh` (or the `tpu.auto_mesh` one); a
+    given `colqwen_model` must then be on that mesh.
     `colqwen_model` is served as given (its precisions must be the
     configured ones); without it, the `model.checkpoint_path` directory is
     loaded, or development mode serves the tiny random model. With
@@ -226,8 +256,10 @@ def build_services(
     embedded by the endpoints (at least one, else the reference's
     ValueError), authenticated by `morphik.morphik_embedding_api_key`."""
     settings = settings or get_settings()
-    _refuse_unported(settings)
     device = torch.device(device) if device is not None else default_device()
+    mesh = mesh if mesh is not None else auto_mesh(settings, device)
+    if mesh is not None:
+        device = mesh.first_device
     storage_root = Path(settings.storage.storage_path)
     database = SQLiteDatabase(settings.database.path)
     storage = build_storage(settings)
@@ -253,8 +285,8 @@ def build_services(
                                                 embedding_dim=settings.model.embedding_dim,
                                                 auth_token=settings.morphik.morphik_embedding_api_key)
         else:
-            embedder = ColpaliEmbeddingModel.from_settings(settings, colqwen_model, device=device)
-        store = _colpali_store(settings, storage, embedder, device)
+            embedder = ColpaliEmbeddingModel.from_settings(settings, colqwen_model, device=device, mesh=mesh)
+        store = _colpali_store(settings, storage, embedder, device, mesh)
     vector_store = TextVectorStore(path=storage_root / "text_index", device=device)
     # the text path's reranker: the ColQwen late-interaction scorer on the
     # tower already in process, else the lexical one

@@ -3,7 +3,9 @@
 port's `MultiVectorIndex`.
 
   - one index per namespace (app_id), created at first use, on the
-    store's device (the card unless the caller passes `device="cpu"`);
+    store's device (the card unless the caller passes `device="cpu"`), or
+    row-sharded over the store's `mesh` (the binary index has no mesh
+    branch, as in the reference: it lives on the mesh's first device);
     with `index_path` set, namespace `ns` persists under
     `{index_path}/{ns}` in the reference's file format and `save()`
     flushes every such index;
@@ -70,6 +72,7 @@ class TorchMultiVectorStore(BaseVectorStore):
         fde_config: Optional[FDEConfig] = None,
         index_path: Optional[str | Path] = None,
         device=None,
+        mesh=None,
         prefilter_multiplier: int = 30,
         prefilter_cap: int = 300,
         use_pallas: Optional[bool] = None,
@@ -93,6 +96,9 @@ class TorchMultiVectorStore(BaseVectorStore):
         self.storage = storage
         self.provider = provider
         self.fde_config = fde_config or FDEConfig()
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.first_device
         self.device = torch.device(device) if device is not None else default_device()
         self.pooling_factor = max(1, int(pooling_factor))
         self.index_path = Path(index_path) if index_path else None
@@ -131,7 +137,7 @@ class TorchMultiVectorStore(BaseVectorStore):
                     # locked before the open: a chunk's payload is uploaded before its rows are saved
                     path.mkdir(parents=True, exist_ok=True)
                     self._locks[ns] = NamespaceLock(path, exclusive=False)
-                self._indexes[ns] = MultiVectorIndex(self.fde_config, device=self.device, path=path,
+                self._indexes[ns] = MultiVectorIndex(self.fde_config, device=self.device, mesh=self.mesh, path=path,
                                                      **self.index_kwargs)
         return self._indexes[ns]
 

@@ -1182,3 +1182,214 @@ def test_colpali_and_offline_evals_on_card_match_cpu(sm90, tmp_path):
     for out in offline:
         out.pop("avg_latency_s")
     assert offline[0] == offline[1] and offline[0]["recall_at_4"] == 1.0
+
+
+@pytest.mark.cuda
+def test_mesh_pooled_search_through_k1_matches_plain(sm90):
+    """`make_mesh_block_search_pooled` on a (2, 1) mesh of one card: each
+    data shard's pooled rescore launches K1 with local row indices, and
+    the packed survivors equal the plain version's (K1's tolerance on
+    the scores)."""
+    from morphik_core_tpu_torch.parallel.mesh import data_sharding, make_mesh
+    from morphik_core_tpu_torch.parallel.search import make_mesh_block_search_pooled, quantize_rows_int8
+
+    rng = np.random.default_rng(21)
+    mesh = make_mesh((2, 1), devices=["cuda:0"] * 2)
+    n_blocks, B, F, T = 2, 512, 64, 16
+
+    def shards(x):
+        return data_sharding(mesh, torch.from_numpy(np.ascontiguousarray(x)).cuda())
+
+    blocks, scales, masks, codes, pb, ps, pm = ([] for _ in range(7))
+    for _ in range(n_blocks):
+        q8, s = quantize_rows_int8(rng.standard_normal((B, F)).astype(np.float32))
+        dense = rng.standard_normal((B, T, D)).astype(np.float32)
+        dense[:, 11:] = 0.0
+        dense[::7] = 0.0  # fully masked rows score 0
+        p8, psc = quantize_rows_int8(dense)
+        psc = psc * (np.abs(dense).max(axis=-1) > 0)
+        blocks.append(shards(q8))
+        scales.append(shards(s))
+        masks.append(shards(np.ones(B, np.float32)))
+        codes.append(shards(np.zeros(B, np.int64)))
+        pb.append(shards(p8))
+        ps.append(shards(psc))
+        pm.append(shards((psc > 0).astype(np.float32)))
+    qq, qs = quantize_rows_int8(rng.standard_normal((1, F)).astype(np.float32))
+    q8p, qsp = tmax.quantize_query_q8(_query(rng, 20))
+    args = (torch.from_numpy(qq[0]).cuda(), torch.tensor(qs[0]).cuda(), torch.ones(256, device="cuda"),
+            blocks, scales, masks, codes, pb, ps, pm, torch.from_numpy(q8p).cuda(), torch.from_numpy(qsp).cuda())
+    _kernels.reset_launch_counts()
+    got = make_mesh_block_search_pooled(mesh, n_blocks, 128, 100, 32, 16)(*args)
+    assert _kernels.launch_counts["maxsim_q8"] == 2 * n_blocks  # one a block a shard
+    want = make_mesh_block_search_pooled(mesh, n_blocks, 128, 100, 32, 16, use_kernel=False)(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got[32:].cpu().numpy(), want[32:].cpu().numpy())
+    np.testing.assert_allclose(got[:32].cpu().numpy(), want[:32].cpu().numpy(), rtol=1e-5, atol=1e-4)
+
+
+# ------------------------------------------------- a mesh of distinct cards
+
+
+@pytest.fixture
+def cards(sm90):
+    """The visible cards, when there are two or more (a real multi-card mesh)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    return n
+
+
+def _card_mesh(n):
+    """A (2, 2) data x model mesh whose second data row leads on a card
+    other than cuda:0: cuda:0-3 with four cards, 0 0 1 1 with two."""
+    from morphik_core_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((2, 2), devices=[f"cuda:{i * min(n, 4) // 4}" for i in range(4)])
+
+
+@pytest.mark.cuda
+def test_multi_card_mesh_model_equals_one_card(cards):
+    """The tiny int8 model on a mesh of distinct cards: each data row's
+    vision forward launches K3 on its own card, and the page embeddings
+    equal one card's on the same per-shard batches bit for bit (the amax
+    all-reduce and the exact int32 sum across cards); the queries through
+    the tensor-parallel decoder equal one card's too."""
+    from morphik_core_tpu_torch.models.colqwen.config import ColQwenConfig
+    from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel, quantize_colqwen_params
+    from morphik_core_tpu_torch.parallel.mesh import shard_colqwen_params
+
+    mesh = _card_mesh(cards)
+    leads = mesh.row_leads()
+    assert len(leads) == 2 and leads[1].index > 0
+
+    def make():
+        return quantize_colqwen_params(ColQwenModel.init_random(ColQwenConfig.tiny(), seed=5, device="cuda:0"))
+
+    single, meshed = make(), shard_colqwen_params(make(), mesh)
+    assert next(meshed._on(leads[1])[0].parameters()).device == leads[1]
+    cfg = single.cfg.vision
+    patches = np.random.default_rng(6).standard_normal((4, 16 * cfg.merge_unit, cfg.patch_input_dim)).astype(np.float32)
+    _kernels.reset_launch_counts()
+    want = np.concatenate([single.embed_image_batch(patches[:2], 4, 4), single.embed_image_batch(patches[2:], 4, 4)])
+    per_forward = _kernels.launch_counts["window_attention"] // 2
+    assert per_forward > 0
+    _kernels.reset_launch_counts()
+    got = meshed.embed_image_batch(patches, 4, 4)
+    assert _kernels.launch_counts["window_attention"] == 2 * per_forward
+    np.testing.assert_array_equal(got, want)
+    queries = ["quarterly revenue", "a longer query about the table of contents " * 3]
+    for g, s in zip(meshed.embed_queries(queries), single.embed_queries(queries)):
+        np.testing.assert_array_equal(g, s)
+
+
+@pytest.mark.cuda
+def test_multi_card_mesh_index_equals_one_card(cards):
+    """The shipped retrieval config on a mesh of distinct cards: data
+    shard 1 lives on the second row's card and its pooled rescore
+    launches K1 there; ids equal one card's, scores within f32 rounding."""
+    from morphik_core_tpu_torch.index.multivector_index import IndexRecord, MultiVectorIndex
+    from morphik_core_tpu_torch.ops.fde import FDEConfig
+
+    mesh = _card_mesh(cards)
+    rows = _index_rows(9, 600)
+    recs = [IndexRecord(f"d{i}", 0) for i in range(len(rows))]
+    # blocks wider than the pool of 150: the mesh pool is cut at one block,
+    # as the reference's (`pool_true = min(pool, B)`)
+    kw = dict(_SHIPPED_INDEX, device_block_rows=256)
+    single, meshed = MultiVectorIndex(FDEConfig(), **kw), MultiVectorIndex(FDEConfig(), mesh=mesh, **kw)
+    for index in (single, meshed):
+        index.store(rows, recs)
+    queries = [rows[i].astype(np.float32) for i in (3, 250, 599)] + [rows[42][:12].astype(np.float32)]
+    want = _answers(single, queries)
+    _kernels.reset_launch_counts()
+    got = [[(r.document_id, s) for r, s in meshed.query(q, k=5, return_timing=True)] for q in queries]
+    assert meshed.last_timing["pooled_tier"] and _kernels.launch_counts["maxsim_q8"] > 0
+    assert meshed._dev_blocks[0][0][1].device == mesh.row_leads()[1]
+    assert meshed._pooled_blocks[0][0][1].device == mesh.row_leads()[1]
+    for g, w in zip(got, want):
+        assert [d for d, _ in g] == [d for d, _ in w]
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=1e-5, atol=1e-5)
+    assert want[0][0][0] == "d3"
+
+
+@pytest.mark.cuda
+def test_auto_mesh_serves_on_distinct_cards(cards, tmp_path):
+    """`tpu.auto_mesh = true` with `mesh_shape = [2, -1]` over every
+    visible card: the server builds the mesh itself, ingests page images
+    and answers /retrieve/chunks with one card's filenames and scores
+    (within 1e-2 relative, tests/test_mesh_serving.py's bound)."""
+    import asyncio
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.png import encode_png
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=300)
+
+    def call(base, path, body=None, ctype="application/json"):
+        data = json.dumps(body).encode() if isinstance(body, dict) else body
+        req = urllib.request.Request(base + path, data=data, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    pages = [(f"page{s}.png", encode_png(_card_page(s))) for s in range(1, 5)]
+    boundary = "multi-card-boundary"
+    servers, answers = [], []
+    try:
+        for name, auto in (("single", False), ("mesh", True)):
+            root = tmp_path / name
+            services = build_services(Settings.from_dict({
+                "storage": {"storage_path": str(root / "storage")}, "database": {"path": str(root / "db.sqlite")},
+                "vector_store": {"index_path": str(root / "index")},
+                "telemetry": {"telemetry_dir": str(root / "logs" / "telemetry")},
+                "tpu": {"auto_mesh": auto, "mesh_shape": [2, -1]},
+            }))  # no device: the cards
+            on_loop(services.initialize())
+            server = HTTPServer(build_app(services), "127.0.0.1", 0)
+            on_loop(server.start())
+            servers.append((services, server))
+            base = f"http://127.0.0.1:{server.port}"
+            mesh = services.colpali_vector_store.mesh
+            if auto:
+                assert mesh is not None and services.colpali_embedding_model.model.mesh is mesh
+                assert mesh.shape == {"data": 2, "model": cards // 2}
+                assert len({d for d in mesh.devices.flat}) == 2 * (cards // 2)
+            else:
+                assert mesh is None
+            docs = []
+            for fname, png in pages:
+                body = (f'--{boundary}\r\nContent-Disposition: form-data; name="metadata"\r\n\r\n{{}}\r\n'
+                        f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{fname}"\r\n'
+                        f'Content-Type: image/png\r\n\r\n').encode() + png + f"\r\n--{boundary}--\r\n".encode()
+                docs.append(call(base, "/ingest/file", body, f"multipart/form-data; boundary={boundary}")["external_id"])
+            deadline = time.time() + 120
+            while not all(call(base, f"/documents/{d}/status")["status"] == "completed" for d in docs):
+                assert time.time() < deadline
+                time.sleep(0.05)
+            _kernels.reset_launch_counts()
+            answers.append([{c["filename"]: c["score"] for c in call(base, "/retrieve/chunks", {
+                "query": q, "k": len(pages), "use_colpali": True, "output_format": "text"})}
+                for q in ("a page of squares", "quarterly revenue")])
+            assert _kernels.launch_counts["maxsim_q8"] > 0
+        for s, m in zip(*answers):
+            assert set(s) == set(m) and len(s) == len(pages)
+            for fname, score in s.items():
+                assert abs(m[fname] - score) <= 1e-2 * max(1.0, abs(score)), (fname, score, m[fname])
+    finally:
+        for services, server in servers:
+            on_loop(server.stop())
+            on_loop(services.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)

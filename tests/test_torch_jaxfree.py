@@ -89,6 +89,21 @@ _GUARD = _PRELUDE + textwrap.dedent(
     res = index.query(emb.embed_query("quarterly revenue"), k=5, return_timing=True)
     assert len(res) == 5 and index.last_timing["pooled_tier"], res
     assert index.query(extra[7], k=3)[0][0].document_id == "x7"
+    # the mesh paths: a (2, 2) mesh of one repeated CPU device
+    from morphik_core_tpu_torch.parallel import collectives
+    from morphik_core_tpu_torch.parallel.mesh import make_mesh, shard_colqwen_params
+    mesh = make_mesh((2, 2), devices=["cpu"] * 4)
+    assert collectives.gather([torch.ones(2), torch.zeros(2)]).tolist() == [1.0, 1.0, 0.0, 0.0]
+    mesh_index = MultiVectorIndex(fde, mesh=mesh, pooled_tier_factor=32, rerank_dtype="int8", device_block_rows=16)
+    mesh_index.store(embs, [IndexRecord(f"page{i}", 0) for i in range(3)], fde_vectors=np.stack(fdes))
+    mesh_index.store(extra, [IndexRecord(f"x{i}", 0) for i in range(20)])
+    q = emb.embed_query("quarterly revenue")
+    got = mesh_index.query(q, k=5, return_timing=True)
+    assert mesh_index.last_timing["pooled_tier"] and mesh_index.last_mesh_upload_rows == 23
+    assert [r.document_id for r, _ in got] == [r.document_id for r, _ in index.query(q, k=5)]
+    mesh_model = shard_colqwen_params(quantize_colqwen_params(ColQwenModel.init_random(cfg, seed=0, device="cpu")),
+                                      mesh)
+    assert ColpaliEmbeddingModel(mesh_model)._embed_prepped(pages[:1])[0].shape == embs[0].shape
 
     # the HTTP service plane on the CPU: ingest a PNG, retrieve, query
     import asyncio, json, tempfile, threading, time, urllib.request

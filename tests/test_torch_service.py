@@ -906,7 +906,9 @@ def test_build_services_refuses_unported_settings(tmp_path, section, key, value,
     a missing file), and as in the reference: colpali_mode="api" without
     endpoints raises its ValueError, aws-s3 without boto3 its
     RuntimeError, ocr_mode="api" without an endpoint builds with OCR off
-    and a warning, and parser_mode="api" builds."""
+    and a warning, and parser_mode="api" builds. Item 6 (the mesh) is
+    ported: auto_mesh on the CPU builds, with no mesh, as the reference
+    does on one device."""
     raw = _raw_settings(tmp_path, "x")
     raw.setdefault(section, {})[key] = value
     raw["registered_models"] = {"openai_gpt4": {"model_name": "gpt-4"}}
@@ -928,6 +930,10 @@ def test_build_services_refuses_unported_settings(tmp_path, section, key, value,
     if item == "item 4":
         model = build_services(Settings.from_dict(raw), device="cpu").colpali_embedding_model.model
         assert model.attention_precision == "int8" and model.cfg.vision.qk_int8
+        return
+    if item == "item 6":
+        services = build_services(Settings.from_dict(raw), device="cpu")
+        assert services.colpali_vector_store.mesh is None and services.colpali_embedding_model.model.mesh is None
         return
     if item == "item 5":
         with pytest.raises(FileNotFoundError, match="/models/x"):
