@@ -11,8 +11,10 @@ progressive and multi-scan JPEGs and the Adam7 and 16-bit PNGs that
 connector files bring; the 3B checkpoint served in f32, through K3's
 3xTF32 kernel; and last the binary index through K4, the dual store and
 the operator scripts' port twins; then the evaluation harnesses and the
-two measuring scripts at their small sizes; and last the mesh paths on a
-virtual (data 2, model 2) mesh of this one card.
+two measuring scripts at their small sizes; the page image formats the
+reference opens through Pillow (GIF, BMP, TIFF, WebP, CMYK and YCCK
+JPEGs); and last the mesh paths on a virtual (data 2, model 2) mesh of
+this one card.
 
     python3 chip_smoke.py
 
@@ -226,7 +228,8 @@ Phases (each raises on failure; none is caught):
      host beside a baseline JPEG of the progressive page; a local
      connector over a directory outside storage.storage_path (a root over
      it answers 400) lists and ingests them with a 4-page text PDF and a
-     .txt, each to `completed`, the CMYK file answering 415; each stored
+     .txt, each to `completed`, an arithmetic-coded JPEG answering 415
+     (the CMYK file answered 415 until its decoder was written); each stored
      image page is the reference's q80 payload byte for byte; GitHub
      (a file by download_url), Google Drive (the OAuth code flow and its
      single-use state, a PDF) and Zotero (an item's attachment), each
@@ -325,6 +328,28 @@ Phases (each raises on failure; none is caught):
      shards one after another on one card, so no figure here is a
      multi-card speed. Prints a {"mesh": ...} line; the kernels line gains
      `mesh_launches`.
+ 22. the page image formats (run after phase 20 and before phase 21,
+     which puts the model on its mesh in place), on a server from the
+     toml serving phase 3b's model: each committed file of
+     tests/fixtures/image_formats.npz (BMPs of 1, 4, 8, 16, 24 and 32 bits
+     and RLE8 / RLE4; a GIF, an animated GIF, an interlaced offset GIF;
+     TIFFs in Group 4, Group 3 1D and 2D, Modified Huffman, LZW with
+     predictor 2, Deflate tiles (big-endian), PackBits, raw WhiteIsZero
+     gray, YCbCr JPEG, and a multi-page LZW file; lossy, lossless, alpha
+     and animated WebPs; CMYK and YCCK JPEGs) decodes to Pillow's mode and
+     pixels (hashes written beside Pillow), each timed on the host, and a
+     letter page at 200 dpi as Group 4 (1700 x 2200) and a lossy WebP
+     1024 px wide timed beside a baseline JPEG of the same page; an
+     arithmetic-coded and a 12-bit JPEG are refused from their headers and
+     answer 415 over HTTP before any document exists; each file is
+     ingested over HTTP to `completed` with one page (the first frame or
+     page), the reference's q80 payload byte for byte (hashes made by the
+     JAX package's `_image_to_data_uri`); K3 = 28 a tower forward; image
+     queries in WebP and TIFF (Group 4 and LZW) each find a file of their
+     own page first, through K1. Prints a {"formats": ...} line (host
+     decode ms per file and size, ingest s per file, image query ms,
+     launches, peak memory, the phase's s, the card); the kernels line
+     gains `formats_launches`.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -3385,7 +3410,8 @@ def _remote_checks(torch, _kernels, e, a, fake, dead_embed, dead_parse):
 
 
 CONNECTOR_FIXTURES = ROOT / "tests" / "fixtures" / "connector_files.npz"
-CONNECTOR_IMAGES = ("progressive.jpg", "multiscan.jpg", "adam7.png", "rgb16.png", "gray16.png")
+CONNECTOR_IMAGES = ("progressive.jpg", "multiscan.jpg", "adam7.png", "rgb16.png", "gray16.png", "cmyk.jpg")
+CONNECTOR_REFUSED = "arith.jpg"  # an arithmetic-coded frame header: still refused (ROADMAP item 3b-ii)
 CONNECTOR_PDF_PAGES = 4
 CONNECTOR_LISTED = 101  # files in the fake GitHub root, Drive root and Zotero library: two pages of 100
 DECODE_REPEATS = 3
@@ -3407,7 +3433,8 @@ def check_connector_decoders(z) -> dict:
     """Phase 16, on this machine: each committed connector file decodes to
     Pillow's pixels (their hash); the host ms a page of the progressive,
     the multi-scan and a baseline JPEG of the same page (the port's q80
-    encode of its pixels), and of the Adam7 and 16-bit PNGs."""
+    encode of its pixels), of the Adam7 and 16-bit PNGs and of the CMYK
+    JPEG; the arithmetic-coded file is refused from its headers."""
     import hashlib
 
     from morphik_core_tpu_torch.models.colqwen.preprocess import to_rgb_u8
@@ -3426,8 +3453,8 @@ def check_connector_decoders(z) -> dict:
     baseline, _ = encode_jpeg(to_rgb_u8(*read_image(z["progressive_jpg"].tobytes())), 80)
     decode_ms["baseline.jpg (the progressive page, q80)"] = _decode_ms(read_jpeg, baseline)
     try:
-        probe_jpeg(z["cmyk_jpg"].tobytes())
-        raise AssertionError("the CMYK fixture was not refused")
+        probe_jpeg(z[CONNECTOR_REFUSED.replace(".", "_")].tobytes())
+        raise AssertionError("the arithmetic-coded fixture was not refused")
     except UnsupportedJpeg:
         pass
     return {"decode_ms": decode_ms, "page_hw": pages,
@@ -3457,7 +3484,7 @@ def connectors_phase(torch, model, _kernels, smi):
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_connectors_"))
     src = tmp / "src"   # outside storage.storage_path
     src.mkdir()
-    for name in CONNECTOR_IMAGES + ("cmyk.jpg",):
+    for name in CONNECTOR_IMAGES + (CONNECTOR_REFUSED,):
         (src / name).write_bytes(z[name.replace(".", "_")].tobytes())
     rng = np.random.default_rng(SEED + 16)
     (src / "report.pdf").write_bytes(text_pdf([seeded_prose(rng, 1500) for _ in range(CONNECTOR_PDF_PAGES)]))
@@ -3519,9 +3546,9 @@ def connectors_phase(torch, model, _kernels, smi):
 
         for name in CONNECTOR_IMAGES + ("report.pdf", "notes.txt"):
             ingest("local", name)
-        status, raw = client.request("POST", f"{C}/local/ingest", {"file_id": "cmyk.jpg"})
-        if status != 415 or b"3b-ii" not in raw:
-            raise AssertionError(f"the CMYK JPEG answered {status} {raw[:300]!r}, expected 415")
+        status, raw = client.request("POST", f"{C}/local/ingest", {"file_id": CONNECTOR_REFUSED})
+        if status != 415 or b"3b-ii" not in raw or b"arithmetic-coded" not in raw:
+            raise AssertionError(f"the arithmetic-coded JPEG answered {status} {raw[:300]!r}, expected 415")
         for name in CONNECTOR_IMAGES:   # the stored page is the reference's q80 payload, byte for byte
             chunk = client.call("POST", "/batch/chunks", {
                 "sources": [{"document_id": docs[f"local:{name}"], "chunk_number": 0}], "use_colpali": True})[0]
@@ -3615,6 +3642,163 @@ def connectors_phase(torch, model, _kernels, smi):
         f"{ingest_launches['window_attention']}); retrieve p50 {out['retrieve']['p50_ms']:.3f} ms p99 "
         f"{out['retrieve']['p99_ms']:.3f} ms; progressive image query {image_ms:.3f} ms; launches {launches}; "
         f"peak {peak_gb:.2f} GB; phase {out['phase_s']:.3f} s ({smi})")
+    return out
+
+
+# phase 22: the page image formats the reference opens through Pillow
+FORMAT_FIXTURES = ROOT / "tests" / "fixtures" / "image_formats.npz"
+FORMAT_FILES = ("bmp1.bmp", "bmp8.bmp", "bmp24.bmp", "bmp4.bmp", "bmp16.bmp", "bmp32.bmp", "bmp_rle8.bmp",
+                "bmp_rle4.bmp", "page.gif", "anim.gif", "interlaced.gif", "g4.tif", "g3.tif", "mh.tif", "g3_2d.tif",
+                "lzw.tif", "deflate_tiles.tif", "packbits.tif", "raw_gray.tif", "jpeg.tif", "multipage.tif",
+                "lossy.webp", "lossless.webp", "alpha.webp", "anim.webp", "cmyk.jpg", "ycck.jpg")
+FORMAT_TIMED = ("letter_g4.tif", "wide_lossy.webp", "wide_baseline.jpg")  # timed on the host, not ingested
+FORMAT_REFUSED = "arith.jpg"
+FORMAT_QUERIES = ("lossy.webp", "g4.tif", "lzw.tif")  # image queries in WebP and in TIFF
+FORMAT_CTYPES = {"bmp": "image/bmp", "gif": "image/gif", "tif": "image/tiff", "webp": "image/webp",
+                 "jpg": "image/jpeg"}
+
+
+def _twelve_bit(data: bytes) -> bytes:
+    """A baseline JPEG whose frame header says 12-bit samples."""
+    at = data.index(b"\xff\xc0")
+    return data[:at + 4] + b"\x0c" + data[at + 5:]
+
+
+def check_format_decoders(z) -> dict:
+    """Phase 22, on the host: each committed file decodes to Pillow's
+    mode and pixels (their hash), its host ms beside it (the median of
+    DECODE_REPEATS for the two timed pages and their baseline JPEG); the
+    arithmetic-coded and 12-bit JPEGs are refused from their headers."""
+    import hashlib
+
+    from morphik_core_tpu_torch.models.colqwen.preprocess import to_rgb_u8
+    from morphik_core_tpu_torch.utils.image import UnsupportedImage, probe_image, read_image
+
+    decode_ms, sizes = {}, {}
+    for name in FORMAT_FILES + FORMAT_TIMED:
+        key = name.replace(".", "_")
+        data = z[key].tobytes()
+        t = time.perf_counter()
+        pixels, mode, palette = read_image(data)
+        ms = (time.perf_counter() - t) * 1e3
+        rgb = to_rgb_u8(pixels, mode, palette)
+        if mode != str(z[f"{key}_mode"]) or hashlib.sha256(rgb.tobytes()).hexdigest() != str(z[f"{key}_rgb_sha256"]):
+            raise AssertionError(f"format fixture {name}: mode {mode} or pixels differ from Pillow's")
+        decode_ms[name] = _decode_ms(read_image, data) if name in FORMAT_TIMED else ms
+        sizes[name] = list(rgb.shape[:2])
+    for words, data in (("arithmetic-coded", z[FORMAT_REFUSED.replace(".", "_")].tobytes()),
+                        ("12-bit", _twelve_bit(z["wide_baseline_jpg"].tobytes()))):
+        try:
+            probe_image(data)
+            raise AssertionError(f"the {words} JPEG was not refused")
+        except UnsupportedImage as e:
+            if words not in str(e) or "3b-ii" not in str(e):
+                raise
+    base = decode_ms["wide_baseline.jpg"]
+    return {"decode_ms": decode_ms, "page_hw": sizes,
+            "letter_g4_over_baseline": decode_ms["letter_g4.tif"] / base,
+            "wide_lossy_webp_over_baseline": decode_ms["wide_lossy.webp"] / base}
+
+
+def formats_phase(torch, model, _kernels, smi):
+    """Phase 22: the page image formats on a server from the toml serving
+    phase 3b's model. Each file is ingested over HTTP to `completed` as
+    its first frame or page, its stored page the reference's q80 payload
+    byte for byte; the still-refused JPEGs answer 415 before any document
+    exists; WebP and TIFF image queries find their own page first,
+    through K1."""
+    import base64
+    import hashlib
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+
+    t_phase = time.perf_counter()
+    z = np.load(FORMAT_FIXTURES)
+    decoders = check_format_decoders(z)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_formats_"))
+    settings = service_settings(tmp)
+    forward_batches = []
+    tower = model.embed_image_batch
+
+    def counted_forward(patches, *args, **kw):
+        forward_batches.append(int(patches.shape[0]))
+        return tower(patches, *args, **kw)
+
+    server = None
+    try:
+        t0 = time.perf_counter()
+        server = ServerThread(build_services(settings, colqwen_model=model))  # recalibrates static scales
+        boot_s = time.perf_counter() - t0
+        client = Client(f"http://127.0.0.1:{server.server.port}")
+        model.embed_image_batch = counted_forward
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()  # the formats path starts here
+        log(f"phase 22: page image formats ({smi}): server up in {boot_s:.3f} s; host decode ms "
+            f"{json.dumps({k: round(v, 3) for k, v in decoders['decode_ms'].items()})}")
+        # still refused: 415 before any document exists
+        for name, data in ((FORMAT_REFUSED, z[FORMAT_REFUSED.replace(".", "_")].tobytes()),
+                           ("twelve.jpg", _twelve_bit(z["wide_baseline_jpg"].tobytes()))):
+            status, raw = client.request("POST", "/ingest/file", *client.multipart(name, data, "image/jpeg"))
+            if status != 415 or b"3b-ii" not in raw:
+                raise AssertionError(f"{name} answered {status} {raw[:300]!r}, expected 415")
+        if client.call("POST", "/documents", {}):
+            raise AssertionError("a refused upload left a document")
+        ingest_s, docs = {}, {}
+        for name in FORMAT_FILES:
+            t = time.perf_counter()
+            doc = client.upload(name, z[name.replace(".", "_")].tobytes(), FORMAT_CTYPES[name.rsplit(".", 1)[1]])
+            ingest_s[name] = _wait_completed(client, [doc["external_id"]]) - t
+            docs[name] = doc["external_id"]
+        for name in FORMAT_FILES:   # one page each (the first frame or page), the reference's payload
+            chunks = client.call("POST", "/batch/chunks", {
+                "sources": [{"document_id": docs[name], "chunk_number": k} for k in range(3)], "use_colpali": True})
+            if len(chunks) != 1:
+                raise AssertionError(f"{name}: {len(chunks)} page chunks stored, expected the first page only")
+            payload = base64.b64decode(chunks[0]["content"].split(",", 1)[1])
+            if hashlib.sha256(payload).hexdigest() != str(z[name.replace(".", "_") + "_payload_sha256"]):
+                raise AssertionError(f"{name}: the stored q80 payload differs from the reference's")
+        ingest_launches = dict(_kernels.launch_counts)
+        ingest_forwards = len(forward_batches)
+        k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+        if ingest_forwards < 1 or ingest_launches["window_attention"] != k3_per_forward * ingest_forwards:
+            raise AssertionError(f"{ingest_forwards} tower forwards, K3 launched "
+                                 f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
+        query_ms, k1, top = {}, [], {}
+        for name in FORMAT_QUERIES:
+            key = name.replace(".", "_")
+            uri = bytes_to_data_uri(z[key].tobytes(), FORMAT_CTYPES[name.rsplit(".", 1)[1]])
+            before = _kernels.launch_counts["maxsim_q8"]
+            t = time.perf_counter()
+            hits = client.call("POST", "/retrieve/chunks", {"query_image": uri, "k": 4})
+            query_ms[name] = (time.perf_counter() - t) * 1e3
+            k1.append(_kernels.launch_counts["maxsim_q8"] - before)
+            own = {d for n, d in docs.items() if int(z[n.replace(".", "_") + "_page"]) == int(z[key + "_page"])}
+            top[name] = next(n for n, d in docs.items() if d == hits[0]["document_id"])
+            if hits[0]["document_id"] not in own:
+                raise AssertionError(f"the {name} image query's top-1 is {top[name]}, not a file of its page")
+        if min(k1) <= 0:
+            raise AssertionError(f"an image query did not launch K1: {k1}")
+        launches = dict(_kernels.launch_counts)
+        if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the queries' forwards too
+            raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
+                                 f"tower forwards")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        model.embed_image_batch = tower
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"card": smi, "boot_s": boot_s, "decoders": decoders, "ingest_s": ingest_s,
+           "ingest_forwards": ingest_forwards, "tower_forwards": len(forward_batches), "image_query_ms": query_ms,
+           "image_query_top1": top, "image_query_k1": k1, "launches": launches, "ingest_launches": ingest_launches,
+           "k3_per_forward": k3_per_forward, "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase}
+    log(f"  ingests to completed (s) {json.dumps({k: round(v, 3) for k, v in ingest_s.items()})}; ingest tower "
+        f"forwards {ingest_forwards} (K3 {ingest_launches['window_attention']}); image queries (ms) "
+        f"{json.dumps({k: round(v, 3) for k, v in query_ms.items()})}; launches {launches}; peak {peak_gb:.2f} GB; "
+        f"phase {out['phase_s']:.3f} s ({smi})")
     return out
 
 
@@ -4421,6 +4605,7 @@ def main() -> None:
     binary = binary_phase(torch, page_embs, queries5, _kernels, smi)
     scripts = scripts_phase(torch, model, page_embs, _kernels, smi)
     evals = evals_phase(torch, _kernels, smi)
+    formats = formats_phase(torch, model, _kernels, smi)  # before phase 21 puts the model on its mesh
     mesh = mesh_phase(torch, model, page_embs, rows, page_fdes, queries5, service["retrieve_answers"], phase8_scales,
                       _kernels, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
@@ -4439,7 +4624,8 @@ def main() -> None:
              checkpoint_launches=checkpoint["launches"][name], llm_launches=llm["launches"][name],
              remote_launches=sum(remote["launches"][part][name] for part in ("ingest", "retrieve", "relay")),
              connectors_launches=connectors["launches"][name], f32_launches=f32["launches"][name],
-             evals_launches=evals["launches"][name], mesh_launches=mesh["launches"][name])
+             evals_launches=evals["launches"][name], mesh_launches=mesh["launches"][name],
+             formats_launches=formats["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -4485,6 +4671,7 @@ def main() -> None:
     print(json.dumps({"scripts": scripts}))
     print(json.dumps({"evals": evals}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"formats": formats}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -260,13 +260,20 @@ def resize_mode_u8(pixels: np.ndarray, mode: str, size: Tuple[int, int], resampl
     (`Image.py` `resize`): modes P (indices) and 1 resize NEAREST; RGBA and LA
     resize premultiplied (RGBa / La, `Convert.c` `rgbA2rgba`, `la2La`)
     and convert back (`rgba2rgbA`: 255 * c / alpha, clipped, where alpha
-    is neither 0 nor 255); I;16 resizes in 16 bits (`_resample_axis_16`).
-    `pixels` is (H, W) for L, P and I;16 (uint16), (H, W, 2) for LA,
-    (H, W, 3) RGB, (H, W, 4) RGBA."""
+    is neither 0 nor 255); I;16 resizes in 16 bits (`_resample_axis_16`),
+    and I;16B (uint16 values) as Pillow does it: on the byte-swapped values,
+    swapped back;
+    CMYK resizes each of its four channels. `pixels` is (H, W) for L, P
+    and I;16 (uint16), (H, W, 2) for LA, (H, W, 3) RGB, (H, W, 4) RGBA and
+    CMYK."""
     if mode in ("P", "1"):
         return resize_nearest_u8(pixels, size)
     if mode == "I;16":
         return _resize_axes(pixels, size, resample, _resample_axis_16)
+    if mode == "I;16B":
+        # Resample.c reads and writes an I;16B buffer in I;16's byte order
+        swapped = pixels.byteswap()
+        return _resize_axes(swapped, size, resample, _resample_axis_16).byteswap()
     if mode not in ("RGBA", "LA"):
         return _resize_u8(pixels, size, resample)
     alpha = pixels[..., -1:].astype(np.int64)
@@ -280,11 +287,13 @@ def resize_mode_u8(pixels: np.ndarray, mode: str, size: Tuple[int, int], resampl
 
 def to_rgb_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None) -> np.ndarray:
     """`Image.convert("RGB")` of an image of mode 1 (0 / 255), L, LA, RGB,
-    RGBA, P (alpha dropped, not composited; `palette` (256, 3) for P) or
-    I;16 (`I16_RGB`: a sample above 255 clips to 255)."""
+    RGBA, P (alpha dropped, not composited; `palette` (256, 3) for P),
+    I;16 or I;16B (uint16 values; `I16_RGB`: a sample above 255 clips to
+    255) or CMYK (`Convert.c`
+    `cmyk2rgb`: nk - MULDIV255(c, nk) with nk = 255 - k)."""
     if mode == "RGB":
         return pixels
-    if mode == "I;16":
+    if mode in ("I;16", "I;16B"):
         return np.repeat(np.minimum(pixels, 255).astype(np.uint8)[..., None], 3, axis=2)
     if mode == "RGBA":
         return np.ascontiguousarray(pixels[..., :3])
@@ -293,6 +302,9 @@ def to_rgb_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None
         return np.repeat(gray[..., None], 3, axis=2)
     if mode == "P":
         return palette[pixels]
+    if mode == "CMYK":
+        nk = 255 - pixels[..., 3:].astype(np.int64)
+        return np.clip(nk - _muldiv255(pixels[..., :3], nk), 0, 255).astype(np.uint8)
     raise ValueError(f"no RGB conversion for mode {mode!r}")
 
 

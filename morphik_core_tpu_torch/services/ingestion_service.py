@@ -9,8 +9,8 @@ storage) -> queue -> [worker] download -> the parse ladder (XML chunks,
 or parsed text split into chunks; a failed parse of a ColPali-native
 file goes on image-only) -> with `use_colpali`, page images: a PDF's
 pages from the raster pool (q70 JPEG payloads, blank flags and u8
-patches of the decoded payload, streamed in page order), a PNG or JPEG
-upload, PPTX slides and DOCX text pages as q80 JPEG payloads of at most
+patches of the decoded payload, streamed in page order), an image
+upload (its first frame or page), PPTX slides and DOCX text pages as q80 JPEG payloads of at most
 1024 px (`_image_to_data_uri`), blank pages skipped -> the text store
 first (hashing embeddings), then the ColPali store under the embed lock
 (the page images, or the text chunks of a file without any) -> nothing
@@ -25,12 +25,15 @@ most `ingest_embed_prefetch + 1` store batches of rastered pages, so a
 long PDF never holds every page's patches at once; the stored rows are
 those of the reference's whole-list order.
 
-Uploads: everything but video, images other than PNG and JPEG, and
-JPEGs the decoder does not read (arithmetic-coded, lossless, 12-bit,
-CMYK, and progressive files whose scans leave coefficient bits
-unrefined): those answer 415 (ROADMAP Queue 1 item 3b-ii). Progressive
-and multi-scan JPEGs, Adam7 PNGs and 16-bit PNGs (in Pillow's modes:
-I;16 gray resized in 16 bits and clipped to 8) are ingested.
+Uploads: everything but video, images other than PNG, JPEG, GIF, BMP,
+TIFF and WebP, the variants of those the decoders refuse (JPEGs that are
+arithmetic-coded, lossless, 12-bit or progressive with coefficient bits
+left unrefined; the TIFF, BMP and WebP variants their modules name) and
+decompression bombs: those answer 415 (ROADMAP Queue 1 item 3b-ii).
+Progressive, multi-scan, CMYK and YCCK JPEGs, Adam7 and 16-bit PNGs,
+GIF, BMP, TIFF (CCITT, LZW, Deflate, PackBits, JPEG) and lossy,
+lossless and animated WebP are ingested in Pillow's modes
+(`utils/image.py::read_image`), a multi-frame file as its first frame.
 
 `folder_name` on either ingest path puts the document in that folder
 (created, with its ancestors, when missing). `update_document` merges
@@ -74,8 +77,8 @@ from morphik_core_tpu_torch.parser.text_render import render_text_page
 from morphik_core_tpu_torch.storage.base_storage import BaseStorage
 from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX, detect_content_type, is_colpali_native_format
 from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
-from morphik_core_tpu_torch.utils.image import read_image
-from morphik_core_tpu_torch.utils.jpeg import JpegCoefficients, UnsupportedJpeg, encode_jpeg, probe_jpeg
+from morphik_core_tpu_torch.utils.image import UnsupportedImage, probe_image, read_image
+from morphik_core_tpu_torch.utils.jpeg import JpegCoefficients, encode_jpeg
 from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
 
@@ -85,24 +88,27 @@ class UnsupportedContentType(ValueError):
     """An upload of a content type the port does not ingest."""
 
 
+_IMAGE_TYPES = ("image/png", "image/jpeg", "image/gif", "image/bmp", "image/tiff", "image/webp")
+
+
 def check_upload(ctype: str, data: bytes) -> None:
     """Raise `UnsupportedContentType` (the route answers 415) for an
-    upload the port does not ingest: video, images other than PNG and
-    JPEG (GIF, WebP, TIFF, BMP), and a JPEG its decoder does not read
-    (checked on the frame and scan headers)."""
-    if ctype == "image/jpeg":
-        try:
-            probe_jpeg(data)
-        except UnsupportedJpeg as e:
-            raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {e}") from e
-        except ValueError:
-            pass  # a broken file: its job fails with the decoder's error
-        return
+    upload the port does not ingest: video, images other than PNG, JPEG,
+    GIF, BMP, TIFF and WebP, and a variant of those its decoders refuse or
+    Pillow would refuse as a decompression bomb (checked on the headers,
+    `utils/image.py::probe_image`)."""
     if ctype.startswith("video/"):
         why = "video is not ingested by the port"
-    elif ctype.startswith("image/") and ctype != "image/png":
-        why = "the port decodes PNG and JPEG images only"
+    elif ctype.startswith("image/") and ctype not in _IMAGE_TYPES:
+        why = "the port decodes PNG, JPEG, GIF, BMP, TIFF and WebP images only"
     else:
+        if ctype.startswith("image/"):
+            try:
+                probe_image(data)
+            except UnsupportedImage as e:
+                raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {e}") from e
+            except ValueError:
+                pass   # a broken file: its job fails with the decoder's error
         return
     raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {why} (ROADMAP Queue 1 item 3b-ii)")
 

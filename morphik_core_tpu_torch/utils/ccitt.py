@@ -1,0 +1,285 @@
+"""CCITT fax decoding for bilevel TIFF pages, as libtiff's `tif_fax3.c`
+decodes them, in the stdlib and numpy.
+
+- Modified Huffman (TIFF compression 2): every row one-dimensional, no
+  EOL codes, each row starting on a byte boundary (libtiff's
+  `FAXMODE_BYTEALIGN` for CCITTRLE).
+- T.4 (compression 3): every row after an EOL code, which
+  `SYNC_EOL` finds past any fill bits (so byte-aligned EOLs too); with
+  the T4Options bit 0 (2D coding) a tag bit after each EOL says whether
+  the row is one-dimensional (1) or coded against the row above (0).
+- T.6 / Group 4 (compression 4): every row two-dimensional, no EOLs, the
+  first row coded against an imaginary white row.
+
+Rows come out as libtiff's fax decoder writes them: bit 1 for a black
+run, 0 for white, most significant bit first, each row padded to whole
+bytes; the TIFF reader maps them through the photometric interpretation
+as for an uncompressed 1-bit strip, and undoes FillOrder 2 on the
+compressed bytes before they get here. The codes are those of ITU-T T.4
+tables 1-3 (terminating, make-up and extended make-up codes for white
+and black runs) and the T.4 / T.6 two-dimensional mode codes (pass,
+horizontal, vertical 0, R1-R3, L1-L3). Uncompressed mode (an extension
+code) and data that ends before its rows raise `ValueError`.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+_WHITE_TERM = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 110100 110101 "
+    "101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 "
+    "00000010 00000011 00011010 00011011 00010010 00010011 00010100 00010101 00010110 00010111 00101000 "
+    "00101001 00101010 00101011 00101100 00101101 00000100 00000101 00001010 00001011 01010010 01010011 "
+    "01010100 01010101 00100100 00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010 "
+    "00110011 00110100").split()
+_WHITE_MAKEUP = (
+    "11011 10010 010111 0110111 00110110 00110111 01100100 01100101 01101000 01100111 011001100 011001101 "
+    "011010010 011010011 011010100 011010101 011010110 011010111 011011000 011011001 011011010 011011011 "
+    "010011000 010011001 010011010 011000 010011011").split()
+_BLACK_TERM = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 00000111 "
+    "000011000 0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 00000110111 00000101000 "
+    "00000010111 00000011000 000011001010 000011001011 000011001100 000011001101 000001101000 000001101001 "
+    "000001101010 000001101011 000011010010 000011010011 000011010100 000011010101 000011010110 000011010111 "
+    "000001101100 000001101101 000011011010 000011011011 000001010100 000001010101 000001010110 000001010111 "
+    "000001100100 000001100101 000001010010 000001010011 000000100100 000000110111 000000111000 000000100111 "
+    "000000101000 000001011000 000001011001 000000101011 000000101100 000001011010 000001100110 "
+    "000001100111").split()
+_BLACK_MAKEUP = (
+    "0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 0000001101100 "
+    "0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 0000001110010 0000001110011 "
+    "0000001110100 0000001110101 0000001110110 0000001110111 0000001010010 0000001010011 0000001010100 "
+    "0000001010101 0000001011010 0000001011011 0000001100100 0000001100101").split()
+_EXT_MAKEUP = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 000000010101 "
+               "000000010110 000000010111 000000011100 000000011101 000000011110 000000011111").split()
+_EOL = "000000000001"
+
+# two-dimensional modes: (code, kind, vertical offset)
+_P, _H, _V, _X, _E = range(5)
+_MODES = [("0001", _P, 0), ("001", _H, 0), ("1", _V, 0), ("011", _V, 1), ("000011", _V, 2),
+          ("0000011", _V, 3), ("010", _V, -1), ("000010", _V, -2), ("0000010", _V, -3),
+          ("0000001", _X, 0), ("000000000001", _E, 0)]
+
+_TERM, _MAKEUP, _EOLK = 0, 1, 2
+
+
+def _table(bits: int, codes) -> List[int]:
+    """A `bits`-wide peek -> kind << 24 | run << 8 | length (0: no code)."""
+    table = [0] * (1 << bits)
+    for code, kind, value in codes:
+        n = len(code)
+        base = int(code, 2) << (bits - n)
+        entry = kind << 24 | (value & 0xFFFF) << 8 | n
+        for i in range(1 << (bits - n)):
+            assert table[base + i] == 0, code
+            table[base + i] = entry
+    return table
+
+
+def _run_codes(term, makeup):
+    out = [(c, _TERM, i) for i, c in enumerate(term)]
+    out += [(c, _MAKEUP, 64 * (i + 1)) for i, c in enumerate(makeup)]
+    out += [(c, _MAKEUP, 1792 + 64 * i) for i, c in enumerate(_EXT_MAKEUP)]
+    return out + [(_EOL, _EOLK, 0)]
+
+
+_WHITE = _table(12, _run_codes(_WHITE_TERM, _WHITE_MAKEUP))
+_BLACK = _table(13, _run_codes(_BLACK_TERM, _BLACK_MAKEUP))
+_MODE = _table(12, [(c, k, v + 3) for c, k, v in _MODES])
+
+
+class _Bits:
+    __slots__ = ("data", "pos", "end")
+
+    def __init__(self, data: bytes):
+        self.data = bytes(data) + b"\x00\x00\x00\x00"
+        self.pos = 0
+        self.end = 8 * len(data)
+
+    def peek(self, n: int) -> int:
+        p = self.pos
+        i = p >> 3
+        v = (self.data[i] << 16) | (self.data[i + 1] << 8) | self.data[i + 2]
+        return (v >> (24 - n - (p & 7))) & ((1 << n) - 1)
+
+    def take(self, table: List[int], bits: int) -> int:
+        if self.pos >= self.end:
+            raise ValueError("CCITT data ends before its rows")
+        e = table[self.peek(bits)]
+        if not e:
+            raise ValueError("broken CCITT data: no code matches")
+        self.pos += e & 0xFF
+        return e
+
+
+class _Row:
+    """libtiff's run array for one row: run lengths, white first, built by
+    `SETVALUE` (a run is what the pass modes carried plus its own length)."""
+    __slots__ = ("runs", "a0", "carry")
+
+    def __init__(self):
+        self.runs: List[int] = []
+        self.a0 = 0
+        self.carry = 0
+
+    def set(self, x: int) -> None:
+        self.runs.append(self.carry + x)
+        self.a0 += x
+        self.carry = 0
+
+    def run(self, br: _Bits, black: bool) -> bool:
+        """Make-up codes then a terminating code; False at an EOL."""
+        table, bits = (_BLACK, 13) if black else (_WHITE, 12)
+        while True:
+            e = br.take(table, bits)
+            kind = e >> 24
+            if kind == _EOLK:
+                return False
+            if kind == _TERM:
+                self.set((e >> 8) & 0xFFFF)
+                return True
+            self.a0 += (e >> 8) & 0xFFFF
+            self.carry += (e >> 8) & 0xFFFF
+
+    def cleanup(self, width: int) -> List[int]:
+        """`CLEANUP_RUNS`: close the row at exactly `width`."""
+        if self.carry:
+            self.set(0)
+        if self.a0 != width:
+            while self.a0 > width and self.runs:
+                self.a0 -= self.runs.pop()
+            if self.a0 < width:
+                self.a0 = max(self.a0, 0)
+                if len(self.runs) & 1:
+                    self.set(0)
+                self.set(width - self.a0)
+            elif self.a0 > width:
+                self.set(width)
+                self.set(0)
+        return self.runs
+
+
+def _row_1d(br: _Bits, width: int) -> List[int]:
+    """`EXPAND1D`: alternate white and black runs up to the row's end."""
+    row = _Row()
+    black = False
+    while row.run(br, black) and row.a0 < width:
+        if black and len(row.runs) >= 2 and row.runs[-1] == 0 and row.runs[-2] == 0:
+            del row.runs[-2:]
+        black = not black
+    return row.cleanup(width)
+
+
+def _row_2d(br: _Bits, width: int, ref: List[int]) -> List[int]:
+    """`EXPAND2D`: a row coded against the run array of the row above
+    (`ref`, closed by a zero run)."""
+    ref = ref + [0] * 4
+    row = _Row()
+    b1, pb = ref[0], 1
+
+    def check_b1():
+        nonlocal b1, pb
+        if row.runs:
+            while b1 <= row.a0 and b1 < width:
+                b1 += ref[pb] + ref[pb + 1]
+                pb += 2
+
+    while row.a0 < width:
+        if pb + 2 >= len(ref):
+            ref += [0] * 4
+        e = br.take(_MODE, 12)
+        kind, value = e >> 24, ((e >> 8) & 0xFFFF) - 3
+        if kind == _P:
+            check_b1()
+            b1 += ref[pb]
+            pb += 1
+            row.carry += b1 - row.a0
+            row.a0 = b1
+            b1 += ref[pb]
+            pb += 1
+        elif kind == _H:
+            black = bool(len(row.runs) & 1)
+            if not (row.run(br, black) and row.run(br, not black)):
+                raise ValueError("broken CCITT data: EOL inside a horizontal mode")
+            check_b1()
+        elif kind == _V:
+            check_b1()
+            if value < 0 and b1 < row.a0 - value:
+                raise ValueError("broken CCITT data: vertical mode left of the row")
+            row.set(b1 - row.a0 + value)
+            if value < 0:
+                pb -= 1
+                b1 -= ref[pb]
+            else:
+                b1 += ref[pb]
+                pb += 1
+        elif kind == _E:
+            row.runs.append(width - row.a0)
+            row.a0 = width
+            break
+        else:
+            raise ValueError("CCITT uncompressed mode (an extension code) is not decoded")
+    if row.carry:
+        if row.carry + row.a0 < width:
+            if br.peek(1) != 1:
+                raise ValueError("broken CCITT data: no closing V0")
+            br.pos += 1
+        row.set(0)
+    return row.cleanup(width)
+
+
+def _sync_eol(br: _Bits) -> None:
+    """libtiff's `SYNC_EOL`: skip to eleven zero bits, then past the zeros
+    and the one that ends the EOL."""
+    while True:
+        if br.pos + 11 > br.end:
+            raise ValueError("CCITT data ends before its rows (no EOL)")
+        if br.peek(11) == 0:
+            break
+        br.pos += 1
+    while br.peek(1) == 0:
+        br.pos += 1
+        if br.pos >= br.end:
+            raise ValueError("CCITT data ends before its rows")
+    br.pos += 1
+
+
+def _fill(rows: np.ndarray, r: int, runs: List[int], width: int) -> None:
+    """libtiff's `_TIFFFax3fillruns`: odd runs are black."""
+    x = 0
+    for k, n in enumerate(runs):
+        if k & 1 and n:
+            rows[r, x:min(x + n, width)] = 1
+        x += n
+
+
+def decode_ccitt(data: bytes, width: int, height: int, compression: int, t4options: int = 0) -> bytes:
+    """One strip or tile of CCITT data -> `height` rows of `width` bits,
+    packed most significant bit first, each row padded to whole bytes."""
+    if compression == 3 and t4options & 2:
+        raise ValueError("CCITT T.4 with uncompressed mode is not decoded")
+    br = _Bits(data)
+    rows = np.zeros((height, width), np.uint8)
+    ref: List[int] = [width, 0]
+    for r in range(height):
+        if compression == 2:
+            changes = _row_1d(br, width)
+            br.pos = (br.pos + 7) & ~7
+        elif compression == 3:
+            _sync_eol(br)
+            if t4options & 1:
+                one_d = br.peek(1)
+                br.pos += 1
+                changes = _row_1d(br, width) if one_d else _row_2d(br, width, ref)
+            else:
+                changes = _row_1d(br, width)
+        elif compression == 4:
+            changes = _row_2d(br, width, ref)
+        else:
+            raise ValueError(f"not a CCITT compression: {compression}")
+        _fill(rows, r, changes, width)
+        ref = changes + [0]
+    return np.packbits(rows, axis=1).tobytes()

@@ -24,9 +24,13 @@ Three parts, each bit-identical to Pillow built on libjpeg-turbo:
   and refinement scans with their EOB runs, as jdphuff.c decodes them);
   DHT, DQT and DRI segments between scans, restart markers inside any
   scan; a scan of one component covers only that component's own blocks.
+  Four-component files open as Pillow's mode "CMYK" (rawmode "CMYK;I":
+  every sample inverted): Adobe transform 0, or no Adobe marker, is CMYK
+  as stored; any other transform is YCCK, converted by libjpeg-turbo's
+  `ycck_cmyk_convert` first.
   The coefficients land in the `JpegCoefficients` form, so the islow
   IDCT, fancy upsampling and colour conversion serve every kind of file.
-  Arithmetic-coded, lossless, hierarchical, 12-bit and CMYK files, and
+  Arithmetic-coded, lossless, hierarchical and 12-bit files, and
   progressive files whose scans leave bits of the first ten coefficients
   unrefined (libjpeg smooths those blocks), raise `UnsupportedJpeg`,
   which names ROADMAP Queue 1 item 3b-ii; `probe_jpeg` finds all of these
@@ -44,11 +48,18 @@ import numpy as np
 ROADMAP_ITEM = "ROADMAP Queue 1 item 3b-ii"
 
 
-class UnsupportedJpeg(ValueError):
+class UnsupportedImage(ValueError):
+    """A page image in a variant the port's decoders do not read."""
+
+    def __init__(self, feature: str):
+        super().__init__(f"{feature} is not supported by the port's decoder ({ROADMAP_ITEM})")
+
+
+class UnsupportedJpeg(UnsupportedImage):
     """A JPEG that uses a feature this decoder does not implement."""
 
     def __init__(self, feature: str):
-        super().__init__(f"{feature} JPEG is not supported by the port's decoder ({ROADMAP_ITEM})")
+        super().__init__(f"{feature} JPEG")
 
 
 # jpeg_natural_order: zigzag index -> natural (row-major) index
@@ -472,6 +483,12 @@ def _reconstruct(coeffs: JpegCoefficients) -> np.ndarray:
         return planes[0]
     if coeffs.color == "RGB":
         return np.stack(planes, axis=-1)
+    if coeffs.color == "CMYK":
+        # Pillow reads every 4-component JPEG as rawmode "CMYK;I" (inverted)
+        return 255 - np.stack(planes, axis=-1)
+    if coeffs.color == "YCCK":
+        # jdcolor.c `ycck_cmyk_convert` (C, M, Y = 255 - R, G, B; K kept), then inverted
+        return np.concatenate([_ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], axis=-1)
     return _ycc_to_rgb(*planes)
 
 
@@ -529,9 +546,7 @@ def _check_sof(marker: int, body: bytes) -> _Frame:
     precision, height, width, n = struct.unpack(">BHHB", body[:6])
     if precision != 8:
         raise UnsupportedJpeg(f"{precision}-bit")
-    if n == 4:
-        raise UnsupportedJpeg("CMYK (4-component)")
-    if n not in (1, 3):
+    if n not in (1, 3, 4):
         raise UnsupportedJpeg(f"{n}-component")
     if height == 0:
         raise UnsupportedJpeg("DNL-sized (height 0)")
@@ -998,6 +1013,10 @@ def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
     comps = tuple(JpegComponent(blk, latched[ci], h, v) for ci, (blk, (_, h, v, _)) in enumerate(zip(blocks, frame.comps)))
     if len(comps) == 1:
         color = "L"
+    elif len(comps) == 4:
+        # jdapimin.c `default_decompress_parms`: Adobe transform 0 or no Adobe
+        # marker -> CMYK, any other transform -> YCCK
+        color = "YCCK" if adobe and adobe_transform != 0 else "CMYK"
     elif jfif:
         color = "YCbCr"
     elif adobe:
@@ -1007,14 +1026,21 @@ def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
     return JpegCoefficients(frame.height, frame.width, comps, color)
 
 
-def read_jpeg(data: bytes) -> Tuple[np.ndarray, str]:
+def read_jpeg(data: bytes, color: "str | None" = None) -> Tuple[np.ndarray, str]:
     """JPEG bytes -> (pixels, mode) as Pillow's `Image.open` decodes them:
-    mode "L" gives (H, W), mode "RGB" (H, W, 3) uint8."""
+    mode "L" gives (H, W), mode "RGB" (H, W, 3), mode "CMYK" (H, W, 4)
+    uint8. `color` ("RGB" or "YCbCr") overrides what the markers say of a
+    file of 3 or 4 components ("RGB": the stored samples), as libtiff does
+    for a JPEG strip of a TIFF."""
     coeffs = read_jpeg_coefficients(data)
-    return _reconstruct(coeffs), ("L" if coeffs.color == "L" else "RGB")
+    if color is not None and len(coeffs.components) > 1:
+        coeffs = coeffs._replace(color=color)
+    mode = {"L": "L", "CMYK": "CMYK", "YCCK": "CMYK"}.get(coeffs.color, "RGB")
+    return _reconstruct(coeffs), mode
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> (H, W, 3) uint8, as Pillow's `convert("RGB")`."""
-    px, mode = read_jpeg(data)
-    return np.repeat(px[..., None], 3, axis=2) if mode == "L" else px
+    from morphik_core_tpu_torch.models.colqwen.preprocess import to_rgb_u8
+
+    return to_rgb_u8(*read_jpeg(data), None)

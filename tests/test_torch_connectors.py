@@ -22,7 +22,8 @@ the CPU.
   reference's behaviour: the local connector refuses a root over the
   storage directory (400), the Drive OAuth state file stays inside the
   credentials directory, the registry takes the serving app's `ee`
-  settings, and a CMYK JPEG from a connector answers 415.
+  settings; a CMYK JPEG from a connector ingests as the reference ingests
+  it, and an arithmetic-coded JPEG answers 415.
 """
 
 import asyncio
@@ -85,7 +86,7 @@ def _source_dir(root: Path) -> Path:
     z = np.load(FILES)
     src = root / "src"
     (src / "sub").mkdir(parents=True)
-    for name in LOCAL_FILES[:5] + ["cmyk.jpg"]:
+    for name in LOCAL_FILES[:5] + ["cmyk.jpg", "arith.jpg"]:
         (src / name).write_bytes(z[name.replace(".", "_")].tobytes())
     (src / "report.pdf").write_bytes(_text_pdf(["quarterly revenue by region", "supplier invoice renewal"]))
     (src / "notes.txt").write_text(_prose(np.random.default_rng(5), 120))
@@ -387,20 +388,47 @@ def test_connector_http_error_mapping_matches_jax(conn, code, want):
     assert got[0] == got[2] and got[1] == got[3]
 
 
-def test_cmyk_from_a_connector_answers_415(conn):
-    """`check_upload` runs before the document exists: a CMYK JPEG from a
-    connector answers 415 naming ROADMAP item 3b-ii, and no document is
-    made (the reference decodes it with PIL)."""
+def test_cmyk_from_a_connector_ingests_as_the_reference(conn):
+    """A CMYK JPEG from a connector, refused until the decoder read
+    4-component frames, ingests on both servers under the same id to
+    byte-identical payloads: the reference's q80 payload (the committed
+    fixture's hash)."""
+    import uuid
+
+    got = {}
+    mp = pytest.MonkeyPatch()
+    try:
+        for name in ("torch", "jax"):
+            base = conn["base"][name]
+            assert _call(base, "POST", f"{C}/local/auth/finalize", {"root": str(conn["src"])})[0] == 200
+            ids = iter(range(10**6, 10**6 + 100))
+            mp.setattr(uuid, "uuid4", lambda: uuid.UUID(int=next(ids)))
+            status, body = _call(base, "POST", f"{C}/local/ingest", {"file_id": "cmyk.jpg"})
+            mp.undo()
+            assert status == 202, body
+            doc = body["document"]["external_id"]
+            assert _wait(base, doc) == "completed"
+            got[name] = (doc, _pages(base, doc))
+            assert _call(base, "POST", f"{C}/local/disconnect", {})[1] == {"status": "disconnected"}
+    finally:
+        mp.undo()
+    assert got["torch"][0] == got["jax"][0]
+    assert len(got["torch"][1]) == 1 and got["torch"][1] == got["jax"][1]
+    payload = base64.b64decode(got["torch"][1][0][1].split(",", 1)[1])
+    assert hashlib.sha256(payload).hexdigest() == str(np.load(FILES)["cmyk_jpg_payload_sha256"])
+
+
+def test_refused_jpeg_from_a_connector_answers_415(conn):
+    """`check_upload` runs before the document exists: a JPEG the port
+    still refuses (arithmetic-coded) from a connector answers 415 naming
+    ROADMAP item 3b-ii, and no document is made."""
     base = conn["base"]["torch"]
     assert _call(base, "POST", f"{C}/local/auth/finalize", {"root": str(conn["src"])})[0] == 200
     n_docs = len(_call(base, "POST", "/documents", {})[1])
-    status, body = _call(base, "POST", f"{C}/local/ingest", {"file_id": "cmyk.jpg"})
-    assert status == 415 and "CMYK" in body["detail"] and "ROADMAP Queue 1 item 3b-ii" in body["detail"]
+    status, body = _call(base, "POST", f"{C}/local/ingest", {"file_id": "arith.jpg"})
+    assert status == 415 and "arithmetic-coded" in body["detail"] and "ROADMAP Queue 1 item 3b-ii" in body["detail"]
     assert len(_call(base, "POST", "/documents", {})[1]) == n_docs
     assert _call(base, "POST", f"{C}/local/disconnect", {})[1] == {"status": "disconnected"}
-
-
-# --------------------------------------------------- the reference's faults
 
 
 def test_local_root_over_the_storage_directory_is_refused(conn, tmp_path):

@@ -573,14 +573,25 @@ def connector_files() -> dict:
         "gray16.png": png_bytes(gray16, 16, 0, interlace=True, seed=4, filters=(0, 2),
                                 trns=struct.pack(">H", 6255)),
         "cmyk.jpg": _pil_jpeg(Image.fromarray(_page(5)[:200, :200]).convert("CMYK"), quality=80),
+        "arith.jpg": _arithmetic_header(_pil_jpeg(Image.fromarray(_page(6)[:200, :200]), quality=80)),
     }
+
+
+REFUSED = ("arith.jpg",)
+
+
+def _arithmetic_header(data: bytes) -> bytes:
+    """A baseline file whose frame header says arithmetic coding (SOF9):
+    a file the port still refuses (ROADMAP item 3b-ii)."""
+    at = data.index(b"\xff\xc0")
+    return data[:at] + b"\xff\xc9" + data[at + 2:]
 
 
 def write_connector_fixtures(path: Path = FIXTURE) -> Path:
     """The connector fixtures (needs PIL and the JAX package): each file's
     bytes, the sha256 of Pillow's `convert("RGB")` pixels, and the sha256
     of the q80 payload the reference stores for it (`_image_to_data_uri`,
-    1024 px); the CMYK file has no payload (the port refuses it)."""
+    1024 px); the refused file has none."""
     from morphik_core_tpu.services.ingestion_service import _image_to_data_uri as j_image_to_data_uri
 
     arrays = {}
@@ -588,7 +599,7 @@ def write_connector_fixtures(path: Path = FIXTURE) -> Path:
         key = name.replace(".", "_")
         arrays[key] = np.frombuffer(data, np.uint8)
         arrays[f"{key}_rgb_sha256"] = np.array(hashlib.sha256(_pil_rgb(data).tobytes()).hexdigest())
-        if not name.startswith("cmyk"):
+        if name not in REFUSED:
             payload = data_uri_to_bytes(j_image_to_data_uri(Image.open(io.BytesIO(data)), max_width=1024))
             arrays[f"{key}_payload_sha256"] = np.array(hashlib.sha256(payload).hexdigest())
     np.savez_compressed(path, **arrays)
@@ -607,6 +618,10 @@ def test_connector_fixtures_are_current(tmp_path):
 
 @pytest.mark.parametrize("name", ["progressive.jpg", "multiscan.jpg", "adam7.png", "rgb16.png", "gray16.png"])
 def test_connector_fixtures_decode_as_the_reference(name):
+    _decodes_as_the_reference(name)
+
+
+def _decodes_as_the_reference(name):
     """Pillow's pixels (as their hash) and the reference's q80 payload."""
     z = np.load(FIXTURE)
     key = name.replace(".", "_")
@@ -619,7 +634,15 @@ def test_connector_fixtures_decode_as_the_reference(name):
     assert hashlib.sha256(data_uri_to_bytes(uri)).hexdigest() == str(z[f"{key}_payload_sha256"])
 
 
-def test_cmyk_fixture_is_refused():
-    data = np.load(FIXTURE)["cmyk_jpg"].tobytes()
-    with pytest.raises(UnsupportedJpeg, match="CMYK.*ROADMAP Queue 1 item 3b-ii"):
+def test_cmyk_fixture_decodes_as_the_reference():
+    """The CMYK connector file, refused until the decoder read 4-component
+    frames, decodes to Pillow's pixels and the reference's payload."""
+    assert read_image(np.load(FIXTURE)["cmyk_jpg"].tobytes())[1] == "CMYK"
+    _decodes_as_the_reference("cmyk.jpg")
+
+
+def test_refused_fixture_is_refused():
+    """The connector file the port still refuses: arithmetic coding."""
+    data = np.load(FIXTURE)["arith_jpg"].tobytes()
+    with pytest.raises(UnsupportedJpeg, match="arithmetic-coded.*ROADMAP Queue 1 item 3b-ii"):
         probe_jpeg(data)

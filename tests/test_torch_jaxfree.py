@@ -18,7 +18,11 @@ remote parse and OCR endpoints, ingests, retrieves and relays
 `/embeddings`. The connectors and the console run with the same
 packages blocked: a local-connector ingest of a progressive JPEG and an
 Adam7 16-bit PNG, a GitHub connector against the fake API, `/console`,
-and both images decoded to Pillow's pixels. The evaluation harnesses run
+and both images decoded to Pillow's pixels. Every committed GIF, BMP,
+TIFF, WebP and CMYK / YCCK JPEG fixture decodes to Pillow's mode and
+pixels with the same packages blocked, one of each new format ingests
+over HTTP, and a WebP and a TIFF image query each find their page. The
+evaluation harnesses run
 small with the same packages blocked: the fidelity gate (both parts), the
 ColPali ladder on the trained fixture, the offline RAG run and the int8
 profile. The package data lists every file the package opens at run
@@ -433,6 +437,71 @@ _CONNECTORS = _PRELUDE + textwrap.dedent(
 ) + _LEAKS
 
 
+# the page image formats: every committed fixture file decoded to Pillow's
+# mode and pixel hash, then one upload of each new format over HTTP and an
+# image query in WebP and in TIFF, each finding its own page first
+_FORMATS = _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, base64, hashlib, json, tempfile, threading, time, urllib.request
+    from pathlib import Path
+    from morphik_core_tpu_torch.api.app import build_app
+    from morphik_core_tpu_torch.api.http import HTTPServer
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.image import decode_image, read_image
+
+    z = np.load(Path(sys.argv[1]) / "tests" / "fixtures" / "image_formats.npz")
+    names = [k for k in z.files if k + "_rgb_sha256" in z.files]
+    assert len(names) >= 30, names
+    for key in names:
+        data = z[key].tobytes()
+        assert read_image(data)[1] == str(z[key + "_mode"]), key
+        assert hashlib.sha256(decode_image(data).tobytes()).hexdigest() == str(z[key + "_rgb_sha256"]), key
+    root = Path(tempfile.mkdtemp())
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout=120)
+    raw = {"storage": {"storage_path": str(root / "storage")}, "database": {"path": str(root / "db.sqlite")},
+           "vector_store": {"index_path": str(root / "index")},
+           "telemetry": {"telemetry_dir": str(root / "logs" / "telemetry")}}
+    services = build_services(Settings.from_dict(raw), device="cpu")
+    on_loop(services.initialize())
+    server = HTTPServer(build_app(services), "127.0.0.1", 0)
+    on_loop(server.start())
+    base = f"http://127.0.0.1:{server.port}"
+    def call(path, body, ctype="application/json"):
+        req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+    uploads = [("page_gif", "image/gif"), ("bmp24_bmp", "image/bmp"), ("g4_tif", "image/tiff"),
+               ("lzw_tif", "image/tiff"), ("lossy_webp", "image/webp"), ("cmyk_jpg", "image/jpeg")]
+    docs = {}
+    for key, ctype in uploads:
+        b = "XyZ"
+        body = (f'--{b}\\r\\nContent-Disposition: form-data; name="file"; filename="{key}"\\r\\n'
+                f'Content-Type: {ctype}\\r\\n\\r\\n').encode() + z[key].tobytes() + f"\\r\\n--{b}--\\r\\n".encode()
+        doc = call("/ingest/file", body, f"multipart/form-data; boundary={b}")
+        for _ in range(1200):
+            req = urllib.request.Request(base + f"/documents/{doc['external_id']}/status")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                st = json.loads(r.read())["status"]
+            if st != "processing":
+                break
+            time.sleep(0.05)
+        assert st == "completed", (key, st)
+        docs[key] = doc["external_id"]
+    for key, ctype in (("lossy_webp", "image/webp"), ("g4_tif", "image/tiff")):
+        uri = f"data:{ctype};base64," + base64.b64encode(z[key].tobytes()).decode()
+        hits = call("/retrieve/chunks", json.dumps({"query_image": uri, "k": 3}).encode())
+        assert hits[0]["document_id"] == docs[key], (key, hits)
+    on_loop(server.stop())
+    on_loop(services.shutdown())
+    loop.call_soon_threadsafe(loop.stop)
+    """
+) + _LEAKS
+
+
 # the binary store, the dual store, and three operator scripts on a seeded
 # deployment (a database, local storage with payloads, an fde index)
 _BINARY_AND_SCRIPTS = _PRELUDE + textwrap.dedent(
@@ -562,6 +631,13 @@ def test_api_node_runs_with_jax_pil_pydantic_httpx_boto3_blocked():
 def test_connectors_and_decoders_run_with_jax_pil_pydantic_httpx_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _CONNECTORS, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_image_formats_ingest_with_jax_pil_pydantic_httpx_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _FORMATS, str(ROOT)], capture_output=True, text=True, timeout=400,
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
 

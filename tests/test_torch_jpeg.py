@@ -10,7 +10,7 @@ pixels).
 - The upload decoder equals Pillow on committed fixtures (4:2:0, 4:2:2,
   4:4:4, gray, restart intervals, odd sizes): their decoded pixels are
   held as hashes, which `chip_smoke.py` checks on the card's machine;
-  progressive files among them. It refuses CMYK files, and progressive
+  progressive files among them. It refuses 12-bit files, and progressive
   files whose scans stop short, with ROADMAP item 3b-ii
   (`tests/test_torch_decoders.py` holds the progressive and multi-scan
   decode scan by scan).
@@ -149,14 +149,19 @@ def test_decoder_matches_pil_on_committed_fixtures(name):
     assert mode == Image.open(io.BytesIO(data)).mode
 
 
-@pytest.mark.parametrize("kind,feature", [("progressive", "unrefined"), ("cmyk", "CMYK")])
+@pytest.mark.parametrize("kind,feature", [("progressive", "unrefined"), ("twelve_bit", "12-bit")])
 def test_decoder_refuses_what_it_does_not_read(kind, feature):
-    """CMYK is refused. A progressive file, refused here until the
-    decoder read it, decodes as Pillow decodes it; the same file cut
-    short of its refinement scans is refused (libjpeg would smooth its
-    blocks). Both refusals name ROADMAP item 3b-ii."""
+    """A 12-bit file is refused (CMYK, refused here until the decoder read
+    it, decodes as Pillow decodes it: tests/test_torch_image_formats.py).
+    A progressive file, refused here until the decoder read it, decodes as
+    Pillow decodes it; the same file cut short of its refinement scans is
+    refused (libjpeg would smooth its blocks). Both refusals name ROADMAP
+    item 3b-ii."""
     img = Image.fromarray(_pixels("smooth", 40, 40, False, 7))
-    data = _pil_jpeg(img, progressive=True) if kind == "progressive" else _pil_jpeg(img.convert("CMYK"))
+    data = _pil_jpeg(img, progressive=True) if kind == "progressive" else _pil_jpeg(img)
+    if kind == "twelve_bit":
+        at = data.index(b"\xff\xc0")
+        data = data[:at + 4] + b"\x0c" + data[at + 5:]
     if kind == "progressive":
         assert np.array_equal(decode_jpeg(data), _pil_rgb(data))
         data = data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"   # the last scan dropped

@@ -15,10 +15,14 @@
   same pixels (each package embeds for itself: scores atol 5e-3, ids
   equal wherever the score gap exceeds that, as tests/test_torch_slice.py).
 - Refusals: what the page decoders still refuse (a progressive JPEG cut
-  short of its refinements, CMYK, GIF, video) answers 415, unported
-  options 501, and unported settings and a missing card raise at
-  `build_services`; a whole progressive JPEG, a 16-bit and an Adam7 PNG
-  decode as Pillow decodes them.
+  short of its refinements, an arithmetic-coded JPEG, a BigTIFF, video)
+  answers 415, unported options 501, and unported settings and a missing
+  card raise at `build_services`; a whole progressive JPEG, a 16-bit and
+  an Adam7 PNG decode as Pillow decodes them.
+- Page image formats: the port server and the JAX server given the same
+  GIF, BMP, Group 4 TIFF, LZW TIFF, lossy WebP and CMYK JPEG uploads
+  under the same ids store byte-identical payloads, and an image query in
+  each of those formats returns the same ids, scores within 5e-3.
 - Documents as pages: the port server and the JAX server given the same
   PDF, JPEG (color and gray), PPTX and DOCX uploads under the same ids
   store byte-identical JPEG page payloads with the same page metadata,
@@ -807,14 +811,15 @@ def test_http_topk_matches_jax_library(servers):
     assert got[0]["metadata"] == {"is_image": True, "page": 0}
 
 
-@pytest.mark.parametrize("kind", ["progressive_jpeg", "cmyk_jpeg", "gif", "video"])
+@pytest.mark.parametrize("kind", ["progressive_jpeg", "arith_jpeg", "bigtiff", "video"])
 def test_http_refuses_other_content_types(servers, kind):
     """What the port still does not ingest answers 415 with either
     `use_colpali`, naming ROADMAP item 3b-ii: a progressive JPEG whose
     scans stop short of its refinements (libjpeg would smooth it; a
     whole progressive file is ingested, its pages held to the JAX
-    server's in `tests/test_torch_connectors.py`), a CMYK JPEG, GIF (no
-    decoder) and video."""
+    server's in `tests/test_torch_connectors.py`), an arithmetic-coded
+    JPEG, a BigTIFF and video. (CMYK JPEGs and GIFs, refused here until
+    their decoders were written, are ingested: `format_servers` below.)"""
     img = Image.fromarray(servers["pages"][0])
     if kind == "progressive_jpeg":
         whole = _pil_jpeg(img, progressive=True)
@@ -822,19 +827,20 @@ def test_http_refuses_other_content_types(servers, kind):
         assert status == 200 and doc["content_type"] == "image/jpeg", doc
         _wait_completed(servers["base"]["torch"], [doc["external_id"]])
         data, name, ctype = whole[:whole.rindex(b"\xff\xda")] + b"\xff\xd9", "p.jpg", "image/jpeg"
-    elif kind == "cmyk_jpeg":
-        data, name, ctype = _pil_jpeg(img.convert("CMYK")), "c.jpg", "image/jpeg"
-    elif kind == "gif":
-        buf = io.BytesIO()
-        img.save(buf, format="GIF")
-        data, name, ctype = buf.getvalue(), "p.gif", "image/gif"
+    elif kind == "arith_jpeg":
+        base = _pil_jpeg(img)
+        at = base.index(b"\xff\xc0")
+        data, name, ctype = base[:at] + b"\xff\xc9" + base[at + 2:], "c.jpg", "image/jpeg"
+    elif kind == "bigtiff":
+        data, name, ctype = b"II+\x00\x08\x00\x00\x00" + bytes(64), "p.tif", "image/tiff"
     else:
         data, name, ctype = b"\x00\x00\x00\x18ftypmp42" + bytes(64), "v.mp4", "video/mp4"
     for fields in (None, {"use_colpali": "false"}):
         status, body = _upload(servers["base"]["torch"], name, data, ctype, fields=fields)
         assert status == 415 and "ROADMAP Queue 1 item 3b-ii" in body["detail"], body
-    if kind.endswith("jpeg"):
-        assert ("unrefined" if kind == "progressive_jpeg" else "CMYK") in body["detail"]
+    words = {"progressive_jpeg": "unrefined", "arith_jpeg": "arithmetic-coded", "bigtiff": "BigTIFF"}
+    if kind in words:
+        assert words[kind] in body["detail"]
 
 
 def test_http_undecodable_query_image_answers_400(servers):
@@ -1602,3 +1608,106 @@ def test_http_document_retrieve_matches_jax_server(doc_servers):
         _same_ranking([(r["document_id"], r["chunk_number"]) for r in jres], [r["score"] for r in jres],
                       [(r["document_id"], r["chunk_number"]) for r in tres], [r["score"] for r in tres], atol=5e-3)
     assert (tres[0]["document_id"], tres[0]["chunk_number"]) == (doc_servers["docs"]["torch"][0], 1)
+
+
+FORMATS = ["gif", "bmp", "g4_tiff", "lzw_tiff", "lossy_webp", "cmyk_jpeg"]
+_EXT = {"gif": ("gif", "image/gif"), "bmp": ("bmp", "image/bmp"), "g4_tiff": ("tif", "image/tiff"),
+        "lzw_tiff": ("tif", "image/tiff"), "lossy_webp": ("webp", "image/webp"), "cmyk_jpeg": ("jpg", "image/jpeg")}
+
+
+def _format_uploads(rng):
+    """(name, bytes, content type) of one page image in each newly
+    ingested format, written by Pillow."""
+    out = []
+    for kind in FORMATS:
+        page = Image.fromarray(_page(rng, 230, 290, n_blocks=7))
+        buf = io.BytesIO()
+        if kind == "gif":
+            page.save(buf, "GIF")
+        elif kind == "bmp":
+            page.quantize(64).save(buf, "BMP")
+        elif kind == "g4_tiff":
+            page.convert("L").point(lambda v: 255 * (v > 140)).convert("1").save(buf, "TIFF", compression="group4")
+        elif kind == "lzw_tiff":
+            page.save(buf, "TIFF", compression="tiff_lzw")
+        elif kind == "lossy_webp":
+            page.save(buf, "WEBP", quality=80)
+        else:
+            page.convert("CMYK").save(buf, "JPEG", quality=90)
+        ext, ctype = _EXT[kind]
+        out.append((f"{kind}.{ext}", buf.getvalue(), ctype))
+    return out
+
+
+@pytest.fixture(scope="module")
+def format_servers(tmp_path_factory):
+    """The port server and the JAX server (fixture model), each given the
+    same page image in each newly ingested format under the same ids."""
+    import uuid
+
+    root = tmp_path_factory.mktemp("formats")
+    uploads = _format_uploads(np.random.default_rng(61))
+    lt = _LoopThread()
+    out = {"uploads": uploads, "base": {}, "docs": {}}
+    srvs = []
+    mp = pytest.MonkeyPatch()
+    try:
+        for name in ("torch", "jax"):
+            if name == "torch":
+                services = build_services(Settings.from_dict(_raw_settings(root, name)),
+                                          colqwen_model=TModel.from_fixture(FIXTURE, device="cpu"), device="cpu")
+                srv = HTTPServer(build_app(services), "127.0.0.1", 0)
+            else:
+                services = j_build_services(JSettings.model_validate(_raw_settings(root, name)),
+                                            colqwen_model=JModel.from_fixture(FIXTURE))
+                srv = JHTTPServer(j_build_app(services), "127.0.0.1", 0)
+            lt.run(services.initialize())
+            lt.run(srv.start())
+            srvs.append((srv, services))
+            base = out["base"][name] = f"http://127.0.0.1:{srv.port}"
+            mp.setattr(uuid, "uuid4", _SeqIds())
+            docs = []
+            for fname, data, ctype in uploads:
+                status, doc = _upload(base, fname, data, ctype)
+                assert status == 200 and doc["content_type"] == ctype, doc
+                docs.append(doc["external_id"])
+                _wait_completed(base, docs[-1:], timeout_s=120)
+            mp.undo()
+            out["docs"][name] = docs
+        yield out
+    finally:
+        mp.undo()
+        for srv, services in srvs:
+            lt.run(srv.stop())
+            lt.run(services.shutdown())
+        lt.close()
+
+
+@pytest.mark.parametrize("kind", FORMATS)
+def test_http_format_pages_match_jax_server(format_servers, kind):
+    """The same upload under the same id: the one page payload each
+    server stores is byte-identical (the reference decodes with Pillow,
+    the port with its own decoders), with the same page metadata."""
+    i = FORMATS.index(kind)
+    tid, jid = format_servers["docs"]["torch"][i], format_servers["docs"]["jax"][i]
+    assert tid == jid
+    got = _page_chunks(format_servers["base"]["torch"], tid)
+    want = _page_chunks(format_servers["base"]["jax"], jid)
+    assert len(got) == len(want) == 1
+    assert got == want
+
+
+@pytest.mark.parametrize("kind", FORMATS)
+def test_http_format_image_query_matches_jax_server(format_servers, kind):
+    """An image query in each format (the upload's own bytes as a data
+    URI): the same ids from both servers, scores within 5e-3, its own
+    document first."""
+    i = FORMATS.index(kind)
+    name, data, ctype = format_servers["uploads"][i]
+    body = {"query_image": bytes_to_data_uri(data, ctype), "k": len(FORMATS)}
+    (ts_, tres), (js_, jres) = [_call(format_servers["base"][n], "POST", "/retrieve/chunks", body)
+                                for n in ("torch", "jax")]
+    assert ts_ == js_ == 200 and len(tres) == len(jres)
+    _same_ranking([r["document_id"] for r in jres], [r["score"] for r in jres],
+                  [r["document_id"] for r in tres], [r["score"] for r in tres], atol=5e-3)
+    assert tres[0]["document_id"] == format_servers["docs"]["torch"][i]
