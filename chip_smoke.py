@@ -350,6 +350,21 @@ Phases (each raises on failure; none is caught):
      decode ms per file and size, ingest s per file, image query ms,
      launches, peak memory, the phase's s, the card); the kernels line
      gains `formats_launches`.
+ 23. text pages in every left-to-right script (after phase 22, before
+     phase 21), on a server from the toml serving phase 3b's model: the
+     host render ms of a page (`render_text_page` at 150 dpi, median of 3)
+     in Latin, Cyrillic and CJK beside a Latin-1 page of the same length;
+     the DOCX, PPTX and 6-page PDF of tests/fixtures/text_pages.npz (Greek,
+     Cyrillic, Vietnamese, Romanian, symbols, box drawing, the font's
+     emoji, CJK boxes; a `Г“A` script-boundary kerning case) ingested over
+     HTTP to `completed`, every stored page the reference's payload byte
+     for byte (q80 for DOCX / PPTX, q70 from the raster pool for the PDF;
+     made by the JAX package under PIL); K3 = 28 a tower forward; an
+     image query of the boundary page's payload finds that page first,
+     through K1; a 5-page PDF with Arabic on page 3 ends `failed`, its
+     error naming ROADMAP item 3b-ii, with no page stored. Prints a
+     {"text_pages": ...} line; the kernels line gains
+     `text_pages_launches`.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
 prints no result.
@@ -3802,6 +3817,153 @@ def formats_phase(torch, model, _kernels, smi):
     return out
 
 
+# phase 23: text pages in every left-to-right script the reference draws
+TEXT_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "text_pages.npz"
+TEXT_PAGE_FILES = (("mixed.docx", "docx", "application/vnd.openxmlformats-officedocument.wordprocessingml.document"),
+                   ("mixed.pptx", "pptx",
+                    "application/vnd.openxmlformats-officedocument.presentationml.presentation"),
+                   ("mixed.pdf", "pdf", "application/pdf"))
+TEXT_PAGE_QUERY = 2  # the PDF page with the script-boundary kerning case
+TEXT_RENDER_REPEATS = 3
+
+
+def _fixture_blobs(z, key) -> list:
+    """The payloads packed under `key` (bytes laid end to end, `key_sizes`)."""
+    import numpy as np
+
+    flat, sizes = z[key].tobytes(), z[f"{key}_sizes"]
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    return [flat[a:b] for a, b in zip(starts, starts[1:])]
+
+
+def text_render_ms(z) -> dict:
+    """Phase 23, on the host: `render_text_page` ms of the fixture's
+    timing pages (one length; Latin-1, Latin, Cyrillic, CJK) at 150 dpi,
+    the median of TEXT_RENDER_REPEATS after one untimed render."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.parser.text_render import render_text_page
+
+    out = {}
+    for name, text in zip(z["timing_names"].tolist(), z["timing_texts"].tolist()):
+        render_text_page(text, 150)
+        times = []
+        for _ in range(TEXT_RENDER_REPEATS):
+            t = time.perf_counter()
+            render_text_page(text, 150)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = float(np.median(times))
+    return out
+
+
+def _wait_failed(client, doc_id) -> dict:
+    deadline = time.perf_counter() + SERVICE_POLL_S
+    while True:
+        st = client.call("GET", f"/documents/{doc_id}/status")
+        if st["status"] == "failed":
+            return st
+        if st["status"] == "completed" or time.perf_counter() > deadline:
+            raise AssertionError(f"the refused PDF is {st['status']}, expected failed: {st}")
+        time.sleep(0.02)
+
+
+def text_pages_phase(torch, model, _kernels, smi):
+    """Phase 23: text pages in every left-to-right script on a server from
+    the toml serving phase 3b's model. Every stored page is the
+    reference's payload byte for byte; an image query of a page finds it
+    first (K1); a PDF with an Arabic page fails naming item 3b-ii."""
+    import base64
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.services_init import build_services
+    from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
+
+    t_phase = time.perf_counter()
+    z = np.load(TEXT_PAGES_FIXTURE)
+    render_ms = text_render_ms(z)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_pages_"))
+    settings = service_settings(tmp)
+    forward_batches = []
+    tower = model.embed_image_batch
+
+    def counted_forward(patches, *args, **kw):
+        forward_batches.append(int(patches.shape[0]))
+        return tower(patches, *args, **kw)
+
+    server = None
+    try:
+        t0 = time.perf_counter()
+        server = ServerThread(build_services(settings, colqwen_model=model))  # recalibrates static scales
+        boot_s = time.perf_counter() - t0
+        client = Client(f"http://127.0.0.1:{server.server.port}")
+        model.embed_image_batch = counted_forward
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()  # the text pages path starts here
+        log(f"phase 23: text pages in every left-to-right script ({smi}): server up in {boot_s:.3f} s; host render "
+            f"ms a page {json.dumps({k: round(v, 3) for k, v in render_ms.items()})}")
+        ingest_s, docs, pages = {}, {}, {}
+        for name, key, ctype in TEXT_PAGE_FILES:
+            t = time.perf_counter()
+            docs[name] = client.upload(name, z[key].tobytes(), ctype)["external_id"]
+            ingest_s[name] = _wait_completed(client, [docs[name]]) - t
+        for name, key, _ in TEXT_PAGE_FILES:   # the reference's payloads, page for page
+            want = _fixture_blobs(z, f"{key}_payloads")
+            chunks = client.call("POST", "/batch/chunks", {"sources": [
+                {"document_id": docs[name], "chunk_number": k} for k in range(len(want) + 2)], "use_colpali": True})
+            got = [base64.b64decode(c["content"].split(",", 1)[1]) for c in chunks]
+            if got != want:
+                raise AssertionError(f"{name}: {len(got)} stored pages, {sum(g != w for g, w in zip(got, want))} of "
+                                     f"them differ from the reference's {len(want)} payloads")
+            pages[name] = len(got)
+        ingest_launches = dict(_kernels.launch_counts)
+        ingest_forwards = len(forward_batches)
+        k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+        if ingest_forwards < 1 or ingest_launches["window_attention"] != k3_per_forward * ingest_forwards:
+            raise AssertionError(f"{ingest_forwards} tower forwards, K3 launched "
+                                 f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
+        uri = bytes_to_data_uri(_fixture_blobs(z, "pdf_payloads")[TEXT_PAGE_QUERY], "image/jpeg")
+        before = _kernels.launch_counts["maxsim_q8"]
+        t = time.perf_counter()
+        hits = client.call("POST", "/retrieve/chunks", {"query_image": uri, "k": 4})
+        query_ms = (time.perf_counter() - t) * 1e3
+        k1 = _kernels.launch_counts["maxsim_q8"] - before
+        if (hits[0]["document_id"], hits[0]["chunk_number"]) != (docs["mixed.pdf"], TEXT_PAGE_QUERY) or k1 <= 0:
+            raise AssertionError(f"the page image query's top-1 is {hits[0]['document_id']}#"
+                                 f"{hits[0]['chunk_number']} (K1 {k1}), not PDF page {TEXT_PAGE_QUERY}")
+        launches = dict(_kernels.launch_counts)
+        if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the query's forward too
+            raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
+                                 "tower forwards")
+        # still refused: a PDF with an Arabic page fails the job, no page stored
+        t = time.perf_counter()
+        refused = client.upload("refused.pdf", z["refused_pdf"].tobytes(), "application/pdf")["external_id"]
+        status = _wait_failed(client, refused)
+        refused_s = time.perf_counter() - t
+        if "3b-ii" not in status["error"] or "U+0633" not in status["error"]:
+            raise AssertionError(f"the refused PDF failed with {status['error']!r}")
+        if client.call("POST", "/batch/chunks", {"sources": [
+                {"document_id": refused, "chunk_number": k} for k in range(5)], "use_colpali": True}):
+            raise AssertionError("the refused PDF left pages in the store")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        model.embed_image_batch = tower
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"card": smi, "boot_s": boot_s, "render_ms": render_ms,
+           "render_over_latin1": {k: v / render_ms["latin1"] for k, v in render_ms.items()},
+           "ingest_s": ingest_s, "pages": pages, "ingest_forwards": ingest_forwards,
+           "tower_forwards": len(forward_batches), "image_query_ms": query_ms, "refused_s": refused_s,
+           "refused_error": status["error"], "launches": launches, "ingest_launches": ingest_launches,
+           "k3_per_forward": k3_per_forward, "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase}
+    log(f"  ingests to completed (s) {json.dumps({k: round(v, 3) for k, v in ingest_s.items()})}, pages {pages}, "
+        f"each the reference's payload; tower forwards {ingest_forwards} (K3 {ingest_launches['window_attention']}); "
+        f"page image query {query_ms:.3f} ms (top-1 its page); the Arabic PDF failed in {refused_s:.3f} s naming "
+        f"3b-ii; launches {launches}; peak {peak_gb:.2f} GB; phase {out['phase_s']:.3f} s ({smi})")
+    return out
+
+
 # K4 (the binary MaxSim of the binary index) and phases 18-19
 BINARY_SYNTH = 16_384  # phase 18: synthetic rows beside the 8 pages (16,392 x 1024 x 16 B = 256 MiB resident)
 BINARY_TOKENS = (64, 633)  # their token counts, drawn uniformly: up to the self-query's 632
@@ -4606,6 +4768,7 @@ def main() -> None:
     scripts = scripts_phase(torch, model, page_embs, _kernels, smi)
     evals = evals_phase(torch, _kernels, smi)
     formats = formats_phase(torch, model, _kernels, smi)  # before phase 21 puts the model on its mesh
+    text_pages = text_pages_phase(torch, model, _kernels, smi)
     mesh = mesh_phase(torch, model, page_embs, rows, page_fdes, queries5, service["retrieve_answers"], phase8_scales,
                       _kernels, smi)
     csrc = "morphik_core_tpu_torch/csrc/"
@@ -4625,7 +4788,7 @@ def main() -> None:
              remote_launches=sum(remote["launches"][part][name] for part in ("ingest", "retrieve", "relay")),
              connectors_launches=connectors["launches"][name], f32_launches=f32["launches"][name],
              evals_launches=evals["launches"][name], mesh_launches=mesh["launches"][name],
-             formats_launches=formats["launches"][name])
+             formats_launches=formats["launches"][name], text_pages_launches=text_pages["launches"][name])
         for name, src, replaces, case in (
             ("maxsim_q8", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:248", main_k1),
             ("maxsim", "maxsim.cu", "morphik_core_tpu/ops/maxsim.py:111", main_k2),
@@ -4672,6 +4835,7 @@ def main() -> None:
     print(json.dumps({"evals": evals}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"formats": formats}))
+    print(json.dumps({"text_pages": text_pages}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

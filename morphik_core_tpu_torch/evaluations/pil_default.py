@@ -44,7 +44,7 @@ def load_default_font() -> GlyphFont:
         starts = np.concatenate([[0], np.cumsum(shapes[:, 0] * shapes[:, 1])])
         masks = [flat[starts[i]:starts[i + 1]].reshape(shapes[i]).astype(np.int64) for i in range(len(tokens))]
         kern = {(int(a), int(b)): int(v) for a, b, v in z["kern"]}
-        return GlyphFont(tokens, masks, z["offsets"], z["advances"], kern, [], np.zeros(0, np.int32))
+        return GlyphFont(tokens, masks, z["offsets"], z["advances"], kern)
 
 
 def draw_text(page: np.ndarray, xy, text: str) -> None:

@@ -13,7 +13,9 @@ bounds how many pages' patches are held at once.
 
 Pages come from the text-render rung (`pdf.rasterize_pdf`'s); a page
 that fails is skipped and the others keep their true page indices, as
-the reference's per-page skip does. The workers are forkserver children
+the reference's per-page skip does, except where the renderer refuses
+the page's text (`UnsupportedText`: the reference draws it, the port
+cannot yet), which fails the whole document. The workers are forkserver children
 that import only this package's numpy modules: no torch, and so no
 CUDA context, is ever made in them.
 """
@@ -31,7 +33,7 @@ import numpy as np
 
 from morphik_core_tpu_torch.models.colqwen.preprocess import is_blank_page, preprocess_array_u8, resize_lanczos_u8
 from morphik_core_tpu_torch.parser.pdf import extract_pages_text
-from morphik_core_tpu_torch.parser.text_render import render_text_page
+from morphik_core_tpu_torch.parser.text_render import UnsupportedText, render_text_page
 from morphik_core_tpu_torch.utils.jpeg import decode_own, encode_jpeg
 
 logger = logging.getLogger(__name__)
@@ -67,9 +69,12 @@ def _finish_page(i: int, img: np.ndarray, max_width: int, prep):
 
 def _raster_page(i: int, text: str, dpi: int, max_width: int, prep) -> Optional[tuple]:
     """Worker: one page's `_finish_page` artifacts, or None when the page
-    fails (logged; the page is skipped)."""
+    fails (logged; the page is skipped). A text the renderer refuses is
+    raised: dropping the page would index less than the reference does."""
     try:
         return _finish_page(i, render_text_page(text, dpi), max_width, prep)
+    except UnsupportedText:
+        raise
     except Exception as e:  # a per-page failure skips the page
         logger.warning("page %d of the PDF failed to rasterize (%s); skipped", i, e)
         return None

@@ -3,152 +3,440 @@ without PIL or FreeType (the card's machine has neither, and may have no
 font): extracted text drawn in DejaVuSans on a white letter-sized page.
 
 The glyphs come from a committed atlas, `glyphs_dejavu_sans.npz`, that
-`write_glyph_atlas` makes with PIL from DejaVuSans.ttf (on a machine
-with PIL and the font; nothing on the serving path runs it). For each
-font size the reference draws (18 px at 150 dpi, 12 px at 100 dpi) it
-holds every token's mask as PIL draws it alone at an integer origin
-(with its offset from the origin), its advance in 1/64 px, the pair
-kerning between tokens (`getlength(ab) - getlength(a) - getlength(b)`)
-and the ligatures of the font's `liga` feature (a token is a character
-or a ligature: "ff", "fi", "fl", "ffi", "ffl").
+`glyph_atlas.write_glyph_atlas` makes with PIL and fontTools from
+DejaVuSans.ttf (on a machine with both and the font; nothing on the
+serving path imports it). For
+each font size the reference draws (18 px at 150 dpi, 12 px at 100 dpi) it
+holds every token's mask as PIL draws it alone at an integer origin (with
+its offset from the origin) and its advance in 1/64 px. A token is a
+character of the font's cmap, a ligature of its `liga` feature, the
+`.notdef` box, the invisible glyph of a default-ignorable character, or a
+space the font lacks (drawn as its space, HarfBuzz's space fallback).
+Beside them, size for size, the GPOS `kern` pairs as PIL measures them
+inside a run of each script that can hold the pair; and, for every code
+point, its class (`GLYPH` ... `MISDRAWN` below), its script (ISO 15924)
+and, for the brackets that raqm pairs, its partner.
 
-The reference's layout is Pillow's raqm (HarfBuzz), mirrored here:
-ligatures are taken greedily in the font's order; the pen advances in
-26.6 fixed point by each token's advance plus the kerning with the next
-token; a glyph sits at `(pen + 32) >> 6`; overlapping glyphs of a line
-composite as `src + dst * (255 - src) / 255` (`_imagingft.c`), and each
-line's mask is blended black over the page (`draw_bitmap`). The page
-layout (margin, line height, `max_chars` wrapping, the half line after
-an empty line, "(no extractable text)") is `_render_text_page`'s.
+The reference's layout is Pillow's raqm (fribidi + HarfBuzz), mirrored
+here for the left-to-right scripts that HarfBuzz shapes with its default
+shaper (and Hangul syllables, which it leaves alone):
+
+- raqm's script resolution: a Common character takes the script before
+  it, a closing bracket the script of its opening one (a stack), and
+  what is still Common or Inherited (a leading run) the script after it;
+  the line splits into runs where the resolved script changes, and each
+  run is shaped alone under its script's OpenType script tag;
+- HarfBuzz's normalization against the cmap: a base and its marks
+  compose into a character the font maps, a character the font lacks
+  decomposes into parts it maps, a variation selector leaves its cluster
+  alone, U+3000 takes the space glyph;
+- the run's `liga` ligatures, taken greedily in the font's order across
+  default-ignorables that do not block them, and its `kern` pairs across
+  every default-ignorable;
+- default-ignorables hidden (nothing drawn, no advance); the pen advances
+  in 26.6 fixed point; a glyph sits at `(pen + 32) >> 6`; overlapping
+  glyphs of a line composite as `src + dst * (255 - src) / 255`
+  (`_imagingft.c`), and each line's mask is blended black over the page
+  (`draw_bitmap`).
+
+What the mirror cannot draw raises `UnsupportedText` (ROADMAP Queue 1
+item 3b-ii): right-to-left text and the bidi controls, the scripts that
+HarfBuzz gives a shaper of their own, a combining mark that does not
+compose (it needs the GPOS mark anchors), a sequence of the font's
+contextual tone letters, and a dpi whose font size the atlas lacks. The
+page layout (margin, line height, `max_chars` wrapping, the half line
+after an empty line, "(no extractable text)") is `_render_text_page`'s.
+The atlas assumes HarfBuzz's default language system (a C or English
+locale): a Romanian or Serbian locale would select other forms.
 """
 
 from __future__ import annotations
 
 import functools
+import unicodedata
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 ATLAS_PATH = Path(__file__).with_name("glyphs_dejavu_sans.npz")
 ATLAS_DPIS = (150, 100)
 FONT_NAME = "DejaVuSans.ttf"
-# Latin-1 (controls included: PDF strings carry them), Latin Extended-A,
-# General Punctuation without its direction marks, embeddings and
-# isolates (raqm runs the bidi algorithm over those), Currency Symbols,
-# U+2122 and U+FFFD
-CHARSET = "".join(chr(c) for c in [*range(0x00, 0x0A), *range(0x0B, 0x180), *range(0x2000, 0x200E),
-                                   *range(0x2010, 0x202A), *range(0x202F, 0x2066), *range(0x206A, 0x2070),
-                                   *range(0x20A0, 0x20C1), 0x2122, 0xFFFD])
-ZWNJ = "\u200c"
+ROADMAP_ITEM = "ROADMAP Queue 1 item 3b-ii"
+
+# a code point's class in the atlas; the classes from BIDI on are refused
+GLYPH, NOTDEF, COMPOSES, HIDDEN, MARK, BIDI, SHAPER, UNASSIGNED, MARKED, MISDRAWN = range(10)
+_REFUSAL = {
+    BIDI: "is right-to-left or a bidi control: the port draws left-to-right text only",
+    SHAPER: "needs a HarfBuzz shaper of its own (complex script or conjoining jamo)",
+    UNASSIGNED: f"is unassigned in Unicode {unicodedata.unidata_version}, a surrogate or a noncharacter",
+    MARKED: "decomposes into a base and a combining mark, which needs the font's GPOS mark anchors",
+    MISDRAWN: "is drawn by PIL otherwise than the atlas predicts",
+}
+DOTTED_CIRCLE = 0x25CC
+
+
+class UnsupportedText(ValueError):
+    """A text or dpi the atlas mirror cannot draw as the reference does."""
 
 
 def font_size(dpi: int) -> int:
     return max(10, dpi // 8)
 
 
+def _is_mark(cp: int) -> bool:
+    return unicodedata.category(chr(cp))[0] == "M"
+
+
+def _is_variation_selector(cp: int) -> bool:
+    return 0xFE00 <= cp <= 0xFE0F or 0xE0100 <= cp <= 0xE01EF or 0x180B <= cp <= 0x180D or cp == 0x180F
+
+
+def _canonical_decomposition(cp: int) -> Optional[Tuple[int, ...]]:
+    """One step of `cp`'s canonical decomposition (1 or 2 code points), or
+    None. Hangul syllables are left out: the font has no jamo to decompose
+    them into."""
+    d = unicodedata.decomposition(chr(cp))
+    if not d or d.startswith("<"):
+        return None
+    return tuple(int(x, 16) for x in d.split())
+
+
+def decompose(cp: int, shortest: bool, cmap) -> Optional[List[int]]:
+    """HarfBuzz's `decompose`: `cp` as code points of `cmap` (the font's),
+    or None."""
+    d = _canonical_decomposition(cp)
+    if d is None or (len(d) == 2 and d[1] not in cmap):
+        return None
+    tail = list(d[1:])
+    if shortest and d[0] in cmap:
+        return [d[0]] + tail
+    deeper = decompose(d[0], shortest, cmap)
+    if deeper:
+        return deeper + tail
+    return [d[0]] + tail if d[0] in cmap else None
+
+
+def _composite(places: Sequence[Tuple[int, int, np.ndarray]]) -> Tuple[np.ndarray, int, int]:
+    """(x, y, mask) glyphs -> (line mask, x offset, y offset), overlapping
+    glyphs composited as FreeType's bitmaps are in `_imagingft.c`."""
+    if not places:
+        return np.zeros((0, 0), np.uint8), 0, 0
+    x0 = min(p[0] for p in places)
+    y0 = min(p[1] for p in places)
+    x1 = max(p[0] + p[2].shape[1] for p in places)
+    y1 = max(p[1] + p[2].shape[0] for p in places)
+    out = np.zeros((y1 - y0, x1 - x0), np.int64)
+    for x, y, m in places:
+        reg = out[y - y0:y - y0 + m.shape[0], x - x0:x - x0 + m.shape[1]]
+        t = reg * (255 - m) + 128
+        reg[...] = m + (((t >> 8) + t) >> 8)
+    return out.astype(np.uint8), x0, y0
+
+
+def _unpack_masks(shapes: np.ndarray, flat: np.ndarray) -> List[np.ndarray]:
+    starts = np.concatenate([[0], np.cumsum(shapes[:, 0] * shapes[:, 1])])
+    return [flat[starts[i]:starts[i + 1]].reshape(shapes[i]).astype(np.int64) for i in range(len(shapes))]
+
+
 class GlyphFont:
-    """One font size of the atlas."""
+    """A font laid out without shaping (Pillow's BASIC layout): one token a
+    character, pairwise kerning between neighbours."""
 
     def __init__(self, tokens: List[str], masks: List[np.ndarray], offsets: np.ndarray, advances: np.ndarray,
-                 kern: Dict[Tuple[int, int], int], ligatures: List[str], hidden: np.ndarray):
+                 kern: Dict[Tuple[int, int], int]):
         self.index = {t: i for i, t in enumerate(tokens)}
         self.masks = masks
         self.offsets = offsets.tolist()
         self.advances = advances.tolist()
         self.kern = kern
-        self.ligatures = ligatures
-        # default-ignorable tokens (soft hyphen, zero-width and invisible
-        # format characters): HarfBuzz hides them, and kerning reaches across
-        self.hidden = set(hidden.tolist())
-
-    def _ligature_at(self, line: str, i: int) -> Tuple[str, List[str]]:
-        """The first ligature (font order) starting at `line[i]`, matched
-        across hidden characters but a ZWNJ (which breaks a ligature) as
-        HarfBuzz's skippy iterator does, and
-        the hidden characters it skipped (they follow the ligature) -> (the
-        ligature or line[i], skipped); the match spans len(ligature) +
-        len(skipped) characters."""
-        for lig in self.ligatures:
-            j, skipped = i, []
-            for k, ch in enumerate(lig):
-                while k and j < len(line) and line[j] not in (ch, ZWNJ) and self.index.get(line[j]) in self.hidden:
-                    skipped.append(line[j])
-                    j += 1
-                if j >= len(line) or line[j] != ch:
-                    break
-                j += 1
-            else:
-                return lig, skipped
-        return line[i], []
-
-    def tokens(self, line: str) -> List[int]:
-        """Characters -> token ids, ligatures taken greedily in font order."""
-        out, i = [], 0
-        while i < len(line):
-            tok, skipped = self._ligature_at(line, i)
-            for t in [tok] + skipped:
-                if t not in self.index:
-                    raise ValueError(
-                        f"character {t!r} (U+{ord(t[0]):04X}) is not in the glyph atlas {ATLAS_PATH.name} "
-                        "(Latin-1, Latin Extended-A, General Punctuation but its bidi controls, Currency "
-                        "Symbols): extend CHARSET and regenerate it with text_render.write_glyph_atlas() "
-                        "(needs PIL; ROADMAP Queue 1 item 3b-ii)")
-                out.append(self.index[t])
-            i += len(tok) + len(skipped)
-        return out
 
     def line_mask(self, line: str) -> Tuple[np.ndarray, int, int]:
         """-> (mask, x offset, y offset) of a line drawn at origin (0, 0)
         with anchor "la", as `FreeTypeFont.getmask2` gives it."""
-        ids = self.tokens(line)
-        places = []
-        pen = 0
-        nxt = len(ids)
-        after = [0] * len(ids)   # the next visible token after each position
-        for k in range(len(ids) - 1, -1, -1):
-            after[k] = nxt
-            if ids[k] not in self.hidden:
-                nxt = k
+        ids = [self.index[ch] for ch in line]
+        places, pen = [], 0
         for k, t in enumerate(ids):
-            ox, oy = self.offsets[t]
-            m = self.masks[t]
-            if m.size:
-                places.append((((pen + 32) >> 6) + ox, oy, m))
-            pen += self.advances[t]
-            if t not in self.hidden and after[k] < len(ids):
-                pen += self.kern.get((t, ids[after[k]]), 0)
-        if not places:
-            return np.zeros((0, 0), np.uint8), 0, 0
-        x0 = min(p[0] for p in places)
-        y0 = min(p[1] for p in places)
-        x1 = max(p[0] + p[2].shape[1] for p in places)
-        y1 = max(p[1] + p[2].shape[0] for p in places)
-        out = np.zeros((y1 - y0, x1 - x0), np.int64)
-        for x, y, m in places:
-            reg = out[y - y0:y - y0 + m.shape[0], x - x0:x - x0 + m.shape[1]]
-            t = reg * (255 - m) + 128
-            reg[...] = m + (((t >> 8) + t) >> 8)
-        return out.astype(np.uint8), x0, y0
+            if self.masks[t].size:
+                places.append((((pen + 32) >> 6) + self.offsets[t][0], self.offsets[t][1], self.masks[t]))
+            pen += self.advances[t] + (self.kern.get((t, ids[k + 1]), 0) if k + 1 < len(ids) else 0)
+        return _composite(places)
+
+
+class ShapedFont:
+    """One font size of the DejaVuSans atlas, laid out as raqm lays it out."""
+
+    def __init__(self, z, size: int):
+        chars = z["chars"].tolist()
+        ligatures = [str(t) for t in z["ligatures"]]
+        self.token_of = {c: i for i, c in enumerate(chars)}
+        self.notdef = len(chars) + len(ligatures)
+        self.hidden = int(np.flatnonzero(z["hidden"])[0])   # the invisible token of every default-ignorable
+        self.cmap = set(z["cmap"].tolist())
+        self.glyphs = z["glyphs"].tolist()
+        self.masks = _unpack_masks(z[f"shapes_{size}"], z[f"masks_{size}"])
+        self.offsets = z[f"offsets_{size}"].tolist()
+        self.advances = z[f"advances_{size}"].tolist()
+        self.kern = {(int(t), int(a), int(b)): int(v) for t, a, b, v in z[f"kern_{size}"]}
+        # per OpenType script tag and first character: the ligatures (code
+        # points, token) in the order HarfBuzz tries them
+        self.ligatures: Dict[int, Dict[int, List[Tuple[Tuple[int, ...], int]]]] = {}
+        for i, (lig, tag) in enumerate(zip(ligatures, z["ligature_tags"].tolist())):
+            self.ligatures.setdefault(tag, {}).setdefault(ord(lig[0]), []).append(
+                (tuple(map(ord, lig)), len(chars) + i))
+        self.class_starts = z["class_starts"]
+        self.class_values = z["class_values"]
+        ends = np.append(self.class_starts[1:], 0x110000)
+        self.hidden_cps = {cp for a, b in zip(self.class_starts[self.class_values == HIDDEN],
+                                              ends[self.class_values == HIDDEN]) for cp in range(a, b)}
+        self.script_starts = z["script_starts"]
+        self.script_values = z["script_values"]
+        self.script_names = [str(s) for s in z["script_names"]]
+        self.script_tags = z["script_tags"].tolist()
+        self.script_composes = z["script_composes"].tolist()
+        codes = [str(s) for s in z["scripts"]]
+        self.common, self.inherited = codes.index("Zyyy"), codes.index("Zinh")
+        self.brackets = {}
+        for k, (o, c) in enumerate(z["brackets"].tolist()):
+            self.brackets[o], self.brackets[c] = 2 * k, 2 * k + 1
+        self.compose = {(int(a), int(b)): int(c) for a, b, c in z["compose"]}
+        self.lig_blockers = set(z["lig_blockers"].tolist())
+        self.contextual = set(z["contextual"].tolist())
+
+    # ------------------------------------------------------------ lookups
+
+    def classes(self, cps: Sequence[int]) -> List[int]:
+        idx = np.searchsorted(self.class_starts, np.asarray(cps, np.int64), side="right") - 1
+        return self.class_values[idx].tolist()
+
+    def scripts(self, cps: Sequence[int]) -> List[int]:
+        idx = np.searchsorted(self.script_starts, np.asarray(cps, np.int64), side="right") - 1
+        return self.script_values[idx].tolist()
+
+    def refusal(self, cp: int, why: str) -> UnsupportedText:
+        name = unicodedata.name(chr(cp), "")
+        script = self.script_names[self.scripts([cp])[0]]
+        return UnsupportedText(f"U+{cp:04X}{' ' + name if name else ''} (script {script}) {why}; the port "
+                               f"cannot draw it as the reference does ({ROADMAP_ITEM})")
+
+    # --------------------------------------------------- script resolution
+
+    def resolve_scripts(self, cps: Sequence[int], scripts: Sequence[int]) -> List[int]:
+        """raqm's `_raqm_resolve_scripts`: the script of each character. A
+        Common or Inherited character takes the last script (a leading one
+        is that script itself), an opening bracket pushes it, a closing one
+        takes its opening one's; then each still Common or Inherited takes
+        the script after it."""
+        out = list(scripts)
+        last_script_index = -1
+        last_script = self.common
+        stack: List[Tuple[int, int]] = []   # (script, bracket pair index) of the open brackets
+        for i, s in enumerate(scripts):
+            if s == self.common and last_script_index != -1:
+                pair = self.brackets.get(cps[i])
+                out[i] = last_script
+                if pair is not None and pair % 2 == 0:
+                    stack.append((last_script, pair))
+                elif pair is not None:
+                    while stack and stack[-1][1] != pair - 1:
+                        stack.pop()
+                    if stack:
+                        out[i] = last_script = stack[-1][0]
+            elif s == self.inherited and last_script_index != -1:
+                out[i] = last_script
+            else:
+                last_script, last_script_index = s, i
+        for i in range(len(out) - 2, -1, -1):
+            if out[i] in (self.common, self.inherited):
+                out[i] = out[i + 1]
+        return out
+
+    # ------------------------------------------------------- normalization
+
+    def _token(self, cp: int) -> Optional[int]:
+        """The token HarfBuzz draws for a code point the font maps (None: a
+        mark, drawn only where it composes)."""
+        return self.hidden if cp in self.hidden_cps else self.token_of.get(cp)
+
+    def _glyphs(self, cp: int, shortest: bool) -> List[Tuple[int, Optional[int]]]:
+        """HarfBuzz's `decompose_current_character` -> (code point, token)s."""
+        if shortest and cp in self.cmap:
+            return [(cp, self._token(cp))]
+        parts = decompose(cp, shortest, self.cmap)
+        if parts:
+            return [(c, self._token(c)) for c in parts]
+        if cp in self.cmap:
+            return [(cp, self._token(cp))]
+        if cp in self.token_of:   # a space the font lacks: the space glyph at its own width
+            return [(cp, self.token_of[cp])]
+        return [(cp, self.hidden if cp in self.hidden_cps else self.notdef)]
+
+    def _nominal(self, cp: int) -> Tuple[int, Optional[int]]:
+        if cp in self.cmap:
+            return cp, self._token(cp)
+        return cp, self.hidden if cp in self.hidden_cps else self.notdef
+
+    def normalize(self, cps: Sequence[int], compose: bool) -> List[Tuple[int, Optional[int]]]:
+        """`_hb_ot_shape_normalize` over one run: decompose, reorder marks,
+        recompose (`compose`: HarfBuzz's COMPOSED_DIACRITICS mode; the
+        Hangul shaper's NONE mode neither recomposes nor decomposes a
+        cluster fully)."""
+        out: List[Tuple[int, Optional[int]]] = []
+        all_simple = True
+        i = 0
+        while i < len(cps):
+            j = i + 1
+            while j < len(cps) and _is_mark(cps[j]):
+                j += 1
+            if j == i + 1:
+                out.extend(self._glyphs(cps[i], True))
+            else:
+                all_simple = False
+                cluster = cps[i:j]
+                if any(map(_is_variation_selector, cluster)):
+                    out.extend(self._nominal(c) for c in cluster)   # the font has no cmap 14
+                else:
+                    for c in cluster:
+                        out.extend(self._glyphs(c, not compose))
+            i = j
+        if all_simple:
+            return out
+        ccc = [unicodedata.combining(chr(c)) for c, _ in out]
+        i = 0
+        while i < len(out):   # canonical order: each run of marks sorted by combining class
+            if not ccc[i]:
+                i += 1
+                continue
+            j = i
+            while j < len(out) and ccc[j]:
+                j += 1
+            if j - i <= 32:
+                order = sorted(range(i, j), key=lambda k: ccc[k])
+                out[i:j] = [out[k] for k in order]
+                ccc[i:j] = [ccc[k] for k in order]
+            i = j
+        if not compose:
+            return out
+        res: List[Tuple[int, Optional[int]]] = [out[0]]
+        res_ccc = [ccc[0]]
+        starter = 0
+        for (cp, tok), cc in zip(out[1:], ccc[1:]):
+            if _is_mark(cp) and (starter == len(res) - 1 or res_ccc[-1] < cc):
+                composed = self.compose.get((res[starter][0], cp))
+                if composed is not None:
+                    res[starter] = (composed, self._token(composed))
+                    continue
+            res.append((cp, tok))
+            res_ccc.append(cc)
+            if not cc:
+                starter = len(res) - 1
+        return res
+
+    # ------------------------------------------------------------- shaping
+
+    def _ligature_at(self, items: List[Tuple[int, Optional[int]]], i: int, tag: int):
+        """The first ligature (font order) starting at `items[i]`, matched
+        across the default-ignorables that do not block one, -> (token,
+        the ignorables it skipped (they follow the ligature), the number of
+        items it spans), or None."""
+        for comps, tok in self.ligatures[tag].get(items[i][0], ()):
+            j, skipped = i, []
+            for k, ch in enumerate(comps):
+                while (k and j < len(items) and items[j][0] != ch and items[j][1] == self.hidden
+                       and items[j][0] not in self.lig_blockers):
+                    skipped.append(items[j][1])
+                    j += 1
+                if j >= len(items) or items[j][0] != ch:
+                    break
+                j += 1
+            else:
+                return tok, skipped, j - i
+        return None
+
+    def shape_run(self, cps: Sequence[int], script: int, first: bool = False) -> List[int]:
+        """One raqm run -> its tokens. The line's `first` run, when it starts
+        with a mark, gets HarfBuzz's dotted circle in front."""
+        if first and cps and _is_mark(cps[0]) and DOTTED_CIRCLE in self.cmap:
+            cps = [DOTTED_CIRCLE, *cps]
+        items = self.normalize(cps, bool(self.script_composes[script]))
+        prev = None
+        for cp, tok in items:
+            if tok is None:
+                raise self.refusal(cp, "is a combining mark that does not compose with its base into a character "
+                                       "the font maps: it needs the font's GPOS mark anchors")
+            if tok == self.hidden:
+                continue
+            if prev is not None and prev in self.contextual and cp in self.contextual:
+                raise self.refusal(cp, f"follows U+{prev:04X}: tone letters in sequence take the font's contextual "
+                                       "(ccmp) contour forms")
+            prev = cp
+        tag = self.script_tags[script]
+        if tag not in self.ligatures:
+            return [t for _, t in items]
+        out, i = [], 0
+        while i < len(items):
+            lig = self._ligature_at(items, i, tag)
+            if lig is None:
+                out.append(items[i][1])
+                i += 1
+            else:
+                out.append(lig[0])
+                out.extend(lig[1])
+                i += lig[2]
+        return out
+
+    def runs(self, line: str) -> List[Tuple[int, int, int]]:
+        """The raqm runs of a line -> (start, end, script); raises
+        `UnsupportedText` for a character the atlas refuses."""
+        cps = [ord(c) for c in line]
+        for cp, cls in zip(cps, self.classes(cps)):
+            if cls >= BIDI:
+                raise self.refusal(cp, _REFUSAL[cls])
+        scripts = self.resolve_scripts(cps, self.scripts(cps))
+        out, start = [], 0
+        for i in range(1, len(cps) + 1):
+            if i == len(cps) or scripts[i] != scripts[start]:
+                out.append((start, i, scripts[start]))
+                start = i
+        return out
+
+    def layout(self, line: str) -> Tuple[List[Tuple[int, int, np.ndarray]], int]:
+        """-> ((x, y, mask) of each drawn glyph, the pen's end in 1/64 px)."""
+        places, pen = [], 0
+        for start, end, script in self.runs(line):
+            ids = self.shape_run([ord(c) for c in line[start:end]], script, first=not start)
+            tag = self.script_tags[script]
+            nxt = len(ids)
+            after = [0] * len(ids)   # the next visible token in the run after each position
+            for k in range(len(ids) - 1, -1, -1):
+                after[k] = nxt
+                if ids[k] != self.hidden:
+                    nxt = k
+            for k, t in enumerate(ids):
+                m = self.masks[t]
+                if m.size:
+                    places.append((((pen + 32) >> 6) + self.offsets[t][0], self.offsets[t][1], m))
+                pen += self.advances[t]
+                if t != self.hidden and after[k] < len(ids):
+                    pen += self.kern.get((tag, self.glyphs[t], self.glyphs[ids[after[k]]]), 0)
+        return places, pen
+
+    def line_mask(self, line: str) -> Tuple[np.ndarray, int, int]:
+        """-> (mask, x offset, y offset) of a line drawn at origin (0, 0)
+        with anchor "la", as `FreeTypeFont.getmask2` gives it."""
+        return _composite(self.layout(line)[0])
 
 
 @functools.lru_cache(maxsize=None)
-def load_font(dpi: int) -> GlyphFont:
+def load_font(dpi: int) -> ShapedFont:
     """The atlas font for `_render_text_page(..., dpi)`."""
     if dpi not in ATLAS_DPIS:
-        raise ValueError(f"the glyph atlas {ATLAS_PATH.name} holds dpi {ATLAS_DPIS}, not {dpi}: add it to "
-                         "ATLAS_DPIS and regenerate with text_render.write_glyph_atlas() (needs PIL)")
-    size = font_size(dpi)
+        raise UnsupportedText(
+            f"dpi {dpi} draws DejaVuSans at {font_size(dpi)} px; the glyph atlas {ATLAS_PATH.name} holds dpi "
+            f"{ATLAS_DPIS} (sizes {tuple(font_size(d) for d in ATLAS_DPIS)} px): add it to ATLAS_DPIS and "
+            f"regenerate with glyph_atlas.write_glyph_atlas() (needs PIL; {ROADMAP_ITEM})")
     with np.load(ATLAS_PATH) as z:
-        tokens = [str(t) for t in z[f"tokens_{size}"]]
-        shapes = z[f"shapes_{size}"]
-        flat = z[f"masks_{size}"]
-        starts = np.concatenate([[0], np.cumsum(shapes[:, 0] * shapes[:, 1])])
-        masks = [flat[starts[i]:starts[i + 1]].reshape(shapes[i]).astype(np.int64) for i in range(len(tokens))]
-        kp = z[f"kern_{size}"]
-        kern = {(int(a), int(b)): int(v) for a, b, v in kp}
-        return GlyphFont(tokens, masks, z[f"offsets_{size}"], z[f"advances_{size}"], kern,
-                         [str(t) for t in z["ligatures"]], z[f"hidden_{size}"])
+        return ShapedFont(z, font_size(dpi))
 
 
 def _blend_black(page: np.ndarray, mask: np.ndarray, x: int, y: int) -> None:
@@ -167,7 +455,8 @@ def _blend_black(page: np.ndarray, mask: np.ndarray, x: int, y: int) -> None:
 
 
 def render_text_page(text: str, dpi: int) -> np.ndarray:
-    """`_render_text_page(text, dpi)` -> its (H, W, 3) uint8 RGB pixels."""
+    """`_render_text_page(text, dpi)` -> its (H, W, 3) uint8 RGB pixels;
+    `UnsupportedText` for what the atlas cannot draw."""
     font = load_font(dpi)
     w, h = int(8.5 * dpi), int(11 * dpi)
     page = np.full((h, w), 255, np.uint8)
@@ -188,79 +477,3 @@ def render_text_page(text: str, dpi: int) -> np.ndarray:
         if not raw_line:
             y += line_h // 2
     return np.repeat(page[..., None], 3, axis=2)
-
-
-def write_glyph_atlas(path: Path = ATLAS_PATH, charset: str = CHARSET) -> Path:
-    """Make the atlas with PIL (and fontTools for the ligature list) from
-    the DejaVuSans.ttf that `ImageFont.truetype("DejaVuSans.ttf")` finds:
-    the reference's font. It needs PIL; the serving path never calls it."""
-    from fontTools.ttLib import TTFont
-    from PIL import ImageFont
-
-    probe = ImageFont.truetype(FONT_NAME, size=12)
-    ligatures = _font_ligatures(TTFont(probe.path), charset)
-    arrays: Dict[str, np.ndarray] = {"ligatures": np.array(ligatures)}
-    for dpi in ATLAS_DPIS:
-        size = font_size(dpi)
-        font = ImageFont.truetype(FONT_NAME, size=size)
-        tokens = list(charset) + ligatures
-        shapes, offsets, flat = [], [], []
-        for t in tokens:
-            m, off = font.getmask2(t, "L", anchor="la")
-            arr = np.array(m, dtype=np.uint8).reshape(m.size[1], m.size[0])
-            shapes.append(arr.shape)
-            offsets.append(off)
-            flat.append(arr.reshape(-1))
-        adv = [round(font.getlength(t) * 64) for t in tokens]
-        av = font.getlength("AV")
-        hidden = [i for i, t in enumerate(tokens)
-                  if adv[i] == 0 and not flat[i].size and font.getlength("A" + t + "V") == av]
-        shaper = GlyphFont(tokens, [], np.zeros((0, 2)), np.zeros(0), {}, ligatures, np.array(hidden))
-        kern = []
-        for a, ta in enumerate(tokens):
-            if a in hidden:
-                continue
-            for b, tb in enumerate(tokens):
-                if b in hidden or shaper.tokens(ta + tb) != [a, b]:
-                    continue   # a ligature takes the pair: never two tokens
-                k = round(font.getlength(ta + tb) * 64) - adv[a] - adv[b]
-                if k:
-                    kern.append((a, b, k))
-        arrays.update({
-            f"tokens_{size}": np.array(tokens),
-            f"shapes_{size}": np.array(shapes, np.int32).reshape(-1, 2),
-            f"offsets_{size}": np.array(offsets, np.int32).reshape(-1, 2),
-            f"masks_{size}": np.concatenate(flat),
-            f"advances_{size}": np.array(adv, np.int32),
-            f"kern_{size}": np.array(kern, np.int32).reshape(-1, 3),
-            f"hidden_{size}": np.array(hidden, np.int32),
-        })
-    np.savez_compressed(path, **arrays)
-    load_font.cache_clear()
-    return Path(path)
-
-
-def _font_ligatures(ttf, charset: str) -> List[str]:
-    """The `liga` substitutions of the font's Latin default language
-    system whose components are all in `charset`, in the order HarfBuzz
-    tries them (lookup, then the ligature set's own order)."""
-    gsub = ttf["GSUB"].table
-    cmap = ttf.getBestCmap()
-    char_of = {}
-    for cp, name in sorted(cmap.items()):
-        char_of.setdefault(name, chr(cp))
-    script = next(s for s in gsub.ScriptList.ScriptRecord if s.ScriptTag == "latn")
-    lookups = []
-    for fi in script.Script.DefaultLangSys.FeatureIndex:
-        rec = gsub.FeatureList.FeatureRecord[fi]
-        if rec.FeatureTag == "liga":
-            lookups.extend(rec.Feature.LookupListIndex)
-    out = []
-    for li in sorted(lookups):
-        for sub in gsub.LookupList.Lookup[li].SubTable:
-            for first, ligs in getattr(sub, "ligatures", {}).items():
-                for lig in ligs:
-                    names = [first] + list(lig.Component)
-                    if all(n in char_of and char_of[n] in charset for n in names):
-                        out.append("".join(char_of[n] for n in names))
-    return out

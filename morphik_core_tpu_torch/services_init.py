@@ -61,6 +61,7 @@ from morphik_core_tpu_torch.parallel.mesh import (
     process_count,
 )
 from morphik_core_tpu_torch.parser.morphik_parser import MorphikParser
+from morphik_core_tpu_torch.parser.text_render import load_font
 from morphik_core_tpu_torch.reranker.rerankers import ColQwenReranker, build_reranker
 from morphik_core_tpu_torch.services.document_service import DocumentService
 from morphik_core_tpu_torch.services.ingestion_service import IngestionService
@@ -270,6 +271,11 @@ def build_services(
         return str((await completion_model.complete(CompletionRequest(query=prompt))).completion)
 
     parser = MorphikParser(settings, complete_fn=complete_text)
+    colpali = settings.morphik.enable_colpali and settings.morphik.colpali_mode != "off"
+    if colpali or parser.ocr_engine is not None:
+        # PDF pages are drawn at this dpi: a dpi the glyph atlas lacks is
+        # refused here, not page by page (UnsupportedText, item 3b-ii)
+        load_font(settings.pdf.colpali_pdf_dpi)
     # the text path's embedder: a registered_models key routes to its
     # endpoint; otherwise the offline hashing embedder
     if settings.embedding.model in settings.registered_models:
@@ -277,7 +283,7 @@ def build_services(
     else:
         embedding_model = HashingEmbeddingModel(dim=settings.embedding.dimensions)
     embedder = store = None
-    if settings.morphik.enable_colpali and settings.morphik.colpali_mode != "off":
+    if colpali:
         if settings.morphik.colpali_mode == "api":
             # the reference passes no auth_token, so its API node gets 401 from a
             # keyed endpoint (ROADMAP Queue 3): the port sends the key

@@ -21,7 +21,9 @@ Adam7 16-bit PNG, a GitHub connector against the fake API, `/console`,
 and both images decoded to Pillow's pixels. Every committed GIF, BMP,
 TIFF, WebP and CMYK / YCCK JPEG fixture decodes to Pillow's mode and
 pixels with the same packages blocked, one of each new format ingests
-over HTTP, and a WebP and a TIFF image query each find their page. The
+over HTTP, and a WebP and a TIFF image query each find their page. Text
+pages in Greek, Cyrillic, Vietnamese, symbols and CJK boxes render to the
+reference's payloads with fontTools blocked too. The
 evaluation harnesses run
 small with the same packages blocked: the fidelity gate (both parts), the
 ColPali ladder on the trained fixture, the offline RAG run and the int8
@@ -600,6 +602,42 @@ _EVALS = _PRELUDE + textwrap.dedent(
 ) + _LEAKS
 
 
+
+_TEXT_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, base64, types
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.parser.office import docx_to_text
+    from morphik_core_tpu_torch.parser.raster_pool import RasterPool
+    from morphik_core_tpu_torch.parser.text_render import UnsupportedText
+    from morphik_core_tpu_torch.services.ingestion_service import IngestionService
+    from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
+
+    z = np.load(sys.argv[1] + "/tests/fixtures/text_pages.npz")
+
+    def unpack(key):
+        flat, sizes = z[key].tobytes(), z[key + "_sizes"]
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        return [flat[a:b] for a, b in zip(starts, starts[1:])]
+
+    settings = types.SimpleNamespace(settings=Settings())
+    for kind, ctype in (("docx", DOCX), ("pptx", PPTX)):
+        data = z[kind].tobytes()
+        chunks = IngestionService._create_chunks_multivector(settings, ctype, data,
+                                                             docx_to_text(data) if kind == "docx" else "")
+        assert [base64.b64decode(c.content.split(",", 1)[1]) for c in chunks] == unpack(kind + "_payloads"), kind
+    pool = RasterPool(1)
+    assert [p[1] for p in asyncio.run(pool.rasterize_pdf_jpegs(z["pdf"].tobytes(), dpi=150))] == unpack(
+        "pdf_payloads")
+    try:
+        asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
+        raise AssertionError("the Arabic page was not refused")
+    except UnsupportedText as e:
+        assert "3b-ii" in str(e), e
+    assert sys.modules["fontTools"] is None
+    """
+) + _LEAKS
+
 def test_evals_run_with_jax_pil_pydantic_httpx_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _EVALS, str(ROOT)], capture_output=True, text=True, timeout=400,
@@ -641,6 +679,16 @@ def test_image_formats_ingest_with_jax_pil_pydantic_httpx_blocked():
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
 
+
+
+def test_text_pages_render_with_jax_pil_fonttools_blocked():
+    """The render path of every script (the DOCX, PPTX and PDF of
+    `tests/fixtures/text_pages.npz`) stores the reference's payloads and
+    refuses the Arabic page with jax, PIL and fontTools unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TEXT_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
 
 def test_package_data_lists_every_file_the_port_opens():
     """An installed (non-editable) port has every non-Python file of its

@@ -4,8 +4,13 @@ where stated.
 
 - `render_text_page` equals the reference's `_render_text_page` pixel for
   pixel at dpi 150 and 100: kerning pairs, ligatures (across a soft
-  hyphen too), wrapping, blank lines, the empty page and seeded Latin-1
-  text; the committed glyph atlas is what the generator makes now.
+  hyphen too), wrapping, blank lines, the empty page, seeded Latin-1
+  text, seeded lines over the atlas's whole repertoire, raqm's script
+  runs (kerning stops at a script boundary, brackets, leading quotes),
+  composed and decomposed input, CJK and Hangul `.notdef` boxes,
+  default-ignorables off the cmap and the font's emoji; what it refuses
+  raises `UnsupportedText` naming the code point, its script and ROADMAP
+  item 3b-ii; the committed glyph atlas is what the generator makes now.
 - `rasterize_pdf` and `RasterPool.rasterize_pdf_jpegs(prep=...)` equal
   the reference's pages and tuples, inline and with a two-process pool,
   whose children never import torch.
@@ -36,7 +41,8 @@ from morphik_core_tpu_torch.models.schemas import AuthContext
 from morphik_core_tpu_torch.parser import raster_pool, text_render
 from morphik_core_tpu_torch.parser.pdf import rasterize_pdf
 from morphik_core_tpu_torch.parser.raster_pool import RasterPool
-from morphik_core_tpu_torch.parser.text_render import CHARSET, render_text_page, write_glyph_atlas
+from morphik_core_tpu_torch.parser.glyph_atlas import write_glyph_atlas
+from morphik_core_tpu_torch.parser.text_render import UnsupportedText, render_text_page
 from morphik_core_tpu_torch.services.ingestion_service import IngestionService
 from morphik_core_tpu_torch.services_init import build_services
 
@@ -85,16 +91,76 @@ def _seeded_text(seed: int) -> str:
     return "\n".join(lines)
 
 
+def _repertoire_text(seed: int) -> str:
+    """Seeded lines over what the atlas draws: its characters by script,
+    CJK and other `.notdef` code points, default-ignorables, base + mark
+    pairs that compose, raqm's brackets and U+3000. (The tone letters are
+    left out: two in a row are refused.)"""
+    with np.load(text_render.ATLAS_PATH) as z:
+        starts, values = z["class_starts"], z["class_values"]
+        codes = [str(c) for c in z["scripts"]]
+        sstarts, svalues = z["script_starts"], z["script_values"]
+        compose, brackets, contextual = z["compose"], z["brackets"].reshape(-1), set(z["contextual"].tolist())
+    cps = np.arange(0x110000)
+    cls = values[np.searchsorted(starts, cps, side="right") - 1]
+    script = np.array(codes)[svalues[np.searchsorted(sstarts, cps, side="right") - 1]]
+    drawn = (cls == text_render.GLYPH) & ~np.isin(cps, list(contextual))
+    pools = [cps[drawn & (script == s)] for s in ("Latn", "Grek", "Cyrl", "Zyyy")]
+    pools += [cps[drawn & ~np.isin(script, ["Latn", "Grek", "Cyrl", "Zyyy"])], cps[cls == text_render.NOTDEF],
+              cps[cls == text_render.HIDDEN], brackets, np.array([0x3000])]
+    pairs = [(a, b) for a, b, c in compose.tolist() if cls[c] == text_render.GLYPH]
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(int(rng.integers(20, 40))):
+        parts = []
+        for _ in range(int(rng.integers(1, 70))):
+            k = int(rng.integers(len(pools) + 2))
+            if k == len(pools):
+                parts.append("".join(map(chr, pairs[int(rng.integers(len(pairs)))])))
+            elif k == len(pools) + 1:
+                parts.append(" ")
+            else:
+                parts.append(chr(int(rng.choice(pools[k]))))
+        lines.append("".join(parts))
+    return "\n".join(lines)
+
+
 RENDER_CASES = {
     "kerning_ligatures": "AV WAVE Tyo To LT Yo, P.O.\noffice affluent shuffle fi ffl ff fl f\xadi",
     "wrapping": "supplier invoice renewal clause " * 30,
     "blank_lines": "first\n\n\nsecond after blank lines\n\nthird",
     "empty": "",
     "controls": "tab\there\rcarriage\x0cfeed \x85 end",
-    "zero_width": "f\u200ci f\u200di f\u200b\u2060l \u200bAV\u2060V W\u206aA \ufffd office",
+    "zero_width": "f‌i f‍i f​⁠l ​AV⁠V W⁪A � office",
     "seeded_latin1_a": _seeded_text(1),
     "seeded_latin1_b": _seeded_text(2),
     "full_page": "\n".join(f"line {i} AV office" for i in range(80)),
+    "seeded_repertoire_a": _repertoire_text(3),
+    "seeded_repertoire_b": _repertoire_text(4),
+    "script_boundary_kerning": "x“A Г“A\nα (“A)\n“Привет"
+                               "” “AV”\n“A” Tо To Τo\nx(Г[)“A x(Г)"
+                               "Г)“A «Г»“A 〈Г〉“A",
+    "composed_decomposed": "é é ș ș ț ț ậ ậ ậ "
+                           "Ǻ Ǻ ё ё ή ή Ω K Å "
+                           "é︀ ≠ ≠",
+    "cjk_hangul_boxes": "中文文本 日本語のテキスト。"
+                        "　한국어 텍스트 (인용) “中”「引」 "
+                        "ꀀ ሀ AV中AV",
+    "default_ignorables": "️A️V f︁i A⁡V A⁢⁣⁤V ⁫⁯W "
+                          "A\U000e0041V f\U000e0069i A\U000e0001V A\U000e0101V a‎b ͏e­",
+    "emoji": "☺ ☀ ★ ♥ ✓ ✈ ☎ ⚠ \U0001f600 \U0001f44d \U0001f914",
+    "greek_cyrillic_prose": "Η ετήσια έκθεση "
+                            "δείχνει αύξηση 12%.\n"
+                            "Годовой отчёт: "
+                            "рост выручки — "
+                            "Тест, ЃЉЊЂ Ґґ Її.",
+    "latin_scripts_symbols": "Tiếng Việt: Nguyễn Thị Minh Khai, đường.\n"
+                             "Română: țară, Ștefan, creștere; Zażółć "
+                             "gęślą jaźń; Příliš žluťoučký\n"
+                             "∑ xᵢ ≤ ∫ f − 1 ≠ ∞; a → b ⇒ c ≥ 0 "
+                             "±√2 ≈ ∀x ∃y ∈ A ∪ B\n"
+                             "╔══╗ ║OK║ ╚══╝ ├─┤ "
+                             "■ □ ▲ ● ﬁnancial ﬂow ˥ ˩ ‰ € ₴",
 }
 
 
@@ -107,14 +173,34 @@ def test_render_text_page_matches_reference(case, dpi):
     assert got.dtype == np.uint8 and got.shape == want.shape and np.array_equal(got, want)
 
 
-def test_render_text_page_refuses_what_the_atlas_lacks():
-    with pytest.raises(ValueError, match="write_glyph_atlas"):
-        render_text_page("x", 300)
-    with pytest.raises(ValueError, match="U\\+4E2D.*write_glyph_atlas"):
-        render_text_page("中", 150)
-    with pytest.raises(ValueError, match="U\\+200F"):  # a bidi mark: raqm would reorder the line
-        render_text_page("abc\u200f", 150)
-    assert "\n" not in CHARSET
+REFUSED = [  # (text, dpi, what the message names)
+    ("Arabic سلام", 150, r"U\+0633 ARABIC LETTER SEEN \(script Arabic\) is right-to-left"),
+    ("Hebrew שלום", 100, r"U\+05E9 HEBREW LETTER SHIN \(script Hebrew\) is right-to-left"),
+    ("Hindi नमस्ते", 150,
+     r"U\+0928 DEVANAGARI LETTER NA \(script Devanagari\) needs a HarfBuzz shaper of its own"),
+    ("q́ mark", 150, r"U\+0301 COMBINING ACUTE ACCENT \(script Inherited\) is a combining mark that does not "
+                          "compose"),
+    ("abc‏", 100, r"U\+200F RIGHT-TO-LEFT MARK \(script Common\) is right-to-left or a bidi control"),
+    ("Thai ก", 150, r"U\+0E01 THAI CHARACTER KO KAI \(script Thai\) needs a HarfBuzz shaper"),
+    ("jamo 가", 150, r"U\+1100 HANGUL CHOSEONG KIYEOK \(script Hangul\) needs a HarfBuzz shaper"),
+    ("tones ˥˩", 150, r"U\+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR \(script Common\) follows U\+02E5"),
+    ("한 ≠", 150, r"U\+0338 COMBINING LONG SOLIDUS OVERLAY \(script Inherited\) is a combining mark"),
+    ("x", 300, r"dpi 300 draws DejaVuSans at 37 px; the glyph atlas glyphs_dejavu_sans.npz holds dpi \(150, 100\) "
+               r"\(sizes \(18, 12\) px\)"),
+]
+
+
+@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["arabic", "hebrew", "devanagari", "mark", "rlm", "thai",
+                                                            "jamo", "tone_letters", "hangul_run_mark", "dpi_300"])
+def test_render_text_page_refuses_what_the_atlas_lacks(text, dpi, message):
+    """Each refusal is an `UnsupportedText` (a ValueError) that names the
+    code point, its script and ROADMAP item 3b-ii; the reference draws
+    every one of these texts."""
+    with pytest.raises(UnsupportedText, match=message) as err:
+        render_text_page(text, dpi)
+    assert "ROADMAP Queue 1 item 3b-ii" in str(err.value) and isinstance(err.value, ValueError)
+    if dpi in (150, 100):
+        assert np.asarray(_render_text_page(text, dpi)).shape == (int(11 * dpi), int(8.5 * dpi), 3)
 
 
 def test_glyph_atlas_is_current(tmp_path):
@@ -257,7 +343,8 @@ def _ingest_long_pdf(tmp_path: Path, name: str, prefetch: int, monkeypatch):
     raw = {
         "storage": {"storage_path": str(tmp_path / name / "storage")},
         "database": {"path": str(tmp_path / name / "db.sqlite")},
-        "vector_store": {"fde_num_repetitions": 4, "fde_num_simhash_projections": 3, "fde_projection_dimension": 8},
+        "vector_store": {"fde_num_repetitions": 4, "fde_num_simhash_projections": 3, "fde_projection_dimension": 8,
+                         "index_path": str(tmp_path / name / "index")},
         "telemetry": {"telemetry_dir": str(tmp_path / name / "logs" / "telemetry")},
         "model": {"matmul_precision": "bf16"},
         "pdf": {"colpali_pdf_dpi": 100},

@@ -1,0 +1,344 @@
+"""Text pages in every left-to-right script the reference draws, through
+the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
+
+- The committed fixture `tests/fixtures/text_pages.npz` (a DOCX, a PPTX
+  and a 6-page PDF whose text mixes Greek, Cyrillic, Vietnamese,
+  Romanian, symbols, box drawing, the font's emoji and CJK, one page with
+  the `Г“A` script-boundary kerning case; a 5-page PDF with Arabic on
+  page 3; four timing pages of one length) is what
+  `write_text_pages_fixture` makes now with the JAX package's
+  `_render_text_page` and `_finish_page` under PIL.
+- The port's `_create_chunks_multivector` (DOCX, PPTX) and its pooled
+  `PageStream` (PDF, 1 and 2 processes) store the fixture's reference
+  payloads byte for byte; the inline PDF rung equals the reference's.
+- What the renderer refuses fails the job: the pooled PDF with an Arabic
+  page ends `failed`, naming ROADMAP item 3b-ii, with no page stored
+  (the reference draws all five pages); `rasterize_pdf_jpegs`, DOCX and
+  PPTX raise `UnsupportedText`; a `pdf.colpali_pdf_dpi` the atlas lacks
+  is refused by `build_services`.
+"""
+
+import asyncio
+import base64
+import io
+import types
+import uuid
+import zipfile
+import zlib
+from pathlib import Path
+from xml.sax.saxutils import escape
+
+import numpy as np
+import pytest
+
+from morphik_core_tpu.parser.office import docx_to_text as j_docx_to_text
+from morphik_core_tpu.parser.pdf import _render_text_page
+from morphik_core_tpu.parser.pdf import extract_pages_text as j_extract_pages_text
+from morphik_core_tpu.parser.raster_pool import RasterPool as JRasterPool
+from morphik_core_tpu.parser.raster_pool import _finish_page as j_finish_page
+from morphik_core_tpu.services.ingestion_service import IngestionService as JIngestionService
+from morphik_core_tpu_torch.config import Settings
+from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel as TModel
+from morphik_core_tpu_torch.models.schemas import AuthContext
+from morphik_core_tpu_torch.parser.office import docx_to_text
+from morphik_core_tpu_torch.parser.raster_pool import RasterPool
+from morphik_core_tpu_torch.parser.text_render import UnsupportedText
+from morphik_core_tpu_torch.services.ingestion_service import IngestionService
+from morphik_core_tpu_torch.services_init import build_services
+from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
+
+ROOT = Path(__file__).resolve().parent.parent
+FIXTURE = ROOT / "tests" / "fixtures" / "text_pages.npz"
+MODEL_FIXTURE = ROOT / "tests" / "fixtures" / "tiny_colqwen.npz"
+PREP = (3136, 602112)
+SEED = 19
+PDF_DPI = 150  # morphik_tpu.toml's pdf.colpali_pdf_dpi; DOCX and PPTX pages are drawn at 100
+REFUSED_PAGE = 2  # the Arabic page of the refused PDF
+
+SENTENCES = {
+    "greek": ["Η ετήσια έκθεση δείχνει αύξηση των εσόδων κατά 12% στην Αττική.",
+              "Ο πίνακας περιεχομένων βρίσκεται στη σελίδα 3· η υπογραφή στη σελίδα 9.",
+              "Ψηφιακή αρχειοθέτηση: «ΑΒΓΔ» — όλα τα έγγραφα, ΰ ΐ ώ."],
+    "cyrillic": ["Годовой отчёт показывает рост выручки на 12% в северном регионе.",
+                 "Щорічний звіт: ґанок, їжак, єнот; Ђурђевдан, Љубљана, Њујорк, Џон.",
+                 "Содержание договора — подпись на странице 3 («Приложение А»)."],
+    "latin": ["Báo cáo thường niên cho thấy doanh thu tăng trưởng ở khu vực phía Bắc.",
+              "Raportul anual arată creșterea veniturilor; țara și Ștefan semnează.",
+              "Zażółć gęślą jaźń; Příliš žluťoučký kůň; Ağaç işleri şöyle; Œuvre naïve.",
+              "The ﬁnancial ﬂow: office affluent shuffle, AV WAVE Tyo P.O."],
+    "symbols": ["∑ xᵢ ≤ ∫ f(x) dx − 1 ≠ ∞; a → b ⇒ c ≥ 0; ±√2 ≈ 1.414.",
+                "∀x ∃y: x ∈ A ∪ B ⊆ C; ‰ € ₴ ₹ ™ № ℃ ½ ¾ ⅓.",
+                "╔══════╗ ║ OK ║ ╚══════╝ ├──┤ ■ □ ▲ ● ◆ ☺ ☀ ★ ♥ ✓ ✈ ☎ ⚠"],
+    "cjk": ["中文文本：年度报告显示收入增长。", "日本語のテキスト、契約書の署名ページ。",
+            "한국어 텍스트 (인용) “中”「引用」　全角スペース。"],
+}
+BOUNDARY = "Kerning stops at a script boundary: x“A” against Г“A”, α (“A) and “Привет”."
+ARABIC = "Arabic: سلام عليكم"
+
+
+def _prose(rng, langs, n_chars: int) -> list:
+    """Sentences of `langs`, in lines of at most 90 characters, about
+    `n_chars` long."""
+    lines, size = [], 0
+    while size < n_chars:
+        lang = langs[int(rng.integers(len(langs)))]
+        s = SENTENCES[lang][int(rng.integers(len(SENTENCES[lang])))]
+        lines.append(s)
+        size += len(s) + 1
+    return lines
+
+
+def _member(name: str) -> zipfile.ZipInfo:
+    return zipfile.ZipInfo(name, date_time=(2026, 1, 1, 0, 0, 0))  # the same bytes at every run
+
+
+def docx_bytes(paras) -> bytes:
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as z:
+        body = "".join(f"<w:p><w:r><w:t>{escape(p)}</w:t></w:r></w:p>" for p in paras)
+        z.writestr(_member("word/document.xml"), '<w:document xmlns:w="http://schemas.openxmlformats.org/'
+                   f'wordprocessingml/2006/main"><w:body>{body}</w:body></w:document>')
+    return buf.getvalue()
+
+
+def pptx_bytes(slides) -> bytes:
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as z:
+        for i, lines in enumerate(slides, start=1):
+            runs = "".join(f"<a:p><a:r><a:t>{escape(t)}</a:t></a:r></a:p>" for t in lines)
+            z.writestr(_member(f"ppt/slides/slide{i}.xml"), '<p:sld xmlns:a="http://schemas.openxmlformats.org/'
+                       f'drawingml/2006/main" xmlns:p="p"><a:txBody>{runs}</a:txBody></p:sld>')
+    return buf.getvalue()
+
+
+def utf16_pdf(pages) -> bytes:
+    """A born-digital PDF whose lines are UTF-16BE hex strings. Each line
+    starts with four characters below U+0100: the extractor reads a hex
+    string as UTF-16BE when their high bytes are zero."""
+    objs = [b"1 0 obj<</Type/Catalog/Pages 2 0 R>>endobj\n",
+            f"2 0 obj<</Type/Pages/Kids[{' '.join(f'{3 + 2 * i} 0 R' for i in range(len(pages)))}]"
+            f"/Count {len(pages)}>>endobj\n".encode()]
+    for i, lines in enumerate(pages):
+        ops = b"BT /F1 11 Tf 72 720 Td " + b"".join(
+            (b"0 -14 Td " if j else b"") + b"<" + line.encode("utf-16-be").hex().upper().encode() + b"> Tj "
+            for j, line in enumerate(lines))
+        comp = zlib.compress(ops + b"ET")
+        objs.append(f"{3 + 2 * i} 0 obj<</Type/Page/Parent 2 0 R/MediaBox[0 0 612 792]/Contents {4 + 2 * i} 0 R>>"
+                    "endobj\n".encode())
+        objs.append(f"{4 + 2 * i} 0 obj<</Length {len(comp)}/Filter/FlateDecode>>stream\n".encode() + comp
+                    + b"\nendstream endobj\n")
+    return b"%PDF-1.4\n" + b"".join(objs) + b"trailer<</Root 1 0 R>>\n%%EOF"
+
+
+def fixture_texts():
+    """The fixture's documents as text: DOCX paragraphs, PPTX slides, PDF
+    pages (lists of lines), the refused PDF's pages and the timing pages."""
+    rng = np.random.default_rng(SEED)
+    every = list(SENTENCES)
+    paras = [" ".join(_prose(rng, every, 400)) for _ in range(12)]
+    slides = [[f"Slide {i + 1}: {title}"] + _prose(rng, every, 300)
+              for i, title in enumerate(("Αποτελέσματα", "Итоги года", "总结"))]
+    pdf = [[f"p{i + 1:02d} {line}" for line in lines] for i, lines in enumerate([
+        ["Quarterly revenue: AV office affluent (Latin-1: déjà vu, Œuvre, «ça»)."] + _prose(rng, ["latin"], 600),
+        _prose(rng, ["greek"], 900),
+        [BOUNDARY] + _prose(rng, ["cyrillic"], 900),
+        _prose(rng, ["cjk"], 500),
+        _prose(rng, ["symbols"], 700),
+        _prose(rng, every, 1200),
+    ])]
+    refused = [[f"p{i + 1:02d} quarterly revenue, page {i + 1}"] + ([f"p{i + 1:02d} {ARABIC}"] if i == REFUSED_PAGE
+                                                                   else []) for i in range(5)]
+    n = 2400
+    timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n],
+              "latin": " ".join(_prose(rng, ["latin"], n))[:n],
+              "cyrillic": " ".join(_prose(rng, ["cyrillic"], n))[:n],
+              "cjk": " ".join(_prose(rng, ["cjk"], n))[:n]}
+    timing = {k: "\n".join(v[j:j + 90] for j in range(0, n, 90)) for k, v in timing.items()}
+    return paras, slides, pdf, refused, timing
+
+
+def _payloads(chunks) -> list:
+    return [base64.b64decode(c.content.split(",", 1)[1]) for c in chunks]
+
+
+def _pack(blobs):
+    return np.frombuffer(b"".join(blobs), np.uint8), np.array([len(b) for b in blobs], np.int64)
+
+
+def unpack(z, key) -> list:
+    flat, sizes = z[key].tobytes(), z[f"{key}_sizes"]
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    return [flat[a:b] for a, b in zip(starts, starts[1:])]
+
+
+def write_text_pages_fixture(path: Path = FIXTURE) -> Path:
+    """The files and the reference's payloads (needs PIL and the JAX
+    package): DOCX pages and PPTX slides as the reference's
+    `_create_chunks_multivector` stores them (q80, drawn at 100 dpi), PDF
+    pages as its raster pool's `_finish_page` makes them (q70, drawn at
+    150 dpi)."""
+    paras, slides, pdf_pages, refused, timing = fixture_texts()
+    files = {"docx": docx_bytes(paras), "pptx": pptx_bytes(slides), "pdf": utf16_pdf(pdf_pages),
+             "refused_pdf": utf16_pdf(refused)}
+    settings = types.SimpleNamespace(settings=Settings())
+    out = {k: np.frombuffer(v, np.uint8) for k, v in files.items()}
+    docx = JIngestionService._create_chunks_multivector(settings, DOCX, files["docx"], j_docx_to_text(files["docx"]))
+    pptx = JIngestionService._create_chunks_multivector(settings, PPTX, files["pptx"], "")
+    texts = j_extract_pages_text(files["pdf"])
+    pdf = [j_finish_page(i, _render_text_page(t, PDF_DPI), 1024, None)[1] for i, t in enumerate(texts)]
+    for key, blobs in (("docx_payloads", _payloads(docx)), ("pptx_payloads", _payloads(pptx)),
+                       ("pdf_payloads", pdf)):
+        out[key], out[f"{key}_sizes"] = _pack(blobs)
+    out["pdf_texts"] = np.array(texts)
+    out["timing_names"] = np.array(list(timing))
+    out["timing_texts"] = np.array(list(timing.values()))
+    np.savez_compressed(path, **out)
+    return Path(path)
+
+
+def _run(coro):
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(coro)
+    finally:
+        loop.close()
+
+
+@pytest.fixture(scope="module")
+def z():
+    with np.load(FIXTURE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_text_pages_fixture_is_current(tmp_path):
+    """Regenerated now (PIL and the JAX package), the committed fixture is
+    equal, and its PDFs extract to the texts it was drawn from."""
+    fresh = np.load(write_text_pages_fixture(tmp_path / "text_pages.npz"))
+    committed = np.load(FIXTURE)
+    assert sorted(fresh.files) == sorted(committed.files)
+    for k in committed.files:
+        assert np.array_equal(fresh[k], committed[k]), k
+    paras, slides, pdf_pages, _, _ = fixture_texts()
+    assert [t for t in committed["pdf_texts"]] == ["\n".join(p) for p in pdf_pages]
+    assert len(unpack(committed, "docx_payloads")) == 2 and len(unpack(committed, "pptx_payloads")) == len(slides)
+
+
+@pytest.mark.parametrize("kind", ["docx", "pptx"])
+def test_office_pages_store_the_reference_payloads(z, kind):
+    """DOCX pages and PPTX slides in every script: the port's
+    `_create_chunks_multivector` stores the reference's q80 payloads."""
+    data = z[kind].tobytes()
+    ctype, text = (DOCX, docx_to_text(data)) if kind == "docx" else (PPTX, "")
+    settings = types.SimpleNamespace(settings=Settings())
+    chunks = IngestionService._create_chunks_multivector(settings, ctype, data, text)
+    assert _payloads(chunks) == unpack(z, f"{kind}_payloads")
+    assert [c.metadata["page"] for c in chunks] == list(range(len(chunks)))
+
+
+@pytest.mark.parametrize("processes", [1, 2])
+def test_pooled_pdf_pages_store_the_reference_payloads(z, processes):
+    """The PDF through the raster pool's `PageStream` (prep mode, as the
+    ingest path takes it): the reference's q70 payloads, page for page."""
+    pool = RasterPool(processes)
+    try:
+        pages = _run(pool.rasterize_pdf_jpegs(z["pdf"].tobytes(), dpi=PDF_DPI, prep=PREP))
+    finally:
+        pool.shutdown()
+    assert [p[0] for p in pages] == list(range(6)) and not any(p[4] for p in pages)
+    assert [p[1] for p in pages] == unpack(z, "pdf_payloads")
+
+
+def test_inline_pdf_pages_equal_the_reference(z):
+    """The inline PDF rung (`_create_chunks_multivector`: q80 of each
+    page) equals the reference's."""
+    settings = types.SimpleNamespace(settings=Settings())
+    data = z["pdf"].tobytes()
+    got = IngestionService._create_chunks_multivector(settings, "application/pdf", data, "")
+    want = JIngestionService._create_chunks_multivector(settings, "application/pdf", data, "")
+    assert len(got) == len(want) == 6 and [g.content for g in got] == [w.content for w in want]
+
+
+# ----------------------------------------------------- refusals fail the job
+
+
+@pytest.mark.parametrize("processes", [1, 2])
+def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
+    """The reference draws all five pages; the port raises for the
+    Arabic one instead of skipping it."""
+    data = z["refused_pdf"].tobytes()
+    pool, jpool = RasterPool(processes), JRasterPool(processes)
+    try:
+        with pytest.raises(UnsupportedText, match=r"U\+0633 ARABIC LETTER SEEN \(script Arabic\).*item 3b-ii"):
+            _run(pool.rasterize_pdf_jpegs(data, dpi=PDF_DPI, prep=PREP))
+        assert [p[0] for p in _run(jpool.rasterize_pdf_jpegs(data, dpi=PDF_DPI))] == list(range(5))
+    finally:
+        pool.shutdown()
+        jpool.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["docx", "pptx"])
+def test_office_pages_with_refused_text_raise(kind):
+    settings = types.SimpleNamespace(settings=Settings())
+    lines = ["Quarterly revenue", ARABIC]
+    data = docx_bytes(lines) if kind == "docx" else pptx_bytes([lines])
+    ctype, text = (DOCX, docx_to_text(data)) if kind == "docx" else (PPTX, "")
+    with pytest.raises(UnsupportedText, match=r"U\+0633 .*item 3b-ii"):
+        IngestionService._create_chunks_multivector(settings, ctype, data, text)
+    assert len(JIngestionService._create_chunks_multivector(settings, ctype, data, text)) == 1
+
+
+def _services(tmp_path: Path, **over):
+    raw = {
+        "storage": {"storage_path": str(tmp_path / "storage")},
+        "database": {"path": str(tmp_path / "db.sqlite")},
+        "vector_store": {"fde_num_repetitions": 4, "fde_num_simhash_projections": 3, "fde_projection_dimension": 8,
+                         "index_path": str(tmp_path / "index")},
+        "telemetry": {"telemetry_dir": str(tmp_path / "logs" / "telemetry")},
+        "model": {"matmul_precision": "bf16"},
+        "worker": {"raster_processes": 2},
+        **over,
+    }
+    return build_services(Settings.from_dict(raw), colqwen_model=TModel.from_fixture(MODEL_FIXTURE, device="cpu"),
+                          device="cpu")
+
+
+def test_pooled_pdf_job_with_a_refused_page_fails(z, tmp_path, monkeypatch):
+    """A 5-page PDF with Arabic on page 3 through the pooled PageStream:
+    the job ends `failed`, its error naming the character and item
+    3b-ii, and no page is in the ColPali store (before, page 3 was
+    dropped and the job completed with 4 pages)."""
+    services = _services(tmp_path)
+    svc = services.ingestion_service
+    ids = iter(range(1, 100))
+    monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(int=next(ids)))
+    auth = AuthContext(entity_id="dev", permissions={"read", "write"})
+
+    async def go():
+        await services.initialize()
+        try:
+            doc = await svc.ingest_file_content(z["refused_pdf"].tobytes(), "refused.pdf", {}, auth)
+            with pytest.raises(UnsupportedText, match="3b-ii"):
+                await svc.process_ingestion_job(doc.external_id, auth)
+            stored = await services.database.get_document(doc.external_id, auth)
+            chunks = await services.colpali_vector_store.get_chunks_by_id(
+                [(doc.external_id, n) for n in range(5)], app_id=auth.app_id)
+            return stored, chunks
+        finally:
+            await services.shutdown()
+
+    stored, chunks = _run(go())
+    assert stored.system_metadata["status"] == "failed"
+    assert "U+0633 ARABIC LETTER SEEN" in stored.system_metadata["error"]
+    assert "ROADMAP Queue 1 item 3b-ii" in stored.system_metadata["error"]
+    assert chunks == []
+
+
+def test_build_services_refuses_a_dpi_the_atlas_lacks(tmp_path):
+    """A `pdf.colpali_pdf_dpi` whose font size the atlas lacks is refused
+    when the services are built (before, the server booted and dropped
+    every PDF page); without ColPali and OCR nothing draws pages, and the
+    server boots."""
+    with pytest.raises(UnsupportedText, match=r"dpi 300 .*holds dpi \(150, 100\) \(sizes \(18, 12\) px\).*3b-ii"):
+        _services(tmp_path / "a", pdf={"colpali_pdf_dpi": 300})
+    services = _services(tmp_path / "b", pdf={"colpali_pdf_dpi": 300}, morphik={"enable_colpali": False})
+    assert services.colpali_vector_store is None
