@@ -353,17 +353,21 @@ Phases (each raises on failure; none is caught):
  23. text pages in every left-to-right script (after phase 22, before
      phase 21), on a server from the toml serving phase 3b's model: the
      host render ms of a page (`render_text_page` at 150 dpi, median of 3)
-     in Latin, Cyrillic and CJK beside a Latin-1 page of the same length;
-     the DOCX, PPTX and 6-page PDF of tests/fixtures/text_pages.npz (Greek,
-     Cyrillic, Vietnamese, Romanian, symbols, box drawing, the font's
-     emoji, CJK boxes; a `Г“A` script-boundary kerning case) ingested over
-     HTTP to `completed`, every stored page the reference's payload byte
-     for byte (q80 for DOCX / PPTX, q70 from the raster pool for the PDF;
-     made by the JAX package under PIL); K3 = 28 a tower forward; an
-     image query of the boundary page's payload finds that page first,
-     through K1; a 5-page PDF with Arabic on page 3 ends `failed`, its
-     error naming ROADMAP item 3b-ii, with no page stored. Prints a
-     {"text_pages": ...} line; the kernels line gains
+     in Latin, Cyrillic, CJK, Hebrew and Arabic beside a Latin-1 page of
+     the same length; the DOCX, PPTX and 6-page PDF of
+     tests/fixtures/text_pages.npz (Greek, Cyrillic, Vietnamese, Romanian,
+     symbols, box drawing, the font's emoji, CJK boxes; a `Г“A`
+     script-boundary kerning case) and the Hebrew DOCX,
+     Arabic PPTX and 4-page Hebrew / Arabic / mixed PDF of
+     tests/fixtures/rtl_pages.npz (bidi levels, mirrored brackets, Arabic
+     joining, lam-alef, bidi controls) ingested over HTTP to `completed`,
+     every stored page the reference's payload byte for byte (q80 for DOCX
+     / PPTX, q70 from the raster pool for the PDF; made by the JAX package
+     under PIL); K3 = 28 a tower forward; an image query of the boundary
+     page's payload and one of the mixed right-to-left page's find their
+     pages first, through K1; a 5-page PDF with Devanagari on page 3 ends
+     `failed`, its error naming ROADMAP item 3b-ii, with no page stored.
+     Prints a {"text_pages": ...} line; the kernels line gains
      `text_pages_launches`.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
@@ -3817,13 +3821,17 @@ def formats_phase(torch, model, _kernels, smi):
     return out
 
 
-# phase 23: text pages in every left-to-right script the reference draws
+# phase 23: text pages in every script the reference draws, right-to-left included
 TEXT_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "text_pages.npz"
-TEXT_PAGE_FILES = (("mixed.docx", "docx", "application/vnd.openxmlformats-officedocument.wordprocessingml.document"),
-                   ("mixed.pptx", "pptx",
-                    "application/vnd.openxmlformats-officedocument.presentationml.presentation"),
-                   ("mixed.pdf", "pdf", "application/pdf"))
-TEXT_PAGE_QUERY = 2  # the PDF page with the script-boundary kerning case
+RTL_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "rtl_pages.npz"
+DOCX_TYPE = "application/vnd.openxmlformats-officedocument.wordprocessingml.document"
+PPTX_TYPE = "application/vnd.openxmlformats-officedocument.presentationml.presentation"
+TEXT_PAGE_FILES = (  # (fixture, upload name, key, content type)
+    ("ltr", "mixed.docx", "docx", DOCX_TYPE), ("ltr", "mixed.pptx", "pptx", PPTX_TYPE),
+    ("ltr", "mixed.pdf", "pdf", "application/pdf"),
+    ("rtl", "hebrew.docx", "docx", DOCX_TYPE), ("rtl", "arabic.pptx", "pptx", PPTX_TYPE),
+    ("rtl", "rtl.pdf", "pdf", "application/pdf"))
+TEXT_PAGE_QUERIES = (("ltr", "mixed.pdf", 2), ("rtl", "rtl.pdf", 2))  # the boundary page, the mixed RTL page
 TEXT_RENDER_REPEATS = 3
 
 
@@ -3837,9 +3845,10 @@ def _fixture_blobs(z, key) -> list:
 
 
 def text_render_ms(z) -> dict:
-    """Phase 23, on the host: `render_text_page` ms of the fixture's
-    timing pages (one length; Latin-1, Latin, Cyrillic, CJK) at 150 dpi,
-    the median of TEXT_RENDER_REPEATS after one untimed render."""
+    """Phase 23, on the host: `render_text_page` ms of a fixture's timing
+    pages (one length; Latin-1, Latin, Cyrillic, CJK; Latin-1, Hebrew,
+    Arabic) at 150 dpi, the median of TEXT_RENDER_REPEATS after one
+    untimed render."""
     import numpy as np
 
     from morphik_core_tpu_torch.parser.text_render import render_text_page
@@ -3868,10 +3877,11 @@ def _wait_failed(client, doc_id) -> dict:
 
 
 def text_pages_phase(torch, model, _kernels, smi):
-    """Phase 23: text pages in every left-to-right script on a server from
-    the toml serving phase 3b's model. Every stored page is the
-    reference's payload byte for byte; an image query of a page finds it
-    first (K1); a PDF with an Arabic page fails naming item 3b-ii."""
+    """Phase 23: text pages in every script the reference draws, Hebrew
+    and Arabic included, on a server from the toml serving phase 3b's
+    model. Every stored page is the reference's payload byte for byte; an
+    image query of a page finds it first (K1); a PDF with a Devanagari
+    page fails naming item 3b-ii."""
     import base64
 
     import numpy as np
@@ -3880,8 +3890,9 @@ def text_pages_phase(torch, model, _kernels, smi):
     from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
 
     t_phase = time.perf_counter()
-    z = np.load(TEXT_PAGES_FIXTURE)
-    render_ms = text_render_ms(z)
+    fixtures = {"ltr": np.load(TEXT_PAGES_FIXTURE), "rtl": np.load(RTL_PAGES_FIXTURE)}
+    render_ms = text_render_ms(fixtures["ltr"])
+    render_ms.update({k: v for k, v in text_render_ms(fixtures["rtl"]).items() if k != "latin1"})
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_pages_"))
     settings = service_settings(tmp)
     forward_batches = []
@@ -3900,15 +3911,15 @@ def text_pages_phase(torch, model, _kernels, smi):
         model.embed_image_batch = counted_forward
         torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launch_counts()  # the text pages path starts here
-        log(f"phase 23: text pages in every left-to-right script ({smi}): server up in {boot_s:.3f} s; host render "
-            f"ms a page {json.dumps({k: round(v, 3) for k, v in render_ms.items()})}")
+        log(f"phase 23: text pages in every script, right-to-left included ({smi}): server up in {boot_s:.3f} s; "
+            f"host render ms a page {json.dumps({k: round(v, 3) for k, v in render_ms.items()})}")
         ingest_s, docs, pages = {}, {}, {}
-        for name, key, ctype in TEXT_PAGE_FILES:
+        for fixture, name, key, ctype in TEXT_PAGE_FILES:
             t = time.perf_counter()
-            docs[name] = client.upload(name, z[key].tobytes(), ctype)["external_id"]
+            docs[name] = client.upload(name, fixtures[fixture][key].tobytes(), ctype)["external_id"]
             ingest_s[name] = _wait_completed(client, [docs[name]]) - t
-        for name, key, _ in TEXT_PAGE_FILES:   # the reference's payloads, page for page
-            want = _fixture_blobs(z, f"{key}_payloads")
+        for fixture, name, key, _ in TEXT_PAGE_FILES:   # the reference's payloads, page for page
+            want = _fixture_blobs(fixtures[fixture], f"{key}_payloads")
             chunks = client.call("POST", "/batch/chunks", {"sources": [
                 {"document_id": docs[name], "chunk_number": k} for k in range(len(want) + 2)], "use_colpali": True})
             got = [base64.b64decode(c["content"].split(",", 1)[1]) for c in chunks]
@@ -3922,25 +3933,28 @@ def text_pages_phase(torch, model, _kernels, smi):
         if ingest_forwards < 1 or ingest_launches["window_attention"] != k3_per_forward * ingest_forwards:
             raise AssertionError(f"{ingest_forwards} tower forwards, K3 launched "
                                  f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
-        uri = bytes_to_data_uri(_fixture_blobs(z, "pdf_payloads")[TEXT_PAGE_QUERY], "image/jpeg")
-        before = _kernels.launch_counts["maxsim_q8"]
-        t = time.perf_counter()
-        hits = client.call("POST", "/retrieve/chunks", {"query_image": uri, "k": 4})
-        query_ms = (time.perf_counter() - t) * 1e3
-        k1 = _kernels.launch_counts["maxsim_q8"] - before
-        if (hits[0]["document_id"], hits[0]["chunk_number"]) != (docs["mixed.pdf"], TEXT_PAGE_QUERY) or k1 <= 0:
-            raise AssertionError(f"the page image query's top-1 is {hits[0]['document_id']}#"
-                                 f"{hits[0]['chunk_number']} (K1 {k1}), not PDF page {TEXT_PAGE_QUERY}")
+        query_ms = {}
+        for fixture, name, page in TEXT_PAGE_QUERIES:
+            uri = bytes_to_data_uri(_fixture_blobs(fixtures[fixture], "pdf_payloads")[page], "image/jpeg")
+            before = _kernels.launch_counts["maxsim_q8"]
+            t = time.perf_counter()
+            hits = client.call("POST", "/retrieve/chunks", {"query_image": uri, "k": 4})
+            query_ms[name] = (time.perf_counter() - t) * 1e3
+            k1 = _kernels.launch_counts["maxsim_q8"] - before
+            if (hits[0]["document_id"], hits[0]["chunk_number"]) != (docs[name], page) or k1 <= 0:
+                raise AssertionError(f"the page image query's top-1 is {hits[0]['document_id']}#"
+                                     f"{hits[0]['chunk_number']} (K1 {k1}), not {name} page {page}")
         launches = dict(_kernels.launch_counts)
-        if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the query's forward too
+        if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the queries' forwards too
             raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
                                  "tower forwards")
-        # still refused: a PDF with an Arabic page fails the job, no page stored
+        # still refused: a PDF with a Devanagari page fails the job, no page stored
         t = time.perf_counter()
-        refused = client.upload("refused.pdf", z["refused_pdf"].tobytes(), "application/pdf")["external_id"]
+        refused = client.upload("refused.pdf", fixtures["ltr"]["refused_pdf"].tobytes(),
+                                "application/pdf")["external_id"]
         status = _wait_failed(client, refused)
         refused_s = time.perf_counter() - t
-        if "3b-ii" not in status["error"] or "U+0633" not in status["error"]:
+        if "3b-ii" not in status["error"] or "U+0928" not in status["error"]:
             raise AssertionError(f"the refused PDF failed with {status['error']!r}")
         if client.call("POST", "/batch/chunks", {"sources": [
                 {"document_id": refused, "chunk_number": k} for k in range(5)], "use_colpali": True}):
@@ -3959,8 +3973,9 @@ def text_pages_phase(torch, model, _kernels, smi):
            "k3_per_forward": k3_per_forward, "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase}
     log(f"  ingests to completed (s) {json.dumps({k: round(v, 3) for k, v in ingest_s.items()})}, pages {pages}, "
         f"each the reference's payload; tower forwards {ingest_forwards} (K3 {ingest_launches['window_attention']}); "
-        f"page image query {query_ms:.3f} ms (top-1 its page); the Arabic PDF failed in {refused_s:.3f} s naming "
-        f"3b-ii; launches {launches}; peak {peak_gb:.2f} GB; phase {out['phase_s']:.3f} s ({smi})")
+        f"page image queries (ms) {json.dumps({k: round(v, 3) for k, v in query_ms.items()})} (top-1 their pages); "
+        f"the Devanagari PDF failed in {refused_s:.3f} s naming 3b-ii; launches {launches}; peak {peak_gb:.2f} GB; "
+        f"phase {out['phase_s']:.3f} s ({smi})")
     return out
 
 

@@ -1,7 +1,9 @@
 """Makes `text_render`'s glyph atlas, `glyphs_dejavu_sans.npz`, with PIL
 (raqm, FreeType) and fontTools from the DejaVuSans.ttf that
-`ImageFont.truetype("DejaVuSans.ttf")` finds: the reference's font. It
-runs where PIL is installed; nothing on the serving path imports it.
+`ImageFont.truetype("DejaVuSans.ttf")` finds: the reference's font, and
+with the FriBiDi and HarfBuzz that Pillow's raqm draws with (through
+ctypes: `libfribidi.so.0` and Pillow's own `pillow.libs/libharfbuzz*`).
+It runs where PIL is installed; nothing on the serving path imports it.
 
     python -c "from morphik_core_tpu_torch.parser.glyph_atlas import write_glyph_atlas; write_glyph_atlas()"
 
@@ -9,9 +11,10 @@ What it writes (`text_render.ShapedFont` reads it):
 
 - `chars`: the code points drawn as a token of their own: the cmap's
   (bar marks, default-ignorables and refused scripts) and the spaces the
-  font lacks; then the `ligatures` (with `ligature_tags`), the `.notdef`
-  token and the hidden token. `glyphs`: each token's glyph id; `hidden`:
-  1 for the invisible token.
+  font lacks; then the `ligatures` (with `ligature_tags`), the `forms`
+  (the Arabic form glyphs outside the cmap, each drawn by PIL as its
+  letter between ZWJs), the `.notdef` token and the hidden token.
+  `glyphs`: each token's glyph id; `hidden`: 1 for the invisible token.
 - per font size s: `shapes_s`, `offsets_s`, `masks_s` (u8, flat) as
   `getmask2(token, "L", anchor="la")` draws the token alone,
   `advances_s` (1/64 px, `getlength`), and `kern_s` rows (tag, glyph a,
@@ -34,6 +37,23 @@ What it writes (`text_render.ShapedFont` reads it):
   holds; `lig_blockers`: the default-ignorables a ligature does not
   match across (probed); `contextual`: the characters a chain-context
   ccmp lookup of the font substitutes in sequence (its tone letters).
+- bidi: `bidi_starts` / `bidi_values` (FriBiDi's type of every code
+  point, in `bidi.TYPE_NAMES`' numbering), `bidi_brackets` (code point,
+  FriBiDi's bracket type: minus the id of an opening bracket), `mirror`
+  (HarfBuzz's mirror of each code point whose mirror the cmap holds),
+  `script_directions` (HarfBuzz's native direction of each script),
+  `libraries` (the FriBiDi, HarfBuzz and raqm versions).
+- Arabic: `joining_starts` / `joining_values` (FriBiDi's joining types,
+  as `arabic.U` ...; the probe confirms them), `arabic_forms` rows
+  (action, glyph in, glyph out) of the `arab` form features,
+  `arabic_ligatures` rows (stage: 0 `rlig`, 1 `liga`; ligature glyph,
+  first, second) without marks, `rlig_blockers` / `arabic_liga_blockers`
+  (the default-ignorables a lam-alef does not form across, probed).
+
+The probe draws every code point the rules let through alone in chunks,
+the Common ones also inside a Hebrew and a Latin right-to-left run, each
+letter an Arabic run may hold alone, between tatweels and beside a beh,
+and each invisible character between two behs.
 """
 
 from __future__ import annotations
@@ -44,16 +64,18 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from morphik_core_tpu_torch.parser import arabic, bidi
 from morphik_core_tpu_torch.parser.text_render import (
-    ATLAS_DPIS, ATLAS_PATH, BIDI, COMPOSES, FONT_NAME, GLYPH, HIDDEN, MARK, MARKED, MISDRAWN, NOTDEF, SHAPER,
-    UNASSIGNED, ShapedFont, UnsupportedText, _blend_black, _canonical_decomposition, _composite, _is_mark, decompose,
-    font_size, load_font)
+    ATLAS_DPIS, ATLAS_PATH, COMPOSES, FONT_NAME, GLYPH, HIDDEN, LTR_SCRIPT, MARK, MARKED, MISDRAWN, NO_DIRECTION,
+    NOTDEF, RTL_SCRIPT, SHAPER, UNASSIGNED, ZWJ, ShapedFont, UnsupportedText, _blend_black, _canonical_decomposition,
+    _composite, _is_mark, decompose, font_size, load_font)
 
-# the scripts HarfBuzz 12 shapes with a shaper of its own (hb-ot-shaper.hh):
-# Arabic, Hebrew, Indic, Khmer, Myanmar, Thai / Lao, and the Universal
-# Shaping Engine's; Mongolian and N'Ko take the Arabic one
+# the scripts HarfBuzz 12 shapes with a shaper of its own (hb-ot-shaper.hh)
+# that the port does not mirror: Indic, Khmer, Myanmar, Thai / Lao, the
+# Universal Shaping Engine's, and the Arabic shaper's scripts but Arabic
+# (Syriac, N'Ko, Mongolian and the rest). Arabic and Hebrew are mirrored.
 SHAPER_SCRIPTS = frozenset("""
-Arab Syrc Nkoo Mong Hebr Beng Deva Gujr Guru Knda Mlym Orya Taml Telu Sinh Thai Laoo Khmr Mymr Tibt
+Syrc Nkoo Mong Beng Deva Gujr Guru Knda Mlym Orya Taml Telu Sinh Thai Laoo Khmr Mymr Tibt
 Bali Batk Brah Bugi Buhd Cakm Cham Dupl Egyp Gran Hano Java Kthi Kali Khar Khoj Sind Lepc Limb Mahj Mtei
 Modi Hmng Phag Phlp Rjng Saur Shrd Sidd Sund Tglg Tagb Tale Lana Tavt Takr Tirh Tfng Sylo Mand Mani Ahom
 Mult Adlm Bhks Marc Newa Gonm Soyo Zanb Dogr Gong Rohg Maka Medf Sogo Sogd Elym Nand Hmnp Wcho Chrs Diak
@@ -64,7 +86,16 @@ JAMO = (*range(0x1100, 0x1200), *range(0xA960, 0xA980), *range(0xD7B0, 0xD800))
 # the spaces HarfBuzz draws with the space glyph where the font lacks them
 # (`space_fallback_type`)
 FALLBACK_SPACES = (0x20, 0xA0, *range(0x2000, 0x200B), 0x202F, 0x205F, 0x3000)
-REFUSED_BIDI = frozenset("R AL AN LRE RLE LRO RLO PDF LRI RLI FSI PDI".split())
+# `hb_script_get_horizontal_direction`: the right-to-left scripts, and those without a direction
+RTL_SCRIPTS = frozenset("""
+Arab Hebr Syrc Thaa Cprt Khar Phnx Nkoo Lydi Avst Armi Phli Prti Sarb Orkh Samr Mand Merc Mero Mani Mend Nbat Narb
+Palm Phlp Hatr Adlm Rohg Sogo Sogd Elym Chrs Yezi Ougr Gara
+""".split())
+UNDIRECTED_SCRIPTS = frozenset(("Hung", "Ital", "Runr", "Tfng"))
+# FriBiDi's joining type names -> the atlas's (HarfBuzz counts C as D; G is FriBiDi's "ignored")
+JOINING = {"U": arabic.U, "L": arabic.L, "R": arabic.R, "D": arabic.D, "C": arabic.D, "T": arabic.T, "G": arabic.U}
+FRIBIDI_TYPE_NAMES = {"LTR": "L", "RTL": "R", "BS": "B", "SS": "S"}
+ALEF, ALEF_HAMZA, LAM, TATWEEL = 0x627, 0x623, 0x644, 0x640
 # HarfBuzz's default shaper features that substitute (hb-ot-shape.cc)
 DEFAULT_GSUB = ("ccmp", "locl", "rlig", "calt", "clig", "liga", "rclt")
 # HarfBuzz's OpenType tags where they are not the ISO code in lower case
@@ -183,12 +214,12 @@ def _ranges(values: np.ndarray):
     return starts, values[starts]
 
 
-def _probe_chunk(font: ShapedFont, pil: _Pil, cps: List[int]) -> Optional[bool]:
-    """Whether PIL and the mirror draw the chunk alike (pixels and advance);
-    None where the mirror refuses it."""
+def _probe_chunk(font: ShapedFont, pil: _Pil, cps: List[int], frame: tuple = ("", "")) -> Optional[bool]:
+    """Whether PIL and the mirror draw the chunk (between the `frame`'s two
+    strings) alike, pixels and advance; None where the mirror refuses it."""
     from PIL import Image, ImageDraw
 
-    text = "".join(map(chr, cps))
+    text = frame[0] + "".join(map(chr, cps)) + frame[1]
     want_len = pil.length(text)
     m = 2 * pil.size
     w, h = (want_len >> 6) + 4 * pil.size + 2 * m, 4 * pil.size
@@ -205,21 +236,22 @@ def _probe_chunk(font: ShapedFont, pil: _Pil, cps: List[int]) -> Optional[bool]:
     return pen == want_len and np.array_equal(page, np.asarray(img))
 
 
-def _probe(font: ShapedFont, pil: _Pil, cps: List[int], misdrawn: List[int]) -> None:
+def _probe(font: ShapedFont, pil: _Pil, cps: List[int], misdrawn: List[int], frame: tuple = ("", "")) -> None:
     """Probe a chunk, halving it where it fails: a code point drawn
-    otherwise alone is `misdrawn`; a chunk drawn otherwise whose halves are
-    drawn alike is a fault of the mirror. A chunk the mirror refuses (a
-    sequence of contextual forms) is fine where its halves pass."""
-    same = _probe_chunk(font, pil, cps)
+    otherwise alone (in the frame) is `misdrawn`; a chunk drawn otherwise
+    whose halves are drawn alike is a fault of the mirror. A chunk the
+    mirror refuses (a sequence of contextual forms) is fine where its
+    halves pass."""
+    same = _probe_chunk(font, pil, cps, frame)
     if same:
         return
     if len(cps) == 1:
-        assert same is not None, f"the mirror refuses U+{cps[0]:04X} alone"
+        assert same is not None, f"the mirror refuses U+{cps[0]:04X} alone in {frame}"
         misdrawn.append(cps[0])
         return
     before = len(misdrawn)
-    _probe(font, pil, cps[:len(cps) // 2], misdrawn)
-    _probe(font, pil, cps[len(cps) // 2:], misdrawn)
+    _probe(font, pil, cps[:len(cps) // 2], misdrawn, frame)
+    _probe(font, pil, cps[len(cps) // 2:], misdrawn, frame)
     if same is False and len(misdrawn) == before:
         raise AssertionError(f"the mirror draws U+{cps[0]:04X}..U+{cps[-1]:04X} otherwise than PIL, but each "
                              "half alike: a shaping rule between characters is missing")
@@ -235,8 +267,6 @@ def _classify(cmap, script_of) -> tuple:
         cat = unicodedata.category(ch)
         if cat in ("Cn", "Cs"):
             cls = UNASSIGNED
-        elif unicodedata.bidirectional(ch) in REFUSED_BIDI:
-            cls = BIDI
         elif script_of(cp) in SHAPER_SCRIPTS or cp in jamo:
             cls = SHAPER
         elif hb_default_ignorable(cp):
@@ -258,26 +288,149 @@ def _classify(cmap, script_of) -> tuple:
     return classes, spaces
 
 
-def _check_substitutions(gsub, served) -> None:
-    """Every default substitution of a served tag is a `liga` ligature or
-    a ccmp chain-context lookup (reached only through marks, refused, or
-    the contextual characters, refused in sequence)."""
+def _marks_only(lookup, gdef_class) -> bool:
+    """Whether every ligature of a ligature lookup takes a mark."""
+    return all(any(gdef_class.get(g) == 3 for g in [first, *lig.Component])
+               for st in lookup.SubTable for first, ligs in st.ligatures.items() for lig in ligs)
+
+
+def _check_substitutions(gsub, served, gdef_class) -> None:
+    """Every default substitution of a served tag is a `liga` ligature, a
+    ccmp chain-context lookup (reached only through marks, refused, or the
+    contextual characters, refused in sequence), a ligature of marks, or
+    (under `arab`) a form feature's single substitution or an `rlig`
+    ligature."""
     for t in served:
-        for feat, lookups in _feature_lookups(gsub, t, DEFAULT_GSUB).items():
+        for feat, lookups in _feature_lookups(gsub, t, DEFAULT_GSUB + tuple(arabic.FEATURES)).items():
             for li in lookups:
-                kind = gsub.LookupList.Lookup[li].LookupType
-                assert (feat, kind) in (("liga", 4), ("ccmp", 6)), f"{t} {feat} lookup {li} (type {kind})"
+                lookup = gsub.LookupList.Lookup[li]
+                kind = lookup.LookupType
+                arab = t == "arab" and ((feat in arabic.FEATURES and kind == 1) or (feat == "rlig" and kind == 4))
+                assert ((feat, kind) in (("liga", 4), ("ccmp", 6)) or arab
+                        or (kind == 4 and _marks_only(lookup, gdef_class))), f"{t} {feat} lookup {li} (type {kind})"
+
+
+def _arabic_gsub(gsub, gid, gdef_class) -> tuple:
+    """The `arab` form features' substitutions, rows (action, glyph in,
+    glyph out), and its `rlig` (stage 0) and `liga` (stage 1) ligatures
+    without marks, rows (stage, ligature glyph, first, second)."""
+    feats = _feature_lookups(gsub, "arab", tuple(arabic.FEATURES) + ("rlig", "liga"))
+    forms = []
+    for name, action in arabic.FEATURES.items():
+        assert len(feats.get(name, [])) <= 1, f"arab {name}: the mirror applies one lookup a feature"
+        for li in feats.get(name, []):
+            for st in gsub.LookupList.Lookup[li].SubTable:
+                forms += [(action, gid[a], gid[b]) for a, b in st.mapping.items()]
+    ligatures = []
+    for stage, name in enumerate(("rlig", "liga")):
+        lookups = [li for li in sorted(feats.get(name, [])) if not _marks_only(gsub.LookupList.Lookup[li], gdef_class)]
+        assert len(lookups) <= 1, f"arab {name}: the mirror applies one lookup a stage"
+        for li in lookups:
+            for st in gsub.LookupList.Lookup[li].SubTable:
+                for first, ligs in st.ligatures.items():
+                    for lig in ligs:
+                        comps = [first, *lig.Component]
+                        if not any(gdef_class.get(g) == 3 for g in comps):
+                            assert len(comps) == 2, f"arab {name}: a ligature of {len(comps)} glyphs"
+                            ligatures.append((stage, gid[lig.LigGlyph], gid[comps[0]], gid[comps[1]]))
+    return sorted(forms), ligatures
+
+
+def _form_strings(forms, cp_of_glyph, joining, known) -> tuple:
+    """A token for each form glyph outside `known` (the cmap's and the
+    ligatures' glyphs): the string PIL draws it with, its letter between
+    ZWJs (join-causing, invisible) -> (strings, glyphs)."""
+    strings, glyphs = [], []
+    for action, a, b in forms:
+        cp = cp_of_glyph.get(a)
+        if b in known or b in glyphs or cp is None:
+            continue
+        j, z, c = joining[cp], chr(ZWJ), chr(cp)
+        text = {arabic.ISOL: c if j != arabic.U else None,
+                arabic.FINA: z + c if j in (arabic.R, arabic.D) else None,
+                arabic.MEDI: z + c + z if j == arabic.D else None,
+                arabic.INIT: c + z if j in (arabic.L, arabic.D) else None}[action]
+        if text is not None:   # else the letter never takes that form
+            strings.append(text)
+            glyphs.append(b)
+    return strings, glyphs
+
+
+def _unicode_tables() -> Dict[str, np.ndarray]:
+    """FriBiDi's bidi types, bracket types and joining types and HarfBuzz's
+    mirrors of every code point, from the libraries Pillow's raqm draws
+    with (loaded here only)."""
+    import ctypes
+
+    import PIL
+    from PIL import features
+
+    n = 0x110000
+    fribidi = ctypes.CDLL("libfribidi.so.0")
+    fribidi.fribidi_get_bidi_type_name.restype = ctypes.c_char_p
+    fribidi.fribidi_get_joining_type_name.restype = ctypes.c_char_p
+    cps = (ctypes.c_uint32 * n)(*range(n))
+    types = (ctypes.c_uint32 * n)()
+    brackets = (ctypes.c_uint32 * n)()
+    joins = (ctypes.c_uint8 * n)()
+    fribidi.fribidi_get_bidi_types(cps, n, types)
+    fribidi.fribidi_get_bracket_types(cps, n, types, brackets)
+    fribidi.fribidi_get_joining_types(cps, n, joins)
+    raw = np.frombuffer(types, np.uint32)
+    code = {}
+    for v in np.unique(raw).tolist():
+        name = fribidi.fribidi_get_bidi_type_name(v).decode()
+        code[v] = bidi.TYPE_NAMES.index(FRIBIDI_TYPE_NAMES.get(name, name))
+    bidi_types = np.vectorize(code.get)(raw).astype(np.int8)
+    braw = np.frombuffer(brackets, np.uint32).astype(np.int64)
+    has = np.flatnonzero(braw)
+    ids = np.where(braw[has] & 0x80000000, -(braw[has] & 0x7FFFFFFF), braw[has])
+    jraw = np.frombuffer(joins, np.uint8)
+    jcode = {v: JOINING[fribidi.fribidi_get_joining_type_name(v).decode()] for v in np.unique(jraw).tolist()}
+    joining = np.vectorize(jcode.get)(jraw).astype(np.int8)
+    hb_path = sorted((Path(PIL.__file__).parent.parent / "pillow.libs").glob("libharfbuzz*.so*"))
+    assert hb_path, "Pillow's own HarfBuzz (pillow.libs/libharfbuzz*.so*) draws the reference"
+    hb = ctypes.CDLL(str(hb_path[0]))
+    hb.hb_unicode_funcs_get_default.restype = ctypes.c_void_p
+    hb.hb_unicode_mirroring.restype = ctypes.c_uint32
+    hb.hb_unicode_mirroring.argtypes = (ctypes.c_void_p, ctypes.c_uint32)
+    funcs = hb.hb_unicode_funcs_get_default()
+    mirrors = [(cp, m) for cp in range(n) if (m := hb.hb_unicode_mirroring(funcs, cp)) != cp]
+    libraries = [f"fribidi {features.version('fribidi')}", f"harfbuzz {features.version('harfbuzz')}",
+                 f"raqm {features.version('raqm')}"]
+    return {"bidi": bidi_types, "bidi_brackets": np.stack([has, ids], 1).astype(np.int32), "joining": joining,
+            "mirrors": mirrors, "libraries": np.array(libraries)}
+
+
+def _needs_a_mark(st, gdef_class) -> bool:
+    """Whether every rule of a class-based chain-context subtable has a
+    class of marks only in its context (it is reached only through a
+    mark, which the atlas refuses)."""
+    if st.Format != 2:
+        return False
+    defs = (st.BacktrackClassDef.classDefs, st.InputClassDef.classDefs, st.LookAheadClassDef.classDefs)
+
+    def marks_only(classdef, k):
+        members = [g for g, c in classdef.items() if c == k]
+        return k and members and all(gdef_class.get(g) == 3 for g in members)
+
+    rules = [r for cs in st.ChainSubClassSet if cs is not None for r in cs.ChainSubClassRule]
+    return all(any(marks_only(d, k) for d, seq in zip(defs, (r.Backtrack, r.Input, r.LookAhead)) for k in seq)
+               for r in rules)
 
 
 def _contextual(gsub, served, char_of, gdef_class) -> List[int]:
     """The characters of the ccmp chain-context subtables whose coverage
-    holds no mark glyph: they change form next to each other."""
+    holds no mark glyph and that a sequence without marks reaches: they
+    change form next to each other."""
     out = set()
     for t in served:
         for li in _feature_lookups(gsub, t, ("ccmp",)).get("ccmp", []):
+            if gsub.LookupList.Lookup[li].LookupType != 6:
+                continue   # a ligature of marks (`_check_substitutions`)
             for st in gsub.LookupList.Lookup[li].SubTable:
                 cov = st.Coverage.glyphs
-                if all(g in char_of and gdef_class.get(g) != 3 for g in cov):
+                if all(g in char_of and gdef_class.get(g) != 3 for g in cov) and not _needs_a_mark(st, gdef_class):
                     out |= {char_of[g] for g in cov}
     return sorted(out)
 
@@ -355,7 +508,9 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     chosen = {c: OT_TAGS.get(c, c.lower()) if OT_TAGS.get(c, c.lower()) in font_tags else "DFLT" for c in codes}
     tags = sorted(set(chosen.values()))
     served = sorted({chosen[c] for c in codes if c not in SHAPER_SCRIPTS})
-    _check_substitutions(gsub, served)
+    gdef_class = tt["GDEF"].table.GlyphClassDef.classDefs
+    _check_substitutions(gsub, served, gdef_class)
+    uni = _unicode_tables()
 
     classes, spaces = _classify(cmap, script_of)
     assert classes[NOTDEF_PROBE] == NOTDEF
@@ -364,14 +519,22 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     drawn = [cp for cp in sorted(cmap) if classes[cp] == GLYPH]
     ligatures, ligature_tags, lig_glyphs = [], [], []
     for t in served:
+        if t == "arab":
+            continue   # the Arabic shaper's ligatures are glyph rows of their own
         for s, g in _font_ligatures(gsub, t, {cmap_names[cp]: cp for cp in drawn}):
             ligatures.append(s)
             ligature_tags.append(tags.index(t))
             lig_glyphs.append(gid[g])
     chars = drawn + spaces
-    strings = [chr(cp) for cp in chars] + ligatures + [chr(NOTDEF_PROBE), ""]
+    forms, arabic_ligatures = _arabic_gsub(gsub, gid, gdef_class)
+    cp_of_glyph = {gid[cmap_names[cp]]: cp for cp in reversed(drawn)}
+    known = set(cp_of_glyph) | set(lig_glyphs)
+    assert all(row[1] in known for row in arabic_ligatures), "an Arabic ligature outside the cmap"
+    form_strings, form_glyphs = _form_strings(forms, cp_of_glyph, uni["joining"], known)
+    strings = [chr(cp) for cp in chars] + ligatures + form_strings + [chr(NOTDEF_PROBE), ""]
     space = gid[cmap_names[0x20]]
-    glyphs = [gid[cmap_names[cp]] for cp in drawn] + [space] * len(spaces) + lig_glyphs + [0, space]
+    glyphs = ([gid[cmap_names[cp]] for cp in drawn] + [space] * len(spaces) + lig_glyphs + form_glyphs
+              + [0, space])
     char_of = {n: cp for cp, n in sorted(cmap_names.items(), reverse=True)}
     arrays = {
         "cmap": np.array(sorted(cmap), np.int32),
@@ -391,11 +554,27 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         "contextual": np.array(_contextual(gsub, served, char_of, tt["GDEF"].table.GlyphClassDef.classDefs),
                                np.int32),
         "brackets": np.array(_probe_brackets(pil, script_of), np.int32).reshape(-1, 2),
+        "forms": np.array(form_strings, dtype=str),
+        "bidi_brackets": uni["bidi_brackets"],
+        "mirror": np.array([(c, m) for c, m in uni["mirrors"] if m in cmap], np.int32).reshape(-1, 2),
+        "script_directions": np.array([RTL_SCRIPT if c in RTL_SCRIPTS else NO_DIRECTION if c in UNDIRECTED_SCRIPTS
+                                       else LTR_SCRIPT for c in codes], np.int8),
+        "arabic_forms": np.array(forms, np.int32).reshape(-1, 3),
+        "arabic_ligatures": np.array(arabic_ligatures, np.int32).reshape(-1, 4),
+        "libraries": uni["libraries"],
     }
-    hidden_cps = np.flatnonzero(classes == HIDDEN)
+    arrays["bidi_starts"], arrays["bidi_values"] = _ranges(uni["bidi"])
+    arrays["joining_starts"], arrays["joining_values"] = _ranges(uni["joining"])
+    # the default-ignorables that leave "A?V" one run (a bidi control may split it)
+    hidden_cps = [cp for cp in np.flatnonzero(classes == HIDDEN).tolist()
+                  if not bidi.needs_bidi(uni["bidi"][[0x41, cp, 0x56]].tolist())]
     arrays["lig_blockers"] = np.array([cp for cp in hidden_cps if not pil.draws(f"f{chr(cp)}i", "fi")], np.int32)
     av = pil.length("AV")
     assert all(pil.length(f"A{chr(cp)}V") == av for cp in hidden_cps), "a default-ignorable stops kerning"
+    # and those a lam-alef does not form across (ZWJ keeps the joining but blocks `rlig`)
+    for key, alef, ligature in (("rlig_blockers", ALEF, 0xFEFB), ("arabic_liga_blockers", ALEF_HAMZA, 0xFEF7)):
+        arrays[key] = np.array([cp for cp in hidden_cps
+                                if not pil.draws(chr(LAM) + chr(cp) + chr(alef), chr(ligature))], np.int32)
     for p in pils.values():
         arrays.update(_token_arrays(p, strings))
     token_of_glyph = {}
@@ -415,6 +594,30 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     misdrawn: List[int] = []
     for i in range(0, len(todo), PROBE_CHUNK):
         _probe(font, pil, todo[i:i + PROBE_CHUNK], misdrawn)
+    # the Common characters in right-to-left runs: mirrored, reversed, a
+    # Hebrew run's (between two Hebrew letters) and a Latin one's
+    common = [cp for cp in todo if script_of(cp) in ("Zyyy", "Zinh") and cp not in misdrawn]
+    for frame in (("\u05d0", "\u05d0"), ("\u05d0a", "\u05d0")):
+        for i in range(0, len(common), PROBE_CHUNK):
+            _probe(font, pil, common[i:i + PROBE_CHUNK], misdrawn, frame)
+    # joining: each letter an Arabic run may hold alone and between tatweels
+    # (join-causing), each invisible character between two behs
+    t = chr(TATWEEL)
+    for cp in todo:
+        if cp in misdrawn:
+            continue
+        if classes[cp] == HIDDEN:
+            frames = [("\u0628", "\u0628")]
+        elif script_of(cp) == "Arab" or uni["joining"][cp] not in (arabic.U, arabic.T):
+            frames = [("", ""), (t, t), (t, ""), ("", t), ("\u0628", ""), ("", "\u0628")]
+        else:
+            continue
+        for frame in frames:
+            same = _probe_chunk(font, pil, [cp], frame)
+            assert same is not None, f"the mirror refuses U+{cp:04X} in {frame}"
+            if not same:
+                misdrawn.append(cp)
+                break
     classes[misdrawn] = MISDRAWN
     arrays["class_starts"], arrays["class_values"] = _ranges(classes)
     np.savez_compressed(path, **arrays)

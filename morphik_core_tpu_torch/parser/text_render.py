@@ -9,41 +9,59 @@ serving path imports it). For
 each font size the reference draws (18 px at 150 dpi, 12 px at 100 dpi) it
 holds every token's mask as PIL draws it alone at an integer origin (with
 its offset from the origin) and its advance in 1/64 px. A token is a
-character of the font's cmap, a ligature of its `liga` feature, the
-`.notdef` box, the invisible glyph of a default-ignorable character, or a
-space the font lacks (drawn as its space, HarfBuzz's space fallback).
-Beside them, size for size, the GPOS `kern` pairs as PIL measures them
-inside a run of each script that can hold the pair; and, for every code
-point, its class (`GLYPH` ... `MISDRAWN` below), its script (ISO 15924)
-and, for the brackets that raqm pairs, its partner.
+character of the font's cmap, a ligature of its `liga` feature, an Arabic
+form or ligature glyph outside the cmap, the `.notdef` box, the invisible
+glyph of a default-ignorable character, or a space the font lacks (drawn
+as its space, HarfBuzz's space fallback). Beside them, size for size, the
+GPOS `kern` pairs as PIL measures them inside a run of each script that
+can hold the pair; and, for every code point, its class (`GLYPH` ...
+`MISDRAWN` below), its script (ISO 15924), its FriBiDi bidi type and
+bracket, its HarfBuzz mirror and its Arabic joining type, and, for the
+brackets that raqm pairs, its partner.
 
-The reference's layout is Pillow's raqm (fribidi + HarfBuzz), mirrored
-here for the left-to-right scripts that HarfBuzz shapes with its default
-shaper (and Hangul syllables, which it leaves alone):
+The reference's layout is Pillow's raqm (FriBiDi + HarfBuzz), mirrored
+here for the scripts that HarfBuzz shapes with its default shaper (and
+Hangul syllables, which it leaves alone), Hebrew, and Arabic:
 
+- the bidi levels of `bidi.embedding_levels` (FriBiDi's, the paragraph
+  direction from the line itself: each `line[:max_chars]` piece is a
+  paragraph of its own) and raqm's runs of one level in visual order;
 - raqm's script resolution: a Common character takes the script before
   it, a closing bracket the script of its opening one (a stack), and
   what is still Common or Inherited (a leading run) the script after it;
-  the line splits into runs where the resolved script changes, and each
-  run is shaped alone under its script's OpenType script tag;
+  each level run splits into runs where the resolved script changes (a
+  right-to-left one from its end), and each run is shaped alone under its
+  script's OpenType script tag;
+- in a right-to-left run, each character with a HarfBuzz mirror the font
+  maps becomes its mirror (`(` draws `)`, `<` draws `>`, `«` draws `»`);
+- HarfBuzz's native direction: a run whose direction is not its script's
+  (Common punctuation of a Hebrew run at an even level, of a Latin run at
+  an odd one) is shaped with its graphemes reversed; a run of Arabic
+  script with digits and no letters is left-to-right;
 - HarfBuzz's normalization against the cmap: a base and its marks
   compose into a character the font maps, a character the font lacks
   decomposes into parts it maps, a variation selector leaves its cluster
   alone, U+3000 takes the space glyph;
 - the run's `liga` ligatures, taken greedily in the font's order across
   default-ignorables that do not block them, and its `kern` pairs across
-  every default-ignorable;
+  every default-ignorable; in an Arabic run, `arabic`'s joining, forms and
+  lam-alef ligatures instead of `liga`;
+- a right-to-left run's glyphs laid out from its end: a kern pair's
+  adjustment falls on the glyph that comes first in the shaping order;
 - default-ignorables hidden (nothing drawn, no advance); the pen advances
-  in 26.6 fixed point; a glyph sits at `(pen + 32) >> 6`; overlapping
-  glyphs of a line composite as `src + dst * (255 - src) / 255`
+  in 26.6 fixed point across the runs; a glyph sits at `(pen + 32) >> 6`;
+  overlapping glyphs of a line composite as `src + dst * (255 - src) / 255`
   (`_imagingft.c`), and each line's mask is blended black over the page
   (`draw_bitmap`).
 
 What the mirror cannot draw raises `UnsupportedText` (ROADMAP Queue 1
-item 3b-ii): right-to-left text and the bidi controls, the scripts that
-HarfBuzz gives a shaper of their own, a combining mark that does not
-compose (it needs the GPOS mark anchors), a sequence of the font's
-contextual tone letters, and a dpi whose font size the atlas lacks. The
+item 3b-ii): the scripts that HarfBuzz gives a shaper of its own (but
+Hebrew and Arabic: the complex scripts, the other scripts of the Arabic
+shaper such as Syriac, N'Ko and Mongolian, conjoining jamo), a combining
+mark that does not compose (it needs the GPOS mark anchors: Arabic
+harakat, Hebrew niqqud, Latin marks without a precomposed form), a
+sequence of the font's contextual tone letters, the two bidi cases
+`bidi.refusal` names, and a dpi whose font size the atlas lacks. The
 page layout (margin, line height, `max_chars` wrapping, the half line
 after an empty line, "(no extractable text)") is `_render_text_page`'s.
 The atlas assumes HarfBuzz's default language system (a C or English
@@ -59,21 +77,26 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from morphik_core_tpu_torch.parser import arabic, bidi
+
 ATLAS_PATH = Path(__file__).with_name("glyphs_dejavu_sans.npz")
 ATLAS_DPIS = (150, 100)
 FONT_NAME = "DejaVuSans.ttf"
 ROADMAP_ITEM = "ROADMAP Queue 1 item 3b-ii"
 
-# a code point's class in the atlas; the classes from BIDI on are refused
-GLYPH, NOTDEF, COMPOSES, HIDDEN, MARK, BIDI, SHAPER, UNASSIGNED, MARKED, MISDRAWN = range(10)
+# a code point's class in the atlas; the classes from SHAPER on are refused
+GLYPH, NOTDEF, COMPOSES, HIDDEN, MARK, SHAPER, UNASSIGNED, MARKED, MISDRAWN = range(9)
 _REFUSAL = {
-    BIDI: "is right-to-left or a bidi control: the port draws left-to-right text only",
-    SHAPER: "needs a HarfBuzz shaper of its own (complex script or conjoining jamo)",
+    SHAPER: "needs a HarfBuzz shaper of its own that the port does not mirror (a complex script, a script of the "
+            "Arabic shaper other than Arabic, or conjoining jamo)",
     UNASSIGNED: f"is unassigned in Unicode {unicodedata.unidata_version}, a surrogate or a noncharacter",
     MARKED: "decomposes into a base and a combining mark, which needs the font's GPOS mark anchors",
     MISDRAWN: "is drawn by PIL otherwise than the atlas predicts",
 }
 DOTTED_CIRCLE = 0x25CC
+ZWJ = 0x200D
+# HarfBuzz's native direction of a script (`hb_script_get_horizontal_direction`)
+LTR_SCRIPT, RTL_SCRIPT, NO_DIRECTION = range(3)
 
 
 class UnsupportedText(ValueError):
@@ -170,10 +193,13 @@ class ShapedFont:
         chars = z["chars"].tolist()
         ligatures = [str(t) for t in z["ligatures"]]
         self.token_of = {c: i for i, c in enumerate(chars)}
-        self.notdef = len(chars) + len(ligatures)
+        self.notdef = len(chars) + len(ligatures) + len(z["forms"])
         self.hidden = int(np.flatnonzero(z["hidden"])[0])   # the invisible token of every default-ignorable
         self.cmap = set(z["cmap"].tolist())
         self.glyphs = z["glyphs"].tolist()
+        self.token_of_glyph = {0: self.notdef}   # the first token of each glyph
+        for i, g in enumerate(self.glyphs[:self.notdef]):
+            self.token_of_glyph.setdefault(g, i)
         self.masks = _unpack_masks(z[f"shapes_{size}"], z[f"masks_{size}"])
         self.offsets = z[f"offsets_{size}"].tolist()
         self.advances = z[f"advances_{size}"].tolist()
@@ -202,6 +228,21 @@ class ShapedFont:
         self.compose = {(int(a), int(b)): int(c) for a, b, c in z["compose"]}
         self.lig_blockers = set(z["lig_blockers"].tolist())
         self.contextual = set(z["contextual"].tolist())
+        # bidi: FriBiDi's types and brackets, HarfBuzz's mirrors, the native directions
+        self.bidi_starts, self.bidi_values = z["bidi_starts"], z["bidi_values"]
+        self.bidi_brackets = dict(z["bidi_brackets"].tolist())
+        self.mirror = dict(z["mirror"].tolist())
+        self.script_directions = z["script_directions"].tolist()
+        # Arabic: joining types, the form features' substitutions, the lam-alef ligatures per stage
+        self.arabic = codes.index("Arab")
+        self.joining_starts, self.joining_values = z["joining_starts"], z["joining_values"]
+        self.forms: Dict[int, Dict[int, int]] = {}
+        for action, a, b in z["arabic_forms"].tolist():
+            self.forms.setdefault(action, {})[a] = b
+        self.arabic_ligatures: List[Dict[int, List[Tuple[Tuple[int, ...], int]]]] = [{}, {}]
+        for stage, out, first, second in z["arabic_ligatures"].tolist():
+            self.arabic_ligatures[stage].setdefault(first, []).append(((second,), out))
+        self.arabic_blockers = [set(z["rlig_blockers"].tolist()), set(z["arabic_liga_blockers"].tolist())]
 
     # ------------------------------------------------------------ lookups
 
@@ -212,6 +253,14 @@ class ShapedFont:
     def scripts(self, cps: Sequence[int]) -> List[int]:
         idx = np.searchsorted(self.script_starts, np.asarray(cps, np.int64), side="right") - 1
         return self.script_values[idx].tolist()
+
+    def bidi_types(self, cps: Sequence[int]) -> List[int]:
+        idx = np.searchsorted(self.bidi_starts, np.asarray(cps, np.int64), side="right") - 1
+        return self.bidi_values[idx].tolist()
+
+    def joining(self, cps: Sequence[int]) -> List[int]:
+        idx = np.searchsorted(self.joining_starts, np.asarray(cps, np.int64), side="right") - 1
+        return self.joining_values[idx].tolist()
 
     def refusal(self, cp: int, why: str) -> UnsupportedText:
         name = unicodedata.name(chr(cp), "")
@@ -353,12 +402,59 @@ class ShapedFont:
                 return tok, skipped, j - i
         return None
 
-    def shape_run(self, cps: Sequence[int], script: int, first: bool = False) -> List[int]:
-        """One raqm run -> its tokens. The line's `first` run, when it starts
-        with a mark, gets HarfBuzz's dotted circle in front."""
-        if first and cps and _is_mark(cps[0]) and DOTTED_CIRCLE in self.cmap:
-            cps = [DOTTED_CIRCLE, *cps]
-        items = self.normalize(cps, bool(self.script_composes[script]))
+    def _continues(self, cps: Sequence[int], i: int) -> bool:
+        """Whether `cps[i]` continues the grapheme before it (HarfBuzz's
+        `hb_set_unicode_props`: marks, ZWJ, emoji modifiers, a second
+        regional indicator, TAG characters and the halfwidth sound marks;
+        an Extended_Pictographic character after a ZWJ too, which
+        `_reverse_graphemes` refuses rather than know)."""
+        cp = cps[i]
+        if _is_mark(cp) or cp == ZWJ or 0x1F3FB <= cp <= 0x1F3FF or 0xE0020 <= cp <= 0xE007F or 0xFF9E <= cp <= 0xFF9F:
+            return True
+        if 0x1F1E6 <= cp <= 0x1F1FF and i and 0x1F1E6 <= cps[i - 1] <= 0x1F1FF:
+            k = i - 1   # a regional indicator continues one that starts a pair
+            while k and 0x1F1E6 <= cps[k - 1] <= 0x1F1FF:
+                k -= 1
+            return (i - k) % 2 == 1
+        return False
+
+    def _reverse_graphemes(self, cps: Sequence[int]) -> List[int]:
+        for i in range(1, len(cps) - 1):   # no letter, mark or digit but U+2139 is Extended_Pictographic
+            nxt = cps[i + 1]
+            if (cps[i] == ZWJ and nxt not in self.hidden_cps
+                    and (unicodedata.category(chr(nxt))[0] not in "LMN" or nxt == 0x2139)):
+                raise self.refusal(nxt, "follows a ZWJ in a run shaped against its direction: HarfBuzz keeps an "
+                                        "Extended_Pictographic character there in the ZWJ's grapheme, and the atlas "
+                                        "has no emoji properties")
+        groups: List[List[int]] = []
+        for i, cp in enumerate(cps):
+            if groups and self._continues(cps, i):
+                groups[-1].append(cp)
+            else:
+                groups.append([cp])
+        return [cp for g in reversed(groups) for cp in g]
+
+    def _native_rtl(self, cps: Sequence[int], script: int, rtl: bool) -> bool:
+        """The direction HarfBuzz shapes a run in (`hb_ensure_native_direction`):
+        its script's, a right-to-left script's digits without letters
+        left-to-right, the run's own where the script has none."""
+        native = self.script_directions[script]
+        if native == NO_DIRECTION:
+            return rtl
+        if native == RTL_SCRIPT and not rtl:
+            number = regional = False
+            for cp in cps:
+                cat = unicodedata.category(chr(cp))
+                if cat == "Nd":
+                    number = True
+                elif cat[0] == "L":
+                    return True
+                elif 0x1F1E6 <= cp <= 0x1F1FF:
+                    regional = True
+            return not (number or regional)
+        return native == RTL_SCRIPT
+
+    def _checked(self, items: List[Tuple[int, Optional[int]]]) -> None:
         prev = None
         for cp, tok in items:
             if tok is None:
@@ -370,7 +466,8 @@ class ShapedFont:
                 raise self.refusal(cp, f"follows U+{prev:04X}: tone letters in sequence take the font's contextual "
                                        "(ccmp) contour forms")
             prev = cp
-        tag = self.script_tags[script]
+
+    def _default_shaper(self, items: List[Tuple[int, int]], tag: int) -> List[int]:
         if tag not in self.ligatures:
             return [t for _, t in items]
         out, i = [], 0
@@ -385,40 +482,102 @@ class ShapedFont:
                 i += lig[2]
         return out
 
-    def runs(self, line: str) -> List[Tuple[int, int, int]]:
-        """The raqm runs of a line -> (start, end, script); raises
-        `UnsupportedText` for a character the atlas refuses."""
+    def _arabic_shaper(self, items: List[Tuple[int, int]], line: Sequence[int], start: int, end: int) -> List[int]:
+        """`arabic`'s joining, forms and ligatures over one run's items (in
+        shaping order); the line around the run is its joining context. A
+        token keeps its own advance where no substitution changed its glyph
+        (the spaces the font lacks share the space glyph)."""
+        before = self.joining(line[max(0, start - arabic.CONTEXT):start][::-1])
+        after = self.joining(line[end:end + arabic.CONTEXT])
+        actions = arabic.joining_actions(self.joining([cp for cp, _ in items]), before, after)
+        cps = [cp for cp, _ in items]
+        tokens = [tok for _, tok in items]
+        glyphs = [-1 if tok == self.hidden else self.glyphs[tok] for tok in tokens]
+        for k, action in enumerate(actions):
+            g = self.forms.get(action, {}).get(glyphs[k])
+            if g is not None:
+                glyphs[k], tokens[k] = g, self._glyph_token(cps[k], g)
+        for table, blockers in zip(self.arabic_ligatures, self.arabic_blockers):
+            skippable = [tok == self.hidden and cp not in blockers for cp, tok in zip(cps, tokens)]
+            out, source = arabic.ligate(glyphs, skippable, table)
+            tokens = [tokens[k] if g == glyphs[k] else self._glyph_token(cps[k], g) for g, k in zip(out, source)]
+            cps = [cps[k] for k in source]
+            glyphs = out
+        return tokens
+
+    def _glyph_token(self, cp: int, glyph: int) -> int:
+        if glyph not in self.token_of_glyph:
+            raise self.refusal(cp, f"takes glyph {glyph}, which the atlas lacks")
+        return self.token_of_glyph[glyph]
+
+    def shape_run(self, line: Sequence[int], start: int, end: int, script: int, rtl: bool) -> List[Tuple[int, int]]:
+        """One raqm run of the line, `line[start:end]` -> (token, advance in
+        1/64 px) in visual order. The run at the line's start, when it
+        starts with a mark, gets HarfBuzz's dotted circle in front."""
+        cps = list(line[start:end])
+        if not start and cps and _is_mark(cps[0]) and DOTTED_CIRCLE in self.cmap:
+            cps = [DOTTED_CIRCLE, *cps]
+        if rtl:
+            cps = [self.mirror.get(cp, cp) for cp in cps]
+        native_rtl = self._native_rtl(cps, script, rtl)
+        if native_rtl != rtl:
+            cps = self._reverse_graphemes(cps)
+        items = self.normalize(cps, bool(self.script_composes[script]))
+        self._checked(items)
+        tag = self.script_tags[script]
+        if script == self.arabic:
+            ids = self._arabic_shaper(items, line, start, end)
+        else:
+            ids = self._default_shaper(items, tag)
+        out, nxt = [], len(ids)
+        for k in range(len(ids) - 1, -1, -1):   # kerning with the next visible token, in shaping order
+            adv = self.advances[ids[k]]
+            if ids[k] != self.hidden and nxt < len(ids):
+                adv += self.kern.get((tag, self.glyphs[ids[k]], self.glyphs[ids[nxt]]), 0)
+            out.append((ids[k], adv))
+            if ids[k] != self.hidden:
+                nxt = k
+        return out if native_rtl else out[::-1]
+
+    def runs(self, line: str) -> List[Tuple[int, int, int, bool]]:
+        """The raqm runs of a line in visual order -> (start, end, script,
+        right-to-left); raises `UnsupportedText` for what the atlas
+        refuses."""
         cps = [ord(c) for c in line]
         for cp, cls in zip(cps, self.classes(cps)):
-            if cls >= BIDI:
+            if cls >= SHAPER:
                 raise self.refusal(cp, _REFUSAL[cls])
         scripts = self.resolve_scripts(cps, self.scripts(cps))
-        out, start = [], 0
-        for i in range(1, len(cps) + 1):
-            if i == len(cps) or scripts[i] != scripts[start]:
-                out.append((start, i, scripts[start]))
-                start = i
+        types = self.bidi_types(cps)
+        if bidi.needs_bidi(types):
+            why = bidi.refusal(types)
+            if why is not None:
+                raise self.refusal(cps[why[0]], why[1])
+            levels, _ = bidi.embedding_levels(
+                types, [self.bidi_brackets.get(cp, 0) if t == bidi.ON else 0 for cp, t in zip(cps, types)])
+            level_runs = bidi.visual_runs(levels)
+        else:
+            level_runs = [(0, len(cps), 0)]
+        out = []
+        for start, end, level in level_runs:
+            pieces, s = [], start
+            for i in range(start + 1, end + 1):
+                if i == end or scripts[i] != scripts[s]:
+                    pieces.append((s, i, scripts[s], bool(level % 2)))
+                    s = i
+            out += pieces[::-1] if level % 2 else pieces
         return out
 
     def layout(self, line: str) -> Tuple[List[Tuple[int, int, np.ndarray]], int]:
         """-> ((x, y, mask) of each drawn glyph, the pen's end in 1/64 px)."""
         places, pen = [], 0
-        for start, end, script in self.runs(line):
-            ids = self.shape_run([ord(c) for c in line[start:end]], script, first=not start)
-            tag = self.script_tags[script]
-            nxt = len(ids)
-            after = [0] * len(ids)   # the next visible token in the run after each position
-            for k in range(len(ids) - 1, -1, -1):
-                after[k] = nxt
-                if ids[k] != self.hidden:
-                    nxt = k
-            for k, t in enumerate(ids):
+        cps = [ord(c) for c in line]
+        for start, end, script, rtl in self.runs(line):
+            for t, adv in self.shape_run(cps, start, end, script, rtl):
                 m = self.masks[t]
                 if m.size:
                     places.append((((pen + 32) >> 6) + self.offsets[t][0], self.offsets[t][1], m))
-                pen += self.advances[t]
-                if t != self.hidden and after[k] < len(ids):
-                    pen += self.kern.get((tag, self.glyphs[t], self.glyphs[ids[after[k]]]), 0)
+                pen += adv
         return places, pen
 
     def line_mask(self, line: str) -> Tuple[np.ndarray, int, int]:

@@ -631,12 +631,50 @@ _TEXT_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
         "pdf_payloads")
     try:
         asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
-        raise AssertionError("the Arabic page was not refused")
+        raise AssertionError("the Devanagari page was not refused")
     except UnsupportedText as e:
         assert "3b-ii" in str(e), e
     assert sys.modules["fontTools"] is None
     """
 ) + _LEAKS
+
+_RTL_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, base64, types
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.parser.office import docx_to_text
+    from morphik_core_tpu_torch.parser.raster_pool import RasterPool
+    from morphik_core_tpu_torch.services.ingestion_service import IngestionService
+    from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
+
+    z = np.load(sys.argv[1] + "/tests/fixtures/rtl_pages.npz")
+
+    def unpack(key):
+        flat, sizes = z[key].tobytes(), z[key + "_sizes"]
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        return [flat[a:b] for a, b in zip(starts, starts[1:])]
+
+    def bidi_libraries(maps):
+        return [line for line in maps.splitlines() if "fribidi" in line or "harfbuzz" in line]
+
+    settings = types.SimpleNamespace(settings=Settings())
+    for kind, ctype in (("docx", DOCX), ("pptx", PPTX)):
+        data = z[kind].tobytes()
+        chunks = IngestionService._create_chunks_multivector(settings, ctype, data,
+                                                             docx_to_text(data) if kind == "docx" else "")
+        assert [base64.b64decode(c.content.split(",", 1)[1]) for c in chunks] == unpack(kind + "_payloads"), kind
+    pool = RasterPool(2)
+    try:
+        pages = asyncio.run(pool.rasterize_pdf_jpegs(z["pdf"].tobytes(), dpi=150))
+        assert [p[1] for p in pages] == unpack("pdf_payloads")
+        child = pool._pool.submit(eval, "open('/proc/self/maps').read()").result()
+    finally:
+        pool.shutdown()
+    assert not bidi_libraries(open("/proc/self/maps").read()) and not bidi_libraries(child)
+    assert sys.modules["fontTools"] is None
+    """
+) + _LEAKS
+
 
 def test_evals_run_with_jax_pil_pydantic_httpx_blocked():
     proc = subprocess.run(
@@ -684,11 +722,23 @@ def test_image_formats_ingest_with_jax_pil_pydantic_httpx_blocked():
 def test_text_pages_render_with_jax_pil_fonttools_blocked():
     """The render path of every script (the DOCX, PPTX and PDF of
     `tests/fixtures/text_pages.npz`) stores the reference's payloads and
-    refuses the Arabic page with jax, PIL and fontTools unimportable."""
+    refuses the Devanagari page with jax, PIL and fontTools unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _TEXT_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+def test_rtl_pages_render_with_jax_pil_fonttools_blocked():
+    """The Hebrew DOCX, Arabic PPTX and mixed PDF of
+    `tests/fixtures/rtl_pages.npz` store the reference's payloads (the PDF
+    through a 2-process raster pool) with jax, PIL and fontTools
+    unimportable, and neither the serving process nor a raster child maps
+    libfribidi or libharfbuzz."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _RTL_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
 
 def test_package_data_lists_every_file_the_port_opens():
     """An installed (non-editable) port has every non-Python file of its

@@ -8,9 +8,13 @@ where stated.
   text, seeded lines over the atlas's whole repertoire, raqm's script
   runs (kerning stops at a script boundary, brackets, leading quotes),
   composed and decomposed input, CJK and Hangul `.notdef` boxes,
-  default-ignorables off the cmap and the font's emoji; what it refuses
-  raises `UnsupportedText` naming the code point, its script and ROADMAP
-  item 3b-ii; the committed glyph atlas is what the generator makes now.
+  default-ignorables off the cmap and the font's emoji; Hebrew and Arabic
+  prose, each mixed with Latin, digits and brackets, lam-alef, tatweel,
+  ZWJ and ZWNJ in words, presentation forms, every bidi control, a
+  right-to-left line wrapped at `max_chars`, paragraph separators, and
+  seeded lines over all of these; what it refuses raises `UnsupportedText`
+  naming the code point, its script and ROADMAP item 3b-ii; the committed
+  glyph atlas is what the generator makes now.
 - `rasterize_pdf` and `RasterPool.rasterize_pdf_jpegs(prep=...)` equal
   the reference's pages and tuples, inline and with a two-process pool,
   whose children never import torch.
@@ -125,6 +129,49 @@ def _repertoire_text(seed: int) -> str:
     return "\n".join(lines)
 
 
+_RTL_POOLS = (  # (characters, weight); the pools of lam-alef pairs are drawn whole
+    ("abcdefxyzAVWTo", 4),
+    ("0123456789٠١٢٣٤٥٦٧٨٩۰۱۲۳", 3),
+    (" .,:;!?-+%$#&*/=\"'()[]{}<>«»“”‘’…–—·،؛؟٪٫٬", 6),
+    ("\u200e\u200f\u061c\u202a\u202b\u202c\u202d\u202e\u2066\u2067\u2068\u2069\u200c\u200d\xad", 1),
+    ("ـ\t\r\u2029\u2003\u3000≤≥∑√∈‹›", 1),
+    ("\ufefb\ufefc\ufe91\ufe92\ufe90\ufedf\ufee0\ufe8e\ufdf2\ufef7\ufef9\ufef5\ufb56\ufb8e"
+     "\ufb2a\ufb30\ufb20\ufb4f", 1),
+    ("لا", 1), ("لأ", 1), ("لإ", 1), ("لآ", 1), ("ل\u200dا", 1), ("ل\u200cا", 1), ("ل\xadا", 1),
+)
+
+
+def _rtl_text(seed: int, drop: str) -> str:
+    """Seeded lines over what the atlas draws in Hebrew and Arabic script
+    beside Latin, both kinds of digits, punctuation and brackets (mirrored
+    in right-to-left runs), the bidi controls, joiners, tatweel, paragraph
+    separators, presentation forms and the lam-alef pairs, without the
+    characters of `drop`. (A line with an isolate still open at a paragraph
+    separator is refused, `REFUSED`'s "open_isolate": one page drops the
+    separators, the other the isolates.)"""
+    with np.load(text_render.ATLAS_PATH) as z:
+        starts, values = z["class_starts"], z["class_values"]
+        codes = [str(c) for c in z["scripts"]]
+        sstarts, svalues = z["script_starts"], z["script_values"]
+    cps = np.arange(0x110000)
+    cls = values[np.searchsorted(starts, cps, side="right") - 1]
+    script = np.array(codes)[svalues[np.searchsorted(sstarts, cps, side="right") - 1]]
+    drawn = np.isin(cls, (text_render.GLYPH, text_render.NOTDEF, text_render.COMPOSES))
+    pools = [("".join(map(chr, cps[drawn & (script == "Hebr")])), 6),
+             ("".join(map(chr, cps[drawn & (script == "Arab")])), 8), *_RTL_POOLS]
+    weights = np.array([w for _, w in pools], float)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(int(rng.integers(20, 40))):
+        parts = []
+        for _ in range(int(rng.integers(1, 60))):
+            pool = pools[int(rng.choice(len(pools), p=weights / weights.sum()))][0]
+            pool = "".join(ch for ch in pool if ch not in drop) if not pool.startswith("ل") else pool
+            parts.append(pool if pool.startswith("ل") else pool[int(rng.integers(len(pool)))])
+        lines.append("".join(parts))
+    return "\n".join(lines)
+
+
 RENDER_CASES = {
     "kerning_ligatures": "AV WAVE Tyo To LT Yo, P.O.\noffice affluent shuffle fi ffl ff fl f\xadi",
     "wrapping": "supplier invoice renewal clause " * 30,
@@ -161,6 +208,23 @@ RENDER_CASES = {
                              "±√2 ≈ ∀x ∃y ∈ A ∪ B\n"
                              "╔══╗ ║OK║ ╚══╝ ├─┤ "
                              "■ □ ▲ ● ﬁnancial ﬂow ˥ ˩ ‰ € ₴",
+    "hebrew": "דוח שנתי: ההכנסות עלו במחוז הצפון.\nשלום עולם, תודה רבה!",
+    "arabic": "التقرير السنوي: ارتفعت الإيرادات في المنطقة الشمالية.\nسلام عليكم، شكرا جزيلا!",
+    "hebrew_mixed": "הדוח (Quarterly Report 2024) מראה 12.5% צמיחה [ראו עמוד 3].\n"
+                    "Revenue grew: 1,234 ש\"ח <יותר> מ-2023; “ציטוט” «סוף».",
+    "arabic_mixed": "ارتفعت الإيرادات بنسبة ١٢٫٥٪ في عام ٢٠٢٤ (انظر الصفحة 3) [ملحق أ].\n"
+                    "The report (التقرير) says: ۱۲۳ ≤ 456 و{قوس} <زاوية>؛ هل؟",
+    "lam_alef_tatweel_joiners": "لا لأ لإ لآ سلام الإسلام قال ملأ\n"
+                                "بـــسم كـتـاب ل\u200dا ل\u200cا ب\u200dب ب\u200cب ل\xadا مـ\u200dـن\n"
+                                "\ufe91\ufe90 \ufefb \ufefc \ufdf2 \ufb56\ufb8e \ufedf\ufe8e \ufb20 \ufb4f \ufb29",
+    "bidi_controls": "a\u200eb\u200fc \u061cد abc \u202bשלום abc\u202c def \u202aשלום abc\u202c ש\n"
+                     "\u202eabc def\u202c ghi \u202dשלום עולם\u202c ש \u2067abc\u2069 ש \u2066שלום\u2069 a\n"
+                     "\u2068שלום abc\u2069 x \u2068abc שלום\u2069 x ש\u2067(1, 2)\u2069.",
+    "rtl_wrapped": ("שורה ארוכה מאוד בעברית " * 8) + "Latin words after the wrap " + ("ועוד עברית " * 6),
+    "rtl_paragraph_separators": "שלום עולם\r\nמרحبا بالعالم\r\nשלום\rabc (def)\u2029גד 12",
+    "rlm": "abc\u200f",
+    "seeded_rtl_a": _rtl_text(20, "\r\u2029"),
+    "seeded_rtl_b": _rtl_text(21, "\u2066\u2067\u2068"),
 }
 
 
@@ -174,24 +238,29 @@ def test_render_text_page_matches_reference(case, dpi):
 
 
 REFUSED = [  # (text, dpi, what the message names)
-    ("Arabic سلام", 150, r"U\+0633 ARABIC LETTER SEEN \(script Arabic\) is right-to-left"),
-    ("Hebrew שלום", 100, r"U\+05E9 HEBREW LETTER SHIN \(script Hebrew\) is right-to-left"),
+    ("Arabic سَلَّم", 150, r"U\+064E ARABIC FATHA \(script Inherited\) is a combining mark that does not compose"
+                        ".*GPOS mark anchors"),
+    ("Hebrew שָׁלוֹם", 100, r"U\+05B8 HEBREW POINT QAMATS \(script Hebrew\) is a combining mark that does not "
+                          "compose.*GPOS mark anchors"),
     ("Hindi नमस्ते", 150,
      r"U\+0928 DEVANAGARI LETTER NA \(script Devanagari\) needs a HarfBuzz shaper of its own"),
     ("q́ mark", 150, r"U\+0301 COMBINING ACUTE ACCENT \(script Inherited\) is a combining mark that does not "
                           "compose"),
-    ("abc‏", 100, r"U\+200F RIGHT-TO-LEFT MARK \(script Common\) is right-to-left or a bidi control"),
+    ("Syriac ܫܠܡܐ", 100, r"U\+072B SYRIAC LETTER SHIN \(script Syriac\) needs a HarfBuzz shaper of its own"),
     ("Thai ก", 150, r"U\+0E01 THAI CHARACTER KO KAI \(script Thai\) needs a HarfBuzz shaper"),
     ("jamo 가", 150, r"U\+1100 HANGUL CHOSEONG KIYEOK \(script Hangul\) needs a HarfBuzz shaper"),
     ("tones ˥˩", 150, r"U\+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR \(script Common\) follows U\+02E5"),
     ("한 ≠", 150, r"U\+0338 COMBINING LONG SOLIDUS OVERLAY \(script Inherited\) is a combining mark"),
+    ("שלום \u2067abc\rdef", 150, r"U\+0064 LATIN SMALL LETTER D \(script Latin\) follows a paragraph separator that "
+                                  "an isolate was left open at"),
     ("x", 300, r"dpi 300 draws DejaVuSans at 37 px; the glyph atlas glyphs_dejavu_sans.npz holds dpi \(150, 100\) "
                r"\(sizes \(18, 12\) px\)"),
 ]
 
 
-@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["arabic", "hebrew", "devanagari", "mark", "rlm", "thai",
-                                                            "jamo", "tone_letters", "hangul_run_mark", "dpi_300"])
+@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["arabic_harakat", "hebrew_niqqud", "devanagari", "mark",
+                                                            "syriac", "thai", "jamo", "tone_letters", "hangul_run_mark",
+                                                            "open_isolate", "dpi_300"])
 def test_render_text_page_refuses_what_the_atlas_lacks(text, dpi, message):
     """Each refusal is an `UnsupportedText` (a ValueError) that names the
     code point, its script and ROADMAP item 3b-ii; the reference draws

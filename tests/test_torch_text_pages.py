@@ -4,15 +4,15 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
 - The committed fixture `tests/fixtures/text_pages.npz` (a DOCX, a PPTX
   and a 6-page PDF whose text mixes Greek, Cyrillic, Vietnamese,
   Romanian, symbols, box drawing, the font's emoji and CJK, one page with
-  the `Г“A` script-boundary kerning case; a 5-page PDF with Arabic on
-  page 3; four timing pages of one length) is what
+  the `Г“A` script-boundary kerning case; a 5-page PDF with Devanagari
+  on page 3; four timing pages of one length) is what
   `write_text_pages_fixture` makes now with the JAX package's
   `_render_text_page` and `_finish_page` under PIL.
 - The port's `_create_chunks_multivector` (DOCX, PPTX) and its pooled
   `PageStream` (PDF, 1 and 2 processes) store the fixture's reference
   payloads byte for byte; the inline PDF rung equals the reference's.
-- What the renderer refuses fails the job: the pooled PDF with an Arabic
-  page ends `failed`, naming ROADMAP item 3b-ii, with no page stored
+- What the renderer refuses fails the job: the pooled PDF with a
+  Devanagari page ends `failed`, naming ROADMAP item 3b-ii, with no page stored
   (the reference draws all five pages); `rasterize_pdf_jpegs`, DOCX and
   PPTX raise `UnsupportedText`; a `pdf.colpali_pdf_dpi` the atlas lacks
   is refused by `build_services`.
@@ -53,7 +53,7 @@ MODEL_FIXTURE = ROOT / "tests" / "fixtures" / "tiny_colqwen.npz"
 PREP = (3136, 602112)
 SEED = 19
 PDF_DPI = 150  # morphik_tpu.toml's pdf.colpali_pdf_dpi; DOCX and PPTX pages are drawn at 100
-REFUSED_PAGE = 2  # the Arabic page of the refused PDF
+REFUSED_PAGE = 2  # the Devanagari page of the refused PDF
 
 SENTENCES = {
     "greek": ["Η ετήσια έκθεση δείχνει αύξηση των εσόδων κατά 12% στην Αττική.",
@@ -73,7 +73,7 @@ SENTENCES = {
             "한국어 텍스트 (인용) “中”「引用」　全角スペース。"],
 }
 BOUNDARY = "Kerning stops at a script boundary: x“A” against Г“A”, α (“A) and “Привет”."
-ARABIC = "Arabic: سلام عليكم"
+DEVANAGARI = "Hindi: नमस्ते दुनिया"
 
 
 def _prose(rng, langs, n_chars: int) -> list:
@@ -146,8 +146,8 @@ def fixture_texts():
         _prose(rng, ["symbols"], 700),
         _prose(rng, every, 1200),
     ])]
-    refused = [[f"p{i + 1:02d} quarterly revenue, page {i + 1}"] + ([f"p{i + 1:02d} {ARABIC}"] if i == REFUSED_PAGE
-                                                                   else []) for i in range(5)]
+    refused = [[f"p{i + 1:02d} quarterly revenue, page {i + 1}"] + (
+        [f"p{i + 1:02d} {DEVANAGARI}"] if i == REFUSED_PAGE else []) for i in range(5)]
     n = 2400
     timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n],
               "latin": " ".join(_prose(rng, ["latin"], n))[:n],
@@ -171,15 +171,15 @@ def unpack(z, key) -> list:
     return [flat[a:b] for a, b in zip(starts, starts[1:])]
 
 
-def write_text_pages_fixture(path: Path = FIXTURE) -> Path:
+def _write_fixture(path: Path, paras, slides, pdf_pages, timing, refused=None) -> Path:
     """The files and the reference's payloads (needs PIL and the JAX
     package): DOCX pages and PPTX slides as the reference's
     `_create_chunks_multivector` stores them (q80, drawn at 100 dpi), PDF
     pages as its raster pool's `_finish_page` makes them (q70, drawn at
     150 dpi)."""
-    paras, slides, pdf_pages, refused, timing = fixture_texts()
-    files = {"docx": docx_bytes(paras), "pptx": pptx_bytes(slides), "pdf": utf16_pdf(pdf_pages),
-             "refused_pdf": utf16_pdf(refused)}
+    files = {"docx": docx_bytes(paras), "pptx": pptx_bytes(slides), "pdf": utf16_pdf(pdf_pages)}
+    if refused is not None:
+        files["refused_pdf"] = utf16_pdf(refused)
     settings = types.SimpleNamespace(settings=Settings())
     out = {k: np.frombuffer(v, np.uint8) for k, v in files.items()}
     docx = JIngestionService._create_chunks_multivector(settings, DOCX, files["docx"], j_docx_to_text(files["docx"]))
@@ -194,6 +194,12 @@ def write_text_pages_fixture(path: Path = FIXTURE) -> Path:
     out["timing_texts"] = np.array(list(timing.values()))
     np.savez_compressed(path, **out)
     return Path(path)
+
+
+def write_text_pages_fixture(path: Path = FIXTURE) -> Path:
+    """`text_pages.npz` (see `_write_fixture`)."""
+    paras, slides, pdf_pages, refused, timing = fixture_texts()
+    return _write_fixture(path, paras, slides, pdf_pages, timing, refused)
 
 
 def _run(coro):
@@ -223,10 +229,7 @@ def test_text_pages_fixture_is_current(tmp_path):
     assert len(unpack(committed, "docx_payloads")) == 2 and len(unpack(committed, "pptx_payloads")) == len(slides)
 
 
-@pytest.mark.parametrize("kind", ["docx", "pptx"])
-def test_office_pages_store_the_reference_payloads(z, kind):
-    """DOCX pages and PPTX slides in every script: the port's
-    `_create_chunks_multivector` stores the reference's q80 payloads."""
+def _office_payloads_equal(z, kind) -> None:
     data = z[kind].tobytes()
     ctype, text = (DOCX, docx_to_text(data)) if kind == "docx" else (PPTX, "")
     settings = types.SimpleNamespace(settings=Settings())
@@ -235,27 +238,141 @@ def test_office_pages_store_the_reference_payloads(z, kind):
     assert [c.metadata["page"] for c in chunks] == list(range(len(chunks)))
 
 
-@pytest.mark.parametrize("processes", [1, 2])
-def test_pooled_pdf_pages_store_the_reference_payloads(z, processes):
-    """The PDF through the raster pool's `PageStream` (prep mode, as the
-    ingest path takes it): the reference's q70 payloads, page for page."""
+def _pooled_payloads_equal(z, processes: int) -> None:
     pool = RasterPool(processes)
     try:
         pages = _run(pool.rasterize_pdf_jpegs(z["pdf"].tobytes(), dpi=PDF_DPI, prep=PREP))
     finally:
         pool.shutdown()
-    assert [p[0] for p in pages] == list(range(6)) and not any(p[4] for p in pages)
-    assert [p[1] for p in pages] == unpack(z, "pdf_payloads")
+    want = unpack(z, "pdf_payloads")
+    assert [p[0] for p in pages] == list(range(len(want))) and not any(p[4] for p in pages)
+    assert [p[1] for p in pages] == want
+
+
+def _inline_pages_equal(z) -> None:
+    settings = types.SimpleNamespace(settings=Settings())
+    data = z["pdf"].tobytes()
+    got = IngestionService._create_chunks_multivector(settings, "application/pdf", data, "")
+    want = JIngestionService._create_chunks_multivector(settings, "application/pdf", data, "")
+    assert len(got) == len(want) == len(unpack(z, "pdf_payloads"))
+    assert [g.content for g in got] == [w.content for w in want]
+
+
+@pytest.mark.parametrize("kind", ["docx", "pptx"])
+def test_office_pages_store_the_reference_payloads(z, kind):
+    """DOCX pages and PPTX slides in every script: the port's
+    `_create_chunks_multivector` stores the reference's q80 payloads."""
+    _office_payloads_equal(z, kind)
+
+
+@pytest.mark.parametrize("processes", [1, 2])
+def test_pooled_pdf_pages_store_the_reference_payloads(z, processes):
+    """The PDF through the raster pool's `PageStream` (prep mode, as the
+    ingest path takes it): the reference's q70 payloads, page for page."""
+    _pooled_payloads_equal(z, processes)
 
 
 def test_inline_pdf_pages_equal_the_reference(z):
     """The inline PDF rung (`_create_chunks_multivector`: q80 of each
     page) equals the reference's."""
-    settings = types.SimpleNamespace(settings=Settings())
-    data = z["pdf"].tobytes()
-    got = IngestionService._create_chunks_multivector(settings, "application/pdf", data, "")
-    want = JIngestionService._create_chunks_multivector(settings, "application/pdf", data, "")
-    assert len(got) == len(want) == 6 and [g.content for g in got] == [w.content for w in want]
+    _inline_pages_equal(z)
+
+
+# ------------------------------------------------------ right-to-left pages
+
+RTL_FIXTURE = ROOT / "tests" / "fixtures" / "rtl_pages.npz"
+RTL_SEED = 20
+RTL_SENTENCES = {
+    "hebrew": ["הדוח השנתי מראה עלייה של 12% בהכנסות במחוז הצפון.",
+               "תוכן העניינים נמצא בעמוד 3; החתימה בעמוד 9 (נספח א).",
+               "החוזה נחתם ב-15/03/2024 בין הצדדים “הספק” ו“הלקוח”.",
+               "סכום החשבונית: 1,234.50 ש״ח [כולל מע״מ] – לתשלום עד סוף החודש.",
+               "פרויקט Morphik (גרסה 2.1) עבר את כל הבדיקות <בהצלחה>!"],
+    "arabic": ["يظهر التقرير السنوي ارتفاع الإيرادات بنسبة ١٢٪ في المنطقة الشمالية.",
+               "جدول المحتويات في الصفحة ٣؛ والتوقيع في الصفحة ٩ (الملحق أ).",
+               "تم توقيع العقد في ١٥/٠٣/٢٠٢٤ بين الطرفين «المورد» و«العميل».",
+               "مبلغ الفاتورة: ١٬٢٣٤٫٥٠ ريال [شامل الضريبة] — يستحق الدفع قبل نهاية الشهر.",
+               "لا يوجد تأخير في التسليم، والأسعار ثابتة للعام القادم؟ نعم، بلا شك.",
+               "اجتاز مشروع Morphik (الإصدار 2.1) جميع الاختبارات بنجاح!"],
+    "mixed": ["Quarterly report: הכנסות 12% / الإيرادات ١٢٪ (Q3 2024).",
+              "Contract no. 4521 — חוזה מס׳ 4521 — عقد رقم ٤٥٢١.",
+              "See \u200fנספח ב\u200f and \u200fالملحق ب\u200f for the details.",
+              "\u202bשלום, this is an embedded paragraph\u202c and back to Latin.",
+              "מילה \u2066(isolated, Latin)\u2069 ثم \u2067كلمة معزولة\u2069 end.",
+              "كـتـاب مـــمـــتـــد، لا لأ لإ لآ، و\ufefb \ufdf2 \ufe91\ufe90."],
+}
+
+
+def rtl_fixture_texts():
+    """The right-to-left fixture's documents as text: Hebrew DOCX
+    paragraphs, Arabic PPTX slides, PDF pages of Hebrew, Arabic and mixed
+    lines (each line's prefix "NN. " holds no strong character, so a line
+    takes the direction of its first letter after it), and the timing
+    pages (Latin-1, Hebrew, Arabic)."""
+    rng = np.random.default_rng(RTL_SEED)
+
+    def prose(langs, n_chars):
+        lines, size = [], 0
+        while size < n_chars:
+            lang = langs[int(rng.integers(len(langs)))]
+            lines.append(RTL_SENTENCES[lang][int(rng.integers(len(RTL_SENTENCES[lang])))])
+            size += len(lines[-1]) + 1
+        return lines
+
+    paras = [" ".join(prose(["hebrew"], 400)) for _ in range(12)]
+    slides = [[f"שקף {i + 1}: {title}"] + prose(["arabic"], 300)
+              for i, title in enumerate(("النتائج", "ملخص العام", "الخطة القادمة"))]
+    pdf = [[f"{i + 1:02d}. {line}" for line in lines] for i, lines in enumerate([
+        prose(["hebrew"], 900), prose(["arabic"], 900), prose(["mixed"], 900),
+        prose(["hebrew", "arabic", "mixed"], 1400)])]
+    n = 2400
+    timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n],
+              "hebrew": " ".join(prose(["hebrew"], n))[:n],
+              "arabic": " ".join(prose(["arabic"], n))[:n]}
+    timing = {k: "\n".join(v[j:j + 90] for j in range(0, n, 90)) for k, v in timing.items()}
+    return paras, slides, pdf, timing
+
+
+def write_rtl_pages_fixture(path: Path = RTL_FIXTURE) -> Path:
+    """`rtl_pages.npz` (see `_write_fixture`)."""
+    paras, slides, pdf_pages, timing = rtl_fixture_texts()
+    return _write_fixture(path, paras, slides, pdf_pages, timing)
+
+
+@pytest.fixture(scope="module")
+def rtl():
+    with np.load(RTL_FIXTURE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_rtl_pages_fixture_is_current(tmp_path):
+    """Regenerated now (PIL and the JAX package), the committed
+    right-to-left fixture is equal, and its PDF extracts to its texts."""
+    fresh = np.load(write_rtl_pages_fixture(tmp_path / "rtl_pages.npz"))
+    committed = np.load(RTL_FIXTURE)
+    assert sorted(fresh.files) == sorted(committed.files)
+    for k in committed.files:
+        assert np.array_equal(fresh[k], committed[k]), k
+    paras, slides, pdf_pages, _ = rtl_fixture_texts()
+    assert [t for t in committed["pdf_texts"]] == ["\n".join(p) for p in pdf_pages]
+    assert len(unpack(committed, "pptx_payloads")) == len(slides) and len(unpack(committed, "docx_payloads")) >= 2
+
+
+@pytest.mark.parametrize("kind", ["docx", "pptx"])
+def test_rtl_office_pages_store_the_reference_payloads(rtl, kind):
+    """A Hebrew DOCX and an Arabic PPTX: the reference's q80 payloads."""
+    _office_payloads_equal(rtl, kind)
+
+
+@pytest.mark.parametrize("processes", [1, 2])
+def test_rtl_pooled_pdf_pages_store_the_reference_payloads(rtl, processes):
+    """The Hebrew, Arabic and mixed PDF through the pooled `PageStream`:
+    the reference's q70 payloads, page for page."""
+    _pooled_payloads_equal(rtl, processes)
+
+
+def test_rtl_inline_pdf_pages_equal_the_reference(rtl):
+    _inline_pages_equal(rtl)
 
 
 # ----------------------------------------------------- refusals fail the job
@@ -264,11 +381,11 @@ def test_inline_pdf_pages_equal_the_reference(z):
 @pytest.mark.parametrize("processes", [1, 2])
 def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
     """The reference draws all five pages; the port raises for the
-    Arabic one instead of skipping it."""
+    Devanagari one instead of skipping it."""
     data = z["refused_pdf"].tobytes()
     pool, jpool = RasterPool(processes), JRasterPool(processes)
     try:
-        with pytest.raises(UnsupportedText, match=r"U\+0633 ARABIC LETTER SEEN \(script Arabic\).*item 3b-ii"):
+        with pytest.raises(UnsupportedText, match=r"U\+0928 DEVANAGARI LETTER NA \(script Devanagari\).*item 3b-ii"):
             _run(pool.rasterize_pdf_jpegs(data, dpi=PDF_DPI, prep=PREP))
         assert [p[0] for p in _run(jpool.rasterize_pdf_jpegs(data, dpi=PDF_DPI))] == list(range(5))
     finally:
@@ -279,10 +396,10 @@ def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
 @pytest.mark.parametrize("kind", ["docx", "pptx"])
 def test_office_pages_with_refused_text_raise(kind):
     settings = types.SimpleNamespace(settings=Settings())
-    lines = ["Quarterly revenue", ARABIC]
+    lines = ["Quarterly revenue", DEVANAGARI]
     data = docx_bytes(lines) if kind == "docx" else pptx_bytes([lines])
     ctype, text = (DOCX, docx_to_text(data)) if kind == "docx" else (PPTX, "")
-    with pytest.raises(UnsupportedText, match=r"U\+0633 .*item 3b-ii"):
+    with pytest.raises(UnsupportedText, match=r"U\+0928 .*item 3b-ii"):
         IngestionService._create_chunks_multivector(settings, ctype, data, text)
     assert len(JIngestionService._create_chunks_multivector(settings, ctype, data, text)) == 1
 
@@ -303,7 +420,7 @@ def _services(tmp_path: Path, **over):
 
 
 def test_pooled_pdf_job_with_a_refused_page_fails(z, tmp_path, monkeypatch):
-    """A 5-page PDF with Arabic on page 3 through the pooled PageStream:
+    """A 5-page PDF with Devanagari on page 3 through the pooled PageStream:
     the job ends `failed`, its error naming the character and item
     3b-ii, and no page is in the ColPali store (before, page 3 was
     dropped and the job completed with 4 pages)."""
@@ -328,7 +445,7 @@ def test_pooled_pdf_job_with_a_refused_page_fails(z, tmp_path, monkeypatch):
 
     stored, chunks = _run(go())
     assert stored.system_metadata["status"] == "failed"
-    assert "U+0633 ARABIC LETTER SEEN" in stored.system_metadata["error"]
+    assert "U+0928 DEVANAGARI LETTER NA" in stored.system_metadata["error"]
     assert "ROADMAP Queue 1 item 3b-ii" in stored.system_metadata["error"]
     assert chunks == []
 
