@@ -353,8 +353,8 @@ Phases (each raises on failure; none is caught):
  23. text pages in every left-to-right script (after phase 22, before
      phase 21), on a server from the toml serving phase 3b's model: the
      host render ms of a page (`render_text_page` at 150 dpi, median of 3)
-     in Latin, Cyrillic, CJK, Hebrew and Arabic beside a Latin-1 page of
-     the same length; the DOCX, PPTX and 6-page PDF of
+     in Latin, Cyrillic, CJK, Hebrew, Arabic, vocalized Arabic and pointed
+     Hebrew beside a Latin-1 page of the same length; the DOCX, PPTX and 6-page PDF of
      tests/fixtures/text_pages.npz (Greek, Cyrillic, Vietnamese, Romanian,
      symbols, box drawing, the font's emoji, CJK boxes; a `Г“A`
      script-boundary kerning case) and the Hebrew DOCX,
@@ -365,8 +365,15 @@ Phases (each raises on failure; none is caught):
      / PPTX, q70 from the raster pool for the PDF; made by the JAX package
      under PIL); K3 = 28 a tower forward; an image query of the boundary
      page's payload and one of the mixed right-to-left page's find their
-     pages first, through K1; a 5-page PDF with Devanagari on page 3 ends
-     `failed`, its error naming ROADMAP item 3b-ii, with no page stored.
+     pages first, through K1. Since PR 21, combining marks placed by the
+     font's GPOS anchors: the DOCX (Russian stress marks, IPA, Vietnamese
+     stacks), PPTX (vocalized Arabic) and 3-page PDF (pointed Hebrew,
+     polytonic Greek, mixed right-to-left) of tests/fixtures/mark_pages.npz
+     the same way, the render ms of vocalized Arabic and pointed Hebrew
+     pages, an image query of a vocalized Arabic slide. A 5-page PDF with
+     Devanagari on page 3 and a 4-page one with Syriac on page 4 end
+     `failed`, their errors naming ROADMAP item 3b-ii, with no row of them
+     in the ColPali or the text store and /health's row counts unchanged.
      Prints a {"text_pages": ...} line; the kernels line gains
      `text_pages_launches`.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
@@ -3824,14 +3831,21 @@ def formats_phase(torch, model, _kernels, smi):
 # phase 23: text pages in every script the reference draws, right-to-left included
 TEXT_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "text_pages.npz"
 RTL_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "rtl_pages.npz"
+MARK_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "mark_pages.npz"
 DOCX_TYPE = "application/vnd.openxmlformats-officedocument.wordprocessingml.document"
 PPTX_TYPE = "application/vnd.openxmlformats-officedocument.presentationml.presentation"
 TEXT_PAGE_FILES = (  # (fixture, upload name, key, content type)
     ("ltr", "mixed.docx", "docx", DOCX_TYPE), ("ltr", "mixed.pptx", "pptx", PPTX_TYPE),
     ("ltr", "mixed.pdf", "pdf", "application/pdf"),
     ("rtl", "hebrew.docx", "docx", DOCX_TYPE), ("rtl", "arabic.pptx", "pptx", PPTX_TYPE),
-    ("rtl", "rtl.pdf", "pdf", "application/pdf"))
-TEXT_PAGE_QUERIES = (("ltr", "mixed.pdf", 2), ("rtl", "rtl.pdf", 2))  # the boundary page, the mixed RTL page
+    ("rtl", "rtl.pdf", "pdf", "application/pdf"),
+    ("marks", "marks.docx", "docx", DOCX_TYPE), ("marks", "vocalized.pptx", "pptx", PPTX_TYPE),
+    ("marks", "marks.pdf", "pdf", "application/pdf"))
+# (fixture, document, payloads, page): the boundary page, the mixed RTL page, a vocalized Arabic slide
+TEXT_PAGE_QUERIES = (("ltr", "mixed.pdf", "pdf", 2), ("rtl", "rtl.pdf", "pdf", 2),
+                     ("marks", "vocalized.pptx", "pptx", 0))
+# (fixture, upload name, the character its error names): a Devanagari page 3 of 5, a Syriac page 4 of 4
+TEXT_PAGE_REFUSED = (("ltr", "devanagari.pdf", "U+0928"), ("marks", "syriac.pdf", "U+072B"))
 TEXT_RENDER_REPEATS = 3
 
 
@@ -3847,8 +3861,8 @@ def _fixture_blobs(z, key) -> list:
 def text_render_ms(z) -> dict:
     """Phase 23, on the host: `render_text_page` ms of a fixture's timing
     pages (one length; Latin-1, Latin, Cyrillic, CJK; Latin-1, Hebrew,
-    Arabic) at 150 dpi, the median of TEXT_RENDER_REPEATS after one
-    untimed render."""
+    Arabic; Latin-1, vocalized Arabic, pointed Hebrew) at 150 dpi, the
+    median of TEXT_RENDER_REPEATS after one untimed render."""
     import numpy as np
 
     from morphik_core_tpu_torch.parser.text_render import render_text_page
@@ -3876,12 +3890,19 @@ def _wait_failed(client, doc_id) -> dict:
         time.sleep(0.02)
 
 
+def _row_counts(client) -> tuple:
+    """`/health`'s ColPali and text store rows per namespace."""
+    components = client.call("GET", "/health")["components"]
+    return components["colpali"]["index_rows"], components["text_index_rows"]
+
+
 def text_pages_phase(torch, model, _kernels, smi):
     """Phase 23: text pages in every script the reference draws, Hebrew
-    and Arabic included, on a server from the toml serving phase 3b's
-    model. Every stored page is the reference's payload byte for byte; an
-    image query of a page finds it first (K1); a PDF with a Devanagari
-    page fails naming item 3b-ii."""
+    and Arabic included, with combining marks placed by the font's GPOS
+    anchors, on a server from the toml serving phase 3b's model. Every
+    stored page is the reference's payload byte for byte; an image query
+    of a page finds it first (K1); a PDF with a Devanagari page and one
+    with a Syriac page fail naming item 3b-ii and leave no row behind."""
     import base64
 
     import numpy as np
@@ -3890,9 +3911,11 @@ def text_pages_phase(torch, model, _kernels, smi):
     from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
 
     t_phase = time.perf_counter()
-    fixtures = {"ltr": np.load(TEXT_PAGES_FIXTURE), "rtl": np.load(RTL_PAGES_FIXTURE)}
+    fixtures = {"ltr": np.load(TEXT_PAGES_FIXTURE), "rtl": np.load(RTL_PAGES_FIXTURE),
+                "marks": np.load(MARK_PAGES_FIXTURE)}
     render_ms = text_render_ms(fixtures["ltr"])
-    render_ms.update({k: v for k, v in text_render_ms(fixtures["rtl"]).items() if k != "latin1"})
+    for key in ("rtl", "marks"):
+        render_ms.update({k: v for k, v in text_render_ms(fixtures[key]).items() if k != "latin1"})
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_pages_"))
     settings = service_settings(tmp)
     forward_batches = []
@@ -3934,8 +3957,8 @@ def text_pages_phase(torch, model, _kernels, smi):
             raise AssertionError(f"{ingest_forwards} tower forwards, K3 launched "
                                  f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
         query_ms = {}
-        for fixture, name, page in TEXT_PAGE_QUERIES:
-            uri = bytes_to_data_uri(_fixture_blobs(fixtures[fixture], "pdf_payloads")[page], "image/jpeg")
+        for fixture, name, key, page in TEXT_PAGE_QUERIES:
+            uri = bytes_to_data_uri(_fixture_blobs(fixtures[fixture], f"{key}_payloads")[page], "image/jpeg")
             before = _kernels.launch_counts["maxsim_q8"]
             t = time.perf_counter()
             hits = client.call("POST", "/retrieve/chunks", {"query_image": uri, "k": 4})
@@ -3948,17 +3971,24 @@ def text_pages_phase(torch, model, _kernels, smi):
         if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the queries' forwards too
             raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
                                  "tower forwards")
-        # still refused: a PDF with a Devanagari page fails the job, no page stored
-        t = time.perf_counter()
-        refused = client.upload("refused.pdf", fixtures["ltr"]["refused_pdf"].tobytes(),
-                                "application/pdf")["external_id"]
-        status = _wait_failed(client, refused)
-        refused_s = time.perf_counter() - t
-        if "3b-ii" not in status["error"] or "U+0928" not in status["error"]:
-            raise AssertionError(f"the refused PDF failed with {status['error']!r}")
-        if client.call("POST", "/batch/chunks", {"sources": [
-                {"document_id": refused, "chunk_number": k} for k in range(5)], "use_colpali": True}):
-            raise AssertionError("the refused PDF left pages in the store")
+        # still refused: a PDF with a Devanagari page, one with a Syriac page after three drawn ones; each
+        # fails the job and leaves no row in either store, /health's counts as before it
+        refused_s, refused_errors = {}, {}
+        for fixture, name, letter in TEXT_PAGE_REFUSED:
+            before = _row_counts(client)
+            t = time.perf_counter()
+            refused = client.upload(name, fixtures[fixture]["refused_pdf"].tobytes(), "application/pdf")["external_id"]
+            status = _wait_failed(client, refused)
+            refused_s[name] = time.perf_counter() - t
+            refused_errors[name] = status["error"]
+            if "3b-ii" not in status["error"] or letter not in status["error"]:
+                raise AssertionError(f"{name} failed with {status['error']!r}")
+            for colpali in (True, False):
+                if client.call("POST", "/batch/chunks", {"sources": [
+                        {"document_id": refused, "chunk_number": k} for k in range(40)], "use_colpali": colpali}):
+                    raise AssertionError(f"{name} left rows in the {'ColPali' if colpali else 'text'} store")
+            if _row_counts(client) != before:
+                raise AssertionError(f"{name}: /health's row counts {_row_counts(client)}, before it {before}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         model.embed_image_batch = tower
@@ -3969,12 +3999,13 @@ def text_pages_phase(torch, model, _kernels, smi):
            "render_over_latin1": {k: v / render_ms["latin1"] for k, v in render_ms.items()},
            "ingest_s": ingest_s, "pages": pages, "ingest_forwards": ingest_forwards,
            "tower_forwards": len(forward_batches), "image_query_ms": query_ms, "refused_s": refused_s,
-           "refused_error": status["error"], "launches": launches, "ingest_launches": ingest_launches,
+           "refused_errors": refused_errors, "launches": launches, "ingest_launches": ingest_launches,
            "k3_per_forward": k3_per_forward, "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase}
     log(f"  ingests to completed (s) {json.dumps({k: round(v, 3) for k, v in ingest_s.items()})}, pages {pages}, "
         f"each the reference's payload; tower forwards {ingest_forwards} (K3 {ingest_launches['window_attention']}); "
         f"page image queries (ms) {json.dumps({k: round(v, 3) for k, v in query_ms.items()})} (top-1 their pages); "
-        f"the Devanagari PDF failed in {refused_s:.3f} s naming 3b-ii; launches {launches}; peak {peak_gb:.2f} GB; "
+        f"the refused PDFs failed (s) {json.dumps({k: round(v, 3) for k, v in refused_s.items()})} naming 3b-ii, "
+        f"no row left in either store; launches {launches}; peak {peak_gb:.2f} GB; "
         f"phase {out['phase_s']:.3f} s ({smi})")
     return out
 

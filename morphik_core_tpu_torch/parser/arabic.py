@@ -13,20 +13,25 @@ its Arabic ligatures, on glyph ids.
   `isol`) substitutes the glyph where the font's single substitution
   covers it. HarfBuzz applies them as separate stages, one per feature;
   as each glyph takes at most one, their order does not matter.
-- Ligatures: then the `rlig` stage (lam-alef), then the default `liga`
-  (lam with the hamza and madda alefs), each a lookup over the whole run,
-  matched on glyph ids, so presentation forms typed as such ligate too. A
-  ligature matches across the default-ignorables that do not block it
-  (the atlas's `lig_blockers`, and ZWJ for `rlig`, which HarfBuzz's
-  Arabic shaper enables with F_MANUAL_ZWJ); the skipped ones follow it.
-
-The font's other Arabic lookups (`ccmp`, the mark ligatures of `rlig` and
-`liga`) take marks, which the atlas refuses before shaping.
+- Ligatures: then the `rlig` stage (the font's mark-pair ligatures, shadda
+  with a haraka, then lam-alef), then the default `liga` (lam with the
+  hamza and madda alefs, then a space, tatweel or letter with a haraka),
+  each lookup over the whole run, matched on glyph ids, so presentation
+  forms typed as such ligate too. A ligature matches across the
+  default-ignorables that do not block it (the atlas's `lig_blockers`, and
+  ZWJ for `rlig`, which HarfBuzz's Arabic shaper enables with
+  F_MANUAL_ZWJ), and across marks where its lookup ignores them; the
+  skipped glyphs follow it, a skipped mark carrying the ligature's id and
+  the component it sat on (`ligate_input`), so that the mark lookups put a
+  fatha inside "لَا" on the lam. `ligate` serves the other shapers' ligature
+  lookups too.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
+
+from morphik_core_tpu_torch.parser.marks import BASE, MARK, Item
 
 U, L, R, D, T = range(5)   # joining types, in the atlas's numbering (C is D)
 NONE, ISOL, FINA, MEDI, INIT = range(5)   # actions
@@ -69,33 +74,61 @@ def joining_actions(types: Sequence[int], before: Sequence[int], after: Sequence
     return actions
 
 
-def ligate(glyphs: List[int], skippable: Sequence[bool], table: Dict[int, List[Tuple[Tuple[int, ...], int]]]
-           ) -> Tuple[List[int], List[int]]:
-    """One ligature lookup over a run: at each glyph, the first ligature
-    (font order) whose components follow, across the `skippable` items
-    -> (glyphs, each output's index in the input: the ligature's first
-    component, or the item itself; skipped items follow their ligature)."""
-    out, source = [], []
+def ligate(run: List[Item], table: Dict[int, List[Tuple[Tuple[int, ...], int]]], classes: Sequence[int],
+           ignore_marks: bool, blockers, lig_ids: Iterator[int]) -> List[Item]:
+    """One ligature lookup over a run as HarfBuzz's `ligate_input` applies
+    it: at each glyph the lookup does not skip, the first ligature (font
+    order) whose components follow, across the default-ignorables not in
+    `blockers` (and the marks, with `ignore_marks`) -> the new run; the
+    skipped glyphs follow their ligature. A base with marks only, or marks
+    only, ligate without a ligature id (`is_base_ligature`,
+    `is_mark_ligature`); any other ligature takes a new id from `lig_ids`,
+    and the marks it skipped take that id and their component. `classes`:
+    each glyph's GDEF class."""
+
+    def is_mark(glyph: int) -> bool:
+        return classes[glyph] == MARK
+
+    def skip(item: Item) -> bool:
+        return (item.ignorable and not item.held and item.cp not in blockers) or (ignore_marks and is_mark(item.glyph))
+
+    out: List[Item] = []
     i = 0
-    while i < len(glyphs):
-        for rest, lig in table.get(glyphs[i], ()):
-            j, skipped = i + 1, []
+    while i < len(run):
+        first = run[i]
+        rules = () if first.ignorable or (ignore_marks and is_mark(first.glyph)) else table.get(first.glyph, ())
+        for rest, lig in rules:
+            pos, j = [i], i + 1
             for g in rest:
-                while j < len(glyphs) and glyphs[j] != g and skippable[j]:
-                    skipped.append(j)
+                while j < len(run) and skip(run[j]) and not (run[j].glyph == g and not run[j].ignorable):
                     j += 1
-                if j >= len(glyphs) or glyphs[j] != g:
+                if j >= len(run) or run[j].ignorable or run[j].glyph != g:
                     break
+                pos.append(j)
                 j += 1
             else:
-                out.append(lig)
-                source.append(i)
-                out += [glyphs[k] for k in skipped]
-                source += skipped
+                comps = [run[k] for k in pos]
+                base = classes[first.glyph] in (0, BASE) and all(is_mark(c.glyph) for c in comps[1:])
+                mark = all(is_mark(c.glyph) for c in comps)
+                lig_id = 0 if base or mark else next(lig_ids)
+                skipped = []
+                so_far = last = first.comps
+                for k in range(1, len(pos)):
+                    for m in range(pos[k - 1] + 1, pos[k]):
+                        if lig_id:
+                            run[m].lig_id = lig_id
+                            run[m].lig_comp = so_far - last + min(run[m].lig_comp or last, last)
+                        skipped.append(run[m])
+                    last = comps[k].comps
+                    so_far += last
+                first.glyph = lig
+                if lig_id:
+                    first.lig_id, first.lig_comp, first.comps = lig_id, 0, so_far
+                out.append(first)
+                out += skipped
                 i = j
                 break
         else:
-            out.append(glyphs[i])
-            source.append(i)
+            out.append(first)
             i += 1
-    return out, source
+    return out

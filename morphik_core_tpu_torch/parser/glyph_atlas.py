@@ -1,32 +1,39 @@
 """Makes `text_render`'s glyph atlas, `glyphs_dejavu_sans.npz`, with PIL
 (raqm, FreeType) and fontTools from the DejaVuSans.ttf that
 `ImageFont.truetype("DejaVuSans.ttf")` finds: the reference's font, and
-with the FriBiDi and HarfBuzz that Pillow's raqm draws with (through
-ctypes: `libfribidi.so.0` and Pillow's own `pillow.libs/libharfbuzz*`).
-It runs where PIL is installed; nothing on the serving path imports it.
+with the FriBiDi, HarfBuzz and FreeType that Pillow's raqm draws with
+(through ctypes: `libfribidi.so.0` and Pillow's own
+`pillow.libs/libharfbuzz*` and `libfreetype*`). It runs where PIL is
+installed; nothing on the serving path imports it.
 
     python -c "from morphik_core_tpu_torch.parser.glyph_atlas import write_glyph_atlas; write_glyph_atlas()"
 
-What it writes (`text_render.ShapedFont` reads it):
+What it writes (`text_render.ShapedFont` and `marks.MarkTables` read it):
 
 - `chars`: the code points drawn as a token of their own: the cmap's
-  (bar marks, default-ignorables and refused scripts) and the spaces the
-  font lacks; then the `ligatures` (with `ligature_tags`), the `forms`
-  (the Arabic form glyphs outside the cmap, each drawn by PIL as its
-  letter between ZWJs), the `.notdef` token and the hidden token.
+  (marks too; default-ignorables and refused scripts aside) and the
+  spaces the font lacks; then the `ligatures`, the `forms` (the Arabic
+  form glyphs outside the cmap, each drawn by PIL as its letter between
+  ZWJs), the `extra_glyphs` (the glyphs outside the cmap that the mirrored
+  substitutions reach: the capitals' accents, the dotless forms, the
+  Arabic mark ligatures), the `.notdef` token and the hidden token.
   `glyphs`: each token's glyph id; `hidden`: 1 for the invisible token.
 - per font size s: `shapes_s`, `offsets_s`, `masks_s` (u8, flat) as
-  `getmask2(token, "L", anchor="la")` draws the token alone,
-  `advances_s` (1/64 px, `getlength`), and `kern_s` rows (tag, glyph a,
-  glyph b, 1/64 px): each pair of the GPOS `kern` lookups of a served
-  OpenType script tag, measured with `getlength` inside a run of a script
-  with that tag (`ctx + a + ZWNJ + b`: GPOS skips the ZWNJ, a ligature
-  does not form across it).
+  `getmask2(token, "L", anchor="la")` draws the token alone (a mark after
+  a ZWSP, where it is drawn alone and unplaced; an extra glyph, and a mark
+  with a canonical decomposition, as Pillow's FreeType renders it, placed
+  in the same frame), `advances_s`
+  (1/64 px, `getlength`; an extra glyph's is hb-ft's), and `kern_s` rows
+  (tag, glyph a, glyph b, 1/64 px): each pair of the GPOS `kern` lookups
+  of a served OpenType script tag, measured with `getlength` inside a run
+  of a script with that tag (`ctx + a + ZWNJ + b`: GPOS skips the ZWNJ, a
+  ligature does not form across it); no pair holds a mark.
 - `class_starts` / `class_values`: each code point's class
   (`text_render.GLYPH` ...) as ranges. The rules give a class; a probe at
-  12 px draws every code point the rules let through, in chunks of
-  consecutive ones, with PIL and with the mirror, and a code point the two
-  draw differently is refused (`MISDRAWN`).
+  12 px draws every code point the rules let through but the marks, in
+  chunks of consecutive ones, with PIL and with the mirror, and a code
+  point the two draw differently is refused (`MISDRAWN`); the marks are
+  probed on their bases at both sizes (`_mark_units`).
 - `script_starts` / `script_values` / `scripts` / `script_names`
   (ISO 15924, Unicode 17 from fontTools: the card's Python has no Script
   property), `script_tags` (each script's OpenType tag in `tags`, DFLT
@@ -36,7 +43,16 @@ What it writes (`text_render.ShapedFont` reads it):
   probing; `compose`: (base, mark, composite) for each composite the cmap
   holds; `lig_blockers`: the default-ignorables a ligature does not
   match across (probed); `contextual`: the characters a chain-context
-  ccmp lookup of the font substitutes in sequence (its tone letters).
+  ccmp lookup of the font substitutes in sequence (its tone letters,
+  refused).
+- GSUB: `gsub_lookups` rows (tag, stage, lookup), `gsub_flags`,
+  `gsub_ligatures` (lookup, ligature glyph, components), the ccmp
+  chain-context lookups' `chain_classes` and `chain_rules`, and the
+  `single_substs` they call (`_gsub_tables`).
+- GPOS marks and GDEF: `glyph_classes` and `mark_attach` per glyph id;
+  `mark_lookups`, `mark_subtables`, `mark_marks`, `mark_bases`,
+  `mark_lig_counts` and the anchors per size, `mark_marks_xy_s` /
+  `mark_bases_xy_s` (`_mark_positioning`).
 - bidi: `bidi_starts` / `bidi_values` (FriBiDi's type of every code
   point, in `bidi.TYPE_NAMES`' numbering), `bidi_brackets` (code point,
   FriBiDi's bracket type: minus the id of an opening bracket), `mirror`
@@ -44,16 +60,17 @@ What it writes (`text_render.ShapedFont` reads it):
   `script_directions` (HarfBuzz's native direction of each script),
   `libraries` (the FriBiDi, HarfBuzz and raqm versions).
 - Arabic: `joining_starts` / `joining_values` (FriBiDi's joining types,
-  as `arabic.U` ...; the probe confirms them), `arabic_forms` rows
+  as `arabic.U` ...; a mark's T, as HarfBuzz has it for the marks
+  ArabicShaping.txt does not list; the probe confirms them), `arabic_forms` rows
   (action, glyph in, glyph out) of the `arab` form features,
-  `arabic_ligatures` rows (stage: 0 `rlig`, 1 `liga`; ligature glyph,
-  first, second) without marks, `rlig_blockers` / `arabic_liga_blockers`
-  (the default-ignorables a lam-alef does not form across, probed).
+  `rlig_blockers` / `arabic_liga_blockers` (the default-ignorables a
+  lam-alef does not form across, probed).
 
 The probe draws every code point the rules let through alone in chunks,
 the Common ones also inside a Hebrew and a Latin right-to-left run, each
 letter an Arabic run may hold alone, between tatweels and beside a beh,
-and each invisible character between two behs.
+each invisible character between two behs, and the marks on their bases
+(`_mark_units`).
 """
 
 from __future__ import annotations
@@ -64,10 +81,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from morphik_core_tpu_torch.parser import arabic, bidi
+from morphik_core_tpu_torch.parser import arabic, bidi, marks
 from morphik_core_tpu_torch.parser.text_render import (
-    ATLAS_DPIS, ATLAS_PATH, COMPOSES, FONT_NAME, GLYPH, HIDDEN, LTR_SCRIPT, MARK, MARKED, MISDRAWN, NO_DIRECTION,
-    NOTDEF, RTL_SCRIPT, SHAPER, UNASSIGNED, ZWJ, ShapedFont, UnsupportedText, _blend_black, _canonical_decomposition,
+    ATLAS_DPIS, ATLAS_PATH, COMPOSES, FONT_NAME, GLYPH, HIDDEN, LTR_SCRIPT, MISDRAWN, NO_DIRECTION, NOTDEF,
+    RTL_SCRIPT, SHAPER, UNASSIGNED, ZWJ, ShapedFont, UnsupportedText, _blend_black, _canonical_decomposition,
     _composite, _is_mark, decompose, font_size, load_font)
 
 # the scripts HarfBuzz 12 shapes with a shaper of its own (hb-ot-shaper.hh)
@@ -214,15 +231,15 @@ def _ranges(values: np.ndarray):
     return starts, values[starts]
 
 
-def _probe_chunk(font: ShapedFont, pil: _Pil, cps: List[int], frame: tuple = ("", "")) -> Optional[bool]:
-    """Whether PIL and the mirror draw the chunk (between the `frame`'s two
+def _probe_chunk(font: ShapedFont, pil: _Pil, text: str, frame: tuple = ("", "")) -> Optional[bool]:
+    """Whether PIL and the mirror draw `text` (between the `frame`'s two
     strings) alike, pixels and advance; None where the mirror refuses it."""
     from PIL import Image, ImageDraw
 
-    text = frame[0] + "".join(map(chr, cps)) + frame[1]
+    text = frame[0] + text + frame[1]
     want_len = pil.length(text)
     m = 2 * pil.size
-    w, h = (want_len >> 6) + 4 * pil.size + 2 * m, 4 * pil.size
+    w, h = (want_len >> 6) + 4 * pil.size + 2 * m, 6 * pil.size
     img = Image.new("L", (w, h), 255)
     ImageDraw.Draw(img).text((m, m), text, fill=0, font=pil.font)
     try:
@@ -236,25 +253,129 @@ def _probe_chunk(font: ShapedFont, pil: _Pil, cps: List[int], frame: tuple = (""
     return pen == want_len and np.array_equal(page, np.asarray(img))
 
 
-def _probe(font: ShapedFont, pil: _Pil, cps: List[int], misdrawn: List[int], frame: tuple = ("", "")) -> None:
-    """Probe a chunk, halving it where it fails: a code point drawn
-    otherwise alone (in the frame) is `misdrawn`; a chunk drawn otherwise
-    whose halves are drawn alike is a fault of the mirror. A chunk the
-    mirror refuses (a sequence of contextual forms) is fine where its
-    halves pass."""
-    same = _probe_chunk(font, pil, cps, frame)
+def _probe(font: ShapedFont, pil: _Pil, units: List[tuple], misdrawn: List[int], frame: tuple = ("", "")) -> None:
+    """Probe a chunk of units (text, the code point refused where the unit
+    alone is drawn otherwise), halving it where it fails: a unit drawn
+    otherwise alone (in the frame) makes its code point `misdrawn`; a chunk
+    drawn otherwise whose halves are drawn alike is a fault of the mirror.
+    A chunk the mirror refuses (a sequence of contextual forms) is fine
+    where its halves pass."""
+    same = _probe_chunk(font, pil, "".join(t for t, _ in units), frame)
     if same:
         return
-    if len(cps) == 1:
-        assert same is not None, f"the mirror refuses U+{cps[0]:04X} alone in {frame}"
-        misdrawn.append(cps[0])
+    if len(units) == 1:
+        assert same is not None, f"the mirror refuses {units[0][0]!r} alone in {frame}"
+        misdrawn.append(units[0][1])
         return
     before = len(misdrawn)
-    _probe(font, pil, cps[:len(cps) // 2], misdrawn, frame)
-    _probe(font, pil, cps[len(cps) // 2:], misdrawn, frame)
+    _probe(font, pil, units[:len(units) // 2], misdrawn, frame)
+    _probe(font, pil, units[len(units) // 2:], misdrawn, frame)
     if same is False and len(misdrawn) == before:
-        raise AssertionError(f"the mirror draws U+{cps[0]:04X}..U+{cps[-1]:04X} otherwise than PIL, but each "
+        raise AssertionError(f"the mirror draws {units[0][0]!r}..{units[-1][0]!r} otherwise than PIL, but each "
                              "half alike: a shaping rule between characters is missing")
+
+
+def _chars(cps) -> List[tuple]:
+    return [(chr(cp), cp) for cp in cps]
+
+
+def _mark_units(gsub, gpos, cmap_names, drawn, others, script_of, chosen, mark_tags, skipped_chains
+                ) -> Dict[str, list]:
+    """The probe's mark units (text, the code point refused where it is
+    drawn otherwise) per OpenType script tag: in each tag with GPOS `mark`,
+    every mark its lookups cover on the first base (ligature, mark) of
+    each subtable that covers it, every base on the first mark of each of
+    its subtables; the mkmk stacks; every other mark on a letter; the ccmp
+    contexts (dotless i and j, the capitals' marks, ayin
+    before a point, with a below mark between); the Arabic mark ligatures
+    (shadda with a haraka, on a letter and inside lam-alef), a haraka after
+    a space and a tatweel, every mark between two behs, Hebrew's yod with
+    hiriq; and the `others` (every mark) after a digit, alone and before a
+    variation selector (an Inherited one in a DFLT run, where HarfBuzz
+    leaves it unplaced: the font has a GPOS table, so no fallback
+    positioning)."""
+    cp_of: Dict[str, int] = {}
+    for cp in sorted(drawn, reverse=True):
+        cp_of[cmap_names[cp]] = cp
+    tag_of = {cp: chosen[script_of(cp)] for cp in drawn}
+    is_mark = {cp: _is_mark(cp) for cp in drawn}
+    units: Dict[str, list] = {}
+
+    def fits(cp, t):
+        return script_of(cp) in ("Zinh", "Zyyy") or tag_of[cp] == t
+
+    def cps(glyphs, t, marks_wanted):
+        return [cp_of[g] for g in glyphs if g in cp_of and is_mark[cp_of[g]] == marks_wanted and fits(cp_of[g], t)]
+
+    for t in mark_tags:
+        letter = next(chr(cp) for cp in drawn if tag_of[cp] == t and unicodedata.category(chr(cp)) == "Lo"
+                      or (tag_of[cp] == t and unicodedata.category(chr(cp)) == "Ll"))
+        out = units.setdefault(t, [])
+
+        def base(cp):   # a Common base takes the tag's script from a letter before it
+            return (letter if script_of(cp) == "Zyyy" else "") + chr(cp)
+
+        covered = set()
+        for li in sorted(set(sum(_feature_lookups(gpos, t, ("mark", "mkmk")).values(), []))):
+            lookup = gpos.LookupList.Lookup[li]
+            for st in lookup.SubTable:
+                if lookup.LookupType == marks.MARK_MARK:
+                    m1, m2 = cps(st.Mark1Coverage.glyphs, t, True), cps(st.Mark2Coverage.glyphs, t, True)
+                    if m1 and m2:
+                        out += [(letter + chr(m2[0]) + chr(m), m) for m in m1]
+                        out += [(letter + chr(m) + chr(m1[0]), m) for m in m2]
+                    continue
+                ms = cps(st.MarkCoverage.glyphs, t, True)
+                cov = st.LigatureCoverage if lookup.LookupType == marks.MARK_LIG else st.BaseCoverage
+                bs = cps(cov.glyphs, t, False)
+                covered |= set(ms)
+                if ms and bs:
+                    out += [(base(bs[0]) + chr(m), m) for m in ms]
+                    out += [(base(b) + chr(ms[0]), b) for b in bs]
+        every = [cp for cp in drawn if is_mark[cp]]   # raqm keeps a nonspacing mark of any script in its base's run
+        out += [(letter + chr(m), m) for m in every if m not in covered]
+        # the ccmp chain contexts
+        for li in _feature_lookups(gsub, t, ("ccmp",)).get("ccmp", []):
+            lookup = gsub.LookupList.Lookup[li]
+            if lookup.LookupType != 6 or li in skipped_chains:
+                continue
+            for st in lookup.SubTable:
+                groups: Dict[int, list] = {}
+                for cd in (st.InputClassDef, st.BacktrackClassDef, st.LookAheadClassDef):
+                    for g, c in sorted(cd.classDefs.items()):
+                        if g in cp_of and cp_of[g] not in groups.setdefault(c, []) and fits(cp_of[g], t):
+                            groups[c].append(cp_of[g])
+                bases = [cp for c in groups for cp in groups[c] if not is_mark[cp]]
+                tops = [cp for c in groups for cp in groups[c] if is_mark[cp]]
+                below = [cp for cp in tops if unicodedata.combining(chr(cp)) == 220][:1]
+                if bases and tops:
+                    out += [(base(b) + chr(tops[0]), b) for b in bases]
+                    out += [(base(b) + chr(m), m) for b in bases[:1] for m in tops]
+                    out += [(base(b) + chr(bl) + chr(m), m) for b in bases for bl in below for m in tops[:3]]
+        # the mark ligatures, in and beside ligatures that skip marks
+        for li in sorted(set(sum(_feature_lookups(gsub, t, DEFAULT_GSUB).values(), []))):
+            lookup = gsub.LookupList.Lookup[li]
+            if lookup.LookupType != 4:
+                continue
+            for st in lookup.SubTable:
+                for first, group in st.ligatures.items():
+                    for lig in group:
+                        comps = [first, *lig.Component]
+                        if not all(g in cp_of for g in comps):
+                            continue
+                        text = "".join(chr(cp_of[g]) for g in comps)
+                        if any(is_mark[cp_of[g]] for g in comps):
+                            lead = letter if is_mark[cp_of[first]] or first == "space" else ""
+                            out.append((lead + text, cp_of[comps[-1]]))
+                        elif lookup.LookupFlag & marks.IGNORE_MARKS and len(comps) == 2:
+                            out += [(chr(cp_of[first]) + chr(m) + chr(cp_of[comps[1]]), m)
+                                    for m in every if fits(m, t)][:12]
+        if t == "arab":   # every mark between two behs: transparent to the joining
+            out += [("\u0628" + chr(m) + "\u0628", m) for m in others]
+        units[t] = list(dict.fromkeys(out))
+    units["DFLT"] = [("1" + chr(cp), cp) for cp in others]
+    units["DFLT"] += [("1" + chr(cp) + "\ufe0e", cp) for cp in others]   # a VS keeps the cluster undecomposed
+    return units
 
 
 def _classify(cmap, script_of) -> tuple:
@@ -271,14 +392,11 @@ def _classify(cmap, script_of) -> tuple:
             cls = SHAPER
         elif hb_default_ignorable(cp):
             cls = HIDDEN
-        elif cat[0] == "M":
-            cls = MARK
         elif cp in cmap:
             cls = GLYPH
         else:
-            parts = decompose(cp, True, cmap)
-            if parts:
-                cls = MARKED if any(map(_is_mark, parts)) else COMPOSES
+            if decompose(cp, True, cmap):
+                cls = COMPOSES
             elif cp in FALLBACK_SPACES:
                 cls = COMPOSES
                 spaces.append(cp)
@@ -288,52 +406,94 @@ def _classify(cmap, script_of) -> tuple:
     return classes, spaces
 
 
-def _marks_only(lookup, gdef_class) -> bool:
-    """Whether every ligature of a ligature lookup takes a mark."""
-    return all(any(gdef_class.get(g) == 3 for g in [first, *lig.Component])
-               for st in lookup.SubTable for first, ligs in st.ligatures.items() for lig in ligs)
-
-
-def _check_substitutions(gsub, served, gdef_class) -> None:
-    """Every default substitution of a served tag is a `liga` ligature, a
-    ccmp chain-context lookup (reached only through marks, refused, or the
-    contextual characters, refused in sequence), a ligature of marks, or
-    (under `arab`) a form feature's single substitution or an `rlig`
-    ligature."""
+def _check_substitutions(gsub, served) -> None:
+    """Every default substitution of a served tag is a ligature lookup, a
+    ccmp chain-context lookup, or (under `arab`) a form feature's single
+    substitution."""
     for t in served:
         for feat, lookups in _feature_lookups(gsub, t, DEFAULT_GSUB + tuple(arabic.FEATURES)).items():
             for li in lookups:
-                lookup = gsub.LookupList.Lookup[li]
-                kind = lookup.LookupType
-                arab = t == "arab" and ((feat in arabic.FEATURES and kind == 1) or (feat == "rlig" and kind == 4))
-                assert ((feat, kind) in (("liga", 4), ("ccmp", 6)) or arab
-                        or (kind == 4 and _marks_only(lookup, gdef_class))), f"{t} {feat} lookup {li} (type {kind})"
+                kind = gsub.LookupList.Lookup[li].LookupType
+                assert (kind == 4 or (feat, kind) == ("ccmp", 6)
+                        or (t == "arab" and feat in arabic.FEATURES and kind == 1)), f"{t} {feat} lookup {li} ({kind})"
 
 
-def _arabic_gsub(gsub, gid, gdef_class) -> tuple:
+def _arabic_forms(gsub, gid) -> list:
     """The `arab` form features' substitutions, rows (action, glyph in,
-    glyph out), and its `rlig` (stage 0) and `liga` (stage 1) ligatures
-    without marks, rows (stage, ligature glyph, first, second)."""
-    feats = _feature_lookups(gsub, "arab", tuple(arabic.FEATURES) + ("rlig", "liga"))
+    glyph out)."""
+    feats = _feature_lookups(gsub, "arab", tuple(arabic.FEATURES))
     forms = []
     for name, action in arabic.FEATURES.items():
         assert len(feats.get(name, [])) <= 1, f"arab {name}: the mirror applies one lookup a feature"
         for li in feats.get(name, []):
             for st in gsub.LookupList.Lookup[li].SubTable:
                 forms += [(action, gid[a], gid[b]) for a, b in st.mapping.items()]
-    ligatures = []
-    for stage, name in enumerate(("rlig", "liga")):
-        lookups = [li for li in sorted(feats.get(name, [])) if not _marks_only(gsub.LookupList.Lookup[li], gdef_class)]
-        assert len(lookups) <= 1, f"arab {name}: the mirror applies one lookup a stage"
-        for li in lookups:
-            for st in gsub.LookupList.Lookup[li].SubTable:
-                for first, ligs in st.ligatures.items():
-                    for lig in ligs:
-                        comps = [first, *lig.Component]
-                        if not any(gdef_class.get(g) == 3 for g in comps):
-                            assert len(comps) == 2, f"arab {name}: a ligature of {len(comps)} glyphs"
-                            ligatures.append((stage, gid[lig.LigGlyph], gid[comps[0]], gid[comps[1]]))
-    return sorted(forms), ligatures
+    return sorted(forms)
+
+
+def _gsub_stages(gsub, served, tags, skipped_chains) -> List[tuple]:
+    """Rows (tag, stage, lookup) of the GSUB lookups the mirror applies:
+    the Arabic shaper's ccmp (stage 0), `rlig` (1) and `liga` (2); the
+    other shapers' default features in one stage, in lookup order. The
+    chain lookups in `skipped_chains` (the tone letters' contour forms) are
+    refused instead."""
+    rows = []
+    for t in served:
+        feats = _feature_lookups(gsub, t, DEFAULT_GSUB)
+        if t == "arab":
+            groups = [feats.get("ccmp", []), feats.get("rlig", []), feats.get("liga", [])]
+            assert set(feats) <= {"ccmp", "rlig", "liga"}, f"arab features {sorted(feats)}"
+        else:
+            groups = [sum(feats.values(), [])]
+        for stage, lookups in enumerate(groups):
+            rows += [(tags.index(t), stage, li) for li in sorted(set(lookups)) if li not in skipped_chains]
+    return rows
+
+
+def _gsub_tables(gsub, gid, lookups) -> Dict[str, np.ndarray]:
+    """The mirrored GSUB lookups as rows: each ligature lookup's
+    ligatures (lookup, ligature glyph, components, -1 padded) in the order
+    HarfBuzz tries them; each chain-context lookup's classes and coverage
+    (lookup, subtable, 0 backtrack / 1 input / 2 lookahead / 3 coverage,
+    glyph, class) and rules (lookup, subtable, input class, single
+    substitution lookup, 3 backtrack and 3 lookahead classes, -1 padded);
+    the single substitutions those call (lookup, in, out); every lookup's
+    flag."""
+    ligs, classes, rules, singles, flags = [], [], [], [], []
+    for li in sorted(set(lookups)):
+        lookup = gsub.LookupList.Lookup[li]
+        assert not lookup.LookupFlag & 0x10, f"GSUB lookup {li} uses a mark filtering set"
+        flags.append((li, lookup.LookupFlag))
+        if lookup.LookupType == 4:
+            for st in lookup.SubTable:
+                for first, group in st.ligatures.items():
+                    for lig in group:
+                        comps = [gid[g] for g in [first, *lig.Component]]
+                        assert len(comps) <= 3, f"GSUB lookup {li}: a ligature of {len(comps)} glyphs"
+                        ligs.append((li, gid[lig.LigGlyph], *comps, *[-1] * (3 - len(comps))))
+            continue
+        assert lookup.LookupType == 6, f"GSUB lookup {li} (type {lookup.LookupType})"
+        for sub, st in enumerate(lookup.SubTable):
+            assert st.Format == 2, f"GSUB lookup {li}: a chain-context subtable of format {st.Format}"
+            classes += [(li, sub, 3, gid[g], 0) for g in st.Coverage.glyphs]
+            for which, cd in enumerate((st.BacktrackClassDef, st.InputClassDef, st.LookAheadClassDef)):
+                classes += [(li, sub, which, gid[g], c) for g, c in sorted(cd.classDefs.items()) if c]
+            for cls, rule_set in enumerate(st.ChainSubClassSet):
+                for r in (rule_set.ChainSubClassRule if rule_set is not None else ()):
+                    recs = r.SubstLookupRecord
+                    assert not r.Input and len(recs) == 1 and recs[0].SequenceIndex == 0, f"GSUB lookup {li}"
+                    assert len(r.Backtrack) <= 3 and len(r.LookAhead) <= 3, f"GSUB lookup {li}"
+                    nested = recs[0].LookupListIndex
+                    rules.append((li, sub, cls, nested, *r.Backtrack, *[-1] * (3 - len(r.Backtrack)),
+                                  *r.LookAhead, *[-1] * (3 - len(r.LookAhead))))
+                    inner = gsub.LookupList.Lookup[nested]
+                    assert inner.LookupType == 1, f"GSUB lookup {li} calls lookup {nested} (type {inner.LookupType})"
+                    singles += [(nested, gid[a], gid[b]) for st2 in inner.SubTable for a, b in st2.mapping.items()]
+    return {"gsub_ligatures": np.array(ligs, np.int32).reshape(-1, 5),
+            "chain_classes": np.array(classes, np.int32).reshape(-1, 5),
+            "chain_rules": np.array(rules, np.int32).reshape(-1, 10),
+            "single_substs": np.array(sorted(set(singles)), np.int32).reshape(-1, 3),
+            "gsub_flags": np.array(flags, np.int32).reshape(-1, 2)}
 
 
 def _form_strings(forms, cp_of_glyph, joining, known) -> tuple:
@@ -354,6 +514,142 @@ def _form_strings(forms, cp_of_glyph, joining, known) -> tuple:
             strings.append(text)
             glyphs.append(b)
     return strings, glyphs
+
+
+def _scales(size: int, upem: int) -> tuple:
+    """(FreeType's 16.16 x scale for `size` px, hb-ft's font scale)."""
+    ft = ((size * 64 << 16) + upem // 2) // upem
+    return ft, (ft * upem + (1 << 15)) >> 16
+
+
+def _anchor(anchor, glyph: str, size: int, upem: int) -> tuple:
+    """An anchor at `size` px in 1/16 of a 26.6 unit: its coordinates at
+    the font's scale (a float in HarfBuzz, exact in these units). Under
+    raqm's hb-ft font HarfBuzz reads a format-2 anchor's coordinates too,
+    not its contour point (U+A72B's point lies one unit above them; the
+    test against Pillow's HarfBuzz holds the offsets)."""
+    assert anchor.Format in (1, 2), f"{glyph}: an anchor of format {anchor.Format}"
+    hb = _scales(size, upem)[1]
+    x, y = anchor.XCoordinate * hb * 16, anchor.YCoordinate * hb * 16
+    assert x % upem == 0 and y % upem == 0, f"{glyph}: an anchor off the 1/16 grid at {size} px"
+    return x // upem, y // upem
+
+
+def _mark_positioning(gpos, gid, served, tags, sizes, upem) -> Dict[str, np.ndarray]:
+    """The served tags' `mark` and `mkmk` lookups (`marks.MarkTables`
+    reads them): rows (tag, lookup); per subtable, in lookup and subtable
+    order, (lookup, type, flag); its marks (subtable, glyph, class) and
+    their anchors; its base, ligature or mark-2 anchors (subtable, glyph,
+    class, ligature component or -1) and their anchors; its ligatures'
+    component counts (subtable, glyph, count). Anchors per size, in 1/16
+    of a 26.6 unit."""
+    lookups = []
+    for t in served:
+        feats = _feature_lookups(gpos, t, ("mark", "mkmk"))
+        lookups += [(tags.index(t), li) for li in sorted(set(sum(feats.values(), [])))]
+    subtables, mark_rows, base_rows, counts = [], [], [], []
+    mark_xy = {size: [] for size in sizes}
+    base_xy = {size: [] for size in sizes}
+
+    def add(rows, xy, key, glyph, anchor):
+        rows.append((*key[:1], gid[glyph], *key[1:]))
+        for size in sizes:
+            xy[size].append(_anchor(anchor, glyph, size, upem))
+
+    for li in sorted({li for _, li in lookups}):
+        lookup = gpos.LookupList.Lookup[li]
+        kind, flag = lookup.LookupType, lookup.LookupFlag
+        assert kind in (marks.MARK_BASE, marks.MARK_LIG, marks.MARK_MARK), f"GPOS mark lookup {li} (type {kind})"
+        assert not flag & 0x10, f"GPOS lookup {li} uses a mark filtering set"
+        for st in lookup.SubTable:
+            sub = len(subtables)
+            subtables.append((li, kind, flag))
+            cov, arr = ((st.Mark1Coverage, st.Mark1Array) if kind == marks.MARK_MARK
+                        else (st.MarkCoverage, st.MarkArray))
+            for g, rec in zip(cov.glyphs, arr.MarkRecord):
+                add(mark_rows, mark_xy, (sub, rec.Class), g, rec.MarkAnchor)
+            if kind == marks.MARK_LIG:
+                for g, attach in zip(st.LigatureCoverage.glyphs, st.LigatureArray.LigatureAttach):
+                    counts.append((sub, gid[g], attach.ComponentCount))
+                    for comp, rec in enumerate(attach.ComponentRecord):
+                        for cls, a in enumerate(rec.LigatureAnchor):
+                            if a is not None:
+                                add(base_rows, base_xy, (sub, cls, comp), g, a)
+                continue
+            cov2, recs = ((st.Mark2Coverage, [r.Mark2Anchor for r in st.Mark2Array.Mark2Record])
+                          if kind == marks.MARK_MARK else
+                          (st.BaseCoverage, [r.BaseAnchor for r in st.BaseArray.BaseRecord]))
+            for g, anchors in zip(cov2.glyphs, recs):
+                for cls, a in enumerate(anchors):
+                    if a is not None:
+                        add(base_rows, base_xy, (sub, cls, -1), g, a)
+    out = {"mark_lookups": np.array(lookups, np.int32).reshape(-1, 2),
+           "mark_subtables": np.array(subtables, np.int32).reshape(-1, 3),
+           "mark_marks": np.array(mark_rows, np.int32).reshape(-1, 3),
+           "mark_bases": np.array(base_rows, np.int32).reshape(-1, 4),
+           "mark_lig_counts": np.array(counts, np.int32).reshape(-1, 3)}
+    for size in sizes:
+        out[f"mark_marks_xy_{size}"] = np.array(mark_xy[size], np.int32).reshape(-1, 2)
+        out[f"mark_bases_xy_{size}"] = np.array(base_xy[size], np.int32).reshape(-1, 2)
+    return out
+
+
+class _FreeType:
+    """Glyphs by id as Pillow renders them (`FT_Load_Glyph` with
+    FT_LOAD_DEFAULT | FT_LOAD_RENDER, through ctypes on the FreeType Pillow
+    bundles): the tokens of the glyphs no character string draws alone
+    (the ccmp and mark-ligature outputs outside the cmap)."""
+
+    # FT_FaceRec.glyph, FT_GlyphSlotRec.bitmap (rows, width, pitch, buffer), .bitmap_left / _top (64-bit)
+    FACE_GLYPH, BITMAP_ROWS, BITMAP_WIDTH, BITMAP_PITCH, BITMAP_BUFFER, BITMAP_LEFT, BITMAP_TOP = (
+        152, 152, 156, 160, 168, 192, 196)
+
+    def __init__(self, path: str, size: int):
+        import ctypes
+
+        import PIL
+        import PIL._imagingft  # noqa: F401  (maps the libraries the bundled FreeType needs)
+
+        self.ct = ctypes
+        libs = sorted((Path(PIL.__file__).parent.parent / "pillow.libs").glob("libfreetype*.so*"))
+        assert libs, "Pillow's own FreeType (pillow.libs/libfreetype*.so*) draws the reference"
+        ft = self.ft = ctypes.CDLL(str(libs[0]))
+        vp = ctypes.c_void_p
+        ft.FT_Init_FreeType.argtypes = [ctypes.POINTER(vp)]
+        ft.FT_New_Face.argtypes = [vp, ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(vp)]
+        ft.FT_Set_Pixel_Sizes.argtypes = [vp, ctypes.c_uint, ctypes.c_uint]
+        ft.FT_Load_Glyph.argtypes = [vp, ctypes.c_uint, ctypes.c_int32]
+        ft.FT_Get_Char_Index.argtypes = [vp, ctypes.c_ulong]
+        ft.FT_Get_Char_Index.restype = ctypes.c_uint
+        ft.FT_Done_Face.argtypes = [vp]
+        ft.FT_Done_FreeType.argtypes = [vp]
+        self.lib, self.face = vp(), vp()
+        assert ft.FT_Init_FreeType(ctypes.byref(self.lib)) == 0
+        assert ft.FT_New_Face(self.lib, str(path).encode(), 0, ctypes.byref(self.face)) == 0
+        assert ft.FT_Set_Pixel_Sizes(self.face, 0, size) == 0
+
+    def glyph_of(self, cp: int) -> int:
+        return self.ft.FT_Get_Char_Index(self.face, cp)
+
+    def render(self, glyph: int) -> tuple:
+        """-> (mask, left, top) of the glyph's bitmap."""
+        ct = self.ct
+        assert self.ft.FT_Load_Glyph(self.face, glyph, 4) == 0   # FT_LOAD_RENDER
+        slot = ct.c_void_p.from_address(self.face.value + self.FACE_GLYPH).value
+        rows = ct.c_uint.from_address(slot + self.BITMAP_ROWS).value
+        width = ct.c_uint.from_address(slot + self.BITMAP_WIDTH).value
+        pitch = ct.c_int.from_address(slot + self.BITMAP_PITCH).value
+        mask = np.zeros((rows, width), np.uint8)
+        if rows and width:
+            buf = ct.c_void_p.from_address(slot + self.BITMAP_BUFFER).value
+            raw = bytes((ct.c_ubyte * (pitch * rows)).from_address(buf))
+            mask = np.frombuffer(raw, np.uint8).reshape(rows, pitch)[:, :width].copy()
+        return (mask, ct.c_int.from_address(slot + self.BITMAP_LEFT).value,
+                ct.c_int.from_address(slot + self.BITMAP_TOP).value)
+
+    def close(self) -> None:
+        self.ft.FT_Done_Face(self.face)
+        self.ft.FT_Done_FreeType(self.lib)
 
 
 def _unicode_tables() -> Dict[str, np.ndarray]:
@@ -405,7 +701,7 @@ def _unicode_tables() -> Dict[str, np.ndarray]:
 def _needs_a_mark(st, gdef_class) -> bool:
     """Whether every rule of a class-based chain-context subtable has a
     class of marks only in its context (it is reached only through a
-    mark, which the atlas refuses)."""
+    mark: ayin's form before a Hebrew point, mirrored)."""
     if st.Format != 2:
         return False
     defs = (st.BacktrackClassDef.classDefs, st.InputClassDef.classDefs, st.LookAheadClassDef.classDefs)
@@ -427,7 +723,7 @@ def _contextual(gsub, served, char_of, gdef_class) -> List[int]:
     for t in served:
         for li in _feature_lookups(gsub, t, ("ccmp",)).get("ccmp", []):
             if gsub.LookupList.Lookup[li].LookupType != 6:
-                continue   # a ligature of marks (`_check_substitutions`)
+                continue   # a ligature lookup (`_gsub_tables`)
             for st in gsub.LookupList.Lookup[li].SubTable:
                 cov = st.Coverage.glyphs
                 if all(g in char_of and gdef_class.get(g) != 3 for g in cov) and not _needs_a_mark(st, gdef_class):
@@ -446,16 +742,32 @@ def _compositions(cmap) -> List[tuple]:
     return out
 
 
-def _token_arrays(p: _Pil, strings: List[str]) -> Dict[str, np.ndarray]:
-    """Each token's mask, offset and advance at one size ("" is the
-    invisible token)."""
+def _token_arrays(p: _Pil, tokens: list, ft: "_FreeType", hmtx, scale: int) -> Dict[str, np.ndarray]:
+    """Each token's mask, offset and advance at one size: a string's as PIL
+    draws it ("" is the invisible token); a glyph id's as FreeType renders
+    it for Pillow, placed in the frame of PIL's masks (the offset from the
+    anchor "la", calibrated on a few characters), with hb-ft's unhinted
+    advance (`FT_Get_Advance`, then 26.6)."""
+    frame = set()
+    for s in "HxgAj":   # PIL's "la" offset of a glyph is FreeType's (left, ascender - top)
+        m, off = p.mask(s)
+        fm, left, top = ft.render(ft.glyph_of(ord(s)))
+        (r, c), (fr, fc) = (tuple(int(np.flatnonzero(a.any(k))[0]) for k in (1, 0)) for a in (m, fm))
+        frame.add((off[0] + c - left - fc, off[1] + r - fr + top))
+    assert len(frame) == 1 and next(iter(frame))[0] == 0, f"PIL's glyph frame at {p.size} px: {frame}"
+    ascender = frame.pop()[1]
     shapes, offsets, flat, adv = [], [], [], []
-    for s in strings:
-        m, off = p.mask(s) if s else (np.zeros((0, 0), np.uint8), (0, 0))
+    for t in tokens:
+        if isinstance(t, str):
+            m, off = p.mask(t) if t else (np.zeros((0, 0), np.uint8), (0, 0))
+            a = p.length(t) if t else 0
+        else:
+            m, left, top = ft.render(t)
+            off, a = (left, ascender - top), ((hmtx[t] * scale + 32) // 64 + 512) >> 10
         shapes.append(m.shape)
         offsets.append(off)
         flat.append(m.reshape(-1))
-        adv.append(p.length(s) if s else 0)
+        adv.append(a)
     return {f"shapes_{p.size}": np.array(shapes, np.int32).reshape(-1, 2),
             f"offsets_{p.size}": np.array(offsets, np.int32).reshape(-1, 2),
             f"masks_{p.size}": np.concatenate(flat), f"advances_{p.size}": np.array(adv, np.int32)}
@@ -493,9 +805,10 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     assert all(t.format != 14 for t in tt["cmap"].tables), "a cmap 14 (variation sequences) is not mirrored"
     cmap_names = tt.getBestCmap()
     gid = tt.getReverseGlyphMap()
-    gsub, gpos = tt["GSUB"].table, tt["GPOS"].table
+    gsub, gpos, gdef = tt["GSUB"].table, tt["GPOS"].table, tt["GDEF"].table
     cmap = set(cmap_names)
     assert 0x2011 in cmap, "U+2011 would take U+2010's glyph: not mirrored"
+    assert getattr(gdef, "MarkGlyphSetsDef", None) is None, "GDEF mark filtering sets are not mirrored"
 
     # scripts (Unicode 17, as HarfBuzz 12 has them) and their OpenType tags
     codes = sorted(set(Scripts.VALUES) | {"Zyyy", "Zinh"})
@@ -508,41 +821,77 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     chosen = {c: OT_TAGS.get(c, c.lower()) if OT_TAGS.get(c, c.lower()) in font_tags else "DFLT" for c in codes}
     tags = sorted(set(chosen.values()))
     served = sorted({chosen[c] for c in codes if c not in SHAPER_SCRIPTS})
-    gdef_class = tt["GDEF"].table.GlyphClassDef.classDefs
-    _check_substitutions(gsub, served, gdef_class)
+    gdef_class = gdef.GlyphClassDef.classDefs
+    _check_substitutions(gsub, served)
     uni = _unicode_tables()
+    # HarfBuzz's joining type of a mark ArabicShaping.txt does not list is T (`get_joining_type`);
+    # FriBiDi's Unicode 10 data leaves the later marks, and the enclosing ones, non-joining
+    is_mark = np.array([unicodedata.category(chr(cp)) in ("Mn", "Me") for cp in range(0x110000)])
+    uni["joining"][is_mark] = arabic.T
 
     classes, spaces = _classify(cmap, script_of)
     assert classes[NOTDEF_PROBE] == NOTDEF
-    # tokens: the cmap's drawn characters, the spaces the font lacks, the
-    # ligatures, .notdef and the invisible glyph
+    # tokens: the cmap's drawn characters (marks too), the spaces the font
+    # lacks, the ligatures, the Arabic forms, the substitutions' glyphs
+    # outside the cmap, .notdef and the invisible glyph
     drawn = [cp for cp in sorted(cmap) if classes[cp] == GLYPH]
-    ligatures, ligature_tags, lig_glyphs = [], [], []
+    ligatures, lig_glyphs = [], []
     for t in served:
-        if t == "arab":
-            continue   # the Arabic shaper's ligatures are glyph rows of their own
-        for s, g in _font_ligatures(gsub, t, {cmap_names[cp]: cp for cp in drawn}):
-            ligatures.append(s)
-            ligature_tags.append(tags.index(t))
-            lig_glyphs.append(gid[g])
+        if t != "arab":   # the Arabic shaper's ligatures are glyphs of the cmap
+            for s, g in _font_ligatures(gsub, t, {cmap_names[cp]: cp for cp in drawn}):
+                ligatures.append(s)
+                lig_glyphs.append(gid[g])
     chars = drawn + spaces
-    forms, arabic_ligatures = _arabic_gsub(gsub, gid, gdef_class)
+    forms = _arabic_forms(gsub, gid)
     cp_of_glyph = {gid[cmap_names[cp]]: cp for cp in reversed(drawn)}
     known = set(cp_of_glyph) | set(lig_glyphs)
-    assert all(row[1] in known for row in arabic_ligatures), "an Arabic ligature outside the cmap"
     form_strings, form_glyphs = _form_strings(forms, cp_of_glyph, uni["joining"], known)
-    strings = [chr(cp) for cp in chars] + ligatures + form_strings + [chr(NOTDEF_PROBE), ""]
-    space = gid[cmap_names[0x20]]
-    glyphs = ([gid[cmap_names[cp]] for cp in drawn] + [space] * len(spaces) + lig_glyphs + form_glyphs
-              + [0, space])
+    known |= set(form_glyphs)
     char_of = {n: cp for cp, n in sorted(cmap_names.items(), reverse=True)}
+    contextual = _contextual(gsub, served, char_of, gdef_class)
+    skipped_chains = {li for t in served for li in _feature_lookups(gsub, t, ("ccmp",)).get("ccmp", [])
+                      if gsub.LookupList.Lookup[li].LookupType == 6
+                      and all(char_of.get(g) in contextual for st in gsub.LookupList.Lookup[li].SubTable
+                              for g in st.Coverage.glyphs)}
+    stage_rows = _gsub_stages(gsub, served, tags, skipped_chains)
+    gsub_arrays = _gsub_tables(gsub, gid, [li for _, _, li in stage_rows])
+    # the glyphs the mirrored substitutions reach from the tokens' glyphs;
+    # a ligature whose components they never reach is dropped
+    reach = set(known)
+    ligs = gsub_arrays["gsub_ligatures"]
+    while True:
+        more = {b for _, a, b in gsub_arrays["single_substs"].tolist() if a in reach}
+        more |= {row[1] for row in ligs.tolist() if all(c in reach for c in row[2:] if c >= 0)}
+        if more <= reach:
+            break
+        reach |= more
+    gsub_arrays["gsub_ligatures"] = ligs[[all(c in reach for c in row[2:] if c >= 0) for row in ligs.tolist()]]
+    extras = sorted(reach - known)
+    # a mark alone follows a ZWSP (no dotted circle); one with a canonical decomposition, which PIL would
+    # draw decomposed there, is its glyph (a variation selector's cluster keeps it whole)
+    strings = [gid[cmap_names[cp]] if _is_mark(cp) and _canonical_decomposition(cp) else
+               ("\u200b" if _is_mark(cp) else "") + chr(cp) for cp in chars] + ligatures + form_strings
+    tokens = strings + extras + [chr(NOTDEF_PROBE), ""]
+    space = gid[cmap_names[0x20]]
+    glyphs = ([gid[cmap_names[cp]] for cp in drawn] + [space] * len(spaces) + lig_glyphs + form_glyphs + extras
+              + [0, space])
+    n_glyphs = len(tt.getGlyphOrder())
+    glyph_classes = np.zeros(n_glyphs, np.int8)
+    mark_attach = np.zeros(n_glyphs, np.int8)
+    for g, c in gdef_class.items():
+        glyph_classes[gid[g]] = c
+    for g, c in (gdef.MarkAttachClassDef.classDefs if gdef.MarkAttachClassDef else {}).items():
+        mark_attach[gid[g]] = c
+    n_tokens = len(tokens)
     arrays = {
         "cmap": np.array(sorted(cmap), np.int32),
         "chars": np.array(chars, np.int32),
         "ligatures": np.array(ligatures),
-        "ligature_tags": np.array(ligature_tags, np.int8),
+        "extra_glyphs": np.array(extras, np.int32),
         "glyphs": np.array(glyphs, np.int32),
-        "hidden": (np.arange(len(strings)) == len(strings) - 1).astype(np.uint8),
+        "hidden": (np.arange(n_tokens) == n_tokens - 1).astype(np.uint8),
+        "glyph_classes": glyph_classes,
+        "mark_attach": mark_attach,
         "script_starts": script_starts,
         "script_values": script_values,
         "scripts": np.array(codes),
@@ -551,8 +900,7 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         "script_tags": np.array([tags.index(chosen[c]) for c in codes], np.int8),
         "script_composes": np.array([c != "Hang" for c in codes], np.uint8),
         "compose": np.array(_compositions(cmap), np.int32).reshape(-1, 3),
-        "contextual": np.array(_contextual(gsub, served, char_of, tt["GDEF"].table.GlyphClassDef.classDefs),
-                               np.int32),
+        "contextual": np.array(contextual, np.int32),
         "brackets": np.array(_probe_brackets(pil, script_of), np.int32).reshape(-1, 2),
         "forms": np.array(form_strings, dtype=str),
         "bidi_brackets": uni["bidi_brackets"],
@@ -560,8 +908,10 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         "script_directions": np.array([RTL_SCRIPT if c in RTL_SCRIPTS else NO_DIRECTION if c in UNDIRECTED_SCRIPTS
                                        else LTR_SCRIPT for c in codes], np.int8),
         "arabic_forms": np.array(forms, np.int32).reshape(-1, 3),
-        "arabic_ligatures": np.array(arabic_ligatures, np.int32).reshape(-1, 4),
+        "gsub_lookups": np.array(stage_rows, np.int32).reshape(-1, 3),
         "libraries": uni["libraries"],
+        **gsub_arrays,
+        **_mark_positioning(gpos, gid, served, tags, sorted(pils), tt["head"].unitsPerEm),
     }
     arrays["bidi_starts"], arrays["bidi_values"] = _ranges(uni["bidi"])
     arrays["joining_starts"], arrays["joining_values"] = _ranges(uni["joining"])
@@ -571,35 +921,52 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     arrays["lig_blockers"] = np.array([cp for cp in hidden_cps if not pil.draws(f"f{chr(cp)}i", "fi")], np.int32)
     av = pil.length("AV")
     assert all(pil.length(f"A{chr(cp)}V") == av for cp in hidden_cps), "a default-ignorable stops kerning"
-    # and those a lam-alef does not form across (ZWJ keeps the joining but blocks `rlig`)
+    # and those a lam-alef does not form across (ZWJ keeps the joining but blocks `rlig`); one that puts
+    # itself at another bidi level than the letters around it (LRM) splits the run instead, and is
+    # passed over where it shares their run (after an LRO)
     for key, alef, ligature in (("rlig_blockers", ALEF, 0xFEFB), ("arabic_liga_blockers", ALEF_HAMZA, 0xFEF7)):
-        arrays[key] = np.array([cp for cp in hidden_cps
+        one_run = [cp for cp in hidden_cps
+                   if len(set(bidi.embedding_levels(uni["bidi"][[LAM, cp, alef]].tolist(), [0, 0, 0])[0])) == 1]
+        arrays[key] = np.array([cp for cp in one_run
                                 if not pil.draws(chr(LAM) + chr(cp) + chr(alef), chr(ligature))], np.int32)
-    for p in pils.values():
-        arrays.update(_token_arrays(p, strings))
+    hmtx = {gid[g]: adv for g, (adv, _) in tt["hmtx"].metrics.items()}
+    for size, p in pils.items():
+        ft = _FreeType(pil.font.path, size)
+        try:
+            arrays.update(_token_arrays(p, tokens, ft, hmtx, _scales(size, tt["head"].unitsPerEm)[0]))
+        finally:
+            ft.close()
     token_of_glyph = {}
     for s, g in zip(strings[:len(drawn)] + ligatures, glyphs[:len(drawn)] + lig_glyphs):
-        token_of_glyph.setdefault(g, s)
+        if isinstance(s, str):
+            token_of_glyph.setdefault(g, s)
     letter = {"DFLT": ""}   # a letter that starts a run of each tag (a Common-only line is DFLT)
     for cp in drawn:
         if unicodedata.category(chr(cp))[0] == "L":
             letter.setdefault(chosen[script_of(cp)], chr(cp))
+    mark_glyphs = {g for g, c in gdef_class.items() if c == 3} | {cmap_names[cp] for cp in drawn if _is_mark(cp)}
+    for t in served:
+        lookups = _feature_lookups(gpos, t, ("kern",)).get("kern", [])
+        assert not any(a in mark_glyphs or b in mark_glyphs for a, b in _kern_pairs(gpos, lookups)), \
+            f"{t}: a kern pair with a mark (the mirror kerns a base with the glyph after it)"
     kern = _kerning(pils, gpos, gid, served, tags, chosen, script_of, token_of_glyph, letter)
     arrays.update({f"kern_{size}": rows for size, rows in kern.items()})
 
     # the probe: every code point the rules let through, drawn in chunks
     arrays["class_starts"], arrays["class_values"] = _ranges(classes)
     font = ShapedFont(arrays, pil.size)
-    todo = [cp for cp in np.flatnonzero(np.isin(classes, (GLYPH, NOTDEF, COMPOSES, HIDDEN))).tolist() if cp != 0x0A]
+    todo = np.flatnonzero(np.isin(classes, (GLYPH, NOTDEF, COMPOSES, HIDDEN))).tolist()
+    marks_todo = [cp for cp in todo if _is_mark(cp) and classes[cp] != HIDDEN and script_of(cp) != "Hang"]
+    todo = [cp for cp in todo if cp != 0x0A and not _is_mark(cp)]   # marks are probed on bases below
     misdrawn: List[int] = []
     for i in range(0, len(todo), PROBE_CHUNK):
-        _probe(font, pil, todo[i:i + PROBE_CHUNK], misdrawn)
+        _probe(font, pil, _chars(todo[i:i + PROBE_CHUNK]), misdrawn)
     # the Common characters in right-to-left runs: mirrored, reversed, a
     # Hebrew run's (between two Hebrew letters) and a Latin one's
     common = [cp for cp in todo if script_of(cp) in ("Zyyy", "Zinh") and cp not in misdrawn]
     for frame in (("\u05d0", "\u05d0"), ("\u05d0a", "\u05d0")):
         for i in range(0, len(common), PROBE_CHUNK):
-            _probe(font, pil, common[i:i + PROBE_CHUNK], misdrawn, frame)
+            _probe(font, pil, _chars(common[i:i + PROBE_CHUNK]), misdrawn, frame)
     # joining: each letter an Arabic run may hold alone and between tatweels
     # (join-causing), each invisible character between two behs
     t = chr(TATWEEL)
@@ -613,11 +980,19 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         else:
             continue
         for frame in frames:
-            same = _probe_chunk(font, pil, [cp], frame)
+            same = _probe_chunk(font, pil, chr(cp), frame)
             assert same is not None, f"the mirror refuses U+{cp:04X} in {frame}"
             if not same:
                 misdrawn.append(cp)
                 break
+    # the marks, at both sizes: on their bases, stacked, in the ccmp contexts and the ligatures
+    mark_tags = sorted({tags[tag] for tag in arrays["mark_lookups"][:, 0].tolist()})
+    units = _mark_units(gsub, gpos, cmap_names, drawn, marks_todo, script_of, chosen, mark_tags, skipped_chains)
+    for size, p in pils.items():
+        sized = font if size == pil.size else ShapedFont(arrays, size)
+        for group in units.values():
+            for i in range(0, len(group), PROBE_CHUNK):
+                _probe(sized, p, group[i:i + PROBE_CHUNK], misdrawn)
     classes[misdrawn] = MISDRAWN
     arrays["class_starts"], arrays["class_values"] = _ranges(classes)
     np.savez_compressed(path, **arrays)

@@ -9,19 +9,22 @@ serving path imports it). For
 each font size the reference draws (18 px at 150 dpi, 12 px at 100 dpi) it
 holds every token's mask as PIL draws it alone at an integer origin (with
 its offset from the origin) and its advance in 1/64 px. A token is a
-character of the font's cmap, a ligature of its `liga` feature, an Arabic
-form or ligature glyph outside the cmap, the `.notdef` box, the invisible
+character of the font's cmap (combining marks too), a ligature of its
+`liga` feature, an Arabic form glyph outside the cmap, a glyph outside the
+cmap that a ccmp or mark-ligature substitution makes (a capital's accent,
+a dotless i, shadda with a haraka), the `.notdef` box, the invisible
 glyph of a default-ignorable character, or a space the font lacks (drawn
 as its space, HarfBuzz's space fallback). Beside them, size for size, the
 GPOS `kern` pairs as PIL measures them inside a run of each script that
-can hold the pair; and, for every code point, its class (`GLYPH` ...
-`MISDRAWN` below), its script (ISO 15924), its FriBiDi bidi type and
+can hold the pair, and the GPOS mark anchors; the GDEF classes; the GSUB
+lookups the mirror applies; and, for every code point, its class (`GLYPH`
+... `MISDRAWN` below), its script (ISO 15924), its FriBiDi bidi type and
 bracket, its HarfBuzz mirror and its Arabic joining type, and, for the
 brackets that raqm pairs, its partner.
 
 The reference's layout is Pillow's raqm (FriBiDi + HarfBuzz), mirrored
-here for the scripts that HarfBuzz shapes with its default shaper (and
-Hangul syllables, which it leaves alone), Hebrew, and Arabic:
+here for the scripts that HarfBuzz shapes with its default shaper, Hangul
+syllables (its Hangul shaper), Hebrew, and Arabic:
 
 - the bidi levels of `bidi.embedding_levels` (FriBiDi's, the paragraph
   direction from the line itself: each `line[:max_chars]` piece is a
@@ -29,55 +32,73 @@ Hangul syllables, which it leaves alone), Hebrew, and Arabic:
 - raqm's script resolution: a Common character takes the script before
   it, a closing bracket the script of its opening one (a stack), and
   what is still Common or Inherited (a leading run) the script after it;
-  each level run splits into runs where the resolved script changes (a
-  right-to-left one from its end), and each run is shaped alone under its
-  script's OpenType script tag;
+  a nonspacing mark of any script counts as Inherited, so it stays in its
+  base's run; each level run splits into runs where the resolved script
+  changes (a right-to-left one from its end), and each run is shaped
+  alone under its script's OpenType script tag;
 - in a right-to-left run, each character with a HarfBuzz mirror the font
   maps becomes its mirror (`(` draws `)`, `<` draws `>`, `«` draws `»`);
 - HarfBuzz's native direction: a run whose direction is not its script's
   (Common punctuation of a Hebrew run at an even level, of a Latin run at
   an odd one) is shaped with its graphemes reversed; a run of Arabic
   script with digits and no letters is left-to-right;
-- HarfBuzz's normalization against the cmap: a base and its marks
-  compose into a character the font maps, a character the font lacks
-  decomposes into parts it maps, a variation selector leaves its cluster
-  alone, U+3000 takes the space glyph;
-- the run's `liga` ligatures, taken greedily in the font's order across
-  default-ignorables that do not block them, and its `kern` pairs across
-  every default-ignorable; in an Arabic run, `arabic`'s joining, forms and
-  lam-alef ligatures instead of `liga`;
+- HarfBuzz's normalization against the cmap: a cluster with marks
+  decomposes fully, its marks sort by modified combining class (Hebrew
+  points in SBL order, shadda first), then the shaper reorders (Arabic:
+  the modifier marks to the front; Hebrew: patah or qamats before a
+  sheva or hiriq before a meteg), and a base and its marks compose into a
+  character the font maps; a character the font lacks decomposes into
+  parts it maps, a variation selector leaves its cluster alone, U+3000
+  takes the space glyph; a CGJ that kept marks apart stays hidden from
+  GSUB;
+- GSUB: the ccmp chain-context lookups (i and j dotless before a top
+  mark, a capital's marks in their case forms, ayin before a point), the
+  ligature lookups (Hebrew's yod with hiriq, `liga`), and in an Arabic
+  run `arabic`'s joining, forms and ligatures (the mark pairs, lam-alef
+  over its marks, a haraka on a space or tatweel); a ligature matches
+  across the default-ignorables that do not block it and the marks its
+  lookup ignores, which keep their ligature component;
+- GPOS: `kern` pairs across every default-ignorable (a mark ends a pair:
+  no pair has one), then `marks`: the run's mark, mark-to-ligature and
+  mark-to-mark anchors, the marks' advances zeroed (not by the Hangul
+  shaper), the offsets propagated; a run whose tag has no `mark` feature
+  leaves its marks unplaced, as HarfBuzz does for a font with a GPOS
+  table (it falls back to positioning marks by glyph extents only for a
+  font without one);
 - a right-to-left run's glyphs laid out from its end: a kern pair's
   adjustment falls on the glyph that comes first in the shaping order;
 - default-ignorables hidden (nothing drawn, no advance); the pen advances
-  in 26.6 fixed point across the runs; a glyph sits at `(pen + 32) >> 6`;
+  in 26.6 fixed point across the runs; a glyph sits at `(pen + x offset +
+  32) >> 6` and its y offset, rounded the same way, moves it up;
   overlapping glyphs of a line composite as `src + dst * (255 - src) / 255`
   (`_imagingft.c`), and each line's mask is blended black over the page
   (`draw_bitmap`).
 
 What the mirror cannot draw raises `UnsupportedText` (ROADMAP Queue 1
 item 3b-ii): the scripts that HarfBuzz gives a shaper of its own (but
-Hebrew and Arabic: the complex scripts, the other scripts of the Arabic
-shaper such as Syriac, N'Ko and Mongolian, conjoining jamo), a combining
-mark that does not compose (it needs the GPOS mark anchors: Arabic
-harakat, Hebrew niqqud, Latin marks without a precomposed form), a
-sequence of the font's contextual tone letters, the two bidi cases
-`bidi.refusal` names, and a dpi whose font size the atlas lacks. The
-page layout (margin, line height, `max_chars` wrapping, the half line
-after an empty line, "(no extractable text)") is `_render_text_page`'s.
-The atlas assumes HarfBuzz's default language system (a C or English
-locale): a Romanian or Serbian locale would select other forms.
+Hebrew, Arabic and Hangul syllables: the complex scripts, the other
+scripts of the Arabic shaper such as Syriac, N'Ko and Mongolian,
+conjoining jamo), Hangul's tone marks, a sequence of the font's contextual
+tone letters, the two bidi cases `bidi.refusal` names, and a dpi whose
+font size the atlas lacks. The page layout (margin, line height,
+`max_chars` wrapping, the half line after an empty line, "(no extractable
+text)") is `_render_text_page`'s. The atlas assumes HarfBuzz's default
+language system (a C or English locale): a Romanian or Serbian locale
+would select other forms.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import unicodedata
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from morphik_core_tpu_torch.parser import arabic, bidi
+from morphik_core_tpu_torch.parser import arabic, bidi, marks
+from morphik_core_tpu_torch.parser.marks import Item
 
 ATLAS_PATH = Path(__file__).with_name("glyphs_dejavu_sans.npz")
 ATLAS_DPIS = (150, 100)
@@ -85,16 +106,28 @@ FONT_NAME = "DejaVuSans.ttf"
 ROADMAP_ITEM = "ROADMAP Queue 1 item 3b-ii"
 
 # a code point's class in the atlas; the classes from SHAPER on are refused
-GLYPH, NOTDEF, COMPOSES, HIDDEN, MARK, SHAPER, UNASSIGNED, MARKED, MISDRAWN = range(9)
+GLYPH, NOTDEF, COMPOSES, HIDDEN, SHAPER, UNASSIGNED, MISDRAWN = range(7)
 _REFUSAL = {
     SHAPER: "needs a HarfBuzz shaper of its own that the port does not mirror (a complex script, a script of the "
             "Arabic shaper other than Arabic, or conjoining jamo)",
     UNASSIGNED: f"is unassigned in Unicode {unicodedata.unidata_version}, a surrogate or a noncharacter",
-    MARKED: "decomposes into a base and a combining mark, which needs the font's GPOS mark anchors",
     MISDRAWN: "is drawn by PIL otherwise than the atlas predicts",
 }
 DOTTED_CIRCLE = 0x25CC
-ZWJ = 0x200D
+ZWJ, ZWNJ, CGJ = 0x200D, 0x200C, 0x034F
+# the shapers HarfBuzz picks for the mirrored scripts
+DEFAULT_SHAPER, HEBREW_SHAPER, ARABIC_SHAPER, HANGUL_SHAPER = range(4)
+HANGUL_TONE_MARKS = (0x302E, 0x302F)
+# `_hb_modified_combining_class` (hb-unicode.cc): Hebrew points in the SBL
+# order, shadda before the other harakat; the classes of the refused
+# scripts it changes too
+_MODIFIED_CCC = {10: 22, 11: 15, 12: 16, 13: 17, 14: 23, 15: 18, 16: 19, 17: 20, 18: 21, 19: 14, 20: 24, 21: 12,
+                 22: 25, 23: 13, 24: 10, 25: 11, 27: 28, 28: 29, 29: 30, 30: 31, 31: 32, 32: 33, 33: 27, 84: 0,
+                 91: 0, 103: 3, 130: 132, 132: 131}
+# `modifier_combining_marks` (hb-ot-shaper-arabic.cc, UTR #53): moved to the
+# front of their class-220 / 230 run of marks
+_ARABIC_MCM = frozenset((0x0654, 0x0655, 0x0658, 0x06DC, 0x06E3, 0x06E7, 0x06E8, 0x08CA, 0x08CB, 0x08CD, 0x08CE,
+                         0x08CF, 0x08D3, 0x08F3))
 # HarfBuzz's native direction of a script (`hb_script_get_horizontal_direction`)
 LTR_SCRIPT, RTL_SCRIPT, NO_DIRECTION = range(3)
 
@@ -109,6 +142,51 @@ def font_size(dpi: int) -> int:
 
 def _is_mark(cp: int) -> bool:
     return unicodedata.category(chr(cp))[0] == "M"
+
+
+def _modified_ccc(cp: int) -> int:
+    """HarfBuzz's modified combining class of a code point."""
+    if cp in (0x1A60, 0x0FC6):
+        return 254
+    if cp == 0x0F39:
+        return 127
+    ccc = unicodedata.combining(chr(cp))
+    return _MODIFIED_CCC.get(ccc, ccc)
+
+
+def _reorder_marks(cps: Sequence[int], ccc: List[int], shaper: int) -> List[int]:
+    """The shaper's `reorder_marks` over one run of marks sorted by
+    modified class -> the new order (indices into the run); `ccc` is
+    renumbered in place. Arabic: the modifier combining marks of class 220
+    and 230 move to the front (as classes 25 and 26); Hebrew: a patah or
+    qamats before a sheva or hiriq before a meteg or a below mark swaps
+    the last two."""
+    order = list(range(len(cps)))
+    if shaper == HEBREW_SHAPER:
+        for i in range(2, len(order)):
+            if ccc[i - 2] in (20, 21) and ccc[i - 1] in (22, 23) and ccc[i] in (25, 220):
+                order[i - 1], order[i] = order[i], order[i - 1]
+                ccc[i - 1], ccc[i] = ccc[i], ccc[i - 1]
+                break
+    elif shaper == ARABIC_SHAPER:
+        i = start = 0
+        for cc in (220, 230):
+            while i < len(order) and ccc[i] < cc:
+                i += 1
+            if i == len(order):
+                break
+            if ccc[i] > cc:
+                continue
+            j = i
+            while j < len(order) and ccc[j] == cc and cps[order[j]] in _ARABIC_MCM:
+                j += 1
+            if i == j:
+                continue
+            order[start:j] = order[i:j] + order[start:i]
+            ccc[start:j] = [25 if cc == 220 else 26] * (j - i) + ccc[start:i]
+            start += j - i
+            i = j
+    return order
 
 
 def _is_variation_selector(cp: int) -> bool:
@@ -191,9 +269,8 @@ class ShapedFont:
 
     def __init__(self, z, size: int):
         chars = z["chars"].tolist()
-        ligatures = [str(t) for t in z["ligatures"]]
         self.token_of = {c: i for i, c in enumerate(chars)}
-        self.notdef = len(chars) + len(ligatures) + len(z["forms"])
+        self.notdef = len(chars) + len(z["ligatures"]) + len(z["forms"]) + len(z["extra_glyphs"])
         self.hidden = int(np.flatnonzero(z["hidden"])[0])   # the invisible token of every default-ignorable
         self.cmap = set(z["cmap"].tolist())
         self.glyphs = z["glyphs"].tolist()
@@ -204,12 +281,8 @@ class ShapedFont:
         self.offsets = z[f"offsets_{size}"].tolist()
         self.advances = z[f"advances_{size}"].tolist()
         self.kern = {(int(t), int(a), int(b)): int(v) for t, a, b, v in z[f"kern_{size}"]}
-        # per OpenType script tag and first character: the ligatures (code
-        # points, token) in the order HarfBuzz tries them
-        self.ligatures: Dict[int, Dict[int, List[Tuple[Tuple[int, ...], int]]]] = {}
-        for i, (lig, tag) in enumerate(zip(ligatures, z["ligature_tags"].tolist())):
-            self.ligatures.setdefault(tag, {}).setdefault(ord(lig[0]), []).append(
-                (tuple(map(ord, lig)), len(chars) + i))
+        self.marks = marks.MarkTables(z, size)
+        self._gsub_tables(z)
         self.class_starts = z["class_starts"]
         self.class_values = z["class_values"]
         ends = np.append(self.class_starts[1:], 0x110000)
@@ -225,6 +298,7 @@ class ShapedFont:
         self.brackets = {}
         for k, (o, c) in enumerate(z["brackets"].tolist()):
             self.brackets[o], self.brackets[c] = 2 * k, 2 * k + 1
+        self.hebrew = codes.index("Hebr")
         self.compose = {(int(a), int(b)): int(c) for a, b, c in z["compose"]}
         self.lig_blockers = set(z["lig_blockers"].tolist())
         self.contextual = set(z["contextual"].tolist())
@@ -233,16 +307,49 @@ class ShapedFont:
         self.bidi_brackets = dict(z["bidi_brackets"].tolist())
         self.mirror = dict(z["mirror"].tolist())
         self.script_directions = z["script_directions"].tolist()
-        # Arabic: joining types, the form features' substitutions, the lam-alef ligatures per stage
+        # Arabic: joining types, the form features' substitutions; the default-ignorables each
+        # ligature stage does not match across
         self.arabic = codes.index("Arab")
         self.joining_starts, self.joining_values = z["joining_starts"], z["joining_values"]
         self.forms: Dict[int, Dict[int, int]] = {}
         for action, a, b in z["arabic_forms"].tolist():
             self.forms.setdefault(action, {})[a] = b
-        self.arabic_ligatures: List[Dict[int, List[Tuple[Tuple[int, ...], int]]]] = [{}, {}]
-        for stage, out, first, second in z["arabic_ligatures"].tolist():
-            self.arabic_ligatures[stage].setdefault(first, []).append(((second,), out))
-        self.arabic_blockers = [set(z["rlig_blockers"].tolist()), set(z["arabic_liga_blockers"].tolist())]
+        self.stage_blockers = [self.lig_blockers, set(z["rlig_blockers"].tolist()),
+                               set(z["arabic_liga_blockers"].tolist())]
+
+    def _gsub_tables(self, z) -> None:
+        """The GSUB lookups the mirror applies: per OpenType script tag its
+        stages (0: the default shaper's single stage, or the Arabic
+        shaper's ccmp; 1: `rlig`; 2: `liga`), each a list of lookups; the
+        ligature lookups' rows in the order HarfBuzz tries them; the ccmp
+        chain-context lookups (class-based, one input glyph) and the single
+        substitutions they call."""
+        self.stages: Dict[int, List[List[int]]] = {}
+        for tag, stage, lookup in z["gsub_lookups"].tolist():
+            stages = self.stages.setdefault(tag, [[], [], []])
+            stages[stage].append(lookup)
+        self.gsub_flags = dict(z["gsub_flags"].tolist())
+        self.lig_tables: Dict[int, Dict[int, List[Tuple[Tuple[int, ...], int]]]] = {}
+        for lookup, out, *comps in z["gsub_ligatures"].tolist():
+            comps = [c for c in comps if c >= 0]
+            self.lig_tables.setdefault(lookup, {}).setdefault(comps[0], []).append((tuple(comps[1:]), out))
+        self.singles: Dict[int, Dict[int, int]] = {}
+        for lookup, a, b in z["single_substs"].tolist():
+            self.singles.setdefault(lookup, {})[a] = b
+        # chains[lookup][subtable] = (coverage, (backtrack, input, lookahead) class defs, rules per input class)
+        self.chains: Dict[int, List[tuple]] = {}
+        for lookup, sub, which, glyph, cls in z["chain_classes"].tolist():
+            subs = self.chains.setdefault(lookup, [])
+            while len(subs) <= sub:
+                subs.append((set(), ({}, {}, {}), {}))
+            if which == 3:
+                subs[sub][0].add(glyph)
+            else:
+                subs[sub][1][which][glyph] = cls
+        for lookup, sub, cls, nested, *ctx in z["chain_rules"].tolist():
+            back = tuple(c for c in ctx[:3] if c >= 0)
+            ahead = tuple(c for c in ctx[3:] if c >= 0)
+            self.chains[lookup][sub][2].setdefault(cls, []).append((back, ahead, nested))
 
     # ------------------------------------------------------------ lookups
 
@@ -325,11 +432,14 @@ class ShapedFont:
             return cp, self._token(cp)
         return cp, self.hidden if cp in self.hidden_cps else self.notdef
 
-    def normalize(self, cps: Sequence[int], compose: bool) -> List[Tuple[int, Optional[int]]]:
-        """`_hb_ot_shape_normalize` over one run: decompose, reorder marks,
-        recompose (`compose`: HarfBuzz's COMPOSED_DIACRITICS mode; the
-        Hangul shaper's NONE mode neither recomposes nor decomposes a
-        cluster fully)."""
+    def normalize(self, cps: Sequence[int], shaper: int) -> List[Tuple[int, Optional[int], bool]]:
+        """`_hb_ot_shape_normalize` over one run: decompose, reorder marks
+        by modified combining class (then the shaper's `reorder_marks`),
+        recompose (HarfBuzz's COMPOSED_DIACRITICS mode; the Hangul
+        shaper's NONE mode neither recomposes nor decomposes a cluster
+        fully) -> (code point, token, whether it is a CGJ that stays
+        hidden from GSUB: one that kept marks out of order)."""
+        compose = shaper != HANGUL_SHAPER
         out: List[Tuple[int, Optional[int]]] = []
         all_simple = True
         i = 0
@@ -349,8 +459,8 @@ class ShapedFont:
                         out.extend(self._glyphs(c, not compose))
             i = j
         if all_simple:
-            return out
-        ccc = [unicodedata.combining(chr(c)) for c, _ in out]
+            return [(c, t, False) for c, t in out]
+        ccc = [_modified_ccc(c) if _is_mark(c) else 0 for c, _ in out]
         i = 0
         while i < len(out):   # canonical order: each run of marks sorted by combining class
             if not ccc[i]:
@@ -363,44 +473,32 @@ class ShapedFont:
                 order = sorted(range(i, j), key=lambda k: ccc[k])
                 out[i:j] = [out[k] for k in order]
                 ccc[i:j] = [ccc[k] for k in order]
+                run_ccc = ccc[i:j]
+                order = _reorder_marks([c for c, _ in out[i:j]], run_ccc, shaper)
+                out[i:j] = [out[i + k] for k in order]
+                ccc[i:j] = run_ccc
             i = j
+        # a CGJ that kept marks out of order stays hidden: GSUB does not pass over it
+        out = [(c, t, c == CGJ and not (0 < k < len(out) - 1 and (not ccc[k + 1] or ccc[k - 1] <= ccc[k + 1])))
+               for k, (c, t) in enumerate(out)]
         if not compose:
             return out
-        res: List[Tuple[int, Optional[int]]] = [out[0]]
+        res: List[Tuple[int, Optional[int], bool]] = [out[0]]
         res_ccc = [ccc[0]]
         starter = 0
-        for (cp, tok), cc in zip(out[1:], ccc[1:]):
+        for (cp, tok, held), cc in zip(out[1:], ccc[1:]):
             if _is_mark(cp) and (starter == len(res) - 1 or res_ccc[-1] < cc):
                 composed = self.compose.get((res[starter][0], cp))
                 if composed is not None:
-                    res[starter] = (composed, self._token(composed))
+                    res[starter] = (composed, self._token(composed), False)
                     continue
-            res.append((cp, tok))
+            res.append((cp, tok, held))
             res_ccc.append(cc)
             if not cc:
                 starter = len(res) - 1
         return res
 
     # ------------------------------------------------------------- shaping
-
-    def _ligature_at(self, items: List[Tuple[int, Optional[int]]], i: int, tag: int):
-        """The first ligature (font order) starting at `items[i]`, matched
-        across the default-ignorables that do not block one, -> (token,
-        the ignorables it skipped (they follow the ligature), the number of
-        items it spans), or None."""
-        for comps, tok in self.ligatures[tag].get(items[i][0], ()):
-            j, skipped = i, []
-            for k, ch in enumerate(comps):
-                while (k and j < len(items) and items[j][0] != ch and items[j][1] == self.hidden
-                       and items[j][0] not in self.lig_blockers):
-                    skipped.append(items[j][1])
-                    j += 1
-                if j >= len(items) or items[j][0] != ch:
-                    break
-                j += 1
-            else:
-                return tok, skipped, j - i
-        return None
 
     def _continues(self, cps: Sequence[int], i: int) -> bool:
         """Whether `cps[i]` continues the grapheme before it (HarfBuzz's
@@ -454,66 +552,99 @@ class ShapedFont:
             return not (number or regional)
         return native == RTL_SCRIPT
 
-    def _checked(self, items: List[Tuple[int, Optional[int]]]) -> None:
+    def _shaper(self, script: int) -> int:
+        if script == self.arabic:
+            return ARABIC_SHAPER
+        if script == self.hebrew:
+            return HEBREW_SHAPER
+        return DEFAULT_SHAPER if self.script_composes[script] else HANGUL_SHAPER
+
+    def _checked(self, items: List[Tuple[int, Optional[int], bool]], shaper: int) -> None:
         prev = None
-        for cp, tok in items:
+        for cp, tok, _ in items:
             if tok is None:
-                raise self.refusal(cp, "is a combining mark that does not compose with its base into a character "
-                                       "the font maps: it needs the font's GPOS mark anchors")
+                cls = self.classes([cp])[0]
+                raise self.refusal(cp, _REFUSAL.get(cls, "takes a glyph the atlas does not hold"))
             if tok == self.hidden:
                 continue
+            if shaper == HANGUL_SHAPER and cp in HANGUL_TONE_MARKS:
+                raise self.refusal(cp, "is a Hangul tone mark, which HarfBuzz's Hangul shaper moves in front of its "
+                                       "syllable or gives a dotted circle")
             if prev is not None and prev in self.contextual and cp in self.contextual:
                 raise self.refusal(cp, f"follows U+{prev:04X}: tone letters in sequence take the font's contextual "
                                        "(ccmp) contour forms")
             prev = cp
-
-    def _default_shaper(self, items: List[Tuple[int, int]], tag: int) -> List[int]:
-        if tag not in self.ligatures:
-            return [t for _, t in items]
-        out, i = [], 0
-        while i < len(items):
-            lig = self._ligature_at(items, i, tag)
-            if lig is None:
-                out.append(items[i][1])
-                i += 1
-            else:
-                out.append(lig[0])
-                out.extend(lig[1])
-                i += lig[2]
-        return out
-
-    def _arabic_shaper(self, items: List[Tuple[int, int]], line: Sequence[int], start: int, end: int) -> List[int]:
-        """`arabic`'s joining, forms and ligatures over one run's items (in
-        shaping order); the line around the run is its joining context. A
-        token keeps its own advance where no substitution changed its glyph
-        (the spaces the font lacks share the space glyph)."""
-        before = self.joining(line[max(0, start - arabic.CONTEXT):start][::-1])
-        after = self.joining(line[end:end + arabic.CONTEXT])
-        actions = arabic.joining_actions(self.joining([cp for cp, _ in items]), before, after)
-        cps = [cp for cp, _ in items]
-        tokens = [tok for _, tok in items]
-        glyphs = [-1 if tok == self.hidden else self.glyphs[tok] for tok in tokens]
-        for k, action in enumerate(actions):
-            g = self.forms.get(action, {}).get(glyphs[k])
-            if g is not None:
-                glyphs[k], tokens[k] = g, self._glyph_token(cps[k], g)
-        for table, blockers in zip(self.arabic_ligatures, self.arabic_blockers):
-            skippable = [tok == self.hidden and cp not in blockers for cp, tok in zip(cps, tokens)]
-            out, source = arabic.ligate(glyphs, skippable, table)
-            tokens = [tokens[k] if g == glyphs[k] else self._glyph_token(cps[k], g) for g, k in zip(out, source)]
-            cps = [cps[k] for k in source]
-            glyphs = out
-        return tokens
 
     def _glyph_token(self, cp: int, glyph: int) -> int:
         if glyph not in self.token_of_glyph:
             raise self.refusal(cp, f"takes glyph {glyph}, which the atlas lacks")
         return self.token_of_glyph[glyph]
 
-    def shape_run(self, line: Sequence[int], start: int, end: int, script: int, rtl: bool) -> List[Tuple[int, int]]:
-        """One raqm run of the line, `line[start:end]` -> (token, advance in
-        1/64 px) in visual order. The run at the line's start, when it
-        starts with a mark, gets HarfBuzz's dotted circle in front."""
+    def _context(self, run: List[Item], i: int, step: int, classes: Tuple[int, ...], class_def,
+                 blockers) -> bool:
+        """Whether the glyphs before (`step` -1) or after (+1) `run[i]`
+        have the chain rule's `classes`, across the default-ignorables a
+        context skips (all but the hidden ones GSUB does not skip: the
+        `blockers` other than ZWNJ, and a CGJ held hidden)."""
+        j = i
+        for cls in classes:
+            j += step
+            while 0 <= j < len(run) and run[j].ignorable and not run[j].held and (run[j].cp not in blockers
+                                                                                or run[j].cp == ZWNJ):
+                j += step
+            if not 0 <= j < len(run) or run[j].ignorable or class_def.get(run[j].glyph, 0) != cls:
+                return False
+        return True
+
+    def _chain(self, run: List[Item], lookup: int, blockers) -> None:
+        """A ccmp chain-context lookup (class-based rules of one input
+        glyph), in place: the first rule that matches applies its single
+        substitution."""
+        for i, item in enumerate(run):
+            if item.ignorable:
+                continue
+            for coverage, (back_def, input_def, ahead_def), rules in self.chains[lookup]:
+                if item.glyph not in coverage:
+                    continue
+                hit = next((nested for back, ahead, nested in rules.get(input_def.get(item.glyph, 0), ())
+                            if self._context(run, i, -1, back, back_def, blockers)
+                            and self._context(run, i, 1, ahead, ahead_def, blockers)), None)
+                if hit is not None:
+                    item.glyph = self.singles[hit].get(item.glyph, item.glyph)
+                    break
+
+    def _substitute(self, run: List[Item], lookups: Sequence[int], blockers, lig_ids) -> List[Item]:
+        """A stage's lookups in order; then each glyph a substitution
+        changed takes its token."""
+        for lookup in lookups:
+            if lookup in self.chains:
+                self._chain(run, lookup, blockers)
+            elif not self.lig_tables[lookup].keys().isdisjoint([it.glyph for it in run]):
+                ignore_marks = bool(self.gsub_flags[lookup] & marks.IGNORE_MARKS)
+                run = arabic.ligate(run, self.lig_tables[lookup], self.marks.classes, ignore_marks, blockers,
+                                    lig_ids)
+        for item in run:
+            if not item.ignorable and self.glyphs[item.tok] != item.glyph:
+                item.tok = self._glyph_token(item.cp, item.glyph)
+        return run
+
+    def _arabic_forms(self, run: List[Item], line: Sequence[int], start: int, end: int) -> None:
+        """`arabic`'s joining and form features over one run (in shaping
+        order); the line around the run is its joining context."""
+        before = self.joining(line[max(0, start - arabic.CONTEXT):start][::-1])
+        after = self.joining(line[end:end + arabic.CONTEXT])
+        actions = arabic.joining_actions(self.joining([it.cp for it in run]), before, after)
+        for item, action in zip(run, actions):
+            g = None if item.ignorable else self.forms.get(action, {}).get(item.glyph)
+            if g is not None:
+                item.glyph = g
+
+    def shape_run(self, line: Sequence[int], start: int, end: int, script: int, rtl: bool
+                  ) -> List[Tuple[int, int, int, int]]:
+        """One raqm run of the line, `line[start:end]` -> (token, advance,
+        x offset, y offset, in 1/64 px) in visual order. The run at the
+        line's start, when it starts with a mark, gets HarfBuzz's dotted
+        circle in front."""
         cps = list(line[start:end])
         if not start and cps and _is_mark(cps[0]) and DOTTED_CIRCLE in self.cmap:
             cps = [DOTTED_CIRCLE, *cps]
@@ -522,22 +653,27 @@ class ShapedFont:
         native_rtl = self._native_rtl(cps, script, rtl)
         if native_rtl != rtl:
             cps = self._reverse_graphemes(cps)
-        items = self.normalize(cps, bool(self.script_composes[script]))
-        self._checked(items)
+        shaper = self._shaper(script)
+        items = self.normalize(cps, shaper)
+        self._checked(items, shaper)
         tag = self.script_tags[script]
-        if script == self.arabic:
-            ids = self._arabic_shaper(items, line, start, end)
-        else:
-            ids = self._default_shaper(items, tag)
-        out, nxt = [], len(ids)
-        for k in range(len(ids) - 1, -1, -1):   # kerning with the next visible token, in shaping order
-            adv = self.advances[ids[k]]
-            if ids[k] != self.hidden and nxt < len(ids):
-                adv += self.kern.get((tag, self.glyphs[ids[k]], self.glyphs[ids[nxt]]), 0)
-            out.append((ids[k], adv))
-            if ids[k] != self.hidden:
-                nxt = k
-        return out if native_rtl else out[::-1]
+        run = [Item(cp, tok, self.glyphs[tok], tok == self.hidden, held) for cp, tok, held in items]
+        lig_ids = itertools.count(1)   # HarfBuzz's ligature ids, one a ligature formed
+        for stage, lookups in enumerate(self.stages.get(tag, [[], [], []])):
+            run = self._substitute(run, lookups, self.stage_blockers[stage], lig_ids)
+            if stage == 0 and shaper == ARABIC_SHAPER:   # the form features come between ccmp and rlig
+                self._arabic_forms(run, line, start, end)
+        advances = [self.advances[it.tok] for it in run]
+        nxt = None
+        for k in range(len(run) - 1, -1, -1):   # kerning with the next glyph GPOS does not skip
+            if run[k].ignorable:
+                continue
+            if nxt is not None:
+                advances[k] += self.kern.get((tag, run[k].glyph, run[nxt].glyph), 0)
+            nxt = k
+        adv, xo, yo = self.marks.position(tag, run, advances, native_rtl, shaper != HANGUL_SHAPER)
+        out = [(it.tok, a, x, y) for it, a, x, y in zip(run, adv, xo, yo)]
+        return out[::-1] if native_rtl else out
 
     def runs(self, line: str) -> List[Tuple[int, int, int, bool]]:
         """The raqm runs of a line in visual order -> (start, end, script,
@@ -547,7 +683,10 @@ class ShapedFont:
         for cp, cls in zip(cps, self.classes(cps)):
             if cls >= SHAPER:
                 raise self.refusal(cp, _REFUSAL[cls])
-        scripts = self.resolve_scripts(cps, self.scripts(cps))
+        # raqm resolves a nonspacing mark of any script as Inherited: it stays in its base's run
+        scripts = [self.inherited if unicodedata.category(chr(cp)) == "Mn" else s
+                   for cp, s in zip(cps, self.scripts(cps))]
+        scripts = self.resolve_scripts(cps, scripts)
         types = self.bidi_types(cps)
         if bidi.needs_bidi(types):
             why = bidi.refusal(types)
@@ -573,10 +712,11 @@ class ShapedFont:
         places, pen = [], 0
         cps = [ord(c) for c in line]
         for start, end, script, rtl in self.runs(line):
-            for t, adv in self.shape_run(cps, start, end, script, rtl):
+            for t, adv, xo, yo in self.shape_run(cps, start, end, script, rtl):
                 m = self.masks[t]
-                if m.size:
-                    places.append((((pen + 32) >> 6) + self.offsets[t][0], self.offsets[t][1], m))
+                if m.size:   # Pillow: PIXEL(pen + x offset), the y offset upwards
+                    places.append((((pen + xo + 32) >> 6) + self.offsets[t][0],
+                                   self.offsets[t][1] - ((yo + 32) >> 6), m))
                 pen += adv
         return places, pen
 

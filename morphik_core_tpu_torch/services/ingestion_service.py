@@ -73,7 +73,7 @@ from morphik_core_tpu_torch.parser.morphik_parser import MorphikParser
 from morphik_core_tpu_torch.parser.office import pptx_to_slides
 from morphik_core_tpu_torch.parser.pdf import extract_pages_text, rasterize_pdf
 from morphik_core_tpu_torch.parser.raster_pool import PageStream, RasterPool
-from morphik_core_tpu_torch.parser.text_render import render_text_page
+from morphik_core_tpu_torch.parser.text_render import UnsupportedText, render_text_page
 from morphik_core_tpu_torch.storage.base_storage import BaseStorage
 from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX, detect_content_type, is_colpali_native_format
 from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
@@ -387,6 +387,8 @@ class IngestionService:
             return doc
         except Exception as e:
             logger.exception("ingestion of %s failed", document_id)
+            if isinstance(e, UnsupportedText):
+                await self._drop_refused_rows(document_id, auth)
             await self.db.update_document(
                 document_id, {"system_metadata": {"status": "failed", "error": str(e)}}, auth
             )
@@ -396,6 +398,18 @@ class IngestionService:
         finally:
             if stream is not None:
                 await stream.aclose()
+
+    async def _drop_refused_rows(self, document_id: str, auth: AuthContext) -> None:
+        """Delete what a job refused by the port's own renderer stored
+        before the refusal (its text chunks, the pages of a PDF embedded
+        before the refused one) from both stores. The reference draws such
+        a page and completes, so no row of the failed document may stay
+        searchable or counted. `_embed_and_store` has unwound by now: no
+        batch is in flight to be stored after the delete. Other failures
+        keep their rows, as the reference's do."""
+        if self.colpali_vector_store is not None:
+            await self.colpali_vector_store.delete_chunks_by_document_id(document_id, auth.app_id)
+        await self.vector_store.delete_chunks_by_document_id(document_id, auth.app_id)
 
     def _write_ingestion_summary(self, doc: Document, *, status: str, total_s: float,
                                  phase_times: Dict[str, float], n_text: int = 0, n_pages: int = 0,

@@ -675,6 +675,50 @@ _RTL_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textwr
     """
 ) + _LEAKS
 
+_MARK_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, base64, types
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.parser.office import docx_to_text
+    from morphik_core_tpu_torch.parser.raster_pool import RasterPool
+    from morphik_core_tpu_torch.parser.text_render import UnsupportedText
+    from morphik_core_tpu_torch.services.ingestion_service import IngestionService
+    from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
+
+    z = np.load(sys.argv[1] + "/tests/fixtures/mark_pages.npz")
+
+    def unpack(key):
+        flat, sizes = z[key].tobytes(), z[key + "_sizes"]
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        return [flat[a:b] for a, b in zip(starts, starts[1:])]
+
+    def font_libraries(maps):
+        return [line for line in maps.splitlines() if any(n in line for n in ("fribidi", "harfbuzz", "freetype"))]
+
+    settings = types.SimpleNamespace(settings=Settings())
+    for kind, ctype in (("docx", DOCX), ("pptx", PPTX)):
+        data = z[kind].tobytes()
+        chunks = IngestionService._create_chunks_multivector(settings, ctype, data,
+                                                             docx_to_text(data) if kind == "docx" else "")
+        assert [base64.b64decode(c.content.split(",", 1)[1]) for c in chunks] == unpack(kind + "_payloads"), kind
+    pool = RasterPool(2)
+    try:
+        pages = asyncio.run(pool.rasterize_pdf_jpegs(z["pdf"].tobytes(), dpi=150))
+        assert [p[1] for p in pages] == unpack("pdf_payloads")
+        try:
+            asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
+            raise AssertionError("the Syriac page was not refused")
+        except UnsupportedText as e:
+            assert "U+072B" in str(e) and "3b-ii" in str(e), e
+        child = pool._pool.submit(eval, "open('/proc/self/maps').read()").result()
+    finally:
+        pool.shutdown()
+    assert "morphik_core_tpu_torch.parser.marks" in sys.modules
+    assert not font_libraries(open("/proc/self/maps").read()) and not font_libraries(child)
+    assert sys.modules["fontTools"] is None
+    """
+) + _LEAKS
+
 
 def test_evals_run_with_jax_pil_pydantic_httpx_blocked():
     proc = subprocess.run(
@@ -736,6 +780,17 @@ def test_rtl_pages_render_with_jax_pil_fonttools_blocked():
     libfribidi or libharfbuzz."""
     proc = subprocess.run(
         [sys.executable, "-c", _RTL_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_mark_pages_render_with_jax_pil_fonttools_blocked():
+    """The marks placed by `parser/marks.py` (the DOCX, PPTX and PDF of
+    `tests/fixtures/mark_pages.npz`) store the reference's payloads, the
+    Syriac page is refused, with jax, PIL and fontTools unimportable; no
+    process maps libfribidi, libharfbuzz or FreeType."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _MARK_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
 

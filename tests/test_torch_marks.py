@@ -1,0 +1,197 @@
+"""Combining marks placed as the reference places them, on the CPU.
+Tolerance: exact (uint8 pixels; glyph ids, advances and offsets in 26.6).
+
+- Seeded lines (numpy) of a base and one to three marks in Latin,
+  Cyrillic, Greek, Hebrew and Arabic (harakat, tanween, shadda stacks,
+  lam-alef with marks), mixed-direction lines, and marks on digits and
+  symbols (runs whose script tag has no GPOS `mark`: HarfBuzz leaves them
+  unplaced, the font having a GPOS table), with the odd joiner between
+  marks: `render_text_page` equals the reference's `_render_text_page`
+  pixel for pixel at dpi 150 and 100, a page of lines at a time.
+- Each raqm run of those lines, shaped by `ShapedFont.shape_run`, equals
+  what Pillow's own HarfBuzz (hb-ft over Pillow's FreeType, through ctypes
+  here only) gives for that run in that line: glyph for glyph, advance
+  and x / y offset, at 18 and 12 px.
+- The lines' bidi levels equal libfribidi's (marks are NSM, FriBiDi's W1).
+"""
+
+import ctypes
+import unicodedata
+from pathlib import Path
+
+import numpy as np
+import PIL
+import PIL._imagingft  # noqa: F401  (maps the libraries Pillow's HarfBuzz and FreeType need)
+import pytest
+from PIL import ImageFont
+
+from morphik_core_tpu.parser.pdf import _render_text_page
+from morphik_core_tpu_torch.parser import bidi, marks, text_render
+from morphik_core_tpu_torch.parser.text_render import GLYPH, load_font, render_text_page
+
+from test_torch_bidi import FRIBIDI, _fribidi, _types
+
+SEED = 21
+LINES = 40   # a page of them
+KINDS = ["latin", "cyrillic", "greek", "hebrew", "arabic", "mixed", "unplaced"]
+
+
+def _atlas_pools():
+    with np.load(text_render.ATLAS_PATH) as z:
+        starts, values = z["class_starts"], z["class_values"]
+        codes = np.array([str(c) for c in z["scripts"]])
+        script = codes[z["script_values"][np.searchsorted(z["script_starts"], np.arange(0x110000), side="right") - 1]]
+    cps = np.arange(0x110000)
+    drawn = values[np.searchsorted(starts, cps, side="right") - 1] == GLYPH
+    is_mark = np.zeros(0x110000, bool)
+    is_mark[:0x30000] = [unicodedata.category(chr(c))[0] == "M" for c in range(0x30000)]
+    letters = {s: cps[drawn & ~is_mark & (script == s)] for s in ("Latn", "Cyrl", "Grek", "Hebr", "Arab", "Zyyy")}
+    mark_pools = {s: cps[drawn & is_mark & (script == s)] for s in ("Zinh", "Cyrl", "Hebr", "Arab")}
+    return letters, mark_pools
+
+
+HARAKAT = [chr(c) for c in range(0x064B, 0x0653)] + ["ٰ"]
+JOINERS = "‌‍͏\xad"
+
+
+def _word(rng, script, letters, mark_pools) -> str:
+    """A base of `script` with 0-3 marks (the script's own and Inherited
+    ones), now and then a joiner between them; an Arabic lam before an
+    alef, with marks on both."""
+    base = chr(int(rng.choice(letters[script])))
+    own = {"Hebr": "Hebr", "Arab": "Arab", "Cyrl": "Cyrl"}.get(script)
+    out = []
+    for _ in range(int(rng.integers(0, 4))):
+        if script == "Arab" and rng.random() < 0.7:
+            out.append(HARAKAT[int(rng.integers(len(HARAKAT)))])
+        elif own is not None and rng.random() < 0.6:
+            out.append(chr(int(rng.choice(mark_pools[own]))))
+        else:
+            out.append(chr(int(rng.choice(mark_pools["Zinh"]))))
+        if rng.random() < 0.05:
+            out.append(JOINERS[int(rng.integers(len(JOINERS)))])
+    word = base + "".join(out)
+    if script == "Arab" and rng.random() < 0.2:
+        word = "ل" + "".join(out) + "ا" + HARAKAT[int(rng.integers(len(HARAKAT)))] * int(rng.integers(2))
+    return word
+
+
+def mark_lines(kind: str, n: int = LINES):
+    """`n` seeded lines of `kind`, each short of a page's `max_chars`."""
+    letters, mark_pools = _atlas_pools()
+    rng = np.random.default_rng([SEED, KINDS.index(kind)])
+    scripts = {"latin": ["Latn"], "cyrillic": ["Cyrl"], "greek": ["Grek"], "hebrew": ["Hebr"], "arabic": ["Arab"],
+               "mixed": ["Latn", "Cyrl", "Hebr", "Arab", "Grek"], "unplaced": ["Zyyy"]}[kind]
+    lines = []
+    while len(lines) < n:
+        words = []
+        for _ in range(int(rng.integers(1, 9))):
+            words.append(_word(rng, scripts[int(rng.integers(len(scripts)))], letters, mark_pools))
+        line = " ".join(words)
+        if len(line) <= 60:
+            lines.append(line)
+    return lines
+
+
+@pytest.mark.parametrize("dpi", [150, 100])
+@pytest.mark.parametrize("kind", KINDS)
+def test_mark_lines_match_reference_pixels(kind, dpi):
+    lines = mark_lines(kind)
+    got = render_text_page("\n".join(lines), dpi)
+    want = np.asarray(_render_text_page("\n".join(lines), dpi))
+    if not np.array_equal(got, want):   # name the first line drawn otherwise
+        for line in lines:
+            assert np.array_equal(render_text_page(line, dpi), np.asarray(_render_text_page(line, dpi))), repr(line)
+    assert np.array_equal(got, want)
+
+
+class _HarfBuzz:
+    """Pillow's HarfBuzz over hb-ft on Pillow's FreeType, one run at a time
+    as raqm calls it: the whole line as context, BOT / EOT at its ends."""
+
+    def __init__(self):
+        libs = Path(PIL.__file__).parent.parent / "pillow.libs"
+        self.ft = ctypes.CDLL(str(sorted(libs.glob("libfreetype*.so*"))[0]))
+        self.hb = ctypes.CDLL(str(sorted(libs.glob("libharfbuzz*.so*"))[0]))
+        vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+        self.ft.FT_Init_FreeType.argtypes = [ctypes.POINTER(vp)]
+        self.ft.FT_New_Face.argtypes = [vp, ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(vp)]
+        self.ft.FT_Set_Pixel_Sizes.argtypes = [vp, ctypes.c_uint, ctypes.c_uint]
+        for name, res, args in [
+                ("hb_ft_font_create_referenced", vp, [vp]), ("hb_buffer_create", vp, []),
+                ("hb_buffer_destroy", None, [vp]), ("hb_buffer_set_flags", None, [vp, ctypes.c_int]),
+                ("hb_buffer_add_utf32", None, [vp, ctypes.POINTER(u32), ctypes.c_int, ctypes.c_uint, ctypes.c_int]),
+                ("hb_buffer_set_direction", None, [vp, ctypes.c_int]), ("hb_buffer_set_script", None, [vp, u32]),
+                ("hb_script_from_string", u32, [ctypes.c_char_p, ctypes.c_int]),
+                ("hb_language_get_default", vp, []), ("hb_buffer_set_language", None, [vp, vp]),
+                ("hb_shape", None, [vp, vp, vp, ctypes.c_uint]),
+                ("hb_buffer_get_glyph_infos", ctypes.POINTER(u32 * 5), [vp, ctypes.POINTER(ctypes.c_uint)]),
+                ("hb_buffer_get_glyph_positions", ctypes.POINTER(ctypes.c_int32 * 5), [vp, ctypes.POINTER(ctypes.c_uint)])]:
+            fn = getattr(self.hb, name)
+            fn.restype, fn.argtypes = res, args
+        self.lib = vp()
+        assert self.ft.FT_Init_FreeType(ctypes.byref(self.lib)) == 0
+        self.fonts = {}
+        self.path = ImageFont.truetype(text_render.FONT_NAME, 18).path.encode()
+
+    def font(self, size: int):
+        if size not in self.fonts:
+            face = ctypes.c_void_p()
+            assert self.ft.FT_New_Face(self.lib, self.path, 0, ctypes.byref(face)) == 0
+            assert self.ft.FT_Set_Pixel_Sizes(face, 0, size) == 0
+            self.fonts[size] = (face, self.hb.hb_ft_font_create_referenced(face))
+        return self.fonts[size][1]
+
+    def shape(self, line: str, start: int, end: int, script: str, rtl: bool, size: int):
+        """-> [(glyph, x advance, x offset, y offset)] in visual order."""
+        hb = self.hb
+        buf = hb.hb_buffer_create()
+        text = (ctypes.c_uint32 * len(line))(*map(ord, line))
+        hb.hb_buffer_set_flags(buf, (1 if start == 0 else 0) | (2 if end == len(line) else 0))
+        hb.hb_buffer_add_utf32(buf, text, len(line), start, end - start)
+        hb.hb_buffer_set_direction(buf, 5 if rtl else 4)
+        hb.hb_buffer_set_script(buf, hb.hb_script_from_string(script.encode(), -1))
+        hb.hb_buffer_set_language(buf, hb.hb_language_get_default())
+        hb.hb_shape(self.font(size), buf, None, 0)
+        n = ctypes.c_uint()
+        infos = hb.hb_buffer_get_glyph_infos(buf, ctypes.byref(n))
+        pos = hb.hb_buffer_get_glyph_positions(buf, ctypes.byref(n))
+        out = [(infos[i][0], pos[i][0], pos[i][2], pos[i][3]) for i in range(n.value)]
+        hb.hb_buffer_destroy(buf)
+        return out
+
+
+@pytest.fixture(scope="module")
+def harfbuzz():
+    return _HarfBuzz()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_mark_runs_match_harfbuzz(kind, harfbuzz):
+    with np.load(text_render.ATLAS_PATH) as z:
+        codes = [str(c) for c in z["scripts"]]
+    for dpi in (150, 100):
+        font = load_font(dpi)
+        for line in mark_lines(kind):
+            cps = [ord(c) for c in line]
+            for start, end, script, rtl in font.runs(line):
+                got = [(font.glyphs[t], a, x, y) for t, a, x, y in font.shape_run(cps, start, end, script, rtl)]
+                want = harfbuzz.shape(line, start, end, codes[script], rtl, text_render.font_size(dpi))
+                assert got == want, (line, start, end, codes[script], rtl, dpi)
+
+
+@pytest.mark.skipif(FRIBIDI is None, reason="libfribidi.so.0 (the reference's bidi) is not installed")
+def test_mark_lines_bidi_levels_match_fribidi():
+    for kind in KINDS:
+        for line in mark_lines(kind):
+            cps = [ord(c) for c in line]
+            types, brackets = _types(cps)
+            levels, par = bidi.embedding_levels(types, brackets)
+            want, want_par, _, _, _ = _fribidi(line)
+            assert levels == want and par == (1 if want_par & 1 else 0), line
+
+
+def test_anchor_differences_round_halves_upwards():
+    """HarfBuzz's own `roundf` is floor(x + 0.5): -4.5 px/64 rounds to -4
+    (C's roundf gives -5; an Arabic kasratan on U+0699 at 12 px needs it)."""
+    assert [marks._roundf(v) for v in (-72, -8, -9, 8, 7, 72, -24)] == [-4, 0, -1, 1, 0, 5, -1]

@@ -12,7 +12,11 @@ where stated.
   prose, each mixed with Latin, digits and brackets, lam-alef, tatweel,
   ZWJ and ZWNJ in words, presentation forms, every bidi control, a
   right-to-left line wrapped at `max_chars`, paragraph separators, and
-  seeded lines over all of these; what it refuses raises `UnsupportedText`
+  seeded lines over all of these; combining marks placed by the font's
+  GPOS anchors (vocalized Arabic, lam-alef with a haraka, pointed Hebrew,
+  Russian stress, IPA, polytonic Greek, the case forms before capitals,
+  dotless i and j, stacks, joiners) and left unplaced where the run's
+  script tag has no `mark` feature; what it refuses raises `UnsupportedText`
   naming the code point, its script and ROADMAP item 3b-ii; the committed
   glyph atlas is what the generator makes now.
 - `rasterize_pdf` and `RasterPool.rasterize_pdf_jpegs(prep=...)` equal
@@ -225,6 +229,17 @@ RENDER_CASES = {
     "rlm": "abc\u200f",
     "seeded_rtl_a": _rtl_text(20, "\r\u2029"),
     "seeded_rtl_b": _rtl_text(21, "\u2066\u2067\u2068"),
+    "arabic_tanween": "جداً أيضاً شكراً كتابٌ جديدٌ",
+    "arabic_shadda": "محمّد مُحَمَّدٌ الرَّحْمَٰنِ بِسْمِ اللَّهِ",
+    "lam_alef_haraka": "لَا لاَ لًا لِّا لآ إِلَٰهَ",
+    "hebrew_niqqud": "שָׁלוֹם בְּרֵאשִׁית יִשְׂרָאֵל ײַ עֲבוֹדָה",
+    "ipa_latin_marks": "ə̃ x̂ ij̇ t͡ʃ ŋ̊ ʊ̯ q́ į̇́ ǰ̣",
+    "russian_stress": "приве́т за́мок замо́к Ё́лка",
+    "greek_marks": "ἀ̈ ᾶ̈ Ἀθῆναι ε̃",
+    "unplaced_marks": "1̃ 2̂ ∑̂ (ָ) 한̈x 中̂ ̂abc",
+    "capital_and_dotless_marks": "Á̈ Ё́ Ǻ̃ i̇̀ į̇ ȷ̇ ꜫ̀ ɔ̃ ø̂",
+    "formerly_refused_marks": "Arabic سَلَّم\nHebrew שָׁלוֹם\nq́ mark\n한 ≠",
+    "mark_stacks_and_joiners": "a" + "\u0300" * 40 + " a\u200c\u0301 a\u200d\u0301 a\u034f\u0301 \u0650",
 }
 
 
@@ -238,19 +253,16 @@ def test_render_text_page_matches_reference(case, dpi):
 
 
 REFUSED = [  # (text, dpi, what the message names)
-    ("Arabic سَلَّم", 150, r"U\+064E ARABIC FATHA \(script Inherited\) is a combining mark that does not compose"
-                        ".*GPOS mark anchors"),
-    ("Hebrew שָׁלוֹם", 100, r"U\+05B8 HEBREW POINT QAMATS \(script Hebrew\) is a combining mark that does not "
-                          "compose.*GPOS mark anchors"),
+    ("Syriac mark a\u0730", 150, r"U\+0730 SYRIAC PTHAHA ABOVE \(script Syriac\) needs a HarfBuzz shaper of its own"),
+    ("N'Ko mark a\u07eb", 100, r"U\+07EB NKO COMBINING SHORT HIGH TONE \(script Nko\) needs a HarfBuzz shaper"),
     ("Hindi नमस्ते", 150,
      r"U\+0928 DEVANAGARI LETTER NA \(script Devanagari\) needs a HarfBuzz shaper of its own"),
-    ("q́ mark", 150, r"U\+0301 COMBINING ACUTE ACCENT \(script Inherited\) is a combining mark that does not "
-                          "compose"),
+    ("unassigned x\u0378", 150, r"U\+0378 \(script Unknown\) is unassigned in Unicode"),
     ("Syriac ܫܠܡܐ", 100, r"U\+072B SYRIAC LETTER SHIN \(script Syriac\) needs a HarfBuzz shaper of its own"),
     ("Thai ก", 150, r"U\+0E01 THAI CHARACTER KO KAI \(script Thai\) needs a HarfBuzz shaper"),
     ("jamo 가", 150, r"U\+1100 HANGUL CHOSEONG KIYEOK \(script Hangul\) needs a HarfBuzz shaper"),
     ("tones ˥˩", 150, r"U\+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR \(script Common\) follows U\+02E5"),
-    ("한 ≠", 150, r"U\+0338 COMBINING LONG SOLIDUS OVERLAY \(script Inherited\) is a combining mark"),
+    ("한\u302e", 150, r"U\+302E HANGUL SINGLE DOT TONE MARK \(script Hangul\) is a Hangul tone mark"),
     ("שלום \u2067abc\rdef", 150, r"U\+0064 LATIN SMALL LETTER D \(script Latin\) follows a paragraph separator that "
                                   "an isolate was left open at"),
     ("x", 300, r"dpi 300 draws DejaVuSans at 37 px; the glyph atlas glyphs_dejavu_sans.npz holds dpi \(150, 100\) "
@@ -258,7 +270,7 @@ REFUSED = [  # (text, dpi, what the message names)
 ]
 
 
-@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["arabic_harakat", "hebrew_niqqud", "devanagari", "mark",
+@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["syriac_mark", "nko_mark", "devanagari", "unassigned",
                                                             "syriac", "thai", "jamo", "tone_letters", "hangul_run_mark",
                                                             "open_isolate", "dpi_300"])
 def test_render_text_page_refuses_what_the_atlas_lacks(text, dpi, message):

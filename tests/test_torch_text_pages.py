@@ -11,9 +11,18 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
 - The port's `_create_chunks_multivector` (DOCX, PPTX) and its pooled
   `PageStream` (PDF, 1 and 2 processes) store the fixture's reference
   payloads byte for byte; the inline PDF rung equals the reference's.
+- The committed fixture `tests/fixtures/mark_pages.npz` (a DOCX of
+  Russian stress marks, IPA and decomposed Vietnamese with stacks that do
+  not compose, a PPTX of vocalized Arabic, a 3-page PDF of pointed Hebrew,
+  polytonic Greek and mixed right-to-left lines, the same PDF with a
+  Syriac page 4, three timing pages; the reference's payloads) is what
+  `write_mark_pages_fixture` makes now; the port stores its payloads byte
+  for byte through the same paths.
 - What the renderer refuses fails the job: the pooled PDF with a
-  Devanagari page ends `failed`, naming ROADMAP item 3b-ii, with no page stored
-  (the reference draws all five pages); `rasterize_pdf_jpegs`, DOCX and
+  Devanagari page, and the mark fixture's with a Syriac page 4, end
+  `failed`, naming ROADMAP item 3b-ii, with none of their rows left in
+  either store and `/health`'s row counts as before, at the default
+  batching and at batches of one (the reference draws every page); `rasterize_pdf_jpegs`, DOCX and
   PPTX raise `UnsupportedText`; a `pdf.colpali_pdf_dpi` the atlas lacks
   is refused by `build_services`.
 """
@@ -21,7 +30,9 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
 import asyncio
 import base64
 import io
+import json
 import types
+import unicodedata
 import uuid
 import zipfile
 import zlib
@@ -37,6 +48,8 @@ from morphik_core_tpu.parser.pdf import extract_pages_text as j_extract_pages_te
 from morphik_core_tpu.parser.raster_pool import RasterPool as JRasterPool
 from morphik_core_tpu.parser.raster_pool import _finish_page as j_finish_page
 from morphik_core_tpu.services.ingestion_service import IngestionService as JIngestionService
+from morphik_core_tpu_torch.api.app import build_app
+from morphik_core_tpu_torch.api.http import Request
 from morphik_core_tpu_torch.config import Settings
 from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel as TModel
 from morphik_core_tpu_torch.models.schemas import AuthContext
@@ -375,6 +388,117 @@ def test_rtl_inline_pdf_pages_equal_the_reference(rtl):
     _inline_pages_equal(rtl)
 
 
+# ------------------------------------------------------------ marks placed
+
+MARK_FIXTURE = ROOT / "tests" / "fixtures" / "mark_pages.npz"
+MARK_SEED = 21
+MARK_SENTENCES = {
+    "russian": ["Приве́т! Э́то сло́во с ударе́нием: за́мок и замо́к, му́ка и мука́.",
+                "Слова́рь: большо́й, хорошо́, молоко́; Ё́лка — не ёлка́.",
+                "Уче́бник ру́сского языка́ для иностра́нцев, уро́к 12 (с. 45)."],
+    "ipa": ["IPA: [ə̃] [x̂] [ij̇] [t͡ʃ] [d͡ʒ] [ŋ̊] [ʊ̯] [ɛ̃ː] [ɔ̃] [ʁ̞] [æ̃].",
+            "Transcription: /ˈfoʊ̯.nə.tɪk/ [ˈkʰæ̃t̚] [ɾ̃] [l̩] [n̩] [ɫ̪].",
+            "Latin marks: q́ ṽ ẋ̂ ǵ̇ m̃ ỹ̄ ẘ y̆ z̧ ǰ́."],
+    "vietnamese": [unicodedata.normalize("NFD", "Tiếng Việt: Nguyễn Thị Minh Khai, đường phố, người dân.")
+                   + " Chồng chất: ẫ́ ậ̃ ệ̀ ờ̃.",
+                   "Báo cáo thường niên cho thấy doanh thu tăng trưởng ở khu vực phía Bắc.",
+                   unicodedata.normalize("NFD", "Hợp đồng được ký kết vào ngày 15 tháng 3 năm 2024.")],
+    "arabic": ["بِسْمِ اللَّهِ الرَّحْمَٰنِ الرَّحِيمِ. شُكْرًا جَزِيلًا جداً، وأيضاً.",
+               "مُحَمَّدٌ طَالِبٌ مُجْتَهِدٌ؛ لَا يُؤَخِّرُ عَمَلَهُ إِلَى الْغَدِ.",
+               "كِتَابٌ جَدِيدٌ فِي الْمَكْتَبَةِ (الصَّفْحَةُ ٣) — لَّا، بَلْ لِلَّهِ.",
+               "اَلْعَرَبِيَّةُ لُغَةٌ جَمِيلَةٌ؛ تُكْتَبُ مِنَ الْيَمِينِ إِلَى الْيَسَارِ."],
+    "hebrew": ["בְּרֵאשִׁית בָּרָא אֱלֹהִים אֵת הַשָּׁמַיִם וְאֵת הָאָרֶץ.",
+               "שָׁלוֹם עֲלֵיכֶם; יִשְׂרָאֵל, יִצְחָק וְיַעֲקֹב (עַמּוּד 3).",
+               "הַדּוּחַ הַשְּׁנָתִי מַרְאֶה עֲלִיָּה שֶׁל 12% בַּהַכְנָסוֹת.",
+               "מִשְׁפָּט אֶחָד: עֲבוֹדָה, יִרְאָה וּשְׂמָחָה; ײַ."],
+    "greek": ["Ἀθῆναι, ὁ λόγος, ἡ ἀρετή· ἀ̈ ᾶ̈ ὦ̈ ἐν ἀρχῇ ἦν ὁ λόγος.",
+              "Πολυτονικό: Ἑλλάς, ὅτι, ᾠδή, Ῥόδος, αὐτῷ; ΐ ῢ ε̃.",
+              "Η ετήσια έκθεση δείχνει αύξηση των εσόδων κατά 12% στην Αττική."],
+    "mixed": ["Report: דּוּחַ שְׁנָתִי / التَّقْرِيرُ السَّنَوِيُّ (Q3 2024), stress: приве́т.",
+              "Contract no. 4521 — חוֹזֶה מס׳ 4521 — عَقْدٌ رَقْمُ ٤٥٢١ — ə̃ x̂.",
+              "‫שָׁלוֹם, embedded‬ and مَرْحَبًا بِكُمْ in one line; 1̃ 2̂."],
+}
+SYRIAC = "Syriac: ܫܠܳܡܳܐ ܥܰܠܡܳܐ"   # still refused (ROADMAP item 3b-ii): the Arabic shaper's other scripts
+
+
+def mark_fixture_texts():
+    """The mark fixture's documents as text: DOCX paragraphs (Russian with
+    stress marks, IPA, decomposed Vietnamese with stacks that do not
+    compose), PPTX slides of vocalized Arabic (tanween, shadda with a
+    haraka, a haraka inside lam-alef), PDF pages of pointed Hebrew (yod
+    with hiriq, U+FB1D's sequence), polytonic Greek and mixed
+    right-to-left lines; the same PDF with a Syriac page after them (the
+    refused PDF); the timing pages (Latin-1, vocalized Arabic, pointed
+    Hebrew)."""
+    rng = np.random.default_rng(MARK_SEED)
+
+    def prose(langs, n_chars):
+        lines, size = [], 0
+        while size < n_chars:
+            lang = langs[int(rng.integers(len(langs)))]
+            lines.append(MARK_SENTENCES[lang][int(rng.integers(len(MARK_SENTENCES[lang])))])
+            size += len(lines[-1]) + 1
+        return lines
+
+    paras = [" ".join(prose(["russian", "ipa", "vietnamese"], 400)) for _ in range(10)]
+    slides = [[f"الشريحة {i + 1}: {title}"] + prose(["arabic"], 300)
+              for i, title in enumerate(("النَّتَائِجُ", "مُلَخَّصُ الْعَامِ", "الْخُطَّةُ الْقَادِمَةُ"))]
+    pdf = [[f"{i + 1:02d}. {line}" for line in lines] for i, lines in enumerate([
+        prose(["hebrew"], 900), prose(["greek"], 900), prose(["mixed"], 900)])]
+    refused = pdf + [["04. " + SYRIAC]]
+    n = 2400
+    timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n],
+              "arabic_vocalized": " ".join(prose(["arabic"], n))[:n],
+              "hebrew_pointed": " ".join(prose(["hebrew"], n))[:n]}
+    timing = {k: "\n".join(v[j:j + 90] for j in range(0, n, 90)) for k, v in timing.items()}
+    return paras, slides, pdf, refused, timing
+
+
+def write_mark_pages_fixture(path: Path = MARK_FIXTURE) -> Path:
+    """`mark_pages.npz` (see `_write_fixture`)."""
+    paras, slides, pdf_pages, refused, timing = mark_fixture_texts()
+    return _write_fixture(path, paras, slides, pdf_pages, timing, refused)
+
+
+@pytest.fixture(scope="module")
+def marked():
+    with np.load(MARK_FIXTURE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_mark_pages_fixture_is_current(tmp_path):
+    """Regenerated now (PIL and the JAX package), the committed mark
+    fixture is equal, and its PDF extracts to its texts."""
+    fresh = np.load(write_mark_pages_fixture(tmp_path / "mark_pages.npz"))
+    committed = np.load(MARK_FIXTURE)
+    assert sorted(fresh.files) == sorted(committed.files)
+    for k in committed.files:
+        assert np.array_equal(fresh[k], committed[k]), k
+    paras, slides, pdf_pages, refused, _ = mark_fixture_texts()
+    assert [t for t in committed["pdf_texts"]] == ["\n".join(p) for p in pdf_pages]
+    assert j_extract_pages_text(committed["refused_pdf"].tobytes())[:len(pdf_pages)] == [
+        "\n".join(p) for p in pdf_pages]
+    assert len(unpack(committed, "pptx_payloads")) == len(slides) and len(unpack(committed, "docx_payloads")) >= 2
+
+
+@pytest.mark.parametrize("kind", ["docx", "pptx"])
+def test_mark_office_pages_store_the_reference_payloads(marked, kind):
+    """A DOCX of Russian stress marks, IPA and Vietnamese stacks, a PPTX of
+    vocalized Arabic: the reference's q80 payloads."""
+    _office_payloads_equal(marked, kind)
+
+
+@pytest.mark.parametrize("processes", [1, 2])
+def test_mark_pooled_pdf_pages_store_the_reference_payloads(marked, processes):
+    """Pointed Hebrew, polytonic Greek and mixed right-to-left pages
+    through the pooled `PageStream`: the reference's q70 payloads."""
+    _pooled_payloads_equal(marked, processes)
+
+
+def test_mark_inline_pdf_pages_equal_the_reference(marked):
+    _inline_pages_equal(marked)
+
+
 # ----------------------------------------------------- refusals fail the job
 
 
@@ -419,35 +543,55 @@ def _services(tmp_path: Path, **over):
                           device="cpu")
 
 
-def test_pooled_pdf_job_with_a_refused_page_fails(z, tmp_path, monkeypatch):
-    """A 5-page PDF with Devanagari on page 3 through the pooled PageStream:
-    the job ends `failed`, its error naming the character and item
-    3b-ii, and no page is in the ColPali store (before, page 3 was
-    dropped and the job completed with 4 pages)."""
-    services = _services(tmp_path)
+@pytest.mark.parametrize("worker", [{}, {"colpali_store_batch_size": 1, "ingest_embed_prefetch": 1}],
+                         ids=["default_batches", "batch_1_prefetch_1"])
+@pytest.mark.parametrize("fixture,letter", [("z", "U+0928 DEVANAGARI LETTER NA"),
+                                            ("marked", "U+072B SYRIAC LETTER SHIN")], ids=["devanagari", "syriac"])
+def test_pooled_pdf_job_with_a_refused_page_fails(request, fixture, letter, tmp_path, monkeypatch, worker):
+    """A 5-page PDF with Devanagari on page 3, and the mark fixture's PDF
+    with a Syriac page 4, through the pooled PageStream: the job ends
+    `failed`, its error naming the character and item 3b-ii, and none of
+    its rows stays in the text store or the ColPali store (before, its text
+    chunks stayed, and with batches of 1 so did the pages before the
+    refused one), so `/health`'s row counts are those before the job. A
+    text document ingested before keeps its rows."""
+    z = request.getfixturevalue(fixture)
+    services = _services(tmp_path, worker={"raster_processes": 2, **worker})
     svc = services.ingestion_service
     ids = iter(range(1, 100))
     monkeypatch.setattr(uuid, "uuid4", lambda: uuid.UUID(int=next(ids)))
     auth = AuthContext(entity_id="dev", permissions={"read", "write"})
+    app = build_app(services)
+
+    async def rows():
+        resp = await app.dispatch(Request("GET", "/health", {}, {}, b""))
+        c = json.loads(resp.body)["components"]
+        return c["colpali"]["index_rows"], c["text_index_rows"]
 
     async def go():
         await services.initialize()
         try:
+            kept = await svc.ingest_text("supplier invoice renewal clause. " * 40, "kept.txt", {}, auth)
+            before = await rows()
             doc = await svc.ingest_file_content(z["refused_pdf"].tobytes(), "refused.pdf", {}, auth)
             with pytest.raises(UnsupportedText, match="3b-ii"):
                 await svc.process_ingestion_job(doc.external_id, auth)
             stored = await services.database.get_document(doc.external_id, auth)
-            chunks = await services.colpali_vector_store.get_chunks_by_id(
-                [(doc.external_id, n) for n in range(5)], app_id=auth.app_id)
-            return stored, chunks
+            pages = await services.colpali_vector_store.get_chunks_by_id(
+                [(doc.external_id, n) for n in range(8)], app_id=auth.app_id)
+            texts = await services.vector_store.get_chunks_by_id(
+                [(doc.external_id, n) for n in range(8)], app_id=auth.app_id)
+            kept_rows = await services.vector_store.get_chunks_by_id([(kept.external_id, 0)], app_id=auth.app_id)
+            return stored, pages, texts, kept_rows, before, await rows()
         finally:
             await services.shutdown()
 
-    stored, chunks = _run(go())
+    stored, pages, texts, kept_rows, before, after = _run(go())
     assert stored.system_metadata["status"] == "failed"
-    assert "U+0928 DEVANAGARI LETTER NA" in stored.system_metadata["error"]
+    assert letter in stored.system_metadata["error"]
     assert "ROADMAP Queue 1 item 3b-ii" in stored.system_metadata["error"]
-    assert chunks == []
+    assert pages == [] and texts == [] and len(kept_rows) == 1
+    assert after == before and before[0]["default"] > 0 and before[1]["default"] > 0, (before, after)
 
 
 def test_build_services_refuses_a_dpi_the_atlas_lacks(tmp_path):
