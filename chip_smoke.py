@@ -370,8 +370,14 @@ Phases (each raises on failure; none is caught):
      stacks), PPTX (vocalized Arabic) and 3-page PDF (pointed Hebrew,
      polytonic Greek, mixed right-to-left) of tests/fixtures/mark_pages.npz
      the same way, the render ms of vocalized Arabic and pointed Hebrew
-     pages, an image query of a vocalized Arabic slide. A 5-page PDF with
-     Devanagari on page 3 and a 4-page one with Syriac on page 4 end
+     pages, an image query of a vocalized Arabic slide. The complex
+     scripts shaped as HarfBuzz 12 shapes them (the Hindi, Bengali
+     and Tamil DOCX, the Thai, Lao and Khmer PPTX and the Myanmar,
+     Sinhala, Tibetan, Tifinagh, Syriac, jamo and mixed PDF of
+     tests/fixtures/complex_pages.npz) the same way, the render ms of a
+     Devanagari, a Thai, a Lao and a Khmer page, an image query of the
+     Khmer slide. A 5-page PDF with N'Ko on page 3 and a 4-page one with
+     Arabic letters newer than FriBiDi's data on page 4 end
      `failed`, their errors naming ROADMAP item 3b-ii, with no row of them
      in the ColPali or the text store and /health's row counts unchanged.
      Prints a {"text_pages": ...} line; the kernels line gains
@@ -3832,6 +3838,7 @@ def formats_phase(torch, model, _kernels, smi):
 TEXT_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "text_pages.npz"
 RTL_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "rtl_pages.npz"
 MARK_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "mark_pages.npz"
+COMPLEX_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "complex_pages.npz"
 DOCX_TYPE = "application/vnd.openxmlformats-officedocument.wordprocessingml.document"
 PPTX_TYPE = "application/vnd.openxmlformats-officedocument.presentationml.presentation"
 TEXT_PAGE_FILES = (  # (fixture, upload name, key, content type)
@@ -3840,12 +3847,16 @@ TEXT_PAGE_FILES = (  # (fixture, upload name, key, content type)
     ("rtl", "hebrew.docx", "docx", DOCX_TYPE), ("rtl", "arabic.pptx", "pptx", PPTX_TYPE),
     ("rtl", "rtl.pdf", "pdf", "application/pdf"),
     ("marks", "marks.docx", "docx", DOCX_TYPE), ("marks", "vocalized.pptx", "pptx", PPTX_TYPE),
-    ("marks", "marks.pdf", "pdf", "application/pdf"))
-# (fixture, document, payloads, page): the boundary page, the mixed RTL page, a vocalized Arabic slide
+    ("marks", "marks.pdf", "pdf", "application/pdf"),
+    ("complex", "indic.docx", "docx", DOCX_TYPE), ("complex", "thai_lao_khmer.pptx", "pptx", PPTX_TYPE),
+    ("complex", "complex.pdf", "pdf", "application/pdf"))
+# (fixture, document, payloads, page): the boundary page, the mixed RTL page, a vocalized Arabic slide, the
+# Khmer slide
 TEXT_PAGE_QUERIES = (("ltr", "mixed.pdf", "pdf", 2), ("rtl", "rtl.pdf", "pdf", 2),
-                     ("marks", "vocalized.pptx", "pptx", 0))
-# (fixture, upload name, the character its error names): a Devanagari page 3 of 5, a Syriac page 4 of 4
-TEXT_PAGE_REFUSED = (("ltr", "devanagari.pdf", "U+0928"), ("marks", "syriac.pdf", "U+072B"))
+                     ("marks", "vocalized.pptx", "pptx", 0), ("complex", "thai_lao_khmer.pptx", "pptx", 2))
+# (fixture, upload name, the character its error names): an N'Ko page 3 of 5, a page 4 of 4 of Arabic letters
+# newer than FriBiDi's data (ROADMAP Queue 1 item 3b-ii, slice 3)
+TEXT_PAGE_REFUSED = (("ltr", "nko.pdf", "U+07D2"), ("marks", "arabic_newer.pdf", "U+0870"))
 TEXT_RENDER_REPEATS = 3
 
 
@@ -3861,8 +3872,9 @@ def _fixture_blobs(z, key) -> list:
 def text_render_ms(z) -> dict:
     """Phase 23, on the host: `render_text_page` ms of a fixture's timing
     pages (one length; Latin-1, Latin, Cyrillic, CJK; Latin-1, Hebrew,
-    Arabic; Latin-1, vocalized Arabic, pointed Hebrew) at 150 dpi, the
-    median of TEXT_RENDER_REPEATS after one untimed render."""
+    Arabic; Latin-1, vocalized Arabic, pointed Hebrew; Latin-1,
+    Devanagari, Thai, Lao, Khmer) at 150 dpi, the median of
+    TEXT_RENDER_REPEATS after one untimed render."""
     import numpy as np
 
     from morphik_core_tpu_torch.parser.text_render import render_text_page
@@ -3899,10 +3911,13 @@ def _row_counts(client) -> tuple:
 def text_pages_phase(torch, model, _kernels, smi):
     """Phase 23: text pages in every script the reference draws, Hebrew
     and Arabic included, with combining marks placed by the font's GPOS
-    anchors, on a server from the toml serving phase 3b's model. Every
-    stored page is the reference's payload byte for byte; an image query
-    of a page finds it first (K1); a PDF with a Devanagari page and one
-    with a Syriac page fail naming item 3b-ii and leave no row behind."""
+    anchors, and the complex scripts (Indic, Thai, Lao, Khmer, Myanmar,
+    Sinhala, Tibetan, Tifinagh, Syriac, jamo) shaped as HarfBuzz shapes
+    them, on a server from the toml serving phase 3b's model. Every stored
+    page is the reference's payload byte for byte; an image query of a page
+    finds it first (K1); a PDF with an N'Ko page and one with a page of
+    Arabic letters newer than FriBiDi's data fail naming item 3b-ii and
+    leave no row behind."""
     import base64
 
     import numpy as np
@@ -3912,9 +3927,9 @@ def text_pages_phase(torch, model, _kernels, smi):
 
     t_phase = time.perf_counter()
     fixtures = {"ltr": np.load(TEXT_PAGES_FIXTURE), "rtl": np.load(RTL_PAGES_FIXTURE),
-                "marks": np.load(MARK_PAGES_FIXTURE)}
+                "marks": np.load(MARK_PAGES_FIXTURE), "complex": np.load(COMPLEX_PAGES_FIXTURE)}
     render_ms = text_render_ms(fixtures["ltr"])
-    for key in ("rtl", "marks"):
+    for key in ("rtl", "marks", "complex"):
         render_ms.update({k: v for k, v in text_render_ms(fixtures[key]).items() if k != "latin1"})
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_pages_"))
     settings = service_settings(tmp)
@@ -3971,7 +3986,7 @@ def text_pages_phase(torch, model, _kernels, smi):
         if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the queries' forwards too
             raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
                                  "tower forwards")
-        # still refused: a PDF with a Devanagari page, one with a Syriac page after three drawn ones; each
+        # still refused: a PDF with an N'Ko page, one with a page of U+0870 after three drawn ones; each
         # fails the job and leaves no row in either store, /health's counts as before it
         refused_s, refused_errors = {}, {}
         for fixture, name, letter in TEXT_PAGE_REFUSED:

@@ -36,9 +36,11 @@ What it writes (`text_render.ShapedFont` and `marks.MarkTables` read it):
   probed on their bases at both sizes (`_mark_units`).
 - `script_starts` / `script_values` / `scripts` / `script_names`
   (ISO 15924, Unicode 17 from fontTools: the card's Python has no Script
-  property), `script_tags` (each script's OpenType tag in `tags`, DFLT
-  where the font has none) and `script_composes` (0 for Hangul, whose
-  shaper does not recompose).
+  property), `script_tags` (each script's OpenType tag in `tags`, the one
+  HarfBuzz chooses: DFLT where the font has none of the script's) and
+  `script_shapers` (the shaper HarfBuzz runs for it,
+  `hb_ot_shaper_categorize`; a script whose shaper the port does not
+  mirror has its code points refused as SHAPER).
 - `brackets`: the pairs raqm's script resolution matches, found by
   probing; `compose`: (base, mark, composite) for each composite the cmap
   holds; `lig_blockers`: the default-ignorables a ligature does not
@@ -61,7 +63,9 @@ What it writes (`text_render.ShapedFont` and `marks.MarkTables` read it):
   `libraries` (the FriBiDi, HarfBuzz and raqm versions).
 - Arabic: `joining_starts` / `joining_values` (FriBiDi's joining types,
   as `arabic.U` ...; a mark's T, as HarfBuzz has it for the marks
-  ArabicShaping.txt does not list; the probe confirms them), `arabic_forms` rows
+  ArabicShaping.txt does not list; the letters of the other joining
+  scripts as HarfBuzz joins an Arabic run to them, probed; the probe
+  confirms them), `arabic_forms` rows
   (action, glyph in, glyph out) of the `arab` form features,
   `rlig_blockers` / `arabic_liga_blockers` (the default-ignorables a
   lam-alef does not form across, probed).
@@ -81,25 +85,25 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from morphik_core_tpu_torch.parser import arabic, bidi, marks
+from morphik_core_tpu_torch.parser import arabic, bidi, marks, use
 from morphik_core_tpu_torch.parser.text_render import (
-    ATLAS_DPIS, ATLAS_PATH, COMPOSES, FONT_NAME, GLYPH, HIDDEN, LTR_SCRIPT, MISDRAWN, NO_DIRECTION, NOTDEF,
-    RTL_SCRIPT, SHAPER, UNASSIGNED, ZWJ, ShapedFont, UnsupportedText, _blend_black, _canonical_decomposition,
-    _composite, _is_mark, decompose, font_size, load_font)
+    ARABIC_SHAPER, ATLAS_DPIS, ATLAS_PATH, COMPOSES, DEFAULT_SHAPER, FONT_NAME, GLYPH, HANGUL_SHAPER, HEBREW_SHAPER,
+    HIDDEN, INDIC_SHAPER, KHMER_SHAPER, LTR_SCRIPT, MISDRAWN, MYANMAR_SHAPER, NO_DIRECTION, NOTDEF, RTL_SCRIPT,
+    SHAPER, THAI_SHAPER, UNASSIGNED, USE_SHAPER, ZWJ, ShapedFont, UnsupportedText, _blend_black,
+    _canonical_decomposition, _composite, _is_mark, decompose, font_size, load_font)
 
-# the scripts HarfBuzz 12 shapes with a shaper of its own (hb-ot-shaper.hh)
-# that the port does not mirror: Indic, Khmer, Myanmar, Thai / Lao, the
-# Universal Shaping Engine's, and the Arabic shaper's scripts but Arabic
-# (Syriac, N'Ko, Mongolian and the rest). Arabic and Hebrew are mirrored.
-SHAPER_SCRIPTS = frozenset("""
-Syrc Nkoo Mong Beng Deva Gujr Guru Knda Mlym Orya Taml Telu Sinh Thai Laoo Khmr Mymr Tibt
-Bali Batk Brah Bugi Buhd Cakm Cham Dupl Egyp Gran Hano Java Kthi Kali Khar Khoj Sind Lepc Limb Mahj Mtei
-Modi Hmng Phag Phlp Rjng Saur Shrd Sidd Sund Tglg Tagb Tale Lana Tavt Takr Tirh Tfng Sylo Mand Mani Ahom
-Mult Adlm Bhks Marc Newa Gonm Soyo Zanb Dogr Gong Rohg Maka Medf Sogo Sogd Elym Nand Hmnp Wcho Chrs Diak
-Kits Yezi Cpmn Ougr Tnsa Toto Vith Kawi Nagm Gara Gukh Krai Onao Sunu Todr Tutg
+# `hb_ot_shaper_categorize` (hb-ot-shaper.hh, HarfBuzz 12): the scripts of
+# the Indic shaper, and of the Universal Shaping Engine (USE)
+INDIC_SCRIPTS = frozenset("Beng Deva Gujr Guru Knda Mlym Orya Taml Telu".split())
+USE_SCRIPTS = frozenset("""
+Tibt Mong Sinh Buhd Hano Tglg Tagb Limb Tale Bugi Khar Sylo Tfng Bali Nkoo Phag Cham Kali Lepc Rjng Saur Sund
+Egyp Java Kthi Mtei Lana Tavt Batk Brah Mand Cakm Plrd Shrd Takr Dupl Gran Khoj Sind Mahj Mani Modi Hmng Phlp
+Sidd Tirh Ahom Mult Adlm Bhks Marc Newa Gonm Soyo Zanb Dogr Gong Rohg Maka Medf Sogo Sogd Elym Nand Hmnp Wcho
+Chrs Diak Kits Yezi Cpmn Ougr Tnsa Toto Vith Kawi Nagm Gara Gukh Krai Onao Sunu Todr Tutg
 """.split())
-# the conjoining jamo, which the Hangul shaper composes into syllables
-JAMO = (*range(0x1100, 0x1200), *range(0xA960, 0xA980), *range(0xD7B0, 0xD800))
+# the scripts whose OpenType tag has a new-style Indic tag before it (`hb_ot_all_tags_from_script`)
+NEW_INDIC_TAGS = {"Beng": "bng", "Deva": "dev", "Gujr": "gjr", "Guru": "gur", "Knda": "knd", "Mlym": "mlm",
+                  "Orya": "ory", "Taml": "tml", "Telu": "tel"}
 # the spaces HarfBuzz draws with the space glyph where the font lacks them
 # (`space_fallback_type`)
 FALLBACK_SPACES = (0x20, 0xA0, *range(0x2000, 0x200B), 0x202F, 0x205F, 0x3000)
@@ -109,6 +113,8 @@ Arab Hebr Syrc Thaa Cprt Khar Phnx Nkoo Lydi Avst Armi Phli Prti Sarb Orkh Samr 
 Palm Phlp Hatr Adlm Rohg Sogo Sogd Elym Chrs Yezi Ougr Gara
 """.split())
 UNDIRECTED_SCRIPTS = frozenset(("Hung", "Ital", "Runr", "Tfng"))
+# the scripts other than Arabic whose letters HarfBuzz's joining table holds (hb-ot-shaper-arabic-table.hh)
+JOINING_SCRIPTS = frozenset("Syrc Mong Nkoo Phag Mand Mani Phlp Adlm Rohg Sogd Chrs Ougr Gara".split())
 # FriBiDi's joining type names -> the atlas's (HarfBuzz counts C as D; G is FriBiDi's "ignored")
 JOINING = {"U": arabic.U, "L": arabic.L, "R": arabic.R, "D": arabic.D, "C": arabic.D, "T": arabic.T, "G": arabic.U}
 FRIBIDI_TYPE_NAMES = {"LTR": "L", "RTL": "R", "BS": "B", "SS": "S"}
@@ -124,7 +130,7 @@ PROBE_CHUNK = 128
 
 def hb_default_ignorable(cp: int) -> bool:
     """`hb_unicode_funcs_t::is_default_ignorable` (hb-unicode.hh)."""
-    return (cp in (0xAD, 0x34F, 0x61C, 0xFEFF) or 0x17B4 <= cp <= 0x17B5 or 0x180B <= cp <= 0x180F
+    return (cp in (0xAD, 0x34F, 0x61C, 0xFEFF) or 0x17B4 <= cp <= 0x17B5 or 0x180B <= cp <= 0x180E
             or 0x200B <= cp <= 0x200F or 0x202A <= cp <= 0x202E or 0x2060 <= cp <= 0x206F
             or 0xFE00 <= cp <= 0xFE0F or 0xFFF0 <= cp <= 0xFFF8 or 0x1D173 <= cp <= 0x1D17A
             or 0xE0000 <= cp <= 0xE0FFF)
@@ -204,6 +210,22 @@ def _latin_after(pil: _Pil, prefix: str) -> bool:
     """Whether a “ after `prefix` resolves to Latin (it kerns with A then)."""
     q = "“"
     return pil.length(prefix + q + "A") - pil.length(prefix + q) - pil.length("A") != 0
+
+
+def _context_joining(pil: _Pil, cp: int) -> int:
+    """HarfBuzz's joining type of a letter outside the Arabic script, as the
+    context of an Arabic run next to it (HarfBuzz's own table, which FriBiDi
+    1.0.8's Unicode 10 data does not hold for the later letters): whether
+    a beh before it takes its initial form, as before a ZWJ (it joins on its
+    right), and an alef after it its final form (it joins on its left); or
+    a beh and an alef around it join (it is transparent)."""
+    c = chr(cp)
+    right = pil.draws("\u0628" + c, "\u0628\u200d" + c)
+    left = pil.draws(c + "\u0627", c + "\u200d\u0627")
+    if not right and not left and pil.draws("\u0628" + c + "\u0627", "\u0628\u200d" + c + "\u200d\u0627"):
+        return arabic.T   # a beh and an alef join across it
+    return {(True, True): arabic.D, (True, False): arabic.R, (False, True): arabic.L, (False, False): arabic.U}[
+        (right, left)]
 
 
 def _probe_brackets(pil: _Pil, script_of) -> List[tuple]:
@@ -378,17 +400,84 @@ def _mark_units(gsub, gpos, cmap_names, drawn, others, script_of, chosen, mark_t
     return units
 
 
-def _classify(cmap, script_of) -> tuple:
+def script_tag(code: str, font_tags) -> str:
+    """The GSUB script tag HarfBuzz chooses for a script
+    (`hb_ot_all_tags_from_script`, then `hb_ot_layout_table_select_script`):
+    the script's own tags in order (a new-style Indic tag first), else DFLT,
+    dflt or latn, whichever the font has first."""
+    old = OT_TAGS.get(code, code.lower())
+    own = {"Mymr": ["mym2", "mymr"]}.get(code, [old])
+    if code in NEW_INDIC_TAGS:
+        own = [NEW_INDIC_TAGS[code] + "3", NEW_INDIC_TAGS[code] + "2", old]
+    tag = next((t for t in own + ["DFLT", "dflt", "latn"] if t in font_tags), None)
+    assert tag is not None, f"{code}: the font has none of {own}, DFLT, dflt, latn"
+    return tag
+
+
+def hb_ot_shaper_categorize(script: str, tag: str) -> int:
+    """The shaper HarfBuzz 12 runs for a horizontal run of `script` whose
+    chosen GSUB script tag is `tag` (`hb_ot_shaper_categorize`,
+    hb-ot-shaper.hh). The Indic, Myanmar and USE shapers give way to the
+    default one where the font was designed for `DFLT` (or HarfBuzz fell
+    back to `latn`); Syriac takes the Arabic shaper only under a tag of its
+    own; Thai / Lao, Khmer, Hangul and Hebrew always take theirs.
+
+    What the probes of DejaVu Sans (Pillow's HarfBuzz 12.3, hb-ft, raqm's
+    BOT / EOT) show, shaper by shaper: DFLT Devanagari ("क ि"), Bengali,
+    Tamil, Myanmar ("က ြ"), Tibetan, Sinhala and Javanese draw a broken
+    cluster after a space as box, space, box, with no dotted circle: the
+    default shaper. Khmer ("ក ើ") gets a dotted circle there, and "ក ្រ"
+    moves Coeng Ro in front of it: the Khmer shaper under DFLT. Thai's
+    "ก ำ" gains a box (SARA AM splits): the Thai shaper. Tifinagh under
+    `tfng` draws "ⵜ⵿⵿" as letter, box, dotted circle, box (a second
+    consonant joiner starts a broken cluster) where "ⵜ ⵿" has none (a space
+    before a joiner is a symbol cluster): the USE shaper, as the rule says.
+    "한〮" ends in a dotted circle: the Hangul shaper."""
+    if script in ("Arab", "Syrc"):
+        return ARABIC_SHAPER if tag != "DFLT" or script == "Arab" else DEFAULT_SHAPER
+    if script in ("Thai", "Laoo"):
+        return THAI_SHAPER
+    if script == "Hang":
+        return HANGUL_SHAPER
+    if script == "Hebr":
+        return HEBREW_SHAPER
+    if script in INDIC_SCRIPTS:
+        if tag in ("DFLT", "latn"):
+            return DEFAULT_SHAPER
+        return USE_SHAPER if tag.endswith("3") else INDIC_SHAPER
+    if script == "Khmr":
+        return KHMER_SHAPER
+    if script == "Mymr":
+        return DEFAULT_SHAPER if tag in ("DFLT", "latn", "mymr") else MYANMAR_SHAPER
+    if script in USE_SCRIPTS:
+        return DEFAULT_SHAPER if tag in ("DFLT", "latn") else USE_SHAPER
+    return DEFAULT_SHAPER
+
+
+def mirrored(script: str, shaper: int) -> bool:
+    """Whether the port mirrors `shaper` for `script`: the default, Hebrew,
+    Hangul, Thai and Khmer shapers; the Arabic one for Arabic (its joining
+    of Syriac is not mirrored); USE for the scripts `use` holds the
+    categories of (Tifinagh)."""
+    if shaper == ARABIC_SHAPER:
+        return script == "Arab"
+    if shaper == USE_SHAPER:
+        return script in use.SCRIPTS
+    return shaper in (DEFAULT_SHAPER, HEBREW_SHAPER, HANGUL_SHAPER, THAI_SHAPER, KHMER_SHAPER)
+
+
+def _classify(cmap, script_of, refused) -> tuple:
     """Each code point's class by rule -> (classes, the spaces drawn as the
-    space glyph at their own width)."""
+    space glyph at their own width). The code points of the `refused`
+    scripts (their shaper is not mirrored) are SHAPER."""
     classes = np.empty(0x110000, np.int8)
-    jamo, spaces = set(JAMO), []
+    spaces = []
     for cp in range(0x110000):
         ch = chr(cp)
         cat = unicodedata.category(ch)
         if cat in ("Cn", "Cs"):
             cls = UNASSIGNED
-        elif script_of(cp) in SHAPER_SCRIPTS or cp in jamo:
+        elif script_of(cp) in refused:
             cls = SHAPER
         elif hb_default_ignorable(cp):
             cls = HIDDEN
@@ -744,7 +833,8 @@ def _compositions(cmap) -> List[tuple]:
 
 def _token_arrays(p: _Pil, tokens: list, ft: "_FreeType", hmtx, scale: int) -> Dict[str, np.ndarray]:
     """Each token's mask, offset and advance at one size: a string's as PIL
-    draws it ("" is the invisible token); a glyph id's as FreeType renders
+    draws it ("" is the invisible token; a mark's advance is hb-ft's, which
+    the shapers that zero marks by GDEF zero); a glyph id's as FreeType renders
     it for Pillow, placed in the frame of PIL's masks (the offset from the
     anchor "la", calibrated on a few characters), with hb-ft's unhinted
     advance (`FT_Get_Advance`, then 26.6)."""
@@ -761,6 +851,8 @@ def _token_arrays(p: _Pil, tokens: list, ft: "_FreeType", hmtx, scale: int) -> D
         if isinstance(t, str):
             m, off = p.mask(t) if t else (np.zeros((0, 0), np.uint8), (0, 0))
             a = p.length(t) if t else 0
+            if t.startswith("\u200b"):   # a mark: its own advance (PIL's is zeroed by GDEF after GPOS)
+                a = ((hmtx[ft.glyph_of(ord(t[1]))] * scale + 32) // 64 + 512) >> 10
         else:
             m, left, top = ft.render(t)
             off, a = (left, ascender - top), ((hmtx[t] * scale + 32) // 64 + 512) >> 10
@@ -818,18 +910,29 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     script_of = [codes[v] for v in all_scripts.tolist()].__getitem__
     font_tags = {s.ScriptTag for s in gpos.ScriptList.ScriptRecord}
     assert font_tags == {s.ScriptTag for s in gsub.ScriptList.ScriptRecord}
-    chosen = {c: OT_TAGS.get(c, c.lower()) if OT_TAGS.get(c, c.lower()) in font_tags else "DFLT" for c in codes}
+    assert "thai" in font_tags, "without a thai tag HarfBuzz falls back to Thai PUA shaping, which is not mirrored"
+    chosen = {c: script_tag(c, font_tags) for c in codes}
     tags = sorted(set(chosen.values()))
-    served = sorted({chosen[c] for c in codes if c not in SHAPER_SCRIPTS})
+    shapers = {c: hb_ot_shaper_categorize(c, chosen[c]) for c in codes}
+    refused = {c for c in codes if not mirrored(c, shapers[c])}
+    served = sorted({chosen[c] for c in codes if c not in refused})
     gdef_class = gdef.GlyphClassDef.classDefs
     _check_substitutions(gsub, served)
     uni = _unicode_tables()
     # HarfBuzz's joining type of a mark ArabicShaping.txt does not list is T (`get_joining_type`);
     # FriBiDi's Unicode 10 data leaves the later marks, and the enclosing ones, non-joining
-    is_mark = np.array([unicodedata.category(chr(cp)) in ("Mn", "Me") for cp in range(0x110000)])
+    categories = [unicodedata.category(chr(cp)) for cp in range(0x110000)]
+    is_mark = np.array([c in ("Mn", "Me") for c in categories])
     uni["joining"][is_mark] = arabic.T
+    # and U for a spacing mark that was nonspacing in Unicode 10 (U+1734): HarfBuzz gives T to Mn, Me and Cf only
+    spacing = np.array([c == "Mc" for c in categories])
+    uni["joining"][spacing & (uni["joining"] == arabic.T)] = arabic.U
 
-    classes, spaces = _classify(cmap, script_of)
+    classes, spaces = _classify(cmap, script_of, refused)
+    for cp in range(0x110000):   # the letters of the other joining scripts, as HarfBuzz joins to them
+        if (script_of(cp) in JOINING_SCRIPTS and classes[cp] in (GLYPH, NOTDEF)
+                and unicodedata.category(chr(cp))[0] == "L"):
+            uni["joining"][cp] = _context_joining(pil, cp)
     assert classes[NOTDEF_PROBE] == NOTDEF
     # tokens: the cmap's drawn characters (marks too), the spaces the font
     # lacks, the ligatures, the Arabic forms, the substitutions' glyphs
@@ -898,7 +1001,7 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         "script_names": np.array([script_name(c) for c in codes]),
         "tags": np.array(tags),
         "script_tags": np.array([tags.index(chosen[c]) for c in codes], np.int8),
-        "script_composes": np.array([c != "Hang" for c in codes], np.uint8),
+        "script_shapers": np.array([shapers[c] for c in codes], np.int8),
         "compose": np.array(_compositions(cmap), np.int32).reshape(-1, 3),
         "contextual": np.array(contextual, np.int32),
         "brackets": np.array(_probe_brackets(pil, script_of), np.int32).reshape(-1, 2),
@@ -915,9 +1018,11 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     }
     arrays["bidi_starts"], arrays["bidi_values"] = _ranges(uni["bidi"])
     arrays["joining_starts"], arrays["joining_values"] = _ranges(uni["joining"])
-    # the default-ignorables that leave "A?V" one run (a bidi control may split it)
+    # the default-ignorables that leave "A?V" one run (a bidi control may split it, a Mongolian one
+    # starts a run of its script)
     hidden_cps = [cp for cp in np.flatnonzero(classes == HIDDEN).tolist()
-                  if not bidi.needs_bidi(uni["bidi"][[0x41, cp, 0x56]].tolist())]
+                  if not bidi.needs_bidi(uni["bidi"][[0x41, cp, 0x56]].tolist())
+                  and (script_of(cp) in ("Zyyy", "Zinh") or unicodedata.category(chr(cp)) == "Mn")]
     arrays["lig_blockers"] = np.array([cp for cp in hidden_cps if not pil.draws(f"f{chr(cp)}i", "fi")], np.int32)
     av = pil.length("AV")
     assert all(pil.length(f"A{chr(cp)}V") == av for cp in hidden_cps), "a default-ignorable stops kerning"

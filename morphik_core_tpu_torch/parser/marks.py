@@ -18,8 +18,9 @@
   own roundf, halves upwards), the anchors' coordinates at the font's
   scale (a format-2 anchor's too: under raqm's hb-ft font HarfBuzz does
   not read its contour point). GDEF marks then lose
-  their advance (`BY_GDEF_LATE`: the default, Hebrew and Arabic shapers;
-  not the Hangul shaper's),
+  their advance (`BY_GDEF_LATE`: the default, Hebrew, Arabic and Thai
+  shapers; USE's `BY_GDEF_EARLY` alike, no kern pair holding a mark; not
+  the Hangul and Khmer shapers'),
   and `propagate_attachment_offsets` adds the base's offset and the
   advances between the two, subtracted in a left-to-right run, added in a
   right-to-left one.
@@ -135,8 +136,8 @@ class MarkTables:
                  ) -> Tuple[List[int], List[int], List[int]]:
         """A run's glyphs in shaping order and their advances (kerning
         applied) -> (advances, x offsets, y offsets) in 26.6 units. Without
-        `zero_marks` (the Hangul shaper's `ZERO_WIDTH_MARKS_NONE`) the marks
-        keep their advances."""
+        `zero_marks` (the Hangul and Khmer shapers' `ZERO_WIDTH_MARKS_NONE`)
+        the marks keep their advances."""
         n = len(items)
         parent: List[int] = [-1] * n
         xo, yo = [0] * n, [0] * n

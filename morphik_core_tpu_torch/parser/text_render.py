@@ -23,8 +23,12 @@ bracket, its HarfBuzz mirror and its Arabic joining type, and, for the
 brackets that raqm pairs, its partner.
 
 The reference's layout is Pillow's raqm (FriBiDi + HarfBuzz), mirrored
-here for the scripts that HarfBuzz shapes with its default shaper, Hangul
-syllables (its Hangul shaper), Hebrew, and Arabic:
+here for every shaper HarfBuzz 12 picks under the font's script tags
+(`glyph_atlas.hb_ot_shaper_categorize`): the default shaper (Latin,
+Greek, Cyrillic, CJK, and the Indic scripts, Sinhala, Myanmar, Tibetan,
+Syriac, Mongolian, Adlam and the other USE scripts, which give way to it
+under DFLT), Hebrew, Arabic, Thai / Lao (`thai`), Khmer (`khmer`),
+Hangul (`hangul`) and USE for Tifinagh (`use`):
 
 - the bidi levels of `bidi.embedding_levels` (FriBiDi's, the paragraph
   direction from the line itself: each `line[:max_chars]` piece is a
@@ -42,6 +46,9 @@ syllables (its Hangul shaper), Hebrew, and Arabic:
   (Common punctuation of a Hebrew run at an even level, of a Latin run at
   an odd one) is shaped with its graphemes reversed; a run of Arabic
   script with digits and no letters is left-to-right;
+- the shaper's text preprocessing: Thai / Lao's SARA AM splits and its
+  NIKHAHIT moves before the tone marks; Hangul's tone marks move in
+  front of a jamo syllable or get a dotted circle;
 - HarfBuzz's normalization against the cmap: a cluster with marks
   decomposes fully, its marks sort by modified combining class (Hebrew
   points in SBL order, shadda first), then the shaper reorders (Arabic:
@@ -51,6 +58,9 @@ syllables (its Hangul shaper), Hebrew, and Arabic:
   parts it maps, a variation selector leaves its cluster alone, U+3000
   takes the space glyph; a CGJ that kept marks apart stays hidden from
   GSUB;
+- the syllable machines: Khmer's (a dotted circle at each broken cluster,
+  Coeng Ro and the pre-base vowels to the front) and USE's for Tifinagh
+  (a dotted circle at each broken cluster);
 - GSUB: the ccmp chain-context lookups (i and j dotless before a top
   mark, a capital's marks in their case forms, ayin before a point), the
   ligature lookups (Hebrew's yod with hiriq, `liga`), and in an Arabic
@@ -60,8 +70,9 @@ syllables (its Hangul shaper), Hebrew, and Arabic:
   lookup ignores, which keep their ligature component;
 - GPOS: `kern` pairs across every default-ignorable (a mark ends a pair:
   no pair has one), then `marks`: the run's mark, mark-to-ligature and
-  mark-to-mark anchors, the marks' advances zeroed (not by the Hangul
-  shaper), the offsets propagated; a run whose tag has no `mark` feature
+  mark-to-mark anchors, the marks' advances zeroed (not by the Hangul and
+  Khmer shapers), the offsets propagated; a run whose tag has no `mark`
+  feature
   leaves its marks unplaced, as HarfBuzz does for a font with a GPOS
   table (it falls back to positioning marks by glyph extents only for a
   font without one);
@@ -75,16 +86,16 @@ syllables (its Hangul shaper), Hebrew, and Arabic:
   (`draw_bitmap`).
 
 What the mirror cannot draw raises `UnsupportedText` (ROADMAP Queue 1
-item 3b-ii): the scripts that HarfBuzz gives a shaper of its own (but
-Hebrew, Arabic and Hangul syllables: the complex scripts, the other
-scripts of the Arabic shaper such as Syriac, N'Ko and Mongolian,
-conjoining jamo), Hangul's tone marks, a sequence of the font's contextual
-tone letters, the two bidi cases `bidi.refusal` names, and a dpi whose
-font size the atlas lacks. The page layout (margin, line height,
-`max_chars` wrapping, the half line after an empty line, "(no extractable
-text)") is `_render_text_page`'s. The atlas assumes HarfBuzz's default
-language system (a C or English locale): a Romanian or Serbian locale
-would select other forms.
+item 3b-ii): N'Ko, whose tag in the font gives it USE with joining (slice
+3), a nonspacing mark of another complex script inside a Khmer or
+Tifinagh run, the code points the atlas's probe finds drawn otherwise
+(the Arabic letters newer than FriBiDi's data among them, slice 3), a
+sequence of the font's contextual tone letters, the two bidi cases
+`bidi.refusal` names, and a dpi whose font size the atlas lacks. The page
+layout (margin, line height, `max_chars` wrapping, the half line after an
+empty line, "(no extractable text)") is `_render_text_page`'s. The atlas
+assumes HarfBuzz's default language system (a C or English locale): a
+Romanian or Serbian locale would select other forms.
 """
 
 from __future__ import annotations
@@ -97,33 +108,42 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from morphik_core_tpu_torch.parser import arabic, bidi, marks
+from morphik_core_tpu_torch.parser import arabic, bidi, hangul, khmer, marks, thai, use
 from morphik_core_tpu_torch.parser.marks import Item
 
 ATLAS_PATH = Path(__file__).with_name("glyphs_dejavu_sans.npz")
 ATLAS_DPIS = (150, 100)
 FONT_NAME = "DejaVuSans.ttf"
 ROADMAP_ITEM = "ROADMAP Queue 1 item 3b-ii"
+SHAPER_SLICE = f"{ROADMAP_ITEM}, slice 3"
 
 # a code point's class in the atlas; the classes from SHAPER on are refused
 GLYPH, NOTDEF, COMPOSES, HIDDEN, SHAPER, UNASSIGNED, MISDRAWN = range(7)
 _REFUSAL = {
-    SHAPER: "needs a HarfBuzz shaper of its own that the port does not mirror (a complex script, a script of the "
-            "Arabic shaper other than Arabic, or conjoining jamo)",
+    SHAPER: f"is shaped by a HarfBuzz shaper that the port does not mirror for its script under the font's own "
+            f"OpenType tag (N'Ko's USE shaper, with its joining; {SHAPER_SLICE})",
     UNASSIGNED: f"is unassigned in Unicode {unicodedata.unidata_version}, a surrogate or a noncharacter",
     MISDRAWN: "is drawn by PIL otherwise than the atlas predicts",
 }
 DOTTED_CIRCLE = 0x25CC
 ZWJ, ZWNJ, CGJ = 0x200D, 0x200C, 0x034F
-# the shapers HarfBuzz picks for the mirrored scripts
-DEFAULT_SHAPER, HEBREW_SHAPER, ARABIC_SHAPER, HANGUL_SHAPER = range(4)
-HANGUL_TONE_MARKS = (0x302E, 0x302F)
+# the shapers HarfBuzz picks (`hb_ot_shaper_categorize`); the port mirrors those
+# before INDIC_SHAPER (USE for the scripts of `use.SCRIPTS`)
+(DEFAULT_SHAPER, HEBREW_SHAPER, ARABIC_SHAPER, HANGUL_SHAPER, THAI_SHAPER, KHMER_SHAPER, USE_SHAPER, INDIC_SHAPER,
+ MYANMAR_SHAPER) = range(9)
+# `_hb_ot_shape_normalize`'s modes: NONE (Hangul), COMPOSED_DIACRITICS,
+# COMPOSED_DIACRITICS_NO_SHORT_CIRCUIT (Khmer, USE)
+NORMALIZE_NONE, NORMALIZE_COMPOSED, NORMALIZE_NO_SHORT_CIRCUIT = range(3)
+_NORMALIZATION = {HANGUL_SHAPER: NORMALIZE_NONE, KHMER_SHAPER: NORMALIZE_NO_SHORT_CIRCUIT,
+                  USE_SHAPER: NORMALIZE_NO_SHORT_CIRCUIT}
+# the shapers that keep the marks' advances (`HB_OT_SHAPE_ZERO_WIDTH_MARKS_NONE`)
+_MARKS_KEEP_ADVANCES = (HANGUL_SHAPER, KHMER_SHAPER)
 # `_hb_modified_combining_class` (hb-unicode.cc): Hebrew points in the SBL
 # order, shadda before the other harakat; the classes of the refused
 # scripts it changes too
 _MODIFIED_CCC = {10: 22, 11: 15, 12: 16, 13: 17, 14: 23, 15: 18, 16: 19, 17: 20, 18: 21, 19: 14, 20: 24, 21: 12,
-                 22: 25, 23: 13, 24: 10, 25: 11, 27: 28, 28: 29, 29: 30, 30: 31, 31: 32, 32: 33, 33: 27, 84: 0,
-                 91: 0, 103: 3, 130: 132, 132: 131}
+                 22: 25, 23: 13, 24: 10, 25: 11, 27: 28, 28: 29, 29: 30, 30: 31, 31: 32, 32: 33, 33: 27, 84: 4,
+                 91: 5, 103: 3, 130: 132, 132: 131}
 # `modifier_combining_marks` (hb-ot-shaper-arabic.cc, UTR #53): moved to the
 # front of their class-220 / 230 run of marks
 _ARABIC_MCM = frozenset((0x0654, 0x0655, 0x0658, 0x06DC, 0x06E3, 0x06E7, 0x06E8, 0x08CA, 0x08CB, 0x08CD, 0x08CE,
@@ -190,7 +210,9 @@ def _reorder_marks(cps: Sequence[int], ccc: List[int], shaper: int) -> List[int]
 
 
 def _is_variation_selector(cp: int) -> bool:
-    return 0xFE00 <= cp <= 0xFE0F or 0xE0100 <= cp <= 0xE01EF or 0x180B <= cp <= 0x180D or cp == 0x180F
+    """HarfBuzz's `is_variation_selector`: not the Mongolian free variation
+    selectors, which it leaves to the Arabic shaper."""
+    return 0xFE00 <= cp <= 0xFE0F or 0xE0100 <= cp <= 0xE01EF
 
 
 def _canonical_decomposition(cp: int) -> Optional[Tuple[int, ...]]:
@@ -203,16 +225,21 @@ def _canonical_decomposition(cp: int) -> Optional[Tuple[int, ...]]:
     return tuple(int(x, 16) for x in d.split())
 
 
-def decompose(cp: int, shortest: bool, cmap) -> Optional[List[int]]:
+def _khmer_decomposition(cp: int) -> Optional[Tuple[int, ...]]:
+    """`decompose_khmer`: the split vowels, then Unicode's."""
+    return khmer.SPLITS.get(cp) or _canonical_decomposition(cp)
+
+
+def decompose(cp: int, shortest: bool, cmap, step=_canonical_decomposition) -> Optional[List[int]]:
     """HarfBuzz's `decompose`: `cp` as code points of `cmap` (the font's),
-    or None."""
-    d = _canonical_decomposition(cp)
+    or None; `step` is the shaper's one-step decomposition."""
+    d = step(cp)
     if d is None or (len(d) == 2 and d[1] not in cmap):
         return None
     tail = list(d[1:])
     if shortest and d[0] in cmap:
         return [d[0]] + tail
-    deeper = decompose(d[0], shortest, cmap)
+    deeper = decompose(d[0], shortest, cmap, step)
     if deeper:
         return deeper + tail
     return [d[0]] + tail if d[0] in cmap else None
@@ -292,13 +319,12 @@ class ShapedFont:
         self.script_values = z["script_values"]
         self.script_names = [str(s) for s in z["script_names"]]
         self.script_tags = z["script_tags"].tolist()
-        self.script_composes = z["script_composes"].tolist()
+        self.script_shapers = z["script_shapers"].tolist()
         codes = [str(s) for s in z["scripts"]]
         self.common, self.inherited = codes.index("Zyyy"), codes.index("Zinh")
         self.brackets = {}
         for k, (o, c) in enumerate(z["brackets"].tolist()):
             self.brackets[o], self.brackets[c] = 2 * k, 2 * k + 1
-        self.hebrew = codes.index("Hebr")
         self.compose = {(int(a), int(b)): int(c) for a, b, c in z["compose"]}
         self.lig_blockers = set(z["lig_blockers"].tolist())
         self.contextual = set(z["contextual"].tolist())
@@ -309,7 +335,6 @@ class ShapedFont:
         self.script_directions = z["script_directions"].tolist()
         # Arabic: joining types, the form features' substitutions; the default-ignorables each
         # ligature stage does not match across
-        self.arabic = codes.index("Arab")
         self.joining_starts, self.joining_values = z["joining_starts"], z["joining_values"]
         self.forms: Dict[int, Dict[int, int]] = {}
         for action, a, b in z["arabic_forms"].tolist():
@@ -414,11 +439,11 @@ class ShapedFont:
         mark, drawn only where it composes)."""
         return self.hidden if cp in self.hidden_cps else self.token_of.get(cp)
 
-    def _glyphs(self, cp: int, shortest: bool) -> List[Tuple[int, Optional[int]]]:
+    def _glyphs(self, cp: int, shortest: bool, step=_canonical_decomposition) -> List[Tuple[int, Optional[int]]]:
         """HarfBuzz's `decompose_current_character` -> (code point, token)s."""
         if shortest and cp in self.cmap:
             return [(cp, self._token(cp))]
-        parts = decompose(cp, shortest, self.cmap)
+        parts = decompose(cp, shortest, self.cmap, step)
         if parts:
             return [(c, self._token(c)) for c in parts]
         if cp in self.cmap:
@@ -432,35 +457,46 @@ class ShapedFont:
             return cp, self._token(cp)
         return cp, self.hidden if cp in self.hidden_cps else self.notdef
 
-    def normalize(self, cps: Sequence[int], shaper: int) -> List[Tuple[int, Optional[int], bool]]:
+    def normalize(self, cps: Sequence[int], shaper: int, props: Optional[Sequence[int]] = None
+                  ) -> List[Tuple[int, Optional[int], bool]]:
         """`_hb_ot_shape_normalize` over one run: decompose, reorder marks
         by modified combining class (then the shaper's `reorder_marks`),
-        recompose (HarfBuzz's COMPOSED_DIACRITICS mode; the Hangul
-        shaper's NONE mode neither recomposes nor decomposes a cluster
-        fully) -> (code point, token, whether it is a CGJ that stays
-        hidden from GSUB: one that kept marks out of order)."""
-        compose = shaper != HANGUL_SHAPER
+        recompose -> (code point, token, whether it is a CGJ that stays
+        hidden from GSUB: one that kept marks out of order). The mode is
+        the shaper's: COMPOSED_DIACRITICS; the Hangul shaper's NONE neither
+        recomposes nor decomposes a cluster fully; the Khmer and USE
+        shapers' NO_SHORT_CIRCUIT decomposes a character the font maps
+        too, and composes nothing onto a mark (`compose_khmer`,
+        `compose_use`); the Khmer one splits its vowels first. `props`:
+        the code point whose Unicode properties (mark, combining class)
+        each character has (a shaper's dotted circle takes its mark's)."""
+        props = list(cps) if props is None else list(props)
+        mode = _NORMALIZATION.get(shaper, NORMALIZE_COMPOSED)
+        compose = mode != NORMALIZE_NONE
+        might_short_circuit = mode != NORMALIZE_NO_SHORT_CIRCUIT
+        step = _khmer_decomposition if shaper == KHMER_SHAPER else _canonical_decomposition
         out: List[Tuple[int, Optional[int]]] = []
+        out_props: List[int] = []
         all_simple = True
         i = 0
         while i < len(cps):
             j = i + 1
-            while j < len(cps) and _is_mark(cps[j]):
+            while j < len(cps) and _is_mark(props[j]):
                 j += 1
-            if j == i + 1:
-                out.extend(self._glyphs(cps[i], True))
-            else:
+            if j > i + 1:
                 all_simple = False
-                cluster = cps[i:j]
-                if any(map(_is_variation_selector, cluster)):
-                    out.extend(self._nominal(c) for c in cluster)   # the font has no cmap 14
+            vs = j > i + 1 and any(map(_is_variation_selector, cps[i:j]))
+            for k in range(i, j):
+                if vs:
+                    parts = [self._nominal(cps[k])]   # the font has no cmap 14
                 else:
-                    for c in cluster:
-                        out.extend(self._glyphs(c, not compose))
+                    parts = self._glyphs(cps[k], might_short_circuit if j == i + 1 else not compose, step)
+                out.extend(parts)
+                out_props.extend(props[k] if props[k] != cps[k] else c for c, _ in parts)
             i = j
         if all_simple:
             return [(c, t, False) for c, t in out]
-        ccc = [_modified_ccc(c) if _is_mark(c) else 0 for c, _ in out]
+        ccc = [_modified_ccc(p) if _is_mark(p) else 0 for p in out_props]
         i = 0
         while i < len(out):   # canonical order: each run of marks sorted by combining class
             if not ccc[i]:
@@ -472,10 +508,12 @@ class ShapedFont:
             if j - i <= 32:
                 order = sorted(range(i, j), key=lambda k: ccc[k])
                 out[i:j] = [out[k] for k in order]
+                out_props[i:j] = [out_props[k] for k in order]
                 ccc[i:j] = [ccc[k] for k in order]
                 run_ccc = ccc[i:j]
                 order = _reorder_marks([c for c, _ in out[i:j]], run_ccc, shaper)
                 out[i:j] = [out[i + k] for k in order]
+                out_props[i:j] = [out_props[i + k] for k in order]
                 ccc[i:j] = run_ccc
             i = j
         # a CGJ that kept marks out of order stays hidden: GSUB does not pass over it
@@ -486,8 +524,10 @@ class ShapedFont:
         res: List[Tuple[int, Optional[int], bool]] = [out[0]]
         res_ccc = [ccc[0]]
         starter = 0
-        for (cp, tok, held), cc in zip(out[1:], ccc[1:]):
-            if _is_mark(cp) and (starter == len(res) - 1 or res_ccc[-1] < cc):
+        onto_marks = mode != NORMALIZE_NO_SHORT_CIRCUIT
+        for (cp, tok, held), cc, prop in zip(out[1:], ccc[1:], out_props[1:]):
+            if (_is_mark(prop) and (starter == len(res) - 1 or res_ccc[-1] < cc)
+                    and (onto_marks or not _is_mark(res[starter][0]))):
                 composed = self.compose.get((res[starter][0], cp))
                 if composed is not None:
                     res[starter] = (composed, self._token(composed), False)
@@ -552,28 +592,28 @@ class ShapedFont:
             return not (number or regional)
         return native == RTL_SCRIPT
 
-    def _shaper(self, script: int) -> int:
-        if script == self.arabic:
-            return ARABIC_SHAPER
-        if script == self.hebrew:
-            return HEBREW_SHAPER
-        return DEFAULT_SHAPER if self.script_composes[script] else HANGUL_SHAPER
-
     def _checked(self, items: List[Tuple[int, Optional[int], bool]], shaper: int) -> None:
         prev = None
         for cp, tok, _ in items:
             if tok is None:
                 cls = self.classes([cp])[0]
                 raise self.refusal(cp, _REFUSAL.get(cls, "takes a glyph the atlas does not hold"))
+            foreign = (khmer.foreign(cp) if shaper == KHMER_SHAPER else use.foreign(cp) if shaper == USE_SHAPER
+                       else False)
+            if foreign and cp not in self.hidden_cps and unicodedata.category(chr(cp)) == "Mn":
+                raise self.refusal(cp, f"is a mark of another script in a run that HarfBuzz shapes with its "
+                                       f"{'Khmer' if shaper == KHMER_SHAPER else 'USE'} shaper, which reads its "
+                                       f"syllable category there; the port does not hold it ({SHAPER_SLICE})")
             if tok == self.hidden:
                 continue
-            if shaper == HANGUL_SHAPER and cp in HANGUL_TONE_MARKS:
-                raise self.refusal(cp, "is a Hangul tone mark, which HarfBuzz's Hangul shaper moves in front of its "
-                                       "syllable or gives a dotted circle")
             if prev is not None and prev in self.contextual and cp in self.contextual:
                 raise self.refusal(cp, f"follows U+{prev:04X}: tone letters in sequence take the font's contextual "
                                        "(ccmp) contour forms")
             prev = cp
+
+    def _zero_width(self, cp: int) -> bool:
+        """Whether the font maps `cp` to a glyph without advance."""
+        return cp in self.cmap and self.advances[self._token(cp)] == 0
 
     def _glyph_token(self, cp: int, glyph: int) -> int:
         if glyph not in self.token_of_glyph:
@@ -653,9 +693,22 @@ class ShapedFont:
         native_rtl = self._native_rtl(cps, script, rtl)
         if native_rtl != rtl:
             cps = self._reverse_graphemes(cps)
-        shaper = self._shaper(script)
-        items = self.normalize(cps, shaper)
+        shaper = self.script_shapers[script]
+        if shaper == THAI_SHAPER:
+            cps = thai.preprocess(cps)
+        props = None
+        if shaper == HANGUL_SHAPER:
+            cps, props = hangul.preprocess(cps, self.cmap.__contains__, self._zero_width)
+        items = self.normalize(cps, shaper, props)
         self._checked(items, shaper)
+        if shaper in (KHMER_SHAPER, USE_SHAPER):   # the syllables, after normalization
+            dotted = (DOTTED_CIRCLE, self._token(DOTTED_CIRCLE), False) if DOTTED_CIRCLE in self.cmap else None
+            item_cps = [cp for cp, _, _ in items]
+            if shaper == KHMER_SHAPER:
+                items = khmer.shape(items, item_cps, dotted)
+            else:
+                items = use.shape(items, item_cps, [cp in self.hidden_cps for cp in item_cps],
+                                  [_is_mark(cp) for cp in item_cps], dotted)
         tag = self.script_tags[script]
         run = [Item(cp, tok, self.glyphs[tok], tok == self.hidden, held) for cp, tok, held in items]
         lig_ids = itertools.count(1)   # HarfBuzz's ligature ids, one a ligature formed
@@ -671,7 +724,7 @@ class ShapedFont:
             if nxt is not None:
                 advances[k] += self.kern.get((tag, run[k].glyph, run[nxt].glyph), 0)
             nxt = k
-        adv, xo, yo = self.marks.position(tag, run, advances, native_rtl, shaper != HANGUL_SHAPER)
+        adv, xo, yo = self.marks.position(tag, run, advances, native_rtl, shaper not in _MARKS_KEEP_ADVANCES)
         out = [(it.tok, a, x, y) for it, a, x, y in zip(run, adv, xo, yo)]
         return out[::-1] if native_rtl else out
 

@@ -631,7 +631,7 @@ _TEXT_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
         "pdf_payloads")
     try:
         asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
-        raise AssertionError("the Devanagari page was not refused")
+        raise AssertionError("the N'Ko page was not refused")
     except UnsupportedText as e:
         assert "3b-ii" in str(e), e
     assert sys.modules["fontTools"] is None
@@ -707,13 +707,58 @@ _MARK_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
         assert [p[1] for p in pages] == unpack("pdf_payloads")
         try:
             asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
-            raise AssertionError("the Syriac page was not refused")
+            raise AssertionError("the page of U+0870 was not refused")
         except UnsupportedText as e:
-            assert "U+072B" in str(e) and "3b-ii" in str(e), e
+            assert "U+0870" in str(e) and "3b-ii" in str(e), e
         child = pool._pool.submit(eval, "open('/proc/self/maps').read()").result()
     finally:
         pool.shutdown()
     assert "morphik_core_tpu_torch.parser.marks" in sys.modules
+    assert not font_libraries(open("/proc/self/maps").read()) and not font_libraries(child)
+    assert sys.modules["fontTools"] is None
+    """
+) + _LEAKS
+
+
+_COMPLEX_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textwrap.dedent(
+    """
+    import asyncio, base64, types
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.parser.office import docx_to_text
+    from morphik_core_tpu_torch.parser.raster_pool import RasterPool
+    from morphik_core_tpu_torch.parser.text_render import render_text_page
+    from morphik_core_tpu_torch.services.ingestion_service import IngestionService
+    from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
+
+    z = np.load(sys.argv[1] + "/tests/fixtures/complex_pages.npz")
+
+    def unpack(key):
+        flat, sizes = z[key].tobytes(), z[key + "_sizes"]
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        return [flat[a:b] for a, b in zip(starts, starts[1:])]
+
+    def font_libraries(maps):
+        return [line for line in maps.splitlines() if any(n in line for n in ("fribidi", "harfbuzz", "freetype"))]
+
+    settings = types.SimpleNamespace(settings=Settings())
+    for kind, ctype in (("docx", DOCX), ("pptx", PPTX)):
+        data = z[kind].tobytes()
+        chunks = IngestionService._create_chunks_multivector(settings, ctype, data,
+                                                             docx_to_text(data) if kind == "docx" else "")
+        assert [base64.b64decode(c.content.split(",", 1)[1]) for c in chunks] == unpack(kind + "_payloads"), kind
+    names = [str(n) for n in z["timing_names"]]
+    for name in ("hindi", "khmer"):
+        page = render_text_page(str(z["timing_texts"][names.index(name)]), 150)
+        assert page.shape == (1650, 1275, 3) and int((page < 128).sum()) > 10000, name
+    pool = RasterPool(2)
+    try:
+        pages = asyncio.run(pool.rasterize_pdf_jpegs(z["pdf"].tobytes(), dpi=150))
+        assert [p[1] for p in pages] == unpack("pdf_payloads")
+        child = pool._pool.submit(eval, "open('/proc/self/maps').read()").result()
+    finally:
+        pool.shutdown()
+    for name in ("khmer", "thai", "hangul", "use"):
+        assert "morphik_core_tpu_torch.parser." + name in sys.modules, name
     assert not font_libraries(open("/proc/self/maps").read()) and not font_libraries(child)
     assert sys.modules["fontTools"] is None
     """
@@ -766,7 +811,7 @@ def test_image_formats_ingest_with_jax_pil_pydantic_httpx_blocked():
 def test_text_pages_render_with_jax_pil_fonttools_blocked():
     """The render path of every script (the DOCX, PPTX and PDF of
     `tests/fixtures/text_pages.npz`) stores the reference's payloads and
-    refuses the Devanagari page with jax, PIL and fontTools unimportable."""
+    refuses the N'Ko page with jax, PIL and fontTools unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _TEXT_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
@@ -787,10 +832,22 @@ def test_rtl_pages_render_with_jax_pil_fonttools_blocked():
 def test_mark_pages_render_with_jax_pil_fonttools_blocked():
     """The marks placed by `parser/marks.py` (the DOCX, PPTX and PDF of
     `tests/fixtures/mark_pages.npz`) store the reference's payloads, the
-    Syriac page is refused, with jax, PIL and fontTools unimportable; no
+    page of U+0870 is refused, with jax, PIL and fontTools unimportable; no
     process maps libfribidi, libharfbuzz or FreeType."""
     proc = subprocess.run(
         [sys.executable, "-c", _MARK_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_complex_pages_render_with_jax_pil_fonttools_blocked():
+    """The complex scripts (the Hindi, Bengali and Tamil DOCX, the Thai,
+    Lao and Khmer PPTX and the Myanmar ... jamo PDF of
+    `tests/fixtures/complex_pages.npz`) store the reference's payloads,
+    and a Hindi and a Khmer page draw, with jax, PIL and fontTools
+    unimportable; no process maps libfribidi, libharfbuzz or FreeType."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _COMPLEX_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
 

@@ -4,8 +4,8 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
 - The committed fixture `tests/fixtures/text_pages.npz` (a DOCX, a PPTX
   and a 6-page PDF whose text mixes Greek, Cyrillic, Vietnamese,
   Romanian, symbols, box drawing, the font's emoji and CJK, one page with
-  the `Г“A` script-boundary kerning case; a 5-page PDF with Devanagari
-  on page 3; four timing pages of one length) is what
+  the `Г“A` script-boundary kerning case; a 5-page PDF with N'Ko on
+  page 3; four timing pages of one length) is what
   `write_text_pages_fixture` makes now with the JAX package's
   `_render_text_page` and `_finish_page` under PIL.
 - The port's `_create_chunks_multivector` (DOCX, PPTX) and its pooled
@@ -15,11 +15,12 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
   Russian stress marks, IPA and decomposed Vietnamese with stacks that do
   not compose, a PPTX of vocalized Arabic, a 3-page PDF of pointed Hebrew,
   polytonic Greek and mixed right-to-left lines, the same PDF with a
-  Syriac page 4, three timing pages; the reference's payloads) is what
+  page 4 of Arabic letters newer than FriBiDi's data, three timing pages;
+  the reference's payloads) is what
   `write_mark_pages_fixture` makes now; the port stores its payloads byte
   for byte through the same paths.
-- What the renderer refuses fails the job: the pooled PDF with a
-  Devanagari page, and the mark fixture's with a Syriac page 4, end
+- What the renderer refuses fails the job: the pooled PDF with an N'Ko
+  page, and the mark fixture's with a page 4 of U+0870, end
   `failed`, naming ROADMAP item 3b-ii, with none of their rows left in
   either store and `/health`'s row counts as before, at the default
   batching and at batches of one (the reference draws every page); `rasterize_pdf_jpegs`, DOCX and
@@ -66,7 +67,7 @@ MODEL_FIXTURE = ROOT / "tests" / "fixtures" / "tiny_colqwen.npz"
 PREP = (3136, 602112)
 SEED = 19
 PDF_DPI = 150  # morphik_tpu.toml's pdf.colpali_pdf_dpi; DOCX and PPTX pages are drawn at 100
-REFUSED_PAGE = 2  # the Devanagari page of the refused PDF
+REFUSED_PAGE = 2  # the N'Ko page of the refused PDF
 
 SENTENCES = {
     "greek": ["Η ετήσια έκθεση δείχνει αύξηση των εσόδων κατά 12% στην Αττική.",
@@ -86,7 +87,8 @@ SENTENCES = {
             "한국어 텍스트 (인용) “中”「引用」　全角スペース。"],
 }
 BOUNDARY = "Kerning stops at a script boundary: x“A” against Г“A”, α (“A) and “Привет”."
-DEVANAGARI = "Hindi: नमस्ते दुनिया"
+# still refused (ROADMAP Queue 1 item 3b-ii, slice 3): N'Ko's USE shaper and its joining
+NKO = "N'Ko: ߒߞߏ ߞߊ߲ ߛߓߍ"
 
 
 def _prose(rng, langs, n_chars: int) -> list:
@@ -160,7 +162,7 @@ def fixture_texts():
         _prose(rng, every, 1200),
     ])]
     refused = [[f"p{i + 1:02d} quarterly revenue, page {i + 1}"] + (
-        [f"p{i + 1:02d} {DEVANAGARI}"] if i == REFUSED_PAGE else []) for i in range(5)]
+        [f"p{i + 1:02d} {NKO}"] if i == REFUSED_PAGE else []) for i in range(5)]
     n = 2400
     timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n],
               "latin": " ".join(_prose(rng, ["latin"], n))[:n],
@@ -418,7 +420,8 @@ MARK_SENTENCES = {
               "Contract no. 4521 — חוֹזֶה מס׳ 4521 — عَقْدٌ رَقْمُ ٤٥٢١ — ə̃ x̂.",
               "‫שָׁלוֹם, embedded‬ and مَرْحَبًا بِكُمْ in one line; 1̃ 2̂."],
 }
-SYRIAC = "Syriac: ܫܠܳܡܳܐ ܥܰܠܡܳܐ"   # still refused (ROADMAP item 3b-ii): the Arabic shaper's other scripts
+# still refused (ROADMAP Queue 1 item 3b-ii, slice 3): Arabic letters newer than FriBiDi 1.0.8's data
+ARABIC_NEWER = "Arabic: \u0870\u0871 \u0872\u0873 \u0889"
 
 
 def mark_fixture_texts():
@@ -427,9 +430,9 @@ def mark_fixture_texts():
     compose), PPTX slides of vocalized Arabic (tanween, shadda with a
     haraka, a haraka inside lam-alef), PDF pages of pointed Hebrew (yod
     with hiriq, U+FB1D's sequence), polytonic Greek and mixed
-    right-to-left lines; the same PDF with a Syriac page after them (the
-    refused PDF); the timing pages (Latin-1, vocalized Arabic, pointed
-    Hebrew)."""
+    right-to-left lines; the same PDF with a page of Arabic letters newer
+    than FriBiDi's data after them (the refused PDF); the timing pages
+    (Latin-1, vocalized Arabic, pointed Hebrew)."""
     rng = np.random.default_rng(MARK_SEED)
 
     def prose(langs, n_chars):
@@ -445,7 +448,7 @@ def mark_fixture_texts():
               for i, title in enumerate(("النَّتَائِجُ", "مُلَخَّصُ الْعَامِ", "الْخُطَّةُ الْقَادِمَةُ"))]
     pdf = [[f"{i + 1:02d}. {line}" for line in lines] for i, lines in enumerate([
         prose(["hebrew"], 900), prose(["greek"], 900), prose(["mixed"], 900)])]
-    refused = pdf + [["04. " + SYRIAC]]
+    refused = pdf + [["04. " + ARABIC_NEWER]]
     n = 2400
     timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n],
               "arabic_vocalized": " ".join(prose(["arabic"], n))[:n],
@@ -504,12 +507,12 @@ def test_mark_inline_pdf_pages_equal_the_reference(marked):
 
 @pytest.mark.parametrize("processes", [1, 2])
 def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
-    """The reference draws all five pages; the port raises for the
-    Devanagari one instead of skipping it."""
+    """The reference draws all five pages; the port raises for the N'Ko
+    one instead of skipping it."""
     data = z["refused_pdf"].tobytes()
     pool, jpool = RasterPool(processes), JRasterPool(processes)
     try:
-        with pytest.raises(UnsupportedText, match=r"U\+0928 DEVANAGARI LETTER NA \(script Devanagari\).*item 3b-ii"):
+        with pytest.raises(UnsupportedText, match=r"U\+07D2 NKO LETTER N \(script Nko\).*item 3b-ii"):
             _run(pool.rasterize_pdf_jpegs(data, dpi=PDF_DPI, prep=PREP))
         assert [p[0] for p in _run(jpool.rasterize_pdf_jpegs(data, dpi=PDF_DPI))] == list(range(5))
     finally:
@@ -520,10 +523,10 @@ def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
 @pytest.mark.parametrize("kind", ["docx", "pptx"])
 def test_office_pages_with_refused_text_raise(kind):
     settings = types.SimpleNamespace(settings=Settings())
-    lines = ["Quarterly revenue", DEVANAGARI]
+    lines = ["Quarterly revenue", NKO]
     data = docx_bytes(lines) if kind == "docx" else pptx_bytes([lines])
     ctype, text = (DOCX, docx_to_text(data)) if kind == "docx" else (PPTX, "")
-    with pytest.raises(UnsupportedText, match=r"U\+0928 .*item 3b-ii"):
+    with pytest.raises(UnsupportedText, match=r"U\+07D2 .*item 3b-ii"):
         IngestionService._create_chunks_multivector(settings, ctype, data, text)
     assert len(JIngestionService._create_chunks_multivector(settings, ctype, data, text)) == 1
 
@@ -545,11 +548,13 @@ def _services(tmp_path: Path, **over):
 
 @pytest.mark.parametrize("worker", [{}, {"colpali_store_batch_size": 1, "ingest_embed_prefetch": 1}],
                          ids=["default_batches", "batch_1_prefetch_1"])
-@pytest.mark.parametrize("fixture,letter", [("z", "U+0928 DEVANAGARI LETTER NA"),
-                                            ("marked", "U+072B SYRIAC LETTER SHIN")], ids=["devanagari", "syriac"])
+@pytest.mark.parametrize("fixture,letter", [("z", "U+07D2 NKO LETTER N"),
+                                            ("marked", "U+0870 ARABIC LETTER ALEF WITH ATTACHED FATHA")],
+                         ids=["nko", "arabic_newer_than_fribidi"])
 def test_pooled_pdf_job_with_a_refused_page_fails(request, fixture, letter, tmp_path, monkeypatch, worker):
-    """A 5-page PDF with Devanagari on page 3, and the mark fixture's PDF
-    with a Syriac page 4, through the pooled PageStream: the job ends
+    """A 5-page PDF with N'Ko on page 3, and the mark fixture's PDF with a
+    page 4 of Arabic letters newer than FriBiDi's data, through the pooled
+    PageStream: the job ends
     `failed`, its error naming the character and item 3b-ii, and none of
     its rows stays in the text store or the ColPali store (before, its text
     chunks stayed, and with batches of 1 so did the pages before the
@@ -603,3 +608,120 @@ def test_build_services_refuses_a_dpi_the_atlas_lacks(tmp_path):
         _services(tmp_path / "a", pdf={"colpali_pdf_dpi": 300})
     services = _services(tmp_path / "b", pdf={"colpali_pdf_dpi": 300}, morphik={"enable_colpali": False})
     assert services.colpali_vector_store is None
+
+
+# ------------------------------------------------------------ complex scripts
+
+COMPLEX_FIXTURE = ROOT / "tests" / "fixtures" / "complex_pages.npz"
+COMPLEX_SEED = 22
+COMPLEX_SENTENCES = {
+    "hindi": ["वार्षिक रिपोर्ट में उत्तरी क्षेत्र में राजस्व में 12% की वृद्धि दिखाई गई है।",
+              "अनुबंध पर 15 मार्च 2024 को हस्ताक्षर किए गए (पृष्ठ ३ देखें)।",
+              "नमस्ते दुनिया! क्षत्रिय, श्री, द्वार, ज़्यादा, क़लम और प्रधानमंत्री — हिन्दी पाठ॥"],
+    "bengali": ["বার্ষিক প্রতিবেদনে উত্তরাঞ্চলে রাজস্ব ১২% বৃদ্ধি দেখানো হয়েছে।",
+                "কোম্পানির চুক্তি স্বাক্ষরিত হয়েছে; বিস্তারিত পৃষ্ঠা ৩-এ দেখুন।",
+                "শুভ নববর্ষ! ক্ষমা, জ্ঞান, রাষ্ট্র, কৌশল।"],
+    "tamil": ["ஆண்டு அறிக்கை வடக்கு பிராந்தியத்தில் வருவாய் 12% உயர்ந்ததைக் காட்டுகிறது.",
+              "வணக்கம்! ஒப்பந்தம் கையெழுத்தானது; கொள்கை, கௌரவம், ஸ்ரீ.",
+              "தமிழ் மொழி பழமையான மொழிகளில் ஒன்று (பக்கம் ௩)."],
+    "thai": ["รายงานประจำปีแสดงให้เห็นว่ารายได้เพิ่มขึ้น 12% ในภาคเหนือ",
+             "สวัสดีครับ น้ำ ค่ำ ทำ กำไร ฿1,234.50 (หน้า ๓)",
+             "สัญญาได้รับการลงนามเมื่อวันที่ 15 มีนาคม 2567 ที่กรุงเทพฯ"],
+    "lao": ["ບົດລາຍງານປະຈຳປີສະແດງໃຫ້ເຫັນລາຍຮັບເພີ່ມຂຶ້ນ 12% ໃນພາກເໜືອ.",
+            "ສະບາຍດີ! ນ້ຳ ຄ່ຳ ກຳ ເກົ່າ ໂຮງຮຽນ ແລະ ມະຫາວິທະຍາໄລ.",
+            "ສັນຍາໄດ້ລົງນາມໃນວັນທີ 15 ມີນາ 2024 ທີ່ວຽງຈັນ."],
+    "khmer": ["របាយការណ៍ប្រចាំឆ្នាំបង្ហាញពីការកើនឡើងនៃប្រាក់ចំណូល ១២% នៅភាគខាងជើង។",
+              "សួស្តី ពិភពលោក! ស្ត្រី ក្រុម ព្រះ កើត ខ្មែរ និង ប្រទេសកម្ពុជា។",
+              "កិច្ចសន្យាត្រូវបានចុះហត្ថលេខានៅថ្ងៃទី ១៥ ខែមីនា ឆ្នាំ២០២៤។"],
+    "myanmar": ["နှစ်ပတ်လည် အစီရင်ခံစာတွင် ဝင်ငွေ ၁၂% တိုးလာကြောင်း ပြသသည်။",
+                "မင်္ဂလာပါ ကမ္ဘာ! စာချုပ်ကို ၂၀၂၄ ခုနှစ်တွင် လက်မှတ်ရေးထိုးခဲ့သည်။"],
+    "sinhala": ["වාර්ෂික වාර්තාව උතුරු කලාපයේ ආදායම 12% කින් වැඩි වූ බව පෙන්වයි.",
+                "ආයුබෝවන්! ශ්‍රී ලංකාව, ක්‍රීඩාව, ප්‍රශ්නය."],
+    "tibetan": ["ལོ་འཁོར་སྙན་ཞུ་ནང་ཡོང་འབབ་ 12% ཡར་རྒྱས་བྱུང་ཡོད།",
+                "བཀྲ་ཤིས་བདེ་ལེགས། བོད་ཡིག་དང་སྐད་ཡིག"],
+    "tifinagh": ["ⵜⴰⵎⴰⵣⵉⵖⵜ ⴷ ⵜⵓⵜⵍⴰⵢⵜ ⵜⴰⵏⴰⵎⵓⵔⵜ ⴳ ⵍⵎⵖⵔⵉⴱ 2024.",
+                 "ⴰⵣⵓⵍ ⴼⵍⵍⴰⵡⵏ! ⵜⵉⴼⵉⵏⴰⵖ, ⴰⵎⴰⵣⵉⵖ, ⵜⴰⵙⴽⵯⵍⴰ."],
+    "syriac": ["ܫܠܳܡܳܐ ܥܰܠܡܳܐ! ܟܬܳܒܳܐ ܕܣܘܪܝܝܐ (2024).", "ܡܫܝܚܐ ܩܡ ܡܢ ܒܝܬ ܡܝ̈ܬܐ."],
+    "jamo": ["옛한글: \u1112\u119e\u11ab\u1100\u1173\u11af \u1100\u119e\u302e\u1105\u119e\u11b7 "
+             "\u1106\u119e\u11af\u302f \ud55c\uae00 \uac01.",
+             "Jamo and tone marks: \u1100\u1161\u302e \ud55c\u302e \u302f."],
+    "mongolian_adlam": ["ᠮᠣᠩᠭᠣᠯ ᠪᠢᠴᠢᠭ᠌ ᠤᠯᠤᠰ 2024.", "𞤀𞤣𞤤𞤢𞤥 𞤆𞤵𞤤𞤢𞤪 (Fulani)."],
+    "mixed": ["Report 2024: नमस्ते / สวัสดี / សួស្តី / ສະບາຍດີ / مرحبا بكم (page 3).",
+              "Contract no. 4521 — अनुबंध ४५२१ — عقد رقم ٤٥٢١ — ⵜⴰⵎⴰⵣⵉⵖⵜ — ܫܠܡܐ.",
+              "שָׁלוֹם / ආයුබෝවන් / မင်္ဂလာပါ / བཀྲ་ཤིས / Ελληνικά / Привет."],
+}
+
+
+def complex_fixture_texts():
+    """The complex fixture's documents as text: DOCX paragraphs of Hindi,
+    Bengali and Tamil; PPTX slides of Thai, Lao and Khmer (one script a
+    slide); PDF pages of Myanmar, Sinhala, Tibetan, Tifinagh, Syriac,
+    conjoining jamo with tone marks, Mongolian and Adlam, and lines that
+    mix them with Latin, Arabic, Hebrew, Greek and Cyrillic (each line's
+    prefix "NN. " holds no strong character); the timing pages (Latin-1,
+    Devanagari, Thai, Lao, Khmer)."""
+    rng = np.random.default_rng(COMPLEX_SEED)
+
+    def prose(langs, n_chars):
+        lines, size = [], 0
+        while size < n_chars:
+            lang = langs[int(rng.integers(len(langs)))]
+            lines.append(COMPLEX_SENTENCES[lang][int(rng.integers(len(COMPLEX_SENTENCES[lang])))])
+            size += len(lines[-1]) + 1
+        return lines
+
+    paras = [" ".join(prose([lang], 400)) for lang in ("hindi", "bengali", "tamil") for _ in range(4)]
+    slides = [[f"{i + 1}. {title}"] + prose([lang], 300)
+              for i, (lang, title) in enumerate((("thai", "ผลประกอบการ"), ("lao", "ສະຫຼຸບ"), ("khmer", "ផែនការ")))]
+    pdf = [[f"{i + 1:02d}. {line}" for line in lines] for i, lines in enumerate([
+        prose(["myanmar", "sinhala", "tibetan"], 700), prose(["tifinagh", "syriac", "mongolian_adlam"], 700),
+        prose(["jamo"], 400), prose(["mixed"], 900)])]
+    n = 2400
+    timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n]}
+    for lang in ("hindi", "thai", "lao", "khmer"):
+        timing[lang] = " ".join(prose([lang], n))[:n]
+    timing = {k: "\n".join(v[j:j + 90] for j in range(0, n, 90)) for k, v in timing.items()}
+    return paras, slides, pdf, timing
+
+
+def write_complex_pages_fixture(path: Path = COMPLEX_FIXTURE) -> Path:
+    """`complex_pages.npz` (see `_write_fixture`)."""
+    paras, slides, pdf_pages, timing = complex_fixture_texts()
+    return _write_fixture(path, paras, slides, pdf_pages, timing)
+
+
+@pytest.fixture(scope="module")
+def complex_pages():
+    with np.load(COMPLEX_FIXTURE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_complex_pages_fixture_is_current(tmp_path):
+    """Regenerated now (PIL and the JAX package), the committed complex
+    fixture is equal, and its PDF extracts to its texts."""
+    fresh = np.load(write_complex_pages_fixture(tmp_path / "complex_pages.npz"))
+    committed = np.load(COMPLEX_FIXTURE)
+    assert sorted(fresh.files) == sorted(committed.files)
+    for k in committed.files:
+        assert np.array_equal(fresh[k], committed[k]), k
+    paras, slides, pdf_pages, _ = complex_fixture_texts()
+    assert [t for t in committed["pdf_texts"]] == ["\n".join(p) for p in pdf_pages]
+    assert len(unpack(committed, "pptx_payloads")) == len(slides) and len(unpack(committed, "docx_payloads")) >= 2
+
+
+@pytest.mark.parametrize("kind", ["docx", "pptx"])
+def test_complex_office_pages_store_the_reference_payloads(complex_pages, kind):
+    """A DOCX of Hindi, Bengali and Tamil, a PPTX of Thai, Lao and Khmer
+    slides: the reference's q80 payloads."""
+    _office_payloads_equal(complex_pages, kind)
+
+
+@pytest.mark.parametrize("processes", [1, 2])
+def test_complex_pooled_pdf_pages_store_the_reference_payloads(complex_pages, processes):
+    """Myanmar, Sinhala, Tibetan, Tifinagh, Syriac, jamo and mixed pages
+    through the pooled `PageStream`: the reference's q70 payloads."""
+    _pooled_payloads_equal(complex_pages, processes)
+
+
+def test_complex_inline_pdf_pages_equal_the_reference(complex_pages):
+    _inline_pages_equal(complex_pages)
