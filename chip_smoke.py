@@ -3839,6 +3839,7 @@ TEXT_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "text_pages.npz"
 RTL_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "rtl_pages.npz"
 MARK_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "mark_pages.npz"
 COMPLEX_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "complex_pages.npz"
+NKO_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "nko_pages.npz"
 DOCX_TYPE = "application/vnd.openxmlformats-officedocument.wordprocessingml.document"
 PPTX_TYPE = "application/vnd.openxmlformats-officedocument.presentationml.presentation"
 TEXT_PAGE_FILES = (  # (fixture, upload name, key, content type)
@@ -3849,14 +3850,17 @@ TEXT_PAGE_FILES = (  # (fixture, upload name, key, content type)
     ("marks", "marks.docx", "docx", DOCX_TYPE), ("marks", "vocalized.pptx", "pptx", PPTX_TYPE),
     ("marks", "marks.pdf", "pdf", "application/pdf"),
     ("complex", "indic.docx", "docx", DOCX_TYPE), ("complex", "thai_lao_khmer.pptx", "pptx", PPTX_TYPE),
-    ("complex", "complex.pdf", "pdf", "application/pdf"))
+    ("complex", "complex.pdf", "pdf", "application/pdf"),
+    ("nko", "nko.docx", "docx", DOCX_TYPE), ("nko", "nko.pptx", "pptx", PPTX_TYPE),
+    ("nko", "nko_arabic_ahom.pdf", "pdf", "application/pdf"))
 # (fixture, document, payloads, page): the boundary page, the mixed RTL page, a vocalized Arabic slide, the
-# Khmer slide
+# Khmer slide, an N'Ko slide
 TEXT_PAGE_QUERIES = (("ltr", "mixed.pdf", "pdf", 2), ("rtl", "rtl.pdf", "pdf", 2),
-                     ("marks", "vocalized.pptx", "pptx", 0), ("complex", "thai_lao_khmer.pptx", "pptx", 2))
-# (fixture, upload name, the character its error names): an N'Ko page 3 of 5, a page 4 of 4 of Arabic letters
-# newer than FriBiDi's data (ROADMAP Queue 1 item 3b-ii, slice 3)
-TEXT_PAGE_REFUSED = (("ltr", "nko.pdf", "U+07D2"), ("marks", "arabic_newer.pdf", "U+0870"))
+                     ("marks", "vocalized.pptx", "pptx", 0), ("complex", "thai_lao_khmer.pptx", "pptx", 2),
+                     ("nko", "nko.pptx", "pptx", 1))
+# (fixture, upload name, the character its error names): a page 3 of 5 with contextual tone letters in
+# sequence, a page 4 of 4 with Unicode 16's U+1C89 (ROADMAP Queue 1 item 3b-ii)
+TEXT_PAGE_REFUSED = (("ltr", "tone_letters.pdf", "U+02E9"), ("marks", "unicode_16.pdf", "U+1C89"))
 TEXT_RENDER_REPEATS = 3
 
 
@@ -3873,7 +3877,8 @@ def text_render_ms(z) -> dict:
     """Phase 23, on the host: `render_text_page` ms of a fixture's timing
     pages (one length; Latin-1, Latin, Cyrillic, CJK; Latin-1, Hebrew,
     Arabic; Latin-1, vocalized Arabic, pointed Hebrew; Latin-1,
-    Devanagari, Thai, Lao, Khmer) at 150 dpi, the median of
+    Devanagari, Thai, Lao, Khmer; Latin-1, N'Ko, the newer Arabic
+    letters) at 150 dpi, the median of
     TEXT_RENDER_REPEATS after one untimed render."""
     import numpy as np
 
@@ -3912,12 +3917,13 @@ def text_pages_phase(torch, model, _kernels, smi):
     """Phase 23: text pages in every script the reference draws, Hebrew
     and Arabic included, with combining marks placed by the font's GPOS
     anchors, and the complex scripts (Indic, Thai, Lao, Khmer, Myanmar,
-    Sinhala, Tibetan, Tifinagh, Syriac, jamo) shaped as HarfBuzz shapes
-    them, on a server from the toml serving phase 3b's model. Every stored
-    page is the reference's payload byte for byte; an image query of a page
-    finds it first (K1); a PDF with an N'Ko page and one with a page of
-    Arabic letters newer than FriBiDi's data fail naming item 3b-ii and
-    leave no row behind."""
+    Sinhala, Tibetan, Tifinagh, Syriac, jamo, N'Ko with its joining, the
+    Arabic letters newer than FriBiDi's data, Ahom) shaped as HarfBuzz
+    shapes them, on a server from the toml serving phase 3b's model. Every
+    stored page is the reference's payload byte for byte; an image query
+    of a page finds it first (K1); a PDF with a page of contextual tone
+    letters and one with a page of Unicode 16's U+1C89 fail naming item
+    3b-ii and leave no row behind."""
     import base64
 
     import numpy as np
@@ -3927,9 +3933,10 @@ def text_pages_phase(torch, model, _kernels, smi):
 
     t_phase = time.perf_counter()
     fixtures = {"ltr": np.load(TEXT_PAGES_FIXTURE), "rtl": np.load(RTL_PAGES_FIXTURE),
-                "marks": np.load(MARK_PAGES_FIXTURE), "complex": np.load(COMPLEX_PAGES_FIXTURE)}
+                "marks": np.load(MARK_PAGES_FIXTURE), "complex": np.load(COMPLEX_PAGES_FIXTURE),
+                "nko": np.load(NKO_PAGES_FIXTURE)}
     render_ms = text_render_ms(fixtures["ltr"])
-    for key in ("rtl", "marks", "complex"):
+    for key in ("rtl", "marks", "complex", "nko"):
         render_ms.update({k: v for k, v in text_render_ms(fixtures[key]).items() if k != "latin1"})
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_pages_"))
     settings = service_settings(tmp)
@@ -3986,8 +3993,8 @@ def text_pages_phase(torch, model, _kernels, smi):
         if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the queries' forwards too
             raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
                                  "tower forwards")
-        # still refused: a PDF with an N'Ko page, one with a page of U+0870 after three drawn ones; each
-        # fails the job and leaves no row in either store, /health's counts as before it
+        # still refused: a PDF with a page of tone letters, one with a page of U+1C89 after three drawn ones;
+        # each fails the job and leaves no row in either store, /health's counts as before it
         refused_s, refused_errors = {}, {}
         for fixture, name, letter in TEXT_PAGE_REFUSED:
             before = _row_counts(client)

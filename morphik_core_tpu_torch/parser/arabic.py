@@ -1,6 +1,7 @@
 """What HarfBuzz 12's Arabic shaper does with the glyph atlas's font
 (DejaVuSans): the joining state machine, then the font's form features and
-its Arabic ligatures, on glyph ids.
+its Arabic ligatures, on glyph ids; and the joining the USE shaper gives
+N'Ko (`use_joining_actions`).
 
 - Joining (`hb-ot-shaper-arabic.cc::arabic_joining`): each character's
   joining type (the atlas's, C counted as D); transparent ones (T: marks,
@@ -10,9 +11,21 @@ its Arabic ligatures, on glyph ids.
   fills from the whole line) count: a letter joins across a bidi run
   boundary. ZWJ and tatweel are join-causing (D), ZWNJ non-joining (U).
 - Forms: each action's feature (`fina`, `medi`, `init`; the font has no
-  `isol`) substitutes the glyph where the font's single substitution
-  covers it. HarfBuzz applies them as separate stages, one per feature;
-  as each glyph takes at most one, their order does not matter.
+  `isol` under `arab` or `nko `) substitutes the glyph where the tag's
+  single substitution covers it. HarfBuzz applies them as separate
+  stages, one per feature (USE: in one stage); as each glyph takes at most
+  one, their order does not matter.
+- N'Ko (USE with joining): two joinings decide, as probing Pillow's
+  HarfBuzz shows (the atlas generator, `glyph_atlas._probe_use_joining`,
+  and 8,000 seeded runs): the state machine over the run alone, without
+  its context, on the types the atlas holds for a USE run (its N'Ko
+  letters, lajanyalan and ZWJ joining; ZWNJ, the other default-ignorables
+  and the marks the font draws transparent; tatweel, the letters of other
+  scripts, the marks without a glyph and a CGJ that normalization left
+  visible to GSUB non-joining), and where that
+  leaves a letter isolated, the ordinary joining with the line around the
+  run as context. So "ߞ‌ߞ" joins where a ZWNJ ends the run, and
+  where two letters join inside the run, neither joins across its ends.
 - Ligatures: then the `rlig` stage (the font's mark-pair ligatures, shadda
   with a haraka, then lam-alef), then the default `liga` (lam with the
   hamza and madda alefs, then a space, tatweel or letter with a haraka),
@@ -31,7 +44,7 @@ from __future__ import annotations
 
 from typing import Dict, Iterator, List, Sequence, Tuple
 
-from morphik_core_tpu_torch.parser.marks import BASE, MARK, Item
+from morphik_core_tpu_torch.parser.marks import BASE, MARK, Item, merge_clusters
 
 U, L, R, D, T = range(5)   # joining types, in the atlas's numbering (C is D)
 NONE, ISOL, FINA, MEDI, INIT = range(5)   # actions
@@ -74,6 +87,16 @@ def joining_actions(types: Sequence[int], before: Sequence[int], after: Sequence
     return actions
 
 
+def use_joining_actions(types: Sequence[int], own: Sequence[int], before: Sequence[int], after: Sequence[int]
+                        ) -> List[int]:
+    """The action of each item of a USE run with joining: the run's own
+    joining (`own` types, no context) where it joins a letter, else the
+    ordinary one (`types` with the context `before` and `after`)."""
+    inner = joining_actions(own, (), ())
+    outer = joining_actions(types, before, after)
+    return [a if a not in (NONE, ISOL) else b for a, b in zip(inner, outer)]
+
+
 def ligate(run: List[Item], table: Dict[int, List[Tuple[Tuple[int, ...], int]]], classes: Sequence[int],
            ignore_marks: bool, blockers, lig_ids: Iterator[int]) -> List[Item]:
     """One ligature lookup over a run as HarfBuzz's `ligate_input` applies
@@ -107,6 +130,7 @@ def ligate(run: List[Item], table: Dict[int, List[Tuple[Tuple[int, ...], int]]],
                 pos.append(j)
                 j += 1
             else:
+                merge_clusters(run, i, j)
                 comps = [run[k] for k in pos]
                 base = classes[first.glyph] in (0, BASE) and all(is_mark(c.glyph) for c in comps[1:])
                 mark = all(is_mark(c.glyph) for c in comps)

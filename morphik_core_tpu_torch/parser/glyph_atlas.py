@@ -40,7 +40,9 @@ What it writes (`text_render.ShapedFont` and `marks.MarkTables` read it):
   HarfBuzz chooses: DFLT where the font has none of the script's) and
   `script_shapers` (the shaper HarfBuzz runs for it,
   `hb_ot_shaper_categorize`; a script whose shaper the port does not
-  mirror has its code points refused as SHAPER).
+  mirror would have its code points refused as SHAPER: none is left).
+- `general_cps` / `general_categories`: HarfBuzz's general category where
+  it differs from Python's (U+1171E is Mc in Unicode 17).
 - `brackets`: the pairs raqm's script resolution matches, found by
   probing; `compose`: (base, mark, composite) for each composite the cmap
   holds; `lig_blockers`: the default-ignorables a ligature does not
@@ -61,20 +63,32 @@ What it writes (`text_render.ShapedFont` and `marks.MarkTables` read it):
   (HarfBuzz's mirror of each code point whose mirror the cmap holds),
   `script_directions` (HarfBuzz's native direction of each script),
   `libraries` (the FriBiDi, HarfBuzz and raqm versions).
-- Arabic: `joining_starts` / `joining_values` (FriBiDi's joining types,
+- joining: `joining_starts` / `joining_values` (FriBiDi's joining types,
   as `arabic.U` ...; a mark's T, as HarfBuzz has it for the marks
   ArabicShaping.txt does not list; the letters of the other joining
-  scripts as HarfBuzz joins an Arabic run to them, probed; the probe
-  confirms them), `arabic_forms` rows
-  (action, glyph in, glyph out) of the `arab` form features,
+  scripts, N'Ko's among them, and the Arabic letters newer than FriBiDi's
+  data as HarfBuzz joins an Arabic run to them, probed; the probe
+  confirms them), `use_joining_starts` / `use_joining_values` (the types
+  of the own joining HarfBuzz's USE shaper gives an N'Ko run,
+  `_probe_use_joining`), `forms_substs` rows (tag, action, glyph in,
+  glyph out) of the form features of `arab` and `nko `,
   `rlig_blockers` / `arabic_liga_blockers` (the default-ignorables a
   lam-alef does not form across, probed).
+- `use_categories` / `khmer_categories` rows (code point, category): the
+  syllable category HarfBuzz reads for a nonspacing mark of another
+  script (and an Inherited character) in a USE and a Khmer run, where it
+  is not "other": each probed with Pillow's HarfBuzz in the lines that
+  tell the categories apart, single and in pairs with marks of known
+  category, and the medial and final ones in pairs with each other
+  (`_probe_categories`).
 
 The probe draws every code point the rules let through alone in chunks,
 the Common ones also inside a Hebrew and a Latin right-to-left run, each
-letter an Arabic run may hold alone, between tatweels and beside a beh,
-each invisible character between two behs, and the marks on their bases
-(`_mark_units`).
+letter an Arabic run may hold alone, between tatweels and beside a beh
+(an Arabic letter also before digits, "%" and signs, in both paragraph
+directions), each invisible character between two behs, the marks on
+their bases (`_mark_units`), and every mark after a Khmer, a Tifinagh and
+an N'Ko letter.
 """
 
 from __future__ import annotations
@@ -85,12 +99,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from morphik_core_tpu_torch.parser import arabic, bidi, marks, use
+from morphik_core_tpu_torch.parser import arabic, bidi, khmer, marks, use
 from morphik_core_tpu_torch.parser.text_render import (
-    ARABIC_SHAPER, ATLAS_DPIS, ATLAS_PATH, COMPOSES, DEFAULT_SHAPER, FONT_NAME, GLYPH, HANGUL_SHAPER, HEBREW_SHAPER,
+    ARABIC_SHAPER, ATLAS_DPIS, ATLAS_PATH, COMPOSES, DOTTED_CIRCLE, DEFAULT_SHAPER, FONT_NAME, GLYPH, HANGUL_SHAPER, HEBREW_SHAPER,
     HIDDEN, INDIC_SHAPER, KHMER_SHAPER, LTR_SCRIPT, MISDRAWN, MYANMAR_SHAPER, NO_DIRECTION, NOTDEF, RTL_SCRIPT,
     SHAPER, THAI_SHAPER, UNASSIGNED, USE_SHAPER, ZWJ, ShapedFont, UnsupportedText, _blend_black,
-    _canonical_decomposition, _composite, _is_mark, decompose, font_size, load_font)
+    _canonical_decomposition, _composite, _is_mark, _modified_ccc, decompose, font_size, load_font)
 
 # `hb_ot_shaper_categorize` (hb-ot-shaper.hh, HarfBuzz 12): the scripts of
 # the Indic shaper, and of the Universal Shaping Engine (USE)
@@ -124,6 +138,13 @@ DEFAULT_GSUB = ("ccmp", "locl", "rlig", "calt", "clig", "liga", "rclt")
 # HarfBuzz's OpenType tags where they are not the ISO code in lower case
 OT_TAGS = {"Hira": "kana", "Kana": "kana", "Laoo": "lao ", "Yiii": "yi  ", "Nkoo": "nko ", "Vaii": "vai "}
 NOTDEF_PROBE = 0x4E2D   # 中: the font has no CJK
+# the machines' categories in the order the probe tries them (the default first, then the marks')
+USE_ORDER = (use.O, use.VABV, use.VBLW, use.VPST, use.VPRE, use.VMABV, use.VMBLW, use.VMPST, use.VMPRE, use.H, use.IS,
+             use.HVM, use.SK, use.N, use.HN, use.CMABV, use.CMBLW, use.MABV, use.MBLW, use.MPST, use.MPRE, use.FABV,
+             use.FBLW, use.FPST, use.FMABV, use.FMBLW, use.FMPST, use.SMABV, use.SMBLW, use.SUB, use.CS, use.R, use.FM,
+             use.B, use.GB, use.CGJ, use.WJ, use.ZWNJ, use.G, use.J, use.SB, use.SE)
+KHMER_ORDER = (khmer.X, khmer.VABV, khmer.VBLW, khmer.VPST, khmer.VPRE, khmer.H, khmer.ROBATIC, khmer.XGROUP,
+               khmer.YGROUP, khmer.C, khmer.V, khmer.RA, khmer.PLACEHOLDER, khmer.DOTTEDCIRCLE, khmer.ZWNJ, khmer.ZWJ)
 ZWNJ = 0x200C
 PROBE_CHUNK = 128
 
@@ -457,8 +478,8 @@ def hb_ot_shaper_categorize(script: str, tag: str) -> int:
 def mirrored(script: str, shaper: int) -> bool:
     """Whether the port mirrors `shaper` for `script`: the default, Hebrew,
     Hangul, Thai and Khmer shapers; the Arabic one for Arabic (its joining
-    of Syriac is not mirrored); USE for the scripts `use` holds the
-    categories of (Tifinagh)."""
+    of Syriac is not mirrored: Syriac has no tag in the font); USE for the
+    scripts the font has a USE tag for (Tifinagh, N'Ko with its joining)."""
     if shaper == ARABIC_SHAPER:
         return script == "Arab"
     if shaper == USE_SHAPER:
@@ -495,43 +516,47 @@ def _classify(cmap, script_of, refused) -> tuple:
     return classes, spaces
 
 
-def _check_substitutions(gsub, served) -> None:
+def _check_substitutions(gsub, served, joining_tags) -> None:
     """Every default substitution of a served tag is a ligature lookup, a
-    ccmp chain-context lookup, or (under `arab`) a form feature's single
-    substitution."""
+    ccmp chain-context lookup, or (under a tag whose shaper joins: `arab`,
+    `nko `) a form feature's single substitution."""
     for t in served:
-        for feat, lookups in _feature_lookups(gsub, t, DEFAULT_GSUB + tuple(arabic.FEATURES)).items():
+        feats = _feature_lookups(gsub, t, DEFAULT_GSUB + tuple(arabic.FEATURES))
+        assert t in joining_tags or not set(feats) & set(arabic.FEATURES), f"{t}: form features without joining"
+        for feat, lookups in feats.items():
             for li in lookups:
                 kind = gsub.LookupList.Lookup[li].LookupType
                 assert (kind == 4 or (feat, kind) == ("ccmp", 6)
-                        or (t == "arab" and feat in arabic.FEATURES and kind == 1)), f"{t} {feat} lookup {li} ({kind})"
+                        or (feat in arabic.FEATURES and kind == 1)), f"{t} {feat} lookup {li} ({kind})"
 
 
-def _arabic_forms(gsub, gid) -> list:
-    """The `arab` form features' substitutions, rows (action, glyph in,
-    glyph out)."""
-    feats = _feature_lookups(gsub, "arab", tuple(arabic.FEATURES))
+def _forms(gsub, gid, served, tags) -> list:
+    """The served tags' form features' substitutions, rows (tag, action,
+    glyph in, glyph out)."""
     forms = []
-    for name, action in arabic.FEATURES.items():
-        assert len(feats.get(name, [])) <= 1, f"arab {name}: the mirror applies one lookup a feature"
-        for li in feats.get(name, []):
-            for st in gsub.LookupList.Lookup[li].SubTable:
-                forms += [(action, gid[a], gid[b]) for a, b in st.mapping.items()]
+    for t in served:
+        feats = _feature_lookups(gsub, t, tuple(arabic.FEATURES))
+        for name, action in arabic.FEATURES.items():
+            assert len(feats.get(name, [])) <= 1, f"{t} {name}: the mirror applies one lookup a feature"
+            for li in feats.get(name, []):
+                for st in gsub.LookupList.Lookup[li].SubTable:
+                    forms += [(tags.index(t), action, gid[a], gid[b]) for a, b in st.mapping.items()]
     return sorted(forms)
 
 
-def _gsub_stages(gsub, served, tags, skipped_chains) -> List[tuple]:
+def _gsub_stages(gsub, served, tags, skipped_chains, joining_tags) -> List[tuple]:
     """Rows (tag, stage, lookup) of the GSUB lookups the mirror applies:
-    the Arabic shaper's ccmp (stage 0), `rlig` (1) and `liga` (2); the
-    other shapers' default features in one stage, in lookup order. The
-    chain lookups in `skipped_chains` (the tone letters' contour forms) are
+    under a joining shaper's tag (`arab`, `nko `) its ccmp (stage 0; the
+    form features follow it), `rlig` (1) and `liga` (2); the other
+    shapers' default features in one stage, in lookup order. The chain
+    lookups in `skipped_chains` (the tone letters' contour forms) are
     refused instead."""
     rows = []
     for t in served:
         feats = _feature_lookups(gsub, t, DEFAULT_GSUB)
-        if t == "arab":
+        if t in joining_tags:
             groups = [feats.get("ccmp", []), feats.get("rlig", []), feats.get("liga", [])]
-            assert set(feats) <= {"ccmp", "rlig", "liga"}, f"arab features {sorted(feats)}"
+            assert set(feats) <= {"ccmp", "rlig", "liga"}, f"{t} features {sorted(feats)}"
         else:
             groups = [sum(feats.values(), [])]
         for stage, lookups in enumerate(groups):
@@ -590,7 +615,7 @@ def _form_strings(forms, cp_of_glyph, joining, known) -> tuple:
     ligatures' glyphs): the string PIL draws it with, its letter between
     ZWJs (join-causing, invisible) -> (strings, glyphs)."""
     strings, glyphs = [], []
-    for action, a, b in forms:
+    for _, action, a, b in forms:
         cp = cp_of_glyph.get(a)
         if b in known or b in glyphs or cp is None:
             continue
@@ -741,10 +766,82 @@ class _FreeType:
         self.ft.FT_Done_FreeType(self.lib)
 
 
+class HarfBuzz:
+    """Pillow's HarfBuzz over hb-ft on Pillow's FreeType (through ctypes),
+    one run at a time as raqm calls it: the whole line as context, BOT /
+    EOT at its ends. The probes of the syllable categories and of N'Ko's
+    joining read it; the tests hold the mirror to it."""
+
+    def __init__(self, path: Optional[str] = None):
+        import ctypes
+
+        import PIL
+        import PIL._imagingft  # noqa: F401  (maps the libraries Pillow's HarfBuzz and FreeType need)
+        from PIL import ImageFont
+
+        self.ct = ctypes
+        libs = Path(PIL.__file__).parent.parent / "pillow.libs"
+        self.ft = ctypes.CDLL(str(sorted(libs.glob("libfreetype*.so*"))[0]))
+        self.hb = ctypes.CDLL(str(sorted(libs.glob("libharfbuzz*.so*"))[0]))
+        vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+        self.ft.FT_Init_FreeType.argtypes = [ctypes.POINTER(vp)]
+        self.ft.FT_New_Face.argtypes = [vp, ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(vp)]
+        self.ft.FT_Set_Pixel_Sizes.argtypes = [vp, ctypes.c_uint, ctypes.c_uint]
+        for name, res, args in [
+                ("hb_ft_font_create_referenced", vp, [vp]), ("hb_buffer_create", vp, []),
+                ("hb_buffer_destroy", None, [vp]), ("hb_buffer_set_flags", None, [vp, ctypes.c_int]),
+                ("hb_buffer_add_utf32", None, [vp, ctypes.POINTER(u32), ctypes.c_int, ctypes.c_uint, ctypes.c_int]),
+                ("hb_buffer_set_direction", None, [vp, ctypes.c_int]), ("hb_buffer_set_script", None, [vp, u32]),
+                ("hb_script_from_string", u32, [ctypes.c_char_p, ctypes.c_int]),
+                ("hb_language_get_default", vp, []), ("hb_buffer_set_language", None, [vp, vp]),
+                ("hb_shape", None, [vp, vp, vp, ctypes.c_uint]),
+                ("hb_buffer_get_glyph_infos", ctypes.POINTER(u32 * 5), [vp, ctypes.POINTER(ctypes.c_uint)]),
+                ("hb_buffer_get_glyph_positions", ctypes.POINTER(ctypes.c_int32 * 5),
+                 [vp, ctypes.POINTER(ctypes.c_uint)])]:
+            fn = getattr(self.hb, name)
+            fn.restype, fn.argtypes = res, args
+        self.lib = vp()
+        assert self.ft.FT_Init_FreeType(ctypes.byref(self.lib)) == 0
+        self.fonts = {}
+        self.path = (path or ImageFont.truetype(FONT_NAME, 18).path).encode()
+
+    def font(self, size: int):
+        if size not in self.fonts:
+            face = self.ct.c_void_p()
+            assert self.ft.FT_New_Face(self.lib, self.path, 0, self.ct.byref(face)) == 0
+            assert self.ft.FT_Set_Pixel_Sizes(face, 0, size) == 0
+            self.fonts[size] = (face, self.hb.hb_ft_font_create_referenced(face))
+        return self.fonts[size][1]
+
+    def shape(self, line: str, start: int, end: int, script: str, rtl: bool, size: int, clusters: bool = False):
+        """-> [(glyph, x advance, x offset, y offset)] in visual order, each
+        with its cluster (the index in `line`) where `clusters`."""
+        ct, hb = self.ct, self.hb
+        buf = hb.hb_buffer_create()
+        text = (ct.c_uint32 * len(line))(*map(ord, line))
+        hb.hb_buffer_set_flags(buf, (1 if start == 0 else 0) | (2 if end == len(line) else 0))
+        hb.hb_buffer_add_utf32(buf, text, len(line), start, end - start)
+        hb.hb_buffer_set_direction(buf, 5 if rtl else 4)
+        hb.hb_buffer_set_script(buf, hb.hb_script_from_string(script.encode(), -1))
+        hb.hb_buffer_set_language(buf, hb.hb_language_get_default())
+        hb.hb_shape(self.font(size), buf, None, 0)
+        n = ct.c_uint()
+        infos = hb.hb_buffer_get_glyph_infos(buf, ct.byref(n))
+        pos = hb.hb_buffer_get_glyph_positions(buf, ct.byref(n))
+        out = [(infos[i][0], pos[i][0], pos[i][2], pos[i][3]) + ((infos[i][2],) if clusters else ())
+               for i in range(n.value)]
+        hb.hb_buffer_destroy(buf)
+        return out
+
+
+# HarfBuzz's general categories (`hb_unicode_general_category_t`, in enum order)
+HB_CATEGORIES = "Cc Cf Cn Co Cs Ll Lm Lo Lt Lu Mc Me Mn Nd Nl No Pc Pd Pe Pf Pi Po Ps Sc Sk Sm So Zl Zp Zs".split()
+
+
 def _unicode_tables() -> Dict[str, np.ndarray]:
     """FriBiDi's bidi types, bracket types and joining types and HarfBuzz's
-    mirrors of every code point, from the libraries Pillow's raqm draws
-    with (loaded here only)."""
+    mirrors and general categories (where Python's differ) of every code
+    point, from the libraries Pillow's raqm draws with (loaded here only)."""
     import ctypes
 
     import PIL
@@ -779,12 +876,16 @@ def _unicode_tables() -> Dict[str, np.ndarray]:
     hb.hb_unicode_funcs_get_default.restype = ctypes.c_void_p
     hb.hb_unicode_mirroring.restype = ctypes.c_uint32
     hb.hb_unicode_mirroring.argtypes = (ctypes.c_void_p, ctypes.c_uint32)
+    hb.hb_unicode_general_category.restype = ctypes.c_int
+    hb.hb_unicode_general_category.argtypes = (ctypes.c_void_p, ctypes.c_uint32)
     funcs = hb.hb_unicode_funcs_get_default()
     mirrors = [(cp, m) for cp in range(n) if (m := hb.hb_unicode_mirroring(funcs, cp)) != cp]
+    general = [(cp, c) for cp in range(n) if unicodedata.category(chr(cp)) != "Cn"
+               and (c := HB_CATEGORIES[hb.hb_unicode_general_category(funcs, cp)]) != unicodedata.category(chr(cp))]
     libraries = [f"fribidi {features.version('fribidi')}", f"harfbuzz {features.version('harfbuzz')}",
                  f"raqm {features.version('raqm')}"]
     return {"bidi": bidi_types, "bidi_brackets": np.stack([has, ids], 1).astype(np.int32), "joining": joining,
-            "mirrors": mirrors, "libraries": np.array(libraries)}
+            "mirrors": mirrors, "general": general, "libraries": np.array(libraries)}
 
 
 def _needs_a_mark(st, gdef_class) -> bool:
@@ -886,6 +987,179 @@ def _kerning(pils, gpos, gid, served, tags, chosen, script_of, token_of_glyph, l
     return {size: np.array(sorted(rows), np.int32).reshape(-1, 4) for size, rows in kern.items()}
 
 
+# the runs that tell a code point X's type in a USE run's own joining: (context before, run, context after), K
+# an N'Ko letter
+USE_JOINING_CASES = (("", "KXK", ""), ("", "KX", "K"), ("K", "XK", ""), ("K", "KXK", "K"), ("", "XK", ""),
+                     ("", "KX", ""), ("K", "X", "K"), ("", "XKK", ""), ("", "KKX", ""))
+USE_JOINING_ORDER = (arabic.U, arabic.T, arabic.D, arabic.R, arabic.L)
+
+
+def _probe_use_joining(hb: HarfBuzz, joining, form_action: Dict[int, int], cps, script: str, letter: str
+                       ) -> Dict[int, int]:
+    """The type of each code point in the own joining of a run HarfBuzz
+    shapes with USE and joining (N'Ko; `arabic.use_joining_actions`): the
+    first of `USE_JOINING_ORDER` that gives each letter of every
+    `USE_JOINING_CASES` run the form HarfBuzz gives it (`form_action`: the
+    action of each form glyph of the script's tag; `joining`: HarfBuzz's
+    joining type of every code point)."""
+    out = {}
+    for cp in cps:
+        x = chr(cp)
+        runs = []
+        for pre, run, post in USE_JOINING_CASES:
+            text = (pre + run + post).replace("K", letter).replace("X", x)
+            start, end = len(pre), len(pre) + len(run)
+            got = {cl: form_action.get(g, arabic.NONE) for g, _, _, _, cl in hb.shape(text, start, end, script, True,
+                                                                                     12, clusters=True)}
+            lines = [ord(c) for c in text]
+            letters = [k for k in range(start, end) if (pre + run + post)[k] == "K"]
+            runs.append((lines, start, end, letters, [got.get(k, -1) for k in letters]))
+        for cand in USE_JOINING_ORDER:
+            fits = True
+            for line, start, end, letters, want in runs:
+                own = [cand if c == cp else arabic.D for c in line[start:end]]
+                acts = arabic.use_joining_actions([joining[c] for c in line[start:end]], own,
+                                                  [joining[c] for c in line[max(0, start - 5):start][::-1]],
+                                                  [joining[c] for c in line[end:end + 5]])
+                if [a if a != arabic.ISOL else arabic.NONE for a in (acts[k - start] for k in letters)] != want:
+                    fits = False
+                    break
+            if fits:
+                out[cp] = cand
+                break
+        else:
+            raise AssertionError(f"U+{cp:04X}: no joining type gives HarfBuzz's forms in a USE run")
+    return out
+
+
+# the lines that tell a code point X's syllable category: in a Tifinagh run (USE: a letter B, U+2D7F H, a digit
+# B, "-" GB, the Vedic signs CS and VMPst, ZWNJ, "]" SE, "²" FMPst) and in a Khmer run (a letter, Coeng, the
+# vowel signs of each position, Robatic, the other signs, a digit as a visible placeholder)
+USE_CONTEXTS = ("X", "ⵜX", "ⵜXX", "ⵜ X", "ⵜ⵿X", "ⵜX⵿", "ⵜX⵿ⵜ", "ⵜXⵜ", "5X", "5X⵿", "5⵿X", "5XX", "ⵜ⵿ⵜX", "-X",
+                "ⵜ⵿X⵿", "ⵜX\u200c", "ⵜX\u200cⵜ", "ⵜ-X", "\u1cf5X", "ⵜ\u1cf5X", "ⵜX\u1ce1", "ⵜ\u1ce1X", "ⵜ\u200cX",
+                "ⵜX\u200c⵿", "ⵜ]X", "ⵜ²X", "ⵜX²", "5X⵿5", "5⵿5X", "5X5")
+KHMER_CONTEXTS = ("X", "កX", "កXX", "ក X", "5X", "5XX", "ក្X", "កX្ក", "5X្ក", "កXិ", "កិX", "5Xិ", "5ិX",
+                  "កXុ", "កុX", "5Xុ", "កXា", "កាX", "5Xា", "5Xេ", "5េX", "កXេ", "5X៉", "5៉X", "កXំ", "5Xំ",
+                  "កXះ", "5Xះ", "។X", "5\u200cX", "5X\u200cិ", "5X្រ", "X5", "5X5", "5X្X", "ក\u200dX")
+# marks whose USE category the USE specification gives by their Indic syllabic and positional categories
+# (Devanagari's anusvara, nukta, vowel signs U and E, virama and stress sign anudatta; Khmer's vowel sign U; a
+# Balinese musical symbol; Sundanese's final -r above): they anchor the pair lines beside the marks `use`
+# holds, each checked too
+USE_ANCHORS = {0x0902: use.VMABV, 0x093C: use.CMBLW, 0x0941: use.VBLW, 0x0947: use.VABV, 0x094D: use.H,
+               0x0952: use.VMBLW, 0x17BB: use.VBLW, 0x1B6B: use.SMABV, 0x1B81: use.FABV}
+# the lines with a second code point Y of a known category, both orders
+USE_PAIRS = ("ⵜXY", "ⵜYX", "5XY", "ⵜ⵿XY")
+KHMER_PAIRS = ("កXY", "កYX", "5XY", "5YX")
+
+
+def _probe_categories(font: ShapedFont, hb: HarfBuzz, cps, script: int, code: str, contexts, pair_contexts,
+                      anchors: Dict[int, int], candidates, table: Dict[int, int]) -> Dict[int, List[int]]:
+    """The syllable categories under which the mirror shapes every one of
+    `contexts` (X the code point) in a run of `script` (`code`) as
+    HarfBuzz does, glyph for glyph, for each code point: `table` is the
+    category table the run's shaper reads (set in turn to each of the
+    `candidates`). Then, in rounds, each `pair_contexts` line with Y a
+    code point whose category is known (the `anchors`, and those with one
+    category left) narrows them down. The code points HarfBuzz shapes alike
+    in every line (with the same combining class, decomposition and glyph)
+    are probed once. Last, the code points still left with several
+    categories, none of them the default (the first candidate, outside
+    every cluster) and not every one, settle among themselves
+    (`settle`)."""
+    size = font.size
+    dotted = font.glyphs[font.token_of[DOTTED_CIRCLE]]
+
+    def glyphs(line: str, own):
+        return tuple(-1 if g == own else g for g, *_ in hb.shape(line, 0, len(line), code, False, size))
+
+    def mirror(line: str, own):
+        try:
+            return tuple(-1 if font.glyphs[t] == own else font.glyphs[t]
+                         for t, *_ in font.shape_run([ord(c) for c in line], 0, len(line), script, False))
+        except UnsupportedText:
+            return None
+
+    def own_glyph(cp):
+        return font.glyphs[font.token_of[cp]] if cp in font.cmap else None
+
+    def narrow(lines_of, fits) -> Dict[int, List[int]]:
+        groups: Dict[tuple, List[int]] = {}
+        for cp in cps:
+            own = own_glyph(cp)
+            key = (tuple(fits[cp]), _modified_ccc(cp), _canonical_decomposition(cp), cp in font.cmap,
+                   tuple(glyphs(line, own) for line in lines_of(cp)))
+            groups.setdefault(key, []).append(cp)
+        out: Dict[int, List[int]] = {}
+        for (cands, *_, want), members in groups.items():
+            cp = members[0]
+            own, lines = own_glyph(cp), lines_of(cp)
+            left, held = [], table.pop(cp, None)
+            for cand in cands:
+                table[cp] = cand
+                if all(mirror(line, own) == w for line, w in zip(lines, want)):
+                    left.append(cand)
+            table.pop(cp, None)
+            if held is not None:
+                table[cp] = held
+            out.update({m: left for m in members})
+        return out
+
+    def settle(fits) -> Dict[int, List[int]]:
+        """The categories left to a code point fit every line with one of
+        known category; where two such code points meet, only some choices
+        for the pair do (U+17CB then U+11A93 is a broken cluster, the other
+        order is not: their categories FBLW, FPST, FMABV and FMBLW are
+        ordered within a cluster). Each takes the first of its categories
+        under which the pair lines with every one settled before it shape
+        as HarfBuzz's; the one that more of the others must precede (a
+        dotted circle between them, which a lower category shows) settles
+        first. None fitting fails."""
+        left = [cp for cp in cps
+                if 1 < len(fits[cp]) < len(candidates) and candidates[0] not in fits[cp] and cp not in anchors]
+
+        def lines(x, y):
+            return [ctx.replace("X", chr(x)).replace("Y", chr(y)) for ctx in pair_contexts]
+
+        def broken(line):
+            return glyphs(line, None).count(dotted) > line.count(chr(DOTTED_CIRCLE))
+
+        below = {x: sum(broken(line) for y in left if y != x for ctx, line in zip(pair_contexts, lines(x, y))
+                        if ctx.index("Y") < ctx.index("X")) for x in left}
+        settled = []
+        for x in sorted(left, key=lambda cp: (-below[cp], cp)):
+            for cand in fits[x]:
+                table[x] = cand
+                if all(mirror(line, None) == glyphs(line, None) for y in settled for line in lines(x, y)):
+                    break
+            else:
+                raise AssertionError(f"U+{x:04X}: no syllable category shapes its pairs as HarfBuzz does in a "
+                                     f"{code} run")
+            settled.append(x)
+        for x in settled:
+            fits[x] = [table.pop(x)]
+        return fits
+
+    fits = narrow(lambda cp: [ctx.replace("X", chr(cp)) for ctx in contexts], {cp: list(candidates) for cp in cps})
+    for _ in range(3):
+        # the known categories: the anchors', those with one category left (a code point no category fits
+        # in a round keeps what it had)
+        known = {cp: f[0] for cp, f in fits.items() if len(f) == 1}
+        known.update(anchors)
+        reps = {}
+        for cp in sorted(known, key=lambda c: (c not in anchors, len(fits.get(c, ())), c)):
+            reps.setdefault(known[cp], cp)
+        table.update({cp: known[cp] for cp in reps.values()})
+        before = sum(map(len, fits.values()))
+        new = narrow(lambda cp: [ctx.replace("X", chr(cp)).replace("Y", chr(y)) for ctx in pair_contexts
+                                 for y in reps.values() if y != cp], fits)
+        fits = {cp: new[cp] or fits[cp] for cp in fits}
+        for y in reps.values():
+            table.pop(y, None)
+        if sum(map(len, fits.values())) == before:
+            break
+    return settle(fits)
+
+
 def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     """Make the atlas (see the module docstring) and return its path."""
     from fontTools.ttLib import TTFont
@@ -916,12 +1190,16 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     shapers = {c: hb_ot_shaper_categorize(c, chosen[c]) for c in codes}
     refused = {c for c in codes if not mirrored(c, shapers[c])}
     served = sorted({chosen[c] for c in codes if c not in refused})
+    # the tags whose shaper joins: the Arabic shaper's, USE's for a joining script (N'Ko)
+    joining_tags = {chosen[c] for c in codes if c not in refused and (shapers[c] == ARABIC_SHAPER or (
+        shapers[c] == USE_SHAPER and c in JOINING_SCRIPTS))}
     gdef_class = gdef.GlyphClassDef.classDefs
-    _check_substitutions(gsub, served)
+    _check_substitutions(gsub, served, joining_tags)
     uni = _unicode_tables()
+    general = dict(uni["general"])   # HarfBuzz's general category where Python's differs (U+1171E: Mc)
     # HarfBuzz's joining type of a mark ArabicShaping.txt does not list is T (`get_joining_type`);
     # FriBiDi's Unicode 10 data leaves the later marks, and the enclosing ones, non-joining
-    categories = [unicodedata.category(chr(cp)) for cp in range(0x110000)]
+    categories = [general.get(cp) or unicodedata.category(chr(cp)) for cp in range(0x110000)]
     is_mark = np.array([c in ("Mn", "Me") for c in categories])
     uni["joining"][is_mark] = arabic.T
     # and U for a spacing mark that was nonspacing in Unicode 10 (U+1734): HarfBuzz gives T to Mn, Me and Cf only
@@ -929,9 +1207,10 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     uni["joining"][spacing & (uni["joining"] == arabic.T)] = arabic.U
 
     classes, spaces = _classify(cmap, script_of, refused)
-    for cp in range(0x110000):   # the letters of the other joining scripts, as HarfBuzz joins to them
-        if (script_of(cp) in JOINING_SCRIPTS and classes[cp] in (GLYPH, NOTDEF)
-                and unicodedata.category(chr(cp))[0] == "L"):
+    for cp in range(0x110000):   # the letters of the other joining scripts, as HarfBuzz joins to them, and the
+        # Arabic letters newer than FriBiDi's data (FriBiDi leaves them non-joining; HarfBuzz's table has them)
+        if (classes[cp] in (GLYPH, NOTDEF) and categories[cp][0] == "L"
+                and (script_of(cp) in JOINING_SCRIPTS or (script_of(cp) == "Arab" and uni["joining"][cp] == arabic.U))):
             uni["joining"][cp] = _context_joining(pil, cp)
     assert classes[NOTDEF_PROBE] == NOTDEF
     # tokens: the cmap's drawn characters (marks too), the spaces the font
@@ -945,7 +1224,7 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
                 ligatures.append(s)
                 lig_glyphs.append(gid[g])
     chars = drawn + spaces
-    forms = _arabic_forms(gsub, gid)
+    forms = _forms(gsub, gid, served, tags)
     cp_of_glyph = {gid[cmap_names[cp]]: cp for cp in reversed(drawn)}
     known = set(cp_of_glyph) | set(lig_glyphs)
     form_strings, form_glyphs = _form_strings(forms, cp_of_glyph, uni["joining"], known)
@@ -956,7 +1235,7 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
                       if gsub.LookupList.Lookup[li].LookupType == 6
                       and all(char_of.get(g) in contextual for st in gsub.LookupList.Lookup[li].SubTable
                               for g in st.Coverage.glyphs)}
-    stage_rows = _gsub_stages(gsub, served, tags, skipped_chains)
+    stage_rows = _gsub_stages(gsub, served, tags, skipped_chains, joining_tags)
     gsub_arrays = _gsub_tables(gsub, gid, [li for _, _, li in stage_rows])
     # the glyphs the mirrored substitutions reach from the tokens' glyphs;
     # a ligature whose components they never reach is dropped
@@ -1010,7 +1289,9 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         "mirror": np.array([(c, m) for c, m in uni["mirrors"] if m in cmap], np.int32).reshape(-1, 2),
         "script_directions": np.array([RTL_SCRIPT if c in RTL_SCRIPTS else NO_DIRECTION if c in UNDIRECTED_SCRIPTS
                                        else LTR_SCRIPT for c in codes], np.int8),
-        "arabic_forms": np.array(forms, np.int32).reshape(-1, 3),
+        "forms_substs": np.array(forms, np.int32).reshape(-1, 4),
+        "general_cps": np.array(sorted(general), np.int32),
+        "general_categories": np.array([general[cp] for cp in sorted(general)]),
         "gsub_lookups": np.array(stage_rows, np.int32).reshape(-1, 3),
         "libraries": uni["libraries"],
         **gsub_arrays,
@@ -1018,6 +1299,23 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     }
     arrays["bidi_starts"], arrays["bidi_values"] = _ranges(uni["bidi"])
     arrays["joining_starts"], arrays["joining_values"] = _ranges(uni["joining"])
+    # the own joining of a run that HarfBuzz shapes with USE and joining (N'Ko), probed for everything such a
+    # run may hold (a code point that decomposes is shaped as its parts)
+    hb = HarfBuzz(pil.font.path)
+    use_joining = np.full(0x110000, arabic.U, np.int8)
+    for code in sorted(c for c in codes if shapers[c] == USE_SHAPER and chosen[c] in joining_tags):
+        tag = tags.index(chosen[code])
+        form_action = {b: action for t, action, _, b in forms if t == tag}
+        formed = {a for t, _, a, _ in forms if t == tag}
+        letter = next(chr(cp) for cp in drawn if script_of(cp) == code and gid[cmap_names[cp]] in formed)
+        cands = [cp for cp in np.flatnonzero(np.isin(classes, (GLYPH, NOTDEF, COMPOSES, HIDDEN))).tolist()
+                 if (script_of(cp) in (code, "Zyyy", "Zinh") or categories[cp] == "Mn") and cp != 0x0A
+                 and not _canonical_decomposition(cp)]
+        for cp, t in _probe_use_joining(hb, uni["joining"], form_action, cands, code, letter).items():
+            use_joining[cp] = t
+    arrays["use_joining_starts"], arrays["use_joining_values"] = _ranges(use_joining)
+    arrays["use_categories"] = np.zeros((0, 2), np.int32)
+    arrays["khmer_categories"] = np.zeros((0, 2), np.int32)
     # the default-ignorables that leave "A?V" one run (a bidi control may split it, a Mongolian one
     # starts a run of its script)
     hidden_cps = [cp for cp in np.flatnonzero(classes == HIDDEN).tolist()
@@ -1061,8 +1359,31 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     arrays["class_starts"], arrays["class_values"] = _ranges(classes)
     font = ShapedFont(arrays, pil.size)
     todo = np.flatnonzero(np.isin(classes, (GLYPH, NOTDEF, COMPOSES, HIDDEN))).tolist()
-    marks_todo = [cp for cp in todo if _is_mark(cp) and classes[cp] != HIDDEN and script_of(cp) != "Hang"]
-    todo = [cp for cp in todo if cp != 0x0A and not _is_mark(cp)]   # marks are probed on bases below
+    # the syllable categories HarfBuzz reads for the nonspacing marks of the other scripts (and what raqm keeps
+    # in a run: the Inherited characters) in a USE and a Khmer run, probed; N'Ko's own, which `use` holds,
+    # checked
+    foreign = [cp for cp in todo if (categories[cp] == "Mn" or script_of(cp) == "Zinh") and classes[cp] != HIDDEN]
+    for module, code, contexts, pairs, order, table, key in (
+            (use, "Tfng", USE_CONTEXTS, USE_PAIRS, USE_ORDER, font.use_categories, "use_categories"),
+            (khmer, "Khmr", KHMER_CONTEXTS, KHMER_PAIRS, KHMER_ORDER, font.khmer_categories, "khmer_categories")):
+        own = [cp for cp in foreign if cp not in module.CATEGORY and script_of(cp) != code]
+        checked = [cp for cp in todo if module is use and script_of(cp) == "Nkoo" and cp not in own]
+        # the marks `module` holds (Khmer's; Tifinagh's and N'Ko's) and USE's anchors anchor the pairs
+        anchors = {cp: c for cp, c in module.CATEGORY.items() if categories[cp] == "Mn"}
+        anchors.update(USE_ANCHORS if module is use else {})
+        fits = _probe_categories(font, hb, own + checked, codes.index(code), code, contexts, pairs, anchors, order,
+                                 table)
+        for cp in checked:
+            assert module.CATEGORY.get(cp, order[0]) in fits[cp], \
+                f"U+{cp:04X}: {module.__name__} holds a category HarfBuzz refutes"
+        for cp in own:
+            cat = anchors.get(cp, fits[cp][0] if fits[cp] else None)
+            assert cat in fits[cp], f"U+{cp:04X}: no syllable category shapes it as HarfBuzz does in a {code} run"
+            if cat != order[0]:
+                table[cp] = cat
+        arrays[key] = np.array(sorted(table.items()), np.int32).reshape(-1, 2)
+    marks_todo = [cp for cp in todo if font.is_mark(cp) and classes[cp] != HIDDEN and script_of(cp) != "Hang"]
+    todo = [cp for cp in todo if cp != 0x0A and not font.is_mark(cp)]   # marks are probed on bases below
     misdrawn: List[int] = []
     for i in range(0, len(todo), PROBE_CHUNK):
         _probe(font, pil, _chars(todo[i:i + PROBE_CHUNK]), misdrawn)
@@ -1082,6 +1403,8 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
             frames = [("\u0628", "\u0628")]
         elif script_of(cp) == "Arab" or uni["joining"][cp] not in (arabic.U, arabic.T):
             frames = [("", ""), (t, t), (t, ""), ("", t), ("\u0628", ""), ("", "\u0628")]
+            if script_of(cp) == "Arab":   # FriBiDi's weak rules on the digits and signs after it, both directions
+                frames += [("", "12"), ("", "%1"), ("", "+1"), ("", "-1"), ("a ", " 12"), ("a ", "%1"), ("a ", "-1+")]
         else:
             continue
         for frame in frames:
@@ -1093,6 +1416,9 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     # the marks, at both sizes: on their bases, stacked, in the ccmp contexts and the ligatures
     mark_tags = sorted({tags[tag] for tag in arrays["mark_lookups"][:, 0].tolist()})
     units = _mark_units(gsub, gpos, cmap_names, drawn, marks_todo, script_of, chosen, mark_tags, skipped_chains)
+    # every mark on a letter of each run whose shaper reads its syllable category (Khmer, Tifinagh, N'Ko)
+    units["syllabic"] = [(base + chr(m), m) for base in ("\u1780", "\u2d5c", "\u07de") for m in marks_todo
+                         if script_of(m) not in ("Khmr", "Tfng", "Nkoo")]
     for size, p in pils.items():
         sized = font if size == pil.size else ShapedFont(arrays, size)
         for group in units.values():

@@ -6,14 +6,15 @@ syllable, then each pre-base vowel (U+17C1-U+17C3) to the front.
 
 The categories are HarfBuzz's Indic table for the characters a Khmer run
 holds: the Khmer blocks, and the Common ones the table lists (digits, a
-few dashes and signs, and five Vedic signs as placeholders, the dotted
+few dashes and signs, four Vedic signs as consonants (after a Coeng they
+join its syllable) and one as a placeholder, the dotted
 circle, the joiners). Each Common character's was checked against
 HarfBuzz in a Khmer run: before a vowel sign, a Robatic, a Coeng, after
-one.
-Everything else is "other" to the machine. The nonspacing marks of the
-other scripts in that table (a Devanagari virama is a Coeng to the
-machine, a Myanmar vowel sign a Khmer one) are refused by the caller
-(`FOREIGN`).
+one. The nonspacing marks of the other scripts in that table take the
+category the atlas holds for them, which `glyph_atlas._probe_categories`
+finds by probing Pillow's HarfBuzz (a Devanagari virama is a Coeng to
+the machine, a Myanmar vowel sign a Khmer one). Everything else is
+"other" to the machine.
 
 The split vowels U+17BE-U+17C0, U+17C4 and U+17C5 decompose into U+17C1 and
 themselves (`decompose_khmer`) only where the font maps both; and nothing
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple, TypeVar
 
+from morphik_core_tpu_torch.parser.marks import merge_cluster_values
 from morphik_core_tpu_torch.parser.syllables import alt, dotted_starts, opt, scan, seq, star, sym
 
 T = TypeVar("T")
@@ -44,25 +46,18 @@ _RANGES = (   # (first, last, category)
     (0x002D, 0x002D, PLACEHOLDER), (0x0030, 0x0039, PLACEHOLDER), (0x00A0, 0x00A0, PLACEHOLDER),
     (0x00D7, 0x00D7, PLACEHOLDER), (0x2010, 0x2015, PLACEHOLDER), (0x2022, 0x2022, PLACEHOLDER),
     (0x25FB, 0x25FE, PLACEHOLDER), (0x25CC, 0x25CC, DOTTEDCIRCLE), (0x200C, 0x200C, ZWNJ), (0x200D, 0x200D, ZWJ),
-    (0x1CF2, 0x1CF3, PLACEHOLDER), (0x1CF5, 0x1CF6, PLACEHOLDER), (0x1CFA, 0x1CFA, PLACEHOLDER),
+    (0x1CF2, 0x1CF3, C), (0x1CF5, 0x1CF6, C), (0x1CFA, 0x1CFA, PLACEHOLDER),
 )
 CATEGORY: Dict[int, int] = {cp: cat for a, b, cat in _RANGES for cp in range(a, b + 1)}
-# the other blocks of HarfBuzz's Indic table, whose marks the port does not categorize
-FOREIGN = ((0x0900, 0x0DFF), (0x1000, 0x109F), (0x1CD0, 0x1CFF), (0xA8E0, 0xA8FF), (0xA9E0, 0xA9FF),
-           (0xAA60, 0xAA7F), (0x116D0, 0x116FF))
 # `decompose_khmer`: the split vowels without a Unicode decomposition
 SPLITS = {0x17BE: (0x17C1, 0x17BE), 0x17BF: (0x17C1, 0x17BF), 0x17C0: (0x17C1, 0x17C0),
           0x17C4: (0x17C1, 0x17C4), 0x17C5: (0x17C1, 0x17C5)}
 
 
-def category(cp: int) -> int:
-    return CATEGORY.get(cp, X)
-
-
-def foreign(cp: int) -> bool:
-    """Whether a nonspacing mark in a Khmer run has a category of another
-    script's (the Indic table's other blocks)."""
-    return any(a <= cp <= b for a, b in FOREIGN)
+def category(cp: int, others: Dict[int, int]) -> int:
+    """A code point's category (`others`: the atlas's, for the marks of the
+    other scripts)."""
+    return others.get(cp, CATEGORY.get(cp, X))
 
 
 # hb-ot-shaper-khmer-machine.rl
@@ -84,36 +79,57 @@ def syllables(cats: Sequence[int]) -> List[Tuple[int, int, int]]:
     return scan(cats, RULES)
 
 
-def _reorder(items: List[T], cats: List[int]) -> None:
-    """`reorder_consonant_syllable` over one syllable, in place."""
+def _reorder(items: List[T], cats: List[int], clusters: Optional[List[Optional[int]]], start: int, end: int
+             ) -> None:
+    """`reorder_consonant_syllable` over the syllable `start:end` of the
+    run, in place; each move first merges the HarfBuzz clusters (where
+    followed) of the span it moves through."""
+    seqs = (items, cats) if clusters is None else (items, cats, clusters)
     coengs = 0
-    i = 1
-    while i < len(items):
-        if cats[i] == H and coengs <= 2 and i + 1 < len(items):
+    i = start + 1
+    while i < end:
+        if cats[i] == H and coengs <= 2 and i + 1 < end:
             coengs += 1
             if cats[i + 1] == RA:   # Coeng Ro to the start
-                items[:i + 2] = items[i:i + 2] + items[:i]
-                cats[:i + 2] = cats[i:i + 2] + cats[:i]
+                if clusters is not None:
+                    merge_cluster_values(clusters, start, i + 2)
+                for seq in seqs:
+                    seq[start:i + 2] = seq[i:i + 2] + seq[start:i]
                 coengs = 2
         elif cats[i] == VPRE:   # the left matra piece to the start
-            items[:i + 1] = items[i:i + 1] + items[:i]
-            cats[:i + 1] = cats[i:i + 1] + cats[:i]
+            if clusters is not None:
+                merge_cluster_values(clusters, start, i + 1)
+            for seq in seqs:
+                seq[start:i + 1] = seq[i:i + 1] + seq[start:i]
         i += 1
 
 
-def shape(items: Sequence[T], cps: Sequence[int], dotted: Optional[T]) -> List[T]:
-    """A normalized Khmer run (`items`, their code points `cps`) -> its
-    items with the dotted circles (`dotted`, None where the font lacks
-    U+25CC) and reordered."""
-    cats = [category(cp) for cp in cps]
+def shape(items: Sequence[T], cps: Sequence[int], others: Dict[int, int], dotted: Optional[T],
+          clusters: Optional[Sequence[Optional[int]]]) -> Tuple[List[T], Optional[List[Optional[int]]]]:
+    """A normalized Khmer run (`items`, their code points `cps`, their
+    HarfBuzz clusters or None; `others`: the atlas's categories of the
+    other scripts' marks) -> its items with the dotted circles (`dotted`,
+    None where the font lacks U+25CC; each takes its syllable's cluster)
+    and reordered, and their clusters (None without `clusters`)."""
+    cats = [category(cp, others) for cp in cps]
     found = syllables(cats)
     circled = set(dotted_starts(found, BROKEN_CLUSTER)) if dotted is not None else set()
     out: List[T] = []
+    out_cats: List[int] = []
+    out_cl: Optional[List[Optional[int]]] = None if clusters is None else []
+    spans = []
     for start, end, kind in found:
-        syl, syl_cats = list(items[start:end]), cats[start:end]
         if start in circled:
-            syl, syl_cats = [dotted] + syl, [DOTTEDCIRCLE] + syl_cats
+            out.append(dotted)
+            out_cats.append(DOTTEDCIRCLE)
+            if out_cl is not None:
+                out_cl.append(clusters[start])
+        out += items[start:end]
+        out_cats += cats[start:end]
+        if out_cl is not None:
+            out_cl += clusters[start:end]
         if kind != NON_KHMER_CLUSTER:
-            _reorder(syl, syl_cats)
-        out += syl
-    return out
+            spans.append((len(out) - (end - start) - (start in circled), len(out)))
+    for start, end in spans:
+        _reorder(out, out_cats, out_cl, start, end)
+    return out, out_cl

@@ -31,7 +31,7 @@ filtering sets (the atlas generator checks that).
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 MARK_BASE, MARK_LIG, MARK_MARK = 4, 5, 6   # GPOS lookup types
 IGNORE_BASE, IGNORE_LIGATURES, IGNORE_MARKS, IGNORE_FLAGS = 0x2, 0x4, 0x8, 0xE
@@ -43,16 +43,42 @@ class Item:
     """One glyph of HarfBuzz's buffer while a run is shaped: the code point
     it came from, its atlas token and glyph, whether it is a
     default-ignorable (and, for a CGJ, whether normalization left it
-    hidden from GSUB), and its ligature properties (the id of the ligature
+    hidden from GSUB), its ligature properties (the id of the ligature
     it belongs to, its component there, and the components a ligature
-    glyph stands for)."""
+    glyph stands for) and its HarfBuzz cluster."""
 
-    __slots__ = ("cp", "tok", "glyph", "ignorable", "held", "lig_id", "lig_comp", "comps")
+    __slots__ = ("cp", "tok", "glyph", "ignorable", "held", "lig_id", "lig_comp", "comps", "cluster")
 
     def __init__(self, cp: int, tok: int, glyph: int, ignorable: bool, held: bool = False):
         self.cp, self.tok, self.glyph, self.ignorable, self.held = cp, tok, glyph, ignorable, held
         self.lig_id = self.lig_comp = 0
         self.comps = 1
+        self.cluster = None
+
+
+def merge_cluster_values(cl: List[Optional[int]], start: int, end: int) -> None:
+    """HarfBuzz's `merge_clusters` over `cl[start:end]` (clusters), in
+    place: their least, spread to the neighbours that share a boundary
+    one. None (a cluster not followed) leaves them as they are."""
+    if end - start < 2 or None in cl[start:end]:
+        return
+    least = min(cl[start:end])
+    while end < len(cl) and cl[end] == cl[end - 1]:
+        end += 1
+    while start and cl[start - 1] == cl[start]:
+        start -= 1
+    cl[start:end] = [least] * (end - start)
+
+
+def merge_clusters(items: Sequence[Item], start: int, end: int) -> None:
+    """`merge_cluster_values` over the clusters of `items` (none where
+    they are not followed)."""
+    if end - start < 2 or items[start].cluster is None:
+        return
+    cl = [it.cluster for it in items]
+    merge_cluster_values(cl, start, end)
+    for it, c in zip(items, cl):
+        it.cluster = c
 
 
 class MarkTables:

@@ -19,8 +19,12 @@ GPOS `kern` pairs as PIL measures them inside a run of each script that
 can hold the pair, and the GPOS mark anchors; the GDEF classes; the GSUB
 lookups the mirror applies; and, for every code point, its class (`GLYPH`
 ... `MISDRAWN` below), its script (ISO 15924), its FriBiDi bidi type and
-bracket, its HarfBuzz mirror and its Arabic joining type, and, for the
-brackets that raqm pairs, its partner.
+bracket, its HarfBuzz mirror, its joining type (HarfBuzz's) and the one
+HarfBuzz's USE shaper joins N'Ko on, and, for the brackets that raqm
+pairs, its partner; HarfBuzz's general category where Unicode 17 differs
+from Python's (U+1171E is a spacing mark there); and the syllable
+category HarfBuzz reads for a nonspacing mark of another script in a USE
+or a Khmer run.
 
 The reference's layout is Pillow's raqm (FriBiDi + HarfBuzz), mirrored
 here for every shaper HarfBuzz 12 picks under the font's script tags
@@ -28,7 +32,7 @@ here for every shaper HarfBuzz 12 picks under the font's script tags
 Greek, Cyrillic, CJK, and the Indic scripts, Sinhala, Myanmar, Tibetan,
 Syriac, Mongolian, Adlam and the other USE scripts, which give way to it
 under DFLT), Hebrew, Arabic, Thai / Lao (`thai`), Khmer (`khmer`),
-Hangul (`hangul`) and USE for Tifinagh (`use`):
+Hangul (`hangul`) and USE for Tifinagh and N'Ko (`use`):
 
 - the bidi levels of `bidi.embedding_levels` (FriBiDi's, the paragraph
   direction from the line itself: each `line[:max_chars]` piece is a
@@ -36,10 +40,11 @@ Hangul (`hangul`) and USE for Tifinagh (`use`):
 - raqm's script resolution: a Common character takes the script before
   it, a closing bracket the script of its opening one (a stack), and
   what is still Common or Inherited (a leading run) the script after it;
-  a nonspacing mark of any script counts as Inherited, so it stays in its
-  base's run; each level run splits into runs where the resolved script
-  changes (a right-to-left one from its end), and each run is shaped
-  alone under its script's OpenType script tag;
+  a nonspacing mark of any script (HarfBuzz's general category) counts as
+  Inherited, so it stays in its base's run; each level run splits into
+  runs where the resolved script changes (a right-to-left one from its
+  end), and each run is shaped alone under its script's OpenType script
+  tag;
 - in a right-to-left run, each character with a HarfBuzz mirror the font
   maps becomes its mirror (`(` draws `)`, `<` draws `>`, `«` draws `»`);
 - HarfBuzz's native direction: a run whose direction is not its script's
@@ -58,14 +63,18 @@ Hangul (`hangul`) and USE for Tifinagh (`use`):
   parts it maps, a variation selector leaves its cluster alone, U+3000
   takes the space glyph; a CGJ that kept marks apart stays hidden from
   GSUB;
-- the syllable machines: Khmer's (a dotted circle at each broken cluster,
-  Coeng Ro and the pre-base vowels to the front) and USE's for Tifinagh
-  (a dotted circle at each broken cluster);
+- the syllable machines, with the category HarfBuzz reads for a mark of
+  another script: Khmer's (a dotted circle at each broken cluster, Coeng
+  Ro and the pre-base vowels to the front) and USE's for Tifinagh and
+  N'Ko (a dotted circle at each broken cluster; no reordering, since the
+  atlas holds no repha or pre-base vowel of a USE script), and N'Ko's
+  joining (`arabic.use_joining_actions`);
 - GSUB: the ccmp chain-context lookups (i and j dotless before a top
   mark, a capital's marks in their case forms, ayin before a point), the
-  ligature lookups (Hebrew's yod with hiriq, `liga`), and in an Arabic
-  run `arabic`'s joining, forms and ligatures (the mark pairs, lam-alef
-  over its marks, a haraka on a space or tatweel); a ligature matches
+  ligature lookups (Hebrew's yod with hiriq, `liga`), in an Arabic run
+  `arabic`'s joining, forms and ligatures (the mark pairs, lam-alef over
+  its marks, a haraka on a space or tatweel), and in an N'Ko run its
+  joined forms (`nko `'s init, medi, fina); a ligature matches
   across the default-ignorables that do not block it and the marks its
   lookup ignores, which keep their ligature component;
 - GPOS: `kern` pairs across every default-ignorable (a mark ends a pair:
@@ -86,12 +95,12 @@ Hangul (`hangul`) and USE for Tifinagh (`use`):
   (`draw_bitmap`).
 
 What the mirror cannot draw raises `UnsupportedText` (ROADMAP Queue 1
-item 3b-ii): N'Ko, whose tag in the font gives it USE with joining (slice
-3), a nonspacing mark of another complex script inside a Khmer or
-Tifinagh run, the code points the atlas's probe finds drawn otherwise
-(the Arabic letters newer than FriBiDi's data among them, slice 3), a
-sequence of the font's contextual tone letters, the two bidi cases
-`bidi.refusal` names, and a dpi whose font size the atlas lacks. The page
+item 3b-ii): a code point unassigned in Python's Unicode 15.0 (those of
+Unicode 16 and 17 among them), a sequence of the font's contextual tone
+letters, the two bidi cases `bidi.refusal` names, a ZWJ before an
+Extended_Pictographic character in a run shaped against its direction,
+a code point the atlas's probe finds drawn otherwise (none in the
+committed atlas), and a dpi whose font size the atlas lacks. The page
 layout (margin, line height, `max_chars` wrapping, the half line after an
 empty line, "(no extractable text)") is `_render_text_page`'s. The atlas
 assumes HarfBuzz's default language system (a C or English locale): a
@@ -104,7 +113,7 @@ import functools
 import itertools
 import unicodedata
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -115,13 +124,12 @@ ATLAS_PATH = Path(__file__).with_name("glyphs_dejavu_sans.npz")
 ATLAS_DPIS = (150, 100)
 FONT_NAME = "DejaVuSans.ttf"
 ROADMAP_ITEM = "ROADMAP Queue 1 item 3b-ii"
-SHAPER_SLICE = f"{ROADMAP_ITEM}, slice 3"
 
 # a code point's class in the atlas; the classes from SHAPER on are refused
 GLYPH, NOTDEF, COMPOSES, HIDDEN, SHAPER, UNASSIGNED, MISDRAWN = range(7)
 _REFUSAL = {
-    SHAPER: f"is shaped by a HarfBuzz shaper that the port does not mirror for its script under the font's own "
-            f"OpenType tag (N'Ko's USE shaper, with its joining; {SHAPER_SLICE})",
+    SHAPER: "is shaped by a HarfBuzz shaper that the port does not mirror for its script under the font's own "
+            "OpenType tag",
     UNASSIGNED: f"is unassigned in Unicode {unicodedata.unidata_version}, a surrogate or a noncharacter",
     MISDRAWN: "is drawn by PIL otherwise than the atlas predicts",
 }
@@ -161,6 +169,8 @@ def font_size(dpi: int) -> int:
 
 
 def _is_mark(cp: int) -> bool:
+    """Whether a code point is a mark in Python's Unicode data (the atlas
+    generator's test; `ShapedFont.is_mark` reads HarfBuzz's)."""
     return unicodedata.category(chr(cp))[0] == "M"
 
 
@@ -207,6 +217,34 @@ def _reorder_marks(cps: Sequence[int], ccc: List[int], shaper: int) -> List[int]
             start += j - i
             i = j
     return order
+
+
+class _Memo(dict):
+    """A function's value for each argument asked so far."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def __missing__(self, key):
+        value = self[key] = self.fn(key)
+        return value
+
+
+def _sort_clusters(cl: List[Optional[int]], ccc: Sequence[int], start: int, end: int) -> None:
+    """The clusters of `hb_buffer_t::sort` (an insertion sort by combining
+    class) over `start:end`, in place: each mark it moves back merges the
+    clusters it passes; the caller reorders the marks themselves."""
+    keys = list(ccc[start:end])
+    for i in range(1, len(keys)):
+        j = i
+        while j and keys[j - 1] > keys[i]:
+            j -= 1
+        if j == i:
+            continue
+        marks.merge_cluster_values(cl, start + j, start + i + 1)
+        keys[j:i + 1] = [keys[i]] + keys[j:i]
+        cl[start + j:start + i + 1] = [cl[start + i]] + cl[start + j:start + i]
 
 
 def _is_variation_selector(cp: int) -> bool:
@@ -296,6 +334,7 @@ class ShapedFont:
 
     def __init__(self, z, size: int):
         chars = z["chars"].tolist()
+        self.size = size
         self.token_of = {c: i for i, c in enumerate(chars)}
         self.notdef = len(chars) + len(z["ligatures"]) + len(z["forms"]) + len(z["extra_glyphs"])
         self.hidden = int(np.flatnonzero(z["hidden"])[0])   # the invisible token of every default-ignorable
@@ -333,12 +372,21 @@ class ShapedFont:
         self.bidi_brackets = dict(z["bidi_brackets"].tolist())
         self.mirror = dict(z["mirror"].tolist())
         self.script_directions = z["script_directions"].tolist()
-        # Arabic: joining types, the form features' substitutions; the default-ignorables each
-        # ligature stage does not match across
+        # joining types (HarfBuzz's; those of a USE run's own joining), each tag's form features'
+        # substitutions; the default-ignorables each ligature stage does not match across
         self.joining_starts, self.joining_values = z["joining_starts"], z["joining_values"]
-        self.forms: Dict[int, Dict[int, int]] = {}
-        for action, a, b in z["arabic_forms"].tolist():
-            self.forms.setdefault(action, {})[a] = b
+        self.use_joining_starts, self.use_joining_values = z["use_joining_starts"], z["use_joining_values"]
+        self.forms: Dict[int, Dict[int, Dict[int, int]]] = {}
+        for tag, action, a, b in z["forms_substs"].tolist():
+            self.forms.setdefault(tag, {}).setdefault(action, {})[a] = b
+        # HarfBuzz's general categories where Python's differ; the syllable categories of the other
+        # scripts' marks in a USE and a Khmer run
+        self.general = {int(cp): str(c) for cp, c in zip(z["general_cps"], z["general_categories"])}
+        # `category(cp)`: HarfBuzz's general category; `is_mark(cp)`: whether it is a mark
+        self.category = _Memo(lambda cp: self.general.get(cp) or unicodedata.category(chr(cp))).__getitem__
+        self.is_mark = _Memo(lambda cp: self.category(cp)[0] == "M").__getitem__
+        self.use_categories = dict(z["use_categories"].tolist())
+        self.khmer_categories = dict(z["khmer_categories"].tolist())
         self.stage_blockers = [self.lig_blockers, set(z["rlig_blockers"].tolist()),
                                set(z["arabic_liga_blockers"].tolist())]
 
@@ -393,6 +441,10 @@ class ShapedFont:
     def joining(self, cps: Sequence[int]) -> List[int]:
         idx = np.searchsorted(self.joining_starts, np.asarray(cps, np.int64), side="right") - 1
         return self.joining_values[idx].tolist()
+
+    def use_joining(self, cps: Sequence[int]) -> List[int]:
+        idx = np.searchsorted(self.use_joining_starts, np.asarray(cps, np.int64), side="right") - 1
+        return self.use_joining_values[idx].tolist()
 
     def refusal(self, cp: int, why: str) -> UnsupportedText:
         name = unicodedata.name(chr(cp), "")
@@ -457,8 +509,8 @@ class ShapedFont:
             return cp, self._token(cp)
         return cp, self.hidden if cp in self.hidden_cps else self.notdef
 
-    def normalize(self, cps: Sequence[int], shaper: int, props: Optional[Sequence[int]] = None
-                  ) -> List[Tuple[int, Optional[int], bool]]:
+    def normalize(self, cps: Sequence[int], shaper: int, props: Optional[Sequence[int]] = None,
+                  clusters: Optional[Sequence[int]] = None):
         """`_hb_ot_shape_normalize` over one run: decompose, reorder marks
         by modified combining class (then the shaper's `reorder_marks`),
         recompose -> (code point, token, whether it is a CGJ that stays
@@ -469,8 +521,12 @@ class ShapedFont:
         too, and composes nothing onto a mark (`compose_khmer`,
         `compose_use`); the Khmer one splits its vowels first. `props`:
         the code point whose Unicode properties (mark, combining class)
-        each character has (a shaper's dotted circle takes its mark's)."""
+        each character has (a shaper's dotted circle takes its mark's).
+        `clusters`: HarfBuzz's cluster of each character, or None where
+        they are not followed -> (the items, their clusters: a composed
+        character takes the least of its parts'; None without `clusters`)."""
         props = list(cps) if props is None else list(props)
+        out_cl: Optional[List[Optional[int]]] = None if clusters is None else []
         mode = _NORMALIZATION.get(shaper, NORMALIZE_COMPOSED)
         compose = mode != NORMALIZE_NONE
         might_short_circuit = mode != NORMALIZE_NO_SHORT_CIRCUIT
@@ -481,7 +537,7 @@ class ShapedFont:
         i = 0
         while i < len(cps):
             j = i + 1
-            while j < len(cps) and _is_mark(props[j]):
+            while j < len(cps) and self.is_mark(props[j]):
                 j += 1
             if j > i + 1:
                 all_simple = False
@@ -493,10 +549,12 @@ class ShapedFont:
                     parts = self._glyphs(cps[k], might_short_circuit if j == i + 1 else not compose, step)
                 out.extend(parts)
                 out_props.extend(props[k] if props[k] != cps[k] else c for c, _ in parts)
+                if out_cl is not None:
+                    out_cl.extend([clusters[k]] * len(parts))
             i = j
         if all_simple:
-            return [(c, t, False) for c, t in out]
-        ccc = [_modified_ccc(p) if _is_mark(p) else 0 for p in out_props]
+            return [(c, t, False) for c, t in out], out_cl
+        ccc = [_modified_ccc(p) if self.is_mark(p) else 0 for p in out_props]
         i = 0
         while i < len(out):   # canonical order: each run of marks sorted by combining class
             if not ccc[i]:
@@ -507,6 +565,8 @@ class ShapedFont:
                 j += 1
             if j - i <= 32:
                 order = sorted(range(i, j), key=lambda k: ccc[k])
+                if out_cl is not None:
+                    _sort_clusters(out_cl, ccc, i, j)
                 out[i:j] = [out[k] for k in order]
                 out_props[i:j] = [out_props[k] for k in order]
                 ccc[i:j] = [ccc[k] for k in order]
@@ -514,29 +574,37 @@ class ShapedFont:
                 order = _reorder_marks([c for c, _ in out[i:j]], run_ccc, shaper)
                 out[i:j] = [out[i + k] for k in order]
                 out_props[i:j] = [out_props[i + k] for k in order]
+                if out_cl is not None:
+                    out_cl[i:j] = [out_cl[i + k] for k in order]
                 ccc[i:j] = run_ccc
             i = j
         # a CGJ that kept marks out of order stays hidden: GSUB does not pass over it
         out = [(c, t, c == CGJ and not (0 < k < len(out) - 1 and (not ccc[k + 1] or ccc[k - 1] <= ccc[k + 1])))
                for k, (c, t) in enumerate(out)]
         if not compose:
-            return out
+            return out, out_cl
         res: List[Tuple[int, Optional[int], bool]] = [out[0]]
         res_ccc = [ccc[0]]
+        res_cl = None if out_cl is None else out_cl[:1]
         starter = 0
         onto_marks = mode != NORMALIZE_NO_SHORT_CIRCUIT
-        for (cp, tok, held), cc, prop in zip(out[1:], ccc[1:], out_props[1:]):
-            if (_is_mark(prop) and (starter == len(res) - 1 or res_ccc[-1] < cc)
-                    and (onto_marks or not _is_mark(res[starter][0]))):
+        for k in range(1, len(out)):
+            (cp, tok, held), cc, prop = out[k], ccc[k], out_props[k]
+            if (self.is_mark(prop) and (starter == len(res) - 1 or res_ccc[-1] < cc)
+                    and (onto_marks or not self.is_mark(res[starter][0]))):
                 composed = self.compose.get((res[starter][0], cp))
                 if composed is not None:
                     res[starter] = (composed, self._token(composed), False)
+                    if res_cl is not None:
+                        res_cl[starter:] = [min(res_cl[starter], out_cl[k])] * (len(res) - starter)
                     continue
             res.append((cp, tok, held))
             res_ccc.append(cc)
+            if res_cl is not None:
+                res_cl.append(out_cl[k])
             if not cc:
                 starter = len(res) - 1
-        return res
+        return res, res_cl
 
     # ------------------------------------------------------------- shaping
 
@@ -547,7 +615,7 @@ class ShapedFont:
         an Extended_Pictographic character after a ZWJ too, which
         `_reverse_graphemes` refuses rather than know)."""
         cp = cps[i]
-        if _is_mark(cp) or cp == ZWJ or 0x1F3FB <= cp <= 0x1F3FF or 0xE0020 <= cp <= 0xE007F or 0xFF9E <= cp <= 0xFF9F:
+        if self.is_mark(cp) or cp == ZWJ or 0x1F3FB <= cp <= 0x1F3FF or 0xE0020 <= cp <= 0xE007F or 0xFF9E <= cp <= 0xFF9F:
             return True
         if 0x1F1E6 <= cp <= 0x1F1FF and i and 0x1F1E6 <= cps[i - 1] <= 0x1F1FF:
             k = i - 1   # a regional indicator continues one that starts a pair
@@ -557,20 +625,21 @@ class ShapedFont:
         return False
 
     def _reverse_graphemes(self, cps: Sequence[int]) -> List[int]:
+        """The order of `cps` with their graphemes reversed (indices)."""
         for i in range(1, len(cps) - 1):   # no letter, mark or digit but U+2139 is Extended_Pictographic
             nxt = cps[i + 1]
             if (cps[i] == ZWJ and nxt not in self.hidden_cps
-                    and (unicodedata.category(chr(nxt))[0] not in "LMN" or nxt == 0x2139)):
+                    and (self.category(nxt)[0] not in "LMN" or nxt == 0x2139)):
                 raise self.refusal(nxt, "follows a ZWJ in a run shaped against its direction: HarfBuzz keeps an "
                                         "Extended_Pictographic character there in the ZWJ's grapheme, and the atlas "
                                         "has no emoji properties")
         groups: List[List[int]] = []
-        for i, cp in enumerate(cps):
+        for i in range(len(cps)):
             if groups and self._continues(cps, i):
-                groups[-1].append(cp)
+                groups[-1].append(i)
             else:
-                groups.append([cp])
-        return [cp for g in reversed(groups) for cp in g]
+                groups.append([i])
+        return [i for g in reversed(groups) for i in g]
 
     def _native_rtl(self, cps: Sequence[int], script: int, rtl: bool) -> bool:
         """The direction HarfBuzz shapes a run in (`hb_ensure_native_direction`):
@@ -582,7 +651,7 @@ class ShapedFont:
         if native == RTL_SCRIPT and not rtl:
             number = regional = False
             for cp in cps:
-                cat = unicodedata.category(chr(cp))
+                cat = self.category(cp)
                 if cat == "Nd":
                     number = True
                 elif cat[0] == "L":
@@ -592,18 +661,12 @@ class ShapedFont:
             return not (number or regional)
         return native == RTL_SCRIPT
 
-    def _checked(self, items: List[Tuple[int, Optional[int], bool]], shaper: int) -> None:
+    def _checked(self, items: List[Tuple[int, Optional[int], bool]]) -> None:
         prev = None
         for cp, tok, _ in items:
             if tok is None:
                 cls = self.classes([cp])[0]
                 raise self.refusal(cp, _REFUSAL.get(cls, "takes a glyph the atlas does not hold"))
-            foreign = (khmer.foreign(cp) if shaper == KHMER_SHAPER else use.foreign(cp) if shaper == USE_SHAPER
-                       else False)
-            if foreign and cp not in self.hidden_cps and unicodedata.category(chr(cp)) == "Mn":
-                raise self.refusal(cp, f"is a mark of another script in a run that HarfBuzz shapes with its "
-                                       f"{'Khmer' if shaper == KHMER_SHAPER else 'USE'} shaper, which reads its "
-                                       f"syllable category there; the port does not hold it ({SHAPER_SLICE})")
             if tok == self.hidden:
                 continue
             if prev is not None and prev in self.contextual and cp in self.contextual:
@@ -668,54 +731,96 @@ class ShapedFont:
                 item.tok = self._glyph_token(item.cp, item.glyph)
         return run
 
-    def _arabic_forms(self, run: List[Item], line: Sequence[int], start: int, end: int) -> None:
-        """`arabic`'s joining and form features over one run (in shaping
-        order); the line around the run is its joining context."""
+    def _joining(self, items: Sequence[Tuple[int, Optional[int], bool]], line: Sequence[int], start: int, end: int,
+                 own: bool) -> List[int]:
+        """The joining action of each of a run's normalized items (in
+        shaping order); the line around the run is its joining context.
+        `own`: the USE shaper's joining (N'Ko), the run's own joining first,
+        in which a CGJ held visible to GSUB does not join."""
+        cps = [cp for cp, _, _ in items]
         before = self.joining(line[max(0, start - arabic.CONTEXT):start][::-1])
         after = self.joining(line[end:end + arabic.CONTEXT])
-        actions = arabic.joining_actions(self.joining([it.cp for it in run]), before, after)
+        if own:
+            types = [arabic.U if held else t for t, (_, _, held) in zip(self.use_joining(cps), items)]
+            return arabic.use_joining_actions(self.joining(cps), types, before, after)
+        return arabic.joining_actions(self.joining(cps), before, after)
+
+    def _forms(self, run: List[Item], actions: Sequence[int], tag: int) -> None:
+        """The tag's form features (`fina`, `medi`, `init`) over one run, in place."""
+        forms = self.forms.get(tag, {})
         for item, action in zip(run, actions):
-            g = None if item.ignorable else self.forms.get(action, {}).get(item.glyph)
+            g = None if item.ignorable else forms.get(action, {}).get(item.glyph)
             if g is not None:
                 item.glyph = g
 
-    def shape_run(self, line: Sequence[int], start: int, end: int, script: int, rtl: bool
-                  ) -> List[Tuple[int, int, int, int]]:
+    def shape_run(self, line: Sequence[int], start: int, end: int, script: int, rtl: bool, clusters: bool = False
+                  ) -> List[Tuple[int, int, int, int, Optional[int]]]:
         """One raqm run of the line, `line[start:end]` -> (token, advance,
-        x offset, y offset, in 1/64 px) in visual order. The run at the
-        line's start, when it starts with a mark, gets HarfBuzz's dotted
-        circle in front."""
+        x offset, y offset, in 1/64 px, cluster) in visual order. The
+        cluster is None unless `clusters` asks for HarfBuzz's (the index in
+        `line` its grapheme starts at, merged over a composition, the
+        marks' sort, a ligature and a Khmer reordering; a dotted circle
+        takes its syllable's; not followed through the Thai and Hangul
+        preprocessing, which gives None). The run at the line's start,
+        when it starts with a mark, gets HarfBuzz's dotted circle in
+        front."""
         cps = list(line[start:end])
-        if not start and cps and _is_mark(cps[0]) and DOTTED_CIRCLE in self.cmap:
+        lead = bool(not start and cps and self.is_mark(cps[0]) and DOTTED_CIRCLE in self.cmap)
+        if lead:
             cps = [DOTTED_CIRCLE, *cps]
         if rtl:
             cps = [self.mirror.get(cp, cp) for cp in cps]
+        cl = None
+        if clusters:   # `hb_form_clusters`: a grapheme's characters take the cluster of its first
+            src = [start] * lead + list(range(start, end))
+            cl = []
+            for i in range(len(cps)):
+                cl.append(cl[-1] if i and self._continues(cps, i) else src[i])
         native_rtl = self._native_rtl(cps, script, rtl)
         if native_rtl != rtl:
-            cps = self._reverse_graphemes(cps)
+            order = self._reverse_graphemes(cps)
+            cps = [cps[i] for i in order]
+            if cl is not None:
+                cl = [cl[i] for i in order]
         shaper = self.script_shapers[script]
         if shaper == THAI_SHAPER:
             cps = thai.preprocess(cps)
         props = None
         if shaper == HANGUL_SHAPER:
             cps, props = hangul.preprocess(cps, self.cmap.__contains__, self._zero_width)
-        items = self.normalize(cps, shaper, props)
-        self._checked(items, shaper)
+        if cl is not None and len(cl) != len(cps):
+            cl = [None] * len(cps)
+        items, cl = self.normalize(cps, shaper, props, cl)
+        self._checked(items)
+        tag = self.script_tags[script]
+        item_cps = [cp for cp, _, _ in items]
+        # the joining (after normalization, before the syllables' dotted circles)
+        actions = self._joining(items, line, start, end, shaper == USE_SHAPER) if tag in self.forms else None
         if shaper in (KHMER_SHAPER, USE_SHAPER):   # the syllables, after normalization
             dotted = (DOTTED_CIRCLE, self._token(DOTTED_CIRCLE), False) if DOTTED_CIRCLE in self.cmap else None
-            item_cps = [cp for cp, _, _ in items]
+            # the new order (a dotted circle as -1; USE's as -1 - the index of the item it was put
+            # before, whose cluster it takes) and the clusters
             if shaper == KHMER_SHAPER:
-                items = khmer.shape(items, item_cps, dotted)
+                order, cl = khmer.shape(list(range(len(items))), item_cps, self.khmer_categories,
+                                        -1 if dotted is not None else None, cl)
             else:
-                items = use.shape(items, item_cps, [cp in self.hidden_cps for cp in item_cps],
-                                  [_is_mark(cp) for cp in item_cps], dotted)
-        tag = self.script_tags[script]
+                order = use.shape(item_cps, [cp in self.hidden_cps for cp in item_cps],
+                                  [self.is_mark(cp) for cp in item_cps], self.use_categories, dotted is not None)
+                if cl is not None:
+                    cl = [cl[i if i >= 0 else -1 - i] for i in order]
+            items = [items[i] if i >= 0 else dotted for i in order]
+            if actions is not None:
+                actions = [actions[i] if i >= 0 else arabic.NONE for i in order]
         run = [Item(cp, tok, self.glyphs[tok], tok == self.hidden, held) for cp, tok, held in items]
+        if cl is not None:
+            for it, c in zip(run, cl):
+                it.cluster = c
+        action_of = None if actions is None else {id(it): a for it, a in zip(run, actions)}
         lig_ids = itertools.count(1)   # HarfBuzz's ligature ids, one a ligature formed
         for stage, lookups in enumerate(self.stages.get(tag, [[], [], []])):
             run = self._substitute(run, lookups, self.stage_blockers[stage], lig_ids)
-            if stage == 0 and shaper == ARABIC_SHAPER:   # the form features come between ccmp and rlig
-                self._arabic_forms(run, line, start, end)
+            if stage == 0 and action_of is not None:   # the form features come between ccmp and rlig
+                self._forms(run, [action_of.get(id(it), arabic.NONE) for it in run], tag)
         advances = [self.advances[it.tok] for it in run]
         nxt = None
         for k in range(len(run) - 1, -1, -1):   # kerning with the next glyph GPOS does not skip
@@ -725,7 +830,7 @@ class ShapedFont:
                 advances[k] += self.kern.get((tag, run[k].glyph, run[nxt].glyph), 0)
             nxt = k
         adv, xo, yo = self.marks.position(tag, run, advances, native_rtl, shaper not in _MARKS_KEEP_ADVANCES)
-        out = [(it.tok, a, x, y) for it, a, x, y in zip(run, adv, xo, yo)]
+        out = [(it.tok, a, x, y, it.cluster) for it, a, x, y in zip(run, adv, xo, yo)]
         return out[::-1] if native_rtl else out
 
     def runs(self, line: str) -> List[Tuple[int, int, int, bool]]:
@@ -737,7 +842,7 @@ class ShapedFont:
             if cls >= SHAPER:
                 raise self.refusal(cp, _REFUSAL[cls])
         # raqm resolves a nonspacing mark of any script as Inherited: it stays in its base's run
-        scripts = [self.inherited if unicodedata.category(chr(cp)) == "Mn" else s
+        scripts = [self.inherited if self.category(cp) == "Mn" else s
                    for cp, s in zip(cps, self.scripts(cps))]
         scripts = self.resolve_scripts(cps, scripts)
         types = self.bidi_types(cps)
@@ -765,7 +870,7 @@ class ShapedFont:
         places, pen = [], 0
         cps = [ord(c) for c in line]
         for start, end, script, rtl in self.runs(line):
-            for t, adv, xo, yo in self.shape_run(cps, start, end, script, rtl):
+            for t, adv, xo, yo, _ in self.shape_run(cps, start, end, script, rtl):
                 m = self.masks[t]
                 if m.size:   # Pillow: PIXEL(pen + x offset), the y offset upwards
                     places.append((((pen + xo + 32) >> 6) + self.offsets[t][0],

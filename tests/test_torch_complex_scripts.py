@@ -13,7 +13,7 @@ how many boxes a page shows and where its dotted circles go. Held here:
   vowels beside a dotted circle, Thai / Lao SARA AM with tone marks, Lao's
   GPOS marks, Hangul tone marks after a syllable, after jamo and alone):
   fixed glyph ids as Pillow's HarfBuzz 12.3 gave them, and Pillow's own
-  HarfBuzz (`test_torch_marks._HarfBuzz`) run for run;
+  HarfBuzz (`glyph_atlas.HarfBuzz`) run for run, clusters too;
 - seeded lines (numpy, `SEED`) of every newly drawn script with ZWJ /
   ZWNJ, digits, dandas, spaces, marks and Latin, Arabic, Hebrew, Greek
   and Cyrillic neighbours, `LINES` of each kind: each raqm run equal to
@@ -22,8 +22,9 @@ how many boxes a page shows and where its dotted circles go. Held here:
   `_render_text_page` at dpi 150 and 100;
 - the Khmer syllable machine on every sequence of three of its categories
   (after a Khmer letter and after a sign that ends a syllable), and the
-  Khmer and USE categories of every character a Khmer or a Tifinagh run
-  may hold, each in the contexts that tell its category;
+  Khmer and USE categories of every character a Khmer, a Tifinagh or an
+  N'Ko run may hold (the nonspacing marks of every script among them),
+  each in the contexts that tell its category;
 - the shapers' rules where DejaVu Sans does not reach them (a font with
   Hangul syllables, a font with Khmer's split-vowel parts).
 """
@@ -34,12 +35,11 @@ import numpy as np
 import pytest
 
 from morphik_core_tpu.parser.pdf import _render_text_page
-from morphik_core_tpu_torch.parser import glyph_atlas, hangul, khmer, text_render, thai, use
+from morphik_core_tpu_torch.parser import glyph_atlas, hangul, khmer, text_render, thai
 from morphik_core_tpu_torch.parser.text_render import (
     ARABIC_SHAPER, DEFAULT_SHAPER, HANGUL_SHAPER, HEBREW_SHAPER, HIDDEN, INDIC_SHAPER, KHMER_SHAPER,
-    MYANMAR_SHAPER, THAI_SHAPER, USE_SHAPER, UnsupportedText, load_font, render_text_page)
+    MYANMAR_SHAPER, THAI_SHAPER, USE_SHAPER, load_font, render_text_page)
 
-from test_torch_marks import _HarfBuzz
 
 SEED = 22
 LINES = 60   # seeded lines of each kind
@@ -97,7 +97,7 @@ PROBES = {
 
 @pytest.fixture(scope="module")
 def harfbuzz():
-    return _HarfBuzz()
+    return glyph_atlas.HarfBuzz()
 
 
 @pytest.fixture(scope="module")
@@ -107,13 +107,18 @@ def codes():
 
 
 def _runs_equal(line: str, harfbuzz, codes, dpi: int):
-    """Each raqm run of `line` shaped by the mirror and by HarfBuzz ->
-    None where all are equal, else the first that differs."""
+    """Each raqm run of `line` shaped by the mirror and by HarfBuzz (glyph,
+    advance, offsets; the cluster too but after the Thai and Hangul
+    preprocessing) -> None where all are equal, else the first that
+    differs."""
     font = load_font(dpi)
     cps = [ord(c) for c in line]
     for start, end, script, rtl in font.runs(line):
-        got = [(font.glyphs[t], a, x, y) for t, a, x, y in font.shape_run(cps, start, end, script, rtl)]
-        want = harfbuzz.shape(line, start, end, codes[script], rtl, text_render.font_size(dpi))
+        n = 4 if font.script_shapers[script] in (THAI_SHAPER, HANGUL_SHAPER) else 5
+        got = [(font.glyphs[t], a, x, y, c)[:n] for t, a, x, y, c in font.shape_run(cps, start, end, script, rtl,
+                                                                                       True)]
+        want = [tuple(g)[:n] for g in harfbuzz.shape(line, start, end, codes[script], rtl,
+                                                     text_render.font_size(dpi), clusters=True)]
         if got != want:
             return line, start, end, codes[script], rtl, dpi, got, want
     return None
@@ -122,7 +127,7 @@ def _runs_equal(line: str, harfbuzz, codes, dpi: int):
 def _glyphs(line: str, dpi: int = 150) -> list:
     font = load_font(dpi)
     cps = [ord(c) for c in line]
-    return [font.glyphs[t] for run in font.runs(line) for t, _, _, _ in font.shape_run(cps, *run)]
+    return [font.glyphs[t] for run in font.runs(line) for t, *_ in font.shape_run(cps, *run)]
 
 
 @pytest.mark.parametrize("name", list(PROBES))
@@ -139,7 +144,7 @@ def test_lao_marks_are_placed_by_gpos():
     font = load_font(150)
     line = "ເກົ່າ"
     out = font.shape_run([ord(c) for c in line], 0, len(line), *font.runs(line)[0][2:])
-    assert [(font.glyphs[t], a, y) for t, a, _, y in out] == [
+    assert [(font.glyphs[t], a, y) for t, a, _, y, _ in out] == [
         (1612, 432, 0), (1571, 772, 0), (1609, 0, -5), (1618, 0, 6), (1601, 621, 0)]
 
 
@@ -189,8 +194,8 @@ def test_shaper_categorize_follows_harfbuzz(script, tag, shaper):
 
 def test_atlas_shapers_are_the_rule_on_the_fonts_tags():
     """The atlas's shaper of each script is the rule applied to the tag
-    HarfBuzz chooses in DejaVu Sans; the scripts still refused are those
-    whose shaper the port does not mirror: N'Ko alone."""
+    HarfBuzz chooses in DejaVu Sans; the port mirrors every one of them
+    (N'Ko's USE with joining the last), so no script is refused."""
     with np.load(text_render.ATLAS_PATH) as z:
         codes = [str(c) for c in z["scripts"]]
         tags = [str(t) for t in z["tags"]]
@@ -201,9 +206,9 @@ def test_atlas_shapers_are_the_rule_on_the_fonts_tags():
         assert tags[script_tags[k]] == glyph_atlas.script_tag(c, font_tags), c
         assert shapers[k] == glyph_atlas.hb_ot_shaper_categorize(c, tags[script_tags[k]]), c
     refused = {c for k, c in enumerate(codes) if not glyph_atlas.mirrored(c, shapers[k])}
-    assert refused == {"Nkoo"}
-    with pytest.raises(UnsupportedText, match=r"U\+07D2 NKO LETTER N \(script Nko\) .*slice 3"):
-        render_text_page("ߒߞߏ", 150)
+    assert refused == set()
+    assert shapers[codes.index("Nkoo")] == USE_SHAPER and tags[script_tags[codes.index("Nkoo")]] == "nko "
+    assert np.array_equal(render_text_page("ߒߞߏ", 150), np.asarray(_render_text_page("ߒߞߏ", 150)))
 
 
 # ------------------------------------------------------- seeded runs and pages
@@ -246,8 +251,9 @@ def _pools():
 def complex_lines(kind: str, n: int = LINES) -> list:
     """`n` seeded lines of `kind`, each short of a page's `max_chars`: the
     kind's scripts, a quarter of the characters from `_EXTRA` and the
-    Inherited marks. (A nonspacing mark of another complex script in a
-    Khmer or Tifinagh run is refused: none is drawn here.)"""
+    Inherited marks (a nonspacing mark of another complex script after a
+    Khmer or Tifinagh letter joins its run, which reads the mark's
+    syllable category)."""
     pools, inherited = _pools()
     scripts = _SCRIPTS[kind].split()
     rng = np.random.default_rng([SEED, KINDS.index(kind)])
@@ -262,11 +268,7 @@ def complex_lines(kind: str, n: int = LINES) -> list:
                 pool = _EXTRA
             else:
                 pool = inherited
-            cp = int(pool[int(rng.integers(len(pool)))])
-            if unicodedata.category(chr(cp)) == "Mn" and (khmer.foreign(cp) or use.foreign(cp)) and any(
-                    s in ("Khmr", "Tfng") for s in scripts):
-                continue
-            out.append(cp)
+            out.append(int(pool[int(rng.integers(len(pool)))]))
         lines.append("".join(map(chr, out)))
     return lines
 
@@ -309,35 +311,32 @@ def test_khmer_machine_matches_harfbuzz_on_every_three_categories(first, harfbuz
                 assert _runs_equal(line, harfbuzz, codes, 150) is None
 
 
-def _run_candidates(own: str, module) -> list:
+def _run_candidates(own: str) -> list:
     """What a run of `own`'s script can hold: its characters, the Common
-    and Inherited ones and the nonspacing marks of every script (those
-    of the scripts `module.foreign` names are refused there)."""
+    and Inherited ones and the nonspacing marks of every script."""
     with np.load(text_render.ATLAS_PATH) as z:
         codes = np.array([str(c) for c in z["scripts"]])
         cps = np.arange(0x110000)
         script = codes[z["script_values"][np.searchsorted(z["script_starts"], cps, side="right") - 1]]
         cls = z["class_values"][np.searchsorted(z["class_starts"], cps, side="right") - 1]
     drawn = np.isin(cls, (text_render.GLYPH, text_render.NOTDEF, text_render.COMPOSES, HIDDEN))
-    out = []
-    for cp in cps[drawn].tolist():
-        mn = unicodedata.category(chr(cp)) == "Mn"
-        if cp != 0x0A and (script[cp] in (own, "Zyyy", "Zinh") or mn) and not (
-                mn and module.foreign(cp) and cls[cp] != HIDDEN):
-            out.append(cp)
-    return out
+    return [cp for cp in cps[drawn].tolist()
+            if cp != 0x0A and (script[cp] in (own, "Zyyy", "Zinh") or unicodedata.category(chr(cp)) == "Mn")]
 
 
-@pytest.mark.parametrize("which", ["khmer", "use"])
+@pytest.mark.parametrize("which", ["khmer", "use", "nko"])
 def test_syllable_categories_of_every_run_character_match_harfbuzz(which, harfbuzz, codes):
-    """Each character a Khmer (Tifinagh) run may hold, between the
-    contexts that tell its category: before an above vowel sign and a
-    Coeng Ro, after a Coeng (before and after U+2D7F), at 18 px."""
-    own, module = ("Khmr", khmer) if which == "khmer" else ("Tfng", use)
-    contexts = ([("។", "ិ"), ("ក", "្រ"), ("ក្", "េ")] if which == "khmer"
-                else [("ⵜ", "⵿"), ("ⵜ⵿", "⵿"), ("ⵜ ", "⵿")])
+    """Each character a Khmer (Tifinagh, N'Ko) run may hold, the
+    nonspacing marks of every script among them, between the contexts
+    that tell its category: before an above vowel sign and a Coeng Ro,
+    after a Coeng (before and after U+2D7F; around N'Ko's tone marks), at
+    18 px."""
+    own = {"khmer": "Khmr", "use": "Tfng", "nko": "Nkoo"}[which]
+    contexts = {"khmer": [("។", "ិ"), ("ក", "្រ"), ("ក្", "េ")],
+                "use": [("ⵜ", "⵿"), ("ⵜ⵿", "⵿"), ("ⵜ ", "⵿")],
+                "nko": [("ߞ", "߫"), ("ߞ߫", "ߞ"), ("ߞ ", "߲")]}[which]
     bad = []
-    for cp in _run_candidates(own, module):
+    for cp in _run_candidates(own):
         for a, b in contexts:
             if _runs_equal(a + chr(cp) + b, harfbuzz, codes, 150) is not None:
                 bad.append(hex(cp))
@@ -345,14 +344,18 @@ def test_syllable_categories_of_every_run_character_match_harfbuzz(which, harfbu
     assert not bad, bad
 
 
-def test_foreign_marks_in_khmer_and_tifinagh_runs_are_refused():
-    """A Devanagari virama after a Khmer or a Tifinagh letter joins its
-    run (raqm), where HarfBuzz reads its syllable category: refused,
-    naming slice 3 of item 3b-ii; after a Latin letter it is a box."""
-    for text in ("ក्", "ⵜ्"):
-        with pytest.raises(UnsupportedText, match=r"U\+094D .*mark of another script.*item 3b-ii, slice 3"):
-            render_text_page(text, 150)
-    assert np.array_equal(render_text_page("a्", 150), np.asarray(_render_text_page("a्", 150)))
+@pytest.mark.parametrize("text", ["ក्", "ⵜ्", "ߞ्", "ក\u0bcd", "ⵜ\u0bcd", "ក\u1039", "ⵜ\u1b6b", "ߞ\u0941ߞ"])
+def test_foreign_marks_in_khmer_tifinagh_and_nko_runs_match_harfbuzz(text, harfbuzz, codes):
+    """A virama, a vowel sign or a symbol mark of another script after a
+    Khmer, Tifinagh or N'Ko letter joins its run (raqm), where HarfBuzz
+    reads its syllable category (the Devanagari virama is a Coeng to the
+    Khmer machine); the atlas holds the category, and the run, its page
+    and the same mark after a Latin letter are drawn as the reference
+    draws them."""
+    for dpi in (150, 100):
+        assert _runs_equal(text, harfbuzz, codes, dpi) is None
+        for line in (text, "a" + text[1:]):
+            assert np.array_equal(render_text_page(line, dpi), np.asarray(_render_text_page(line, dpi)))
 
 
 # ------------------------------------------------ the rules the font misses

@@ -631,9 +631,9 @@ _TEXT_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
         "pdf_payloads")
     try:
         asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
-        raise AssertionError("the N'Ko page was not refused")
+        raise AssertionError("the page of tone letters was not refused")
     except UnsupportedText as e:
-        assert "3b-ii" in str(e), e
+        assert "U+02E9" in str(e) and "3b-ii" in str(e), e
     assert sys.modules["fontTools"] is None
     """
 ) + _LEAKS
@@ -707,9 +707,9 @@ _MARK_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
         assert [p[1] for p in pages] == unpack("pdf_payloads")
         try:
             asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
-            raise AssertionError("the page of U+0870 was not refused")
+            raise AssertionError("the page of U+1C89 was not refused")
         except UnsupportedText as e:
-            assert "U+0870" in str(e) and "3b-ii" in str(e), e
+            assert "U+1C89" in str(e) and "3b-ii" in str(e), e
         child = pool._pool.submit(eval, "open('/proc/self/maps').read()").result()
     finally:
         pool.shutdown()
@@ -765,6 +765,11 @@ _COMPLEX_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + te
 ) + _LEAKS
 
 
+# the N'Ko fixture through the same paths: N'Ko's USE shaper and joining, the newer Arabic letters, Ahom
+_NKO_PAGES = _COMPLEX_PAGES.replace("complex_pages.npz", "nko_pages.npz").replace(
+    '("hindi", "khmer")', '("nko", "arabic_newer")').replace('("khmer", "thai", "hangul", "use")', '("use", "arabic")')
+
+
 def test_evals_run_with_jax_pil_pydantic_httpx_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _EVALS, str(ROOT)], capture_output=True, text=True, timeout=400,
@@ -811,7 +816,8 @@ def test_image_formats_ingest_with_jax_pil_pydantic_httpx_blocked():
 def test_text_pages_render_with_jax_pil_fonttools_blocked():
     """The render path of every script (the DOCX, PPTX and PDF of
     `tests/fixtures/text_pages.npz`) stores the reference's payloads and
-    refuses the N'Ko page with jax, PIL and fontTools unimportable."""
+    refuses the page of tone letters with jax, PIL and fontTools
+    unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _TEXT_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
@@ -832,7 +838,7 @@ def test_rtl_pages_render_with_jax_pil_fonttools_blocked():
 def test_mark_pages_render_with_jax_pil_fonttools_blocked():
     """The marks placed by `parser/marks.py` (the DOCX, PPTX and PDF of
     `tests/fixtures/mark_pages.npz`) store the reference's payloads, the
-    page of U+0870 is refused, with jax, PIL and fontTools unimportable; no
+    page of U+1C89 is refused, with jax, PIL and fontTools unimportable; no
     process maps libfribidi, libharfbuzz or FreeType."""
     proc = subprocess.run(
         [sys.executable, "-c", _MARK_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
@@ -891,3 +897,14 @@ def test_no_jax_import_in_port_sources():
     assert len(files) > 15
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_nko_pages_render_with_jax_pil_fonttools_blocked():
+    """The N'Ko DOCX and PPTX and the PDF of N'Ko, the newer Arabic letters
+    and Ahom (`tests/fixtures/nko_pages.npz`) store the reference's payloads
+    with jax, PIL and fontTools unimportable; no process maps libfribidi,
+    libharfbuzz or FreeType."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _NKO_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr

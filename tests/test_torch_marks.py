@@ -15,18 +15,13 @@ Tolerance: exact (uint8 pixels; glyph ids, advances and offsets in 26.6).
 - The lines' bidi levels equal libfribidi's (marks are NSM, FriBiDi's W1).
 """
 
-import ctypes
 import unicodedata
-from pathlib import Path
 
 import numpy as np
-import PIL
-import PIL._imagingft  # noqa: F401  (maps the libraries Pillow's HarfBuzz and FreeType need)
 import pytest
-from PIL import ImageFont
 
 from morphik_core_tpu.parser.pdf import _render_text_page
-from morphik_core_tpu_torch.parser import bidi, marks, text_render
+from morphik_core_tpu_torch.parser import bidi, glyph_atlas, marks, text_render
 from morphik_core_tpu_torch.parser.text_render import GLYPH, load_font, render_text_page
 
 from test_torch_bidi import FRIBIDI, _fribidi, _types
@@ -105,60 +100,8 @@ def test_mark_lines_match_reference_pixels(kind, dpi):
     assert np.array_equal(got, want)
 
 
-class _HarfBuzz:
-    """Pillow's HarfBuzz over hb-ft on Pillow's FreeType, one run at a time
-    as raqm calls it: the whole line as context, BOT / EOT at its ends."""
-
-    def __init__(self):
-        libs = Path(PIL.__file__).parent.parent / "pillow.libs"
-        self.ft = ctypes.CDLL(str(sorted(libs.glob("libfreetype*.so*"))[0]))
-        self.hb = ctypes.CDLL(str(sorted(libs.glob("libharfbuzz*.so*"))[0]))
-        vp, u32 = ctypes.c_void_p, ctypes.c_uint32
-        self.ft.FT_Init_FreeType.argtypes = [ctypes.POINTER(vp)]
-        self.ft.FT_New_Face.argtypes = [vp, ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(vp)]
-        self.ft.FT_Set_Pixel_Sizes.argtypes = [vp, ctypes.c_uint, ctypes.c_uint]
-        for name, res, args in [
-                ("hb_ft_font_create_referenced", vp, [vp]), ("hb_buffer_create", vp, []),
-                ("hb_buffer_destroy", None, [vp]), ("hb_buffer_set_flags", None, [vp, ctypes.c_int]),
-                ("hb_buffer_add_utf32", None, [vp, ctypes.POINTER(u32), ctypes.c_int, ctypes.c_uint, ctypes.c_int]),
-                ("hb_buffer_set_direction", None, [vp, ctypes.c_int]), ("hb_buffer_set_script", None, [vp, u32]),
-                ("hb_script_from_string", u32, [ctypes.c_char_p, ctypes.c_int]),
-                ("hb_language_get_default", vp, []), ("hb_buffer_set_language", None, [vp, vp]),
-                ("hb_shape", None, [vp, vp, vp, ctypes.c_uint]),
-                ("hb_buffer_get_glyph_infos", ctypes.POINTER(u32 * 5), [vp, ctypes.POINTER(ctypes.c_uint)]),
-                ("hb_buffer_get_glyph_positions", ctypes.POINTER(ctypes.c_int32 * 5), [vp, ctypes.POINTER(ctypes.c_uint)])]:
-            fn = getattr(self.hb, name)
-            fn.restype, fn.argtypes = res, args
-        self.lib = vp()
-        assert self.ft.FT_Init_FreeType(ctypes.byref(self.lib)) == 0
-        self.fonts = {}
-        self.path = ImageFont.truetype(text_render.FONT_NAME, 18).path.encode()
-
-    def font(self, size: int):
-        if size not in self.fonts:
-            face = ctypes.c_void_p()
-            assert self.ft.FT_New_Face(self.lib, self.path, 0, ctypes.byref(face)) == 0
-            assert self.ft.FT_Set_Pixel_Sizes(face, 0, size) == 0
-            self.fonts[size] = (face, self.hb.hb_ft_font_create_referenced(face))
-        return self.fonts[size][1]
-
-    def shape(self, line: str, start: int, end: int, script: str, rtl: bool, size: int):
-        """-> [(glyph, x advance, x offset, y offset)] in visual order."""
-        hb = self.hb
-        buf = hb.hb_buffer_create()
-        text = (ctypes.c_uint32 * len(line))(*map(ord, line))
-        hb.hb_buffer_set_flags(buf, (1 if start == 0 else 0) | (2 if end == len(line) else 0))
-        hb.hb_buffer_add_utf32(buf, text, len(line), start, end - start)
-        hb.hb_buffer_set_direction(buf, 5 if rtl else 4)
-        hb.hb_buffer_set_script(buf, hb.hb_script_from_string(script.encode(), -1))
-        hb.hb_buffer_set_language(buf, hb.hb_language_get_default())
-        hb.hb_shape(self.font(size), buf, None, 0)
-        n = ctypes.c_uint()
-        infos = hb.hb_buffer_get_glyph_infos(buf, ctypes.byref(n))
-        pos = hb.hb_buffer_get_glyph_positions(buf, ctypes.byref(n))
-        out = [(infos[i][0], pos[i][0], pos[i][2], pos[i][3]) for i in range(n.value)]
-        hb.hb_buffer_destroy(buf)
-        return out
+# Pillow's HarfBuzz over hb-ft on Pillow's FreeType, one run at a time as raqm calls it
+_HarfBuzz = glyph_atlas.HarfBuzz
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +118,7 @@ def test_mark_runs_match_harfbuzz(kind, harfbuzz):
         for line in mark_lines(kind):
             cps = [ord(c) for c in line]
             for start, end, script, rtl in font.runs(line):
-                got = [(font.glyphs[t], a, x, y) for t, a, x, y in font.shape_run(cps, start, end, script, rtl)]
+                got = [(font.glyphs[t], a, x, y) for t, a, x, y, _ in font.shape_run(cps, start, end, script, rtl)]
                 want = harfbuzz.shape(line, start, end, codes[script], rtl, text_render.font_size(dpi))
                 assert got == want, (line, start, end, codes[script], rtl, dpi)
 

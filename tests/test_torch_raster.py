@@ -16,7 +16,9 @@ where stated.
   GPOS anchors (vocalized Arabic, lam-alef with a haraka, pointed Hebrew,
   Russian stress, IPA, polytonic Greek, the case forms before capitals,
   dotless i and j, stacks, joiners) and left unplaced where the run's
-  script tag has no `mark` feature; what it refuses raises `UnsupportedText`
+  script tag has no `mark` feature; the complex scripts, N'Ko, the Arabic
+  letters newer than FriBiDi's data, Ahom's medial ra and a foreign mark
+  in a Khmer or Tifinagh run; what it refuses raises `UnsupportedText`
   naming the code point, its script and ROADMAP item 3b-ii; the committed
   glyph atlas is what the generator makes now.
 - `rasterize_pdf` and `RasterPool.rasterize_pdf_jpegs(prep=...)` equal
@@ -247,6 +249,14 @@ RENDER_CASES = {
     "capital_and_dotless_marks": "Á̈ Ё́ Ǻ̃ i̇̀ į̇ ȷ̇ ꜫ̀ ɔ̃ ø̂",
     "formerly_refused_marks": "Arabic سَلَّم\nHebrew שָׁלוֹם\nq́ mark\n한 ≠",
     "mark_stacks_and_joiners": "a" + "\u0300" * 40 + " a\u200c\u0301 a\u200d\u0301 a\u034f\u0301 \u0650",
+    # drawable since N'Ko's USE shaper with its joining, HarfBuzz's joining of the Arabic letters newer than
+    # FriBiDi's data, HarfBuzz's general categories and the foreign marks' syllable categories (refused before)
+    "nko_mark": "N'Ko mark a\u07eb",
+    "nko": "N'Ko ߒߞߏ",
+    "arabic_newer_than_fribidi": "Arabic \u0870",
+    "khmer_foreign_mark": "Khmer ក\u094d",
+    "tifinagh_foreign_mark": "Tifinagh ⵜ\u0bcd",
+    "general_category_newer_than_python": "Ahom \U0001171e",
 }
 
 
@@ -260,30 +270,22 @@ def test_render_text_page_matches_reference(case, dpi):
 
 
 REFUSED = [  # (text, dpi, what the message names)
-    ("N'Ko mark a\u07eb", 100, r"U\+07EB NKO COMBINING SHORT HIGH TONE \(script Nko\) is shaped by a HarfBuzz shaper "
-                                r"that the port does not mirror.*slice 3"),
     ("unassigned x\u0378", 150, r"U\+0378 \(script Unknown\) is unassigned in Unicode"),
     ("tones ˥˩", 150, r"U\+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR \(script Common\) follows U\+02E5"),
     ("שלום \u2067abc\rdef", 150, r"U\+0064 LATIN SMALL LETTER D \(script Latin\) follows a paragraph separator that "
                                   "an isolate was left open at"),
     ("x", 300, r"dpi 300 draws DejaVuSans at 37 px; the glyph atlas glyphs_dejavu_sans.npz holds dpi \(150, 100\) "
                r"\(sizes \(18, 12\) px\)"),
-    ("N'Ko ߒߞߏ", 150, r"U\+07D2 NKO LETTER N \(script Nko\) is shaped by a HarfBuzz shaper that the port does not "
-                     r"mirror.*item 3b-ii, slice 3"),
-    ("Arabic \u0870", 150, r"U\+0870 ARABIC LETTER ALEF WITH ATTACHED FATHA \(script Arabic\) is drawn by PIL "
-                           "otherwise than the atlas predicts"),
-    ("Khmer ក\u094d", 150, r"U\+094D DEVANAGARI SIGN VIRAMA \(script Devanagari\) is a mark of another script in a "
-                          r"run that HarfBuzz shapes with its Khmer shaper"),
-    ("Tifinagh ⵜ\u0bcd", 100, r"U\+0BCD TAMIL SIGN VIRAMA \(script Tamil\) is a mark of another script in a run "
-                              r"that HarfBuzz shapes with its USE shaper"),
-    ("Ahom \U0001171e", 150, r"U\+1171E AHOM CONSONANT SIGN MEDIAL RA \(script Ahom\) is drawn by PIL otherwise"),
+    ("Unicode 16 \u1c89", 100, r"U\+1C89 \(script Cyrillic\) is unassigned in Unicode 15\.0"),
+    ("Garay \U00010d40\U00010d41", 150, r"U\+10D40 \(script Garay\) is unassigned in Unicode 15\.0"),
+    ("\u202d\u05d0\u200d\u2605\u202c x", 150, r"U\+2605 BLACK STAR \(script Common\) follows a ZWJ in a run shaped "
+                                           "against its direction"),
 ]
 
 
-@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["nko_mark", "unassigned", "tone_letters", "open_isolate",
-                                                            "dpi_300", "nko", "arabic_newer_than_fribidi",
-                                                            "khmer_foreign_mark", "tifinagh_foreign_mark",
-                                                            "general_category_newer_than_python"])
+@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["unassigned", "tone_letters", "open_isolate", "dpi_300",
+                                                            "unicode_16_cyrillic", "unicode_16_garay",
+                                                            "zwj_before_a_pictograph_reversed"])
 def test_render_text_page_refuses_what_the_atlas_lacks(text, dpi, message):
     """Each refusal is an `UnsupportedText` (a ValueError) that names the
     code point, its script and ROADMAP item 3b-ii; the reference draws

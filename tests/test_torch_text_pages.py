@@ -4,8 +4,9 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
 - The committed fixture `tests/fixtures/text_pages.npz` (a DOCX, a PPTX
   and a 6-page PDF whose text mixes Greek, Cyrillic, Vietnamese,
   Romanian, symbols, box drawing, the font's emoji and CJK, one page with
-  the `Г“A` script-boundary kerning case; a 5-page PDF with N'Ko on
-  page 3; four timing pages of one length) is what
+  the `Г“A` script-boundary kerning case; a 5-page PDF with a sequence
+  of contextual tone letters on page 3; four timing pages of one length)
+  is what
   `write_text_pages_fixture` makes now with the JAX package's
   `_render_text_page` and `_finish_page` under PIL.
 - The port's `_create_chunks_multivector` (DOCX, PPTX) and its pooled
@@ -15,12 +16,13 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
   Russian stress marks, IPA and decomposed Vietnamese with stacks that do
   not compose, a PPTX of vocalized Arabic, a 3-page PDF of pointed Hebrew,
   polytonic Greek and mixed right-to-left lines, the same PDF with a
-  page 4 of Arabic letters newer than FriBiDi's data, three timing pages;
+  page 4 of code points Unicode 15.0 leaves unassigned, three timing pages;
   the reference's payloads) is what
   `write_mark_pages_fixture` makes now; the port stores its payloads byte
   for byte through the same paths.
-- What the renderer refuses fails the job: the pooled PDF with an N'Ko
-  page, and the mark fixture's with a page 4 of U+0870, end
+- What the renderer refuses fails the job: the pooled PDF with a page of
+  tone letters, and the mark fixture's with a page 4 of Unicode 16's
+  U+1C89, end
   `failed`, naming ROADMAP item 3b-ii, with none of their rows left in
   either store and `/health`'s row counts as before, at the default
   batching and at batches of one (the reference draws every page); `rasterize_pdf_jpegs`, DOCX and
@@ -56,7 +58,7 @@ from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel as TModel
 from morphik_core_tpu_torch.models.schemas import AuthContext
 from morphik_core_tpu_torch.parser.office import docx_to_text
 from morphik_core_tpu_torch.parser.raster_pool import RasterPool
-from morphik_core_tpu_torch.parser.text_render import UnsupportedText
+from morphik_core_tpu_torch.parser.text_render import UnsupportedText, render_text_page
 from morphik_core_tpu_torch.services.ingestion_service import IngestionService
 from morphik_core_tpu_torch.services_init import build_services
 from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
@@ -67,7 +69,7 @@ MODEL_FIXTURE = ROOT / "tests" / "fixtures" / "tiny_colqwen.npz"
 PREP = (3136, 602112)
 SEED = 19
 PDF_DPI = 150  # morphik_tpu.toml's pdf.colpali_pdf_dpi; DOCX and PPTX pages are drawn at 100
-REFUSED_PAGE = 2  # the N'Ko page of the refused PDF
+REFUSED_PAGE = 2  # the tone letters' page of the refused PDF
 
 SENTENCES = {
     "greek": ["Η ετήσια έκθεση δείχνει αύξηση των εσόδων κατά 12% στην Αττική.",
@@ -87,8 +89,8 @@ SENTENCES = {
             "한국어 텍스트 (인용) “中”「引用」　全角スペース。"],
 }
 BOUNDARY = "Kerning stops at a script boundary: x“A” against Г“A”, α (“A) and “Привет”."
-# still refused (ROADMAP Queue 1 item 3b-ii, slice 3): N'Ko's USE shaper and its joining
-NKO = "N'Ko: ߒߞߏ ߞߊ߲ ߛߓߍ"
+# still refused (ROADMAP Queue 1 item 3b-ii): the font's contextual tone letters in sequence
+TONES = "Tones: ˥˩ ˧˥ ˩˧˥"
 
 
 def _prose(rng, langs, n_chars: int) -> list:
@@ -162,7 +164,7 @@ def fixture_texts():
         _prose(rng, every, 1200),
     ])]
     refused = [[f"p{i + 1:02d} quarterly revenue, page {i + 1}"] + (
-        [f"p{i + 1:02d} {NKO}"] if i == REFUSED_PAGE else []) for i in range(5)]
+        [f"p{i + 1:02d} {TONES}"] if i == REFUSED_PAGE else []) for i in range(5)]
     n = 2400
     timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n],
               "latin": " ".join(_prose(rng, ["latin"], n))[:n],
@@ -420,8 +422,8 @@ MARK_SENTENCES = {
               "Contract no. 4521 — חוֹזֶה מס׳ 4521 — عَقْدٌ رَقْمُ ٤٥٢١ — ə̃ x̂.",
               "‫שָׁלוֹם, embedded‬ and مَرْحَبًا بِكُمْ in one line; 1̃ 2̂."],
 }
-# still refused (ROADMAP Queue 1 item 3b-ii, slice 3): Arabic letters newer than FriBiDi 1.0.8's data
-ARABIC_NEWER = "Arabic: \u0870\u0871 \u0872\u0873 \u0889"
+# still refused (ROADMAP Queue 1 item 3b-ii): code points Unicode 15.0 leaves unassigned (Unicode 16's Tje)
+UNICODE_16 = "Unicode 16: \u1c89\u1c8a Tje"
 
 
 def mark_fixture_texts():
@@ -430,8 +432,8 @@ def mark_fixture_texts():
     compose), PPTX slides of vocalized Arabic (tanween, shadda with a
     haraka, a haraka inside lam-alef), PDF pages of pointed Hebrew (yod
     with hiriq, U+FB1D's sequence), polytonic Greek and mixed
-    right-to-left lines; the same PDF with a page of Arabic letters newer
-    than FriBiDi's data after them (the refused PDF); the timing pages
+    right-to-left lines; the same PDF with a page of code points newer
+    than Python's Unicode 15.0 after them (the refused PDF); the timing pages
     (Latin-1, vocalized Arabic, pointed Hebrew)."""
     rng = np.random.default_rng(MARK_SEED)
 
@@ -448,7 +450,7 @@ def mark_fixture_texts():
               for i, title in enumerate(("النَّتَائِجُ", "مُلَخَّصُ الْعَامِ", "الْخُطَّةُ الْقَادِمَةُ"))]
     pdf = [[f"{i + 1:02d}. {line}" for line in lines] for i, lines in enumerate([
         prose(["hebrew"], 900), prose(["greek"], 900), prose(["mixed"], 900)])]
-    refused = pdf + [["04. " + ARABIC_NEWER]]
+    refused = pdf + [["04. " + UNICODE_16]]
     n = 2400
     timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n],
               "arabic_vocalized": " ".join(prose(["arabic"], n))[:n],
@@ -507,12 +509,13 @@ def test_mark_inline_pdf_pages_equal_the_reference(marked):
 
 @pytest.mark.parametrize("processes", [1, 2])
 def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
-    """The reference draws all five pages; the port raises for the N'Ko
-    one instead of skipping it."""
+    """The reference draws all five pages; the port raises for the page of
+    tone letters instead of skipping it."""
     data = z["refused_pdf"].tobytes()
     pool, jpool = RasterPool(processes), JRasterPool(processes)
     try:
-        with pytest.raises(UnsupportedText, match=r"U\+07D2 NKO LETTER N \(script Nko\).*item 3b-ii"):
+        with pytest.raises(UnsupportedText, match=r"U\+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR \(script Common\) "
+                                                  r"follows U\+02E5.*item 3b-ii"):
             _run(pool.rasterize_pdf_jpegs(data, dpi=PDF_DPI, prep=PREP))
         assert [p[0] for p in _run(jpool.rasterize_pdf_jpegs(data, dpi=PDF_DPI))] == list(range(5))
     finally:
@@ -523,10 +526,10 @@ def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
 @pytest.mark.parametrize("kind", ["docx", "pptx"])
 def test_office_pages_with_refused_text_raise(kind):
     settings = types.SimpleNamespace(settings=Settings())
-    lines = ["Quarterly revenue", NKO]
+    lines = ["Quarterly revenue", TONES]
     data = docx_bytes(lines) if kind == "docx" else pptx_bytes([lines])
     ctype, text = (DOCX, docx_to_text(data)) if kind == "docx" else (PPTX, "")
-    with pytest.raises(UnsupportedText, match=r"U\+07D2 .*item 3b-ii"):
+    with pytest.raises(UnsupportedText, match=r"U\+02E9 .*item 3b-ii"):
         IngestionService._create_chunks_multivector(settings, ctype, data, text)
     assert len(JIngestionService._create_chunks_multivector(settings, ctype, data, text)) == 1
 
@@ -548,12 +551,12 @@ def _services(tmp_path: Path, **over):
 
 @pytest.mark.parametrize("worker", [{}, {"colpali_store_batch_size": 1, "ingest_embed_prefetch": 1}],
                          ids=["default_batches", "batch_1_prefetch_1"])
-@pytest.mark.parametrize("fixture,letter", [("z", "U+07D2 NKO LETTER N"),
-                                            ("marked", "U+0870 ARABIC LETTER ALEF WITH ATTACHED FATHA")],
-                         ids=["nko", "arabic_newer_than_fribidi"])
+@pytest.mark.parametrize("fixture,letter", [("z", "U+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR"),
+                                            ("marked", "U+1C89 (script Cyrillic) is unassigned in Unicode 15.0")],
+                         ids=["tone_letters", "unassigned_in_unicode_15"])
 def test_pooled_pdf_job_with_a_refused_page_fails(request, fixture, letter, tmp_path, monkeypatch, worker):
-    """A 5-page PDF with N'Ko on page 3, and the mark fixture's PDF with a
-    page 4 of Arabic letters newer than FriBiDi's data, through the pooled
+    """A 5-page PDF with a sequence of tone letters on page 3, and the mark
+    fixture's PDF with a page 4 of Unicode 16's U+1C89, through the pooled
     PageStream: the job ends
     `failed`, its error naming the character and item 3b-ii, and none of
     its rows stays in the text store or the ColPali store (before, its text
@@ -725,3 +728,119 @@ def test_complex_pooled_pdf_pages_store_the_reference_payloads(complex_pages, pr
 
 def test_complex_inline_pdf_pages_equal_the_reference(complex_pages):
     _inline_pages_equal(complex_pages)
+
+
+# ------------------------------------- N'Ko, the newer Arabic letters, Ahom
+
+NKO_FIXTURE = ROOT / "tests" / "fixtures" / "nko_pages.npz"
+NKO_SEED = 23
+NKO_SENTENCES = {
+    "nko": ["ߒߞߏ ߦߋ߫ ߡߊ߲߬ߘߋ߲߫ ߞߊ߲ ߠߎ߬ ߛߓߍߟߌ ߟߊ߫ ߛߓߍߘߋ߲ ߘߌ߫.",
+            "ߛߊ߲߭ ߂߀߂߄ ߟߊ߬ߓߊ߰ߙߊ ߞߍ߫ ߘߊ߫ ߞߊ߬ߣߌ߲߬ ߁߂% ߟߊ߫ ߞߐ߬ߘߎ߮ ߘߐ߫߹",
+            "ߞߊ߬ߙߊ߲ߘߋ߲ ߠߎ߬ ߸ ߞߊߺߞߊ ߣߊߺߣߊ ߊ߬ ߣߌ߫ ߒ ߓߊߘߋߺߘߋ߲ ߞߵߊ߬ ߝߐ߫ ߷",
+            "ߓߊ߯ߙߊ ߞߍߟߊ ߟߎ߬ ߦߋ߫ ߞߏ߬ߣߌ߲߫ ߃ ߞߊ߲߬ ߸ ߛߓߍߕߊ ߴߊ߬ ߣߌ߫ ߒ ߞߵߏ߬ ߝߐ߫.",
+            "ߖߊ߬ߡߊ߬ߣߊ ߞߎ߲߬ߠߊ߬ߛߌ߰ߟߊ ߟߊ߫ ߖߌ߬ߦߊ߬ߓߍ߫ (ߘߐ߬ߛߌ߬ߟߌ ߄) ߝߊ߲߬ߘߌ ߂߃ ߕߊ.",
+            "ߊߟߎ߫ ߣߌ߫ ߖߋ߬ ߞߊ߬ ߝߙߊߺߝߙߊ ߞߊ߲ߞߊ߲ ߽ ߞߊ߲ߘߐ߫ ߞߊ߲߬ ߾߁߀ ߿߅"],
+    "arabic_newer": ["Saraiki و Urdu: ࢾب ࣀب ࢿ12 ࡰ45% ࢉب-3 ࣇ+7 ࣈب ࢽࢾ.",
+                     "Pakistani letters: ࡱࡲ ࡳࡴ ࡵࡶ 2024 ࡷࡸ ࡹࡺ ࡻࡼ ࡽࡾ ࡿࢀ ࢁࢂ ࢃ ࢄ ࢅ ࢆ.",
+                     "ࢊب ࢋب ࢌب ࢍب ࢎب ࢵب ࣁ٣ ࣂ٤ ࣃ ࣄ ࣅ ࣆ ࣇ ࣈ — 12% +5 -6."],
+    "ahom": ["Ahom 𑜀𑜁𑜂𑜞𑜃 𑜄𑜅𑜞 𑜆𑜝𑜇 𑜈𑜠𑜡 𑜉𑜞𑜢 𑜰𑜱𑜲 (2024).",
+             "𑜊𑜋𑜞𑜌 𑜍𑜎𑜏 𑜐𑜑𑜞𑜒 𑜓𑜔𑜕 𑜖𑜗 𑜘𑜙𑜚 𑜞𑜟."],
+    "mixed": ["Report 2024: ߒߞߏ ߛߓߍߟߌ / مرحبا بكم / ࢾب 12 / 𑜀𑜞 (page ߃).",
+              "ߞߊ߲߬ ‌ߞ ߞ‍ߞ ߞـߞ ߞߺߞ — ‫ߒߞߏ 12‬ and ‪abc ߞߊ‬ ⁧ߞߊ⁩ x.",
+              "Marks on bases: ߞ߫߬ a߫ ب߫ ߞ्ߞ ⵜ߫ ក߫ ߞ́ ߞِ 5߲."],
+}
+
+
+def nko_fixture_texts():
+    """The N'Ko fixture's documents as text: DOCX paragraphs of N'Ko with
+    its tone marks, digits, apostrophes, lajanyalan and punctuation; PPTX
+    slides of N'Ko; PDF pages of N'Ko, of the Arabic letters newer than
+    FriBiDi's data (Unicode 13-14, digits, "%" and signs after them), of
+    Ahom (U+1171E among it), and of lines that mix them with Arabic,
+    Latin, joiners, tatweel and bidi controls (each line's prefix "NN. "
+    holds no strong character); the timing pages (Latin-1, N'Ko, the
+    newer Arabic letters)."""
+    rng = np.random.default_rng(NKO_SEED)
+
+    def prose(langs, n_chars):
+        lines, size = [], 0
+        while size < n_chars:
+            lang = langs[int(rng.integers(len(langs)))]
+            lines.append(NKO_SENTENCES[lang][int(rng.integers(len(NKO_SENTENCES[lang])))])
+            size += len(lines[-1]) + 1
+        return lines
+
+    paras = [" ".join(prose(["nko"], 400)) for _ in range(8)]
+    slides = [[f"{i + 1}. {title}"] + prose(["nko"], 300)
+              for i, title in enumerate(("ߞߐߝߟߌ", "ߛߊ߲߭ ߂߀߂߄", "ߢߍߛߌ߰ߣߍ߲"))]
+    pdf = [[f"{i + 1:02d}. {line}" for line in lines] for i, lines in enumerate([
+        prose(["nko"], 700), prose(["arabic_newer"], 500), prose(["ahom", "nko"], 300), prose(["mixed"], 700)])]
+    n = 2400
+    timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n]}
+    for lang in ("nko", "arabic_newer"):
+        timing[lang] = " ".join(prose([lang], n))[:n]
+    timing = {k: "\n".join(v[j:j + 90] for j in range(0, n, 90)) for k, v in timing.items()}
+    return paras, slides, pdf, timing
+
+
+def write_nko_pages_fixture(path: Path = NKO_FIXTURE) -> Path:
+    """`nko_pages.npz` (see `_write_fixture`)."""
+    paras, slides, pdf_pages, timing = nko_fixture_texts()
+    return _write_fixture(path, paras, slides, pdf_pages, timing)
+
+
+@pytest.fixture(scope="module")
+def nko_pages():
+    with np.load(NKO_FIXTURE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_nko_pages_fixture_is_current(tmp_path):
+    """Regenerated now (PIL and the JAX package), the committed N'Ko
+    fixture is equal, and its PDF extracts to its texts."""
+    fresh = np.load(write_nko_pages_fixture(tmp_path / "nko_pages.npz"))
+    committed = np.load(NKO_FIXTURE)
+    assert sorted(fresh.files) == sorted(committed.files)
+    for k in committed.files:
+        assert np.array_equal(fresh[k], committed[k]), k
+    paras, slides, pdf_pages, _ = nko_fixture_texts()
+    assert [t for t in committed["pdf_texts"]] == ["\n".join(p) for p in pdf_pages]
+    assert len(unpack(committed, "pptx_payloads")) == len(slides) and len(unpack(committed, "docx_payloads")) >= 2
+
+
+@pytest.mark.parametrize("kind", ["docx", "pptx"])
+def test_nko_office_pages_store_the_reference_payloads(nko_pages, kind):
+    """An N'Ko DOCX and an N'Ko PPTX: the reference's q80 payloads."""
+    _office_payloads_equal(nko_pages, kind)
+
+
+@pytest.mark.parametrize("processes", [1, 2])
+def test_nko_pooled_pdf_pages_store_the_reference_payloads(nko_pages, processes):
+    """N'Ko, the newer Arabic letters with digits after them, Ahom and
+    mixed pages through the pooled `PageStream`: the reference's q70
+    payloads."""
+    _pooled_payloads_equal(nko_pages, processes)
+
+
+def test_nko_inline_pdf_pages_equal_the_reference(nko_pages):
+    _inline_pages_equal(nko_pages)
+
+
+@pytest.mark.parametrize("name", ["nko", "arabic_newer"])
+def test_nko_timing_pages_equal_the_reference(nko_pages, name):
+    """The timing pages chip_smoke renders beside the Latin-1 one, at 150
+    dpi, pixel for pixel."""
+    text = str(nko_pages["timing_texts"][[str(n) for n in nko_pages["timing_names"]].index(name)])
+    assert np.array_equal(render_text_page(text, PDF_DPI), np.asarray(_render_text_page(text, PDF_DPI)))
+
+
+def test_render_ms_times_the_timing_pages_it_can_draw():
+    """`scripts.render_ms`: every fixture's timing pages, each a positive
+    median; a page the parser refuses is left out of the report."""
+    from morphik_core_tpu_torch.scripts import render_ms
+
+    texts = render_ms.pages()
+    assert {"latin1", "khmer", "nko", "arabic_newer"} <= set(texts)
+    got = render_ms.render_ms({"latin1": texts["latin1"][:200], "refused": "˥˩"}, repeats=1)
+    assert set(got) == {"latin1"} and got["latin1"] > 0
