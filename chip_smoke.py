@@ -376,11 +376,25 @@ Phases (each raises on failure; none is caught):
      Sinhala, Tibetan, Tifinagh, Syriac, jamo and mixed PDF of
      tests/fixtures/complex_pages.npz) the same way, the render ms of a
      Devanagari, a Thai, a Lao and a Khmer page, an image query of the
-     Khmer slide. A 5-page PDF with N'Ko on page 3 and a 4-page one with
-     Arabic letters newer than FriBiDi's data on page 4 end
-     `failed`, their errors naming ROADMAP item 3b-ii, with no row of them
-     in the ColPali or the text store and /health's row counts unchanged.
-     Prints a {"text_pages": ...} line; the kernels line gains
+     Khmer slide. N'Ko, the newer Arabic letters and Ahom
+     (tests/fixtures/nko_pages.npz) the same way. The text pages' last
+     refusals, drawn: the DOCX (IPA tone contours, ZWJ emoji in Hebrew and
+     Arabic paragraphs), PPTX (CJK Extensions I and J, Garay, Unicode 16
+     Latin and Cyrillic) and 4-page PDF (isolates open at paragraph
+     separators, lines of more than 62 bidi controls, tone letters, Unicode
+     17 text) of tests/fixtures/unicode17_pages.npz, and the PDF with a page
+     of tone letters and the one with a page of U+1C89 that were refused
+     before, each page the reference's payload; an image query of the Garay
+     slide; two more servers on phase 3b's model at `pdf.colpali_pdf_dpi`
+     72 and 300 store that PDF's reference payloads at those dpis; a build
+     at dpi 110 (13 px, a size the atlas lacks) raises naming item 3b-ii
+     and leaves no row. The two formerly refused PDFs uploaded again,
+     drawn with a copy of the atlas that classes U+02E9 and U+1C89
+     MISDRAWN, end `failed`, their errors naming item 3b-ii, with no row
+     of them in the ColPali or the text store and /health's row counts
+     unchanged. The render ms of the Unicode 17, tone-contour and
+     right-to-left emoji pages, and of the Latin-1 page at 72, 150 and 300
+     dpi. Prints a {"text_pages": ...} line; the kernels line gains
      `text_pages_launches`.
 The last line is {"ok": true, "device": {...}}. Without CUDA, an sm_90
 card, nvcc or the package beside this file, it exits non-zero and
@@ -3840,6 +3854,7 @@ RTL_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "rtl_pages.npz"
 MARK_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "mark_pages.npz"
 COMPLEX_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "complex_pages.npz"
 NKO_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "nko_pages.npz"
+UNICODE17_PAGES_FIXTURE = ROOT / "tests" / "fixtures" / "unicode17_pages.npz"
 DOCX_TYPE = "application/vnd.openxmlformats-officedocument.wordprocessingml.document"
 PPTX_TYPE = "application/vnd.openxmlformats-officedocument.presentationml.presentation"
 TEXT_PAGE_FILES = (  # (fixture, upload name, key, content type)
@@ -3852,15 +3867,21 @@ TEXT_PAGE_FILES = (  # (fixture, upload name, key, content type)
     ("complex", "indic.docx", "docx", DOCX_TYPE), ("complex", "thai_lao_khmer.pptx", "pptx", PPTX_TYPE),
     ("complex", "complex.pdf", "pdf", "application/pdf"),
     ("nko", "nko.docx", "docx", DOCX_TYPE), ("nko", "nko.pptx", "pptx", PPTX_TYPE),
-    ("nko", "nko_arabic_ahom.pdf", "pdf", "application/pdf"))
+    ("nko", "nko_arabic_ahom.pdf", "pdf", "application/pdf"),
+    ("u17", "tones_emoji.docx", "docx", DOCX_TYPE), ("u17", "new_letters.pptx", "pptx", PPTX_TYPE),
+    ("u17", "unicode17.pdf", "pdf", "application/pdf"),
+    # refused before: a page 3 of 5 with tone letters in sequence, a page 4 of 4 with Unicode 16's U+1C89
+    ("tones", "tone_letters.pdf", "pdf", "application/pdf"), ("u16", "unicode_16.pdf", "pdf", "application/pdf"))
 # (fixture, document, payloads, page): the boundary page, the mixed RTL page, a vocalized Arabic slide, the
-# Khmer slide, an N'Ko slide
+# Khmer slide, an N'Ko slide, the Garay slide
 TEXT_PAGE_QUERIES = (("ltr", "mixed.pdf", "pdf", 2), ("rtl", "rtl.pdf", "pdf", 2),
                      ("marks", "vocalized.pptx", "pptx", 0), ("complex", "thai_lao_khmer.pptx", "pptx", 2),
-                     ("nko", "nko.pptx", "pptx", 1))
-# (fixture, upload name, the character its error names): a page 3 of 5 with contextual tone letters in
-# sequence, a page 4 of 4 with Unicode 16's U+1C89 (ROADMAP Queue 1 item 3b-ii)
-TEXT_PAGE_REFUSED = (("ltr", "tone_letters.pdf", "U+02E9"), ("marks", "unicode_16.pdf", "U+1C89"))
+                     ("nko", "nko.pptx", "pptx", 1), ("u17", "new_letters.pptx", "pptx", 1))
+TEXT_PAGE_DPIS = (72, 300)   # servers at these `pdf.colpali_pdf_dpi` store unicode17.pdf's payloads at them
+TEXT_PAGE_REFUSED_DPI = 110   # 13 px: a size the atlas lacks
+# (TEXT_PAGE_FILES name, the character its error names): the committed atlas draws every text, so a copy of it
+# that classes these two MISDRAWN refuses the formerly refused PDFs, and each job must fail and leave no row
+TEXT_PAGE_REFUSED = (("tone_letters.pdf", "U+02E9"), ("unicode_16.pdf", "U+1C89"))
 TEXT_RENDER_REPEATS = 3
 
 
@@ -3873,34 +3894,40 @@ def _fixture_blobs(z, key) -> list:
     return [flat[a:b] for a, b in zip(starts, starts[1:])]
 
 
-def text_render_ms(z) -> dict:
+def text_render_ms(z, dpi: int = 150, names=None) -> dict:
     """Phase 23, on the host: `render_text_page` ms of a fixture's timing
     pages (one length; Latin-1, Latin, Cyrillic, CJK; Latin-1, Hebrew,
     Arabic; Latin-1, vocalized Arabic, pointed Hebrew; Latin-1,
     Devanagari, Thai, Lao, Khmer; Latin-1, N'Ko, the newer Arabic
-    letters) at 150 dpi, the median of
-    TEXT_RENDER_REPEATS after one untimed render."""
+    letters; Latin-1, Unicode 15.1-17 letters, tone contours, ZWJ emoji in
+    right-to-left paragraphs), or those of `names`, at `dpi`, the median
+    of TEXT_RENDER_REPEATS after one untimed render."""
     import numpy as np
 
     from morphik_core_tpu_torch.parser.text_render import render_text_page
 
     out = {}
     for name, text in zip(z["timing_names"].tolist(), z["timing_texts"].tolist()):
-        render_text_page(text, 150)
+        if names is not None and name not in names:
+            continue
+        render_text_page(text, dpi)
         times = []
         for _ in range(TEXT_RENDER_REPEATS):
             t = time.perf_counter()
-            render_text_page(text, 150)
+            render_text_page(text, dpi)
             times.append((time.perf_counter() - t) * 1e3)
         out[name] = float(np.median(times))
     return out
 
 
 def _wait_failed(client, doc_id) -> dict:
+    """A document's status once it is `failed` and the job queue has run
+    its last retry (/health's `pending_jobs` 0): each attempt stores the
+    text chunks before it reaches the refused page."""
     deadline = time.perf_counter() + SERVICE_POLL_S
     while True:
         st = client.call("GET", f"/documents/{doc_id}/status")
-        if st["status"] == "failed":
+        if st["status"] == "failed" and client.call("GET", "/health")["pending_jobs"] == 0:
             return st
         if st["status"] == "completed" or time.perf_counter() > deadline:
             raise AssertionError(f"the refused PDF is {st['status']}, expected failed: {st}")
@@ -3913,19 +3940,141 @@ def _row_counts(client) -> tuple:
     return components["colpali"]["index_rows"], components["text_index_rows"]
 
 
+def _refusing_atlas(path: Path, letters) -> Path:
+    """A copy of the committed glyph atlas with the code points `letters`
+    ("U+02E9", ...) classed MISDRAWN, as a probe that found them drawn
+    otherwise would class them."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.parser import glyph_atlas, text_render
+
+    with np.load(text_render.ATLAS_PATH) as z:
+        arrays = {k: z[k] for k in z.files}
+    starts, values = arrays["class_starts"], arrays["class_values"]
+    classes = values[np.searchsorted(starts, np.arange(0x110000), side="right") - 1]
+    classes[[int(letter[2:], 16) for letter in letters]] = text_render.MISDRAWN
+    arrays["class_starts"], arrays["class_values"] = glyph_atlas._ranges(classes)
+    np.savez(path, **arrays)
+    return path
+
+
+_RASTER_PAGE = []   # raster_pool._raster_page, while phase 23 runs pages through _raster_page_with_atlas
+
+
+def _raster_page_with_atlas(atlas: str, *args):
+    """`raster_pool._raster_page(*args)` drawn with the atlas at `atlas`, in
+    whichever process runs it (a raster pool child imports this script and
+    takes the atlas from its task)."""
+    from morphik_core_tpu_torch.parser import raster_pool, text_render
+
+    if text_render.ATLAS_PATH != Path(atlas):
+        text_render.ATLAS_PATH = Path(atlas)
+        text_render._load_size.cache_clear()
+    return (_RASTER_PAGE[0] if _RASTER_PAGE else raster_pool._raster_page)(*args)
+
+
+def _refused_jobs(client, fixtures, tmp: Path) -> tuple:
+    """Phase 23: the formerly refused PDFs uploaded again while every page
+    is drawn with `_refusing_atlas` -> ({name: s to failed}, {name: error}).
+    Each job must fail naming its character and item 3b-ii, leave no row in
+    the ColPali or the text store, and leave /health's row counts as they
+    were. The committed atlas and `_raster_page` are back afterwards; the
+    server's raster pool must be shut down before another server draws."""
+    import functools
+
+    from morphik_core_tpu_torch.parser import raster_pool, text_render
+
+    atlas = _refusing_atlas(tmp / "refusing_atlas.npz", [letter for _, letter in TEXT_PAGE_REFUSED])
+    committed = text_render.ATLAS_PATH
+    _RASTER_PAGE.append(raster_pool._raster_page)
+    raster_pool._raster_page = functools.partial(_raster_page_with_atlas, str(atlas))
+    text_render.ATLAS_PATH = atlas
+    text_render._load_size.cache_clear()
+    refused_s, refused_errors = {}, {}
+    try:
+        pdfs = {name: fixtures[fixture][key] for fixture, name, key, _ in TEXT_PAGE_FILES if name in dict(TEXT_PAGE_REFUSED)}
+        for name, letter in TEXT_PAGE_REFUSED:
+            before = _row_counts(client)
+            t = time.perf_counter()
+            refused = client.upload(name, pdfs[name].tobytes(), "application/pdf")["external_id"]
+            status = _wait_failed(client, refused)
+            refused_s[name] = time.perf_counter() - t
+            refused_errors[name] = status["error"]
+            if "3b-ii" not in status["error"] or letter not in status["error"]:
+                raise AssertionError(f"{name} failed with {status['error']!r}")
+            for colpali in (True, False):
+                if client.call("POST", "/batch/chunks", {"sources": [
+                        {"document_id": refused, "chunk_number": k} for k in range(40)], "use_colpali": colpali}):
+                    raise AssertionError(f"{name} left rows in the {'ColPali' if colpali else 'text'} store")
+            if _row_counts(client) != before:
+                raise AssertionError(f"{name}: /health's row counts {_row_counts(client)}, before it {before}")
+    finally:
+        raster_pool._raster_page = _RASTER_PAGE.pop()
+        text_render.ATLAS_PATH = committed
+        text_render._load_size.cache_clear()
+    return refused_s, refused_errors
+
+
+def _stored_pages(client, doc_id, n: int) -> list:
+    """The payloads a document's ColPali rows hold (up to n + 2 asked)."""
+    import base64
+
+    chunks = client.call("POST", "/batch/chunks", {"sources": [
+        {"document_id": doc_id, "chunk_number": k} for k in range(n + 2)], "use_colpali": True})
+    return [base64.b64decode(c["content"].split(",", 1)[1]) for c in chunks]
+
+
+def _refused_dpi_build(model, dpi: int) -> str:
+    """Phase 23: `build_services` at a `pdf.colpali_pdf_dpi` whose font size
+    the atlas lacks -> its error; it must raise `UnsupportedText` naming
+    item 3b-ii and leave no row in the database and no index behind."""
+    import sqlite3
+
+    from morphik_core_tpu_torch.parser.text_render import UnsupportedText
+    from morphik_core_tpu_torch.services_init import build_services
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_pages_dpi_"))
+    try:
+        settings = service_settings(tmp)
+        settings.pdf.colpali_pdf_dpi = dpi
+        try:
+            build_services(settings, colqwen_model=model)
+        except UnsupportedText as e:
+            error = str(e)
+        else:
+            raise AssertionError(f"a server built at dpi {dpi}")
+        if "3b-ii" not in error or f"dpi {dpi}" not in error:
+            raise AssertionError(f"the dpi {dpi} build failed with {error!r}")
+        db = Path(settings.database.path)
+        if db.exists():
+            with sqlite3.connect(db) as con:
+                tables = [r[0] for r in con.execute("SELECT name FROM sqlite_master WHERE type='table'")]
+                rows = {t: con.execute(f'SELECT COUNT(*) FROM "{t}"').fetchone()[0] for t in tables}
+            if any(rows.values()):
+                raise AssertionError(f"the dpi {dpi} build left rows {rows}")
+        if Path(settings.vector_store.index_path).exists() and any(Path(settings.vector_store.index_path).iterdir()):
+            raise AssertionError(f"the dpi {dpi} build left an index")
+        return error
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def text_pages_phase(torch, model, _kernels, smi):
     """Phase 23: text pages in every script the reference draws, Hebrew
     and Arabic included, with combining marks placed by the font's GPOS
     anchors, and the complex scripts (Indic, Thai, Lao, Khmer, Myanmar,
     Sinhala, Tibetan, Tifinagh, Syriac, jamo, N'Ko with its joining, the
     Arabic letters newer than FriBiDi's data, Ahom) shaped as HarfBuzz
-    shapes them, on a server from the toml serving phase 3b's model. Every
-    stored page is the reference's payload byte for byte; an image query
-    of a page finds it first (K1); a PDF with a page of contextual tone
-    letters and one with a page of Unicode 16's U+1C89 fail naming item
-    3b-ii and leave no row behind."""
-    import base64
-
+    shapes them, and the last refusals (tone contours, ZWJ emoji in
+    right-to-left paragraphs, Unicode 15.1-17 code points, isolates open
+    at paragraph separators, more than 62 bidi controls), on a server from
+    the toml serving phase 3b's model. Every stored page is the
+    reference's payload byte for byte; an image query of a page finds it
+    first (K1); servers at dpi 72 and 300 store the Unicode 17 PDF's
+    payloads at those dpis; a build at dpi 110 raises naming item 3b-ii
+    and leaves no row behind. Drawn with an atlas that refuses a character
+    of each, the two formerly refused PDFs fail naming item 3b-ii and
+    leave no row behind."""
     import numpy as np
 
     from morphik_core_tpu_torch.services_init import build_services
@@ -3934,10 +4083,16 @@ def text_pages_phase(torch, model, _kernels, smi):
     t_phase = time.perf_counter()
     fixtures = {"ltr": np.load(TEXT_PAGES_FIXTURE), "rtl": np.load(RTL_PAGES_FIXTURE),
                 "marks": np.load(MARK_PAGES_FIXTURE), "complex": np.load(COMPLEX_PAGES_FIXTURE),
-                "nko": np.load(NKO_PAGES_FIXTURE)}
+                "nko": np.load(NKO_PAGES_FIXTURE), "u17": np.load(UNICODE17_PAGES_FIXTURE)}
+    # the PDFs refused before, with their payloads as the Unicode 17 fixture keeps them
+    for key, source, payloads in (("tones", "ltr", "tone_pdf_payloads"), ("u16", "marks", "unicode16_pdf_payloads")):
+        fixtures[key] = {"pdf": fixtures[source]["refused_pdf"], "pdf_payloads": fixtures["u17"][payloads],
+                         "pdf_payloads_sizes": fixtures["u17"][f"{payloads}_sizes"]}
     render_ms = text_render_ms(fixtures["ltr"])
-    for key in ("rtl", "marks", "complex", "nko"):
+    for key in ("rtl", "marks", "complex", "nko", "u17"):
         render_ms.update({k: v for k, v in text_render_ms(fixtures[key]).items() if k != "latin1"})
+    for dpi in TEXT_PAGE_DPIS:
+        render_ms[f"latin1_{dpi}dpi"] = text_render_ms(fixtures["ltr"], dpi, ("latin1",))["latin1"]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_text_pages_"))
     settings = service_settings(tmp)
     forward_batches = []
@@ -3965,9 +4120,7 @@ def text_pages_phase(torch, model, _kernels, smi):
             ingest_s[name] = _wait_completed(client, [docs[name]]) - t
         for fixture, name, key, _ in TEXT_PAGE_FILES:   # the reference's payloads, page for page
             want = _fixture_blobs(fixtures[fixture], f"{key}_payloads")
-            chunks = client.call("POST", "/batch/chunks", {"sources": [
-                {"document_id": docs[name], "chunk_number": k} for k in range(len(want) + 2)], "use_colpali": True})
-            got = [base64.b64decode(c["content"].split(",", 1)[1]) for c in chunks]
+            got = _stored_pages(client, docs[name], len(want))
             if got != want:
                 raise AssertionError(f"{name}: {len(got)} stored pages, {sum(g != w for g, w in zip(got, want))} of "
                                      f"them differ from the reference's {len(want)} payloads")
@@ -3989,28 +4142,36 @@ def text_pages_phase(torch, model, _kernels, smi):
             if (hits[0]["document_id"], hits[0]["chunk_number"]) != (docs[name], page) or k1 <= 0:
                 raise AssertionError(f"the page image query's top-1 is {hits[0]['document_id']}#"
                                      f"{hits[0]['chunk_number']} (K1 {k1}), not {name} page {page}")
-        launches = dict(_kernels.launch_counts)
-        if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the queries' forwards too
-            raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
-                                 "tower forwards")
-        # still refused: a PDF with a page of tone letters, one with a page of U+1C89 after three drawn ones;
-        # each fails the job and leaves no row in either store, /health's counts as before it
-        refused_s, refused_errors = {}, {}
-        for fixture, name, letter in TEXT_PAGE_REFUSED:
-            before = _row_counts(client)
+        refused_s, refused_errors = _refused_jobs(client, fixtures, tmp)
+        server.stop()   # its raster pool's children hold the refusing atlas
+        server = None
+        # servers at two more of the atlas's sizes store the Unicode 17 PDF's payloads at their dpi
+        dpi_s, dpi_pages, boot_k3 = {}, {}, 0
+        for dpi in TEXT_PAGE_DPIS:
+            dpi_tmp = tmp / f"dpi{dpi}"
+            dpi_settings = service_settings(dpi_tmp)
+            dpi_settings.pdf.colpali_pdf_dpi = dpi
             t = time.perf_counter()
-            refused = client.upload(name, fixtures[fixture]["refused_pdf"].tobytes(), "application/pdf")["external_id"]
-            status = _wait_failed(client, refused)
-            refused_s[name] = time.perf_counter() - t
-            refused_errors[name] = status["error"]
-            if "3b-ii" not in status["error"] or letter not in status["error"]:
-                raise AssertionError(f"{name} failed with {status['error']!r}")
-            for colpali in (True, False):
-                if client.call("POST", "/batch/chunks", {"sources": [
-                        {"document_id": refused, "chunk_number": k} for k in range(40)], "use_colpali": colpali}):
-                    raise AssertionError(f"{name} left rows in the {'ColPali' if colpali else 'text'} store")
-            if _row_counts(client) != before:
-                raise AssertionError(f"{name}: /health's row counts {_row_counts(client)}, before it {before}")
+            before = _kernels.launch_counts["window_attention"]
+            server = ServerThread(build_services(dpi_settings, colqwen_model=model))   # recalibrates: K3, no forward
+            boot_k3 += _kernels.launch_counts["window_attention"] - before
+            dpi_client = Client(f"http://127.0.0.1:{server.server.port}")
+            doc = dpi_client.upload("unicode17.pdf", fixtures["u17"]["pdf"].tobytes(), "application/pdf")["external_id"]
+            _wait_completed(dpi_client, [doc])
+            dpi_s[dpi] = time.perf_counter() - t
+            want = _fixture_blobs(fixtures["u17"], f"pdf_payloads_{dpi}")
+            got = _stored_pages(dpi_client, doc, len(want))
+            if got != want:
+                raise AssertionError(f"dpi {dpi}: {len(got)} stored pages, {sum(g != w for g, w in zip(got, want))} "
+                                     f"of them differ from the reference's {len(want)} payloads")
+            dpi_pages[dpi] = len(got)
+            server.stop()
+            server = None
+        launches = dict(_kernels.launch_counts)
+        if launches["window_attention"] - boot_k3 != k3_per_forward * len(forward_batches):   # the queries' too
+            raise AssertionError(f"K3 launched {launches['window_attention']} times ({boot_k3} in the dpi servers' "
+                                 f"calibration) over {len(forward_batches)} tower forwards")
+        refused_error = _refused_dpi_build(model, TEXT_PAGE_REFUSED_DPI)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         model.embed_image_batch = tower
@@ -4021,13 +4182,18 @@ def text_pages_phase(torch, model, _kernels, smi):
            "render_over_latin1": {k: v / render_ms["latin1"] for k, v in render_ms.items()},
            "ingest_s": ingest_s, "pages": pages, "ingest_forwards": ingest_forwards,
            "tower_forwards": len(forward_batches), "image_query_ms": query_ms, "refused_s": refused_s,
-           "refused_errors": refused_errors, "launches": launches, "ingest_launches": ingest_launches,
-           "k3_per_forward": k3_per_forward, "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase}
+           "refused_errors": refused_errors, "dpi_ingest_s": dpi_s,
+           "dpi_pages": dpi_pages, "dpi_boot_k3": boot_k3, "refused_dpi": TEXT_PAGE_REFUSED_DPI, "refused_error": refused_error,
+           "launches": launches, "ingest_launches": ingest_launches, "k3_per_forward": k3_per_forward,
+           "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase}
     log(f"  ingests to completed (s) {json.dumps({k: round(v, 3) for k, v in ingest_s.items()})}, pages {pages}, "
         f"each the reference's payload; tower forwards {ingest_forwards} (K3 {ingest_launches['window_attention']}); "
         f"page image queries (ms) {json.dumps({k: round(v, 3) for k, v in query_ms.items()})} (top-1 their pages); "
-        f"the refused PDFs failed (s) {json.dumps({k: round(v, 3) for k, v in refused_s.items()})} naming 3b-ii, "
-        f"no row left in either store; launches {launches}; peak {peak_gb:.2f} GB; "
+        f"the formerly refused PDFs, drawn with an atlas that refuses {[c for _, c in TEXT_PAGE_REFUSED]}, failed (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in refused_s.items()})} naming 3b-ii, no row left in either store; "
+        f"servers at dpi {list(TEXT_PAGE_DPIS)} stored the reference's payloads (boot + ingest s "
+        f"{json.dumps({k: round(v, 3) for k, v in dpi_s.items()})}, pages {dpi_pages}); a build at dpi "
+        f"{TEXT_PAGE_REFUSED_DPI} raised naming 3b-ii and left no row; launches {launches}; peak {peak_gb:.2f} GB; "
         f"phase {out['phase_s']:.3f} s ({smi})")
     return out
 

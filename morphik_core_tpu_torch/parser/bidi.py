@@ -16,9 +16,17 @@ between runs of one isolate depth, and each rule's view of a run's
 neighbours. Where that differs from the letter of UAX #9:
 
 - the explicit rules stop at the first paragraph separator (B): what
-  follows keeps level 0, and its embedding, override and isolate controls
-  and BNs are not removed; they take part in the later rules with their
-  own types;
+  follows keeps level 0 and isolate depth 0, and its embedding, override
+  and isolate controls and BNs are not removed; they take part in the
+  later rules with their own types (the B itself keeps the isolate depth
+  open at it);
+- past depth 125 (X2-X5a, X6a, X7) it keeps FriBiDi's counters: an
+  embedding that cannot push, or any push after one, counts as
+  `over_pushed` (a PDF takes one back, a PDI clears them); an isolate
+  whose level would pass 125 counts as an overflow isolate (its PDI only
+  takes one back); an isolate whose level is valid raises the level even
+  where an earlier overflow keeps it off the stack; the isolate depth
+  stops at 124;
 - an FSI looks for its strong character past its own PDI (up to the end
   of the line, outside later isolates);
 - the runs of one isolate depth are linked across isolates that close and
@@ -26,17 +34,18 @@ neighbours. Where that differs from the letter of UAX #9:
   isolate as a neighbour;
 - rule W1 merges an NSM into the run before it, and that run with the
   next one where both have one type; rule N0 pairs brackets before the
-  neutrals merge, and rules N1 / N2 then see each merged run's immediate
-  neighbours;
+  neutrals merge, and that merge joins neighbouring neutral runs of one
+  level whatever their isolate depths (a B left inside an open isolate
+  takes the neutrals after it into that isolate's sequence); rules N1 /
+  N2 then see each merged run's immediate neighbours;
 - the removed characters (X9) take the level of the character before them
   (the paragraph level at the start); L1 then puts separators, and the
   whitespace, controls and BNs before them and at the end of the line, at
   the paragraph level.
 
-`refusal` names the two cases this module does not follow (the port
-refuses such a line): an isolate still open at a paragraph separator with
-text after it, and more than `MAX_INITIATORS` embedding or isolate
-initiators in a line (FriBiDi's overflow counting beyond depth 125).
+Where libfribidi 1.0.8 itself crashes (some lines whose isolates
+overflow depth 125 deep inside embeddings: it reads memory it never
+wrote), the reference draws nothing; this module still gives levels.
 """
 
 from __future__ import annotations
@@ -49,7 +58,6 @@ TYPE_NAMES = ("L", "R", "AL", "EN", "ES", "ET", "AN", "CS", "NSM", "BN", "B", "S
               "RLO", "PDF", "LRI", "RLI", "FSI", "PDI")
 MAX_DEPTH = 125   # FRIBIDI_BIDI_MAX_EXPLICIT_LEVEL
 MAX_BRACKET_PAIRS = 63   # FRIBIDI_BIDI_MAX_NESTED_BRACKET_PAIRS
-MAX_INITIATORS = 62   # no more can push a level past MAX_DEPTH
 _SENTINEL = -1
 
 _STRONG = frozenset((L, R, AL, LRE, LRO, RLE, RLO))   # FRIBIDI_IS_STRONG
@@ -65,25 +73,6 @@ _L1 = frozenset((WS, BN, LRE, LRO, RLE, RLO, PDF, LRI, RLI, FSI, PDI, B, S))
 def needs_bidi(types: Sequence[int]) -> bool:
     """Whether the line can be anything but one run at level 0."""
     return not _RTL_OR_EXPLICIT.isdisjoint(types)
-
-
-def refusal(types: Sequence[int]) -> Optional[Tuple[int, str]]:
-    """Where and why this module cannot give FriBiDi's levels for the
-    line, or None."""
-    initiators = [i for i, t in enumerate(types) if t in _INITIATORS]
-    if len(initiators) > MAX_INITIATORS:
-        return initiators[MAX_INITIATORS], f"is the bidi control after {MAX_INITIATORS} others in a line"
-    if B in types:
-        end = types.index(B)
-        depth = 0
-        for t in types[:end]:
-            if t in (LRI, RLI, FSI):
-                depth += 1
-            elif t == PDI and depth:
-                depth -= 1
-        if depth and end + 1 < len(types):
-            return end + 1, "follows a paragraph separator that an isolate was left open at"
-    return None
 
 
 def _dir(level: int) -> int:
@@ -143,12 +132,13 @@ def _side(run: _Run, other: _Run) -> int:
 
 
 def _compact(head: _Run, neutrals: bool) -> None:
-    """`compact_list` (same type, no brackets) or `compact_neutrals` (also
-    any two neutrals, brackets included)."""
+    """`compact_list` (same type and isolate depth, no brackets) or
+    `compact_neutrals` (also any two neutrals, brackets included, and of
+    any isolate depths)."""
     p = head.next
     while p is not head:
         q = p.prev
-        if q is not head and q.level == p.level and q.iso == p.iso and (
+        if q is not head and q.level == p.level and (neutrals or q.iso == p.iso) and (
                 (neutrals and q.type in _NEUTRAL and p.type in _NEUTRAL)
                 or (q.type == p.type and (neutrals or (not p.bracket and not q.bracket)))):
             p = _merge_with_prev(p)
@@ -174,7 +164,28 @@ def _explicit(head: _Run, base: int) -> None:
     removed runs are unlinked."""
     level, override, iso_level = base, None, 0
     stack: List[tuple] = []   # (level, override, entered by an isolate, isolate depth) before each push
-    valid_isolates = 0
+    over_pushed = first_interval = valid_isolates = isolate_overflow = 0
+
+    def push(new: int, new_override, isolate: bool) -> None:
+        nonlocal level, override, over_pushed, first_interval
+        if not over_pushed and not isolate_overflow and new <= MAX_DEPTH:
+            if level == MAX_DEPTH - 1:
+                first_interval = over_pushed
+            stack.append((level, override, isolate, iso_level))
+            level, override = new, new_override
+        elif not isolate_overflow:
+            over_pushed += 1
+
+    def pop() -> None:
+        nonlocal level, override, over_pushed, first_interval, iso_level
+        if stack:
+            if over_pushed > first_interval:
+                over_pushed -= 1
+            else:
+                if over_pushed == first_interval:
+                    first_interval = 0
+                level, override, _, iso_level = stack.pop()
+
     p = head.next
     while p is not head:
         t, nxt = p.type, p.next
@@ -184,21 +195,19 @@ def _explicit(head: _Run, base: int) -> None:
                 for _ in range(p.len):
                     if stack and stack[-1][2]:
                         break
-                    if stack:
-                        level, override, _, iso_level = stack.pop()
+                    pop()
             elif t != BN:
                 for _ in range(p.len):
-                    new = ((level + _rtl(t) + 2) & ~1) - _rtl(t)
-                    if new <= MAX_DEPTH:
-                        stack.append((level, override, False, iso_level))
-                        level, override = new, {LRO: L, RLO: R}.get(t)
+                    push(((level + _rtl(t) + 2) & ~1) - _rtl(t), {LRO: L, RLO: R}.get(t), False)
             p.prev.next, p.next.prev = p.next, p.prev   # X9
         elif t == PDI:
-            if valid_isolates:
+            if isolate_overflow:
+                isolate_overflow -= 1
+            elif valid_isolates:
                 while stack and not stack[-1][2]:
-                    stack.pop()
-                if stack:
-                    level, override, _, iso_level = stack.pop()
+                    pop()
+                over_pushed = 0
+                pop()
                 iso_level -= 1
                 valid_isolates -= 1
                 p.iso = iso_level
@@ -220,13 +229,16 @@ def _explicit(head: _Run, base: int) -> None:
                     q = q.next
             new = level + 1 + level % 2 if rtl else level + 2 - level % 2
             p.level = level
-            iso_level += 1
+            if iso_level < MAX_DEPTH - 1:
+                iso_level += 1
             if override is not None:
                 p.type = override
             if new <= MAX_DEPTH:
                 valid_isolates += 1
-                stack.append((level, override, True, iso_level))
-                level, override = new, None
+                push(new, None, True)
+                level = new
+            else:
+                isolate_overflow += 1
         elif t == B:
             return
         else:

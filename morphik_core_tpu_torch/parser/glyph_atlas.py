@@ -18,41 +18,45 @@ What it writes (`text_render.ShapedFont` and `marks.MarkTables` read it):
   substitutions reach: the capitals' accents, the dotless forms, the
   Arabic mark ligatures), the `.notdef` token and the hidden token.
   `glyphs`: each token's glyph id; `hidden`: 1 for the invisible token.
-- per font size s: `shapes_s`, `offsets_s`, `masks_s` (u8, flat) as
-  `getmask2(token, "L", anchor="la")` draws the token alone (a mark after
-  a ZWSP, where it is drawn alone and unplaced; an extra glyph, and a mark
-  with a canonical decomposition, as Pillow's FreeType renders it, placed
-  in the same frame), `advances_s`
-  (1/64 px, `getlength`; an extra glyph's is hb-ft's), and `kern_s` rows
-  (tag, glyph a, glyph b, 1/64 px): each pair of the GPOS `kern` lookups
-  of a served OpenType script tag, measured with `getlength` inside a run
-  of a script with that tag (`ctx + a + ZWNJ + b`: GPOS skips the ZWNJ, a
-  ligature does not form across it); no pair holds a mark.
+- per font size s of `text_render.ATLAS_SIZES`: `shapes_s`, `offsets_s`,
+  `masks_s` (u8, flat) as `getmask2(token, "L", anchor="la")` draws the
+  token alone (a mark after a ZWSP, where it is drawn alone and unplaced;
+  an extra glyph, and a mark with a canonical decomposition, as Pillow's
+  FreeType renders it, placed in the same frame), `advances_s` (1/64 px,
+  `getlength`; an extra glyph's is hb-ft's), and `kern_s` rows (lookup,
+  glyph a, glyph b, 1/64 px): each pair of drawable glyphs of the served
+  tags' GPOS `kern` lookups, HarfBuzz's `em_mult` of its value (the first
+  subtable that covers the first glyph decides); `kern_lookups` rows (tag,
+  lookup): a run adds its tag's lookups' values. No pair holds a mark.
 - `class_starts` / `class_values`: each code point's class
   (`text_render.GLYPH` ...) as ranges. The rules give a class; a probe at
-  12 px draws every code point the rules let through but the marks, in
-  chunks of consecutive ones, with PIL and with the mirror, and a code
-  point the two draw differently is refused (`MISDRAWN`); the marks are
-  probed on their bases at both sizes (`_mark_units`).
-- `script_starts` / `script_values` / `scripts` / `script_names`
-  (ISO 15924, Unicode 17 from fontTools: the card's Python has no Script
-  property), `script_tags` (each script's OpenType tag in `tags`, the one
+  `PROBE_SIZE` and at the largest size draws every code point the rules
+  let through but the marks, in chunks of consecutive ones, with PIL and
+  with the mirror, and a code point the two draw differently is refused
+  (`MISDRAWN`); the
+  marks, and the tone letters in sequence, are probed at every size
+  (`_mark_units`).
+- HarfBuzz's Unicode 17 properties of every code point (`Unicode`):
+  `category_starts` / `category_values` (general category, in
+  `text_render.CATEGORIES`' order), `ccc_starts` / `ccc_values`
+  (combining class), `decompositions` rows (code point, first, second or
+  0: one canonical step), `pictographic_starts` / `pictographic_values`
+  (Extended_Pictographic, probed from HarfBuzz's clusters);
+  `script_starts` / `script_values` / `scripts` / `script_names` (ISO
+  15924), `script_tags` (each script's OpenType tag in `tags`, the one
   HarfBuzz chooses: DFLT where the font has none of the script's) and
   `script_shapers` (the shaper HarfBuzz runs for it,
   `hb_ot_shaper_categorize`; a script whose shaper the port does not
   mirror would have its code points refused as SHAPER: none is left).
-- `general_cps` / `general_categories`: HarfBuzz's general category where
-  it differs from Python's (U+1171E is Mc in Unicode 17).
 - `brackets`: the pairs raqm's script resolution matches, found by
   probing; `compose`: (base, mark, composite) for each composite the cmap
   holds; `lig_blockers`: the default-ignorables a ligature does not
-  match across (probed); `contextual`: the characters a chain-context
-  ccmp lookup of the font substitutes in sequence (its tone letters,
-  refused).
+  match across (probed).
 - GSUB: `gsub_lookups` rows (tag, stage, lookup), `gsub_flags`,
   `gsub_ligatures` (lookup, ligature glyph, components), the ccmp
-  chain-context lookups' `chain_classes` and `chain_rules`, and the
-  `single_substs` they call (`_gsub_tables`).
+  chain-context lookups' `chain_classes` and `chain_rules` (the tone
+  letters' contour forms among them), and the `single_substs` they call
+  (`_gsub_tables`).
 - GPOS marks and GDEF: `glyph_classes` and `mark_attach` per glyph id;
   `mark_lookups`, `mark_subtables`, `mark_marks`, `mark_bases`,
   `mark_lig_counts` and the anchors per size, `mark_marks_xy_s` /
@@ -61,7 +65,8 @@ What it writes (`text_render.ShapedFont` and `marks.MarkTables` read it):
   point, in `bidi.TYPE_NAMES`' numbering), `bidi_brackets` (code point,
   FriBiDi's bracket type: minus the id of an opening bracket), `mirror`
   (HarfBuzz's mirror of each code point whose mirror the cmap holds),
-  `script_directions` (HarfBuzz's native direction of each script),
+  `script_directions` (`hb_script_get_horizontal_direction` of each
+  script),
   `libraries` (the FriBiDi, HarfBuzz and raqm versions).
 - joining: `joining_starts` / `joining_values` (FriBiDi's joining types,
   as `arabic.U` ...; a mark's T, as HarfBuzz has it for the marks
@@ -88,12 +93,11 @@ letter an Arabic run may hold alone, between tatweels and beside a beh
 (an Arabic letter also before digits, "%" and signs, in both paragraph
 directions), each invisible character between two behs, the marks on
 their bases (`_mark_units`), and every mark after a Khmer, a Tifinagh and
-an N'Ko letter.
+an N'Ko letter. It takes about two minutes here.
 """
 
 from __future__ import annotations
 
-import unicodedata
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -101,10 +105,10 @@ import numpy as np
 
 from morphik_core_tpu_torch.parser import arabic, bidi, khmer, marks, use
 from morphik_core_tpu_torch.parser.text_render import (
-    ARABIC_SHAPER, ATLAS_DPIS, ATLAS_PATH, COMPOSES, DOTTED_CIRCLE, DEFAULT_SHAPER, FONT_NAME, GLYPH, HANGUL_SHAPER, HEBREW_SHAPER,
-    HIDDEN, INDIC_SHAPER, KHMER_SHAPER, LTR_SCRIPT, MISDRAWN, MYANMAR_SHAPER, NO_DIRECTION, NOTDEF, RTL_SCRIPT,
-    SHAPER, THAI_SHAPER, UNASSIGNED, USE_SHAPER, ZWJ, ShapedFont, UnsupportedText, _blend_black,
-    _canonical_decomposition, _composite, _is_mark, _modified_ccc, decompose, font_size, load_font)
+    ARABIC_SHAPER, ATLAS_PATH, ATLAS_SIZES, CATEGORIES, COMPOSES, DOTTED_CIRCLE, DEFAULT_SHAPER, FONT_NAME, GLYPH,
+    HANGUL_SHAPER, HANGUL_SYLLABLES, HEBREW_SHAPER, HIDDEN, INDIC_SHAPER, KHMER_SHAPER, LTR_SCRIPT, MISDRAWN,
+    MYANMAR_SHAPER, NO_DIRECTION, NOTDEF, RTL_SCRIPT, SHAPER, THAI_SHAPER, USE_SHAPER, ZWJ, ShapedFont,
+    UnsupportedText, _blend_black, _composite, _load_size, decompose)
 
 # `hb_ot_shaper_categorize` (hb-ot-shaper.hh, HarfBuzz 12): the scripts of
 # the Indic shaper, and of the Universal Shaping Engine (USE)
@@ -121,12 +125,6 @@ NEW_INDIC_TAGS = {"Beng": "bng", "Deva": "dev", "Gujr": "gjr", "Guru": "gur", "K
 # the spaces HarfBuzz draws with the space glyph where the font lacks them
 # (`space_fallback_type`)
 FALLBACK_SPACES = (0x20, 0xA0, *range(0x2000, 0x200B), 0x202F, 0x205F, 0x3000)
-# `hb_script_get_horizontal_direction`: the right-to-left scripts, and those without a direction
-RTL_SCRIPTS = frozenset("""
-Arab Hebr Syrc Thaa Cprt Khar Phnx Nkoo Lydi Avst Armi Phli Prti Sarb Orkh Samr Mand Merc Mero Mani Mend Nbat Narb
-Palm Phlp Hatr Adlm Rohg Sogo Sogd Elym Chrs Yezi Ougr Gara
-""".split())
-UNDIRECTED_SCRIPTS = frozenset(("Hung", "Ital", "Runr", "Tfng"))
 # the scripts other than Arabic whose letters HarfBuzz's joining table holds (hb-ot-shaper-arabic-table.hh)
 JOINING_SCRIPTS = frozenset("Syrc Mong Nkoo Phag Mand Mani Phlp Adlm Rohg Sogd Chrs Ougr Gara".split())
 # FriBiDi's joining type names -> the atlas's (HarfBuzz counts C as D; G is FriBiDi's "ignored")
@@ -138,6 +136,8 @@ DEFAULT_GSUB = ("ccmp", "locl", "rlig", "calt", "clig", "liga", "rclt")
 # HarfBuzz's OpenType tags where they are not the ISO code in lower case
 OT_TAGS = {"Hira": "kana", "Kana": "kana", "Laoo": "lao ", "Yiii": "yi  ", "Nkoo": "nko ", "Vaii": "vai "}
 NOTDEF_PROBE = 0x4E2D   # 中: the font has no CJK
+# the probe's font size (12 px, dpi 100); the marks and tone letters are probed at every size
+PROBE_SIZE = 12
 # the machines' categories in the order the probe tries them (the default first, then the marks')
 USE_ORDER = (use.O, use.VABV, use.VBLW, use.VPST, use.VPRE, use.VMABV, use.VMBLW, use.VMPST, use.VMPRE, use.H, use.IS,
              use.HVM, use.SK, use.N, use.HN, use.CMABV, use.CMBLW, use.MABV, use.MBLW, use.MPST, use.MPRE, use.FABV,
@@ -147,6 +147,8 @@ KHMER_ORDER = (khmer.X, khmer.VABV, khmer.VBLW, khmer.VPST, khmer.VPRE, khmer.H,
                khmer.YGROUP, khmer.C, khmer.V, khmer.RA, khmer.PLACEHOLDER, khmer.DOTTEDCIRCLE, khmer.ZWNJ, khmer.ZWJ)
 ZWNJ = 0x200C
 PROBE_CHUNK = 128
+BLANK_CHUNK = 2048   # unassigned and private-use code points, probed in longer chunks
+TONE_LETTERS = range(0x02E5, 0x02EA)
 
 
 def hb_default_ignorable(cp: int) -> bool:
@@ -187,22 +189,32 @@ def _font_ligatures(gsub, tag: str, char_of: Dict[str, int]) -> List[str]:
     return out
 
 
-def _kern_pairs(gpos, lookups) -> List[tuple]:
-    """The (first, second) glyph names of the PairPos lookups' nonzero pairs."""
-    pairs = []
-    for li in lookups:
-        for st in gpos.LookupList.Lookup[li].SubTable:
-            if st.Format == 1:
-                for g, ps in zip(st.Coverage.glyphs, st.PairSet):
-                    pairs += [(g, r.SecondGlyph) for r in ps.PairValueRecord if r.Value1 and r.Value1.XAdvance]
-            else:
-                cd1, cd2 = st.ClassDef1.classDefs, st.ClassDef2.classDefs
-                assert not any(r.Class2Record[0].Value1 and r.Class2Record[0].Value1.XAdvance
-                               for r in st.Class1Record), "a PairPos class-0 second glyph kerns"
-                for g in st.Coverage.glyphs:
-                    row = st.Class1Record[cd1.get(g, 0)].Class2Record
-                    pairs += [(g, g2) for g2, c2 in cd2.items() if row[c2].Value1 and row[c2].Value1.XAdvance]
-    return pairs
+def _kern_values(gpos, lookup: int) -> Dict[tuple, int]:
+    """A PairPos lookup's nonzero x-advance adjustments, (first, second)
+    glyph names -> font units, as HarfBuzz applies it: the first subtable
+    that covers the first glyph and (format 1) holds the pair."""
+    out: Dict[tuple, int] = {}
+    taken = set()   # the pairs, and (first, None) for every pair, an earlier subtable applied to
+    for st in gpos.LookupList.Lookup[lookup].SubTable:
+        if st.Format == 1:
+            for g, ps in zip(st.Coverage.glyphs, st.PairSet):
+                for r in ps.PairValueRecord:
+                    if (g, r.SecondGlyph) not in taken and (g, None) not in taken:
+                        taken.add((g, r.SecondGlyph))
+                        out[g, r.SecondGlyph] = r.Value1.XAdvance if r.Value1 and r.Value1.XAdvance else 0
+            continue
+        cd1, cd2 = st.ClassDef1.classDefs, st.ClassDef2.classDefs
+        assert not any(r.Class2Record[0].Value1 and r.Class2Record[0].Value1.XAdvance
+                       for r in st.Class1Record), "a PairPos class-0 second glyph kerns"
+        for g in st.Coverage.glyphs:
+            if (g, None) in taken:
+                continue
+            taken.add((g, None))   # a format-2 subtable applies to every pair its coverage starts
+            row = st.Class1Record[cd1.get(g, 0)].Class2Record
+            for g2, c2 in cd2.items():
+                if (g, g2) not in taken and row[c2].Value1 and row[c2].Value1.XAdvance:
+                    out[g, g2] = row[c2].Value1.XAdvance
+    return {k: v for k, v in out.items() if v}
 
 
 class _Pil:
@@ -249,13 +261,13 @@ def _context_joining(pil: _Pil, cp: int) -> int:
         (right, left)]
 
 
-def _probe_brackets(pil: _Pil, script_of) -> List[tuple]:
+def _probe_brackets(pil: _Pil, script_of, category) -> List[tuple]:
     """The bracket pairs raqm matches: a close takes its open's script, so a
     “ after "x(Г)" is Latin where it is Cyrillic after "x(Г]". Candidates:
     the Common punctuation that opens or closes (Ps Pe Pi Pf) and < >."""
     cands = [cp for cp in range(0x110000) if not 0xD800 <= cp < 0xE000 and script_of(cp) == "Zyyy"
-             and (unicodedata.category(chr(cp)) in ("Ps", "Pe", "Pi", "Pf") or chr(cp) in "<>")]
-    opens = [cp for cp in cands if unicodedata.category(chr(cp)) in ("Ps", "Pi") or cp == 0x3C]
+             and (category[cp] in ("Ps", "Pe", "Pi", "Pf") or chr(cp) in "<>")]
+    opens = [cp for cp in cands if category[cp] in ("Ps", "Pi") or cp == 0x3C]
     assert _latin_after(pil, "x") and not _latin_after(pil, "Г")
     pairs = []
     for c in cands:
@@ -322,8 +334,20 @@ def _chars(cps) -> List[tuple]:
     return [(chr(cp), cp) for cp in cps]
 
 
-def _mark_units(gsub, gpos, cmap_names, drawn, others, script_of, chosen, mark_tags, skipped_chains
-                ) -> Dict[str, list]:
+def _chunks(cps: List[int], blank: List[bool]) -> List[List[int]]:
+    """`cps` in the probe's chunks: PROBE_CHUNK code points, or BLANK_CHUNK
+    where they are all `blank` (unassigned or private use: boxes)."""
+    out: List[List[int]] = []
+    last = None
+    for cp, b in zip(cps, blank):
+        if not out or b != last or len(out[-1]) == (BLANK_CHUNK if b else PROBE_CHUNK):
+            out.append([])
+        out[-1].append(cp)
+        last = b
+    return out
+
+
+def _mark_units(gsub, gpos, cmap_names, drawn, others, script_of, chosen, mark_tags, uni) -> Dict[str, list]:
     """The probe's mark units (text, the code point refused where it is
     drawn otherwise) per OpenType script tag: in each tag with GPOS `mark`,
     every mark its lookups cover on the first base (ligature, mark) of
@@ -336,12 +360,12 @@ def _mark_units(gsub, gpos, cmap_names, drawn, others, script_of, chosen, mark_t
     hiriq; and the `others` (every mark) after a digit, alone and before a
     variation selector (an Inherited one in a DFLT run, where HarfBuzz
     leaves it unplaced: the font has a GPOS table, so no fallback
-    positioning)."""
+    positioning). `uni`: HarfBuzz's Unicode properties."""
     cp_of: Dict[str, int] = {}
     for cp in sorted(drawn, reverse=True):
         cp_of[cmap_names[cp]] = cp
     tag_of = {cp: chosen[script_of(cp)] for cp in drawn}
-    is_mark = {cp: _is_mark(cp) for cp in drawn}
+    is_mark = {cp: uni.is_mark(cp) for cp in drawn}
     units: Dict[str, list] = {}
 
     def fits(cp, t):
@@ -351,8 +375,7 @@ def _mark_units(gsub, gpos, cmap_names, drawn, others, script_of, chosen, mark_t
         return [cp_of[g] for g in glyphs if g in cp_of and is_mark[cp_of[g]] == marks_wanted and fits(cp_of[g], t)]
 
     for t in mark_tags:
-        letter = next(chr(cp) for cp in drawn if tag_of[cp] == t and unicodedata.category(chr(cp)) == "Lo"
-                      or (tag_of[cp] == t and unicodedata.category(chr(cp)) == "Ll"))
+        letter = next(chr(cp) for cp in drawn if tag_of[cp] == t and uni.category[cp] in ("Lo", "Ll"))
         out = units.setdefault(t, [])
 
         def base(cp):   # a Common base takes the tag's script from a letter before it
@@ -380,7 +403,7 @@ def _mark_units(gsub, gpos, cmap_names, drawn, others, script_of, chosen, mark_t
         # the ccmp chain contexts
         for li in _feature_lookups(gsub, t, ("ccmp",)).get("ccmp", []):
             lookup = gsub.LookupList.Lookup[li]
-            if lookup.LookupType != 6 or li in skipped_chains:
+            if lookup.LookupType != 6:
                 continue
             for st in lookup.SubTable:
                 groups: Dict[int, list] = {}
@@ -390,7 +413,7 @@ def _mark_units(gsub, gpos, cmap_names, drawn, others, script_of, chosen, mark_t
                             groups[c].append(cp_of[g])
                 bases = [cp for c in groups for cp in groups[c] if not is_mark[cp]]
                 tops = [cp for c in groups for cp in groups[c] if is_mark[cp]]
-                below = [cp for cp in tops if unicodedata.combining(chr(cp)) == 220][:1]
+                below = [cp for cp in tops if uni.ccc[cp] == 220][:1]
                 if bases and tops:
                     out += [(base(b) + chr(tops[0]), b) for b in bases]
                     out += [(base(b) + chr(m), m) for b in bases[:1] for m in tops]
@@ -487,17 +510,18 @@ def mirrored(script: str, shaper: int) -> bool:
     return shaper in (DEFAULT_SHAPER, HEBREW_SHAPER, HANGUL_SHAPER, THAI_SHAPER, KHMER_SHAPER)
 
 
-def _classify(cmap, script_of, refused) -> tuple:
+def _classify(cmap, script_of, refused, uni) -> tuple:
     """Each code point's class by rule -> (classes, the spaces drawn as the
     space glyph at their own width). The code points of the `refused`
-    scripts (their shaper is not mirrored) are SHAPER."""
+    scripts (their shaper is not mirrored) are SHAPER; a lone surrogate
+    is U+FFFD in HarfBuzz's buffer (COMPOSES); a code point unassigned even
+    in Unicode 17, or a noncharacter, is what the rules make it (a box, or
+    hidden where HarfBuzz counts it default-ignorable)."""
     classes = np.empty(0x110000, np.int8)
     spaces = []
     for cp in range(0x110000):
-        ch = chr(cp)
-        cat = unicodedata.category(ch)
-        if cat in ("Cn", "Cs"):
-            cls = UNASSIGNED
+        if uni.category[cp] == "Cs":
+            cls = COMPOSES
         elif script_of(cp) in refused:
             cls = SHAPER
         elif hb_default_ignorable(cp):
@@ -505,7 +529,7 @@ def _classify(cmap, script_of, refused) -> tuple:
         elif cp in cmap:
             cls = GLYPH
         else:
-            if decompose(cp, True, cmap):
+            if decompose(cp, True, cmap, uni.decomposition):
                 cls = COMPOSES
             elif cp in FALLBACK_SPACES:
                 cls = COMPOSES
@@ -544,13 +568,11 @@ def _forms(gsub, gid, served, tags) -> list:
     return sorted(forms)
 
 
-def _gsub_stages(gsub, served, tags, skipped_chains, joining_tags) -> List[tuple]:
+def _gsub_stages(gsub, served, tags, joining_tags) -> List[tuple]:
     """Rows (tag, stage, lookup) of the GSUB lookups the mirror applies:
     under a joining shaper's tag (`arab`, `nko `) its ccmp (stage 0; the
     form features follow it), `rlig` (1) and `liga` (2); the other
-    shapers' default features in one stage, in lookup order. The chain
-    lookups in `skipped_chains` (the tone letters' contour forms) are
-    refused instead."""
+    shapers' default features in one stage, in lookup order."""
     rows = []
     for t in served:
         feats = _feature_lookups(gsub, t, DEFAULT_GSUB)
@@ -560,7 +582,7 @@ def _gsub_stages(gsub, served, tags, skipped_chains, joining_tags) -> List[tuple
         else:
             groups = [sum(feats.values(), [])]
         for stage, lookups in enumerate(groups):
-            rows += [(tags.index(t), stage, li) for li in sorted(set(lookups)) if li not in skipped_chains]
+            rows += [(tags.index(t), stage, li) for li in sorted(set(lookups))]
     return rows
 
 
@@ -637,15 +659,16 @@ def _scales(size: int, upem: int) -> tuple:
 
 
 def _anchor(anchor, glyph: str, size: int, upem: int) -> tuple:
-    """An anchor at `size` px in 1/16 of a 26.6 unit: its coordinates at
-    the font's scale (a float in HarfBuzz, exact in these units). Under
+    """An anchor at `size` px in 1/32 of a 26.6 unit: its coordinates at
+    the font's scale (a float in HarfBuzz, exact in these units at every
+    size: half a 1/16 unit at an odd one). Under
     raqm's hb-ft font HarfBuzz reads a format-2 anchor's coordinates too,
     not its contour point (U+A72B's point lies one unit above them; the
     test against Pillow's HarfBuzz holds the offsets)."""
     assert anchor.Format in (1, 2), f"{glyph}: an anchor of format {anchor.Format}"
     hb = _scales(size, upem)[1]
-    x, y = anchor.XCoordinate * hb * 16, anchor.YCoordinate * hb * 16
-    assert x % upem == 0 and y % upem == 0, f"{glyph}: an anchor off the 1/16 grid at {size} px"
+    x, y = anchor.XCoordinate * hb * 32, anchor.YCoordinate * hb * 32
+    assert x % upem == 0 and y % upem == 0, f"{glyph}: an anchor off the 1/32 grid at {size} px"
     return x // upem, y // upem
 
 
@@ -655,7 +678,7 @@ def _mark_positioning(gpos, gid, served, tags, sizes, upem) -> Dict[str, np.ndar
     order, (lookup, type, flag); its marks (subtable, glyph, class) and
     their anchors; its base, ligature or mark-2 anchors (subtable, glyph,
     class, ligature component or -1) and their anchors; its ligatures'
-    component counts (subtable, glyph, count). Anchors per size, in 1/16
+    component counts (subtable, glyph, count). Anchors per size, in 1/32
     of a 26.6 unit."""
     lookups = []
     for t in served:
@@ -770,7 +793,8 @@ class HarfBuzz:
     """Pillow's HarfBuzz over hb-ft on Pillow's FreeType (through ctypes),
     one run at a time as raqm calls it: the whole line as context, BOT /
     EOT at its ends. The probes of the syllable categories and of N'Ko's
-    joining read it; the tests hold the mirror to it."""
+    joining read it, `Unicode` reads its Unicode functions; the tests hold
+    the mirror to it."""
 
     def __init__(self, path: Optional[str] = None):
         import ctypes
@@ -797,7 +821,14 @@ class HarfBuzz:
                 ("hb_shape", None, [vp, vp, vp, ctypes.c_uint]),
                 ("hb_buffer_get_glyph_infos", ctypes.POINTER(u32 * 5), [vp, ctypes.POINTER(ctypes.c_uint)]),
                 ("hb_buffer_get_glyph_positions", ctypes.POINTER(ctypes.c_int32 * 5),
-                 [vp, ctypes.POINTER(ctypes.c_uint)])]:
+                 [vp, ctypes.POINTER(ctypes.c_uint)]),
+                ("hb_unicode_funcs_get_default", vp, []),
+                ("hb_unicode_general_category", ctypes.c_int, [vp, u32]),
+                ("hb_unicode_combining_class", ctypes.c_int, [vp, u32]),
+                ("hb_unicode_script", u32, [vp, u32]), ("hb_unicode_mirroring", u32, [vp, u32]),
+                ("hb_unicode_decompose", ctypes.c_int, [vp, u32, ctypes.POINTER(u32), ctypes.POINTER(u32)]),
+                ("hb_unicode_compose", ctypes.c_int, [vp, u32, u32, ctypes.POINTER(u32)]),
+                ("hb_script_get_horizontal_direction", ctypes.c_int, [u32])]:
             fn = getattr(self.hb, name)
             fn.restype, fn.argtypes = res, args
         self.lib = vp()
@@ -834,17 +865,71 @@ class HarfBuzz:
         return out
 
 
-# HarfBuzz's general categories (`hb_unicode_general_category_t`, in enum order)
-HB_CATEGORIES = "Cc Cf Cn Co Cs Ll Lm Lo Lt Lu Mc Me Mn Nd Nl No Pc Pd Pe Pf Pi Po Ps Sc Sk Sm So Zl Zp Zs".split()
+class Unicode:
+    """HarfBuzz's Unicode 17 properties of every code point (Pillow's
+    libharfbuzz through ctypes, `hb_unicode_funcs_get_default`): general
+    category, combining class, canonical decomposition (one step), script
+    (ISO 15924) and mirror; each script's horizontal direction; and the
+    Extended_Pictographic set, which HarfBuzz has no call for: a code
+    point that takes the cluster of a ZWJ before it (`hb_set_unicode_props`
+    keeps it in the ZWJ's grapheme), other than the marks and the other
+    continuations `text_render.ShapedFont._continues` knows."""
+
+    def __init__(self, harfbuzz: Optional[HarfBuzz] = None):
+        self.harfbuzz = harfbuzz or HarfBuzz()
+        hb, ct = self.hb, self.ct = self.harfbuzz.hb, self.harfbuzz.ct
+        u32 = ct.c_uint32
+        self.funcs = funcs = hb.hb_unicode_funcs_get_default()
+        n = 0x110000
+        self.category = [CATEGORIES[hb.hb_unicode_general_category(funcs, cp)] for cp in range(n)]
+        self.ccc = np.array([hb.hb_unicode_combining_class(funcs, cp) for cp in range(n)], np.uint8)
+        tags = [hb.hb_unicode_script(funcs, cp) for cp in range(n)]
+        self.script = [t.to_bytes(4, "big").decode("ascii") for t in tags]
+        self.mirrors = [(cp, m) for cp in range(n) if (m := hb.hb_unicode_mirroring(funcs, cp)) != cp]
+        a, b = u32(), u32()
+        rows = []
+        for cp in range(n):
+            if hb.hb_unicode_decompose(funcs, cp, ct.byref(a), ct.byref(b)):
+                rows.append((cp, a.value, b.value))
+        self.decompositions = np.array(rows, np.int32).reshape(-1, 3)
+        steps = {cp: (x, y) if y else (x,) for cp, x, y in rows if cp not in HANGUL_SYLLABLES}
+        self.decomposition = steps.get
+        self.pictographic = self._pictographic()
+
+    def is_mark(self, cp: int) -> bool:
+        return self.category[cp][0] == "M"
+
+    def compose(self, a: int, b: int) -> Optional[int]:
+        """HarfBuzz's canonical composition of a pair (none into an excluded one)."""
+        ab = self.ct.c_uint32()
+        return ab.value if self.hb.hb_unicode_compose(self.funcs, a, b, self.ct.byref(ab)) else None
+
+    def direction(self, code: str) -> int:
+        """HarfBuzz's native direction of a script (`hb_script_get_horizontal_direction`)."""
+        d = self.hb.hb_script_get_horizontal_direction(self.hb.hb_script_from_string(code.encode(), -1))
+        return {4: LTR_SCRIPT, 5: RTL_SCRIPT}.get(d, NO_DIRECTION)
+
+    def _pictographic(self) -> np.ndarray:
+        """Whether each code point stays in a ZWJ's grapheme, probed in
+        HarfBuzz's clusters ("a", ZWJ, the code point, in lines of 4096)."""
+        hb = self.harfbuzz
+        out = np.zeros(0x110000, bool)
+        others = {ZWJ, *range(0x1F3FB, 0x1F400), *range(0xE0020, 0xE0080), 0xFF9E, 0xFF9F}
+        cps = [cp for cp in range(0x110000) if not self.is_mark(cp) and cp not in others]
+        for k in range(0, len(cps), 4096):
+            chunk = cps[k:k + 4096]
+            line = "".join("a\u200d" + chr(cp) for cp in chunk)
+            kept = {g[4] for g in hb.shape(line, 0, len(line), "Latn", False, PROBE_SIZE, clusters=True)}
+            out[[cp for i, cp in enumerate(chunk) if 3 * i + 2 not in kept]] = True
+        return out
 
 
-def _unicode_tables() -> Dict[str, np.ndarray]:
-    """FriBiDi's bidi types, bracket types and joining types and HarfBuzz's
-    mirrors and general categories (where Python's differ) of every code
-    point, from the libraries Pillow's raqm draws with (loaded here only)."""
+def _unicode_tables(uni: Unicode) -> Dict[str, np.ndarray]:
+    """FriBiDi's bidi types, bracket types and joining types of every code
+    point, from the libraries Pillow's raqm draws with (loaded here only),
+    beside HarfBuzz's (`uni`)."""
     import ctypes
 
-    import PIL
     from PIL import features
 
     n = 0x110000
@@ -870,64 +955,19 @@ def _unicode_tables() -> Dict[str, np.ndarray]:
     jraw = np.frombuffer(joins, np.uint8)
     jcode = {v: JOINING[fribidi.fribidi_get_joining_type_name(v).decode()] for v in np.unique(jraw).tolist()}
     joining = np.vectorize(jcode.get)(jraw).astype(np.int8)
-    hb_path = sorted((Path(PIL.__file__).parent.parent / "pillow.libs").glob("libharfbuzz*.so*"))
-    assert hb_path, "Pillow's own HarfBuzz (pillow.libs/libharfbuzz*.so*) draws the reference"
-    hb = ctypes.CDLL(str(hb_path[0]))
-    hb.hb_unicode_funcs_get_default.restype = ctypes.c_void_p
-    hb.hb_unicode_mirroring.restype = ctypes.c_uint32
-    hb.hb_unicode_mirroring.argtypes = (ctypes.c_void_p, ctypes.c_uint32)
-    hb.hb_unicode_general_category.restype = ctypes.c_int
-    hb.hb_unicode_general_category.argtypes = (ctypes.c_void_p, ctypes.c_uint32)
-    funcs = hb.hb_unicode_funcs_get_default()
-    mirrors = [(cp, m) for cp in range(n) if (m := hb.hb_unicode_mirroring(funcs, cp)) != cp]
-    general = [(cp, c) for cp in range(n) if unicodedata.category(chr(cp)) != "Cn"
-               and (c := HB_CATEGORIES[hb.hb_unicode_general_category(funcs, cp)]) != unicodedata.category(chr(cp))]
     libraries = [f"fribidi {features.version('fribidi')}", f"harfbuzz {features.version('harfbuzz')}",
                  f"raqm {features.version('raqm')}"]
     return {"bidi": bidi_types, "bidi_brackets": np.stack([has, ids], 1).astype(np.int32), "joining": joining,
-            "mirrors": mirrors, "general": general, "libraries": np.array(libraries)}
+            "libraries": np.array(libraries)}
 
 
-def _needs_a_mark(st, gdef_class) -> bool:
-    """Whether every rule of a class-based chain-context subtable has a
-    class of marks only in its context (it is reached only through a
-    mark: ayin's form before a Hebrew point, mirrored)."""
-    if st.Format != 2:
-        return False
-    defs = (st.BacktrackClassDef.classDefs, st.InputClassDef.classDefs, st.LookAheadClassDef.classDefs)
-
-    def marks_only(classdef, k):
-        members = [g for g, c in classdef.items() if c == k]
-        return k and members and all(gdef_class.get(g) == 3 for g in members)
-
-    rules = [r for cs in st.ChainSubClassSet if cs is not None for r in cs.ChainSubClassRule]
-    return all(any(marks_only(d, k) for d, seq in zip(defs, (r.Backtrack, r.Input, r.LookAhead)) for k in seq)
-               for r in rules)
-
-
-def _contextual(gsub, served, char_of, gdef_class) -> List[int]:
-    """The characters of the ccmp chain-context subtables whose coverage
-    holds no mark glyph and that a sequence without marks reaches: they
-    change form next to each other."""
-    out = set()
-    for t in served:
-        for li in _feature_lookups(gsub, t, ("ccmp",)).get("ccmp", []):
-            if gsub.LookupList.Lookup[li].LookupType != 6:
-                continue   # a ligature lookup (`_gsub_tables`)
-            for st in gsub.LookupList.Lookup[li].SubTable:
-                cov = st.Coverage.glyphs
-                if all(g in char_of and gdef_class.get(g) != 3 for g in cov) and not _needs_a_mark(st, gdef_class):
-                    out |= {char_of[g] for g in cov}
-    return sorted(out)
-
-
-def _compositions(cmap) -> List[tuple]:
+def _compositions(cmap, uni: Unicode) -> List[tuple]:
     """(base, mark, composite) for each composite the font maps: HarfBuzz
     composes only into one, never into a composition-excluded one."""
     out = []
     for cp in sorted(cmap):
-        d = _canonical_decomposition(cp)
-        if d and len(d) == 2 and unicodedata.normalize("NFC", chr(cp)) == chr(cp):
+        d = uni.decomposition(cp)
+        if d and len(d) == 2 and uni.compose(*d) == cp:
             out.append((*d, cp))
     return out
 
@@ -966,25 +1006,25 @@ def _token_arrays(p: _Pil, tokens: list, ft: "_FreeType", hmtx, scale: int) -> D
             f"masks_{p.size}": np.concatenate(flat), f"advances_{p.size}": np.array(adv, np.int32)}
 
 
-def _kerning(pils, gpos, gid, served, tags, chosen, script_of, token_of_glyph, letter) -> Dict[int, np.ndarray]:
-    """Each served tag's GPOS kern pairs, measured in a run of that tag
-    where the pair can meet -> per size, rows (tag, glyph a, glyph b, 1/64
-    px)."""
-    kern: Dict[int, list] = {size: [] for size in pils}
-    for t in served:
-        for ga, gb in _kern_pairs(gpos, _feature_lookups(gpos, t, ("kern",)).get("kern", [])):
-            a, b = token_of_glyph.get(gid[ga]), token_of_glyph.get(gid[gb])
-            if a is None or b is None:
-                continue
-            real = {script_of(ord(ch)) for ch in a + b} - {"Zyyy", "Zinh"}
-            if len(real) > 1 or any(chosen[s] != t for s in real) or (not real and t not in letter):
-                continue   # never in one run of this tag
-            ctx = letter.get(t, "")
-            for size, p in pils.items():
-                k = p.length(ctx + a + chr(ZWNJ) + b) - p.length(ctx + a) - p.length(b)
-                if k:
-                    kern[size].append((tags.index(t), gid[ga], gid[gb], k))
-    return {size: np.array(sorted(rows), np.int32).reshape(-1, 4) for size, rows in kern.items()}
+def _kerning(sizes, gpos, gid, served, tags, drawable, mark_glyphs, upem) -> Dict[str, np.ndarray]:
+    """The served tags' GPOS `kern` lookups: rows (tag, lookup), and per
+    size each lookup's pairs of `drawable` glyphs (the tokens' and what
+    the mirrored substitutions reach), rows (lookup, glyph a, glyph b,
+    1/64 px): HarfBuzz's `em_mult` of the value at the font's scale. A run
+    adds the values of its tag's lookups. No pair may hold one of
+    `mark_glyphs` (the mirror kerns a base with the glyph after it)."""
+    rows = [(tags.index(t), li) for t in served for li in _feature_lookups(gpos, t, ("kern",)).get("kern", [])]
+    kern: Dict[str, list] = {f"kern_{size}": [] for size in sizes}
+    for li in sorted({li for _, li in rows}):
+        for (ga, gb), v in _kern_values(gpos, li).items():
+            assert ga not in mark_glyphs and gb not in mark_glyphs, f"GPOS lookup {li}: a kern pair with a mark"
+            if gid[ga] in drawable and gid[gb] in drawable:
+                for size in sizes:
+                    mult = (_scales(size, upem)[1] << 16) // upem
+                    kern[f"kern_{size}"].append((li, gid[ga], gid[gb], (v * mult + 32768) >> 16))
+    out = {k: np.array(sorted(v), np.int32).reshape(-1, 4) for k, v in kern.items()}
+    out["kern_lookups"] = np.array(rows, np.int32).reshape(-1, 2)
+    return out
 
 
 # the runs that tell a code point X's type in a USE run's own joining: (context before, run, context after), K
@@ -1086,7 +1126,7 @@ def _probe_categories(font: ShapedFont, hb: HarfBuzz, cps, script: int, code: st
         groups: Dict[tuple, List[int]] = {}
         for cp in cps:
             own = own_glyph(cp)
-            key = (tuple(fits[cp]), _modified_ccc(cp), _canonical_decomposition(cp), cp in font.cmap,
+            key = (tuple(fits[cp]), font.modified_ccc(cp), font.decomposition(cp), cp in font.cmap,
                    tuple(glyphs(line, own) for line in lines_of(cp)))
             groups.setdefault(key, []).append(cp)
         out: Dict[int, List[int]] = {}
@@ -1163,10 +1203,10 @@ def _probe_categories(font: ShapedFont, hb: HarfBuzz, cps, script: int, code: st
 def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     """Make the atlas (see the module docstring) and return its path."""
     from fontTools.ttLib import TTFont
-    from fontTools.unicodedata import Scripts, script_name
+    from fontTools.unicodedata import script_name
 
-    pils = {size: _Pil(size) for size in (font_size(d) for d in ATLAS_DPIS)}
-    pil = pils[min(pils)]   # the probe's size
+    pils = {size: _Pil(size) for size in ATLAS_SIZES}
+    pil = pils[PROBE_SIZE]
     tt = TTFont(pil.font.path)
     assert all(t.format != 14 for t in tt["cmap"].tables), "a cmap 14 (variation sequences) is not mirrored"
     cmap_names = tt.getBestCmap()
@@ -1176,12 +1216,12 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     assert 0x2011 in cmap, "U+2011 would take U+2010's glyph: not mirrored"
     assert getattr(gdef, "MarkGlyphSetsDef", None) is None, "GDEF mark filtering sets are not mirrored"
 
-    # scripts (Unicode 17, as HarfBuzz 12 has them) and their OpenType tags
-    codes = sorted(set(Scripts.VALUES) | {"Zyyy", "Zinh"})
-    script_starts = np.array(Scripts.RANGES, np.int32)
-    script_values = np.array([codes.index(v) for v in Scripts.VALUES], np.int16)
-    all_scripts = script_values[np.searchsorted(script_starts, np.arange(0x110000), side="right") - 1]
-    script_of = [codes[v] for v in all_scripts.tolist()].__getitem__
+    # HarfBuzz's Unicode 17 properties; the scripts and their OpenType tags
+    hb = HarfBuzz(pil.font.path)
+    props = Unicode(hb)
+    codes = sorted(set(props.script) | {"Zyyy", "Zinh"})
+    script_starts, script_values = _ranges(np.array([codes.index(c) for c in props.script], np.int16))
+    script_of = props.script.__getitem__
     font_tags = {s.ScriptTag for s in gpos.ScriptList.ScriptRecord}
     assert font_tags == {s.ScriptTag for s in gsub.ScriptList.ScriptRecord}
     assert "thai" in font_tags, "without a thai tag HarfBuzz falls back to Thai PUA shaping, which is not mirrored"
@@ -1195,18 +1235,17 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         shapers[c] == USE_SHAPER and c in JOINING_SCRIPTS))}
     gdef_class = gdef.GlyphClassDef.classDefs
     _check_substitutions(gsub, served, joining_tags)
-    uni = _unicode_tables()
-    general = dict(uni["general"])   # HarfBuzz's general category where Python's differs (U+1171E: Mc)
+    uni = _unicode_tables(props)
     # HarfBuzz's joining type of a mark ArabicShaping.txt does not list is T (`get_joining_type`);
     # FriBiDi's Unicode 10 data leaves the later marks, and the enclosing ones, non-joining
-    categories = [general.get(cp) or unicodedata.category(chr(cp)) for cp in range(0x110000)]
+    categories = props.category
     is_mark = np.array([c in ("Mn", "Me") for c in categories])
     uni["joining"][is_mark] = arabic.T
     # and U for a spacing mark that was nonspacing in Unicode 10 (U+1734): HarfBuzz gives T to Mn, Me and Cf only
     spacing = np.array([c == "Mc" for c in categories])
     uni["joining"][spacing & (uni["joining"] == arabic.T)] = arabic.U
 
-    classes, spaces = _classify(cmap, script_of, refused)
+    classes, spaces = _classify(cmap, script_of, refused, props)
     for cp in range(0x110000):   # the letters of the other joining scripts, as HarfBuzz joins to them, and the
         # Arabic letters newer than FriBiDi's data (FriBiDi leaves them non-joining; HarfBuzz's table has them)
         if (classes[cp] in (GLYPH, NOTDEF) and categories[cp][0] == "L"
@@ -1229,13 +1268,7 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     known = set(cp_of_glyph) | set(lig_glyphs)
     form_strings, form_glyphs = _form_strings(forms, cp_of_glyph, uni["joining"], known)
     known |= set(form_glyphs)
-    char_of = {n: cp for cp, n in sorted(cmap_names.items(), reverse=True)}
-    contextual = _contextual(gsub, served, char_of, gdef_class)
-    skipped_chains = {li for t in served for li in _feature_lookups(gsub, t, ("ccmp",)).get("ccmp", [])
-                      if gsub.LookupList.Lookup[li].LookupType == 6
-                      and all(char_of.get(g) in contextual for st in gsub.LookupList.Lookup[li].SubTable
-                              for g in st.Coverage.glyphs)}
-    stage_rows = _gsub_stages(gsub, served, tags, skipped_chains, joining_tags)
+    stage_rows = _gsub_stages(gsub, served, tags, joining_tags)
     gsub_arrays = _gsub_tables(gsub, gid, [li for _, _, li in stage_rows])
     # the glyphs the mirrored substitutions reach from the tokens' glyphs;
     # a ligature whose components they never reach is dropped
@@ -1251,8 +1284,8 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     extras = sorted(reach - known)
     # a mark alone follows a ZWSP (no dotted circle); one with a canonical decomposition, which PIL would
     # draw decomposed there, is its glyph (a variation selector's cluster keeps it whole)
-    strings = [gid[cmap_names[cp]] if _is_mark(cp) and _canonical_decomposition(cp) else
-               ("\u200b" if _is_mark(cp) else "") + chr(cp) for cp in chars] + ligatures + form_strings
+    strings = [gid[cmap_names[cp]] if props.is_mark(cp) and props.decomposition(cp) else
+               ("\u200b" if props.is_mark(cp) else "") + chr(cp) for cp in chars] + ligatures + form_strings
     tokens = strings + extras + [chr(NOTDEF_PROBE), ""]
     space = gid[cmap_names[0x20]]
     glyphs = ([gid[cmap_names[cp]] for cp in drawn] + [space] * len(spaces) + lig_glyphs + form_glyphs + extras
@@ -1277,31 +1310,31 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         "script_starts": script_starts,
         "script_values": script_values,
         "scripts": np.array(codes),
-        "script_names": np.array([script_name(c) for c in codes]),
+        "script_names": np.array([script_name(c, default=c) for c in codes]),
         "tags": np.array(tags),
         "script_tags": np.array([tags.index(chosen[c]) for c in codes], np.int8),
         "script_shapers": np.array([shapers[c] for c in codes], np.int8),
-        "compose": np.array(_compositions(cmap), np.int32).reshape(-1, 3),
-        "contextual": np.array(contextual, np.int32),
-        "brackets": np.array(_probe_brackets(pil, script_of), np.int32).reshape(-1, 2),
+        "compose": np.array(_compositions(cmap, props), np.int32).reshape(-1, 3),
+        "brackets": np.array(_probe_brackets(pil, script_of, categories), np.int32).reshape(-1, 2),
         "forms": np.array(form_strings, dtype=str),
         "bidi_brackets": uni["bidi_brackets"],
-        "mirror": np.array([(c, m) for c, m in uni["mirrors"] if m in cmap], np.int32).reshape(-1, 2),
-        "script_directions": np.array([RTL_SCRIPT if c in RTL_SCRIPTS else NO_DIRECTION if c in UNDIRECTED_SCRIPTS
-                                       else LTR_SCRIPT for c in codes], np.int8),
+        "mirror": np.array([(c, m) for c, m in props.mirrors if m in cmap], np.int32).reshape(-1, 2),
+        "script_directions": np.array([props.direction(c) for c in codes], np.int8),
         "forms_substs": np.array(forms, np.int32).reshape(-1, 4),
-        "general_cps": np.array(sorted(general), np.int32),
-        "general_categories": np.array([general[cp] for cp in sorted(general)]),
+        "decompositions": props.decompositions,
         "gsub_lookups": np.array(stage_rows, np.int32).reshape(-1, 3),
         "libraries": uni["libraries"],
         **gsub_arrays,
         **_mark_positioning(gpos, gid, served, tags, sorted(pils), tt["head"].unitsPerEm),
     }
     arrays["bidi_starts"], arrays["bidi_values"] = _ranges(uni["bidi"])
+    arrays["category_starts"], arrays["category_values"] = _ranges(
+        np.array([CATEGORIES.index(c) for c in categories], np.int8))
+    arrays["ccc_starts"], arrays["ccc_values"] = _ranges(props.ccc)
+    arrays["pictographic_starts"], arrays["pictographic_values"] = _ranges(props.pictographic.astype(np.int8))
     arrays["joining_starts"], arrays["joining_values"] = _ranges(uni["joining"])
     # the own joining of a run that HarfBuzz shapes with USE and joining (N'Ko), probed for everything such a
     # run may hold (a code point that decomposes is shaped as its parts)
-    hb = HarfBuzz(pil.font.path)
     use_joining = np.full(0x110000, arabic.U, np.int8)
     for code in sorted(c for c in codes if shapers[c] == USE_SHAPER and chosen[c] in joining_tags):
         tag = tags.index(chosen[code])
@@ -1310,7 +1343,7 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
         letter = next(chr(cp) for cp in drawn if script_of(cp) == code and gid[cmap_names[cp]] in formed)
         cands = [cp for cp in np.flatnonzero(np.isin(classes, (GLYPH, NOTDEF, COMPOSES, HIDDEN))).tolist()
                  if (script_of(cp) in (code, "Zyyy", "Zinh") or categories[cp] == "Mn") and cp != 0x0A
-                 and not _canonical_decomposition(cp)]
+                 and not props.decomposition(cp)]
         for cp, t in _probe_use_joining(hb, uni["joining"], form_action, cands, code, letter).items():
             use_joining[cp] = t
     arrays["use_joining_starts"], arrays["use_joining_values"] = _ranges(use_joining)
@@ -1320,7 +1353,7 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     # starts a run of its script)
     hidden_cps = [cp for cp in np.flatnonzero(classes == HIDDEN).tolist()
                   if not bidi.needs_bidi(uni["bidi"][[0x41, cp, 0x56]].tolist())
-                  and (script_of(cp) in ("Zyyy", "Zinh") or unicodedata.category(chr(cp)) == "Mn")]
+                  and (script_of(cp) in ("Zyyy", "Zinh") or categories[cp] == "Mn")]
     arrays["lig_blockers"] = np.array([cp for cp in hidden_cps if not pil.draws(f"f{chr(cp)}i", "fi")], np.int32)
     av = pil.length("AV")
     assert all(pil.length(f"A{chr(cp)}V") == av for cp in hidden_cps), "a default-ignorable stops kerning"
@@ -1339,21 +1372,9 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
             arrays.update(_token_arrays(p, tokens, ft, hmtx, _scales(size, tt["head"].unitsPerEm)[0]))
         finally:
             ft.close()
-    token_of_glyph = {}
-    for s, g in zip(strings[:len(drawn)] + ligatures, glyphs[:len(drawn)] + lig_glyphs):
-        if isinstance(s, str):
-            token_of_glyph.setdefault(g, s)
-    letter = {"DFLT": ""}   # a letter that starts a run of each tag (a Common-only line is DFLT)
-    for cp in drawn:
-        if unicodedata.category(chr(cp))[0] == "L":
-            letter.setdefault(chosen[script_of(cp)], chr(cp))
-    mark_glyphs = {g for g, c in gdef_class.items() if c == 3} | {cmap_names[cp] for cp in drawn if _is_mark(cp)}
-    for t in served:
-        lookups = _feature_lookups(gpos, t, ("kern",)).get("kern", [])
-        assert not any(a in mark_glyphs or b in mark_glyphs for a, b in _kern_pairs(gpos, lookups)), \
-            f"{t}: a kern pair with a mark (the mirror kerns a base with the glyph after it)"
-    kern = _kerning(pils, gpos, gid, served, tags, chosen, script_of, token_of_glyph, letter)
-    arrays.update({f"kern_{size}": rows for size, rows in kern.items()})
+    mark_glyphs = {g for g, c in gdef_class.items() if c == 3} | {cmap_names[cp] for cp in drawn if props.is_mark(cp)}
+    arrays.update(_kerning(sorted(pils), gpos, gid, served, tags, set(glyphs) | reach, mark_glyphs,
+                           tt["head"].unitsPerEm))
 
     # the probe: every code point the rules let through, drawn in chunks
     arrays["class_starts"], arrays["class_values"] = _ranges(classes)
@@ -1385,8 +1406,11 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     marks_todo = [cp for cp in todo if font.is_mark(cp) and classes[cp] != HIDDEN and script_of(cp) != "Hang"]
     todo = [cp for cp in todo if cp != 0x0A and not font.is_mark(cp)]   # marks are probed on bases below
     misdrawn: List[int] = []
-    for i in range(0, len(todo), PROBE_CHUNK):
-        _probe(font, pil, _chars(todo[i:i + PROBE_CHUNK]), misdrawn)
+    # at the probe's size and at the largest, where hinting and rounding differ most
+    for size in (PROBE_SIZE, max(ATLAS_SIZES)):
+        sized = font if size == pil.size else ShapedFont(arrays, size)
+        for chunk in _chunks(todo, [categories[cp] in ("Cn", "Co") for cp in todo]):
+            _probe(sized, pils[size], _chars(chunk), misdrawn)
     # the Common characters in right-to-left runs: mirrored, reversed, a
     # Hebrew run's (between two Hebrew letters) and a Latin one's
     common = [cp for cp in todo if script_of(cp) in ("Zyyy", "Zinh") and cp not in misdrawn]
@@ -1413,12 +1437,17 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
             if not same:
                 misdrawn.append(cp)
                 break
-    # the marks, at both sizes: on their bases, stacked, in the ccmp contexts and the ligatures
+    # the marks, at every size: on their bases, stacked, in the ccmp contexts and the ligatures; the tone
+    # letters in sequences of two and three, and across a default-ignorable and a mark
     mark_tags = sorted({tags[tag] for tag in arrays["mark_lookups"][:, 0].tolist()})
-    units = _mark_units(gsub, gpos, cmap_names, drawn, marks_todo, script_of, chosen, mark_tags, skipped_chains)
+    units = _mark_units(gsub, gpos, cmap_names, drawn, marks_todo, script_of, chosen, mark_tags, props)
     # every mark on a letter of each run whose shaper reads its syllable category (Khmer, Tifinagh, N'Ko)
     units["syllabic"] = [(base + chr(m), m) for base in ("\u1780", "\u2d5c", "\u07de") for m in marks_todo
                          if script_of(m) not in ("Khmr", "Tfng", "Nkoo")]
+    units["tone"] = [(chr(a) + chr(b) + " ", b) for a in TONE_LETTERS for b in TONE_LETTERS]
+    units["tone"] += [(chr(a) + chr(b) + chr(c) + " ", c) for a in TONE_LETTERS for b in TONE_LETTERS
+                      for c in TONE_LETTERS]
+    units["tone"] += [(f"\u02e5{chr(x)}\u02e9 ", 0x02E9) for x in (0x200B, 0x200C, 0x200D, 0xAD, 0x034F, 0x0301)]
     for size, p in pils.items():
         sized = font if size == pil.size else ShapedFont(arrays, size)
         for group in units.values():
@@ -1427,5 +1456,5 @@ def write_glyph_atlas(path: Path = ATLAS_PATH) -> Path:
     classes[misdrawn] = MISDRAWN
     arrays["class_starts"], arrays["class_values"] = _ranges(classes)
     np.savez_compressed(path, **arrays)
-    load_font.cache_clear()
+    _load_size.cache_clear()
     return Path(path)

@@ -207,5 +207,5 @@ def _skippable(item: Item) -> bool:
 
 def _roundf(v: int) -> int:
     """HarfBuzz's `roundf` (`_hb_roundf`: floor(x + 0.5), halves upwards) of
-    an anchor difference held in 1/16 of a 26.6 unit."""
-    return (v + 8) >> 4
+    an anchor difference held in 1/32 of a 26.6 unit."""
+    return (v + 16) >> 5

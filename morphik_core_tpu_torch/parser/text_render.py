@@ -6,25 +6,29 @@ The glyphs come from a committed atlas, `glyphs_dejavu_sans.npz`, that
 `glyph_atlas.write_glyph_atlas` makes with PIL and fontTools from
 DejaVuSans.ttf (on a machine with both and the font; nothing on the
 serving path imports it). For
-each font size the reference draws (18 px at 150 dpi, 12 px at 100 dpi) it
+each font size of `ATLAS_SIZES` (the reference draws at `max(10, dpi //
+8)` px: 18 px at 150 dpi, 12 px at 100 dpi, 37 px at 300 dpi) it
 holds every token's mask as PIL draws it alone at an integer origin (with
 its offset from the origin) and its advance in 1/64 px. A token is a
 character of the font's cmap (combining marks too), a ligature of its
 `liga` feature, an Arabic form glyph outside the cmap, a glyph outside the
 cmap that a ccmp or mark-ligature substitution makes (a capital's accent,
-a dotless i, shadda with a haraka), the `.notdef` box, the invisible
-glyph of a default-ignorable character, or a space the font lacks (drawn
-as its space, HarfBuzz's space fallback). Beside them, size for size, the
-GPOS `kern` pairs as PIL measures them inside a run of each script that
-can hold the pair, and the GPOS mark anchors; the GDEF classes; the GSUB
-lookups the mirror applies; and, for every code point, its class (`GLYPH`
-... `MISDRAWN` below), its script (ISO 15924), its FriBiDi bidi type and
-bracket, its HarfBuzz mirror, its joining type (HarfBuzz's) and the one
-HarfBuzz's USE shaper joins N'Ko on, and, for the brackets that raqm
-pairs, its partner; HarfBuzz's general category where Unicode 17 differs
-from Python's (U+1171E is a spacing mark there); and the syllable
-category HarfBuzz reads for a nonspacing mark of another script in a USE
-or a Khmer run.
+a dotless i, shadda with a haraka, a tone letter's contour form), the
+`.notdef` box, the invisible glyph of a default-ignorable character, or a
+space the font lacks (drawn as its space, HarfBuzz's space fallback).
+Beside them, size for size, the GPOS `kern` pairs as PIL measures them
+inside a run of each script that can hold the pair, and the GPOS mark
+anchors; the GDEF classes; the GSUB lookups the mirror applies; and, for
+every code point, its class (`GLYPH` ... `MISDRAWN` below), HarfBuzz's
+Unicode 17 properties (script, general category, combining class,
+canonical decomposition, and whether it is Extended_Pictographic, as
+HarfBuzz's grapheme clusters show it), its FriBiDi bidi type and bracket,
+its HarfBuzz mirror, its joining type (HarfBuzz's) and the one HarfBuzz's
+USE shaper joins N'Ko on, and, for the brackets that raqm pairs, its
+partner; and the syllable category HarfBuzz reads for a nonspacing mark
+of another script in a USE or a Khmer run. The render path reads a code
+point's Unicode properties from the atlas only, never from the Python it
+runs on.
 
 The reference's layout is Pillow's raqm (FriBiDi + HarfBuzz), mirrored
 here for every shaper HarfBuzz 12 picks under the font's script tags
@@ -49,8 +53,12 @@ Hangul (`hangul`) and USE for Tifinagh and N'Ko (`use`):
   maps becomes its mirror (`(` draws `)`, `<` draws `>`, `«` draws `»`);
 - HarfBuzz's native direction: a run whose direction is not its script's
   (Common punctuation of a Hebrew run at an even level, of a Latin run at
-  an odd one) is shaped with its graphemes reversed; a run of Arabic
+  an odd one) is shaped with its graphemes reversed (an
+  Extended_Pictographic character after a ZWJ stays in the ZWJ's
+  grapheme, so a ZWJ emoji sequence keeps its order); a run of Arabic
   script with digits and no letters is left-to-right;
+- HarfBuzz's input: a lone surrogate is U+FFFD (its bidi type and script
+  are its own);
 - the shaper's text preprocessing: Thai / Lao's SARA AM splits and its
   NIKHAHIT moves before the tone marks; Hangul's tone marks move in
   front of a jamo syllable or get a dotted circle;
@@ -70,7 +78,9 @@ Hangul (`hangul`) and USE for Tifinagh and N'Ko (`use`):
   atlas holds no repha or pre-base vowel of a USE script), and N'Ko's
   joining (`arabic.use_joining_actions`);
 - GSUB: the ccmp chain-context lookups (i and j dotless before a top
-  mark, a capital's marks in their case forms, ayin before a point), the
+  mark, a capital's marks in their case forms, ayin before a point, the
+  tone letters' contour forms: each takes the form of the letter after
+  it, and the last of a sequence a stem), the
   ligature lookups (Hebrew's yod with hiriq, `liga`), in an Arabic run
   `arabic`'s joining, forms and ligatures (the mark pairs, lam-alef over
   its marks, a haraka on a space or tatweel), and in an N'Ko run its
@@ -95,12 +105,10 @@ Hangul (`hangul`) and USE for Tifinagh and N'Ko (`use`):
   (`draw_bitmap`).
 
 What the mirror cannot draw raises `UnsupportedText` (ROADMAP Queue 1
-item 3b-ii): a code point unassigned in Python's Unicode 15.0 (those of
-Unicode 16 and 17 among them), a sequence of the font's contextual tone
-letters, the two bidi cases `bidi.refusal` names, a ZWJ before an
-Extended_Pictographic character in a run shaped against its direction,
-a code point the atlas's probe finds drawn otherwise (none in the
-committed atlas), and a dpi whose font size the atlas lacks. The page
+item 3b-ii): a dpi whose font size the atlas lacks (`load_font`). Two
+guards stay for an atlas that would need them (the committed one needs
+neither): a code point the atlas's probe finds drawn otherwise
+(`MISDRAWN`), and a substitution into a glyph the atlas lacks. The page
 layout (margin, line height, `max_chars` wrapping, the half line after an
 empty line, "(no extractable text)") is `_render_text_page`'s. The atlas
 assumes HarfBuzz's default language system (a C or English locale): a
@@ -121,18 +129,22 @@ from morphik_core_tpu_torch.parser import arabic, bidi, hangul, khmer, marks, th
 from morphik_core_tpu_torch.parser.marks import Item
 
 ATLAS_PATH = Path(__file__).with_name("glyphs_dejavu_sans.npz")
-ATLAS_DPIS = (150, 100)
+# the font sizes the atlas holds: dpi 72-87 (10 px), 96-103, 120-127, 144-151, 200-207 and 296-303
+ATLAS_SIZES = (10, 12, 15, 18, 25, 37)
 FONT_NAME = "DejaVuSans.ttf"
 ROADMAP_ITEM = "ROADMAP Queue 1 item 3b-ii"
 
-# a code point's class in the atlas; the classes from SHAPER on are refused
-GLYPH, NOTDEF, COMPOSES, HIDDEN, SHAPER, UNASSIGNED, MISDRAWN = range(7)
+# a code point's class in the atlas (COMPOSES: drawn as other code points the cmap maps, its decomposition's,
+# the space of a fallback space, U+FFFD for a lone surrogate); the classes from SHAPER on are refused
+GLYPH, NOTDEF, COMPOSES, HIDDEN, SHAPER, MISDRAWN = range(6)
 _REFUSAL = {
     SHAPER: "is shaped by a HarfBuzz shaper that the port does not mirror for its script under the font's own "
             "OpenType tag",
-    UNASSIGNED: f"is unassigned in Unicode {unicodedata.unidata_version}, a surrogate or a noncharacter",
     MISDRAWN: "is drawn by PIL otherwise than the atlas predicts",
 }
+# HarfBuzz's general categories (`hb_unicode_general_category_t`, in enum order)
+CATEGORIES = "Cc Cf Cn Co Cs Ll Lm Lo Lt Lu Mc Me Mn Nd Nl No Pc Pd Pe Pf Pi Po Ps Sc Sk Sm So Zl Zp Zs".split()
+HANGUL_SYLLABLES = range(0xAC00, 0xD7A4)
 DOTTED_CIRCLE = 0x25CC
 ZWJ, ZWNJ, CGJ = 0x200D, 0x200C, 0x034F
 # the shapers HarfBuzz picks (`hb_ot_shaper_categorize`); the port mirrors those
@@ -168,19 +180,13 @@ def font_size(dpi: int) -> int:
     return max(10, dpi // 8)
 
 
-def _is_mark(cp: int) -> bool:
-    """Whether a code point is a mark in Python's Unicode data (the atlas
-    generator's test; `ShapedFont.is_mark` reads HarfBuzz's)."""
-    return unicodedata.category(chr(cp))[0] == "M"
-
-
-def _modified_ccc(cp: int) -> int:
-    """HarfBuzz's modified combining class of a code point."""
+def modified_ccc(cp: int, ccc: int) -> int:
+    """HarfBuzz's modified combining class of a code point of combining
+    class `ccc`."""
     if cp in (0x1A60, 0x0FC6):
         return 254
     if cp == 0x0F39:
         return 127
-    ccc = unicodedata.combining(chr(cp))
     return _MODIFIED_CCC.get(ccc, ccc)
 
 
@@ -253,22 +259,13 @@ def _is_variation_selector(cp: int) -> bool:
     return 0xFE00 <= cp <= 0xFE0F or 0xE0100 <= cp <= 0xE01EF
 
 
-def _canonical_decomposition(cp: int) -> Optional[Tuple[int, ...]]:
-    """One step of `cp`'s canonical decomposition (1 or 2 code points), or
-    None. Hangul syllables are left out: the font has no jamo to decompose
-    them into."""
-    d = unicodedata.decomposition(chr(cp))
-    if not d or d.startswith("<"):
-        return None
-    return tuple(int(x, 16) for x in d.split())
+def _khmer_decomposition(cp: int, canonical: Callable[[int], Optional[Tuple[int, ...]]]) -> Optional[Tuple[int, ...]]:
+    """`decompose_khmer`: the split vowels, then `canonical` (Unicode's)."""
+    return khmer.SPLITS.get(cp) or canonical(cp)
 
 
-def _khmer_decomposition(cp: int) -> Optional[Tuple[int, ...]]:
-    """`decompose_khmer`: the split vowels, then Unicode's."""
-    return khmer.SPLITS.get(cp) or _canonical_decomposition(cp)
-
-
-def decompose(cp: int, shortest: bool, cmap, step=_canonical_decomposition) -> Optional[List[int]]:
+def decompose(cp: int, shortest: bool, cmap, step: Callable[[int], Optional[Tuple[int, ...]]]
+              ) -> Optional[List[int]]:
     """HarfBuzz's `decompose`: `cp` as code points of `cmap` (the font's),
     or None; `step` is the shaper's one-step decomposition."""
     d = step(cp)
@@ -298,6 +295,12 @@ def _composite(places: Sequence[Tuple[int, int, np.ndarray]]) -> Tuple[np.ndarra
         t = reg * (255 - m) + 128
         reg[...] = m + (((t >> 8) + t) >> 8)
     return out.astype(np.uint8), x0, y0
+
+
+def _at(ranges: Tuple[np.ndarray, np.ndarray], cp: int) -> int:
+    """The value of `cp` in a table of (starts, values) ranges."""
+    starts, values = ranges
+    return int(values[np.searchsorted(starts, cp, side="right") - 1])
 
 
 def _unpack_masks(shapes: np.ndarray, flat: np.ndarray) -> List[np.ndarray]:
@@ -333,6 +336,9 @@ class ShapedFont:
     """One font size of the DejaVuSans atlas, laid out as raqm lays it out."""
 
     def __init__(self, z, size: int):
+        z_category = (z["category_starts"], z["category_values"])
+        z_ccc = (z["ccc_starts"], z["ccc_values"])
+        z_pictographic = (z["pictographic_starts"], z["pictographic_values"])
         chars = z["chars"].tolist()
         self.size = size
         self.token_of = {c: i for i, c in enumerate(chars)}
@@ -346,7 +352,13 @@ class ShapedFont:
         self.masks = _unpack_masks(z[f"shapes_{size}"], z[f"masks_{size}"])
         self.offsets = z[f"offsets_{size}"].tolist()
         self.advances = z[f"advances_{size}"].tolist()
-        self.kern = {(int(t), int(a), int(b)): int(v) for t, a, b, v in z[f"kern_{size}"]}
+        pairs: Dict[int, list] = {}   # each GPOS kern lookup's pairs; a tag's run adds its lookups' values
+        for lookup, a, b, v in z[f"kern_{size}"].tolist():
+            pairs.setdefault(lookup, []).append((a, b, v))
+        self.kern: Dict[Tuple[int, int, int], int] = {}
+        for tag, lookup in z["kern_lookups"].tolist():
+            for a, b, v in pairs.get(lookup, ()):
+                self.kern[tag, a, b] = self.kern.get((tag, a, b), 0) + v
         self.marks = marks.MarkTables(z, size)
         self._gsub_tables(z)
         self.class_starts = z["class_starts"]
@@ -366,7 +378,6 @@ class ShapedFont:
             self.brackets[o], self.brackets[c] = 2 * k, 2 * k + 1
         self.compose = {(int(a), int(b)): int(c) for a, b, c in z["compose"]}
         self.lig_blockers = set(z["lig_blockers"].tolist())
-        self.contextual = set(z["contextual"].tolist())
         # bidi: FriBiDi's types and brackets, HarfBuzz's mirrors, the native directions
         self.bidi_starts, self.bidi_values = z["bidi_starts"], z["bidi_values"]
         self.bidi_brackets = dict(z["bidi_brackets"].tolist())
@@ -379,12 +390,17 @@ class ShapedFont:
         self.forms: Dict[int, Dict[int, Dict[int, int]]] = {}
         for tag, action, a, b in z["forms_substs"].tolist():
             self.forms.setdefault(tag, {}).setdefault(action, {})[a] = b
-        # HarfBuzz's general categories where Python's differ; the syllable categories of the other
-        # scripts' marks in a USE and a Khmer run
-        self.general = {int(cp): str(c) for cp, c in zip(z["general_cps"], z["general_categories"])}
-        # `category(cp)`: HarfBuzz's general category; `is_mark(cp)`: whether it is a mark
-        self.category = _Memo(lambda cp: self.general.get(cp) or unicodedata.category(chr(cp))).__getitem__
+        # HarfBuzz's Unicode properties: `category(cp)` (general category), `is_mark(cp)`,
+        # `modified_ccc(cp)`, `decomposition(cp)` (one canonical step), `pictographic(cp)`
+        # (Extended_Pictographic); the syllable categories of the other scripts' marks in a USE and a Khmer run
+        self.category = _Memo(lambda cp: CATEGORIES[_at(z_category, cp)]).__getitem__
         self.is_mark = _Memo(lambda cp: self.category(cp)[0] == "M").__getitem__
+        self.modified_ccc = _Memo(lambda cp: modified_ccc(cp, _at(z_ccc, cp))).__getitem__
+        self.decompositions = {cp: (a, b) if b else (a,) for cp, a, b in z["decompositions"].tolist()
+                               if cp not in HANGUL_SYLLABLES}
+        self.decomposition = self.decompositions.get
+        self.khmer_decomposition = functools.partial(_khmer_decomposition, canonical=self.decomposition)
+        self.pictographic = _Memo(lambda cp: bool(_at(z_pictographic, cp))).__getitem__
         self.use_categories = dict(z["use_categories"].tolist())
         self.khmer_categories = dict(z["khmer_categories"].tolist())
         self.stage_blockers = [self.lig_blockers, set(z["rlig_blockers"].tolist()),
@@ -491,8 +507,9 @@ class ShapedFont:
         mark, drawn only where it composes)."""
         return self.hidden if cp in self.hidden_cps else self.token_of.get(cp)
 
-    def _glyphs(self, cp: int, shortest: bool, step=_canonical_decomposition) -> List[Tuple[int, Optional[int]]]:
-        """HarfBuzz's `decompose_current_character` -> (code point, token)s."""
+    def _glyphs(self, cp: int, shortest: bool, step) -> List[Tuple[int, Optional[int]]]:
+        """HarfBuzz's `decompose_current_character` -> (code point, token)s;
+        `step`: the shaper's one-step decomposition."""
         if shortest and cp in self.cmap:
             return [(cp, self._token(cp))]
         parts = decompose(cp, shortest, self.cmap, step)
@@ -530,7 +547,7 @@ class ShapedFont:
         mode = _NORMALIZATION.get(shaper, NORMALIZE_COMPOSED)
         compose = mode != NORMALIZE_NONE
         might_short_circuit = mode != NORMALIZE_NO_SHORT_CIRCUIT
-        step = _khmer_decomposition if shaper == KHMER_SHAPER else _canonical_decomposition
+        step = self.khmer_decomposition if shaper == KHMER_SHAPER else self.decomposition
         out: List[Tuple[int, Optional[int]]] = []
         out_props: List[int] = []
         all_simple = True
@@ -554,7 +571,7 @@ class ShapedFont:
             i = j
         if all_simple:
             return [(c, t, False) for c, t in out], out_cl
-        ccc = [_modified_ccc(p) if self.is_mark(p) else 0 for p in out_props]
+        ccc = [self.modified_ccc(p) if self.is_mark(p) else 0 for p in out_props]
         i = 0
         while i < len(out):   # canonical order: each run of marks sorted by combining class
             if not ccc[i]:
@@ -612,10 +629,11 @@ class ShapedFont:
         """Whether `cps[i]` continues the grapheme before it (HarfBuzz's
         `hb_set_unicode_props`: marks, ZWJ, emoji modifiers, a second
         regional indicator, TAG characters and the halfwidth sound marks;
-        an Extended_Pictographic character after a ZWJ too, which
-        `_reverse_graphemes` refuses rather than know)."""
+        an Extended_Pictographic character after a ZWJ too)."""
         cp = cps[i]
         if self.is_mark(cp) or cp == ZWJ or 0x1F3FB <= cp <= 0x1F3FF or 0xE0020 <= cp <= 0xE007F or 0xFF9E <= cp <= 0xFF9F:
+            return True
+        if i and cps[i - 1] == ZWJ and self.pictographic(cp):
             return True
         if 0x1F1E6 <= cp <= 0x1F1FF and i and 0x1F1E6 <= cps[i - 1] <= 0x1F1FF:
             k = i - 1   # a regional indicator continues one that starts a pair
@@ -626,13 +644,6 @@ class ShapedFont:
 
     def _reverse_graphemes(self, cps: Sequence[int]) -> List[int]:
         """The order of `cps` with their graphemes reversed (indices)."""
-        for i in range(1, len(cps) - 1):   # no letter, mark or digit but U+2139 is Extended_Pictographic
-            nxt = cps[i + 1]
-            if (cps[i] == ZWJ and nxt not in self.hidden_cps
-                    and (self.category(nxt)[0] not in "LMN" or nxt == 0x2139)):
-                raise self.refusal(nxt, "follows a ZWJ in a run shaped against its direction: HarfBuzz keeps an "
-                                        "Extended_Pictographic character there in the ZWJ's grapheme, and the atlas "
-                                        "has no emoji properties")
         groups: List[List[int]] = []
         for i in range(len(cps)):
             if groups and self._continues(cps, i):
@@ -662,17 +673,10 @@ class ShapedFont:
         return native == RTL_SCRIPT
 
     def _checked(self, items: List[Tuple[int, Optional[int], bool]]) -> None:
-        prev = None
         for cp, tok, _ in items:
             if tok is None:
                 cls = self.classes([cp])[0]
                 raise self.refusal(cp, _REFUSAL.get(cls, "takes a glyph the atlas does not hold"))
-            if tok == self.hidden:
-                continue
-            if prev is not None and prev in self.contextual and cp in self.contextual:
-                raise self.refusal(cp, f"follows U+{prev:04X}: tone letters in sequence take the font's contextual "
-                                       "(ccmp) contour forms")
-            prev = cp
 
     def _zero_width(self, cp: int) -> bool:
         """Whether the font maps `cp` to a glyph without advance."""
@@ -764,7 +768,7 @@ class ShapedFont:
         preprocessing, which gives None). The run at the line's start,
         when it starts with a mark, gets HarfBuzz's dotted circle in
         front."""
-        cps = list(line[start:end])
+        cps = [0xFFFD if 0xD800 <= cp < 0xE000 else cp for cp in line[start:end]]   # `hb_buffer_add_utf32`
         lead = bool(not start and cps and self.is_mark(cps[0]) and DOTTED_CIRCLE in self.cmap)
         if lead:
             cps = [DOTTED_CIRCLE, *cps]
@@ -847,9 +851,6 @@ class ShapedFont:
         scripts = self.resolve_scripts(cps, scripts)
         types = self.bidi_types(cps)
         if bidi.needs_bidi(types):
-            why = bidi.refusal(types)
-            if why is not None:
-                raise self.refusal(cps[why[0]], why[1])
             levels, _ = bidi.embedding_levels(
                 types, [self.bidi_brackets.get(cp, 0) if t == bidi.ON else 0 for cp, t in zip(cps, types)])
             level_runs = bidi.visual_runs(levels)
@@ -884,16 +885,30 @@ class ShapedFont:
         return _composite(self.layout(line)[0])
 
 
-@functools.lru_cache(maxsize=None)
+def dpi_ranges() -> str:
+    """The dpis the atlas serves, a range of dpis for each size it holds."""
+    out = []
+    for size in ATLAS_SIZES:
+        dpis = [d for d in range(1, 8 * (max(ATLAS_SIZES) + 1)) if font_size(d) == size]
+        out.append(f"{dpis[0]}-{dpis[-1]} ({size} px)")
+    return ", ".join(out)
+
+
 def load_font(dpi: int) -> ShapedFont:
     """The atlas font for `_render_text_page(..., dpi)`."""
-    if dpi not in ATLAS_DPIS:
+    size = font_size(dpi)
+    if size not in ATLAS_SIZES:
         raise UnsupportedText(
-            f"dpi {dpi} draws DejaVuSans at {font_size(dpi)} px; the glyph atlas {ATLAS_PATH.name} holds dpi "
-            f"{ATLAS_DPIS} (sizes {tuple(font_size(d) for d in ATLAS_DPIS)} px): add it to ATLAS_DPIS and "
-            f"regenerate with glyph_atlas.write_glyph_atlas() (needs PIL; {ROADMAP_ITEM})")
+            f"dpi {dpi} draws DejaVuSans at {size} px; the glyph atlas {ATLAS_PATH.name} holds the sizes "
+            f"{ATLAS_SIZES} px, which serve dpi {dpi_ranges()}: add the size to ATLAS_SIZES and regenerate "
+            f"with glyph_atlas.write_glyph_atlas() (needs PIL; {ROADMAP_ITEM})")
+    return _load_size(size)
+
+
+@functools.lru_cache(maxsize=None)
+def _load_size(size: int) -> ShapedFont:
     with np.load(ATLAS_PATH) as z:
-        return ShapedFont(z, font_size(dpi))
+        return ShapedFont(z, size)
 
 
 def _blend_black(page: np.ndarray, mask: np.ndarray, x: int, y: int) -> None:

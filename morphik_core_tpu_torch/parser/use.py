@@ -36,7 +36,6 @@ mark.
 
 from __future__ import annotations
 
-import unicodedata
 from typing import Dict, List, Sequence
 
 from morphik_core_tpu_torch.parser.syllables import alt, dotted_starts, opt, plus, scan, seq, star, sym
@@ -66,15 +65,15 @@ _RANGES = (
 CATEGORY: Dict[int, int] = {cp: cat for a, b, cat in _RANGES for cp in range(a, b + 1)}
 
 
-def category(cp: int, ignorable: bool, others: Dict[int, int]) -> int:
+def category(cp: int, ignorable: bool, mark: bool, others: Dict[int, int]) -> int:
     """A code point's USE category (`others`: the atlas's, for the marks of
-    the other scripts); `ignorable`: it is default-ignorable (a mark then
-    is CGJ, anything else WJ)."""
+    the other scripts); `ignorable`: it is default-ignorable (a `mark`
+    then is CGJ, anything else WJ)."""
     cat = others.get(cp, CATEGORY.get(cp))
     if cat is not None:
         return cat
     if ignorable:
-        return CGJ if unicodedata.category(chr(cp))[0] == "M" else WJ
+        return CGJ if mark else WJ
     return O
 
 
@@ -121,7 +120,7 @@ def shape(cps: Sequence[int], ignorable: Sequence[bool], is_mark: Sequence[bool]
     marks) -> the order of its items (indices; a dotted circle in front of
     each broken cluster, where `dotted`: the font maps U+25CC, as -1 - the
     index of the item it was put before)."""
-    cats = [category(cp, ig, others) for cp, ig in zip(cps, ignorable)]
+    cats = [category(cp, ig, m, others) for cp, ig, m in zip(cps, ignorable, is_mark)]
     seen = []   # the indices the machine reads: CGJ skipped, and a ZWNJ before a mark
     for i, cat in enumerate(cats):
         if cat == CGJ:

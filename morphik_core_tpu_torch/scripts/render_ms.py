@@ -27,7 +27,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-FIXTURES = ("text_pages", "rtl_pages", "mark_pages", "complex_pages", "nko_pages")
+FIXTURES = ("text_pages", "rtl_pages", "mark_pages", "complex_pages", "nko_pages", "unicode17_pages")
 
 
 def pages() -> dict:
@@ -36,6 +36,8 @@ def pages() -> dict:
 
     out = {}
     for name in FIXTURES:
+        if not (ROOT / "tests" / "fixtures" / f"{name}.npz").exists():
+            continue
         with np.load(ROOT / "tests" / "fixtures" / f"{name}.npz") as z:
             out.update(zip(z["timing_names"].tolist(), z["timing_texts"].tolist()))
     return out

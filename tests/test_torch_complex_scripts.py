@@ -384,9 +384,9 @@ def test_hangul_composes_where_a_font_maps_the_syllable():
 
 
 def test_khmer_split_vowels_decompose_where_the_font_maps_the_parts():
-    assert text_render.decompose(0x17BE, False, {0x17C1, 0x17BE}, text_render._khmer_decomposition) == [
-        0x17C1, 0x17BE]
-    assert text_render.decompose(0x17BE, False, {0x17C1}, text_render._khmer_decomposition) is None
+    step = text_render.load_font(150).khmer_decomposition
+    assert text_render.decompose(0x17BE, False, {0x17C1, 0x17BE}, step) == [0x17C1, 0x17BE]
+    assert text_render.decompose(0x17BE, False, {0x17C1}, step) is None
 
 
 def test_khmer_dotted_circles_skip_a_repeated_serial():

@@ -609,7 +609,6 @@ _TEXT_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
     from morphik_core_tpu_torch.config import Settings
     from morphik_core_tpu_torch.parser.office import docx_to_text
     from morphik_core_tpu_torch.parser.raster_pool import RasterPool
-    from morphik_core_tpu_torch.parser.text_render import UnsupportedText
     from morphik_core_tpu_torch.services.ingestion_service import IngestionService
     from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
 
@@ -629,11 +628,11 @@ _TEXT_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
     pool = RasterPool(1)
     assert [p[1] for p in asyncio.run(pool.rasterize_pdf_jpegs(z["pdf"].tobytes(), dpi=150))] == unpack(
         "pdf_payloads")
-    try:
-        asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
-        raise AssertionError("the page of tone letters was not refused")
-    except UnsupportedText as e:
-        assert "U+02E9" in str(e) and "3b-ii" in str(e), e
+    u = np.load(sys.argv[1] + "/tests/fixtures/unicode17_pages.npz")
+    flat, sizes = u["tone_pdf_payloads"].tobytes(), u["tone_pdf_payloads_sizes"]
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    assert [p[1] for p in asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))] == [
+        flat[a:b] for a, b in zip(starts, starts[1:])], "the page of tone letters"
     assert sys.modules["fontTools"] is None
     """
 ) + _LEAKS
@@ -681,14 +680,14 @@ _MARK_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
     from morphik_core_tpu_torch.config import Settings
     from morphik_core_tpu_torch.parser.office import docx_to_text
     from morphik_core_tpu_torch.parser.raster_pool import RasterPool
-    from morphik_core_tpu_torch.parser.text_render import UnsupportedText
     from morphik_core_tpu_torch.services.ingestion_service import IngestionService
     from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
 
     z = np.load(sys.argv[1] + "/tests/fixtures/mark_pages.npz")
+    u = np.load(sys.argv[1] + "/tests/fixtures/unicode17_pages.npz")
 
-    def unpack(key):
-        flat, sizes = z[key].tobytes(), z[key + "_sizes"]
+    def unpack(key, f=z):
+        flat, sizes = f[key].tobytes(), f[key + "_sizes"]
         starts = np.concatenate([[0], np.cumsum(sizes)])
         return [flat[a:b] for a, b in zip(starts, starts[1:])]
 
@@ -705,11 +704,8 @@ _MARK_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
     try:
         pages = asyncio.run(pool.rasterize_pdf_jpegs(z["pdf"].tobytes(), dpi=150))
         assert [p[1] for p in pages] == unpack("pdf_payloads")
-        try:
-            asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
-            raise AssertionError("the page of U+1C89 was not refused")
-        except UnsupportedText as e:
-            assert "U+1C89" in str(e) and "3b-ii" in str(e), e
+        pages = asyncio.run(pool.rasterize_pdf_jpegs(z["refused_pdf"].tobytes(), dpi=150))
+        assert [p[1] for p in pages] == unpack("unicode16_pdf_payloads", u), "the page of U+1C89"
         child = pool._pool.submit(eval, "open('/proc/self/maps').read()").result()
     finally:
         pool.shutdown()
@@ -720,6 +716,7 @@ _MARK_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textw
 ) + _LEAKS
 
 
+_PAYLOADS_LINE = '    assert [p[1] for p in pages] == unpack("pdf_payloads")\n'
 _COMPLEX_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + textwrap.dedent(
     """
     import asyncio, base64, types
@@ -768,6 +765,13 @@ _COMPLEX_PAGES = "import sys\nsys.modules['fontTools'] = None\n" + _PRELUDE + te
 # the N'Ko fixture through the same paths: N'Ko's USE shaper and joining, the newer Arabic letters, Ahom
 _NKO_PAGES = _COMPLEX_PAGES.replace("complex_pages.npz", "nko_pages.npz").replace(
     '("hindi", "khmer")', '("nko", "arabic_newer")').replace('("khmer", "thai", "hangul", "use")', '("use", "arabic")')
+# the Unicode 17 fixture through the same paths, its PDF at 72 and 300 dpi too
+_UNICODE17_PAGES = _COMPLEX_PAGES.replace("complex_pages.npz", "unicode17_pages.npz").replace(
+    '("hindi", "khmer")', '("unicode17", "tone_contours")').replace(
+    '("khmer", "thai", "hangul", "use")', '("bidi", "arabic")').replace(
+    _PAYLOADS_LINE, _PAYLOADS_LINE + "".join(
+        f"    assert [p[1] for p in asyncio.run(pool.rasterize_pdf_jpegs(z['pdf'].tobytes(), dpi={dpi}))] == "
+        f"unpack('pdf_payloads_{dpi}')\n" for dpi in (72, 300)))
 
 
 def test_evals_run_with_jax_pil_pydantic_httpx_blocked():
@@ -815,8 +819,8 @@ def test_image_formats_ingest_with_jax_pil_pydantic_httpx_blocked():
 
 def test_text_pages_render_with_jax_pil_fonttools_blocked():
     """The render path of every script (the DOCX, PPTX and PDF of
-    `tests/fixtures/text_pages.npz`) stores the reference's payloads and
-    refuses the page of tone letters with jax, PIL and fontTools
+    `tests/fixtures/text_pages.npz`, and its PDF with a page of tone
+    letters) stores the reference's payloads with jax, PIL and fontTools
     unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _TEXT_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
@@ -837,9 +841,9 @@ def test_rtl_pages_render_with_jax_pil_fonttools_blocked():
 
 def test_mark_pages_render_with_jax_pil_fonttools_blocked():
     """The marks placed by `parser/marks.py` (the DOCX, PPTX and PDF of
-    `tests/fixtures/mark_pages.npz`) store the reference's payloads, the
-    page of U+1C89 is refused, with jax, PIL and fontTools unimportable; no
-    process maps libfribidi, libharfbuzz or FreeType."""
+    `tests/fixtures/mark_pages.npz`, and its PDF with a page of U+1C89)
+    store the reference's payloads with jax, PIL and fontTools
+    unimportable; no process maps libfribidi, libharfbuzz or FreeType."""
     proc = subprocess.run(
         [sys.executable, "-c", _MARK_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
@@ -906,5 +910,19 @@ def test_nko_pages_render_with_jax_pil_fonttools_blocked():
     libharfbuzz or FreeType."""
     proc = subprocess.run(
         [sys.executable, "-c", _NKO_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_unicode17_pages_render_with_jax_pil_fonttools_blocked():
+    """Tone contours, ZWJ emoji in Hebrew and Arabic, CJK Extensions I and
+    J, Garay, Unicode 16-17 letters, isolates open at paragraph separators
+    and more than 62 bidi controls (`tests/fixtures/unicode17_pages.npz`)
+    store the reference's payloads, the PDF at 150, 72 and 300 dpi, with
+    jax, PIL and fontTools unimportable; no process maps libfribidi,
+    libharfbuzz or FreeType."""
+    assert "pdf_payloads_300" in _UNICODE17_PAGES
+    proc = subprocess.run(
+        [sys.executable, "-c", _UNICODE17_PAGES, str(ROOT)], capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr

@@ -136,5 +136,6 @@ def test_mark_lines_bidi_levels_match_fribidi():
 
 def test_anchor_differences_round_halves_upwards():
     """HarfBuzz's own `roundf` is floor(x + 0.5): -4.5 px/64 rounds to -4
-    (C's roundf gives -5; an Arabic kasratan on U+0699 at 12 px needs it)."""
-    assert [marks._roundf(v) for v in (-72, -8, -9, 8, 7, 72, -24)] == [-4, 0, -1, 1, 0, 5, -1]
+    (C's roundf gives -5; an Arabic kasratan on U+0699 at 12 px needs it).
+    The anchors are held in 1/32 of a 26.6 unit (exact at odd sizes too)."""
+    assert [marks._roundf(v) for v in (-144, -16, -18, 16, 14, 144, -48, -17, 15)] == [-4, 0, -1, 1, 0, 5, -1, -1, 0]

@@ -18,9 +18,14 @@ where stated.
   dotless i and j, stacks, joiners) and left unplaced where the run's
   script tag has no `mark` feature; the complex scripts, N'Ko, the Arabic
   letters newer than FriBiDi's data, Ahom's medial ra and a foreign mark
-  in a Khmer or Tifinagh run; what it refuses raises `UnsupportedText`
-  naming the code point, its script and ROADMAP item 3b-ii; the committed
-  glyph atlas is what the generator makes now.
+  in a Khmer or Tifinagh run; the tone letters' contour forms, an isolate
+  open at a paragraph separator, more than 62 bidi controls, a ZWJ emoji
+  in a run shaped against its direction, code points new in Unicode
+  15.1-17, lone surrogates and noncharacters; seeded Latin-1 and
+  repertoire pages at dpi 72, 120, 200 and 300 too; a dpi whose font
+  size the atlas lacks raises `UnsupportedText` naming the sizes it holds
+  and ROADMAP item 3b-ii; the committed glyph atlas is what the generator
+  makes now.
 - `rasterize_pdf` and `RasterPool.rasterize_pdf_jpegs(prep=...)` equal
   the reference's pages and tuples, inline and with a two-process pool,
   whose children never import torch.
@@ -104,17 +109,17 @@ def _seeded_text(seed: int) -> str:
 def _repertoire_text(seed: int) -> str:
     """Seeded lines over what the atlas draws: its characters by script,
     CJK and other `.notdef` code points, default-ignorables, base + mark
-    pairs that compose, raqm's brackets and U+3000. (The tone letters are
-    left out: two in a row are refused.)"""
+    pairs that compose, raqm's brackets and U+3000 (the tone letters
+    among the drawn characters, in contour sequences where they meet)."""
     with np.load(text_render.ATLAS_PATH) as z:
         starts, values = z["class_starts"], z["class_values"]
         codes = [str(c) for c in z["scripts"]]
         sstarts, svalues = z["script_starts"], z["script_values"]
-        compose, brackets, contextual = z["compose"], z["brackets"].reshape(-1), set(z["contextual"].tolist())
+        compose, brackets = z["compose"], z["brackets"].reshape(-1)
     cps = np.arange(0x110000)
     cls = values[np.searchsorted(starts, cps, side="right") - 1]
     script = np.array(codes)[svalues[np.searchsorted(sstarts, cps, side="right") - 1]]
-    drawn = (cls == text_render.GLYPH) & ~np.isin(cps, list(contextual))
+    drawn = cls == text_render.GLYPH
     pools = [cps[drawn & (script == s)] for s in ("Latn", "Grek", "Cyrl", "Zyyy")]
     pools += [cps[drawn & ~np.isin(script, ["Latn", "Grek", "Cyrl", "Zyyy"])], cps[cls == text_render.NOTDEF],
               cps[cls == text_render.HIDDEN], brackets, np.array([0x3000])]
@@ -152,9 +157,8 @@ def _rtl_text(seed: int, drop: str) -> str:
     beside Latin, both kinds of digits, punctuation and brackets (mirrored
     in right-to-left runs), the bidi controls, joiners, tatweel, paragraph
     separators, presentation forms and the lam-alef pairs, without the
-    characters of `drop`. (A line with an isolate still open at a paragraph
-    separator is refused, `REFUSED`'s "open_isolate": one page drops the
-    separators, the other the isolates.)"""
+    characters of `drop` (one page drops the paragraph separators, the
+    other the isolates; `_isolate_text` mixes both)."""
     with np.load(text_render.ATLAS_PATH) as z:
         starts, values = z["class_starts"], z["class_values"]
         codes = [str(c) for c in z["scripts"]]
@@ -174,6 +178,27 @@ def _rtl_text(seed: int, drop: str) -> str:
             pool = pools[int(rng.choice(len(pools), p=weights / weights.sum()))][0]
             pool = "".join(ch for ch in pool if ch not in drop) if not pool.startswith("ل") else pool
             parts.append(pool if pool.startswith("ل") else pool[int(rng.integers(len(pool)))])
+        lines.append("".join(parts))
+    return "\n".join(lines)
+
+
+def _isolate_text(seed: int) -> str:
+    """Seeded right-to-left lines with isolates left open at a paragraph
+    separator (\\r, U+2029, U+0085, U+001C) and lines of more than 62
+    embedding and isolate controls (FriBiDi's overflow counters)."""
+    rng = np.random.default_rng(seed)
+    words = ["שלום", "abc", "مرحبا", "12", "(x)", " ", "٣٤", "!", "עולם", "text"]
+    opens, closes = "\u202a\u202b\u202d\u202e\u2066\u2067\u2068", "\u202c\u2069"
+    lines = []
+    for k in range(16):
+        if k % 2:
+            parts = [str(rng.choice(list(opens))) if rng.random() < 0.6 else str(rng.choice(words))
+                     for _ in range(int(rng.integers(70, 110)))]
+            parts += [str(rng.choice(list(closes))) for _ in range(int(rng.integers(0, 8)))] + ["abc שלום"]
+        else:
+            parts = [str(rng.choice(words)) for _ in range(int(rng.integers(1, 5)))]
+            parts += [str(rng.choice(list("\u2066\u2067\u2068")))] + [str(rng.choice(words)) for _ in range(3)]
+            parts += [str(rng.choice(["\r", "\u2029", "\x85", "\x1c"]))] + [str(rng.choice(words)) for _ in range(4)]
         lines.append("".join(parts))
     return "\n".join(lines)
 
@@ -257,6 +282,23 @@ RENDER_CASES = {
     "khmer_foreign_mark": "Khmer ក\u094d",
     "tifinagh_foreign_mark": "Tifinagh ⵜ\u0bcd",
     "general_category_newer_than_python": "Ahom \U0001171e",
+    # drawable since the atlas holds HarfBuzz's Unicode 17 properties, the tone letters' contour forms and the
+    # Extended_Pictographic set, and `bidi` follows FriBiDi past a paragraph separator and 62 controls
+    "unassigned": "unassigned x\u0378",
+    "tone_letters": "tones ˥˩",
+    "open_isolate": "שלום \u2067abc\rdef",
+    "unicode_16_cyrillic": "Unicode 16 \u1c89",
+    "unicode_16_garay": "Garay \U00010d40\U00010d41",
+    "zwj_before_a_pictograph_reversed": "\u202d\u05d0\u200d\u2605\u202c x",
+    "tone_contours": "ma˨˩˦ ˥˩ ˧˥˧ ˩˥˩˥˩˥ a˥\u200b˩ ˥˦˧˨˩ [˥˩] 1˧˥",
+    "zwj_emoji_in_rtl": "שלום Hello \U0001f468\u200d\U0001f469\u200d\U0001f467 שלום\n"
+                        "مرحبا \U0001f3f3\ufe0f\u200d\U0001f308 و \u2764\ufe0f\u200d\U0001f525 !",
+    "unicode_17": "CJK I \U0002ebf0\U0002ebf1 J \U00031350 Latin \ua7cc\ua7cd \u1c89\u1c8a Garay "
+                  "\U00010d50\U00010d69\U00010d40 Tulu \U00011380\U000113b8 \U00011f5a x",
+    "isolate_at_a_separator": "abc \u2067שלום\r more א text\n\u2068(x\u2029y) א\x85z",
+    "more_than_62_controls": "\u202b" * 63 + "abc שלום\n" + "x" + "\u2067" * 70 + "abc\u2069 d",
+    "seeded_isolates_and_overflow": _isolate_text(24),
+    "surrogates_noncharacters": "a\ud800b \udfff c\ufdd0d\uffff \U0010ffff e\U000e0fff",
 }
 
 
@@ -269,32 +311,31 @@ def test_render_text_page_matches_reference(case, dpi):
     assert got.dtype == np.uint8 and got.shape == want.shape and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("dpi", [72, 120, 200, 300])
+@pytest.mark.parametrize("case", ["seeded_latin1_a", "seeded_repertoire_a", "tone_contours", "zwj_emoji_in_rtl"])
+def test_render_text_page_matches_reference_at_every_held_size(case, dpi):
+    """The atlas's other sizes (10, 15, 25 and 37 px): seeded Latin-1 and
+    repertoire pages, tone contours and ZWJ emoji, pixel for pixel."""
+    text = RENDER_CASES[case]
+    assert np.array_equal(render_text_page(text, dpi), np.asarray(_render_text_page(text, dpi)))
+
+
 REFUSED = [  # (text, dpi, what the message names)
-    ("unassigned x\u0378", 150, r"U\+0378 \(script Unknown\) is unassigned in Unicode"),
-    ("tones ˥˩", 150, r"U\+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR \(script Common\) follows U\+02E5"),
-    ("שלום \u2067abc\rdef", 150, r"U\+0064 LATIN SMALL LETTER D \(script Latin\) follows a paragraph separator that "
-                                  "an isolate was left open at"),
-    ("x", 300, r"dpi 300 draws DejaVuSans at 37 px; the glyph atlas glyphs_dejavu_sans.npz holds dpi \(150, 100\) "
-               r"\(sizes \(18, 12\) px\)"),
-    ("Unicode 16 \u1c89", 100, r"U\+1C89 \(script Cyrillic\) is unassigned in Unicode 15\.0"),
-    ("Garay \U00010d40\U00010d41", 150, r"U\+10D40 \(script Garay\) is unassigned in Unicode 15\.0"),
-    ("\u202d\u05d0\u200d\u2605\u202c x", 150, r"U\+2605 BLACK STAR \(script Common\) follows a ZWJ in a run shaped "
-                                           "against its direction"),
+    ("x", 110, r"dpi 110 draws DejaVuSans at 13 px; the glyph atlas glyphs_dejavu_sans.npz holds the sizes "
+               r"\(10, 12, 15, 18, 25, 37\) px, which serve dpi 1-87 \(10 px\), 96-103 \(12 px\), 120-127 \(15 px\), "
+               r"144-151 \(18 px\), 200-207 \(25 px\), 296-303 \(37 px\)"),
 ]
 
 
-@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["unassigned", "tone_letters", "open_isolate", "dpi_300",
-                                                            "unicode_16_cyrillic", "unicode_16_garay",
-                                                            "zwj_before_a_pictograph_reversed"])
+@pytest.mark.parametrize("text,dpi,message", REFUSED, ids=["dpi_110"])
 def test_render_text_page_refuses_what_the_atlas_lacks(text, dpi, message):
-    """Each refusal is an `UnsupportedText` (a ValueError) that names the
-    code point, its script and ROADMAP item 3b-ii; the reference draws
-    every one of these texts."""
+    """The refusal left is a dpi whose font size the atlas lacks: an
+    `UnsupportedText` (a ValueError) that names the sizes the atlas holds,
+    the dpis they serve and ROADMAP item 3b-ii; the reference draws it."""
     with pytest.raises(UnsupportedText, match=message) as err:
         render_text_page(text, dpi)
     assert "ROADMAP Queue 1 item 3b-ii" in str(err.value) and isinstance(err.value, ValueError)
-    if dpi in (150, 100):
-        assert np.asarray(_render_text_page(text, dpi)).shape == (int(11 * dpi), int(8.5 * dpi), 3)
+    assert np.asarray(_render_text_page(text, dpi)).shape == (int(11 * dpi), int(8.5 * dpi), 3)
 
 
 def test_glyph_atlas_is_current(tmp_path):

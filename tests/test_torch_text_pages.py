@@ -5,7 +5,9 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
   and a 6-page PDF whose text mixes Greek, Cyrillic, Vietnamese,
   Romanian, symbols, box drawing, the font's emoji and CJK, one page with
   the `Г“A` script-boundary kerning case; a 5-page PDF with a sequence
-  of contextual tone letters on page 3; four timing pages of one length)
+  of contextual tone letters on page 3, `refused_pdf`, which the tests
+  below refuse with an atlas of their own; four timing pages of one
+  length)
   is what
   `write_text_pages_fixture` makes now with the JAX package's
   `_render_text_page` and `_finish_page` under PIL.
@@ -20,14 +22,28 @@ the port's ingest paths, on the CPU. Tolerance: exact (payload bytes).
   the reference's payloads) is what
   `write_mark_pages_fixture` makes now; the port stores its payloads byte
   for byte through the same paths.
-- What the renderer refuses fails the job: the pooled PDF with a page of
-  tone letters, and the mark fixture's with a page 4 of Unicode 16's
-  U+1C89, end
-  `failed`, naming ROADMAP item 3b-ii, with none of their rows left in
-  either store and `/health`'s row counts as before, at the default
-  batching and at batches of one (the reference draws every page); `rasterize_pdf_jpegs`, DOCX and
-  PPTX raise `UnsupportedText`; a `pdf.colpali_pdf_dpi` the atlas lacks
-  is refused by `build_services`.
+- What the renderer refuses fails the job. The committed atlas refuses
+  no text, so these tests draw with a copy of it that classes U+02E9 and
+  U+1C89 MISDRAWN (`test_torch_unicode17.refusing_atlas`, reaching the
+  raster pool's forkserver children through the task they run): the
+  pooled PDF with a page of tone letters, and the mark fixture's with a
+  page 4 of Unicode 16's U+1C89, end `failed`, naming ROADMAP item
+  3b-ii, with none of their rows left in either store and `/health`'s row
+  counts as before, at the default batching and at batches of one (the
+  reference draws every page); `rasterize_pdf_jpegs`, DOCX and PPTX raise
+  `UnsupportedText`. With the committed atlas the same files store the
+  reference's payloads. A `pdf.colpali_pdf_dpi` whose font size the atlas
+  lacks is refused by `build_services`; every dpi of a size it holds
+  boots.
+- The committed fixture `tests/fixtures/unicode17_pages.npz` (a DOCX of
+  IPA tone contours and ZWJ emoji in Hebrew and Arabic paragraphs, a PPTX
+  of CJK Extensions I and J, Garay and Unicode 16's Latin and Cyrillic
+  letters, a 4-page PDF with isolates left open at paragraph separators,
+  lines of more than 62 bidi controls, tone letters and Unicode 17 text;
+  that PDF's payloads at dpi 72 and 300 too, and the payloads of the two
+  PDFs above) is what `write_unicode17_pages_fixture` makes now; the port
+  stores its payloads byte for byte through the same paths, at 150, 72
+  and 300 dpi.
 """
 
 import asyncio
@@ -56,12 +72,14 @@ from morphik_core_tpu_torch.api.http import Request
 from morphik_core_tpu_torch.config import Settings
 from morphik_core_tpu_torch.models.colqwen.model import ColQwenModel as TModel
 from morphik_core_tpu_torch.models.schemas import AuthContext
+from morphik_core_tpu_torch.parser import text_render
 from morphik_core_tpu_torch.parser.office import docx_to_text
 from morphik_core_tpu_torch.parser.raster_pool import RasterPool
 from morphik_core_tpu_torch.parser.text_render import UnsupportedText, render_text_page
 from morphik_core_tpu_torch.services.ingestion_service import IngestionService
 from morphik_core_tpu_torch.services_init import build_services
 from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX
+from test_torch_unicode17 import refusing_atlas, use_atlas
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "tests" / "fixtures" / "text_pages.npz"
@@ -89,7 +107,7 @@ SENTENCES = {
             "한국어 텍스트 (인용) “中”「引用」　全角スペース。"],
 }
 BOUNDARY = "Kerning stops at a script boundary: x“A” against Г“A”, α (“A) and “Привет”."
-# still refused (ROADMAP Queue 1 item 3b-ii): the font's contextual tone letters in sequence
+# the font's contextual tone letters in sequence (ccmp contour forms)
 TONES = "Tones: ˥˩ ˧˥ ˩˧˥"
 
 
@@ -422,7 +440,7 @@ MARK_SENTENCES = {
               "Contract no. 4521 — חוֹזֶה מס׳ 4521 — عَقْدٌ رَقْمُ ٤٥٢١ — ə̃ x̂.",
               "‫שָׁלוֹם, embedded‬ and مَرْحَبًا بِكُمْ in one line; 1̃ 2̂."],
 }
-# still refused (ROADMAP Queue 1 item 3b-ii): code points Unicode 15.0 leaves unassigned (Unicode 16's Tje)
+# code points Unicode 15.0 leaves unassigned (Unicode 16's Tje)
 UNICODE_16 = "Unicode 16: \u1c89\u1c8a Tje"
 
 
@@ -506,16 +524,33 @@ def test_mark_inline_pdf_pages_equal_the_reference(marked):
 
 # ----------------------------------------------------- refusals fail the job
 
+REFUSED_CPS = (0x02E9, 0x1C89)   # classed MISDRAWN in the tests' own atlas
+
+
+@pytest.fixture(scope="session")
+def refusing_atlas_path(tmp_path_factory):
+    return refusing_atlas(tmp_path_factory.mktemp("atlas") / "refusing.npz", REFUSED_CPS)
+
+
+@pytest.fixture
+def refusing(monkeypatch, refusing_atlas_path):
+    """Every text page drawn with the refusing atlas, inline and in the
+    raster pool's children, for the test's length."""
+    use_atlas(monkeypatch, refusing_atlas_path)
+    yield
+    monkeypatch.undo()
+    text_render._load_size.cache_clear()
+
 
 @pytest.mark.parametrize("processes", [1, 2])
-def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
+def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes, refusing):
     """The reference draws all five pages; the port raises for the page of
-    tone letters instead of skipping it."""
+    tone letters instead of skipping it (an atlas that refuses U+02E9)."""
     data = z["refused_pdf"].tobytes()
     pool, jpool = RasterPool(processes), JRasterPool(processes)
     try:
         with pytest.raises(UnsupportedText, match=r"U\+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR \(script Common\) "
-                                                  r"follows U\+02E5.*item 3b-ii"):
+                                                  r"is drawn by PIL otherwise.*item 3b-ii"):
             _run(pool.rasterize_pdf_jpegs(data, dpi=PDF_DPI, prep=PREP))
         assert [p[0] for p in _run(jpool.rasterize_pdf_jpegs(data, dpi=PDF_DPI))] == list(range(5))
     finally:
@@ -524,7 +559,7 @@ def test_rasterize_pdf_jpegs_raises_on_a_refused_page(z, processes):
 
 
 @pytest.mark.parametrize("kind", ["docx", "pptx"])
-def test_office_pages_with_refused_text_raise(kind):
+def test_office_pages_with_refused_text_raise(kind, refusing):
     settings = types.SimpleNamespace(settings=Settings())
     lines = ["Quarterly revenue", TONES]
     data = docx_bytes(lines) if kind == "docx" else pptx_bytes([lines])
@@ -552,12 +587,12 @@ def _services(tmp_path: Path, **over):
 @pytest.mark.parametrize("worker", [{}, {"colpali_store_batch_size": 1, "ingest_embed_prefetch": 1}],
                          ids=["default_batches", "batch_1_prefetch_1"])
 @pytest.mark.parametrize("fixture,letter", [("z", "U+02E9 MODIFIER LETTER EXTRA-LOW TONE BAR"),
-                                            ("marked", "U+1C89 (script Cyrillic) is unassigned in Unicode 15.0")],
+                                            ("marked", "U+1C89 (script Cyrillic) is drawn by PIL otherwise")],
                          ids=["tone_letters", "unassigned_in_unicode_15"])
-def test_pooled_pdf_job_with_a_refused_page_fails(request, fixture, letter, tmp_path, monkeypatch, worker):
+def test_pooled_pdf_job_with_a_refused_page_fails(request, fixture, letter, tmp_path, monkeypatch, worker, refusing):
     """A 5-page PDF with a sequence of tone letters on page 3, and the mark
     fixture's PDF with a page 4 of Unicode 16's U+1C89, through the pooled
-    PageStream: the job ends
+    PageStream, drawn with an atlas that refuses both: the job ends
     `failed`, its error naming the character and item 3b-ii, and none of
     its rows stays in the text store or the ColPali store (before, its text
     chunks stayed, and with batches of 1 so did the pages before the
@@ -603,14 +638,33 @@ def test_pooled_pdf_job_with_a_refused_page_fails(request, fixture, letter, tmp_
 
 
 def test_build_services_refuses_a_dpi_the_atlas_lacks(tmp_path):
-    """A `pdf.colpali_pdf_dpi` whose font size the atlas lacks is refused
-    when the services are built (before, the server booted and dropped
-    every PDF page); without ColPali and OCR nothing draws pages, and the
-    server boots."""
-    with pytest.raises(UnsupportedText, match=r"dpi 300 .*holds dpi \(150, 100\) \(sizes \(18, 12\) px\).*3b-ii"):
-        _services(tmp_path / "a", pdf={"colpali_pdf_dpi": 300})
-    services = _services(tmp_path / "b", pdf={"colpali_pdf_dpi": 300}, morphik={"enable_colpali": False})
+    """A `pdf.colpali_pdf_dpi` whose font size the atlas lacks (dpi 110:
+    13 px) is refused when the services are built (before, the server
+    booted and dropped every PDF page); without ColPali and OCR nothing
+    draws pages, and the server boots; every dpi of a size the atlas
+    holds boots."""
+    with pytest.raises(UnsupportedText, match=r"dpi 110 .*holds the sizes \(10, 12, 15, 18, 25, 37\) px, which "
+                                              r"serve dpi .*3b-ii"):
+        _services(tmp_path / "a", pdf={"colpali_pdf_dpi": 110})
+    services = _services(tmp_path / "b", pdf={"colpali_pdf_dpi": 110}, morphik={"enable_colpali": False})
     assert services.colpali_vector_store is None
+    for dpi in (72, 96, 120, 144, 200, 300):
+        assert _services(tmp_path / f"dpi{dpi}", pdf={"colpali_pdf_dpi": dpi}).colpali_vector_store is not None
+
+
+@pytest.mark.parametrize("key,fixture", [("tone_pdf", "z"), ("unicode16_pdf", "marked")])
+def test_formerly_refused_pdfs_store_the_reference_payloads(request, key, fixture, unicode17):
+    """The PDF with a page of tone letters and the one with a page of
+    U+1C89, drawn with the committed atlas through the pooled
+    `PageStream`: the reference's q70 payloads (kept in the Unicode 17
+    fixture)."""
+    data = request.getfixturevalue(fixture)["refused_pdf"].tobytes()
+    pool = RasterPool(2)
+    try:
+        pages = _run(pool.rasterize_pdf_jpegs(data, dpi=PDF_DPI, prep=PREP))
+    finally:
+        pool.shutdown()
+    assert [p[1] for p in pages] == unpack(unicode17, f"{key}_payloads")
 
 
 # ------------------------------------------------------------ complex scripts
@@ -835,12 +889,160 @@ def test_nko_timing_pages_equal_the_reference(nko_pages, name):
     assert np.array_equal(render_text_page(text, PDF_DPI), np.asarray(_render_text_page(text, PDF_DPI)))
 
 
-def test_render_ms_times_the_timing_pages_it_can_draw():
+def test_render_ms_times_the_timing_pages_it_can_draw(refusing):
     """`scripts.render_ms`: every fixture's timing pages, each a positive
-    median; a page the parser refuses is left out of the report."""
+    median; a page the parser refuses (here, under an atlas that refuses
+    U+02E9) is left out of the report."""
     from morphik_core_tpu_torch.scripts import render_ms
 
     texts = render_ms.pages()
-    assert {"latin1", "khmer", "nko", "arabic_newer"} <= set(texts)
+    assert {"latin1", "khmer", "nko", "arabic_newer", "unicode17", "tone_contours"} <= set(texts)
     got = render_ms.render_ms({"latin1": texts["latin1"][:200], "refused": "˥˩"}, repeats=1)
     assert set(got) == {"latin1"} and got["latin1"] > 0
+
+
+# ---------------------------------- the text pages' last refusals, drawn
+
+UNICODE17_FIXTURE = ROOT / "tests" / "fixtures" / "unicode17_pages.npz"
+UNICODE17_SEED = 24
+UNICODE17_DPIS = (72, 300)   # the PDF's payloads at two more of the atlas's sizes (10 and 37 px)
+UNICODE17_SENTENCES = {
+    "ipa_tones": ["Mandarin mā˥ má˧˥ mǎ˨˩˦ mà˥˩: the four tones in Chao's letters.",
+                  "Cantonese si˥ si˧˥ si˧ si˨˩ si˩˧ si˨, six tones; Thai khâa [kʰaː˥˩].",
+                  "Yoruba ọ̀kọ́ [ɔ˨kɔ˦], Vietnamese mả [ma˧˩˧], Hmong [ko˥˧˩]."],
+    "hebrew_emoji": ["משפחה 👨‍👩‍👧 ביחד בבית, ושלום 🏳️‍🌈 לכולם.",
+                     "הצוות 🧑🏽‍💻 סיים את הדוח ❤️‍🔥 היום (עמוד 3)."],
+    "arabic_emoji": ["العائلة 👨‍👩‍👧 في البيت، وشكرا 🧑🏽‍💻 للفريق.",
+                     "قلب ❤️‍🔥 ورسالة 🏳️‍🌈 جديدة في ٢٠٢٥."],
+    "cjk_new": ["CJK Ext I: \U0002ebf0\U0002ebf1\U0002ebf2\U0002ec00\U0002ed00\U0002ee5d (rare ideographs).",
+                "CJK Ext J: \U000323b0\U000323b1\U000323b2\U000323b5\U00032400 and Ext I \U0002ebf5."],
+    "garay": ["Garay: \U00010d50\U00010d51\U00010d52 \U00010d4a\U00010d4b \U00010d40\U00010d41 (Wolof).",
+              "\U00010d53\U00010d54\U00010d4f \U00010d4c\U00010d4d, 2025."],
+    "latin_cyrillic_16": ["Unicode 16 Latin: Ꟍꟍ ꟚꟛꟜ; Cyrillic Tje: Ᲊᲊ.",
+                          "Latin Ꟍ and Cyrillic Ᲊ beside old ones: Ꞔ ꞔ ꚜ."],
+    "unicode17": ["Sidetic \U00010940\U00010941\U00010942, Tai Yo \U0001e6c0\U0001e6c1, Tolong Siki "
+                  "\U00011db0\U00011db1, Beria Erfe \U00016ea0\U00016ea1.",
+                  "Kirat Rai \U00016d43\U00016d44\U00016d41, Tulu \U00011380\U000113b8, Sunuwar \U00011bc0."],
+}
+
+
+def unicode17_fixture_texts():
+    """The Unicode 17 fixture's documents as text: DOCX paragraphs of IPA
+    tone contours and of ZWJ emoji inside Hebrew and Arabic paragraphs;
+    PPTX slides of CJK Extensions I and J, Garay and Unicode 16's Latin
+    and Cyrillic letters; PDF pages of isolates left open at paragraph
+    separators (\\r, U+2029, U+0085), of lines with more than 62 bidi
+    controls, of tone letters, and of Unicode 17 text; the timing pages
+    (Latin-1, Unicode 15.1-17 letters, tone contours, ZWJ emoji in
+    right-to-left paragraphs)."""
+    rng = np.random.default_rng(UNICODE17_SEED)
+
+    def prose(langs, n_chars):
+        lines, size = [], 0
+        while size < n_chars:
+            lang = langs[int(rng.integers(len(langs)))]
+            lines.append(UNICODE17_SENTENCES[lang][int(rng.integers(len(UNICODE17_SENTENCES[lang])))])
+            size += len(lines[-1]) + 1
+        return lines
+
+    paras = [" ".join(prose(["ipa_tones"], 700)) for _ in range(5)]
+    paras += [" ".join(prose(["hebrew_emoji", "arabic_emoji"], 700)) for _ in range(5)]
+    slides = [[f"{i + 1}. {title}"] + prose([lang], 200)
+              for i, (lang, title) in enumerate((("cjk_new", "CJK"), ("garay", "Garay"),
+                                                 ("latin_cyrillic_16", "Latin / Cyrillic")))]
+    isolates = ["abc ⁧שלום\r more א text", "Report ⁨(ملخص)\u2029 2024 summary א", "⁦x שלום\x85 y ب!",
+                "שלום ⁧abc\rdef", "quote ⁧«مرحبا»\r end ש 12"]
+    controls = ["‫" * 63 + "abc שלום", "x" + "⁧" * 70 + "abc⁩ d", "‭" * 40 + "⁧" * 40 + "שלום abc",
+                "‮" * 62 + "‪" * 5 + "123 abc"]
+    pdf = [[f"{i + 1:02d}. {line}" for line in lines] for i, lines in enumerate([
+        isolates + prose(["hebrew_emoji", "arabic_emoji"], 300), controls,
+        prose(["ipa_tones"], 500), prose(["unicode17", "cjk_new", "garay", "latin_cyrillic_16"], 600)])]
+    n = 2400
+    timing = {"latin1": ("Quarterly revenue, déjà vu: « ça » AV office. " * 80)[:n]}
+    for name, langs in (("unicode17", ["unicode17", "cjk_new", "garay", "latin_cyrillic_16"]),
+                        ("tone_contours", ["ipa_tones"]), ("rtl_emoji", ["hebrew_emoji", "arabic_emoji"])):
+        timing[name] = " ".join(prose(langs, n))[:n]
+    timing = {k: "\n".join(v[j:j + 90] for j in range(0, n, 90)) for k, v in timing.items()}
+    return paras, slides, pdf, timing
+
+
+def write_unicode17_pages_fixture(path: Path = UNICODE17_FIXTURE) -> Path:
+    """`unicode17_pages.npz` (see `_write_fixture`), with the PDF's q70
+    payloads at `UNICODE17_DPIS` (`pdf_payloads_72`, `pdf_payloads_300`)
+    and those of `text_pages.npz`'s and `mark_pages.npz`'s `refused_pdf`
+    at 150 dpi (`tone_pdf_payloads`, `unicode16_pdf_payloads`)."""
+    paras, slides, pdf_pages, timing = unicode17_fixture_texts()
+    _write_fixture(path, paras, slides, pdf_pages, timing)
+    with np.load(path) as f:
+        out = {k: f[k] for k in f.files}
+    texts = j_extract_pages_text(out["pdf"].tobytes())
+    for dpi in UNICODE17_DPIS:
+        blobs = [j_finish_page(i, _render_text_page(t, dpi), 1024, None)[1] for i, t in enumerate(texts)]
+        out[f"pdf_payloads_{dpi}"], out[f"pdf_payloads_{dpi}_sizes"] = _pack(blobs)
+    for key, source in (("tone_pdf", FIXTURE), ("unicode16_pdf", MARK_FIXTURE)):
+        with np.load(source) as f:
+            texts = j_extract_pages_text(f["refused_pdf"].tobytes())
+        blobs = [j_finish_page(i, _render_text_page(t, PDF_DPI), 1024, None)[1] for i, t in enumerate(texts)]
+        out[f"{key}_payloads"], out[f"{key}_payloads_sizes"] = _pack(blobs)
+    np.savez_compressed(path, **out)
+    return Path(path)
+
+
+@pytest.fixture(scope="module")
+def unicode17():
+    with np.load(UNICODE17_FIXTURE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_unicode17_pages_fixture_is_current(tmp_path):
+    """Regenerated now (PIL and the JAX package), the committed Unicode 17
+    fixture is equal, and its PDF extracts to its texts (the separators
+    and controls kept)."""
+    fresh = np.load(write_unicode17_pages_fixture(tmp_path / "unicode17_pages.npz"))
+    committed = np.load(UNICODE17_FIXTURE)
+    assert sorted(fresh.files) == sorted(committed.files)
+    for k in committed.files:
+        assert np.array_equal(fresh[k], committed[k]), k
+    paras, slides, pdf_pages, _ = unicode17_fixture_texts()
+    assert [t for t in committed["pdf_texts"]] == ["\n".join(p) for p in pdf_pages]
+    assert len(unpack(committed, "pptx_payloads")) == len(slides) and len(unpack(committed, "docx_payloads")) >= 2
+
+
+@pytest.mark.parametrize("kind", ["docx", "pptx"])
+def test_unicode17_office_pages_store_the_reference_payloads(unicode17, kind):
+    """A DOCX of tone contours and ZWJ emoji in Hebrew and Arabic, a PPTX
+    of CJK Extensions I and J, Garay and Unicode 16 letters: the
+    reference's q80 payloads."""
+    _office_payloads_equal(unicode17, kind)
+
+
+@pytest.mark.parametrize("processes", [1, 2])
+def test_unicode17_pooled_pdf_pages_store_the_reference_payloads(unicode17, processes):
+    """Isolates open at separators, more than 62 controls, tone letters and
+    Unicode 17 text through the pooled `PageStream`: the reference's q70
+    payloads."""
+    _pooled_payloads_equal(unicode17, processes)
+
+
+def test_unicode17_inline_pdf_pages_equal_the_reference(unicode17):
+    _inline_pages_equal(unicode17)
+
+
+@pytest.mark.parametrize("dpi", UNICODE17_DPIS)
+def test_unicode17_pdf_pages_at_other_dpis_store_the_reference_payloads(unicode17, dpi):
+    """The PDF drawn at 72 dpi (10 px) and 300 dpi (37 px) through the
+    pooled `PageStream`: the reference's q70 payloads at that dpi."""
+    pool = RasterPool(2)
+    try:
+        pages = _run(pool.rasterize_pdf_jpegs(unicode17["pdf"].tobytes(), dpi=dpi, prep=PREP))
+    finally:
+        pool.shutdown()
+    assert [p[1] for p in pages] == unpack(unicode17, f"pdf_payloads_{dpi}")
+
+
+@pytest.mark.parametrize("name", ["unicode17", "tone_contours", "rtl_emoji"])
+def test_unicode17_timing_pages_equal_the_reference(unicode17, name):
+    """The timing pages chip_smoke renders beside the Latin-1 one, at 150
+    dpi, pixel for pixel."""
+    text = str(unicode17["timing_texts"][[str(n) for n in unicode17["timing_names"]].index(name)])
+    assert np.array_equal(render_text_page(text, PDF_DPI), np.asarray(_render_text_page(text, PDF_DPI)))
