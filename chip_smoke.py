@@ -349,7 +349,19 @@ Phases (each raises on failure; none is caught):
      own page first, through K1. Prints a {"formats": ...} line (host
      decode ms per file and size, ingest s per file, image query ms,
      launches, peak memory, the phase's s, the card); the kernels line
-     gains `formats_launches`.
+     gains `formats_launches`. The phase also runs
+     tests/fixtures/image_formats_more.npz: Netpbm (P6, 16-bit P5, plain
+     P1, Pf), ICO, CUR, PSD (RGB over a layer section, CMYK), PCX (RGB,
+     256 colours), DCX, TGA (RLE, colour-mapped, mirrored 32-bit), SGI RLE,
+     Sun RLE, QOI, XBM, XPM and arithmetic-coded (sequential, progressive)
+     and lossless (gray, RGB with restarts) JPEGs, each decoded to Pillow's
+     mode and pixels and ingested to the reference's payload; each decoder
+     timed on the 200 dpi letter page beside a baseline JPEG of it (the
+     arithmetic-coded letter page, whose data run past Pillow's 64 KiB
+     block, with the port's refusal of it off); a 12-bit and a hierarchical
+     JPEG, a JPEG 2000 and an AVIF file answering 415; PNM, PSD and
+     arithmetic-coded JPEG image queries each finding a file of their own
+     page first.
  23. text pages in every left-to-right script (after phase 22, before
      phase 21), on a server from the toml serving phase 3b's model: the
      host render ms of a page (`render_text_page` at 150 dpi, median of 3)
@@ -3463,12 +3475,13 @@ CONNECTOR_LISTED = 101  # files in the fake GitHub root, Drive root and Zotero l
 DECODE_REPEATS = 3
 
 
-def _decode_ms(fn, data: bytes) -> float:
-    """The median host ms of `fn(data)` over DECODE_REPEATS calls."""
+def _decode_ms(fn, data: bytes, first_ms: "float | None" = None) -> float:
+    """The median host ms of `fn(data)` over DECODE_REPEATS calls (one of
+    them `first_ms`, a call already timed, when given)."""
     import numpy as np
 
-    times = []
-    for _ in range(DECODE_REPEATS):
+    times = [] if first_ms is None else [first_ms]
+    while len(times) < DECODE_REPEATS:
         t = time.perf_counter()
         fn(data)
         times.append((time.perf_counter() - t) * 1e3)
@@ -3746,13 +3759,79 @@ def check_format_decoders(z) -> dict:
             "wide_lossy_webp_over_baseline": decode_ms["wide_lossy.webp"] / base}
 
 
+MORE_FORMAT_FIXTURES = ROOT / "tests" / "fixtures" / "image_formats_more.npz"
+MORE_FORMAT_FILES = ("page.ppm", "page16.pgm", "plain.pbm", "page.pfm", "icon.ico", "cursor.cur", "page.psd",
+                     "cmyk.psd", "page.pcx", "indexed.pcx", "pages.dcx", "page.tga", "mapped.tga", "flipped.tga",
+                     "page.sgi", "page.ras", "page.qoi", "page.xbm", "page.xpm", "arith.jpg",
+                     "arith_progressive.jpg", "lossless.jpg", "lossless_rgb.jpg")
+MORE_FORMAT_TIMED = ("letter.ppm", "letter.psd", "letter.pcx", "letter.tga", "letter.sgi", "letter.ras",
+                     "letter.qoi", "letter.xbm", "letter.xpm", "letter_arith.jpg", "letter_lossless.jpg",
+                     "letter_baseline.jpg")  # the 200 dpi letter page, timed on the host
+MORE_FORMAT_PAST_PILLOW = ("letter_arith.jpg",)  # its data run past Pillow's 64 KiB block: timed, else refused
+MORE_FORMAT_QUERIES = ("page.ppm", "page.psd", "arith.jpg")
+MORE_FORMAT_REFUSED = (("jpeg12.jpg", "12-bit JPEG"), ("hierarchical.jpg", "hierarchical JPEG"),
+                       ("page.jp2", "JPEG 2000"), ("page.avif", "AVIF"))
+MORE_FORMAT_CTYPES = {"ppm": "image/x-portable-pixmap", "pgm": "image/x-portable-graymap",
+                      "pbm": "image/x-portable-bitmap", "pfm": "image/x-portable-floatmap", "ico": "image/x-icon",
+                      "cur": "image/x-icon", "psd": "image/vnd.adobe.photoshop", "pcx": "image/x-pcx",
+                      "dcx": "image/x-dcx", "tga": "image/x-tga", "sgi": "image/sgi", "ras": "image/x-cmu-raster",
+                      "qoi": "image/qoi", "xbm": "image/x-xbitmap", "xpm": "image/x-xpixmap", "jpg": "image/jpeg",
+                      "jp2": "image/jp2", "avif": "image/avif"}
+
+
+def check_more_format_decoders(z) -> dict:
+    """Phase 22, on the host, for image_formats_more.npz: each file decodes
+    to Pillow's mode and pixels (their hash); each letter-page file's host
+    ms (the median of DECODE_REPEATS) beside the baseline JPEG's; the
+    still-refused files are refused from their headers."""
+    import hashlib
+
+    from morphik_core_tpu_torch.models.colqwen.preprocess import to_rgb_u8
+    from morphik_core_tpu_torch.utils.image import UnsupportedImage, probe_image, read_image
+    from morphik_core_tpu_torch.utils.jpeg import read_jpeg
+
+    decode_ms, sizes = {}, {}
+    for name in MORE_FORMAT_FILES + MORE_FORMAT_TIMED:
+        key = name.replace(".", "_")
+        data = z[key].tobytes()
+        if name in MORE_FORMAT_PAST_PILLOW:
+            try:
+                probe_image(data)
+                raise AssertionError(f"{name} was not refused")
+            except UnsupportedImage as e:
+                if "64 KiB" not in str(e):
+                    raise
+            decode_ms[name] = _decode_ms(lambda d: read_jpeg(d, pillow_blocks=False), data)
+            continue
+        t = time.perf_counter()
+        pixels, mode, palette = read_image(data)
+        ms = (time.perf_counter() - t) * 1e3
+        rgb = to_rgb_u8(pixels, mode, palette)
+        if mode != str(z[f"{key}_mode"]) or hashlib.sha256(rgb.tobytes()).hexdigest() != str(z[f"{key}_rgb_sha256"]):
+            raise AssertionError(f"format fixture {name}: mode {mode} or pixels differ from Pillow's")
+        decode_ms[name] = _decode_ms(read_image, data, ms) if name in MORE_FORMAT_TIMED else ms
+        sizes[name] = list(rgb.shape[:2])
+    for name, words in MORE_FORMAT_REFUSED:
+        try:
+            probe_image(z[name.replace(".", "_")].tobytes())
+            raise AssertionError(f"{name} was not refused")
+        except UnsupportedImage as e:
+            if words not in str(e) or "3b-ii" not in str(e):
+                raise
+    base = decode_ms["letter_baseline.jpg"]
+    return {"decode_ms": decode_ms, "page_hw": sizes,
+            "letter_over_baseline": {n: decode_ms[n] / base for n in MORE_FORMAT_TIMED if n != "letter_baseline.jpg"}}
+
+
 def formats_phase(torch, model, _kernels, smi):
     """Phase 22: the page image formats on a server from the toml serving
     phase 3b's model. Each file is ingested over HTTP to `completed` as
     its first frame or page, its stored page the reference's q80 payload
     byte for byte; the still-refused JPEGs answer 415 before any document
     exists; WebP and TIFF image queries find their own page first,
-    through K1."""
+    through K1. The same for the files of image_formats_more.npz
+    (`MORE_FORMAT_*`): PNM,
+    PSD and arithmetic-coded JPEG queries."""
     import base64
     import hashlib
 
@@ -3763,7 +3842,9 @@ def formats_phase(torch, model, _kernels, smi):
 
     t_phase = time.perf_counter()
     z = np.load(FORMAT_FIXTURES)
+    zm = np.load(MORE_FORMAT_FIXTURES)
     decoders = check_format_decoders(z)
+    decoders["more"] = check_more_format_decoders(zm)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_formats_"))
     settings = service_settings(tmp)
     forward_batches = []
@@ -3783,28 +3864,33 @@ def formats_phase(torch, model, _kernels, smi):
         torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launch_counts()  # the formats path starts here
         log(f"phase 22: page image formats ({smi}): server up in {boot_s:.3f} s; host decode ms "
-            f"{json.dumps({k: round(v, 3) for k, v in decoders['decode_ms'].items()})}")
+            f"{json.dumps({k: round(v, 3) for k, v in decoders['decode_ms'].items()})}; the newer files' "
+            f"{json.dumps({k: round(v, 3) for k, v in decoders['more']['decode_ms'].items()})}")
         # still refused: 415 before any document exists
-        for name, data in ((FORMAT_REFUSED, z[FORMAT_REFUSED.replace(".", "_")].tobytes()),
-                           ("twelve.jpg", _twelve_bit(z["wide_baseline_jpg"].tobytes()))):
-            status, raw = client.request("POST", "/ingest/file", *client.multipart(name, data, "image/jpeg"))
+        refused = [(FORMAT_REFUSED, z[FORMAT_REFUSED.replace(".", "_")].tobytes(), "image/jpeg"),
+                   ("twelve.jpg", _twelve_bit(z["wide_baseline_jpg"].tobytes()), "image/jpeg")]
+        refused += [(name, zm[name.replace(".", "_")].tobytes(), MORE_FORMAT_CTYPES[name.rsplit(".", 1)[1]])
+                    for name, _ in MORE_FORMAT_REFUSED]
+        for name, data, ctype in refused:
+            status, raw = client.request("POST", "/ingest/file", *client.multipart(name, data, ctype))
             if status != 415 or b"3b-ii" not in raw:
                 raise AssertionError(f"{name} answered {status} {raw[:300]!r}, expected 415")
         if client.call("POST", "/documents", {}):
             raise AssertionError("a refused upload left a document")
-        ingest_s, docs = {}, {}
-        for name in FORMAT_FILES:
-            t = time.perf_counter()
-            doc = client.upload(name, z[name.replace(".", "_")].tobytes(), FORMAT_CTYPES[name.rsplit(".", 1)[1]])
-            ingest_s[name] = _wait_completed(client, [doc["external_id"]]) - t
-            docs[name] = doc["external_id"]
-        for name in FORMAT_FILES:   # one page each (the first frame or page), the reference's payload
+        ingest_s, docs, fixture_of = {}, {}, {}
+        for fx, names, ctypes_ in ((z, FORMAT_FILES, FORMAT_CTYPES), (zm, MORE_FORMAT_FILES, MORE_FORMAT_CTYPES)):
+            for name in names:
+                t = time.perf_counter()
+                doc = client.upload(name, fx[name.replace(".", "_")].tobytes(), ctypes_[name.rsplit(".", 1)[1]])
+                ingest_s[name] = _wait_completed(client, [doc["external_id"]]) - t
+                docs[name], fixture_of[name] = doc["external_id"], fx
+        for name in FORMAT_FILES + MORE_FORMAT_FILES:   # one page each (the first frame or page), the reference's
             chunks = client.call("POST", "/batch/chunks", {
                 "sources": [{"document_id": docs[name], "chunk_number": k} for k in range(3)], "use_colpali": True})
             if len(chunks) != 1:
                 raise AssertionError(f"{name}: {len(chunks)} page chunks stored, expected the first page only")
             payload = base64.b64decode(chunks[0]["content"].split(",", 1)[1])
-            if hashlib.sha256(payload).hexdigest() != str(z[name.replace(".", "_") + "_payload_sha256"]):
+            if hashlib.sha256(payload).hexdigest() != str(fixture_of[name][name.replace(".", "_") + "_payload_sha256"]):
                 raise AssertionError(f"{name}: the stored q80 payload differs from the reference's")
         ingest_launches = dict(_kernels.launch_counts)
         ingest_forwards = len(forward_batches)
@@ -3813,15 +3899,17 @@ def formats_phase(torch, model, _kernels, smi):
             raise AssertionError(f"{ingest_forwards} tower forwards, K3 launched "
                                  f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
         query_ms, k1, top = {}, [], {}
-        for name in FORMAT_QUERIES:
+        for fx, name, ctypes_ in ([(z, n, FORMAT_CTYPES) for n in FORMAT_QUERIES]
+                                  + [(zm, n, MORE_FORMAT_CTYPES) for n in MORE_FORMAT_QUERIES]):
             key = name.replace(".", "_")
-            uri = bytes_to_data_uri(z[key].tobytes(), FORMAT_CTYPES[name.rsplit(".", 1)[1]])
+            uri = bytes_to_data_uri(fx[key].tobytes(), ctypes_[name.rsplit(".", 1)[1]])
             before = _kernels.launch_counts["maxsim_q8"]
             t = time.perf_counter()
             hits = client.call("POST", "/retrieve/chunks", {"query_image": uri, "k": 4})
             query_ms[name] = (time.perf_counter() - t) * 1e3
             k1.append(_kernels.launch_counts["maxsim_q8"] - before)
-            own = {d for n, d in docs.items() if int(z[n.replace(".", "_") + "_page"]) == int(z[key + "_page"])}
+            own = {d for n, d in docs.items() if fixture_of[n] is fx
+                   and int(fx[n.replace(".", "_") + "_page"]) == int(fx[key + "_page"])}
             top[name] = next(n for n, d in docs.items() if d == hits[0]["document_id"])
             if hits[0]["document_id"] not in own:
                 raise AssertionError(f"the {name} image query's top-1 is {top[name]}, not a file of its page")

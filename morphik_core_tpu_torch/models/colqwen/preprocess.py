@@ -207,6 +207,28 @@ def _resample_axis_16(img: np.ndarray, out_size: int, axis: int, kind: str) -> n
     return np.ascontiguousarray(np.moveaxis(out, 0, axis))
 
 
+def _resample_axis_32(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
+    """Resample.c `ImagingResampleHorizontal_32bpc` / `Vertical_32bpc` on
+    "I" (int32) and "F" (float32) samples: double taps summed in order over
+    each output pixel's own window; "I" rounds half away from zero
+    (`ROUND_UP`) into int32, "F" stores the double sum as a float."""
+    in_size = img.shape[axis]
+    xmin, w = _resample_weights(in_size, out_size, kind)
+    src = np.moveaxis(img, axis, 0).astype(np.float64)
+    bshape = (out_size,) + (1,) * (src.ndim - 1)
+    acc = np.zeros((out_size,) + src.shape[1:])
+    inside = np.arange(w.shape[1])[None, :] < (np.minimum(xmin + w.shape[1], in_size) - xmin)[:, None]
+    for j in range(w.shape[1]):  # sequential, as the C loop sums; no term past the window
+        term = src[np.minimum(xmin + j, in_size - 1)] * w[:, j].reshape(bshape)
+        acc = acc + np.where(inside[:, j].reshape(bshape), term, 0.0)
+    if img.dtype == np.float32:
+        out = acc.astype(np.float32)
+    else:
+        out = np.where(acc >= 0.0, np.floor(acc + 0.5), -np.floor(np.abs(acc) + 0.5))
+        out = np.clip(out, -2 ** 31, 2 ** 31 - 1).astype(np.int32)
+    return np.ascontiguousarray(np.moveaxis(out, 0, axis))
+
+
 def _resize_axes(img: np.ndarray, size: Tuple[int, int], kind: str, resample_axis=_resample_axis) -> np.ndarray:
     """Width first, then height, as Pillow's `ImagingResample`; a new array."""
     h, w = size
@@ -263,13 +285,16 @@ def resize_mode_u8(pixels: np.ndarray, mode: str, size: Tuple[int, int], resampl
     is neither 0 nor 255); I;16 resizes in 16 bits (`_resample_axis_16`),
     and I;16B (uint16 values) as Pillow does it: on the byte-swapped values,
     swapped back;
-    CMYK resizes each of its four channels. `pixels` is (H, W) for L, P
-    and I;16 (uint16), (H, W, 2) for LA, (H, W, 3) RGB, (H, W, 4) RGBA and
-    CMYK."""
+    CMYK resizes each of its four channels; "I" (int32) and "F" (float32)
+    in their own precision (`_resample_axis_32`). `pixels` is (H, W) for
+    L, P, I;16 (uint16), I and F, (H, W, 2) for LA, (H, W, 3) RGB, (H, W, 4)
+    RGBA and CMYK."""
     if mode in ("P", "1"):
         return resize_nearest_u8(pixels, size)
     if mode == "I;16":
         return _resize_axes(pixels, size, resample, _resample_axis_16)
+    if mode in ("I", "F"):
+        return _resize_axes(pixels, size, resample, _resample_axis_32)
     if mode == "I;16B":
         # Resample.c reads and writes an I;16B buffer in I;16's byte order
         swapped = pixels.byteswap()
@@ -289,12 +314,17 @@ def to_rgb_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None
     """`Image.convert("RGB")` of an image of mode 1 (0 / 255), L, LA, RGB,
     RGBA, P (alpha dropped, not composited; `palette` (256, 3) for P),
     I;16 or I;16B (uint16 values; `I16_RGB`: a sample above 255 clips to
-    255) or CMYK (`Convert.c`
+    255), I (int32), F (float32) or CMYK (`Convert.c`
     `cmyk2rgb`: nk - MULDIV255(c, nk) with nk = 255 - k)."""
     if mode == "RGB":
         return pixels
     if mode in ("I;16", "I;16B"):
         return np.repeat(np.minimum(pixels, 255).astype(np.uint8)[..., None], 3, axis=2)
+    if mode == "I":   # `i2rgb`: clipped to 0..255
+        return np.repeat(np.clip(pixels, 0, 255).astype(np.uint8)[..., None], 3, axis=2)
+    if mode == "F":   # no F -> RGB converter: F -> L (`f2l`: clipped, truncated; NaN 0), then L -> RGB
+        v = np.nan_to_num(pixels.astype(np.float64), nan=0.0, posinf=255.0, neginf=0.0)
+        return np.repeat(np.clip(np.trunc(v), 0, 255).astype(np.uint8)[..., None], 3, axis=2)
     if mode == "RGBA":
         return np.ascontiguousarray(pixels[..., :3])
     if mode in ("L", "LA", "1"):
@@ -306,6 +336,15 @@ def to_rgb_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None
         nk = 255 - pixels[..., 3:].astype(np.int64)
         return np.clip(nk - _muldiv255(pixels[..., :3], nk), 0, 255).astype(np.uint8)
     raise ValueError(f"no RGB conversion for mode {mode!r}")
+
+
+def to_rgba_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None) -> np.ndarray:
+    """`Image.convert("RGBA")` of an image of mode 1, L, P (a palette
+    without alpha), RGB or RGBA: alpha 255 unless the image has its own."""
+    if mode == "RGBA":
+        return pixels.copy()
+    rgb = to_rgb_u8(pixels, mode, palette)
+    return np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
 
 
 def to_luma_u8(hwc: np.ndarray) -> np.ndarray:

@@ -50,9 +50,10 @@ embedding is the port's `HashingEmbeddingModel` vector of the input, so
 routed text retrieval has a known answer. A model named `status-NNN`
 answers HTTP NNN; `slow-S` answers after S seconds; `no-json` answers
 `ANSWER` whatever the prompt (a schema's parse fails); `linger` keeps
-writing comment lines for 5 s after a stream's last event, and `drip`
-keeps repeating its last delta for 5 s before that event; both record
-in `lingered` whether the client closed the connection within the 5 s.
+writing comment lines for `HOLD_S` (60 s) after a stream's last event,
+and `drip` keeps repeating its last delta for `HOLD_S` before that event;
+both record in `lingered` whether the client closed the connection
+before then (the tests wait `LINGER_S` + 5 s for that record).
 `line_end` sets the streams' line ends.
 """
 
@@ -79,6 +80,10 @@ TRANSCRIPTION = "# Transcribed page\n\n| quarter | revenue |\n|---|---|\n| Q3 | 
 TRANSCRIBE_PROMPT = "Transcribe this page to markdown"
 STREAM_PIECES = 5
 LINGER_S = 5.0
+# how long `drip` and `linger` keep writing while the client stays: far past the
+# LINGER_S the tests give the port to close, so a slow host runs out of the
+# tests' time, never of the fake's
+HOLD_S = 60.0
 GITHUB_TOKEN = "ghp_fake_token"
 GITHUB_INLINE_MAX = 64 * 1024  # larger files come by download_url, as GitHub's past 1 MB
 GOOGLE_CODE = "fake-authorization-code"
@@ -466,9 +471,9 @@ class FakeProviders:
             h.wfile.flush()
 
     def _hold(self, h: BaseHTTPRequestHandler, line: str) -> bool:
-        """Write `line` every 20 ms for LINGER_S or until the client
+        """Write `line` every 20 ms for HOLD_S or until the client
         closes; -> whether it closed."""
-        closed, deadline = False, time.monotonic() + LINGER_S
+        closed, deadline = False, time.monotonic() + HOLD_S
         while time.monotonic() < deadline:
             try:
                 self._write(h, [line])

@@ -25,15 +25,20 @@ most `ingest_embed_prefetch + 1` store batches of rastered pages, so a
 long PDF never holds every page's patches at once; the stored rows are
 those of the reference's whole-list order.
 
-Uploads: everything but video, images other than PNG, JPEG, GIF, BMP,
-TIFF and WebP, the variants of those the decoders refuse (JPEGs that are
-arithmetic-coded, lossless, 12-bit or progressive with coefficient bits
-left unrefined; the TIFF, BMP and WebP variants their modules name) and
-decompression bombs: those answer 415 (ROADMAP Queue 1 item 3b-ii).
-Progressive, multi-scan, CMYK and YCCK JPEGs, Adam7 and 16-bit PNGs,
-GIF, BMP, TIFF (CCITT, LZW, Deflate, PackBits, JPEG) and lossy,
-lossless and animated WebP are ingested in Pillow's modes
-(`utils/image.py::read_image`), a multi-frame file as its first frame.
+Uploads: everything but video, images whose bytes Pillow would open
+with a plugin the port does not decode (JPEG 2000, AVIF, DDS, ...) or
+that no plugin recognizes, the variants the decoders refuse (12-bit,
+hierarchical and arithmetic-coded lossless JPEGs, arithmetic-coded ones
+Pillow cannot load, progressive ones with coefficient bits left
+unrefined; the TIFF, BMP, PSD and WebP variants their modules name) and
+decompression bombs: those answer 415 (ROADMAP Queue 1 item 3b-ii). An
+image upload is sniffed as `Image.open` sniffs it, whatever its content
+type. PNG (Adam7, 16-bit), JPEG (progressive, multi-scan, CMYK / YCCK,
+arithmetic-coded, lossless), GIF, BMP / DIB, TIFF (CCITT, LZW, Deflate,
+PackBits, JPEG), WebP (lossy, lossless, animated), Netpbm, ICO / CUR,
+PSD, PCX / DCX, TGA, SGI, Sun raster, QOI, XBM and XPM are ingested in
+Pillow's modes (`utils/image.py::read_image`), a multi-frame file as its
+first frame.
 
 `folder_name` on either ingest path puts the document in that folder
 (created, with its ancestors, when missing). `update_document` merges
@@ -77,7 +82,7 @@ from morphik_core_tpu_torch.parser.text_render import UnsupportedText, render_te
 from morphik_core_tpu_torch.storage.base_storage import BaseStorage
 from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX, detect_content_type, is_colpali_native_format
 from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
-from morphik_core_tpu_torch.utils.image import UnsupportedImage, probe_image, read_image
+from morphik_core_tpu_torch.utils.image import UnidentifiedImage, UnsupportedImage, probe_image, read_image
 from morphik_core_tpu_torch.utils.jpeg import JpegCoefficients, encode_jpeg
 from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
@@ -88,29 +93,24 @@ class UnsupportedContentType(ValueError):
     """An upload of a content type the port does not ingest."""
 
 
-_IMAGE_TYPES = ("image/png", "image/jpeg", "image/gif", "image/bmp", "image/tiff", "image/webp")
-
-
 def check_upload(ctype: str, data: bytes) -> None:
     """Raise `UnsupportedContentType` (the route answers 415) for an
-    upload the port does not ingest: video, images other than PNG, JPEG,
-    GIF, BMP, TIFF and WebP, and a variant of those its decoders refuse or
-    Pillow would refuse as a decompression bomb (checked on the headers,
-    `utils/image.py::probe_image`)."""
+    upload the port does not ingest: video, and an `image/*` upload whose
+    bytes Pillow would open with a plugin the port does not decode (JPEG
+    2000, AVIF, ...), that no Pillow plugin recognizes, that a decoder
+    refuses by name, or that Pillow would refuse as a decompression bomb
+    (checked on the headers: `utils/image.py::probe_image` sniffs the bytes
+    as `Image.open` does, whatever the content type says)."""
     if ctype.startswith("video/"):
-        why = "video is not ingested by the port"
-    elif ctype.startswith("image/") and ctype not in _IMAGE_TYPES:
-        why = "the port decodes PNG, JPEG, GIF, BMP, TIFF and WebP images only"
-    else:
-        if ctype.startswith("image/"):
-            try:
-                probe_image(data)
-            except UnsupportedImage as e:
-                raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {e}") from e
-            except ValueError:
-                pass   # a broken file: its job fails with the decoder's error
-        return
-    raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {why} (ROADMAP Queue 1 item 3b-ii)")
+        raise UnsupportedContentType(f"content type {ctype!r} is not ingested: video is not ingested by the port "
+                                     "(ROADMAP Queue 1 item 3b-ii)")
+    if ctype.startswith("image/"):
+        try:
+            probe_image(data)
+        except (UnsupportedImage, UnidentifiedImage) as e:
+            raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {e}") from e
+        except ValueError:
+            pass   # a broken file: its job fails with the decoder's error
 
 
 def _image_to_data_uri(pixels: np.ndarray, mode: str, palette: Optional[np.ndarray], max_width: int,

@@ -52,13 +52,20 @@ def _refuse(what: str) -> UnsupportedImage:
 def _header(data: bytes) -> _Header:
     if data[:2] != b"BM" or len(data) < 18:
         raise ValueError("not a BMP file")
-    offset = struct.unpack("<I", data[10:14])[0]
-    size = struct.unpack("<I", data[14:18])[0]
-    hd = data[18:14 + size]
+    return _dib_header(data, 14, struct.unpack("<I", data[10:14])[0])
+
+
+def _dib_header(data: bytes, at: int, offset: int, cur22: bool = False) -> _Header:
+    """`BmpImageFile._bitmap(header=at, offset=offset)`: the info header at
+    `at`; the pixels at `offset`, or right after the header, its masks and
+    its palette when `offset` is 0 (a DIB); `cur22`: a 32-bit raw DIB at
+    offset 22 of a cursor file reads as BGRA (the plugin's quirk)."""
+    size = struct.unpack("<I", data[at:at + 4])[0]
+    hd = data[at + 4:at + size]
     if len(hd) != size - 4:
         raise ValueError("truncated BMP header")
     h = _Header()
-    pos = 14 + size
+    pos = at + size
     masks = None
     if size == 12:
         h.width, h.height, _planes, h.bits = struct.unpack("<HHHH", hd[:8])
@@ -80,9 +87,8 @@ def _header(data: bytes) -> _Header:
     else:
         raise _refuse(f"header of {size} bytes")
     colors = colors or (1 << h.bits)
-    if offset == 14 + size and h.bits <= 8:
+    if offset and offset == 14 + size and h.bits <= 8:
         offset += 4 * colors
-    h.offset = offset
     modes = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"), 16: ("RGB", "BGR;15"), 24: ("RGB", "BGR"),
              32: ("RGB", "BGRX")}
     if h.bits not in modes:
@@ -96,6 +102,8 @@ def _header(data: bytes) -> _Header:
         h.rawmode = table[key]
         if "A" in h.rawmode:
             h.mode = "RGBA"
+    elif h.compression == 0 and h.bits == 32 and cur22 and at == 22:
+        h.mode, h.rawmode = "RGBA", "BGRA"
     elif h.compression in (1, 2):
         if h.bits != (8 if h.compression == 1 else 4):
             raise _refuse(f"RLE{8 if h.compression == 1 else 4} at {h.bits} bits")
@@ -106,6 +114,7 @@ def _header(data: bytes) -> _Header:
         if not 0 < colors <= 65536:
             raise ValueError(f"unsupported BMP palette size ({colors})")
         raw = data[pos:pos + pad * colors]
+        pos += len(raw)
         ents = np.frombuffer(raw[:len(raw) // pad * pad], np.uint8).reshape(-1, pad)[:, 2::-1]
         want = [0, 255] if colors == 2 else list(range(colors))
         gray = len(ents) == colors and all((ents[i] == v).all() for i, v in enumerate(want))
@@ -117,15 +126,38 @@ def _header(data: bytes) -> _Header:
             n = min(len(ents), 256)
             lut[:n] = ents[:n]
             h.palette = lut
+    h.offset = offset or pos
     return h
 
 
-def probe_bmp(data: bytes) -> Tuple[int, int]:
-    h = _header(data)
+def _check(h: _Header) -> None:
     if h.compression in (1, 2) and h.mode == "1":
         raise _refuse("RLE with a black-and-white palette (Pillow cannot load it)")
     if h.compression == 0 and h.mode in ("1", "L") and h.bits != (1 if h.mode == "1" else 8):
         raise _refuse(f"{h.bits}-bit rows under a {h.mode} palette (Pillow misreads them)")
+
+
+def probe_bmp(data: bytes) -> Tuple[int, int]:
+    h = _header(data)
+    _check(h)
+    return h.width, h.height
+
+
+def dib_accept(prefix: bytes) -> bool:
+    """`BmpImagePlugin._dib_accept`."""
+    return len(prefix) >= 4 and struct.unpack("<I", prefix[:4])[0] in (12, 40, 52, 56, 64, 108, 124)
+
+
+def dib_header(data: bytes, at: int = 0, cur22: bool = False) -> _Header:
+    """The header of a DIB (no file header) at `at`, checked as `probe_bmp`
+    checks a BMP's."""
+    h = _dib_header(data, at, 0, cur22)
+    _check(h)
+    return h
+
+
+def probe_dib(data: bytes) -> Tuple[int, int]:
+    h = dib_header(data)
     return h.width, h.height
 
 
@@ -190,9 +222,21 @@ def read_bmp(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     """BMP bytes -> (pixels, mode, palette): "1" / "L" / "P" (H, W), "RGB"
     (H, W, 3), "RGBA" (H, W, 4) uint8; `palette` the (256, 3) lookup of a P
     image (entries past the file's black), else None."""
-    probe_bmp(data)
     h = _header(data)
-    w, ht = h.width, h.height
+    _check(h)
+    return dib_pixels(data, h, h.height), h.mode, h.palette
+
+
+def read_dib(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
+    """A DIB file (`DibImageFile`) -> as `read_bmp`."""
+    h = dib_header(data)
+    return dib_pixels(data, h, h.height), h.mode, h.palette
+
+
+def dib_pixels(data: bytes, h: _Header, height: int) -> np.ndarray:
+    """The pixels of the first `height` stored rows (an icon's or a
+    cursor's XOR image is the first half of its DIB's rows)."""
+    w, ht = h.width, height
     if h.compression in (1, 2):
         px = _rle(data, h.offset, w, ht, h.compression == 2)
     else:
@@ -221,4 +265,4 @@ def read_bmp(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
             px = np.stack([pix[..., order.index(c)] for c in ("RGBA" if h.mode == "RGBA" else "RGB")], -1)
     if not h.top_down:
         px = px[::-1]
-    return np.ascontiguousarray(px), h.mode, h.palette
+    return np.ascontiguousarray(px)

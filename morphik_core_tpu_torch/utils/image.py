@@ -1,33 +1,48 @@
-"""Page and query images from their bytes, by magic number, as Pillow's
-`Image.open(...).load()` holds them: PNG (`utils/png.py`), JPEG
-(`utils/jpeg.py`), GIF (`utils/gif.py`), BMP (`utils/bmp.py`), TIFF
-(`utils/tiff.py`) and WebP (`utils/webp.py`, `vp8.py`, `vp8l.py`).
+"""Page and query images from their bytes, as Pillow's
+`Image.open(...).load()` holds them.
 
-`probe_image` reads headers only: it raises `UnsupportedImage` (or
-`UnsupportedJpeg`) for a variant the port refuses, naming ROADMAP Queue 1
-item 3b-ii, and `DecompressionBombError` above Pillow's limit (twice
-`Image.MAX_IMAGE_PIXELS`), which `Image.open` raises for the reference; a
-header can claim any size. Anything that is none of the six formats
-raises a plain `ValueError`.
+`sniff` walks Pillow 12.1's plugins in the order `Image.open` tries them:
+first the ones `preinit()` registers (BMP, DIB, GIF, JPEG, PPM, PNG), then
+the rest in `Image.ID` order. A plugin whose `accept` passes the first
+16 bytes (or, for the five without one, whose `_open` would pass the
+whole file) claims the file unless its `_open` gives up with the
+exceptions `Image.open` moves on from (`jpeg.NotThisFormat`, IndexError,
+struct.error, KeyError, TypeError); any other error is the file's. The
+formats the port decodes: PNG (`utils/png.py`), JPEG (`utils/jpeg.py`),
+GIF (`gif.py`), BMP and DIB (`bmp.py`), TIFF (`tiff.py`), WebP (`webp.py`),
+Netpbm (`ppm.py`), ICO and CUR (`ico.py`), PSD (`psd.py`), PCX and DCX
+(`pcx.py`), TGA (`tga.py`), SGI (`sgi.py`), Sun raster (`sun.py`), QOI
+(`qoi.py`), XBM and XPM (`xbm.py`). A file another plugin claims (JPEG
+2000, AVIF, DDS, ...) raises `UnsupportedImage` naming it and ROADMAP
+Queue 1 item 3b-ii; in particular a TGA-shaped file that an earlier
+plugin claims is never read as TGA. Bytes no plugin claims raise
+`UnidentifiedImage`.
+
+`probe_image` reads headers only and also raises `DecompressionBombError`
+above Pillow's limit (twice `Image.MAX_IMAGE_PIXELS`), which
+`Image.open` raises for the reference; a header can claim any size.
 """
 
 from __future__ import annotations
 
+import re
 import struct
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
 from morphik_core_tpu_torch.models.colqwen.preprocess import to_rgb_u8
-from morphik_core_tpu_torch.utils.bmp import probe_bmp, read_bmp
+from morphik_core_tpu_torch.utils import ico, pcx, ppm, psd, qoi, sgi, sun, tga, xbm
+from morphik_core_tpu_torch.utils.bmp import dib_accept, probe_bmp, probe_dib, read_bmp, read_dib
 from morphik_core_tpu_torch.utils.gif import probe_gif, read_gif
-from morphik_core_tpu_torch.utils.jpeg import UnsupportedImage, UnsupportedJpeg, probe_jpeg, read_jpeg
+from morphik_core_tpu_torch.utils.jpeg import (NotThisFormat, UnsupportedImage, UnsupportedJpeg, probe_jpeg,
+                                               read_jpeg)
 from morphik_core_tpu_torch.utils.png import MAX_PIXELS, SIGNATURE, read_png
 from morphik_core_tpu_torch.utils.tiff import probe_tiff, read_tiff
 from morphik_core_tpu_torch.utils.webp import probe_webp, read_webp
 
-__all__ = ["DecompressionBombError", "UnsupportedImage", "UnsupportedJpeg", "decode_image", "image_format",
-           "probe_image", "read_image"]
+__all__ = ["DecompressionBombError", "UnidentifiedImage", "UnsupportedImage", "UnsupportedJpeg", "decode_image",
+           "probe_image", "read_image", "sniff"]
 
 
 class DecompressionBombError(UnsupportedImage):
@@ -38,48 +53,270 @@ class DecompressionBombError(UnsupportedImage):
                                   "could be decompression bomb DOS attack.")
 
 
-def image_format(data: bytes) -> Optional[str]:
-    """"png", "jpeg", "gif", "bmp", "tiff" or "webp" from the magic
-    number, else None."""
-    if data[:8] == SIGNATURE:
-        return "png"
-    if data[:3] == b"\xff\xd8\xff":
-        return "jpeg"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return "gif"
-    if data[:2] == b"BM":
-        return "bmp"
-    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
-        return "tiff"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "webp"
-    return None
+class UnidentifiedImage(ValueError):
+    """Bytes no Pillow plugin claims (Pillow's `UnidentifiedImageError`)."""
+
+    def __init__(self):
+        super().__init__("not a PNG, JPEG, GIF, BMP, TIFF, WebP, Netpbm, ICO, CUR, PSD, PCX, TGA, SGI, Sun, QOI, "
+                         "XBM or XPM file, nor one any other Pillow plugin identifies (ROADMAP Queue 1 item 3b-ii)")
 
 
-def _unknown() -> ValueError:
-    return ValueError("not a PNG, JPEG, GIF, BMP, TIFF or WebP file: the port decodes only these "
-                      "(ROADMAP Queue 1 item 3b-ii)")
+def _png_probe(data: bytes) -> Tuple[int, int]:
+    if len(data) < 24 or data[12:16] != b"IHDR":
+        raise ValueError("PNG has no IHDR chunk")
+    return struct.unpack(">II", data[16:24])
+
+
+def _jpeg_probe(data: bytes) -> Tuple[int, int]:
+    return probe_jpeg(data)[:2]
+
+
+def _jpeg_read(data: bytes):
+    pixels, mode = read_jpeg(data)
+    return pixels, mode, None
+
+
+_TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
+
+
+def _tiff_probe(data: bytes) -> Tuple[int, int]:
+    if data[:4] in (b"MM\x2a\x00", b"II\x00\x2a"):
+        raise UnsupportedImage("TIFF with a byte-swapped magic number")
+    return probe_tiff(data)
+
+
+def _i32le(b: bytes, at: int = 0) -> int:
+    return struct.unpack("<I", b[at:at + 4])[0] if len(b) >= at + 4 else -1
+
+
+def _i32be(b: bytes, at: int = 0) -> int:
+    return struct.unpack(">I", b[at:at + 4])[0] if len(b) >= at + 4 else -1
+
+
+def _i16le(b: bytes, at: int) -> int:
+    return struct.unpack("<H", b[at:at + 2])[0] if len(b) >= at + 2 else -1
+
+
+# the plugins the port decodes: accept on the 16-byte prefix, probe, read
+_PORTED: Dict[str, Tuple[Callable, Callable, Callable]] = {
+    "BMP": (lambda p: p.startswith(b"BM"), probe_bmp, read_bmp),
+    "DIB": (dib_accept, probe_dib, read_dib),
+    "GIF": (lambda p: p.startswith((b"GIF87a", b"GIF89a")), probe_gif, read_gif),
+    "JPEG": (lambda p: p.startswith(b"\xff\xd8\xff"), _jpeg_probe, _jpeg_read),
+    "PPM": (ppm.accept, ppm.probe_ppm, ppm.read_ppm),
+    "PNG": (lambda p: p.startswith(SIGNATURE), _png_probe, read_png),
+    "CUR": (lambda p: p.startswith(ico.CUR_MAGIC), ico.probe_cur, ico.read_cur),
+    "PCX": (pcx.accept, pcx.probe_pcx, pcx.read_pcx),
+    "DCX": (pcx.dcx_accept, pcx.probe_dcx, pcx.read_dcx),
+    "ICO": (lambda p: p.startswith(ico.ICO_MAGIC), ico.probe_ico, ico.read_ico),
+    "TIFF": (lambda p: p.startswith(_TIFF_PREFIXES), _tiff_probe, read_tiff),
+    "PSD": (lambda p: p.startswith(b"8BPS"), psd.probe_psd, psd.read_psd),
+    "QOI": (qoi.accept, qoi.probe_qoi, qoi.read_qoi),
+    "SGI": (sgi.accept, sgi.probe_sgi, sgi.read_sgi),
+    "SUN": (sun.accept, sun.probe_sun, sun.read_sun),
+    "TGA": (lambda p: True, tga.probe_tga, tga.read_tga),
+    "WEBP": (lambda p: p.startswith(b"RIFF") and p[8:12] == b"WEBP" and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L"),
+             probe_webp, read_webp),
+    "XBM": (xbm.xbm_accept, xbm.probe_xbm, xbm.read_xbm),
+    "XPM": (xbm.xpm_accept, xbm.probe_xpm, xbm.read_xpm),
+}
+
+def _gbr_claims(data: bytes) -> bool:
+    """`GbrImageFile._open` passes: its accept (a header of 20+ bytes,
+    version 1 or 2) matches the first bytes of a QOI or Sun file 1 or 2
+    pixels wide, and only the rest of its checks let those through."""
+    if len(data) < 20:
+        return False
+    size, version, w, h, depth = struct.unpack(">5I", data[:20])
+    return size >= 20 and version in (1, 2) and w and h and depth in (1, 4) and (version == 1 or data[20:24] == b"GIMP")
+
+
+# the plugins the port refuses: Pillow's accept (on bytes that start with its 16-byte
+# prefix; GBR's whole `_open`), and the words of the refusal
+_REFUSED: Dict[str, Tuple[Callable, str]] = {
+    "AVIF": (lambda p: p[4:8] == b"ftyp" and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), "AVIF"),
+    "BLP": (lambda p: p.startswith((b"BLP1", b"BLP2")), "BLP (Blizzard mipmap)"),
+    "BUFR": (lambda p: p.startswith((b"BUFR", b"ZCZC")), "BUFR"),
+    "DDS": (lambda p: p.startswith(b"DDS "), "DDS"),
+    "EPS": (lambda p: p.startswith(b"%!PS") or _i32le(p) == 0xC6D3D0C5, "EPS"),
+    "FITS": (lambda p: p.startswith(b"SIMPLE"), "FITS"),
+    "FLI": (lambda p: len(p) >= 16 and _i16le(p, 4) in (0xAF11, 0xAF12) and _i16le(p, 14) in (0, 3), "FLI / FLC"),
+    "FTEX": (lambda p: p.startswith(b"FTEX"), "FTEX"),
+    "GBR": (_gbr_claims, "GIMP brush (GBR)"),
+    "GRIB": (lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1, "GRIB"),
+    "HDF5": (lambda p: p.startswith(b"\x89HDF\r\n\x1a\n"), "HDF5"),
+    "JPEG2000": (lambda p: p.startswith((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
+                 "JPEG 2000"),
+    "ICNS": (lambda p: p.startswith(b"icns"), "ICNS"),
+    "MCIDAS": (lambda p: p.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"), "McIdas area"),
+    "MPEG": (lambda p: p.startswith(b"\x00\x00\x01\xb3"), "MPEG"),
+    "MSP": (lambda p: p.startswith((b"DanM", b"LinS")), "MSP (Windows Paint)"),
+    "PIXAR": (lambda p: p.startswith(b"\x80\xe8\x00\x00"), "PIXAR raster"),
+    "WMF": (lambda p: p.startswith((b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00")), "WMF / EMF"),
+    "XVTHUMB": (lambda p: p.startswith(b"P7 332"), "XV thumbnail"),
+}
+
+_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+_IM_TAGS = {b"Comment", b"Date", b"Digitalization equipment", b"File size (no of images)", b"Lut", b"Name",
+            b"Scale (x,y)", b"Image size (x*y)", b"Image type"}
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _im_claims(data: bytes) -> bool:
+    """`ImImageFile._open` up to the point where it has a tag line."""
+    if b"\n" not in data[:100]:
+        return False
+    pos, tags = 0, 0
+    while True:
+        s = data[pos:pos + 1]
+        pos += len(s)
+        if s == b"\r":
+            continue
+        if not s or s in (b"\0", b"\x1a"):
+            break
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end + 1
+        s, pos = s + data[pos:end], end
+        if len(s) > 100:
+            return False
+        s = s[:-2] if s.endswith(b"\r\n") else s[:-1] if s.endswith(b"\n") else s
+        m = _IM_LINE.match(s)
+        if not m:
+            return False
+        tags += m.group(1) in _IM_TAGS
+    return tags > 0
+
+
+def _imt_claims(data: bytes) -> bool:
+    """`ImtImageFile._open`: width, height and "pixel n8" before its
+    form feed."""
+    if b"\n" not in data[:100]:
+        return False
+    w = h = 0
+    mode = False
+    pos = 0
+    while pos < len(data):
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end
+        line, pos = data[pos:end], end + 1
+        if line[:1] == b"\x0c" or not line or len(line) > 100:
+            break
+        if line[:1] == b"*":
+            continue
+        m = _IMT_FIELD.match(line)
+        if not m:
+            break
+        k, v = m.groups()
+        try:
+            if k == b"width":
+                w = int(v)
+            elif k == b"height":
+                h = int(v)
+        except ValueError:
+            return True   # the plugin's own error: it has claimed the file
+        mode = mode or (k == b"pixel" and v == b"n8")
+    return mode and w > 0 and h > 0
+
+
+def _iptc_claims(data: bytes) -> bool:
+    """`IptcImageFile._open` up to its compression check: records of 0x1C,
+    a record number, a dataset and a length, until five zero bytes or
+    dataset 8:10; a layers / component record (3:60) and a width and
+    height (3:20, 3:30)."""
+    info, pos = {}, 0
+    while True:
+        s = data[pos:pos + 5]
+        pos += len(s)
+        if not s.strip(b"\x00"):
+            break
+        if len(s) < 5 or s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+            return False
+        size = s[3]
+        if size > 132:
+            return True   # the plugin's own OSError: it has claimed the file
+        if size == 128:
+            size = 0
+        elif size > 128:
+            size = int.from_bytes(data[pos:pos + size - 128], "big")
+            pos += size - 128
+        else:
+            size = struct.unpack(">H", s[3:5])[0]
+        if (s[1], s[2]) == (8, 10):
+            break
+        info[(s[1], s[2])] = data[pos:pos + size] if size else None
+        pos += len(info[(s[1], s[2])] or b"")
+    layers = info.get((3, 60))
+    return bool(layers) and len(layers) >= 2 and bool(info.get((3, 20))) and bool(info.get((3, 30)))
+
+
+def _spider_claims(data: bytes) -> bool:
+    """`SpiderImageFile._open`'s header check (27 floats, either order)."""
+    if len(data) < 108:
+        return False
+
+    def is_int(f: float) -> bool:
+        try:
+            return f - int(f) == 0
+        except (ValueError, OverflowError):
+            return False
+
+    for order in (">", "<"):
+        h = (99,) + struct.unpack(order + "27f", data[:108])
+        if not all(is_int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+            continue
+        if int(h[5]) not in (1, 3, -11, -12, -21, -22) or int(h[22]) != int(h[13]) * int(h[23]) or not int(h[22]):
+            continue
+        return int(h[5]) == 1 and int(h[12]) > 0 and int(h[2]) > 0
+    return False
+
+
+_CLAIMS = {
+    "IM": _im_claims,
+    "IMT": _imt_claims,
+    "IPTC": _iptc_claims,
+    "PCD": lambda d: d[2048:2052] == b"PCD_" and len(d) >= 2048 + 1539,
+    "SPIDER": _spider_claims,
+}
+_CLAIMS_WORDS = {"IM": "IM (LabEye)", "IMT": "IM Tools", "IPTC": "IPTC/NAA", "PCD": "Kodak PhotoCD",
+                 "SPIDER": "SPIDER"}
+
+_PREINIT = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG")
+_ID = ("AVIF", "BLP", "BMP", "DIB", "BUFR", "CUR", "PCX", "DCX", "DDS", "EPS", "FITS", "FLI", "FTEX", "GBR", "GIF",
+       "GRIB", "HDF5", "PNG", "JPEG2000", "ICNS", "ICO", "IM", "IMT", "IPTC", "JPEG", "MCIDAS", "MPEG", "TIFF",
+       "MSP", "PCD", "PIXAR", "PPM", "PSD", "QOI", "SGI", "SPIDER", "SUN", "TGA", "WEBP", "WMF", "XBM", "XPM",
+       "XVTHUMB")
+ORDER = _PREINIT + tuple(n for n in _ID if n not in _PREINIT)
+_MOVE_ON = (NotThisFormat, IndexError, struct.error, KeyError, TypeError)
+
+
+def sniff(data: bytes) -> str:
+    """The name of the Pillow plugin that opens these bytes, among those
+    the port decodes; raises `UnsupportedImage` when another plugin
+    claims them, `UnidentifiedImage` when none does, or the claiming
+    plugin's own error."""
+    prefix = data[:16]
+    for name in ORDER:
+        if name in _PORTED:
+            accept, probe, _ = _PORTED[name]
+            if not accept(prefix):
+                continue
+            try:
+                probe(data)
+            except _MOVE_ON:
+                continue
+            return name
+        if name in _REFUSED:
+            accept, words = _REFUSED[name]
+            if accept(data):
+                raise UnsupportedImage(f"{words} image")
+        elif _CLAIMS[name](data):
+            raise UnsupportedImage(f"{_CLAIMS_WORDS[name]} image")
+    raise UnidentifiedImage()
 
 
 def probe_image(data: bytes) -> Tuple[int, int]:
     """(width, height) from the headers; raises as the module says."""
-    kind = image_format(data)
-    if kind == "png":
-        if len(data) < 24 or data[12:16] != b"IHDR":
-            raise ValueError("PNG has no IHDR chunk")
-        size = struct.unpack(">II", data[16:24])
-    elif kind == "jpeg":
-        size = probe_jpeg(data)[:2]
-    elif kind == "gif":
-        size = probe_gif(data)
-    elif kind == "bmp":
-        size = probe_bmp(data)
-    elif kind == "tiff":
-        size = probe_tiff(data)
-    elif kind == "webp":
-        size = probe_webp(data)
-    else:
-        raise _unknown()
+    size = _PORTED[sniff(data)][1](data)
     if size[0] * size[1] > MAX_PIXELS:
         raise DecompressionBombError(size[0] * size[1])
     return size
@@ -87,17 +324,10 @@ def probe_image(data: bytes) -> Tuple[int, int]:
 
 def read_image(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     """-> (pixels, mode, palette) as Pillow's `Image.open` holds them."""
-    kind = image_format(data)
-    if kind is None:
-        raise _unknown()
-    if kind != "png":   # read_png checks its own limit
+    name = sniff(data)
+    if name != "PNG":   # read_png checks its own limit
         probe_image(data)
-    if kind == "png":
-        return read_png(data)
-    if kind == "jpeg":
-        pixels, mode = read_jpeg(data)
-        return pixels, mode, None
-    return {"gif": read_gif, "bmp": read_bmp, "tiff": read_tiff, "webp": read_webp}[kind](data)
+    return _PORTED[name][2](data)
 
 
 def decode_image(data: bytes) -> np.ndarray:

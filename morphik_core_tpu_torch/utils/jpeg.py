@@ -55,11 +55,18 @@ class UnsupportedImage(ValueError):
         super().__init__(f"{feature} is not supported by the port's decoder ({ROADMAP_ITEM})")
 
 
+class NotThisFormat(ValueError):
+    """What a Pillow plugin's `_open` signals with SyntaxError, IndexError,
+    TypeError, KeyError, EOFError or struct.error, or with a size of no
+    pixels: the bytes are not its format, and `Image.open` tries the next
+    plugin (`utils/image.py::sniff`)."""
+
+
 class UnsupportedJpeg(UnsupportedImage):
     """A JPEG that uses a feature this decoder does not implement."""
 
-    def __init__(self, feature: str):
-        super().__init__(f"{feature} JPEG")
+    def __init__(self, feature: str, detail: str = ""):
+        super().__init__(f"{feature} JPEG{detail}")
 
 
 # jpeg_natural_order: zigzag index -> natural (row-major) index
@@ -479,14 +486,19 @@ def _reconstruct(coeffs: JpegCoefficients) -> np.ndarray:
         dh = -(-coeffs.height * comp.v // vmax)
         up = _fancy_upsample(plane[:dh, :dw], hmax // comp.h, vmax // comp.v)
         planes.append(up[:coeffs.height, :coeffs.width])
-    if coeffs.color == "L":
+    return _convert(coeffs.color, planes)
+
+
+def _convert(color: str, planes: List[np.ndarray]) -> np.ndarray:
+    """Full-size component planes -> (H, W) gray or (H, W, C) pixels."""
+    if color == "L":
         return planes[0]
-    if coeffs.color == "RGB":
+    if color == "RGB":
         return np.stack(planes, axis=-1)
-    if coeffs.color == "CMYK":
+    if color == "CMYK":
         # Pillow reads every 4-component JPEG as rawmode "CMYK;I" (inverted)
         return 255 - np.stack(planes, axis=-1)
-    if coeffs.color == "YCCK":
+    if color == "YCCK":
         # jdcolor.c `ycck_cmyk_convert` (C, M, Y = 255 - R, G, B; K kept), then inverted
         return np.concatenate([_ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], axis=-1)
     return _ycc_to_rgb(*planes)
@@ -504,6 +516,8 @@ class _Frame(NamedTuple):
     width: int
     comps: List[Tuple[int, int, int, int]]   # (id, h, v, quant table id)
     progressive: bool
+    arith: bool = False      # arithmetic-coded (SOF9 / SOF10)
+    lossless: bool = False   # lossless (SOF3)
 
 
 def _segments(data: bytes, pos: int = 2):
@@ -535,14 +549,14 @@ def _segments(data: bytes, pos: int = 2):
             return
 
 
-_SOF_REFUSED = {0xC3: "lossless", 0xC7: "lossless", 0xCB: "lossless", 0xCF: "lossless",
-                0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
-                0xC5: "hierarchical", 0xC6: "hierarchical", 0xCD: "hierarchical", 0xCE: "hierarchical"}
+_SOF_REFUSED = {0xCB: "arithmetic-coded lossless",
+                0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical", 0xCD: "hierarchical",
+                0xCE: "hierarchical", 0xCF: "hierarchical"}
 
 
 def _check_sof(marker: int, body: bytes) -> _Frame:
     if marker in _SOF_REFUSED:
-        raise UnsupportedJpeg(_SOF_REFUSED[marker])
+        raise UnsupportedJpeg(_SOF_REFUSED[marker], " (libjpeg-turbo does not decode it)")
     precision, height, width, n = struct.unpack(">BHHB", body[:6])
     if precision != 8:
         raise UnsupportedJpeg(f"{precision}-bit")
@@ -555,24 +569,46 @@ def _check_sof(marker: int, body: bytes) -> _Frame:
     for _, h, v, _ in comps:
         if h not in (1, 2) or v not in (1, 2) or hmax // h > 2 or vmax // v > 2 or hmax % h or vmax % v:
             raise UnsupportedJpeg(f"sampling factors {h}x{v} of {hmax}x{vmax}")
-    return _Frame(height, width, comps, marker == 0xC2)
+    return _Frame(height, width, comps, marker in (0xC2, 0xCA), marker in (0xC9, 0xCA), marker == 0xC3)
+
+
+_PILLOW_BLOCK = 65536   # ImageFile.MAXBLOCK: Pillow feeds its JPEG decoder the file in blocks this size
+
+
+def _fed(pos: int, fed: int) -> int:
+    """The bytes Pillow has fed libjpeg once it has read the headers up to
+    `pos`: a marker segment that runs past the blocks fed suspends the
+    decoder until the next block comes."""
+    while pos > fed:
+        fed += _PILLOW_BLOCK
+    return fed
+
+
+def _check_arith_fed(data: bytes, pos: int, fed: int) -> None:
+    """jdarith.c reads its bytes with no suspension: an arithmetic-coded
+    scan whose data (and the marker after it) run past the blocks fed
+    makes libjpeg fail, and Pillow cannot load the file."""
+    if _entropy_end(data, pos) + 2 > fed:
+        raise UnsupportedJpeg("arithmetic-coded", " whose data run past Pillow's 64 KiB read block (libjpeg's "
+                              "arithmetic decoder cannot wait for the next, so Pillow cannot load it)")
 
 
 def probe_jpeg(data: bytes) -> Tuple[int, int, int]:
     """(width, height, components) from the headers of the frame and of
     every scan, the entropy-coded data skipped; raises `UnsupportedJpeg`
     for a file `read_jpeg` would refuse."""
-    frame, coef_bits, pos = None, None, 2
+    frame, coef_bits, pos, fed = None, None, 2, _PILLOW_BLOCK
     while True:
         for marker, body, pos in _segments(data, pos):
+            fed = _fed(pos, fed)
             if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
                 frame = _check_sof(marker, body)
-            elif marker == 0xCC:
-                raise UnsupportedJpeg("arithmetic-coded")
         if marker == 0xD9 or frame is None:
             break
         coef_bits = coef_bits or [[-1] * 64 for _ in frame.comps]
         _track_bits(coef_bits, _parse_sos(body, frame), frame.progressive)
+        if frame.arith:
+            _check_arith_fed(data, pos, fed)
         pos = _entropy_end(data, pos)
     if frame is None or coef_bits is None:
         raise ValueError("JPEG has no frame header before its scan")
@@ -885,7 +921,10 @@ def _parse_sos(body: bytes, frame: _Frame) -> _Scan:
         comps.append((ids.index(cid), tsel >> 4, tsel & 15))
     ss, se, a = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
     scan = _Scan(comps, ss, se, a >> 4, a & 15)
-    if not frame.progressive:
+    if frame.lossless:
+        if not 1 <= ss <= 7 or se != 0 or scan.ah != 0 or scan.al >= 8:
+            raise ValueError("JPEG lossless scan with bad parameters")
+    elif not frame.progressive:
         if (ss, se, a) != (0, 63, 0):
             raise ValueError("JPEG sequential scan with a spectral selection")
     elif ss > se or se > 63 or (ss == 0) != (se == 0) or (ss and ns != 1) or scan.al > 13:
@@ -901,6 +940,9 @@ def _track_bits(coef_bits: List[List[int]], scan: _Scan, progressive: bool) -> N
         bits = coef_bits[ci]
         if not progressive and bits[0] >= 0:
             raise ValueError("JPEG sequential component coded in two scans")
+        if scan.se < scan.ss:   # a lossless scan: its predictor in Ss
+            bits[0] = scan.al
+            continue
         for k in range(scan.ss, scan.se + 1):
             if (scan.ah == 0) != (bits[k] < 0) or (scan.ah and scan.ah != bits[k]):
                 raise ValueError("JPEG progressive scan out of order")
@@ -916,11 +958,411 @@ def _check_refined(coef_bits: List[List[int]]) -> None:
         raise UnsupportedJpeg("progressive (scans leave coefficient bits unrefined, block smoothing)")
 
 
+# jaricom.c `jpeg_aritab` (Table D.2): Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS
+_ARITAB = [int(v, 16) for v in (
+    "5a1d0181 2586020e 11140310 080b0412 03d80514 01da0617 00e50719 006f081c 0036091e 001a0a21 000d0b23 00060c09 "
+    "00030d0a 00010d0c 5a7f0f8f 3f251024 2cf21126 207c1227 17b91328 1182142a 0cef152b 09a1162d 072f172e 055c1830 "
+    "04061931 03031a33 02401b34 01b11c36 01441d38 00f51e39 00b71f3b 008a203c 0068213e 004e223f 003b2320 002c0921 "
+    "5ae125a5 484c2640 3a0d2741 2ef12843 261f2944 1f332a45 19a82b46 15182c48 11772d49 0e742e4a 0bfb2f4b 09f8304d "
+    "0861314e 0706324f 05cd3330 04de3432 040f3532 03633633 02d43734 025c3835 01f83936 01a43a37 01603b38 01253c39 "
+    "00f63d3a 00cb3e3b 00ab3f3d 008f203d 5b1241c1 4d044250 412c4351 37d84452 2fe84553 293c4654 23794756 1edf4857 "
+    "1aa94957 174e4a48 14244b48 119c4c4a 0f6b4d4a 0d514e4b 0bb64f4d 0a40304d 583251d0 4d1c5258 438e5359 3bdd545a "
+    "34ee555b 2eae565c 299a575d 25164756 557059d8 4ca95a5f 44d95b60 3e225c61 38245d63 32b45e63 2e17565d 56a860df "
+    "4f466165 47e56266 41cf6367 3c3d6468 375e5d63 52316669 4c0f676a 4639686b 415e6367 56276ae9 50e76b6c 4b85676d "
+    "55976d6e 504f6b6f 5a106fee 55226d70 59eb6ff0 5a1d7171").split()]
+
+
+def _arith_decoder(seg: bytes):
+    """jdarith.c `arith_decode` over one restart interval's bytes (0xFF00
+    already unstuffed; zeros after its end, as after a marker) -> (decode
+    (stats, index) -> bit, the state's `ct` getter, a setter of the error
+    state ct = -1)."""
+    c = a = 0
+    ct = -16
+    pos = 0
+    n = len(seg)
+    tab = _ARITAB
+
+    def decode(st: bytearray, i: int) -> int:
+        nonlocal c, a, ct, pos
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                if pos < n:
+                    c = (c << 8) | seg[pos]
+                    pos += 1
+                else:
+                    c <<= 8
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = tab[sv & 0x7F]
+        nl = qe & 0xFF
+        qe >>= 8
+        nm = qe & 0xFF
+        qe >>= 8
+        temp = a - qe
+        a = temp
+        temp <<= ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+    def failed() -> bool:
+        return ct == -1
+
+    def fail() -> None:
+        nonlocal ct
+        ct = -1
+
+    return decode, failed, fail
+
+
+def _s16(v: int) -> int:
+    """A C `(JCOEF)` cast: the low 16 bits as a signed value."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _dc_diff(decode, st: bytearray, ctx: int, dc_l: int, dc_u: int, fail):
+    """Figures F.19-F.24 (jdarith.c): one DC difference from the bins
+    `st` at conditioning `ctx` -> (difference, next context), or None on a
+    magnitude overflow (the decoder then stays in its error state)."""
+    if not decode(st, ctx):
+        return 0, 0
+    sign = decode(st, ctx + 1)
+    s = ctx + 2 + sign
+    m = decode(st, s)
+    if m:
+        s = 20
+        while decode(st, s):
+            m <<= 1
+            if m == 0x8000:
+                fail()
+                return None
+            s += 1
+    if m < (1 << dc_l) >> 1:
+        ctx = 0
+    elif m > (1 << dc_u) >> 1:
+        ctx = 12 + sign * 4
+    else:
+        ctx = 4 + sign * 4
+    v = m
+    s += 14
+    while m > 1:
+        m >>= 1
+        if decode(st, s):
+            v |= m
+    return (-(v + 1) if sign else v + 1), ctx
+
+
+def _ac_magnitude(decode, st: bytearray, s: int, k: int, ac_k: int, fail):
+    """Figures F.23-F.24 for coefficient `k` from its category bin `s`
+    -> the magnitude, or None on an overflow."""
+    m = decode(st, s)
+    if m and decode(st, s):
+        m <<= 1
+        s = 189 if k <= ac_k else 217
+        while decode(st, s):
+            m <<= 1
+            if m == 0x8000:
+                fail()
+                return None
+            s += 1
+    v = m
+    s += 14
+    while m > 1:
+        m >>= 1
+        if decode(st, s):
+            v |= m
+    return v + 1
+
+
+_FIXED = 113   # jdarith.c `fixed_bin`: a state whose estimate never moves
+
+
+def _arith_interval(seg: bytes, units, blk_of, scan: "_Scan", tables, progressive: bool) -> None:
+    """One restart interval of an arithmetic-coded scan (jdarith.c
+    `decode_mcu`, `decode_mcu_DC_first` / `_refine`, `decode_mcu_AC_first`
+    / `_refine`): statistics and DC predictions start from zero; after a
+    magnitude or spectral overflow the rest of the interval decodes
+    nothing. `units` yields (component, flat offset of the block);
+    `tables[ci]` is (DC table, AC table, DC L, DC U, AC K)."""
+    decode, failed, fail = _arith_decoder(seg)
+    dc_st, ac_st = {}, {}
+    for ci, (td, ta, *_rest) in tables.items():
+        dc_st.setdefault(td, bytearray(64))
+        ac_st.setdefault(ta, bytearray(256))
+    fixed = bytearray([_FIXED])
+    last = dict.fromkeys(tables, 0)
+    ctx = dict.fromkeys(tables, 0)
+    zz = ZIGZAG.tolist()
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    p1, m1 = 1 << al, -1 << al
+    if progressive and ss == 0 and ah:   # DC refinement: one fixed-probability bit a block
+        for ci, base in units:
+            if decode(fixed, 0):
+                blk_of[ci][base] |= p1
+        return
+    for ci, base in units:
+        if failed():
+            return
+        blk = blk_of[ci]
+        td, ta, dc_l, dc_u, ac_k = tables[ci]
+        if not progressive or ss == 0:
+            res = _dc_diff(decode, dc_st[td], ctx[ci], dc_l, dc_u, fail)
+            if res is None:
+                return
+            diff, ctx[ci] = res
+            last[ci] = (last[ci] + diff) & 0xFFFF
+            blk[base] = _s16(last[ci] << al) if progressive else _s16(last[ci])
+            if progressive:
+                continue
+        st = ac_st[ta]
+        if progressive and ah:   # AC refinement
+            kex = se
+            while kex > 0 and not blk[base + zz[kex]]:
+                kex -= 1
+            k = ss
+            while k <= se:
+                s = 3 * (k - 1)
+                if k > kex and decode(st, s):
+                    break
+                while True:
+                    i = base + zz[k]
+                    if blk[i]:
+                        if decode(st, s + 2):
+                            blk[i] = _s16(blk[i] + (m1 if blk[i] < 0 else p1))
+                        break
+                    if decode(st, s + 1):
+                        blk[i] = _s16(m1 if decode(fixed, 0) else p1)
+                        break
+                    s += 3
+                    k += 1
+                    if k > se:
+                        fail()
+                        return
+                k += 1
+            continue
+        k = ss if progressive else 1
+        end = se if progressive else 63
+        while k <= end:
+            s = 3 * (k - 1)
+            if decode(st, s):   # end of block
+                break
+            while not decode(st, s + 1):
+                s += 3
+                k += 1
+                if k > end:
+                    fail()
+                    return
+            sign = decode(fixed, 0)
+            v = _ac_magnitude(decode, st, s + 2, k, ac_k, fail)
+            if v is None:
+                return
+            blk[base + zz[k]] = _s16((-v if sign else v) << al)
+            k += 1
+
+
+# ------------------------------------------------------- lossless (SOF3)
+
+
+def _huff_steps(seg: bytes, lut: np.ndarray, nbits: int) -> Tuple[np.ndarray, np.ndarray]:
+    """For every bit position of an interval (and one past its end, and a
+    sink after that): the position after the difference coded there, and
+    its value (jdlhuff.c: a category, then that many bits; category 16 is
+    32768 with no bits). A bad code, or one running past the data, goes
+    to the sink."""
+    sink = nbits + 1
+    b = np.frombuffer(seg + b"\xff" * 8, np.uint8).astype(np.uint32)
+    w32 = (b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]
+    p = np.arange(nbits + 2, dtype=np.int32)
+    p[sink] = 0
+    e = lut[(w32[p >> 3] >> (16 - (p & 7)).astype(np.uint32)) & 0xFFFF]
+    length, cat = e & 0xFF, e >> 8
+    extra = np.where(cat < 16, cat, 0)
+    q = p + length
+    # a shift of 32 (no extra bits at a byte boundary) is masked to nothing below
+    r = ((w32[q >> 3] >> (32 - (q & 7) - extra).astype(np.uint32)) & ((1 << extra) - 1).astype(np.uint32))
+    r = r.astype(np.int32)
+    value = np.where(cat == 16, 32768, np.where(r < (1 << np.maximum(extra - 1, 0)), r - (1 << extra) + 1, r))
+    value = np.where(cat == 0, 0, value)
+    nxt = q + extra
+    nxt = np.where((length == 0) | (nxt > nbits), sink, nxt)
+    nxt[sink] = sink
+    return nxt, value
+
+
+def _lossless_interval(seg: bytes, luts: List[np.ndarray], n_mcu: int) -> np.ndarray:
+    """Huffman-decode `n_mcu` MCUs of one interval, `luts[k]` the table of
+    the MCU's k-th sample -> (n_mcu, len(luts)) differences. The codes are
+    found without a loop over samples: each position's successor is
+    known for every bit, the MCU successor is their composition, and the
+    MCU starts come from a power of it (strides of `jump` MCUs walked in
+    Python, the MCUs between them by arrays)."""
+    nbits = len(seg) * 8
+    sink = nbits + 1
+    steps = {}
+    for lut in luts:
+        if id(lut) not in steps:
+            steps[id(lut)] = _huff_steps(seg, lut, nbits)
+    mcu = steps[id(luts[0])][0]
+    for lut in luts[1:]:
+        mcu = steps[id(lut)][0][mcu]
+    jump = 1
+    far = mcu
+    while jump * jump < n_mcu:
+        far = far[far]
+        jump *= 2
+    starts = [0]
+    for _ in range((n_mcu - 1) // jump):
+        starts.append(int(far[starts[-1]]))
+    starts = np.array(starts, np.int64)
+    pos = np.empty((len(starts), jump), np.int64)
+    cur = starts
+    for t in range(jump):
+        pos[:, t] = cur
+        cur = mcu[cur]
+    pos = pos.reshape(-1)[:n_mcu]
+    out = np.empty((n_mcu, len(luts)), np.int64)
+    for k, lut in enumerate(luts):
+        nxt, value = steps[id(lut)]
+        if (pos >= nbits).any():
+            raise ValueError("corrupt or truncated lossless JPEG data")
+        out[:, k] = value[pos]
+        pos = nxt[pos]
+    if (pos == sink).any():
+        raise ValueError("corrupt or truncated lossless JPEG data")
+    return out
+
+
+def _undifference(diff: np.ndarray, psv: int, first: np.ndarray, init: int) -> np.ndarray:
+    """jdpred.c on one component's (rows, cols) differences: a row that
+    starts the scan or a restart interval predicts from `init`, then from
+    the sample to its left; any other row's first sample from the one
+    above, the rest with predictor `psv` (Ra left, Rb above, Rc above
+    left); sums are taken modulo 2^16. Computed one anti-diagonal at a
+    time, whose samples depend only on the two before it."""
+    rows, cols = diff.shape
+    x = np.zeros((rows + 1, cols + 1), np.int64)   # x[i + 1, j + 1] is sample (i, j)
+    for d in range(rows + cols - 1):
+        i = np.arange(max(0, d - cols + 1), min(rows - 1, d) + 1)
+        j = d - i
+        ra, rb, rc = x[i + 1, j], x[i, j + 1], x[i, j]
+        if psv == 1:
+            pred = ra
+        elif psv == 2:
+            pred = rb
+        elif psv == 3:
+            pred = rc
+        elif psv == 4:
+            pred = ra + rb - rc
+        elif psv == 5:
+            pred = ra + ((rb - rc) >> 1)
+        elif psv == 6:
+            pred = rb + ((ra - rc) >> 1)
+        else:
+            pred = (ra + rb) >> 1
+        top = first[i]
+        pred = np.where(j == 0, np.where(top, init, rb), np.where(top, ra, pred))
+        x[i + 1, j + 1] = (pred + diff[i, j]) & 0xFFFF
+    return x[1:, 1:]
+
+
+def _lossless_scan(frame: _Frame, scan: "_Scan", intervals: List[bytes], restart: int, dc_specs: dict,
+                   samples: list) -> None:
+    """One lossless scan (jddiffct.c, jdlhuff.c, jdpred.c, jdlossls.c):
+    the differences of each MCU (an interleaved scan's MCU holds v x h
+    samples of each component, a single component's MCU one sample), a
+    restart interval being whole MCU rows; then each component
+    undifferenced over its own width and scaled up by the point
+    transform into 8-bit samples."""
+    hmax = max(c[1] for c in frame.comps)
+    vmax = max(c[2] for c in frame.comps)
+    sizes = [(-(-frame.height * v // vmax), -(-frame.width * h // hmax)) for _, h, v, _ in frame.comps]
+    if len(scan.comps) == 1:
+        ci = scan.comps[0][0]
+        mcu_rows, mcu_cols = sizes[ci]
+        layout = [(ci, 0, 0)]
+        dims = {ci: (1, 1)}
+    else:
+        mcu_rows, mcu_cols = -(-frame.height // vmax), -(-frame.width // hmax)
+        layout, dims = [], {}
+        for ci, _, _ in scan.comps:
+            _, h, v, _ = frame.comps[ci]
+            dims[ci] = (v, h)
+            layout += [(ci, dy, dx) for dy in range(v) for dx in range(h)]
+    luts = []
+    for ci, td, _ in scan.comps:
+        if dc_specs.get(td) is None:
+            raise ValueError("JPEG scan uses an undefined Huffman table")
+    lut_of = {td: np.asarray(dc_specs[td], np.int32) for _, td, _ in scan.comps}
+    table = {ci: td for ci, td, _ in scan.comps}
+    luts = [lut_of[table[ci]] for ci, _, _ in layout]
+    n = mcu_rows * mcu_cols
+    if restart and restart % mcu_cols:
+        raise UnsupportedJpeg("lossless with a restart interval of part of an MCU row")
+    step = restart or n
+    if len(intervals) < -(-n // step):
+        raise ValueError("truncated JPEG image data")
+    diffs = np.concatenate([_lossless_interval(intervals[i // step], luts,
+                                               min(step, n - i)) for i in range(0, n, step)])
+    g = np.arange(n)
+    my, mx = g // mcu_cols, g % mcu_cols
+    planes = {ci: np.zeros((mcu_rows * v, mcu_cols * h), np.int64) for ci, (v, h) in dims.items()}
+    for k, (ci, dy, dx) in enumerate(layout):
+        v, h = dims[ci]
+        planes[ci][my * v + dy, mx * h + dx] = diffs[:, k]
+    init = 1 << (8 - scan.al - 1)
+    for ci, (v, h) in dims.items():
+        rows, cols = sizes[ci]
+        first = np.zeros(rows, bool)
+        first[::(step // mcu_cols) * v] = True
+        undiff = _undifference(planes[ci][:rows, :cols], scan.ss, first, init)
+        samples[ci] = ((undiff << scan.al) & 0xFF).astype(np.uint8)
+
+
+def _lossless_pixels(coeffs: JpegCoefficients, samples: list) -> np.ndarray:
+    """A lossless file's samples -> pixels: each component replicated to
+    full size (libjpeg does no fancy upsampling at a DCT size of 1), then
+    the colour conversion of a DCT file."""
+    hmax = max(c.h for c in coeffs.components)
+    vmax = max(c.v for c in coeffs.components)
+    planes = [np.repeat(np.repeat(sm, vmax // c.v, axis=0), hmax // c.h, axis=1)[:coeffs.height, :coeffs.width]
+              for sm, c in zip(samples, coeffs.components)]
+    return _convert(coeffs.color, planes)
+
+
 def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
     """JPEG bytes -> the quantized coefficients of every component after
     all its scans, with the quantization tables latched at each
     component's first scan (jdinput.c), and how they map to pixels."""
+    return _read_frame(data)[0]
+
+
+def _read_frame(data: bytes, pillow_blocks: bool = True):
+    """-> (coefficients; a lossless file's (H, W) uint8 component samples,
+    else None). `pillow_blocks=False` decodes an arithmetic-coded file
+    Pillow cannot load (`_check_arith_fed`), to time the decoder on it."""
     qtables, dc_specs, ac_specs = {}, {}, {}
+    dac_dc, dac_ac = {}, {}   # arithmetic conditioning (DAC): L and U of DC tables, K of AC tables
+    samples = None
     latched = {}
     frame = None
     restart = 0
@@ -928,9 +1370,10 @@ def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
     adobe_transform = None
     blocks = coef = None
     coef_bits = None
-    pos = 2
+    pos, fed = 2, _PILLOW_BLOCK
     while True:
         for marker, body, pos in _segments(data, pos):
+            fed = _fed(pos, fed)
             if marker == 0xDB:
                 i = 0
                 while i < len(body):
@@ -954,7 +1397,16 @@ def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
                     raise ValueError("JPEG has a second frame header")
                 frame = _check_sof(marker, body)
             elif marker == 0xCC:
-                raise UnsupportedJpeg("arithmetic-coded")
+                for i in range(0, len(body) - 1, 2):
+                    tc, tb, cs = body[i] >> 4, body[i] & 15, body[i + 1]
+                    if tc == 0:
+                        if cs & 15 > cs >> 4:
+                            raise ValueError("JPEG DAC segment with L above U")
+                        dac_dc[tb] = (cs & 15, cs >> 4)
+                    elif not 1 <= cs <= 63:
+                        raise ValueError("JPEG DAC segment with K outside 1..63")
+                    else:
+                        dac_ac[tb] = cs
         if marker == 0xD9:
             break
         # an SOS: decode its scan
@@ -964,22 +1416,37 @@ def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
             hmax = max(c[1] for c in frame.comps)
             vmax = max(c[2] for c in frame.comps)
             mcu_rows, mcu_cols = -(-frame.height // (8 * vmax)), -(-frame.width // (8 * hmax))
-            blocks = [np.zeros((mcu_rows * v, mcu_cols * h, 64), np.int64) for _, h, v, _ in frame.comps]
-            coef = [[0] * b.size for b in blocks] if frame.progressive else [([], []) for _ in blocks]
+            blocks = [np.zeros((0 if frame.lossless else mcu_rows * v, mcu_cols * h, 64), np.int64)
+                      for _, h, v, _ in frame.comps]
+            coef = [[0] * b.size for b in blocks] if frame.progressive or frame.arith else [([], []) for _ in blocks]
             coef_bits = [[-1] * 64 for _ in blocks]
         scan = _parse_sos(body, frame)
         for ci, td, ta in scan.comps:
-            if ci not in latched:
+            if ci not in latched and frame.lossless:
+                latched[ci] = np.ones(64, np.int64)
+            elif ci not in latched:
                 tq = frame.comps[ci][3]
                 if tq not in qtables:
                     raise ValueError(f"JPEG uses an undefined quantization table {tq}")
                 latched[ci] = qtables[tq].copy()
         _track_bits(coef_bits, scan, frame.progressive)
         intervals, pos = _entropy_segments(data, pos)
+        if frame.lossless:
+            samples = samples or [None] * len(frame.comps)
+            _lossless_scan(frame, scan, intervals, restart, dc_specs, samples)
+            continue
         comp_of, bases, per_mcu = _scan_units(frame, blocks, scan)
         step = (restart or len(bases) // per_mcu) * per_mcu
         if len(intervals) < -(-len(bases) // step):
             raise ValueError("truncated JPEG image data")
+        if frame.arith:
+            if pillow_blocks:
+                _check_arith_fed(data, pos, fed)
+            tables = {ci: (td, ta) + dac_dc.get(td, (0, 1)) + (dac_ac.get(ta, 5),) for ci, td, ta in scan.comps}
+            for i in range(0, len(bases), step):
+                part = slice(i, i + step)
+                _arith_interval(intervals[i // step], zip(comp_of[part], bases[part]), coef, scan, tables, frame.progressive)
+            continue
         if not frame.progressive or scan.ss == 0:
             dc = {ci: dc_specs.get(td) for ci, td, _ in scan.comps}
             ac = {ci: ac_specs.get(ta) for ci, _, ta in scan.comps}
@@ -1000,10 +1467,11 @@ def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
                 decode(seg, bases[part], coef[ci], ac_specs[ta], scan.ss, scan.se, scan.al)
     if blocks is None:
         raise ValueError("JPEG ends before its image data")
-    if len(latched) != len(frame.comps):
+    if len(latched) != len(frame.comps) or (samples is not None and any(sm is None for sm in samples)):
         raise ValueError("JPEG component without a scan")
     if frame.progressive:
         _check_refined(coef_bits)
+    if frame.progressive or frame.arith:
         for blk, c in zip(blocks, coef):
             blk.reshape(-1)[:] = c
     else:
@@ -1021,21 +1489,25 @@ def read_jpeg_coefficients(data: bytes) -> JpegCoefficients:
         color = "YCbCr"
     elif adobe:
         color = "RGB" if adobe_transform == 0 else "YCbCr"
-    else:
-        color = "RGB" if ids == [82, 71, 66] else "YCbCr"
-    return JpegCoefficients(frame.height, frame.width, comps, color)
+    elif ids == [1, 2, 3]:
+        color = "YCbCr"
+    else:   # jdapimin.c: unknown ids are RGB in a lossless file, YCbCr otherwise
+        color = "RGB" if ids == [82, 71, 66] or frame.lossless else "YCbCr"
+    return JpegCoefficients(frame.height, frame.width, comps, color), samples
 
 
-def read_jpeg(data: bytes, color: "str | None" = None) -> Tuple[np.ndarray, str]:
+def read_jpeg(data: bytes, color: "str | None" = None, pillow_blocks: bool = True) -> Tuple[np.ndarray, str]:
     """JPEG bytes -> (pixels, mode) as Pillow's `Image.open` decodes them:
     mode "L" gives (H, W), mode "RGB" (H, W, 3), mode "CMYK" (H, W, 4)
     uint8. `color` ("RGB" or "YCbCr") overrides what the markers say of a
     file of 3 or 4 components ("RGB": the stored samples), as libtiff does
-    for a JPEG strip of a TIFF."""
-    coeffs = read_jpeg_coefficients(data)
+    for a JPEG strip of a TIFF; `pillow_blocks` as `_read_frame` has it."""
+    coeffs, samples = _read_frame(data, pillow_blocks)
     if color is not None and len(coeffs.components) > 1:
         coeffs = coeffs._replace(color=color)
     mode = {"L": "L", "CMYK": "CMYK", "YCCK": "CMYK"}.get(coeffs.color, "RGB")
+    if samples is not None:
+        return _lossless_pixels(coeffs, samples), mode
     return _reconstruct(coeffs), mode
 
 

@@ -560,6 +560,8 @@ def _page(n: int, dpi: int = 100) -> np.ndarray:
 def connector_files() -> dict:
     """The files of `chip_smoke.py` phase 16's local connector directory
     that need PIL or a writer of this module: name -> bytes."""
+    from tests.test_torch_more_image_formats import arith_past_a_block
+
     gray16 = _page(4)[:300, :, 0].astype(np.int64)
     gray16 = np.concatenate([gray16, gray16[:, :250]], axis=1)   # 1100 wide: I;16 resizes to 1024
     gray16 = np.where(gray16 > 200, 6000 + gray16, gray16)      # the background clips to white
@@ -573,33 +575,28 @@ def connector_files() -> dict:
         "gray16.png": png_bytes(gray16, 16, 0, interlace=True, seed=4, filters=(0, 2),
                                 trns=struct.pack(">H", 6255)),
         "cmyk.jpg": _pil_jpeg(Image.fromarray(_page(5)[:200, :200]).convert("CMYK"), quality=80),
-        "arith.jpg": _arithmetic_header(_pil_jpeg(Image.fromarray(_page(6)[:200, :200]), quality=80)),
+        "arith.jpg": arith_past_a_block(_page(6)),
     }
 
 
+# an arithmetic-coded JPEG whose data run past Pillow's first 64 KiB block:
+# Pillow cannot load it, and the port refuses it (ROADMAP item 3b-ii)
 REFUSED = ("arith.jpg",)
-
-
-def _arithmetic_header(data: bytes) -> bytes:
-    """A baseline file whose frame header says arithmetic coding (SOF9):
-    a file the port still refuses (ROADMAP item 3b-ii)."""
-    at = data.index(b"\xff\xc0")
-    return data[:at] + b"\xff\xc9" + data[at + 2:]
 
 
 def write_connector_fixtures(path: Path = FIXTURE) -> Path:
     """The connector fixtures (needs PIL and the JAX package): each file's
     bytes, the sha256 of Pillow's `convert("RGB")` pixels, and the sha256
     of the q80 payload the reference stores for it (`_image_to_data_uri`,
-    1024 px); the refused file has none."""
+    1024 px); the refused file has neither."""
     from morphik_core_tpu.services.ingestion_service import _image_to_data_uri as j_image_to_data_uri
 
     arrays = {}
     for name, data in connector_files().items():
         key = name.replace(".", "_")
         arrays[key] = np.frombuffer(data, np.uint8)
-        arrays[f"{key}_rgb_sha256"] = np.array(hashlib.sha256(_pil_rgb(data).tobytes()).hexdigest())
-        if name not in REFUSED:
+        if name not in REFUSED:   # Pillow cannot load the refused file
+            arrays[f"{key}_rgb_sha256"] = np.array(hashlib.sha256(_pil_rgb(data).tobytes()).hexdigest())
             payload = data_uri_to_bytes(j_image_to_data_uri(Image.open(io.BytesIO(data)), max_width=1024))
             arrays[f"{key}_payload_sha256"] = np.array(hashlib.sha256(payload).hexdigest())
     np.savez_compressed(path, **arrays)
@@ -642,7 +639,8 @@ def test_cmyk_fixture_decodes_as_the_reference():
 
 
 def test_refused_fixture_is_refused():
-    """The connector file the port still refuses: arithmetic coding."""
+    """The connector file the port still refuses: an arithmetic-coded
+    JPEG Pillow cannot load (its data run past Pillow's 64 KiB block)."""
     data = np.load(FIXTURE)["arith_jpg"].tobytes()
     with pytest.raises(UnsupportedJpeg, match="arithmetic-coded.*ROADMAP Queue 1 item 3b-ii"):
         probe_jpeg(data)

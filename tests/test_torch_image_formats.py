@@ -984,10 +984,17 @@ def _refused_cases():
     img.save(jpg, "JPEG")
     jpg = jpg.getvalue()
     rgb = _rng_image(20, 24, 3, 1)
+    from tests.test_torch_more_image_formats import arith_past_a_block, libjpeg_write
+
+    lossless = libjpeg_write(_rng_image(20, 24, 3, 0), lossless=(1, 0))
+    at = lossless.index(b"\xff\xc3")
     cases = [
-        ("jpeg_arith", _sof(jpg, 0xC9), "arithmetic-coded JPEG"),
+        # arithmetic coding past Pillow's 64 KiB block (a small file decodes: test_torch_more_image_formats.py)
+        ("jpeg_arith", arith_past_a_block(_page(3)), "arithmetic-coded JPEG"),
         ("jpeg_12bit", _sof(jpg, precision=12), "12-bit JPEG"),
-        ("jpeg_lossless", _sof(jpg, 0xC3), "lossless JPEG"),
+        # arithmetic-coded lossless (SOF11), which libjpeg-turbo does not decode (SOF3 decodes)
+        ("jpeg_lossless", lossless[:at] + b"\xff\xcb" + lossless[at + 2:], "lossless JPEG"),
+        ("jpeg_hierarchical", _sof(jpg, 0xC5), "hierarchical JPEG"),
         ("tiff_bigtiff", b"II+\x00\x08\x00\x00\x00" + bytes(16), "BigTIFF"),
         ("tiff_old_jpeg", tiff_bytes(rgb, 8, 2, tags={259: (3, [6])}), "old-style JPEG"),
         ("tiff_lzma", tiff_bytes(rgb, 8, 2, tags={259: (3, [34925])}), "LZMA"),
@@ -1053,9 +1060,16 @@ def test_decompression_bombs_are_refused_as_pillow_refuses_them(kind, data):
 
 
 def test_other_image_types_and_video_still_answer_415():
-    for ctype in ("image/x-icon", "image/svg+xml", "image/avif", "video/mp4"):
+    """Bytes no Pillow plugin recognizes and video answer 415 whatever the
+    type says; an icon, refused by type before the port read ICO, is now
+    sniffed and ingested."""
+    for ctype in ("image/svg+xml", "image/avif", "video/mp4"):
         with pytest.raises(UnsupportedContentType, match=ROADMAP):
             check_upload(ctype, b"\x00" * 32)
+    buf = io.BytesIO()
+    Image.fromarray(_rng_image(20, 24, 4, 1)).save(buf, "ICO", sizes=[(16, 16)])
+    check_upload("image/x-icon", buf.getvalue())
+    assert_as_pillow(buf.getvalue())
     check_upload("image/gif", b"GIF89a broken")   # a broken file passes: its job fails
 
 
@@ -1129,10 +1143,10 @@ def fixture_files() -> dict:
             at = data.index(b"Adobe")
             data = data[:at + 11] + bytes([transform]) + data[at + 12:]
         files[name] = data
-    # still refused: an arithmetic-coded header on a baseline file
-    buf = io.BytesIO()
-    Image.fromarray(pages[0]).save(buf, "JPEG", quality=80)
-    files["arith.jpg"] = _sof(buf.getvalue(), 0xC9)
+    # still refused: an arithmetic-coded file whose data run past Pillow's 64 KiB block
+    from tests.test_torch_more_image_formats import arith_past_a_block
+
+    files["arith.jpg"] = arith_past_a_block(_page(20))
     # the timed pages: a letter page at 200 dpi as Group 4, a lossy WebP 1024 wide
     letter = np.asarray(Image.fromarray(_page(30)).resize((1700, 2200), Image.NEAREST))[..., 0] > 150
     files["letter_g4.tif"] = _pil_tiff(Image.fromarray(letter), compression="group4")

@@ -30,6 +30,7 @@ ColPali ladder on the trained fixture, the offline RAG run and the int8
 profile. The package data lists every file the package opens at run
 time."""
 
+import json
 import re
 import subprocess
 import sys
@@ -439,9 +440,10 @@ _CONNECTORS = _PRELUDE + textwrap.dedent(
 ) + _LEAKS
 
 
-# the page image formats: every committed fixture file decoded to Pillow's
-# mode and pixel hash, then one upload of each new format over HTTP and an
-# image query in WebP and in TIFF, each finding its own page first
+# the page image formats: every file of a committed fixture (argv[2]) decoded
+# to Pillow's mode and pixel hash, then uploads over HTTP (argv[3]: [key,
+# content type] pairs) and image queries (argv[4]), each query finding an
+# upload of its own page first
 _FORMATS = _PRELUDE + textwrap.dedent(
     """
     import asyncio, base64, hashlib, json, tempfile, threading, time, urllib.request
@@ -452,7 +454,7 @@ _FORMATS = _PRELUDE + textwrap.dedent(
     from morphik_core_tpu_torch.services_init import build_services
     from morphik_core_tpu_torch.utils.image import decode_image, read_image
 
-    z = np.load(Path(sys.argv[1]) / "tests" / "fixtures" / "image_formats.npz")
+    z = np.load(Path(sys.argv[1]) / "tests" / "fixtures" / sys.argv[2])
     names = [k for k in z.files if k + "_rgb_sha256" in z.files]
     assert len(names) >= 30, names
     for key in names:
@@ -476,8 +478,7 @@ _FORMATS = _PRELUDE + textwrap.dedent(
         req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
         with urllib.request.urlopen(req, timeout=120) as r:
             return json.loads(r.read())
-    uploads = [("page_gif", "image/gif"), ("bmp24_bmp", "image/bmp"), ("g4_tif", "image/tiff"),
-               ("lzw_tif", "image/tiff"), ("lossy_webp", "image/webp"), ("cmyk_jpg", "image/jpeg")]
+    uploads = json.loads(sys.argv[3])
     docs = {}
     for key, ctype in uploads:
         b = "XyZ"
@@ -493,10 +494,11 @@ _FORMATS = _PRELUDE + textwrap.dedent(
             time.sleep(0.05)
         assert st == "completed", (key, st)
         docs[key] = doc["external_id"]
-    for key, ctype in (("lossy_webp", "image/webp"), ("g4_tif", "image/tiff")):
+    for key, ctype in json.loads(sys.argv[4]):
         uri = f"data:{ctype};base64," + base64.b64encode(z[key].tobytes()).decode()
         hits = call("/retrieve/chunks", json.dumps({"query_image": uri, "k": 3}).encode())
-        assert hits[0]["document_id"] == docs[key], (key, hits)
+        own = {d for k, d in docs.items() if int(z[k + "_page"]) == int(z[key + "_page"])}   # the same page
+        assert hits[0]["document_id"] in own, (key, hits)
     on_loop(server.stop())
     on_loop(services.shutdown())
     loop.call_soon_threadsafe(loop.stop)
@@ -810,8 +812,31 @@ def test_connectors_and_decoders_run_with_jax_pil_pydantic_httpx_blocked():
 
 
 def test_image_formats_ingest_with_jax_pil_pydantic_httpx_blocked():
+    uploads = [("page_gif", "image/gif"), ("bmp24_bmp", "image/bmp"), ("g4_tif", "image/tiff"),
+               ("lzw_tif", "image/tiff"), ("lossy_webp", "image/webp"), ("cmyk_jpg", "image/jpeg")]
+    queries = [("lossy_webp", "image/webp"), ("g4_tif", "image/tiff")]
     proc = subprocess.run(
-        [sys.executable, "-c", _FORMATS, str(ROOT)], capture_output=True, text=True, timeout=400,
+        [sys.executable, "-c", _FORMATS, str(ROOT), "image_formats.npz", json.dumps(uploads), json.dumps(queries)],
+        capture_output=True, text=True, timeout=400,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_more_image_formats_ingest_with_jax_pil_pydantic_httpx_blocked():
+    """Each format of `image_formats_more.npz` decoded and ingested, and
+    PNM, PSD and arithmetic-coded JPEG image queries, with PIL blocked."""
+    uploads = [("page_ppm", "image/x-portable-pixmap"), ("page16_pgm", "image/x-portable-graymap"),
+               ("plain_pbm", "image/x-portable-bitmap"), ("page_pfm", "image/x-portable-floatmap"),
+               ("icon_ico", "image/x-icon"), ("cursor_cur", "image/x-icon"), ("page_psd", "image/vnd.adobe.photoshop"),
+               ("page_pcx", "image/x-pcx"), ("pages_dcx", "image/x-dcx"), ("mapped_tga", "image/x-tga"),
+               ("page_sgi", "image/sgi"), ("page_ras", "image/x-cmu-raster"), ("page_qoi", "image/qoi"),
+               ("page_xbm", "image/x-xbitmap"), ("page_xpm", "image/x-xpixmap"), ("arith_jpg", "image/jpeg"),
+               ("lossless_rgb_jpg", "image/jpeg")]
+    queries = [("page_ppm", "image/x-portable-pixmap"), ("page_psd", "image/vnd.adobe.photoshop"),
+               ("arith_jpg", "image/jpeg")]
+    proc = subprocess.run(
+        [sys.executable, "-c", _FORMATS, str(ROOT), "image_formats_more.npz", json.dumps(uploads),
+         json.dumps(queries)], capture_output=True, text=True, timeout=400,
     )
     assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
 
