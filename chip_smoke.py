@@ -46,7 +46,14 @@ Phases (each raises on failure; none is caught):
      runs phase 18's resident scan at 32 and 632 query tokens and a ragged
      dim-16 case, bit for bit, its bound the larger of the valid tokens'
      bytes and their popcounts over the card's popcount rate (SMs x 16 a
-     clock, CUDA C++ Programming Guide, x the max SM clock).
+     clock, CUDA C++ Programming Guide, x the max SM clock). K5 (JPEG 2000
+     tier-1) bit for bit against its plain version (host Python) on the
+     code blocks of the top-left 128 x 128 of the 550 x 425 page, lossless
+     and 9/7 (tests/fixtures/image_formats_jp2.npz), the plain side's host
+     ms beside the kernel's, and K5's device time on every block of the
+     200 dpi letter page, lossless and 9/7, each beside its bound (segment
+     bytes read and int32 coefficients written over 3.35 TB/s; K5 is
+     latency-bound), its blocks and threads and the residency.
   3. ingest. (a) the earlier path: the 3B model in bf16 embeds one batch
      of 8 pages at grid 20 x 28 from seeded uint8 patches and encodes the
      text queries with the bf16 text tower. (b) the main
@@ -359,9 +366,18 @@ Phases (each raises on failure; none is caught):
      timed on the 200 dpi letter page beside a baseline JPEG of it (the
      arithmetic-coded letter page, whose data run past Pillow's 64 KiB
      block, with the port's refusal of it off); a 12-bit and a hierarchical
-     JPEG, a JPEG 2000 and an AVIF file answering 415; PNM, PSD and
+     JPEG, an HTJ2K codestream and an AVIF file answering 415; PNM, PSD and
      arithmetic-coded JPEG image queries each finding a file of their own
-     page first.
+     page first. And tests/fixtures/image_formats_jp2.npz: JP2 (9/7, 3
+     layers), raw J2K (5/3), tiles with offsets, precincts, RPCL and SOP /
+     EPH, every code-block style with POC and an ROI shift, I;16,
+     subsampled chroma (Pillow's sYCC), a palette (P) and RGBA, each decoded
+     on the card (tier-1 through K5) to Pillow's mode and pixels and
+     ingested to the reference's payload, K5 once a file and K3 28 a
+     forward, counted on their own; a JP2 image query finding its own page
+     first; the letter page, lossless and 9/7, timed by stage (headers and
+     tier-2, K5, the DWT and component transforms, Pillow's unpacking)
+     beside its baseline JPEG; HTJ2K and Part-2 files answering 415.
  23. text pages in every left-to-right script (after phase 22, before
      phase 21), on a server from the toml serving phase 3b's model: the
      host render ms of a page (`render_text_page` at 150 dpi, median of 3)
@@ -3770,13 +3786,13 @@ MORE_FORMAT_TIMED = ("letter.ppm", "letter.psd", "letter.pcx", "letter.tga", "le
 MORE_FORMAT_PAST_PILLOW = ("letter_arith.jpg",)  # its data run past Pillow's 64 KiB block: timed, else refused
 MORE_FORMAT_QUERIES = ("page.ppm", "page.psd", "arith.jpg")
 MORE_FORMAT_REFUSED = (("jpeg12.jpg", "12-bit JPEG"), ("hierarchical.jpg", "hierarchical JPEG"),
-                       ("page.jp2", "JPEG 2000"), ("page.avif", "AVIF"))
+                       ("page_ht.j2k", "HTJ2K"), ("page.avif", "AVIF"))
 MORE_FORMAT_CTYPES = {"ppm": "image/x-portable-pixmap", "pgm": "image/x-portable-graymap",
                       "pbm": "image/x-portable-bitmap", "pfm": "image/x-portable-floatmap", "ico": "image/x-icon",
                       "cur": "image/x-icon", "psd": "image/vnd.adobe.photoshop", "pcx": "image/x-pcx",
                       "dcx": "image/x-dcx", "tga": "image/x-tga", "sgi": "image/sgi", "ras": "image/x-cmu-raster",
                       "qoi": "image/qoi", "xbm": "image/x-xbitmap", "xpm": "image/x-xpixmap", "jpg": "image/jpeg",
-                      "jp2": "image/jp2", "avif": "image/avif"}
+                      "jp2": "image/jp2", "j2k": "image/jp2", "avif": "image/avif"}
 
 
 def check_more_format_decoders(z) -> dict:
@@ -3823,6 +3839,52 @@ def check_more_format_decoders(z) -> dict:
             "letter_over_baseline": {n: decode_ms[n] / base for n in MORE_FORMAT_TIMED if n != "letter_baseline.jpg"}}
 
 
+def check_jp2_decoders(z, base_ms: float) -> dict:
+    """Phase 22, JPEG 2000 on the card: each file of image_formats_jp2.npz
+    decodes to Pillow's mode and pixels (their hash); the letter page,
+    lossless and 9/7, timed by stage (the median of DECODE_REPEATS, host
+    ms with the card synchronized after each stage: headers and tier-2 on
+    the host, K5, the DWT and component transforms, Pillow's unpacking)
+    beside the baseline JPEG of the same page; the HTJ2K and Part-2 files
+    refused from their headers."""
+    import hashlib
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.utils.image import UnsupportedImage, probe_image, read_image
+    from morphik_core_tpu_torch.utils.jpeg2000 import read_jpeg2000
+
+    decode_ms = {}
+    for name in JP2_FILES + JP2_TIMED:
+        key = name.replace(".", "_")
+        data = z[key].tobytes()
+        t = time.perf_counter()
+        pixels, mode, _ = read_image(data, "cuda")
+        decode_ms[name] = (time.perf_counter() - t) * 1e3
+        if mode != str(z[f"{key}_mode"]) or hashlib.sha256(pixels.tobytes()).hexdigest() != str(z[f"{key}_sha256"]):
+            raise AssertionError(f"JPEG 2000 fixture {name}: mode {mode} or pixels differ from Pillow's")
+    stages = {}
+    for name in JP2_TIMED:
+        data = z[name.replace(".", "_")].tobytes()
+        runs = []
+        for _ in range(DECODE_REPEATS):
+            st = {}
+            t = time.perf_counter()
+            read_jpeg2000(data, "cuda", st)
+            st["total_ms"] = (time.perf_counter() - t) * 1e3
+            runs.append(st)
+        stages[name] = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    for name, words in JP2_REFUSED:
+        try:
+            probe_image(z[name.replace(".", "_")].tobytes())
+            raise AssertionError(f"{name} was not refused")
+        except UnsupportedImage as e:
+            if words not in str(e) or "3b-ii" not in str(e):
+                raise
+    return {"decode_ms": decode_ms, "letter_stages_ms": stages, "letter_baseline_jpeg_ms": base_ms,
+            "letter_over_baseline": {n: stages[n]["total_ms"] / base_ms for n in JP2_TIMED}}
+
+
 def formats_phase(torch, model, _kernels, smi):
     """Phase 22: the page image formats on a server from the toml serving
     phase 3b's model. Each file is ingested over HTTP to `completed` as
@@ -3843,8 +3905,10 @@ def formats_phase(torch, model, _kernels, smi):
     t_phase = time.perf_counter()
     z = np.load(FORMAT_FIXTURES)
     zm = np.load(MORE_FORMAT_FIXTURES)
+    zj = np.load(JP2_FIXTURES)
     decoders = check_format_decoders(z)
     decoders["more"] = check_more_format_decoders(zm)
+    decoders["jp2"] = check_jp2_decoders(zj, decoders["more"]["decode_ms"]["letter_baseline.jpg"])
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_formats_"))
     settings = service_settings(tmp)
     forward_batches = []
@@ -3865,12 +3929,15 @@ def formats_phase(torch, model, _kernels, smi):
         _kernels.reset_launch_counts()  # the formats path starts here
         log(f"phase 22: page image formats ({smi}): server up in {boot_s:.3f} s; host decode ms "
             f"{json.dumps({k: round(v, 3) for k, v in decoders['decode_ms'].items()})}; the newer files' "
-            f"{json.dumps({k: round(v, 3) for k, v in decoders['more']['decode_ms'].items()})}")
+            f"{json.dumps({k: round(v, 3) for k, v in decoders['more']['decode_ms'].items()})}; JPEG 2000 "
+            f"(tier-1 on the card) {json.dumps({k: round(v, 3) for k, v in decoders['jp2']['decode_ms'].items()})}; "
+            f"letter page by stage {json.dumps(decoders['jp2']['letter_stages_ms'])}")
         # still refused: 415 before any document exists
         refused = [(FORMAT_REFUSED, z[FORMAT_REFUSED.replace(".", "_")].tobytes(), "image/jpeg"),
                    ("twelve.jpg", _twelve_bit(z["wide_baseline_jpg"].tobytes()), "image/jpeg")]
         refused += [(name, zm[name.replace(".", "_")].tobytes(), MORE_FORMAT_CTYPES[name.rsplit(".", 1)[1]])
                     for name, _ in MORE_FORMAT_REFUSED]
+        refused += [(name, zj[name.replace(".", "_")].tobytes(), "image/jp2") for name, _ in JP2_REFUSED]
         for name, data, ctype in refused:
             status, raw = client.request("POST", "/ingest/file", *client.multipart(name, data, ctype))
             if status != 415 or b"3b-ii" not in raw:
@@ -3884,7 +3951,16 @@ def formats_phase(torch, model, _kernels, smi):
                 doc = client.upload(name, fx[name.replace(".", "_")].tobytes(), ctypes_[name.rsplit(".", 1)[1]])
                 ingest_s[name] = _wait_completed(client, [doc["external_id"]]) - t
                 docs[name], fixture_of[name] = doc["external_id"], fx
-        for name in FORMAT_FILES + MORE_FORMAT_FILES:   # one page each (the first frame or page), the reference's
+        # JPEG 2000: tier-1 through K5, one launch a decoded image; counted on their own
+        jp2_before, jp2_forwards0 = dict(_kernels.launch_counts), len(forward_batches)
+        for name in JP2_FILES:
+            t = time.perf_counter()
+            doc = client.upload(name, zj[name.replace(".", "_")].tobytes(), "image/jp2")
+            ingest_s[name] = _wait_completed(client, [doc["external_id"]]) - t
+            docs[name], fixture_of[name] = doc["external_id"], zj
+        jp2_ingest = {k: v - jp2_before[k] for k, v in _kernels.launch_counts.items()}
+        jp2_forwards = len(forward_batches) - jp2_forwards0
+        for name in FORMAT_FILES + MORE_FORMAT_FILES + JP2_FILES:   # one page each (the first frame or page), the reference's
             chunks = client.call("POST", "/batch/chunks", {
                 "sources": [{"document_id": docs[name], "chunk_number": k} for k in range(3)], "use_colpali": True})
             if len(chunks) != 1:
@@ -3895,12 +3971,17 @@ def formats_phase(torch, model, _kernels, smi):
         ingest_launches = dict(_kernels.launch_counts)
         ingest_forwards = len(forward_batches)
         k3_per_forward = model.cfg.vision.depth - len(model.cfg.vision.fullatt_block_indexes)
+        if jp2_ingest["j2k_t1"] != len(JP2_FILES) or jp2_ingest["window_attention"] != k3_per_forward * jp2_forwards:
+            raise AssertionError(f"the JPEG 2000 ingests launched {jp2_ingest} over {jp2_forwards} tower forwards: "
+                                 f"expected K5 once a file, K3 {k3_per_forward} a forward")
         if ingest_forwards < 1 or ingest_launches["window_attention"] != k3_per_forward * ingest_forwards:
             raise AssertionError(f"{ingest_forwards} tower forwards, K3 launched "
                                  f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
         query_ms, k1, top = {}, [], {}
+        jp2_query_before = dict(_kernels.launch_counts)
         for fx, name, ctypes_ in ([(z, n, FORMAT_CTYPES) for n in FORMAT_QUERIES]
-                                  + [(zm, n, MORE_FORMAT_CTYPES) for n in MORE_FORMAT_QUERIES]):
+                                  + [(zm, n, MORE_FORMAT_CTYPES) for n in MORE_FORMAT_QUERIES]
+                                  + [(zj, n, {"jp2": "image/jp2", "j2k": "image/jp2"}) for n in JP2_QUERIES]):
             key = name.replace(".", "_")
             uri = bytes_to_data_uri(fx[key].tobytes(), ctypes_[name.rsplit(".", 1)[1]])
             before = _kernels.launch_counts["maxsim_q8"]
@@ -3915,6 +3996,9 @@ def formats_phase(torch, model, _kernels, smi):
                 raise AssertionError(f"the {name} image query's top-1 is {top[name]}, not a file of its page")
         if min(k1) <= 0:
             raise AssertionError(f"an image query did not launch K1: {k1}")
+        jp2_queries = {"k5": _kernels.launch_counts["j2k_t1"] - jp2_query_before["j2k_t1"], "k1": k1[-len(JP2_QUERIES):]}
+        if jp2_queries["k5"] != len(JP2_QUERIES):
+            raise AssertionError(f"the JPEG 2000 image queries launched K5 {jp2_queries['k5']} times")
         launches = dict(_kernels.launch_counts)
         if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the queries' forwards too
             raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
@@ -3928,7 +4012,11 @@ def formats_phase(torch, model, _kernels, smi):
     out = {"card": smi, "boot_s": boot_s, "decoders": decoders, "ingest_s": ingest_s,
            "ingest_forwards": ingest_forwards, "tower_forwards": len(forward_batches), "image_query_ms": query_ms,
            "image_query_top1": top, "image_query_k1": k1, "launches": launches, "ingest_launches": ingest_launches,
-           "k3_per_forward": k3_per_forward, "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase}
+           "k3_per_forward": k3_per_forward, "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase,
+           "jp2": {"ingest_launches": jp2_ingest, "ingest_forwards": jp2_forwards, "queries": jp2_queries,
+                   "ingest_s": {n: ingest_s[n] for n in JP2_FILES}}}
+    log(f"  JPEG 2000 ingests: launches {jp2_ingest} over {jp2_forwards} tower forwards; image query K5 "
+        f"{jp2_queries['k5']}, K1 {jp2_queries['k1']}")
     log(f"  ingests to completed (s) {json.dumps({k: round(v, 3) for k, v in ingest_s.items()})}; ingest tower "
         f"forwards {ingest_forwards} (K3 {ingest_launches['window_attention']}); image queries (ms) "
         f"{json.dumps({k: round(v, 3) for k, v in query_ms.items()})}; launches {launches}; peak {peak_gb:.2f} GB; "
@@ -4375,6 +4463,102 @@ def binary_kernel_checks(torch):
         raise AssertionError("K4: a row without tokens must score exactly 0")
     _deterministic(torch, "K4 ragged dim 16", lambda: binary_maxsim(q_r, docs_r, ntok_r, 16))
     return cases[0], cases + [ragged]
+
+
+JP2_FIXTURES = ROOT / "tests" / "fixtures" / "image_formats_jp2.npz"
+JP2_FILES = ("page.jp2", "page.j2k", "tiled.jp2", "styles.j2k", "gray16.jp2", "ycc.j2k", "palette.jp2", "rgba.jp2")
+JP2_TIMED = ("letter.jp2", "letter_97.jp2")  # the 200 dpi letter page, lossless and 9/7, timed by stage
+JP2_REFUSED = (("page_ht.j2k", "HTJ2K"), ("part2.jp2", "Part-2"))
+JP2_QUERIES = ("page.jp2",)
+JP2_CROP = 128   # phase 2 holds K5 to its plain version on the code blocks of this top-left crop
+K5_THREADS_NOTE = "one thread a code block"
+
+
+def _k5_bound(blocks) -> dict:
+    """K5's least time: its segment bytes, segment table and descriptors
+    read once and its coefficients (int32, w x h a block) written once,
+    over the HBM rate; it does no arithmetic a peak rate bounds (integer
+    MQ decisions, a serial chain within each block), so bytes bound it."""
+    import numpy as np
+
+    desc = blocks.desc
+    out_bytes = 4 * int((desc[:, 3].astype(np.int64) * desc[:, 4]).sum()) if len(desc) else 0
+    moved = (len(blocks.data) - 1) + 4 * blocks.segs.size + 4 * desc.size + out_bytes
+    return dict(_bound(moved, 0, "f32"), bytes=moved)
+
+
+def j2k_t1_kernel_checks(torch):
+    """Phase 2, K5: EBCOT tier-1 against its plain version, bit for bit, on
+    the code blocks of the top-left JP2_CROP x JP2_CROP of the 550 x 425
+    page, lossless (page.j2k) and 9/7 with 3 layers (page.jp2); its device
+    time (one replay of a CUDA graph of launches on uploaded inputs) there
+    and on every block of the letter page, lossless and 9/7, beside the
+    bound, the blocks and threads, and the residency."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.ops import _kernels
+    from morphik_core_tpu_torch.utils.jpeg2000 import code_blocks
+    from morphik_core_tpu_torch.utils.jpeg2000_t1 import j2k_t1_decode
+
+    z = np.load(JP2_FIXTURES)
+    occ = _kernels.j2k_t1_occupancy()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"phase 2, K5: {K5_THREADS_NOTE}, {occ['threads_per_block']} threads a thread block, "
+        f"{occ['blocks_per_sm']} thread blocks resident a SM x {sms} SMs, {occ['registers_per_thread']} registers")
+
+    def device_ms(blocks, n):
+        dev = torch.device("cuda")
+        data = torch.from_numpy(blocks.data).to(dev)
+        segs = torch.from_numpy(blocks.segs).to(dev)
+        desc = torch.from_numpy(np.ascontiguousarray(blocks.desc)).to(dev)
+        out = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
+        scratch = torch.empty(max(blocks.n_flags, 1), dtype=torch.int32, device=dev)
+
+        def launch():
+            out.zero_()
+            _kernels.launch_j2k_t1(data, segs, desc, out, scratch, len(blocks))
+            return out
+
+        return _graph_ms(torch, launch, 10)
+
+    def residency(blocks):
+        tb = -(-len(blocks) // occ["threads_per_block"])
+        return {"code_blocks": len(blocks), "threads": len(blocks), "thread_blocks": tb,
+                "resident_thread_blocks": occ["blocks_per_sm"] * sms,
+                "sms_busy": min(tb, sms), "sm_share": min(tb, sms) / sms}
+
+    cases = []
+    for name in ("page.j2k", "page.jp2"):
+        data = z[name.replace(".", "_")].tobytes()
+        blocks, n = code_blocks(data, JP2_CROP)
+        t0 = time.perf_counter()
+        want = j2k_t1_decode(blocks, n, "cpu")
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = j2k_t1_decode(blocks, n, "cuda")
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), want):
+            diff = int((got.cpu() != want).sum())
+            raise AssertionError(f"K5 on {name}'s {len(blocks)} crop blocks: {diff} coefficients differ from plain")
+        err = float((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max()) if n else 0.0
+        ms = _time_ms(torch, lambda: j2k_t1_decode(blocks, n, "cuda"), 10)
+        dev_ms = device_ms(blocks, n)
+        bound = _k5_bound(blocks)
+        case = dict({"case": f"K5 {name} {JP2_CROP} x {JP2_CROP} crop", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": None}, **bound,
+                    **residency(blocks))
+        cases.append(case)
+        log(f"  {case['case']}: {len(blocks)} blocks bit-identical to plain; kernel_ms={ms:.5f} (upload, launch, "
+            f"sync) device_ms={dev_ms:.5f} plain_ms={plain_ms:.3f} (host Python) bound_us={bound['bound_us']:.3f} "
+            f"({bound['bytes']} bytes; latency-bound: {len(blocks)} serial chains)")
+    letter = {}
+    for name in JP2_TIMED:
+        blocks, n = code_blocks(z[name.replace(".", "_")].tobytes())
+        bound = _k5_bound(blocks)
+        letter[name] = dict({"device_ms": device_ms(blocks, n)}, **bound, **residency(blocks))
+        log(f"  K5 {name} (1700 x 2200, every block): device_ms={letter[name]['device_ms']:.5f} "
+            f"bound_us={bound['bound_us']:.3f} {json.dumps(residency(blocks))}")
+    cases[0]["letter"] = letter
+    return cases[0], cases
 
 
 def _binary_answer(hits):
@@ -5037,6 +5221,8 @@ def main() -> None:
     main_k1, main_k2, main_k3, doc_k3, f32_k3, rerank_k2, all_cases = kernel_checks(torch)
     main_k4, k4_cases = binary_kernel_checks(torch)
     all_cases += k4_cases
+    main_k5, k5_cases = j2k_t1_kernel_checks(torch)
+    all_cases += k5_cases
     model, bf16_embs, bf16_queries, bf16_stats = ingest_bf16(torch, _kernels)
     ckpt, ckpt_written = write_checkpoint_phase(torch, model)  # before phase 3b quantizes in place
     try:
@@ -5138,6 +5324,20 @@ def main() -> None:
         launches_streamed=binary["launches_streamed"],
         other_cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms",
                                         "bound_us", "bound_by")} for c in k4_cases[1:]]))
+    kernels.append(dict(  # K5 replaces no Pallas kernel: the reference's tier-1 is OpenJPEG's host C under Pillow
+        name="j2k_t1", route="cuda", source=csrc + "j2k_t1.cu",
+        replaces="OpenJPEG 2.5.4 src/lib/openjp2/t1.c:opj_t1_decode_cblks (through Pillow libImaging/Jpeg2KDecode.c)",
+        launches=formats["launches"]["j2k_t1"], max_abs_err=main_k5["max_abs_err"], ms=main_k5["ms"],
+        plain_ms=main_k5["plain_ms"], bound_ms=main_k5["bound_us"] / 1e3, bound_by=main_k5["bound_by"],
+        library_ms=None, library_call="none (no PyTorch op decodes EBCOT)", device_ms=main_k5["device_ms"],
+        plain_device_ms=None, shape=main_k5["case"], code_blocks=main_k5["code_blocks"],
+        sm_share=main_k5["sm_share"], letter=main_k5["letter"],
+        formats_ingest_launches=formats["jp2"]["ingest_launches"]["j2k_t1"],
+        formats_query_launches=formats["jp2"]["queries"]["k5"],
+        other_cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "device_ms", "bound_us",
+                                        "bound_by", "code_blocks")} for c in k5_cases[1:]]))
+    if kernels[-1]["launches"] <= 0:
+        raise AssertionError("K5 was never launched on phase 22's JPEG 2000 path")
     log(f"total wall s {time.perf_counter() - t_all:.3f}")
     log(json.dumps({"cases": all_cases}))
     print(smi)

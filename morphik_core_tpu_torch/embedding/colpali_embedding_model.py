@@ -138,6 +138,11 @@ class ColpaliEmbeddingModel:
     def embedding_dim(self) -> int:
         return self.model.cfg.embedding_dim
 
+    @property
+    def device(self) -> torch.device:
+        """Where the tower runs; a JPEG 2000 page's tier-1 (K5) runs there too."""
+        return self.model.device
+
     def prep_images(self, images: Sequence["object"]) -> List[Prepped]:
         """PIL images or decoded (H, W, 3) uint8 pages -> (uint8 patches
         (S, 588), grid) pairs."""
@@ -234,7 +239,8 @@ class ColpaliEmbeddingModel:
             if pp is None:
                 # the decoded payload, as the reference embeds it: the
                 # coefficients of the port's own JPEG, else the bytes
-                page = decode_own(coeffs) if coeffs is not None else decode_image(data_uri_to_bytes(chunk.content))
+                page = (decode_own(coeffs) if coeffs is not None
+                        else decode_image(data_uri_to_bytes(chunk.content), self.device))
                 pp = preprocess_array_u8(page, min_pixels=self.min_pixels, max_pixels=self.max_pixels)
             image_items.append((i, (pp[0], tuple(pp[1]))))
         prep_s = time.perf_counter() - t0

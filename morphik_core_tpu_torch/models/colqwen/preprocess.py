@@ -285,9 +285,10 @@ def resize_mode_u8(pixels: np.ndarray, mode: str, size: Tuple[int, int], resampl
     is neither 0 nor 255); I;16 resizes in 16 bits (`_resample_axis_16`),
     and I;16B (uint16 values) as Pillow does it: on the byte-swapped values,
     swapped back;
-    CMYK resizes each of its four channels; "I" (int32) and "F" (float32)
+    CMYK resizes each of its four channels, and PA its index and alpha
+    bands alike, as plain 8-bit bands; "I" (int32) and "F" (float32)
     in their own precision (`_resample_axis_32`). `pixels` is (H, W) for
-    L, P, I;16 (uint16), I and F, (H, W, 2) for LA, (H, W, 3) RGB, (H, W, 4)
+    L, P, I;16 (uint16), I and F, (H, W, 2) for LA and PA, (H, W, 3) RGB, (H, W, 4)
     RGBA and CMYK."""
     if mode in ("P", "1"):
         return resize_nearest_u8(pixels, size)
@@ -312,7 +313,7 @@ def resize_mode_u8(pixels: np.ndarray, mode: str, size: Tuple[int, int], resampl
 
 def to_rgb_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None) -> np.ndarray:
     """`Image.convert("RGB")` of an image of mode 1 (0 / 255), L, LA, RGB,
-    RGBA, P (alpha dropped, not composited; `palette` (256, 3) for P),
+    RGBA, P or PA (alpha dropped, not composited; `palette` (256, 3) for P and PA),
     I;16 or I;16B (uint16 values; `I16_RGB`: a sample above 255 clips to
     255), I (int32), F (float32) or CMYK (`Convert.c`
     `cmyk2rgb`: nk - MULDIV255(c, nk) with nk = 255 - k)."""
@@ -332,6 +333,8 @@ def to_rgb_u8(pixels: np.ndarray, mode: str, palette: "np.ndarray | None" = None
         return np.repeat(gray[..., None], 3, axis=2)
     if mode == "P":
         return palette[pixels]
+    if mode == "PA":   # the palette colour of each index, alpha dropped
+        return palette[pixels[..., 0]]
     if mode == "CMYK":
         nk = 255 - pixels[..., 3:].astype(np.int64)
         return np.clip(nk - _muldiv255(pixels[..., :3], nk), 0, 255).astype(np.uint8)

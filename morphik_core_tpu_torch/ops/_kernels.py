@@ -47,7 +47,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0, "window_attention": 0, "binary_maxsim": 0}
+launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0, "window_attention": 0, "binary_maxsim": 0,
+                                 "j2k_t1": 0}
 
 _counts_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -131,6 +132,10 @@ def library() -> ctypes.CDLL:
             lib.binary_maxsim_launch.restype = ci
             lib.binary_maxsim_plan.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
             lib.binary_maxsim_plan.restype = ci
+            lib.j2k_t1_launch.argtypes = [vp] * 5 + [ci, vp]
+            lib.j2k_t1_launch.restype = ci
+            lib.j2k_t1_occupancy.argtypes = [ctypes.POINTER(ci)] * 3
+            lib.j2k_t1_occupancy.restype = ci
             _lib = lib
     return _lib
 
@@ -229,3 +234,23 @@ def binary_maxsim_plan(nq: int) -> Dict[str, int]:
     qpt, threads = ctypes.c_int(), ctypes.c_int()
     _check(library().binary_maxsim_plan(nq, ctypes.byref(qpt), ctypes.byref(threads)), "binary_maxsim_plan")
     return {"query_tokens_per_thread": qpt.value, "threads_per_block": threads.value}
+
+
+def launch_j2k_t1(data, segs, desc, out, scratch, nblocks: int) -> None:
+    """K5 on already-packed CUDA tensors (see utils/jpeg2000_t1.py::
+    j2k_t1_decode): every code block of one image, one thread a block."""
+    with _on(out.device) as lib:
+        rc = lib.j2k_t1_launch(_ptr(data), _ptr(segs), _ptr(desc), _ptr(out), _ptr(scratch), nblocks,
+                               ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+    _check(rc, "j2k_t1")
+    count_launch("j2k_t1")
+
+
+def j2k_t1_occupancy() -> Dict[str, int]:
+    """K5's threads a block, resident blocks a multiprocessor and
+    registers a thread (for reports)."""
+    threads, blocks, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with _on(torch.device("cuda", torch.cuda.current_device())) as lib:
+        rc = lib.j2k_t1_occupancy(ctypes.byref(threads), ctypes.byref(blocks), ctypes.byref(regs))
+    _check(rc, "j2k_t1_occupancy")
+    return {"threads_per_block": threads.value, "blocks_per_sm": blocks.value, "registers_per_thread": regs.value}

@@ -105,6 +105,8 @@ class MorphikParser:
         self.parser_mode = p.parser_mode
         self.parse_api_endpoints = [e.rstrip("/") for e in p.parse_api_endpoints]
         self.parse_api_key = p.parse_api_key
+        # where a JPEG 2000 image's tier-1 runs (the services' device); None: the card
+        self.image_device = None
 
     async def parse_file_to_text(
         self, file: bytes, filename: Optional[str] = None, content_type: Optional[str] = None
@@ -213,7 +215,7 @@ class MorphikParser:
         if ctype == "application/pdf":
             images, _ = await asyncio.to_thread(rasterize_pdf, file, self.settings.pdf.colpali_pdf_dpi)
         elif ctype.startswith("image/"):
-            images = [await asyncio.to_thread(decode_image, file)]
+            images = [await asyncio.to_thread(decode_image, file, self.image_device)]
         if not images:
             return {}, ""
         pages = await self.ocr_engine.images_to_structured(images)

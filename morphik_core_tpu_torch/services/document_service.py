@@ -133,7 +133,7 @@ class DocumentService:
             # the reference caps image queries at 10 MB
             if len(raw) > 10 * 1024 * 1024:
                 raise ValueError("query_image exceeds the 10 MB limit")
-            page = await asyncio.to_thread(decode_image, raw)
+            page = await asyncio.to_thread(decode_image, raw, getattr(embed_model, "device", None))
             embed_task = embed_model.embed_for_query(page)
         else:
             embed_task = embed_model.embed_for_query(query)

@@ -82,7 +82,8 @@ from morphik_core_tpu_torch.parser.text_render import UnsupportedText, render_te
 from morphik_core_tpu_torch.storage.base_storage import BaseStorage
 from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX, detect_content_type, is_colpali_native_format
 from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
-from morphik_core_tpu_torch.utils.image import UnidentifiedImage, UnsupportedImage, probe_image, read_image
+from morphik_core_tpu_torch.utils.image import (UnidentifiedImage, UnsupportedImage, pillow_comment, probe_image,
+                                                read_image)
 from morphik_core_tpu_torch.utils.jpeg import JpegCoefficients, encode_jpeg
 from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
 from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMultiVectorStore
@@ -114,18 +115,21 @@ def check_upload(ctype: str, data: bytes) -> None:
 
 
 def _image_to_data_uri(pixels: np.ndarray, mode: str, palette: Optional[np.ndarray], max_width: int,
-                       quality: int = 80) -> Tuple[str, JpegCoefficients]:
+                       quality: int = 80, comment: bytes = b"") -> Tuple[str, JpegCoefficients]:
     """`ingestion_service.py:46-54`: resize (LANCZOS, Pillow's mode rules:
     I;16 in 16 bits) to at most `max_width`, convert to RGB unless RGB or
-    L (I;16 clipped), q`quality` JPEG -> (its data URI, its coefficients
-    for `jpeg.decode_own`)."""
+    L (I;16 clipped), q`quality` JPEG, with the upload's `info["comment"]`
+    as Pillow's JPEG writer keeps it (`utils/image.py::pillow_comment`) ->
+    (its data URI, its coefficients for `jpeg.decode_own`)."""
     h, w = pixels.shape[:2]
     if w > max_width:
         ratio = max_width / w
         pixels = resize_mode_u8(pixels, mode, (max(1, int(h * ratio)), max_width))
+        if mode == "PA":   # Pillow's PA image resized by a filter comes back with an empty palette: all black
+            palette = np.zeros_like(palette)
     if mode not in ("RGB", "L"):
         pixels = to_rgb_u8(pixels, mode, palette)
-    data, coeffs = encode_jpeg(pixels, quality)
+    data, coeffs = encode_jpeg(pixels, quality, comment)
     return bytes_to_data_uri(data, "image/jpeg"), coeffs
 
 
@@ -254,8 +258,11 @@ class IngestionService:
         in `_jpeg` for the embedder's `decode_own`."""
         max_w = 1024
         dpi = self.settings.pdf.colpali_pdf_dpi
+        comment = b""
         if ctype.startswith("image/"):
-            images = [read_image(data)]
+            # a JPEG 2000's tier-1 runs where the ColPali model runs (else on the card)
+            images = [read_image(data, getattr(getattr(self, "colpali_embedding_model", None), "device", None))]
+            comment = pillow_comment(data)
         elif ctype == "application/pdf":
             pages, backend = rasterize_pdf(data, dpi=dpi)
             logger.info("rasterized %d pdf pages via %s", len(pages), backend)
@@ -273,7 +280,7 @@ class IngestionService:
             if is_blank_page(to_rgb_u8(pixels, mode, palette)):
                 logger.info("skipping blank page %d", page)
                 continue
-            uri, coeffs = _image_to_data_uri(pixels, mode, palette, max_width=max_w)
+            uri, coeffs = _image_to_data_uri(pixels, mode, palette, max_width=max_w, comment=comment)
             chunks.append(Chunk(content=uri, metadata={"is_image": True, "page": page, "_jpeg": coeffs}))
         return chunks
 

@@ -271,6 +271,7 @@ def build_services(
         return str((await completion_model.complete(CompletionRequest(query=prompt))).completion)
 
     parser = MorphikParser(settings, complete_fn=complete_text)
+    parser.image_device = device
     colpali = settings.morphik.enable_colpali and settings.morphik.colpali_mode != "off"
     if colpali or parser.ocr_engine is not None:
         # PDF pages are drawn at this dpi: a dpi the glyph atlas lacks is

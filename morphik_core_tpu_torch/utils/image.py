@@ -12,9 +12,10 @@ formats the port decodes: PNG (`utils/png.py`), JPEG (`utils/jpeg.py`),
 GIF (`gif.py`), BMP and DIB (`bmp.py`), TIFF (`tiff.py`), WebP (`webp.py`),
 Netpbm (`ppm.py`), ICO and CUR (`ico.py`), PSD (`psd.py`), PCX and DCX
 (`pcx.py`), TGA (`tga.py`), SGI (`sgi.py`), Sun raster (`sun.py`), QOI
-(`qoi.py`), XBM and XPM (`xbm.py`). A file another plugin claims (JPEG
-2000, AVIF, DDS, ...) raises `UnsupportedImage` naming it and ROADMAP
-Queue 1 item 3b-ii; in particular a TGA-shaped file that an earlier
+(`qoi.py`), XBM and XPM (`xbm.py`), JPEG 2000 (`jpeg2000.py`: JP2 and raw
+J2K, Part 1; its tier-1 runs on the card, K5). A file another plugin
+claims (AVIF, DDS, ...) raises `UnsupportedImage` naming it and ROADMAP
+Queue 1 item 3b-ii, as do HTJ2K and Part-2 JPEG 2000 codestreams; in particular a TGA-shaped file that an earlier
 plugin claims is never read as TGA. Bytes no plugin claims raise
 `UnidentifiedImage`.
 
@@ -32,9 +33,10 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 
 from morphik_core_tpu_torch.models.colqwen.preprocess import to_rgb_u8
-from morphik_core_tpu_torch.utils import ico, pcx, ppm, psd, qoi, sgi, sun, tga, xbm
+from morphik_core_tpu_torch.utils import ico, jp2_codestream, pcx, ppm, psd, qoi, sgi, sun, tga, xbm
 from morphik_core_tpu_torch.utils.bmp import dib_accept, probe_bmp, probe_dib, read_bmp, read_dib
 from morphik_core_tpu_torch.utils.gif import probe_gif, read_gif
+from morphik_core_tpu_torch.utils.jpeg2000 import probe_jpeg2000, read_jpeg2000
 from morphik_core_tpu_torch.utils.jpeg import (NotThisFormat, UnsupportedImage, UnsupportedJpeg, probe_jpeg,
                                                read_jpeg)
 from morphik_core_tpu_torch.utils.png import MAX_PIXELS, SIGNATURE, read_png
@@ -42,7 +44,7 @@ from morphik_core_tpu_torch.utils.tiff import probe_tiff, read_tiff
 from morphik_core_tpu_torch.utils.webp import probe_webp, read_webp
 
 __all__ = ["DecompressionBombError", "UnidentifiedImage", "UnsupportedImage", "UnsupportedJpeg", "decode_image",
-           "probe_image", "read_image", "sniff"]
+           "pillow_comment", "probe_image", "read_image", "sniff"]
 
 
 class DecompressionBombError(UnsupportedImage):
@@ -58,7 +60,8 @@ class UnidentifiedImage(ValueError):
 
     def __init__(self):
         super().__init__("not a PNG, JPEG, GIF, BMP, TIFF, WebP, Netpbm, ICO, CUR, PSD, PCX, TGA, SGI, Sun, QOI, "
-                         "XBM or XPM file, nor one any other Pillow plugin identifies (ROADMAP Queue 1 item 3b-ii)")
+                         "XBM, XPM or JPEG 2000 file, nor one any other Pillow plugin identifies "
+                         "(ROADMAP Queue 1 item 3b-ii)")
 
 
 def _png_probe(data: bytes) -> Tuple[int, int]:
@@ -103,6 +106,7 @@ _PORTED: Dict[str, Tuple[Callable, Callable, Callable]] = {
     "DIB": (dib_accept, probe_dib, read_dib),
     "GIF": (lambda p: p.startswith((b"GIF87a", b"GIF89a")), probe_gif, read_gif),
     "JPEG": (lambda p: p.startswith(b"\xff\xd8\xff"), _jpeg_probe, _jpeg_read),
+    "JPEG2000": (jp2_codestream.accept, probe_jpeg2000, read_jpeg2000),
     "PPM": (ppm.accept, ppm.probe_ppm, ppm.read_ppm),
     "PNG": (lambda p: p.startswith(SIGNATURE), _png_probe, read_png),
     "CUR": (lambda p: p.startswith(ico.CUR_MAGIC), ico.probe_cur, ico.read_cur),
@@ -145,8 +149,6 @@ _REFUSED: Dict[str, Tuple[Callable, str]] = {
     "GBR": (_gbr_claims, "GIMP brush (GBR)"),
     "GRIB": (lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1, "GRIB"),
     "HDF5": (lambda p: p.startswith(b"\x89HDF\r\n\x1a\n"), "HDF5"),
-    "JPEG2000": (lambda p: p.startswith((b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
-                 "JPEG 2000"),
     "ICNS": (lambda p: p.startswith(b"icns"), "ICNS"),
     "MCIDAS": (lambda p: p.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"), "McIdas area"),
     "MPEG": (lambda p: p.startswith(b"\x00\x00\x01\xb3"), "MPEG"),
@@ -322,14 +324,76 @@ def probe_image(data: bytes) -> Tuple[int, int]:
     return size
 
 
-def read_image(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
-    """-> (pixels, mode, palette) as Pillow's `Image.open` holds them."""
+def read_image(data: bytes, device=None) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
+    """-> (pixels, mode, palette) as Pillow's `Image.open` holds them.
+    `device` is where a JPEG 2000's tier-1 and reconstruction run (unset:
+    the card, `device.default_device()`); every other format decodes on
+    the host."""
     name = sniff(data)
     if name != "PNG":   # read_png checks its own limit
         probe_image(data)
+    if name == "JPEG2000":
+        return read_jpeg2000(data, device)
     return _PORTED[name][2](data)
 
 
-def decode_image(data: bytes) -> np.ndarray:
+def decode_image(data: bytes, device=None) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8, as Pillow's `convert("RGB")`."""
-    return to_rgb_u8(*read_image(data))
+    return to_rgb_u8(*read_image(data, device))
+
+
+def _jpeg_comment(data: bytes) -> bytes:
+    """`JpegImagePlugin`: the last COM segment before the first SOS."""
+    comment, pos = b"", 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            pos += 1
+            continue
+        code = data[pos + 1]
+        if code == 0xFF or 0xD0 <= code <= 0xD8 or code == 0x01:
+            pos += 1 if code == 0xFF else 2
+            continue
+        if code in (0xDA, 0xD9):
+            break
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if code == 0xFE:
+            comment = data[pos + 4:pos + 2 + length]
+        pos += 2 + length
+    return comment
+
+
+def _gif_comment(data: bytes) -> bytes:
+    """`GifImageFile._seek(0)`: the comment extensions before the first
+    image descriptor, their sub-blocks joined, several joined by a newline."""
+    comments = []
+    pos = 13 + (3 << ((data[10] & 7) + 1) if len(data) > 10 and data[10] & 0x80 else 0)
+    while pos < len(data):
+        s = data[pos]
+        if s != 0x21:   # an image descriptor, the trailer or junk ends frame 0's header
+            break
+        label, pos = data[pos + 1], pos + 2
+        blocks = []
+        while pos < len(data) and data[pos]:
+            blocks.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        pos += 1
+        if label == 0xFE:
+            comments.append(b"".join(blocks))
+    return b"\n".join(comments)
+
+
+def pillow_comment(data: bytes) -> bytes:
+    """`Image.open(...).info["comment"]` for the formats whose plugins set
+    it from the header, JPEG, GIF and JPEG 2000 (b"" for the others and
+    where there is none): Pillow's JPEG writer puts it in the page payload."""
+    try:
+        name = sniff(data)
+    except (UnsupportedImage, UnidentifiedImage, ValueError):
+        return b""
+    if name == "JPEG":
+        return _jpeg_comment(data)
+    if name == "GIF":
+        return _gif_comment(data)
+    if name == "JPEG2000":
+        return jp2_codestream.pillow_comment(data)
+    return b""

@@ -1,0 +1,540 @@
+"""JPEG 2000 headers: the JP2 boxes, the codestream's markers and its
+tiles, as Pillow 12.1's `Jpeg2KImagePlugin` and OpenJPEG 2.5.4 read them.
+
+`open_header(data)` is what `Jpeg2KImageFile._open` derives (size, mode,
+palette) and needs only the headers; `parse(data)` reads the whole
+codestream into a `Codestream`: SIZ, the coding and quantization styles
+with OpenJPEG's precedence (a COD or QCD copies its values to every
+component of the main header or of the tile, a COC or QCC then sets one
+component, in the order they come), RGN, POC (appended per tile, layer
+ends clipped to the layer count), PPM / PPT (their packet headers joined
+in `Z` order), and each tile's tile-parts joined in order of appearance.
+TLM, PLM, PLT, CRG and COM are read past. A tile-part whose `Psot` is 0
+runs to the end of the codestream (less its EOC).
+
+HTJ2K (SIZ `Rsiz` bit 14, a CAP marker or code-block style bit 0x40) and
+Part-2 extensions (`Rsiz` bit 15) raise `UnsupportedImage`, naming
+ROADMAP Queue 1 item 3b-ii.
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from morphik_core_tpu_torch.utils.jpeg import NotThisFormat, UnsupportedImage
+
+JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
+J2K_SIGNATURE = b"\xff\x4f\xff\x51"
+
+# OpenJPEG's colour spaces (opj_image_t.color_space)
+CS_UNSPECIFIED, CS_SRGB, CS_GRAY, CS_SYCC, CS_EYCC, CS_CMYK = 0, 1, 2, 3, 4, 5
+ENUMCS = {16: CS_SRGB, 17: CS_GRAY, 18: CS_SYCC, 24: CS_EYCC, 12: CS_CMYK}   # colr's others: unspecified
+
+# code-block styles (COD / COC SPcod byte 3)
+LAZY, RESET, TERMALL, VSC, PTERM, SEGSYM, HT = 0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40
+
+
+def accept(prefix: bytes) -> bool:
+    return prefix[:4] == J2K_SIGNATURE or prefix[:12] == JP2_SIGNATURE
+
+
+# ------------------------------------------------------------------ JP2 boxes
+
+
+def _boxes(data: bytes, at: int, end: int, clip: bool = False):
+    """(type, payload start, payload end) of each box in data[at:end]; a
+    box of length 0 runs to `end`, and with `clip` so does one that claims
+    more (the file's top level: Pillow reads no box past jp2h)."""
+    while at + 8 <= end:
+        lbox, tbox = struct.unpack(">I4s", data[at:at + 8])
+        hlen = 8
+        if lbox == 1:
+            lbox = struct.unpack(">Q", data[at + 8:at + 16])[0]
+            hlen = 16
+        elif lbox == 0:
+            lbox = end - at
+        if clip and at + lbox > end >= at + hlen:
+            lbox = end - at
+        if lbox < hlen or at + lbox > end:
+            raise NotThisFormat("Invalid header length")
+        yield tbox, at + hlen, at + lbox
+        at += lbox
+
+
+@dataclass
+class Jp2Header:
+    """What the decode takes from a JP2's boxes: Pillow's size, mode and
+    palette (`_parse_jp2_header`), the first colr box's enumeration
+    (OpenJPEG's colour space; 0 without one) and the codestream box.
+    Pillow decodes through OpenJPEG's tile API, which applies no pclr,
+    cmap or cdef."""
+    size: Tuple[int, int]
+    mode: str
+    palette: Optional[np.ndarray]
+    enumcs: int
+    codestream: Tuple[int, int]
+
+
+def _pillow_jp2_header(data: bytes, jp2h: Tuple[int, int]):
+    """`_parse_jp2_header`'s size, mode and palette from the jp2h box."""
+    size = mode = nc = None
+    palette = None
+    for tbox, s, e in _boxes(data, *jp2h):
+        if tbox == b"ihdr":
+            if e - s < 11:
+                raise NotThisFormat("Not enough data in header")
+            height, width, nc, bpc = struct.unpack(">IIHB", data[s:s + 11])
+            size = (width, height)
+            mode = {1: "I;16" if (bpc & 0x7F) > 8 else "L", 2: "LA", 3: "RGB", 4: "RGBA"}.get(nc, mode)
+        elif tbox == b"colr" and nc == 4:
+            meth, _, _, enumcs = struct.unpack(">BBBI", data[s:s + 7])
+            if meth == 1 and enumcs == 12:
+                mode = "CMYK"
+        elif tbox == b"pclr" and mode in ("L", "LA"):
+            ne, npc = struct.unpack(">HB", data[s:s + 3])
+            depths = data[s + 3:s + 3 + npc]
+            if max(depths, default=0) <= 8:
+                entries = np.frombuffer(data, np.uint8, ne * npc, s + 3 + npc).reshape(ne, npc)
+                palette = _pillow_palette(entries)
+                mode = "P" if mode == "L" else "PA"
+    if size is None or mode is None:
+        raise NotThisFormat("Malformed JP2 header")
+    return size, mode, palette
+
+
+def _pillow_palette(entries: np.ndarray) -> np.ndarray:
+    """`ImagePalette.getcolor` for each entry in turn: a colour already
+    in the palette is not added again. -> (256, 3) uint8 (RGB columns;
+    a fourth column, alpha, is dropped as `convert("RGB")` drops it)."""
+    seen: Dict[Tuple[int, ...], int] = {}
+    for row in entries:
+        key = tuple(int(v) for v in row)
+        if key not in seen:
+            if len(seen) >= 256:
+                raise ValueError("cannot allocate more than 256 colors")
+            seen[key] = len(seen)
+    pal = np.zeros((256, 3), np.uint8)
+    for key, i in seen.items():
+        rgb = key[:3] if len(key) >= 3 else (key + (0, 0, 0))[:3]
+        pal[i] = rgb
+    return pal
+
+
+def _jp2_header(data: bytes) -> Jp2Header:
+    jp2h = jp2c = None
+    for tbox, s, e in _boxes(data, 12, len(data), clip=True):
+        if tbox == b"jp2h" and jp2h is None:
+            jp2h = (s, e)
+        elif tbox == b"jp2c":
+            jp2c = (s, e)
+            break
+    if jp2h is None:
+        raise NotThisFormat("Malformed JP2 header")
+    size, mode, palette = _pillow_jp2_header(data, jp2h)
+    enumcs = 0
+    for tbox, s, e in _boxes(data, *jp2h):
+        if tbox == b"colr":   # OpenJPEG keeps the first colr box
+            if data[s] == 1 and e - s >= 7:
+                enumcs = struct.unpack(">I", data[s + 3:s + 7])[0]
+            break
+    if jp2c is None:
+        raise ValueError("JP2 file without a codestream box")
+    return Jp2Header(size, mode, palette, enumcs, jp2c)
+
+
+def open_header(data: bytes):
+    """`Jpeg2KImageFile._open`: -> (codec "j2k" / "jp2", (w, h), mode,
+    palette); raises NotThisFormat where `_open` raises SyntaxError."""
+    if data[:4] == J2K_SIGNATURE:
+        return "j2k", *_pillow_codestream_header(data, 4), None
+    if data[:12] == JP2_SIGNATURE:
+        h = _jp2_header(data)
+        return "jp2", h.size, h.mode, h.palette
+    raise NotThisFormat("not a JPEG 2000 file")
+
+
+def _pillow_codestream_header(data: bytes, at: int):
+    """`_parse_codestream` on the bytes after SOC and SIZ's marker."""
+    lsiz = struct.unpack(">H", data[at:at + 2])[0]
+    siz = data[at:at + lsiz]
+    _, _, xsiz, ysiz, xosiz, yosiz, _, _, _, _, csiz = struct.unpack_from(">HHIIIIIIIIH", siz)
+    size = (xsiz - xosiz, ysiz - yosiz)
+    if csiz == 1:
+        mode = "I;16" if (struct.unpack_from(">B", siz, 38)[0] & 0x7F) + 1 > 8 else "L"
+    elif csiz in (2, 3, 4):
+        mode = {2: "LA", 3: "RGB", 4: "RGBA"}[csiz]
+    else:
+        raise NotThisFormat("unable to determine J2K image mode")
+    return size, mode
+
+
+# -------------------------------------------------------------- codestream
+
+
+@dataclass
+class Tccp:
+    """One component's coding and quantization style (OpenJPEG's opj_tccp_t)."""
+    numres: int = 6
+    cblkw: int = 6
+    cblkh: int = 6
+    cblksty: int = 0
+    qmfbid: int = 1
+    prcw: List[int] = field(default_factory=lambda: [15] * 33)
+    prch: List[int] = field(default_factory=lambda: [15] * 33)
+    qntsty: int = 0
+    numgbits: int = 2
+    stepsizes: List[Tuple[int, int]] = field(default_factory=lambda: [(0, 0)] * 97)   # (expn, mant)
+    roishift: int = 0
+
+    def copy(self) -> "Tccp":
+        return Tccp(self.numres, self.cblkw, self.cblkh, self.cblksty, self.qmfbid, list(self.prcw),
+                    list(self.prch), self.qntsty, self.numgbits, list(self.stepsizes), self.roishift)
+
+
+@dataclass
+class Tcp:
+    """A tile's coding parameters (opj_tcp_t)."""
+    csty: int = 0
+    prg: int = 0
+    numlayers: int = 1
+    mct: int = 0
+    tccps: List[Tccp] = field(default_factory=list)
+    pocs: List[Tuple[int, int, int, int, int, int]] = field(default_factory=list)   # resno0, compno0, layno1, resno1, compno1, prg
+    ppt: Dict[int, bytes] = field(default_factory=dict)
+    data: List[bytes] = field(default_factory=list)
+
+    def copy(self) -> "Tcp":
+        return Tcp(self.csty, self.prg, self.numlayers, self.mct, [t.copy() for t in self.tccps], list(self.pocs))
+
+
+@dataclass
+class Component:
+    dx: int
+    dy: int
+    prec: int
+    sgnd: bool
+
+
+@dataclass
+class Codestream:
+    x0: int
+    y0: int
+    x1: int
+    y1: int
+    tx0: int
+    ty0: int
+    tdx: int
+    tdy: int
+    tw: int
+    th: int
+    comps: List[Component]
+    tcps: List[Tcp]
+    tile_order: List[int]                # tiles in the order their data ends
+    ppm: Optional[bytes]
+
+    def tile_rect(self, tileno: int) -> Tuple[int, int, int, int]:
+        p, q = tileno % self.tw, tileno // self.tw
+        return (max(self.tx0 + p * self.tdx, self.x0), max(self.ty0 + q * self.tdy, self.y0),
+                min(self.tx0 + (p + 1) * self.tdx, self.x1), min(self.ty0 + (q + 1) * self.tdy, self.y1))
+
+
+def _refuse_ht():
+    raise UnsupportedImage("HTJ2K (JPEG 2000 Part 15) image")
+
+
+def _read_spcod(seg: bytes, at: int, tccp: Tccp, precincts: bool) -> None:
+    tccp.numres = seg[at] + 1
+    if tccp.numres > 33:
+        raise ValueError("JPEG 2000: too many decomposition levels")
+    tccp.cblkw, tccp.cblkh = (seg[at + 1] & 0xF) + 2, (seg[at + 2] & 0xF) + 2
+    if tccp.cblkw > 10 or tccp.cblkh > 10 or tccp.cblkw + tccp.cblkh > 12:
+        raise ValueError("JPEG 2000: bad code-block size")
+    tccp.cblksty = seg[at + 3]
+    if tccp.cblksty & HT:
+        _refuse_ht()
+    if tccp.cblksty & 0x80:
+        raise UnsupportedImage("JPEG 2000 Part-2 code-block style")
+    tccp.qmfbid = seg[at + 4]
+    if tccp.qmfbid > 1:
+        raise UnsupportedImage("JPEG 2000 Part-2 wavelet")
+    if precincts:
+        for r in range(tccp.numres):
+            b = seg[at + 5 + r]
+            tccp.prcw[r], tccp.prch[r] = b & 0xF, b >> 4
+            if r and (tccp.prcw[r] == 0 or tccp.prch[r] == 0):
+                raise ValueError("JPEG 2000: precinct size 1 at a resolution above 0")
+    else:
+        tccp.prcw[:] = [15] * 33
+        tccp.prch[:] = [15] * 33
+
+
+def _read_sqcd(seg: bytes, at: int, tccp: Tccp) -> None:
+    sq = seg[at]
+    tccp.qntsty, tccp.numgbits = sq & 0x1F, sq >> 5
+    body = seg[at + 1:]
+    if tccp.qntsty == 1:
+        n = 1
+    elif tccp.qntsty == 0:
+        n = len(body)
+    elif tccp.qntsty == 2:
+        n = len(body) // 2
+    else:
+        raise ValueError("JPEG 2000: bad quantization style")
+    n = min(n, 97)
+    steps = list(tccp.stepsizes)
+    for b in range(n):
+        if tccp.qntsty == 0:
+            steps[b] = (body[b] >> 3, 0)
+        else:
+            v = struct.unpack(">H", body[2 * b:2 * b + 2])[0]
+            steps[b] = (v >> 11, v & 0x7FF)
+    if tccp.qntsty == 1:
+        e0, m0 = steps[0]
+        for b in range(1, 97):
+            steps[b] = (max(e0 - (b - 1) // 3, 0), m0)
+    tccp.stepsizes = steps
+
+
+def _comp_index(seg: bytes, at: int, ncomps: int) -> Tuple[int, int]:
+    if ncomps <= 256:
+        return seg[at], at + 1
+    return struct.unpack(">H", seg[at:at + 2])[0], at + 2
+
+
+def _apply_marker(marker: int, seg: bytes, tcp: Tcp, ncomps: int, in_tile: bool) -> None:
+    """COD, COC, QCD, QCC, RGN, POC, PPT into `tcp` (the default tcp of the
+    main header, or a tile's)."""
+    if marker == 0xFF52:    # COD
+        tcp.csty, tcp.prg = seg[0], seg[1]
+        if tcp.prg > 4:
+            raise ValueError("JPEG 2000: unknown progression order")
+        tcp.numlayers = struct.unpack(">H", seg[2:4])[0]
+        if tcp.numlayers == 0:
+            raise ValueError("JPEG 2000: zero layers")
+        tcp.mct = seg[4]
+        if tcp.mct > 1:
+            raise UnsupportedImage("JPEG 2000 Part-2 multiple component transform")
+        _read_spcod(seg, 5, tcp.tccps[0], bool(tcp.csty & 1))
+        for t in tcp.tccps[1:]:
+            src = tcp.tccps[0]
+            t.numres, t.cblkw, t.cblkh, t.cblksty, t.qmfbid = src.numres, src.cblkw, src.cblkh, src.cblksty, src.qmfbid
+            t.prcw, t.prch = list(src.prcw), list(src.prch)
+    elif marker == 0xFF53:  # COC
+        c, at = _comp_index(seg, 0, ncomps)
+        if c >= ncomps:
+            raise ValueError("JPEG 2000: COC of a missing component")
+        _read_spcod(seg, at + 1, tcp.tccps[c], bool(seg[at] & 1))
+    elif marker == 0xFF5C:  # QCD
+        _read_sqcd(seg, 0, tcp.tccps[0])
+        for t in tcp.tccps[1:]:
+            src = tcp.tccps[0]
+            t.qntsty, t.numgbits, t.stepsizes = src.qntsty, src.numgbits, list(src.stepsizes)
+    elif marker == 0xFF5D:  # QCC
+        c, at = _comp_index(seg, 0, ncomps)
+        if c >= ncomps:
+            raise ValueError("JPEG 2000: QCC of a missing component")
+        _read_sqcd(seg, at, tcp.tccps[c])
+    elif marker == 0xFF5E:  # RGN
+        c, at = _comp_index(seg, 0, ncomps)
+        if c >= ncomps:
+            raise ValueError("JPEG 2000: RGN of a missing component")
+        tcp.tccps[c].roishift = seg[at + 1]
+    elif marker == 0xFF5F:  # POC
+        room = 2 if ncomps > 256 else 1
+        size = 5 + 2 * room
+        for k in range(len(seg) // size):
+            r = seg[k * size:(k + 1) * size]
+            resno0 = r[0]
+            compno0 = int.from_bytes(r[1:1 + room], "big")
+            layno1 = min(struct.unpack(">H", r[1 + room:3 + room])[0], tcp.numlayers)
+            resno1 = r[3 + room]
+            compno1 = min(int.from_bytes(r[4 + room:4 + 2 * room], "big"), ncomps)
+            prg = r[4 + 2 * room]
+            tcp.pocs.append((resno0, compno0, layno1, resno1, compno1, prg))
+    elif marker == 0xFF61 and in_tile:   # PPT
+        tcp.ppt[seg[0]] = seg[1:]
+
+
+_SKIPPED = {0xFF55, 0xFF57, 0xFF58, 0xFF63, 0xFF64}   # TLM, PLM, PLT, CRG, COM
+
+
+def parse(data: bytes, need_eoc: bool = False) -> Codestream:
+    """The codestream `data` (from SOC) into a `Codestream`; `need_eoc`: a
+    codestream cut before its EOC is an error, as OpenJPEG's decode of it
+    through Pillow is."""
+    if data[:4] != J2K_SIGNATURE:
+        raise ValueError("JPEG 2000 codestream without SOC / SIZ")
+    lsiz = struct.unpack(">H", data[4:6])[0]
+    siz = data[4:4 + lsiz]
+    if len(siz) < lsiz or lsiz < 41:
+        raise ValueError("JPEG 2000: SIZ truncated")
+    _, rsiz, x1, y1, x0, y0, tdx, tdy, tx0, ty0, csiz = struct.unpack_from(">HHIIIIIIIIH", siz)
+    if rsiz & 0x4000:
+        _refuse_ht()
+    if rsiz & 0x8000:
+        raise UnsupportedImage("JPEG 2000 Part-2 (extensions) image")
+    if csiz == 0 or lsiz != 38 + 3 * csiz:
+        raise ValueError("JPEG 2000: bad SIZ")
+    if not (x0 < x1 and y0 < y1 and tdx and tdy and tx0 <= x0 and ty0 <= y0
+            and tx0 + tdx > x0 and ty0 + tdy > y0):
+        raise ValueError("JPEG 2000: bad image or tile geometry")
+    comps = []
+    for c in range(csiz):
+        ssiz, dx, dy = siz[38 + 3 * c:41 + 3 * c]
+        prec = (ssiz & 0x7F) + 1
+        if prec > 38 or not dx or not dy:
+            raise ValueError("JPEG 2000: bad component")
+        comps.append(Component(dx, dy, prec, bool(ssiz & 0x80)))
+    tw = -(-(x1 - tx0) // tdx)
+    th = -(-(y1 - ty0) // tdy)
+    default = Tcp(tccps=[Tccp() for _ in range(csiz)])
+    pos = 4 + lsiz
+    ppm: Dict[int, bytes] = {}
+    # main header
+    while True:
+        if pos + 2 > len(data):
+            raise ValueError("JPEG 2000: codestream ends in its main header")
+        marker = struct.unpack(">H", data[pos:pos + 2])[0]
+        if marker == 0xFF90:
+            break
+        if marker == 0xFF50:
+            _refuse_ht()
+        if marker < 0xFF30:
+            raise ValueError(f"JPEG 2000: bad marker {marker:#06x} in the main header")
+        ln = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        seg = data[pos + 4:pos + 2 + ln]
+        if len(seg) < ln - 2 or ln < 2:
+            raise ValueError("JPEG 2000: marker segment truncated")
+        if marker == 0xFF60:     # PPM
+            ppm[seg[0]] = seg[1:]
+        elif marker not in _SKIPPED:
+            _apply_marker(marker, seg, default, csiz, False)
+        pos += 2 + ln
+    tcps = [default.copy() for _ in range(tw * th)]
+    started = [False] * (tw * th)
+    order: List[int] = []
+    # tile-parts
+    eoc = False
+    while pos + 2 <= len(data):
+        marker = struct.unpack(">H", data[pos:pos + 2])[0]
+        if marker == 0xFFD9:
+            eoc = True
+            break
+        if marker != 0xFF90:
+            raise ValueError(f"JPEG 2000: expected SOT, found {marker:#06x}")
+        if pos + 12 > len(data):
+            raise ValueError("JPEG 2000: SOT truncated")
+        isot, psot, tpsot, tnsot = struct.unpack(">HIBB", data[pos + 4:pos + 12])
+        if isot >= tw * th:
+            raise ValueError("JPEG 2000: tile index out of range")
+        end = pos + psot if psot else len(data) - 2
+        if end > len(data):
+            raise ValueError("JPEG 2000: tile-part runs past the end of the codestream")
+        tcp = tcps[isot]
+        at = pos + 12
+        while True:
+            if at + 2 > end:
+                raise ValueError("JPEG 2000: tile-part without SOD")
+            marker = struct.unpack(">H", data[at:at + 2])[0]
+            if marker == 0xFF93:
+                at += 2
+                break
+            ln = struct.unpack(">H", data[at + 2:at + 4])[0]
+            seg = data[at + 4:at + 2 + ln]
+            if marker == 0xFF50:
+                _refuse_ht()
+            if marker not in _SKIPPED:
+                _apply_marker(marker, seg, tcp, csiz, True)
+            at += 2 + ln
+        tcp.data.append(data[at:end])
+        if not started[isot]:
+            started[isot] = True
+            order.append(isot)
+        pos = end
+    if not any(started):
+        raise ValueError("JPEG 2000: no tile data")
+    if need_eoc and not eoc:   # OpenJPEG reads a marker after the last tile-part
+        raise ValueError("JPEG 2000: codestream too short (no EOC)")
+    ppm_bytes = None
+    if ppm:
+        joined = b"".join(ppm[z] for z in sorted(ppm))
+        parts, at = [], 0
+        while at + 4 <= len(joined):
+            n = struct.unpack(">I", joined[at:at + 4])[0]
+            parts.append(joined[at + 4:at + 4 + n])
+            at += 4 + n
+        ppm_bytes = b"".join(parts)
+    return Codestream(x0, y0, x1, y1, tx0, ty0, tdx, tdy, tw, th, comps, tcps, order, ppm_bytes)
+
+
+def codestream_of(data: bytes) -> Tuple[bytes, Optional[Jp2Header]]:
+    """The codestream of a raw J2K or a JP2 file, and the JP2 header."""
+    if data[:4] == J2K_SIGNATURE:
+        return data, None
+    h = _jp2_header(data)
+    return data[h.codestream[0]:h.codestream[1]], h
+
+
+def refuse_unsupported(data: bytes) -> None:
+    """Raise `UnsupportedImage` for an HTJ2K or Part-2 codestream, from its
+    main header alone (SIZ `Rsiz`, CAP, the COD / COC code-block style);
+    anything else the header holds is left to the decode."""
+    try:
+        stream, _ = codestream_of(data)
+    except (ValueError, struct.error, IndexError):
+        return
+    if len(stream) < 8:
+        return
+    lsiz = struct.unpack(">H", stream[4:6])[0]
+    if len(stream) >= 8:
+        rsiz = struct.unpack(">H", stream[6:8])[0]
+        if rsiz & 0x4000:
+            _refuse_ht()
+        if rsiz & 0x8000:
+            raise UnsupportedImage("JPEG 2000 Part-2 (extensions) image")
+    pos = 4 + lsiz
+    csiz = struct.unpack(">H", stream[38:40])[0] if len(stream) >= 40 else 0
+    while pos + 4 <= len(stream):
+        marker, ln = struct.unpack(">HH", stream[pos:pos + 4])
+        if marker == 0xFF90 or marker < 0xFF30:
+            return
+        if marker == 0xFF50:
+            _refuse_ht()
+        if marker == 0xFF52 and pos + 12 <= len(stream) and stream[pos + 12] & HT:
+            _refuse_ht()
+        if marker == 0xFF53:
+            at = pos + 4 + (1 if csiz <= 256 else 2) + 1
+            if at + 3 < len(stream) and stream[at + 3] & HT:
+                _refuse_ht()
+        pos += 2 + ln
+
+
+def pillow_comment(data: bytes) -> bytes:
+    """`Jpeg2KImageFile._parse_comment`: the first COM segment of the main
+    header (its text, Rcom dropped) -> `info["comment"]`; a JP2's only when
+    its jp2c box follows jp2h with a short header. b"" without one."""
+    try:
+        if data[:4] == J2K_SIGNATURE:
+            pos = 4
+        else:
+            h = _jp2_header(data)
+            jp2h_end = next(e for t, s, e in _boxes(data, 12, len(data), clip=True) if t == b"jp2h")
+            if not data[jp2h_end:jp2h_end + 12].endswith(b"jp2c\xff\x4f\xff\x51") or h is None:
+                return b""
+            pos = jp2h_end + 12
+        pos += struct.unpack(">H", data[pos:pos + 2])[0]   # past SIZ
+        while pos + 2 <= len(data):
+            typ = data[pos + 1]
+            if typ in (0x90, 0xD9):
+                return b""
+            length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+            if typ == 0x64:
+                return data[pos + 4:pos + 2 + length][2:]
+            pos += 2 + length
+    except (ValueError, struct.error, StopIteration):
+        pass
+    return b""

@@ -333,9 +333,11 @@ def _mcu_blocks(comps: List[np.ndarray], samp: List[Tuple[int, int]], mcu_rows: 
     return allb.reshape(-1, 64), np.tile(np.array(comp_ids), mcu_rows * mcu_cols)
 
 
-def encode_jpeg(pixels: np.ndarray, quality: int = 75) -> Tuple[bytes, JpegCoefficients]:
+def encode_jpeg(pixels: np.ndarray, quality: int = 75, comment: bytes = b"") -> Tuple[bytes, JpegCoefficients]:
     """(H, W) gray or (H, W, 3) RGB uint8 -> (the bytes Pillow writes for
-    `save(buf, "JPEG", quality=quality)`, the quantized coefficients)."""
+    `save(buf, "JPEG", quality=quality)` of an image whose `info` holds
+    `comment` (a COM segment after APP0 when it is not empty), the
+    quantized coefficients)."""
     arr = np.asarray(pixels, dtype=np.uint8)
     gray = arr.ndim == 2
     if not gray and (arr.ndim != 3 or arr.shape[2] != 3):
@@ -384,7 +386,8 @@ def encode_jpeg(pixels: np.ndarray, quality: int = 75) -> Tuple[bytes, JpegCoeff
         dht += _dht(0, 1, DC_CHROMA) + _dht(1, 1, AC_CHROMA)
     sos = _marker(0xDA, bytes([len(comps)]) + b"".join(bytes([ci + 1, min(ci, 1) * 0x11]) for ci in range(len(comps)))
                   + b"\x00\x3f\x00")
-    data = b"\xff\xd8" + jfif + dqt + sof + dht + sos + scan + b"\xff\xd9"
+    com = _marker(0xFE, comment) if comment else b""
+    data = b"\xff\xd8" + jfif + com + dqt + sof + dht + sos + scan + b"\xff\xd9"
     return data, JpegCoefficients(height, width, tuple(comps), "L" if gray else "YCbCr")
 
 

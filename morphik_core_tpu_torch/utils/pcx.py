@@ -7,8 +7,13 @@ or "P" when the file ends with a 0x0C marker and a 768-byte palette that
 is not the gray ramp (looked for at the end of the whole file, a DCX's
 too); version 5 at 8 bits x 3 planes "RGB". A row is `planes * stride`
 bytes, stride ceil(width * bits / 8), made even when the header's own
-stride differs; each plane is read from its share of the row, padding
-included (what Pillow's decoder and unpackers give together). The RLE (a byte
+stride differs. `PcxDecode.c` then moves each row's bands together
+before unpacking: a 1-bit plane is read from its share of the row
+(`row // planes`), padding included; an 8-bit RGB row is cut into
+`bands = row // width` bands read from `i * (row // bands)` and
+unpacked `width` bytes apart, so an RGB row 3 pixels wide (stride 4)
+has its planes at bytes 0 / 3 / 6 and one 5 wide (stride 6) at 0 / 6 /
+12. The RLE (a byte
 0xC0 | n repeats the next n times, any other byte is itself) is found
 with array operations: a byte after one below 0xC0 always starts a
 token, so a run of high bytes pairs up from its start. A run past the
@@ -122,13 +127,19 @@ def rle_decode(body: np.ndarray, need: int, row: int) -> np.ndarray:
 def _pixels(data: bytes, rawmode: str, w: int, h: int, nbytes: int, planes: int, offset: int) -> np.ndarray:
     flat = rle_decode(np.frombuffer(data, np.uint8)[offset:], nbytes * h, nbytes)
     rows = flat.reshape(h, nbytes)
-    ps = nbytes // planes   # each plane starts at its share of the row, padding and all
+    if rawmode == "RGB;L" and nbytes % w:   # PcxDecode.c's band move, band 0 in place
+        bands = nbytes // w
+        band = nbytes // bands
+        rows = rows.copy()
+        for i in range(1, bands):
+            rows[:, i * w:(i + 1) * w] = rows[:, i * band:i * band + w]
     if rawmode == "1":
         return (np.unpackbits(rows, axis=1)[:, :w] * 255).astype(np.uint8)
     if rawmode == "L" or rawmode == "P":
         return np.ascontiguousarray(rows[:, :w])
     if rawmode == "RGB;L":
-        return np.ascontiguousarray(np.stack([rows[:, k * ps:k * ps + w] for k in range(3)], -1))
+        return np.ascontiguousarray(np.stack([rows[:, k * w:(k + 1) * w] for k in range(3)], -1))
+    ps = nbytes // planes
     idx = np.zeros((h, w), np.uint8)
     for p in range(planes):
         idx |= (np.unpackbits(rows[:, p * ps:(p + 1) * ps], axis=1)[:, :w] << p).astype(np.uint8)

@@ -31,7 +31,8 @@ Tolerances:
   (exp, sum order) may round to the other bf16 neighbour and move an
   output by ulp(P) |v|, past the tight bound at a few of the path's
   22.9 M outputs;
-- the int8 products: exact.
+- the int8 products: exact;
+- K5 (JPEG 2000 tier-1): exact (integer MQ decisions).
 """
 
 from pathlib import Path
@@ -1393,3 +1394,43 @@ def test_auto_mesh_serves_on_distinct_cards(cards, tmp_path):
             on_loop(services.shutdown())
         loop.call_soon_threadsafe(loop.stop)
         thread.join(timeout=30)
+
+
+# K5: JPEG 2000 tier-1, bit for bit (integer decisions only: exact)
+
+JP2_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "image_formats_jp2.npz"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["page.j2k", "page.jp2", "styles.j2k", "ycc.j2k", "tiled.jp2"])
+def test_j2k_t1_kernel_matches_plain(sm90, name):
+    from morphik_core_tpu_torch.utils.jpeg2000 import code_blocks
+    from morphik_core_tpu_torch.utils.jpeg2000_t1 import j2k_t1_decode
+
+    data = np.load(JP2_FIXTURES)[name.replace(".", "_")].tobytes()
+    blocks, n = code_blocks(data, 96)
+    want = j2k_t1_decode(blocks, n, "cpu")
+    _kernels.reset_launch_counts()
+    got = j2k_t1_decode(blocks, n, "cuda")
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["j2k_t1"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_jpeg2000_decodes_on_card_as_pillow(sm90):
+    """Every ingested file of the fixture, tier-1 through K5, has Pillow's
+    mode and pixels (their hash); one K5 launch a decoded image."""
+    import hashlib
+
+    from morphik_core_tpu_torch.utils.image import read_image
+
+    z = np.load(JP2_FIXTURES)
+    names = [k for k in z.files if k + "_payload_sha256" in z.files]
+    assert len(names) == 8
+    _kernels.reset_launch_counts()
+    for key in names:
+        pixels, mode, _ = read_image(z[key].tobytes())   # the default device: the card
+        assert mode == str(z[key + "_mode"]), key
+        assert hashlib.sha256(pixels.tobytes()).hexdigest() == str(z[key + "_sha256"]), key
+    assert _kernels.launch_counts["j2k_t1"] == len(names)

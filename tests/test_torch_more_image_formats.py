@@ -31,7 +31,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-from hypothesis import HealthCheck, given, settings, strategies as st
+from hypothesis import HealthCheck, example, given, settings, strategies as st
 from PIL import Image
 
 from morphik_core_tpu_torch.models.colqwen.preprocess import resize_mode_u8, to_rgb_u8
@@ -42,6 +42,7 @@ from morphik_core_tpu_torch.utils.fast_ops import data_uri_to_bytes
 from morphik_core_tpu_torch.utils.image import (UnidentifiedImage, UnsupportedImage, decode_image, probe_image,
                                                 read_image, sniff)
 from tests.test_torch_decoders import _page
+from tests.test_torch_jpeg2000 import htj2k_file, part2_file
 
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "image_formats_more.npz"
 ROADMAP = "ROADMAP Queue 1 item 3b-ii"
@@ -549,6 +550,10 @@ def dcx_bytes(pages) -> bytes:
 
 @EXAMPLES
 @given(sizes, st.integers(0, 99))
+@example(hw=(1, 3), seed=0)    # RGB planes at 0 / 3 / 6 of a 12-byte row (PcxDecode.c's band rule)
+@example(hw=(5, 3), seed=7)
+@example(hw=(2, 1), seed=1)    # a row a multiple of the width, bands one byte apart
+@example(hw=(3, 5), seed=2)    # planes at their share of the row, 0 / 6 / 12
 def test_pcx_and_dcx_match_pillow(hw, seed):
     h, w = hw
     rgb = _img(h, w, 3, seed)
@@ -931,7 +936,8 @@ def test_payload_matches_the_reference(kind):
 
 def refused_files() -> dict:
     """Files the port still refuses, each with the words of its refusal:
-    name -> (bytes, words). JPEG 2000 and AVIF as Pillow writes them."""
+    name -> (bytes, words). AVIF as Pillow writes it; HTJ2K and Part-2
+    JPEG 2000 codestreams flagged so in their headers."""
     img = Image.fromarray(_img(24, 32, 3, 7))
     base = _save(img, "JPEG", quality=80)
     at = base.index(b"\xff\xc0")
@@ -941,8 +947,8 @@ def refused_files() -> dict:
         "jpeg12.jpg": (base[:at + 4] + bytes([12]) + base[at + 5:], "12-bit JPEG"),
         "hierarchical.jpg": (base[:at] + b"\xff\xc5" + base[at + 2:], "hierarchical JPEG"),
         "arith_lossless.jpg": (sof3[:at3] + b"\xff\xcb" + sof3[at3 + 2:], "arithmetic-coded lossless JPEG"),
-        "page.jp2": (_save(img, "JPEG2000"), "JPEG 2000"),
-        "page.j2k": (_save(img, "JPEG2000", no_jp2=True), "JPEG 2000"),
+        "page_ht.j2k": (htj2k_file(), "HTJ2K"),
+        "part2.jp2": (part2_file(), "Part-2"),
         "page.avif": (_save(img, "AVIF"), "AVIF"),
         "page.dds": (_save(img.convert("RGBA"), "DDS"), "DDS"),
         "lab.psd": (psd_bytes(_img(6, 7, 3, 1).transpose(2, 0, 1), 9), "Lab"),
@@ -1030,12 +1036,12 @@ def fixture_files() -> dict:
         "letter_baseline.jpg": _save(Image.fromarray(letter), "JPEG", quality=80),
     })
     files.update({name: data for name, (data, _) in refused_files().items()
-                  if name in ("jpeg12.jpg", "hierarchical.jpg", "page.jp2", "page.avif")})
+                  if name in ("jpeg12.jpg", "hierarchical.jpg", "page_ht.j2k", "page.avif")})
     return files
 
 
-REFUSED = ("jpeg12.jpg", "hierarchical.jpg", "page.jp2", "page.avif")
-REFUSED_WORDS = ("12-bit JPEG", "hierarchical JPEG", "JPEG 2000", "AVIF")
+REFUSED = ("jpeg12.jpg", "hierarchical.jpg", "page_ht.j2k", "page.avif")
+REFUSED_WORDS = ("12-bit JPEG", "hierarchical JPEG", "HTJ2K", "AVIF")
 TIMED = ("letter.ppm", "letter.psd", "letter.pcx", "letter.tga", "letter.sgi", "letter.ras", "letter.qoi",
          "letter.xbm", "letter.xpm", "letter_arith.jpg", "letter_lossless.jpg", "letter_baseline.jpg")
 # the letter page Pillow cannot load (its arithmetic-coded data run past 64 KiB): timed with the
@@ -1148,6 +1154,7 @@ def test_query_paths_decode_the_new_formats():
             asyncio.run(service.retrieve_chunks("", None, query_image=bytes_to_data_uri(data, "image/x-any")))
         model = object.__new__(cem.ColpaliEmbeddingModel)
         model.min_pixels = model.max_pixels = 0
+        model.model = type("T", (), {"device": "cpu"})()   # where a JPEG 2000's tier-1 would run
         original = cem.preprocess_array_u8
         cem.preprocess_array_u8 = spy
         try:
@@ -1158,6 +1165,7 @@ def test_query_paths_decode_the_new_formats():
             cem.preprocess_array_u8 = original
         parser = object.__new__(MorphikParser)
         parser.ocr_engine = type("O", (), {"images_to_structured": staticmethod(spy)})()
+        parser.image_device = "cpu"
         with pytest.raises(_Seen):
             asyncio.run(parser.parse_file_to_text_deep(data, name, "image/x-any"))
         assert len(seen) == 3 and all(np.array_equal(s, want) for s in seen), name
