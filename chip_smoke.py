@@ -3786,7 +3786,8 @@ MORE_FORMAT_TIMED = ("letter.ppm", "letter.psd", "letter.pcx", "letter.tga", "le
 MORE_FORMAT_PAST_PILLOW = ("letter_arith.jpg",)  # its data run past Pillow's 64 KiB block: timed, else refused
 MORE_FORMAT_QUERIES = ("page.ppm", "page.psd", "arith.jpg")
 MORE_FORMAT_REFUSED = (("jpeg12.jpg", "12-bit JPEG"), ("hierarchical.jpg", "hierarchical JPEG"),
-                       ("page_ht.j2k", "HTJ2K"), ("page.avif", "AVIF"))
+                       ("page.avif", "AVIF"))
+MORE_FORMAT_FAILING = ("page_ht.j2k",)  # refused before: its job fails, as Pillow's load does
 MORE_FORMAT_CTYPES = {"ppm": "image/x-portable-pixmap", "pgm": "image/x-portable-graymap",
                       "pbm": "image/x-portable-bitmap", "pfm": "image/x-portable-floatmap", "ico": "image/x-icon",
                       "cur": "image/x-icon", "psd": "image/vnd.adobe.photoshop", "pcx": "image/x-pcx",
@@ -3834,6 +3835,14 @@ def check_more_format_decoders(z) -> dict:
         except UnsupportedImage as e:
             if words not in str(e) or "3b-ii" not in str(e):
                 raise
+    for name in MORE_FORMAT_FAILING:   # refused before: its headers pass, its decode fails as Pillow's load does
+        data = z[name.replace(".", "_")].tobytes()
+        probe_image(data)
+        try:
+            read_image(data, "cuda")
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} decoded; Pillow fails it")
     base = decode_ms["letter_baseline.jpg"]
     return {"decode_ms": decode_ms, "page_hw": sizes,
             "letter_over_baseline": {n: decode_ms[n] / base for n in MORE_FORMAT_TIMED if n != "letter_baseline.jpg"}}
@@ -3845,8 +3854,9 @@ def check_jp2_decoders(z, base_ms: float) -> dict:
     lossless and 9/7, timed by stage (the median of DECODE_REPEATS, host
     ms with the card synchronized after each stage: headers and tier-2 on
     the host, K5, the DWT and component transforms, Pillow's unpacking)
-    beside the baseline JPEG of the same page; the HTJ2K and Part-2 files
-    refused from their headers."""
+    beside the baseline JPEG of the same page; the formerly refused HTJ2K-
+    and Part-2-flagged files pass their headers and fail their decode, as
+    Pillow's load does."""
     import hashlib
 
     import numpy as np
@@ -3874,15 +3884,55 @@ def check_jp2_decoders(z, base_ms: float) -> dict:
             st["total_ms"] = (time.perf_counter() - t) * 1e3
             runs.append(st)
         stages[name] = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
-    for name, words in JP2_REFUSED:
+    for name, _ in JP2_REFUSED:
+        data = z[name.replace(".", "_")].tobytes()
+        probe_image(data)
         try:
-            probe_image(z[name.replace(".", "_")].tobytes())
-            raise AssertionError(f"{name} was not refused")
-        except UnsupportedImage as e:
-            if words not in str(e) or "3b-ii" not in str(e):
-                raise
+            read_image(data, "cuda")
+        except ValueError:
+            continue
+        raise AssertionError(f"{name} decoded; Pillow fails it")
     return {"decode_ms": decode_ms, "letter_stages_ms": stages, "letter_baseline_jpeg_ms": base_ms,
             "letter_over_baseline": {n: stages[n]["total_ms"] / base_ms for n in JP2_TIMED}}
+
+
+def check_ht_decoders(z, base_ms: float) -> dict:
+    """Phase 22, HTJ2K and Part 2 on the card: each file of
+    image_formats_htj2k.npz decodes to Pillow's mode and pixels (their
+    hash); the HT letter page timed by stage (the median of
+    DECODE_REPEATS, host ms with the card synchronized after each stage:
+    headers and tier-2 on the host, K5 (no block here), K6, the DWT and
+    component transforms, Pillow's unpacking) beside the baseline JPEG of
+    the same page."""
+    import hashlib
+
+    import numpy as np
+
+    from morphik_core_tpu_torch.utils.image import read_image
+    from morphik_core_tpu_torch.utils.jpeg2000 import read_jpeg2000
+
+    decode_ms = {}
+    for name in HT_FILES + HT_TIMED:
+        key = name.replace(".", "_")
+        data = z[key].tobytes()
+        t = time.perf_counter()
+        pixels, mode, _ = read_image(data, "cuda")
+        decode_ms[name] = (time.perf_counter() - t) * 1e3
+        if mode != str(z[f"{key}_mode"]) or hashlib.sha256(pixels.tobytes()).hexdigest() != str(z[f"{key}_sha256"]):
+            raise AssertionError(f"HTJ2K fixture {name}: mode {mode} or pixels differ from Pillow's")
+    stages = {}
+    for name in HT_TIMED:
+        data = z[name.replace(".", "_")].tobytes()
+        runs = []
+        for _ in range(DECODE_REPEATS):
+            st = {}
+            t = time.perf_counter()
+            read_jpeg2000(data, "cuda", st)
+            st["total_ms"] = (time.perf_counter() - t) * 1e3
+            runs.append(st)
+        stages[name] = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    return {"decode_ms": decode_ms, "letter_stages_ms": stages, "letter_baseline_jpeg_ms": base_ms,
+            "letter_over_baseline": {n: stages[n]["total_ms"] / base_ms for n in HT_TIMED}}
 
 
 def formats_phase(torch, model, _kernels, smi):
@@ -3906,9 +3956,11 @@ def formats_phase(torch, model, _kernels, smi):
     z = np.load(FORMAT_FIXTURES)
     zm = np.load(MORE_FORMAT_FIXTURES)
     zj = np.load(JP2_FIXTURES)
+    zh = np.load(HT_FIXTURES)
     decoders = check_format_decoders(z)
     decoders["more"] = check_more_format_decoders(zm)
     decoders["jp2"] = check_jp2_decoders(zj, decoders["more"]["decode_ms"]["letter_baseline.jpg"])
+    decoders["ht"] = check_ht_decoders(zh, decoders["more"]["decode_ms"]["letter_baseline.jpg"])
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_formats_"))
     settings = service_settings(tmp)
     forward_batches = []
@@ -3931,19 +3983,32 @@ def formats_phase(torch, model, _kernels, smi):
             f"{json.dumps({k: round(v, 3) for k, v in decoders['decode_ms'].items()})}; the newer files' "
             f"{json.dumps({k: round(v, 3) for k, v in decoders['more']['decode_ms'].items()})}; JPEG 2000 "
             f"(tier-1 on the card) {json.dumps({k: round(v, 3) for k, v in decoders['jp2']['decode_ms'].items()})}; "
-            f"letter page by stage {json.dumps(decoders['jp2']['letter_stages_ms'])}")
+            f"letter page by stage {json.dumps(decoders['jp2']['letter_stages_ms'])}; HTJ2K and Part 2 "
+            f"{json.dumps({k: round(v, 3) for k, v in decoders['ht']['decode_ms'].items()})}; HT letter page by "
+            f"stage {json.dumps(decoders['ht']['letter_stages_ms'])}")
         # still refused: 415 before any document exists
         refused = [(FORMAT_REFUSED, z[FORMAT_REFUSED.replace(".", "_")].tobytes(), "image/jpeg"),
                    ("twelve.jpg", _twelve_bit(z["wide_baseline_jpg"].tobytes()), "image/jpeg")]
         refused += [(name, zm[name.replace(".", "_")].tobytes(), MORE_FORMAT_CTYPES[name.rsplit(".", 1)[1]])
                     for name, _ in MORE_FORMAT_REFUSED]
-        refused += [(name, zj[name.replace(".", "_")].tobytes(), "image/jp2") for name, _ in JP2_REFUSED]
         for name, data, ctype in refused:
             status, raw = client.request("POST", "/ingest/file", *client.multipart(name, data, ctype))
             if status != 415 or b"3b-ii" not in raw:
                 raise AssertionError(f"{name} answered {status} {raw[:300]!r}, expected 415")
         if client.call("POST", "/documents", {}):
             raise AssertionError("a refused upload left a document")
+        # refused before, now accepted: their jobs fail as Pillow's load does, leaving no page
+        failing_before, failing, failing_errors = dict(_kernels.launch_counts), {}, {}
+        for name, _ in JP2_REFUSED:
+            failing[name] = client.upload(name, zj[name.replace(".", "_")].tobytes(), "image/jp2")["external_id"]
+        for name, doc in failing.items():
+            failing_errors[name] = _wait_failed(client, doc)["error"]
+            if "JPEG 2000" not in failing_errors[name]:
+                raise AssertionError(f"{name} failed with {failing_errors[name]!r}")
+            if client.call("POST", "/batch/chunks", {"sources": [{"document_id": doc, "chunk_number": 0}],
+                                                     "use_colpali": True}):
+                raise AssertionError(f"{name} left a page")
+        failing_launches = {k: v - failing_before[k] for k, v in _kernels.launch_counts.items()}
         ingest_s, docs, fixture_of = {}, {}, {}
         for fx, names, ctypes_ in ((z, FORMAT_FILES, FORMAT_CTYPES), (zm, MORE_FORMAT_FILES, MORE_FORMAT_CTYPES)):
             for name in names:
@@ -3960,7 +4025,16 @@ def formats_phase(torch, model, _kernels, smi):
             docs[name], fixture_of[name] = doc["external_id"], zj
         jp2_ingest = {k: v - jp2_before[k] for k, v in _kernels.launch_counts.items()}
         jp2_forwards = len(forward_batches) - jp2_forwards0
-        for name in FORMAT_FILES + MORE_FORMAT_FILES + JP2_FILES:   # one page each (the first frame or page), the reference's
+        # HTJ2K and Part 2: HT blocks through K6, Part-1 blocks through K5, one launch each a decoded image
+        ht_before, ht_forwards0 = dict(_kernels.launch_counts), len(forward_batches)
+        for name in HT_FILES:
+            t = time.perf_counter()
+            doc = client.upload(name, zh[name.replace(".", "_")].tobytes(), HT_CTYPES[name.rsplit(".", 1)[1]])
+            ingest_s[name] = _wait_completed(client, [doc["external_id"]]) - t
+            docs[name], fixture_of[name] = doc["external_id"], zh
+        ht_ingest = {k: v - ht_before[k] for k, v in _kernels.launch_counts.items()}
+        ht_forwards = len(forward_batches) - ht_forwards0
+        for name in FORMAT_FILES + MORE_FORMAT_FILES + JP2_FILES + HT_FILES:   # one page each (the first frame or page), the reference's
             chunks = client.call("POST", "/batch/chunks", {
                 "sources": [{"document_id": docs[name], "chunk_number": k} for k in range(3)], "use_colpali": True})
             if len(chunks) != 1:
@@ -3974,6 +4048,13 @@ def formats_phase(torch, model, _kernels, smi):
         if jp2_ingest["j2k_t1"] != len(JP2_FILES) or jp2_ingest["window_attention"] != k3_per_forward * jp2_forwards:
             raise AssertionError(f"the JPEG 2000 ingests launched {jp2_ingest} over {jp2_forwards} tower forwards: "
                                  f"expected K5 once a file, K3 {k3_per_forward} a forward")
+        if (ht_ingest["j2k_ht"], ht_ingest["j2k_t1"]) != (3, 2) or \
+                ht_ingest["window_attention"] != k3_per_forward * ht_forwards:
+            raise AssertionError(f"the HTJ2K and Part-2 ingests launched {ht_ingest} over {ht_forwards} tower "
+                                 f"forwards: expected K6 3 (page.jph, page.j2c, mixed.j2k), K5 2 (mixed.j2k, "
+                                 f"part2.jp2), K3 {k3_per_forward} a forward")
+        if any(failing_launches[k] for k in ("j2k_t1", "j2k_ht")):
+            raise AssertionError(f"the failing JPEG 2000 uploads launched {failing_launches}: they fail on the host")
         if ingest_forwards < 1 or ingest_launches["window_attention"] != k3_per_forward * ingest_forwards:
             raise AssertionError(f"{ingest_forwards} tower forwards, K3 launched "
                                  f"{ingest_launches['window_attention']} times, expected {k3_per_forward} a forward")
@@ -3981,7 +4062,8 @@ def formats_phase(torch, model, _kernels, smi):
         jp2_query_before = dict(_kernels.launch_counts)
         for fx, name, ctypes_ in ([(z, n, FORMAT_CTYPES) for n in FORMAT_QUERIES]
                                   + [(zm, n, MORE_FORMAT_CTYPES) for n in MORE_FORMAT_QUERIES]
-                                  + [(zj, n, {"jp2": "image/jp2", "j2k": "image/jp2"}) for n in JP2_QUERIES]):
+                                  + [(zj, n, {"jp2": "image/jp2", "j2k": "image/jp2"}) for n in JP2_QUERIES]
+                                  + [(zh, n, HT_CTYPES) for n in HT_QUERIES]):
             key = name.replace(".", "_")
             uri = bytes_to_data_uri(fx[key].tobytes(), ctypes_[name.rsplit(".", 1)[1]])
             before = _kernels.launch_counts["maxsim_q8"]
@@ -3996,9 +4078,12 @@ def formats_phase(torch, model, _kernels, smi):
                 raise AssertionError(f"the {name} image query's top-1 is {top[name]}, not a file of its page")
         if min(k1) <= 0:
             raise AssertionError(f"an image query did not launch K1: {k1}")
-        jp2_queries = {"k5": _kernels.launch_counts["j2k_t1"] - jp2_query_before["j2k_t1"], "k1": k1[-len(JP2_QUERIES):]}
-        if jp2_queries["k5"] != len(JP2_QUERIES):
-            raise AssertionError(f"the JPEG 2000 image queries launched K5 {jp2_queries['k5']} times")
+        jp2_queries = {"k5": _kernels.launch_counts["j2k_t1"] - jp2_query_before["j2k_t1"],
+                       "k1": k1[-len(JP2_QUERIES) - len(HT_QUERIES):-len(HT_QUERIES)]}
+        ht_queries = {"k6": _kernels.launch_counts["j2k_ht"] - jp2_query_before["j2k_ht"], "k1": k1[-len(HT_QUERIES):]}
+        if jp2_queries["k5"] != len(JP2_QUERIES) or ht_queries["k6"] != len(HT_QUERIES):
+            raise AssertionError(f"the JPEG 2000 image queries launched K5 {jp2_queries['k5']} times, K6 "
+                                 f"{ht_queries['k6']}")
         launches = dict(_kernels.launch_counts)
         if launches["window_attention"] != k3_per_forward * len(forward_batches):   # the queries' forwards too
             raise AssertionError(f"K3 launched {launches['window_attention']} times over {len(forward_batches)} "
@@ -4014,9 +4099,14 @@ def formats_phase(torch, model, _kernels, smi):
            "image_query_top1": top, "image_query_k1": k1, "launches": launches, "ingest_launches": ingest_launches,
            "k3_per_forward": k3_per_forward, "peak_memory_gb": peak_gb, "phase_s": time.perf_counter() - t_phase,
            "jp2": {"ingest_launches": jp2_ingest, "ingest_forwards": jp2_forwards, "queries": jp2_queries,
-                   "ingest_s": {n: ingest_s[n] for n in JP2_FILES}}}
+                   "ingest_s": {n: ingest_s[n] for n in JP2_FILES}},
+           "ht": {"ingest_launches": ht_ingest, "ingest_forwards": ht_forwards, "queries": ht_queries,
+                  "ingest_s": {n: ingest_s[n] for n in HT_FILES}, "failing_errors": failing_errors,
+                  "failing_launches": failing_launches}}
     log(f"  JPEG 2000 ingests: launches {jp2_ingest} over {jp2_forwards} tower forwards; image query K5 "
         f"{jp2_queries['k5']}, K1 {jp2_queries['k1']}")
+    log(f"  HTJ2K and Part-2 ingests: launches {ht_ingest} over {ht_forwards} tower forwards; JPH image query K6 "
+        f"{ht_queries['k6']}, K1 {ht_queries['k1']}; the formerly refused files failed: {json.dumps(failing_errors)}")
     log(f"  ingests to completed (s) {json.dumps({k: round(v, 3) for k, v in ingest_s.items()})}; ingest tower "
         f"forwards {ingest_forwards} (K3 {ingest_launches['window_attention']}); image queries (ms) "
         f"{json.dumps({k: round(v, 3) for k, v in query_ms.items()})}; launches {launches}; peak {peak_gb:.2f} GB; "
@@ -4468,9 +4558,18 @@ def binary_kernel_checks(torch):
 JP2_FIXTURES = ROOT / "tests" / "fixtures" / "image_formats_jp2.npz"
 JP2_FILES = ("page.jp2", "page.j2k", "tiled.jp2", "styles.j2k", "gray16.jp2", "ycc.j2k", "palette.jp2", "rgba.jp2")
 JP2_TIMED = ("letter.jp2", "letter_97.jp2")  # the 200 dpi letter page, lossless and 9/7, timed by stage
-JP2_REFUSED = (("page_ht.j2k", "HTJ2K"), ("part2.jp2", "Part-2"))
+JP2_REFUSED = (("page_ht.j2k", "HTJ2K"), ("part2.jp2", "Part-2"))  # refused before; their jobs fail, as in Pillow
 JP2_QUERIES = ("page.jp2",)
 JP2_CROP = 128   # phase 2 holds K5 to its plain version on the code blocks of this top-left crop
+HT_FIXTURES = ROOT / "tests" / "fixtures" / "image_formats_htj2k.npz"
+HT_FILES = ("page.jph", "page.j2c", "mixed.j2k", "part2.jp2")   # HTJ2K (JPH, raw, COC-mixed) and Part 2
+HT_TIMED = ("letter_ht.jph",)  # the 200 dpi letter page as HTJ2K, lossless, timed by stage
+HT_QUERIES = ("page.jph",)
+HT_CTYPES = {"jph": "image/jph", "j2c": "image/jp2", "j2k": "image/jp2", "jp2": "image/jp2"}
+# K6 on phase 22's path: one launch a decoded image with HT blocks (page.jph, page.j2c, mixed.j2k
+# ingested; part2.jp2 has none) and one for the JPH image query; the formerly refused files fail
+# on the host before any launch
+HT_K6_PREDICTED = 4
 K5_THREADS_NOTE = "one thread a code block"
 
 
@@ -4558,6 +4657,103 @@ def j2k_t1_kernel_checks(torch):
         log(f"  K5 {name} (1700 x 2200, every block): device_ms={letter[name]['device_ms']:.5f} "
             f"bound_us={bound['bound_us']:.3f} {json.dumps(residency(blocks))}")
     cases[0]["letter"] = letter
+    return cases[0], cases
+
+
+def _k6_bound(blocks) -> dict:
+    """K6's least time: its blocks' segment bytes, the two VLC tables and
+    the descriptors read once and their coefficients (int32, w x h a
+    block) written once, over the HBM rate; its arithmetic (table look-ups
+    and bit shifts, a serial chain within each block) no peak rate bounds,
+    so bytes bound it."""
+    import numpy as np
+
+    desc = blocks.desc[blocks.desc[:, 4] > 0]
+    out_bytes = 4 * int((desc[:, 5].astype(np.int64) * desc[:, 6]).sum())
+    moved = int(desc[:, 3].astype(np.int64).sum()) + 2 * 2 * 1024 + 4 * desc.size + out_bytes
+    return dict(_bound(moved, 0, "f32"), bytes=moved)
+
+
+def j2k_ht_kernel_checks(torch, k5_letter: dict):
+    """Phase 2, K6: HTJ2K block decoding against its plain version, bit for
+    bit, on the HT code blocks of the top-left JP2_CROP x JP2_CROP of the
+    550 x 425 pages, lossless (page.j2c, cleanup passes) and 9/7 (page.jph,
+    with SigProp and MagRef); its device time (one replay of a CUDA graph
+    of launches on uploaded inputs) there and on every block of the HT
+    letter page, beside K5's on the Part-1 letter page, the bound, the
+    blocks and threads, and the residency."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.ops import _kernels
+    from morphik_core_tpu_torch.utils.jpeg2000 import code_blocks
+    from morphik_core_tpu_torch.utils.jpeg2000_ht import j2k_ht_decode
+
+    z = np.load(HT_FIXTURES)
+    occ = _kernels.j2k_ht_occupancy()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"phase 2, K6: {K5_THREADS_NOTE}, {occ['threads_per_block']} threads a thread block, "
+        f"{occ['blocks_per_sm']} thread blocks resident a SM x {sms} SMs, {occ['registers_per_thread']} registers")
+
+    def device_ms(blocks, n):
+        dev = torch.device("cuda")
+        live = blocks.desc[:, 4] > 0
+        data = torch.from_numpy(blocks.data).to(dev)
+        desc = torch.from_numpy(np.ascontiguousarray(blocks.desc[live])).to(dev)
+        out = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
+        scratch = torch.empty(max(blocks.n_scratch, 1), dtype=torch.int32, device=dev)
+        errors = torch.zeros(max(int(live.sum()), 1), dtype=torch.int32, device=dev)
+
+        def launch():
+            out.zero_()
+            _kernels.launch_j2k_ht(data, desc, out, scratch, errors, int(live.sum()))
+            return out
+
+        ms = _graph_ms(torch, launch, 10)
+        if int(errors.abs().sum()):
+            raise AssertionError("K6 reported a malformed block in a timed launch")
+        return ms
+
+    def residency(blocks):
+        nb = int((blocks.desc[:, 4] > 0).sum())
+        tb = -(-nb // occ["threads_per_block"])
+        return {"code_blocks": nb, "threads": nb, "thread_blocks": tb,
+                "resident_thread_blocks": occ["blocks_per_sm"] * sms,
+                "sms_busy": min(tb, sms), "sm_share": min(tb, sms) / sms}
+
+    cases = []
+    for name in ("page.j2c", "page.jph"):
+        data = z[name.replace(".", "_")].tobytes()
+        blocks, n = code_blocks(data, JP2_CROP, ht=True)
+        t0 = time.perf_counter()
+        want = j2k_ht_decode(blocks, n, "cpu")
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = j2k_ht_decode(blocks, n, "cuda")
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), want):
+            diff = int((got.cpu() != want).sum())
+            raise AssertionError(f"K6 on {name}'s {len(blocks)} crop blocks: {diff} coefficients differ from plain")
+        err = float((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max()) if n else 0.0
+        ms = _time_ms(torch, lambda: j2k_ht_decode(blocks, n, "cuda"), 10)
+        dev_ms = device_ms(blocks, n)
+        bound = _k6_bound(blocks)
+        passes = np.bincount(blocks.desc[:, 4], minlength=4)[1:].tolist()
+        case = dict({"case": f"K6 {name} {JP2_CROP} x {JP2_CROP} crop", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": None,
+                     "blocks_by_passes": passes}, **bound, **residency(blocks))
+        cases.append(case)
+        log(f"  {case['case']}: {len(blocks)} blocks ({passes} of 1, 2, 3 passes) bit-identical to plain; "
+            f"kernel_ms={ms:.5f} (upload, launch, sync) device_ms={dev_ms:.5f} plain_ms={plain_ms:.3f} (host Python) "
+            f"bound_us={bound['bound_us']:.3f} ({bound['bytes']} bytes; latency-bound: {len(blocks)} serial chains)")
+    letter = {}
+    for name in HT_TIMED:
+        blocks, n = code_blocks(z[name.replace(".", "_")].tobytes(), ht=True)
+        bound = _k6_bound(blocks)
+        letter[name] = dict({"device_ms": device_ms(blocks, n)}, **bound, **residency(blocks))
+        log(f"  K6 {name} (1700 x 2200, every block): device_ms={letter[name]['device_ms']:.5f} "
+            f"bound_us={bound['bound_us']:.3f} {json.dumps(residency(blocks))}; K5 on the Part-1 letter pages "
+            f"{json.dumps({k: round(v['device_ms'], 5) for k, v in k5_letter.items()})} ms")
+    cases[0]["letter"] = letter
+    cases[0]["k5_letter_device_ms"] = {k: v["device_ms"] for k, v in k5_letter.items()}
     return cases[0], cases
 
 
@@ -5223,6 +5419,8 @@ def main() -> None:
     all_cases += k4_cases
     main_k5, k5_cases = j2k_t1_kernel_checks(torch)
     all_cases += k5_cases
+    main_k6, k6_cases = j2k_ht_kernel_checks(torch, main_k5["letter"])
+    all_cases += k6_cases
     model, bf16_embs, bf16_queries, bf16_stats = ingest_bf16(torch, _kernels)
     ckpt, ckpt_written = write_checkpoint_phase(torch, model)  # before phase 3b quantizes in place
     try:
@@ -5338,6 +5536,21 @@ def main() -> None:
                                         "bound_by", "code_blocks")} for c in k5_cases[1:]]))
     if kernels[-1]["launches"] <= 0:
         raise AssertionError("K5 was never launched on phase 22's JPEG 2000 path")
+    kernels.append(dict(  # K6 replaces no Pallas kernel: the reference's HT decoder is OpenJPEG's host C under Pillow
+        name="j2k_ht", route="cuda", source=csrc + "j2k_ht.cu",
+        replaces="OpenJPEG 2.5.4 src/lib/openjp2/ht_dec.c:opj_t1_ht_decode_cblk (through Pillow libImaging/Jpeg2KDecode.c)",
+        launches=formats["launches"]["j2k_ht"], max_abs_err=main_k6["max_abs_err"], ms=main_k6["ms"],
+        plain_ms=main_k6["plain_ms"], bound_ms=main_k6["bound_us"] / 1e3, bound_by=main_k6["bound_by"],
+        library_ms=None, library_call="none (no PyTorch op decodes HTJ2K)", device_ms=main_k6["device_ms"],
+        plain_device_ms=None, shape=main_k6["case"], code_blocks=main_k6["code_blocks"],
+        sm_share=main_k6["sm_share"], letter=main_k6["letter"], k5_letter_device_ms=main_k6["k5_letter_device_ms"],
+        formats_ingest_launches=formats["ht"]["ingest_launches"]["j2k_ht"],
+        formats_query_launches=formats["ht"]["queries"]["k6"],
+        other_cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "device_ms", "bound_us",
+                                        "bound_by", "code_blocks", "blocks_by_passes")} for c in k6_cases[1:]]))
+    if kernels[-1]["launches"] != HT_K6_PREDICTED:
+        raise AssertionError(f"K6 launched {kernels[-1]['launches']} times on phase 22's path, predicted "
+                             f"{HT_K6_PREDICTED}")
     log(f"total wall s {time.perf_counter() - t_all:.3f}")
     log(json.dumps({"cases": all_cases}))
     print(smi)

@@ -48,12 +48,13 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 launch_counts: Dict[str, int] = {"maxsim_q8": 0, "maxsim": 0, "window_attention": 0, "binary_maxsim": 0,
-                                 "j2k_t1": 0}
+                                 "j2k_t1": 0, "j2k_ht": 0}
 
 _counts_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 _ready_devices: Set[int] = set()  # card indices whose shared-memory limits are raised
+_ht_tables_on: Set[int] = set()  # card indices whose constant memory holds K6's VLC tables
 
 
 def reset_launch_counts() -> None:
@@ -136,6 +137,12 @@ def library() -> ctypes.CDLL:
             lib.j2k_t1_launch.restype = ci
             lib.j2k_t1_occupancy.argtypes = [ctypes.POINTER(ci)] * 3
             lib.j2k_t1_occupancy.restype = ci
+            lib.j2k_ht_init.argtypes = [vp]
+            lib.j2k_ht_init.restype = ci
+            lib.j2k_ht_launch.argtypes = [vp] * 5 + [ci, vp]
+            lib.j2k_ht_launch.restype = ci
+            lib.j2k_ht_occupancy.argtypes = [ctypes.POINTER(ci)] * 3
+            lib.j2k_ht_occupancy.restype = ci
             _lib = lib
     return _lib
 
@@ -244,6 +251,34 @@ def launch_j2k_t1(data, segs, desc, out, scratch, nblocks: int) -> None:
                                ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
     _check(rc, "j2k_t1")
     count_launch("j2k_t1")
+
+
+def launch_j2k_ht(data, desc, out, scratch, errors, nblocks: int) -> None:
+    """K6 on already-packed CUDA tensors (see utils/jpeg2000_ht.py::
+    j2k_ht_decode): every HT code block of one image, one thread a block,
+    each block's error code (0: decoded) into `errors`."""
+    with _on(out.device) as lib:
+        if out.device.index not in _ht_tables_on:   # K6's VLC tables into this card's constant memory, once
+            with _lib_lock:
+                if out.device.index not in _ht_tables_on:
+                    from morphik_core_tpu_torch.utils.jpeg2000_ht import VLC_TABLES
+
+                    _check(lib.j2k_ht_init(ctypes.c_char_p(VLC_TABLES.astype("<u2").tobytes())), "j2k_ht_init")
+                    _ht_tables_on.add(out.device.index)
+        rc = lib.j2k_ht_launch(_ptr(data), _ptr(desc), _ptr(out), _ptr(scratch), _ptr(errors), nblocks,
+                               ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+    _check(rc, "j2k_ht")
+    count_launch("j2k_ht")
+
+
+def j2k_ht_occupancy() -> Dict[str, int]:
+    """K6's threads a block, resident blocks a multiprocessor and
+    registers a thread (for reports)."""
+    threads, blocks, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with _on(torch.device("cuda", torch.cuda.current_device())) as lib:
+        rc = lib.j2k_ht_occupancy(ctypes.byref(threads), ctypes.byref(blocks), ctypes.byref(regs))
+    _check(rc, "j2k_ht_occupancy")
+    return {"threads_per_block": threads.value, "blocks_per_sm": blocks.value, "registers_per_thread": regs.value}
 
 
 def j2k_t1_occupancy() -> Dict[str, int]:

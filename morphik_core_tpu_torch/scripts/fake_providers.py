@@ -67,7 +67,7 @@ import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -458,9 +458,13 @@ class FakeProviders:
         h.send_response(200)
         h.send_header("Content-Type", ctype)
         h.end_headers()  # HTTP/1.0: the body ends when the connection closes
-        self._write(h, body)
-        if model == "drip" and self._hold(h, filler):
-            return
+        if model == "drip":
+            # a client that leaves after the first delta may do so while the
+            # body is still being written
+            if self._hold(h, filler, lead=body):
+                return
+        else:
+            self._write(h, body)
         self._write(h, end)
         if model == "linger":
             self._hold(h, ": keep-alive")
@@ -470,17 +474,17 @@ class FakeProviders:
             h.wfile.write((line + self.line_end).encode())
             h.wfile.flush()
 
-    def _hold(self, h: BaseHTTPRequestHandler, line: str) -> bool:
-        """Write `line` every 20 ms for HOLD_S or until the client
-        closes; -> whether it closed."""
+    def _hold(self, h: BaseHTTPRequestHandler, line: str, lead: Sequence[str] = ()) -> bool:
+        """Write the `lead` lines, then `line` every 20 ms for HOLD_S or
+        until the client closes; -> whether it closed."""
         closed, deadline = False, time.monotonic() + HOLD_S
-        while time.monotonic() < deadline:
-            try:
+        try:
+            self._write(h, lead)
+            while time.monotonic() < deadline:
                 self._write(h, [line])
-            except (BrokenPipeError, ConnectionResetError):
-                closed = True
-                break
-            time.sleep(0.02)
+                time.sleep(0.02)
+        except (BrokenPipeError, ConnectionResetError):
+            closed = True
         with self._lock:
             self.lingered.append(closed)
         return closed

@@ -26,7 +26,7 @@ long PDF never holds every page's patches at once; the stored rows are
 those of the reference's whole-list order.
 
 Uploads: everything but video, images whose bytes Pillow would open
-with a plugin the port does not decode (JPEG 2000, AVIF, DDS, ...) or
+with a plugin the port does not decode (AVIF, DDS, ...) or
 that no plugin recognizes, the variants the decoders refuse (12-bit,
 hierarchical and arithmetic-coded lossless JPEGs, arithmetic-coded ones
 Pillow cannot load, progressive ones with coefficient bits left
@@ -36,7 +36,9 @@ image upload is sniffed as `Image.open` sniffs it, whatever its content
 type. PNG (Adam7, 16-bit), JPEG (progressive, multi-scan, CMYK / YCCK,
 arithmetic-coded, lossless), GIF, BMP / DIB, TIFF (CCITT, LZW, Deflate,
 PackBits, JPEG), WebP (lossy, lossless, animated), Netpbm, ICO / CUR,
-PSD, PCX / DCX, TGA, SGI, Sun raster, QOI, XBM and XPM are ingested in
+PSD, PCX / DCX, TGA, SGI, Sun raster, QOI, XBM, XPM and JPEG 2000 (JP2,
+JPH and raw codestreams: Part 1, HTJ2K and the Part 2 OpenJPEG reads; a
+file Pillow cannot load fails its job) are ingested in
 Pillow's modes (`utils/image.py::read_image`), a multi-frame file as its
 first frame.
 
@@ -90,6 +92,11 @@ from morphik_core_tpu_torch.vector_store.torch_multivector_store import TorchMul
 
 logger = logging.getLogger(__name__)
 
+# Pillow's JPEG writer fails on a comment whose COM segment does not fit its first
+# 64 KiB buffer beside SOI and APP0 (a payload is at most 1024 px wide)
+MAX_PAYLOAD_COMMENT = 65511
+
+
 class UnsupportedContentType(ValueError):
     """An upload of a content type the port does not ingest."""
 
@@ -97,11 +104,13 @@ class UnsupportedContentType(ValueError):
 def check_upload(ctype: str, data: bytes) -> None:
     """Raise `UnsupportedContentType` (the route answers 415) for an
     upload the port does not ingest: video, and an `image/*` upload whose
-    bytes Pillow would open with a plugin the port does not decode (JPEG
-    2000, AVIF, ...), that no Pillow plugin recognizes, that a decoder
-    refuses by name, or that Pillow would refuse as a decompression bomb
-    (checked on the headers: `utils/image.py::probe_image` sniffs the bytes
-    as `Image.open` does, whatever the content type says)."""
+    bytes Pillow would open with a plugin the port does not decode (AVIF,
+    DDS, ...), that no Pillow plugin recognizes, that a decoder refuses by
+    name, or that Pillow would refuse as a decompression bomb (checked on
+    the headers: `utils/image.py::probe_image` sniffs the bytes as
+    `Image.open` does, whatever the content type says, `image/jph` too).
+    A JPEG 2000 file is never refused here: one OpenJPEG fails fails its
+    job, as Pillow's load fails."""
     if ctype.startswith("video/"):
         raise UnsupportedContentType(f"content type {ctype!r} is not ingested: video is not ingested by the port "
                                      "(ROADMAP Queue 1 item 3b-ii)")
@@ -129,6 +138,8 @@ def _image_to_data_uri(pixels: np.ndarray, mode: str, palette: Optional[np.ndarr
             palette = np.zeros_like(palette)
     if mode not in ("RGB", "L"):
         pixels = to_rgb_u8(pixels, mode, palette)
+    if len(comment) > MAX_PAYLOAD_COMMENT:
+        raise OSError("broken data stream when writing image file")
     data, coeffs = encode_jpeg(pixels, quality, comment)
     return bytes_to_data_uri(data, "image/jpeg"), coeffs
 
@@ -260,7 +271,7 @@ class IngestionService:
         dpi = self.settings.pdf.colpali_pdf_dpi
         comment = b""
         if ctype.startswith("image/"):
-            # a JPEG 2000's tier-1 runs where the ColPali model runs (else on the card)
+            # a JPEG 2000's tier-1 and HT blocks run where the ColPali model runs (else on the card)
             images = [read_image(data, getattr(getattr(self, "colpali_embedding_model", None), "device", None))]
             comment = pillow_comment(data)
         elif ctype == "application/pdf":

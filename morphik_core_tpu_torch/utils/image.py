@@ -12,11 +12,13 @@ formats the port decodes: PNG (`utils/png.py`), JPEG (`utils/jpeg.py`),
 GIF (`gif.py`), BMP and DIB (`bmp.py`), TIFF (`tiff.py`), WebP (`webp.py`),
 Netpbm (`ppm.py`), ICO and CUR (`ico.py`), PSD (`psd.py`), PCX and DCX
 (`pcx.py`), TGA (`tga.py`), SGI (`sgi.py`), Sun raster (`sun.py`), QOI
-(`qoi.py`), XBM and XPM (`xbm.py`), JPEG 2000 (`jpeg2000.py`: JP2 and raw
-J2K, Part 1; its tier-1 runs on the card, K5). A file another plugin
-claims (AVIF, DDS, ...) raises `UnsupportedImage` naming it and ROADMAP
-Queue 1 item 3b-ii, as do HTJ2K and Part-2 JPEG 2000 codestreams; in particular a TGA-shaped file that an earlier
-plugin claims is never read as TGA. Bytes no plugin claims raise
+(`qoi.py`), XBM and XPM (`xbm.py`), JPEG 2000 (`jpeg2000.py`: JP2, JPH
+and raw codestreams, Part 1, HTJ2K and the Part 2 OpenJPEG reads; its
+tier-1 runs on the card, K5, and its HT blocks, K6; a codestream Pillow
+opens but OpenJPEG fails fails the decode, never the probe). A file
+another plugin claims (AVIF, DDS, ...) raises `UnsupportedImage` naming
+it and ROADMAP Queue 1 item 3b-ii; in particular a TGA-shaped file that
+an earlier plugin claims is never read as TGA. Bytes no plugin claims raise
 `UnidentifiedImage`.
 
 `probe_image` reads headers only and also raises `DecompressionBombError`
@@ -39,7 +41,7 @@ from morphik_core_tpu_torch.utils.gif import probe_gif, read_gif
 from morphik_core_tpu_torch.utils.jpeg2000 import probe_jpeg2000, read_jpeg2000
 from morphik_core_tpu_torch.utils.jpeg import (NotThisFormat, UnsupportedImage, UnsupportedJpeg, probe_jpeg,
                                                read_jpeg)
-from morphik_core_tpu_torch.utils.png import MAX_PIXELS, SIGNATURE, read_png
+from morphik_core_tpu_torch.utils.png import MAX_PIXELS, SIGNATURE, read_png, text_comment
 from morphik_core_tpu_torch.utils.tiff import probe_tiff, read_tiff
 from morphik_core_tpu_torch.utils.webp import probe_webp, read_webp
 
@@ -326,7 +328,7 @@ def probe_image(data: bytes) -> Tuple[int, int]:
 
 def read_image(data: bytes, device=None) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     """-> (pixels, mode, palette) as Pillow's `Image.open` holds them.
-    `device` is where a JPEG 2000's tier-1 and reconstruction run (unset:
+    `device` is where a JPEG 2000's block decoding and reconstruction run (unset:
     the card, `device.default_device()`); every other format decodes on
     the host."""
     name = sniff(data)
@@ -383,9 +385,10 @@ def _gif_comment(data: bytes) -> bytes:
 
 
 def pillow_comment(data: bytes) -> bytes:
-    """`Image.open(...).info["comment"]` for the formats whose plugins set
-    it from the header, JPEG, GIF and JPEG 2000 (b"" for the others and
-    where there is none): Pillow's JPEG writer puts it in the page payload."""
+    """`Image.open(...).info["comment"]` once loaded, for the formats whose
+    plugins set it, JPEG, GIF, JPEG 2000 and PNG (b"" for the others and
+    where there is none): Pillow's JPEG writer puts it in the page payload,
+    a str (PNG's text) encoded as UTF-8."""
     try:
         name = sniff(data)
     except (UnsupportedImage, UnidentifiedImage, ValueError):
@@ -396,4 +399,6 @@ def pillow_comment(data: bytes) -> bytes:
         return _gif_comment(data)
     if name == "JPEG2000":
         return jp2_codestream.pillow_comment(data)
+    if name == "PNG":
+        return (text_comment(data) or "").encode("utf-8")
     return b""

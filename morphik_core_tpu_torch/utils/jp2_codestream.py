@@ -9,12 +9,19 @@ component of the main header or of the tile, a COC or QCC then sets one
 component, in the order they come), RGN, POC (appended per tile, layer
 ends clipped to the layer count), PPM / PPT (their packet headers joined
 in `Z` order), and each tile's tile-parts joined in order of appearance.
-TLM, PLM, PLT, CRG and COM are read past. A tile-part whose `Psot` is 0
-runs to the end of the codestream (less its EOC).
+CAP, CPF, TLM, PLM, PLT, CRG, COM and the markers OpenJPEG does not know
+are read past. A tile-part whose `Psot` is 0 runs to the end of the
+codestream (less its EOC).
 
-HTJ2K (SIZ `Rsiz` bit 14, a CAP marker or code-block style bit 0x40) and
-Part-2 extensions (`Rsiz` bit 15) raise `UnsupportedImage`, naming
-ROADMAP Queue 1 item 3b-ii.
+HTJ2K (Part 15) needs nothing of the headers but the code-block style
+bit 0x40 (`Rsiz` and CAP are not read); the mixed style 0x80 fails, as
+in OpenJPEG. Of Part 2, OpenJPEG 2.5.4 reads: CBD (each component's
+precision and signedness, after SIZ has fixed its DC shift); MCT, MCC
+and MCO, whose only effect with COD `mct` 0 or 1 is the DC level shift
+(an MCO sets every component's to 0, then to the offset array of the
+first MCC record when the stage names it and it spans every component);
+COD `mct` 2 and wavelets past 5/3 and 9/7 fail. Each rule, and each
+warning that leaves a marker unread, was held against `opj_decode`.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from morphik_core_tpu_torch.utils.jpeg import NotThisFormat, UnsupportedImage
+from morphik_core_tpu_torch.utils.jpeg import NotThisFormat
 
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
@@ -35,7 +42,7 @@ CS_UNSPECIFIED, CS_SRGB, CS_GRAY, CS_SYCC, CS_EYCC, CS_CMYK = 0, 1, 2, 3, 4, 5
 ENUMCS = {16: CS_SRGB, 17: CS_GRAY, 18: CS_SYCC, 24: CS_EYCC, 12: CS_CMYK}   # colr's others: unspecified
 
 # code-block styles (COD / COC SPcod byte 3)
-LAZY, RESET, TERMALL, VSC, PTERM, SEGSYM, HT = 0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40
+LAZY, RESET, TERMALL, VSC, PTERM, SEGSYM, HT, HT_MIXED = 0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40, 0x80
 
 
 def accept(prefix: bytes) -> bool:
@@ -189,10 +196,11 @@ class Tccp:
     numgbits: int = 2
     stepsizes: List[Tuple[int, int]] = field(default_factory=lambda: [(0, 0)] * 97)   # (expn, mant)
     roishift: int = 0
+    dc_shift: int = 0        # OpenJPEG's m_dc_level_shift: from SIZ, or an MCO
 
     def copy(self) -> "Tccp":
         return Tccp(self.numres, self.cblkw, self.cblkh, self.cblksty, self.qmfbid, list(self.prcw),
-                    list(self.prch), self.qntsty, self.numgbits, list(self.stepsizes), self.roishift)
+                    list(self.prch), self.qntsty, self.numgbits, list(self.stepsizes), self.roishift, self.dc_shift)
 
 
 @dataclass
@@ -206,9 +214,12 @@ class Tcp:
     pocs: List[Tuple[int, int, int, int, int, int]] = field(default_factory=list)   # resno0, compno0, layno1, resno1, compno1, prg
     ppt: Dict[int, bytes] = field(default_factory=dict)
     data: List[bytes] = field(default_factory=list)
+    mct_records: Dict[int, Tuple[int, bytes]] = field(default_factory=dict)   # Part 2 MCT: index -> (element type, data)
+    mcc_records: List[list] = field(default_factory=list)   # Part 2 MCC: [index, components, decorrelation, offset]
 
     def copy(self) -> "Tcp":
-        return Tcp(self.csty, self.prg, self.numlayers, self.mct, [t.copy() for t in self.tccps], list(self.pocs))
+        return Tcp(self.csty, self.prg, self.numlayers, self.mct, [t.copy() for t in self.tccps], list(self.pocs),
+                   mct_records=dict(self.mct_records), mcc_records=[list(r) for r in self.mcc_records])
 
 
 @dataclass
@@ -242,10 +253,6 @@ class Codestream:
                 min(self.tx0 + (p + 1) * self.tdx, self.x1), min(self.ty0 + (q + 1) * self.tdy, self.y1))
 
 
-def _refuse_ht():
-    raise UnsupportedImage("HTJ2K (JPEG 2000 Part 15) image")
-
-
 def _read_spcod(seg: bytes, at: int, tccp: Tccp, precincts: bool) -> None:
     tccp.numres = seg[at] + 1
     if tccp.numres > 33:
@@ -254,13 +261,11 @@ def _read_spcod(seg: bytes, at: int, tccp: Tccp, precincts: bool) -> None:
     if tccp.cblkw > 10 or tccp.cblkh > 10 or tccp.cblkw + tccp.cblkh > 12:
         raise ValueError("JPEG 2000: bad code-block size")
     tccp.cblksty = seg[at + 3]
-    if tccp.cblksty & HT:
-        _refuse_ht()
-    if tccp.cblksty & 0x80:
-        raise UnsupportedImage("JPEG 2000 Part-2 code-block style")
+    if tccp.cblksty & HT_MIXED:
+        raise ValueError("JPEG 2000: unsupported mixed HT code-block style")
     tccp.qmfbid = seg[at + 4]
     if tccp.qmfbid > 1:
-        raise UnsupportedImage("JPEG 2000 Part-2 wavelet")
+        raise ValueError("JPEG 2000: invalid transformation (an arbitrary wavelet)")
     if precincts:
         for r in range(tccp.numres):
             b = seg[at + 5 + r]
@@ -317,7 +322,7 @@ def _apply_marker(marker: int, seg: bytes, tcp: Tcp, ncomps: int, in_tile: bool)
             raise ValueError("JPEG 2000: zero layers")
         tcp.mct = seg[4]
         if tcp.mct > 1:
-            raise UnsupportedImage("JPEG 2000 Part-2 multiple component transform")
+            raise ValueError("JPEG 2000: invalid multiple component transformation")
         _read_spcod(seg, 5, tcp.tccps[0], bool(tcp.csty & 1))
         for t in tcp.tccps[1:]:
             src = tcp.tccps[0]
@@ -357,9 +362,136 @@ def _apply_marker(marker: int, seg: bytes, tcp: Tcp, ncomps: int, in_tile: bool)
             tcp.pocs.append((resno0, compno0, layno1, resno1, compno1, prg))
     elif marker == 0xFF61 and in_tile:   # PPT
         tcp.ppt[seg[0]] = seg[1:]
+    elif marker == 0xFF74:  # MCT
+        _read_mct(seg, tcp)
+    elif marker == 0xFF75:  # MCC
+        _read_mcc(seg, tcp)
+    elif marker == 0xFF77:  # MCO
+        _read_mco(seg, tcp, ncomps)
 
 
-_SKIPPED = {0xFF55, 0xFF57, 0xFF58, 0xFF63, 0xFF64}   # TLM, PLM, PLT, CRG, COM
+_MCT_SIZE = (2, 4, 4, 8)   # int16, int32, float32, float64
+
+
+def _read_mct(seg: bytes, tcp: Tcp) -> None:
+    """`opj_j2k_read_mct`: one array, kept by its index (Zmct or Ymct not 0:
+    left unread)."""
+    if len(seg) < 2:
+        raise ValueError("JPEG 2000: error reading MCT marker")
+    if struct.unpack(">H", seg[:2])[0]:
+        return
+    if len(seg) <= 6:
+        raise ValueError("JPEG 2000: error reading MCT marker")
+    imct, ymct = struct.unpack(">HH", seg[2:6])
+    tcp.mct_records[imct & 0xFF] = ((imct >> 10) & 3, b"" if ymct else seg[6:])
+
+
+def _read_mcc(seg: bytes, tcp: Tcp) -> None:
+    """`opj_j2k_read_mcc`: one collection of array-based decorrelation
+    over components 0 .. n - 1 in order; anything else leaves it unread."""
+    if len(seg) < 2:
+        raise ValueError("JPEG 2000: error reading MCC marker")
+    if struct.unpack(">H", seg[:2])[0]:
+        return
+    if len(seg) < 7:
+        raise ValueError("JPEG 2000: error reading MCC marker")
+    index = seg[2]
+    ymcc, ncoll = struct.unpack(">HH", seg[3:7])
+    record = next((r for r in tcp.mcc_records if r[0] == index), None)
+    fresh = record is None
+    if fresh:
+        record = [index, 0, None, None]
+    if ymcc or ncoll > 1:
+        if not fresh:
+            record[0] = index
+        return
+    left, at = len(seg) - 7, 7
+    for _ in range(ncoll):
+        if left < 3:
+            raise ValueError("JPEG 2000: error reading MCC marker")
+        if seg[at] != 1:
+            return
+        nb = struct.unpack(">H", seg[at + 1:at + 3])[0]
+        left -= 3
+        at += 3
+        width, record[1] = 1 + (nb >> 15), nb & 0x7FFF
+        if left < width * record[1] + 2:
+            raise ValueError("JPEG 2000: error reading MCC marker")
+        left -= width * record[1] + 2
+        for j in range(record[1]):
+            if int.from_bytes(seg[at:at + width], "big") != j:
+                return
+            at += width
+        nb = struct.unpack(">H", seg[at:at + 2])[0]
+        at += 2
+        width = 1 + (nb >> 15)
+        if nb & 0x7FFF != record[1]:
+            return
+        if left < width * record[1] + 3:
+            raise ValueError("JPEG 2000: error reading MCC marker")
+        left -= width * record[1] + 3
+        for j in range(record[1]):
+            if int.from_bytes(seg[at:at + width], "big") != j:
+                return
+            at += width
+        tmcc = int.from_bytes(seg[at:at + 3], "big")
+        at += 3
+        record[2] = record[3] = None
+        for slot, idx in ((2, tmcc & 0xFF), (3, (tmcc >> 8) & 0xFF)):
+            if idx:
+                if idx not in tcp.mct_records:
+                    raise ValueError("JPEG 2000: error reading MCC marker")
+                record[slot] = idx
+    if left:
+        raise ValueError("JPEG 2000: error reading MCC marker")
+    if fresh:
+        tcp.mcc_records.append(record)
+
+
+def _read_mco(seg: bytes, tcp: Tcp, ncomps: int) -> None:
+    """`opj_j2k_read_mco` and `opj_j2k_add_mct`: one stage; every DC shift
+    to 0, then the stage's offsets where OpenJPEG finds its record (its
+    search looks at the first MCC record only)."""
+    if len(seg) < 1:
+        raise ValueError("JPEG 2000: error reading MCO marker")
+    if seg[0] > 1:
+        return
+    if len(seg) != seg[0] + 1:
+        raise ValueError("JPEG 2000: error reading MCO marker")
+    for tccp in tcp.tccps:
+        tccp.dc_shift = 0
+    for stage in seg[1:]:
+        if not tcp.mcc_records or tcp.mcc_records[0][0] != stage or tcp.mcc_records[0][1] != ncomps:
+            continue
+        _, _, deco, offset = tcp.mcc_records[0]
+        if deco is not None:
+            et, arr = tcp.mct_records[deco]
+            if len(arr) != _MCT_SIZE[et] * ncomps * ncomps:
+                raise ValueError("JPEG 2000: an MCT decorrelation array of the wrong size")
+        if offset is not None:
+            et, arr = tcp.mct_records[offset]
+            if len(arr) != _MCT_SIZE[et] * ncomps:
+                raise ValueError("JPEG 2000: an MCT offset array of the wrong size")
+            fmt = (">H", ">i", ">f", ">d")[et]
+            for c, (v,) in enumerate(struct.iter_unpack(fmt, arr)):
+                tcp.tccps[c].dc_shift = int(v) if abs(v) < 2 ** 31 else -(2 ** 31)   # C's (OPJ_INT32) cast
+
+
+def _read_cbd(seg: bytes, comps: List["Component"]) -> None:
+    """`opj_j2k_read_cbd`: every component's precision and signedness."""
+    if len(seg) < 2 or len(seg) - 2 != len(comps) or struct.unpack(">H", seg[:2])[0] != len(comps):
+        raise ValueError("JPEG 2000: error reading CBD marker")
+    for comp, b in zip(comps, seg[2:]):
+        comp.sgnd, comp.prec = bool(b & 0x80), (b & 0x7F) + 1
+        if comp.prec > 31:
+            raise ValueError("JPEG 2000: CBD precision above 31 bits")
+
+
+_SKIPPED = {0xFF50, 0xFF55, 0xFF57, 0xFF58, 0xFF59, 0xFF63, 0xFF64}   # CAP, TLM, PLM, PLT, CPF, CRG, COM
+# what OpenJPEG reads in a tile-part header (COD, COC, RGN, QCD, QCC, POC, PLT, PPT, COM, MCT,
+# MCC, MCO), and the markers it fails in the main header (PLT, PPT)
+_TILE_HEADER = {0xFF52, 0xFF53, 0xFF5E, 0xFF5C, 0xFF5D, 0xFF5F, 0xFF58, 0xFF61, 0xFF64, 0xFF74, 0xFF75, 0xFF77}
+_TILE_ONLY = {0xFF58, 0xFF61}
 
 
 def parse(data: bytes, need_eoc: bool = False) -> Codestream:
@@ -373,10 +505,6 @@ def parse(data: bytes, need_eoc: bool = False) -> Codestream:
     if len(siz) < lsiz or lsiz < 41:
         raise ValueError("JPEG 2000: SIZ truncated")
     _, rsiz, x1, y1, x0, y0, tdx, tdy, tx0, ty0, csiz = struct.unpack_from(">HHIIIIIIIIH", siz)
-    if rsiz & 0x4000:
-        _refuse_ht()
-    if rsiz & 0x8000:
-        raise UnsupportedImage("JPEG 2000 Part-2 (extensions) image")
     if csiz == 0 or lsiz != 38 + 3 * csiz:
         raise ValueError("JPEG 2000: bad SIZ")
     if not (x0 < x1 and y0 < y1 and tdx and tdy and tx0 <= x0 and ty0 <= y0
@@ -391,7 +519,7 @@ def parse(data: bytes, need_eoc: bool = False) -> Codestream:
         comps.append(Component(dx, dy, prec, bool(ssiz & 0x80)))
     tw = -(-(x1 - tx0) // tdx)
     th = -(-(y1 - ty0) // tdy)
-    default = Tcp(tccps=[Tccp() for _ in range(csiz)])
+    default = Tcp(tccps=[Tccp(dc_shift=0 if comp.sgnd else 1 << (comp.prec - 1)) for comp in comps])
     pos = 4 + lsiz
     ppm: Dict[int, bytes] = {}
     # main header
@@ -401,16 +529,18 @@ def parse(data: bytes, need_eoc: bool = False) -> Codestream:
         marker = struct.unpack(">H", data[pos:pos + 2])[0]
         if marker == 0xFF90:
             break
-        if marker == 0xFF50:
-            _refuse_ht()
         if marker < 0xFF30:
             raise ValueError(f"JPEG 2000: bad marker {marker:#06x} in the main header")
         ln = struct.unpack(">H", data[pos + 2:pos + 4])[0]
         seg = data[pos + 4:pos + 2 + ln]
         if len(seg) < ln - 2 or ln < 2:
             raise ValueError("JPEG 2000: marker segment truncated")
+        if marker in _TILE_ONLY:
+            raise ValueError(f"JPEG 2000: marker {marker:#06x} is not compliant with its position")
         if marker == 0xFF60:     # PPM
             ppm[seg[0]] = seg[1:]
+        elif marker == 0xFF78:   # CBD
+            _read_cbd(seg, comps)
         elif marker not in _SKIPPED:
             _apply_marker(marker, seg, default, csiz, False)
         pos += 2 + ln
@@ -445,8 +575,8 @@ def parse(data: bytes, need_eoc: bool = False) -> Codestream:
                 break
             ln = struct.unpack(">H", data[at + 2:at + 4])[0]
             seg = data[at + 4:at + 2 + ln]
-            if marker == 0xFF50:
-                _refuse_ht()
+            if marker not in _TILE_HEADER:   # a main-header marker, or one OpenJPEG does not know
+                raise ValueError(f"JPEG 2000: marker {marker:#06x} in a tile-part header")
             if marker not in _SKIPPED:
                 _apply_marker(marker, seg, tcp, csiz, True)
             at += 2 + ln
@@ -477,40 +607,6 @@ def codestream_of(data: bytes) -> Tuple[bytes, Optional[Jp2Header]]:
         return data, None
     h = _jp2_header(data)
     return data[h.codestream[0]:h.codestream[1]], h
-
-
-def refuse_unsupported(data: bytes) -> None:
-    """Raise `UnsupportedImage` for an HTJ2K or Part-2 codestream, from its
-    main header alone (SIZ `Rsiz`, CAP, the COD / COC code-block style);
-    anything else the header holds is left to the decode."""
-    try:
-        stream, _ = codestream_of(data)
-    except (ValueError, struct.error, IndexError):
-        return
-    if len(stream) < 8:
-        return
-    lsiz = struct.unpack(">H", stream[4:6])[0]
-    if len(stream) >= 8:
-        rsiz = struct.unpack(">H", stream[6:8])[0]
-        if rsiz & 0x4000:
-            _refuse_ht()
-        if rsiz & 0x8000:
-            raise UnsupportedImage("JPEG 2000 Part-2 (extensions) image")
-    pos = 4 + lsiz
-    csiz = struct.unpack(">H", stream[38:40])[0] if len(stream) >= 40 else 0
-    while pos + 4 <= len(stream):
-        marker, ln = struct.unpack(">HH", stream[pos:pos + 4])
-        if marker == 0xFF90 or marker < 0xFF30:
-            return
-        if marker == 0xFF50:
-            _refuse_ht()
-        if marker == 0xFF52 and pos + 12 <= len(stream) and stream[pos + 12] & HT:
-            _refuse_ht()
-        if marker == 0xFF53:
-            at = pos + 4 + (1 if csiz <= 256 else 2) + 1
-            if at + 3 < len(stream) and stream[at + 3] & HT:
-                _refuse_ht()
-        pos += 2 + ln
 
 
 def pillow_comment(data: bytes) -> bytes:

@@ -9,7 +9,9 @@ packet once. A packet header is read with OpenJPEG's bit reader (a byte
 after 0xFF gives 7 bits; past the end it reads zeros) from the tile's
 data, or from the PPT / PPM headers; SOP and EPH markers are skipped
 where present. The tag trees, the code blocks' segments (TERMALL: one a
-pass; BYPASS: 10, then 2 and 1 in turn; else one) and their lengths
+pass; BYPASS: 10, then 2 and 1 in turn; else one; HT: a pass to the
+first segment, the cleanup, and the rest of a contribution to the one
+after, both OpenJPEG's rule for later layers too) and their lengths
 follow `opj_t2_read_packet_header` / `_data`. A code block whose data
 run past the tile's is an error, as in OpenJPEG's strict mode.
 
@@ -23,7 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
-from morphik_core_tpu_torch.utils.jp2_codestream import LAZY, TERMALL, Codestream, Tcp
+from morphik_core_tpu_torch.utils.jp2_codestream import HT, LAZY, TERMALL, Codestream, Tcp
 
 
 def _ceildiv(a: int, b: int) -> int:
@@ -457,7 +459,10 @@ def decode_tile_packets(cs: Codestream, tileno: int, tcs: List[TileComp], ppm: O
                     seg_index = len(cb.segs) - 1
                     while True:
                         seg = cb.segs[seg_index]
-                        take = min(seg[2] - seg[1], n)
+                        if cblksty & HT:   # one pass to the first segment (the cleanup), the rest to the next
+                            take = 1 if seg_index == 0 else n
+                        else:
+                            take = min(seg[2] - seg[1], n)
                         bits = cb.numlenbits + (take.bit_length() - 1)
                         if bits > 32:
                             raise ValueError("JPEG 2000: code-block length field too long")

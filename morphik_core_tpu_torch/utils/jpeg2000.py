@@ -1,13 +1,18 @@
-"""JPEG 2000 page images (JP2 and raw J2K codestreams, Part 1), decoded as
-Pillow 12.1 holds them after `Image.open(...).load()` (its
-`Jpeg2KImagePlugin` over OpenJPEG 2.5.4's tile API).
+"""JPEG 2000 page images (JP2, JPH and raw codestreams: Part 1, HTJ2K
+(Part 15) and what OpenJPEG 2.5.4 reads of Part 2), decoded as Pillow
+12.1 holds them after `Image.open(...).load()` (its `Jpeg2KImagePlugin`
+over OpenJPEG 2.5.4's tile API).
 
 Stages:
 
 - headers and tier-2 on the host (`jp2_codestream.py`, `jp2_tier2.py`);
-- tier-1 of every code block of the image in one call
+- tier-1 of every Part-1 code block of the image in one call
   (`jpeg2000_t1.py::j2k_t1_decode`: K5 on a CUDA device, the plain
-  version on the CPU);
+  version on the CPU), then every HT code block (a component whose
+  code-block style has 0x40) in one more into the same buffer
+  (`jpeg2000_ht.py::j2k_ht_decode`: K6, or the plain version), each
+  launched only where the image has such blocks; both write OpenJPEG's
+  t1 values, so what follows takes either;
 - reconstruction in plain PyTorch on the same device, as OpenJPEG does
   it: dequantization (reversible: the t1 value / 2, truncated; 9/7: the
   float32 value times `0.5f * stepsize`, the step of QCD / QCC with
@@ -16,8 +21,10 @@ Stages:
   extension, a single odd-placed sample halved; 9/7 in float32, each
   lifting step `x + (l + r) * c` in separate ops so nothing fuses into
   an FMA), the RCT / ICT on the first three components when COD asks for
-  it, the DC level shift (9/7: `lrintf`, half to even) and the clamp to
-  the component's range;
+  it (Part 2's custom matrices need COD `mct` 2, which OpenJPEG fails),
+  the DC level shift (its component's, from SIZ or an MCO's offsets;
+  9/7: `lrintf`, half to even) and the clamp to the component's range
+  (CBD's precision and signedness where the codestream has one);
 - Pillow's unpacking (`Jpeg2KDecode.c`): the tile data as
   `opj_decode_tile_data` writes it (each component at its own size, in
   1, 2 or 4 bytes a sample), read back with Pillow's strides (the tile's
@@ -43,6 +50,7 @@ import torch
 
 from morphik_core_tpu_torch.utils import jp2_codestream as jcs
 from morphik_core_tpu_torch.utils.jp2_tier2 import TileComp, ppm_source, tile_codeblocks
+from morphik_core_tpu_torch.utils.jpeg2000_ht import j2k_ht_decode, pack_ht_blocks
 from morphik_core_tpu_torch.utils.jpeg2000_t1 import j2k_t1_decode, pack_blocks
 
 # OpenJPEG's float constants (dwt.c, mct.c)
@@ -56,11 +64,10 @@ _ICT = (np.float32(1.402), np.float32(0.34413), np.float32(0.71414), np.float32(
 
 
 def probe_jpeg2000(data: bytes) -> Tuple[int, int]:
-    """(width, height) from the headers, as `Image.open` finds them; an
-    HTJ2K or Part-2 codestream raises `UnsupportedImage`."""
-    size = jcs.open_header(data)[1]
-    jcs.refuse_unsupported(data)
-    return size
+    """(width, height) from the headers, as `Image.open` finds them: every
+    codestream `Image.open` opens is decoded, and one OpenJPEG fails fails
+    the decode (ValueError), not the probe."""
+    return jcs.open_header(data)[1]
 
 
 # ------------------------------------------------------------------- layout
@@ -80,10 +87,11 @@ def _band_origin(tc: TileComp, r: int, bandno: int) -> Tuple[int, int]:
 
 def _collect(cs: jcs.Codestream, origins: Optional[list] = None):
     """Tier-2 of every tile -> (per tile: its TileComps and each
-    component's buffer offset), the code blocks for one K5 launch, the
-    buffer's size. `origins`, where given, gets each block's corner on its
-    tile-component's grid."""
-    blocks = []
+    component's buffer offset), the Part-1 code blocks for one K5 launch
+    and the HT ones for one K6 launch (by their component's code-block
+    style), the buffer's size. `origins`, where given, gets each block's
+    kind and corner on its tile-component's grid."""
+    blocks, ht_blocks = [], []
     tiles = []
     base = 0
     ppm = ppm_source(cs)
@@ -95,24 +103,31 @@ def _collect(cs: jcs.Codestream, origins: Optional[list] = None):
             tw, th = tc.x1 - tc.x0, tc.y1 - tc.y0
             offs.append(base)
             tccp = tcp.tccps[c]
+            ht = bool(tccp.cblksty & jcs.HT)
             for r, res in enumerate(tc.resolutions):
                 for band in res.bands:
                     ox, oy = _band_origin(tc, r, band.bandno)
                     for prc in band.precincts:
+                        if ht and tccp.roishift and prc.blocks:   # OpenJPEG fails every HT block under an ROI shift
+                            raise ValueError("JPEG 2000: an ROI shift in an HT code block (OpenJPEG does not decode it)")
                         for cb in prc.blocks:
                             w, h = cb.x1 - cb.x0, cb.y1 - cb.y0
                             if w <= 0 or h <= 0 or not cb.chunks:
                                 continue
                             segs = [(s[0], s[1]) for s in cb.segs]   # (bytes, passes); each has a pass
                             out_off = base + (cb.y0 - band.y0 + oy) * tw + (cb.x0 - band.x0 + ox)
-                            blocks.append((cb.chunks, segs, w, h, band.bandno, cb.numbps, tccp.roishift,
-                                           tccp.cblksty, out_off, tw))
+                            if ht:
+                                ht_blocks.append((cb.chunks, segs, w, h, cb.numbps, band.numbps, tccp.roishift,
+                                                  tccp.cblksty, out_off, tw))
+                            else:
+                                blocks.append((cb.chunks, segs, w, h, band.bandno, cb.numbps, tccp.roishift,
+                                               tccp.cblksty, out_off, tw))
                             if origins is not None:   # the block's corner on the component's grid
                                 shift = len(tc.resolutions) - (1 if r == 0 else r)
-                                origins.append(((cb.x0 - band.x0) << shift, (cb.y0 - band.y0) << shift))
+                                origins.append((ht, (cb.x0 - band.x0) << shift, (cb.y0 - band.y0) << shift))
             base += tw * th
         tiles.append((t, tcs, offs))
-    return tiles, blocks, base
+    return tiles, blocks, ht_blocks, base
 
 
 # ------------------------------------------------------------ the wavelets
@@ -249,7 +264,7 @@ def _tile_planes(cs: jcs.Codestream, tileno: int, tcs: List[TileComp], coef: tor
     for c, p in enumerate(planes):
         comp = cs.comps[c]
         lo, hi = (-(1 << (comp.prec - 1)), (1 << (comp.prec - 1)) - 1) if comp.sgnd else (0, (1 << comp.prec) - 1)
-        shift = 0 if comp.sgnd else 1 << (comp.prec - 1)
+        shift = tcp.tccps[c].dc_shift
         if p.dtype == torch.float32:
             p = torch.round(p).clamp(-2.0 ** 31, 2.0 ** 31 - 128).to(torch.int64)
         else:
@@ -261,26 +276,33 @@ def _tile_planes(cs: jcs.Codestream, tileno: int, tcs: List[TileComp], coef: tor
 def decode_components(data: bytes, device, stages: Optional[dict] = None):
     """The codestream of `data` -> (its Codestream, per tile (its rect,
     its components as int64 planes on `device`)). `stages`, where given,
-    gets the ms of headers + tier-2 (host), tier-1 and the DWT and
-    component transforms (the device synchronized after each)."""
+    gets the ms of headers + tier-2 (host), tier-1 (K5), the HT blocks
+    (K6) and the DWT and component transforms (the device synchronized
+    after each), and the blocks and bytes of each kind."""
     t0 = time.perf_counter()
     stream, header = jcs.codestream_of(data)
     try:
         cs = jcs.parse(stream, need_eoc=True)
-        tiles, blocks, n_total = _collect(cs)
+        tiles, blocks, ht_blocks, n_total = _collect(cs)
     except (struct.error, IndexError) as e:   # a header or packet cut short
         raise ValueError(f"JPEG 2000: broken codestream ({e})") from e
     packed = pack_blocks(blocks)
+    ht_packed = pack_ht_blocks(ht_blocks)
     t1 = time.perf_counter()
     coef = j2k_t1_decode(packed, n_total, device)
     t2 = _synced(coef, stages)
+    if len(ht_packed):
+        coef = j2k_ht_decode(ht_packed, n_total, device, out=coef)
+    t3 = _synced(coef, stages)
     out = []
     for t, tcs, offs in tiles:
         out.append((cs.tile_rect(t), _tile_planes(cs, t, tcs, coef, offs)))
-    t3 = _synced(coef, stages)
+    t4 = _synced(coef, stages)
     if stages is not None:
-        stages.update(headers_tier2_ms=(t1 - t0) * 1e3, tier1_ms=(t2 - t1) * 1e3, idwt_mct_ms=(t3 - t2) * 1e3,
-                      code_blocks=len(packed), coefficient_bytes=4 * n_total, segment_bytes=len(packed.data) - 1)
+        stages.update(headers_tier2_ms=(t1 - t0) * 1e3, tier1_ms=(t2 - t1) * 1e3, ht_ms=(t3 - t2) * 1e3,
+                      idwt_mct_ms=(t4 - t3) * 1e3, code_blocks=len(packed), ht_code_blocks=len(ht_packed),
+                      coefficient_bytes=4 * n_total,
+                      segment_bytes=len(packed.data) - 1 + len(ht_packed.data) - 8)
     return cs, out
 
 
@@ -290,16 +312,19 @@ def _synced(t: torch.Tensor, stages: Optional[dict]) -> float:
     return time.perf_counter()
 
 
-def code_blocks(data: bytes, crop: Optional[int] = None):
-    """The packed code blocks of `data`'s image for one K5 launch and the
-    size of its coefficient buffer: all of them, or those whose corner
-    lies in the top-left `crop` x `crop` of their tile-component."""
+def code_blocks(data: bytes, crop: Optional[int] = None, ht: bool = False):
+    """The packed Part-1 code blocks of `data`'s image for one K5 launch
+    (with `ht`, its HT ones for one K6 launch) and the size of its
+    coefficient buffer: all of them, or those whose corner lies in the
+    top-left `crop` x `crop` of their tile-component."""
     stream, _ = jcs.codestream_of(data)
     origins: list = []
-    _, blocks, n_total = _collect(jcs.parse(stream, need_eoc=True), origins)
+    _, blocks, ht_blocks, n_total = _collect(jcs.parse(stream, need_eoc=True), origins)
+    corners = [(x, y) for kind, x, y in origins if kind == ht]
+    chosen = ht_blocks if ht else blocks
     if crop is not None:
-        blocks = [b for b, (x, y) in zip(blocks, origins) if x < crop and y < crop]
-    return pack_blocks(blocks), n_total
+        chosen = [b for b, (x, y) in zip(chosen, corners) if x < crop and y < crop]
+    return (pack_ht_blocks if ht else pack_blocks)(chosen), n_total
 
 
 def component_planes(data: bytes, device=None) -> List[np.ndarray]:
@@ -494,10 +519,11 @@ def unpack(cs: jcs.Codestream, tiles, mode: str, color_space: int, size: Tuple[i
 
 def read_jpeg2000(data: bytes, device=None, stages: Optional[dict] = None
                   ) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
-    """JP2 / J2K bytes -> (pixels, mode, palette) as Pillow holds them.
-    `device` runs tier-1 and the reconstruction (K5 on a card); unset, the
-    card (`device.default_device()`). `stages`: see `decode_components`,
-    and the ms of Pillow's unpacking on the host."""
+    """JP2 / JPH / codestream bytes -> (pixels, mode, palette) as Pillow
+    holds them. `device` runs the block decoding and the reconstruction
+    (K5 and K6 on a card); unset, the card (`device.default_device()`).
+    `stages`: see `decode_components`, and the ms of Pillow's unpacking on
+    the host."""
     if device is None:
         from morphik_core_tpu_torch.device import default_device
         device = default_device()

@@ -15,6 +15,10 @@ Up, Average, Paeth) is undone exactly, and Adam7-interlaced images are
 put together from their seven passes (a pass of no pixels has no rows).
 `encode_png` writes filter 0 rows (tests and `chip_smoke.py` make their
 inputs with it).
+
+`text_comment` is the `info["comment"]` that Pillow's PNG plugin holds
+once the image is loaded: the last `tEXt`, `zTXt` or `iTXt` chunk keyed
+`comment`, before or after the image data, with Pillow's text limits.
 """
 
 from __future__ import annotations
@@ -30,6 +34,9 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # color type -> samples per pixel
 # Pillow's decompression-bomb limit: it refuses images of more than twice
 # `Image.MAX_IMAGE_PIXELS` (1024**3 // 4 // 3) pixels
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+# PngImagePlugin's limits on text: one decompressed chunk, and all text chunks together
+MAX_TEXT_CHUNK = 1024 * 1024
+MAX_TEXT_MEMORY = 64 * MAX_TEXT_CHUNK
 
 
 def _chunks(data: bytes):
@@ -187,6 +194,73 @@ def decode_png(data: bytes) -> np.ndarray:
     if mode == "I;16":
         gray = np.minimum(gray, 255).astype(np.uint8)
     return np.repeat(gray[..., None], 3, axis=2)
+
+
+def _inflate_text(body: bytes) -> bytes:
+    """`_safe_zlib_decompress`: at most MAX_TEXT_CHUNK bytes, more is an
+    error; a broken stream raises zlib.error."""
+    dobj = zlib.decompressobj()
+    out = dobj.decompress(body, MAX_TEXT_CHUNK)
+    if dobj.unconsumed_tail:
+        raise ValueError("Decompressed data too large for PngImagePlugin.MAX_TEXT_CHUNK")
+    return out
+
+
+def _text_chunk(ctype: bytes, body: bytes) -> Optional[Tuple[bytes, str]]:
+    """(key, text) as `chunk_tEXt` / `chunk_zTXt` / `chunk_iTXt` store it
+    in `im_info`, or None where they store nothing."""
+    k, sep, v = body.partition(b"\0")
+    if ctype == b"tEXt":
+        return (k, v.decode("latin-1")) if k else None
+    if ctype == b"zTXt":
+        if v[:1] not in (b"", b"\0"):
+            raise ValueError(f"Unknown compression method {v[0]} in zTXt chunk")
+        try:
+            v = _inflate_text(v[1:])
+        except zlib.error:
+            v = b""
+        return (k, v.decode("latin-1")) if k else None
+    if not sep or len(v) < 2:   # iTXt
+        return None
+    cf, cm, rest = v[0], v[1], v[2:]
+    parts = rest.split(b"\0", 2)
+    if len(parts) < 3:
+        return None
+    lang, tk, text = parts
+    if cf:
+        if cm:
+            return None
+        try:
+            text = _inflate_text(text)
+        except zlib.error:
+            return None
+    try:
+        lang.decode("utf-8"), tk.decode("utf-8")
+        return k, text.decode("utf-8")
+    except UnicodeError:
+        return None
+
+
+def text_comment(data: bytes) -> Optional[str]:
+    """`Image.open(...)` then `load()`: the `comment` in its `info`, from
+    the text chunks in file order (the last wins, an empty one too), or
+    None without one. Raises ValueError where Pillow's open or load does
+    (an unknown zTXt method, a chunk past MAX_TEXT_CHUNK, text chunks past
+    MAX_TEXT_MEMORY)."""
+    comment = None
+    memory = 0
+    for ctype, body in _chunks(data):
+        if ctype not in (b"tEXt", b"zTXt", b"iTXt"):
+            continue
+        kv = _text_chunk(ctype, body)
+        if kv is None:
+            continue
+        memory += len(kv[1])
+        if memory > MAX_TEXT_MEMORY:
+            raise ValueError(f"Too much memory used in text chunks: {memory}>MAX_TEXT_MEMORY")
+        if kv[0] == b"comment":
+            comment = kv[1]
+    return comment
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:

@@ -217,9 +217,12 @@ def _packbits(data: bytes, limit: int) -> bytes:
     return bytes(out)
 
 
-def _chunk_samples(t: _Layout, chunk: bytes, w: int, h: int) -> np.ndarray:
-    """One strip or tile's bytes -> (h, w, spp) samples (uint8, or uint16
-    at 16 bits; sub-byte samples as their values)."""
+def _chunk_samples(t: _Layout, chunk: bytes, w: int, h: int, held: Optional[bytes]) -> Tuple[np.ndarray, bytes]:
+    """One strip or tile's bytes -> ((h, w, spp) samples (uint8, or uint16
+    at 16 bits; sub-byte samples as their values), the decoded bytes that
+    the next chunk's decoder finds in the buffer). `held` is what the
+    chunk before left there, which a CCITT Group 4 strip that ends early
+    leaves in its rows not reached."""
     c = t.compression
     if t.tags.get(266, (1,))[0] == 2:
         chunk = chunk.translate(_REVERSE)
@@ -233,7 +236,7 @@ def _chunk_samples(t: _Layout, chunk: bytes, w: int, h: int) -> np.ndarray:
         out = np.zeros((h, w, t.spp), np.uint8)
         hh, ww = min(h, px.shape[0]), min(w, px.shape[1])
         out[:hh, :ww] = px[:hh, :ww]
-        return out
+        return out, held
     row_bytes = (w * t.spp * t.bps + 7) // 8
     need = row_bytes * h
     if c == 1:
@@ -245,7 +248,7 @@ def _chunk_samples(t: _Layout, chunk: bytes, w: int, h: int) -> np.ndarray:
     elif c in (8, 32946):
         raw = zlib.decompressobj().decompress(chunk, need)
     else:
-        raw = decode_ccitt(chunk, w, h, c, t.tags.get(292, (0,))[0])
+        raw = decode_ccitt(chunk, w, h, c, t.tags.get(292, (0,))[0], held)
     # libtiff leaves what a short chunk does not reach as zeros
     raw = raw[:need] + bytes(max(0, need - len(raw)))
     rows = np.frombuffer(raw, np.uint8).reshape(h, row_bytes)
@@ -259,7 +262,7 @@ def _chunk_samples(t: _Layout, chunk: bytes, w: int, h: int) -> np.ndarray:
     if t.tags.get(317, (1,))[0] == 2:
         # horizontal differencing undone per sample, modulo the sample size
         s = np.cumsum(s.astype(np.uint64), axis=1).astype(s.dtype)
-    return s
+    return s, raw
 
 
 def _chunks(t: _Layout):
@@ -302,9 +305,10 @@ def read_tiff(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     t = _layout(data)
     dtype = np.uint16 if t.bps == 16 else np.uint8
     s = np.zeros((t.height, t.width, t.spp), dtype)
+    held = None   # Pillow decodes every strip or tile into one buffer, in turn
     for r, col, w, h, off, n in _chunks(t):
         chunk = data[off:off + n]
-        block = _chunk_samples(t, chunk, w, h)
+        block, held = _chunk_samples(t, chunk, w, h, held)
         hh, ww = min(h, t.height - r), min(w, t.width - col)
         s[r:r + hh, col:col + ww] = block[:hh, :ww]
     mode, raw = t.mode, t.raw

@@ -35,6 +35,7 @@ def lib() -> ctypes.CDLL:
             ("opj_set_default_encoder_parameters", [vp], None), ("opj_setup_encoder", [vp, vp, vp], ci),
             ("opj_image_create", [ctypes.c_uint32, vp, ci], vp), ("opj_start_compress", [vp, vp, vp], ci),
             ("opj_encode", [vp, vp], ci), ("opj_end_compress", [vp, vp], ci),
+            ("opj_set_MCT", [vp, vp, vp, ctypes.c_uint32], ci),
         ]:
             fn = getattr(L, name)
             fn.argtypes = args
@@ -165,9 +166,12 @@ def opj_encode(planes: Sequence[np.ndarray], prec: Sequence[int], sgnd: Sequence
                mode: int = 0, csty: int = 0, prog: int = 0, layers: Sequence[float] = (0,),
                precincts: Sequence[Tuple[int, int]] = (), tiles: Tuple[int, int] = None,
                tile_offset: Tuple[int, int] = (0, 0), offset: Tuple[int, int] = (0, 0),
-               pocs: Sequence[Tuple[int, int, int, int, int, int]] = (), roi: Tuple[int, int] = None) -> bytes:
+               pocs: Sequence[Tuple[int, int, int, int, int, int]] = (), roi: Tuple[int, int] = None,
+               custom_mct: Tuple[np.ndarray, Sequence[int]] = None) -> bytes:
     """Encode with libopenjp2. `planes` are each component's samples at its
-    own size; `pocs` are (resno0, compno0, layno1, resno1, compno1, prg)."""
+    own size; `pocs` are (resno0, compno0, layno1, resno1, compno1, prg);
+    `custom_mct` (an n x n matrix, n DC shifts) goes through `opj_set_MCT`
+    (Part 2: the MCT, MCC and MCO markers, COD mct 2, Rsiz 0x8100, 9/7)."""
     L = lib()
     n = len(planes)
     sgnd = sgnd or [False] * n
@@ -235,6 +239,10 @@ def opj_encode(planes: Sequence[np.ndarray], prec: Sequence[int], sgnd: Sequence
         _i32(raw, "numpocs", len(pocs))
     raw[_layout()["tcp_mct"]] = mct
     buf = ctypes.create_string_buffer(bytes(raw), len(raw))
+    if custom_mct is not None:
+        matrix = np.ascontiguousarray(custom_mct[0], np.float32)
+        shifts = np.ascontiguousarray(custom_mct[1], np.int32)
+        assert L.opj_set_MCT(buf, matrix.ctypes.data, shifts.ctypes.data, n), "opj_set_MCT failed"
     codec = L.opj_create_compress(2 if jp2 else 0)
     assert L.opj_setup_encoder(codec, buf, img), "opj_setup_encoder failed"
     with tempfile.NamedTemporaryFile(suffix=".jp2" if jp2 else ".j2k", delete=False) as f:

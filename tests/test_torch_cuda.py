@@ -1434,3 +1434,56 @@ def test_jpeg2000_decodes_on_card_as_pillow(sm90):
         assert mode == str(z[key + "_mode"]), key
         assert hashlib.sha256(pixels.tobytes()).hexdigest() == str(z[key + "_sha256"]), key
     assert _kernels.launch_counts["j2k_t1"] == len(names)
+
+
+# K6: HTJ2K block decoding, bit for bit (integer work only: exact)
+
+HT_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "image_formats_htj2k.npz"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["page.jph", "page.j2c", "mixed.j2k", "letter_ht.jph"])
+def test_j2k_ht_kernel_matches_plain(sm90, name):
+    from morphik_core_tpu_torch.utils.jpeg2000 import code_blocks
+    from morphik_core_tpu_torch.utils.jpeg2000_ht import j2k_ht_decode
+
+    data = np.load(HT_FIXTURES)[name.replace(".", "_")].tobytes()
+    blocks, n = code_blocks(data, 96, ht=True)
+    want = j2k_ht_decode(blocks, n, "cpu")
+    _kernels.reset_launch_counts()
+    got = j2k_ht_decode(blocks, n, "cuda")
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["j2k_ht"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_j2k_ht_kernel_fails_malformed_blocks_as_plain(sm90):
+    """A block whose first MEL bytes are 0xFF 0x90 (OpenJPEG's "incorrect
+    MEL segment sequence"): the kernel raises as the plain version does."""
+    from morphik_core_tpu_torch.utils.jpeg2000_ht import j2k_ht_decode, pack_ht_blocks
+
+    blocks = pack_ht_blocks([([b"\xff\x90\x00\x05\x00"], [(5, 1)], 4, 4, 3, 5, 0, 0, 0, 4)])
+    for device in ("cpu", "cuda"):
+        with pytest.raises(ValueError, match="MEL"):
+            j2k_ht_decode(blocks, 16, device)
+
+
+@pytest.mark.cuda
+def test_htj2k_decodes_on_card_as_pillow(sm90):
+    """Every file of the HTJ2K fixture, HT blocks through K6 and Part-1
+    blocks through K5, has Pillow's mode and pixels (their hash): K6 once a
+    file with HT blocks, K5 once a file with Part-1 blocks."""
+    import hashlib
+
+    from morphik_core_tpu_torch.utils.image import read_image
+
+    z = np.load(HT_FIXTURES)
+    names = [k for k in z.files if k + "_mode" in z.files]
+    assert len(names) == 5
+    _kernels.reset_launch_counts()
+    for key in names:
+        pixels, mode, _ = read_image(z[key].tobytes())   # the default device: the card
+        assert mode == str(z[key + "_mode"]), key
+        assert hashlib.sha256(pixels.tobytes()).hexdigest() == str(z[key + "_sha256"]), key
+    assert (_kernels.launch_counts["j2k_ht"], _kernels.launch_counts["j2k_t1"]) == (4, 2)

@@ -29,7 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-from hypothesis import HealthCheck, given, settings, strategies as st
+from hypothesis import HealthCheck, example, given, settings, strategies as st
 from PIL import Image, TiffImagePlugin
 
 from morphik_core_tpu_torch.models.colqwen.preprocess import resize_mode_u8, to_rgb_u8
@@ -530,6 +530,7 @@ def test_tiff_layouts_and_compressions_match_pillow(h, w, order, compression, se
 
 @EXAMPLES
 @given(h=st.integers(1, 60), w=st.integers(1, 70), seed=st.integers(0, 2**16))
+@example(h=25, w=5, seed=13827)   # a Modified Huffman strip whose last codes libtiff pads
 def test_tiff_ccitt_and_fill_order_match_pillow(h, w, seed):
     h, w = _off_grid(h), _off_grid(w)
     rng = np.random.default_rng(seed)
@@ -561,6 +562,78 @@ def test_tiff_ccitt_and_fill_order_match_pillow(h, w, seed):
     for photo in (0, 1):
         assert assert_as_pillow(tiff_bytes(v, 1, photo, fillorder=2)) == "1"
         assert assert_as_pillow(tiff_bytes(v, 1, photo, fillorder=2, compression=5, tile=(16, 16))) == "1"
+
+
+def _fax_tiff(strips, w: int, h: int, rows_per_strip: int, compression: int, t4options=None) -> bytes:
+    """A WhiteIsZero 1-bit TIFF whose strips are the given CCITT bytes."""
+    body = b"".join(strips) + b"\0" * (sum(map(len, strips)) & 1)
+    offsets = [8 + sum(map(len, strips[:k])) for k in range(len(strips))]
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [1]), (259, 3, [compression]), (262, 3, [0]),
+               (273, 4, offsets), (277, 3, [1]), (278, 4, [rows_per_strip]), (279, 4, [len(x) for x in strips])]
+    if t4options is not None:
+        entries.append((292, 4, [t4options]))
+    ifd = 8 + len(body)
+    extra_at = ifd + 2 + 12 * len(entries) + 4
+    out, extra = b"", b""
+    for tag, typ, vals in entries:
+        if len(vals) == 1:
+            value = struct.pack("<HH", vals[0], 0) if typ == 3 else struct.pack("<I", vals[0])
+        else:
+            value = struct.pack("<I", extra_at + len(extra))
+            extra += struct.pack(f"<{len(vals)}I", *vals)
+        out += struct.pack("<HHI", tag, typ, len(vals)) + value
+    return b"II*\0" + struct.pack("<I", ifd) + body + struct.pack("<H", len(entries)) + out + b"\0" * 4 + extra
+
+
+def _fax_bits(codes: str) -> bytes:
+    """Code bits, most significant first, zero-filled to whole bytes."""
+    codes = codes.replace(" ", "")
+    codes += "0" * (-len(codes) % 8)
+    return bytes(int(codes[i:i + 8], 2) for i in range(0, len(codes), 8))
+
+
+# T.4 codes: white 0 / 3 / 4, black 5 / 8, EOL, horizontal and pass modes
+_W0, _W3, _W4, _B5, _B8, _EOL, _HM, _PM = ("00110101", "1000", "1011", "0011", "000101", "000000000001", "001",
+                                           "0001")
+# (compression, width, height, rows per strip, strips' codes, T4Options): damaged
+# or unusual strips that libtiff decodes its own way (reporting and going on
+# past bad codes, padding its last lookups with zeros) or refuses
+_FAX_CASES = {
+    "mh_eol_then_a_row": (2, 5, 2, 2, [_EOL[:-1] + "0001" + _W0 + _B5], None),
+    "mh_row_of_zeros": (2, 5, 1, 1, ["000000000000 1011 010"], None),
+    "mh_bad_white_code": (2, 5, 2, 1, ["000000001000 0000", _W0 + _B5], None),
+    "mh_bad_code_mid_row": (2, 5, 2, 1, ["1000 000000001000 0000", _W0 + _B5], None),
+    "mh_bad_black_code": (2, 5, 2, 1, ["0111 000000000100 0000", _W0 + _B5], None),
+    "mh_padding_shifts_the_byte_grid": (2, 5, 3, 3, [(_W4 + "010 0") * 3], None),
+    "mh_rows_run_past_the_data": (2, 5, 3, 3, [(_W4 + "010") * 3], None),
+    "g4_ends_after_the_first_row": (4, 5, 3, 3, [_HM + _W0 + _B5], None),
+    "g4_empty_strip": (4, 5, 3, 3, [""], None),
+    "g4_eol_after_the_first_row": (4, 5, 3, 3, [_HM + _W0 + _B5 + _EOL + _EOL + "1 1"], None),
+    "g4_extension_code": (4, 5, 3, 3, [_HM + _W0 + _B5 + "0000001111" + "1"], None),
+    "g4_eol_with_a_bad_tail": (4, 5, 3, 3, [_HM + _W0 + _B5 + "00000001000" + "1 1"], None),
+    "g4_eol_in_a_horizontal_mode": (4, 8, 3, 3, [_HM + _W3 + _B5 + _HM + _W3 + _EOL + "1" + "1"], None),
+    "g4_eol_on_the_first_row": (4, 8, 3, 3, [_EOL + _EOL], None),
+    "g4_second_strip_ends_early": (4, 8, 6, 3, [(_HM + _W0 + _B8) * 3, _HM + _W3 + _B5], None),
+    "g4_second_strip_eol": (4, 8, 6, 3, [(_HM + _W0 + _B8) * 3, _HM + _W3 + _B5 + _EOL + _EOL], None),
+    "t4_1d_eol_mid_row": (3, 5, 2, 2, [_EOL + "0111" + _EOL + _EOL + _W0 + _B5], 0),
+    "t4_2d_eol_mid_row": (3, 5, 2, 2, [_EOL + "1" + "0111" + _EOL + "1" + _W0 + _B5], 1),
+    "t4_2d_pass_ends_a_row": (3, 5, 3, 3, [_EOL + "1" + _W0 + _B5 + _EOL + "0" + _PM + _EOL + "1" + _W0 + _B5], 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FAX_CASES))
+def test_tiff_ccitt_damaged_strips_match_pillow(case):
+    """Decoded as Pillow's libtiff decodes them, or refused where it
+    refuses them."""
+    compression, w, h, rps, codes, t4 = _FAX_CASES[case]
+    data = _fax_tiff([_fax_bits(c) for c in codes], w, h, rps, compression, t4)
+    try:
+        _pil(data)
+    except OSError:
+        with pytest.raises(ValueError):
+            read_image(data)
+        return
+    assert assert_as_pillow(data) == "1"
 
 
 @EXAMPLES

@@ -866,6 +866,38 @@ _JP2 = _PRELUDE + textwrap.dedent(
 ) + _LEAKS
 
 
+_HTJ2K = _PRELUDE + textwrap.dedent(
+    """
+    import base64, hashlib, types
+    from pathlib import Path
+    from morphik_core_tpu_torch.config import Settings
+    from morphik_core_tpu_torch.services.ingestion_service import IngestionService
+    from morphik_core_tpu_torch.utils.image import read_image
+
+    z = np.load(Path(sys.argv[1]) / "tests" / "fixtures" / "image_formats_htj2k.npz")
+    this = types.SimpleNamespace(settings=Settings(), colpali_embedding_model=types.SimpleNamespace(device="cpu"))
+    for key in ("mixed_j2k", "part2_jp2"):
+        data = z[key].tobytes()
+        pixels, mode, _ = read_image(data, "cpu")
+        assert mode == str(z[key + "_mode"]), key
+        assert hashlib.sha256(pixels.tobytes()).hexdigest() == str(z[key + "_sha256"]), key
+        (chunk,) = IngestionService._create_chunks_multivector(this, "image/jp2", data, "")
+        payload = base64.b64decode(chunk.content.split(",", 1)[1])
+        assert hashlib.sha256(payload).hexdigest() == str(z[key + "_payload_sha256"]), key
+    """
+) + _LEAKS
+
+
+def test_htj2k_and_part2_decode_with_jax_pil_pydantic_httpx_blocked():
+    """A COC-mixed Part-1 / HT file (its HT blocks in the plain version)
+    and a Part-2 file of `tests/fixtures/image_formats_htj2k.npz` store
+    the reference's payloads with jax, PIL, pydantic and httpx blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _HTJ2K, str(ROOT)], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and "JAXFREE_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
 def test_jpeg2000_decodes_with_jax_pil_pydantic_httpx_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _JP2, str(ROOT)], capture_output=True, text=True, timeout=300,
@@ -935,10 +967,11 @@ def test_package_data_lists_every_file_the_port_opens():
     assert {"glyphs_dejavu_sans.npz", "calib_pages_u8.npz", "console.html", "glyphs_pil_default.npz"} <= named
     assert named <= {p.name for p in listed}, named - {p.name for p in listed}
     # the kernel sources the build compiles (`ops/_kernels.py` globs csrc/*.cu)
-    assert {"maxsim.cu", "window_attention.cu", "binary_maxsim.cu", "j2k_t1.cu"} <= {
+    assert {"maxsim.cu", "window_attention.cu", "binary_maxsim.cu", "j2k_t1.cu", "j2k_ht.cu"} <= {
         p.name for p in listed if p.suffix == ".cu"}
-    # the JPEG 2000 fixture chip_smoke.py phases 2 and 22 read (tests/, beside the package)
+    # the JPEG 2000 fixtures chip_smoke.py phases 2 and 22 read (tests/, beside the package)
     assert (ROOT / "tests" / "fixtures" / "image_formats_jp2.npz").is_file()
+    assert (ROOT / "tests" / "fixtures" / "image_formats_htj2k.npz").is_file()
 
 
 def test_no_module_level_import_of_optional_packages():

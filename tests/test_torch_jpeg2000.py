@@ -11,7 +11,8 @@ code-block styles, SOP / EPH, POC, an RGN shift, subsampling and
 precisions 1-16, signed or not. PPT and PPM files are made by moving a
 file's EPH-delimited packet headers out of its bitstream. Each file's
 component planes are held to `opj_decode`'s before Pillow's pixels.
-HTJ2K and Part-2 codestreams are refused by name. The committed fixture
+The HTJ2K- and Part-2-flagged files of earlier slices fail where Pillow
+fails (`tests/test_torch_htj2k.py` holds the real ones). The committed fixture
 (`tests/fixtures/image_formats_jp2.npz`, `chip_smoke.py` phase 22's
 JPEG 2000 files) regenerates equal.
 """
@@ -502,11 +503,13 @@ def part2_file() -> bytes:
 
 @pytest.mark.parametrize("name,words", [("page_ht.j2k", "HTJ2K"), ("part2.jp2", "Part-2")])
 def test_htj2k_and_part2_are_refused_by_name(name, words):
+    """Part-1 data flagged HTJ2K (its blocks read as HT) or Part 2 with a
+    malformed MCT marker: no longer refused (no 415), they fail where
+    Pillow fails, as the truncated files do."""
     data = htj2k_file() if name == "page_ht.j2k" else part2_file()
-    with pytest.raises(UnsupportedImage, match=f"{words}.*{ROADMAP}"):
-        probe_image(data)
-    with pytest.raises(UnsupportedContentType, match=ROADMAP):
-        check_upload("image/jp2", data)
+    assert assert_as_pillow(data) is None
+    probe_image(data)
+    check_upload("image/jp2", data)
 
 
 def test_a_jpeg2000_decode_runs_on_the_card_unless_asked():
@@ -627,10 +630,17 @@ def test_fixture_files_decode_as_the_reference(name):
 
 
 def test_fixture_refused_files_answer_415():
+    """The fixture's formerly refused files now pass the upload check and
+    fail in the decode, as in Pillow (`chip_smoke.py` phase 22: their jobs
+    fail)."""
     z = np.load(FIXTURE)
     for name, words in REFUSED:
-        with pytest.raises(UnsupportedContentType, match=f"{words}.*{ROADMAP}"):
-            check_upload("image/jp2", z[name.replace(".", "_")].tobytes())
+        data = z[name.replace(".", "_")].tobytes()
+        check_upload("image/jp2", data)
+        with pytest.raises(ValueError):
+            read_image(data, "cpu")
+        with pytest.raises(OSError):
+            _pil(data)
 
 
 class _Seen(Exception):

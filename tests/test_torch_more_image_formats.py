@@ -936,8 +936,7 @@ def test_payload_matches_the_reference(kind):
 
 def refused_files() -> dict:
     """Files the port still refuses, each with the words of its refusal:
-    name -> (bytes, words). AVIF as Pillow writes it; HTJ2K and Part-2
-    JPEG 2000 codestreams flagged so in their headers."""
+    name -> (bytes, words). AVIF as Pillow writes it."""
     img = Image.fromarray(_img(24, 32, 3, 7))
     base = _save(img, "JPEG", quality=80)
     at = base.index(b"\xff\xc0")
@@ -947,12 +946,27 @@ def refused_files() -> dict:
         "jpeg12.jpg": (base[:at + 4] + bytes([12]) + base[at + 5:], "12-bit JPEG"),
         "hierarchical.jpg": (base[:at] + b"\xff\xc5" + base[at + 2:], "hierarchical JPEG"),
         "arith_lossless.jpg": (sof3[:at3] + b"\xff\xcb" + sof3[at3 + 2:], "arithmetic-coded lossless JPEG"),
-        "page_ht.j2k": (htj2k_file(), "HTJ2K"),
-        "part2.jp2": (part2_file(), "Part-2"),
         "page.avif": (_save(img, "AVIF"), "AVIF"),
         "page.dds": (_save(img.convert("RGBA"), "DDS"), "DDS"),
         "lab.psd": (psd_bytes(_img(6, 7, 3, 1).transpose(2, 0, 1), 9), "Lab"),
     }
+
+
+def failing_files() -> dict:
+    """JPEG 2000 files refused before (Part-1 data flagged HTJ2K, a
+    malformed Part-2 MCT marker): Pillow's load fails on them, and so does
+    the port's decode; neither refuses them from the headers."""
+    return {"page_ht.j2k": htj2k_file(), "part2.jp2": part2_file()}
+
+
+@pytest.mark.parametrize("name", sorted(failing_files()))
+def test_formerly_refused_jpeg2000_fails_where_pillow_fails(name):
+    data = failing_files()[name]
+    check_upload("image/jp2", data)
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).load()
+    with pytest.raises(ValueError):
+        read_image(data, "cpu")
 
 
 @pytest.mark.parametrize("name", sorted(refused_files()))
@@ -1036,12 +1050,14 @@ def fixture_files() -> dict:
         "letter_baseline.jpg": _save(Image.fromarray(letter), "JPEG", quality=80),
     })
     files.update({name: data for name, (data, _) in refused_files().items()
-                  if name in ("jpeg12.jpg", "hierarchical.jpg", "page_ht.j2k", "page.avif")})
+                  if name in ("jpeg12.jpg", "hierarchical.jpg", "page.avif")})
+    files["page_ht.j2k"] = failing_files()["page_ht.j2k"]
     return files
 
 
-REFUSED = ("jpeg12.jpg", "hierarchical.jpg", "page_ht.j2k", "page.avif")
-REFUSED_WORDS = ("12-bit JPEG", "hierarchical JPEG", "HTJ2K", "AVIF")
+REFUSED = ("jpeg12.jpg", "hierarchical.jpg", "page.avif")
+REFUSED_WORDS = ("12-bit JPEG", "hierarchical JPEG", "AVIF")
+FAILING = ("page_ht.j2k",)   # refused before; now its decode fails, as Pillow's load does
 TIMED = ("letter.ppm", "letter.psd", "letter.pcx", "letter.tga", "letter.sgi", "letter.ras", "letter.qoi",
          "letter.xbm", "letter.xpm", "letter_arith.jpg", "letter_lossless.jpg", "letter_baseline.jpg")
 # the letter page Pillow cannot load (its arithmetic-coded data run past 64 KiB): timed with the
@@ -1064,7 +1080,7 @@ def write_fixture(path: Path = FIXTURE) -> Path:
     for name, data in fixture_files().items():
         key = name.replace(".", "_")
         arrays[key] = np.frombuffer(data, np.uint8)
-        if name in REFUSED or name in TIMED_PAST_PILLOW:
+        if name in REFUSED or name in FAILING or name in TIMED_PAST_PILLOW:
             continue
         im = Image.open(io.BytesIO(data))
         arrays[f"{key}_mode"] = np.array(im.mode)
@@ -1084,6 +1100,7 @@ def test_fixture_is_current(tmp_path):
     assert chip_smoke.MORE_FORMAT_FILES == tuple(SOURCE_PAGE)
     assert chip_smoke.MORE_FORMAT_TIMED == TIMED and chip_smoke.MORE_FORMAT_QUERIES == QUERIES
     assert chip_smoke.MORE_FORMAT_REFUSED == tuple(zip(REFUSED, REFUSED_WORDS))
+    assert chip_smoke.MORE_FORMAT_FAILING == FAILING
     assert chip_smoke.MORE_FORMAT_PAST_PILLOW == TIMED_PAST_PILLOW
     fresh = np.load(write_fixture(tmp_path / "more.npz"))
     committed = np.load(FIXTURE)
@@ -1111,6 +1128,11 @@ def test_fixture_refused_files_answer_415():
             check_upload("image/" + name.rsplit(".", 1)[1], z[name.replace(".", "_")].tobytes())
     with pytest.raises(OSError):
         _pil(z["letter_arith_jpg"].tobytes())
+    for name in FAILING:   # refused before: accepted, its decode fails as Pillow's load does
+        data = z[name.replace(".", "_")].tobytes()
+        check_upload("image/jp2", data)
+        with pytest.raises(ValueError):
+            read_image(data, "cpu")
 
 
 # ------------------------------------------------------- the query paths
