@@ -53,7 +53,12 @@ Phases (each raises on failure; none is caught):
      ms beside the kernel's, and K5's device time on every block of the
      200 dpi letter page, lossless and 9/7, each beside its bound (segment
      bytes read and int32 coefficients written over 3.35 TB/s; K5 is
-     latency-bound), its blocks and threads and the residency.
+     latency-bound), its blocks, its geometry (a warp a thread block,
+     shared bytes a warp, resident warps a SM, registers) and the
+     residency, and the crop's longest chain (its block of the most MQ
+     decisions, counted by the plain version) timed alone in ns a
+     decision; K6 (HTJ2K) likewise on the HT crops and letter page, its
+     chain in quads and SigProp / MagRef bits.
   3. ingest. (a) the earlier path: the 3B model in bf16 embeds one batch
      of 8 pages at grid 20 x 28 from seeded uint8 patches and encodes the
      text queries with the bf16 text tower. (b) the main
@@ -347,8 +352,10 @@ Phases (each raises on failure; none is caught):
      pixels (hashes written beside Pillow), each timed on the host, and a
      letter page at 200 dpi as Group 4 (1700 x 2200) and a lossy WebP
      1024 px wide timed beside a baseline JPEG of the same page; an
-     arithmetic-coded and a 12-bit JPEG are refused from their headers and
-     answer 415 over HTTP before any document exists; each file is
+     arithmetic-coded and a 12-bit JPEG are refused from their headers, the
+     first answering 415 over HTTP before any document exists, the second
+     (which `Image.open` fails on) completing with no page, as the
+     reference's job does; each file is
      ingested over HTTP to `completed` with one page (the first frame or
      page), the reference's q80 payload byte for byte (hashes made by the
      JAX package's `_image_to_data_uri`); K3 = 28 a tower forward; image
@@ -365,8 +372,8 @@ Phases (each raises on failure; none is caught):
      mode and pixels and ingested to the reference's payload; each decoder
      timed on the 200 dpi letter page beside a baseline JPEG of it (the
      arithmetic-coded letter page, whose data run past Pillow's 64 KiB
-     block, with the port's refusal of it off); a 12-bit and a hierarchical
-     JPEG, an HTJ2K codestream and an AVIF file answering 415; PNM, PSD and
+     block, with the port's refusal of it off); a hierarchical JPEG and an
+     AVIF file answering 415, a 12-bit JPEG completing with no page; PNM, PSD and
      arithmetic-coded JPEG image queries each finding a file of their own
      page first. And tests/fixtures/image_formats_jp2.npz: JP2 (9/7, 3
      layers), raw J2K (5/3), tiles with offsets, precincts, RPCL and SOP /
@@ -3785,8 +3792,8 @@ MORE_FORMAT_TIMED = ("letter.ppm", "letter.psd", "letter.pcx", "letter.tga", "le
                      "letter_baseline.jpg")  # the 200 dpi letter page, timed on the host
 MORE_FORMAT_PAST_PILLOW = ("letter_arith.jpg",)  # its data run past Pillow's 64 KiB block: timed, else refused
 MORE_FORMAT_QUERIES = ("page.ppm", "page.psd", "arith.jpg")
-MORE_FORMAT_REFUSED = (("jpeg12.jpg", "12-bit JPEG"), ("hierarchical.jpg", "hierarchical JPEG"),
-                       ("page.avif", "AVIF"))
+MORE_FORMAT_REFUSED = (("hierarchical.jpg", "hierarchical JPEG"), ("page.avif", "AVIF"))
+MORE_FORMAT_UNOPENED = "jpeg12.jpg"  # Image.open fails on it: no 415, its job completes with no page
 MORE_FORMAT_FAILING = ("page_ht.j2k",)  # refused before: its job fails, as Pillow's load does
 MORE_FORMAT_CTYPES = {"ppm": "image/x-portable-pixmap", "pgm": "image/x-portable-graymap",
                       "pbm": "image/x-portable-bitmap", "pfm": "image/x-portable-floatmap", "ico": "image/x-icon",
@@ -3828,7 +3835,7 @@ def check_more_format_decoders(z) -> dict:
             raise AssertionError(f"format fixture {name}: mode {mode} or pixels differ from Pillow's")
         decode_ms[name] = _decode_ms(read_image, data, ms) if name in MORE_FORMAT_TIMED else ms
         sizes[name] = list(rgb.shape[:2])
-    for name, words in MORE_FORMAT_REFUSED:
+    for name, words in MORE_FORMAT_REFUSED + ((MORE_FORMAT_UNOPENED, "12-bit JPEG"),):
         try:
             probe_image(z[name.replace(".", "_")].tobytes())
             raise AssertionError(f"{name} was not refused")
@@ -3987,8 +3994,7 @@ def formats_phase(torch, model, _kernels, smi):
             f"{json.dumps({k: round(v, 3) for k, v in decoders['ht']['decode_ms'].items()})}; HT letter page by "
             f"stage {json.dumps(decoders['ht']['letter_stages_ms'])}")
         # still refused: 415 before any document exists
-        refused = [(FORMAT_REFUSED, z[FORMAT_REFUSED.replace(".", "_")].tobytes(), "image/jpeg"),
-                   ("twelve.jpg", _twelve_bit(z["wide_baseline_jpg"].tobytes()), "image/jpeg")]
+        refused = [(FORMAT_REFUSED, z[FORMAT_REFUSED.replace(".", "_")].tobytes(), "image/jpeg")]
         refused += [(name, zm[name.replace(".", "_")].tobytes(), MORE_FORMAT_CTYPES[name.rsplit(".", 1)[1]])
                     for name, _ in MORE_FORMAT_REFUSED]
         for name, data, ctype in refused:
@@ -3997,6 +4003,14 @@ def formats_phase(torch, model, _kernels, smi):
                 raise AssertionError(f"{name} answered {status} {raw[:300]!r}, expected 415")
         if client.call("POST", "/documents", {}):
             raise AssertionError("a refused upload left a document")
+        # Image.open fails on these (12-bit JPEGs): the reference stores no page and completes the job
+        for name, data in (("twelve.jpg", _twelve_bit(z["wide_baseline_jpg"].tobytes())),
+                           (MORE_FORMAT_UNOPENED, zm[MORE_FORMAT_UNOPENED.replace(".", "_")].tobytes())):
+            doc = client.upload(name, data, "image/jpeg")["external_id"]
+            _wait_completed(client, [doc])
+            if client.call("POST", "/batch/chunks", {"sources": [{"document_id": doc, "chunk_number": 0}],
+                                                     "use_colpali": True}):
+                raise AssertionError(f"{name} left a page")
         # refused before, now accepted: their jobs fail as Pillow's load does, leaving no page
         failing_before, failing, failing_errors = dict(_kernels.launch_counts), {}, {}
         for name, _ in JP2_REFUSED:
@@ -4570,7 +4584,8 @@ HT_CTYPES = {"jph": "image/jph", "j2c": "image/jp2", "j2k": "image/jp2", "jp2": 
 # ingested; part2.jp2 has none) and one for the JPH image query; the formerly refused files fail
 # on the host before any launch
 HT_K6_PREDICTED = 4
-K5_THREADS_NOTE = "one thread a code block"
+K5_THREADS_NOTE = ("a warp a code block: persistent warps (one a thread block, as many as are resident) take the "
+                   "blocks heaviest first from an atomic counter, the block's state in shared memory")
 
 
 def _k5_bound(blocks) -> dict:
@@ -4582,8 +4597,37 @@ def _k5_bound(blocks) -> dict:
 
     desc = blocks.desc
     out_bytes = 4 * int((desc[:, 3].astype(np.int64) * desc[:, 4]).sum()) if len(desc) else 0
-    moved = (len(blocks.data) - 1) + 4 * blocks.segs.size + 4 * desc.size + out_bytes
+    moved = blocks.nbytes + 4 * blocks.segs.size + 4 * desc.size + out_bytes
     return dict(_bound(moved, 0, "f32"), bytes=moved)
+
+
+def _residency(torch, occ: dict, nblocks: int) -> dict:
+    """How a launch of `nblocks` code blocks sits on the card: one warp a
+    thread block, as many resident as the shared memory allows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = min(nblocks, occ["warps_per_sm"] * sms)
+    return {"code_blocks": nblocks, "warps": warps, "resident_warps": occ["warps_per_sm"] * sms,
+            "sms_busy": min(warps, sms), "sm_share": min(warps, sms) / sms, "occupancy": occ}
+
+
+def _one_block(blocks, k: int, ht: bool):
+    """Block k of a packing, alone, writing where it wrote."""
+    import numpy as np
+
+    from morphik_core_tpu_torch.utils.jpeg2000_ht import HtBlocks
+    from morphik_core_tpu_torch.utils.jpeg2000_t1 import Blocks
+
+    d = blocks.desc[k:k + 1].copy()
+    if ht:
+        size = -(-int(d[0, 3]) // 16) * 16 + 16
+        data = np.ascontiguousarray(blocks.data[d[0, 0]:d[0, 0] + size])
+        d[0, 0] = 0
+        return HtBlocks(data, d)
+    size = -(-int(d[0, 11]) // 16) * 16 + 16
+    data = np.ascontiguousarray(blocks.data[d[0, 0]:d[0, 0] + size])
+    segs = np.ascontiguousarray(blocks.segs[2 * d[0, 1]:2 * (d[0, 1] + d[0, 2])])
+    d[0, 0], d[0, 1] = 0, 0
+    return Blocks(data, segs if segs.size else np.zeros(2, np.int32), d)
 
 
 def j2k_t1_kernel_checks(torch):
@@ -4592,18 +4636,17 @@ def j2k_t1_kernel_checks(torch):
     page, lossless (page.j2k) and 9/7 with 3 layers (page.jp2); its device
     time (one replay of a CUDA graph of launches on uploaded inputs) there
     and on every block of the letter page, lossless and 9/7, beside the
-    bound, the blocks and threads, and the residency."""
+    bound, the warps and their residency; the crop's longest chain (its
+    block of the most MQ decisions, counted by the plain version) timed
+    alone, in ns a decision."""
     import numpy as np
 
     from morphik_core_tpu_torch.ops import _kernels
     from morphik_core_tpu_torch.utils.jpeg2000 import code_blocks
-    from morphik_core_tpu_torch.utils.jpeg2000_t1 import j2k_t1_decode
+    from morphik_core_tpu_torch.utils.jpeg2000_t1 import decode_block, j2k_t1_decode, k5_buffers
 
     z = np.load(JP2_FIXTURES)
-    occ = _kernels.j2k_t1_occupancy()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"phase 2, K5: {K5_THREADS_NOTE}, {occ['threads_per_block']} threads a thread block, "
-        f"{occ['blocks_per_sm']} thread blocks resident a SM x {sms} SMs, {occ['registers_per_thread']} registers")
+    log(f"phase 2, K5: {K5_THREADS_NOTE}")
 
     def device_ms(blocks, n):
         dev = torch.device("cuda")
@@ -4611,20 +4654,18 @@ def j2k_t1_kernel_checks(torch):
         segs = torch.from_numpy(blocks.segs).to(dev)
         desc = torch.from_numpy(np.ascontiguousarray(blocks.desc)).to(dev)
         out = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
-        scratch = torch.empty(max(blocks.n_flags, 1), dtype=torch.int32, device=dev)
+        next_block = torch.empty(1, dtype=torch.int32, device=dev)
+        buffers = k5_buffers(blocks)
 
         def launch():
             out.zero_()
-            _kernels.launch_j2k_t1(data, segs, desc, out, scratch, len(blocks))
+            _kernels.launch_j2k_t1(data, segs, desc, out, next_block, len(blocks), buffers)
             return out
 
         return _graph_ms(torch, launch, 10)
 
-    def residency(blocks):
-        tb = -(-len(blocks) // occ["threads_per_block"])
-        return {"code_blocks": len(blocks), "threads": len(blocks), "thread_blocks": tb,
-                "resident_thread_blocks": occ["blocks_per_sm"] * sms,
-                "sms_busy": min(tb, sms), "sm_share": min(tb, sms) / sms}
+    def occupancy(blocks):
+        return _residency(torch, _kernels.j2k_t1_occupancy(k5_buffers(blocks)), len(blocks))
 
     cases = []
     for name in ("page.j2k", "page.jp2"):
@@ -4642,20 +4683,33 @@ def j2k_t1_kernel_checks(torch):
         ms = _time_ms(torch, lambda: j2k_t1_decode(blocks, n, "cuda"), 10)
         dev_ms = device_ms(blocks, n)
         bound = _k5_bound(blocks)
+        decisions = []
+        buf = blocks.data.tobytes()
+        for d in blocks.desc.tolist():   # the plain version's serial chain a block
+            counts = {}
+            segs = [tuple(blocks.segs[2 * s:2 * s + 2]) for s in range(d[1], d[1] + d[2])]
+            decode_block(buf, d[0], segs, d[3], d[4], d[5], d[6], d[7], d[8], counts)
+            decisions.append(counts.get("decisions", 0))
+        k = int(np.argmax(decisions))
+        one = _one_block(blocks, k, False)
+        chain_ms = device_ms(one, n)
+        chain = {"block": [int(v) for v in blocks.desc[k, 3:5]], "decisions": decisions[k], "device_ms": chain_ms,
+                 "ns_per_decision": chain_ms * 1e6 / max(decisions[k], 1), "crop_decisions": int(sum(decisions))}
         case = dict({"case": f"K5 {name} {JP2_CROP} x {JP2_CROP} crop", "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": None}, **bound,
-                    **residency(blocks))
+                     "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": None, "longest_chain": chain},
+                    **bound, **occupancy(blocks))
         cases.append(case)
         log(f"  {case['case']}: {len(blocks)} blocks bit-identical to plain; kernel_ms={ms:.5f} (upload, launch, "
             f"sync) device_ms={dev_ms:.5f} plain_ms={plain_ms:.3f} (host Python) bound_us={bound['bound_us']:.3f} "
-            f"({bound['bytes']} bytes; latency-bound: {len(blocks)} serial chains)")
+            f"({bound['bytes']} bytes); longest chain {json.dumps(chain)}; geometry "
+            f"{json.dumps(occupancy(blocks))}")
     letter = {}
     for name in JP2_TIMED:
         blocks, n = code_blocks(z[name.replace(".", "_")].tobytes())
         bound = _k5_bound(blocks)
-        letter[name] = dict({"device_ms": device_ms(blocks, n)}, **bound, **residency(blocks))
+        letter[name] = dict({"device_ms": device_ms(blocks, n)}, **bound, **occupancy(blocks))
         log(f"  K5 {name} (1700 x 2200, every block): device_ms={letter[name]['device_ms']:.5f} "
-            f"bound_us={bound['bound_us']:.3f} {json.dumps(residency(blocks))}")
+            f"bound_us={bound['bound_us']:.3f} {json.dumps(occupancy(blocks))}")
     cases[0]["letter"] = letter
     return cases[0], cases
 
@@ -4681,18 +4735,17 @@ def j2k_ht_kernel_checks(torch, k5_letter: dict):
     with SigProp and MagRef); its device time (one replay of a CUDA graph
     of launches on uploaded inputs) there and on every block of the HT
     letter page, beside K5's on the Part-1 letter page, the bound, the
-    blocks and threads, and the residency."""
+    warps and their residency; the crop's longest chain (its block of the
+    most quads and SigProp / MagRef bits, counted by the plain version)
+    timed alone, in ns a quad or bit."""
     import numpy as np
 
     from morphik_core_tpu_torch.ops import _kernels
     from morphik_core_tpu_torch.utils.jpeg2000 import code_blocks
-    from morphik_core_tpu_torch.utils.jpeg2000_ht import j2k_ht_decode
+    from morphik_core_tpu_torch.utils.jpeg2000_ht import decode_ht_block, j2k_ht_decode, k6_buffers
 
     z = np.load(HT_FIXTURES)
-    occ = _kernels.j2k_ht_occupancy()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"phase 2, K6: {K5_THREADS_NOTE}, {occ['threads_per_block']} threads a thread block, "
-        f"{occ['blocks_per_sm']} thread blocks resident a SM x {sms} SMs, {occ['registers_per_thread']} registers")
+    log(f"phase 2, K6: {K5_THREADS_NOTE}; MagSgn a quad a lane, MagRef a column a lane")
 
     def device_ms(blocks, n):
         dev = torch.device("cuda")
@@ -4700,12 +4753,13 @@ def j2k_ht_kernel_checks(torch, k5_letter: dict):
         data = torch.from_numpy(blocks.data).to(dev)
         desc = torch.from_numpy(np.ascontiguousarray(blocks.desc[live])).to(dev)
         out = torch.zeros(max(n, 1), dtype=torch.int32, device=dev)
-        scratch = torch.empty(max(blocks.n_scratch, 1), dtype=torch.int32, device=dev)
+        next_block = torch.empty(1, dtype=torch.int32, device=dev)
         errors = torch.zeros(max(int(live.sum()), 1), dtype=torch.int32, device=dev)
+        buffers = k6_buffers(blocks)
 
         def launch():
             out.zero_()
-            _kernels.launch_j2k_ht(data, desc, out, scratch, errors, int(live.sum()))
+            _kernels.launch_j2k_ht(data, desc, out, next_block, errors, int(live.sum()), buffers)
             return out
 
         ms = _graph_ms(torch, launch, 10)
@@ -4713,12 +4767,8 @@ def j2k_ht_kernel_checks(torch, k5_letter: dict):
             raise AssertionError("K6 reported a malformed block in a timed launch")
         return ms
 
-    def residency(blocks):
-        nb = int((blocks.desc[:, 4] > 0).sum())
-        tb = -(-nb // occ["threads_per_block"])
-        return {"code_blocks": nb, "threads": nb, "thread_blocks": tb,
-                "resident_thread_blocks": occ["blocks_per_sm"] * sms,
-                "sms_busy": min(tb, sms), "sm_share": min(tb, sms) / sms}
+    def occupancy(blocks):
+        return _residency(torch, _kernels.j2k_ht_occupancy(k6_buffers(blocks)), int((blocks.desc[:, 4] > 0).sum()))
 
     cases = []
     for name in ("page.j2c", "page.jph"):
@@ -4737,20 +4787,32 @@ def j2k_ht_kernel_checks(torch, k5_letter: dict):
         dev_ms = device_ms(blocks, n)
         bound = _k6_bound(blocks)
         passes = np.bincount(blocks.desc[:, 4], minlength=4)[1:].tolist()
+        work, buf = [], blocks.data.tobytes()
+        for d in blocks.desc.tolist():   # the plain version's serial work a block
+            counts = {}
+            if d[4]:
+                decode_ht_block(buf, d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7], d[8], 0, d[9], counts)
+            work.append(counts)
+        k = int(np.argmax([sum(c.values()) for c in work]))
+        chain_ms = device_ms(_one_block(blocks, k, True), n)
+        units = sum(work[k].values())
+        chain = dict({"block": [int(v) for v in blocks.desc[k, 5:7]], "device_ms": chain_ms,
+                      "ns_per_quad_or_bit": chain_ms * 1e6 / max(units, 1)}, **work[k])
         case = dict({"case": f"K6 {name} {JP2_CROP} x {JP2_CROP} crop", "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "device_ms": dev_ms, "plain_device_ms": None,
-                     "blocks_by_passes": passes}, **bound, **residency(blocks))
+                     "blocks_by_passes": passes, "longest_chain": chain}, **bound, **occupancy(blocks))
         cases.append(case)
         log(f"  {case['case']}: {len(blocks)} blocks ({passes} of 1, 2, 3 passes) bit-identical to plain; "
             f"kernel_ms={ms:.5f} (upload, launch, sync) device_ms={dev_ms:.5f} plain_ms={plain_ms:.3f} (host Python) "
-            f"bound_us={bound['bound_us']:.3f} ({bound['bytes']} bytes; latency-bound: {len(blocks)} serial chains)")
+            f"bound_us={bound['bound_us']:.3f} ({bound['bytes']} bytes); longest chain {json.dumps(chain)}; "
+            f"geometry {json.dumps(occupancy(blocks))}")
     letter = {}
     for name in HT_TIMED:
         blocks, n = code_blocks(z[name.replace(".", "_")].tobytes(), ht=True)
         bound = _k6_bound(blocks)
-        letter[name] = dict({"device_ms": device_ms(blocks, n)}, **bound, **residency(blocks))
+        letter[name] = dict({"device_ms": device_ms(blocks, n)}, **bound, **occupancy(blocks))
         log(f"  K6 {name} (1700 x 2200, every block): device_ms={letter[name]['device_ms']:.5f} "
-            f"bound_us={bound['bound_us']:.3f} {json.dumps(residency(blocks))}; K5 on the Part-1 letter pages "
+            f"bound_us={bound['bound_us']:.3f} {json.dumps(occupancy(blocks))}; K5 on the Part-1 letter pages "
             f"{json.dumps({k: round(v['device_ms'], 5) for k, v in k5_letter.items()})} ms")
     cases[0]["letter"] = letter
     cases[0]["k5_letter_device_ms"] = {k: v["device_ms"] for k, v in k5_letter.items()}
@@ -5529,11 +5591,11 @@ def main() -> None:
         plain_ms=main_k5["plain_ms"], bound_ms=main_k5["bound_us"] / 1e3, bound_by=main_k5["bound_by"],
         library_ms=None, library_call="none (no PyTorch op decodes EBCOT)", device_ms=main_k5["device_ms"],
         plain_device_ms=None, shape=main_k5["case"], code_blocks=main_k5["code_blocks"],
-        sm_share=main_k5["sm_share"], letter=main_k5["letter"],
-        formats_ingest_launches=formats["jp2"]["ingest_launches"]["j2k_t1"],
+        sm_share=main_k5["sm_share"], occupancy=main_k5["occupancy"], longest_chain=main_k5["longest_chain"],
+        letter=main_k5["letter"], formats_ingest_launches=formats["jp2"]["ingest_launches"]["j2k_t1"],
         formats_query_launches=formats["jp2"]["queries"]["k5"],
         other_cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "device_ms", "bound_us",
-                                        "bound_by", "code_blocks")} for c in k5_cases[1:]]))
+                                        "bound_by", "code_blocks", "longest_chain")} for c in k5_cases[1:]]))
     if kernels[-1]["launches"] <= 0:
         raise AssertionError("K5 was never launched on phase 22's JPEG 2000 path")
     kernels.append(dict(  # K6 replaces no Pallas kernel: the reference's HT decoder is OpenJPEG's host C under Pillow
@@ -5543,11 +5605,13 @@ def main() -> None:
         plain_ms=main_k6["plain_ms"], bound_ms=main_k6["bound_us"] / 1e3, bound_by=main_k6["bound_by"],
         library_ms=None, library_call="none (no PyTorch op decodes HTJ2K)", device_ms=main_k6["device_ms"],
         plain_device_ms=None, shape=main_k6["case"], code_blocks=main_k6["code_blocks"],
-        sm_share=main_k6["sm_share"], letter=main_k6["letter"], k5_letter_device_ms=main_k6["k5_letter_device_ms"],
+        sm_share=main_k6["sm_share"], occupancy=main_k6["occupancy"], longest_chain=main_k6["longest_chain"],
+        letter=main_k6["letter"], k5_letter_device_ms=main_k6["k5_letter_device_ms"],
         formats_ingest_launches=formats["ht"]["ingest_launches"]["j2k_ht"],
         formats_query_launches=formats["ht"]["queries"]["k6"],
         other_cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "device_ms", "bound_us",
-                                        "bound_by", "code_blocks", "blocks_by_passes")} for c in k6_cases[1:]]))
+                                        "bound_by", "code_blocks", "blocks_by_passes", "longest_chain")}
+                     for c in k6_cases[1:]]))
     if kernels[-1]["launches"] != HT_K6_PREDICTED:
         raise AssertionError(f"K6 launched {kernels[-1]['launches']} times on phase 22's path, predicted "
                              f"{HT_K6_PREDICTED}")

@@ -7,33 +7,48 @@
 // take minutes for a letter page, while the code blocks decode
 // independently of each other from their own bytes.
 //
-// Design (first, simple and right): one thread per code block, as K5. The
-// two VLC tables (2 x 1024 uint16, uploaded once a card by j2k_ht_init)
-// and the MEL exponents sit in constant memory; each block's five bit
-// readers (MagSgn, MEL, VLC, SigProp, MagRef) keep their 64-bit windows in
-// registers and read its segments from global memory a byte at a time;
-// its significance and SigProp-membership words (4 rows x 8 columns a
-// word) and its line state live in a global scratch slice; its samples
-// are written in place into the tile-component buffer at out_off /
-// out_stride, as K5 writes them, and turned from sign-magnitude to signed
-// at the end. The work within a block is a serial chain, so the kernel is
-// bound by latency and by the blocks in flight; a warp a block (quads of a
-// row pair in parallel once the VLC is walked) is the lever for later work.
+// What bounds it: within a block, the cleanup's VLC and MEL walk is one
+// serial chain (each quad's context depends on its neighbours' significance)
+// and so is SigProp's scan of a stripe; neither bytes nor a peak arithmetic
+// rate bound it, and tensor cores, wgmma and fp8 have no part here.
+//
+// Design: a warp a code block, as K5. Persistent warps (one a thread block,
+// as many as the occupancy query keeps resident) take blocks from an atomic
+// counter in the order `pack_ht_blocks` sorted them (heaviest first). A
+// block's segments are copied into the warp's shared memory with cp.async
+// (a block larger than the buffer reads global memory), and the readers read
+// them there. Its samples (w x h, written to the tile buffer once at the
+// end, coalesced), its significance and SigProp-membership words (4 rows x 8
+// columns a word), its line state and each row pair's quads sit in shared
+// memory too. The cleanup runs a row pair at a time: the serial VLC / MEL
+// walk (uniform code: every lane runs it alike) leaves each quad's
+// significance, EMB bits and U_q in shared memory; then the lanes decode the
+// MagSgn words of 32 quads at once, each from its own bit offset, the
+// offsets a warp prefix sum of the quads' MagSgn bit counts; the exponents
+// of their lower row give the line state the next row pair's walk reads.
+// MagSgn and MagRef are read from rings of their unstuffed bits, which the
+// lanes fill 32 bytes at a time (each byte's bit position a prefix sum of
+// 7 or 8 bits a byte). MagRef runs a stripe column a lane, its offsets a
+// prefix count of the significant samples; SigProp keeps its order (a
+// sample's decision depends on the ones before it) and stays serial, with
+// the membership words built by the lanes. The two VLC tables (2 x 1024
+// uint16, uploaded once a card by j2k_ht_init) and the MEL exponents sit in
+// constant memory.
 //
 // Output: int32 coefficients in OpenJPEG's t1 representation, bit for bit
 // the plain version in utils/jpeg2000_ht.py::decode_ht_block, including
 // its readers' behaviour on malformed data; a block OpenJPEG fails leaves
-// its error code (1-4, HT_ERRORS there) in errors[] and stops. No floating
-// point.
+// its error code (1-4, HT_ERRORS there) in errors[] and writes nothing. No
+// floating point.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp.cuh"
 
 namespace {
 
 constexpr int kDescFields = 13;
 constexpr int kVsc = 0x08;
 constexpr uint32_t kAll = 0xFFFFFFFFu;
+constexpr int kRing = 256;  // words of a stream's ring of unstuffed bits
 
 __constant__ uint16_t kVlc[2 * 1024];  // vlc_tbl0 then vlc_tbl1
 __constant__ uint8_t kMelExp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
@@ -112,12 +127,12 @@ __device__ int mel_get_run(Mel& m) {
       int run;
       if (m.tmp >> 63) {
         run = ((1 << e) - 1) << 1;
-        m.k = min(m.k + 1, 12);
+        m.k = m.k + 1 < 12 ? m.k + 1 : 12;
         m.tmp <<= 1;
         m.bits -= 1;
       } else {
         run = ((int)((m.tmp >> (63 - e)) & (uint64_t)((1 << e) - 1)) << 1) + 1;
-        m.k = max(m.k - 1, 0);
+        m.k = m.k > 0 ? m.k - 1 : 0;
         m.tmp <<= e + 1;
         m.bits -= e + 1;
       }
@@ -131,7 +146,7 @@ __device__ int mel_get_run(Mel& m) {
   return t;
 }
 
-struct Rev {  // backward, zeros past its start, VLC / MagRef unstuffing
+struct Rev {  // backward, zeros past its start, VLC unstuffing
   const uint8_t* buf;
   int at, size;
   uint64_t tmp;
@@ -139,20 +154,15 @@ struct Rev {  // backward, zeros past its start, VLC / MagRef unstuffing
   bool unstuff;
 };
 
-__device__ void rev_init(Rev& r, const uint8_t* buf, int at, int size, bool vlc) {
+__device__ void rev_init_vlc(Rev& r, const uint8_t* buf, int at, int size) {
   r.buf = buf;
   r.at = at;
   r.size = size;
-  r.tmp = 0;
-  r.bits = 0;
-  r.unstuff = true;
-  if (vlc) {  // the first byte's high nibble only
-    const uint32_t d = buf[at];
-    r.at -= 1;
-    r.tmp = d >> 4;
-    r.bits = 4 - ((r.tmp & 7) == 7 ? 1 : 0);
-    r.unstuff = (d | 0xF) > 0x8F;
-  }
+  const uint32_t d = buf[at];  // the first byte's high nibble only
+  r.at -= 1;
+  r.tmp = d >> 4;
+  r.bits = 4 - ((r.tmp & 7) == 7 ? 1 : 0);
+  r.unstuff = (d | 0xF) > 0x8F;
 }
 
 __device__ uint32_t rev_fetch(Rev& r) {
@@ -215,6 +225,74 @@ __device__ void fwd_advance(Fwd& f, int n) {
   f.bits -= n;
 }
 
+// A stream read at random bit offsets (MagSgn forward, MagRef backward): its unstuffed bits in a ring of
+// kRing shared words, bit p at word (p / 32) % kRing. The lanes add 32 bytes at a time: byte k (in reading
+// order; x past the stream's `size`) ORed in at the sum of the bits of the bytes before it, 7 where the
+// unstuffing drops one (forward: after 0xFF; backward: a byte whose low 7 bits are set after one above
+// 0x8F), else 8, as the serial readers above place them.
+struct Ring {
+  const uint8_t* buf;
+  int at, size, dir;
+  uint32_t x;
+  bool backward;
+  uint32_t* w;
+  int next;    // the next byte to add
+  int pos;     // its bit position
+  int clear;   // words below this (absolute) index are zeroed for use
+  bool prev;   // the unstuffing state the next byte sees
+};
+
+__device__ void ring_init(Ring& r, const uint8_t* buf, int at, int size, bool backward, uint32_t x, uint32_t* w) {
+  r.buf = buf;
+  r.at = at;
+  r.size = size;
+  r.dir = backward ? -1 : 1;
+  r.x = x;
+  r.backward = backward;
+  r.w = w;
+  r.next = r.pos = r.clear = 0;
+  r.prev = backward;
+}
+
+__device__ __forceinline__ uint32_t ring_byte(const Ring& r, int k) { return k < r.size ? r.buf[r.at + r.dir * k] : r.x; }
+
+// the stream's bits below `upto` into the ring
+__device__ void ring_fill(Ring& r, int upto) {
+  while (r.pos < upto) {
+    const int clear_to = ((r.pos + 8 * 33) >> 5) + 1;  // the words 32 more bytes can reach, zeroed first
+    if (clear_to > r.clear) {
+      const int from = r.clear;
+      warp::strided(clear_to - from, [&](int t) { r.w[(from + t) & (kRing - 1)] = 0; });
+      r.clear = clear_to;
+    }
+    const int total = warp::scan(
+        [&](int l) {
+          const int k = r.next + l;
+          const uint32_t d = ring_byte(r, k);
+          if (!r.backward) return 8 - (l == 0 ? (r.prev ? 1 : 0) : (ring_byte(r, k - 1) == 0xFFu ? 1 : 0));
+          const bool u = l == 0 ? r.prev : ring_byte(r, k - 1) > 0x8Fu;
+          return 8 - ((u && (d & 0x7F) == 0x7F) ? 1 : 0);
+        },
+        [&](int l, int, int prefix) {
+          const uint32_t d = ring_byte(r, r.next + l);
+          const int p = r.pos + prefix, s = p & 31;
+          warp::atomic_or(&r.w[(p >> 5) & (kRing - 1)], d << s);
+          if (s > 24) warp::atomic_or(&r.w[((p >> 5) + 1) & (kRing - 1)], d >> (32 - s));
+        });
+    const uint32_t last = ring_byte(r, r.next + 31);
+    r.prev = r.backward ? last > 0x8Fu : last == 0xFFu;
+    r.pos += total;
+    r.next += 32;
+  }
+}
+
+// 32 bits from bit p on (p below the filled bits less 31)
+__device__ __forceinline__ uint32_t ring_bits(const Ring& r, int p) {
+  const int i = p >> 5, s = p & 31;
+  const uint32_t lo = r.w[i & (kRing - 1)];
+  return s ? (lo >> s) | (r.w[(i + 1) & (kRing - 1)] << (32 - s)) : lo;
+}
+
 // decode_init_uvlc (mode 4: both u_off and a MEL event of one) / decode_noninit_uvlc
 __device__ int uvlc(uint32_t vlc, int mode, bool initial, uint32_t* u) {
   if (mode == 0) {
@@ -251,41 +329,36 @@ __device__ int uvlc(uint32_t vlc, int mode, bool initial, uint32_t* u) {
 }
 
 struct Block {
-  uint32_t* dat;  // the block's samples, row stride `stride`
-  int stride, w, h, p, nw;
+  uint32_t* dat;  // the block's samples in shared memory, row-major (stride w), sign-magnitude
+  int w, h, p, nw;
   uint32_t zero_p1;
   bool causal;
-  uint32_t* sigma[2];
-  uint32_t* mbr[2];
-  uint32_t* ls;
+  uint32_t* sigma[2];  // cleanup significance, 4 rows x 8 columns a word
+  uint32_t* mbr[2];    // SigProp membership, likewise
+  uint32_t* ls;        // line state: 0x80 | the largest exponent of the row above, by column pair (2j - 1, 2j)
+  uint32_t* qi;        // a row pair's quads: qinf | U_q << 16
+  uint8_t* ecol;       // a row pair's lower-row exponents by column (0: not significant)
+  int* offs;           // 32 lanes' bit offsets
   Mel mel;
-  Rev vlc, magref;
-  Fwd magsgn, sigprop;
+  Rev vlc;
+  Fwd sigprop;
+  Ring magsgn, magref;
+  int ms_pos, mr_pos;  // the next MagSgn / MagRef bit
   int run;
 };
 
-__device__ uint32_t sample(Block& B, uint32_t qinf, uint32_t u_q, int n, int* e) {
-  const uint32_t ms = fwd_fetch(B.magsgn);
-  const int m = (int)u_q - (int)((qinf >> (12 + n)) & 1);
-  fwd_advance(B.magsgn, m);
-  const uint32_t v = (ms & ((1u << m) - 1)) | (((qinf >> (8 + n)) & 1) << m) | 1;
-  *e = 32 - __clz(v);
-  return ((ms & 1) << 31) | ((v + 2) << (B.p - 1));
-}
-
-// the cleanup pass over rows y and y + 1; -> an error code or 0
-__device__ int row_pair(Block& B, int y) {
+// the cleanup's VLC / MEL walk over rows y and y + 1: each quad's qinf and U_q into B.qi; -> an error code or 0
+__device__ int walk(Block& B, int y) {
   const bool initial = y == 0;
   const uint16_t* tbl = kVlc + (initial ? 0 : 1024);
   uint32_t* sig = B.sigma[(y & 4) ? 1 : 0];
   const int shift = (y & 2) ? 2 : 0;
   const int w = B.w;
-  uint32_t* ls = B.ls;
+  const uint32_t* ls = B.ls;
   uint32_t c_q = 0;
-  int li = 0;
-  uint32_t ls0 = ls[0];
-  ls[0] = 0;
   for (int x = 0; x < w; x += 4) {
+    const int li = x >> 1;
+    const uint32_t ls0 = ls[li];
     uint32_t qinf[2] = {0, 0};
     uint32_t vlc_val = rev_fetch(B.vlc);
     const int nq = x + 2 < w ? 2 : 1;
@@ -319,88 +392,110 @@ __device__ int row_pair(Block& B, int y) {
     const int used = uvlc(vlc_val, mode, initial, u);
     if (!initial) {  // kappa: the largest exponent above a quad of two or more significant samples
       if ((qinf[0] & 0xF0) & ((qinf[0] & 0xF0) - 1)) {
-        const uint32_t e = max(ls0 & 0x7F, ls[li + 1] & 0x7F);
+        const uint32_t e = (ls0 & 0x7F) > (ls[li + 1] & 0x7F) ? ls0 & 0x7F : ls[li + 1] & 0x7F;
         u[0] += e > 2 ? e - 2 : 0;
       }
       if ((qinf[1] & 0xF0) & ((qinf[1] & 0xF0) - 1)) {
-        const uint32_t e = max(ls[li + 1] & 0x7F, ls[li + 2] & 0x7F);
+        const uint32_t e = (ls[li + 1] & 0x7F) > (ls[li + 2] & 0x7F) ? ls[li + 1] & 0x7F : ls[li + 2] & 0x7F;
         u[1] += e > 2 ? e - 2 : 0;
       }
     }
     if (u[0] > B.zero_p1 || u[1] > B.zero_p1) return 3;
     rev_advance(B.vlc, used);
-    if (!initial) {
-      ls0 = ls[li + 2];
-      ls[li + 1] = ls[li + 2] = 0;
-    }
     uint32_t locs = 0xFF;
     if (x + 4 > w) locs >>= (x + 4 - w) << 1;
     if (y + 2 > B.h) locs &= 0x55;
     if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs & 0xFF) return 4;
-    const int ncol = min(4, w - x);
-    for (int col = 0; col < ncol; ++col) {
-      const int q = col >> 1, n = (col & 1) * 2;
-      if (col & 1) {
-        li += 1;
-        ls[li] = 0;
-      }
-      uint32_t* at = B.dat + (size_t)y * B.stride + x + col;
-      const uint32_t bit = 1u << (4 * q + n);
-      int e;
-      if (qinf[q] & (0x10u << n))
-        at[0] = sample(B, qinf[q], u[q], n, &e);
-      else if (locs & bit)
-        at[0] = 0;
-      if (qinf[q] & (0x20u << n)) {
-        at[B.stride] = sample(B, qinf[q], u[q], n + 1, &e);
-        ls[li] = 0x80 | ((col & 1) ? (uint32_t)e : max(ls[li] & 0x7F, (uint32_t)e));
-      } else if (locs & (bit << 1)) {
-        at[B.stride] = 0;
-      }
-    }
+    B.qi[li] = qinf[0] | (u[0] << 16);
+    if (nq == 2) B.qi[li + 1] = qinf[1] | (u[1] << 16);
   }
   return 0;
 }
 
-// MagRef over the stripe of rows y0 .. y0 + 3
+// the MagSgn words of rows y and y + 1, a quad a lane, then the line state the next walk reads
+__device__ void magsgn_rows(Block& B, int y) {
+  const int nq = (B.w + 1) >> 1;
+  for (int q0 = 0; q0 < nq; q0 += 32) {
+    const int total = warp::scan(
+        [&](int l) {  // the quad's MagSgn bits: U_q less its EMB bit, a significant sample
+          if (q0 + l >= nq) return 0;
+          const uint32_t qinf = B.qi[q0 + l] & 0xFFFF, u = B.qi[q0 + l] >> 16;
+          int bits = 0;
+          for (int n = 0; n < 4; ++n)
+            if (qinf & (0x10u << n)) bits += (int)u - (int)((qinf >> (12 + n)) & 1);
+          return bits;
+        },
+        [&](int l, int, int prefix) { B.offs[l] = prefix; });
+    ring_fill(B.magsgn, B.ms_pos + total + 32);
+    warp::each([&](int l) {
+      const int q = q0 + l;
+      if (q >= nq) return;
+      const uint32_t qinf = B.qi[q] & 0xFFFF, u = B.qi[q] >> 16;
+      int at = B.ms_pos + B.offs[l];
+      uint8_t e_low[2] = {0, 0};
+      for (int n = 0; n < 4; ++n) {
+        if (!(qinf & (0x10u << n))) continue;
+        const uint32_t ms = ring_bits(B.magsgn, at);
+        const int m = (int)u - (int)((qinf >> (12 + n)) & 1);
+        at += m;
+        const uint32_t v = (ms & ((1u << m) - 1)) | (((qinf >> (8 + n)) & 1) << m) | 1;
+        B.dat[(y + (n & 1)) * B.w + 2 * q + (n >> 1)] = ((ms & 1) << 31) | ((v + 2) << (B.p - 1));
+        if (n & 1) e_low[n >> 1] = (uint8_t)(32 - warp::clz(v));
+      }
+      B.ecol[2 * q] = e_low[0];
+      B.ecol[2 * q + 1] = e_low[1];
+    });
+    B.ms_pos += total;
+  }
+  warp::strided(B.w / 2 + 3, [&](int j) {
+    const uint32_t a = j > 0 && 2 * j - 1 < B.w ? B.ecol[2 * j - 1] : 0, b = 2 * j < B.w ? B.ecol[2 * j] : 0;
+    B.ls[j] = (a | b) ? 0x80 | (a > b ? a : b) : 0;
+  });
+}
+
+// MagRef over the stripe of rows y0 .. y0 + 3, a column a lane
 __device__ void magref_stripe(Block& B, int y0, const uint32_t* sig) {
   const uint32_t half = 1u << (B.p - 2);
-  for (int i = 0; i < B.w; i += 8) {
-    uint32_t cwd = rev_fetch(B.magref);
-    const uint32_t s = sig[i >> 3];
-    for (int j = 0; j < 8; ++j)
+  const auto nibble = [&](int c) { return c < B.w ? (sig[c >> 3] >> (4 * (c & 7))) & 15 : 0u; };
+  for (int c0 = 0; c0 < B.w; c0 += 32) {
+    const int total = warp::scan([&](int l) { return warp::popc(nibble(c0 + l)); },
+                                 [&](int l, int, int prefix) { B.offs[l] = prefix; });
+    ring_fill(B.magref, B.mr_pos + total + 32);
+    warp::each([&](int l) {
+      const uint32_t s = nibble(c0 + l);
+      if (!s) return;
+      uint32_t cwd = ring_bits(B.magref, B.mr_pos + B.offs[l]);
       for (int r = 0; r < 4; ++r)
-        if (s & (1u << (4 * j + r))) {
-          uint32_t* at = B.dat + (size_t)(y0 + r) * B.stride + i + j;
+        if (s >> r & 1) {
+          uint32_t* at = &B.dat[(y0 + r) * B.w + c0 + l];
           *at = (*at ^ ((1u - (cwd & 1)) << (B.p - 1))) | half;
           cwd >>= 1;
         }
-    rev_advance(B.magref, __popc(s));
+    });
+    B.mr_pos += total;
   }
 }
 
-// a stripe's insignificant samples next to its significant ones
+// a stripe's insignificant samples next to its significant ones, a word a lane
 __device__ void membership(const Block& B, const uint32_t* sig, uint32_t* mbr) {
-  uint32_t prev = 0;
-  for (int i = 0; i < B.nw; ++i) {
-    uint32_t m = sig[i] | (prev >> 28) | (sig[i] << 4) | (sig[i] >> 4) | (sig[i + 1] << 28);
-    prev = sig[i];
+  warp::strided(B.nw, [&](int i) {
+    uint32_t m = sig[i] | (i > 0 ? sig[i - 1] >> 28 : 0) | (sig[i] << 4) | (sig[i] >> 4) | (sig[i + 1] << 28);
     m |= ((m & 0x77777777u) << 1) | ((m & 0xEEEEEEEEu) >> 1);
     mbr[i] = m & ~sig[i];
-  }
+  });
 }
 
 // SigProp over the stripe of rows y0 .. y0 + 3 (its words at index c, the next stripe's at 1 - c)
 __device__ void sigprop_stripe(Block& B, int y0, int c, uint32_t pattern, bool with_next) {
   uint32_t *cur_sig = B.sigma[c], *cur_mbr = B.mbr[c], *nxt_sig = B.sigma[1 - c], *nxt_mbr = B.mbr[1 - c];
   if (with_next) {
-    uint32_t prev = 0;
-    for (int i = 0; i < B.nw; ++i) {
-      const uint32_t t = nxt_sig[i] | (prev >> 28) | (nxt_sig[i] << 4) | (nxt_sig[i] >> 4) | (nxt_sig[i + 1] << 28);
-      prev = nxt_sig[i];
-      if (!B.causal) cur_mbr[i] |= (t & 0x11111111u) << 3;
+    const bool causal = B.causal;
+    warp::strided(B.nw, [&](int i) {
+      const uint32_t t = nxt_sig[i] | (i > 0 ? nxt_sig[i - 1] >> 28 : 0) | (nxt_sig[i] << 4) | (nxt_sig[i] >> 4) |
+                         (nxt_sig[i + 1] << 28);
+      if (!causal) cur_mbr[i] |= (t & 0x11111111u) << 3;
       cur_mbr[i] &= ~cur_sig[i];
-    }
+    });
   }
   const uint32_t val = 3u << (B.p - 2);
   const uint32_t prop[4] = {0x32u, 0x74u, 0xE8u, 0xC0u};
@@ -430,7 +525,7 @@ __device__ void sigprop_stripe(Block& B, int y0, int c, uint32_t pattern, bool w
           for (int j = n; j < end; ++j)
             for (int r = 0; r < 4; ++r)
               if (new_sig & (1u << (4 * j + r))) {
-                B.dat[(size_t)(y0 + r) * B.stride + i + j] |= ((cwd & 1) << 31) | val;
+                B.dat[(y0 + r) * B.w + i + j] |= ((cwd & 1) << 31) | val;
                 cwd >>= 1;
                 cnt += 1;
               }
@@ -450,42 +545,58 @@ __device__ void sigprop_stripe(Block& B, int y0, int c, uint32_t pattern, bool w
     nxt_mbr[wi] |= tx & ~nxt_sig[wi];
     nxt_mbr[wi + 1] |= (ux >> 28) & ~nxt_sig[wi + 1];
   }
+  warp::sync();
 }
 
-__device__ int decode_block(const uint8_t* __restrict__ data, const int* d, int* out, int* scratch) {
-  const int start = d[0], len1 = d[1], len2 = d[2], npasses = d[4], w = d[5], h = d[6];
-  const int numbps = d[7], mb = d[8], sty = d[9], out_off = d[10], stride = d[11], scratch_off = d[12];
+// one HT code block (desc row d) by the calling warp; -> an error code or 0
+__device__ int decode_block(const uint8_t* __restrict__ data, const int* d, int* __restrict__ out, uint8_t* base,
+                            int seg_cap, int dat_cap, int w_cap) {
+  const int start = d[0], len1 = d[1], len2 = d[2], total = d[3], npasses = d[4], w = d[5], h = d[6];
+  const int numbps = d[7], mb = d[8], sty = d[9], out_off = d[10], stride = d[11];
+  const bool in_smem = total <= seg_cap;
+  if (in_smem)  // the segments into shared memory while the lanes clear the rest
+    warp::strided((total + 15) >> 4, [&](int t) { warp::copy16(base + 16 * t, data + start + 16 * t); });
+  const uint8_t* buf = in_smem ? base : data + start;
+  uint32_t* s = reinterpret_cast<uint32_t*>(base + seg_cap);
   Block B;
-  B.dat = reinterpret_cast<uint32_t*>(out + out_off);
-  B.stride = stride;
   B.w = w;
   B.h = h;
   B.p = numbps;
   B.nw = (w + 7) / 8;
   B.zero_p1 = (uint32_t)(mb + 2 - numbps);
   B.causal = (sty & kVsc) != 0;
-  uint32_t* s = reinterpret_cast<uint32_t*>(scratch + scratch_off);
-  const int words = 4 * (B.nw + 2) + w / 2 + 4;
-  for (int i = 0; i < words; ++i) s[i] = 0;
-  B.sigma[0] = s;
-  B.sigma[1] = s + (B.nw + 2);
-  B.mbr[0] = s + 2 * (B.nw + 2);
-  B.mbr[1] = s + 3 * (B.nw + 2);
-  B.ls = s + 4 * (B.nw + 2);
+  const int nw_cap = (w_cap + 7) / 8;
+  B.dat = s;
+  B.sigma[0] = s + dat_cap;
+  B.sigma[1] = B.sigma[0] + (nw_cap + 2);
+  B.mbr[0] = B.sigma[1] + (nw_cap + 2);
+  B.mbr[1] = B.mbr[0] + (nw_cap + 2);
+  B.ls = B.mbr[1] + (nw_cap + 2);
+  B.qi = B.ls + (w_cap / 2 + 4);
+  B.offs = reinterpret_cast<int*>(B.qi + (w_cap + 1) / 2 + 2);
+  B.ecol = reinterpret_cast<uint8_t*>(B.offs + 32);
+  uint32_t* rings = reinterpret_cast<uint32_t*>(B.offs + 32) + (w_cap + 2 + 3) / 4;
+  warp::strided(w * h, [&](int t) { B.dat[t] = 0; });
+  warp::strided(4 * (nw_cap + 2) + w_cap / 2 + 4, [&](int t) { B.sigma[0][t] = 0; });
+  warp::copy_wait();
+
   const int lcup = len1;
-  const int scup = ((int)data[start + lcup - 1] << 4) + (data[start + lcup - 2] & 0xF);
+  const int scup = ((int)buf[lcup - 1] << 4) + (buf[lcup - 2] & 0xF);
   if (scup < 2 || scup > lcup || scup > 4079) return 1;
-  if (!mel_init(B.mel, data, start + lcup - scup, scup - 1)) return 2;
-  rev_init(B.vlc, data, start + lcup - 2, scup - 2, true);
-  fwd_init(B.magsgn, data, start, lcup - scup, 0xFFu);
-  fwd_init(B.sigprop, data, start + lcup, len2, 0u);
-  rev_init(B.magref, data, start + lcup + len2 - 1, len2, false);
+  if (!mel_init(B.mel, buf, lcup - scup, scup - 1)) return 2;
+  rev_init_vlc(B.vlc, buf, lcup - 2, scup - 2);
+  fwd_init(B.sigprop, buf, lcup, len2, 0u);
+  ring_init(B.magsgn, buf, 0, lcup - scup, false, 0xFFu, rings);
+  ring_init(B.magref, buf, lcup + len2 - 1, len2, true, 0u, rings + kRing);
+  B.ms_pos = B.mr_pos = 0;
   B.run = mel_get_run(B.mel);
-  int rc = row_pair(B, 0);
+  int rc = walk(B, 0);
   if (rc) return rc;
+  magsgn_rows(B, 0);
   for (int y = 2; y < h;) {
-    rc = row_pair(B, y);
+    rc = walk(B, y);
     if (rc) return rc;
+    magsgn_rows(B, y);
     y += 2;
     if (npasses > 1 && (y & 3) == 0) {
       const int c = (y & 4) ? 1 : 0;  // the stripe that ended at y is at 1 - c, the one before at c
@@ -493,7 +604,8 @@ __device__ int decode_block(const uint8_t* __restrict__ data, const int* d, int*
       membership(B, B.sigma[1 - c], B.mbr[1 - c]);
       if (y >= 8) {
         sigprop_stripe(B, y - 8, c, kAll, true);
-        for (int i = 0; i < B.nw + 2; ++i) B.sigma[c][i] = 0;
+        uint32_t* done = B.sigma[c];
+        warp::strided(B.nw + 2, [&](int i) { done[i] = 0; });
       }
     }
   }
@@ -510,48 +622,98 @@ __device__ int decode_block(const uint8_t* __restrict__ data, const int* d, int*
       sigprop_stripe(B, y, (y & 4) ? 1 : 0, pattern, left > 4);
     }
   }
-  for (int y = 0; y < h; ++y)
-    for (int x = 0; x < w; ++x) {
-      uint32_t* at = B.dat + (size_t)y * stride + x;
-      const int32_t m = (int32_t)(*at & 0x7FFFFFFFu);
-      *at = (uint32_t)((*at & 0x80000000u) ? -m : m);
-    }
+  warp::strided(w * h, [&](int t) {  // to the tile buffer, a row across the lanes, sign-magnitude to signed
+    const int y = t / w, x = t - y * w;
+    const uint32_t v = B.dat[t];
+    const int32_t m = (int32_t)(v & 0x7FFFFFFFu);
+    out[out_off + y * stride + x] = (v & 0x80000000u) ? -m : m;
+  });
   return 0;
 }
 
-__global__ void j2k_ht_kernel(const uint8_t* __restrict__ data, const int* __restrict__ desc, int nblocks,
-                              int* __restrict__ out, int* __restrict__ scratch, int* __restrict__ errors) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nblocks) return;
-  const int rc = decode_block(data, desc + (size_t)b * kDescFields, out, scratch);
-  if (rc) errors[b] = rc;
+// shared bytes a warp: the segment buffer, then the state
+int smem_bytes(int seg_cap, int dat_cap, int w_cap) {
+  const int nw = (w_cap + 7) / 8;
+  return seg_cap + 4 * (dat_cap + 4 * (nw + 2) + (w_cap / 2 + 4) + (w_cap + 1) / 2 + 2 + 32 + (w_cap + 2 + 3) / 4 +
+                        2 * kRing);
 }
 
-constexpr int kThreads = 64;
+#if defined(__CUDACC__)
+__global__ void j2k_ht_kernel(const uint8_t* __restrict__ data, const int* __restrict__ desc, int nblocks,
+                              int* __restrict__ out, int* next, int* __restrict__ errors, int seg_cap, int dat_cap,
+                              int w_cap) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  for (;;) {  // a persistent warp: the next block in the packed (heaviest first) order
+    int b = 0;
+    if (warp::lane() == 0) b = atomicAdd(next, 1);
+    b = __shfl_sync(kAll, b, 0);
+    if (b >= nblocks) return;
+    const int rc = decode_block(data, desc + (size_t)b * kDescFields, out, smem, seg_cap, dat_cap, w_cap);
+    if (rc && warp::lane() == 0) errors[b] = rc;
+    __syncwarp();
+  }
+}
+#endif
 
 }  // namespace
+
+#if defined(__CUDACC__)
 
 // the two VLC tables (2 x 1024 uint16 on the host) into the current card's constant memory
 extern "C" int j2k_ht_init(const void* tables) {
   return (int)cudaMemcpyToSymbol(kVlc, tables, sizeof(uint16_t) * 2 * 1024);
 }
 
-extern "C" int j2k_ht_launch(const void* data, const void* desc, void* out, void* scratch, void* errors, int nblocks,
-                             void* stream) {
+// one launch: `next` is an int of scratch (zeroed here, on the stream); seg_cap (a multiple of 16), dat_cap and
+// w_cap size each warp's shared buffers for the largest block; -> a CUDA error or 0
+extern "C" int j2k_ht_launch(const void* data, const void* desc, void* out, void* next, void* errors, int nblocks,
+                             int seg_cap, int dat_cap, int w_cap, void* stream) {
   if (nblocks <= 0) return 0;
-  const int grid = (nblocks + kThreads - 1) / kThreads;
-  j2k_ht_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>((const uint8_t*)data, (const int*)desc, nblocks,
-                                                             (int*)out, (int*)scratch, (int*)errors);
+  const int smem = smem_bytes(seg_cap, dat_cap, w_cap);
+  cudaError_t rc = cudaFuncSetAttribute(j2k_ht_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, j2k_ht_kernel, 32, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const int grid = nblocks < per_sm * sms ? nblocks : per_sm * sms;
+  rc = cudaMemsetAsync(next, 0, sizeof(int), (cudaStream_t)stream);
+  if (rc != cudaSuccess) return (int)rc;
+  j2k_ht_kernel<<<grid, 32, smem, (cudaStream_t)stream>>>((const uint8_t*)data, (const int*)desc, nblocks,
+                                                          (int*)out, (int*)next, (int*)errors, seg_cap, dat_cap,
+                                                          w_cap);
   return (int)cudaGetLastError();
 }
 
-// threads a block, resident blocks a multiprocessor, registers a thread (for reports)
-extern "C" int j2k_ht_occupancy(int* threads, int* blocks_per_sm, int* regs) {
+// for reports, at these buffer sizes: shared bytes a warp, resident warps a multiprocessor, registers a thread
+extern "C" int j2k_ht_occupancy(int seg_cap, int dat_cap, int w_cap, int* smem, int* warps_per_sm, int* regs) {
   cudaFuncAttributes attr;
-  cudaError_t rc = cudaFuncGetAttributes(&attr, j2k_ht_kernel);
+  *smem = smem_bytes(seg_cap, dat_cap, w_cap);
+  cudaError_t rc = cudaFuncSetAttribute(j2k_ht_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
   if (rc != cudaSuccess) return (int)rc;
-  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, j2k_ht_kernel, kThreads, 0);
-  *threads = kThreads;
+  rc = cudaFuncGetAttributes(&attr, j2k_ht_kernel);
+  if (rc != cudaSuccess) return (int)rc;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(warps_per_sm, j2k_ht_kernel, 32, *smem);
   *regs = attr.numRegs;
   return (int)rc;
 }
+
+#else
+
+// host C++: the same decoder, one block after another, the warp emulated (see warp.cuh)
+extern "C" int j2k_ht_init(const void* tables) {
+  memcpy(kVlc, tables, sizeof(uint16_t) * 2 * 1024);
+  return 0;
+}
+
+extern "C" int j2k_ht_emulate(const uint8_t* data, const int* desc, int nblocks, int* out, int* errors, int seg_cap,
+                              int dat_cap, int w_cap) {
+  uint8_t* base = new uint8_t[smem_bytes(seg_cap, dat_cap, w_cap) + 16];
+  for (int b = 0; b < nblocks; ++b)
+    errors[b] = decode_block(data, desc + (size_t)b * kDescFields, out, base, seg_cap, dat_cap, w_cap);
+  delete[] base;
+  return 0;
+}
+
+#endif

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-Every `csrc/*.cu` is compiled at first use with `nvcc` (one process per
+Every `csrc/*.cu` (with the headers `csrc/*.cuh`) is compiled at first use with `nvcc` (one process per
 source, all started together, then one link) into a single plain shared
 library (no PyTorch headers: seconds to build instead of minutes) and
 loaded through ctypes. The library is cached under `_build/` in this
@@ -83,7 +83,7 @@ def build(verbose: bool = False) -> Path:
     exists yet; returns the library path."""
     srcs = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in sorted(CSRC.glob("*.cu*")):   # the sources and the headers they share
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     lib = BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():
@@ -133,15 +133,15 @@ def library() -> ctypes.CDLL:
             lib.binary_maxsim_launch.restype = ci
             lib.binary_maxsim_plan.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
             lib.binary_maxsim_plan.restype = ci
-            lib.j2k_t1_launch.argtypes = [vp] * 5 + [ci, vp]
+            lib.j2k_t1_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
             lib.j2k_t1_launch.restype = ci
-            lib.j2k_t1_occupancy.argtypes = [ctypes.POINTER(ci)] * 3
+            lib.j2k_t1_occupancy.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 3
             lib.j2k_t1_occupancy.restype = ci
             lib.j2k_ht_init.argtypes = [vp]
             lib.j2k_ht_init.restype = ci
-            lib.j2k_ht_launch.argtypes = [vp] * 5 + [ci, vp]
+            lib.j2k_ht_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
             lib.j2k_ht_launch.restype = ci
-            lib.j2k_ht_occupancy.argtypes = [ctypes.POINTER(ci)] * 3
+            lib.j2k_ht_occupancy.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 3
             lib.j2k_ht_occupancy.restype = ci
             _lib = lib
     return _lib
@@ -243,49 +243,64 @@ def binary_maxsim_plan(nq: int) -> Dict[str, int]:
     return {"query_tokens_per_thread": qpt.value, "threads_per_block": threads.value}
 
 
-def launch_j2k_t1(data, segs, desc, out, scratch, nblocks: int) -> None:
+def launch_j2k_t1(data, segs, desc, out, next_block, nblocks: int, buffers) -> None:
     """K5 on already-packed CUDA tensors (see utils/jpeg2000_t1.py::
-    j2k_t1_decode): every code block of one image, one thread a block."""
+    j2k_t1_decode): every code block of one image, a warp a block;
+    `next_block` is one int32 of scratch, `buffers` each warp's shared
+    segment, coefficient and flag capacities (`k5_buffers`)."""
+    seg_cap, dat_cap, flags_cap = buffers
     with _on(out.device) as lib:
-        rc = lib.j2k_t1_launch(_ptr(data), _ptr(segs), _ptr(desc), _ptr(out), _ptr(scratch), nblocks,
-                               ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+        rc = lib.j2k_t1_launch(_ptr(data), _ptr(segs), _ptr(desc), _ptr(out), _ptr(next_block), nblocks, seg_cap,
+                               dat_cap, flags_cap, ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
     _check(rc, "j2k_t1")
     count_launch("j2k_t1")
 
 
-def launch_j2k_ht(data, desc, out, scratch, errors, nblocks: int) -> None:
+def launch_j2k_ht(data, desc, out, next_block, errors, nblocks: int, buffers) -> None:
     """K6 on already-packed CUDA tensors (see utils/jpeg2000_ht.py::
-    j2k_ht_decode): every HT code block of one image, one thread a block,
-    each block's error code (0: decoded) into `errors`."""
+    j2k_ht_decode): every HT code block of one image, a warp a block, each
+    block's error code (0: decoded) into `errors`; `next_block` is one
+    int32 of scratch, `buffers` each warp's shared segment, sample and
+    column capacities (`k6_buffers`)."""
+    seg_cap, dat_cap, w_cap = buffers
     with _on(out.device) as lib:
-        if out.device.index not in _ht_tables_on:   # K6's VLC tables into this card's constant memory, once
-            with _lib_lock:
-                if out.device.index not in _ht_tables_on:
-                    from morphik_core_tpu_torch.utils.jpeg2000_ht import VLC_TABLES
-
-                    _check(lib.j2k_ht_init(ctypes.c_char_p(VLC_TABLES.astype("<u2").tobytes())), "j2k_ht_init")
-                    _ht_tables_on.add(out.device.index)
-        rc = lib.j2k_ht_launch(_ptr(data), _ptr(desc), _ptr(out), _ptr(scratch), _ptr(errors), nblocks,
-                               ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+        _ht_tables(lib, out.device)
+        rc = lib.j2k_ht_launch(_ptr(data), _ptr(desc), _ptr(out), _ptr(next_block), _ptr(errors), nblocks, seg_cap,
+                               dat_cap, w_cap, ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
     _check(rc, "j2k_ht")
     count_launch("j2k_ht")
 
 
-def j2k_ht_occupancy() -> Dict[str, int]:
-    """K6's threads a block, resident blocks a multiprocessor and
-    registers a thread (for reports)."""
-    threads, blocks, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+def _ht_tables(lib, device: torch.device) -> None:
+    """K6's VLC tables into this card's constant memory, once."""
+    if device.index not in _ht_tables_on:
+        with _lib_lock:
+            if device.index not in _ht_tables_on:
+                from morphik_core_tpu_torch.utils.jpeg2000_ht import VLC_TABLES
+
+                _check(lib.j2k_ht_init(ctypes.c_char_p(VLC_TABLES.astype("<u2").tobytes())), "j2k_ht_init")
+                _ht_tables_on.add(device.index)
+
+
+def j2k_ht_occupancy(buffers) -> Dict[str, int]:
+    """K6's geometry at these shared buffers (`k6_buffers`), for reports:
+    warps a thread block, shared bytes a warp, resident warps a
+    multiprocessor, registers a thread."""
+    smem, warps, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with _on(torch.device("cuda", torch.cuda.current_device())) as lib:
-        rc = lib.j2k_ht_occupancy(ctypes.byref(threads), ctypes.byref(blocks), ctypes.byref(regs))
+        rc = lib.j2k_ht_occupancy(*buffers, ctypes.byref(smem), ctypes.byref(warps), ctypes.byref(regs))
     _check(rc, "j2k_ht_occupancy")
-    return {"threads_per_block": threads.value, "blocks_per_sm": blocks.value, "registers_per_thread": regs.value}
+    return {"warps_per_block": 1, "shared_bytes_per_block": smem.value, "warps_per_sm": warps.value,
+            "registers_per_thread": regs.value}
 
 
-def j2k_t1_occupancy() -> Dict[str, int]:
-    """K5's threads a block, resident blocks a multiprocessor and
-    registers a thread (for reports)."""
-    threads, blocks, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+def j2k_t1_occupancy(buffers) -> Dict[str, int]:
+    """K5's geometry at these shared buffers (`k5_buffers`), for reports:
+    warps a thread block, shared bytes a warp, resident warps a
+    multiprocessor, registers a thread."""
+    smem, warps, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with _on(torch.device("cuda", torch.cuda.current_device())) as lib:
-        rc = lib.j2k_t1_occupancy(ctypes.byref(threads), ctypes.byref(blocks), ctypes.byref(regs))
+        rc = lib.j2k_t1_occupancy(*buffers, ctypes.byref(smem), ctypes.byref(warps), ctypes.byref(regs))
     _check(rc, "j2k_t1_occupancy")
-    return {"threads_per_block": threads.value, "blocks_per_sm": blocks.value, "registers_per_thread": regs.value}
+    return {"warps_per_block": 1, "shared_bytes_per_block": smem.value, "warps_per_sm": warps.value,
+            "registers_per_thread": regs.value}

@@ -84,7 +84,7 @@ from morphik_core_tpu_torch.parser.text_render import UnsupportedText, render_te
 from morphik_core_tpu_torch.storage.base_storage import BaseStorage
 from morphik_core_tpu_torch.storage.content_types import DOCX, PPTX, detect_content_type, is_colpali_native_format
 from morphik_core_tpu_torch.utils.fast_ops import bytes_to_data_uri
-from morphik_core_tpu_torch.utils.image import (UnidentifiedImage, UnsupportedImage, pillow_comment, probe_image,
+from morphik_core_tpu_torch.utils.image import (UnsupportedImage, open_image, pillow_comment, probe_image,
                                                 read_image)
 from morphik_core_tpu_torch.utils.jpeg import JpegCoefficients, encode_jpeg
 from morphik_core_tpu_torch.vector_store.text_vector_store import TextVectorStore
@@ -105,22 +105,25 @@ def check_upload(ctype: str, data: bytes) -> None:
     """Raise `UnsupportedContentType` (the route answers 415) for an
     upload the port does not ingest: video, and an `image/*` upload whose
     bytes Pillow would open with a plugin the port does not decode (AVIF,
-    DDS, ...), that no Pillow plugin recognizes, that a decoder refuses by
-    name, or that Pillow would refuse as a decompression bomb (checked on
-    the headers: `utils/image.py::probe_image` sniffs the bytes as
-    `Image.open` does, whatever the content type says, `image/jph` too).
-    A JPEG 2000 file is never refused here: one OpenJPEG fails fails its
-    job, as Pillow's load fails."""
+    DDS, ...) or that a decoder refuses by name (checked on the headers:
+    `utils/image.py::probe_image` sniffs the bytes as `Image.open` does,
+    whatever the content type says, `image/jph` too). Bytes `Image.open`
+    fails on pass (no plugin identifies them, a broken header, a
+    decompression bomb, a refusal marked `open_fails` such as a 12-bit
+    JPEG): the reference stores no page for them and completes the job;
+    a file that fails only in `load` (a JPEG 2000 OpenJPEG fails, a
+    truncated scan) passes and fails its job, as the reference's does."""
     if ctype.startswith("video/"):
         raise UnsupportedContentType(f"content type {ctype!r} is not ingested: video is not ingested by the port "
                                      "(ROADMAP Queue 1 item 3b-ii)")
     if ctype.startswith("image/"):
         try:
             probe_image(data)
-        except (UnsupportedImage, UnidentifiedImage) as e:
-            raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {e}") from e
+        except UnsupportedImage as e:
+            if not e.open_fails:
+                raise UnsupportedContentType(f"content type {ctype!r} is not ingested: {e}") from e
         except ValueError:
-            pass   # a broken file: its job fails with the decoder's error
+            pass
 
 
 def _image_to_data_uri(pixels: np.ndarray, mode: str, palette: Optional[np.ndarray], max_width: int,
@@ -271,6 +274,13 @@ class IngestionService:
         dpi = self.settings.pdf.colpali_pdf_dpi
         comment = b""
         if ctype.startswith("image/"):
+            # the reference's two stages: where `Image.open` fails it logs and stores no page, where `load`
+            # fails the job fails
+            try:
+                open_image(data)
+            except Exception as e:  # noqa: BLE001
+                logger.warning("image decode failed: %s", e)
+                return []
             # a JPEG 2000's tier-1 and HT blocks run where the ColPali model runs (else on the card)
             images = [read_image(data, getattr(getattr(self, "colpali_embedding_model", None), "device", None))]
             comment = pillow_comment(data)

@@ -45,8 +45,8 @@ class _Header:
     __slots__ = ("width", "height", "bits", "compression", "top_down", "rawmode", "mode", "palette", "offset")
 
 
-def _refuse(what: str) -> UnsupportedImage:
-    return UnsupportedImage(f"BMP {what}")
+def _refuse(what: str, open_fails: bool = False) -> UnsupportedImage:
+    return UnsupportedImage(f"BMP {what}", open_fails)
 
 
 def _header(data: bytes) -> _Header:
@@ -85,7 +85,7 @@ def _dib_header(data: bytes, at: int, offset: int, cur22: bool = False) -> _Head
                 masks = struct.unpack("<3I", data[pos:pos + 12]) + (0,)
                 pos += 12
     else:
-        raise _refuse(f"header of {size} bytes")
+        raise _refuse(f"header of {size} bytes", open_fails=True)   # Pillow: "Unsupported BMP header type"
     colors = colors or (1 << h.bits)
     if offset and offset == 14 + size and h.bits <= 8:
         offset += 4 * colors
@@ -108,7 +108,7 @@ def _dib_header(data: bytes, at: int, offset: int, cur22: bool = False) -> _Head
         if h.bits != (8 if h.compression == 1 else 4):
             raise _refuse(f"RLE{8 if h.compression == 1 else 4} at {h.bits} bits")
     elif h.compression != 0:
-        raise _refuse(f"compression {h.compression} (JPEG or PNG inside a BMP)")
+        raise _refuse(f"compression {h.compression} (JPEG or PNG inside a BMP)", open_fails=True)
     h.palette = None
     if h.mode == "P":
         if not 0 < colors <= 65536:

@@ -8,6 +8,12 @@ decodes them, in the stdlib and numpy.
   `SYNC_EOL` finds past any fill bits (so byte-aligned EOLs too); with
   the T4Options bit 0 (2D coding) a tag bit after each EOL says whether
   the row is one-dimensional (1) or coded against the row above (0).
+  Where `SYNC_EOL` reaches the end of the data without an EOL, libtiff
+  4.6+ switches to `FAXMODE_NOEOL` for the rest of the image and decodes
+  the strip's bits again from their start into the row it was on (the
+  rows before keep what they had): rows follow each other with no EOL,
+  each still opened by its tag bit in 2D, and an EOL met as data ends a
+  row as any EOL inside a row does.
 - T.6 / Group 4 (compression 4): every row two-dimensional, no EOLs, the
   first row coded against an imaginary white row.
 
@@ -327,16 +333,20 @@ def _fill(rows: np.ndarray, r: int, runs: List[int], width: int) -> None:
 
 
 def decode_ccitt(data: bytes, width: int, height: int, compression: int, t4options: int = 0,
-                 held: Optional[bytes] = None) -> bytes:
+                 held: Optional[bytes] = None, mode: Optional[dict] = None) -> bytes:
     """One strip or tile of CCITT data -> `height` rows of `width` bits,
     packed most significant bit first, each row padded to whole bytes.
     The rows a Group 4 strip leaves undecoded, where it ends early, keep
     what `held` has there: the packed rows the reader's strip buffer held
-    before (zeros where it is None or short)."""
+    before (zeros where it is None or short). `mode` carries libtiff's
+    decoder mode from one strip of an image to the next: a T.4 strip
+    where `SYNC_EOL` finds no EOL sets `noeol` (libtiff 4.6+:
+    `FAXMODE_NOEOL`), and from then on no row of the image looks for one."""
     if compression == 3 and t4options & 2:
         raise ValueError("CCITT T.4 with uncompressed mode is not decoded")
     if compression not in (2, 3, 4):
         raise ValueError(f"not a CCITT compression: {compression}")
+    mode = {} if mode is None else mode
     br = _Bits(data)
     rows = np.zeros((height, width), np.uint8)
     ref: List[int] = [width, 0]
@@ -348,7 +358,14 @@ def decode_ccitt(data: bytes, width: int, height: int, compression: int, t4optio
                 runs, _ = _row_1d(br, width)
                 br.align()
             elif compression == 3:
-                _sync_eol(br, eol)
+                if not mode.get("noeol"):
+                    try:
+                        _sync_eol(br, eol)
+                    except _EOF:
+                        # no EOL before the data ends: the strip's bits again from their start, without
+                        # EOLs, into this row and the ones after it
+                        mode["noeol"] = True
+                        br = _Bits(data)
                 one_d = True
                 if t4options & 1:
                     br.need(1)

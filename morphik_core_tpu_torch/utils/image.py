@@ -39,14 +39,14 @@ from morphik_core_tpu_torch.utils import ico, jp2_codestream, pcx, ppm, psd, qoi
 from morphik_core_tpu_torch.utils.bmp import dib_accept, probe_bmp, probe_dib, read_bmp, read_dib
 from morphik_core_tpu_torch.utils.gif import probe_gif, read_gif
 from morphik_core_tpu_torch.utils.jpeg2000 import probe_jpeg2000, read_jpeg2000
-from morphik_core_tpu_torch.utils.jpeg import (NotThisFormat, UnsupportedImage, UnsupportedJpeg, probe_jpeg,
-                                               read_jpeg)
-from morphik_core_tpu_torch.utils.png import MAX_PIXELS, SIGNATURE, read_png, text_comment
+from morphik_core_tpu_torch.utils.jpeg import (NotThisFormat, UnsupportedImage, UnsupportedJpeg, open_jpeg,
+                                               probe_jpeg, read_jpeg)
+from morphik_core_tpu_torch.utils.png import MAX_PIXELS, SIGNATURE, open_png, read_png, text_comment
 from morphik_core_tpu_torch.utils.tiff import probe_tiff, read_tiff
 from morphik_core_tpu_torch.utils.webp import probe_webp, read_webp
 
 __all__ = ["DecompressionBombError", "UnidentifiedImage", "UnsupportedImage", "UnsupportedJpeg", "decode_image",
-           "pillow_comment", "probe_image", "read_image", "sniff"]
+           "open_image", "pillow_comment", "probe_image", "read_image", "sniff"]
 
 
 class DecompressionBombError(UnsupportedImage):
@@ -55,6 +55,7 @@ class DecompressionBombError(UnsupportedImage):
     def __init__(self, pixels: int):
         ValueError.__init__(self, f"Image size ({pixels} pixels) exceeds limit of {MAX_PIXELS} pixels, "
                                   "could be decompression bomb DOS attack.")
+        self.open_fails = True
 
 
 class UnidentifiedImage(ValueError):
@@ -72,8 +73,6 @@ def _png_probe(data: bytes) -> Tuple[int, int]:
     return struct.unpack(">II", data[16:24])
 
 
-def _jpeg_probe(data: bytes) -> Tuple[int, int]:
-    return probe_jpeg(data)[:2]
 
 
 def _jpeg_read(data: bytes):
@@ -107,7 +106,7 @@ _PORTED: Dict[str, Tuple[Callable, Callable, Callable]] = {
     "BMP": (lambda p: p.startswith(b"BM"), probe_bmp, read_bmp),
     "DIB": (dib_accept, probe_dib, read_dib),
     "GIF": (lambda p: p.startswith((b"GIF87a", b"GIF89a")), probe_gif, read_gif),
-    "JPEG": (lambda p: p.startswith(b"\xff\xd8\xff"), _jpeg_probe, _jpeg_read),
+    "JPEG": (lambda p: p.startswith(b"\xff\xd8\xff"), open_jpeg, _jpeg_read),
     "JPEG2000": (jp2_codestream.accept, probe_jpeg2000, read_jpeg2000),
     "PPM": (ppm.accept, ppm.probe_ppm, ppm.read_ppm),
     "PNG": (lambda p: p.startswith(SIGNATURE), _png_probe, read_png),
@@ -318,22 +317,43 @@ def sniff(data: bytes) -> str:
     raise UnidentifiedImage()
 
 
-def probe_image(data: bytes) -> Tuple[int, int]:
-    """(width, height) from the headers; raises as the module says."""
-    size = _PORTED[sniff(data)][1](data)
+def open_image(data: bytes) -> str:
+    """`Image.open`'s stage, the first of the two where Pillow can fail:
+    the sniff, the claiming plugin's `_open` (its headers, the
+    decompression-bomb check; for PNG the chunks before IDAT and their
+    text limits, for WebP libwebp's check that the container is whole,
+    for ICO the whole decode, which its `_open` runs). -> the plugin's
+    name; raises as `sniff` does, `DecompressionBombError`, or ValueError.
+    What `read_image` raises past it is `load`'s."""
+    name = sniff(data)
+    size = _PORTED[name][1](data)
     if size[0] * size[1] > MAX_PIXELS:
         raise DecompressionBombError(size[0] * size[1])
-    return size
+    if name == "PNG":
+        open_png(data)
+    elif name == "WEBP" and 8 + _i32le(data, 4) > len(data):
+        raise ValueError("could not create decoder object (the WebP container runs past the data)")
+    elif name == "ICO":
+        ico.read_ico(data)
+    return name
+
+
+def probe_image(data: bytes) -> Tuple[int, int]:
+    """(width, height) from the headers; raises as the module says, and
+    `UnsupportedImage` where the port would refuse to decode what Pillow
+    opens (a JPEG's scans are read for that)."""
+    name = open_image(data)
+    if name == "JPEG":
+        probe_jpeg(data)
+    return _PORTED[name][1](data)
 
 
 def read_image(data: bytes, device=None) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
-    """-> (pixels, mode, palette) as Pillow's `Image.open` holds them.
-    `device` is where a JPEG 2000's block decoding and reconstruction run (unset:
-    the card, `device.default_device()`); every other format decodes on
-    the host."""
-    name = sniff(data)
-    if name != "PNG":   # read_png checks its own limit
-        probe_image(data)
+    """-> (pixels, mode, palette) as Pillow's `Image.open(...).load()`
+    holds them. `device` is where a JPEG 2000's block decoding and
+    reconstruction run (unset: the card, `device.default_device()`); every
+    other format decodes on the host."""
+    name = open_image(data)
     if name == "JPEG2000":
         return read_jpeg2000(data, device)
     return _PORTED[name][2](data)

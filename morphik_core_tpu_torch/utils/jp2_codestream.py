@@ -136,6 +136,9 @@ def _jp2_header(data: bytes) -> Jp2Header:
     for tbox, s, e in _boxes(data, 12, len(data), clip=True):
         if tbox == b"jp2h" and jp2h is None:
             jp2h = (s, e)
+            (lbox,) = struct.unpack(">I", data[s - 8:s - 4])   # Pillow reads the whole box: a cut one fails
+            if lbox > 8 and s - 8 + lbox > len(data):
+                raise ValueError(f"Expected to read {lbox - 8} bytes but only got {len(data) - s}.")
         elif tbox == b"jp2c":
             jp2c = (s, e)
             break
@@ -148,20 +151,23 @@ def _jp2_header(data: bytes) -> Jp2Header:
             if data[s] == 1 and e - s >= 7:
                 enumcs = struct.unpack(">I", data[s + 3:s + 7])[0]
             break
-    if jp2c is None:
-        raise ValueError("JP2 file without a codestream box")
     return Jp2Header(size, mode, palette, enumcs, jp2c)
 
 
 def open_header(data: bytes):
     """`Jpeg2KImageFile._open`: -> (codec "j2k" / "jp2", (w, h), mode,
-    palette); raises NotThisFormat where `_open` raises SyntaxError."""
+    palette); raises NotThisFormat where `_open` raises SyntaxError, and
+    struct.error or IndexError where its walk for a comment
+    (`_open_comment`) meets a cut marker."""
     if data[:4] == J2K_SIGNATURE:
-        return "j2k", *_pillow_codestream_header(data, 4), None
-    if data[:12] == JP2_SIGNATURE:
+        out = "j2k", *_pillow_codestream_header(data, 4), None
+    elif data[:12] == JP2_SIGNATURE:
         h = _jp2_header(data)
-        return "jp2", h.size, h.mode, h.palette
-    raise NotThisFormat("not a JPEG 2000 file")
+        out = "jp2", h.size, h.mode, h.palette
+    else:
+        raise NotThisFormat("not a JPEG 2000 file")
+    _open_comment(data)
+    return out
 
 
 def _pillow_codestream_header(data: bytes, at: int):
@@ -606,31 +612,42 @@ def codestream_of(data: bytes) -> Tuple[bytes, Optional[Jp2Header]]:
     if data[:4] == J2K_SIGNATURE:
         return data, None
     h = _jp2_header(data)
+    if h.codestream is None:
+        raise ValueError("JP2 file without a codestream box")
     return data[h.codestream[0]:h.codestream[1]], h
 
 
+def _open_comment(data: bytes) -> bytes:
+    """`Jpeg2KImageFile._parse_comment` as `_open` reaches it: the first
+    COM segment of the main header (its text, Rcom dropped), a JP2's only
+    when its jp2c box follows jp2h with a short header; b"" without one.
+    Raises struct.error or IndexError where Pillow's reads come up short
+    (`Image.open` then moves on: no plugin identifies the file)."""
+    if data[:4] == J2K_SIGNATURE:
+        pos = 4
+    else:
+        jp2h_end = next(e for t, s, e in _boxes(data, 12, len(data), clip=True) if t == b"jp2h")
+        if not data[jp2h_end:jp2h_end + 12].endswith(b"jp2c\xff\x4f\xff\x51"):
+            return b""
+        pos = jp2h_end + 12
+    pos += struct.unpack(">H", data[pos:pos + 2])[0]   # past SIZ
+    while True:
+        marker = data[pos:pos + 2]
+        if not marker:
+            return b""
+        typ = marker[1]
+        if typ in (0x90, 0xD9):
+            return b""
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if typ == 0x64:
+            return (data[pos + 4:] if length < 2 else data[pos + 4:pos + 2 + length])[2:]
+        pos += 2 + length
+
+
 def pillow_comment(data: bytes) -> bytes:
-    """`Jpeg2KImageFile._parse_comment`: the first COM segment of the main
-    header (its text, Rcom dropped) -> `info["comment"]`; a JP2's only when
-    its jp2c box follows jp2h with a short header. b"" without one."""
+    """`Image.open(...).info["comment"]` of a JPEG 2000 file (b"" where it
+    has none or `Image.open` fails)."""
     try:
-        if data[:4] == J2K_SIGNATURE:
-            pos = 4
-        else:
-            h = _jp2_header(data)
-            jp2h_end = next(e for t, s, e in _boxes(data, 12, len(data), clip=True) if t == b"jp2h")
-            if not data[jp2h_end:jp2h_end + 12].endswith(b"jp2c\xff\x4f\xff\x51") or h is None:
-                return b""
-            pos = jp2h_end + 12
-        pos += struct.unpack(">H", data[pos:pos + 2])[0]   # past SIZ
-        while pos + 2 <= len(data):
-            typ = data[pos + 1]
-            if typ in (0x90, 0xD9):
-                return b""
-            length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
-            if typ == 0x64:
-                return data[pos + 4:pos + 2 + length][2:]
-            pos += 2 + length
-    except (ValueError, struct.error, StopIteration):
-        pass
-    return b""
+        return _open_comment(data)
+    except (ValueError, struct.error, IndexError, StopIteration):
+        return b""

@@ -49,10 +49,14 @@ ROADMAP_ITEM = "ROADMAP Queue 1 item 3b-ii"
 
 
 class UnsupportedImage(ValueError):
-    """A page image in a variant the port's decoders do not read."""
+    """A page image in a variant the port's decoders do not read. With
+    `open_fails`, one Pillow's `Image.open` fails on too: the reference
+    stores no page for it (`services/ingestion_service.py::check_upload`
+    lets it through, and its job completes without one)."""
 
-    def __init__(self, feature: str):
+    def __init__(self, feature: str, open_fails: bool = False):
         super().__init__(f"{feature} is not supported by the port's decoder ({ROADMAP_ITEM})")
+        self.open_fails = open_fails
 
 
 class NotThisFormat(ValueError):
@@ -65,8 +69,8 @@ class NotThisFormat(ValueError):
 class UnsupportedJpeg(UnsupportedImage):
     """A JPEG that uses a feature this decoder does not implement."""
 
-    def __init__(self, feature: str, detail: str = ""):
-        super().__init__(f"{feature} JPEG{detail}")
+    def __init__(self, feature: str, detail: str = "", open_fails: bool = False):
+        super().__init__(f"{feature} JPEG{detail}", open_fails)
 
 
 # jpeg_natural_order: zigzag index -> natural (row-major) index
@@ -561,12 +565,13 @@ def _check_sof(marker: int, body: bytes) -> _Frame:
     if marker in _SOF_REFUSED:
         raise UnsupportedJpeg(_SOF_REFUSED[marker], " (libjpeg-turbo does not decode it)")
     precision, height, width, n = struct.unpack(">BHHB", body[:6])
+    # Pillow's SOF handler refuses these three (no plugin then identifies the file)
     if precision != 8:
-        raise UnsupportedJpeg(f"{precision}-bit")
+        raise UnsupportedJpeg(f"{precision}-bit", open_fails=True)
     if n not in (1, 3, 4):
-        raise UnsupportedJpeg(f"{n}-component")
+        raise UnsupportedJpeg(f"{n}-component", open_fails=True)
     if height == 0:
-        raise UnsupportedJpeg("DNL-sized (height 0)")
+        raise UnsupportedJpeg("DNL-sized (height 0)", open_fails=True)
     comps = [(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15, body[8 + 3 * i]) for i in range(n)]
     hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
     for _, h, v, _ in comps:
@@ -594,6 +599,21 @@ def _check_arith_fed(data: bytes, pos: int, fed: int) -> None:
     if _entropy_end(data, pos) + 2 > fed:
         raise UnsupportedJpeg("arithmetic-coded", " whose data run past Pillow's 64 KiB read block (libjpeg's "
                               "arithmetic decoder cannot wait for the next, so Pillow cannot load it)")
+
+
+def open_jpeg(data: bytes) -> Tuple[int, int]:
+    """(width, height) as `JpegImageFile._open` finds them: the marker
+    segments up to the first SOS, the frame header among them; raises where
+    `Image.open` does (the scans and what follows are `load`'s)."""
+    frame = None
+    for marker, body, _ in _segments(data):
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            frame = _check_sof(marker, body)
+        if marker == 0xDA:
+            if frame is None:   # no size: Pillow's ImageFile refuses it and Image.open moves on
+                raise NotThisFormat("JPEG has no frame header before its scan")
+            return frame.width, frame.height
+    raise ValueError("JPEG ends before its first scan")
 
 
 def probe_jpeg(data: bytes) -> Tuple[int, int, int]:

@@ -302,7 +302,7 @@ def decode_components(data: bytes, device, stages: Optional[dict] = None):
         stages.update(headers_tier2_ms=(t1 - t0) * 1e3, tier1_ms=(t2 - t1) * 1e3, ht_ms=(t3 - t2) * 1e3,
                       idwt_mct_ms=(t4 - t3) * 1e3, code_blocks=len(packed), ht_code_blocks=len(ht_packed),
                       coefficient_bytes=4 * n_total,
-                      segment_bytes=len(packed.data) - 1 + len(ht_packed.data) - 8)
+                      segment_bytes=packed.nbytes + ht_packed.nbytes)
     return cs, out
 
 

@@ -37,17 +37,18 @@ the bytes up to its first aligned word: here the MEL is taken to start
 on a 4-byte boundary); a `U_q` above the missing MSBs + 1; a VLC codeword
 significant outside the block.
 
-`pack_ht_blocks` lays an image's HT code blocks out for one launch (one
-u8 buffer of their data and an int32 descriptor a block, `HT_DESC_FIELDS`)
-and `j2k_ht_decode` runs them: on the CPU with `decode_ht_block` (plain
-Python, one block after another), on a CUDA device with K6 (one launch).
+`pack_ht_blocks` lays an image's HT code blocks out for one launch,
+heaviest first (one u8 buffer of their data and an int32 descriptor a
+block, `HT_DESC_FIELDS`) and `j2k_ht_decode` runs them: on the CPU with
+`decode_ht_block` (plain Python, one block after another), on a CUDA
+device with K6 (one launch, a warp a block).
 """
 
 from __future__ import annotations
 
 import base64
 import zlib
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -281,12 +282,14 @@ def ht_block_passes(len2: int, npasses: int, numbps: int, mb: int, roishift: int
 
 
 def decode_ht_block(buf: bytes, start: int, len1: int, len2: int, total: int, npasses: int, w: int, h: int,
-                    numbps: int, mb: int, roishift: int, cblksty: int) -> List[int]:
+                    numbps: int, mb: int, roishift: int, cblksty: int, counts: Optional[dict] = None) -> List[int]:
     """One HT code block (`opj_t1_ht_decode_cblk`): its `total` bytes at
     `buf[start:]`, the cleanup segment (`len1` bytes) then the refinement
     segment (`len2`), `npasses` passes in those two, `numbps` and the
     band's bit planes `mb` as OpenJPEG's tier-2 sets them -> its w * h
-    coefficients, row-major."""
+    coefficients, row-major. `counts`, where given, gets the cleanup's
+    quads ("quads") and the SigProp and MagRef bits read ("sigprop_bits",
+    "magref_bits") added."""
     data = [0] * (w * h)
     if w <= 0 or h <= 0:
         return data
@@ -412,6 +415,8 @@ def decode_ht_block(buf: bytes, start: int, len1: int, len2: int, total: int, np
                         data[at] = (data[at] ^ ((1 - (cwd & 1)) << (p - 1))) | half
                         cwd >>= 1
             magref.advance(bin(s).count("1"))
+            if counts is not None:
+                counts["magref_bits"] = counts.get("magref_bits", 0) + bin(s).count("1")
 
     def membership(sig: List[int], mbr: List[int]) -> None:
         """A stripe's insignificant samples next to its significant ones."""
@@ -464,6 +469,8 @@ def decode_ht_block(buf: bytes, start: int, len1: int, len2: int, total: int, np
                                     cwd >>= 1
                                     cnt += 1
                     sigprop.advance(cnt)
+                    if counts is not None:
+                        counts["sigprop_bits"] = counts.get("sigprop_bits", 0) + cnt
                     if n == 4:
                         t = new_sig >> 28
                         t |= ((t & 0xE) >> 1) | ((t & 7) << 1)
@@ -476,6 +483,8 @@ def decode_ht_block(buf: bytes, start: int, len1: int, len2: int, total: int, np
             nxt_mbr[wi] |= tx & ~nxt_sig[wi] & _M32
             nxt_mbr[wi + 1] |= (ux >> 28) & ~nxt_sig[wi + 1] & _M32
 
+    if counts is not None:
+        counts["quads"] = counts.get("quads", 0) + ((w + 1) // 2) * ((h + 1) // 2)
     run = mel.run()
     row_pair(0)
     y = 2
@@ -512,35 +521,37 @@ def decode_ht_block(buf: bytes, start: int, len1: int, len2: int, total: int, np
 HT_ERRORS = {1: "2 <= Scup <= min(Lcup, 4079) is not met", 2: "incorrect MEL segment sequence",
              3: "U_q is larger than the zero bit planes + 1", 4: "a VLC codeword significant outside the code block"}
 HT_DESC_FIELDS = ("data_off", "len1", "len2", "total", "npasses", "w", "h", "numbps", "mb", "cblksty", "out_off",
-                  "out_stride", "scratch_off")
+                  "out_stride", "work")
 N_HT_DESC = len(HT_DESC_FIELDS)
+HT_SEG_CAP = 16384   # K6 copies a block's bytes into shared memory up to this; a larger block reads global memory
 
 
 class HtBlocks:
     """Every HT code block of one image, laid out for one K6 launch."""
 
-    def __init__(self, data: np.ndarray, desc: np.ndarray, n_scratch: int):
-        self.data, self.desc, self.n_scratch = data, desc, n_scratch
+    def __init__(self, data: np.ndarray, desc: np.ndarray):
+        self.data, self.desc = data, desc
 
     def __len__(self) -> int:
         return len(self.desc)
 
-
-def ht_scratch_words(w: int) -> int:
-    """int32 words of K6's per-block scratch: sigma and membership (two
-    each, a word per 8 columns and two over) and the line state."""
-    return 4 * ((w + 7) // 8 + 2) + w // 2 + 4
+    @property
+    def nbytes(self) -> int:
+        """The blocks' segment bytes (without the alignment padding)."""
+        return int(self.desc[:, 3].sum())
 
 
 def pack_ht_blocks(blocks) -> HtBlocks:
     """`blocks`: (chunks, [(len, passes)], w, h, numbps, mb, roishift,
     cblksty, out_off, out_stride) an HT code block; the checks that need no
     decoding are made here (a block whose passes decode to nothing gets
-    none)."""
-    datas: List[bytes] = []
-    desc = np.zeros((len(blocks), N_HT_DESC), np.int32)
-    at = n_scratch = 0
-    for k, (chunks, segs, w, h, numbps, mb, roishift, cblksty, out_off, out_stride) in enumerate(blocks):
+    none). They are laid out heaviest first (segment bytes x passes, the
+    `work` field; ties in their given order), so K6's longest chains start
+    first; each keeps its own out_off and stride, so the order changes
+    nothing in the output. Each block's bytes start on a 16-byte boundary
+    (K6 copies them into shared memory 16 at a time)."""
+    rows = []
+    for chunks, segs, w, h, numbps, mb, roishift, cblksty, out_off, out_stride in blocks:
         blob = b"".join(chunks)
         len1 = segs[0][0] if segs else 0
         len2 = segs[1][0] if len(segs) > 1 else 0
@@ -548,12 +559,30 @@ def pack_ht_blocks(blocks) -> HtBlocks:
         npasses = ht_block_passes(len2, npasses, numbps, mb, roishift) if w > 0 and h > 0 else 0
         if npasses and (len1 < 2 or len1 > len(blob) or len1 + len2 > len(blob)):
             raise _error("invalid code-block lengths")
-        desc[k] = (at, len1, len2, len(blob), npasses, w, h, numbps, mb, cblksty, out_off, out_stride, n_scratch)
+        rows.append((blob, [len1, len2, len(blob), npasses, w, h, numbps, mb, cblksty, out_off, out_stride,
+                            len(blob) * npasses]))
+    rows.sort(key=lambda r: -r[1][-1])
+    datas: List[bytes] = []
+    desc = np.zeros((len(rows), N_HT_DESC), np.int32)
+    at = 0
+    for k, (blob, fields) in enumerate(rows):
+        desc[k] = [at] + fields
+        blob += b"\0" * (-len(blob) % 16)
         datas.append(blob)
         at += len(blob)
-        n_scratch += ht_scratch_words(w)
-    data = np.frombuffer(bytearray(b"".join(datas) + b"\0" * 8), np.uint8)
-    return HtBlocks(data, desc, n_scratch)
+    data = np.frombuffer(bytearray(b"".join(datas) + b"\0" * 16), np.uint8)
+    return HtBlocks(data, desc)
+
+
+def k6_buffers(blocks: HtBlocks) -> Tuple[int, int, int]:
+    """Each K6 warp's shared buffers for these blocks: segment bytes (a
+    multiple of 16: the largest block's, at most HT_SEG_CAP), samples and
+    columns (the largest block's)."""
+    live = blocks.desc[blocks.desc[:, 4] > 0]
+    if not len(live):
+        return 0, 1, 1
+    seg_cap = min(int(live[:, 3].max()), HT_SEG_CAP)
+    return -(-seg_cap // 16) * 16, int((live[:, 5].astype(np.int64) * live[:, 6]).max()), int(live[:, 5].max())
 
 
 def decode_ht_blocks_plain(blocks: HtBlocks, out: np.ndarray) -> None:
@@ -572,7 +601,8 @@ def j2k_ht_decode(blocks: HtBlocks, n_total: int, device, out: torch.Tensor = No
     """All HT code blocks of one image -> an int32 tensor of `n_total`
     coefficients on `device`, or written into `out` (K5's buffer, where
     the image mixes both kinds of block). On the CPU the plain version; on
-    a CUDA device K6, one launch; a block OpenJPEG fails raises ValueError."""
+    a CUDA device K6, one launch; a block OpenJPEG fails raises ValueError
+    (the first such in the packed order, in both versions)."""
     device = torch.device(device)
     if device.type == "cpu":
         host = np.zeros(n_total, np.int32) if out is None else out.numpy()
@@ -588,15 +618,14 @@ def j2k_ht_decode(blocks: HtBlocks, n_total: int, device, out: torch.Tensor = No
     if live.any():
         data = torch.from_numpy(blocks.data).to(device)
         desc = torch.from_numpy(np.ascontiguousarray(blocks.desc[live])).to(device)
-        scratch = torch.empty(max(blocks.n_scratch, 1), dtype=torch.int32, device=device)
+        next_block = torch.empty(1, dtype=torch.int32, device=device)
         errors = torch.zeros(int(live.sum()), dtype=torch.int32, device=device)
-        _kernels.launch_j2k_ht(data, desc, out, scratch, errors, int(live.sum()))
+        _kernels.launch_j2k_ht(data, desc, out, next_block, errors, int(live.sum()), k6_buffers(blocks))
         bad = errors.cpu().numpy()
         if bad.any():
             raise _error(HT_ERRORS.get(int(bad[bad != 0][0]), "K6 error"))
     return out[:n_total]
 
 
-
-__all__ = ["HT_DESC_FIELDS", "HtBlocks", "VLC_TABLES", "decode_ht_block", "decode_ht_blocks_plain",
-           "j2k_ht_decode", "pack_ht_blocks"]
+__all__ = ["HT_DESC_FIELDS", "HT_SEG_CAP", "HtBlocks", "VLC_TABLES", "decode_ht_block", "decode_ht_blocks_plain",
+           "j2k_ht_decode", "k6_buffers", "pack_ht_blocks"]

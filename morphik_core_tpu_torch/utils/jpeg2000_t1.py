@@ -14,16 +14,17 @@ row ignores the row below), PTERM (nothing to do when decoding) and
 SEGSYM (four UNIFORM decisions after each cleanup pass). A segment reads
 0xFF past its end (OpenJPEG's artificial 0xFF 0xFF marker).
 
-`pack_blocks` lays the code blocks of a whole image out for one launch:
-one u8 buffer of every block's data, an int32 table of (length, passes)
-a segment, and an int32 descriptor a block (`DESC_FIELDS`). `j2k_t1_
-decode` runs them: on the CPU with `decode_block` (plain Python, one
-block after another), on a CUDA device with K5 (one launch an image).
+`pack_blocks` lays the code blocks of a whole image out for one launch,
+heaviest first: one u8 buffer of every block's data, an int32 table of
+(length, passes) a segment, and an int32 descriptor a block
+(`DESC_FIELDS`). `j2k_t1_decode` runs them: on the CPU with
+`decode_block` (plain Python, one block after another), on a CUDA device
+with K5 (one launch an image, a warp a block).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,9 +114,11 @@ def _sc_index(f: int) -> int:
 
 
 def decode_block(buf: bytes, start: int, segs: Sequence[Tuple[int, int]], w: int, h: int, orient: int,
-                 numbps: int, roishift: int, cblksty: int) -> List[int]:
+                 numbps: int, roishift: int, cblksty: int, counts: Optional[dict] = None) -> List[int]:
     """One code block (`opj_t1_decode_cblk`, then the ROI shift of
-    `opj_t1_clbl_decode_processor`) -> its w * h coefficients, row-major."""
+    `opj_t1_clbl_decode_processor`) -> its w * h coefficients, row-major.
+    `counts`, where given, gets the block's MQ and raw decisions added
+    under "decisions" (the length of its serial chain)."""
     data = [0] * (w * h)
     if not segs or w <= 0 or h <= 0:
         return data
@@ -317,6 +320,17 @@ def decode_block(buf: bytes, start: int, segs: Sequence[Tuple[int, int]], w: int
             for _ in range(4):
                 decode(CTX_UNI)
 
+    if counts is not None:
+        counted_decode, counted_raw = decode, raw
+
+        def decode(cx):
+            counts["decisions"] = counts.get("decisions", 0) + 1
+            return counted_decode(cx)
+
+        def raw():
+            counts["decisions"] = counts.get("decisions", 0) + 1
+            return counted_raw()
+
     passtype = 2
     pos = start
     for seglen, npasses in segs:
@@ -355,38 +369,63 @@ def decode_block(buf: bytes, start: int, segs: Sequence[Tuple[int, int]], w: int
 # ------------------------------------------------------------- the launch
 
 DESC_FIELDS = ("data_off", "seg_off", "nsegs", "w", "h", "orient", "numbps", "roishift", "cblksty", "out_off",
-               "out_stride", "flags_off")
+               "out_stride", "nbytes")
 N_DESC = len(DESC_FIELDS)
+SEG_CAP = 16384   # K5 copies a block's bytes into shared memory up to this; a larger block reads global memory
 
 
 class Blocks:
     """Every code block of one image, laid out for one K5 launch."""
 
-    def __init__(self, data: np.ndarray, segs: np.ndarray, desc: np.ndarray, n_flags: int):
-        self.data, self.segs, self.desc, self.n_flags = data, segs, desc, n_flags
+    def __init__(self, data: np.ndarray, segs: np.ndarray, desc: np.ndarray):
+        self.data, self.segs, self.desc = data, segs, desc
 
     def __len__(self) -> int:
         return len(self.desc)
 
+    @property
+    def nbytes(self) -> int:
+        """The blocks' segment bytes (without the alignment padding)."""
+        return int(self.desc[:, 11].sum())
+
 
 def pack_blocks(blocks) -> Blocks:
     """`blocks`: (chunks, [(len, passes)], w, h, orient, numbps, roishift,
-    cblksty, out_off, out_stride) a code block."""
+    cblksty, out_off, out_stride) a code block. They are laid out heaviest
+    first (segment bytes x passes, ties in their given order), so K5's
+    longest chains start first; each keeps its own out_off and stride, so
+    the order changes nothing in the output. Each block's bytes start on a
+    16-byte boundary (K5 copies them into shared memory 16 at a time)."""
+    work = [len(b"".join(b[0])) * sum(p for _, p in b[1]) for b in blocks]
+    order = sorted(range(len(blocks)), key=lambda k: -work[k])
     datas: List[bytes] = []
     segs: List[int] = []
     desc = np.zeros((len(blocks), N_DESC), np.int32)
-    at = n_flags = 0
-    for k, (chunks, bsegs, w, h, orient, numbps, roishift, cblksty, out_off, out_stride) in enumerate(blocks):
+    at = 0
+    for k, src in enumerate(order):
+        chunks, bsegs, w, h, orient, numbps, roishift, cblksty, out_off, out_stride = blocks[src]
         blob = b"".join(chunks)
         desc[k] = (at, len(segs) // 2, len(bsegs), w, h, orient, numbps, roishift, cblksty, out_off, out_stride,
-                   n_flags)
+                   len(blob))
         for seglen, npasses in bsegs:
             segs += (seglen, npasses)
+        blob += b"\0" * (-len(blob) % 16)
         datas.append(blob)
         at += len(blob)
-        n_flags += (w + 2) * (h + 2)
-    data = np.frombuffer(bytearray(b"".join(datas) + b"\0"), np.uint8)
-    return Blocks(data, np.asarray(segs or [0], np.int32), desc, n_flags)
+    data = np.frombuffer(bytearray(b"".join(datas) + b"\0" * 16), np.uint8)
+    return Blocks(data, np.asarray(segs or [0], np.int32), desc)
+
+
+def k5_buffers(blocks: Blocks) -> Tuple[int, int, int]:
+    """Each K5 warp's shared buffers for these blocks: segment bytes (a
+    multiple of 16: the largest block's, at most SEG_CAP), coefficients
+    and flags (the largest block's)."""
+    live = blocks.desc[blocks.desc[:, 2] > 0]
+    if not len(live):
+        return 0, 1, 1
+    w, h = live[:, 3].astype(np.int64), live[:, 4].astype(np.int64)
+    seg_cap = min(int(live[:, 11].max()), SEG_CAP)
+    return -(-seg_cap // 16) * 16, int((w * h).max()), int(((w + 2) * (h + 2)).max())
 
 
 def decode_blocks_plain(blocks: Blocks, out: np.ndarray) -> None:
@@ -422,10 +461,11 @@ def j2k_t1_decode(blocks: Blocks, n_total: int, device) -> torch.Tensor:
     segs = torch.from_numpy(blocks.segs).to(device)
     desc = torch.from_numpy(np.ascontiguousarray(blocks.desc)).to(device)
     out = torch.zeros(max(n_total, 1), dtype=torch.int32, device=device)
-    scratch = torch.empty(max(blocks.n_flags, 1), dtype=torch.int32, device=device)
     if len(blocks):
-        _kernels.launch_j2k_t1(data, segs, desc, out, scratch, len(blocks))
+        next_block = torch.empty(1, dtype=torch.int32, device=device)
+        _kernels.launch_j2k_t1(data, segs, desc, out, next_block, len(blocks), k5_buffers(blocks))
     return out[:n_total]
 
 
-__all__ = ["Blocks", "DESC_FIELDS", "decode_block", "decode_blocks_plain", "j2k_t1_decode", "pack_blocks"]
+__all__ = ["Blocks", "DESC_FIELDS", "SEG_CAP", "decode_block", "decode_blocks_plain", "j2k_t1_decode", "k5_buffers",
+           "pack_blocks"]

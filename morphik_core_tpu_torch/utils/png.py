@@ -39,23 +39,30 @@ MAX_TEXT_CHUNK = 1024 * 1024
 MAX_TEXT_MEMORY = 64 * MAX_TEXT_CHUNK
 
 
-def _chunks(data: bytes):
+def _chunks(data: bytes, cut_tail: bool = False):
+    """(type, body) of each chunk, CRC checked, up to IEND. With
+    `cut_tail`, as Pillow's `load` reads them: from the first IDAT on no
+    CRC is checked, and data that ends in a chunk's header or CRC ends the
+    chunks."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file (bad signature)")
     pos = 8
+    seen_idat = False
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
+        seen_idat |= cut_tail and ctype == b"IDAT"
         body = data[pos + 8 : pos + 8 + length]
         crc = data[pos + 8 + length : pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
+        if len(body) != length or (len(crc) != 4 and not seen_idat):
             raise ValueError(f"truncated PNG chunk {ctype!r}")
-        if zlib.crc32(ctype + body) != struct.unpack(">I", crc)[0]:
+        if not seen_idat and zlib.crc32(ctype + body) != struct.unpack(">I", crc)[0]:
             raise ValueError(f"broken PNG file (CRC mismatch in {ctype!r})")
         yield ctype, body
         if ctype == b"IEND":
             return
         pos += 12 + length
-    raise ValueError("truncated PNG file (no IEND)")
+    if not seen_idat:
+        raise ValueError("truncated PNG file (no IEND)")
 
 
 def _unfilter_avg_paeth(kind: int, cur: bytearray, prior: bytes, bpp: int) -> None:
@@ -121,7 +128,7 @@ def read_png(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     header = None
     palette = b""
     idat: List[bytes] = []
-    for ctype, body in _chunks(data):
+    for ctype, body in _chunks(data, cut_tail=True):
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif ctype == b"PLTE":
@@ -239,6 +246,27 @@ def _text_chunk(ctype: bytes, body: bytes) -> Optional[Tuple[bytes, str]]:
         return k, text.decode("utf-8")
     except UnicodeError:
         return None
+
+
+def open_png(data: bytes) -> None:
+    """What `PngImagePlugin`'s `_open` reads: the chunks before the first
+    IDAT (whole, CRC checked) and their text, held to MAX_TEXT_CHUNK and
+    MAX_TEXT_MEMORY. Raises ValueError where `Image.open` does; what
+    follows is `load`'s."""
+    memory = 0
+    pos = 8
+    while True:
+        if data[pos + 4:pos + 8] == b"IDAT":   # its header read, its data is load's
+            return
+        ctype, body = next(_chunks(data[:8] + data[pos:]))
+        pos += 12 + len(body)
+        if ctype == b"IEND":
+            return
+        if ctype in (b"tEXt", b"zTXt", b"iTXt"):
+            kv = _text_chunk(ctype, body)
+            memory += len(kv[1]) if kv else 0
+            if memory > MAX_TEXT_MEMORY:
+                raise ValueError(f"Too much memory used in text chunks: {memory}>MAX_TEXT_MEMORY")
 
 
 def text_comment(data: bytes) -> Optional[str]:

@@ -50,13 +50,18 @@ _COMPRESSIONS = {1: "none", 2: "CCITT Modified Huffman", 3: "CCITT T.4", 4: "CCI
 _REVERSE = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 
-def _refuse(what: str) -> UnsupportedImage:
-    return UnsupportedImage(f"TIFF {what}")
+def _refuse(what: str, open_fails: bool = False) -> UnsupportedImage:
+    return UnsupportedImage(f"TIFF {what}", open_fails)
+
+
+CUT = -1   # the key under which `_first_ifd` records the tag whose values run past the data
 
 
 def _first_ifd(data: bytes) -> Tuple[str, Dict[int, tuple]]:
     """The byte order and the first IFD's tags (tag -> tuple of values;
-    ASCII and UNDEFINED values as one bytes object)."""
+    ASCII and UNDEFINED values as one bytes object), read as Pillow's
+    `ImageFileDirectory_v2.load` reads them: up to a tag whose values run
+    past the data, recorded under CUT."""
     head = data[:4]
     if head[:2] == b"II":
         e = "<"
@@ -87,8 +92,9 @@ def _first_ifd(data: bytes) -> Tuple[str, Dict[int, tuple]]:
         if raw is None:
             (vo,) = struct.unpack(e + "I", data[at + 8:at + 12])
             raw = data[vo:vo + size]
-            if len(raw) != size:
-                raise ValueError(f"truncated TIFF tag {tag}")
+            if len(raw) != size:   # Pillow's IFD reader stops here ("Truncated File Read"): this tag and
+                tags[CUT] = (tag,)  # the ones after it are not read
+                break
         if typ in (2, 7):
             tags[tag] = (raw,)
         elif typ in (5, 10):
@@ -100,7 +106,8 @@ def _first_ifd(data: bytes) -> Tuple[str, Dict[int, tuple]]:
 
 
 class _Layout:
-    __slots__ = ("e", "tags", "width", "height", "bps", "spp", "photo", "compression", "extra", "mode", "raw")
+    __slots__ = ("e", "tags", "width", "height", "bps", "spp", "photo", "compression", "extra", "mode", "raw",
+                 "fax")
 
 
 # Pillow's OPEN_INFO rows that the port reads: (byte order or None for
@@ -147,6 +154,7 @@ def _layout(data: bytes) -> _Layout:
     e, tags = _first_ifd(data)
     t = _Layout()
     t.e, t.tags = e, tags
+    t.fax = {}   # the CCITT decoder's mode, kept from strip to strip as libtiff keeps it
     if 256 not in tags or 257 not in tags:
         raise ValueError("TIFF has no image dimensions")
     t.width, t.height = tags[256][0], tags[257][0]
@@ -160,7 +168,8 @@ def _layout(data: bytes) -> _Layout:
         raise _refuse("planar layout (PlanarConfiguration 2)")
     fmt = tags.get(339, (1,))
     if any(f != 1 for f in fmt):
-        raise _refuse("float or signed samples (SampleFormat " + "/".join(map(str, fmt)) + ")")
+        # no mode of Pillow's has them: "unknown pixel mode", no plugin identifies the file
+        raise _refuse("float or signed samples (SampleFormat " + "/".join(map(str, fmt)) + ")", open_fails=True)
     extra = tags.get(338, ())
     spp = tags.get(277, (3 if t.compression == 7 and photo in (2, 6) else 1,))[0]
     bps = tags.get(258, (1,))
@@ -248,7 +257,7 @@ def _chunk_samples(t: _Layout, chunk: bytes, w: int, h: int, held: Optional[byte
     elif c in (8, 32946):
         raw = zlib.decompressobj().decompress(chunk, need)
     else:
-        raw = decode_ccitt(chunk, w, h, c, t.tags.get(292, (0,))[0], held)
+        raw = decode_ccitt(chunk, w, h, c, t.tags.get(292, (0,))[0], held, t.fax)
     # libtiff leaves what a short chunk does not reach as zeros
     raw = raw[:need] + bytes(max(0, need - len(raw)))
     rows = np.frombuffer(raw, np.uint8).reshape(h, row_bytes)
@@ -303,6 +312,8 @@ def read_tiff(data: bytes) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     uint16, "LA" (H, W, 2), "RGB" (H, W, 3), "RGBA" / "CMYK" (H, W, 4)
     uint8; `palette` the (256, 3) lookup of a P image, else None."""
     t = _layout(data)
+    if CUT in t.tags and t.compression != 1:   # libtiff, which decodes the compressed ones, reads every tag
+        raise ValueError(f"TIFF tag {t.tags[CUT][0]} runs past the end of the file")
     dtype = np.uint16 if t.bps == 16 else np.uint8
     s = np.zeros((t.height, t.width, t.spp), dtype)
     held = None   # Pillow decodes every strip or tile into one buffer, in turn

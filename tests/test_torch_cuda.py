@@ -32,7 +32,9 @@ Tolerances:
   output by ulp(P) |v|, past the tight bound at a few of the path's
   22.9 M outputs;
 - the int8 products: exact;
-- K5 (JPEG 2000 tier-1): exact (integer MQ decisions).
+- K5 (JPEG 2000 tier-1) and K6 (HTJ2K): exact (integer decisions). Their
+  style and shape cases come from `tests/fixtures/j2k_block_cases.npz`
+  (this machine may have no Pillow to encode them).
 """
 
 from pathlib import Path
@@ -1417,6 +1419,94 @@ def test_j2k_t1_kernel_matches_plain(sm90, name):
     assert torch.equal(got.cpu(), want)
 
 
+BLOCK_CASES = Path(__file__).resolve().parent / "fixtures" / "j2k_block_cases.npz"
+
+
+def _k5_blocks(key: str):
+    """A block-case file's code blocks as `_collect` lists them, and its coefficient count."""
+    from morphik_core_tpu_torch.utils import jp2_codestream as jcs
+    from morphik_core_tpu_torch.utils.jpeg2000 import _collect
+
+    stream, _ = jcs.codestream_of(np.load(BLOCK_CASES)[key].tobytes())
+    _, blocks, ht_blocks, n = _collect(jcs.parse(stream, need_eoc=True))
+    return blocks, ht_blocks, n
+
+
+@pytest.mark.cuda
+def test_j2k_t1_kernel_every_style_and_shape(sm90, monkeypatch):
+    """Every code-block style (LAZY, RESET, TERMALL, VSC, PTERM, SEGSYM),
+    an ROI shift, 1024 x 4, 4 x 1024 and 1 x 64 blocks, empty blocks (no
+    segment, no width), bit for bit: segments in shared memory, then every
+    block too large for its buffer (read from global memory)."""
+    from morphik_core_tpu_torch.utils import jpeg2000_t1
+    from morphik_core_tpu_torch.utils.jpeg2000_t1 import j2k_t1_decode, pack_blocks
+
+    keys = [k for k in np.load(BLOCK_CASES).files if k.startswith("k5_")]
+    assert len(keys) == 13
+    cases = []
+    for key in keys:
+        blocks, _, n = _k5_blocks(key)
+        packed = pack_blocks(blocks + [([], [], 8, 8, 0, 5, 0, 0, 0, 8), ([b"\x07"], [(1, 1)], 0, 4, 0, 5, 0, 0, 0, 4)])
+        cases.append((key, packed, n, j2k_t1_decode(packed, n, "cpu")))
+    for seg_cap in (jpeg2000_t1.SEG_CAP, 0):   # then every block from global memory
+        monkeypatch.setattr(jpeg2000_t1, "SEG_CAP", seg_cap)
+        for key, packed, n, want in cases:
+            got = j2k_t1_decode(packed, n, "cuda")
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (key, seg_cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_j2k_t1_kernel_corrupted_segments(sm90, seed):
+    """Bytes changed in the segments (the style files'): the same
+    coefficients as the plain decoder reads from them."""
+    from morphik_core_tpu_torch.utils.jpeg2000_t1 import j2k_t1_decode, pack_blocks
+
+    rng = np.random.default_rng(seed)
+    for key in ("k5_64x64_63_0", "k5_1024x4_9_0", "k5_32x16_63_5"):
+        blocks, _, n = _k5_blocks(key)
+        packed = pack_blocks(blocks)
+        hit = rng.choice(len(packed.data) - 16, size=len(packed.data) // 40, replace=False)
+        packed.data[hit] = rng.integers(0, 256, len(hit), dtype=np.uint8)
+        want = j2k_t1_decode(packed, n, "cpu")
+        got = j2k_t1_decode(packed, n, "cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), key
+
+
+def _tiled(blocks, n, copies):
+    """`copies` of an image's blocks, each writing a buffer of its own."""
+    out = []
+    for c in range(copies):
+        out += [b[:-2] + (b[-2] + c * n, b[-1]) for b in blocks]
+    return out
+
+
+@pytest.mark.cuda
+def test_j2k_kernels_launch_more_blocks_than_resident_warps(sm90):
+    """K5 and K6 each on a launch of more code blocks than their warps
+    resident on the card: the persistent warps take them all, bit for bit."""
+    from morphik_core_tpu_torch.utils import jp2_codestream as jcs
+    from morphik_core_tpu_torch.utils.jpeg2000 import _collect
+    from morphik_core_tpu_torch.utils.jpeg2000_ht import j2k_ht_decode, k6_buffers, pack_ht_blocks
+    from morphik_core_tpu_torch.utils.jpeg2000_t1 import j2k_t1_decode, k5_buffers, pack_blocks
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for fixture, key, ht in ((JP2_FIXTURES, "styles_j2k", False), (HT_FIXTURES, "page_jph", True)):
+        stream, _ = jcs.codestream_of(np.load(fixture)[key].tobytes())
+        _, blocks, ht_blocks, n = _collect(jcs.parse(stream, need_eoc=True))
+        one = (pack_ht_blocks if ht else pack_blocks)(ht_blocks if ht else blocks)
+        want = (j2k_ht_decode if ht else j2k_t1_decode)(one, n, "cpu").numpy()
+        occ = (_kernels.j2k_ht_occupancy(k6_buffers(one)) if ht else _kernels.j2k_t1_occupancy(k5_buffers(one)))
+        copies = occ["warps_per_sm"] * sms // len(one) + 2   # the copies share one block's buffers
+        pack = (pack_ht_blocks if ht else pack_blocks)(_tiled(ht_blocks if ht else blocks, n, copies))
+        assert len(pack) > occ["warps_per_sm"] * sms, (len(pack), occ)
+        got = (j2k_ht_decode if ht else j2k_t1_decode)(pack, copies * n, "cuda")
+        torch.cuda.synchronize()
+        assert np.array_equal(got.cpu().numpy(), np.tile(want, copies)), key
+
+
 @pytest.mark.cuda
 def test_jpeg2000_decodes_on_card_as_pillow(sm90):
     """Every ingested file of the fixture, tier-1 through K5, has Pillow's
@@ -1455,6 +1545,67 @@ def test_j2k_ht_kernel_matches_plain(sm90, name):
     torch.cuda.synchronize()
     assert _kernels.launch_counts["j2k_ht"] == 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_j2k_ht_kernel_every_shape(sm90, monkeypatch):
+    """HT blocks of 64 x 64, 1024 x 4, 4 x 1024, 1 x 64, 13 x 21, 33 x 9
+    and 5 x 3, cleanup alone and with SigProp / MagRef, VSC, bit for bit:
+    segments in shared memory, then every block read from global memory."""
+    from morphik_core_tpu_torch.utils import jpeg2000_ht
+    from morphik_core_tpu_torch.utils.jpeg2000_ht import j2k_ht_decode, pack_ht_blocks
+
+    keys = [k for k in np.load(BLOCK_CASES).files if k.startswith("k6_")]
+    assert len(keys) == 9
+    cases = []
+    for key in keys:
+        _, blocks, n = _k5_blocks(key)
+        packed = pack_ht_blocks(blocks + [([], [], 4, 4, 3, 0, 0, 0, 0, 4)])   # mb 0: no passes, all zero
+        cases.append((key, packed, n, j2k_ht_decode(packed, n, "cpu")))
+    for seg_cap in (jpeg2000_ht.HT_SEG_CAP, 0):   # then every block from global memory
+        monkeypatch.setattr(jpeg2000_ht, "HT_SEG_CAP", seg_cap)
+        for key, packed, n, want in cases:
+            got = j2k_ht_decode(packed, n, "cuda")
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (key, seg_cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_j2k_ht_kernel_corrupted_blocks(sm90, seed):
+    """One corrupted HT block at a time: the plain version's coefficients,
+    or its error (OpenJPEG's four checks) from the kernel's error code.
+    Even seeds change bytes anywhere, odd ones only MagSgn's and the
+    refinement segment's."""
+    from morphik_core_tpu_torch.utils.jpeg2000 import code_blocks
+    from morphik_core_tpu_torch.utils.jpeg2000_ht import j2k_ht_decode, pack_ht_blocks
+
+    blocks, _ = code_blocks(np.load(HT_FIXTURES)["page_jph"].tobytes(), 64, ht=True)
+    rng = np.random.default_rng(seed)
+    outcomes = set()
+    for d in blocks.desc[:len(blocks) // 2]:
+        blob = blocks.data[d[0]:d[0] + d[3]]
+        lcup, len2 = int(d[1]), int(d[2])
+        scup = (int(blob[lcup - 1]) << 4) + (int(blob[lcup - 2]) & 0xF)
+        where = np.arange(int(d[3])) if seed % 2 == 0 else np.r_[0:lcup - scup, lcup:lcup + len2]
+        one = pack_ht_blocks([([blob.tobytes()], [(lcup, 1), (len2, 2)], int(d[5]), int(d[6]), int(d[7]), int(d[8]),
+                               0, int(d[9]), 0, int(d[5]))])
+        hit = rng.choice(where, size=1 + len(where) // 30, replace=False)
+        one.data[hit] = rng.integers(0, 256, len(hit), dtype=np.uint8)
+        n = int(d[5]) * int(d[6])
+        try:
+            want = j2k_ht_decode(one, n, "cpu")
+        except ValueError as e:
+            with pytest.raises(ValueError) as err:
+                j2k_ht_decode(one, n, "cuda")
+            assert str(err.value) == str(e)
+            outcomes.add("error")
+            continue
+        got = j2k_ht_decode(one, n, "cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        outcomes.add("decoded")
+    assert ("error" if seed % 2 == 0 else "decoded") in outcomes
 
 
 @pytest.mark.cuda

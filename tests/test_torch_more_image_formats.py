@@ -39,8 +39,8 @@ from morphik_core_tpu_torch.services.ingestion_service import (UnsupportedConten
                                                                check_upload)
 from morphik_core_tpu_torch.utils import jpeg as tjpeg
 from morphik_core_tpu_torch.utils.fast_ops import data_uri_to_bytes
-from morphik_core_tpu_torch.utils.image import (UnidentifiedImage, UnsupportedImage, decode_image, probe_image,
-                                                read_image, sniff)
+from morphik_core_tpu_torch.utils.image import (UnidentifiedImage, UnsupportedImage, decode_image, open_image,
+                                                probe_image, read_image, sniff)
 from tests.test_torch_decoders import _page
 from tests.test_torch_jpeg2000 import htj2k_file, part2_file
 
@@ -971,19 +971,39 @@ def test_formerly_refused_jpeg2000_fails_where_pillow_fails(name):
 
 @pytest.mark.parametrize("name", sorted(refused_files()))
 def test_still_refused_files_answer_415_before_decoding(name):
+    """Refused from the headers; a 415 where Pillow opens the file, none
+    where `Image.open` fails too (the reference stores no page)."""
     data, words = refused_files()[name]
-    with pytest.raises(UnsupportedImage, match=f"{words}.*{ROADMAP}"):
+    with pytest.raises(UnsupportedImage, match=f"{words}.*{ROADMAP}") as err:
         probe_image(data)
-    with pytest.raises(UnsupportedContentType, match=ROADMAP):
+    if _pillow_opens(data):
+        with pytest.raises(UnsupportedContentType, match=ROADMAP):
+            check_upload("image/" + name.rsplit(".", 1)[1], data)
+    else:
+        assert err.value.open_fails
         check_upload("image/" + name.rsplit(".", 1)[1], data)
 
 
+def _pillow_opens(data: bytes) -> bool:
+    try:
+        Image.open(io.BytesIO(data))
+    except Exception:  # noqa: BLE001
+        return False
+    return True
+
+
 def test_svg_heic_and_video_keep_their_415_and_broken_files_pass():
+    """Video keeps its 415; SVG and HEIC bytes, which no Pillow plugin
+    here identifies, pass: the reference stores no page for them and
+    completes the job (`tests/test_torch_broken_images.py`)."""
     svg = b'<?xml version="1.0"?><svg xmlns="http://www.w3.org/2000/svg" width="4" height="4"></svg>'
     heic = b"\x00\x00\x00\x18ftypheic\x00\x00\x00\x00mif1heic" + bytes(32)
-    for ctype, data in (("image/svg+xml", svg), ("image/heic", heic), ("video/mp4", b"\x00\x00\x00\x18ftypmp42")):
-        with pytest.raises(UnsupportedContentType, match=ROADMAP):
-            check_upload(ctype, data)
+    with pytest.raises(UnsupportedContentType, match=ROADMAP):
+        check_upload("video/mp4", b"\x00\x00\x00\x18ftypmp42")
+    for ctype, data in (("image/svg+xml", svg), ("image/heic", heic)):
+        check_upload(ctype, data)
+        with pytest.raises(UnidentifiedImage):
+            open_image(data)
     check_upload("image/x-portable-pixmap", b"P6\n4 4\n255\n" + bytes(5))   # broken: its job fails
     check_upload("image/x-icon", icon([(2, 2, 8, _dib_entry(2, 2, 8, 1))]))
     check_upload("image/png", _save(_img(3, 3, 3, 1), "QOI"))   # the bytes decide, not the type
@@ -1099,7 +1119,8 @@ def test_fixture_is_current(tmp_path):
 
     assert chip_smoke.MORE_FORMAT_FILES == tuple(SOURCE_PAGE)
     assert chip_smoke.MORE_FORMAT_TIMED == TIMED and chip_smoke.MORE_FORMAT_QUERIES == QUERIES
-    assert chip_smoke.MORE_FORMAT_REFUSED == tuple(zip(REFUSED, REFUSED_WORDS))
+    assert ((chip_smoke.MORE_FORMAT_UNOPENED, "12-bit JPEG"),) + chip_smoke.MORE_FORMAT_REFUSED == \
+        tuple(zip(REFUSED, REFUSED_WORDS))
     assert chip_smoke.MORE_FORMAT_FAILING == FAILING
     assert chip_smoke.MORE_FORMAT_PAST_PILLOW == TIMED_PAST_PILLOW
     fresh = np.load(write_fixture(tmp_path / "more.npz"))
@@ -1122,10 +1143,20 @@ def test_fixture_files_decode_as_the_reference(name):
 
 
 def test_fixture_refused_files_answer_415():
+    """Those Pillow opens answer 415; the 12-bit JPEG, which `Image.open`
+    fails on, passes (the reference stores no page) and fails the port's
+    first stage."""
     z = np.load(FIXTURE)
     for name, words in zip(REFUSED + TIMED_PAST_PILLOW, REFUSED_WORDS + ("arithmetic-coded JPEG whose data",)):
+        data = z[name.replace(".", "_")].tobytes()
+        if not _pillow_opens(data):
+            assert name == "jpeg12.jpg"
+            check_upload("image/jpeg", data)
+            with pytest.raises(UnsupportedImage, match=f"{words}.*{ROADMAP}"):
+                open_image(data)
+            continue
         with pytest.raises(UnsupportedContentType, match=f"{words}.*{ROADMAP}"):
-            check_upload("image/" + name.rsplit(".", 1)[1], z[name.replace(".", "_")].tobytes())
+            check_upload("image/" + name.rsplit(".", 1)[1], data)
     with pytest.raises(OSError):
         _pil(z["letter_arith_jpg"].tobytes())
     for name in FAILING:   # refused before: accepted, its decode fails as Pillow's load does
